@@ -1,0 +1,43 @@
+"""newton_tpu_torch: the PyTorch/CUDA port of newton_tpu.
+
+The JAX package ``newton_tpu`` is the reference; this package re-implements
+its main path (MJCF robot -> static collision -> batched generalized step)
+in PyTorch, with the two TPU kernels on that path written by hand in CUDA
+for Hopper (``csrc/``). It imports torch, never jax.
+
+Physics needs true float32 products: TF32 would corrupt mass matrices and
+Delassus operators, so it is switched off here for matmuls and cuDNN.
+"""
+
+__version__ = "0.1.0"
+
+import torch as _torch
+
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+_torch.set_float32_matmul_precision("highest")
+
+from .core.types import MAXVAL, Axis  # noqa: E402
+from .geometry.types import GeoType, ShapeFlags  # noqa: E402
+from .parallel.envs import batch_state  # noqa: E402
+from .sim.articulation import eval_fk  # noqa: E402
+from .sim.builder import JointDofConfig, ModelBuilder, ShapeConfig  # noqa: E402
+from .sim.collide import CollisionPipeline  # noqa: E402
+from .sim.contacts import Contacts  # noqa: E402
+from .sim.control import Control  # noqa: E402
+from .sim.enums import JointType  # noqa: E402
+from .sim.model import Model, ModelStructure  # noqa: E402
+from .sim.state import State  # noqa: E402
+from .solvers.generalized.solver import SolverFeatherstone, SolverMuJoCo  # noqa: E402
+
+__all__ = [
+    "MAXVAL", "Axis", "GeoType", "ShapeFlags", "batch_state", "eval_fk",
+    "JointDofConfig", "ModelBuilder", "ShapeConfig", "CollisionPipeline",
+    "Contacts", "Control", "JointType", "Model", "ModelStructure", "State",
+    "SolverFeatherstone", "SolverMuJoCo", "ASSET_DIR",
+]
+
+import os as _os  # noqa: E402
+
+ASSET_DIR = _os.path.join(_os.path.dirname(_os.path.abspath(__file__)),
+                          "assets")

@@ -1,0 +1,106 @@
+"""Build and load the hand-written CUDA kernels in ``csrc/``.
+
+The sources compile with ``nvcc`` for ``sm_90a`` into one shared library
+with a plain C interface, loaded through ``ctypes``. The build happens at
+first use, from the package's own sources, into ``_build/<hash>/`` inside
+the package (the hash covers the sources and the flags), so a second call
+in the same checkout reuses it. Nothing here runs at import time: the CPU
+tests import every module and this machine may have no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+
+__all__ = ["lib", "build", "check"]
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_CSRC = os.path.join(_HERE, "csrc")
+_BUILD = os.path.join(_HERE, "_build")
+_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_SOURCES = ("chol_inv_solve.cu", "pgs_solve.cu")
+
+_lib = None
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    # Mi, rhs, Minv, x, W, d, stream
+    "chol_inv_solve_f32": [_P, _P, _P, _P, _I, _I, _P],
+    # J, Minv, qd, b, act, mu, lam0, ld, lam, dqd, halvings,
+    # W, c, nl, d, iters, omega, use_cone, diag_scale, reg, stream
+    "pgs_solve_fused_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _F, _I, _F, _F, _P],
+    # c, nl, d -> dynamic shared memory bytes of one pgs block
+    "pgs_smem_bytes": [_I, _I, _I],
+}
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
+            return os.path.join(cand, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (set CUDA_HOME)")
+    return found
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    for name in _SOURCES:
+        with open(os.path.join(_CSRC, name), "rb") as f:
+            h.update(name.encode() + f.read())
+    return h.hexdigest()[:16]
+
+
+def build() -> str:
+    """Compile the kernels if this checkout has no build of the current
+    sources; returns the path of the shared library. nvcc's report
+    (registers, shared memory, spills per kernel) goes to ``ptxas.log``
+    beside it."""
+    out_dir = os.path.join(_BUILD, _digest())
+    so = os.path.join(out_dir, "libnewton_tpu_torch_kernels.so")
+    if os.path.exists(so):
+        return so
+    os.makedirs(out_dir, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [_nvcc(), *_FLAGS, "-o", tmp,
+           *[os.path.join(_CSRC, s) for s in _SOURCES]]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    with open(os.path.join(out_dir, "ptxas.log"), "w") as f:
+        f.write(res.stderr)
+    os.replace(tmp, so)            # atomic: a reader never sees half a file
+    return so
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(build())
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        handle.ntt_error_string.argtypes = [_I]
+        handle.ntt_error_string.restype = ctypes.c_char_p
+        _lib = handle
+    return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a kernel launch reported a CUDA error."""
+    if err != 0:
+        msg = lib().ntt_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} at launch: {msg}")

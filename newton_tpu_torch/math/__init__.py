@@ -1,0 +1,25 @@
+from .quat import (
+    cross,
+    quat_conjugate,
+    quat_from_axis_angle,
+    quat_integrate,
+    quat_mul,
+    quat_normalize,
+    quat_rotate,
+    quat_to_matrix,
+)
+from .spatial import (
+    orthonormal_basis,
+    spatial_cross,
+    spatial_cross_dual,
+    velocity_at_point,
+)
+from .transform import transform_inverse, transform_multiply, transform_point
+
+__all__ = [
+    "cross", "quat_conjugate", "quat_from_axis_angle", "quat_integrate",
+    "quat_mul", "quat_normalize", "quat_rotate", "quat_to_matrix",
+    "orthonormal_basis", "spatial_cross", "spatial_cross_dual",
+    "velocity_at_point", "transform_inverse", "transform_multiply",
+    "transform_point",
+]

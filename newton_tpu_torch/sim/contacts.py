@@ -1,0 +1,53 @@
+"""Slot-indexed rigid contact buffers (port of ``newton_tpu/sim/contacts.py``).
+
+Each candidate shape pair owns a fixed number of slots; inactive slots
+carry ``mask = False`` and zero depth. The normal points from shape0 toward
+shape1; depth is positive when overlapping. Leading batch dims are allowed
+(``(W, C, ...)`` from the batched collision pipeline).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from .state import map_tensors
+
+__all__ = ["Contacts"]
+
+
+@dataclass
+class Contacts:
+    rigid_contact_mask: torch.Tensor      # (..., C) bool
+    rigid_contact_shape0: torch.Tensor    # (..., C) int32, -1 when unused
+    rigid_contact_shape1: torch.Tensor    # (..., C) int32
+    rigid_contact_position: torch.Tensor  # (..., C, 3) world contact point
+    rigid_contact_normal: torch.Tensor    # (..., C, 3) shape0 -> shape1
+    rigid_contact_depth: torch.Tensor     # (..., C) > 0 overlapping
+    rigid_contact_force: torch.Tensor     # (..., C, 3)
+
+    @property
+    def rigid_contact_max(self) -> int:
+        return self.rigid_contact_mask.shape[-1]
+
+    @classmethod
+    def zeros(cls, capacity: int, batch=(), dtype=torch.float32,
+              device=None) -> "Contacts":
+        C = int(capacity)
+        z = dict(dtype=dtype, device=device)
+        return cls(
+            rigid_contact_mask=torch.zeros((*batch, C), dtype=torch.bool,
+                                           device=device),
+            rigid_contact_shape0=torch.full((*batch, C), -1,
+                                            dtype=torch.int32, device=device),
+            rigid_contact_shape1=torch.full((*batch, C), -1,
+                                            dtype=torch.int32, device=device),
+            rigid_contact_position=torch.zeros((*batch, C, 3), **z),
+            rigid_contact_normal=torch.zeros((*batch, C, 3), **z),
+            rigid_contact_depth=torch.zeros((*batch, C), **z),
+            rigid_contact_force=torch.zeros((*batch, C, 3), **z),
+        )
+
+    def to(self, device) -> "Contacts":
+        return map_tensors(self, lambda t: t.to(device))

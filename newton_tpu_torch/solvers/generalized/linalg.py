@@ -1,0 +1,109 @@
+"""Batched small SPD factor + solve + explicit inverse (port of the TPU
+kernel ``newton_tpu/solvers/generalized/linalg_pallas.py``).
+
+``chol_inv_solve`` is the wrapper the batched step calls once per substep:
+on CUDA tensors it launches the hand-written kernel in
+``csrc/chol_inv_solve.cu``; on CPU tensors it runs the plain PyTorch
+version beside it, ``chol_inv_solve_plain``, which is the counterpart of the
+JAX package's ``batched._chol_t`` / ``batched._cho_solve_t``. Layout is
+env-major: ``Mi (W, d, d)``, ``rhs (W, d)``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["chol_inv_solve", "chol_inv_solve_plain", "cholesky_plain",
+           "cho_solve_plain", "MAX_D"]
+
+MAX_D = 32          # one warp per env: lanes over rows / rhs columns
+
+
+def cholesky_plain(A: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky of (W, d, d) SPD matrices; the diagonal is clamped
+    as sqrt(max(L_jj, 1e-12)) (batched._chol_t)."""
+    d = A.shape[-1]
+    idx = torch.arange(d, device=A.device)
+    L = A.clone()
+    for j in range(d):
+        diag = torch.sqrt(torch.clamp(L[:, j, j], min=1e-12))
+        col = L[:, :, j] / diag[:, None]
+        col = torch.where(idx >= j, col, torch.zeros_like(col))
+        col[:, j] = diag
+        mask = ((idx > j)[:, None] & (idx > j)[None, :]).to(A.dtype)
+        L = L - mask * (col[:, :, None] * col[:, None, :])
+        L[:, :, j] = col
+    return L * torch.tril(torch.ones(d, d, dtype=A.dtype, device=A.device))
+
+
+def cho_solve_plain(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve A x = b with L = cholesky_plain(A); b (W, d, k)
+    (batched._cho_solve_t)."""
+    d = L.shape[-1]
+    idx = torch.arange(d, device=L.device)
+    y = b.clone()
+    for i in range(d):
+        yi = y[:, i] / L[:, i, i][:, None]                      # (W, k)
+        lower = (idx > i).to(L.dtype)[None, :, None]
+        y = y - (lower * L[:, :, i][:, :, None]) * yi[:, None, :]
+        y[:, i] = yi
+    x = y
+    for i in reversed(range(d)):
+        xi = x[:, i] / L[:, i, i][:, None]
+        upper = (idx < i).to(L.dtype)[None, :, None]
+        x = x - (upper * L[:, i, :][:, :, None]) * xi[:, None, :]
+        x[:, i] = xi
+    return x
+
+
+def chol_inv_solve_plain(Mi: torch.Tensor, rhs: torch.Tensor):
+    """Plain PyTorch version: (Minv (W, d, d), x (W, d))."""
+    W, d, _ = Mi.shape
+    eye = torch.eye(d, dtype=Mi.dtype, device=Mi.device).expand(W, d, d)
+    x = cho_solve_plain(cholesky_plain(Mi),
+                        torch.cat([eye, rhs[:, :, None]], dim=2))
+    return x[:, :, :d].contiguous(), x[:, :, d].contiguous()
+
+
+def _check(Mi: torch.Tensor, rhs: torch.Tensor):
+    if Mi.dtype != torch.float32 or rhs.dtype != torch.float32:
+        raise TypeError("chol_inv_solve takes float32 tensors")
+    if Mi.dim() != 3 or Mi.shape[1] != Mi.shape[2]:
+        raise ValueError(f"Mi must be (W, d, d), got {tuple(Mi.shape)}")
+    if rhs.shape != Mi.shape[:2]:
+        raise ValueError(f"rhs must be (W, d) = {tuple(Mi.shape[:2])}, "
+                         f"got {tuple(rhs.shape)}")
+    if Mi.device != rhs.device:
+        raise ValueError("Mi and rhs must be on the same device")
+
+
+def chol_inv_solve(Mi: torch.Tensor, rhs: torch.Tensor):
+    """Factor Mi = L L^T and return (Minv, x = Mi^-1 rhs), env-major.
+
+    CUDA tensors go to the kernel (or raise); CPU tensors to the plain
+    version. ``chol_inv_solve.launches`` counts kernel launches."""
+    _check(Mi, rhs)
+    if Mi.device.type == "cpu":
+        return chol_inv_solve_plain(Mi, rhs)
+    if Mi.device.type != "cuda":
+        raise ValueError(f"chol_inv_solve: unsupported device {Mi.device}")
+    W, d, _ = Mi.shape
+    if d > MAX_D:
+        raise ValueError(f"chol_inv_solve kernel takes d <= {MAX_D}, "
+                         f"got d = {d}")
+    if not (Mi.is_contiguous() and rhs.is_contiguous()):
+        raise ValueError("chol_inv_solve kernel takes contiguous tensors")
+    from ... import _kernels
+    Minv = torch.empty_like(Mi)
+    x = torch.empty_like(rhs)
+    with torch.cuda.device(Mi.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _kernels.lib().chol_inv_solve_f32(
+            Mi.data_ptr(), rhs.data_ptr(), Minv.data_ptr(), x.data_ptr(),
+            W, d, stream)
+    chol_inv_solve.launches += 1
+    _kernels.check(err, "chol_inv_solve")
+    return Minv, x
+
+
+chol_inv_solve.launches = 0

@@ -1,0 +1,199 @@
+"""Fused Delassus assembly + projected-Jacobi contact solve (port of the TPU
+kernel ``newton_tpu/solvers/generalized/pgs_pallas.py``).
+
+``pgs_solve_fused`` is the wrapper the batched step calls once per substep
+with contacts: on CUDA tensors it launches the hand-written kernel in
+``csrc/pgs_solve.cu``; on CPU tensors it runs ``pgs_solve_fused_plain``,
+the plain PyTorch version (the JAX package's XLA-branch assembly,
+batched.py:833-849, followed by ``pgs_core`` / ``spectral_lam_max``).
+
+Rows are in BLOCK order ``[normals (c) | t1 (c) | t2 (c) | lim-lo (nl) |
+lim-hi (nl)]``; joint-limit rows are signed one-hots on the dofs ``ld`` and
+are never materialized. Layout is env-major: ``J (W, 3c, d)``,
+``Minv (W, d, d)``, ``qd (W, d)``, ``b / act / lam0 (W, r)``,
+``mu (W, c)``, ``ld`` an int tensor of limited local dofs (nl,).
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["pgs_solve_fused", "pgs_solve_fused_plain", "pgs_core",
+           "spectral_lam_max", "spectral_iters"]
+
+
+def spectral_iters(rows: int) -> int:
+    """Power-iteration count for the step bound, keyed on the static row
+    count (3 below 192 rows, else 8), as in the JAX package."""
+    return 3 if rows < 192 else 8
+
+
+def spectral_lam_max(Avec, diag, act, iters: int = 3):
+    """Matrix-free lower estimate of lambda_max(D^-1/2 A D^-1/2): ``iters``
+    power iterations from the active-row indicator; the estimate is
+    ||A u_k|| of the last normalized iterate. Rows on the last axis."""
+    inv_sqrt_d = torch.rsqrt(diag)
+    u = act / torch.clamp(torch.linalg.vector_norm(act, dim=-1,
+                                                   keepdim=True), min=1.0)
+    lam_max = None
+    for _ in range(iters):
+        u2 = inv_sqrt_d * Avec(inv_sqrt_d * u) * act
+        nrm = torch.linalg.vector_norm(u2, dim=-1, keepdim=True)
+        lam_max = nrm[..., 0]
+        u = u2 / torch.clamp(nrm, min=1e-9)
+    return lam_max
+
+
+def pgs_core(J, MJ, cols, diag, v_free, b, act, mu, lam0, *, c, ld, iters,
+             omega, use_cone):
+    """Power-iteration step cap + projected-Jacobi sweep with the per-env
+    divergence guard. J/MJ hold the 3c contact rows (W, 3c, d); ``cols`` =
+    Minv[:, :, ld] (W, d, nl) or None. Returns (lam (W, r), dqd (W, d),
+    halvings (W,) int32)."""
+    r3 = 3 * c
+    nl = 0 if cols is None else cols.shape[-1]
+
+    def Avec(x):
+        tmp = torch.bmm(MJ.transpose(1, 2), x[:, :r3, None])[..., 0]
+        if nl:
+            w = x[:, r3:r3 + nl] - x[:, r3 + nl:]
+            tmp = tmp + torch.bmm(cols, w[:, :, None])[..., 0]
+        y = torch.bmm(J, tmp[:, :, None])[..., 0]
+        if nl:
+            tl = tmp[:, ld]
+            y = torch.cat([y, tl, -tl], dim=1)
+        return y
+
+    lam_max = spectral_lam_max(Avec, diag, act,
+                               iters=spectral_iters(act.shape[1]))
+    step = torch.clamp(1.8 / torch.clamp(1.1 * lam_max, min=1e-9), max=1.0)
+    scale = omega * step                                  # (W,)
+    halvings = torch.zeros_like(scale, dtype=torch.int32)
+
+    lam = lam0
+    prev_dn = None
+    for _ in range(iters):
+        res = Avec(lam) + v_free - b
+        lam_full = lam - (scale[:, None] / diag) * res
+        ln = torch.clamp(lam_full[:, 0:c], min=0.0)
+        cap = mu * ln
+        lt1 = lam_full[:, c:2 * c]
+        lt2 = lam_full[:, 2 * c:r3]
+        if use_cone:
+            tmag = torch.sqrt(lt1 * lt1 + lt2 * lt2)
+            sc = torch.clamp(cap / torch.clamp(tmag, min=1e-9), max=1.0)
+            lt1, lt2 = lt1 * sc, lt2 * sc
+        else:
+            lt1 = torch.minimum(torch.maximum(lt1, -cap), cap)
+            lt2 = torch.minimum(torch.maximum(lt2, -cap), cap)
+        parts = [ln, lt1, lt2]
+        if nl:
+            parts.append(torch.clamp(lam_full[:, r3:], min=0.0))
+        lam_new = torch.cat(parts, dim=1) * act
+        lam_new = torch.where(torch.isfinite(lam_new), lam_new,
+                              torch.zeros_like(lam_new))
+        dlt = lam_new - lam
+        dn = (dlt * dlt).sum(dim=1)
+        if prev_dn is not None:
+            # 2% tolerance: float jitter near the fixed point must not bleed
+            # the step; true divergence grows ||dlam|| geometrically
+            grow = dn > prev_dn * 1.02
+            scale = torch.where(grow, scale * 0.5, scale)
+            halvings = halvings + grow.to(torch.int32)
+        prev_dn = dn
+        lam = lam_new
+    dqd = torch.bmm(MJ.transpose(1, 2), lam[:, :r3, None])[..., 0]
+    if nl:
+        wl = lam[:, r3:r3 + nl] - lam[:, r3 + nl:]
+        dqd = dqd + torch.bmm(cols, wl[:, :, None])[..., 0]
+    return lam, dqd, halvings
+
+
+def pgs_solve_fused_plain(J, Minv, qd, b, act, mu, lam0, *, c, ld, iters,
+                          omega, use_cone, diag_scale, reg,
+                          return_halvings=False):
+    """Plain PyTorch version: Delassus pieces assembled outside, then
+    ``pgs_core``. Returns (lam, dqd[, halvings])."""
+    nl = int(ld.numel())
+    MJ = torch.bmm(J, Minv)                               # (W, 3c, d)
+    diag = (J * MJ).sum(dim=2) * diag_scale + reg
+    v_free = (J * qd[:, None, :]).sum(dim=2)
+    cols = None
+    if nl:
+        cols = Minv[:, :, ld]                             # (W, d, nl)
+        dlim = Minv[:, ld, ld] * diag_scale + reg
+        diag = torch.cat([diag, dlim, dlim], dim=1)
+        vlim = qd[:, ld]
+        v_free = torch.cat([v_free, vlim, -vlim], dim=1)
+    lam, dqd, halv = pgs_core(J, MJ, cols, diag, v_free, b, act, mu, lam0,
+                              c=c, ld=ld, iters=iters, omega=omega,
+                              use_cone=use_cone)
+    return (lam, dqd, halv) if return_halvings else (lam, dqd)
+
+
+def _check(J, Minv, qd, b, act, mu, lam0, ld, c):
+    W, r3, d = J.shape
+    nl = int(ld.numel())
+    r = r3 + 2 * nl
+    want = dict(J=(W, 3 * c, d), Minv=(W, d, d), qd=(W, d), b=(W, r),
+                act=(W, r), mu=(W, c), lam0=(W, r))
+    got = dict(J=J, Minv=Minv, qd=qd, b=b, act=act, mu=mu, lam0=lam0)
+    for name, t in got.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"pgs_solve_fused: {name} must be float32")
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"pgs_solve_fused: {name} must be "
+                             f"{want[name]}, got {tuple(t.shape)}")
+        if t.device != J.device:
+            raise ValueError("pgs_solve_fused: all tensors on one device")
+    if ld.dim() != 1 or ld.device != J.device:
+        raise ValueError("pgs_solve_fused: ld must be a 1-D index tensor "
+                         "on the operands' device")
+    return W, d, nl, r
+
+
+def pgs_solve_fused(J, Minv, qd, b, act, mu, lam0, *, c, ld, iters, omega,
+                    use_cone, diag_scale, reg, return_halvings=False):
+    """Assemble the Delassus pieces and run the projected-Jacobi solve.
+
+    CUDA tensors go to the kernel (or raise); CPU tensors to the plain
+    version. ``pgs_solve_fused.launches`` counts kernel launches.
+    Returns (lam (W, r), dqd (W, d)) and, with ``return_halvings``, the
+    per-env count of divergence-guard halvings (W,) int32."""
+    W, d, nl, r = _check(J, Minv, qd, b, act, mu, lam0, ld, c)
+    kw = dict(c=c, ld=ld, iters=iters, omega=omega, use_cone=use_cone,
+              diag_scale=diag_scale, reg=reg,
+              return_halvings=return_halvings)
+    if J.device.type == "cpu":
+        return pgs_solve_fused_plain(J, Minv, qd, b, act, mu, lam0, **kw)
+    if J.device.type != "cuda":
+        raise ValueError(f"pgs_solve_fused: unsupported device {J.device}")
+    ts = (J, Minv, qd, b, act, mu, lam0)
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("pgs_solve_fused kernel takes contiguous tensors")
+    if ld.dtype != torch.int32 or not ld.is_contiguous():
+        raise TypeError("pgs_solve_fused kernel takes ld as contiguous int32")
+    from ... import _kernels
+    lib = _kernels.lib()
+    smem = lib.pgs_smem_bytes(c, nl, d)
+    if smem > 227 * 1024:
+        raise ValueError(f"pgs_solve_fused kernel: c={c}, nl={nl}, d={d} "
+                         f"needs {smem} B of shared memory per env, more "
+                         "than the 227 KB an H100 block can hold")
+    lam = torch.empty((W, r), dtype=J.dtype, device=J.device)
+    dqd = torch.empty((W, d), dtype=J.dtype, device=J.device)
+    halv = torch.empty((W,), dtype=torch.int32, device=J.device)
+    with torch.cuda.device(J.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.pgs_solve_fused_f32(
+            J.data_ptr(), Minv.data_ptr(), qd.data_ptr(), b.data_ptr(),
+            act.data_ptr(), mu.data_ptr(), lam0.data_ptr(), ld.data_ptr(),
+            lam.data_ptr(), dqd.data_ptr(), halv.data_ptr(),
+            W, c, nl, d, int(iters), float(omega), int(bool(use_cone)),
+            float(diag_scale), float(reg), stream)
+    pgs_solve_fused.launches += 1
+    _kernels.check(err, "pgs_solve_fused")
+    return (lam, dqd, halv) if return_halvings else (lam, dqd)
+
+
+pgs_solve_fused.launches = 0

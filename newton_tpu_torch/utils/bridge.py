@@ -1,0 +1,164 @@
+"""Numpy bridge between the JAX package's containers and the port's.
+
+The bridge takes plain dicts of numpy arrays (and Python values for the
+structure), so it imports neither jax nor the JAX package: the caller
+reads the JAX ``Model`` leaves and ``ModelStructure`` fields into numpy
+(``np.asarray(getattr(model, name))`` for every name in
+``MODEL_FLOAT_FIELDS``/``MODEL_INT_FIELDS``, ``getattr(structure, name)``
+for ``STRUCTURE_FIELDS``) and gets the port's objects on a device. The
+``*_to_numpy`` functions go the other way, so a round trip is exact.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+from ..sim.contacts import Contacts
+from ..sim.control import Control
+from ..sim.model import (
+    MODEL_FLOAT_FIELDS,
+    MODEL_INT_FIELDS,
+    AttributeAssignment,
+    AttributeFrequency,
+    AttributeSpec,
+    Model,
+    ModelStructure,
+)
+from ..sim.state import State
+from ..solvers.generalized.actuation import MJCActuation
+
+__all__ = ["STRUCTURE_FIELDS", "ACTUATION_FIELDS", "STATE_FIELDS",
+           "CONTROL_FIELDS", "CONTACT_FIELDS", "model_from_numpy",
+           "model_to_numpy", "state_from_numpy", "state_to_numpy",
+           "control_from_numpy", "control_to_numpy", "contacts_from_numpy",
+           "contacts_to_numpy"]
+
+STRUCTURE_FIELDS = (
+    "world_count", "body_count", "shape_count", "joint_count",
+    "joint_coord_count", "joint_dof_count", "articulation_count",
+    "eq_count", "tendon_count", "sten_count", "up_axis",
+    "joint_type", "joint_parent", "joint_child", "joint_q_start",
+    "joint_qd_start", "joint_dof_dim", "joint_world", "joint_parent_joint",
+    "articulation_start", "articulation_world", "body_world", "shape_world",
+    "shape_body", "shape_type", "shape_flags", "shape_collision_group",
+    "body_key", "joint_key", "shape_key",
+    "candidate_pairs", "candidate_pair_slots", "rigid_contact_max",
+    "slot_shape0", "slot_shape1", "slot_body0", "slot_body1",
+    "mjc_options",
+)
+ACTUATION_FIELDS = ("n", "dof", "coord", "tendon", "sten", "gear",
+                    "dyntype", "dynprm", "gaintype", "gainprm", "biastype",
+                    "biasprm", "ctrlrange", "forcerange", "actrange",
+                    "ctrllimited", "forcelimited", "actlimited",
+                    "lengthrange", "acc0")
+STATE_FIELDS = ("body_q", "body_qd", "body_f", "joint_q", "joint_qd")
+CONTROL_FIELDS = ("joint_target_q", "joint_target_qd", "joint_f")
+CONTACT_FIELDS = ("rigid_contact_mask", "rigid_contact_shape0",
+                  "rigid_contact_shape1", "rigid_contact_position",
+                  "rigid_contact_normal", "rigid_contact_depth",
+                  "rigid_contact_force")
+
+
+def _tensor(x, device, dtype=None):
+    a = np.array(x)             # a writable copy: the caller keeps its own
+    if dtype is None:
+        dtype = {np.dtype(bool): torch.bool}.get(a.dtype, None)
+        if dtype is None:
+            dtype = (torch.int32 if np.issubdtype(a.dtype, np.integer)
+                     else torch.float32)
+    return torch.as_tensor(a, device=device).to(dtype)
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def _structure_from_dict(d: Dict[str, Any]) -> ModelStructure:
+    st = ModelStructure()
+    for name in STRUCTURE_FIELDS:
+        v = d[name]
+        if isinstance(v, np.ndarray):
+            v = v.copy()
+        elif isinstance(v, (list, dict)):
+            v = type(v)(v)
+        setattr(st, name, v)
+    au = d.get("mjc_actuation")
+    if au is not None:
+        a = MJCActuation(int(au["n"]))
+        for name in ACTUATION_FIELDS[1:]:
+            setattr(a, name, np.array(au[name]))
+        st.mjc_actuation = a.finish()
+    st.custom_specs = {
+        name: AttributeSpec(name, AttributeFrequency(s["frequency"]),
+                            AttributeAssignment(s["assignment"]),
+                            tuple(s["shape"]), float(s["default"]))
+        for name, s in d.get("custom_specs", {}).items()}
+    return st
+
+
+def model_from_numpy(leaves: Dict[str, Any], structure: Dict[str, Any],
+                     device) -> Model:
+    """The port's Model on ``device`` from numpy leaves and structure
+    fields (``structure["mjc_actuation"]`` is a dict of ACTUATION_FIELDS
+    or None; ``structure["custom_specs"]`` maps names to dicts of
+    frequency/assignment values, shape and default)."""
+    kw = {n: _tensor(leaves[n], device, torch.float32)
+          for n in MODEL_FLOAT_FIELDS}
+    kw.update({n: _tensor(leaves[n], device, torch.int32)
+               for n in MODEL_INT_FIELDS})
+    kw["custom"] = {k: _tensor(v, device, torch.float32)
+                    for k, v in leaves.get("custom", {}).items()}
+    return Model(structure=_structure_from_dict(structure), **kw)
+
+
+def model_to_numpy(model: Model) -> Tuple[dict, dict]:
+    leaves = {n: _numpy(getattr(model, n))
+              for n in MODEL_FLOAT_FIELDS + MODEL_INT_FIELDS}
+    leaves["custom"] = {k: _numpy(v) for k, v in model.custom.items()}
+    st = model.structure
+    structure = {n: getattr(st, n) for n in STRUCTURE_FIELDS}
+    au = st.mjc_actuation
+    structure["mjc_actuation"] = None if au is None else {
+        n: getattr(au, n) for n in ACTUATION_FIELDS}
+    structure["custom_specs"] = {
+        name: dict(frequency=s.frequency.value, assignment=s.assignment.value,
+                   shape=s.shape, default=s.default)
+        for name, s in st.custom_specs.items()}
+    return leaves, structure
+
+
+def state_from_numpy(d: Dict[str, Any], device) -> State:
+    return State(**{n: _tensor(d[n], device, torch.float32)
+                    for n in STATE_FIELDS},
+                 custom={k: _tensor(v, device)
+                         for k, v in d.get("custom", {}).items()})
+
+
+def state_to_numpy(state: State) -> dict:
+    out = {n: _numpy(getattr(state, n)) for n in STATE_FIELDS}
+    out["custom"] = {k: _numpy(v) for k, v in state.custom.items()}
+    return out
+
+
+def control_from_numpy(d: Dict[str, Any], device) -> Control:
+    return Control(**{n: _tensor(d[n], device, torch.float32)
+                      for n in CONTROL_FIELDS},
+                   custom={k: _tensor(v, device)
+                           for k, v in d.get("custom", {}).items()})
+
+
+def control_to_numpy(control: Control) -> dict:
+    out = {n: _numpy(getattr(control, n)) for n in CONTROL_FIELDS}
+    out["custom"] = {k: _numpy(v) for k, v in control.custom.items()}
+    return out
+
+
+def contacts_from_numpy(d: Dict[str, Any], device) -> Contacts:
+    return Contacts(**{n: _tensor(d[n], device) for n in CONTACT_FIELDS})
+
+
+def contacts_to_numpy(contacts: Contacts) -> dict:
+    return {n: _numpy(getattr(contacts, n)) for n in CONTACT_FIELDS}

@@ -1,0 +1,441 @@
+"""MJCF (MuJoCo XML) importer: the subset the gymnasium ant drives.
+
+Port of ``newton_tpu/utils/import_mjcf.py`` (``parse_mjcf``): compiler
+angle units, ``<option>`` (captured into ``builder.mjc_options``), default
+classes, ``<custom><numeric name="init_qpos">`` (MuJoCo's wxyz free-joint
+quaternion converted to xyzw), bodies with free or single hinge joints
+(limits, armature, damping, stiffness), plane/sphere/capsule geoms with
+contype/conaffinity, and motor/position/velocity actuators into the
+``MJCActuation`` tables.
+
+Visual-only elements (lights, cameras, textures, materials, ``<visual>``,
+``<size>``) are skipped by name. Every other element raises
+``NotImplementedError`` naming it: the importer never drops physics in
+silence.
+"""
+
+from __future__ import annotations
+
+import math
+import xml.etree.ElementTree as ET
+from typing import Dict, Optional
+
+import numpy as np
+
+from ..core.host_math import (
+    np_quat_between_axes,
+    np_quat_from_axis_angle,
+    np_quat_identity,
+    np_quat_mul,
+    np_transform,
+    np_transform_identity,
+    np_transform_multiply,
+)
+from ..core.types import MAXVAL
+from ..sim.builder import JointDofConfig
+from ..sim.enums import JointType
+from ..sim.model import AttributeAssignment, AttributeFrequency
+from ..solvers.generalized.actuation import (
+    BIAS_AFFINE,
+    DYN_FILTEREXACT,
+    MJCActuation,
+)
+
+__all__ = ["parse_mjcf"]
+
+_TOP_LEVEL = {"compiler", "option", "custom", "default", "asset",
+              "worldbody", "actuator"}
+_VISUAL_ONLY = {"visual", "size", "light", "camera", "texture", "material"}
+_BODY_CHILDREN = {"body", "geom", "joint", "freejoint"}
+
+
+def _unsupported(tag: str, where: str):
+    raise NotImplementedError(
+        f"MJCF <{tag}> in <{where}> is not supported by the port yet")
+
+
+def _parse_vec(s: Optional[str], default=None, n=None):
+    if s is None:
+        return None if default is None else np.asarray(default,
+                                                       dtype=np.float64)
+    v = np.array(s.split(), dtype=np.float64)
+    if n is not None and len(v) < n:
+        v = np.concatenate([v, np.zeros(n - len(v))])
+    return v
+
+
+def _parse_float(s, default):
+    return float(s) if s is not None else default
+
+
+def _parse_bool(s, default):
+    if s is None:
+        return default
+    return s.lower() in ("true", "1")
+
+
+class _Defaults:
+    """MuJoCo default-class tree: per-element-type attribute dicts."""
+
+    def __init__(self, parent: Optional["_Defaults"] = None):
+        self.parent = parent
+        self.attrs: Dict[str, Dict[str, str]] = {}
+        self.children: Dict[str, "_Defaults"] = {}
+
+    def resolve(self, element_type: str) -> Dict[str, str]:
+        out = dict(self.parent.resolve(element_type)) if self.parent else {}
+        out.update(self.attrs.get(element_type, {}))
+        return out
+
+    def find(self, class_name: str) -> Optional["_Defaults"]:
+        """The default class ``class_name`` anywhere below this node."""
+        if class_name in self.children:
+            return self.children[class_name]
+        for ch in self.children.values():
+            found = ch.find(class_name)
+            if found is not None:
+                return found
+        return None
+
+
+def _load_defaults(elem: ET.Element, parent=None) -> _Defaults:
+    d = _Defaults(parent)
+    for child in elem:
+        if child.tag == "default":
+            sub = _load_defaults(child, d)
+            if child.get("class"):
+                d.children[child.get("class")] = sub
+        else:
+            d.attrs[child.tag] = dict(child.attrib)
+    return d
+
+
+def parse_mjcf(builder, source: str):
+    """Parse an MJCF file into ``builder``. Returns name -> index maps."""
+    root = ET.parse(source).getroot()
+    for child in root:
+        if child.tag not in _TOP_LEVEL | _VISUAL_ONLY:
+            _unsupported(child.tag, root.tag)
+        if child.tag in _TOP_LEVEL and len(root.findall(child.tag)) > 1:
+            raise NotImplementedError(
+                f"repeated MJCF <{child.tag}> sections are not supported by "
+                "the port yet")
+
+    compiler = root.find("compiler")
+    angle_deg = True
+    autolimits = True
+    if compiler is not None:
+        angle_deg = compiler.get("angle", "degree") == "degree"
+        autolimits = compiler.get("autolimits", "true") == "true"
+        if compiler.get("inertiafromgeom", "auto") not in ("true", "auto"):
+            raise NotImplementedError(
+                "MJCF compiler inertiafromgeom=false (explicit <inertial>) "
+                "is not supported by the port yet")
+
+    def to_rad(x):
+        return math.radians(x) if angle_deg else x
+
+    option = root.find("option")
+    if option is not None:
+        for ch in option:
+            _unsupported(ch.tag, "option")
+        g = _parse_vec(option.get("gravity"))
+        if g is not None:
+            builder.gravity = float(np.linalg.norm(g)) * \
+                (-1.0 if g[2] <= 0 else 1.0)
+        if option.get("integrator") is not None:
+            builder.mjc_options["integrator"] = \
+                option.get("integrator").strip().lower()
+        if option.get("timestep") is not None:
+            builder.mjc_options["timestep"] = float(option.get("timestep"))
+
+    defaults_elem = root.find("default")
+    defaults = _load_defaults(defaults_elem) if defaults_elem is not None \
+        else _Defaults()
+
+    asset = root.find("asset")
+    if asset is not None:
+        for ch in asset:
+            if ch.tag not in _VISUAL_ONLY:
+                _unsupported(ch.tag, "asset")
+
+    name_to_body: Dict[str, int] = {"world": -1}
+    joint_dof_start: Dict[str, int] = {}
+    joint_coord_start: Dict[str, int] = {}
+
+    def local_xform(attrib) -> np.ndarray:
+        pos = _parse_vec(attrib.get("pos"), default=[0, 0, 0], n=3)
+        if "quat" in attrib:
+            q_wxyz = _parse_vec(attrib["quat"], n=4)
+            q = np.array([q_wxyz[1], q_wxyz[2], q_wxyz[3], q_wxyz[0]])
+            n = np.linalg.norm(q)
+            q = q / n if n > 0 else np_quat_identity()
+        elif "euler" in attrib:
+            q = np_quat_identity()
+            for ax, ang in zip(np.eye(3), _parse_vec(attrib["euler"], n=3)):
+                q = np_quat_mul(q, np_quat_from_axis_angle(ax, to_rad(ang)))
+        elif "axisangle" in attrib:
+            aa = _parse_vec(attrib["axisangle"], n=4)
+            q = np_quat_from_axis_angle(aa[:3], to_rad(aa[3]))
+        elif "zaxis" in attrib or "xyaxes" in attrib:
+            raise NotImplementedError(
+                "MJCF zaxis/xyaxes frames are not supported by the port yet")
+        else:
+            q = np_quat_identity()
+        return np_transform(pos, q)
+
+    def resolve_attrs(elem, etype, body_class) -> Dict[str, str]:
+        cls = elem.get("class") or body_class
+        d = defaults.find(cls) if cls else defaults
+        if d is None:
+            raise ValueError(f"MJCF default class {cls!r} is not defined")
+        out = d.resolve(etype)
+        out.update(elem.attrib)
+        return out
+
+    def add_geom(geom: ET.Element, body_idx: int, body_class):
+        a = resolve_attrs(geom, "geom", body_class)
+        gtype = a.get("type", "sphere")
+        if gtype not in ("plane", "sphere", "capsule"):
+            raise NotImplementedError(
+                f"MJCF geom type {gtype!r} is not supported by the port yet")
+        contype = int(_parse_float(a.get("contype"), 1))
+        conaffinity = int(_parse_float(a.get("conaffinity"), 1))
+        collides = (contype != 0) or (conaffinity != 0)
+        cfg = builder.default_shape_cfg.copy()
+        cfg.density = _parse_float(a.get("density"), 1000.0)
+        cfg.mu = float(_parse_vec(a.get("friction"),
+                                  default=[1.0, 0.005, 0.0001], n=3)[0])
+        cfg.has_shape_collision = collides
+        cfg.has_particle_collision = collides
+        cfg.collision_group = 1 if collides else 0
+        cfg.contype = contype
+        cfg.conaffinity = conaffinity
+        size = _parse_vec(a.get("size"), default=[0.01, 0, 0], n=3)
+        xf = local_xform(a)
+        half_h = None
+        if "fromto" in a:
+            ft = _parse_vec(a["fromto"], n=6)
+            d = ft[3:] - ft[:3]
+            length = np.linalg.norm(d)
+            xf = np_transform(0.5 * (ft[:3] + ft[3:]),
+                              np_quat_between_axes([0, 0, 1],
+                                                   d / max(length, 1e-12)))
+            half_h = 0.5 * length
+        hh = half_h if half_h is not None else float(size[1])
+        if a.get("mass") is not None:
+            # geom mass overrides density (as MuJoCo: density = mass / vol)
+            m_val, r = float(a["mass"]), float(size[0])
+            vol = {"sphere": 4.0 / 3.0 * math.pi * r ** 3,
+                   "capsule": math.pi * r * r * (2.0 * hh)
+                   + 4.0 / 3.0 * math.pi * r ** 3}.get(gtype, 0.0)
+            if vol > 1e-12 and m_val > 0.0:
+                cfg.density = m_val / vol
+        key = a.get("name")
+        if gtype == "plane":
+            builder.add_shape_plane(body_idx, xform=xf, cfg=cfg, key=key)
+        elif gtype == "sphere":
+            builder.add_shape_sphere(body_idx, xform=xf,
+                                     radius=float(size[0]), cfg=cfg, key=key)
+        else:
+            builder.add_shape_capsule(body_idx, xform=xf,
+                                      radius=float(size[0]), half_height=hh,
+                                      axis="Z", cfg=cfg, key=key)
+
+    def parse_joint(j: ET.Element, body_class):
+        a = resolve_attrs(j, "joint", body_class)
+        jtype = a.get("type", "hinge")
+        if jtype not in ("hinge", "free"):
+            raise NotImplementedError(
+                f"MJCF joint type {jtype!r} is not supported by the port yet")
+        if a.get("ref") is not None and float(a["ref"]) != 0.0:
+            raise NotImplementedError(
+                "MJCF joint ref is not supported by the port yet")
+        axis = _parse_vec(a.get("axis"), default=[0, 0, 1], n=3)
+        nrm = np.linalg.norm(axis)
+        axis = axis / nrm if nrm > 0 else np.array([0.0, 0, 1])
+        rng = _parse_vec(a.get("range"), default=[0, 0], n=2)
+        limited = _parse_bool(a.get("limited"), None)
+        if limited is None:
+            limited = autolimits and (rng[0] != 0.0 or rng[1] != 0.0)
+        return dict(type=jtype, name=a.get("name"),
+                    pos=_parse_vec(a.get("pos"), default=[0, 0, 0], n=3),
+                    axis=axis, limited=limited, range=rng,
+                    damping=_parse_float(a.get("damping"), 0.0),
+                    armature=_parse_float(a.get("armature"), 0.0),
+                    stiffness=_parse_float(a.get("stiffness"), 0.0))
+
+    def parse_body(elem: ET.Element, parent_idx: int, X_parent_world,
+                   body_class):
+        for ch in elem:
+            if ch.tag not in _BODY_CHILDREN | _VISUAL_ONLY:
+                _unsupported(ch.tag, "body")
+        childclass = elem.get("childclass") or body_class
+        name = elem.get("name", f"body_{builder.body_count}")
+        X_rel = local_xform(elem.attrib)
+        X_world = np_transform_multiply(X_parent_world, X_rel)
+        joints = [parse_joint(j, childclass) for j in elem.findall("joint")]
+        if elem.find("freejoint") is not None:
+            joints = [dict(type="free",
+                           name=elem.find("freejoint").get("name"))]
+        body_idx = builder.add_body(xform=X_world, key=name)
+        name_to_body[name] = body_idx
+
+        jd_start = builder.joint_dof_count
+        jq_start = builder.joint_coord_count
+        if not joints:
+            builder.add_joint_fixed(parent_idx, body_idx, xform_p=X_rel,
+                                    key=name + "_fixed")
+        elif len(joints) > 1:
+            raise NotImplementedError(
+                f"MJCF body {name!r} has {len(joints)} joints; multi-joint "
+                "bodies (D6) are not supported by the port yet")
+        elif joints[0]["type"] == "free":
+            builder.add_joint_free(body_idx, parent=parent_idx,
+                                   key=joints[0]["name"])
+        else:
+            j = joints[0]
+            lo, hi = to_rad(j["range"][0]), to_rad(j["range"][1])
+            cfg = JointDofConfig(
+                axis=j["axis"],
+                limit_lower=lo if j["limited"] else -MAXVAL,
+                limit_upper=hi if j["limited"] else MAXVAL,
+                armature=j["armature"],
+                target_kd=j["damping"],    # joint damping: drive to qd = 0
+                target_ke=j["stiffness"])
+            anchor = np_transform(j["pos"])
+            builder.add_joint(JointType.REVOLUTE, parent_idx, body_idx,
+                              angular_axes=[cfg],
+                              xform_p=np_transform_multiply(X_rel, anchor),
+                              xform_c=anchor, key=j["name"])
+        if joints and joints[0]["name"]:
+            joint_dof_start[joints[0]["name"]] = jd_start
+            joint_coord_start[joints[0]["name"]] = jq_start
+        for g in elem.findall("geom"):
+            add_geom(g, body_idx, childclass)
+        for child in elem.findall("body"):
+            parse_body(child, body_idx, X_world, childclass)
+
+    worldbody = root.find("worldbody")
+    if worldbody is None:
+        raise ValueError("MJCF has no <worldbody>")
+    for ch in worldbody:
+        if ch.tag not in {"body", "geom"} | _VISUAL_ONLY:
+            _unsupported(ch.tag, "worldbody")
+    builder.add_articulation(key=root.get("model") or "mjcf")
+    for g in worldbody.findall("geom"):
+        add_geom(g, -1, None)
+    for body in worldbody.findall("body"):
+        parse_body(body, -1, np_transform_identity(), None)
+
+    act_root = root.find("actuator")
+    if act_root is not None:
+        _parse_actuators(builder, act_root, resolve_attrs, joint_dof_start,
+                         joint_coord_start)
+
+    custom_elem = root.find("custom")
+    if custom_elem is not None:
+        for num in custom_elem:
+            if num.tag != "numeric" or num.get("name") != "init_qpos":
+                _unsupported(num.tag, "custom")
+            qpos = _parse_vec(num.get("data"))
+            if qpos is not None and len(qpos) <= builder.joint_coord_count:
+                qpos = _mjc_qpos_to_newton(builder, qpos)
+                builder.joint_q[:len(qpos)] = list(qpos)
+
+    return dict(bodies=name_to_body, joint_dof_start=joint_dof_start,
+                joint_coord_start=joint_coord_start)
+
+
+def _parse_actuators(builder, act_root, resolve_attrs, joint_dof_start,
+                     joint_coord_start):
+    """Motor/position/velocity actuators on hinge joints -> MJCActuation."""
+    builder.add_custom_attribute("mjc:actuator_gear",
+                                 AttributeFrequency.JOINT_DOF, default=0.0)
+    builder.add_custom_attribute("mjc:actuator_ctrlrange_lo",
+                                 AttributeFrequency.JOINT_DOF,
+                                 default=-MAXVAL)
+    builder.add_custom_attribute("mjc:actuator_ctrlrange_hi",
+                                 AttributeFrequency.JOINT_DOF, default=MAXVAL)
+    recs = []
+    for act in act_root:
+        if act.tag not in ("motor", "position", "velocity"):
+            _unsupported(act.tag, "actuator")
+        a = resolve_attrs(act, act.tag, None)
+        jname = a.get("joint")
+        if jname is None or jname not in joint_dof_start:
+            raise NotImplementedError(
+                f"MJCF <{act.tag}> without a hinge-joint transmission is not "
+                "supported by the port yet")
+        r = dict(dof=joint_dof_start[jname], coord=joint_coord_start[jname],
+                 gear=float(a["gear"].split()[0]) if a.get("gear") else 1.0,
+                 ctrlrange=_parse_vec(a.get("ctrlrange"), n=2),
+                 forcerange=_parse_vec(a.get("forcerange"), n=2),
+                 gainprm=[1.0] + [0.0] * 8, biastype=0, biasprm=[0.0] * 9,
+                 dyntype=0, dynprm=[1.0, 0.0, 0.0])
+        if act.tag == "position":
+            kp = _parse_float(a.get("kp"), 1.0)
+            kv = _parse_float(a.get("kv"), 0.0)
+            r["gainprm"] = [kp] + [0.0] * 8
+            r["biastype"] = BIAS_AFFINE
+            r["biasprm"] = [0.0, -kp, -kv] + [0.0] * 6
+            tc = _parse_float(a.get("timeconst"), 0.0)
+            if tc > 0.0:
+                r["dyntype"] = DYN_FILTEREXACT
+                r["dynprm"] = [tc, 0.0, 0.0]
+        elif act.tag == "velocity":
+            kv = _parse_float(a.get("kv"), 1.0)
+            r["gainprm"] = [kv] + [0.0] * 8
+            r["biastype"] = BIAS_AFFINE
+            r["biasprm"] = [0.0, 0.0, -kv] + [0.0] * 6
+        recs.append(r)
+        crv = r["ctrlrange"] if r["ctrlrange"] is not None \
+            else np.array([-MAXVAL, MAXVAL])
+        dof = r["dof"]
+        builder.add_custom_values("mjc:actuator_gear", {dof: r["gear"]})
+        builder.add_custom_values("mjc:actuator_ctrlrange_lo",
+                                  {dof: float(crv[0])})
+        builder.add_custom_values("mjc:actuator_ctrlrange_hi",
+                                  {dof: float(crv[1])})
+    if not recs:
+        return
+    au = MJCActuation(len(recs))
+    for i, r in enumerate(recs):
+        au.dof[i] = r["dof"]
+        au.coord[i] = r["coord"]
+        au.gear[i] = r["gear"]
+        au.dyntype[i] = r["dyntype"]
+        au.dynprm[i] = r["dynprm"]
+        au.gainprm[i] = r["gainprm"]
+        au.biastype[i] = r["biastype"]
+        au.biasprm[i] = r["biasprm"]
+        for key, rng, lim in (("ctrlrange", au.ctrlrange, au.ctrllimited),
+                              ("forcerange", au.forcerange, au.forcelimited)):
+            v = r[key]
+            if v is not None and (v[0] != 0.0 or v[1] != 0.0):
+                rng[i] = v
+                lim[i] = True
+        lo = builder.joint_limit_lower[r["dof"]]
+        hi = builder.joint_limit_upper[r["dof"]]
+        au.lengthrange[i] = sorted([r["gear"] * lo, r["gear"] * hi])
+    builder.mjc_actuation = au.finish()
+    builder.add_custom_attribute("mjc:ctrl", AttributeFrequency.ONCE,
+                                 shape=(len(recs),),
+                                 assignment=AttributeAssignment.CONTROL)
+
+
+def _mjc_qpos_to_newton(builder, qpos: np.ndarray) -> np.ndarray:
+    """MuJoCo qpos (free joint: pos + wxyz quat) -> the builder's layout
+    (pos + xyzw)."""
+    out = np.array(qpos, dtype=np.float64)
+    i = 0
+    for j, t in enumerate(builder.joint_type):
+        nq = builder.joint_q_start[j + 1] - builder.joint_q_start[j]
+        if i + nq > len(out):
+            break
+        if JointType(t) == JointType.FREE:
+            w = out[i + 3]
+            out[i + 3:i + 6] = out[i + 4:i + 7]
+            out[i + 6] = w
+        i += nq
+    return out
