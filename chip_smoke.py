@@ -20,7 +20,24 @@ Phases, one line each:
      root z > 0.1, then timing env-steps/s on the kernel path and on the
      plain path in alternating turns;
   6. one substep through the kernels vs one through the plain versions,
-     from the same cloned state and ctrl.
+     from the same cloned state and ctrl;
+  7. B3/B4: the MPM P2G (C = 13) and G2P (C = 12) kernels and their plain
+     float32 versions vs a float64 plain result, |err| <= 1e-5 S + 1e-7
+     with S the float64 sum of magnitudes, at N = 32768, res 64, on bases
+     drawn over -2..res (border clipping) and on the real sand state's;
+  8. MPM main path: bench.py --mode mpm's sand (32768 particles uniform in
+     [-0.3, 0.3]^2 x [0.05, 0.8], mass 0.002, grid (-1, -1, 0)-(1, 1, 2) at
+     res 64, friction 0.6, young 5e4, explicit, dt 4e-4), 25 warm-up steps
+     then 100 checked steps with exactly one launch of each kernel per
+     step, finite state, min z > -0.05, |x|, |y| < 1 and a falling mean z,
+     then particle-steps/s on the kernel and plain paths in turns;
+  9. the CG (implicit_iterations = 8) and implicit-rheology paths, 10
+     steps each at the same size, with their launch counts per step
+     (1 + 9 of each kernel for CG, 1 for the rheology path);
+ 10. one MPM step through the kernels, one through the plain versions and
+     one plain step in float64, from the same cloned sand state: the two
+     float32 paths agree with each other and with float64 to q 1e-6, qd
+     1e-4, F 1e-5 and C 1e-3 max(1, max |C|).
 It prints one JSON line listing the kernels (name, route, source,
 launches, error, times), then the card line, then the result line
 ``{"ok": true, "device": {...}}``. Any failed phase raises: exit code != 0
@@ -330,6 +347,234 @@ def phase_paths(model, pipe, solver, states, sample):
     return out
 
 
+MPM_N = 32768
+MPM_RES = 64
+MPM_DT = 4e-4
+MPM_WARMUP = 25
+MPM_STEPS = 100
+MPM_CG_ITERS = 8
+MPM_SIDE_STEPS = 10
+# one-step tolerances, kernel path vs plain path and vs a float64 plain
+# step: tests/test_torch_mpm.py's (absolute), except that mpm:C is held
+# relative to its largest entry: its APIC recombination is a cancellation
+# whose rounding grows with the node coordinates (res) and with |C|
+MPM_TOL = {"particle_q": 1e-6, "particle_qd": 1e-4, "mpm:F": 1e-5}
+MPM_C_RTOL = 1e-3
+
+
+def build_sand(dev, **kw):
+    """bench.py --mode mpm's model and solver (bench.py:347-359)."""
+    import numpy as np
+    import newton_tpu_torch as nt
+    rng = np.random.RandomState(0)
+    pts = rng.uniform(-0.3, 0.3, (MPM_N, 3))
+    pts[:, 2] = rng.uniform(0.05, 0.8, MPM_N)
+    b = nt.ModelBuilder()
+    b.add_particles(pts, mass=0.002)
+    model = b.finalize(dev)
+    solver = nt.SolverImplicitMPM(model, grid_lower=(-1, -1, 0),
+                                  grid_upper=(1, 1, 2), resolution=MPM_RES,
+                                  friction_angle=0.6, young=5e4, **kw)
+    return model, solver, solver.init_state(model.state())
+
+
+def transfer_err(got, ref, S):
+    """(ok, max_abs_err) under |got - ref| <= 1e-5 S + 1e-7 (float64)."""
+    diff = (got.double() - ref).abs()
+    return bool((diff <= 1e-5 * S + 1e-7).all()), float(diff.max())
+
+
+def phase_b34(dev, solver, state):
+    import numpy as np
+    import torch
+    from newton_tpu_torch.solvers import mpm_transfer as mt
+    rng = np.random.RandomState(5)
+    n, res = MPM_N, MPM_RES
+    _, sand_base, sand_w = solver.stencil(state.particle_q)
+    rand_base = torch.as_tensor(rng.randint(-2, res + 1, (n, 3)),
+                                dtype=torch.int32, device=dev)
+    rand_w = torch.as_tensor(rng.rand(n, 3, 3), dtype=torch.float32,
+                             device=dev)
+    vals = torch.as_tensor(rng.randn(n, 13), dtype=torch.float32, device=dev)
+    grid = torch.as_tensor(rng.randn(res, res, res, 12), dtype=torch.float32,
+                           device=dev)
+    errs = {}
+    for label, base, w in (("random", rand_base, rand_w),
+                           ("sand", sand_base, sand_w)):
+        w64 = w.double()
+        ref_G = mt.p2g_apply_plain(base, w64, vals.double(), res)
+        S_G = mt.p2g_apply_plain(base, w64, vals.double().abs(), res)
+        ref_P = mt.g2p_apply_plain(base, w64, grid.double())
+        S_P = mt.g2p_apply_plain(base, w64, grid.double().abs())
+        for name, got, ref, S in (
+                ("p2g kernel", mt.p2g_apply(base, w, vals, res), ref_G, S_G),
+                ("p2g plain", mt.p2g_apply_plain(base, w, vals, res), ref_G,
+                 S_G),
+                ("g2p kernel", mt.g2p_apply(base, w, grid), ref_P, S_P),
+                ("g2p plain", mt.g2p_apply_plain(base, w, grid), ref_P,
+                 S_P)):
+            ok, e = transfer_err(got, ref, S)
+            if not ok:
+                raise AssertionError(f"B3/B4 {name} ({label} bases) vs the "
+                                     f"float64 plain result: off tolerance, "
+                                     f"max abs err {e:.3g}")
+            errs[f"{name}, {label} bases"] = e
+    out = dict(errors=errs,
+               p2g_max_abs_err=max(v for k, v in errs.items()
+                                   if k.startswith("p2g kernel")),
+               g2p_max_abs_err=max(v for k, v in errs.items()
+                                   if k.startswith("g2p kernel")))
+    # times at the main path's shapes and access pattern (sand bases)
+    out["p2g_ms"] = time_ms(lambda: mt.p2g_apply(sand_base, sand_w, vals,
+                                                 res))
+    out["p2g_plain_ms"] = time_ms(lambda: mt.p2g_apply_plain(
+        sand_base, sand_w, vals, res))
+    out["g2p_ms"] = time_ms(lambda: mt.g2p_apply(sand_base, sand_w, grid))
+    out["g2p_plain_ms"] = time_ms(lambda: mt.g2p_apply_plain(
+        sand_base, sand_w, grid))
+    return out
+
+
+def run_mpm(solver, state, steps, kernels):
+    import torch
+    for _ in range(steps):
+        state = solver.step(state, None, None, None, MPM_DT, kernels=kernels)
+    torch.cuda.synchronize()
+    return state
+
+
+def check_sand(state, label, z0_mean=None):
+    import torch
+    tensors = [state.particle_q, state.particle_qd,
+               *[v for v in state.custom.values()]]
+    if not all(bool(torch.isfinite(t).all()) for t in tensors):
+        raise AssertionError(f"{label}: non-finite MPM state")
+    q = state.particle_q
+    zmin = float(q[:, 2].min())
+    xy = float(q[:, :2].abs().max())
+    if zmin <= -0.05:
+        raise AssertionError(f"{label}: particle below the floor, z = "
+                             f"{zmin:.4f}")
+    if xy >= 1.0:
+        raise AssertionError(f"{label}: particle left the grid, |x|,|y| = "
+                             f"{xy:.4f}")
+    zmean = float(q[:, 2].mean())
+    if z0_mean is not None and not zmean < z0_mean:
+        raise AssertionError(f"{label}: mean z did not drop ({z0_mean:.5f} "
+                             f"-> {zmean:.5f})")
+    return dict(z_min=zmin, xy_max=xy, z_mean=zmean)
+
+
+def mpm_launches():
+    from newton_tpu_torch.solvers import mpm_transfer as mt
+    return dict(p2g_apply=mt.p2g_apply.launches,
+                g2p_apply=mt.g2p_apply.launches)
+
+
+def reset_mpm_launches():
+    from newton_tpu_torch.solvers import mpm_transfer as mt
+    mt.p2g_apply.launches = 0
+    mt.g2p_apply.launches = 0
+
+
+def phase_mpm_main(solver, state0):
+    z0 = float(state0.particle_q[:, 2].mean())
+    state = run_mpm(solver, state0.clone(), MPM_WARMUP, True)
+    reset_mpm_launches()
+    t0 = time.perf_counter()
+    state = run_mpm(solver, state, MPM_STEPS, True)
+    elapsed = time.perf_counter() - t0
+    launches = mpm_launches()
+    for name, n in launches.items():
+        if n != MPM_STEPS:
+            raise AssertionError(f"MPM main path: {name} launched {n} times "
+                                 f"in {MPM_STEPS} steps")
+    gates = check_sand(state, "MPM main path", z0)
+    # throughput in turns (plain, kernel, kernel, plain), each turn
+    # MPM_STEPS steps continuing its own path's state
+    plain = state.clone()
+    rates = {True: [], False: []}
+    for kernels in (False, True, True, False):
+        before = mpm_launches()
+        t0 = time.perf_counter()
+        if kernels:
+            state = run_mpm(solver, state, MPM_STEPS, True)
+        else:
+            plain = run_mpm(solver, plain, MPM_STEPS, False)
+        rates[kernels].append(MPM_N * MPM_STEPS / (time.perf_counter() - t0))
+        if not kernels and mpm_launches() != before:
+            raise AssertionError("the plain MPM path launched a kernel")
+    check_sand(plain, "MPM plain path", z0)
+    check_sand(state, "MPM kernel path", z0)
+    return dict(launches=launches, steps=MPM_STEPS, particles=MPM_N,
+                gates=gates, z0_mean=z0,
+                main_particle_steps_per_s=MPM_N * MPM_STEPS / elapsed,
+                particle_steps_per_s=sum(rates[True]) / 2,
+                plain_particle_steps_per_s=sum(rates[False]) / 2,
+                turns_kernel=rates[True], turns_plain=rates[False]), state
+
+
+def phase_mpm_side(dev):
+    """The CG and implicit-rheology paths at the main path's size."""
+    out = {}
+    for label, kw, per_step in (
+            ("cg", dict(implicit_iterations=MPM_CG_ITERS),
+             1 + MPM_CG_ITERS + 1),
+            ("rheology", dict(rheology="implicit"), 1)):
+        _, solver, state = build_sand(dev, **kw)
+        reset_mpm_launches()
+        t0 = time.perf_counter()
+        state = run_mpm(solver, state, MPM_SIDE_STEPS, True)
+        elapsed = time.perf_counter() - t0
+        launches = mpm_launches()
+        for name, n in launches.items():
+            if n != per_step * MPM_SIDE_STEPS:
+                raise AssertionError(
+                    f"MPM {label} path: {name} launched {n} times in "
+                    f"{MPM_SIDE_STEPS} steps, expected {per_step} per step")
+        out[label] = dict(launches=launches, per_step=per_step,
+                          gates=check_sand(state, f"MPM {label} path"),
+                          particle_steps_per_s=MPM_N * MPM_SIDE_STEPS
+                          / elapsed)
+    return out
+
+
+def phase_mpm_paths(solver, state):
+    """One MPM step through the kernels, one through the plain versions and
+    one plain step in float64, all from the same cloned state."""
+    import dataclasses
+    import torch
+    k = solver.step(state.clone(), None, None, None, MPM_DT)
+    p = solver.step(state.clone(), None, None, None, MPM_DT, kernels=False)
+    s64 = dataclasses.replace(
+        state, particle_q=state.particle_q.double(),
+        particle_qd=state.particle_qd.double(),
+        custom={n: v.double() for n, v in state.custom.items()})
+    d = solver.step(s64, None, None, None, MPM_DT, kernels=False)
+
+    def get(s, name):
+        return s.custom[name] if name.startswith("mpm:") else getattr(s, name)
+    c_max = float(get(d, "mpm:C").abs().max())
+    tols = dict(MPM_TOL, **{"mpm:C": MPM_C_RTOL * max(1.0, c_max)})
+    errs = {}
+    for name, atol in tols.items():
+        e = {}
+        for label, a, b in (("kernel_vs_plain", get(k, name), get(p, name)),
+                            ("kernel_vs_f64", get(k, name).double(),
+                             get(d, name)),
+                            ("plain_vs_f64", get(p, name).double(),
+                             get(d, name))):
+            ok, e[label] = close(a, b, atol, 0.0)
+            if not ok:
+                raise AssertionError(f"MPM paths: {name} {label} off "
+                                     f"tolerance ({e[label]:.3g} > "
+                                     f"{atol:.3g})")
+        errs[name] = dict(e, tol=atol)
+    if not bool(torch.isfinite(get(k, "mpm:C")).all()):
+        raise AssertionError("MPM paths: non-finite kernel step")
+    return dict(errors=errs, c_max=c_max)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -391,6 +636,38 @@ def main():
     results["paths"] = paths
     print(f"[6 kernel vs plain substep] {paths}", flush=True)
 
+    _, sand_solver, sand0 = build_sand(dev)
+    b34 = phase_b34(dev, sand_solver, sand0)
+    results["b34"] = b34
+    print(f"[7 B3/B4 mpm p2g/g2p] kernels and plain f32 within 1e-5 S + "
+          f"1e-7 of float64, N={MPM_N} res={MPM_RES}; p2g max abs err "
+          f"{b34['p2g_max_abs_err']:.3g}, {b34['p2g_ms']:.4f} ms vs plain "
+          f"{b34['p2g_plain_ms']:.4f} ms; g2p max abs err "
+          f"{b34['g2p_max_abs_err']:.3g}, {b34['g2p_ms']:.4f} ms vs plain "
+          f"{b34['g2p_plain_ms']:.4f} ms", flush=True)
+
+    mpm, sand_end = phase_mpm_main(sand_solver, sand0)
+    results["mpm"] = mpm
+    print(f"[8 MPM main path] sand x {MPM_N} particles, res {MPM_RES}, "
+          f"{mpm['steps']} steps, launches {mpm['launches']}, gates "
+          f"{mpm['gates']}; {mpm['particle_steps_per_s']:.1f} "
+          f"particle-steps/s (plain path "
+          f"{mpm['plain_particle_steps_per_s']:.1f}) on {card}", flush=True)
+
+    side = phase_mpm_side(dev)
+    results["mpm_side"] = side
+    print(f"[9 MPM CG and rheology paths] " + "; ".join(
+        f"{k}: launches {v['launches']} in {MPM_SIDE_STEPS} steps "
+        f"({v['per_step']} per step), {v['particle_steps_per_s']:.1f} "
+        f"particle-steps/s" for k, v in side.items()), flush=True)
+
+    mpm_paths = phase_mpm_paths(sand_solver, sand_end)
+    results["mpm_paths"] = mpm_paths
+    print(f"[10 kernel vs plain MPM step] max |C| "
+          f"{mpm_paths['c_max']:.3g}; " + "; ".join(
+              f"{k}: " + ", ".join(f"{a} {b:.3g}" for a, b in v.items())
+              for k, v in mpm_paths["errors"].items()), flush=True)
+
     print("[details] " + json.dumps(results, default=str), flush=True)
 
     kernels = [
@@ -406,6 +683,18 @@ def main():
              launches=main_res["launches"]["pgs_solve_fused"],
              max_abs_err=b2["max_abs_err"], ms=b2["ms"],
              plain_ms=b2["plain_ms"]),
+        dict(name="mpm_p2g", route="cuda",
+             source="newton_tpu_torch/csrc/mpm_transfer.cu",
+             replaces="newton_tpu/solvers/mpm_pallas.py:82",
+             launches=mpm["launches"]["p2g_apply"],
+             max_abs_err=b34["p2g_max_abs_err"], ms=b34["p2g_ms"],
+             plain_ms=b34["p2g_plain_ms"]),
+        dict(name="mpm_g2p", route="cuda",
+             source="newton_tpu_torch/csrc/mpm_transfer.cu",
+             replaces="newton_tpu/solvers/mpm_pallas.py:126",
+             launches=mpm["launches"]["g2p_apply"],
+             max_abs_err=b34["g2p_max_abs_err"], ms=b34["g2p_ms"],
+             plain_ms=b34["g2p_plain_ms"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,9 +1,12 @@
 """newton_tpu_torch: the PyTorch/CUDA port of newton_tpu.
 
 The JAX package ``newton_tpu`` is the reference; this package re-implements
-its main path (MJCF robot -> static collision -> batched generalized step)
-in PyTorch, with the two TPU kernels on that path written by hand in CUDA
-for Hopper (``csrc/``). It imports torch, never jax.
+two of its paths in PyTorch: the robot path (MJCF robot -> static collision
+-> batched generalized step) and the MPM path (particles ->
+``SolverImplicitMPM``). Every TPU kernel of the JAX package has a
+hand-written CUDA counterpart for Hopper in ``csrc/``: the Cholesky and PGS
+kernels of the robot path, the P2G/G2P transfers of the MPM path. It
+imports torch, never jax.
 
 Physics needs true float32 products: TF32 would corrupt mass matrices and
 Delassus operators, so it is switched off here for matmuls and cuDNN.
@@ -25,16 +28,18 @@ from .sim.builder import JointDofConfig, ModelBuilder, ShapeConfig  # noqa: E402
 from .sim.collide import CollisionPipeline  # noqa: E402
 from .sim.contacts import Contacts  # noqa: E402
 from .sim.control import Control  # noqa: E402
-from .sim.enums import JointType  # noqa: E402
+from .sim.enums import JointType, ParticleFlags  # noqa: E402
 from .sim.model import Model, ModelStructure  # noqa: E402
 from .sim.state import State  # noqa: E402
 from .solvers.generalized.solver import SolverFeatherstone, SolverMuJoCo  # noqa: E402
+from .solvers.solver_mpm import SolverImplicitMPM, SolverMPM  # noqa: E402
 
 __all__ = [
     "MAXVAL", "Axis", "GeoType", "ShapeFlags", "batch_state", "eval_fk",
     "JointDofConfig", "ModelBuilder", "ShapeConfig", "CollisionPipeline",
     "Contacts", "Control", "JointType", "Model", "ModelStructure", "State",
-    "SolverFeatherstone", "SolverMuJoCo", "ASSET_DIR",
+    "SolverFeatherstone", "SolverMuJoCo", "SolverImplicitMPM", "SolverMPM",
+    "ParticleFlags", "ASSET_DIR",
 ]
 
 import os as _os  # noqa: E402

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels in ``csrc/``.
 
-The sources compile with ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded through ``ctypes``. The build happens at
+The sources compile with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source
+and all at once, and link into one shared library with a plain C
+interface, loaded through ``ctypes``. The build happens at
 first use, from the package's own sources, into ``_build/<hash>/`` inside
 the package (the hash covers the sources and the flags), so a second call
 in the same checkout reuses it. Nothing here runs at import time: the CPU
@@ -23,8 +24,8 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 _BUILD = os.path.join(_HERE, "_build")
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-_SOURCES = ("chol_inv_solve.cu", "pgs_solve.cu")
+          "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_SOURCES = ("chol_inv_solve.cu", "pgs_solve.cu", "mpm_transfer.cu")
 
 _lib = None
 
@@ -38,6 +39,10 @@ _SIGNATURES = {
                             _I, _I, _I, _I, _I, _F, _I, _F, _F, _P],
     # c, nl, d -> dynamic shared memory bytes of one pgs block
     "pgs_smem_bytes": [_I, _I, _I],
+    # base, w_ax, vals, grid, N, C, res, stream
+    "mpm_p2g_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # base, w_ax, grid, out, N, C, res, stream
+    "mpm_g2p_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 
@@ -70,17 +75,36 @@ def build() -> str:
     if os.path.exists(so):
         return so
     os.makedirs(out_dir, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *_FLAGS, "-o", tmp,
-           *[os.path.join(_CSRC, s) for s in _SOURCES]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    work = tempfile.mkdtemp(dir=out_dir)
+    nvcc = _nvcc()
+    procs = []
+    for name in _SOURCES:
+        obj = os.path.join(work, name + ".o")
+        cmd = [nvcc, *_FLAGS, "-c", "-o", obj, os.path.join(_CSRC, name)]
+        procs.append((obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    report, failed = [], []
+    for obj, proc in procs:
+        _, err = proc.communicate()
+        report.append(err)
+        if proc.returncode != 0:
+            failed.append(f"{os.path.basename(obj)} ({proc.returncode}):\n"
+                          f"{err}")
+    if failed:
+        shutil.rmtree(work, ignore_errors=True)
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    tmp = os.path.join(work, "lib.so")
+    res = subprocess.run([nvcc, "-shared", "-o", tmp,
+                          *[obj for obj, _ in procs]],
+                         capture_output=True, text=True)
     if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        shutil.rmtree(work, ignore_errors=True)
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                           f"{res.stderr}")
     with open(os.path.join(out_dir, "ptxas.log"), "w") as f:
-        f.write(res.stderr)
+        f.write("".join(report))
     os.replace(tmp, so)            # atomic: a reader never sees half a file
+    shutil.rmtree(work, ignore_errors=True)
     return so
 
 

@@ -13,6 +13,7 @@ substep builds nothing from numpy.
 
 from __future__ import annotations
 
+from dataclasses import replace
 from types import SimpleNamespace
 from typing import List
 
@@ -241,5 +242,5 @@ def eval_fk(model: Model, joint_q: torch.Tensor, joint_qd: torch.Tensor,
     from ``joint_q``/``joint_qd`` (single world or leading batch dims)."""
     body_q, body_qd = fk_bodies(model, joint_q, joint_qd, state.body_q,
                                 state.body_qd)
-    return State(body_q=body_q, body_qd=body_qd, body_f=state.body_f,
-                 joint_q=joint_q, joint_qd=joint_qd, custom=state.custom)
+    return replace(state, body_q=body_q, body_qd=body_qd, joint_q=joint_q,
+                   joint_qd=joint_qd)

@@ -1,12 +1,13 @@
 """Scene authoring: host-side ``ModelBuilder`` -> ``Model`` on a device.
 
 Port of the subset of ``newton_tpu/sim/builder.py`` that the gymnasium ant
-and humanoid MJCF files drive: bodies, one articulation, free/revolute/fixed
-joints, plane/sphere/capsule shapes with density-driven mass, MJCF-style
-collision filtering, the static candidate contact pairs with their slot
-layout, and ``finalize`` onto an explicit device. Host storage is float64
-numpy, like the JAX builder; the candidate-pair order and slot offsets are
-the JAX builder's exactly, because the solvers' contact rows follow them.
+and humanoid MJCF files and the MPM path drive: bodies, one articulation,
+free/revolute/fixed joints, plane/sphere/capsule shapes with density-driven
+mass, particles, MJCF-style collision filtering, the static candidate
+contact pairs with their slot layout, and ``finalize`` onto an explicit
+device. Host storage is float64 numpy, like the JAX builder; the
+candidate-pair order and slot offsets are the JAX builder's exactly,
+because the solvers' contact rows follow them.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import torch
 
 from ..core.host_math import (
     np_quat_between_axes,
+    np_quat_identity,
+    np_quat_rotate,
     np_transform,
     np_transform_identity,
     np_transform_inverse,
@@ -34,7 +37,7 @@ from ..geometry.inertia import (
 )
 from ..geometry.narrow_phase import pair_slot_count
 from ..geometry.types import GeoType, ShapeFlags
-from .enums import BodyFlags, JointType
+from .enums import BodyFlags, JointType, ParticleFlags
 from .model import (
     AttributeAssignment,
     AttributeFrequency,
@@ -175,6 +178,15 @@ class ModelBuilder:
         self.articulation_start: List[int] = []
         self.articulation_key: List[str] = []
 
+        # particles; the port's builder has no world contexts, so every
+        # particle is global (world -1), as the reference's outside one
+        self.particle_q: List[np.ndarray] = []
+        self.particle_qd: List[np.ndarray] = []
+        self.particle_mass: List[float] = []
+        self.particle_radius: List[float] = []
+        self.particle_flags: List[int] = []
+        self.particle_world: List[int] = []
+
         # custom attributes: name -> (spec, {index: value})
         self.custom_attributes: Dict[str, Tuple[AttributeSpec, dict]] = {}
 
@@ -202,6 +214,10 @@ class ModelBuilder:
     @property
     def articulation_count(self) -> int:
         return len(self.articulation_start)
+
+    @property
+    def particle_count(self) -> int:
+        return len(self.particle_q)
 
     # ------------------------------------------------------------------
     # bodies, articulations, joints
@@ -416,6 +432,67 @@ class ModelBuilder:
                               key=key)
 
     # ------------------------------------------------------------------
+    # particles (the JAX builder's add_particle/add_particles/
+    # add_particle_grid, same arguments and defaults)
+    # ------------------------------------------------------------------
+    def add_particle(self, pos, vel=(0.0, 0.0, 0.0), mass: float = 1.0,
+                     radius: float = 0.1,
+                     flags: int = int(ParticleFlags.ACTIVE)) -> int:
+        idx = self.particle_count
+        self.particle_q.append(np.asarray(pos, dtype=np.float64))
+        self.particle_qd.append(np.asarray(vel, dtype=np.float64))
+        self.particle_mass.append(float(mass))
+        self.particle_radius.append(float(radius))
+        self.particle_flags.append(int(flags))
+        self.particle_world.append(-1)
+        return idx
+
+    def add_particles(self, pos, vel=None, mass=None, radius=None,
+                      flags=None) -> List[int]:
+        pos = np.asarray(pos, dtype=np.float64).reshape(-1, 3)
+        n = len(pos)
+        vel = np.zeros((n, 3)) if vel is None \
+            else np.asarray(vel, dtype=np.float64).reshape(-1, 3)
+
+        def per_particle(x, default, dtype=np.float64):
+            x = default if x is None else x
+            return np.broadcast_to(np.asarray(x, dtype=dtype), (n,))
+        mass = per_particle(mass, 1.0)
+        radius = per_particle(radius, 0.1)
+        flags = per_particle(flags, int(ParticleFlags.ACTIVE), np.int64)
+        start = self.particle_count
+        self.particle_q.extend(list(pos))
+        self.particle_qd.extend(list(vel))
+        self.particle_mass.extend([float(m) for m in mass])
+        self.particle_radius.extend([float(r) for r in radius])
+        self.particle_flags.extend([int(f) for f in flags])
+        self.particle_world.extend([-1] * n)
+        return list(range(start, start + n))
+
+    def add_particle_grid(self, pos, rot=None, vel=(0, 0, 0),
+                          dim_x: int = 4, dim_y: int = 4, dim_z: int = 4,
+                          cell_x: float = 0.1, cell_y: float = 0.1,
+                          cell_z: float = 0.1, mass: float = 1.0,
+                          radius: float = 0.05, jitter: float = 0.0,
+                          seed: int = 42) -> List[int]:
+        """Regular 3D particle grid, x fastest (optionally jittered from a
+        numpy generator seeded with ``seed``)."""
+        rot = np_quat_identity() if rot is None \
+            else np.asarray(rot, dtype=np.float64)
+        pos = np.asarray(pos, dtype=np.float64)
+        rng = np.random.default_rng(seed)
+        start = self.particle_count
+        for zi in range(dim_z):
+            for yi in range(dim_y):
+                for xi in range(dim_x):
+                    local = np.array([xi * cell_x, yi * cell_y, zi * cell_z])
+                    if jitter > 0.0:
+                        local = local + rng.uniform(-jitter, jitter, 3)
+                    self.add_particle(pos + np_quat_rotate(rot, local),
+                                      vel, mass, radius=radius)
+        return list(range(start, self.particle_count))
+
+    # ------------------------------------------------------------------
     # custom attributes and importers
     # ------------------------------------------------------------------
     def add_custom_attribute(self, name: str, frequency: AttributeFrequency,
@@ -506,6 +583,7 @@ class ModelBuilder:
         st.joint_coord_count = self.joint_coord_count
         st.joint_dof_count = self.joint_dof_count
         st.articulation_count = self.articulation_count
+        st.particle_count = self.particle_count
         st.mjc_actuation = self.mjc_actuation
         st.mjc_options = dict(self.mjc_options)
 
@@ -527,6 +605,7 @@ class ModelBuilder:
             [child_of.get(p, -1) for p in self.joint_parent], dtype=i32)
         st.body_world = np.full(self.body_count, -1, dtype=i32)
         st.shape_world = np.full(self.shape_count, -1, dtype=i32)
+        st.particle_world = np.asarray(self.particle_world, dtype=i32)
         st.shape_body = np.asarray(self.shape_body, dtype=i32)
         st.shape_type = np.asarray(self.shape_type, dtype=i32)
         st.shape_flags = np.asarray(self.shape_flags, dtype=i32)
@@ -584,17 +663,19 @@ class ModelBuilder:
                                    device=device)
 
         def stack(xs, width):
-            return f32(np.stack(xs) if len(xs) else np.zeros((0, width)))
+            return f32(np.stack(xs) if len(xs) else np.zeros((0, width)),
+                       (0, width))
 
         S = self.shape_count
+        pmass = np.asarray(self.particle_mass, dtype=np.float64)
         return Model(
             body_q=stack(self.body_q, 7),
             body_qd=stack(self.body_qd, 6),
             body_com=stack(self.body_com, 3),
             body_mass=f32(mass),
             body_inv_mass=f32(inv_mass),
-            body_inertia=f32(body_inertia),
-            body_inv_inertia=f32(inv_inertia),
+            body_inertia=f32(body_inertia, (0, 3, 3)),
+            body_inv_inertia=f32(inv_inertia, (0, 3, 3)),
             body_flags=i32t(self.body_flags),
             shape_transform=stack(self.shape_transform, 7),
             shape_body=i32t(st.shape_body),
@@ -627,6 +708,13 @@ class ModelBuilder:
             joint_q0=f32(self.joint_q),
             joint_target_q0=f32(self.joint_target_q),
             gravity=f32([[0.0, 0.0, self.gravity]]),
+            particle_q=stack(self.particle_q, 3),
+            particle_qd=stack(self.particle_qd, 3),
+            particle_mass=f32(pmass),
+            particle_inv_mass=f32(np.divide(1.0, pmass, where=pmass > 0,
+                                            out=np.zeros_like(pmass))),
+            particle_radius=f32(self.particle_radius),
+            particle_flags=i32t(self.particle_flags),
             custom=custom,
             structure=st,
         )

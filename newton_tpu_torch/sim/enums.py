@@ -4,12 +4,18 @@ from __future__ import annotations
 
 from enum import IntEnum, IntFlag
 
-__all__ = ["BodyFlags", "JointType"]
+__all__ = ["BodyFlags", "JointType", "ParticleFlags"]
 
 
 class BodyFlags(IntFlag):
     NONE = 0
     KINEMATIC = 1 << 0
+
+
+class ParticleFlags(IntFlag):
+    """Per-particle flags (``newton_tpu/geometry/flags.py``; same values)."""
+
+    ACTIVE = 1 << 0
 
 
 class JointType(IntEnum):

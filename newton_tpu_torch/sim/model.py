@@ -3,8 +3,9 @@
 ``Model`` is a dataclass of tensors on one device; ``ModelStructure`` holds
 the host-side numpy topology (counts, joint tree, candidate contact pairs,
 actuation tables) that the solvers turn into static index tensors once, at
-construction. The port carries the fields the ant path reads; the names
-match the JAX package's so the bridge (utils/bridge.py) maps them 1:1.
+construction. The port carries the fields the ant and MPM paths read; the
+names match the JAX package's so the bridge (utils/bridge.py) maps them
+1:1.
 """
 
 from __future__ import annotations
@@ -59,6 +60,7 @@ class ModelStructure:
         self.joint_coord_count = 0
         self.joint_dof_count = 0
         self.articulation_count = 0
+        self.particle_count = 0
         self.eq_count = 0
         self.tendon_count = 0
         self.sten_count = 0
@@ -75,6 +77,7 @@ class ModelStructure:
         self.articulation_start = np.zeros(1, dtype=np.int32)
         self.articulation_world = np.zeros(0, dtype=np.int32)
         self.body_world = np.zeros(0, dtype=np.int32)
+        self.particle_world = np.zeros(0, dtype=np.int32)
         self.shape_world = np.zeros(0, dtype=np.int32)
         self.shape_body = np.zeros(0, dtype=np.int32)
         self.shape_type = np.zeros(0, dtype=np.int32)
@@ -111,10 +114,12 @@ MODEL_FLOAT_FIELDS = (
     "joint_limit_upper", "joint_limit_ke", "joint_limit_kd",
     "joint_friction", "joint_effort_limit", "joint_velocity_limit",
     "joint_qd0", "joint_q0", "joint_target_q0", "gravity",
+    "particle_q", "particle_qd", "particle_mass", "particle_inv_mass",
+    "particle_radius",
 )
 MODEL_INT_FIELDS = (
     "body_flags", "shape_body", "shape_type", "shape_flags", "shape_world",
-    "joint_type_arr", "joint_parent", "joint_child",
+    "joint_type_arr", "joint_parent", "joint_child", "particle_flags",
 )
 
 
@@ -122,7 +127,8 @@ MODEL_INT_FIELDS = (
 class Model:
     """Finalized model: tensors on one device plus a host ``structure``.
 
-    Shapes: B bodies, S shapes, J joints, D dofs, Q coords, W worlds.
+    Shapes: B bodies, S shapes, J joints, D dofs, Q coords, N particles,
+    W worlds.
     """
 
     body_q: torch.Tensor          # (B, 7) initial pose
@@ -163,6 +169,12 @@ class Model:
     joint_q0: torch.Tensor        # (Q,)
     joint_target_q0: torch.Tensor  # (Q,)
     gravity: torch.Tensor         # (W, 3)
+    particle_q: torch.Tensor      # (N, 3) initial positions
+    particle_qd: torch.Tensor     # (N, 3)
+    particle_mass: torch.Tensor   # (N,)
+    particle_inv_mass: torch.Tensor  # (N,), 0 = pinned
+    particle_radius: torch.Tensor  # (N,)
+    particle_flags: torch.Tensor  # (N,) int32 ParticleFlags
     custom: Dict[str, torch.Tensor] = field(default_factory=dict)
     structure: ModelStructure = None
 
@@ -181,6 +193,10 @@ class Model:
     @property
     def joint_dof_count(self) -> int:
         return self.structure.joint_dof_count
+
+    @property
+    def particle_count(self) -> int:
+        return self.structure.particle_count
 
     def to(self, device) -> "Model":
         kw = {f.name: getattr(self, f.name).to(device) for f in fields(self)
@@ -201,6 +217,9 @@ class Model:
                      body_f=torch.zeros_like(self.body_qd),
                      joint_q=self.joint_q0.clone(),
                      joint_qd=self.joint_qd0.clone(),
+                     particle_q=self.particle_q.clone(),
+                     particle_qd=self.particle_qd.clone(),
+                     particle_f=torch.zeros_like(self.particle_q),
                      custom=self._custom_for(AttributeAssignment.STATE))
 
     def control(self) -> Control:

@@ -39,7 +39,10 @@ class State:
         body_f: external wrenches ``(..., B, 6)`` [f, tau] at the COM, world.
         joint_q: generalized coordinates ``(..., joint_coord_count)``.
         joint_qd: generalized velocities ``(..., joint_dof_count)``.
-        custom: namespaced solver state (e.g. ``mjc:act``).
+        particle_q: particle positions ``(..., particle_count, 3)``.
+        particle_qd: particle velocities ``(..., particle_count, 3)``.
+        particle_f: external particle forces ``(..., particle_count, 3)``.
+        custom: namespaced solver state (e.g. ``mjc:act``, ``mpm:F``).
     """
 
     body_q: torch.Tensor
@@ -47,6 +50,9 @@ class State:
     body_f: torch.Tensor
     joint_q: torch.Tensor
     joint_qd: torch.Tensor
+    particle_q: torch.Tensor
+    particle_qd: torch.Tensor
+    particle_f: torch.Tensor
     custom: Dict[str, Any] = field(default_factory=dict)
 
     def to(self, device) -> "State":

@@ -13,6 +13,7 @@ solver's device tables (``solver.tables``).
 
 from __future__ import annotations
 
+from dataclasses import replace
 from typing import Optional
 
 import torch
@@ -282,5 +283,5 @@ def step_batched(solver, state_b: State, control_b=None, contacts_b=None,
 
     q_new = _integrate_coords(t, q, qd_new, dt)
     body_q2, body_qd2 = fk_bodies(model, q_new, qd_new, body_q, body_qd)
-    return State(body_q=body_q2, body_qd=body_qd2, body_f=state_b.body_f,
-                 joint_q=q_new, joint_qd=qd_new, custom=state_b.custom)
+    return replace(state_b, body_q=body_q2, body_qd=body_qd2, joint_q=q_new,
+                   joint_qd=qd_new)

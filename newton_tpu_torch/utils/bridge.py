@@ -47,14 +47,15 @@ STRUCTURE_FIELDS = (
     "body_key", "joint_key", "shape_key",
     "candidate_pairs", "candidate_pair_slots", "rigid_contact_max",
     "slot_shape0", "slot_shape1", "slot_body0", "slot_body1",
-    "mjc_options",
+    "mjc_options", "particle_count", "particle_world",
 )
 ACTUATION_FIELDS = ("n", "dof", "coord", "tendon", "sten", "gear",
                     "dyntype", "dynprm", "gaintype", "gainprm", "biastype",
                     "biasprm", "ctrlrange", "forcerange", "actrange",
                     "ctrllimited", "forcelimited", "actlimited",
                     "lengthrange", "acc0")
-STATE_FIELDS = ("body_q", "body_qd", "body_f", "joint_q", "joint_qd")
+STATE_FIELDS = ("body_q", "body_qd", "body_f", "joint_q", "joint_qd",
+                "particle_q", "particle_qd", "particle_f")
 CONTROL_FIELDS = ("joint_target_q", "joint_target_qd", "joint_f")
 CONTACT_FIELDS = ("rigid_contact_mask", "rigid_contact_shape0",
                   "rigid_contact_shape1", "rigid_contact_position",
