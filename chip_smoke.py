@@ -37,9 +37,28 @@ Phases, one line each:
  10. one MPM step through the kernels, one through the plain versions and
      one plain step in float64, from the same cloned sand state: the two
      float32 paths agree with each other and with float64 to q 1e-6, qd
-     1e-4, F 1e-5 and C 1e-3 max(1, max |C|).
+     1e-4, F 1e-5 and C 1e-3 max(1, max |C|);
+ 11. humanoid main path: gymnasium humanoid
+     (newton_tpu_torch/assets/humanoid.xml: D6 hips, abdomen and
+     shoulders, fixed tendons, 192 contact slots compacted to the top 32
+     per env) at 4096 envs from joint_q0 with uniform +-0.01 reset noise,
+     10 warm-up frames (the feet reach the floor) then 10 checked frames
+     as in phase 5, asserting exactly one launch of each kernel per
+     substep, no NaN, unit quaternions, root z > 0.3 and an active
+     contact during the window in 99% of envs (random ctrl flings the
+     legs: a few envs touch nothing in the window, ~20% at any one
+     instant); then env-steps/s in turns;
+ 12. humanoid kernel vs plain substeps, from one cloned state and ctrl:
+     (a) the main window's end, (b) a lying pose with contact_cap = 8
+     (compaction drops active contacts), (c) the lying pose uncompacted
+     (all 192 slots: B2's large-shared-memory launch); envs whose
+     divergence-guard halvings differ are counted and left out. B1 and B2
+     are held against their plain versions on the operands of those
+     substeps and timed at the humanoid's shapes (d = 23; c, nl = 32, 17
+     and 192, 17).
 It prints one JSON line listing the kernels (name, route, source,
-launches, error, times), then the card line, then the result line
+launches, error, times; B1 and B2 also with their humanoid launches and
+times), then the card line, then the result line
 ``{"ok": true, "device": {...}}``. Any failed phase raises: exit code != 0
 and no result line. Without a CUDA device it exits 2 at once. A
 ``[details]`` line carries the per-case errors, the throughput turns and
@@ -135,7 +154,7 @@ def compare_pgs(args, kw, allow_mismatch):
     if not (ok1 and ok2):
         raise AssertionError(f"B2: kernel vs plain off tolerance (lam "
                              f"{e1:.3g}, dqd {e2:.3g})")
-    return e1, e2, n_diff, int(h_p.sum())
+    return e1, e2, n_diff, int(h_p.sum()), same
 
 
 def random_pgs_inputs(dev, c, nl, d, seed):
@@ -226,7 +245,7 @@ def phase_b2(dev, model, pipe, solver, state0):
     for nl, cone in ((8, False), (8, True), (0, False)):
         args, ld = random_pgs_inputs(dev, 25, nl, 14, seed=2 + nl)
         kw = dict(kw0, c=25, ld=ld, use_cone=cone)
-        e1, e2, n_diff, n_halv = compare_pgs(args, kw, W // 1000)
+        e1, e2, n_diff, n_halv, _ = compare_pgs(args, kw, W // 1000)
         cases[f"random nl={nl} cone={cone}"] = dict(
             lam_err=e1, dqd_err=e2, guard_mismatch_envs=n_diff,
             halvings=n_halv)
@@ -239,7 +258,7 @@ def phase_b2(dev, model, pipe, solver, state0):
                         pipe.collide(sb), DT, kernels=False, record=rec)
     args, kw = rec["pgs"]
     n_active = int(args[4][:, :25].sum(1).max())
-    e1, e2, n_diff, n_halv = compare_pgs(args, kw, 0)
+    e1, e2, n_diff, n_halv, _ = compare_pgs(args, kw, 0)
     cases["ant substep, drop 0.08"] = dict(
         lam_err=e1, dqd_err=e2, guard_mismatch_envs=n_diff,
         halvings=n_halv, max_active_contacts=n_active)
@@ -250,18 +269,25 @@ def phase_b2(dev, model, pipe, solver, state0):
                 cases=cases, ms=ms, plain_ms=plain_ms), sb, ctrl
 
 
-def run_frames(model, pipe, solver, state, sample, frames, kernels):
+def run_frames(model, pipe, solver, state, sample, frames, kernels,
+               touched=None):
+    """``frames`` frames of SUBSTEPS substeps; ``touched`` (W,) bool, when
+    given, gathers which envs had an active contact in some substep."""
     import torch
     for _ in range(frames):
-        ctl = batched_control(model, sample(W))
+        ctl = batched_control(model, sample(state.joint_q.shape[0]))
         for _ in range(SUBSTEPS):
-            state = solver.step_batched(state, None, ctl, pipe.collide(state),
-                                        DT, kernels=kernels)
+            contacts = pipe.collide(state)
+            if touched is not None:
+                touched |= contacts.rigid_contact_mask.any(1)
+            state = solver.step_batched(state, None, ctl, contacts, DT,
+                                        kernels=kernels)
     torch.cuda.synchronize()
     return state
 
 
-def check_state(state, label):
+def check_state(state, label, z_min=0.1):
+    """No NaN, unit quaternions within 1e-2 and root z > ``z_min``."""
     import torch
     for name in ("joint_q", "joint_qd", "body_q", "body_qd"):
         if not bool(torch.isfinite(getattr(state, name)).all()):
@@ -270,7 +296,7 @@ def check_state(state, label):
     if float((qn - 1.0).abs().max()) > 1e-2:
         raise AssertionError(f"{label}: non-normalized quaternions")
     zmin = float(state.joint_q[:, 2].min())
-    if zmin <= 0.1:
+    if zmin <= z_min:
         raise AssertionError(f"{label}: root fell to z = {zmin:.3f}")
     return zmin
 
@@ -575,6 +601,187 @@ def phase_mpm_paths(solver, state):
     return dict(errors=errs, c_max=c_max)
 
 
+HUMANOID_W = 4096
+HUMANOID_WARMUP = 10
+LYING_Q = (0.5 ** 0.5, 0.0, 0.0, 0.5 ** 0.5)    # root turned 90 deg about x
+
+
+def build_humanoid(dev, contact_cap=None):
+    import newton_tpu_torch as nt
+    b = nt.ModelBuilder()
+    b.add_mjcf(os.path.join(nt.ASSET_DIR, "humanoid.xml"))
+    model = b.finalize(dev)
+    pipe = nt.CollisionPipeline(model)
+    solver = nt.SolverMuJoCo(model, iterations=ITERS, integrator="euler",
+                             contact_cap=contact_cap)
+    return model, pipe, solver
+
+
+def humanoid_reset(model, dev, seed, lying_z=None):
+    """Batched humanoid state at joint_q0 plus gymnasium's reset noise
+    (uniform +-0.01 on joint_q and joint_qd), or laid on its side with the
+    root at height ``lying_z``."""
+    import torch
+    import newton_tpu_torch as nt
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    n = HUMANOID_W
+
+    def noise(k):
+        return 0.02 * torch.rand((n, k), generator=gen, device=dev) - 0.01
+    q = model.joint_q0.expand(n, -1) + noise(model.joint_coord_count)
+    qd = model.joint_qd0.expand(n, -1) + noise(model.joint_dof_count)
+    if lying_z is not None:
+        q[:, 2] = lying_z
+        q[:, 3:7] = torch.tensor(LYING_Q, device=dev)
+    q[:, 3:7] = q[:, 3:7] / torch.linalg.vector_norm(q[:, 3:7], dim=1,
+                                                     keepdim=True)
+    return nt.eval_fk(model, q, qd, nt.batch_state(model.state(), n))
+
+
+def phase_humanoid_main(dev, model, pipe, solver):
+    import torch
+    from newton_tpu_torch.solvers.generalized import linalg, pgs
+    sample = ctrl_sampler(model, dev, seed=10)
+    state = humanoid_reset(model, dev, seed=11)
+    plain = state.clone()
+    state = run_frames(model, pipe, solver, state, sample, HUMANOID_WARMUP,
+                       True)
+    touched = torch.zeros(HUMANOID_W, dtype=torch.bool, device=dev)
+    linalg.chol_inv_solve.launches = 0
+    pgs.pgs_solve_fused.launches = 0
+    t0 = time.perf_counter()
+    state = run_frames(model, pipe, solver, state, sample, FRAMES, True,
+                       touched)
+    elapsed = time.perf_counter() - t0
+    launches = dict(chol_inv_solve=linalg.chol_inv_solve.launches,
+                    pgs_solve_fused=pgs.pgs_solve_fused.launches)
+    n_sub = FRAMES * SUBSTEPS
+    for name, n in launches.items():
+        if n != n_sub:
+            raise AssertionError(f"humanoid main path: {name} launched {n} "
+                                 f"times in {n_sub} substeps")
+    zmin = check_state(state, "humanoid main path", z_min=0.3)
+    end_state = state
+    # random ctrl flings the legs, so at any one instant ~20% of envs touch
+    # nothing, and a few swing their legs up before landing and touch
+    # nothing in the whole window (5 of 4096 on an H100): at least 99%
+    # must have touched something
+    untouched = int((~touched).sum())
+    if untouched > HUMANOID_W // 100:
+        raise AssertionError(f"humanoid main path: {untouched} envs without "
+                             "an active contact in the window")
+    n_act = pipe.collide(state).rigid_contact_mask.sum(1)
+    # throughput in turns, as phase 5; the plain path starts from the same
+    # reset and warms up as the kernel path did
+    plain = run_frames(model, pipe, solver, plain, sample, HUMANOID_WARMUP,
+                       False)
+    rates = {True: [], False: []}
+    for kernels in (False, True, True, False):
+        before = (linalg.chol_inv_solve.launches,
+                  pgs.pgs_solve_fused.launches)
+        t0 = time.perf_counter()
+        if kernels:
+            state = run_frames(model, pipe, solver, state, sample, FRAMES,
+                               True)
+        else:
+            plain = run_frames(model, pipe, solver, plain, sample, FRAMES,
+                               False)
+        rates[kernels].append(n_sub * HUMANOID_W
+                              / (time.perf_counter() - t0))
+        after = (linalg.chol_inv_solve.launches,
+                 pgs.pgs_solve_fused.launches)
+        if not kernels and after != before:
+            raise AssertionError("the humanoid plain path launched a kernel")
+    # after the turns the humanoid lies on the floor
+    check_state(plain, "humanoid plain path", z_min=0.05)
+    check_state(state, "humanoid kernel path", z_min=0.05)
+    return dict(launches=launches, substeps=n_sub, envs=HUMANOID_W,
+                root_z_min=zmin, envs_untouched_in_window=untouched,
+                envs_in_contact_at_end=int((n_act > 0).sum()),
+                active_contacts_mean=float(n_act.float().mean()),
+                active_contacts_max=int(n_act.max()),
+                main_env_steps_per_s=n_sub * HUMANOID_W / elapsed,
+                env_steps_per_s=sum(rates[True]) / 2,
+                plain_env_steps_per_s=sum(rates[False]) / 2,
+                turns_kernel=rates[True], turns_plain=rates[False]), \
+        end_state
+
+
+def humanoid_substep_case(model, pipe, solver, state, ctrl):
+    """One substep through the kernels and one through the plain versions
+    from one cloned state and ctrl; envs whose guard halvings differ are
+    counted (at most W / 1000) and left out of the tolerance. Returns the
+    errors and the kernels' captured operands."""
+    from newton_tpu_torch.solvers.generalized import linalg
+    ctl = batched_control(model, ctrl)
+    contacts = pipe.collide(state)
+    rec = {}
+    k = solver.step_batched(state.clone(), None, ctl, contacts, DT,
+                            record=rec)
+    p = solver.step_batched(state.clone(), None, ctl, contacts, DT,
+                            kernels=False)
+    args, kw = rec["pgs"]
+    e_lam, e_dqd, n_diff, n_halv, same = compare_pgs(args, kw,
+                                                     HUMANOID_W // 1000)
+    e_chol = max(close(a, b, 1e-5, 1e-4)[1] for a, b in zip(
+        linalg.chol_inv_solve(*rec["chol"]),
+        linalg.chol_inv_solve_plain(*rec["chol"])))
+    errs = dict(pgs_lam=e_lam, pgs_dqd=e_dqd, chol=e_chol,
+                guard_mismatch_envs=n_diff, halvings=n_halv,
+                active_contacts_max=int(contacts.rigid_contact_mask.sum(1)
+                                        .max()),
+                rows=int(args[3].shape[1]))
+    for name, atol in (("joint_q", 2e-4), ("joint_qd", 5e-3),
+                       ("body_q", 2e-4)):
+        ok, e = close(getattr(k, name)[same], getattr(p, name)[same], atol,
+                      atol)
+        if not ok:
+            raise AssertionError(f"humanoid paths: {name} kernel vs plain "
+                                 f"off tolerance ({e:.3g})")
+        errs[name] = e
+    return errs, rec
+
+
+def phase_humanoid_paths(dev, model, pipe, solver, end_state):
+    from newton_tpu_torch.solvers.generalized import linalg, pgs
+    sample = ctrl_sampler(model, dev, seed=12)
+    lying = humanoid_reset(model, dev, seed=13, lying_z=0.1)
+    out, recs = {}, {}
+    out["a main-path end"], recs["a"] = humanoid_substep_case(
+        model, pipe, solver, end_state, sample(HUMANOID_W))
+    for key, label, cap in (("b", "b lying, contact_cap 8", 8),
+                            ("c", "c lying, uncompacted", 0)):
+        _, pipe_c, solver_c = build_humanoid(dev, contact_cap=cap)
+        out[label], recs[key] = humanoid_substep_case(
+            model, pipe_c, solver_c, lying, sample(HUMANOID_W))
+    if out["b lying, contact_cap 8"]["active_contacts_max"] <= 8:
+        raise AssertionError("humanoid paths: case b dropped no active "
+                             "contact")
+    if out["c lying, uncompacted"]["rows"] != 3 * 192 + 2 * 17:
+        raise AssertionError("humanoid paths: case c is not uncompacted")
+    # kernel times at the humanoid's shapes, on the captured operands
+    Mi, rhs = recs["a"]["chol"]
+    times = dict(
+        b1_ms=time_ms(lambda: linalg.chol_inv_solve(Mi, rhs)),
+        b1_plain_ms=time_ms(lambda: linalg.chol_inv_solve_plain(Mi, rhs)))
+    for key, name in (("a", "b2"), ("c", "b2_uncompacted")):
+        args, kw = recs[key]["pgs"]
+        times[f"{name}_ms"] = time_ms(lambda: pgs.pgs_solve_fused(*args,
+                                                                  **kw))
+        times[f"{name}_plain_ms"] = time_ms(
+            lambda: pgs.pgs_solve_fused_plain(*args, **kw), n=10)
+    smem = {key: pgs_smem(recs[key]["pgs"]) for key in ("a", "c")}
+    return dict(cases=out, times=times, smem_bytes=smem)
+
+
+def pgs_smem(rec):
+    from newton_tpu_torch import _kernels
+    args, kw = rec
+    return _kernels.lib().pgs_smem_bytes(kw["c"], int(kw["ld"].numel()),
+                                         args[0].shape[2])
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -668,7 +875,33 @@ def main():
               f"{k}: " + ", ".join(f"{a} {b:.3g}" for a, b in v.items())
               for k, v in mpm_paths["errors"].items()), flush=True)
 
+    hmodel, hpipe, hsolver = build_humanoid(dev)
+    hum, hum_end = phase_humanoid_main(dev, hmodel, hpipe, hsolver)
+    results["humanoid"] = hum
+    print(f"[11 humanoid main path] humanoid x {HUMANOID_W} envs, "
+          f"{hum['substeps']} substeps, launches {hum['launches']}, root z "
+          f"min {hum['root_z_min']:.3f}, envs in contact during the window"
+          f" {HUMANOID_W - hum['envs_untouched_in_window']}, at its end "
+          f"{hum['envs_in_contact_at_end']}, active "
+          f"contacts per env at the end mean "
+          f"{hum['active_contacts_mean']:.2f} max "
+          f"{hum['active_contacts_max']}; {hum['env_steps_per_s']:.1f} "
+          f"env-steps/s (plain path {hum['plain_env_steps_per_s']:.1f}) on "
+          f"{card}", flush=True)
+
+    hpaths = phase_humanoid_paths(dev, hmodel, hpipe, hsolver, hum_end)
+    results["humanoid_paths"] = hpaths
+    ht = hpaths["times"]
+    print(f"[12 humanoid kernel vs plain substeps] {hpaths['cases']}; B1 "
+          f"d=23 {ht['b1_ms']:.4f} ms vs plain {ht['b1_plain_ms']:.4f} ms; "
+          f"B2 (32, 17, 23) {ht['b2_ms']:.4f} ms vs plain "
+          f"{ht['b2_plain_ms']:.4f} ms; B2 (192, 17, 23) "
+          f"{ht['b2_uncompacted_ms']:.4f} ms vs plain "
+          f"{ht['b2_uncompacted_plain_ms']:.4f} ms; shared memory "
+          f"{hpaths['smem_bytes']} B", flush=True)
+
     print("[details] " + json.dumps(results, default=str), flush=True)
+    hcases = hpaths["cases"].values()
 
     kernels = [
         dict(name="chol_inv_solve", route="cuda",
@@ -676,13 +909,21 @@ def main():
              replaces="newton_tpu/solvers/generalized/linalg_pallas.py:91",
              launches=main_res["launches"]["chol_inv_solve"],
              max_abs_err=b1["max_abs_err"], ms=b1["ms"],
-             plain_ms=b1["plain_ms"]),
+             plain_ms=b1["plain_ms"],
+             humanoid_launches=hum["launches"]["chol_inv_solve"],
+             humanoid_max_abs_err=max(v["chol"] for v in hcases),
+             humanoid_ms=ht["b1_ms"], humanoid_plain_ms=ht["b1_plain_ms"]),
         dict(name="pgs_solve_fused", route="cuda",
              source="newton_tpu_torch/csrc/pgs_solve.cu",
              replaces="newton_tpu/solvers/generalized/pgs_pallas.py:204",
              launches=main_res["launches"]["pgs_solve_fused"],
              max_abs_err=b2["max_abs_err"], ms=b2["ms"],
-             plain_ms=b2["plain_ms"]),
+             plain_ms=b2["plain_ms"],
+             humanoid_launches=hum["launches"]["pgs_solve_fused"],
+             humanoid_max_abs_err=max(v["pgs_lam"] for v in hcases),
+             humanoid_ms=ht["b2_ms"], humanoid_plain_ms=ht["b2_plain_ms"],
+             humanoid_uncompacted_ms=ht["b2_uncompacted_ms"],
+             humanoid_uncompacted_plain_ms=ht["b2_uncompacted_plain_ms"]),
         dict(name="mpm_p2g", route="cuda",
              source="newton_tpu_torch/csrc/mpm_transfer.cu",
              replaces="newton_tpu/solvers/mpm_pallas.py:82",

@@ -21,7 +21,10 @@ from ..math import quat_rotate, transform_point
 from .types import GeoType
 
 __all__ = ["pair_slot_count", "PRIMITIVE_FNS", "contact_fn_for",
-           "plane_sphere", "plane_capsule"]
+           "plane_sphere", "plane_capsule", "sphere_sphere", "sphere_capsule",
+           "capsule_capsule"]
+
+_EPS = 1e-9     # the JAX package's guard on every division and normal
 
 _P, _S, _C = int(GeoType.PLANE), int(GeoType.SPHERE), int(GeoType.CAPSULE)
 
@@ -71,10 +74,78 @@ def plane_capsule(X0, X1, s0, s1):
     return pos, n.expand_as(pos), depth
 
 
+def _closest_point_segment_segment(p1, q1, p2, q2):
+    """Closest points between segments [p1, q1] and [p2, q2], branch-free
+    (Ericson, Real-Time Collision Detection 5.1.9). Both branches of each
+    ``where`` are evaluated, so every denominator is clamped: parallel
+    segments (denom 0) and zero-length segments (a or e 0) stay finite."""
+    d1, d2, r = q1 - p1, q2 - p2, p1 - p2
+    a = (d1 * d1).sum(-1)
+    e = (d2 * d2).sum(-1)
+    f = (d2 * r).sum(-1)
+    c = (d1 * r).sum(-1)
+    b = (d1 * d2).sum(-1)
+    denom = a * e - b * b
+    s = torch.where(denom > _EPS, torch.clamp(
+        (b * f - c * e) / torch.clamp(denom, min=_EPS), 0.0, 1.0), 0.0)
+    t = torch.where(e > _EPS, (b * s + f) / torch.clamp(e, min=_EPS), 0.0)
+    t = torch.clamp(t, 0.0, 1.0)
+    s = torch.where(a > _EPS, torch.clamp(
+        (b * t - c) / torch.clamp(a, min=_EPS), 0.0, 1.0), 0.0)
+    return p1 + d1 * s[..., None], p2 + d2 * t[..., None]
+
+
+def _unit_or_z(d):
+    """d / |d|, or +Z where |d| <= eps (coincident points); and |d|."""
+    dist = torch.linalg.vector_norm(d, dim=-1)
+    ez = torch.zeros_like(d)
+    ez[..., 2] = 1.0
+    n = torch.where(dist[..., None] > _EPS,
+                    d / torch.clamp(dist, min=_EPS)[..., None], ez)
+    return n, dist
+
+
+def sphere_sphere(X0, X1, s0, s1):
+    n, dist = _unit_or_z(X1[..., 0:3] - X0[..., 0:3])
+    depth = s0[..., 0] + s1[..., 0] - dist
+    pos = X0[..., 0:3] + n * (s0[..., 0] - 0.5 * depth)[..., None]
+    return pos[..., None, :], n[..., None, :], depth[..., None]
+
+
+def sphere_capsule(X0, X1, s0, s1):
+    a, b = _segment_endpoints(X1, s1[..., 1])
+    c = X0[..., 0:3]
+    ab = b - a
+    t = torch.clamp(((c - a) * ab).sum(-1)
+                    / torch.clamp((ab * ab).sum(-1), min=_EPS), 0.0, 1.0)
+    n, dist = _unit_or_z(a + ab * t[..., None] - c)
+    depth = s0[..., 0] + s1[..., 0] - dist
+    pos = c + n * (s0[..., 0] - 0.5 * depth)[..., None]
+    return pos[..., None, :], n[..., None, :], depth[..., None]
+
+
+def capsule_capsule(X0, X1, s0, s1):
+    """Two slots: the closest points, and the closest points with both
+    segments' endpoints swapped (near-parallel capsules resting on each
+    other touch along a line)."""
+    a0, b0 = _segment_endpoints(X0, s0[..., 1])
+    a1, b1 = _segment_endpoints(X1, s1[..., 1])
+    c0, c1 = _closest_point_segment_segment(a0, b0, a1, b1)
+    c0b, c1b = _closest_point_segment_segment(b0, a0, b1, a1)
+    p0 = torch.stack([c0, c0b], dim=-2)                     # (..., 2, 3)
+    n, dist = _unit_or_z(torch.stack([c1, c1b], dim=-2) - p0)
+    depth = s0[..., 0:1] + s1[..., 0:1] - dist
+    pos = p0 + n * (s0[..., 0:1] - 0.5 * depth)[..., None]
+    return pos, n, depth
+
+
 # dispatch table keyed by (type0, type1) in canonical order
 PRIMITIVE_FNS = {
     (_P, _S): plane_sphere,
     (_P, _C): plane_capsule,
+    (_S, _S): sphere_sphere,
+    (_S, _C): sphere_capsule,
+    (_C, _C): capsule_capsule,
 }
 
 

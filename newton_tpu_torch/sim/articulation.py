@@ -3,7 +3,7 @@
 Joints are grouped by depth in the kinematic tree on the host; every level
 is processed for all its joints at once, over any leading batch dims
 (``(W, ...)`` in the batched step). Per-joint motion is branch-free: one
-axis-composition path covers revolute/prismatic/fixed joints, and static
+axis-composition path covers revolute/prismatic/fixed/D6 joints, and static
 masks select the free-joint path.
 
 ``KinematicCache`` holds the host numpy plans; ``kinematic_tables`` turns
@@ -35,7 +35,7 @@ from .model import Model, ModelStructure
 from .state import State
 
 __all__ = ["KinematicCache", "get_kinematic_cache", "kinematic_tables",
-           "joint_motion", "eval_fk", "fk_bodies"]
+           "angular_axes", "joint_motion", "eval_fk", "fk_bodies"]
 
 
 class KinematicCache:
@@ -170,26 +170,35 @@ def kinematic_tables(model: Model) -> SimpleNamespace:
     return tab
 
 
-def joint_motion(tab, joint_q: torch.Tensor, joint_qd: torch.Tensor):
-    """Local joint transforms ``(..., J, 7)`` and twists ``(..., J, 6)`` in
-    the parent-anchor frame, for all joints at once."""
-    qj = joint_q[..., tab.q_idx] * tab.q_mask                 # (..., J, 7)
-    qdj = joint_qd[..., tab.qd_idx] * tab.qd_mask             # (..., J, 6)
-    q_lin = joint_q[..., tab.lin_q_idx] * tab.lin_mask        # (..., J, 3)
-    q_ang = joint_q[..., tab.ang_q_idx] * tab.ang_mask
-    qd_lin = joint_qd[..., tab.lin_qd_idx] * tab.lin_mask
-    qd_ang = joint_qd[..., tab.ang_qd_idx] * tab.ang_mask
-    A_lin, A_ang = tab.A_lin, tab.A_ang                        # (J, 3, 3)
-
-    pos = (q_lin[..., None] * A_lin).sum(-2)
-    vel_v = (qd_lin[..., None] * A_lin).sum(-2)
-    # intrinsic axis transport for multi-axis joints
+def angular_axes(tab, joint_q: torch.Tensor):
+    """Intrinsic axis transport of every joint's angular axes: the axes
+    a0, a1, a2 ``(..., J, 3)`` in the parent-anchor frame, each rotated by
+    the coordinates before it (``r10 = qfromaa(a1, q1) r0``, the JAX
+    package's order), and the joint rotation ``(..., J, 4)``."""
+    q_ang = joint_q[..., tab.ang_q_idx] * tab.ang_mask        # (..., J, 3)
+    A_ang = tab.A_ang                                          # (J, 3, 3)
     a0 = A_ang[:, 0].expand(q_ang.shape)
     r0 = quat_from_axis_angle(a0, q_ang[..., 0])
     a1 = quat_rotate(r0, A_ang[:, 1])
     r10 = quat_mul(quat_from_axis_angle(a1, q_ang[..., 1]), r0)
     a2 = quat_rotate(r10, A_ang[:, 2])
     rot = quat_mul(quat_from_axis_angle(a2, q_ang[..., 2]), r10)
+    return (a0, a1, a2), rot
+
+
+def joint_motion(tab, joint_q: torch.Tensor, joint_qd: torch.Tensor):
+    """Local joint transforms ``(..., J, 7)`` and twists ``(..., J, 6)`` in
+    the parent-anchor frame, for all joints at once."""
+    qj = joint_q[..., tab.q_idx] * tab.q_mask                 # (..., J, 7)
+    qdj = joint_qd[..., tab.qd_idx] * tab.qd_mask             # (..., J, 6)
+    q_lin = joint_q[..., tab.lin_q_idx] * tab.lin_mask        # (..., J, 3)
+    qd_lin = joint_qd[..., tab.lin_qd_idx] * tab.lin_mask
+    qd_ang = joint_qd[..., tab.ang_qd_idx] * tab.ang_mask
+    A_lin = tab.A_lin                                          # (J, 3, 3)
+
+    pos = (q_lin[..., None] * A_lin).sum(-2)
+    vel_v = (qd_lin[..., None] * A_lin).sum(-2)
+    (a0, a1, a2), rot = angular_axes(tab, joint_q)
     vel_w = (a0 * qd_ang[..., 0:1] + a1 * qd_ang[..., 1:2]
              + a2 * qd_ang[..., 2:3])
 

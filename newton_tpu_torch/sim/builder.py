@@ -2,12 +2,13 @@
 
 Port of the subset of ``newton_tpu/sim/builder.py`` that the gymnasium ant
 and humanoid MJCF files and the MPM path drive: bodies, one articulation,
-free/revolute/fixed joints, plane/sphere/capsule shapes with density-driven
-mass, particles, MJCF-style collision filtering, the static candidate
-contact pairs with their slot layout, and ``finalize`` onto an explicit
-device. Host storage is float64 numpy, like the JAX builder; the
-candidate-pair order and slot offsets are the JAX builder's exactly,
-because the solvers' contact rows follow them.
+free/revolute/fixed joints and D6 joints with angular axes, fixed tendons,
+plane/sphere/capsule shapes with density-driven mass, particles,
+MJCF-style collision filtering, the static candidate contact pairs with
+their slot layout, and ``finalize`` onto an explicit device. Host storage
+is float64 numpy, like the JAX builder; the candidate-pair order and slot
+offsets are the JAX builder's exactly, because the solvers' contact rows
+follow them.
 """
 
 from __future__ import annotations
@@ -48,7 +49,8 @@ from .model import (
 
 __all__ = ["ModelBuilder", "ShapeConfig", "JointDofConfig"]
 
-_JOINT_TYPES = (JointType.FREE, JointType.REVOLUTE, JointType.FIXED)
+_JOINT_TYPES = (JointType.FREE, JointType.REVOLUTE, JointType.FIXED,
+                JointType.D6)
 _SHAPE_TYPES = (GeoType.PLANE, GeoType.SPHERE, GeoType.CAPSULE)
 
 
@@ -178,6 +180,13 @@ class ModelBuilder:
         self.articulation_start: List[int] = []
         self.articulation_key: List[str] = []
 
+        # fixed tendons: per entry a joint and the axis within it
+        self.tendon_joints: List[List[int]] = []
+        self.tendon_axes: List[List[int]] = []
+        self.tendon_coefs: List[List[float]] = []
+        self.tendon_params: List[Tuple[float, float, float]] = []  # ke,kd,L0
+        self.tendon_key: List[str] = []
+
         # particles; the port's builder has no world contexts, so every
         # particle is global (world -1), as the reference's outside one
         self.particle_q: List[np.ndarray] = []
@@ -244,18 +253,26 @@ class ModelBuilder:
         return idx
 
     def add_joint(self, joint_type: JointType, parent: int, child: int,
+                  linear_axes: Optional[Sequence[JointDofConfig]] = None,
                   angular_axes: Optional[Sequence[JointDofConfig]] = None,
                   xform_p=None, xform_c=None, key: Optional[str] = None,
                   collision_filter_parent: bool = True) -> int:
-        """Free, revolute or fixed joint between ``parent`` (-1 = world) and
-        ``child``."""
+        """Free, revolute, fixed or D6 joint between ``parent`` (-1 =
+        world) and ``child``. A D6 joint takes 1-3 angular axes, each a dof
+        with its own limits, armature and gains; linear axes raise."""
         joint_type = JointType(joint_type)
         if joint_type not in _JOINT_TYPES:
             raise NotImplementedError(
                 f"joint type {joint_type.name} is not ported yet")
+        if linear_axes:
+            raise NotImplementedError(
+                "joints with linear axes (prismatic, D6 slides) are not "
+                "ported yet")
         axes = list(angular_axes or [])
         if joint_type == JointType.REVOLUTE and len(axes) != 1:
             raise ValueError("a revolute joint takes exactly one axis")
+        if joint_type == JointType.D6 and not 1 <= len(axes) <= 3:
+            raise ValueError("a D6 joint takes one to three angular axes")
         if joint_type == JointType.FIXED:
             axes = []
         dof_count, coord_count = joint_type.dof_count(len(axes))
@@ -328,6 +345,38 @@ class ModelBuilder:
         return self.add_joint(JointType.FREE, parent, child,
                               angular_axes=[cfg], xform_p=xform_p,
                               xform_c=xform_c, key=key)
+
+    def add_tendon_fixed(self, joints: Sequence[int],
+                         coefs: Sequence[float], stiffness: float = 0.0,
+                         damping: float = 0.0, rest_length: float = 0.0,
+                         key: Optional[str] = None,
+                         axes: Optional[Sequence[int]] = None) -> int:
+        """Fixed tendon: length L = sum coef_i * q_i. Passive force
+        -ke (L - L0) - kd Ldot plus ``control.tendon_f`` maps back to the
+        dofs as tau_i += coef_i * f (the JAX builder's signature).
+
+        Entry i is axis ``axes[i]`` (default 0) of joint ``joints[i]``; a
+        joint with more than one dof needs its axis named, since its first
+        coordinate is not the hinge an MJCF tendon names."""
+        joints = [int(j) for j in joints]
+        named = axes is not None
+        axes = [int(a) for a in axes] if named else [0] * len(joints)
+        if len(coefs) != len(joints) or len(axes) != len(joints):
+            raise ValueError("add_tendon_fixed: joints, coefs and axes "
+                             "differ in length")
+        for j, a in zip(joints, axes):
+            n = self.joint_qd_start[j + 1] - self.joint_qd_start[j]
+            if (n > 1 and not named) or not 0 <= a < n:
+                raise ValueError(f"add_tendon_fixed: joint {j} has {n} "
+                                 f"dofs; name the axis of each entry")
+        idx = len(self.tendon_params)
+        self.tendon_joints.append(joints)
+        self.tendon_axes.append(axes)
+        self.tendon_coefs.append([float(c) for c in coefs])
+        self.tendon_params.append((float(stiffness), float(damping),
+                                   float(rest_length)))
+        self.tendon_key.append(key or f"tendon_{idx}")
+        return idx
 
     def _filter_body_pair(self, body_a: int, body_b: int):
         """Disable collision between every shape of two bodies."""
@@ -628,6 +677,21 @@ class ModelBuilder:
                                  sb[np.maximum(st.slot_shape1, 0)],
                                  -1).astype(i32)
 
+        # fixed tendons, padded to the longest with coef 0 at coordinate
+        # and dof 0 (the JAX builder's layout); an entry is its axis's own
+        # coordinate and dof
+        st.tendon_count = len(self.tendon_params)
+        K = max((len(js) for js in self.tendon_joints), default=1)
+        st.tendon_coord = np.zeros((st.tendon_count, K), dtype=i32)
+        st.tendon_dof = np.zeros((st.tendon_count, K), dtype=i32)
+        st.tendon_coef = np.zeros((st.tendon_count, K))
+        for t, (js, ax, cs) in enumerate(zip(
+                self.tendon_joints, self.tendon_axes, self.tendon_coefs)):
+            for k, (j, a, c) in enumerate(zip(js, ax, cs)):
+                st.tendon_coord[t, k] = self.joint_q_start[j] + a
+                st.tendon_dof[t, k] = self.joint_qd_start[j] + a
+                st.tendon_coef[t, k] = c
+
         # custom attribute arrays
         custom = {}
         for name, (spec, values) in self.custom_attributes.items():
@@ -708,6 +772,7 @@ class ModelBuilder:
             joint_q0=f32(self.joint_q),
             joint_target_q0=f32(self.joint_target_q),
             gravity=f32([[0.0, 0.0, self.gravity]]),
+            tendon_params=f32(self.tendon_params, (0, 3)),
             particle_q=stack(self.particle_q, 3),
             particle_qd=stack(self.particle_qd, 3),
             particle_mass=f32(pmass),

@@ -3,7 +3,7 @@
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -20,6 +20,7 @@ class Control:
         joint_target_q: position targets ``(..., joint_coord_count)``.
         joint_target_qd: velocity targets ``(..., joint_dof_count)``.
         joint_f: generalized force input ``(..., joint_dof_count)``.
+        tendon_f: force added to each fixed tendon ``(..., T)``, or None.
         custom: namespaced solver controls (``mjc:ctrl``: MJCF actuator
             inputs ``(..., A)``).
     """
@@ -27,6 +28,7 @@ class Control:
     joint_target_q: torch.Tensor
     joint_target_qd: torch.Tensor
     joint_f: torch.Tensor
+    tendon_f: Optional[torch.Tensor] = None
     custom: Dict[str, Any] = field(default_factory=dict)
 
     def to(self, device) -> "Control":

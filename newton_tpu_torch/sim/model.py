@@ -3,7 +3,7 @@
 ``Model`` is a dataclass of tensors on one device; ``ModelStructure`` holds
 the host-side numpy topology (counts, joint tree, candidate contact pairs,
 actuation tables) that the solvers turn into static index tensors once, at
-construction. The port carries the fields the ant and MPM paths read; the
+construction. The port carries the fields the robot and MPM paths read; the
 names match the JAX package's so the bridge (utils/bridge.py) maps them
 1:1.
 """
@@ -97,6 +97,11 @@ class ModelStructure:
         self.slot_body0 = np.zeros(0, dtype=np.int32)
         self.slot_body1 = np.zeros(0, dtype=np.int32)
 
+        # fixed tendons (T, K): coordinate, dof and coefficient per entry
+        self.tendon_coord = np.zeros((0, 1), dtype=np.int32)
+        self.tendon_dof = np.zeros((0, 1), dtype=np.int32)
+        self.tendon_coef = np.zeros((0, 1))
+
         self.mjc_actuation = None
         self.mjc_options: Dict[str, Any] = {}
         self.custom_specs: Dict[str, AttributeSpec] = {}
@@ -113,7 +118,7 @@ MODEL_FLOAT_FIELDS = (
     "joint_target_ke", "joint_target_kd", "joint_limit_lower",
     "joint_limit_upper", "joint_limit_ke", "joint_limit_kd",
     "joint_friction", "joint_effort_limit", "joint_velocity_limit",
-    "joint_qd0", "joint_q0", "joint_target_q0", "gravity",
+    "joint_qd0", "joint_q0", "joint_target_q0", "gravity", "tendon_params",
     "particle_q", "particle_qd", "particle_mass", "particle_inv_mass",
     "particle_radius",
 )
@@ -169,6 +174,7 @@ class Model:
     joint_q0: torch.Tensor        # (Q,)
     joint_target_q0: torch.Tensor  # (Q,)
     gravity: torch.Tensor         # (W, 3)
+    tendon_params: torch.Tensor   # (T, 3) ke, kd, rest length
     particle_q: torch.Tensor      # (N, 3) initial positions
     particle_qd: torch.Tensor     # (N, 3)
     particle_mass: torch.Tensor   # (N,)
@@ -226,4 +232,6 @@ class Model:
         return Control(joint_target_q=self.joint_target_q0.clone(),
                        joint_target_qd=torch.zeros_like(self.joint_qd0),
                        joint_f=torch.zeros_like(self.joint_qd0),
+                       tendon_f=self.tendon_params.new_zeros(
+                           self.tendon_params.shape[0]),
                        custom=self._custom_for(AttributeAssignment.CONTROL))

@@ -4,10 +4,11 @@
 The JAX package restates the per-env step in a lanes-minor transposed
 layout for the TPU; the port keeps the env axis W leading, ``(W, ...)``,
 with vectors as trailing ``3``/``4``/``7`` axes. The stages run in the
-reference's order: dof subspace, spatial inertia, RNEA bias, applied and
-external forces, MJCF actuation, CRBA, the Cholesky kernel, the contact
-rows and the PGS kernel (or the limits-only solve without contacts), the
-velocity clips, coordinate integration and FK. Every index comes from the
+reference's order: dof subspace, spatial inertia, RNEA bias, applied
+(PD, fixed tendons) and external forces, MJCF actuation, CRBA, the
+Cholesky kernel, the contact rows (top-K compacted) and the PGS kernel
+(or the limits-only solve without contacts), the velocity clips,
+coordinate integration and FK. Every index comes from the
 solver's device tables (``solver.tables``).
 """
 
@@ -29,25 +30,31 @@ from ...math import (
     transform_multiply,
     velocity_at_point,
 )
-from ...sim.articulation import fk_bodies
+from ...sim.articulation import angular_axes, fk_bodies
 from ...sim.state import State
 from .actuation import actuator_forces
 from .linalg import chol_inv_solve, chol_inv_solve_plain
 from .pgs import pgs_solve_fused, pgs_solve_fused_plain
 
-__all__ = ["step_batched"]
+__all__ = ["step_batched", "compaction_indices"]
 
 
 def _dot(a, b):
     return (a * b).sum(-1)
 
 
-def _dof_subspace(t, body_q):
+def _dof_subspace(t, body_q, q):
     """World-frame motion subspace of every dof at the origin: (v_o, w),
-    each (W, D, 3)."""
+    each (W, D, 3). Angular dofs of multi-axis joints use their axes
+    transported by the coordinates before them, as FK does."""
     X_wp = torch.where(t.dof_hasp, body_q[:, t.dof_parent], t.identity)
     X_pj = transform_multiply(X_wp, t.dof_X_p)
-    axis_w = quat_rotate(X_pj[..., 3:7], t.model_axis)
+    axis = t.model_axis
+    if t.ang_kin is not None:
+        axes, _ = angular_axes(t.ang_kin, q)
+        tr = torch.stack(axes, dim=-2)[:, t.dof_joint, t.dof_ang_slot]
+        axis = torch.where(t.dof_is_ang, tr, axis)
+    axis_w = quat_rotate(X_pj[..., 3:7], axis)
     cb = body_q[:, t.dof_body]
     com_w = cb[..., 0:3] + quat_rotate(cb[..., 3:7], t.dof_com)
     anchor = torch.where(t.dof_is_com, com_w, X_pj[..., 0:3])
@@ -106,8 +113,10 @@ def _external_tau(t, body_f, x_b, v_o, w_o):
 
 
 def _applied_tau(t, q, qd, control):
-    """Joint forces and PD drives; the damping gains go implicit into
-    M + dt*Kd, so the rhs carries only kd * target_qd (MuJoCo Euler)."""
+    """Joint forces, PD drives and fixed-tendon forces. The PD damping
+    gains go implicit into M + dt*Kd, so the rhs carries only
+    kd * target_qd (MuJoCo Euler); tendon damping stays explicit, as in
+    the JAX batched step."""
     tau = torch.zeros_like(qd)
     kd_implicit = torch.zeros_like(qd)
     if control is None:
@@ -118,6 +127,13 @@ def _applied_tau(t, q, qd, control):
         pd = t.pd_ke * err + t.pd_kd * control.joint_target_qd[:, t.lin_dof]
         tau[:, t.lin_dof] = tau[:, t.lin_dof] + pd
         kd_implicit[:, t.lin_dof] = kd_implicit[:, t.lin_dof] + t.pd_kd
+    if t.tendons:
+        L = q @ t.tendon_Cq.T                                # (W, T)
+        Ld = qd @ t.tendon_Cd.T
+        f = -t.tendon_ke * (L - t.tendon_L0) - t.tendon_kd * Ld
+        if control.tendon_f is not None:
+            f = f + control.tendon_f
+        tau = tau + f @ t.tendon_Cd
     return tau, kd_implicit
 
 
@@ -135,31 +151,50 @@ def _crba(t, v_o, w_o, x_b, Iw, mass):
     return M + torch.diag_embed(t.armature)
 
 
+def compaction_indices(score, K):
+    """Slots of the K highest scores per env (W, K), highest first, ties
+    to the lower slot index: a stable descending sort, the order
+    ``jax.lax.top_k`` gives (``torch.topk`` promises no tie order)."""
+    return torch.sort(score, dim=1, descending=True, stable=True)[1][:, :K]
+
+
 def _contact_system(solver, t, Minv, qd_g, v_o, w_o, body_qd, x_b, q,
                     contacts, dt):
     """Contact and limit rows of the PGS system: J (W, 3c, d), b and act
-    (W, r), mu (W, c) in BLOCK row order [n | t1 | t2 | lim-lo | lim-hi]."""
-    c = t.slots.shape[0]
+    (W, r), mu (W, c) in BLOCK row order [n | t1 | t2 | lim-lo | lim-hi].
+    With a cap K below the slot count, each env keeps its K slots of
+    highest score active * max(1 + depth, 0.5) (batched.py:684-736 of the
+    JAX package), after the restitution pre-velocity of every slot."""
     nrm = contacts.rigid_contact_normal[:, t.slots]          # (W, c, 3)
     pos = contacts.rigid_contact_position[:, t.slots]
     depth = contacts.rigid_contact_depth[:, t.slots]
     active = contacts.rigid_contact_mask[:, t.slots]
-    W = nrm.shape[0]
+    W, c = active.shape
 
     def vel_of(gb, on):
         return torch.where(on, velocity_at_point(body_qd[:, gb],
                                                  pos - x_b[:, gb]), 0.0)
 
     vn_pre = _dot(nrm, vel_of(t.gb1, t.on1) - vel_of(t.gb0, t.on0))
+    sign, mu, e_rest = t.sign, t.mu.expand(W, c), t.e_rest
+    if t.cap < c:
+        score = active.to(depth.dtype) * torch.clamp(1.0 + depth, min=0.5)
+        idx = compaction_indices(score, t.cap)               # (W, K)
+        i3 = idx[..., None].expand(-1, -1, 3)
+        nrm, pos = nrm.gather(1, i3), pos.gather(1, i3)
+        depth, active, vn_pre = (x.gather(1, idx)
+                                 for x in (depth, active, vn_pre))
+        sign, mu, e_rest = t.sign[idx], t.mu[idx], t.e_rest[idx]
+        c = t.cap
 
     t1, t2 = orthonormal_basis(nrm)
     vg, wg = v_o[:, t.di], w_o[:, t.di]                      # (W, d, 3)
     Vp = vg[:, None] + cross(wg[:, None], pos[:, :, None])   # (W, c, d, 3)
-    J = torch.cat([_dot(dirs[:, :, None], Vp) * t.sign
+    J = torch.cat([_dot(dirs[:, :, None], Vp) * sign
                    for dirs in (nrm, t1, t2)], dim=1)        # (W, 3c, d)
 
     diag_scale = 1.0 + (1.0 - solver.impratio) / solver.impratio
-    rest = torch.where(vn_pre < -2.0 * 9.81 * dt, -t.e_rest * vn_pre, 0.0)
+    rest = torch.where(vn_pre < -2.0 * 9.81 * dt, -e_rest * vn_pre, 0.0)
     pen = torch.clamp(solver.baumgarte / dt
                       * torch.clamp(depth - solver.contact_slop, min=0.0),
                       max=solver.depenetration_velocity)
@@ -180,7 +215,7 @@ def _contact_system(solver, t, Minv, qd_g, v_o, w_o, body_qd, x_b, q,
     b_rows = torch.cat(b_parts, dim=1)
     act3 = torch.cat(act_parts, dim=1)
     lam0 = torch.zeros_like(b_rows)
-    mu = t.mu.expand(W, c).contiguous()
+    mu = mu.contiguous()
     kw = dict(c=c, ld=t.ld_i32, iters=solver.contact_iterations,
               omega=solver.contact_relaxation,
               use_cone=solver.friction_cone == "cone",
@@ -241,7 +276,7 @@ def step_batched(solver, state_b: State, control_b=None, contacts_b=None,
     q, qd = state_b.joint_q, state_b.joint_qd
     body_q, body_qd = state_b.body_q, state_b.body_qd
 
-    v_o, w_o = _dof_subspace(t, body_q)
+    v_o, w_o = _dof_subspace(t, body_q, q)
     x_b, Iw = _spatial_inertia(model, body_q)
     tau_bias = _bias_forces(t, model, body_qd, v_o, w_o, x_b, Iw)
     tau, kd_implicit = _applied_tau(t, q, qd, control_b)

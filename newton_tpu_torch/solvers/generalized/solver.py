@@ -11,7 +11,8 @@ index tensors on the model's device, so the substep builds nothing from
 numpy and makes no host sync.
 
 The port covers the single-articulation, static-contact, Euler path the
-gymnasium ant runs; everything else raises ``NotImplementedError``.
+gymnasium ant and humanoid run (D6 hinge joints, fixed tendons, top-K
+contact compaction); everything else raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -116,7 +117,7 @@ class SolverFeatherstone:
             raise ValueError(f"unknown friction_cone {friction_cone!r}")
         st = model.structure
         for what, n in (("equality constraints", st.eq_count),
-                        ("tendons", st.tendon_count + st.sten_count)):
+                        ("spatial tendons", st.sten_count)):
             if n:
                 raise NotImplementedError(f"{what} are not ported yet")
 
@@ -137,9 +138,6 @@ class SolverFeatherstone:
         if len(gc.groups) != 1 or gc.groups[0].n != 1:
             raise NotImplementedError(
                 "multi-articulation worlds are not ported yet")
-        if (gc.dof_ang_slot > 0).any():
-            raise NotImplementedError(
-                "multi-axis (D6) joints are not ported yet")
         self.contact_plans = _plan_group_contacts(st, gc.groups)
         g = gc.groups[0]
         ld, lc = [], []
@@ -155,11 +153,6 @@ class SolverFeatherstone:
                 lc.append(int(cglob) - int(g.coord_idx[0][0]))
         self.limit_plans = [(np.asarray(ld, dtype=np.int32),
                              np.asarray(lc, dtype=np.int32))]
-        plan = self.contact_plans[0]
-        if plan is not None and self._plan_cap(plan.c) < plan.c:
-            raise NotImplementedError(
-                f"contact compaction (top-{self._plan_cap(plan.c)} of "
-                f"{plan.c} slots) is not ported yet")
         au = getattr(st, "mjc_actuation", None)
         self.actuation = (ActuationTables(au, model.device)
                           if au is not None and au.n > 0 else None)
@@ -199,7 +192,15 @@ class SolverFeatherstone:
         t.dof_parent = L(np.maximum(st.joint_parent[dj], 0))
         t.dof_hasp = B(st.joint_parent[dj] >= 0)[:, None]
         t.dof_X_p = model.joint_X_p[L(dj)]
-        t.model_axis = model.joint_axis      # single-axis joints: untransported
+        t.model_axis = model.joint_axis
+        # multi-axis joints: each angular dof takes its transported axis
+        # (slot 0-2 of its joint, sim/articulation.py:angular_axes)
+        t.ang_kin = None
+        if (gc.dof_ang_slot > 0).any():
+            t.ang_kin = kin
+            t.dof_joint = L(dj)
+            t.dof_ang_slot = L(np.maximum(gc.dof_ang_slot, 0))
+            t.dof_is_ang = B(gc.dof_ang_slot >= 0)[:, None]
         t.dof_body = L(gc.dof_body)
         t.dof_com = model.body_com[t.dof_body]
         t.dof_is_com = B(gc.dof_anchor_is_com)[:, None]
@@ -219,13 +220,28 @@ class SolverFeatherstone:
         t.lin_idx, t.lin_dof = L(gc.lin_coord_idx), L(gc.lin_coord_dof)
         t.pd_ke = model.joint_target_ke[t.lin_dof]
         t.pd_kd = model.joint_target_kd[t.lin_dof]
+        # fixed tendons as dense maps: L = q C_q^T, Ldot = qd C_d^T,
+        # tau += f C_d (the padding entries carry coef 0)
+        T = st.tendon_count
+        t.tendons = T > 0
+        if T:
+            Cq = np.zeros((T, st.joint_coord_count))
+            Cd = np.zeros((T, st.joint_dof_count))
+            for i in range(T):
+                np.add.at(Cq[i], st.tendon_coord[i], st.tendon_coef[i])
+                np.add.at(Cd[i], st.tendon_dof[i], st.tendon_coef[i])
+            t.tendon_Cq, t.tendon_Cd = F(Cq), F(Cd)
+            t.tendon_ke, t.tendon_kd, t.tendon_L0 = \
+                model.tendon_params.unbind(1)
         # group row
         g = gc.groups[0]
         t.di, t.bi = L(g.dof_idx[0]), L(g.body_idx[0])
         t.anc = F(g.anc)                                   # (b, d)
         t.armature = model.joint_armature[t.di]
-        # contact rows
+        # contact rows: per-slot tables over all c slots; with K < c the
+        # step gathers the top-K slots of each env from them
         plan = self.contact_plans[0]
+        t.cap = None if plan is None else self._plan_cap(plan.c)
         if plan is not None:
             anc = np.asarray(g.anc, dtype=np.float32)
             zero = np.zeros((g.d,), dtype=np.float32)

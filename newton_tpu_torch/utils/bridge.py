@@ -48,6 +48,7 @@ STRUCTURE_FIELDS = (
     "candidate_pairs", "candidate_pair_slots", "rigid_contact_max",
     "slot_shape0", "slot_shape1", "slot_body0", "slot_body1",
     "mjc_options", "particle_count", "particle_world",
+    "tendon_coord", "tendon_dof", "tendon_coef",
 )
 ACTUATION_FIELDS = ("n", "dof", "coord", "tendon", "sten", "gear",
                     "dyntype", "dynprm", "gaintype", "gainprm", "biastype",
@@ -56,7 +57,8 @@ ACTUATION_FIELDS = ("n", "dof", "coord", "tendon", "sten", "gear",
                     "lengthrange", "acc0")
 STATE_FIELDS = ("body_q", "body_qd", "body_f", "joint_q", "joint_qd",
                 "particle_q", "particle_qd", "particle_f")
-CONTROL_FIELDS = ("joint_target_q", "joint_target_qd", "joint_f")
+CONTROL_FIELDS = ("joint_target_q", "joint_target_qd", "joint_f",
+                  "tendon_f")
 CONTACT_FIELDS = ("rigid_contact_mask", "rigid_contact_shape0",
                   "rigid_contact_shape1", "rigid_contact_position",
                   "rigid_contact_normal", "rigid_contact_depth",
@@ -145,14 +147,17 @@ def state_to_numpy(state: State) -> dict:
 
 
 def control_from_numpy(d: Dict[str, Any], device) -> Control:
-    return Control(**{n: _tensor(d[n], device, torch.float32)
+    """``tendon_f`` may be missing or None (no tendon force input)."""
+    return Control(**{n: None if d.get(n) is None
+                      else _tensor(d[n], device, torch.float32)
                       for n in CONTROL_FIELDS},
                    custom={k: _tensor(v, device)
                            for k, v in d.get("custom", {}).items()})
 
 
 def control_to_numpy(control: Control) -> dict:
-    out = {n: _numpy(getattr(control, n)) for n in CONTROL_FIELDS}
+    out = {n: None if getattr(control, n) is None
+           else _numpy(getattr(control, n)) for n in CONTROL_FIELDS}
     out["custom"] = {k: _numpy(v) for k, v in control.custom.items()}
     return out
 

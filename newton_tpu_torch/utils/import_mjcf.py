@@ -1,12 +1,15 @@
-"""MJCF (MuJoCo XML) importer: the subset the gymnasium ant drives.
+"""MJCF (MuJoCo XML) importer: the subset the gymnasium ant and humanoid
+drive.
 
 Port of ``newton_tpu/utils/import_mjcf.py`` (``parse_mjcf``): compiler
 angle units, ``<option>`` (captured into ``builder.mjc_options``), default
 classes, ``<custom><numeric name="init_qpos">`` (MuJoCo's wxyz free-joint
-quaternion converted to xyzw), bodies with free or single hinge joints
-(limits, armature, damping, stiffness), plane/sphere/capsule geoms with
-contype/conaffinity, and motor/position/velocity actuators into the
-``MJCActuation`` tables.
+quaternion converted to xyzw), bodies with a free joint or hinge joints
+(limits, armature, damping, stiffness; several hinges in one body become
+one D6 joint anchored at the first hinge's ``pos``), plane/sphere/capsule
+geoms with contype/conaffinity, ``<tendon><fixed>`` couplings of hinges,
+and motor/position/velocity actuators on hinges into the ``MJCActuation``
+tables. Actuators and tendons address each hinge's own dof and coordinate.
 
 Visual-only elements (lights, cameras, textures, materials, ``<visual>``,
 ``<size>``) are skipped by name. Every other element raises
@@ -44,7 +47,7 @@ from ..solvers.generalized.actuation import (
 __all__ = ["parse_mjcf"]
 
 _TOP_LEVEL = {"compiler", "option", "custom", "default", "asset",
-              "worldbody", "actuator"}
+              "worldbody", "actuator", "tendon"}
 _VISUAL_ONLY = {"visual", "size", "light", "camera", "texture", "material"}
 _BODY_CHILDREN = {"body", "geom", "joint", "freejoint"}
 
@@ -160,6 +163,7 @@ def parse_mjcf(builder, source: str):
                 _unsupported(ch.tag, "asset")
 
     name_to_body: Dict[str, int] = {"world": -1}
+    name_to_joint: Dict[str, tuple] = {}      # hinge -> (joint, axis)
     joint_dof_start: Dict[str, int] = {}
     joint_coord_start: Dict[str, int] = {}
 
@@ -265,6 +269,16 @@ def parse_mjcf(builder, source: str):
                     armature=_parse_float(a.get("armature"), 0.0),
                     stiffness=_parse_float(a.get("stiffness"), 0.0))
 
+    def hinge_cfg(j) -> JointDofConfig:
+        lo, hi = to_rad(j["range"][0]), to_rad(j["range"][1])
+        return JointDofConfig(
+            axis=j["axis"],
+            limit_lower=lo if j["limited"] else -MAXVAL,
+            limit_upper=hi if j["limited"] else MAXVAL,
+            armature=j["armature"],
+            target_kd=j["damping"],    # joint damping: drive to qd = 0
+            target_ke=j["stiffness"])
+
     def parse_body(elem: ET.Element, parent_idx: int, X_parent_world,
                    body_class):
         for ch in elem:
@@ -284,33 +298,36 @@ def parse_mjcf(builder, source: str):
         jd_start = builder.joint_dof_count
         jq_start = builder.joint_coord_count
         if not joints:
-            builder.add_joint_fixed(parent_idx, body_idx, xform_p=X_rel,
-                                    key=name + "_fixed")
-        elif len(joints) > 1:
-            raise NotImplementedError(
-                f"MJCF body {name!r} has {len(joints)} joints; multi-joint "
-                "bodies (D6) are not supported by the port yet")
-        elif joints[0]["type"] == "free":
-            builder.add_joint_free(body_idx, parent=parent_idx,
-                                   key=joints[0]["name"])
+            jidx = builder.add_joint_fixed(parent_idx, body_idx,
+                                           xform_p=X_rel, key=name + "_fixed")
+        elif any(j["type"] == "free" for j in joints):
+            if len(joints) > 1:
+                raise NotImplementedError(
+                    f"MJCF body {name!r} combines a free joint with others; "
+                    "not supported by the port yet")
+            jidx = builder.add_joint_free(body_idx, parent=parent_idx,
+                                          key=joints[0]["name"])
         else:
-            j = joints[0]
-            lo, hi = to_rad(j["range"][0]), to_rad(j["range"][1])
-            cfg = JointDofConfig(
-                axis=j["axis"],
-                limit_lower=lo if j["limited"] else -MAXVAL,
-                limit_upper=hi if j["limited"] else MAXVAL,
-                armature=j["armature"],
-                target_kd=j["damping"],    # joint damping: drive to qd = 0
-                target_ke=j["stiffness"])
-            anchor = np_transform(j["pos"])
-            builder.add_joint(JointType.REVOLUTE, parent_idx, body_idx,
-                              angular_axes=[cfg],
-                              xform_p=np_transform_multiply(X_rel, anchor),
-                              xform_c=anchor, key=j["name"])
-        if joints and joints[0]["name"]:
-            joint_dof_start[joints[0]["name"]] = jd_start
-            joint_coord_start[joints[0]["name"]] = jq_start
+            if any(not np.array_equal(j["pos"], joints[0]["pos"])
+                   for j in joints):
+                raise NotImplementedError(
+                    f"MJCF body {name!r}: hinges at different positions in "
+                    "one body are not supported by the port yet")
+            anchor = np_transform(joints[0]["pos"])
+            jidx = builder.add_joint(
+                JointType.REVOLUTE if len(joints) == 1 else JointType.D6,
+                parent_idx, body_idx,
+                angular_axes=[hinge_cfg(j) for j in joints],
+                xform_p=np_transform_multiply(X_rel, anchor),
+                xform_c=anchor, key=joints[0]["name"])
+        # each MJCF hinge's own dof and coordinate, for actuators and
+        # tendons (a free joint takes 6 dofs and 7 coordinates)
+        for k, j in enumerate(joints):
+            if j["name"]:
+                joint_dof_start[j["name"]] = jd_start + k
+                joint_coord_start[j["name"]] = jq_start + k
+                if j["type"] == "hinge":
+                    name_to_joint[j["name"]] = (jidx, k)
         for g in elem.findall("geom"):
             add_geom(g, body_idx, childclass)
         for child in elem.findall("body"):
@@ -327,6 +344,10 @@ def parse_mjcf(builder, source: str):
         add_geom(g, -1, None)
     for body in worldbody.findall("body"):
         parse_body(body, -1, np_transform_identity(), None)
+
+    tendon_root = root.find("tendon")
+    if tendon_root is not None:
+        _parse_tendons(builder, tendon_root, resolve_attrs, name_to_joint)
 
     act_root = root.find("actuator")
     if act_root is not None:
@@ -347,6 +368,37 @@ def parse_mjcf(builder, source: str):
                 joint_coord_start=joint_coord_start)
 
 
+def _parse_tendons(builder, tendon_root, resolve_attrs, name_to_joint):
+    """``<fixed>`` tendons over named hinges, each entry at its hinge's own
+    axis of the Newton joint."""
+    for fx in tendon_root:
+        if fx.tag != "fixed":
+            _unsupported(fx.tag, "tendon")
+        a = resolve_attrs(fx, "tendon", None)
+        for attr in ("limited", "range", "springlength", "frictionloss"):
+            if attr in a:
+                raise NotImplementedError(
+                    f"MJCF <fixed> tendon attribute {attr!r} is not "
+                    "supported by the port yet")
+        joints, axes, coefs = [], [], []
+        for jel in fx:
+            if jel.tag != "joint":
+                _unsupported(jel.tag, "fixed")
+            jn = jel.get("joint", "")
+            if jn not in name_to_joint:
+                raise ValueError(f"MJCF <fixed> tendon {fx.get('name')!r} "
+                                 f"names {jn!r}, which is not a hinge")
+            joints.append(name_to_joint[jn][0])
+            axes.append(name_to_joint[jn][1])
+            coefs.append(float(jel.get("coef", "1")))
+        if joints:
+            builder.add_tendon_fixed(
+                joints, coefs, axes=axes,
+                stiffness=_parse_float(a.get("stiffness"), 0.0),
+                damping=_parse_float(a.get("damping"), 0.0),
+                key=fx.get("name"))
+
+
 def _parse_actuators(builder, act_root, resolve_attrs, joint_dof_start,
                      joint_coord_start):
     """Motor/position/velocity actuators on hinge joints -> MJCActuation."""
@@ -362,6 +414,9 @@ def _parse_actuators(builder, act_root, resolve_attrs, joint_dof_start,
         if act.tag not in ("motor", "position", "velocity"):
             _unsupported(act.tag, "actuator")
         a = resolve_attrs(act, act.tag, None)
+        for trn in ("tendon", "site", "body", "jointinparent"):
+            if trn in a:
+                _unsupported(f"{act.tag} {trn}=...", "actuator")
         jname = a.get("joint")
         if jname is None or jname not in joint_dof_start:
             raise NotImplementedError(

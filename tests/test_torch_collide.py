@@ -89,5 +89,5 @@ def test_pair_function_matches_jax(name):
 
 def test_unported_pair_raises():
     from newton_tpu_torch.geometry.types import GeoType
-    with pytest.raises(NotImplementedError, match="CAPSULE-CAPSULE"):
-        t_np.contact_fn_for(int(GeoType.CAPSULE), int(GeoType.CAPSULE))
+    with pytest.raises(NotImplementedError, match="BOX-CAPSULE"):
+        t_np.contact_fn_for(int(GeoType.BOX), int(GeoType.CAPSULE))

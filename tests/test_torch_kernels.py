@@ -183,11 +183,13 @@ def test_chol_kernel_matches_plain(d):
 @pytest.mark.parametrize("c, nl, d, use_cone, W", [
     (25, 8, 14, False, 4096), (25, 8, 14, True, 4096),
     (25, 0, 14, False, 4096),
-    (192, 21, 23, False, 512)])      # humanoid uncompacted: > 48 KB smem
+    (32, 17, 23, False, 4096),       # humanoid compacted to the top 32
+    (192, 17, 23, False, 512)])      # humanoid uncompacted: > 48 KB smem
 def test_pgs_kernel_matches_plain(c, nl, d, use_cone, W):
-    """Ant shapes, and the humanoid's uncompacted system, which needs the
-    large-shared-memory launch; envs whose divergence-guard halvings
-    differ are counted (at most 0.1%) and left out of the tolerance."""
+    """Ant shapes, and the humanoid's compacted and uncompacted systems
+    (the latter needs the large-shared-memory launch); envs whose
+    divergence-guard halvings differ are counted (at most 0.1%) and left
+    out of the tolerance."""
     args = [torch.as_tensor(a, device="cuda")
             for a in _pgs_inputs(nl, c, nl, d, W)]
     kw = dict(c=c, ld=torch.arange(d - nl, d, dtype=torch.int32,
@@ -204,3 +206,52 @@ def test_pgs_kernel_matches_plain(c, nl, d, use_cone, W):
                                rtol=1e-3)
     with pytest.raises(TypeError):
         pgs.pgs_solve_fused(*args, **dict(kw, ld=kw["ld"].long()))
+
+
+@gpu
+@needs_cuda
+@pytest.mark.parametrize("cap", [None, 8, 0])
+def test_humanoid_substep_kernels_match_plain(cap):
+    """One humanoid substep through the kernels and one through their plain
+    versions from a lying pose (8-15 active contacts per env), at the
+    default cap of 32 slots, at 8 (compaction drops active contacts) and
+    uncompacted (all 192 slots, the large-shared-memory PGS launch); the
+    joint_q/body_q 2e-4 and joint_qd 5e-3 of the CPU parity tests. Envs
+    whose divergence-guard halvings differ are counted and left out."""
+    import newton_tpu_torch as nt
+    dev = torch.device("cuda")
+    b = nt.ModelBuilder()
+    b.add_mjcf(nt.ASSET_DIR + "/humanoid.xml")
+    m = b.finalize(dev)
+    solver = nt.SolverMuJoCo(m, iterations=8, integrator="euler",
+                             contact_cap=cap)
+    W = 512
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    q = m.joint_q0.expand(W, -1) + 0.02 * torch.randn(
+        W, 24, generator=gen, device=dev)
+    q[:, 2] = 0.1
+    q[:, 3:7] = torch.tensor([0.5 ** 0.5, 0.0, 0.0, 0.5 ** 0.5], device=dev)
+    qd = 0.1 * torch.randn(W, 23, generator=gen, device=dev)
+    s = nt.eval_fk(m, q, qd, nt.batch_state(m.state(), W))
+    c = m.control()
+    ctl = nt.Control(
+        joint_target_q=c.joint_target_q.expand(W, -1).clone(),
+        joint_target_qd=torch.zeros(W, 23, device=dev),
+        joint_f=torch.zeros(W, 23, device=dev),
+        custom={"mjc:ctrl": 0.8 * torch.rand(W, 17, generator=gen,
+                                             device=dev) - 0.4})
+    contacts = nt.CollisionPipeline(m).collide(s)
+    rec = {}
+    k = solver.step_batched(s, None, ctl, contacts, 1 / 240, record=rec)
+    p = solver.step_batched(s, None, ctl, contacts, 1 / 240, kernels=False)
+    args, kw = rec["pgs"]
+    h_k = pgs.pgs_solve_fused(*args, **kw, return_halvings=True)[2]
+    h_p = pgs.pgs_solve_fused_plain(*args, **kw, return_halvings=True)[2]
+    same = h_k == h_p
+    assert int((~same).sum()) <= max(W // 1000, 1)
+    for name, atol in (("joint_q", 2e-4), ("joint_qd", 5e-3),
+                       ("body_q", 2e-4)):
+        torch.testing.assert_close(getattr(k, name)[same],
+                                   getattr(p, name)[same], atol=atol,
+                                   rtol=atol)

@@ -161,11 +161,17 @@ def test_bridge_from_jax_model(ant):
     assert bool(torch.isfinite(out.joint_q).all())
 
 
-def test_humanoid_raises_naming_element():
-    """The humanoid is the next slice: its fixed tendons are not ported, and
-    the importer says so instead of dropping them."""
-    with pytest.raises(NotImplementedError, match="tendon"):
-        nt.ModelBuilder().add_mjcf(HUMANOID)
+def test_humanoid_raises_naming_element(tmp_path):
+    """The humanoid's fixed tendons import; a spatial tendon added to them
+    is not ported, and the importer says so instead of dropping it."""
+    with open(HUMANOID) as f:
+        text = f.read()
+    path = tmp_path / "humanoid_spatial.xml"
+    path.write_text(text.replace(
+        "<tendon>", '<tendon><spatial name="s"><site site="a"/></spatial>'))
+    nt.ModelBuilder().add_mjcf(HUMANOID)
+    with pytest.raises(NotImplementedError, match="spatial"):
+        nt.ModelBuilder().add_mjcf(str(path))
 
 
 @pytest.mark.parametrize("snippet, word", [
@@ -176,6 +182,11 @@ def test_humanoid_raises_naming_element():
     ('<worldbody><body><site name="s"/><geom size="0.1"/></body>'
      '</worldbody>', "site"),
     ('<equality/><worldbody/>', "equality"),
+    ('<worldbody><body><joint name="a" pos="0 0 0"/><joint name="b" '
+     'pos="0 0 0.1"/><geom size="0.1"/></body></worldbody>', "positions"),
+    ('<worldbody><body><joint name="a"/><geom size="0.1"/></body>'
+     '</worldbody><tendon><fixed name="t"><joint joint="a"/></fixed>'
+     '</tendon><actuator><motor tendon="t"/></actuator>', "tendon"),
 ])
 def test_unsupported_mjcf_raises(tmp_path, snippet, word):
     path = tmp_path / "m.xml"
