@@ -7,7 +7,10 @@ Phases, one line each:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: compiles the CUDA kernels in newton_tpu_torch/csrc with nvcc;
   3. B1: the Cholesky/solve/inverse kernel vs its plain PyTorch version,
-     W = 4096, d in {14, 23};
+     W = 4096, d in {14, 23}, elementwise (atol 1e-5, rtol 1e-4) and
+     normwise against a float64 solve (at most max(2 x the plain
+     version's error, 1e-5)); kernel, plain and torch.linalg.solve
+     (B1's library yardstick) timed at both sizes;
   4. B2: the fused PGS kernel vs its plain version at ant shapes (c = 25,
      nl = 8, d = 14, W = 4096) on random inputs (both friction cones, and
      nl = 0) and on inputs captured from a real ant substep with the root
@@ -54,17 +57,22 @@ Phases, one line each:
      (all 192 slots: B2's large-shared-memory launch); envs whose
      divergence-guard halvings differ are counted and left out. B1 and B2
      are held against their plain versions on the operands of those
-     substeps and timed at the humanoid's shapes (d = 23; c, nl = 32, 17
-     and 192, 17).
+     substeps (B1 within atol 1e-5, rtol 1e-4) and timed at the
+     humanoid's shapes (d = 23, with torch.linalg.solve beside it; c, nl =
+     32, 17 and 192, 17).
 It prints one JSON line listing the kernels (name, route, source,
-launches, error, times; B1 and B2 also with their humanoid launches and
-times), then the card line, then the result line
-``{"ok": true, "device": {...}}``. Any failed phase raises: exit code != 0
-and no result line. Without a CUDA device it exits 2 at once. A
-``[details]`` line carries the per-case errors, the throughput turns and
-the compiler's register report.
+launches, error, times, and each time's least possible time on an H100
+SXM at 700 W from ``kernel_cost``: bound_ms, bound_by, share_of_bound;
+library_ms where one PyTorch call computes the same function, else null
+with the reason; B1 and B2 also at the humanoid's shapes), then the card
+line, then the result line ``{"ok": true, "device": {...}}``. Any failed
+phase raises: exit code != 0 and no result line. Without a CUDA device it
+exits 2 at once. A ``[details]`` line carries the per-case errors, the
+throughput turns, the compiler's register report and, for B1 and B2 at
+each main-path shape, registers per thread and resident blocks per SM.
 """
 
+import functools
 import json
 import os
 import subprocess
@@ -77,6 +85,63 @@ DT = 1.0 / 240.0
 SUBSTEPS = 4
 FRAMES = 10
 ITERS = 8
+
+
+# published H100 SXM peaks at 700 W: HBM bytes/s, float32 FLOP/s outside
+# the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+
+
+def kernel_cost(name, W=1, **shape):
+    """(bytes, flops) one call of kernel ``name`` must move and do: each
+    input read once, each output written once, an FMA counted as 2 FLOPs,
+    divisions and square roots as 1. W envs (or one call's particles).
+
+    chol_inv_solve (d): reads Mi and rhs, writes Minv and x; the factor's
+        (d-1) d (d+1) / 6 FMAs and the substitutions' d (d-1) (d+1).
+    pgs_solve_fused (c, nl, d; iters = 8): reads J, Minv, qd, b, act,
+        lam0 and mu, writes lam, dqd and the int32 halvings (the per-call
+        ld vector is not per env); the MJ = J Minv assembly (3c d^2), diag
+        and v_free (2 x 3c d), spectral_iters + iters Delassus matvecs
+        (2 x 3c d + nl d each) and dqd (3c d + nl d).
+    mpm_p2g (N, C, res): reads base (N, 3) int32, w_ax (N, 3, 3) and vals
+        (N, C), writes the res^3 x C grid; 27 weight products (2 each) and
+        27 C FMAs per particle.
+    mpm_g2p (N, C, res): reads base, w_ax and the res^3 x C grid, writes
+        (N, C); the same operations."""
+    f = 4
+    if name == "chol_inv_solve":
+        d = shape["d"]
+        nbytes = 2 * (d * d + d) * f
+        fma = (d - 1) * d * (d + 1) // 6 + d * (d - 1) * (d + 1)
+        flops = 2 * fma + 2 * d * (d + 1) + d
+    elif name == "pgs_solve_fused":
+        c, nl, d = shape["c"], shape["nl"], shape["d"]
+        iters = shape.get("iters", 8)
+        r3, r = 3 * c, 3 * c + 2 * nl
+        spec = 3 if r < 192 else 8
+        nbytes = (r3 * d + d * d + d + 3 * r + c) * f + (r + d) * f + 4
+        fma = (r3 * d * d + 2 * r3 * d
+               + (spec + iters) * (2 * r3 * d + nl * d) + r3 * d + nl * d)
+        flops = 2 * fma
+    elif name in ("mpm_p2g", "mpm_g2p"):
+        n, ch, res = shape["N"], shape["C"], shape["res"]
+        particles = n * (3 * 4 + 9 * f + ch * f)
+        nbytes = particles + res ** 3 * ch * f
+        flops = n * (27 * 2 + 27 * ch * 2)
+        return nbytes, flops         # one call moves the whole grid once
+    else:
+        raise KeyError(name)
+    return W * nbytes, W * flops
+
+
+def bound_ms(nbytes, flops):
+    """(least time in ms on an H100 SXM at 700 W, "bytes" or
+    "operations"): the larger of bytes over HBM rate and FLOPs over the
+    float32 peak."""
+    t_b, t_f = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
 def card_line():
@@ -94,14 +159,23 @@ def close(a, b, atol, rtol):
     return ok, float(diff.max()) if diff.numel() else 0.0
 
 
-def time_ms(fn, n=50):
-    """Mean device time of one call, CUDA events around n calls."""
+def time_ms(fn, n=50, queued=False):
+    """Mean device time of one call, CUDA events around n calls. With
+    ``queued`` the stream is first held busy (a spin kernel) for longer
+    than the host takes to enqueue the n calls, so that a kernel shorter
+    than its wrapper's host-side cost is timed back to back on the device
+    and not at the host's launch rate."""
     import torch
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    if queued:
+        host = time.perf_counter()
+        fn()
+        host = time.perf_counter() - host
+        torch.cuda._sleep(int(spin_cycles_per_ms() * (2e3 * n * host + 5)))
     t0.record()
     for _ in range(n):
         fn()
@@ -110,13 +184,54 @@ def time_ms(fn, n=50):
     return t0.elapsed_time(t1) / n
 
 
+@functools.lru_cache(maxsize=None)
+def spin_cycles_per_ms():
+    """Cycles of torch.cuda._sleep per millisecond on this card."""
+    import torch
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(1000000)
+    t0.record()
+    torch.cuda._sleep(10000000)
+    t1.record()
+    torch.cuda.synchronize()
+    return 1e7 / t0.elapsed_time(t1)
+
+
+def solve_operand(Mi, rhs):
+    """[I | rhs] (W, d, d + 1): the right-hand sides that B1 solves for."""
+    import torch
+    n, d, _ = Mi.shape
+    eye = torch.eye(d, dtype=Mi.dtype, device=Mi.device).expand(n, d, d)
+    return torch.cat([eye, rhs[:, :, None]], dim=2).contiguous()
+
+
+def normwise_err(Minv, x, ref):
+    """Largest per-env ||[Minv | x] - ref||_F / ||ref||_F (ref float64)."""
+    import torch
+    got = torch.cat([Minv, x[:, :, None]], dim=2).double()
+    return float((torch.linalg.matrix_norm(got - ref)
+                  / torch.linalg.matrix_norm(ref)).max())
+
+
+def library_b1_ms(Mi, rhs):
+    """B1's yardstick: one torch.linalg.solve(Mi, [I | rhs]) returns Minv
+    and x; [I | rhs] is built outside the timed window. The port never
+    calls it."""
+    import torch
+    B = solve_operand(Mi, rhs)
+    return time_ms(lambda: torch.linalg.solve(Mi, B), queued=True)
+
+
 def phase_b1(dev):
-    """Cholesky kernel vs plain on random SPD matrices (A A^T + 2 I)."""
+    """Cholesky kernel vs plain on random SPD matrices (A A^T + 2 I):
+    elementwise against each other and normwise against a float64 solve
+    (the kernel's error at most max(2 x the plain version's, 1e-5))."""
     import numpy as np
     import torch
     from newton_tpu_torch.solvers.generalized import linalg
     rng = np.random.RandomState(1)
-    out = {}
+    out, norm, times = {}, {}, {}
     for d in (14, 23):
         A = rng.randn(W, d, d).astype(np.float32)
         spd = A @ np.transpose(A, (0, 2, 1)) + 2.0 * np.eye(d, dtype=np.float32)
@@ -130,11 +245,21 @@ def phase_b1(dev):
             raise AssertionError(f"B1 d={d}: kernel vs plain off tolerance "
                                  f"(Minv {e1:.3g}, x {e2:.3g})")
         out[d] = max(e1, e2)
-        if d == 14:
-            ms = time_ms(lambda: linalg.chol_inv_solve(Mi, rhs))
-            plain_ms = time_ms(lambda: linalg.chol_inv_solve_plain(Mi, rhs))
-    return dict(max_abs_err=max(out.values()), per_d=out, ms=ms,
-                plain_ms=plain_ms)
+        ref = torch.linalg.solve(Mi.double(), solve_operand(Mi, rhs).double())
+        nk, np_ = normwise_err(Minv_k, x_k, ref), normwise_err(Minv_p, x_p,
+                                                                ref)
+        if nk > max(2 * np_, 1e-5):
+            raise AssertionError(f"B1 d={d}: normwise error vs float64 "
+                                 f"{nk:.3g} > max(2 x plain {np_:.3g}, 1e-5)")
+        norm[d] = dict(kernel=nk, plain=np_)
+        times[d] = dict(
+            ms=time_ms(lambda: linalg.chol_inv_solve(Mi, rhs), queued=True),
+            plain_ms=time_ms(lambda: linalg.chol_inv_solve_plain(Mi, rhs)),
+            library_ms=library_b1_ms(Mi, rhs))
+    return dict(max_abs_err=max(out.values()), per_d=out, normwise=norm,
+                times=times, ms=times[14]["ms"],
+                plain_ms=times[14]["plain_ms"],
+                library_ms=times[14]["library_ms"])
 
 
 def compare_pgs(args, kw, allow_mismatch):
@@ -263,7 +388,7 @@ def phase_b2(dev, model, pipe, solver, state0):
         lam_err=e1, dqd_err=e2, guard_mismatch_envs=n_diff,
         halvings=n_halv, max_active_contacts=n_active)
     worst_lam, worst_dqd = max(worst_lam, e1), max(worst_dqd, e2)
-    ms = time_ms(lambda: pgs.pgs_solve_fused(*args, **kw))
+    ms = time_ms(lambda: pgs.pgs_solve_fused(*args, **kw), queued=True)
     plain_ms = time_ms(lambda: pgs.pgs_solve_fused_plain(*args, **kw))
     return dict(max_abs_err=worst_lam, dqd_max_abs_err=worst_dqd,
                 cases=cases, ms=ms, plain_ms=plain_ms), sb, ctrl
@@ -452,10 +577,11 @@ def phase_b34(dev, solver, state):
                                    if k.startswith("g2p kernel")))
     # times at the main path's shapes and access pattern (sand bases)
     out["p2g_ms"] = time_ms(lambda: mt.p2g_apply(sand_base, sand_w, vals,
-                                                 res))
+                                                 res), queued=True)
     out["p2g_plain_ms"] = time_ms(lambda: mt.p2g_apply_plain(
         sand_base, sand_w, vals, res))
-    out["g2p_ms"] = time_ms(lambda: mt.g2p_apply(sand_base, sand_w, grid))
+    out["g2p_ms"] = time_ms(lambda: mt.g2p_apply(sand_base, sand_w, grid),
+                            queued=True)
     out["g2p_plain_ms"] = time_ms(lambda: mt.g2p_apply_plain(
         sand_base, sand_w, grid))
     return out
@@ -724,9 +850,13 @@ def humanoid_substep_case(model, pipe, solver, state, ctrl):
     args, kw = rec["pgs"]
     e_lam, e_dqd, n_diff, n_halv, same = compare_pgs(args, kw,
                                                      HUMANOID_W // 1000)
-    e_chol = max(close(a, b, 1e-5, 1e-4)[1] for a, b in zip(
+    chol = [close(a, b, 1e-5, 1e-4) for a, b in zip(
         linalg.chol_inv_solve(*rec["chol"]),
-        linalg.chol_inv_solve_plain(*rec["chol"])))
+        linalg.chol_inv_solve_plain(*rec["chol"]))]
+    e_chol = max(e for _, e in chol)
+    if not all(ok for ok, _ in chol):
+        raise AssertionError(f"humanoid B1: kernel vs plain off tolerance "
+                             f"on the captured operands ({e_chol:.3g})")
     errs = dict(pgs_lam=e_lam, pgs_dqd=e_dqd, chol=e_chol,
                 guard_mismatch_envs=n_diff, halvings=n_halv,
                 active_contacts_max=int(contacts.rigid_contact_mask.sum(1)
@@ -763,12 +893,13 @@ def phase_humanoid_paths(dev, model, pipe, solver, end_state):
     # kernel times at the humanoid's shapes, on the captured operands
     Mi, rhs = recs["a"]["chol"]
     times = dict(
-        b1_ms=time_ms(lambda: linalg.chol_inv_solve(Mi, rhs)),
-        b1_plain_ms=time_ms(lambda: linalg.chol_inv_solve_plain(Mi, rhs)))
+        b1_ms=time_ms(lambda: linalg.chol_inv_solve(Mi, rhs), queued=True),
+        b1_plain_ms=time_ms(lambda: linalg.chol_inv_solve_plain(Mi, rhs)),
+        b1_library_ms=library_b1_ms(Mi, rhs))
     for key, name in (("a", "b2"), ("c", "b2_uncompacted")):
         args, kw = recs[key]["pgs"]
-        times[f"{name}_ms"] = time_ms(lambda: pgs.pgs_solve_fused(*args,
-                                                                  **kw))
+        times[f"{name}_ms"] = time_ms(
+            lambda: pgs.pgs_solve_fused(*args, **kw), queued=True)
         times[f"{name}_plain_ms"] = time_ms(
             lambda: pgs.pgs_solve_fused_plain(*args, **kw), n=10)
     smem = {key: pgs_smem(recs[key]["pgs"]) for key in ("a", "c")}
@@ -780,6 +911,34 @@ def pgs_smem(rec):
     args, kw = rec
     return _kernels.lib().pgs_smem_bytes(kw["c"], int(kw["ld"].numel()),
                                          args[0].shape[2])
+
+
+def kernel_info():
+    """Registers per thread and resident blocks per SM of B1 and B2 at each
+    main-path shape (cudaFuncGetAttributes and
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor, through the library)."""
+    import ctypes
+    from newton_tpu_torch import _kernels
+    lib = _kernels.lib()
+    out = {}
+    for label, fn, shape in (
+            ("B1 d=14", lib.chol_kernel_info, (14,)),
+            ("B1 d=23", lib.chol_kernel_info, (23,)),
+            ("B2 (25, 8, 14)", lib.pgs_kernel_info, (25, 8, 14)),
+            ("B2 (32, 17, 23)", lib.pgs_kernel_info, (32, 17, 23)),
+            ("B2 (192, 17, 23)", lib.pgs_kernel_info, (192, 17, 23))):
+        regs, blocks = ctypes.c_int(0), ctypes.c_int(0)
+        _kernels.check(fn(*shape, ctypes.addressof(regs),
+                          ctypes.addressof(blocks)), label)
+        out[label] = dict(registers=regs.value, blocks_per_sm=blocks.value)
+    return out
+
+
+def bound_fields(name, ms, prefix="", **shape):
+    """bound_ms, bound_by and share_of_bound of one timed call at W envs."""
+    t, by = bound_ms(*kernel_cost(name, **shape))
+    return {f"{prefix}bound_ms": t, f"{prefix}bound_by": by,
+            f"{prefix}share_of_bound": t / ms}
 
 
 def main():
@@ -817,8 +976,11 @@ def main():
     b1 = phase_b1(dev)
     results["b1"] = b1
     print(f"[3 B1 chol_inv_solve] kernel == plain, d=14,23 W={W}, max abs "
-          f"err {b1['max_abs_err']:.3g}; {b1['ms']:.4f} ms vs plain "
-          f"{b1['plain_ms']:.4f} ms (d=14)", flush=True)
+          f"err {b1['max_abs_err']:.3g}, normwise vs float64 "
+          f"{b1['normwise']}; " + "; ".join(
+              f"d={d} {t['ms']:.4f} ms vs plain {t['plain_ms']:.4f} ms, "
+              f"torch.linalg.solve {t['library_ms']:.4f} ms"
+              for d, t in b1["times"].items()), flush=True)
 
     model, pipe, solver, state0 = build_ant(dev)
     b2, dropped, _ = phase_b2(dev, model, pipe, solver, state0)
@@ -893,16 +1055,20 @@ def main():
     results["humanoid_paths"] = hpaths
     ht = hpaths["times"]
     print(f"[12 humanoid kernel vs plain substeps] {hpaths['cases']}; B1 "
-          f"d=23 {ht['b1_ms']:.4f} ms vs plain {ht['b1_plain_ms']:.4f} ms; "
+          f"d=23 {ht['b1_ms']:.4f} ms vs plain {ht['b1_plain_ms']:.4f} ms, "
+          f"torch.linalg.solve {ht['b1_library_ms']:.4f} ms; "
           f"B2 (32, 17, 23) {ht['b2_ms']:.4f} ms vs plain "
           f"{ht['b2_plain_ms']:.4f} ms; B2 (192, 17, 23) "
           f"{ht['b2_uncompacted_ms']:.4f} ms vs plain "
           f"{ht['b2_uncompacted_plain_ms']:.4f} ms; shared memory "
           f"{hpaths['smem_bytes']} B", flush=True)
 
+    results["kernel_info"] = kernel_info()
     print("[details] " + json.dumps(results, default=str), flush=True)
     hcases = hpaths["cases"].values()
 
+    no_library = ("no single PyTorch call computes this function: {}")
+    pgs_ant = dict(c=25, nl=8, d=14, W=W)
     kernels = [
         dict(name="chol_inv_solve", route="cuda",
              source="newton_tpu_torch/csrc/chol_inv_solve.cu",
@@ -910,33 +1076,60 @@ def main():
              launches=main_res["launches"]["chol_inv_solve"],
              max_abs_err=b1["max_abs_err"], ms=b1["ms"],
              plain_ms=b1["plain_ms"],
+             **bound_fields("chol_inv_solve", b1["ms"], d=14, W=W),
+             library_ms=b1["library_ms"],
+             library="torch.linalg.solve(Mi, [I | rhs])",
              humanoid_launches=hum["launches"]["chol_inv_solve"],
              humanoid_max_abs_err=max(v["chol"] for v in hcases),
-             humanoid_ms=ht["b1_ms"], humanoid_plain_ms=ht["b1_plain_ms"]),
+             humanoid_ms=ht["b1_ms"], humanoid_plain_ms=ht["b1_plain_ms"],
+             **bound_fields("chol_inv_solve", ht["b1_ms"], "humanoid_",
+                            d=23, W=HUMANOID_W),
+             humanoid_library_ms=ht["b1_library_ms"]),
         dict(name="pgs_solve_fused", route="cuda",
              source="newton_tpu_torch/csrc/pgs_solve.cu",
              replaces="newton_tpu/solvers/generalized/pgs_pallas.py:204",
              launches=main_res["launches"]["pgs_solve_fused"],
              max_abs_err=b2["max_abs_err"], ms=b2["ms"],
              plain_ms=b2["plain_ms"],
+             **bound_fields("pgs_solve_fused", b2["ms"], **pgs_ant),
+             library_ms=None, library=no_library.format(
+                 "a projected-Jacobi contact solve with a per-env "
+                 "divergence guard"),
              humanoid_launches=hum["launches"]["pgs_solve_fused"],
              humanoid_max_abs_err=max(v["pgs_lam"] for v in hcases),
              humanoid_ms=ht["b2_ms"], humanoid_plain_ms=ht["b2_plain_ms"],
+             **bound_fields("pgs_solve_fused", ht["b2_ms"], "humanoid_",
+                            c=32, nl=17, d=23, W=HUMANOID_W),
              humanoid_uncompacted_ms=ht["b2_uncompacted_ms"],
-             humanoid_uncompacted_plain_ms=ht["b2_uncompacted_plain_ms"]),
+             humanoid_uncompacted_plain_ms=ht["b2_uncompacted_plain_ms"],
+             **bound_fields("pgs_solve_fused", ht["b2_uncompacted_ms"],
+                            "humanoid_uncompacted_", c=192, nl=17, d=23,
+                            W=HUMANOID_W)),
         dict(name="mpm_p2g", route="cuda",
              source="newton_tpu_torch/csrc/mpm_transfer.cu",
              replaces="newton_tpu/solvers/mpm_pallas.py:82",
              launches=mpm["launches"]["p2g_apply"],
              max_abs_err=b34["p2g_max_abs_err"], ms=b34["p2g_ms"],
-             plain_ms=b34["p2g_plain_ms"]),
+             plain_ms=b34["p2g_plain_ms"],
+             **bound_fields("mpm_p2g", b34["p2g_ms"], N=MPM_N, C=13,
+                            res=MPM_RES),
+             library_ms=None, library=no_library.format(
+                 "the 27-node B-spline weights times the values, scattered "
+                 "(index_add_ alone does only the scatter)")),
         dict(name="mpm_g2p", route="cuda",
              source="newton_tpu_torch/csrc/mpm_transfer.cu",
              replaces="newton_tpu/solvers/mpm_pallas.py:126",
              launches=mpm["launches"]["g2p_apply"],
              max_abs_err=b34["g2p_max_abs_err"], ms=b34["g2p_ms"],
-             plain_ms=b34["g2p_plain_ms"]),
+             plain_ms=b34["g2p_plain_ms"],
+             **bound_fields("mpm_g2p", b34["g2p_ms"], N=MPM_N, C=12,
+                            res=MPM_RES),
+             library_ms=None, library=no_library.format(
+                 "the 27-node B-spline weighted gather")),
     ]
+    print(f"[bounds] H100 SXM peaks {PEAK_BYTES_PER_S / 1e12:g} TB/s, "
+          f"{PEAK_F32_FLOPS / 1e12:g} TFLOP/s float32 (700 W); this card: "
+          f"{card}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

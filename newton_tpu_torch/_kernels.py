@@ -4,7 +4,7 @@ The sources compile with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source
 and all at once, and link into one shared library with a plain C
 interface, loaded through ``ctypes``. The build happens at
 first use, from the package's own sources, into ``_build/<hash>/`` inside
-the package (the hash covers the sources and the flags), so a second call
+the package (the hash covers the sources, headers and flags), so a second call
 in the same checkout reuses it. Nothing here runs at import time: the CPU
 tests import every module and this machine may have no ``nvcc``.
 """
@@ -26,6 +26,7 @@ _BUILD = os.path.join(_HERE, "_build")
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _SOURCES = ("chol_inv_solve.cu", "pgs_solve.cu", "mpm_transfer.cu")
+_HEADERS = ("exact_math.cuh",)
 
 _lib = None
 
@@ -39,6 +40,10 @@ _SIGNATURES = {
                             _I, _I, _I, _I, _I, _F, _I, _F, _F, _P],
     # c, nl, d -> dynamic shared memory bytes of one pgs block
     "pgs_smem_bytes": [_I, _I, _I],
+    # d, &registers, &blocks per SM (occupancy of the launch at d)
+    "chol_kernel_info": [_I, _P, _P],
+    # c, nl, d, &registers, &blocks per SM
+    "pgs_kernel_info": [_I, _I, _I, _P, _P],
     # base, w_ax, vals, grid, N, C, res, stream
     "mpm_p2g_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
     # base, w_ax, grid, out, N, C, res, stream
@@ -59,7 +64,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for name in _SOURCES:
+    for name in _SOURCES + _HEADERS:
         with open(os.path.join(_CSRC, name), "rb") as f:
             h.update(name.encode() + f.read())
     return h.hexdigest()[:16]

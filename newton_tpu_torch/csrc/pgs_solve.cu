@@ -19,250 +19,655 @@
 // dqd = MJ^T lambda_c + Minv[:, ld] (lambda_lo - lambda_hi) and the number
 // of halvings per env.
 //
-// What bounds it on an H100: latency and on-chip traffic, not HBM. At ant
-// size (3c = 75 contact rows, d = 14, r = 91, W = 4096) the inputs are
-// ~26 MB, read once; the work is 3 + 8 matvecs of ~2 x 75 x 14 FMAs plus
-// the 75 x 14 x 14 assembly per env, ~0.3 GFLOP per call. Each matvec is
-// two dependent phases (J^T-side reduction into d values, then the J-side
-// expansion into rows) separated by block barriers, and every sweep ends
-// in a block-wide norm reduction that the divergence guard needs before
-// the next sweep may start.
+// What bounds it on an H100: neither bytes nor FLOPs. At the humanoid's
+// main-path shape (c, nl, d) = (32, 17, 23), r = 130, W = 4096, a call
+// must move 13,344 B per env (16.3 us at 3.35 TB/s) and do ~221k FLOPs per
+// env (13.5 us at the 67 TFLOP/s float32 peak): the MJ assembly (50.8k
+// FMAs) and 11 Delassus matvecs (3 spectral + 8 sweeps, ~4.8k FMAs each).
+// Each matvec is two dependent phases (the d-vector tmp = MJ^T x, then the
+// rows y = J tmp), and every sweep ends in a block-wide norm that the
+// divergence guard needs before the next sweep may start: short dependent
+// steps behind block barriers. What the card spends is the instructions
+// and shared-memory reads of those steps, issued from too few warps to
+// hide their latency; the design cuts both and keeps 8 blocks on an SM.
 //
-// Design: J, MJ, Minv, diag, v_free, b, act, mu and lambda stay in shared
-// memory for all 3 + iters matvec rounds (the TPU kernel's VMEM
-// residency): ~12 KB per env at ant size, so many blocks fit per SM and
-// their barriers overlap. Threads run over rows; the per-env norms are
-// warp-shuffle + shared-memory block reductions. Above 48 KB (humanoid
-// uncompacted: 3c = 576, d = 23, ~125 KB) the launcher opts in to large
-// dynamic shared memory; above the card's 227 KB it refuses the launch.
+// Design:
+//   - Both matvec phases keep every lane busy. Phase 1: lanes over dofs,
+//     the warp split into 32 / pow2(d) groups (two at d <= 16), each group
+//     on a block of consecutive rows of MJ extended by the nl limit columns
+//     Minv[:, ld]^T (zero-padded to equal blocks, x read four at a time);
+//     the partials are summed per dof after one barrier. Phase 2: one quad
+//     of lanes per contact, lanes 0-2 its normal and tangent rows, lane 3
+//     its limit pair; the quad exchanges n, t1, t2 by shuffles and projects
+//     in registers.
+//   - The register path (the ant's d = 14 and the humanoid's 23: rows of 16
+//     or 24 floats, c, nl <= 32): each lane keeps its J row and its rows'
+//     lambda, diag, v_free, b and act in registers for the whole solve and
+//     builds its MJ row from them; a limit lane's row is the one-hot e_ld,
+//     so that every lane runs the same phase-2 instructions. Every other
+//     shape takes the shared-memory path, where the row state lives in
+//     shared memory and quads make as many passes as the shape needs.
+//   - J and MJ keep contact-interleaved rows (3 i + {n, t1, t2}), padded to
+//     a multiple of 4 floats; staging is asynchronous (cp.async), so a
+//     block has all of its loads in flight at once.
+//   - Norms: a warp-shuffle sum, one slot per warp in a double-buffered
+//     shared array, then every thread sums the slots in the same order
+//     (all agree on the guard). Three barriers per sweep: partials, tmp,
+//     norm.
+//   - Divisions and square roots are correctly rounded without the
+//     library's slow-path call (exact_math.cuh), which would make the
+//     register path spill; scale / diag is divided once, and halving the
+//     step halves it exactly.
+//   - Occupancy: 128 threads under __launch_bounds__(128, 8) (64
+//     registers, no spills) for r <= 160, 8 blocks of <= 27 KB on an SM;
+//     4096 envs are ~3.9 waves. Above 160 rows (the uncompacted humanoid,
+//     r = 610, ~133 KB: one block per SM) 256 threads, with the large-
+//     shared-memory opt-in above 48 KB; above 227 KB the launch is refused.
+// Tensor cores are not used: the float32 parity the port holds forbids
+// TF32, and the work is a few microseconds at the float32 peak.
 
 #include <cuda_runtime.h>
 
+#include "exact_math.cuh"
+
 namespace {
+
+using ntt::copy_async;
+using ntt::div_rn;
+using ntt::rcp_rn;
+using ntt::sqrt_rn;
 
 constexpr int kMaxSmem = 227 * 1024;
 
 struct Dims {
-  int c, nl, d, r3, r;
+  int c, nl, d, r3, r, rows;  // rows = r3 + nl: phase-1 rows (limits last)
+  int s;      // row stride of J, MJ, Minv (and length of tmp, qd): d to 4
+  int dp, G;  // phase-1 lanes per row (a power of 2 <= 32), rows per warp
+  int P, R;   // phase-1 row blocks (warps x G) and rows per block (4k)
 };
 
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float s = 0.f;
-    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) s += red[w];
-    red[32] = s;
-  }
-  __syncthreads();
-  return red[32];
+int threads_for(int r) { return r <= 160 ? 128 : 256; }
+
+Dims make_dims(int c, int nl, int d) {
+  Dims D;
+  D.c = c, D.nl = nl, D.d = d, D.r3 = 3 * c, D.r = 3 * c + 2 * nl;
+  D.rows = D.r3 + nl;
+  D.s = (d + 3) & ~3;
+  D.dp = 1;
+  while (D.dp < d && D.dp < 32) D.dp *= 2;
+  D.G = 32 / D.dp;
+  D.P = threads_for(D.r) / 32 * D.G;
+  D.R = (((D.rows + D.P - 1) / D.P) + 3) & ~3;
+  return D;
 }
 
-// y = A x with A = J Minv J^T extended by the one-hot limit rows.
-// tmp (d) is scratch; x and y must not alias.
-__device__ void delassus_matvec(const Dims& D, const float* J,
-                                const float* MJ, const float* Minv,
-                                const int* ld, const float* x, float* y,
-                                float* tmp) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  for (int f = tid; f < D.d; f += nt) {
-    float s = 0.f;
-    for (int k = 0; k < D.r3; ++k) s += MJ[k * D.d + f] * x[k];
-    if (D.nl) {
-      float sl = 0.f;
-      for (int l = 0; l < D.nl; ++l)
-        sl += Minv[f * D.d + ld[l]] * (x[D.r3 + l] - x[D.r3 + D.nl + l]);
-      s += sl;
-    }
-    tmp[f] = s;
-  }
-  __syncthreads();
-  for (int k = tid; k < D.r3; k += nt) {
-    float s = 0.f;
-    for (int f = 0; f < D.d; ++f) s += J[k * D.d + f] * tmp[f];
-    y[k] = s;
-  }
-  for (int l = tid; l < D.nl; l += nt) {
-    const float t = tmp[ld[l]];
-    y[D.r3 + l] = t;
-    y[D.r3 + D.nl + l] = -t;
-  }
-  __syncthreads();
+// The register path: 128 threads, one pass of quads (c, nl <= 32), rows of
+// 16 or 24 floats; every other shape takes the shared-memory path.
+int reg_width(const Dims& D) {
+  return D.c <= 32 && D.nl <= 32 && (D.s == 16 || D.s == 24) ? D.s : 0;
 }
+
+// floats before the int ld array: the float4-read arrays first (tmp, qd,
+// xs, J, MJ, Minv), then the phase-1 partials, the row state of the
+// shared-memory path, mu, and the norm slots
+size_t smem_floats(const Dims& D) {
+  const int nw = threads_for(D.r) / 32;
+  size_t n = 2 * (size_t)D.s + (size_t)D.P * D.R
+             + (size_t)(D.r3 + D.P * D.R + D.s) * D.s + (size_t)D.P * D.d
+             + 2 * nw;
+  if (!reg_width(D)) n += 6 * (size_t)D.r + D.c;
+  return n;
+}
+
+// Keeps the compiler from hoisting the shared-memory reads of later steps
+// of an unrolled loop above this point: hoisted all at once they take more
+// registers than a thread has, and spill.
+__device__ __forceinline__ void fence() { asm volatile("" ::: "memory"); }
 
 __device__ __forceinline__ float finite_or_zero(float v) {
   return isfinite(v) ? v : 0.f;
 }
 
-__global__ void pgs_kernel(const float* __restrict__ gJ,
-                           const float* __restrict__ gMinv,
-                           const float* __restrict__ gqd,
-                           const float* __restrict__ gb,
-                           const float* __restrict__ gact,
-                           const float* __restrict__ gmu,
-                           const float* __restrict__ glam0,
-                           const int* __restrict__ gld,
-                           float* __restrict__ glam, float* __restrict__ gdqd,
-                           int* __restrict__ ghalv, Dims D, int iters,
-                           int spectral_iters, float omega, int use_cone,
-                           float diag_scale, float reg) {
-  extern __shared__ float sm[];
-  const int env = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+// sum_f a[f] b[f] over s4 float4 chunks, in f order
+__device__ __forceinline__ float dot4(const float* a, const float* b,
+                                      int s4) {
+  const float4* a4 = reinterpret_cast<const float4*>(a);
+  const float4* b4 = reinterpret_cast<const float4*>(b);
+  float y = 0.f;
+  for (int q = 0; q < s4; ++q) {
+    const float4 u = a4[q], v = b4[q];
+    y += u.x * v.x;
+    y += u.y * v.y;
+    y += u.z * v.z;
+    y += u.w * v.w;
+  }
+  return y;
+}
+
+// Sum over the block; every thread returns the same value. red holds two
+// slots of NW floats, used in turn (buf flips), so one barrier suffices.
+template <int NW>
+__device__ __forceinline__ float block_sum(float v, float* red, int& buf) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  float* slot = red + buf * NW;
+  if ((threadIdx.x & 31) == 0) slot[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float s = 0.f;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) s += slot[w];
+  buf ^= 1;
+  return s;
+}
+
+// tmp = MJx^T xs over the rows of MJx = [MJ; Minv[:, ld]^T]: xs holds x of
+// each interleaved contact row and lo - hi of each limit pair. Block p of
+// R consecutive rows goes to group p of lanes (lanes over dofs), its x
+// read four at a time; rows past r3 + nl up to P R are zero in both.
+// Returns with tmp complete for every thread (two barriers).
+// SS, GG: the row stride and lane groups when known at compile time (the
+// register path), else 0 and read from D.
+template <int NT, int SS = 0, int GG = 0>
+__device__ __forceinline__ void phase1(const Dims& D, const float* MJx,
+                                       const float* xs, float* part,
+                                       float* tmp) {
+  const int s = SS ? SS : D.s, G = GG ? GG : D.G, dp = 32 / G;
+  const int P = NT / 32 * G;
+  const int lane = threadIdx.x & 31, g = lane / dp;
+  const int p = (threadIdx.x >> 5) * G + g;
+  const int k0 = p * D.R, k1 = k0 + D.R;
+  const float4* x4 = reinterpret_cast<const float4*>(xs);
+  for (int f = lane - g * dp; f < D.d; f += 32) {
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll 2
+    for (int k = k0; k < k1; k += 4) {
+      const float4 x = x4[k >> 2];
+      const float* m = MJx + k * s + f;
+      s0 += m[0] * x.x;
+      s1 += m[s] * x.y;
+      s0 += m[2 * s] * x.z;
+      s1 += m[3 * s] * x.w;
+    }
+    part[p * D.d + f] = s0 + s1;
+  }
+  __syncthreads();
+  for (int f = threadIdx.x; f < s; f += NT) {
+    float sum = 0.f;
+    if (f < D.d)
+      for (int q = 0; q < P; ++q) sum += part[q * D.d + f];
+    tmp[f] = sum;
+  }
+  __syncthreads();
+}
+
+// Stage J (block-order row b c + i to interleaved row 3 i + b), Minv and
+// qd with row stride s, zero-padded, ld, and zero the padding rows of MJ
+// and xs. Ends with a barrier.
+template <int NT>
+__device__ __forceinline__ void stage(const Dims& D, size_t e,
+                                      const float* __restrict__ gJ,
+                                      const float* __restrict__ gMinv,
+                                      const float* __restrict__ gqd,
+                                      const int* __restrict__ gld, float* qd,
+                                      float* xs, float* J, float* MJ,
+                                      float* Minv, int* ld) {
+  constexpr int NW = NT / 32;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int c = D.c, d = D.d, s = D.s;
+  const float* Je = gJ + e * 3 * c * d;
+  const float* Me = gMinv + e * d * d;
+  for (int b = 0; b < 3; ++b)
+    for (int i = w; i < c; i += NW)
+      for (int f = lane; f < s; f += 32) {
+        float* dst = J + (3 * i + b) * s + f;
+        if (f < d) copy_async(dst, Je + (b * c + i) * d + f);
+        else *dst = 0.f;
+      }
+  for (int q = w; q < s; q += NW)
+    for (int f = lane; f < s; f += 32) {
+      if (q < d && f < d) copy_async(Minv + q * s + f, Me + q * d + f);
+      else Minv[q * s + f] = 0.f;
+    }
+  for (int f = threadIdx.x; f < s; f += NT)
+    qd[f] = f < d ? gqd[e * d + f] : 0.f;
+  for (int g = threadIdx.x; g < D.nl; g += NT) ld[g] = gld[g];
+  const int pad = D.P * D.R - D.rows;
+  for (int g = threadIdx.x; g < pad * s; g += NT) MJ[D.rows * s + g] = 0.f;
+  for (int g = threadIdx.x; g < pad; g += NT) xs[D.rows + g] = 0.f;
+  ntt::copy_async_wait();
+  __syncthreads();
+}
+
+// Minv[:, ld]^T as the limit rows of MJx, zero-padded (before a barrier)
+template <int NT>
+__device__ __forceinline__ void limit_rows(const Dims& D, const float* Minv,
+                                           const int* ld, float* MJx) {
+  constexpr int NW = NT / 32;
+  const int lane = threadIdx.x & 31, s = D.s;
+  for (int l = threadIdx.x >> 5; l < D.nl; l += NW)
+    for (int f = lane; f < s; f += 32)
+      MJx[(D.r3 + l) * s + f] = f < D.d ? Minv[f * s + ld[l]] : 0.f;
+}
+
+struct Args {
+  const float *J, *Minv, *qd, *b, *act, *mu, *lam0;
+  const int* ld;
+  float *lam, *dqd;
+  int* halvings;
+  int iters, spectral_iters, use_cone;
+  float omega, diag_scale, reg;
+};
+
+// The register path: quad lane q < 3 of quad i owns interleaved contact
+// row 3 i + q, lane 3 the limit pair i; each keeps its J row (S floats)
+// and its rows' lambda, diag, v_free, b and act in registers for the whole
+// solve, and builds its MJ row from them.
+template <int S>
+__global__ void __launch_bounds__(128, 8)
+pgs_kernel_reg(Dims D, Args A) {
+  // lane groups of phase 1: d in (S - 4, S], so 32 / pow2(d) is known
+  constexpr int NT = 128, NW = 4, S4 = S / 4, G = S <= 16 ? 2 : 1;
+  extern __shared__ float4 sm4[];
+  float* sm = reinterpret_cast<float*>(sm4);
+  const int tid = threadIdx.x;
   const int c = D.c, nl = D.nl, d = D.d, r3 = D.r3, r = D.r;
-  float* J = sm;
-  float* MJ = J + r3 * d;
-  float* Minv = MJ + r3 * d;
-  float* qd = Minv + d * d;
-  float* tmp = qd + d;
-  float* diag = tmp + d;
-  float* vfree = diag + r;
+  float* tmp = sm;                             // S, zero beyond d
+  float* qd = tmp + S;                         // S, zero beyond d
+  float* xs = qd + S;                          // P R: phase-1 inputs
+  float* J = xs + D.P * D.R;                   // r3 x S, interleaved rows
+  float* MJ = J + r3 * S;                      // P R x S
+  float* Minv = MJ + D.P * D.R * S;            // S x S, zero-padded
+  float* part = Minv + S * S;                  // P x d
+  float* red = part + D.P * d;                 // 2 x NW
+  int* ld = reinterpret_cast<int*>(red + 2 * NW);
+  const size_t e = blockIdx.x;
+  stage<NT>(D, e, A.J, A.Minv, A.qd, A.ld, qd, xs, J, MJ, Minv, ld);
+
+  const int q = tid & 3, i = tid >> 2, base = (tid & 31) & ~3;
+  const bool contact = q < 3 && i < c, limit = q == 3 && i < nl;
+  const int k = 3 * i + q;                     // interleaved contact row
+  // lo and hi of a limit pair share diag, and their v_free are +-qd[dof]
+  float jr[S], dg = 1.f, vf = 0.f;
+
+  // 1. MJ row = J row Minv, diag and v_free (contact lanes); the limit
+  //    columns Minv[:, ld]^T and the limit rows' diag and v_free. A limit
+  //    lane's "row" is the one-hot e_ld, so that J tmp gives it tmp[ld]
+  //    and every lane runs the same instructions in phase 2
+  const int dof = limit ? ld[i] : -1;
+#pragma unroll
+  for (int f = 0; f < S; ++f)
+    jr[f] = contact ? J[k * S + f] : (f == dof ? 1.f : 0.f);
+  if (contact) {
+    const float4* m4 = reinterpret_cast<const float4*>(Minv);
+    float4* mj4 = reinterpret_cast<float4*>(MJ + k * S);
+    float dsum = 0.f, vsum = 0.f;
+#pragma unroll
+    for (int f4 = 0; f4 < S4; ++f4) {
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int qq = 0; qq < S; ++qq) {
+        const float4 m = m4[qq * S4 + f4];
+        acc[0] += jr[qq] * m.x;
+        acc[1] += jr[qq] * m.y;
+        acc[2] += jr[qq] * m.z;
+        acc[3] += jr[qq] * m.w;
+        if ((qq & 7) == 7) fence();
+      }
+      mj4[f4] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) dsum += jr[4 * f4 + t] * acc[t];
+    }
+#pragma unroll
+    for (int f4 = 0; f4 < S4; ++f4) {
+      const float4 qv = reinterpret_cast<const float4*>(qd)[f4];
+      vsum += jr[4 * f4] * qv.x;
+      vsum += jr[4 * f4 + 1] * qv.y;
+      vsum += jr[4 * f4 + 2] * qv.z;
+      vsum += jr[4 * f4 + 3] * qv.w;
+    }
+    dg = dsum * A.diag_scale + A.reg;
+    vf = vsum;
+  } else if (limit) {
+    dg = Minv[dof * S + dof] * A.diag_scale + A.reg;
+    vf = qd[dof];
+  }
+  limit_rows<NT>(D, Minv, ld, MJ);
+  float lm[2] = {0.f, 0.f}, bb[2] = {0.f, 0.f}, aa[2] = {0.f, 0.f}, mu = 0.f;
+  if (contact || limit) {
+    // block-order rows: the contact row, or the limit pair lo / hi
+    const size_t row0 = e * r + (contact ? q * c + i : r3 + i);
+    const size_t row1 = e * r + r3 + nl + i;
+    bb[0] = A.b[row0], aa[0] = A.act[row0], lm[0] = A.lam0[row0];
+    if (limit) bb[1] = A.b[row1], aa[1] = A.act[row1], lm[1] = A.lam0[row1];
+    if (contact) mu = A.mu[e * c + i];
+  }
+
+  // phase 2 of a lane: y = its row of J times tmp (two partial sums)
+  auto row_dot = [&]() {
+    const float4* t4 = reinterpret_cast<const float4*>(tmp);
+    float y = 0.f, y2 = 0.f;
+#pragma unroll
+    for (int f4 = 0; f4 < S4; ++f4) {
+      const float4 t = t4[f4];
+      y += jr[4 * f4] * t.x;
+      y2 += jr[4 * f4 + 1] * t.y;
+      y += jr[4 * f4 + 2] * t.z;
+      y2 += jr[4 * f4 + 3] * t.w;
+    }
+    return y + y2;
+  };
+  // the lane's xs entry: its contact row, or lo - hi of its limit pair (a
+  // contact lane's second row is an exact zero)
+  const bool owner = contact || limit;
+  const int xi = contact ? k : r3 + i;
+
+  // 2. power-iteration bound on lambda_max(D^-1/2 A D^-1/2) from u = act /
+  //    max(|act|, 1); xs holds D^-1/2 u (limit pairs: lo - hi)
+  int buf = 0;
+  const float n0 = fmaxf(
+      sqrt_rn(block_sum<NW>(aa[0] * aa[0] + aa[1] * aa[1], red, buf)), 1.f);
+  const float rn0 = rcp_rn(n0);
+  const float rs = rsqrtf(dg);
+  if (owner)
+    xs[xi] = rs * div_rn(aa[0], n0, rn0) - rs * div_rn(aa[1], n0, rn0);
+  __syncthreads();
+  float lam_max = 0.f;
+  for (int it = 0; it < A.spectral_iters; ++it) {
+    phase1<NT, S, G>(D, MJ, xs, part, tmp);
+    const float y = row_dot();
+    const float v0 = rs * y * aa[0], v1 = rs * (-y) * aa[1];
+    const float nrm = sqrt_rn(block_sum<NW>(v0 * v0 + v1 * v1, red, buf));
+    lam_max = nrm;
+    // the next step's x = D^-1/2 u, u = v / max(nrm, 1e-9); after the
+    // last step the first sweep's x = lam0
+    const float nc = fmaxf(nrm, 1e-9f), rnc = rcp_rn(nc);
+    if (owner)
+      xs[xi] = it + 1 == A.spectral_iters
+                   ? lm[0] - lm[1]
+                   : rs * div_rn(v0, nc, rnc) - rs * div_rn(v1, nc, rnc);
+    __syncthreads();
+  }
+  const float bound = fmaxf(1.1f * lam_max, 1e-9f);
+  const float scale = A.omega * fminf(1.f, div_rn(1.8f, bound));
+  // scale / diag of the lane's rows; halving the step halves it exactly
+  float sd = div_rn(scale, dg);
+
+  // 3-4. projected Jacobi sweeps with the divergence guard; phase 2 writes
+  //      the next phase 1's xs (the new lambda). Row 0 of a lane is its
+  //      contact row or limit lo, row 1 its limit hi (zero state elsewhere)
+  float prev_dn = 0.f;
+  int halvings = 0;
+  const bool friction = contact && q > 0;
+  for (int it = 0; it < A.iters; ++it) {
+    phase1<NT, S, G>(D, MJ, xs, part, tmp);
+    const float y = row_dot();
+    const float y0 = lm[0] - sd * ((y + vf) - bb[0]);
+    // the quad's normal and tangents, exchanged in registers
+    const float yn = __shfl_sync(0xffffffffu, y0, base);
+    const float y1 = __shfl_sync(0xffffffffu, y0, base + 1);
+    const float y2 = __shfl_sync(0xffffffffu, y0, base + 2);
+    const float cap = mu * fmaxf(yn, 0.f);
+    float fr;
+    if (A.use_cone) {
+      const float tmag = fmaxf(sqrt_rn(y1 * y1 + y2 * y2), 1e-9f);
+      fr = y0 * fminf(div_rn(cap, tmag), 1.f);
+    } else {
+      fr = fminf(fmaxf(y0, -cap), cap);
+    }
+    const float v0 = finite_or_zero((friction ? fr : fmaxf(y0, 0.f)) * aa[0]);
+    const float yh = lm[1] - sd * ((-y + -vf) - bb[1]);
+    const float v1 = finite_or_zero(fmaxf(yh, 0.f) * aa[1]);
+    const float dl0 = v0 - lm[0], dl1 = v1 - lm[1];
+    lm[0] = v0;
+    lm[1] = v1;
+    if (owner) xs[xi] = v0 - v1;
+    const float dn = block_sum<NW>(dl0 * dl0 + dl1 * dl1, red, buf);
+    if (it > 0 && dn > prev_dn * 1.02f) {
+      sd *= 0.5f;
+      ++halvings;
+    }
+    prev_dn = dn;
+  }
+
+  // dqd = MJ^T lambda_c + Minv[:, ld] (lambda_lo - lambda_hi); the
+  // output rows recomputed from a fresh thread index
+  phase1<NT, S, G>(D, MJ, xs, part, tmp);
+  const int t2 = ntt::fresh_tid(), b2 = ntt::fresh_bid();
+  const int q2 = t2 & 3, i2 = t2 >> 2;
+  float* lam_e = A.lam + (size_t)b2 * r;
+  for (int f = t2; f < d; f += NT) A.dqd[(size_t)b2 * d + f] = tmp[f];
+  if (q2 < 3 && i2 < c) lam_e[q2 * c + i2] = lm[0];
+  if (q2 == 3 && i2 < nl) {
+    lam_e[r3 + i2] = lm[0];
+    lam_e[r3 + nl + i2] = lm[1];
+  }
+  if (t2 == 0) A.halvings[b2] = halvings;
+}
+
+// The shared-memory path, for any shape that fits: the row state lives in
+// shared memory (interleaved contact rows, limits last) and quads make as
+// many passes as the contacts or limit pairs need.
+template <int NT>
+__global__ void __launch_bounds__(NT, NT == 128 ? 4 : 1)
+pgs_kernel_smem(Dims D, Args A) {
+  constexpr int NW = NT / 32, NQ = NT / 4;
+  extern __shared__ float4 sm4[];
+  float* sm = reinterpret_cast<float*>(sm4);
+  const int tid = threadIdx.x;
+  const int c = D.c, nl = D.nl, d = D.d, r3 = D.r3, r = D.r, s = D.s;
+  const int s4 = s / 4, rows = D.rows;
+  float* tmp = sm;                             // s, zero beyond d
+  float* qd = tmp + s;                         // s, zero beyond d
+  float* xs = qd + s;                          // P R: phase-1 inputs
+  float* J = xs + D.P * D.R;                   // r3 x s, interleaved rows
+  float* MJ = J + r3 * s;                      // P R x s
+  float* Minv = MJ + D.P * D.R * s;            // s x s, zero-padded
+  float* part = Minv + s * s;                  // P x d
+  float* diag = part + D.P * d;                // row state: contact rows
+  float* vfree = diag + r;                     // interleaved, limits last
   float* b = vfree + r;
   float* act = b + r;
   float* lam = act + r;
-  float* lam_next = lam + r;
-  float* y = lam_next + r;
-  float* u = y + r;
-  float* mu = u + r;
-  float* red = mu + c;                         // 33 floats
-  int* ld = (int*)(red + 33);
+  float* lamn = lam + r;
+  float* mu = lamn + r;
+  float* red = mu + c;                         // 2 x NW
+  int* ld = reinterpret_cast<int*>(red + 2 * NW);
+  const size_t e = blockIdx.x;
+  for (int k = tid; k < r; k += NT) {
+    // block-order row k: contact row bc c + i is interleaved row 3 i + bc
+    const int bc = k < c ? 0 : k < 2 * c ? 1 : 2;
+    const int kk = k < r3 ? 3 * (k - bc * c) + bc : k;
+    b[kk] = A.b[e * r + k];
+    act[kk] = A.act[e * r + k];
+    lam[kk] = A.lam0[e * r + k];
+  }
+  for (int g = tid; g < c; g += NT) mu[g] = A.mu[e * c + g];
+  stage<NT>(D, e, A.J, A.Minv, A.qd, A.ld, qd, xs, J, MJ, Minv, ld);
 
-  const size_t e = (size_t)env;
-  for (int i = tid; i < r3 * d; i += nt) J[i] = gJ[e * r3 * d + i];
-  for (int i = tid; i < d * d; i += nt) Minv[i] = gMinv[e * d * d + i];
-  for (int i = tid; i < d; i += nt) qd[i] = gqd[e * d + i];
-  for (int i = tid; i < r; i += nt) {
-    b[i] = gb[e * r + i];
-    act[i] = gact[e * r + i];
-    lam[i] = glam0[e * r + i];
+  // 1. Delassus pieces: MJ = J Minv (groups of lanes over dofs, one row
+  //    each), the limit columns Minv[:, ld]^T, diag and v_free
+  {
+    const int lane = tid & 31, g = lane / D.dp;
+    for (int k = (tid >> 5) * D.G + g; k < r3; k += D.P)
+      for (int f = lane - g * D.dp; f < s; f += 32) {
+        const float4* j4 = reinterpret_cast<const float4*>(J + k * s);
+        float acc = 0.f;
+        for (int q = 0; q < s4; ++q) {
+          const float4 jv = j4[q];
+          const float* m = Minv + 4 * q * s + f;
+          acc += jv.x * m[0];
+          acc += jv.y * m[s];
+          acc += jv.z * m[2 * s];
+          acc += jv.w * m[3 * s];
+        }
+        MJ[k * s + f] = acc;
+      }
+    limit_rows<NT>(D, Minv, ld, MJ);
   }
-  for (int i = tid; i < c; i += nt) mu[i] = gmu[e * c + i];
-  for (int i = tid; i < nl; i += nt) ld[i] = gld[i];
   __syncthreads();
-
-  // 1. Delassus pieces: MJ = J Minv, diag, v_free
-  for (int i = tid; i < r3 * d; i += nt) {
-    const int k = i / d, f = i - k * d;
-    float s = 0.f;
-    for (int q = 0; q < d; ++q) s += J[k * d + q] * Minv[q * d + f];
-    MJ[i] = s;
+  for (int k = tid; k < r3; k += NT) {
+    diag[k] = dot4(J + k * s, MJ + k * s, s4) * A.diag_scale + A.reg;
+    vfree[k] = dot4(J + k * s, qd, s4);
   }
-  __syncthreads();
-  for (int k = tid; k < r3; k += nt) {
-    float s = 0.f, v = 0.f;
-    for (int f = 0; f < d; ++f) {
-      s += J[k * d + f] * MJ[k * d + f];
-      v += J[k * d + f] * qd[f];
-    }
-    diag[k] = s * diag_scale + reg;
-    vfree[k] = v;
-  }
-  for (int l = tid; l < nl; l += nt) {
+  for (int l = tid; l < nl; l += NT) {
     const int q = ld[l];
-    const float dl = Minv[q * d + q] * diag_scale + reg;
+    const float dl = Minv[q * s + q] * A.diag_scale + A.reg;
     diag[r3 + l] = dl;
     diag[r3 + nl + l] = dl;
     vfree[r3 + l] = qd[q];
     vfree[r3 + nl + l] = -qd[q];
   }
-  __syncthreads();
 
-  // 2. power-iteration bound on lambda_max(D^-1/2 A D^-1/2), started from
-  //    the active-row indicator; the estimate is ||A u_k|| of the last step
-  float part = 0.f;
-  for (int k = tid; k < r; k += nt) part += act[k] * act[k];
-  const float n0 = sqrtf(block_sum(part, red));
-  for (int k = tid; k < r; k += nt) u[k] = act[k] / fmaxf(n0, 1.f);
+  // phase 2 mapping: quad i (pass p) is contact i = p NQ + tid / 4, lane
+  // q = tid & 3 its row 3 i + q (q < 3) or limit pair l = i (q = 3)
+  const int q = tid & 3, quad = tid >> 2;
+  const int base = (tid & 31) & ~3;
+  const int passes = (max(c, nl) + NQ - 1) / NQ;
+
+  // 2. power-iteration bound on lambda_max(D^-1/2 A D^-1/2) from u = act /
+  //    max(|act|, 1); xs holds D^-1/2 u (limit pairs: lo - hi)
+  int buf = 0;
+  float acc0 = 0.f;
+  for (int k = tid; k < r; k += NT) acc0 += act[k] * act[k];
+  const float n0 = fmaxf(sqrt_rn(block_sum<NW>(acc0, red, buf)), 1.f);
+  const float rn0 = rcp_rn(n0);
+  for (int k = tid; k < rows; k += NT) {
+    xs[k] = rsqrtf(diag[k]) * div_rn(act[k], n0, rn0);
+    if (k >= r3) xs[k] -= rsqrtf(diag[k + nl]) * div_rn(act[k + nl], n0, rn0);
+  }
+  __syncthreads();
   float lam_max = 0.f;
-  for (int it = 0; it < spectral_iters; ++it) {
-    for (int k = tid; k < r; k += nt) lam_next[k] = rsqrtf(diag[k]) * u[k];
-    __syncthreads();
-    delassus_matvec(D, J, MJ, Minv, ld, lam_next, y, tmp);
-    part = 0.f;
-    for (int k = tid; k < r; k += nt) {
-      const float v = rsqrtf(diag[k]) * y[k] * act[k];
-      u[k] = v;
-      part += v * v;
+  for (int it = 0; it < A.spectral_iters; ++it) {
+    phase1<NT>(D, MJ, xs, part, tmp);
+    float acc = 0.f;
+    for (int p = 0; p < passes; ++p) {
+      const int i = p * NQ + quad;
+      if (q < 3 && i < c) {
+        const int k = 3 * i + q;
+        const float v = rsqrtf(diag[k]) * dot4(J + k * s, tmp, s4) * act[k];
+        lamn[k] = v;
+        acc += v * v;
+      } else if (q == 3 && i < nl) {
+        const float t = tmp[ld[i]];
+        const int lo = r3 + i, hi = r3 + nl + i;
+        const float vlo = rsqrtf(diag[lo]) * t * act[lo];
+        const float vhi = rsqrtf(diag[hi]) * (-t) * act[hi];
+        lamn[lo] = vlo;
+        lamn[hi] = vhi;
+        acc += vlo * vlo + vhi * vhi;
+      }
     }
-    const float nrm = sqrtf(block_sum(part, red));
+    const float nrm = sqrt_rn(block_sum<NW>(acc, red, buf));
     lam_max = nrm;
-    for (int k = tid; k < r; k += nt) u[k] = u[k] / fmaxf(nrm, 1e-9f);
+    // the next step's x = D^-1/2 u, u = lamn / max(nrm, 1e-9); after the
+    // last step the first sweep's x = lam0
+    const float nc = fmaxf(nrm, 1e-9f), rnc = rcp_rn(nc);
+    const bool last = it + 1 == A.spectral_iters;
+    for (int k = tid; k < rows; k += NT) {
+      if (last) {
+        xs[k] = k < r3 ? lam[k] : lam[k] - lam[k + nl];
+      } else {
+        xs[k] = rsqrtf(diag[k]) * div_rn(lamn[k], nc, rnc);
+        if (k >= r3)
+          xs[k] -= rsqrtf(diag[k + nl]) * div_rn(lamn[k + nl], nc, rnc);
+      }
+    }
     __syncthreads();
   }
   float scale =
-      omega * fminf(1.f, 1.8f / fmaxf(1.1f * lam_max, 1e-9f));
+      A.omega * fminf(1.f, div_rn(1.8f, fmaxf(1.1f * lam_max, 1e-9f)));
 
-  // 3-4. projected Jacobi sweeps with the divergence guard
+  // 3-4. projected Jacobi sweeps with the divergence guard; phase 2 also
+  //      writes the next phase 1's xs (the new lambda)
   float prev_dn = 0.f;
   int halvings = 0;
-  for (int it = 0; it < iters; ++it) {
-    delassus_matvec(D, J, MJ, Minv, ld, lam, y, tmp);
-    for (int k = tid; k < r; k += nt)
-      y[k] = lam[k] - (scale / diag[k]) * ((y[k] + vfree[k]) - b[k]);
-    __syncthreads();
-    part = 0.f;
-    for (int i = tid; i < c; i += nt) {
-      const float ln = fmaxf(y[i], 0.f);
-      const float cap = mu[i] * ln;
-      float lt1 = y[c + i], lt2 = y[2 * c + i];
-      if (use_cone) {
-        const float tmag = sqrtf(lt1 * lt1 + lt2 * lt2);
-        const float sc = fminf(cap / fmaxf(tmag, 1e-9f), 1.f);
-        lt1 *= sc;
-        lt2 *= sc;
-      } else {
-        lt1 = fminf(fmaxf(lt1, -cap), cap);
-        lt2 = fminf(fmaxf(lt2, -cap), cap);
-      }
-      const int rows[3] = {i, c + i, 2 * c + i};
-      const float vals[3] = {ln, lt1, lt2};
-      for (int q = 0; q < 3; ++q) {
-        const float v = finite_or_zero(vals[q] * act[rows[q]]);
-        const float dl = v - lam[rows[q]];
-        lam_next[rows[q]] = v;
-        part += dl * dl;
+  for (int it = 0; it < A.iters; ++it) {
+    phase1<NT>(D, MJ, xs, part, tmp);
+    float acc = 0.f;
+    for (int p = 0; p < passes; ++p) {
+      const int i = p * NQ + quad;
+      const bool contact = q < 3 && i < c;
+      const int k = 3 * i + q;
+      float yf = 0.f;
+      if (contact)
+        yf = lam[k] - div_rn(scale, diag[k])
+                          * ((dot4(J + k * s, tmp, s4) + vfree[k]) - b[k]);
+      // the quad's normal and tangents, exchanged in registers
+      const float yn = __shfl_sync(0xffffffffu, yf, base);
+      const float y1 = __shfl_sync(0xffffffffu, yf, base + 1);
+      const float y2 = __shfl_sync(0xffffffffu, yf, base + 2);
+      if (contact) {
+        const float ln = fmaxf(yn, 0.f);
+        float val = ln;
+        if (q > 0) {
+          const float cap = mu[i] * ln;
+          if (A.use_cone) {
+            const float tmag = fmaxf(sqrt_rn(y1 * y1 + y2 * y2), 1e-9f);
+            val = yf * fminf(div_rn(cap, tmag), 1.f);
+          } else {
+            val = fminf(fmaxf(yf, -cap), cap);
+          }
+        }
+        const float v = finite_or_zero(val * act[k]);
+        const float dl = v - lam[k];
+        lamn[k] = v;
+        xs[k] = v;
+        acc += dl * dl;
+      } else if (q == 3 && i < nl) {
+        const float t = tmp[ld[i]];
+        float v2[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int kk = r3 + h * nl + i;
+          const float yl =
+              lam[kk] - div_rn(scale, diag[kk])
+                            * (((h ? -t : t) + vfree[kk]) - b[kk]);
+          v2[h] = finite_or_zero(fmaxf(yl, 0.f) * act[kk]);
+          const float dl = v2[h] - lam[kk];
+          lamn[kk] = v2[h];
+          acc += dl * dl;
+        }
+        xs[r3 + i] = v2[0] - v2[1];
       }
     }
-    for (int k = r3 + tid; k < r; k += nt) {
-      const float v = finite_or_zero(fmaxf(y[k], 0.f) * act[k]);
-      const float dl = v - lam[k];
-      lam_next[k] = v;
-      part += dl * dl;
-    }
-    const float dn = block_sum(part, red);    // barrier: lam_next complete
+    const float dn = block_sum<NW>(acc, red, buf);   // lamn, xs complete
     if (it > 0 && dn > prev_dn * 1.02f) {
       scale *= 0.5f;
       ++halvings;
     }
     prev_dn = dn;
     float* t = lam;
-    lam = lam_next;
-    lam_next = t;
+    lam = lamn;
+    lamn = t;
   }
 
   // dqd = MJ^T lambda_c + Minv[:, ld] (lambda_lo - lambda_hi)
-  for (int f = tid; f < d; f += nt) {
-    float s = 0.f;
-    for (int k = 0; k < r3; ++k) s += MJ[k * d + f] * lam[k];
-    if (nl) {
-      float sl = 0.f;
-      for (int l = 0; l < nl; ++l)
-        sl += Minv[f * d + ld[l]] * (lam[r3 + l] - lam[r3 + nl + l]);
-      s += sl;
-    }
-    gdqd[e * d + f] = s;
+  phase1<NT>(D, MJ, xs, part, tmp);
+  for (int f = tid; f < d; f += NT) A.dqd[e * d + f] = tmp[f];
+  for (int k = tid; k < r; k += NT) {
+    const int bc = k < c ? 0 : k < 2 * c ? 1 : 2;
+    A.lam[e * r + k] = lam[k < r3 ? 3 * (k - bc * c) + bc : k];
   }
-  for (int k = tid; k < r; k += nt) glam[e * r + k] = lam[k];
-  if (tid == 0) ghalv[env] = halvings;
+  if (tid == 0) A.halvings[blockIdx.x] = halvings;
+}
+
+// The kernel that runs D and its threads per block.
+using Kernel = void (*)(Dims, Args);
+
+Kernel pick(const Dims& D, int* threads) {
+  *threads = threads_for(D.r);
+  switch (reg_width(D)) {
+    case 16: return pgs_kernel_reg<16>;
+    case 24: return pgs_kernel_reg<24>;
+    default:
+      return *threads == 128 ? pgs_kernel_smem<128> : pgs_kernel_smem<256>;
+  }
 }
 
 }  // namespace
 
 extern "C" int pgs_smem_bytes(int c, int nl, int d) {
-  const int r3 = 3 * c, r = r3 + 2 * nl;
-  return (int)((2 * r3 * d + d * d + 2 * d + 8 * r + c + 33) * sizeof(float)
-               + nl * sizeof(int));
+  const Dims D = make_dims(c, nl, d);
+  return (int)(smem_floats(D) * sizeof(float) + nl * sizeof(int));
 }
 
 extern "C" int pgs_solve_fused_f32(const float* J, const float* Minv,
@@ -277,18 +682,47 @@ extern "C" int pgs_solve_fused_f32(const float* J, const float* Minv,
   if (W <= 0) return 0;
   if (c < 0 || nl < 0 || d < 1 || 3 * c + 2 * nl < 1)
     return (int)cudaErrorInvalidValue;
-  const Dims D{c, nl, d, 3 * c, 3 * c + 2 * nl};
+  const Dims D = make_dims(c, nl, d);
   const int smem = pgs_smem_bytes(c, nl, d);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        pgs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int threads = D.r <= 128 ? 128 : 256;
-  const int spectral_iters = D.r < 192 ? 3 : 8;
-  pgs_kernel<<<W, threads, smem, (cudaStream_t)stream>>>(
-      J, Minv, qd, b, act, mu, lam0, ld, lam, dqd, halvings, D, iters,
-      spectral_iters, omega, use_cone, diag_scale, reg);
+  int threads = 0;
+  const Kernel k = pick(D, &threads);
+  // the most shared memory per SM, so that 8 blocks fit; above 48 KB per
+  // block the large-shared-memory opt-in
+  cudaError_t e = cudaFuncSetAttribute(
+      k, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess && smem > 48 * 1024)
+    e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (e != cudaSuccess) return (int)e;
+  const Args A{J, Minv, qd, b, act, mu, lam0, ld, lam, dqd, halvings,
+               iters, D.r < 192 ? 3 : 8, use_cone, omega, diag_scale, reg};
+  k<<<W, threads, smem, (cudaStream_t)stream>>>(D, A);
   return (int)cudaGetLastError();
+}
+
+// Registers per thread and resident blocks per SM of the launch that
+// pgs_solve_fused_f32 makes at (c, nl, d).
+extern "C" int pgs_kernel_info(int c, int nl, int d, int* regs,
+                               int* blocks_per_sm) {
+  if (c < 0 || nl < 0 || d < 1 || 3 * c + 2 * nl < 1)
+    return (int)cudaErrorInvalidValue;
+  const Dims D = make_dims(c, nl, d);
+  const int smem = pgs_smem_bytes(c, nl, d);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  int threads = 0;
+  const Kernel k = pick(D, &threads);
+  cudaError_t e = cudaFuncSetAttribute(
+      k, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  cudaFuncAttributes a;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, k);
+  if (e != cudaSuccess) return (int)e;
+  *regs = a.numRegs;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, k, threads, smem);
 }
