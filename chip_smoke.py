@@ -27,16 +27,23 @@ Phases, one line each:
   7. B3/B4: the MPM P2G (C = 13) and G2P (C = 12) kernels and their plain
      float32 versions vs a float64 plain result, |err| <= 1e-5 S + 1e-7
      with S the float64 sum of magnitudes, at N = 32768, res 64, on bases
-     drawn over -2..res (border clipping) and on the real sand state's;
+     drawn over -2..res (border clipping), on the real sand state's, all
+     in one cell, 64 per cell and none (an all-zero grid), with the bins
+     passed and without; the binning kernels' offsets and tile records
+     equal the plain binning's; G2P equal bit for bit across calls; B3
+     timed with its binning and given bins, the binning alone, B4 given
+     bins, and the distinct nodes the sand stencils touch (B4's bound);
   8. MPM main path: bench.py --mode mpm's sand (32768 particles uniform in
      [-0.3, 0.3]^2 x [0.05, 0.8], mass 0.002, grid (-1, -1, 0)-(1, 1, 2) at
      res 64, friction 0.6, young 5e4, explicit, dt 4e-4), 25 warm-up steps
-     then 100 checked steps with exactly one launch of each kernel per
-     step, finite state, min z > -0.05, |x|, |y| < 1 and a falling mean z,
+     then 100 checked steps with exactly one launch of each kernel and
+     one binning per step, finite state, min z > -0.05, |x|, |y| < 1 and
+     a falling mean z,
      then particle-steps/s on the kernel and plain paths in turns;
   9. the CG (implicit_iterations = 8) and implicit-rheology paths, 10
      steps each at the same size, with their launch counts per step
-     (1 + 9 of each kernel for CG, 1 for the rheology path);
+     (1 + 9 of each kernel for CG, 1 for the rheology path, one binning
+     per step on both);
  10. one MPM step through the kernels, one through the plain versions and
      one plain step in float64, from the same cloned sand state: the two
      float32 paths agree with each other and with float64 to q 1e-6, qd
@@ -64,12 +71,16 @@ It prints one JSON line listing the kernels (name, route, source,
 launches, error, times, and each time's least possible time on an H100
 SXM at 700 W from ``kernel_cost``: bound_ms, bound_by, share_of_bound;
 library_ms where one PyTorch call computes the same function, else null
-with the reason; B1 and B2 also at the humanoid's shapes), then the card
-line, then the result line ``{"ok": true, "device": {...}}``. Any failed
-phase raises: exit code != 0 and no result line. Without a CUDA device it
-exits 2 at once. A ``[details]`` line carries the per-case errors, the
-throughput turns, the compiler's register report and, for B1 and B2 at
-each main-path shape, registers per thread and resident blocks per SM.
+with the reason; B1 and B2 also at the humanoid's shapes; B3 timed with
+its binning and given bins, B4 given bins, its bound counted on the nodes
+it reads; the binning, part of both, with its own entry), then the card
+line, then the result line ``{"ok": true,
+"device": {...}}``. Any failed phase raises: exit code != 0 and no result
+line. Without a CUDA device it exits 2 at once. A ``[details]`` line
+carries the per-case errors, the throughput turns, the compiler's
+register report and, for B1 and B2 at each main-path shape and each
+kernel of B3, B4 and the binning, registers per thread and resident
+blocks per SM (and shared memory per block).
 """
 
 import functools
@@ -106,10 +117,16 @@ def kernel_cost(name, W=1, **shape):
         and v_free (2 x 3c d), spectral_iters + iters Delassus matvecs
         (2 x 3c d + nl d each) and dqd (3c d + nl d).
     mpm_p2g (N, C, res): reads base (N, 3) int32, w_ax (N, 3, 3) and vals
-        (N, C), writes the res^3 x C grid; 27 weight products (2 each) and
-        27 C FMAs per particle.
-    mpm_g2p (N, C, res): reads base, w_ax and the res^3 x C grid, writes
-        (N, C); the same operations."""
+        (N, C), writes the dense res^3 x C grid, zeros included; 27 weight
+        products (2 each) and 27 C FMAs per particle.
+    mpm_g2p (N, C, active_nodes): reads base, w_ax and the C channels of
+        the active_nodes grid nodes that some particle's clipped stencil
+        touches (``active_nodes``: a gather reads no other node), writes
+        (N, C); the same operations.
+    mpm_bin (N, tiles, active_tiles): reads base, writes the bins (see
+        below); no floating-point work.
+    The bins and scratch slots of the MPM kernels are their design's own
+    traffic and count in neither bound."""
     f = 4
     if name == "chol_inv_solve":
         d = shape["d"]
@@ -126,14 +143,34 @@ def kernel_cost(name, W=1, **shape):
                + (spec + iters) * (2 * r3 * d + nl * d) + r3 * d + nl * d)
         flops = 2 * fma
     elif name in ("mpm_p2g", "mpm_g2p"):
-        n, ch, res = shape["N"], shape["C"], shape["res"]
-        particles = n * (3 * 4 + 9 * f + ch * f)
-        nbytes = particles + res ** 3 * ch * f
+        n, ch = shape["N"], shape["C"]
+        nodes = shape["res"] ** 3 if name == "mpm_p2g" \
+            else shape["active_nodes"]
+        nbytes = n * (3 * 4 + 9 * f + ch * f) + nodes * ch * f
         flops = n * (27 * 2 + 27 * ch * 2)
-        return nbytes, flops         # one call moves the whole grid once
+        return nbytes, flops         # one call, not per env
+    elif name == "mpm_bin":
+        n, K, act = shape["N"], shape["tiles"], shape["active_tiles"]
+        # reads base (N, 3) int32; writes the sorted (N, 4) int32, the
+        # offsets (K + 1), slot_of (K), nactive and a record (tile, begin,
+        # end) per non-empty tile; integer work only
+        return n * 12 + n * 16 + (2 * K + 2 + 3 * act) * 4, 0
     else:
         raise KeyError(name)
     return W * nbytes, W * flops
+
+
+def active_nodes(base, res):
+    """Distinct grid nodes that the particles' 27-node stencils touch, each
+    index clipped to [0, res - 1] per axis (duplicates count once)."""
+    import torch
+    nodes = torch.clamp(base.long()[:, :, None]
+                        + torch.arange(3, device=base.device), 0, res - 1)
+    flat = ((nodes[:, 0, :, None, None] * res + nodes[:, 1, None, :, None])
+            * res + nodes[:, 2, None, None, :])
+    touched = torch.zeros(res ** 3, dtype=torch.bool, device=base.device)
+    touched[flat.reshape(-1)] = True
+    return int(touched.sum())
 
 
 def bound_ms(nbytes, flops):
@@ -532,36 +569,83 @@ def build_sand(dev, **kw):
 def transfer_err(got, ref, S):
     """(ok, max_abs_err) under |got - ref| <= 1e-5 S + 1e-7 (float64)."""
     diff = (got.double() - ref).abs()
-    return bool((diff <= 1e-5 * S + 1e-7).all()), float(diff.max())
+    return (bool((diff <= 1e-5 * S + 1e-7).all()),
+            float(diff.max()) if diff.numel() else 0.0)
+
+
+def b34_cases(dev, sand_base, sand_w):
+    """Operands of phase 7: random bases over -2..res (border clipping),
+    the sand state's bases, every particle in one cell, 64 particles in
+    each of 64 cells (one per tile, at its upper edge), and no particles;
+    N = 32768 at res 64 unless stated. Returns {label: (base, w_ax, vals,
+    grid)}."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(5)
+    n, res = MPM_N, MPM_RES
+
+    def f32(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    def i32(a):
+        return torch.as_tensor(a, dtype=torch.int32, device=dev)
+    vals = f32(rng.randn(n, 13))
+    grid = f32(rng.randn(res, res, res, 12))
+    rand_w = f32(rng.rand(n, 3, 3))
+    cells = np.stack(np.meshgrid(*[np.arange(3, res, 4)] * 3,
+                                 indexing="ij"), -1).reshape(-1, 3)
+    cases = {
+        "random": i32(rng.randint(-2, res + 1, (n, 3))),
+        "sand": sand_base,
+        "one cell": i32(np.tile([[31, 30, 29]], (n, 1))),
+        "64 per cell": i32(np.repeat(cells[:n // 64], 64, axis=0)),
+        "empty": i32(np.zeros((0, 3))),
+    }
+    out = {}
+    for label, base in cases.items():
+        m = base.shape[0]
+        w = sand_w if label == "sand" else rand_w[:m]
+        out[label] = (base, w, vals[:m], grid)
+    return out
 
 
 def phase_b34(dev, solver, state):
-    import numpy as np
+    """B3/B4 (and the binning) against float64 on each case of
+    ``b34_cases``, with the bins passed and without; timings at the sand
+    bases."""
     import torch
     from newton_tpu_torch.solvers import mpm_transfer as mt
-    rng = np.random.RandomState(5)
-    n, res = MPM_N, MPM_RES
-    _, sand_base, sand_w = solver.stencil(state.particle_q)
-    rand_base = torch.as_tensor(rng.randint(-2, res + 1, (n, 3)),
-                                dtype=torch.int32, device=dev)
-    rand_w = torch.as_tensor(rng.rand(n, 3, 3), dtype=torch.float32,
-                             device=dev)
-    vals = torch.as_tensor(rng.randn(n, 13), dtype=torch.float32, device=dev)
-    grid = torch.as_tensor(rng.randn(res, res, res, 12), dtype=torch.float32,
-                           device=dev)
-    errs = {}
-    for label, base, w in (("random", rand_base, rand_w),
-                           ("sand", sand_base, sand_w)):
+    res = MPM_RES
+    _, sand_base, sand_w, _ = solver.stencil(state.particle_q)
+    errs, checks = {}, {}
+    for label, (base, w, vals, grid) in b34_cases(dev, sand_base,
+                                                  sand_w).items():
+        bins = mt.bin_particles(base, res)
+        ref_bins = mt.bin_particles_plain(base, res)
+        if not all(torch.equal(getattr(bins, name), getattr(ref_bins, name))
+                   for name in ("offsets", "slot_of", "records")):
+            raise AssertionError(f"binning ({label} bases): kernel offsets "
+                                 f"or tile records differ from the plain "
+                                 f"version's")
+        if not torch.equal(torch.sort(bins.perm).values,
+                           torch.arange(base.shape[0], device=dev,
+                                        dtype=torch.int32)):
+            raise AssertionError(f"binning ({label} bases): not a "
+                                 f"permutation")
         w64 = w.double()
         ref_G = mt.p2g_apply_plain(base, w64, vals.double(), res)
         S_G = mt.p2g_apply_plain(base, w64, vals.double().abs(), res)
         ref_P = mt.g2p_apply_plain(base, w64, grid.double())
         S_P = mt.g2p_apply_plain(base, w64, grid.double().abs())
+        P = mt.g2p_apply(base, w, grid, bins=bins)
         for name, got, ref, S in (
-                ("p2g kernel", mt.p2g_apply(base, w, vals, res), ref_G, S_G),
+                ("p2g kernel", mt.p2g_apply(base, w, vals, res, bins=bins),
+                 ref_G, S_G),
+                ("p2g kernel, own bins", mt.p2g_apply(base, w, vals, res),
+                 ref_G, S_G),
                 ("p2g plain", mt.p2g_apply_plain(base, w, vals, res), ref_G,
                  S_G),
-                ("g2p kernel", mt.g2p_apply(base, w, grid), ref_P, S_P),
+                ("g2p kernel", P, ref_P, S_P),
                 ("g2p plain", mt.g2p_apply_plain(base, w, grid), ref_P,
                  S_P)):
             ok, e = transfer_err(got, ref, S)
@@ -570,20 +654,46 @@ def phase_b34(dev, solver, state):
                                      f"float64 plain result: off tolerance, "
                                      f"max abs err {e:.3g}")
             errs[f"{name}, {label} bases"] = e
-    out = dict(errors=errs,
+        # G2P sums in a fixed order: bit for bit across calls and binnings
+        if not torch.equal(P, mt.g2p_apply(base, w, grid)):
+            raise AssertionError(f"B4 ({label} bases): two calls differ")
+        if label == "empty" and mt.p2g_apply(base, w, vals, res).any():
+            raise AssertionError("B3 with no particles: grid not all zero")
+        checks[label] = dict(particles=int(base.shape[0]),
+                             tiles=bins.nactive)
+    out = dict(errors=errs, cases=checks,
                p2g_max_abs_err=max(v for k, v in errs.items()
                                    if k.startswith("p2g kernel")),
                g2p_max_abs_err=max(v for k, v in errs.items()
-                                   if k.startswith("g2p kernel")))
+                                   if k.startswith("g2p kernel")),
+               active_nodes=active_nodes(sand_base, res))
+    # the binning kernel's offsets, slot_of and records equal the plain
+    # version's exactly (checked above): its max_abs_err is 0
     # times at the main path's shapes and access pattern (sand bases)
-    out["p2g_ms"] = time_ms(lambda: mt.p2g_apply(sand_base, sand_w, vals,
-                                                 res), queued=True)
-    out["p2g_plain_ms"] = time_ms(lambda: mt.p2g_apply_plain(
-        sand_base, sand_w, vals, res))
-    out["g2p_ms"] = time_ms(lambda: mt.g2p_apply(sand_base, sand_w, grid),
+    _, w, vals, grid = b34_cases(dev, sand_base, sand_w)["sand"]
+    bins = mt.bin_particles(sand_base, res)
+    out["p2g_ms"] = time_ms(lambda: mt.p2g_apply(sand_base, w, vals, res),
                             queued=True)
+    out["p2g_given_bins_ms"] = time_ms(lambda: mt.p2g_apply(
+        sand_base, w, vals, res, bins=bins), queued=True)
+    out["bin_ms"] = time_ms(lambda: mt.bin_particles(sand_base, res),
+                            queued=True)
+    out["bin_plain_ms"] = time_ms(lambda: mt.bin_particles_plain(sand_base,
+                                                                 res))
+    # the binning's yardstick: one stable torch.sort of the tile keys,
+    # made outside the timed window (the port never calls it)
+    keys = mt.tile_of(sand_base, res)
+    out["bin_library_ms"] = time_ms(lambda: torch.sort(keys, stable=True),
+                                    queued=True)
+    out["tiles"], out["active_tiles"] = mt.tiles(res)[1], bins.nactive
+    out["p2g_plain_ms"] = time_ms(lambda: mt.p2g_apply_plain(
+        sand_base, w, vals, res))
+    out["g2p_ms"] = time_ms(lambda: mt.g2p_apply(sand_base, w, grid,
+                                                 bins=bins), queued=True)
+    out["g2p_with_binning_ms"] = time_ms(lambda: mt.g2p_apply(
+        sand_base, w, grid), queued=True)
     out["g2p_plain_ms"] = time_ms(lambda: mt.g2p_apply_plain(
-        sand_base, sand_w, grid))
+        sand_base, w, grid))
     return out
 
 
@@ -620,13 +730,15 @@ def check_sand(state, label, z0_mean=None):
 def mpm_launches():
     from newton_tpu_torch.solvers import mpm_transfer as mt
     return dict(p2g_apply=mt.p2g_apply.launches,
-                g2p_apply=mt.g2p_apply.launches)
+                g2p_apply=mt.g2p_apply.launches,
+                bin_particles=mt.bin_particles.launches)
 
 
 def reset_mpm_launches():
     from newton_tpu_torch.solvers import mpm_transfer as mt
     mt.p2g_apply.launches = 0
     mt.g2p_apply.launches = 0
+    mt.bin_particles.launches = 0
 
 
 def phase_mpm_main(solver, state0):
@@ -680,10 +792,11 @@ def phase_mpm_side(dev):
         elapsed = time.perf_counter() - t0
         launches = mpm_launches()
         for name, n in launches.items():
-            if n != per_step * MPM_SIDE_STEPS:
+            want = 1 if name == "bin_particles" else per_step
+            if n != want * MPM_SIDE_STEPS:
                 raise AssertionError(
                     f"MPM {label} path: {name} launched {n} times in "
-                    f"{MPM_SIDE_STEPS} steps, expected {per_step} per step")
+                    f"{MPM_SIDE_STEPS} steps, expected {want} per step")
         out[label] = dict(launches=launches, per_step=per_step,
                           gates=check_sand(state, f"MPM {label} path"),
                           particle_steps_per_s=MPM_N * MPM_SIDE_STEPS
@@ -915,7 +1028,8 @@ def pgs_smem(rec):
 
 def kernel_info():
     """Registers per thread and resident blocks per SM of B1 and B2 at each
-    main-path shape (cudaFuncGetAttributes and
+    main-path shape, and of each kernel of B3, B4 and the binning with its
+    shared memory per block (cudaFuncGetAttributes and
     cudaOccupancyMaxActiveBlocksPerMultiprocessor, through the library)."""
     import ctypes
     from newton_tpu_torch import _kernels
@@ -931,6 +1045,14 @@ def kernel_info():
         _kernels.check(fn(*shape, ctypes.addressof(regs),
                           ctypes.addressof(blocks)), label)
         out[label] = dict(registers=regs.value, blocks_per_sm=blocks.value)
+    for which, label in enumerate(("binning", "B3 tile", "B3 node rows",
+                                   "B4 tile")):
+        regs, smem, blocks = (ctypes.c_int(0) for _ in range(3))
+        _kernels.check(lib.mpm_kernel_info(
+            which, ctypes.addressof(regs), ctypes.addressof(smem),
+            ctypes.addressof(blocks)), label)
+        out[label] = dict(registers=regs.value, smem_bytes=smem.value,
+                          blocks_per_sm=blocks.value)
     return out
 
 
@@ -1009,11 +1131,15 @@ def main():
     b34 = phase_b34(dev, sand_solver, sand0)
     results["b34"] = b34
     print(f"[7 B3/B4 mpm p2g/g2p] kernels and plain f32 within 1e-5 S + "
-          f"1e-7 of float64, N={MPM_N} res={MPM_RES}; p2g max abs err "
-          f"{b34['p2g_max_abs_err']:.3g}, {b34['p2g_ms']:.4f} ms vs plain "
-          f"{b34['p2g_plain_ms']:.4f} ms; g2p max abs err "
-          f"{b34['g2p_max_abs_err']:.3g}, {b34['g2p_ms']:.4f} ms vs plain "
-          f"{b34['g2p_plain_ms']:.4f} ms", flush=True)
+          f"1e-7 of float64, N={MPM_N} res={MPM_RES}, cases "
+          f"{b34['cases']}; p2g max abs err {b34['p2g_max_abs_err']:.3g}, "
+          f"{b34['p2g_ms']:.4f} ms with its binning, "
+          f"{b34['p2g_given_bins_ms']:.4f} ms given bins, binning "
+          f"{b34['bin_ms']:.4f} ms, plain {b34['p2g_plain_ms']:.4f} ms; g2p "
+          f"max abs err {b34['g2p_max_abs_err']:.3g}, {b34['g2p_ms']:.4f} ms "
+          f"given bins ({b34['g2p_with_binning_ms']:.4f} ms with its "
+          f"binning), plain {b34['g2p_plain_ms']:.4f} ms; sand stencils "
+          f"touch {b34['active_nodes']} nodes", flush=True)
 
     mpm, sand_end = phase_mpm_main(sand_solver, sand0)
     results["mpm"] = mpm
@@ -1115,7 +1241,14 @@ def main():
                             res=MPM_RES),
              library_ms=None, library=no_library.format(
                  "the 27-node B-spline weights times the values, scattered "
-                 "(index_add_ alone does only the scatter)")),
+                 "(index_add_ alone does only the scatter)"),
+             timed="with its binning (bin_particles), as a call without "
+                   "bins runs",
+             ms_given_bins=b34["p2g_given_bins_ms"],
+             **bound_fields("mpm_p2g", b34["p2g_given_bins_ms"],
+                            "given_bins_", N=MPM_N, C=13, res=MPM_RES),
+             binning_ms=b34["bin_ms"],
+             binning_launches=mpm["launches"]["bin_particles"]),
         dict(name="mpm_g2p", route="cuda",
              source="newton_tpu_torch/csrc/mpm_transfer.cu",
              replaces="newton_tpu/solvers/mpm_pallas.py:126",
@@ -1123,9 +1256,26 @@ def main():
              max_abs_err=b34["g2p_max_abs_err"], ms=b34["g2p_ms"],
              plain_ms=b34["g2p_plain_ms"],
              **bound_fields("mpm_g2p", b34["g2p_ms"], N=MPM_N, C=12,
-                            res=MPM_RES),
+                            active_nodes=b34["active_nodes"]),
              library_ms=None, library=no_library.format(
-                 "the 27-node B-spline weighted gather")),
+                 "the 27-node B-spline weighted gather"),
+             timed="given the step's bins, as the main path calls it",
+             active_nodes=b34["active_nodes"],
+             ms_with_binning=b34["g2p_with_binning_ms"]),
+        dict(name="mpm_bin_particles", route="cuda",
+             source="newton_tpu_torch/csrc/mpm_transfer.cu",
+             replaces="newton_tpu/solvers/mpm_pallas.py:82",
+             part_of="the ports of p2g_apply and g2p_apply (the TPU kernels "
+                     "take the particles in any order)",
+             launches=mpm["launches"]["bin_particles"],
+             max_abs_err=0.0, ms=b34["bin_ms"],
+             plain_ms=b34["bin_plain_ms"],
+             **bound_fields("mpm_bin", b34["bin_ms"], N=MPM_N,
+                            tiles=b34["tiles"],
+                            active_tiles=b34["active_tiles"]),
+             library_ms=b34["bin_library_ms"],
+             library="torch.sort(tile keys, stable=True), keys made "
+                     "outside the timed window"),
     ]
     print(f"[bounds] H100 SXM peaks {PEAK_BYTES_PER_S / 1e12:g} TB/s, "
           f"{PEAK_F32_FLOPS / 1e12:g} TFLOP/s float32 (700 W); this card: "

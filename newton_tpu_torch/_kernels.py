@@ -44,10 +44,16 @@ _SIGNATURES = {
     "chol_kernel_info": [_I, _P, _P],
     # c, nl, d, &registers, &blocks per SM
     "pgs_kernel_info": [_I, _I, _I, _P, _P],
-    # base, w_ax, vals, grid, N, C, res, stream
-    "mpm_p2g_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
-    # base, w_ax, grid, out, N, C, res, stream
-    "mpm_g2p_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # res -> int32 entries of the bins' meta
+    "mpm_meta_ints": [_I],
+    # base, meta, sorted, N, res, stream
+    "mpm_bin_particles": [_P, _P, _P, _I, _I, _P],
+    # w_ax, vals, meta, sorted, scratch, grid, N, C, res, stream
+    "mpm_p2g_binned_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # w_ax, grid, meta, sorted, out, N, C, res, stream
+    "mpm_g2p_binned_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # which, &registers, &shared bytes, &blocks per SM
+    "mpm_kernel_info": [_I, _P, _P, _P],
 }
 
 

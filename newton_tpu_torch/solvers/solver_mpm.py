@@ -149,16 +149,19 @@ class SolverImplicitMPM(SolverBase):
                                               device=x.device)
         return replace(state, custom=custom)
 
-    def stencil(self, x: torch.Tensor):
+    def stencil(self, x: torch.Tensor, binned: bool = False):
         """Grid coordinates ``xp`` (N, 3), lower stencil nodes ``base``
-        (N, 3) int32 and quadratic B-spline weights ``w_ax`` (N, 3 offsets,
-        3 axes) of particle positions ``x``: the transfers' operands."""
+        (N, 3) int32, quadratic B-spline weights ``w_ax`` (N, 3 offsets,
+        3 axes) of particle positions ``x`` and, with ``binned``, the
+        particles' tile binning ``mpm_transfer.bin_particles(base, res)``
+        (else None): the transfers' operands."""
         xp = (x - self._lower) * self.inv_dx
         base = torch.floor(xp - 0.5).to(torch.int32)
         fx = xp - base.to(x.dtype)                     # in [0.5, 1.5]
         w_ax = torch.stack([0.5 * (1.5 - fx) ** 2, 0.75 - (fx - 1.0) ** 2,
                             0.5 * (fx - 0.5) ** 2], dim=1).contiguous()
-        return xp, base, w_ax
+        bins = mpm_transfer.bin_particles(base, self.res) if binned else None
+        return xp, base, w_ax, bins
 
     # ------------------------------------------------------------------
     def _projected_stress(self, F_in, Jp):
@@ -219,21 +222,17 @@ class SolverImplicitMPM(SolverBase):
              control: Optional[Control] = None,
              contacts: Optional[Contacts] = None, dt: float = 1e-3, *,
              kernels: bool = True) -> State:
-        """One MPM step. ``kernels=False`` runs the plain PyTorch transfer
-        versions instead of the CUDA kernels (the comparison path on the
-        card; on the CPU both are the plain versions)."""
+        """One MPM step. With ``kernels`` (the default) the particles are
+        binned by grid tile once and the bins passed to every transfer;
+        ``kernels=False`` runs the plain PyTorch transfer versions instead
+        of the CUDA kernels (the comparison path on the card; on the CPU
+        both are the plain versions)."""
         model = self.model
         N = model.particle_count
         if N == 0:
             return state_in
         if "mpm:F" not in state_in.custom:
             state_in = self.init_state(state_in)
-        if kernels:
-            p2g, g2p = mpm_transfer.p2g_apply, mpm_transfer.g2p_apply
-        else:
-            p2g = mpm_transfer.p2g_apply_plain
-            g2p = mpm_transfer.g2p_apply_plain
-
         x = state_in.particle_q
         v = state_in.particle_qd
         C = state_in.custom["mpm:C"]
@@ -254,7 +253,17 @@ class SolverImplicitMPM(SolverBase):
         else:
             affine = stress_coeff * PFt + m[:, None, None] * C
 
-        xp, base, w_ax = self.stencil(x)
+        # one binning per step, shared by every transfer of the step
+        xp, base, w_ax, bins = self.stencil(x, binned=kernels)
+        if kernels:
+            def p2g(base, w_ax, vals, res):
+                return mpm_transfer.p2g_apply(base, w_ax, vals, res, bins)
+
+            def g2p(base, w_ax, grid):
+                return mpm_transfer.g2p_apply(base, w_ax, grid, bins)
+        else:
+            p2g = mpm_transfer.p2g_apply_plain
+            g2p = mpm_transfer.g2p_apply_plain
 
         def p2g_grid(affine, with_mass_vel):
             """P2G of the per-particle affine term (plus mass and momentum):

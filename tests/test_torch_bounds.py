@@ -1,7 +1,9 @@
 """The least-time accounting of ``chip_smoke.kernel_cost``/``bound_ms``: the
 bytes per env that kernels B1 and B2 must move at their main-path shapes
-(each input read once, each output written once), and the bound as the
-larger of the bytes term and the float32 FLOPs term on an H100 SXM."""
+(each input read once, each output written once), the bytes of one MPM
+transfer call (G2P counted on the grid nodes it reads,
+``chip_smoke.active_nodes``), and the bound as the larger of the bytes
+term and the float32 FLOPs term on an H100 SXM."""
 
 import pytest
 
@@ -43,7 +45,7 @@ def test_pgs_flops_count():
     ("pgs_solve_fused", dict(c=192, nl=17, d=23, W=4096), "operations"),
     ("chol_inv_solve", dict(d=23, W=4096), "bytes"),
     ("mpm_p2g", dict(N=32768, C=13, res=64), "bytes"),
-    ("mpm_g2p", dict(N=32768, C=12, res=64), "bytes"),
+    ("mpm_g2p", dict(N=32768, C=12, active_nodes=14283), "bytes"),
 ])
 def test_bound_is_the_larger_term(name, shape, by):
     nbytes, flops = chip_smoke.kernel_cost(name, **shape)
@@ -57,11 +59,50 @@ def test_bound_is_the_larger_term(name, shape, by):
 
 def test_mpm_transfer_bytes():
     """P2G reads base, weights and 13 channels of 32768 particles and
-    writes the 64^3 x 13 grid: ~16.9 MB a call; G2P the reverse, ~15.7 MB."""
+    writes the dense 64^3 x 13 grid: ~16.9 MB a call. G2P reads the
+    particles and only the nodes their stencils touch (~14.3k for the sand
+    column, 5.5% of the grid), and writes 12 channels: ~3.8 MB."""
     p2g = chip_smoke.kernel_cost("mpm_p2g", N=32768, C=13, res=64)[0]
-    g2p = chip_smoke.kernel_cost("mpm_g2p", N=32768, C=12, res=64)[0]
+    g2p = chip_smoke.kernel_cost("mpm_g2p", N=32768, C=12,
+                                 active_nodes=14283)[0]
     assert p2g == 32768 * (12 + 36 + 52) + 64 ** 3 * 52
-    assert g2p == 32768 * (12 + 36 + 48) + 64 ** 3 * 48
+    assert g2p == 32768 * (12 + 36 + 48) + 14283 * 48
+    # the bound moves with the touched nodes only
+    more = chip_smoke.kernel_cost("mpm_g2p", N=32768, C=12,
+                                  active_nodes=14284)[0]
+    assert more - g2p == 48
+
+
+def test_mpm_bin_bytes():
+    """The binning reads the (N, 3) int32 bases and writes the (N, 4)
+    int32 sorted particles, the offsets and slots of its K tiles and a
+    record of 3 ints per non-empty tile; bound by bytes (no float work)."""
+    nbytes, flops = chip_smoke.kernel_cost("mpm_bin", N=32768, tiles=4096,
+                                           active_tiles=252)
+    assert nbytes == 32768 * 28 + (2 * 4096 + 2 + 3 * 252) * 4
+    assert flops == 0
+    assert chip_smoke.bound_ms(nbytes, flops)[1] == "bytes"
+
+
+def test_active_nodes_by_hand():
+    """Distinct clipped stencil nodes at res 4: a base past the lower
+    border clips to node 0 on that axis (one node), a base at res - 1 to
+    node 3; overlapping stencils count their shared nodes once."""
+    import torch
+    cases = [
+        ([[0, 0, 0]], 27),
+        ([[-2, -2, -2]], 1),                  # (0, 0, 0) 27 times
+        ([[3, 3, 3]], 1),                     # (3, 3, 3) 27 times
+        ([[-1, 3, 0]], 2 * 1 * 3),            # x {0, 1}, y {3}, z {0, 1, 2}
+        ([[2, 0, -1]], 2 * 3 * 2),            # x {2, 3}, y {0..2}, z {0, 1}
+        ([[0, 0, 0], [1, 0, 0]], 4 * 3 * 3),  # x {0..3} shared
+        ([[0, 0, 0], [0, 0, 0]], 27),         # duplicates count once
+        ([[-2, -2, -2], [-5, 0, -3]], 3),     # (0, 0, 0), (0, {0, 1, 2}, 0)
+    ]
+    for base, want in cases:
+        got = chip_smoke.active_nodes(torch.tensor(base, dtype=torch.int32),
+                                      4)
+        assert got == want, (base, got, want)
 
 
 def test_unknown_kernel_raises():

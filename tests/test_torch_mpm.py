@@ -302,34 +302,106 @@ needs_cuda = pytest.mark.skipif("not torch.cuda.is_available()",
                                 reason="needs a CUDA device")
 
 
+def _kernel_case(case, C):
+    """Transfer operands of one kernel case: random bases over -2..res at
+    res 1, 3, 16, 64 and 160 (more tiles than the binning counts in shared
+    memory: its global workspace); all particles in one cell; 64 particles
+    in each of 64 cells, one cell per tile at its upper edge (the stencils
+    reach into the next tiles); no particles; the sand column's bases
+    (chip_smoke.py's phase 8 cell: 32768 particles, res 64)."""
+    if case.startswith("random res "):
+        res = int(case.split()[-1])
+        return _transfer_inputs(C, 4096, res, C) + (res,)
+    res = 64 if case == "sand" else 16
+    n = {"one cell": 4096, "64 per cell": 4096, "empty": 0,
+         "sand": 32768}[case]
+    base, w_ax, vals, grid = _transfer_inputs(C, max(n, 4), res, C)
+    if case == "empty":
+        base, w_ax, vals = base[:0], w_ax[:0], vals[:0]
+    elif case == "one cell":
+        base[:] = (5, 6, 7)
+    elif case == "64 per cell":
+        cells = np.stack(np.meshgrid(*[np.arange(3, 16, 4)] * 3,
+                                     indexing="ij"), -1).reshape(-1, 3)
+        base = np.repeat(cells, 64, axis=0).astype(np.int32)
+    elif case == "sand":
+        rng = np.random.RandomState(0)
+        pts = rng.uniform(-0.3, 0.3, (n, 3))
+        pts[:, 2] = rng.uniform(0.05, 0.8, n)
+        xp = (pts - np.array([-1.0, -1.0, 0.0])) * (res / 2.0)
+        base = np.floor(xp - 0.5).astype(np.int32)
+    return base, w_ax, vals, grid, res
+
+
+KERNEL_CASES = ["random res 1", "random res 3", "random res 16",
+                "random res 64", "random res 160", "one cell", "64 per cell",
+                "empty", "sand"]
+
+
 @gpu
 @needs_cuda
+@pytest.mark.parametrize("case", KERNEL_CASES)
 @pytest.mark.parametrize("C", [4, 12, 13])
-def test_transfer_kernels_match_plain(C):
+def test_transfer_kernels_match_plain(C, case):
     """Kernels vs their plain versions against a float64 plain result:
-    |err| <= 1e-5 * S + 1e-7, S the float64 sum of magnitudes (P2G
-    atomics reorder each node's sum)."""
-    n, res = 4096, 16
+    |err| <= 1e-5 * S + 1e-7, S the float64 sum of magnitudes (P2G's
+    shared-memory atomics reorder each node's sum), with the bins computed
+    once and passed, and without; no particles give an all-zero grid.
+    G2P sums in a fixed order: two calls agree bit for bit."""
+    *arrays, res = _kernel_case(case, C)
     base, w_ax, vals, grid = (torch.as_tensor(a, device="cuda")
-                              for a in _transfer_inputs(C, n, res, C))
+                              for a in arrays)
     w64 = w_ax.double()
     before = (mpm_transfer.p2g_apply.launches,
-              mpm_transfer.g2p_apply.launches)
-    G = mpm_transfer.p2g_apply(base, w_ax, vals, res)
-    P = mpm_transfer.g2p_apply(base, w_ax, grid)
+              mpm_transfer.g2p_apply.launches,
+              mpm_transfer.bin_particles.launches)
+    bins = mpm_transfer.bin_particles(base, res)
+    G = mpm_transfer.p2g_apply(base, w_ax, vals, res, bins=bins)
+    P = mpm_transfer.g2p_apply(base, w_ax, grid, bins=bins)
+    G_self = mpm_transfer.p2g_apply(base, w_ax, vals, res)
+    P_self = mpm_transfer.g2p_apply(base, w_ax, grid)
     torch.cuda.synchronize()
     assert (mpm_transfer.p2g_apply.launches,
-            mpm_transfer.g2p_apply.launches) == (before[0] + 1,
-                                                 before[1] + 1)
+            mpm_transfer.g2p_apply.launches,
+            mpm_transfer.bin_particles.launches) == (before[0] + 2,
+                                                     before[1] + 2,
+                                                     before[2] + 3)
+    assert G.shape == (res, res, res, C) and P.shape == (base.shape[0], C)
+    assert torch.equal(P, P_self)
+    if case == "empty":
+        assert not G.any() and not G_self.any()
     ref_G = mpm_transfer.p2g_apply_plain(base, w64, vals.double(), res)
     S_G = mpm_transfer.p2g_apply_plain(base, w64, vals.double().abs(), res)
     ref_P = mpm_transfer.g2p_apply_plain(base, w64, grid.double())
     S_P = mpm_transfer.g2p_apply_plain(base, w64, grid.double().abs())
-    for got, ref, S in ((G, ref_G, S_G), (P, ref_P, S_P),
+    for got, ref, S in ((G, ref_G, S_G), (G_self, ref_G, S_G),
+                        (P, ref_P, S_P),
                         (mpm_transfer.p2g_apply_plain(base, w_ax, vals, res),
                          ref_G, S_G),
                         (mpm_transfer.g2p_apply_plain(base, w_ax, grid),
                          ref_P, S_P)):
         assert bool(((got.double() - ref).abs() <= 1e-5 * S + 1e-7).all())
-    with pytest.raises(ValueError):
-        mpm_transfer.g2p_apply(base, w_ax, grid.transpose(0, 1))
+    if res > 1:                         # a strided grid is refused
+        with pytest.raises(ValueError):
+            mpm_transfer.g2p_apply(base, w_ax, grid.transpose(0, 1))
+
+
+@gpu
+@needs_cuda
+@pytest.mark.parametrize("case", KERNEL_CASES)
+def test_bin_kernel_matches_plain(case):
+    """The counting-sort kernels give the plain binning's offsets, tile
+    list and slots exactly, and the same particles in each tile (their
+    order inside a tile follows the atomics)."""
+    base, *_, res = _kernel_case(case, 4)
+    base = torch.as_tensor(base, device="cuda")
+    got = mpm_transfer.bin_particles(base, res)
+    ref = mpm_transfer.bin_particles_plain(base, res)
+    assert got.meta.shape == ref.meta.shape     # one layout in both
+    for name in ("offsets", "slot_of", "records"):
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name
+    off = ref.offsets.tolist()
+    for t in ref.active.tolist():
+        a, b = off[t], off[t + 1]
+        ga = got.sorted[a:b][torch.argsort(got.perm[a:b])]
+        assert torch.equal(ga, ref.sorted[a:b])

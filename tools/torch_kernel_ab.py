@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Kernels B1/B2 of two checkouts of the PyTorch port, side by side on one
-CUDA card.
+"""Kernels of two checkouts of the PyTorch port, side by side on one CUDA
+card.
 
-    python3 tools/torch_kernel_ab.py [--parent DIR] [--out FILE]
+    python3 tools/torch_kernel_ab.py [--parent DIR] [--mpm-only] [--out FILE]
 
 Builds this checkout's kernel library and, with ``--parent``, the library
 of the checkout at DIR (its own ``newton_tpu_torch/csrc``), then on the same
@@ -12,13 +12,25 @@ operands, in turns (parent, this, this, parent):
     (``pgs_solve_fused_f32``) at the ant's (25, 8, 14), the humanoid's
     compacted (32, 17, 23) and uncompacted (192, 17, 23) shapes on
     captured operands; CUDA events over 50 calls, W = 4096;
+  - times B3 and B4 at the sand cell (N = 32768, res 64, the bases of
+    chip_smoke.py's sand state, random values): B3 with its binning
+    (``mpm_bin_particles`` then ``mpm_p2g_binned_f32``; a checkout without
+    binning zero-fills the grid and runs ``mpm_p2g_f32``, as its wrapper
+    did) and B4 given the bins (``mpm_g2p_f32`` without); this checkout's
+    binning alone, B3 given bins and B4 with its binning too; the calls
+    queued behind a spin kernel (chip_smoke.time_ms);
   - holds this checkout's outputs against the parent's, and counts the
     envs whose divergence-guard halvings differ at (1, 0, 3), where the
     guard acts on rounding noise;
+  - profiles 20 calls each of this checkout's B3 (with its binning) and
+    B4 (given bins): mean device time per call of each kernel they launch;
+  - profiles 5 sand steps on this checkout's kernel path with
+    torch.profiler: device time per step, the share of
+    ``torch.linalg.svd`` and of the transfer kernels;
   - profiles one frame (4 substeps) of the humanoid and of the ant on the
-    kernel path with torch.profiler: device time and device operations;
-  - times env-steps/s of each kernel path over 10 frames, in the same
-    turns.
+    kernel path with torch.profiler: device time and device operations,
+    and times env-steps/s of each kernel path over 10 frames, in the same
+    turns (skipped with ``--mpm-only``).
 Writes one JSON object (to ``--out`` as well, when given). Without a CUDA
 device it exits 2.
 """
@@ -169,6 +181,172 @@ def kernel_times(libs, ops):
     return out
 
 
+MPM_KINDS = ("p2g", "g2p", "p2g_given_bins", "bin", "g2p_with_binning")
+
+
+def mpm_operands(dev):
+    """The sand cell's transfer operands: bases and weights of the initial
+    sand state of chip_smoke.py, random values (13 channels) and grid (12
+    channels)."""
+    import numpy as np
+    import torch
+    _, solver, state = cs.build_sand(dev)
+    _, base, w, _ = solver.stencil(state.particle_q)
+    rng = np.random.RandomState(5)
+    vals = torch.as_tensor(rng.randn(cs.MPM_N, 13), dtype=torch.float32,
+                           device=dev)
+    grid = torch.as_tensor(rng.randn(cs.MPM_RES, cs.MPM_RES, cs.MPM_RES, 12),
+                           dtype=torch.float32, device=dev)
+    return base, w, vals, grid
+
+
+def mpm_callers(lib, ops):
+    """{kind: function} of the MPM kernels of ``lib`` (kinds MPM_KINDS, as
+    far as the library has them); each returns its output."""
+    import torch
+    from newton_tpu_torch.solvers import mpm_transfer as mt
+    base, w, vals, grid = ops
+    n, res = base.shape[0], cs.MPM_RES
+    G = torch.empty((res, res, res, 13), device=base.device)
+    P = torch.empty((n, 12), device=base.device)
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def check(err, name):
+        if err:
+            raise RuntimeError(f"{name}: CUDA error {err}")
+    if not hasattr(lib, "mpm_bin_particles"):
+        def p2g():
+            G.zero_()
+            check(lib.mpm_p2g_f32(base.data_ptr(), w.data_ptr(),
+                                  vals.data_ptr(), G.data_ptr(), n, 13, res,
+                                  stream()), "mpm_p2g_f32")
+            return G
+
+        def g2p():
+            check(lib.mpm_g2p_f32(base.data_ptr(), w.data_ptr(),
+                                  grid.data_ptr(), P.data_ptr(), n, 12, res,
+                                  stream()), "mpm_g2p_f32")
+            return P
+        return dict(p2g=p2g, g2p=g2p)
+    K = mt.tiles(res)[1]
+    meta = torch.empty((mt.meta_size(res),), dtype=torch.int32,
+                       device=base.device)
+    srt = torch.empty((n, 4), dtype=torch.int32, device=base.device)
+    scratch = torch.empty((min(K, n) * (mt.TILE + 2) ** 3 * 13,),
+                          device=base.device)
+
+    def bins():
+        check(lib.mpm_bin_particles(base.data_ptr(), meta.data_ptr(),
+                                    srt.data_ptr(), n, res, stream()),
+              "mpm_bin_particles")
+        return meta
+
+    def p2g_given_bins():
+        check(lib.mpm_p2g_binned_f32(
+            w.data_ptr(), vals.data_ptr(), meta.data_ptr(), srt.data_ptr(),
+            scratch.data_ptr(), G.data_ptr(), n, 13, res, stream()),
+            "mpm_p2g_binned_f32")
+        return G
+
+    def g2p():
+        check(lib.mpm_g2p_binned_f32(
+            w.data_ptr(), grid.data_ptr(), meta.data_ptr(), srt.data_ptr(),
+            P.data_ptr(), n, 12, res, stream()), "mpm_g2p_binned_f32")
+        return P
+    bins()
+    return dict(p2g=lambda: (bins(), p2g_given_bins())[1], g2p=g2p,
+                p2g_given_bins=p2g_given_bins, bin=bins,
+                g2p_with_binning=lambda: (bins(), g2p())[1])
+
+
+def mpm_times(libs, ops):
+    """Each MPM kind of MPM_KINDS: times in turns where both checkouts
+    have it, bound and share of bound, and this checkout's outputs against
+    the parent's."""
+    runs = {tag: mpm_callers(lib, ops) for tag, lib in libs.items()}
+    nodes = cs.active_nodes(ops[0], cs.MPM_RES)
+    out = dict(active_nodes=nodes)
+    for kind in MPM_KINDS:
+        tags = [t for t in ("parent", "this") if kind in runs.get(t, {})]
+        order = (["parent", "this", "this", "parent"] if len(tags) == 2
+                 else ["this", "this"])
+        turns = {tag: [] for tag in tags}
+        for tag in order:
+            turns[tag].append(cs.time_ms(runs[tag][kind], queued=True))
+        ms = {tag: sum(v) / len(v) for tag, v in turns.items()}
+        row = dict(turns_ms=turns, ms=ms)
+        if kind in ("p2g", "p2g_given_bins"):
+            shape = dict(N=cs.MPM_N, C=13, res=cs.MPM_RES)
+            row.update(cs.bound_fields("mpm_p2g", ms["this"], **shape))
+        elif kind in ("g2p", "g2p_with_binning"):
+            shape = dict(N=cs.MPM_N, C=12, active_nodes=nodes)
+            row.update(cs.bound_fields("mpm_g2p", ms["this"], **shape))
+        if len(tags) == 2:
+            a = runs["this"][kind]().clone()
+            b = runs["parent"][kind]()
+            row["max_abs_diff"] = float((a - b).abs().max())
+            row["speedup"] = ms["parent"] / ms["this"]
+        out[kind] = row
+    return out
+
+
+def mpm_kernel_profile(run, calls=20):
+    """Mean device time (us) per call of each device kernel that ``run``
+    (one of mpm_callers' functions) launches, from torch.profiler."""
+    import collections
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    us = collections.defaultdict(float)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].replace("void ", "")
+            us[name] += e.time_range.elapsed_us() / calls
+    return dict(us)
+
+
+def sand_profile(dev, steps=5):
+    """Device time per sand step on the kernel path (one profiled window of
+    ``steps`` steps after 25 warm-up steps), the share of torch.linalg.svd
+    and of the transfer and binning kernels, and device operations per
+    step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    _, solver, state = cs.build_sand(dev)
+    state = cs.run_mpm(solver, state, 25, True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state = cs.run_mpm(solver, state, steps, True)
+    dev_ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev_ev:
+        raise RuntimeError("torch.profiler traced no device operation")
+    total = sum(e.time_range.elapsed_us() for e in dev_ev) / 1e3
+    mpm = sum(e.time_range.elapsed_us() for e in dev_ev
+              if "mpm_" in e.name) / 1e3
+
+    def device_ms(e):
+        t = getattr(e, "device_time_total", None)
+        return (t if t is not None else e.cuda_time_total) / 1e3
+    svd = max((device_ms(e) for e in prof.key_averages()
+               if "linalg_svd" in e.key), default=0.0)
+    return dict(steps=steps, device_ms_per_step=total / steps,
+                svd_ms_per_step=svd / steps, svd_share=svd / total,
+                transfer_ms_per_step=mpm / steps, transfer_share=mpm / total,
+                device_ops_per_step=len(dev_ev) / steps)
+
+
 def guard_noise(libs, dev):
     """Envs whose divergence-guard halvings differ, at the tiny shape
     (c, nl, d) = (1, 0, 3) on random operands: each kernel and the plain
@@ -211,6 +389,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="root of the checkout to compare with")
     ap.add_argument("--out", help="also write the JSON object here")
+    ap.add_argument("--mpm-only", action="store_true",
+                    help="only the MPM kernels and the sand profile")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_kernel_ab: no CUDA device", file=sys.stderr)
@@ -221,8 +401,16 @@ def main():
     if a.parent:
         libs["parent"] = load_kernels(os.path.abspath(a.parent),
                                       "parent").lib()
+    mpm_ops = mpm_operands(dev)
+    runs = mpm_callers(libs["this"], mpm_ops)
+    res = dict(card=cs.card_line(), mpm=mpm_times(libs, mpm_ops),
+               mpm_kernels_us={kind: mpm_kernel_profile(runs[kind])
+                               for kind in ("p2g", "g2p")},
+               sand_profile=sand_profile(dev))
+    if a.mpm_only:
+        return emit(res, a.out)
     ops, ant, hum = capture(dev)
-    res = dict(card=cs.card_line(), kernels=kernel_times(libs, ops),
+    res.update(kernels=kernel_times(libs, ops),
                guard_noise=guard_noise(libs, dev))
 
     def use(tag):
@@ -255,10 +443,14 @@ def main():
         frames[name] = dict(profile=prof, env_steps_per_s=rate)
     use("this")
     res["frames"] = frames
+    return emit(res, a.out)
+
+
+def emit(res, path):
     line = json.dumps(res)
     print(line)
-    if a.out:
-        with open(a.out, "w") as f:
+    if path:
+        with open(path, "w") as f:
             f.write(line + "\n")
     return 0
 
