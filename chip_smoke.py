@@ -66,14 +66,34 @@ Phases, one line each:
      are held against their plain versions on the operands of those
      substeps (B1 within atol 1e-5, rtol 1e-4) and timed at the
      humanoid's shapes (d = 23, with torch.linalg.solve beside it; c, nl =
-     32, 17 and 192, 17).
+     32, 17 and 192, 17);
+ 13. cartpole x 8192 (the reference's KPI Cartpole): replicate(gymnasium's
+     inverted pendulum, 8192) -> SolverMuJoCo(iterations=4, euler).step
+     on the flat state, uniform ctrl in [-3, 3]; exactly one B1 launch
+     per substep (d = 2, the 8-row register instance), the limits-only
+     solve and no B2; finite state, the slider within its range + 0.05;
+     env-steps/s on the kernel and plain paths in turns; one kernel vs
+     plain step;
+ 14. humanoid x 8192 (the reference's KPI Humanoid) through replicate +
+     step, run as phase 11: one launch of B1 (d = 23) and B2 (32, 17, 23)
+     per substep, phase 11's gates, env-steps/s in turns, the phase's peak
+     device memory, and step against step_batched of the one-world
+     humanoid on the same worlds (equal to 1e-6) for 4 substeps;
+ 15. C.1 shapes: a 40-link chain (d = 45, W = 1024) and a 165-link chain
+     (d = 170, W = 64) on a plane through step_batched, reaching B1's
+     generic instances (shared memory, global scratch) and B2's
+     shared-memory (32, 39, 45) and global-scratch (32, 164, 170)
+     instances, each held against its plain version; B2 alone at
+     (192, 40, 48) (a block state above 227 KB) on random operands.
 It prints one JSON line listing the kernels (name, route, source,
 launches, error, times, and each time's least possible time on an H100
 SXM at 700 W from ``kernel_cost``: bound_ms, bound_by, share_of_bound;
 library_ms where one PyTorch call computes the same function, else null
 with the reason; B1 and B2 also at the humanoid's shapes; B3 timed with
 its binning and given bins, B4 given bins, its bound counted on the nodes
-it reads; the binning, part of both, with its own entry), then the card
+it reads; the binning, part of both, with its own entry; then one entry
+for each B1 and B2 instance on the paths of phases 13-15, with W = 8192
+where it runs there), then the card
 line, then the result line ``{"ok": true,
 "device": {...}}``. Any failed phase raises: exit code != 0 and no result
 line. Without a CUDA device it exits 2 at once. A ``[details]`` line
@@ -319,9 +339,9 @@ def compare_pgs(args, kw, allow_mismatch):
     return e1, e2, n_diff, int(h_p.sum()), same
 
 
-def random_pgs_inputs(dev, c, nl, d, seed):
+def random_pgs_inputs(dev, c, nl, d, seed, n=W):
     """Random PGS operands shaped like the JAX package's interpret-mode
-    test: J ~ N(0, 1), one SPD Minv for all envs, |b|, act ~ 70% on."""
+    test: J ~ N(0, 1), one SPD Minv for all n envs, |b|, act ~ 70% on."""
     import numpy as np
     import torch
     rng = np.random.RandomState(seed)
@@ -332,10 +352,10 @@ def random_pgs_inputs(dev, c, nl, d, seed):
     def t(x):
         return torch.as_tensor(np.ascontiguousarray(x, dtype=np.float32),
                                device=dev)
-    args = (t(rng.randn(W, 3 * c, d)), t(np.broadcast_to(Minv, (W, d, d))),
-            t(rng.randn(W, d)), t(np.abs(rng.randn(W, r))),
-            t(rng.rand(W, r) > 0.3), t(np.abs(rng.rand(W, c))),
-            t(np.zeros((W, r))))
+    args = (t(rng.randn(n, 3 * c, d)), t(np.broadcast_to(Minv, (n, d, d))),
+            t(rng.randn(n, d)), t(np.abs(rng.randn(n, r))),
+            t(rng.rand(n, r) > 0.3), t(np.abs(rng.rand(n, c))),
+            t(np.zeros((n, r))))
     ld = torch.arange(d - nl, d, dtype=torch.int32, device=dev)
     return args, ld
 
@@ -449,7 +469,8 @@ def run_frames(model, pipe, solver, state, sample, frames, kernels,
 
 
 def check_state(state, label, z_min=0.1):
-    """No NaN, unit quaternions within 1e-2 and root z > ``z_min``."""
+    """No NaN, unit quaternions within 1e-2 and, unless ``z_min`` is None,
+    root z (coordinate 2 of each env's row of joint_q) > ``z_min``."""
     import torch
     for name in ("joint_q", "joint_qd", "body_q", "body_qd"):
         if not bool(torch.isfinite(getattr(state, name)).all()):
@@ -457,6 +478,8 @@ def check_state(state, label, z_min=0.1):
     qn = torch.linalg.vector_norm(state.body_q[..., 3:7], dim=-1)
     if float((qn - 1.0).abs().max()) > 1e-2:
         raise AssertionError(f"{label}: non-normalized quaternions")
+    if z_min is None:
+        return None
     zmin = float(state.joint_q[:, 2].min())
     if zmin <= z_min:
         raise AssertionError(f"{label}: root fell to z = {zmin:.3f}")
@@ -1019,6 +1042,457 @@ def phase_humanoid_paths(dev, model, pipe, solver, end_state):
     return dict(cases=out, times=times, smem_bytes=smem)
 
 
+WORLDS = 8192
+CARTPOLE_ITERS = 4
+CARTPOLE_SLIDER = 1.0                 # inverted_pendulum.xml: range -1 1
+CHAIN_SUBSTEPS = 8
+STEP_VS_BATCHED_TOL = 1e-6
+
+
+def build_replicated(dev, xml, n, iterations, contact_cap=None):
+    """``replicate(robot, n)`` -> finalize -> CollisionPipeline ->
+    SolverMuJoCo, the reference's KPI scene; returns the host setup time
+    too."""
+    import newton_tpu_torch as nt
+    t0 = time.perf_counter()
+    robot = nt.ModelBuilder()
+    robot.add_mjcf(os.path.join(nt.ASSET_DIR, xml))
+    b = nt.ModelBuilder()
+    b.replicate(robot, n)
+    model = b.finalize(dev)
+    pipe = nt.CollisionPipeline(model)
+    solver = nt.SolverMuJoCo(model, iterations=iterations,
+                             integrator="euler", contact_cap=contact_cap)
+    return model, pipe, solver, time.perf_counter() - t0
+
+
+def flat_reset(model, dev, seed, noise=0.01):
+    """The flat state of every world at joint_q0 plus gymnasium's reset
+    noise (uniform +-noise on joint_q and joint_qd), free-joint
+    quaternions renormalized."""
+    import numpy as np
+    import torch
+    import newton_tpu_torch as nt
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def u(x):
+        return x + 2 * noise * torch.rand(x.shape, generator=gen,
+                                          device=dev) - noise
+    q, qd = u(model.joint_q0), u(model.joint_qd0)
+    st = model.structure
+    free = st.joint_q_start[:-1][st.joint_type == int(nt.JointType.FREE)]
+    if len(free):
+        idx = torch.as_tensor(free[:, None] + np.arange(3, 7), device=dev)
+        quat = q[idx]
+        q[idx] = quat / torch.linalg.vector_norm(quat, dim=1, keepdim=True)
+    return nt.eval_fk(model, q, qd, model.state())
+
+
+def run_flat_frames(model, pipe, solver, state, sample, frames, kernels,
+                    touched=None):
+    """``frames`` frames of SUBSTEPS ``step`` calls on a flat multi-world
+    state, new uniform mjc:ctrl each frame; ``touched`` (N,) bool, when
+    given, gathers which worlds had an active contact in some substep."""
+    import torch
+    ctl = model.control()
+    for _ in range(frames):
+        ctl.custom["mjc:ctrl"] = sample(1)[0]
+        for _ in range(SUBSTEPS):
+            contacts = pipe.collide(state)
+            if touched is not None:
+                touched |= contacts.rigid_contact_mask[
+                    solver.tables.row_slots].any(1)
+            state = solver.step(state, None, ctl, contacts, DT,
+                                kernels=kernels)
+    torch.cuda.synchronize()
+    return state
+
+
+def check_flat(state, n, label, root_z=None):
+    """check_state on a flat state of n worlds (each world's coordinates a
+    row of joint_q)."""
+    import dataclasses
+    return check_state(dataclasses.replace(
+        state, joint_q=state.joint_q.view(n, -1)), label, root_z)
+
+
+def kernel_launches():
+    from newton_tpu_torch.solvers.generalized import linalg, pgs
+    return (linalg.chol_inv_solve.launches, pgs.pgs_solve_fused.launches)
+
+
+def reset_robot_launches():
+    from newton_tpu_torch.solvers.generalized import linalg, pgs
+    linalg.chol_inv_solve.launches = 0
+    pgs.pgs_solve_fused.launches = 0
+
+
+def flat_turns(model, pipe, solver, state, plain, sample, n):
+    """env-steps/s of the kernel and plain paths in turns (plain, kernel,
+    kernel, plain), each turn FRAMES frames continuing its own state; the
+    plain turns launch no kernel."""
+    rates = {True: [], False: []}
+    n_sub = FRAMES * SUBSTEPS
+    for kernels in (False, True, True, False):
+        before = kernel_launches()
+        t0 = time.perf_counter()
+        if kernels:
+            state = run_flat_frames(model, pipe, solver, state, sample,
+                                    FRAMES, True)
+        else:
+            plain = run_flat_frames(model, pipe, solver, plain, sample,
+                                    FRAMES, False)
+        rates[kernels].append(n_sub * n / (time.perf_counter() - t0))
+        if not kernels and kernel_launches() != before:
+            raise AssertionError("a plain path launched a kernel")
+    return rates, state, plain
+
+
+def flat_paths(model, pipe, solver, state, sample, label):
+    """One ``step`` through the kernels and one through the plain versions
+    from one cloned flat state and ctrl; B2 is held against its plain
+    version on the step's operands, and rows whose guard halvings differ
+    are counted (at most N / 1000) and left out."""
+    ctl = model.control()
+    ctl.custom["mjc:ctrl"] = sample(1)[0]
+    contacts = pipe.collide(state)
+    rec = {}
+    k = solver.step(state.clone(), None, ctl, contacts, DT, record=rec)
+    p = solver.step(state.clone(), None, ctl, contacts, DT, kernels=False)
+    n = solver.group.n
+    errs, rows_ok = {}, None
+    if "pgs" in rec:
+        e_lam, e_dqd, n_diff, _, rows_ok = compare_pgs(*rec["pgs"],
+                                                       n // 1000)
+        errs.update(pgs_lam=e_lam, pgs_dqd=e_dqd, guard_mismatch_rows=n_diff)
+    for name, atol in (("joint_q", 2e-4), ("joint_qd", 5e-3),
+                       ("body_q", 2e-4)):
+        a = getattr(k, name).view(n, -1)
+        b = getattr(p, name).view(n, -1)
+        if rows_ok is not None:
+            a, b = a[rows_ok], b[rows_ok]
+        ok, e = close(a, b, atol, atol)
+        if not ok:
+            raise AssertionError(f"{label}: {name} kernel vs plain step "
+                                 f"off tolerance ({e:.3g})")
+        errs[name] = e
+    return errs
+
+
+def b1_times(Mi, rhs):
+    from newton_tpu_torch.solvers.generalized import linalg
+    return dict(
+        ms=time_ms(lambda: linalg.chol_inv_solve(Mi, rhs), queued=True),
+        plain_ms=time_ms(lambda: linalg.chol_inv_solve_plain(Mi, rhs),
+                         n=10),
+        library_ms=library_b1_ms(Mi, rhs))
+
+
+def b1_check(Mi, rhs, label):
+    """B1 against its plain version on captured operands: within atol
+    1e-5, rtol 1e-4 (and whether bit for bit equal)."""
+    import torch
+    from newton_tpu_torch.solvers.generalized import linalg
+    got = linalg.chol_inv_solve(Mi, rhs)
+    ref = linalg.chol_inv_solve_plain(Mi, rhs)
+    res = [close(a, b, 1e-5, 1e-4) for a, b in zip(got, ref)]
+    err = max(e for _, e in res)
+    if not all(ok for ok, _ in res):
+        raise AssertionError(f"{label} B1: kernel vs plain off tolerance "
+                             f"({err:.3g})")
+    return err, all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+def phase_cartpole(dev):
+    """Cartpole x 8192 through replicate + step: B1 at d = 2 (the padded
+    8-row instance) once per substep, the limits-only solve, no B2."""
+    import torch
+    from newton_tpu_torch.solvers.generalized import linalg
+    model, pipe, solver, setup_s = build_replicated(
+        dev, "inverted_pendulum.xml", WORLDS, CARTPOLE_ITERS)
+    if model.structure.rigid_contact_max != 0:
+        raise AssertionError("cartpole: expected no contact pairs")
+    sample = ctrl_sampler(model, dev, seed=20)
+    state = flat_reset(model, dev, seed=21)
+    plain = state.clone()
+    rec = {}
+    ctl = model.control()
+    ctl.custom["mjc:ctrl"] = sample(1)[0]
+    solver.step(state, None, ctl, pipe.collide(state), DT, record=rec)
+    Mi, rhs = rec["chol"]
+    if (tuple(Mi.shape) != (WORLDS, 2, 2) or "pgs" in rec
+            or "limits" not in rec or linalg.kernel_instance(2) != "reg8"):
+        raise AssertionError("cartpole: the substep is not B1 at d = 2 "
+                             "(reg8) plus the limits-only solve")
+    state = run_flat_frames(model, pipe, solver, state, sample, 1, True)
+    reset_robot_launches()
+    t0 = time.perf_counter()
+    state = run_flat_frames(model, pipe, solver, state, sample, FRAMES,
+                            True)
+    elapsed = time.perf_counter() - t0
+    n_sub = FRAMES * SUBSTEPS
+    launches = dict(zip(("chol_inv_solve", "pgs_solve_fused"),
+                        kernel_launches()))
+    if launches != dict(chol_inv_solve=n_sub, pgs_solve_fused=0):
+        raise AssertionError(f"cartpole: launches {launches} in {n_sub} "
+                             "substeps, expected B1 once per substep and "
+                             "no B2")
+    check_flat(state, WORLDS, "cartpole")
+    slider = float(state.joint_q.view(WORLDS, 2)[:, 0].abs().max())
+    # the limit rows are Baumgarte-stabilized velocity constraints: the
+    # slider may pass its range by what one substep of the ctrl's force
+    # carries before the row acts, a few millimetres
+    if slider > CARTPOLE_SLIDER + 0.05:
+        raise AssertionError(f"cartpole: slider at {slider:.4f}, past its "
+                             f"range {CARTPOLE_SLIDER} + 0.05")
+    plain = run_flat_frames(model, pipe, solver, plain, sample, 1, False)
+    rates, state, plain = flat_turns(model, pipe, solver, state, plain,
+                                     sample, WORLDS)
+    check_flat(plain, WORLDS, "cartpole plain path")
+    errs = flat_paths(model, pipe, solver, state, sample, "cartpole")
+    b1_err, b1_exact = b1_check(Mi, rhs, "cartpole")
+    return dict(launches=launches, substeps=n_sub, worlds=WORLDS,
+                setup_s=setup_s, slider_max=slider,
+                main_env_steps_per_s=n_sub * WORLDS / elapsed,
+                env_steps_per_s=sum(rates[True]) / 2,
+                plain_env_steps_per_s=sum(rates[False]) / 2,
+                turns_kernel=rates[True], turns_plain=rates[False],
+                paths=errs, b1_max_abs_err=b1_err, b1_bit_exact=b1_exact,
+                b1=b1_times(Mi, rhs))
+
+
+def phase_humanoid_worlds(dev):
+    """Humanoid x 8192 through replicate + step, as phase 11 runs the
+    batched humanoid; then step against step_batched of a one-world
+    humanoid on the same worlds, and the phase's peak device memory."""
+    import torch
+    from newton_tpu_torch.solvers.generalized import pgs
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model, pipe, solver, setup_s = build_replicated(dev, "humanoid.xml",
+                                                    WORLDS, ITERS)
+    sample = ctrl_sampler(model, dev, seed=30)
+    state = flat_reset(model, dev, seed=31)
+    plain = state.clone()
+    state = run_flat_frames(model, pipe, solver, state, sample,
+                            HUMANOID_WARMUP, True)
+    rec = {}
+    ctl = model.control()
+    ctl.custom["mjc:ctrl"] = sample(1)[0]
+    solver.step(state, None, ctl, pipe.collide(state), DT, record=rec)
+    (J, *_), kw = rec["pgs"]
+    shape = (kw["c"], int(kw["ld"].numel()), J.shape[2])
+    if (tuple(rec["chol"][0].shape) != (WORLDS, 23, 23)
+            or J.shape[0] != WORLDS or shape != (32, 17, 23)
+            or pgs.kernel_instance(*shape) != "reg24"):
+        raise AssertionError(f"humanoid worlds: B1 {rec['chol'][0].shape}, "
+                             f"B2 {shape}; expected d = 23 and (32, 17, 23)"
+                             f" at {WORLDS} worlds")
+    touched = torch.zeros(WORLDS, dtype=torch.bool, device=dev)
+    reset_robot_launches()
+    t0 = time.perf_counter()
+    state = run_flat_frames(model, pipe, solver, state, sample, FRAMES,
+                            True, touched)
+    elapsed = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n_sub = FRAMES * SUBSTEPS
+    launches = dict(zip(("chol_inv_solve", "pgs_solve_fused"),
+                        kernel_launches()))
+    if set(launches.values()) != {n_sub}:
+        raise AssertionError(f"humanoid worlds: launches {launches} in "
+                             f"{n_sub} substeps")
+    zmin = check_flat(state, WORLDS, "humanoid worlds", root_z=0.3)
+    untouched = int((~touched).sum())
+    if untouched > WORLDS // 100:
+        raise AssertionError(f"humanoid worlds: {untouched} worlds without "
+                             "an active contact in the window")
+    end_state = state
+    plain = run_flat_frames(model, pipe, solver, plain, sample,
+                            HUMANOID_WARMUP, False)
+    rates, state, plain = flat_turns(model, pipe, solver, state, plain,
+                                     sample, WORLDS)
+    check_flat(plain, WORLDS, "humanoid worlds plain path", root_z=0.05)
+    check_flat(state, WORLDS, "humanoid worlds kernel path", root_z=0.05)
+    args, kw = rec["pgs"]
+    e_lam, e_dqd, n_diff, _, _ = compare_pgs(args, kw, WORLDS // 1000)
+    errs = flat_paths(model, pipe, solver, end_state, sample,
+                      "humanoid worlds")
+    b1_err, b1_exact = b1_check(*rec["chol"], "humanoid worlds")
+    agree = step_vs_batched(dev, model, pipe, solver, end_state, sample)
+    Mi, rhs = rec["chol"]
+    times = dict(b1=b1_times(Mi, rhs),
+                 b2_ms=time_ms(lambda: pgs.pgs_solve_fused(*args, **kw),
+                               queued=True),
+                 b2_plain_ms=time_ms(lambda: pgs.pgs_solve_fused_plain(
+                     *args, **kw), n=10))
+    return dict(launches=launches, substeps=n_sub, worlds=WORLDS,
+                setup_s=setup_s, root_z_min=zmin,
+                worlds_untouched_in_window=untouched,
+                peak_memory_bytes=peak,
+                main_env_steps_per_s=n_sub * WORLDS / elapsed,
+                env_steps_per_s=sum(rates[True]) / 2,
+                plain_env_steps_per_s=sum(rates[False]) / 2,
+                turns_kernel=rates[True], turns_plain=rates[False],
+                paths=errs, pgs_lam_err=e_lam, pgs_dqd_err=e_dqd,
+                guard_mismatch_rows=n_diff, b1_max_abs_err=b1_err,
+                b1_bit_exact=b1_exact, step_vs_batched=agree, times=times)
+
+
+def step_vs_batched(dev, model, pipe, solver, state, sample, substeps=4):
+    """``step`` on the replicated model against ``step_batched`` of a
+    one-world humanoid on the same worlds (its batched state is a view of
+    the flat one), substep by substep, each path continuing its own state:
+    the same kernels on the same operands."""
+    import torch
+    import newton_tpu_torch as nt
+    n = WORLDS
+    one, pipe1, solver1 = build_humanoid(dev)
+    sb = nt.State(**{f: getattr(state, f).view(n, *getattr(one.state(), f)
+                                                .shape)
+                     for f in ("body_q", "body_qd", "body_f", "joint_q",
+                               "joint_qd")},
+                  particle_q=state.particle_q, particle_qd=state.particle_qd,
+                  particle_f=state.particle_f)
+    ctl = model.control()
+    worst = {}
+    for _ in range(substeps):
+        ctl.custom["mjc:ctrl"] = sample(1)[0]
+        ctl_b = batched_control(one, ctl.custom["mjc:ctrl"].view(n, -1))
+        state = solver.step(state, None, ctl, pipe.collide(state), DT)
+        sb = solver1.step_batched(sb, None, ctl_b, pipe1.collide(sb), DT)
+        for name in ("joint_q", "joint_qd", "body_q", "body_qd"):
+            d = float((getattr(state, name).view(n, -1)
+                       - getattr(sb, name).reshape(n, -1)).abs().max())
+            worst[name] = max(worst.get(name, 0.0), d)
+    torch.cuda.synchronize()
+    if max(worst.values()) > STEP_VS_BATCHED_TOL:
+        raise AssertionError(f"step vs step_batched: {worst} > "
+                             f"{STEP_VS_BATCHED_TOL}")
+    return worst
+
+
+def build_chain(dev, links, contact_cap=None):
+    """A chain of ``links`` capsule links (0.1 m, radius 0.03) along x with
+    a free root and revolute joints alternately about y and z, limited to
+    +-0.5 rad, lying 5 mm into a ground plane: d = links + 5 dofs, nl =
+    links - 1 limit rows, two plane contact slots per link (the links do
+    not collide with each other)."""
+    import numpy as np
+    import newton_tpu_torch as nt
+    from newton_tpu_torch.core.host_math import np_transform
+    b = nt.ModelBuilder()
+    b.add_ground_plane(cfg=nt.ShapeConfig(contype=2, conaffinity=1))
+    link = nt.ShapeConfig(contype=1, conaffinity=2)
+    prev = -1
+    for i in range(links):
+        body = b.add_body(xform=np_transform(p=[0.1 * i, 0.0, 0.025]))
+        b.add_shape_capsule(body, radius=0.03, half_height=0.05, axis="X",
+                            cfg=link)
+        if prev < 0:
+            b.add_joint_free(body)
+        else:
+            b.add_joint_revolute(prev, body, xform_p=np_transform(
+                p=np.array([0.1, 0.0, 0.0])), axis="YZ"[i % 2],
+                limit_lower=-0.5, limit_upper=0.5)
+        prev = body
+    model = b.finalize(dev)
+    return (model, nt.CollisionPipeline(model),
+            nt.SolverMuJoCo(model, iterations=ITERS, integrator="euler",
+                            contact_cap=contact_cap))
+
+
+def phase_chains(dev):
+    """ROADMAP C.1's shapes on a path: a 40-link chain (d = 45: B1's
+    generic instance in shared memory, B2 (32, 39, 45) on the shared-memory
+    path) at W = 1024 and a 165-link chain (d = 170: B1 and B2 in global
+    scratch) at W = 64, each through step_batched, with the kernels held
+    against their plain versions on the captured operands; then B2 alone
+    at (192, 40, 48), a block state above 227 KB, on random operands."""
+    import torch
+    import newton_tpu_torch as nt
+    from newton_tpu_torch.solvers.generalized import linalg, pgs
+    out = {}
+    for links, n_env, b1_inst, b2_inst in (
+            (40, 1024, "generic_smem", "smem256"),
+            (165, 64, "generic_global", "global256")):
+        model, pipe, solver = build_chain(dev, links)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(links)
+        q = model.joint_q0.expand(n_env, -1) + 0.02 * torch.rand(
+            (n_env, model.joint_coord_count), generator=gen, device=dev)
+        q[:, 3:7] = q[:, 3:7] / torch.linalg.vector_norm(
+            q[:, 3:7], dim=1, keepdim=True)
+        state = nt.eval_fk(model, q, torch.zeros(
+            n_env, model.joint_dof_count, device=dev),
+            nt.batch_state(model.state(), n_env))
+        ctl = batched_control(model, torch.zeros(n_env, 0, device=dev))
+        rec = {}
+        solver.step_batched(state, None, ctl, pipe.collide(state), DT,
+                            record=rec)
+        (J, *_), kw = rec["pgs"]
+        d = J.shape[2]
+        shape = (kw["c"], int(kw["ld"].numel()), d)
+        if (linalg.kernel_instance(d) != b1_inst
+                or pgs.kernel_instance(*shape) != b2_inst):
+            raise AssertionError(f"chain {links}: B1 d = {d} takes "
+                                 f"{linalg.kernel_instance(d)}, B2 {shape} "
+                                 f"takes {pgs.kernel_instance(*shape)}")
+        reset_robot_launches()
+        s = state
+        for _ in range(CHAIN_SUBSTEPS):
+            s = solver.step_batched(s, None, ctl, pipe.collide(s), DT)
+        torch.cuda.synchronize()
+        launches = dict(zip(("chol_inv_solve", "pgs_solve_fused"),
+                            kernel_launches()))
+        if set(launches.values()) != {CHAIN_SUBSTEPS}:
+            raise AssertionError(f"chain {links}: launches {launches} in "
+                                 f"{CHAIN_SUBSTEPS} substeps")
+        check_state(s, f"chain {links}", z_min=-0.05)
+        e_lam, e_dqd, n_diff, _, same = compare_pgs(rec["pgs"][0],
+                                                    rec["pgs"][1],
+                                                    max(n_env // 1000, 1))
+        b1_err, b1_exact = b1_check(*rec["chol"], f"chain {links}")
+        k = solver.step_batched(state.clone(), None, ctl,
+                                pipe.collide(state), DT)
+        p = solver.step_batched(state.clone(), None, ctl,
+                                pipe.collide(state), DT, kernels=False)
+        errs = {}
+        for name, atol in (("joint_q", 2e-4), ("joint_qd", 5e-3),
+                           ("body_q", 2e-4)):
+            ok, e = close(getattr(k, name)[same], getattr(p, name)[same],
+                          atol, atol)
+            if not ok:
+                raise AssertionError(f"chain {links}: {name} kernel vs "
+                                     f"plain off tolerance ({e:.3g})")
+            errs[name] = e
+        args, kw = rec["pgs"]
+        Mi, rhs = rec["chol"]
+        out[links] = dict(
+            envs=n_env, d=d, b2_shape=shape, b1_instance=b1_inst,
+            b2_instance=b2_inst, launches=launches, substeps=CHAIN_SUBSTEPS,
+            paths=errs, b1_max_abs_err=b1_err, b1_bit_exact=b1_exact,
+            pgs_lam_err=e_lam, pgs_dqd_err=e_dqd, guard_mismatch_envs=n_diff,
+            b1=b1_times(Mi, rhs),
+            b2_ms=time_ms(lambda: pgs.pgs_solve_fused(*args, **kw),
+                          queued=True),
+            b2_plain_ms=time_ms(lambda: pgs.pgs_solve_fused_plain(
+                *args, **kw), n=5))
+    n_env = 1024
+    args, ld = random_pgs_inputs(dev, 192, 40, 48, seed=41, n=n_env)
+    kw = dict(c=192, ld=ld, iters=ITERS, omega=0.8, use_cone=False,
+              diag_scale=1.0, reg=1e-3)
+    e1, e2, n_diff, _, _ = compare_pgs(args, kw, n_env // 1000)
+    out["random (192, 40, 48)"] = dict(
+        envs=n_env, instance=pgs.kernel_instance(192, 40, 48),
+        smem_bytes=pgs.smem_bytes(192, 40, 48), lam_err=e1, dqd_err=e2,
+        guard_mismatch_envs=n_diff,
+        ms=time_ms(lambda: pgs.pgs_solve_fused(*args, **kw), queued=True),
+        plain_ms=time_ms(lambda: pgs.pgs_solve_fused_plain(*args, **kw),
+                         n=5))
+    return out
+
+
 def pgs_smem(rec):
     from newton_tpu_torch import _kernels
     args, kw = rec
@@ -1040,7 +1514,13 @@ def kernel_info():
             ("B1 d=23", lib.chol_kernel_info, (23,)),
             ("B2 (25, 8, 14)", lib.pgs_kernel_info, (25, 8, 14)),
             ("B2 (32, 17, 23)", lib.pgs_kernel_info, (32, 17, 23)),
-            ("B2 (192, 17, 23)", lib.pgs_kernel_info, (192, 17, 23))):
+            ("B2 (192, 17, 23)", lib.pgs_kernel_info, (192, 17, 23)),
+            ("B1 d=2", lib.chol_kernel_info, (2,)),
+            ("B1 d=45", lib.chol_kernel_info, (45,)),
+            ("B1 d=170", lib.chol_kernel_info, (170,)),
+            ("B2 (32, 39, 45)", lib.pgs_kernel_info, (32, 39, 45)),
+            ("B2 (32, 164, 170)", lib.pgs_kernel_info, (32, 164, 170)),
+            ("B2 (192, 40, 48)", lib.pgs_kernel_info, (192, 40, 48))):
         regs, blocks = ctypes.c_int(0), ctypes.c_int(0)
         _kernels.check(fn(*shape, ctypes.addressof(regs),
                           ctypes.addressof(blocks)), label)
@@ -1189,6 +1669,42 @@ def main():
           f"{ht['b2_uncompacted_plain_ms']:.4f} ms; shared memory "
           f"{hpaths['smem_bytes']} B", flush=True)
 
+    cart = phase_cartpole(dev)
+    results["cartpole"] = cart
+    print(f"[13 cartpole x {WORLDS}, replicate + step] setup "
+          f"{cart['setup_s']:.2f} s, {cart['substeps']} substeps, launches "
+          f"{cart['launches']}, slider |x| max {cart['slider_max']:.4f}; "
+          f"{cart['env_steps_per_s']:.1f} env-steps/s (plain path "
+          f"{cart['plain_env_steps_per_s']:.1f}); kernel vs plain step "
+          f"{cart['paths']}; B1 d=2 {cart['b1']['ms']:.4f} ms vs plain "
+          f"{cart['b1']['plain_ms']:.4f} ms, torch.linalg.solve "
+          f"{cart['b1']['library_ms']:.4f} ms on {card}", flush=True)
+
+    hw = phase_humanoid_worlds(dev)
+    results["humanoid_worlds"] = hw
+    print(f"[14 humanoid x {WORLDS}, replicate + step] setup "
+          f"{hw['setup_s']:.2f} s, {hw['substeps']} substeps, launches "
+          f"{hw['launches']}, root z min {hw['root_z_min']:.3f}, worlds "
+          f"without contact in the window {hw['worlds_untouched_in_window']}"
+          f"; {hw['env_steps_per_s']:.1f} env-steps/s (plain path "
+          f"{hw['plain_env_steps_per_s']:.1f}); peak memory "
+          f"{hw['peak_memory_bytes']} B; step vs step_batched max diff "
+          f"{hw['step_vs_batched']}; kernel vs plain step {hw['paths']}; "
+          f"B1 d=23 {hw['times']['b1']['ms']:.4f} ms (library "
+          f"{hw['times']['b1']['library_ms']:.4f} ms), B2 (32, 17, 23) "
+          f"{hw['times']['b2_ms']:.4f} ms on {card}", flush=True)
+
+    chains = phase_chains(dev)
+    results["chains"] = chains
+    print("[15 C.1 shapes] " + "; ".join(
+        f"chain {k}: {v['envs']} envs, B1 d={v['d']} {v['b1_instance']} "
+        f"{v['b1']['ms']:.4f} ms (bit-exact {v['b1_bit_exact']}), B2 "
+        f"{v['b2_shape']} {v['b2_instance']} {v['b2_ms']:.4f} ms, launches "
+        f"{v['launches']}, kernel vs plain step {v['paths']}"
+        for k, v in chains.items() if isinstance(k, int))
+        + "; B2 random (192, 40, 48) "
+        + json.dumps(chains["random (192, 40, 48)"]), flush=True)
+
     results["kernel_info"] = kernel_info()
     print("[details] " + json.dumps(results, default=str), flush=True)
     hcases = hpaths["cases"].values()
@@ -1277,6 +1793,53 @@ def main():
              library="torch.sort(tile keys, stable=True), keys made "
                      "outside the timed window"),
     ]
+    b1_src = dict(
+        route="cuda", source="newton_tpu_torch/csrc/chol_inv_solve.cu",
+        replaces="newton_tpu/solvers/generalized/linalg_pallas.py:91",
+        library="torch.linalg.solve(Mi, [I | rhs])")
+    b2_src = dict(route="cuda", source="newton_tpu_torch/csrc/pgs_solve.cu",
+                  replaces="newton_tpu/solvers/generalized/pgs_pallas.py:204",
+                  library_ms=None, library=no_library.format(
+                      "a projected-Jacobi contact solve with a per-env "
+                      "divergence guard"))
+    c40, c165 = chains[40], chains[165]
+    for label, path, d, n, launches, err, t in (
+            ("reg8", "cartpole x 8192, replicate + step (phase 13)", 2,
+             WORLDS, cart["launches"]["chol_inv_solve"],
+             cart["b1_max_abs_err"], cart["b1"]),
+            ("reg23", "humanoid x 8192, replicate + step (phase 14)", 23,
+             WORLDS, hw["launches"]["chol_inv_solve"], hw["b1_max_abs_err"],
+             hw["times"]["b1"]),
+            ("generic_smem", "40-link chain, step_batched (phase 15)", 45,
+             c40["envs"], c40["launches"]["chol_inv_solve"],
+             c40["b1_max_abs_err"], c40["b1"]),
+            ("generic_global", "165-link chain, step_batched (phase 15)",
+             170, c165["envs"], c165["launches"]["chol_inv_solve"],
+             c165["b1_max_abs_err"], c165["b1"])):
+        kernels.append(dict(
+            name=f"chol_inv_solve [{label}] d={d} W={n}", **b1_src,
+            instance=label, path=path, launches=launches, max_abs_err=err,
+            ms=t["ms"], plain_ms=t["plain_ms"],
+            **bound_fields("chol_inv_solve", t["ms"], d=d, W=n),
+            library_ms=t["library_ms"]))
+    for label, path, shape, n, launches, err, ms, plain_ms in (
+            ("reg24", "humanoid x 8192, replicate + step (phase 14)",
+             (32, 17, 23), WORLDS, hw["launches"]["pgs_solve_fused"],
+             hw["paths"]["pgs_lam"], hw["times"]["b2_ms"],
+             hw["times"]["b2_plain_ms"]),
+            ("smem256", "40-link chain, step_batched (phase 15)",
+             c40["b2_shape"], c40["envs"], c40["launches"]["pgs_solve_fused"],
+             c40["pgs_lam_err"], c40["b2_ms"], c40["b2_plain_ms"]),
+            ("global256", "165-link chain, step_batched (phase 15)",
+             c165["b2_shape"], c165["envs"],
+             c165["launches"]["pgs_solve_fused"], c165["pgs_lam_err"],
+             c165["b2_ms"], c165["b2_plain_ms"])):
+        c, nl, d = shape
+        kernels.append(dict(
+            name=f"pgs_solve_fused [{label}] {shape} W={n}", **b2_src,
+            instance=label, path=path, launches=launches, max_abs_err=err,
+            ms=ms, plain_ms=plain_ms,
+            **bound_fields("pgs_solve_fused", ms, c=c, nl=nl, d=d, W=n)))
     print(f"[bounds] H100 SXM peaks {PEAK_BYTES_PER_S / 1e12:g} TB/s, "
           f"{PEAK_F32_FLOPS / 1e12:g} TFLOP/s float32 (700 W); this card: "
           f"{card}", flush=True)

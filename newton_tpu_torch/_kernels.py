@@ -32,14 +32,18 @@ _lib = None
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # Mi, rhs, Minv, x, W, d, stream
-    "chol_inv_solve_f32": [_P, _P, _P, _P, _I, _I, _P],
+    # Mi, rhs, Minv, x, W, d, scratch, stream
+    "chol_inv_solve_f32": [_P, _P, _P, _P, _I, _I, _P, _P],
+    # d -> instance code (linalg.INSTANCE_CODES)
+    "chol_kernel_instance": [_I],
     # J, Minv, qd, b, act, mu, lam0, ld, lam, dqd, halvings,
-    # W, c, nl, d, iters, omega, use_cone, diag_scale, reg, stream
+    # W, c, nl, d, iters, omega, use_cone, diag_scale, reg, scratch, stream
     "pgs_solve_fused_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _F, _I, _F, _F, _P],
-    # c, nl, d -> dynamic shared memory bytes of one pgs block
+                            _I, _I, _I, _I, _I, _F, _I, _F, _F, _P, _P],
+    # c, nl, d -> bytes of one pgs block's state
     "pgs_smem_bytes": [_I, _I, _I],
+    # c, nl, d -> instance code (pgs.INSTANCE_CODES)
+    "pgs_kernel_instance": [_I, _I, _I],
     # d, &registers, &blocks per SM (occupancy of the launch at d)
     "chol_kernel_info": [_I, _P, _P],
     # c, nl, d, &registers, &blocks per SM
@@ -54,7 +58,13 @@ _SIGNATURES = {
     "mpm_g2p_binned_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # which, &registers, &shared bytes, &blocks per SM
     "mpm_kernel_info": [_I, _P, _P, _P],
+    # d -> floats of global scratch per env
+    "chol_scratch_floats": [_I],
+    # c, nl, d -> floats of global scratch per env
+    "pgs_scratch_floats": [_I, _I, _I],
 }
+_RESTYPES = {"chol_scratch_floats": ctypes.c_longlong,
+             "pgs_scratch_floats": ctypes.c_longlong}
 
 
 def _nvcc() -> str:
@@ -127,7 +137,7 @@ def lib() -> ctypes.CDLL:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(handle, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = _RESTYPES.get(name, ctypes.c_int)
         handle.ntt_error_string.argtypes = [_I]
         handle.ntt_error_string.restype = ctypes.c_char_p
         _lib = handle

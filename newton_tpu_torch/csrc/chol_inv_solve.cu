@@ -1,4 +1,5 @@
-// Batched small SPD factor + solve + explicit inverse, one warp per env.
+// Batched small SPD factor + solve + explicit inverse, one warp per env
+// (d <= 32) or one block per env (any larger d).
 //
 // Replaces the TPU kernel newton_tpu/solvers/generalized/linalg_pallas.py
 // :: chol_inv_solve_pallas (body _kernel, math _chol_core / _solve_core):
@@ -26,8 +27,17 @@
 // broadcast. HBM is read once (asynchronous copies into shared memory) and
 // written once (row by row, coalesced). Each instance is compiled for the
 // most blocks per SM that it fits in registers without spills (8 up to
-// d = 16, 7 at 23 and 24). d <= 32; the wrapper raises beyond that (d = 32
-// runs its 33rd column in a second pass of lane 0).
+// d = 16, 7 at 23 and 24). d = 32 runs its 33rd column in a second pass of
+// lane 0.
+//
+// Above d = 32 a generic instance takes one block per env: the factor
+// (lower triangle, row stride d), 1/L_jj and the d + 1 right-hand sides
+// (one contiguous column each) live in shared memory while they fit in the
+// 227 KB of a block (d <= 169), else in a per-env global scratch buffer
+// that the caller allocates (chol_scratch_floats). The factor's column and
+// trailing update run over the block's threads between barriers, and each
+// thread then substitutes whole columns of [I | rhs]. It is simple, not
+// fast: no shape of the port's robots reaches it.
 //
 // The arithmetic follows the plain version's order and rounding: every
 // division is correctly rounded (exact_math.cuh: a reciprocal per pivot,
@@ -201,13 +211,100 @@ chol_kernel(const float* __restrict__ Mi, const float* __restrict__ rhs,
   }
 }
 
-using Kernel = void (*)(const float*, const float*, float*, float*, int, int);
+// floats of one env in the generic instance: the factor (d x d, lower
+// triangle used), 1/L_jj (d) and the d + 1 columns of [I | rhs] (d each)
+__host__ __device__ size_t generic_floats(int d) {
+  return (size_t)d * d + d + (size_t)d * (d + 1);
+}
 
-// the instance that runs d, and its padded dimension
-Kernel pick(int d, int* D) {
-  *D = d <= 8 ? 8 : d == 14 ? 14 : d <= 16 ? 16 : d == 23 ? 23
-       : d <= 24 ? 24 : 32;
-  switch (*D) {
+constexpr size_t kMaxSmem = 227 * 1024;
+
+// The generic instance: one block per env, any d. L, rinv and the columns
+// of [I | rhs] live at `buf`, in shared memory (kGlobal false) or in this
+// env's slice of the caller's scratch (kGlobal true). Same arithmetic, in
+// the same order, as chol_kernel and the plain version.
+template <bool kGlobal>
+__global__ void __launch_bounds__(256)
+chol_kernel_generic(const float* __restrict__ Mi,
+                    const float* __restrict__ rhs, float* __restrict__ Minv,
+                    float* __restrict__ x, int d, float* scratch) {
+  extern __shared__ float4 smem4[];
+  const size_t e = blockIdx.x;
+  float* L = kGlobal ? scratch + e * generic_floats(d)
+                     : reinterpret_cast<float*>(smem4);
+  float* rinv = L + (size_t)d * d;
+  float* B = rinv + d;                        // B[c * d + r]: column c
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const float* A = Mi + e * d * d;
+  for (int g = tid; g < d * d; g += nt) L[g] = A[g];
+  for (int g = tid; g < d * (d + 1); g += nt) {
+    const int c = g / d, r = g - c * d;
+    B[g] = c < d ? (r == c ? 1.f : 0.f) : rhs[e * d + r];
+  }
+  __syncthreads();
+
+  // right-looking Cholesky; the trailing update keeps the lower triangle
+  // (j < k <= i), the only part the later steps and the solves read
+  for (int j = 0; j < d; ++j) {
+    const float dj = sqrt_rn(fmaxf(L[j * d + j], 1e-12f));
+    const float yj = rcp_rn(dj);
+    for (int i = j + 1 + tid; i < d; i += nt)
+      L[i * d + j] = div_rn(L[i * d + j], dj, yj);
+    __syncthreads();
+    if (tid == 0) {
+      L[j * d + j] = dj;
+      rinv[j] = yj;
+    }
+    const int m = d - j - 1;
+    for (int g = tid; g < m * m; g += nt) {
+      const int i = j + 1 + g / m, k = j + 1 + g % m;
+      if (k <= i) L[i * d + k] = sub_prod(L[i * d + k], L[i * d + j],
+                                          L[k * d + j]);
+    }
+    __syncthreads();
+  }
+
+  // L y = b then L^T x = y, one thread per column of [I | rhs]
+  for (int c = tid; c <= d; c += nt) {
+    float* b = B + (size_t)c * d;
+    for (int i = 0; i < d; ++i) {
+      const float yi = div_rn(b[i], L[i * d + i], rinv[i]);
+      b[i] = yi;
+      for (int r = i + 1; r < d; ++r) b[r] = sub_prod(b[r], L[r * d + i], yi);
+    }
+    for (int i = d - 1; i >= 0; --i) {
+      const float xi = div_rn(b[i], L[i * d + i], rinv[i]);
+      b[i] = xi;
+      for (int r = 0; r < i; ++r) b[r] = sub_prod(b[r], L[i * d + r], xi);
+    }
+  }
+  __syncthreads();
+  for (int g = tid; g < d * d; g += nt) {
+    const int r = g / d, c = g - r * d;
+    Minv[e * d * d + g] = B[(size_t)c * d + r];
+  }
+  for (int r = tid; r < d; r += nt) x[e * d + r] = B[(size_t)d * d + r];
+}
+
+using Kernel = void (*)(const float*, const float*, float*, float*, int, int);
+using GenericKernel = void (*)(const float*, const float*, float*, float*,
+                               int, float*);
+
+// Instance codes, mirrored by linalg.kernel_instance: the register size D,
+// or kGenericSmem / kGenericGlobal.
+constexpr int kGenericSmem = 100, kGenericGlobal = 101;
+
+int instance(int d) {
+  if (d <= kWarp)
+    return d <= 8 ? 8 : d == 14 ? 14 : d <= 16 ? 16 : d == 23 ? 23
+           : d <= 24 ? 24 : 32;
+  return generic_floats(d) * sizeof(float) <= kMaxSmem ? kGenericSmem
+                                                      : kGenericGlobal;
+}
+
+// the register instance of size D
+Kernel pick(int D) {
+  switch (D) {
     case 8: return chol_kernel<8>;
     case 14: return chol_kernel<14>;
     case 16: return chol_kernel<16>;
@@ -221,33 +318,83 @@ size_t smem_bytes(int D) {
   return (size_t)kEnvsPerBlock * warp_floats(D) * sizeof(float);
 }
 
+int generic_threads(int d) { return d < 64 ? 64 : d < 128 ? 128 : 256; }
+
+// The generic kernel for an instance code, its threads and dynamic shared
+// memory; the shared-memory kernel opts in above 48 KB.
+cudaError_t generic_launch(int inst, int d, GenericKernel* k, int* threads,
+                           size_t* smem) {
+  *k = inst == kGenericSmem ? chol_kernel_generic<false>
+                            : chol_kernel_generic<true>;
+  *threads = generic_threads(d);
+  *smem = inst == kGenericSmem ? generic_floats(d) * sizeof(float) : 0;
+  if (*smem > 48 * 1024)
+    return cudaFuncSetAttribute(
+        *k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+  return cudaSuccess;
+}
+
 }  // namespace
+
+// Which instance chol_inv_solve_f32 runs at d (see instance()).
+extern "C" int chol_kernel_instance(int d) {
+  return d < 1 ? -1 : instance(d);
+}
+
+// Floats of global scratch per env that chol_inv_solve_f32 needs at d (0:
+// the instance keeps everything on chip).
+extern "C" long long chol_scratch_floats(int d) {
+  return d >= 1 && instance(d) == kGenericGlobal
+             ? (long long)generic_floats(d) : 0;
+}
 
 extern "C" int chol_inv_solve_f32(const float* Mi, const float* rhs,
                                   float* Minv, float* x, int W, int d,
-                                  void* stream) {
+                                  float* scratch, void* stream) {
   if (W <= 0) return 0;
-  if (d < 1 || d > kWarp) return (int)cudaErrorInvalidValue;
-  int D = 0;
-  const Kernel k = pick(d, &D);
-  const int blocks = (W + kEnvsPerBlock - 1) / kEnvsPerBlock;
-  k<<<blocks, kEnvsPerBlock * kWarp, smem_bytes(D), (cudaStream_t)stream>>>(
-      Mi, rhs, Minv, x, W, d);
+  if (d < 1) return (int)cudaErrorInvalidValue;
+  const int inst = instance(d);
+  if (inst == kGenericGlobal && scratch == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (inst < kGenericSmem) {
+    const int blocks = (W + kEnvsPerBlock - 1) / kEnvsPerBlock;
+    pick(inst)<<<blocks, kEnvsPerBlock * kWarp, smem_bytes(inst),
+                 (cudaStream_t)stream>>>(Mi, rhs, Minv, x, W, d);
+    return (int)cudaGetLastError();
+  }
+  GenericKernel k;
+  int threads;
+  size_t smem;
+  const cudaError_t e = generic_launch(inst, d, &k, &threads, &smem);
+  if (e != cudaSuccess) return (int)e;
+  k<<<W, threads, smem, (cudaStream_t)stream>>>(Mi, rhs, Minv, x, d,
+                                                 scratch);
   return (int)cudaGetLastError();
 }
 
 // Registers per thread and resident blocks per SM of the launch that
 // chol_inv_solve_f32 makes at d.
 extern "C" int chol_kernel_info(int d, int* regs, int* blocks_per_sm) {
-  if (d < 1 || d > kWarp) return (int)cudaErrorInvalidValue;
-  int D = 0;
-  const Kernel k = pick(d, &D);
+  if (d < 1) return (int)cudaErrorInvalidValue;
+  const int inst = instance(d);
   cudaFuncAttributes a;
-  const cudaError_t e = cudaFuncGetAttributes(&a, k);
+  if (inst < kGenericSmem) {
+    const Kernel k = pick(inst);
+    const cudaError_t e = cudaFuncGetAttributes(&a, k);
+    if (e != cudaSuccess) return (int)e;
+    *regs = a.numRegs;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, k, kEnvsPerBlock * kWarp, smem_bytes(inst));
+  }
+  GenericKernel k;
+  int threads;
+  size_t smem;
+  cudaError_t e = generic_launch(inst, d, &k, &threads, &smem);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, k);
   if (e != cudaSuccess) return (int)e;
   *regs = a.numRegs;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, k, kEnvsPerBlock * kWarp, smem_bytes(D));
+      blocks_per_sm, k, threads, smem);
 }
 
 extern "C" const char* ntt_error_string(int err) {

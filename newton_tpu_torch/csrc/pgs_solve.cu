@@ -62,7 +62,13 @@
 //     registers, no spills) for r <= 160, 8 blocks of <= 27 KB on an SM;
 //     4096 envs are ~3.9 waves. Above 160 rows (the uncompacted humanoid,
 //     r = 610, ~133 KB: one block per SM) 256 threads, with the large-
-//     shared-memory opt-in above 48 KB; above 227 KB the launch is refused.
+//     shared-memory opt-in above 48 KB.
+//   - A shape whose block would need more than the 227 KB of shared memory
+//     an H100 block can hold runs the same shared-memory-path sweep with
+//     the same layout in a per-env slice of a global scratch buffer that
+//     the caller allocates (pgs_scratch_floats); at these sizes the slices
+//     a wave touches sit in L2. It is simple, not fast: no shape of the
+//     port's robots reaches it.
 // Tensor cores are not used: the float32 parity the port holds forbids
 // TF32, and the work is a few microseconds at the float32 peak.
 
@@ -123,6 +129,15 @@ size_t smem_floats(const Dims& D) {
 // of an unrolled loop above this point: hoisted all at once they take more
 // registers than a thread has, and spill.
 __device__ __forceinline__ void fence() { asm volatile("" ::: "memory"); }
+
+// A limit pair's lo - hi, D^-1/2 (x - y) (lo and hi share one diagonal):
+// an exact zero when x == y (both rows active), as in the plain version.
+// Written as a x - a y, nvcc fuses it into an FMA that keeps the first
+// product's rounding error, and the power iteration's start vector no
+// longer cancels.
+__device__ __forceinline__ float scaled_diff(float a, float x, float y) {
+  return __fmul_rn(a, __fsub_rn(x, y));
+}
 
 __device__ __forceinline__ float finite_or_zero(float v) {
   return isfinite(v) ? v : 0.f;
@@ -201,8 +216,9 @@ __device__ __forceinline__ void phase1(const Dims& D, const float* MJx,
 
 // Stage J (block-order row b c + i to interleaved row 3 i + b), Minv and
 // qd with row stride s, zero-padded, ld, and zero the padding rows of MJ
-// and xs. Ends with a barrier.
-template <int NT>
+// and xs; asynchronous copies into shared memory, plain ones into global
+// scratch (kGlobal). Ends with a barrier.
+template <int NT, bool kGlobal = false>
 __device__ __forceinline__ void stage(const Dims& D, size_t e,
                                       const float* __restrict__ gJ,
                                       const float* __restrict__ gMinv,
@@ -219,13 +235,21 @@ __device__ __forceinline__ void stage(const Dims& D, size_t e,
     for (int i = w; i < c; i += NW)
       for (int f = lane; f < s; f += 32) {
         float* dst = J + (3 * i + b) * s + f;
-        if (f < d) copy_async(dst, Je + (b * c + i) * d + f);
-        else *dst = 0.f;
+        if (f < d) {
+          if constexpr (kGlobal) *dst = Je[(b * c + i) * d + f];
+          else copy_async(dst, Je + (b * c + i) * d + f);
+        } else {
+          *dst = 0.f;
+        }
       }
   for (int q = w; q < s; q += NW)
     for (int f = lane; f < s; f += 32) {
-      if (q < d && f < d) copy_async(Minv + q * s + f, Me + q * d + f);
-      else Minv[q * s + f] = 0.f;
+      if (q < d && f < d) {
+        if constexpr (kGlobal) Minv[q * s + f] = Me[q * d + f];
+        else copy_async(Minv + q * s + f, Me + q * d + f);
+      } else {
+        Minv[q * s + f] = 0.f;
+      }
     }
   for (int f = threadIdx.x; f < s; f += NT)
     qd[f] = f < d ? gqd[e * d + f] : 0.f;
@@ -255,6 +279,8 @@ struct Args {
   int* halvings;
   int iters, spectral_iters, use_cone;
   float omega, diag_scale, reg;
+  float* scratch;         // the global-scratch instance: env e's block
+  size_t scratch_floats;  // state starts at scratch + e * scratch_floats
 };
 
 // The register path: quad lane q < 3 of quad i owns interleaved contact
@@ -368,7 +394,8 @@ pgs_kernel_reg(Dims D, Args A) {
   const float rn0 = rcp_rn(n0);
   const float rs = rsqrtf(dg);
   if (owner)
-    xs[xi] = rs * div_rn(aa[0], n0, rn0) - rs * div_rn(aa[1], n0, rn0);
+    xs[xi] = scaled_diff(rs, div_rn(aa[0], n0, rn0),
+                         div_rn(aa[1], n0, rn0));
   __syncthreads();
   float lam_max = 0.f;
   for (int it = 0; it < A.spectral_iters; ++it) {
@@ -383,7 +410,8 @@ pgs_kernel_reg(Dims D, Args A) {
     if (owner)
       xs[xi] = it + 1 == A.spectral_iters
                    ? lm[0] - lm[1]
-                   : rs * div_rn(v0, nc, rnc) - rs * div_rn(v1, nc, rnc);
+                   : scaled_diff(rs, div_rn(v0, nc, rnc),
+                                 div_rn(v1, nc, rnc));
     __syncthreads();
   }
   const float bound = fmaxf(1.1f * lam_max, 1e-9f);
@@ -443,15 +471,17 @@ pgs_kernel_reg(Dims D, Args A) {
   if (t2 == 0) A.halvings[b2] = halvings;
 }
 
-// The shared-memory path, for any shape that fits: the row state lives in
-// shared memory (interleaved contact rows, limits last) and quads make as
-// many passes as the contacts or limit pairs need.
-template <int NT>
-__global__ void __launch_bounds__(NT, NT == 128 ? 4 : 1)
+// The shared-memory path, for any shape: the row state lives in shared
+// memory (interleaved contact rows, limits last), or with kGlobal in the
+// env's slice of the global scratch, and quads make as many passes as the
+// contacts or limit pairs need.
+template <int NT, bool kGlobal = false>
+__global__ void __launch_bounds__(NT, NT == 128 && !kGlobal ? 4 : 1)
 pgs_kernel_smem(Dims D, Args A) {
   constexpr int NW = NT / 32, NQ = NT / 4;
   extern __shared__ float4 sm4[];
-  float* sm = reinterpret_cast<float*>(sm4);
+  float* sm = kGlobal ? A.scratch + blockIdx.x * A.scratch_floats
+                      : reinterpret_cast<float*>(sm4);
   const int tid = threadIdx.x;
   const int c = D.c, nl = D.nl, d = D.d, r3 = D.r3, r = D.r, s = D.s;
   const int s4 = s / 4, rows = D.rows;
@@ -481,7 +511,8 @@ pgs_kernel_smem(Dims D, Args A) {
     lam[kk] = A.lam0[e * r + k];
   }
   for (int g = tid; g < c; g += NT) mu[g] = A.mu[e * c + g];
-  stage<NT>(D, e, A.J, A.Minv, A.qd, A.ld, qd, xs, J, MJ, Minv, ld);
+  stage<NT, kGlobal>(D, e, A.J, A.Minv, A.qd, A.ld, qd, xs, J, MJ, Minv,
+                     ld);
 
   // 1. Delassus pieces: MJ = J Minv (groups of lanes over dofs, one row
   //    each), the limit columns Minv[:, ld]^T, diag and v_free
@@ -531,8 +562,10 @@ pgs_kernel_smem(Dims D, Args A) {
   const float n0 = fmaxf(sqrt_rn(block_sum<NW>(acc0, red, buf)), 1.f);
   const float rn0 = rcp_rn(n0);
   for (int k = tid; k < rows; k += NT) {
-    xs[k] = rsqrtf(diag[k]) * div_rn(act[k], n0, rn0);
-    if (k >= r3) xs[k] -= rsqrtf(diag[k + nl]) * div_rn(act[k + nl], n0, rn0);
+    const float x = div_rn(act[k], n0, rn0);
+    xs[k] = k < r3 ? rsqrtf(diag[k]) * x
+                   : scaled_diff(rsqrtf(diag[k]), x,
+                                 div_rn(act[k + nl], n0, rn0));
   }
   __syncthreads();
   float lam_max = 0.f;
@@ -566,9 +599,10 @@ pgs_kernel_smem(Dims D, Args A) {
       if (last) {
         xs[k] = k < r3 ? lam[k] : lam[k] - lam[k + nl];
       } else {
-        xs[k] = rsqrtf(diag[k]) * div_rn(lamn[k], nc, rnc);
-        if (k >= r3)
-          xs[k] -= rsqrtf(diag[k + nl]) * div_rn(lamn[k + nl], nc, rnc);
+        const float x = div_rn(lamn[k], nc, rnc);
+        xs[k] = k < r3 ? rsqrtf(diag[k]) * x
+                       : scaled_diff(rsqrtf(diag[k]), x,
+                                     div_rn(lamn[k + nl], nc, rnc));
       }
     }
     __syncthreads();
@@ -650,17 +684,53 @@ pgs_kernel_smem(Dims D, Args A) {
   if (tid == 0) A.halvings[blockIdx.x] = halvings;
 }
 
-// The kernel that runs D and its threads per block.
+// Instance codes, mirrored by pgs.kernel_instance: the register path's
+// row width (16, 24), the shared-memory path's threads (128, 256), or
+// 1000 + threads for the global-scratch instance.
+int instance(const Dims& D) {
+  const int threads = threads_for(D.r);
+  if (smem_floats(D) * sizeof(float) + D.nl * sizeof(int) > kMaxSmem)
+    return 1000 + threads;
+  const int w = reg_width(D);
+  return w ? w : threads;
+}
+
+// Floats of one env's block in the global scratch (16-byte aligned).
+size_t scratch_floats(const Dims& D) {
+  return (smem_floats(D) + D.nl + 3) & ~(size_t)3;
+}
+
+// The kernel of an instance, its threads and dynamic shared memory, with
+// the carveout and large-shared-memory opt-in it needs.
 using Kernel = void (*)(Dims, Args);
 
-Kernel pick(const Dims& D, int* threads) {
+cudaError_t prepare(const Dims& D, Kernel* k, int* threads, int* smem) {
+  const int inst = instance(D);
   *threads = threads_for(D.r);
-  switch (reg_width(D)) {
-    case 16: return pgs_kernel_reg<16>;
-    case 24: return pgs_kernel_reg<24>;
-    default:
-      return *threads == 128 ? pgs_kernel_smem<128> : pgs_kernel_smem<256>;
+  *smem = inst > 1000 ? 0
+                      : (int)(smem_floats(D) * sizeof(float)
+                              + D.nl * sizeof(int));
+  switch (inst) {
+    case 16: *k = pgs_kernel_reg<16>; break;
+    case 24: *k = pgs_kernel_reg<24>; break;
+    case 128: *k = pgs_kernel_smem<128>; break;
+    case 256: *k = pgs_kernel_smem<256>; break;
+    case 1128: *k = pgs_kernel_smem<128, true>; break;
+    default: *k = pgs_kernel_smem<256, true>; break;
   }
+  // the most shared memory per SM, so that 8 blocks fit; above 48 KB per
+  // block the large-shared-memory opt-in
+  cudaError_t e = cudaFuncSetAttribute(
+      *k, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess && *smem > 48 * 1024)
+    e = cudaFuncSetAttribute(*k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             *smem);
+  return e;
+}
+
+bool valid(int c, int nl, int d) {
+  return c >= 0 && nl >= 0 && d >= 1 && 3 * c + 2 * nl >= 1;
 }
 
 }  // namespace
@@ -668,6 +738,19 @@ Kernel pick(const Dims& D, int* threads) {
 extern "C" int pgs_smem_bytes(int c, int nl, int d) {
   const Dims D = make_dims(c, nl, d);
   return (int)(smem_floats(D) * sizeof(float) + nl * sizeof(int));
+}
+
+// Which instance pgs_solve_fused_f32 runs at (c, nl, d) (see instance()).
+extern "C" int pgs_kernel_instance(int c, int nl, int d) {
+  return valid(c, nl, d) ? instance(make_dims(c, nl, d)) : -1;
+}
+
+// Floats of global scratch per env that pgs_solve_fused_f32 needs at
+// (c, nl, d) (0: the instance keeps its state on chip).
+extern "C" long long pgs_scratch_floats(int c, int nl, int d) {
+  if (!valid(c, nl, d)) return 0;
+  const Dims D = make_dims(c, nl, d);
+  return instance(D) > 1000 ? (long long)scratch_floats(D) : 0;
 }
 
 extern "C" int pgs_solve_fused_f32(const float* J, const float* Minv,
@@ -678,26 +761,19 @@ extern "C" int pgs_solve_fused_f32(const float* J, const float* Minv,
                                    int W, int c, int nl, int d, int iters,
                                    float omega, int use_cone,
                                    float diag_scale, float reg,
-                                   void* stream) {
+                                   float* scratch, void* stream) {
   if (W <= 0) return 0;
-  if (c < 0 || nl < 0 || d < 1 || 3 * c + 2 * nl < 1)
-    return (int)cudaErrorInvalidValue;
+  if (!valid(c, nl, d)) return (int)cudaErrorInvalidValue;
   const Dims D = make_dims(c, nl, d);
-  const int smem = pgs_smem_bytes(c, nl, d);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  int threads = 0;
-  const Kernel k = pick(D, &threads);
-  // the most shared memory per SM, so that 8 blocks fit; above 48 KB per
-  // block the large-shared-memory opt-in
-  cudaError_t e = cudaFuncSetAttribute(
-      k, cudaFuncAttributePreferredSharedMemoryCarveout,
-      cudaSharedmemCarveoutMaxShared);
-  if (e == cudaSuccess && smem > 48 * 1024)
-    e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
+  if (instance(D) > 1000 && scratch == nullptr)
+    return (int)cudaErrorInvalidValue;
+  Kernel k;
+  int threads = 0, smem = 0;
+  const cudaError_t e = prepare(D, &k, &threads, &smem);
   if (e != cudaSuccess) return (int)e;
   const Args A{J, Minv, qd, b, act, mu, lam0, ld, lam, dqd, halvings,
-               iters, D.r < 192 ? 3 : 8, use_cone, omega, diag_scale, reg};
+               iters, D.r < 192 ? 3 : 8, use_cone, omega, diag_scale, reg,
+               scratch, scratch_floats(D)};
   k<<<W, threads, smem, (cudaStream_t)stream>>>(D, A);
   return (int)cudaGetLastError();
 }
@@ -706,19 +782,10 @@ extern "C" int pgs_solve_fused_f32(const float* J, const float* Minv,
 // pgs_solve_fused_f32 makes at (c, nl, d).
 extern "C" int pgs_kernel_info(int c, int nl, int d, int* regs,
                                int* blocks_per_sm) {
-  if (c < 0 || nl < 0 || d < 1 || 3 * c + 2 * nl < 1)
-    return (int)cudaErrorInvalidValue;
-  const Dims D = make_dims(c, nl, d);
-  const int smem = pgs_smem_bytes(c, nl, d);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  int threads = 0;
-  const Kernel k = pick(D, &threads);
-  cudaError_t e = cudaFuncSetAttribute(
-      k, cudaFuncAttributePreferredSharedMemoryCarveout,
-      cudaSharedmemCarveoutMaxShared);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
+  if (!valid(c, nl, d)) return (int)cudaErrorInvalidValue;
+  Kernel k;
+  int threads = 0, smem = 0;
+  cudaError_t e = prepare(make_dims(c, nl, d), &k, &threads, &smem);
   cudaFuncAttributes a;
   if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, k);
   if (e != cudaSuccess) return (int)e;

@@ -39,55 +39,43 @@ __all__ = ["KinematicCache", "get_kinematic_cache", "kinematic_tables",
 
 
 class KinematicCache:
-    """Host-precomputed gather plans (same construction as the JAX
-    package's)."""
+    """Host-precomputed gather plans (same tables as the JAX package's),
+    built with array operations: a model of thousands of worlds has one
+    joint per body of every world."""
 
     def __init__(self, st: ModelStructure):
         J = st.joint_count
         self.joint_count = J
-        jq, jqd = st.joint_q_start, st.joint_qd_start
+        jq = np.asarray(st.joint_q_start, dtype=np.int64)
+        jqd = np.asarray(st.joint_qd_start, dtype=np.int64)
         Q = int(jq[-1]) if J else 0
         D = int(jqd[-1]) if J else 0
-        q_width = jq[1:] - jq[:-1]
-        qd_width = jqd[1:] - jqd[:-1]
+        jt = np.asarray(st.joint_type, dtype=np.int64)
 
         def gather_plan(starts, widths, maxw, total):
-            idx = np.zeros((J, maxw), dtype=np.int32)
-            mask = np.zeros((J, maxw), dtype=np.float32)
-            for j in range(J):
-                for k in range(maxw):
-                    if k < widths[j]:
-                        idx[j, k] = starts[j] + k
-                        mask[j, k] = 1.0
-                    else:
-                        idx[j, k] = min(starts[j], max(total - 1, 0))
-            return idx, mask
+            k = np.arange(maxw)[None, :]
+            inside = k < widths[:, None]
+            fill = np.minimum(starts, max(total - 1, 0))[:, None]
+            idx = np.where(inside, starts[:, None] + k, fill)
+            return idx.astype(np.int32), inside.astype(np.float32)
 
-        self.q_idx, self.q_mask = gather_plan(jq[:-1], q_width, 7, Q)
-        self.qd_idx, self.qd_mask = gather_plan(jqd[:-1], qd_width, 6, D)
+        self.q_idx, self.q_mask = gather_plan(jq[:-1], np.diff(jq), 7, Q)
+        self.qd_idx, self.qd_mask = gather_plan(jqd[:-1], np.diff(jqd), 6, D)
 
-        lin_n, ang_n = st.joint_dof_dim[:, 0], st.joint_dof_dim[:, 1]
-        self.lin_axis_idx = np.zeros((J, 3), dtype=np.int32)
-        self.lin_mask = np.zeros((J, 3), dtype=np.float32)
-        self.ang_axis_idx = np.zeros((J, 3), dtype=np.int32)
-        self.ang_mask = np.zeros((J, 3), dtype=np.float32)
-        self.lin_q_idx = np.zeros((J, 3), dtype=np.int32)
-        self.ang_q_idx = np.zeros((J, 3), dtype=np.int32)
-        excl = (JointType.BALL, JointType.FREE, JointType.DISTANCE,
-                JointType.CABLE)
-        for j in range(J):
-            t = JointType(int(st.joint_type[j]))
-            ln = int(lin_n[j]) if t not in excl else 0
-            an = int(ang_n[j]) if t not in excl else 0
-            for k in range(3):
-                self.lin_axis_idx[j, k] = jqd[j] + min(k, max(ln - 1, 0))
-                self.ang_axis_idx[j, k] = jqd[j] + ln + min(k, max(an - 1, 0))
-                self.lin_q_idx[j, k] = jq[j] + min(k, max(ln - 1, 0))
-                self.ang_q_idx[j, k] = jq[j] + ln + min(k, max(an - 1, 0))
-                if k < ln:
-                    self.lin_mask[j, k] = 1.0
-                if k < an:
-                    self.ang_mask[j, k] = 1.0
+        excl = np.isin(jt, [int(JointType.BALL), int(JointType.FREE),
+                            int(JointType.DISTANCE), int(JointType.CABLE)])
+        dim = np.asarray(st.joint_dof_dim, dtype=np.int64).reshape(-1, 2)
+        ln = np.where(excl, 0, dim[:, 0])[:, None]
+        an = np.where(excl, 0, dim[:, 1])[:, None]
+        k = np.arange(3)[None, :]
+        lin_k = np.minimum(k, np.maximum(ln - 1, 0))
+        ang_k = ln + np.minimum(k, np.maximum(an - 1, 0))
+        self.lin_axis_idx = (jqd[:-1, None] + lin_k).astype(np.int32)
+        self.ang_axis_idx = (jqd[:-1, None] + ang_k).astype(np.int32)
+        self.lin_q_idx = (jq[:-1, None] + lin_k).astype(np.int32)
+        self.ang_q_idx = (jq[:-1, None] + ang_k).astype(np.int32)
+        self.lin_mask = (k < ln).astype(np.float32)
+        self.ang_mask = (k < an).astype(np.float32)
         if Q:
             self.lin_q_idx = np.clip(self.lin_q_idx, 0, Q - 1)
             self.ang_q_idx = np.clip(self.ang_q_idx, 0, Q - 1)
@@ -95,15 +83,20 @@ class KinematicCache:
             np.clip(self.lin_axis_idx, 0, D - 1, out=self.lin_axis_idx)
             np.clip(self.ang_axis_idx, 0, D - 1, out=self.ang_axis_idx)
 
-        jt = st.joint_type
         self.is_ball = jt == int(JointType.BALL)
         self.is_free = np.isin(jt, [int(JointType.FREE),
                                     int(JointType.DISTANCE)])
 
+        # depth in the tree: one pass per level over all joints at once
+        pj = np.asarray(st.joint_parent_joint, dtype=np.int64)
         depth = np.zeros(J, dtype=np.int32)
-        for j in range(J):
-            pj = int(st.joint_parent_joint[j])
-            depth[j] = 0 if pj < 0 else depth[pj] + 1
+        known = pj < 0
+        while not known.all():
+            step = ~known & known[np.maximum(pj, 0)]
+            if not step.any():
+                raise ValueError("joint_parent_joint has a cycle")
+            depth[step] = depth[pj[step]] + 1
+            known |= step
         self.max_depth = int(depth.max()) + 1 if J else 0
         self.levels: List[np.ndarray] = [
             np.nonzero(depth == d)[0].astype(np.int32)
@@ -248,7 +241,8 @@ def fk_bodies(model: Model, joint_q, joint_qd, body_q0, body_qd0):
 def eval_fk(model: Model, joint_q: torch.Tensor, joint_qd: torch.Tensor,
             state: State) -> State:
     """Forward kinematics: a new State with ``body_q``/``body_qd`` computed
-    from ``joint_q``/``joint_qd`` (single world or leading batch dims)."""
+    from ``joint_q``/``joint_qd``: the flat state of every world of the
+    model, or leading batch dims of a one-world model."""
     body_q, body_qd = fk_bodies(model, joint_q, joint_qd, state.body_q,
                                 state.body_qd)
     return replace(state, body_q=body_q, body_qd=body_qd, joint_q=joint_q,

@@ -5,18 +5,20 @@
 Candidate pairs and their contact slots are fixed at ``finalize``; pairs
 are grouped by (GeoType, GeoType) class on the host, each class runs one
 vectorized narrow-phase function over all its pairs and all envs, and the
-results land at static slot offsets. The JAX package vmaps ``collide``
-over the env axis; here the env axis W is written out: ``collide`` takes a
-State with ``body_q (W, B, 7)`` and returns ``(W, C, ...)`` Contacts.
-Only static mode with primitive pairs is ported: dynamic pair budgets,
-mesh/SDF, soft and persistent-manifold modes raise.
+results land at static slot offsets. ``collide`` takes either the flat
+state of a model (``body_q (B, 7)``, every world of a replicated model at
+once, as the JAX package's ``collide``) and returns ``(C, ...)`` Contacts,
+or a batched state (``body_q (W, B, 7)``, the env axis the JAX package
+vmaps over written out) and returns ``(W, C, ...)`` Contacts. The plan is
+built with array operations, so that a model of thousands of worlds
+plans in well under a second. Only static mode with primitive pairs is
+ported: dynamic pair budgets, mesh/SDF, soft and persistent-manifold modes
+raise.
 """
 
 from __future__ import annotations
 
 from types import SimpleNamespace
-from typing import Dict, Tuple
-
 import numpy as np
 import torch
 
@@ -24,7 +26,7 @@ from ..geometry.narrow_phase import contact_fn_for
 from ..math import transform_multiply
 from .contacts import Contacts
 from .model import Model
-from .state import State
+from .state import State, map_tensors
 
 __all__ = ["CollisionPipeline"]
 
@@ -33,7 +35,8 @@ class CollisionPipeline:
     """Precompiled static collision plan for one Model.
 
         pipeline = CollisionPipeline(model)
-        contacts = pipeline.collide(state_b)        # state_b: (W, ...) State
+        contacts = pipeline.collide(state)      # flat state: (C,) Contacts
+        contacts = pipeline.collide(state_b)    # (W, ...) state: (W, C)
     """
 
     def __init__(self, model: Model, rigid_contact_margin: float = 0.01,
@@ -57,44 +60,38 @@ class CollisionPipeline:
         self.mode = mode
 
         dev = model.device
-        groups: Dict[Tuple[int, int, bool], dict] = {}
-        for i, (a, b) in enumerate(st.candidate_pairs):
-            t0, t1 = int(st.shape_type[a]), int(st.shape_type[b])
-            fn, swapped, k = contact_fn_for(t0, t1)
-            g = groups.setdefault((min(t0, t1), max(t0, t1), swapped),
-                                  dict(fn=fn, swapped=swapped, slots=k,
-                                       shape0=[], shape1=[], offsets=[]))
-            g["shape0"].append(int(a))
-            g["shape1"].append(int(b))
-            g["offsets"].append(int(st.candidate_pair_slots[i]))
 
         def L(x):
             return torch.as_tensor(np.asarray(x, dtype=np.int64), device=dev)
 
+        # one class per (type, type) combination of the pairs, in order of
+        # first appearance; each runs its narrow phase on all its pairs
+        pairs = np.asarray(st.candidate_pairs, dtype=np.int64).reshape(-1, 2)
+        typ = np.asarray(st.shape_type, dtype=np.int64)
+        t0, t1 = typ[pairs[:, 0]], typ[pairs[:, 1]]
+        _, first, inv = np.unique(t0 * 64 + t1, return_index=True,
+                                  return_inverse=True)
         self.classes = []
-        for g in groups.values():
-            i0, i1 = np.asarray(g["shape0"]), np.asarray(g["shape1"])
-            a, b = (i1, i0) if g["swapped"] else (i0, i1)
-            offs = (np.asarray(g["offsets"])[:, None]
-                    + np.arange(g["slots"])[None, :])      # (n, K)
+        for u in np.argsort(first):
+            sel = np.nonzero(inv == u)[0]
+            fn, swapped, k = contact_fn_for(int(t0[sel[0]]), int(t1[sel[0]]))
+            i0, i1 = pairs[sel, 0], pairs[sel, 1]
+            a, b = (i1, i0) if swapped else (i0, i1)
+            offs = (np.asarray(st.candidate_pair_slots)[sel][:, None]
+                    + np.arange(k)[None, :])                 # (n, K)
             self.classes.append(SimpleNamespace(
-                fn=g["fn"], swapped=g["swapped"], a=L(a), b=L(b),
+                fn=fn, swapped=swapped, a=L(a), b=L(b),
                 s0=model.shape_scale[L(a)], s1=model.shape_scale[L(b)],
                 r_sum=(model.shape_collision_radius[L(a)]
                        + model.shape_collision_radius[L(b)]),
                 thick=(model.shape_thickness[L(i0)]
                        + model.shape_thickness[L(i1)]),
-                slots=L(offs.reshape(-1)), n=len(i0), k=g["slots"]))
+                slots=L(offs.reshape(-1)), n=len(sel), k=k))
 
-        C = self.rigid_contact_max
-        slot_s0 = np.full(C, -1, np.int32)
-        slot_s1 = np.full(C, -1, np.int32)
-        for g in groups.values():
-            for s0, s1, off in zip(g["shape0"], g["shape1"], g["offsets"]):
-                slot_s0[off:off + g["slots"]] = s0
-                slot_s1[off:off + g["slots"]] = s1
-        self._slot_shape0 = torch.as_tensor(slot_s0, device=dev)
-        self._slot_shape1 = torch.as_tensor(slot_s1, device=dev)
+        self._slot_shape0 = torch.as_tensor(
+            np.asarray(st.slot_shape0, dtype=np.int32), device=dev)
+        self._slot_shape1 = torch.as_tensor(
+            np.asarray(st.slot_shape1, dtype=np.int32), device=dev)
         sb = st.shape_body
         self._shape_body = L(np.maximum(sb, 0))
         self._shape_static = torch.as_tensor(sb < 0, device=dev)[:, None]
@@ -103,9 +100,15 @@ class CollisionPipeline:
             device=dev)
 
     def collide(self, state: State) -> Contacts:
-        """Contacts for a batched State (``body_q (W, B, 7)``)."""
+        """Contacts of a flat State (``body_q (B, 7)``: ``(C,)`` Contacts)
+        or of a batched one (``body_q (W, B, 7)``: ``(W, C)``)."""
+        if state.body_q.dim() == 2:
+            return map_tensors(self._collide(state.body_q[None]),
+                               lambda t: t[0])
+        return self._collide(state.body_q)
+
+    def _collide(self, body_q: torch.Tensor) -> Contacts:
         model = self.model
-        body_q = state.body_q
         W = body_q.shape[0]
         C = self.rigid_contact_max
         out = Contacts.zeros(C, (W,), dtype=body_q.dtype,

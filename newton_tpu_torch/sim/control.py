@@ -22,7 +22,8 @@ class Control:
         joint_f: generalized force input ``(..., joint_dof_count)``.
         tendon_f: force added to each fixed tendon ``(..., T)``, or None.
         custom: namespaced solver controls (``mjc:ctrl``: MJCF actuator
-            inputs ``(..., A)``).
+            inputs ``(..., A)``; a multi-world model's is flat, ``(N A,)``,
+            world i's actuators at ``[i A, (i + 1) A)``).
     """
 
     joint_target_q: torch.Tensor

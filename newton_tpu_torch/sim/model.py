@@ -29,6 +29,7 @@ class AttributeFrequency(enum.Enum):
     """Entity group a custom attribute is allocated per."""
 
     JOINT_DOF = "joint_dof"
+    JOINT_COORD = "joint_coord"
     ONCE = "once"
 
 
@@ -173,7 +174,7 @@ class Model:
     joint_qd0: torch.Tensor       # (D,)
     joint_q0: torch.Tensor        # (Q,)
     joint_target_q0: torch.Tensor  # (Q,)
-    gravity: torch.Tensor         # (W, 3)
+    gravity: torch.Tensor         # (W, 3), one row per world
     tendon_params: torch.Tensor   # (T, 3) ke, kd, rest length
     particle_q: torch.Tensor      # (N, 3) initial positions
     particle_qd: torch.Tensor     # (N, 3)

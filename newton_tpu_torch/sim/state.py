@@ -1,8 +1,11 @@
 """Simulation state (port of ``newton_tpu/sim/state.py``).
 
-A dataclass of tensors. Leading batch dims are allowed: ``batch_state``
-tiles a single-world State to the env-major layout ``(W, ...)`` that the
-batched step and the collision pipeline take.
+A dataclass of tensors. A multi-world model's State is flat, every world
+at once (``joint_q (N nq,)``, ``body_q (N B, 7)`` for N replicated worlds
+of nq coordinates and B bodies), the layout ``SolverMuJoCo.step`` and
+``collide`` take. Leading batch dims are allowed too: ``batch_state``
+tiles a one-world State to the env-major layout ``(W, ...)`` that
+``step_batched`` and the collision pipeline take.
 """
 
 from __future__ import annotations

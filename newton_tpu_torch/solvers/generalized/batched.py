@@ -1,20 +1,27 @@
-"""Batched generalized substep, env-major (port of ``step_batched`` in
-``newton_tpu/solvers/generalized/batched.py``).
+"""The generalized substep, env-major, and its two entries (ports of
+``step_batched`` in ``newton_tpu/solvers/generalized/batched.py`` and of
+``SolverMuJoCo.step`` in ``solver.py``).
 
 The JAX package restates the per-env step in a lanes-minor transposed
-layout for the TPU; the port keeps the env axis W leading, ``(W, ...)``,
-with vectors as trailing ``3``/``4``/``7`` axes. The stages run in the
-reference's order: dof subspace, spatial inertia, RNEA bias, applied
-(PD, fixed tendons) and external forces, MJCF actuation, CRBA, the
-Cholesky kernel, the contact rows (top-K compacted) and the PGS kernel
-(or the limits-only solve without contacts), the velocity clips,
-coordinate integration and FK. Every index comes from the
-solver's device tables (``solver.tables``).
+layout for the TPU; the port keeps the env axis leading, ``(W, ...)``,
+with vectors as trailing ``3``/``4``/``7`` axes. One env is one row of the
+model's articulation group (see solver.py): ``step_batched`` runs W envs
+of a one-world model, ``step`` runs the N rows of a flat multi-world
+state, gathered into ``(N, ...)`` through the row tables and scattered
+back. Both run the same ``_substep``, so B1 and B2 take all envs of a
+substep in one launch each. The stages run in the reference's order: dof
+subspace, spatial inertia, RNEA bias, applied (PD, fixed tendons) and
+external forces, MJCF actuation, CRBA, the Cholesky kernel, the contact
+rows (top-K compacted) and the PGS kernel (or the limits-only solve
+without contacts), the velocity clips, coordinate integration and FK.
+Every index comes from the solver's device tables (``solver.tables``), in
+the row's local indices.
 """
 
 from __future__ import annotations
 
 from dataclasses import replace
+from types import SimpleNamespace
 from typing import Optional
 
 import torch
@@ -31,12 +38,13 @@ from ...math import (
     velocity_at_point,
 )
 from ...sim.articulation import angular_axes, fk_bodies
+from ...sim.control import Control
 from ...sim.state import State
 from .actuation import actuator_forces
 from .linalg import chol_inv_solve, chol_inv_solve_plain
 from .pgs import pgs_solve_fused, pgs_solve_fused_plain
 
-__all__ = ["step_batched", "compaction_indices"]
+__all__ = ["step", "step_batched", "compaction_indices"]
 
 
 def _dot(a, b):
@@ -90,7 +98,7 @@ def _bias_forces(t, model, body_qd, v_o, w_o, x_b, Iw):
     for pbc, cb, hasp in t.levels:
         Vc = V[:, cb]
         dV = Vc - torch.where(hasp, V[:, pbc], 0.0)
-        A_p = torch.where(hasp, A[:, pbc], t.base_acc[cb])
+        A_p = torch.where(hasp, A[:, pbc], t.base_acc[:, cb])
         A[:, cb] = A_p + spatial_cross(Vc, dV)
     m = model.body_mass[:, None]
 
@@ -161,14 +169,15 @@ def compaction_indices(score, K):
 def _contact_system(solver, t, Minv, qd_g, v_o, w_o, body_qd, x_b, q,
                     contacts, dt):
     """Contact and limit rows of the PGS system: J (W, 3c, d), b and act
-    (W, r), mu (W, c) in BLOCK row order [n | t1 | t2 | lim-lo | lim-hi].
+    (W, r), mu (W, c) in BLOCK row order [n | t1 | t2 | lim-lo | lim-hi],
+    from the row's c contact slots of each env (``contacts``, (W, c)).
     With a cap K below the slot count, each env keeps its K slots of
     highest score active * max(1 + depth, 0.5) (batched.py:684-736 of the
     JAX package), after the restitution pre-velocity of every slot."""
-    nrm = contacts.rigid_contact_normal[:, t.slots]          # (W, c, 3)
-    pos = contacts.rigid_contact_position[:, t.slots]
-    depth = contacts.rigid_contact_depth[:, t.slots]
-    active = contacts.rigid_contact_mask[:, t.slots]
+    nrm = contacts.rigid_contact_normal                      # (W, c, 3)
+    pos = contacts.rigid_contact_position
+    depth = contacts.rigid_contact_depth
+    active = contacts.rigid_contact_mask
     W, c = active.shape
 
     def vel_of(gb, on):
@@ -262,16 +271,11 @@ def _integrate_coords(t, q, qd, dt):
     return q
 
 
-def step_batched(solver, state_b: State, control_b=None, contacts_b=None,
-                 dt: float = 1e-3, kernels: bool = True,
-                 record: Optional[dict] = None) -> State:
-    """One substep of W independent envs (leading axis of every tensor).
-
-    ``kernels=False`` runs the plain PyTorch versions of the two kernels
-    instead, whatever the device: the reference path that a run on the card
-    compares the kernel path with. ``record``, when a dict, receives the
-    operands of the two kernel calls."""
-    model = solver.model
+def _substep(solver, state_b: State, control_b, contacts_b, dt: float,
+             kernels: bool, record: Optional[dict]) -> State:
+    """One substep of W envs of the row layout (leading axis of every
+    tensor; ``contacts_b`` holds the row's c slots, (W, c), or None)."""
+    model = solver.row_model
     t = solver.tables
     q, qd = state_b.joint_q, state_b.joint_qd
     body_q, body_qd = state_b.body_q, state_b.body_qd
@@ -295,10 +299,7 @@ def step_batched(solver, state_b: State, control_b=None, contacts_b=None,
         record["chol"] = (Mi, rhs)
     chol = chol_inv_solve if kernels else chol_inv_solve_plain
     Minv, qd_g = chol(Mi, rhs)
-    has_contacts = (contacts_b is not None
-                    and contacts_b.rigid_contact_max > 0
-                    and solver.contact_plans[0] is not None)
-    if has_contacts:
+    if contacts_b is not None:
         args, kw = _contact_system(solver, t, Minv, qd_g, v_o, w_o, body_qd,
                                    x_b, q, contacts_b, dt)
         if record is not None:
@@ -307,6 +308,8 @@ def step_batched(solver, state_b: State, control_b=None, contacts_b=None,
         lam, dqd = pgs(*args, **kw)
         qd_g = qd_g + dqd
     elif t.nl:
+        if record is not None:
+            record["limits"] = (Minv, qd_g)
         qd_g = _solve_limits(solver, t, Minv, qd_g, q, dt)
     qd_new = qd.clone()
     qd_new[:, t.di] = qd_g
@@ -320,3 +323,96 @@ def step_batched(solver, state_b: State, control_b=None, contacts_b=None,
     body_q2, body_qd2 = fk_bodies(model, q_new, qd_new, body_q, body_qd)
     return replace(state_b, body_q=body_q2, body_qd=body_qd2, joint_q=q_new,
                    joint_qd=qd_new)
+
+
+_CONTACT_ROWS = ("rigid_contact_normal", "rigid_contact_position",
+                 "rigid_contact_depth", "rigid_contact_mask")
+
+
+def _has_contacts(solver, contacts) -> bool:
+    """Whether this substep has a contact system: contacts with slots and
+    a contact plan."""
+    return (contacts is not None and contacts.rigid_contact_max > 0
+            and solver.contact_plans[0] is not None)
+
+
+def _contact_rows(solver, contacts, take):
+    """The row's slots of each env, or None without a contact system."""
+    if not _has_contacts(solver, contacts):
+        return None
+    return SimpleNamespace(**{n: take(getattr(contacts, n))
+                              for n in _CONTACT_ROWS})
+
+
+def step_batched(solver, state_b: State, control_b=None, contacts_b=None,
+                 dt: float = 1e-3, kernels: bool = True,
+                 record: Optional[dict] = None) -> State:
+    """One substep of W independent envs of a one-world model (leading
+    axis of every tensor; ``contacts_b`` from ``collide`` on the batched
+    state).
+
+    ``kernels=False`` runs the plain PyTorch versions of the two kernels
+    instead, whatever the device: the reference path that a run on the card
+    compares the kernel path with. ``record``, when a dict, receives the
+    operands of the two kernel calls (``"chol"``, ``"pgs"``), or of B1 and
+    the limits-only solve (``"limits"``) in a substep without contacts."""
+    t = solver.tables
+    if not solver._model_is_row:
+        raise NotImplementedError(
+            "step_batched takes a one-world model whose bodies and joints "
+            "all belong to its articulation; step() steps every world of "
+            "a replicated model")
+    rows = _contact_rows(solver, contacts_b, lambda x: x if
+                         t.slots_are_all else x[:, t.row_slots[0]])
+    return _substep(solver, state_b, control_b, rows, dt, kernels, record)
+
+
+def step(solver, state: State, control: Optional[Control] = None,
+         contacts=None, dt: float = 1e-3, kernels: bool = True,
+         record: Optional[dict] = None) -> State:
+    """One substep of a flat State (every world of the model: ``joint_q
+    (N nq,)``, ``body_q (N b, 7)``, ``mjc:ctrl (N A,)``, Contacts ``(C,)``),
+    the JAX package's ``SolverMuJoCo.step``. The N rows are gathered into
+    ``(N, ...)``, stepped as N envs, and scattered back; the result is a
+    new State. With ``contact:overflow:0`` in ``state.custom``
+    (``init_state``) the output carries each row's count of active
+    contacts that compaction dropped."""
+    t = solver.tables
+    # gather: each world's row, (N, k, ...) through the (N, k) row tables
+    rows = replace(
+        state, body_q=state.body_q[t.row_body],
+        body_qd=state.body_qd[t.row_body], body_f=state.body_f[t.row_body],
+        joint_q=state.joint_q[t.row_coord],
+        joint_qd=state.joint_qd[t.row_dof], custom={})
+    ctl = None
+    if control is not None:
+        custom = {}
+        if "mjc:ctrl" in control.custom:
+            custom["mjc:ctrl"] = control.custom["mjc:ctrl"][t.row_act]
+        ctl = Control(
+            joint_target_q=control.joint_target_q[t.row_coord],
+            joint_target_qd=control.joint_target_qd[t.row_dof],
+            joint_f=control.joint_f[t.row_dof],
+            tendon_f=(None if control.tendon_f is None
+                      else control.tendon_f[t.row_tendon]),
+            custom=custom)
+    out = _substep(solver, rows, ctl,
+                   _contact_rows(solver, contacts, lambda x: x[t.row_slots]),
+                   dt, kernels, record)
+
+    def put(x, idx, v):
+        x = x.clone()
+        x[idx] = v
+        return x
+    custom = dict(state.custom)
+    if "contact:overflow:0" in custom:
+        over = torch.zeros_like(custom["contact:overflow:0"])
+        if _has_contacts(solver, contacts):
+            n_act = contacts.rigid_contact_mask[t.row_slots].sum(1)
+            over = torch.clamp(n_act - t.cap, min=0).to(over.dtype)
+        custom["contact:overflow:0"] = over
+    return replace(
+        state, body_q=put(state.body_q, t.row_body, out.body_q),
+        body_qd=put(state.body_qd, t.row_body, out.body_qd),
+        joint_q=put(state.joint_q, t.row_coord, out.joint_q),
+        joint_qd=put(state.joint_qd, t.row_dof, out.joint_qd), custom=custom)

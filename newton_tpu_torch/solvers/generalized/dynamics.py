@@ -2,14 +2,16 @@
 ``GeneralizedCache`` in ``newton_tpu/solvers/generalized/dynamics.py``).
 
 Each dof's motion subspace is a world-frame twist at the origin; the
-ancestor mask ``anc[b, d]`` says whether dof d moves body b. Articulations
-are grouped by topology signature; the batched step runs one group row at
-a time. Built once per ModelStructure, numpy only.
+ancestor mask ``anc[b, d]`` of a group says whether its dof d moves its
+body b. Articulations are grouped by topology signature; a group's rows
+(one per articulation: N rows for N replicated worlds) share one ancestor
+mask. Built once per ModelStructure with array operations (no loop over
+bodies, joints or worlds), numpy only.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import List
 
 import numpy as np
 
@@ -43,85 +45,91 @@ class GeneralizedCache:
         self.kc = kc
         J, D, B = st.joint_count, st.joint_dof_count, st.body_count
         self.D, self.B = D, B
+        jt = np.asarray(st.joint_type, dtype=np.int64)
+        jq = np.asarray(st.joint_q_start, dtype=np.int64)
+        jqd = np.asarray(st.joint_qd_start, dtype=np.int64)
+        dim = np.asarray(st.joint_dof_dim, dtype=np.int64).reshape(-1, 2)
+        qd_w, q_w = np.diff(jqd), np.diff(jq)
 
-        dof_joint = np.zeros(D, dtype=np.int32)
-        dof_is_linear = np.zeros(D, dtype=bool)
-        dof_anchor_is_com = np.zeros(D, dtype=bool)   # free angular dofs
-        dof_ang_slot = -np.ones(D, dtype=np.int32)
-        for j in range(J):
-            t = JointType(int(st.joint_type[j]))
-            s, e = int(st.joint_qd_start[j]), int(st.joint_qd_start[j + 1])
-            dof_joint[s:e] = j
-            if t == JointType.FREE:
-                dof_is_linear[s:s + 3] = True
-                dof_anchor_is_com[s + 3:e] = True
-                continue
-            ln = int(st.joint_dof_dim[j, 0])
-            dof_is_linear[s:s + ln] = True
-            for k in range(int(st.joint_dof_dim[j, 1])):
-                dof_ang_slot[s + ln + k] = k
+        # per dof: its joint, its offset in the joint, and the joint's kind
+        dof_joint = np.repeat(np.arange(J, dtype=np.int32), qd_w)
+        off = np.arange(D) - jqd[:-1][dof_joint] if D else np.zeros(0, int)
+        free = jt[dof_joint] == int(JointType.FREE)
+        ln = dim[dof_joint, 0]
         self.dof_joint = dof_joint
-        self.dof_is_linear = dof_is_linear
-        self.dof_anchor_is_com = dof_anchor_is_com
-        self.dof_ang_slot = dof_ang_slot
+        self.dof_is_linear = np.where(free, off < 3, off < ln)
+        self.dof_anchor_is_com = free & (off >= 3)     # free angular dofs
+        self.dof_ang_slot = np.where(
+            ~free & (off >= ln) & (off - ln < dim[dof_joint, 1]),
+            off - ln, -1).astype(np.int32)
         self.dof_body = st.joint_child[dof_joint] if D \
             else np.zeros(0, np.int32)
 
-        anc = np.zeros((B, D), dtype=bool)
-        child_of = {int(st.joint_child[j]): j for j in range(J)}
-        for b in range(B):
-            j = child_of.get(b, -1)
-            while j >= 0:
-                s, e = int(st.joint_qd_start[j]), int(st.joint_qd_start[j + 1])
-                anc[b, s:e] = True
-                j = int(st.joint_parent_joint[j])
-        self.anc = anc
-
-        art_start = st.articulation_start
-        sigs: Dict[tuple, List[int]] = {}
-        for a in range(len(art_start) - 1):
-            j0, j1 = int(art_start[a]), int(art_start[a + 1])
-            sig = []
-            for j in range(j0, j1):
-                pj = int(st.joint_parent_joint[j])
-                sig.append((int(st.joint_type[j]), pj - j0 if pj >= 0 else -1,
-                            int(st.joint_qd_start[j + 1] - st.joint_qd_start[j]),
-                            int(st.joint_q_start[j + 1] - st.joint_q_start[j])))
-            sigs.setdefault(tuple(sig), []).append(a)
+        # articulations grouped by topology signature, in order of first
+        # appearance: per joint (type, parent joint relative to the
+        # articulation's first, dof count, coordinate count)
+        art_start = np.asarray(st.articulation_start, dtype=np.int64)
+        nj = np.diff(art_start)
+        pj = np.asarray(st.joint_parent_joint, dtype=np.int64)
+        art_of = np.repeat(np.arange(len(nj)), nj)
+        rel = np.where(pj >= 0, pj - art_start[:-1][art_of], -1)
+        sig = np.stack([jt, rel, qd_w, q_w], 1) if J \
+            else np.zeros((0, 4), np.int64)
         self.groups: List[ArticulationGroup] = []
-        for sig, arts in sigs.items():
-            if not sig:
-                continue
-            dof_rows, body_rows, coord_rows = [], [], []
-            for a in arts:
-                j0, j1 = int(art_start[a]), int(art_start[a + 1])
-                dof_rows.append(np.arange(st.joint_qd_start[j0],
-                                          st.joint_qd_start[j1],
-                                          dtype=np.int32))
-                coord_rows.append(np.arange(st.joint_q_start[j0],
-                                            st.joint_q_start[j1],
-                                            dtype=np.int32))
-                body_rows.append(np.asarray(sorted(
-                    {int(st.joint_child[j]) for j in range(j0, j1)}),
-                    dtype=np.int32))
+        found = []
+        for n in np.unique(nj[nj > 0]):
+            arts = np.nonzero(nj == n)[0]
+            joints = art_start[:-1][arts][:, None] + np.arange(n)[None]
+            rows = sig[joints].reshape(len(arts), -1)
+            _, first, inv = np.unique(rows, axis=0, return_index=True,
+                                      return_inverse=True)
+            inv = inv.reshape(-1)
+            for u in range(len(first)):
+                found.append((arts[first[u]], arts[inv == u], joints[0]))
+        for _, arts, _ in sorted(found, key=lambda f: f[0]):
+            j0 = art_start[arts]
+            n_j = int(nj[arts[0]])
+            d, nq = int(jqd[j0[0] + n_j] - jqd[j0[0]]), \
+                int(jq[j0[0] + n_j] - jq[j0[0]])
+            dof_idx = (jqd[j0][:, None] + np.arange(d)).astype(np.int32)
+            coord_idx = (jq[j0][:, None] + np.arange(nq)).astype(np.int32)
+            children = st.joint_child[j0[:, None] + np.arange(n_j)]
+            body_idx = np.sort(children, axis=1).astype(np.int32)
             self.groups.append(ArticulationGroup(
-                arts, np.stack(dof_rows), np.stack(body_rows),
-                anc[body_rows[0]][:, dof_rows[0]], np.stack(coord_rows)))
+                arts, dof_idx, body_idx,
+                self._row_ancestors(st, body_idx[0], dof_idx[0]),
+                coord_idx))
 
-        # coordinate integration plan
-        lin_idx, lin_dof, free = [], [], []
-        for j in range(J):
-            t = JointType(int(st.joint_type[j]))
-            qs, ds = int(st.joint_q_start[j]), int(st.joint_qd_start[j])
-            nq = int(st.joint_q_start[j + 1]) - qs
-            if t == JointType.FREE:
-                free.append((qs, ds, int(st.joint_child[j])))
-            else:
-                lin_idx.extend(range(qs, qs + nq))
-                lin_dof.extend(range(ds, ds + nq))
-        self.lin_coord_idx = np.asarray(lin_idx, dtype=np.int32)
-        self.lin_coord_dof = np.asarray(lin_dof, dtype=np.int32)
-        self.free_joints = np.asarray(free, dtype=np.int32).reshape(-1, 3)
+        # coordinate integration plan: every non-free joint's coordinates
+        # advance with its dofs of the same offset
+        nonfree = jt != int(JointType.FREE)
+        wq = np.where(nonfree, q_w, 0)
+        jj = np.repeat(np.arange(J), wq)
+        k = np.arange(int(wq.sum())) - np.repeat(np.cumsum(wq) - wq, wq)
+        self.lin_coord_idx = (jq[:-1][jj] + k).astype(np.int32)
+        self.lin_coord_dof = (jqd[:-1][jj] + k).astype(np.int32)
+        fj = np.nonzero(~nonfree)[0]
+        self.free_joints = np.stack(
+            [jq[:-1][fj], jqd[:-1][fj], st.joint_child[fj]],
+            1).astype(np.int32).reshape(-1, 3)
+
+    @staticmethod
+    def _row_ancestors(st, bodies, dofs):
+        """anc[b, d] of one group row: does dof dofs[d] move body
+        bodies[b] (its joint on the path from the body to the root)."""
+        pos = {int(q): i for i, q in enumerate(dofs)}
+        child_of = np.full(st.body_count + 1, -1, dtype=np.int64)
+        child_of[st.joint_child] = np.arange(st.joint_count)
+        anc = np.zeros((len(bodies), len(dofs)), dtype=bool)
+        for i, b in enumerate(bodies):
+            j = int(child_of[b])
+            while j >= 0:
+                for q in range(int(st.joint_qd_start[j]),
+                               int(st.joint_qd_start[j + 1])):
+                    if q in pos:
+                        anc[i, pos[q]] = True
+                j = int(st.joint_parent_joint[j])
+        return anc
 
 
 def get_generalized_cache(st: ModelStructure) -> GeneralizedCache:

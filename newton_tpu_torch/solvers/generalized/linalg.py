@@ -6,7 +6,8 @@ on CUDA tensors it launches the hand-written kernel in
 ``csrc/chol_inv_solve.cu``; on CPU tensors it runs the plain PyTorch
 version beside it, ``chol_inv_solve_plain``, which is the counterpart of the
 JAX package's ``batched._chol_t`` / ``batched._cho_solve_t``. Layout is
-env-major: ``Mi (W, d, d)``, ``rhs (W, d)``.
+env-major: ``Mi (W, d, d)``, ``rhs (W, d)``. Every d has a kernel instance
+(``kernel_instance`` mirrors the kernel's choice from the shape alone).
 """
 
 from __future__ import annotations
@@ -14,9 +15,36 @@ from __future__ import annotations
 import torch
 
 __all__ = ["chol_inv_solve", "chol_inv_solve_plain", "cholesky_plain",
-           "cho_solve_plain", "MAX_D"]
+           "cho_solve_plain", "kernel_instance", "generic_floats",
+           "INSTANCE_CODES"]
 
-MAX_D = 32          # one warp per env: lanes over rows / rhs columns
+_REG_SIZES = (8, 14, 16, 23, 24, 32)    # one warp per env, D registers
+_SMEM_BYTES = 227 * 1024                # shared memory of one H100 block
+
+# the kernel's instance codes (csrc/chol_inv_solve.cu: instance())
+INSTANCE_CODES = {**{f"reg{D}": D for D in _REG_SIZES},
+                  "generic_smem": 100, "generic_global": 101}
+
+
+def generic_floats(d: int) -> int:
+    """Floats of one env in the generic instance: the factor, 1/L_jj and
+    the d + 1 columns of [I | rhs]."""
+    return d * d + d + d * (d + 1)
+
+
+def kernel_instance(d: int) -> str:
+    """The kernel instance that runs a d x d system: ``reg<D>`` (one warp
+    per env, the smallest register size D >= d, with 14 and 23 exact),
+    ``generic_smem`` (one block per env, in shared memory) or
+    ``generic_global`` (one block per env, in global scratch)."""
+    if d < 1:
+        raise ValueError(f"chol_inv_solve: d must be >= 1, got {d}")
+    if d <= 32:
+        D = (8 if d <= 8 else 14 if d == 14 else 16 if d <= 16
+             else 23 if d == 23 else 24 if d <= 24 else 32)
+        return f"reg{D}"
+    return ("generic_smem" if 4 * generic_floats(d) <= _SMEM_BYTES
+            else "generic_global")
 
 
 def cholesky_plain(A: torch.Tensor) -> torch.Tensor:
@@ -88,19 +116,20 @@ def chol_inv_solve(Mi: torch.Tensor, rhs: torch.Tensor):
     if Mi.device.type != "cuda":
         raise ValueError(f"chol_inv_solve: unsupported device {Mi.device}")
     W, d, _ = Mi.shape
-    if d > MAX_D:
-        raise ValueError(f"chol_inv_solve kernel takes d <= {MAX_D}, "
-                         f"got d = {d}")
     if not (Mi.is_contiguous() and rhs.is_contiguous()):
         raise ValueError("chol_inv_solve kernel takes contiguous tensors")
     from ... import _kernels
     Minv = torch.empty_like(Mi)
     x = torch.empty_like(rhs)
+    scratch = None
+    if W and kernel_instance(d) == "generic_global":
+        scratch = torch.empty((W, generic_floats(d)), dtype=Mi.dtype,
+                              device=Mi.device)
     with torch.cuda.device(Mi.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernels.lib().chol_inv_solve_f32(
             Mi.data_ptr(), rhs.data_ptr(), Minv.data_ptr(), x.data_ptr(),
-            W, d, stream)
+            W, d, None if scratch is None else scratch.data_ptr(), stream)
     chol_inv_solve.launches += 1
     _kernels.check(err, "chol_inv_solve")
     return Minv, x

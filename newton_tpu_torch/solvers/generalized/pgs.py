@@ -11,7 +11,9 @@ Rows are in BLOCK order ``[normals (c) | t1 (c) | t2 (c) | lim-lo (nl) |
 lim-hi (nl)]``; joint-limit rows are signed one-hots on the dofs ``ld`` and
 are never materialized. Layout is env-major: ``J (W, 3c, d)``,
 ``Minv (W, d, d)``, ``qd (W, d)``, ``b / act / lam0 (W, r)``,
-``mu (W, c)``, ``ld`` an int tensor of limited local dofs (nl,).
+``mu (W, c)``, ``ld`` an int tensor of limited local dofs (nl,). Every
+shape has a kernel instance (``kernel_instance`` mirrors the kernel's choice
+from the shape alone).
 """
 
 from __future__ import annotations
@@ -19,7 +21,67 @@ from __future__ import annotations
 import torch
 
 __all__ = ["pgs_solve_fused", "pgs_solve_fused_plain", "pgs_core",
-           "spectral_lam_max", "spectral_iters"]
+           "spectral_lam_max", "spectral_iters", "kernel_instance",
+           "smem_bytes", "scratch_floats", "INSTANCE_CODES"]
+
+_SMEM_BYTES = 227 * 1024                # shared memory of one H100 block
+
+# the kernel's instance codes (csrc/pgs_solve.cu: instance())
+INSTANCE_CODES = {"reg16": 16, "reg24": 24, "smem128": 128, "smem256": 256,
+                  "global128": 1128, "global256": 1256}
+
+
+def _dims(c: int, nl: int, d: int):
+    """The kernel's layout (csrc/pgs_solve.cu: make_dims): threads, row
+    stride s, phase-1 row blocks P and rows per block R."""
+    r = 3 * c + 2 * nl
+    threads = 128 if r <= 160 else 256
+    s = (d + 3) & ~3
+    dp = 1
+    while dp < d and dp < 32:
+        dp *= 2
+    P = threads // 32 * (32 // dp)
+    R = ((3 * c + nl + P - 1) // P + 3) & ~3
+    return threads, s, P, R, r
+
+
+def _reg_width(c: int, nl: int, s: int) -> int:
+    return s if c <= 32 and nl <= 32 and s in (16, 24) else 0
+
+
+def smem_bytes(c: int, nl: int, d: int) -> int:
+    """Bytes of one env's block state (csrc/pgs_solve.cu: pgs_smem_bytes):
+    the float4-read arrays, phase-1 partials, the row state of the
+    shared-memory path, mu, the norm slots and the int ld."""
+    threads, s, P, R, r = _dims(c, nl, d)
+    n = (2 * s + P * R + (3 * c + P * R + s) * s + P * d
+         + 2 * (threads // 32))
+    if not _reg_width(c, nl, s):
+        n += 6 * r + c
+    return 4 * n + 4 * nl
+
+
+def kernel_instance(c: int, nl: int, d: int) -> str:
+    """The kernel instance that runs (c, nl, d): ``reg16``/``reg24`` (rows
+    in registers), ``smem128``/``smem256`` (row state in shared memory,
+    threads per block) or ``global128``/``global256`` (the same sweep in a
+    per-env global scratch, for a block state above 227 KB)."""
+    if c < 0 or nl < 0 or d < 1 or 3 * c + 2 * nl < 1:
+        raise ValueError(f"pgs_solve_fused: no system at (c, nl, d) = "
+                         f"({c}, {nl}, {d})")
+    threads, s, _, _, _ = _dims(c, nl, d)
+    if smem_bytes(c, nl, d) > _SMEM_BYTES:
+        return f"global{threads}"
+    w = _reg_width(c, nl, s)
+    return f"reg{w}" if w else f"smem{threads}"
+
+
+def scratch_floats(c: int, nl: int, d: int) -> int:
+    """Floats of global scratch per env (0 unless the global instance):
+    the block state rounded up to 16 bytes."""
+    if not kernel_instance(c, nl, d).startswith("global"):
+        return 0
+    return (smem_bytes(c, nl, d) // 4 + 3) & ~3
 
 
 def spectral_iters(rows: int) -> int:
@@ -174,23 +236,21 @@ def pgs_solve_fused(J, Minv, qd, b, act, mu, lam0, *, c, ld, iters, omega,
     if ld.dtype != torch.int32 or not ld.is_contiguous():
         raise TypeError("pgs_solve_fused kernel takes ld as contiguous int32")
     from ... import _kernels
-    lib = _kernels.lib()
-    smem = lib.pgs_smem_bytes(c, nl, d)
-    if smem > 227 * 1024:
-        raise ValueError(f"pgs_solve_fused kernel: c={c}, nl={nl}, d={d} "
-                         f"needs {smem} B of shared memory per env, more "
-                         "than the 227 KB an H100 block can hold")
     lam = torch.empty((W, r), dtype=J.dtype, device=J.device)
     dqd = torch.empty((W, d), dtype=J.dtype, device=J.device)
     halv = torch.empty((W,), dtype=torch.int32, device=J.device)
+    n_scratch = scratch_floats(c, nl, d) if W else 0
+    scratch = (torch.empty((W, n_scratch), dtype=J.dtype, device=J.device)
+               if n_scratch else None)
     with torch.cuda.device(J.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.pgs_solve_fused_f32(
+        err = _kernels.lib().pgs_solve_fused_f32(
             J.data_ptr(), Minv.data_ptr(), qd.data_ptr(), b.data_ptr(),
             act.data_ptr(), mu.data_ptr(), lam0.data_ptr(), ld.data_ptr(),
             lam.data_ptr(), dqd.data_ptr(), halv.data_ptr(),
             W, c, nl, d, int(iters), float(omega), int(bool(use_cone)),
-            float(diag_scale), float(reg), stream)
+            float(diag_scale), float(reg),
+            None if scratch is None else scratch.data_ptr(), stream)
     pgs_solve_fused.launches += 1
     _kernels.check(err, "pgs_solve_fused")
     return (lam, dqd, halv) if return_halvings else (lam, dqd)

@@ -6,7 +6,9 @@ reads the JAX ``Model`` leaves and ``ModelStructure`` fields into numpy
 (``np.asarray(getattr(model, name))`` for every name in
 ``MODEL_FLOAT_FIELDS``/``MODEL_INT_FIELDS``, ``getattr(structure, name)``
 for ``STRUCTURE_FIELDS``) and gets the port's objects on a device. The
-``*_to_numpy`` functions go the other way, so a round trip is exact.
+``*_to_numpy`` functions go the other way, so a round trip is exact. A
+multi-world model (``replicate``, ``add_world``) needs nothing more: its
+leaves are the flat ones, and its world tables are structure fields.
 """
 
 from __future__ import annotations

@@ -1,15 +1,18 @@
-"""MJCF (MuJoCo XML) importer: the subset the gymnasium ant and humanoid
-drive.
+"""MJCF (MuJoCo XML) importer: the subset the gymnasium ant, humanoid and
+inverted pendulum (the reference's KPI cartpole) drive.
 
 Port of ``newton_tpu/utils/import_mjcf.py`` (``parse_mjcf``): compiler
 angle units, ``<option>`` (captured into ``builder.mjc_options``), default
 classes, ``<custom><numeric name="init_qpos">`` (MuJoCo's wxyz free-joint
-quaternion converted to xyzw), bodies with a free joint or hinge joints
+quaternion converted to xyzw), bodies with a free joint, hinge joints
 (limits, armature, damping, stiffness; several hinges in one body become
-one D6 joint anchored at the first hinge's ``pos``), plane/sphere/capsule
+one D6 joint anchored at the first hinge's ``pos``) or one slide joint (a
+prismatic joint; its ``ref`` shifts the limits into displacement space and
+is kept in the ``mjc:qpos_ref`` coordinate attribute), plane/sphere/capsule
 geoms with contype/conaffinity, ``<tendon><fixed>`` couplings of hinges,
-and motor/position/velocity actuators on hinges into the ``MJCActuation``
-tables. Actuators and tendons address each hinge's own dof and coordinate.
+and motor/position/velocity actuators on hinges and slides into the
+``MJCActuation`` tables. Actuators and tendons address each joint's own dof
+and coordinate.
 
 Visual-only elements (lights, cameras, textures, materials, ``<visual>``,
 ``<size>``) are skipped by name. Every other element raises
@@ -166,6 +169,7 @@ def parse_mjcf(builder, source: str):
     name_to_joint: Dict[str, tuple] = {}      # hinge -> (joint, axis)
     joint_dof_start: Dict[str, int] = {}
     joint_coord_start: Dict[str, int] = {}
+    coord_refs: Dict[int, float] = {}         # slide coordinate -> ref
 
     def local_xform(attrib) -> np.ndarray:
         pos = _parse_vec(attrib.get("pos"), default=[0, 0, 0], n=3)
@@ -249,12 +253,13 @@ def parse_mjcf(builder, source: str):
     def parse_joint(j: ET.Element, body_class):
         a = resolve_attrs(j, "joint", body_class)
         jtype = a.get("type", "hinge")
-        if jtype not in ("hinge", "free"):
+        if jtype not in ("hinge", "slide", "free"):
             raise NotImplementedError(
                 f"MJCF joint type {jtype!r} is not supported by the port yet")
-        if a.get("ref") is not None and float(a["ref"]) != 0.0:
+        ref = _parse_float(a.get("ref"), 0.0)
+        if ref != 0.0 and jtype != "slide":
             raise NotImplementedError(
-                "MJCF joint ref is not supported by the port yet")
+                "MJCF ref on a hinge joint is not supported by the port yet")
         axis = _parse_vec(a.get("axis"), default=[0, 0, 1], n=3)
         nrm = np.linalg.norm(axis)
         axis = axis / nrm if nrm > 0 else np.array([0.0, 0, 1])
@@ -267,10 +272,16 @@ def parse_mjcf(builder, source: str):
                     axis=axis, limited=limited, range=rng,
                     damping=_parse_float(a.get("damping"), 0.0),
                     armature=_parse_float(a.get("armature"), 0.0),
-                    stiffness=_parse_float(a.get("stiffness"), 0.0))
+                    stiffness=_parse_float(a.get("stiffness"), 0.0),
+                    ref=ref)
 
-    def hinge_cfg(j) -> JointDofConfig:
-        lo, hi = to_rad(j["range"][0]), to_rad(j["range"][1])
+    def dof_cfg(j) -> JointDofConfig:
+        """A hinge's limits in radians; a slide's in metres, shifted by its
+        ``ref`` (MuJoCo qpos = Newton displacement + ref)."""
+        if j["type"] == "slide":
+            lo, hi = j["range"][0] - j["ref"], j["range"][1] - j["ref"]
+        else:
+            lo, hi = to_rad(j["range"][0]), to_rad(j["range"][1])
         return JointDofConfig(
             axis=j["axis"],
             limit_lower=lo if j["limited"] else -MAXVAL,
@@ -307,6 +318,21 @@ def parse_mjcf(builder, source: str):
                     "not supported by the port yet")
             jidx = builder.add_joint_free(body_idx, parent=parent_idx,
                                           key=joints[0]["name"])
+        elif any(j["type"] == "slide" for j in joints):
+            if len(joints) > 1:
+                raise NotImplementedError(
+                    f"MJCF body {name!r}: a slide joint with other joints "
+                    "in one body (a D6 joint with linear axes) is not "
+                    "supported by the port yet")
+            j = joints[0]
+            anchor = np_transform(j["pos"])
+            jidx = builder.add_joint(
+                JointType.PRISMATIC, parent_idx, body_idx,
+                linear_axes=[dof_cfg(j)],
+                xform_p=np_transform_multiply(X_rel, anchor),
+                xform_c=anchor, key=j["name"])
+            if j["ref"] != 0.0:
+                coord_refs[jq_start] = j["ref"]
         else:
             if any(not np.array_equal(j["pos"], joints[0]["pos"])
                    for j in joints):
@@ -317,7 +343,7 @@ def parse_mjcf(builder, source: str):
             jidx = builder.add_joint(
                 JointType.REVOLUTE if len(joints) == 1 else JointType.D6,
                 parent_idx, body_idx,
-                angular_axes=[hinge_cfg(j) for j in joints],
+                angular_axes=[dof_cfg(j) for j in joints],
                 xform_p=np_transform_multiply(X_rel, anchor),
                 xform_c=anchor, key=joints[0]["name"])
         # each MJCF hinge's own dof and coordinate, for actuators and
@@ -344,6 +370,10 @@ def parse_mjcf(builder, source: str):
         add_geom(g, -1, None)
     for body in worldbody.findall("body"):
         parse_body(body, -1, np_transform_identity(), None)
+    if coord_refs:
+        builder.add_custom_attribute("mjc:qpos_ref",
+                                     AttributeFrequency.JOINT_COORD)
+        builder.add_custom_values("mjc:qpos_ref", coord_refs)
 
     tendon_root = root.find("tendon")
     if tendon_root is not None:
@@ -401,7 +431,8 @@ def _parse_tendons(builder, tendon_root, resolve_attrs, name_to_joint):
 
 def _parse_actuators(builder, act_root, resolve_attrs, joint_dof_start,
                      joint_coord_start):
-    """Motor/position/velocity actuators on hinge joints -> MJCActuation."""
+    """Motor/position/velocity actuators on hinge and slide joints ->
+    MJCActuation."""
     builder.add_custom_attribute("mjc:actuator_gear",
                                  AttributeFrequency.JOINT_DOF, default=0.0)
     builder.add_custom_attribute("mjc:actuator_ctrlrange_lo",
@@ -420,8 +451,8 @@ def _parse_actuators(builder, act_root, resolve_attrs, joint_dof_start,
         jname = a.get("joint")
         if jname is None or jname not in joint_dof_start:
             raise NotImplementedError(
-                f"MJCF <{act.tag}> without a hinge-joint transmission is not "
-                "supported by the port yet")
+                f"MJCF <{act.tag}> without a hinge or slide joint "
+                "transmission is not supported by the port yet")
         r = dict(dof=joint_dof_start[jname], coord=joint_coord_start[jname],
                  gear=float(a["gear"].split()[0]) if a.get("gear") else 1.0,
                  ctrlrange=_parse_vec(a.get("ctrlrange"), n=2),

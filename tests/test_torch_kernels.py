@@ -176,9 +176,6 @@ def test_chol_kernel_matches_plain(d):
     minv_p, x_p = linalg.chol_inv_solve_plain(Mi, rhs)
     torch.testing.assert_close(minv_k, minv_p, atol=1e-5, rtol=1e-4)
     torch.testing.assert_close(x_k, x_p, atol=1e-5, rtol=1e-4)
-    with pytest.raises(ValueError):
-        linalg.chol_inv_solve(torch.eye(33, device="cuda").expand(2, 33, 33)
-                              .contiguous(), torch.zeros(2, 33, device="cuda"))
 
 
 @gpu

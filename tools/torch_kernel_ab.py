@@ -3,6 +3,7 @@
 card.
 
     python3 tools/torch_kernel_ab.py [--parent DIR] [--mpm-only] [--out FILE]
+    python3 tools/torch_kernel_ab.py --worlds [--out FILE]
 
 Builds this checkout's kernel library and, with ``--parent``, the library
 of the checkout at DIR (its own ``newton_tpu_torch/csrc``), then on the same
@@ -31,6 +32,11 @@ operands, in turns (parent, this, this, parent):
     kernel path with torch.profiler: device time and device operations,
     and times env-steps/s of each kernel path over 10 frames, in the same
     turns (skipped with ``--mpm-only``).
+With ``--worlds`` (this checkout only) it profiles one frame of each of
+chip_smoke.py's replicated scenes, cartpole x 8192 and humanoid x 8192
+through ``replicate`` + ``step`` after their warm-up: device time, device
+operations, the frame's wall time (host clock around a synchronized frame,
+the mean of 10) and the device's busy share, device time over wall time.
 Writes one JSON object (to ``--out`` as well, when given). Without a CUDA
 device it exits 2.
 """
@@ -111,10 +117,14 @@ def caller(lib, kind, operands):
         W, d, _ = Mi.shape
         Minv, x = torch.empty_like(Mi), torch.empty_like(rhs)
 
+        # a library with the generic instances takes a scratch pointer
+        # (None: the register instances that these shapes run need none)
+        scratch = [None] * (len(lib.chol_inv_solve_f32.argtypes) - 7)
+
         def run():
             err = lib.chol_inv_solve_f32(
                 Mi.data_ptr(), rhs.data_ptr(), Minv.data_ptr(), x.data_ptr(),
-                W, d, torch.cuda.current_stream().cuda_stream)
+                W, d, *scratch, torch.cuda.current_stream().cuda_stream)
             if err:
                 raise RuntimeError(f"chol_inv_solve_f32: CUDA error {err}")
             return Minv, x
@@ -127,6 +137,7 @@ def caller(lib, kind, operands):
     lam = torch.empty((W, r), device=J.device)
     dqd = torch.empty((W, d), device=J.device)
     halv = torch.empty((W,), dtype=torch.int32, device=J.device)
+    scratch = [None] * (len(lib.pgs_solve_fused_f32.argtypes) - 21)
 
     def run():
         err = lib.pgs_solve_fused_f32(
@@ -134,7 +145,7 @@ def caller(lib, kind, operands):
                                      dqd, halv)],
             W, kw["c"], int(ld.numel()), d, int(kw["iters"]),
             float(kw["omega"]), int(bool(kw["use_cone"])),
-            float(kw["diag_scale"]), float(kw["reg"]),
+            float(kw["diag_scale"]), float(kw["reg"]), *scratch,
             torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"pgs_solve_fused_f32: CUDA error {err}")
@@ -384,6 +395,37 @@ def frame_profile(run_frame):
                 device_ops=len(dev))
 
 
+def worlds_profile(dev):
+    """One profiled frame of cartpole x 8192 and humanoid x 8192 (replicate
+    + step), each after its warm-up, and the mean wall time of a frame."""
+    import torch
+    out = {}
+    for name, xml, iters, warm in (
+            ("cartpole", "inverted_pendulum.xml", cs.CARTPOLE_ITERS, 1),
+            ("humanoid", "humanoid.xml", cs.ITERS, cs.HUMANOID_WARMUP)):
+        model, pipe, solver, _ = cs.build_replicated(dev, xml, cs.WORLDS,
+                                                     iters)
+        sample = cs.ctrl_sampler(model, dev, seed=20)
+        box = {"s": cs.flat_reset(model, dev, seed=21)}
+        box["s"] = cs.run_flat_frames(model, pipe, solver, box["s"], sample,
+                                      warm, True)
+
+        def run_frame(model=model, pipe=pipe, solver=solver, box=box,
+                      sample=sample):
+            box["s"] = cs.run_flat_frames(model, pipe, solver, box["s"],
+                                          sample, 1, True)
+        prof = frame_profile(run_frame)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(cs.FRAMES):
+            run_frame()
+        wall_ms = (time.perf_counter() - t0) / cs.FRAMES * 1e3
+        out[name] = dict(prof, wall_ms=wall_ms,
+                         busy_share=prof["device_ms"] / wall_ms,
+                         worlds=cs.WORLDS, substeps=cs.SUBSTEPS)
+    return out
+
+
 def main():
     import torch
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -391,11 +433,16 @@ def main():
     ap.add_argument("--out", help="also write the JSON object here")
     ap.add_argument("--mpm-only", action="store_true",
                     help="only the MPM kernels and the sand profile")
+    ap.add_argument("--worlds", action="store_true",
+                    help="only the profiles of the replicated scenes")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_kernel_ab: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
+    if a.worlds:
+        return emit(dict(card=cs.card_line(), worlds=worlds_profile(dev)),
+                    a.out)
     from newton_tpu_torch import _kernels
     libs = {"this": _kernels.lib()}
     if a.parent:
