@@ -84,7 +84,23 @@ Phases, one line each:
      generic instances (shared memory, global scratch) and B2's
      shared-memory (32, 39, 45) and global-scratch (32, 164, 170)
      instances, each held against its plain version; B2 alone at
-     (192, 40, 48) (a block state above 227 KB) on random operands.
+     (192, 40, 48) (a block state above 227 KB) on random operands;
+ 16. half_cheetah x 4096 (bench.py --robot half_cheetah: step_batched,
+     euler, 8 PGS iterations, dt 1/240, 4 substeps, uniform ctrl in
+     [-1, 1]; its root a D6 joint of rootx, rootz and rooty): a warm-up
+     frame then 10 frames with one launch of B1 (d = 9, reg16) and B2
+     (16, 6, 9, smem128) per substep, finite state, unit quaternions,
+     torso z > 0, an active contact during the window in 99% of envs; a
+     kernel vs plain substep; the same envs moved 5 m along x agree after
+     4 substeps (joint_q 1e-4, joint_qd 1e-3); env-steps/s in turns;
+ 17. hopper x 8192 through replicate + step as gymnasium's Hopper-v5
+     (SolverMuJoCo(iterations=8), integrator read from the asset: RK4; dt
+     0.002, 4 substeps per frame, +-5e-3 reset noise, ctrl in [-1, 1]):
+     10 warm-up and 10 checked frames with four B1 launches (d = 6, reg8,
+     one per RK4 stage) and one B2 launch (14, 3, 6, smem128) per
+     substep, finite state, torso z > 0; step against step_batched of the
+     one-world hopper (1e-6) for 4 substeps; a kernel vs plain step;
+     env-steps/s in turns and the phase's peak device memory.
 It prints one JSON line listing the kernels (name, route, source,
 launches, error, times, and each time's least possible time on an H100
 SXM at 700 W from ``kernel_cost``: bound_ms, bound_by, share_of_bound;
@@ -92,7 +108,7 @@ library_ms where one PyTorch call computes the same function, else null
 with the reason; B1 and B2 also at the humanoid's shapes; B3 timed with
 its binning and given bins, B4 given bins, its bound counted on the nodes
 it reads; the binning, part of both, with its own entry; then one entry
-for each B1 and B2 instance on the paths of phases 13-15, with W = 8192
+for each B1 and B2 instance on the paths of phases 13-17, with W = 8192
 where it runs there), then the card
 line, then the result line ``{"ok": true,
 "device": {...}}``. Any failed phase raises: exit code != 0 and no result
@@ -541,7 +557,7 @@ def phase_paths(model, pipe, solver, states, sample):
     from the same cloned state, ctrl and contacts."""
     out = {}
     for label, state in states.items():
-        ctl = batched_control(model, sample(W))
+        ctl = batched_control(model, sample(state.joint_q.shape[0]))
         contacts = pipe.collide(state)
         k = solver.step_batched(state.clone(), None, ctl, contacts, DT)
         p = solver.step_batched(state.clone(), None, ctl, contacts, DT,
@@ -1049,7 +1065,8 @@ CHAIN_SUBSTEPS = 8
 STEP_VS_BATCHED_TOL = 1e-6
 
 
-def build_replicated(dev, xml, n, iterations, contact_cap=None):
+def build_replicated(dev, xml, n, iterations, contact_cap=None,
+                     integrator="euler"):
     """``replicate(robot, n)`` -> finalize -> CollisionPipeline ->
     SolverMuJoCo, the reference's KPI scene; returns the host setup time
     too."""
@@ -1062,7 +1079,7 @@ def build_replicated(dev, xml, n, iterations, contact_cap=None):
     model = b.finalize(dev)
     pipe = nt.CollisionPipeline(model)
     solver = nt.SolverMuJoCo(model, iterations=iterations,
-                             integrator="euler", contact_cap=contact_cap)
+                             integrator=integrator, contact_cap=contact_cap)
     return model, pipe, solver, time.perf_counter() - t0
 
 
@@ -1090,7 +1107,7 @@ def flat_reset(model, dev, seed, noise=0.01):
 
 
 def run_flat_frames(model, pipe, solver, state, sample, frames, kernels,
-                    touched=None):
+                    touched=None, dt=DT):
     """``frames`` frames of SUBSTEPS ``step`` calls on a flat multi-world
     state, new uniform mjc:ctrl each frame; ``touched`` (N,) bool, when
     given, gathers which worlds had an active contact in some substep."""
@@ -1103,7 +1120,7 @@ def run_flat_frames(model, pipe, solver, state, sample, frames, kernels,
             if touched is not None:
                 touched |= contacts.rigid_contact_mask[
                     solver.tables.row_slots].any(1)
-            state = solver.step(state, None, ctl, contacts, DT,
+            state = solver.step(state, None, ctl, contacts, dt,
                                 kernels=kernels)
     torch.cuda.synchronize()
     return state
@@ -1128,7 +1145,7 @@ def reset_robot_launches():
     pgs.pgs_solve_fused.launches = 0
 
 
-def flat_turns(model, pipe, solver, state, plain, sample, n):
+def flat_turns(model, pipe, solver, state, plain, sample, n, dt=DT):
     """env-steps/s of the kernel and plain paths in turns (plain, kernel,
     kernel, plain), each turn FRAMES frames continuing its own state; the
     plain turns launch no kernel."""
@@ -1139,17 +1156,17 @@ def flat_turns(model, pipe, solver, state, plain, sample, n):
         t0 = time.perf_counter()
         if kernels:
             state = run_flat_frames(model, pipe, solver, state, sample,
-                                    FRAMES, True)
+                                    FRAMES, True, dt=dt)
         else:
             plain = run_flat_frames(model, pipe, solver, plain, sample,
-                                    FRAMES, False)
+                                    FRAMES, False, dt=dt)
         rates[kernels].append(n_sub * n / (time.perf_counter() - t0))
         if not kernels and kernel_launches() != before:
             raise AssertionError("a plain path launched a kernel")
     return rates, state, plain
 
 
-def flat_paths(model, pipe, solver, state, sample, label):
+def flat_paths(model, pipe, solver, state, sample, label, dt=DT):
     """One ``step`` through the kernels and one through the plain versions
     from one cloned flat state and ctrl; B2 is held against its plain
     version on the step's operands, and rows whose guard halvings differ
@@ -1158,8 +1175,8 @@ def flat_paths(model, pipe, solver, state, sample, label):
     ctl.custom["mjc:ctrl"] = sample(1)[0]
     contacts = pipe.collide(state)
     rec = {}
-    k = solver.step(state.clone(), None, ctl, contacts, DT, record=rec)
-    p = solver.step(state.clone(), None, ctl, contacts, DT, kernels=False)
+    k = solver.step(state.clone(), None, ctl, contacts, dt, record=rec)
+    p = solver.step(state.clone(), None, ctl, contacts, dt, kernels=False)
     n = solver.group.n
     errs, rows_ok = {}, None
     if "pgs" in rec:
@@ -1319,7 +1336,8 @@ def phase_humanoid_worlds(dev):
     errs = flat_paths(model, pipe, solver, end_state, sample,
                       "humanoid worlds")
     b1_err, b1_exact = b1_check(*rec["chol"], "humanoid worlds")
-    agree = step_vs_batched(dev, model, pipe, solver, end_state, sample)
+    agree = step_vs_batched(model, pipe, solver, end_state, sample,
+                            build_humanoid(dev))
     Mi, rhs = rec["chol"]
     times = dict(b1=b1_times(Mi, rhs),
                  b2_ms=time_ms(lambda: pgs.pgs_solve_fused(*args, **kw),
@@ -1339,15 +1357,17 @@ def phase_humanoid_worlds(dev):
                 b1_bit_exact=b1_exact, step_vs_batched=agree, times=times)
 
 
-def step_vs_batched(dev, model, pipe, solver, state, sample, substeps=4):
-    """``step`` on the replicated model against ``step_batched`` of a
-    one-world humanoid on the same worlds (its batched state is a view of
-    the flat one), substep by substep, each path continuing its own state:
-    the same kernels on the same operands."""
+def step_vs_batched(model, pipe, solver, state, sample, one_world,
+                    substeps=4, dt=DT):
+    """``step`` on the replicated model against ``step_batched`` of the
+    one-world robot ``one_world`` (model, pipe, solver) on the same worlds
+    (its batched state is a view of the flat one), substep by substep,
+    each path continuing its own state: the same kernels on the same
+    operands."""
     import torch
     import newton_tpu_torch as nt
     n = WORLDS
-    one, pipe1, solver1 = build_humanoid(dev)
+    one, pipe1, solver1 = one_world
     sb = nt.State(**{f: getattr(state, f).view(n, *getattr(one.state(), f)
                                                 .shape)
                      for f in ("body_q", "body_qd", "body_f", "joint_q",
@@ -1359,8 +1379,8 @@ def step_vs_batched(dev, model, pipe, solver, state, sample, substeps=4):
     for _ in range(substeps):
         ctl.custom["mjc:ctrl"] = sample(1)[0]
         ctl_b = batched_control(one, ctl.custom["mjc:ctrl"].view(n, -1))
-        state = solver.step(state, None, ctl, pipe.collide(state), DT)
-        sb = solver1.step_batched(sb, None, ctl_b, pipe1.collide(sb), DT)
+        state = solver.step(state, None, ctl, pipe.collide(state), dt)
+        sb = solver1.step_batched(sb, None, ctl_b, pipe1.collide(sb), dt)
         for name in ("joint_q", "joint_qd", "body_q", "body_qd"):
             d = float((getattr(state, name).view(n, -1)
                        - getattr(sb, name).reshape(n, -1)).abs().max())
@@ -1493,6 +1513,232 @@ def phase_chains(dev):
     return out
 
 
+PLANAR_W = 4096
+HOPPER_DT = 0.002                     # hopper.xml's timestep, Hopper-v5
+HOPPER_NOISE = 5e-3                   # Hopper-v5's reset_noise_scale
+HOPPER_WARMUP = 10
+SHIFT_X = 5.0
+SHIFT_TOL = {"joint_q": 1e-4, "joint_qd": 1e-3}
+
+
+def build_cheetah(dev):
+    import newton_tpu_torch as nt
+    b = nt.ModelBuilder()
+    b.add_mjcf(os.path.join(nt.ASSET_DIR, "half_cheetah.xml"))
+    model = b.finalize(dev)
+    return (model, nt.CollisionPipeline(model),
+            nt.SolverMuJoCo(model, iterations=ITERS, integrator="euler"))
+
+
+def check_torso(state, n, label, torso_z):
+    """check_state without the free-joint height, and each of the n envs'
+    (or worlds') body 0, the torso, above ``torso_z``."""
+    check_state(state, label, z_min=None)
+    z = float(state.body_q.view(n, -1, 7)[:, 0, 2].min())
+    if z <= torso_z:
+        raise AssertionError(f"{label}: torso fell to z = {z:.3f}")
+    return z
+
+
+def phase_cheetah(dev):
+    """half_cheetah x 4096 as bench.py --robot half_cheetah runs it
+    (step_batched, euler, 8 PGS iterations, dt 1/240, 4 substeps, uniform
+    ctrl in [-1, 1]): a warm-up frame then FRAMES checked frames with one
+    launch of B1 (d = 9) and B2 (16, 6, 9) per substep; the gates, a kernel
+    vs plain substep, translation invariance (the same envs 5 m along x
+    agree after 4 substeps), env-steps/s in turns."""
+    import torch
+    import newton_tpu_torch as nt
+    from newton_tpu_torch.solvers.generalized import linalg, pgs
+    model, pipe, solver = build_cheetah(dev)
+    sample = ctrl_sampler(model, dev, seed=40)
+    state0 = nt.batch_state(nt.eval_fk(model, model.joint_q0,
+                                       model.joint_qd0, model.state()),
+                            PLANAR_W)
+    rec = {}
+    solver.step_batched(state0, None, batched_control(model,
+                                                      sample(PLANAR_W)),
+                        pipe.collide(state0), DT, record=rec)
+    (J, *_), kw = rec["pgs"]
+    shape = (kw["c"], int(kw["ld"].numel()), J.shape[2])
+    if (tuple(rec["chol"][0].shape) != (PLANAR_W, 9, 9)
+            or shape != (16, 6, 9) or linalg.kernel_instance(9) != "reg16"
+            or pgs.kernel_instance(*shape) != "smem128"):
+        raise AssertionError(f"half_cheetah: B1 {rec['chol'][0].shape}, B2 "
+                             f"{shape}; expected d = 9 (reg16) and "
+                             "(16, 6, 9) (smem128)")
+    state = run_frames(model, pipe, solver, state0, sample, 1, True)
+    touched = torch.zeros(PLANAR_W, dtype=torch.bool, device=dev)
+    reset_robot_launches()
+    t0 = time.perf_counter()
+    state = run_frames(model, pipe, solver, state, sample, FRAMES, True,
+                       touched)
+    elapsed = time.perf_counter() - t0
+    n_sub = FRAMES * SUBSTEPS
+    launches = dict(zip(("chol_inv_solve", "pgs_solve_fused"),
+                        kernel_launches()))
+    if set(launches.values()) != {n_sub}:
+        raise AssertionError(f"half_cheetah: launches {launches} in {n_sub} "
+                             "substeps")
+    zmin = check_torso(state, PLANAR_W, "half_cheetah", 0.0)
+    untouched = int((~touched).sum())
+    if untouched > PLANAR_W // 100:
+        raise AssertionError(f"half_cheetah: {untouched} envs without an "
+                             "active contact in the window")
+    end_state = state
+    paths = phase_paths(model, pipe, solver, {"window end": end_state},
+                        ctrl_sampler(model, dev, seed=41))
+    shift = cheetah_shift(model, pipe, solver, end_state,
+                          ctrl_sampler(model, dev, seed=42))
+    plain = run_frames(model, pipe, solver, state0, sample, 1, False)
+    rates = {True: [], False: []}
+    for kernels in (False, True, True, False):
+        before = kernel_launches()
+        t0 = time.perf_counter()
+        if kernels:
+            state = run_frames(model, pipe, solver, state, sample, FRAMES,
+                               True)
+        else:
+            plain = run_frames(model, pipe, solver, plain, sample, FRAMES,
+                               False)
+        rates[kernels].append(n_sub * PLANAR_W / (time.perf_counter() - t0))
+        if not kernels and kernel_launches() != before:
+            raise AssertionError("the half_cheetah plain path launched a "
+                                 "kernel")
+    check_torso(plain, PLANAR_W, "half_cheetah plain path", 0.0)
+    check_torso(state, PLANAR_W, "half_cheetah kernel path", 0.0)
+    args, kw = rec["pgs"]
+    e_lam, e_dqd, n_diff, _, _ = compare_pgs(args, kw, PLANAR_W // 1000)
+    b1_err, b1_exact = b1_check(*rec["chol"], "half_cheetah")
+    Mi, rhs = rec["chol"]
+    return dict(launches=launches, substeps=n_sub, envs=PLANAR_W,
+                torso_z_min=zmin, envs_untouched_in_window=untouched,
+                main_env_steps_per_s=n_sub * PLANAR_W / elapsed,
+                env_steps_per_s=sum(rates[True]) / 2,
+                plain_env_steps_per_s=sum(rates[False]) / 2,
+                turns_kernel=rates[True], turns_plain=rates[False],
+                paths=paths["window end"], shift=shift, pgs_lam_err=e_lam,
+                pgs_dqd_err=e_dqd, guard_mismatch_envs=n_diff,
+                b1_max_abs_err=b1_err, b1_bit_exact=b1_exact,
+                b1=b1_times(Mi, rhs),
+                b2_ms=time_ms(lambda: pgs.pgs_solve_fused(*args, **kw),
+                              queued=True),
+                b2_plain_ms=time_ms(lambda: pgs.pgs_solve_fused_plain(
+                    *args, **kw), n=10))
+
+
+def cheetah_shift(model, pipe, solver, state, sample, substeps=4):
+    """The envs of ``state`` and the same envs moved SHIFT_X along x
+    (rootx), stepped ``substeps`` with the same ctrl: joint_q (rootx less
+    SHIFT_X) and joint_qd agree within SHIFT_TOL."""
+    import newton_tpu_torch as nt
+    q = state.joint_q.clone()
+    q[:, 0] += SHIFT_X
+    moved = nt.eval_fk(model, q, state.joint_qd.clone(), state.clone())
+    a, b = state.clone(), moved
+    for _ in range(substeps):
+        ctl = batched_control(model, sample(PLANAR_W))
+        a = solver.step_batched(a, None, ctl, pipe.collide(a), DT)
+        b = solver.step_batched(b, None, ctl, pipe.collide(b), DT)
+    qb = b.joint_q.clone()
+    qb[:, 0] -= SHIFT_X
+    errs = {}
+    for name, x, y in (("joint_q", a.joint_q, qb),
+                       ("joint_qd", a.joint_qd, b.joint_qd)):
+        ok, e = close(x, y, SHIFT_TOL[name], 0.0)
+        if not ok:
+            raise AssertionError(f"half_cheetah: {name} after {substeps} "
+                                 f"substeps 5 m along x differs by {e:.3g}")
+        errs[name] = e
+    return errs
+
+
+def phase_hopper_worlds(dev):
+    """hopper x 8192 through replicate + step, run as gymnasium's
+    Hopper-v5: SolverMuJoCo(iterations=8) with the integrator read from the
+    asset (RK4), dt 0.002, 4 substeps per frame (its frame_skip), uniform
+    +-5e-3 reset noise, ctrl uniform in [-1, 1]; HOPPER_WARMUP warm-up and
+    FRAMES checked frames with four B1 launches (d = 6, one per RK4 stage)
+    and one B2 launch (14, 3, 6) per substep; the gates, step against
+    step_batched of the one-world hopper (1e-6), a kernel vs plain step,
+    env-steps/s in turns and the phase's peak device memory."""
+    import torch
+    import newton_tpu_torch as nt
+    from newton_tpu_torch.solvers.generalized import linalg, pgs
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model, pipe, solver, setup_s = build_replicated(
+        dev, "hopper.xml", WORLDS, ITERS, integrator="auto")
+    if solver.integrator != "rk4":
+        raise AssertionError(f"hopper: integrator {solver.integrator!r}, "
+                             "expected the asset's rk4")
+    sample = ctrl_sampler(model, dev, seed=50)
+    state = flat_reset(model, dev, seed=51, noise=HOPPER_NOISE)
+    plain = state.clone()
+    state = run_flat_frames(model, pipe, solver, state, sample,
+                            HOPPER_WARMUP, True, dt=HOPPER_DT)
+    rec = {}
+    ctl = model.control()
+    ctl.custom["mjc:ctrl"] = sample(1)[0]
+    solver.step(state, None, ctl, pipe.collide(state), HOPPER_DT, record=rec)
+    (J, *_), kw = rec["pgs"]
+    shape = (kw["c"], int(kw["ld"].numel()), J.shape[2])
+    if (tuple(rec["chol"][0].shape) != (WORLDS, 6, 6) or shape != (14, 3, 6)
+            or linalg.kernel_instance(6) != "reg8"
+            or pgs.kernel_instance(*shape) != "smem128"):
+        raise AssertionError(f"hopper: B1 {rec['chol'][0].shape}, B2 "
+                             f"{shape}; expected d = 6 (reg8) and (14, 3, 6)"
+                             f" (smem128) at {WORLDS} worlds")
+    reset_robot_launches()
+    t0 = time.perf_counter()
+    state = run_flat_frames(model, pipe, solver, state, sample, FRAMES, True,
+                            dt=HOPPER_DT)
+    elapsed = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n_sub = FRAMES * SUBSTEPS
+    launches = dict(zip(("chol_inv_solve", "pgs_solve_fused"),
+                        kernel_launches()))
+    if launches != dict(chol_inv_solve=4 * n_sub, pgs_solve_fused=n_sub):
+        raise AssertionError(f"hopper: launches {launches} in {n_sub} "
+                             "substeps, expected B1 four times (RK4) and B2 "
+                             "once per substep")
+    zmin = check_torso(state, WORLDS, "hopper", 0.0)
+    end_state = state
+    plain = run_flat_frames(model, pipe, solver, plain, sample,
+                            HOPPER_WARMUP, False, dt=HOPPER_DT)
+    rates, state, plain = flat_turns(model, pipe, solver, state, plain,
+                                     sample, WORLDS, dt=HOPPER_DT)
+    check_torso(plain, WORLDS, "hopper plain path", 0.0)
+    check_torso(state, WORLDS, "hopper kernel path", 0.0)
+    args, kw = rec["pgs"]
+    e_lam, e_dqd, n_diff, _, _ = compare_pgs(args, kw, WORLDS // 1000)
+    errs = flat_paths(model, pipe, solver, end_state, sample, "hopper",
+                      dt=HOPPER_DT)
+    b1_err, b1_exact = b1_check(*rec["chol"], "hopper")
+    one = nt.ModelBuilder()
+    one.add_mjcf(os.path.join(nt.ASSET_DIR, "hopper.xml"))
+    one = one.finalize(dev)
+    agree = step_vs_batched(model, pipe, solver, end_state, sample,
+                            (one, nt.CollisionPipeline(one),
+                             nt.SolverMuJoCo(one, iterations=ITERS)),
+                            dt=HOPPER_DT)
+    Mi, rhs = rec["chol"]
+    return dict(launches=launches, substeps=n_sub, worlds=WORLDS,
+                setup_s=setup_s, torso_z_min=zmin, peak_memory_bytes=peak,
+                main_env_steps_per_s=n_sub * WORLDS / elapsed,
+                env_steps_per_s=sum(rates[True]) / 2,
+                plain_env_steps_per_s=sum(rates[False]) / 2,
+                turns_kernel=rates[True], turns_plain=rates[False],
+                paths=errs, pgs_lam_err=e_lam, pgs_dqd_err=e_dqd,
+                guard_mismatch_rows=n_diff, b1_max_abs_err=b1_err,
+                b1_bit_exact=b1_exact, step_vs_batched=agree,
+                b1=b1_times(Mi, rhs),
+                b2_ms=time_ms(lambda: pgs.pgs_solve_fused(*args, **kw),
+                              queued=True),
+                b2_plain_ms=time_ms(lambda: pgs.pgs_solve_fused_plain(
+                    *args, **kw), n=10))
+
+
 def pgs_smem(rec):
     from newton_tpu_torch import _kernels
     args, kw = rec
@@ -1520,7 +1766,11 @@ def kernel_info():
             ("B1 d=170", lib.chol_kernel_info, (170,)),
             ("B2 (32, 39, 45)", lib.pgs_kernel_info, (32, 39, 45)),
             ("B2 (32, 164, 170)", lib.pgs_kernel_info, (32, 164, 170)),
-            ("B2 (192, 40, 48)", lib.pgs_kernel_info, (192, 40, 48))):
+            ("B2 (192, 40, 48)", lib.pgs_kernel_info, (192, 40, 48)),
+            ("B1 d=9", lib.chol_kernel_info, (9,)),
+            ("B1 d=6", lib.chol_kernel_info, (6,)),
+            ("B2 (16, 6, 9)", lib.pgs_kernel_info, (16, 6, 9)),
+            ("B2 (14, 3, 6)", lib.pgs_kernel_info, (14, 3, 6))):
         regs, blocks = ctypes.c_int(0), ctypes.c_int(0)
         _kernels.check(fn(*shape, ctypes.addressof(regs),
                           ctypes.addressof(blocks)), label)
@@ -1705,6 +1955,32 @@ def main():
         + "; B2 random (192, 40, 48) "
         + json.dumps(chains["random (192, 40, 48)"]), flush=True)
 
+    cheetah = phase_cheetah(dev)
+    results["half_cheetah"] = cheetah
+    print(f"[16 half_cheetah x {PLANAR_W}, step_batched] {cheetah['substeps']}"
+          f" substeps, launches {cheetah['launches']}, torso z min "
+          f"{cheetah['torso_z_min']:.3f}, envs without contact in the window "
+          f"{cheetah['envs_untouched_in_window']}; "
+          f"{cheetah['env_steps_per_s']:.1f} env-steps/s (plain path "
+          f"{cheetah['plain_env_steps_per_s']:.1f}); kernel vs plain substep "
+          f"{cheetah['paths']}; {SHIFT_X:g} m along x after 4 substeps "
+          f"{cheetah['shift']}; B1 d=9 {cheetah['b1']['ms']:.4f} ms (library "
+          f"{cheetah['b1']['library_ms']:.4f} ms), B2 (16, 6, 9) "
+          f"{cheetah['b2_ms']:.4f} ms on {card}", flush=True)
+
+    hop = phase_hopper_worlds(dev)
+    results["hopper_worlds"] = hop
+    print(f"[17 hopper x {WORLDS}, replicate + step, RK4] setup "
+          f"{hop['setup_s']:.2f} s, {hop['substeps']} substeps, launches "
+          f"{hop['launches']}, torso z min {hop['torso_z_min']:.3f}; "
+          f"{hop['env_steps_per_s']:.1f} env-steps/s (plain path "
+          f"{hop['plain_env_steps_per_s']:.1f}); peak memory "
+          f"{hop['peak_memory_bytes']} B; step vs step_batched max diff "
+          f"{hop['step_vs_batched']}; kernel vs plain step {hop['paths']}; "
+          f"B1 d=6 {hop['b1']['ms']:.4f} ms (library "
+          f"{hop['b1']['library_ms']:.4f} ms), B2 (14, 3, 6) "
+          f"{hop['b2_ms']:.4f} ms on {card}", flush=True)
+
     results["kernel_info"] = kernel_info()
     print("[details] " + json.dumps(results, default=str), flush=True)
     hcases = hpaths["cases"].values()
@@ -1815,7 +2091,13 @@ def main():
              c40["b1_max_abs_err"], c40["b1"]),
             ("generic_global", "165-link chain, step_batched (phase 15)",
              170, c165["envs"], c165["launches"]["chol_inv_solve"],
-             c165["b1_max_abs_err"], c165["b1"])):
+             c165["b1_max_abs_err"], c165["b1"]),
+            ("reg16", "half_cheetah x 4096, step_batched (phase 16)", 9,
+             PLANAR_W, cheetah["launches"]["chol_inv_solve"],
+             cheetah["b1_max_abs_err"], cheetah["b1"]),
+            ("reg8", "hopper x 8192, replicate + step, RK4: 4 per substep "
+             "(phase 17)", 6, WORLDS, hop["launches"]["chol_inv_solve"],
+             hop["b1_max_abs_err"], hop["b1"])):
         kernels.append(dict(
             name=f"chol_inv_solve [{label}] d={d} W={n}", **b1_src,
             instance=label, path=path, launches=launches, max_abs_err=err,
@@ -1833,7 +2115,14 @@ def main():
             ("global256", "165-link chain, step_batched (phase 15)",
              c165["b2_shape"], c165["envs"],
              c165["launches"]["pgs_solve_fused"], c165["pgs_lam_err"],
-             c165["b2_ms"], c165["b2_plain_ms"])):
+             c165["b2_ms"], c165["b2_plain_ms"]),
+            ("smem128", "half_cheetah x 4096, step_batched (phase 16)",
+             (16, 6, 9), PLANAR_W, cheetah["launches"]["pgs_solve_fused"],
+             cheetah["pgs_lam_err"], cheetah["b2_ms"],
+             cheetah["b2_plain_ms"]),
+            ("smem128", "hopper x 8192, replicate + step, RK4 (phase 17)",
+             (14, 3, 6), WORLDS, hop["launches"]["pgs_solve_fused"],
+             hop["pgs_lam_err"], hop["b2_ms"], hop["b2_plain_ms"])):
         c, nl, d = shape
         kernels.append(dict(
             name=f"pgs_solve_fused [{label}] {shape} W={n}", **b2_src,

@@ -3,7 +3,7 @@
 Port of the subset of ``newton_tpu/sim/builder.py`` that the gymnasium
 robots, the reference's replicated-world KPI scenes and the MPM path drive:
 bodies, articulations, free/revolute/prismatic/fixed joints and D6 joints
-with angular axes, fixed tendons, plane/sphere/capsule shapes with
+with linear and angular axes, fixed tendons, plane/sphere/capsule shapes with
 density-driven mass, particles, world contexts (``begin_world``,
 ``add_world``, ``add_builder`` and the vectorized ``replicate``) with
 per-world gravity, MJCF-style collision filtering, the static candidate
@@ -579,28 +579,33 @@ class ModelBuilder:
                   collision_filter_parent: bool = True) -> int:
         """Free, revolute, prismatic, fixed or D6 joint between
         ``parent`` (-1 = world) and ``child``. A prismatic joint takes one
-        linear axis, a D6 joint 1-3 angular axes, each a dof with its own
-        limits, armature and gains; D6 linear axes raise."""
+        linear axis, a D6 joint 0-3 linear and 0-3 angular axes (at least
+        one), each a dof with its own limits, armature and gains. A D6
+        joint's linear dofs and coordinates come first, then its angular
+        ones: it translates along its linear axes in the parent-anchor
+        frame, then rotates about the translated anchor."""
         joint_type = JointType(joint_type)
         if joint_type not in _JOINT_TYPES:
             raise NotImplementedError(
                 f"joint type {joint_type.name} is not ported yet")
         linear = list(linear_axes or [])
-        if linear and joint_type != JointType.PRISMATIC:
-            raise NotImplementedError(
-                "linear axes on a joint other than a prismatic one (D6 "
-                "slides) are not ported yet")
+        angular = list(angular_axes or [])
+        if linear and joint_type not in (JointType.PRISMATIC, JointType.D6):
+            raise ValueError(f"a {joint_type.name} joint takes no linear "
+                             "axes")
         if joint_type == JointType.PRISMATIC and (len(linear) != 1
-                                                  or angular_axes):
+                                                  or angular):
             raise ValueError("a prismatic joint takes exactly one linear "
                              "axis")
-        axes = linear or list(angular_axes or [])
+        axes = linear + angular
         if joint_type == JointType.REVOLUTE and len(axes) != 1:
             raise ValueError("a revolute joint takes exactly one axis")
-        if joint_type == JointType.D6 and not 1 <= len(axes) <= 3:
-            raise ValueError("a D6 joint takes one to three angular axes")
+        if joint_type == JointType.D6 and not (
+                len(linear) <= 3 and len(angular) <= 3 and axes):
+            raise ValueError("a D6 joint takes 0-3 linear and 0-3 angular "
+                             "axes, at least one")
         if joint_type == JointType.FIXED:
-            axes = []
+            linear, angular, axes = [], [], []
         dof_count, coord_count = joint_type.dof_count(len(axes))
 
         idx = self.joint_count
@@ -613,7 +618,7 @@ class ModelBuilder:
         self.joint_X_c.append(_as_transform(xform_c))
         self.joint_key.append(key or f"joint_{idx}")
         self.joint_world.append(self._current_world)
-        self.joint_dof_dim.append((len(linear), len(axes) - len(linear)))
+        self.joint_dof_dim.append((len(linear), len(angular)))
 
         if joint_type == JointType.FREE:
             base = axes[0] if axes else self.default_joint_cfg
@@ -691,6 +696,19 @@ class ModelBuilder:
         return self.add_joint(JointType.PRISMATIC, parent, child,
                               linear_axes=[self._dof_cfg(axis, **dof)],
                               xform_p=xform_p, xform_c=xform_c, key=key,
+                              collision_filter_parent=collision_filter_parent)
+
+    def add_joint_d6(self, parent: int, child: int,
+                     linear_axes: Optional[Sequence[JointDofConfig]] = None,
+                     angular_axes: Optional[Sequence[JointDofConfig]] = None,
+                     xform_p=None, xform_c=None, key: Optional[str] = None,
+                     collision_filter_parent: bool = True) -> int:
+        """D6 joint with explicit linear and angular dof axes (see
+        ``add_joint``)."""
+        return self.add_joint(JointType.D6, parent, child,
+                              linear_axes=linear_axes,
+                              angular_axes=angular_axes, xform_p=xform_p,
+                              xform_c=xform_c, key=key,
                               collision_filter_parent=collision_filter_parent)
 
     def add_joint_fixed(self, parent: int, child: int, xform_p=None,

@@ -9,11 +9,13 @@ model's articulation group (see solver.py): ``step_batched`` runs W envs
 of a one-world model, ``step`` runs the N rows of a flat multi-world
 state, gathered into ``(N, ...)`` through the row tables and scattered
 back. Both run the same ``_substep``, so B1 and B2 take all envs of a
-substep in one launch each. The stages run in the reference's order: dof
-subspace, spatial inertia, RNEA bias, applied (PD, fixed tendons) and
-external forces, MJCF actuation, CRBA, the Cholesky kernel, the contact
-rows (top-K compacted) and the PGS kernel (or the limits-only solve
-without contacts), the velocity clips, coordinate integration and FK.
+substep in one launch each (B1 once per RK4 stage). The stages run in
+the reference's order: dof subspace, spatial inertia, RNEA bias, applied
+(PD, fixed tendons) and external forces, MJCF actuation, CRBA, the
+Cholesky kernel (Euler: one solve of ``M + dt Kd``; RK4: four stages of
+``M a = tau``, each after FK at its coordinates), the contact rows (top-K
+compacted) and the PGS kernel (or the limits-only solve without
+contacts), the velocity clips, coordinate integration and FK.
 Every index comes from the solver's device tables (``solver.tables``), in
 the row's local indices.
 """
@@ -54,7 +56,9 @@ def _dot(a, b):
 def _dof_subspace(t, body_q, q):
     """World-frame motion subspace of every dof at the origin: (v_o, w),
     each (W, D, 3). Angular dofs of multi-axis joints use their axes
-    transported by the coordinates before them, as FK does."""
+    transported by the coordinates before them, and those of a D6 joint
+    with linear axes rotate about its anchor translated by the linear
+    coordinates: the points and axes FK rotates about."""
     X_wp = torch.where(t.dof_hasp, body_q[:, t.dof_parent], t.identity)
     X_pj = transform_multiply(X_wp, t.dof_X_p)
     axis = t.model_axis
@@ -65,7 +69,15 @@ def _dof_subspace(t, body_q, q):
     axis_w = quat_rotate(X_pj[..., 3:7], axis)
     cb = body_q[:, t.dof_body]
     com_w = cb[..., 0:3] + quat_rotate(cb[..., 3:7], t.dof_com)
-    anchor = torch.where(t.dof_is_com, com_w, X_pj[..., 0:3])
+    pivot = X_pj[..., 0:3]
+    if t.slide_pivot is not None:
+        k = t.slide_pivot
+        shift = ((q[:, k.lin_q_idx] * k.lin_mask)[..., None]
+                 * k.A_lin).sum(-2)[:, k.dof_joint]           # (W, D, 3)
+        pivot = torch.where(k.dof_shift,
+                            pivot + quat_rotate(X_pj[..., 3:7], shift),
+                            pivot)
+    anchor = torch.where(t.dof_is_com, com_w, pivot)
     w = torch.where(t.dof_is_lin, 0.0, axis_w)
     v = torch.where(t.dof_is_lin, axis_w, cross(anchor, axis_w))
     return v, w
@@ -120,11 +132,12 @@ def _external_tau(t, body_f, x_b, v_o, w_o):
     return _dot(v_o, F[..., 0:3]) + _dot(w_o, F[..., 3:6])
 
 
-def _applied_tau(t, q, qd, control):
-    """Joint forces, PD drives and fixed-tendon forces. The PD damping
-    gains go implicit into M + dt*Kd, so the rhs carries only
-    kd * target_qd (MuJoCo Euler); tendon damping stays explicit, as in
-    the JAX batched step."""
+def _applied_tau(t, q, qd, control, explicit=False):
+    """Joint forces, PD drives and fixed-tendon forces. Under Euler the PD
+    damping gains go implicit into M + dt*Kd, so the rhs carries only
+    kd * target_qd (MuJoCo Euler); with ``explicit`` (the RK4 stages) the
+    rhs carries kd * (target_qd - qd) and Kd stays zero. Tendon damping is
+    explicit in both, as in the JAX batched step."""
     tau = torch.zeros_like(qd)
     kd_implicit = torch.zeros_like(qd)
     if control is None:
@@ -132,9 +145,13 @@ def _applied_tau(t, q, qd, control):
     tau = tau + control.joint_f
     if len(t.lin_idx):
         err = control.joint_target_q[:, t.lin_idx] - q[:, t.lin_idx]
-        pd = t.pd_ke * err + t.pd_kd * control.joint_target_qd[:, t.lin_dof]
+        vel = control.joint_target_qd[:, t.lin_dof]
+        if explicit:
+            vel = vel - qd[:, t.lin_dof]
+        pd = t.pd_ke * err + t.pd_kd * vel
         tau[:, t.lin_dof] = tau[:, t.lin_dof] + pd
-        kd_implicit[:, t.lin_dof] = kd_implicit[:, t.lin_dof] + t.pd_kd
+        if not explicit:
+            kd_implicit[:, t.lin_dof] = kd_implicit[:, t.lin_dof] + t.pd_kd
     if t.tendons:
         L = q @ t.tendon_Cq.T                                # (W, T)
         Ld = qd @ t.tendon_Cd.T
@@ -271,6 +288,64 @@ def _integrate_coords(t, q, qd, dt):
     return q
 
 
+def _smooth(solver, t, q, qd, body_q, body_qd, body_f, control_b,
+            explicit):
+    """The smooth dynamics at one configuration: the dof subspace (v_o,
+    w_o), world COMs x_b, the mass matrix M (W, d, d) of the group row,
+    the net generalized force tau_net = applied + external + actuator -
+    bias, and the implicit damping gains (zero with ``explicit``)."""
+    model = solver.row_model
+    v_o, w_o = _dof_subspace(t, body_q, q)
+    x_b, Iw = _spatial_inertia(model, body_q)
+    tau_bias = _bias_forces(t, model, body_qd, v_o, w_o, x_b, Iw)
+    tau, kd_implicit = _applied_tau(t, q, qd, control_b, explicit)
+    tau = tau + _external_tau(t, body_f, x_b, v_o, w_o)
+    if (solver.actuation is not None and control_b is not None
+            and "mjc:ctrl" in control_b.custom):
+        tau = tau + actuator_forces(solver.actuation, q, qd,
+                                    control_b.custom["mjc:ctrl"])
+    M = _crba(t, v_o, w_o, x_b, Iw, model.body_mass)
+    return v_o, w_o, x_b, M, tau - tau_bias, kd_implicit
+
+
+def _rk4(solver, t, state_b, control_b, dt, chol, record):
+    """Classic RK4 on the smooth dynamics (MuJoCo's mj_RungeKutta tableau,
+    the JAX package's ``_rk4_update``): four evaluations of ``M a =
+    tau_net`` with explicit joint damping, one B1 call each; stages 2-4
+    at coordinates integrated from the substep's start (FK at each).
+    Returns stage 1's subspace, COMs and ``M^-1`` (for the contact and
+    limit solve), the RK4 velocity and the tableau-weighted stage
+    velocity that advances the coordinates."""
+    q, qd = state_b.joint_q, state_b.joint_qd
+
+    def accel(q_s, qd_s, stage):
+        body_q, body_qd = state_b.body_q, state_b.body_qd
+        if stage > 1:
+            body_q, body_qd = fk_bodies(solver.row_model, q_s, qd_s, body_q,
+                                        body_qd)
+        v_o, w_o, x_b, M, tau_net, _ = _smooth(
+            solver, t, q_s, qd_s, body_q, body_qd, state_b.body_f,
+            control_b, explicit=True)
+        rhs = tau_net[:, t.di]
+        if record is not None and stage == 1:
+            record["chol"] = (M, rhs)
+        Minv, a_g = chol(M, rhs)
+        a = torch.zeros_like(qd)
+        a[:, t.di] = a_g
+        return a, (v_o, w_o, x_b, Minv)
+
+    a1, first = accel(q, qd, 1)
+    v2 = qd + 0.5 * dt * a1
+    a2, _ = accel(_integrate_coords(t, q, qd, 0.5 * dt), v2, 2)
+    v3 = qd + 0.5 * dt * a2
+    a3, _ = accel(_integrate_coords(t, q, v2, 0.5 * dt), v3, 3)
+    v4 = qd + dt * a3
+    a4, _ = accel(_integrate_coords(t, q, v3, dt), v4, 4)
+    v_avg = (qd + 2.0 * v2 + 2.0 * v3 + v4) / 6.0
+    qd_rk4 = qd + (dt / 6.0) * (a1 + 2.0 * a2 + 2.0 * a3 + a4)
+    return first, qd_rk4, v_avg
+
+
 def _substep(solver, state_b: State, control_b, contacts_b, dt: float,
              kernels: bool, record: Optional[dict]) -> State:
     """One substep of W envs of the row layout (leading axis of every
@@ -279,26 +354,23 @@ def _substep(solver, state_b: State, control_b, contacts_b, dt: float,
     t = solver.tables
     q, qd = state_b.joint_q, state_b.joint_qd
     body_q, body_qd = state_b.body_q, state_b.body_qd
-
-    v_o, w_o = _dof_subspace(t, body_q, q)
-    x_b, Iw = _spatial_inertia(model, body_q)
-    tau_bias = _bias_forces(t, model, body_qd, v_o, w_o, x_b, Iw)
-    tau, kd_implicit = _applied_tau(t, q, qd, control_b)
-    tau = tau + _external_tau(t, state_b.body_f, x_b, v_o, w_o)
-    if (solver.actuation is not None and control_b is not None
-            and "mjc:ctrl" in control_b.custom):
-        tau = tau + actuator_forces(solver.actuation, q, qd,
-                                    control_b.custom["mjc:ctrl"])
-    tau_net = tau - tau_bias
-
-    # group row: factor / solve / invert M + dt*Kd, then the impulse solve
-    M = _crba(t, v_o, w_o, x_b, Iw, model.body_mass)
-    Mi = M + dt * torch.diag_embed(kd_implicit[:, t.di])
-    rhs = (M @ qd[:, t.di, None])[..., 0] + dt * tau_net[:, t.di]
-    if record is not None:
-        record["chol"] = (Mi, rhs)
     chol = chol_inv_solve if kernels else chol_inv_solve_plain
-    Minv, qd_g = chol(Mi, rhs)
+
+    if solver.integrator == "rk4":
+        (v_o, w_o, x_b, Minv), qd_smooth, v_avg = _rk4(
+            solver, t, state_b, control_b, dt, chol, record)
+        qd_g = qd_smooth[:, t.di]
+    else:
+        # group row: factor / solve / invert M + dt*Kd
+        v_o, w_o, x_b, M, tau_net, kd_implicit = _smooth(
+            solver, t, q, qd, body_q, body_qd, state_b.body_f, control_b,
+            explicit=False)
+        Mi = M + dt * torch.diag_embed(kd_implicit[:, t.di])
+        rhs = (M @ qd[:, t.di, None])[..., 0] + dt * tau_net[:, t.di]
+        if record is not None:
+            record["chol"] = (Mi, rhs)
+        Minv, qd_g = chol(Mi, rhs)
+    # the impulse solve on M^-1 (stage 1's under RK4)
     if contacts_b is not None:
         args, kw = _contact_system(solver, t, Minv, qd_g, v_o, w_o, body_qd,
                                    x_b, q, contacts_b, dt)
@@ -306,6 +378,8 @@ def _substep(solver, state_b: State, control_b, contacts_b, dt: float,
             record["pgs"] = (args, kw)
         pgs = pgs_solve_fused if kernels else pgs_solve_fused_plain
         lam, dqd = pgs(*args, **kw)
+        if record is not None:
+            record["lam"] = lam
         qd_g = qd_g + dqd
     elif t.nl:
         if record is not None:
@@ -319,7 +393,14 @@ def _substep(solver, state_b: State, control_b, contacts_b, dt: float,
     qd_new = torch.clamp(qd_new, -solver.max_velocity, solver.max_velocity)
     qd_new = torch.where(torch.isfinite(qd_new), qd_new, 0.0)
 
-    q_new = _integrate_coords(t, q, qd_new, dt)
+    v_int = qd_new
+    if solver.integrator == "rk4":
+        # positions advance with the stage velocities; the impulses and
+        # clips ride on top as a delta, under the same ceiling and guard
+        v_int = v_avg + (qd_new - qd_smooth)
+        v_int = torch.clamp(v_int, -solver.max_velocity, solver.max_velocity)
+        v_int = torch.where(torch.isfinite(v_int), v_int, 0.0)
+    q_new = _integrate_coords(t, q, v_int, dt)
     body_q2, body_qd2 = fk_bodies(model, q_new, qd_new, body_q, body_qd)
     return replace(state_b, body_q=body_q2, body_qd=body_qd2, joint_q=q_new,
                    joint_qd=qd_new)
@@ -354,8 +435,9 @@ def step_batched(solver, state_b: State, control_b=None, contacts_b=None,
     ``kernels=False`` runs the plain PyTorch versions of the two kernels
     instead, whatever the device: the reference path that a run on the card
     compares the kernel path with. ``record``, when a dict, receives the
-    operands of the two kernel calls (``"chol"``, ``"pgs"``), or of B1 and
-    the limits-only solve (``"limits"``) in a substep without contacts."""
+    operands of the two kernel calls (``"chol"``: stage 1's under RK4;
+    ``"pgs"``) and the contact impulses (``"lam"``), or the operands of the
+    limits-only solve (``"limits"``) in a substep without contacts."""
     t = solver.tables
     if not solver._model_is_row:
         raise NotImplementedError(

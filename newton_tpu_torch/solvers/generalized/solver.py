@@ -3,12 +3,13 @@ entries of ``newton_tpu/solvers/generalized/solver.py``:
 ``SolverFeatherstone``, ``SolverMuJoCo``).
 
 Per substep: FK-derived dof subspaces, RNEA bias, applied and MJCF
-actuator forces, CRBA, one factor/solve/invert of ``M + dt*Kd`` (kernel),
-the contact/limit rows and one projected-Jacobi solve (kernel), semi-
-implicit Euler on the coordinates, FK. The constructor turns every static
-plan (dof tables, contact slots, limit rows, accumulation orders) into
-index tensors on the model's device, so the substep builds nothing from
-numpy and makes no host sync.
+actuator forces, CRBA, one factor/solve/invert of ``M + dt*Kd`` (kernel;
+under RK4 four stages of ``M a = tau``, one kernel call each), the
+contact/limit rows and one projected-Jacobi solve (kernel), semi-implicit
+Euler (or the RK4 stage velocities) on the coordinates, FK. The
+constructor turns every static plan (dof tables, contact slots, limit
+rows, accumulation orders) into index tensors on the model's device, so
+the substep builds nothing from numpy and makes no host sync.
 
 The row view: the model's articulations form one group of identical rows
 (one row per world of a replicated model, one row for a one-world model).
@@ -17,8 +18,9 @@ building them costs the same at 8192 worlds as at one; ``step`` gathers
 every row of a flat multi-world state into the env-major layout through
 the group's row tables, runs the substep with one env per row, and
 scatters back; ``step_batched`` runs the same substep on a one-world
-model's ``(W, ...)`` envs. The port covers the static-contact, Euler path
-of the gymnasium ant, humanoid and cartpole (D6 hinge and prismatic
+model's ``(W, ...)`` envs. The port covers the static-contact path of the
+gymnasium ant, humanoid, cartpole, half_cheetah, hopper and walker2d
+under Euler and RK4 (D6 joints with linear and angular axes, prismatic
 joints, fixed tendons, top-K contact compaction); more than one group,
 rows that differ in their constants, heterogeneous contact plans,
 contacts across rows and everything else raise ``NotImplementedError``.
@@ -265,10 +267,10 @@ class SolverFeatherstone:
         integrator = str(integrator).lower()
         if integrator not in ("euler", "implicitfast", "implicit", "rk4"):
             raise ValueError(f"unknown integrator {integrator!r}")
-        if integrator != "euler":
+        if integrator not in ("euler", "rk4"):
             raise NotImplementedError(
-                f"integrator {integrator!r} is not ported yet (euler only); "
-                "pass integrator='euler'")
+                f"integrator {integrator!r} is not ported yet (euler and "
+                "rk4 only)")
         if warm_start:
             raise NotImplementedError("contact warm start is not ported yet")
         if sleep_threshold > 0.0:
@@ -437,6 +439,17 @@ class SolverFeatherstone:
             t.dof_joint = L(dj)
             t.dof_ang_slot = L(np.maximum(gc.dof_ang_slot, 0))
             t.dof_is_ang = B(gc.dof_ang_slot >= 0)[:, None]
+        # D6 joints with linear axes: their angular dofs rotate about the
+        # anchor moved by the joint's translation (FK's pivot), not about
+        # the joint origin as in the JAX package (ROADMAP C)
+        dim = np.asarray(st.joint_dof_dim, dtype=np.int64).reshape(-1, 2)
+        shifted = (dim[dj, 0] > 0) & ~gc.dof_is_linear & ~gc.dof_anchor_is_com
+        t.slide_pivot = None
+        if shifted.any():
+            t.slide_pivot = SimpleNamespace(
+                lin_q_idx=kin.lin_q_idx, lin_mask=kin.lin_mask,
+                A_lin=kin.A_lin, dof_joint=L(dj),
+                dof_shift=B(shifted)[:, None])
         t.dof_body = L(gc.dof_body)
         t.dof_com = model.body_com[t.dof_body]
         t.dof_is_com = B(gc.dof_anchor_is_com)[:, None]
@@ -569,7 +582,7 @@ class SolverMuJoCo(SolverFeatherstone):
     """The reference's MuJoCo-flavoured front end: ``iterations`` sets the
     contact iterations and ``integrator="auto"`` reads the MJCF
     ``<option integrator=...>`` captured at import (RK4 for gymnasium's
-    ant, which raises here: only euler is ported)."""
+    ant, hopper and walker2d; euler where the asset names none)."""
 
     def __init__(self, model: Model, iterations: int = 16,
                  integrator: str = "auto", **kwargs):

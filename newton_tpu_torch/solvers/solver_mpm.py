@@ -402,8 +402,17 @@ def _svd3(F):
     correction: U and V proper rotations, the sign of det F moved into the
     last singular value. The same on both devices; ``_svd3_jacobi`` is the
     elementwise alternative, kept off the path (in eager mode its ~900
-    elementwise ops would be ~900 launches per step)."""
+    elementwise ops would be ~900 launches per step). A matrix with a
+    non-finite entry (a diverged particle) gives NaN factors, as the JAX
+    package's SVD does, where ``torch.linalg.svd`` would raise."""
+    bad = ~torch.isfinite(F).all(dim=-1).all(dim=-1)
+    F = torch.where(bad[:, None, None], torch.eye(3, dtype=F.dtype,
+                                                  device=F.device), F)
     U, s, Vt = torch.linalg.svd(F)
+    nan = torch.full((), float("nan"), dtype=F.dtype, device=F.device)
+    U = torch.where(bad[:, None, None], nan, U)
+    Vt = torch.where(bad[:, None, None], nan, Vt)
+    s = torch.where(bad[:, None], nan, s)
     su = torch.sign(_det3(U))
     sv = torch.sign(_det3(Vt))
     one = torch.ones_like(su)

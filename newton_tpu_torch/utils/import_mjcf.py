@@ -1,14 +1,18 @@
-"""MJCF (MuJoCo XML) importer: the subset the gymnasium ant, humanoid and
-inverted pendulum (the reference's KPI cartpole) drive.
+"""MJCF (MuJoCo XML) importer: the subset the gymnasium ant, humanoid,
+inverted pendulum (the reference's KPI cartpole), half_cheetah, hopper and
+walker2d drive.
 
 Port of ``newton_tpu/utils/import_mjcf.py`` (``parse_mjcf``): compiler
-angle units, ``<option>`` (captured into ``builder.mjc_options``), default
-classes, ``<custom><numeric name="init_qpos">`` (MuJoCo's wxyz free-joint
-quaternion converted to xyzw), bodies with a free joint, hinge joints
-(limits, armature, damping, stiffness; several hinges in one body become
-one D6 joint anchored at the first hinge's ``pos``) or one slide joint (a
-prismatic joint; its ``ref`` shifts the limits into displacement space and
-is kept in the ``mjc:qpos_ref`` coordinate attribute), plane/sphere/capsule
+angle units and ``settotalmass``, ``<option>`` (captured into
+``builder.mjc_options``; fluid forces raise), default classes,
+``<custom><numeric name="init_qpos">`` (MuJoCo's wxyz free-joint
+quaternion converted to xyzw), bodies with a free joint, or with slide and
+hinge joints (limits, armature, damping, stiffness): one slide is a
+prismatic joint, one hinge a revolute joint, and slides followed by hinges
+one D6 joint that translates along the slides, then rotates about the
+hinges' common ``pos``. A slide's ``ref`` shifts its limits into
+displacement space and is kept in the ``mjc:qpos_ref`` coordinate
+attribute at that slide's coordinate. Plane/sphere/capsule
 geoms with contype/conaffinity, ``<tendon><fixed>`` couplings of hinges,
 and motor/position/velocity actuators on hinges and slides into the
 ``MJCActuation`` tables. Actuators and tendons address each joint's own dof
@@ -130,6 +134,7 @@ def parse_mjcf(builder, source: str):
     compiler = root.find("compiler")
     angle_deg = True
     autolimits = True
+    total_mass = -1.0
     if compiler is not None:
         angle_deg = compiler.get("angle", "degree") == "degree"
         autolimits = compiler.get("autolimits", "true") == "true"
@@ -137,6 +142,7 @@ def parse_mjcf(builder, source: str):
             raise NotImplementedError(
                 "MJCF compiler inertiafromgeom=false (explicit <inertial>) "
                 "is not supported by the port yet")
+        total_mass = _parse_float(compiler.get("settotalmass"), -1.0)
 
     def to_rad(x):
         return math.radians(x) if angle_deg else x
@@ -145,6 +151,16 @@ def parse_mjcf(builder, source: str):
     if option is not None:
         for ch in option:
             _unsupported(ch.tag, "option")
+        for attr in ("viscosity", "density"):
+            if _parse_float(option.get(attr), 0.0) != 0.0:
+                raise NotImplementedError(
+                    f"MJCF <option {attr}=...> (fluid forces) is not "
+                    "supported by the port yet")
+        wind = _parse_vec(option.get("wind"))
+        if wind is not None and wind.any():
+            raise NotImplementedError(
+                "MJCF <option wind=...> (fluid forces) is not supported by "
+                "the port yet")
         g = _parse_vec(option.get("gravity"))
         if g is not None:
             builder.gravity = float(np.linalg.norm(g)) * \
@@ -318,34 +334,37 @@ def parse_mjcf(builder, source: str):
                     "not supported by the port yet")
             jidx = builder.add_joint_free(body_idx, parent=parent_idx,
                                           key=joints[0]["name"])
-        elif any(j["type"] == "slide" for j in joints):
-            if len(joints) > 1:
-                raise NotImplementedError(
-                    f"MJCF body {name!r}: a slide joint with other joints "
-                    "in one body (a D6 joint with linear axes) is not "
-                    "supported by the port yet")
-            j = joints[0]
-            anchor = np_transform(j["pos"])
-            jidx = builder.add_joint(
-                JointType.PRISMATIC, parent_idx, body_idx,
-                linear_axes=[dof_cfg(j)],
-                xform_p=np_transform_multiply(X_rel, anchor),
-                xform_c=anchor, key=j["name"])
-            if j["ref"] != 0.0:
-                coord_refs[jq_start] = j["ref"]
         else:
-            if any(not np.array_equal(j["pos"], joints[0]["pos"])
-                   for j in joints):
+            # slides then hinges: one joint that translates, then rotates
+            # (a D6 joint's linear axes come first, as the MJCF order here)
+            lin = [j for j in joints if j["type"] == "slide"]
+            ang = joints[len(lin):]
+            if any(j["type"] == "slide" for j in ang):
+                raise NotImplementedError(
+                    f"MJCF body {name!r}: a slide joint after a hinge (a "
+                    "translation along a rotated axis) is not supported by "
+                    "the port yet")
+            if any(not np.array_equal(j["pos"], ang[0]["pos"])
+                   for j in ang):
                 raise NotImplementedError(
                     f"MJCF body {name!r}: hinges at different positions in "
                     "one body are not supported by the port yet")
-            anchor = np_transform(joints[0]["pos"])
+            # a hinge rotates about its own pos; a slide's pos moves nothing
+            # (MuJoCo), so the hinges' pos is the anchor whatever the
+            # slides' (the JAX importer takes the first joint's: ROADMAP C)
+            anchor = np_transform((ang or lin)[0]["pos"])
+            jtype = (JointType.REVOLUTE if not lin and len(ang) == 1 else
+                     JointType.PRISMATIC if not ang and len(lin) == 1 else
+                     JointType.D6)
             jidx = builder.add_joint(
-                JointType.REVOLUTE if len(joints) == 1 else JointType.D6,
-                parent_idx, body_idx,
-                angular_axes=[dof_cfg(j) for j in joints],
+                jtype, parent_idx, body_idx,
+                linear_axes=[dof_cfg(j) for j in lin],
+                angular_axes=[dof_cfg(j) for j in ang],
                 xform_p=np_transform_multiply(X_rel, anchor),
                 xform_c=anchor, key=joints[0]["name"])
+            for k, j in enumerate(lin):
+                if j["ref"] != 0.0:
+                    coord_refs[jq_start + k] = j["ref"]
         # each MJCF hinge's own dof and coordinate, for actuators and
         # tendons (a free joint takes 6 dofs and 7 coordinates)
         for k, j in enumerate(joints):
@@ -366,10 +385,19 @@ def parse_mjcf(builder, source: str):
         if ch.tag not in {"body", "geom"} | _VISUAL_ONLY:
             _unsupported(ch.tag, "worldbody")
     builder.add_articulation(key=root.get("model") or "mjcf")
+    b0 = builder.body_count
     for g in worldbody.findall("geom"):
         add_geom(g, -1, None)
     for body in worldbody.findall("body"):
         parse_body(body, -1, np_transform_identity(), None)
+    if total_mass > 0.0:
+        # <compiler settotalmass>: every body's mass and inertia scale by
+        # one factor to the total, as MuJoCo's compiler does (the JAX
+        # importer ignores it: ROADMAP C)
+        scale = total_mass / sum(builder.body_mass[b0:])
+        for b in range(b0, builder.body_count):
+            builder.body_mass[b] *= scale
+            builder.body_inertia[b] = builder.body_inertia[b] * scale
     if coord_refs:
         builder.add_custom_attribute("mjc:qpos_ref",
                                      AttributeFrequency.JOINT_COORD)

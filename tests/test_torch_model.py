@@ -187,9 +187,19 @@ def test_humanoid_raises_naming_element(tmp_path):
     ('<worldbody><body><joint name="a"/><geom size="0.1"/></body>'
      '</worldbody><tendon><fixed name="t"><joint joint="a"/></fixed>'
      '</tendon><actuator><motor tendon="t"/></actuator>', "tendon"),
+    ('<option viscosity="0.1"/><worldbody/>', "fluid"),
 ])
 def test_unsupported_mjcf_raises(tmp_path, snippet, word):
     path = tmp_path / "m.xml"
     path.write_text(f'<mujoco model="m">{snippet}</mujoco>')
+    if word == "slide":
+        # a slide then a hinge in one body is one D6 joint now; a slide
+        # after a hinge (a translation along a rotated axis) still raises
+        b = nt.ModelBuilder()
+        b.add_mjcf(str(path))
+        assert b.joint_dof_dim == [(1, 1)]
+        path.write_text(f'<mujoco model="m">{snippet}</mujoco>'.replace(
+            '<joint type="slide"/><joint type="hinge"/>',
+            '<joint type="hinge"/><joint type="slide"/>'))
     with pytest.raises(NotImplementedError, match=word):
         nt.ModelBuilder().add_mjcf(str(path))

@@ -679,9 +679,20 @@ def _two_link(kind):
 @pytest.mark.parametrize("kind", ["d6 linear", "ball", "two articulations",
                                   "heterogeneous contacts"])
 def test_unported_cases_raise(kind):
-    """A D6 joint with a linear axis, a ball joint, two articulations in
-    one world and a heterogeneous contact plan (two worlds whose robots
-    differ) raise NotImplementedError."""
+    """A ball joint, two articulations in one world and a heterogeneous
+    contact plan (two worlds whose robots differ) raise
+    NotImplementedError. A D6 joint with a linear axis is ported: it
+    builds and steps (tests/test_torch_planar.py holds it against the JAX
+    package and MuJoCo-C)."""
+    if kind == "d6 linear":
+        m = _two_link(kind).finalize("cpu")
+        assert tuple(m.structure.joint_dof_dim[1]) == (1, 1)
+        solver = nt.SolverMuJoCo(m, integrator="euler")
+        s = nt.eval_fk(m, m.joint_q0, m.joint_qd0, m.state())
+        out = solver.step(s, None, None,
+                          nt.CollisionPipeline(m).collide(s), DT)
+        assert bool(torch.isfinite(out.joint_q).all())
+        return
     with pytest.raises(NotImplementedError):
         if kind == "heterogeneous contacts":
             a = nt.ModelBuilder()

@@ -4,6 +4,7 @@ card.
 
     python3 tools/torch_kernel_ab.py [--parent DIR] [--mpm-only] [--out FILE]
     python3 tools/torch_kernel_ab.py --worlds [--out FILE]
+    python3 tools/torch_kernel_ab.py --planar [--out FILE]
 
 Builds this checkout's kernel library and, with ``--parent``, the library
 of the checkout at DIR (its own ``newton_tpu_torch/csrc``), then on the same
@@ -37,7 +38,11 @@ chip_smoke.py's replicated scenes, cartpole x 8192 and humanoid x 8192
 through ``replicate`` + ``step`` after their warm-up: device time, device
 operations, the frame's wall time (host clock around a synchronized frame,
 the mean of 10) and the device's busy share, device time over wall time.
-Writes one JSON object (to ``--out`` as well, when given). Without a CUDA
+With ``--planar`` (this checkout only) it profiles the same way one frame
+of chip_smoke.py's planar paths: half_cheetah x 4096 (step_batched,
+euler, after one warm-up frame) and hopper x 8192 (replicate + step, dt
+0.002, after its warm-up) under RK4 and, for the host cost of the RK4
+stages, under euler. Writes one JSON object (to ``--out`` as well, when given). Without a CUDA
 device it exits 2.
 """
 
@@ -426,6 +431,51 @@ def worlds_profile(dev):
     return out
 
 
+def planar_profile(dev):
+    """One profiled frame of half_cheetah x 4096 (euler) and of hopper x
+    8192 under RK4 and under euler, each after its warm-up, and the mean
+    wall time of a frame."""
+    import torch
+    import newton_tpu_torch as nt
+    out = {}
+    model, pipe, solver = cs.build_cheetah(dev)
+    sample = cs.ctrl_sampler(model, dev, seed=40)
+    box = {"s": nt.batch_state(nt.eval_fk(model, model.joint_q0,
+                                          model.joint_qd0, model.state()),
+                               cs.PLANAR_W)}
+
+    def cheetah_frame():
+        box["s"] = cs.run_frames(model, pipe, solver, box["s"], sample, 1,
+                                 True)
+    runs = [("half_cheetah euler", cheetah_frame, cs.PLANAR_W)]
+    for integ in ("rk4", "euler"):
+        hm, hp, hs, _ = cs.build_replicated(dev, "hopper.xml", cs.WORLDS,
+                                            cs.ITERS, integrator=integ)
+        hsample = cs.ctrl_sampler(hm, dev, seed=50)
+        hbox = {"s": cs.run_flat_frames(
+            hm, hp, hs, cs.flat_reset(hm, dev, seed=51,
+                                      noise=cs.HOPPER_NOISE),
+            hsample, cs.HOPPER_WARMUP, True, dt=cs.HOPPER_DT)}
+
+        def hopper_frame(hm=hm, hp=hp, hs=hs, hbox=hbox, hsample=hsample):
+            hbox["s"] = cs.run_flat_frames(hm, hp, hs, hbox["s"], hsample, 1,
+                                           True, dt=cs.HOPPER_DT)
+        runs.append((f"hopper {integ}", hopper_frame, cs.WORLDS))
+    cheetah_frame()                               # warm-up frame
+    for name, run_frame, n in runs:
+        prof = frame_profile(run_frame)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(cs.FRAMES):
+            run_frame()
+        wall_ms = (time.perf_counter() - t0) / cs.FRAMES * 1e3
+        out[name] = dict(prof, wall_ms=wall_ms,
+                         busy_share=prof["device_ms"] / wall_ms, envs=n,
+                         substeps=cs.SUBSTEPS,
+                         env_steps_per_s=n * cs.SUBSTEPS / wall_ms * 1e3)
+    return out
+
+
 def main():
     import torch
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -435,6 +485,8 @@ def main():
                     help="only the MPM kernels and the sand profile")
     ap.add_argument("--worlds", action="store_true",
                     help="only the profiles of the replicated scenes")
+    ap.add_argument("--planar", action="store_true",
+                    help="only the profiles of the planar robots' paths")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_kernel_ab: no CUDA device", file=sys.stderr)
@@ -442,6 +494,9 @@ def main():
     dev = torch.device("cuda", 0)
     if a.worlds:
         return emit(dict(card=cs.card_line(), worlds=worlds_profile(dev)),
+                    a.out)
+    if a.planar:
+        return emit(dict(card=cs.card_line(), planar=planar_profile(dev)),
                     a.out)
     from newton_tpu_torch import _kernels
     libs = {"this": _kernels.lib()}
