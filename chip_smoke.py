@@ -100,7 +100,37 @@ Phases, one line each:
      one per RK4 stage) and one B2 launch (14, 3, 6, smem128) per
      substep, finite state, torso z > 0; step against step_batched of the
      one-world hopper (1e-6) for 4 substeps; a kernel vs plain step;
-     env-steps/s in turns and the phase's peak device memory.
+     env-steps/s in turns and the phase's peak device memory;
+ 18. rod x 4096 (example_rod_swing.py's ball-jointed rod, replicated 0.1 m
+     apart in y, so each world's root joint_X_p differs; SolverFeatherstone
+     step at dt 1/480, 8 substeps per frame, no contacts, as the example):
+     1 s with one B1 launch (d = 21, reg24) per substep and no B2; finite
+     state, unit ball quaternions, every tip z in (0.6, 1.01], world k's
+     tip world 0's moved by its offset (1e-4); step against its group
+     stepped alone (1e-6); a kernel vs plain step; env-steps/s in turns,
+     setup time and peak device memory;
+ 19. ant with a ball x 4096 (gymnasium's ant and a free 0.45 kg ball of
+     radius 0.2 touching its front-left foot, two articulations per
+     world), randomized per world after the solver is built (ant masses
+     and inertias x U(0.8, 1.2), every mu in U(0.5, 1.25)), then
+     notify_model_changed; SolverMuJoCo(iterations=8, euler) through step,
+     dt 1/240, 4 substeps per frame, uniform ctrl: a warm-up frame then 10
+     frames with one B1 and one B2 launch per group per substep (ant d =
+     14, B2 (32, 8, 14) reg16; ball d = 6, B2 (14, 0, 6) smem128; both B2
+     calls with w_other, the two-sided contacts' diagonal addend); phase
+     5's gates, an ant-ball contact in >= 50% of worlds during the window,
+     ball speed < 20 m/s; the two halves of each active ant-ball contact
+     finite and >= 0 (their mismatch reported); step against its groups
+     stepped alone (1e-6); a kernel vs plain step; env-steps/s in turns,
+     setup time and peak device memory;
+ 20. not user configurations, 1024 worlds each: the joint showcase
+     (example_basic_joints.py, each joint its own articulation: six
+     groups, one without dofs) for 0.5 s, one B1 launch per group with
+     dofs per substep, the example's gates in every world; and the ragged
+     plan (example_hetero_worlds.py with a static sphere pedestal in the
+     odd worlds), 1.25 s with one B1 and one B2 (2, 0, 6) per substep,
+     spheres at rest at z = 0.3 and 0.7 (+-0.05); each with a kernel vs
+     plain step and step against its groups alone.
 It prints one JSON line listing the kernels (name, route, source,
 launches, error, times, and each time's least possible time on an H100
 SXM at 700 W from ``kernel_cost``: bound_ms, bound_by, share_of_bound;
@@ -108,8 +138,8 @@ library_ms where one PyTorch call computes the same function, else null
 with the reason; B1 and B2 also at the humanoid's shapes; B3 timed with
 its binning and given bins, B4 given bins, its bound counted on the nodes
 it reads; the binning, part of both, with its own entry; then one entry
-for each B1 and B2 instance on the paths of phases 13-17, with W = 8192
-where it runs there), then the card
+for each B1 and B2 instance on the paths of phases 13-20, with the W it
+runs at there, B2 on the two-sided groups with w_other), then the card
 line, then the result line ``{"ok": true,
 "device": {...}}``. Any failed phase raises: exit code != 0 and no result
 line. Without a CUDA device it exits 2 at once. A ``[details]`` line
@@ -147,11 +177,14 @@ def kernel_cost(name, W=1, **shape):
 
     chol_inv_solve (d): reads Mi and rhs, writes Minv and x; the factor's
         (d-1) d (d+1) / 6 FMAs and the substitutions' d (d-1) (d+1).
-    pgs_solve_fused (c, nl, d; iters = 8): reads J, Minv, qd, b, act,
-        lam0 and mu, writes lam, dqd and the int32 halvings (the per-call
-        ld vector is not per env); the MJ = J Minv assembly (3c d^2), diag
-        and v_free (2 x 3c d), spectral_iters + iters Delassus matvecs
-        (2 x 3c d + nl d each) and dqd (3c d + nl d).
+    pgs_solve_fused (c, nl, d; iters = 8; w_other = False): reads J,
+        Minv, qd, b, act, lam0 and mu, writes lam, dqd and the int32
+        halvings (the per-call ld vector is not per env); the MJ = J Minv
+        assembly (3c d^2), diag and v_free (2 x 3c d), spectral_iters +
+        iters Delassus matvecs (2 x 3c d + nl d each) and dqd (3c d +
+        nl d); with ``w_other`` (two-sided contacts) it also reads the 3c
+        addends, adds them to the diagonal and does one more FMA per
+        contact row in each matvec.
     mpm_p2g (N, C, res): reads base (N, 3) int32, w_ax (N, 3, 3) and vals
         (N, C), writes the dense res^3 x C grid, zeros included; 27 weight
         products (2 each) and 27 C FMAs per particle.
@@ -178,6 +211,9 @@ def kernel_cost(name, W=1, **shape):
         fma = (r3 * d * d + 2 * r3 * d
                + (spec + iters) * (2 * r3 * d + nl * d) + r3 * d + nl * d)
         flops = 2 * fma
+        if shape.get("w_other"):
+            nbytes += r3 * f
+            flops += r3 + 2 * (spec + iters) * r3
     elif name in ("mpm_p2g", "mpm_g2p"):
         n, ch = shape["N"], shape["C"]
         nodes = shape["res"] ** 3 if name == "mpm_p2g" \
@@ -1111,19 +1147,9 @@ def run_flat_frames(model, pipe, solver, state, sample, frames, kernels,
     """``frames`` frames of SUBSTEPS ``step`` calls on a flat multi-world
     state, new uniform mjc:ctrl each frame; ``touched`` (N,) bool, when
     given, gathers which worlds had an active contact in some substep."""
-    import torch
-    ctl = model.control()
-    for _ in range(frames):
-        ctl.custom["mjc:ctrl"] = sample(1)[0]
-        for _ in range(SUBSTEPS):
-            contacts = pipe.collide(state)
-            if touched is not None:
-                touched |= contacts.rigid_contact_mask[
-                    solver.tables.row_slots].any(1)
-            state = solver.step(state, None, ctl, contacts, dt,
-                                kernels=kernels)
-    torch.cuda.synchronize()
-    return state
+    seen = None if touched is None else (solver.tables.row_slots, touched)
+    return run_steps(solver, state, model.control(), frames * SUBSTEPS, dt,
+                     kernels, pipe=pipe, sample=sample, touched=seen)
 
 
 def check_flat(state, n, label, root_z=None):
@@ -1146,24 +1172,10 @@ def reset_robot_launches():
 
 
 def flat_turns(model, pipe, solver, state, plain, sample, n, dt=DT):
-    """env-steps/s of the kernel and plain paths in turns (plain, kernel,
-    kernel, plain), each turn FRAMES frames continuing its own state; the
-    plain turns launch no kernel."""
-    rates = {True: [], False: []}
-    n_sub = FRAMES * SUBSTEPS
-    for kernels in (False, True, True, False):
-        before = kernel_launches()
-        t0 = time.perf_counter()
-        if kernels:
-            state = run_flat_frames(model, pipe, solver, state, sample,
-                                    FRAMES, True, dt=dt)
-        else:
-            plain = run_flat_frames(model, pipe, solver, plain, sample,
-                                    FRAMES, False, dt=dt)
-        rates[kernels].append(n_sub * n / (time.perf_counter() - t0))
-        if not kernels and kernel_launches() != before:
-            raise AssertionError("a plain path launched a kernel")
-    return rates, state, plain
+    """env-steps/s of the kernel and plain paths in turns, FRAMES frames
+    each (see ``turns``)."""
+    return turns(solver, state, plain, model.control(), FRAMES * SUBSTEPS,
+                 n, dt, pipe=pipe, sample=sample)
 
 
 def flat_paths(model, pipe, solver, state, sample, label, dt=DT):
@@ -1739,6 +1751,596 @@ def phase_hopper_worlds(dev):
                     *args, **kw), n=10))
 
 
+# ----------------------------------------------------------------------
+# heterogeneous worlds and ball joints (phases 18-20): the scenes are
+# written against a builder module ``lib`` with the JAX package's API, so
+# the CPU tests build the same scenes with both packages
+# ----------------------------------------------------------------------
+HETERO_W = 4096
+SHOWCASE_W = 1024
+ROD_DT = 1.0 / 480.0                  # example_rod_swing.py
+ROD_SUBSTEPS = 8
+ROD_FRAMES = 60                       # 1 s, the example's test_final
+ROD_TURN_FRAMES = 4                   # frames per turn of the rate turns
+ROD_SPACING = 0.1
+BALL_RADIUS = 0.2                     # the ant's ball: 0.45 kg, 0.2 m
+BALL_MASS = 0.45
+# on the diagonal beyond the front-left foot's tip (0.616, 0.616, 0.074 at
+# joint_q0), 5 mm into it: the foot and the ball touch at reset
+BALL_XY = 0.789
+ANT_MASS_SCALE = (0.8, 1.2)
+MU_RANGE = (0.5, 1.25)
+
+
+def rod_scene(lib, n):
+    """example_rod_swing.py's rod (8 ball-jointed capsules from (0, 0, 1)
+    to (1, 0, 1), radius 0.02, bend_ke 200, bend_kd 3, fixed root)
+    replicated to n worlds ROD_SPACING apart in y: each world's root
+    joint_X_p differs."""
+    r = lib.ModelBuilder()
+    bodies = r.add_rod([0.0, 0.0, 1.0], [1.0, 0.0, 1.0], segments=8,
+                       radius=0.02, bend_ke=200.0, bend_kd=3.0,
+                       root_joint="fixed", key="rod")
+    b = lib.ModelBuilder()
+    b.replicate(r, n, spacing=(0.0, ROD_SPACING, 0.0))
+    return b, bodies[-1]
+
+
+def ant_ball_scene(lib, n, ant_xml):
+    """n worlds of gymnasium's ant and a free 0.45 kg ball of radius 0.2
+    on the ground, touching the front-left foot at reset (a robot
+    dribbling an object, as OGBench's antsoccer): two articulations per
+    world, the ball in its own."""
+    r = lib.ModelBuilder()
+    r.add_mjcf(ant_xml)
+    r.add_articulation()
+    cfg = lib.ShapeConfig(density=BALL_MASS / (4.0 / 3.0 * 3.141592653589793
+                                               * BALL_RADIUS ** 3))
+    ball = r.add_body(xform=[BALL_XY, BALL_XY, BALL_RADIUS, 0, 0, 0, 1],
+                      key="ball")
+    r.add_shape_sphere(ball, radius=BALL_RADIUS, cfg=cfg, key="ball")
+    r.add_joint_free(ball, key="ball")
+    b = lib.ModelBuilder()
+    b.replicate(r, n)
+    return b, r
+
+
+def showcase_scene(lib, n):
+    """example_basic_joints.py's world (revolute, prismatic, ball, fixed,
+    free and one-axis D6 articulations side by side, capsule links, no
+    ground) replicated n times: six articulation groups, one of them
+    without dofs."""
+    w = lib.ModelBuilder()
+    cfg = lib.ShapeConfig(density=1000.0)
+
+    def link(x, key):
+        body = w.add_body(xform=[x, 0, 1.0, 0, 0, 0, 1], key=key)
+        w.add_shape_capsule(body, radius=0.05, half_height=0.2, cfg=cfg)
+        return body
+    hinge = [0, 0, 0.3, 0, 0, 0, 1]
+    w.add_joint_revolute(-1, link(0.0, "revolute"), axis="Y",
+                         xform_p=[0, 0, 1.3, 0, 0, 0, 1], xform_c=hinge)
+    w.add_articulation()
+    w.add_joint_prismatic(-1, link(1.0, "prismatic"), axis="X",
+                          xform_p=[1.0, 0, 1.0, 0, 0, 0, 1])
+    w.add_articulation()
+    w.add_joint_ball(-1, link(2.0, "ball"), xform_p=[2.0, 0, 1.3, 0, 0, 0, 1],
+                     xform_c=hinge)
+    w.add_articulation()
+    w.add_joint_fixed(-1, link(3.0, "fixed"),
+                      xform_p=[3.0, 0, 1.0, 0, 0, 0, 1])
+    w.add_articulation()
+    w.add_joint_free(link(4.0, "free"))
+    w.add_articulation()
+    w.add_joint_d6(-1, link(5.0, "d6"),
+                   angular_axes=[lib.JointDofConfig(axis="X")],
+                   xform_p=[5.0, 0, 1.3, 0, 0, 0, 1], xform_c=hinge)
+    b = lib.ModelBuilder()
+    b.replicate(w, n)
+    return b
+
+
+def showcase_kicks(st):
+    """The example's kicks in every world, as (dof indices, values): the
+    revolute joints at 2 rad/s, the ball joints at (1.5, 1.0, 0) rad/s."""
+    import numpy as np
+    starts = np.asarray(st.joint_qd_start[:-1])
+    jt = np.asarray(st.joint_type)
+    rev, ball = starts[jt == 1], starts[jt == 2]
+    idx = np.concatenate([rev, ball, ball + 1])
+    val = np.concatenate([np.full(len(rev), 2.0), np.full(len(ball), 1.5),
+                          np.full(len(ball), 1.0)])
+    return idx, val.astype(np.float32)
+
+
+def ragged_scene(lib, n):
+    """example_hetero_worlds.py with its box pedestal a static sphere of
+    radius 0.2 at z = 0.2 (the port has no box pair): a free sphere of
+    radius 0.3 dropped from z = 1 in every world, the pedestal in the odd
+    worlds only, a global ground plane. The odd worlds' rows have one
+    contact slot more: a ragged plan."""
+    b = lib.ModelBuilder()
+    for w in range(n):
+        b.begin_world()
+        b.add_articulation()
+        body = b.add_body(xform=[0, 0, 1.0, 0, 0, 0, 1])
+        b.add_shape_sphere(body, radius=0.3)
+        b.add_joint_free(body)
+        if w % 2:
+            b.add_shape_sphere(-1, xform=[0, 0, 0.2, 0, 0, 0, 1],
+                               radius=0.2)
+        b.end_world()
+    b.add_ground_plane()
+    return b
+
+
+def randomize_ant_ball(model, seed):
+    """Per-world domain randomization, from ``seed``: every ant body's
+    mass and inertia times one factor U(0.8, 1.2) of its world, every
+    shape's mu in U(0.5, 1.25), inverse mass and inertia kept
+    consistent. Edits the model's tensors in place (the caller then calls
+    ``solver.notify_model_changed()``)."""
+    import torch
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(seed)
+    st = model.structure
+    n = st.world_count
+    nb = st.body_count // n
+    ant = torch.tensor([k != "ball" for k in st.body_key[:nb]])
+    f = ANT_MASS_SCALE[0] + (ANT_MASS_SCALE[1] - ANT_MASS_SCALE[0]) \
+        * torch.rand(n, 1, generator=gen)
+    f = torch.where(ant[None], f, 1.0).reshape(-1).to(model.device)
+    model.body_mass.mul_(f)
+    model.body_inertia.mul_(f[:, None, None])
+    model.body_inv_mass.div_(f)
+    model.body_inv_inertia.div_(f[:, None, None])
+    mu = MU_RANGE[0] + (MU_RANGE[1] - MU_RANGE[0]) * torch.rand(
+        st.shape_count, generator=gen)
+    model.shape_material_mu.copy_(mu.to(model.device))
+
+
+def groups_alone(solver, state, ctl, contacts, out, dt):
+    """Largest difference between ``step``'s result ``out`` on the flat
+    state and each articulation group's rows stepped alone (gathered from
+    the same input, one substep, no other group in the call)."""
+    import torch
+    from newton_tpu_torch.solvers.generalized import batched
+    worst = 0.0
+    for grp in solver.groups:
+        t = grp.tables
+        if t.d == 0:
+            continue
+        rows, c, crows = batched._gather_rows(grp, state, ctl, contacts)
+        one = batched._substep(solver, grp, rows, c, crows, dt, True, None)
+        for name, idx in (("joint_q", t.row_coord), ("joint_qd", t.row_dof),
+                          ("body_q", t.row_body), ("body_qd", t.row_body)):
+            worst = max(worst, float((getattr(out, name)[idx]
+                                      - getattr(one, name)).abs().max()))
+    torch.cuda.synchronize()
+    if worst > STEP_VS_BATCHED_TOL:
+        raise AssertionError(f"step vs its groups stepped alone: {worst} > "
+                             f"{STEP_VS_BATCHED_TOL}")
+    return worst
+
+
+def run_steps(solver, state, ctl, substeps, dt, kernels, pipe=None,
+              sample=None, touched=None):
+    """``substeps`` flat ``step`` calls, collide each substep when a
+    pipeline is given, a new mjc:ctrl every SUBSTEPS substeps when a
+    sampler is; ``touched`` (slots, worlds) gathers which worlds had one of
+    the given slots active."""
+    import torch
+    for k in range(substeps):
+        if sample is not None and k % SUBSTEPS == 0:
+            ctl.custom["mjc:ctrl"] = sample(1)[0]
+        contacts = None if pipe is None else pipe.collide(state)
+        if touched is not None:
+            slots, seen = touched
+            seen |= contacts.rigid_contact_mask[slots].any(1)
+        state = solver.step(state, None, ctl, contacts, dt, kernels=kernels)
+    torch.cuda.synchronize()
+    return state
+
+
+def turns(solver, state, plain, ctl, substeps, n, dt, **kw):
+    """env-steps/s of the kernel and plain paths in turns (plain, kernel,
+    kernel, plain), each turn continuing its own state; the plain turns
+    launch no kernel."""
+    rates = {True: [], False: []}
+    for kernels in (False, True, True, False):
+        before = kernel_launches()
+        t0 = time.perf_counter()
+        if kernels:
+            state = run_steps(solver, state, ctl, substeps, dt, True, **kw)
+        else:
+            plain = run_steps(solver, plain, ctl, substeps, dt, False, **kw)
+        rates[kernels].append(substeps * n / (time.perf_counter() - t0))
+        if not kernels and kernel_launches() != before:
+            raise AssertionError("a plain path launched a kernel")
+    return rates, state, plain
+
+
+def group_paths(solver, state, ctl, contacts, dt, label):
+    """One ``step`` through the kernels and one through the plain versions
+    from one state: each group's B1 held against its plain version on its
+    operands (atol 1e-5, rtol 1e-4) and B2 likewise (phase 6's
+    tolerances; rows whose guard halvings differ are counted and left out,
+    at most N / 100 of them: a halving is a threshold decision on
+    ||dlambda||^2 that the kernel's sum order can tip, more often where a
+    two-sided row's w_other dominates its diagonal); the states agree
+    (joint_q/body_q 2e-4, joint_qd 5e-3). Returns the errors and each
+    group's record."""
+    rec = {}
+    k = solver.step(state.clone(), None, ctl, contacts, dt, record=rec)
+    p = solver.step(state.clone(), None, ctl, contacts, dt, kernels=False)
+    recs = rec.get("groups", {0: rec})
+    errs, rows_ok = {}, None
+    for gi, r in recs.items():
+        n = r["chol"][0].shape[0]
+        errs[f"b1 group {gi}"] = b1_check(*r["chol"], f"{label} group {gi}")
+        if "pgs" in r:
+            e_lam, e_dqd, n_diff, _, ok = compare_pgs(*r["pgs"],
+                                                      max(n // 100, 1))
+            errs[f"b2 group {gi}"] = dict(lam=e_lam, dqd=e_dqd,
+                                          guard_mismatch_rows=n_diff)
+            rows_ok = ok if rows_ok is None else rows_ok & ok
+    for name, atol in (("joint_q", 2e-4), ("joint_qd", 5e-3),
+                       ("body_q", 2e-4)):
+        n = len(rows_ok) if rows_ok is not None else 1
+        a = getattr(k, name).view(n, -1)
+        b = getattr(p, name).view(n, -1)
+        if rows_ok is not None:
+            a, b = a[rows_ok], b[rows_ok]
+        ok, e = close(a, b, atol, atol)
+        if not ok:
+            raise AssertionError(f"{label}: {name} kernel vs plain step "
+                                 f"off tolerance ({e:.3g})")
+        errs[name] = e
+    return errs, recs
+
+
+def phase_rod(dev):
+    """rod x 4096 (example_rod_swing.py, ROD_SPACING apart): 1 s of
+    SolverFeatherstone.step at dt 1/480, 8 substeps per frame, no contacts
+    (as the example): one B1 launch (d = 21) per substep and no B2; finite
+    state, unit ball quaternions, every tip z in (0.6, 1.01] (the
+    example's test_final), world k's tip world 0's moved by its offset
+    (1e-4); step against its group stepped alone (1e-6), a kernel vs plain
+    step, env-steps/s in turns, setup time and peak device memory."""
+    import numpy as np
+    import torch
+    import newton_tpu_torch as nt
+    from newton_tpu_torch.solvers.generalized import linalg
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    b, tip = rod_scene(nt, HETERO_W)
+    offsets = np.asarray(b.joint_X_p)[0::8, 1]            # root y per world
+    model = b.finalize(dev)
+    solver = nt.SolverFeatherstone(model)
+    setup_s = time.perf_counter() - t0
+    if [(g.g.n, g.g.d) for g in solver.groups] != [(HETERO_W, 21)] \
+            or linalg.kernel_instance(21) != "reg24":
+        raise AssertionError("rod: expected one group of d = 21 (reg24)")
+    state = nt.eval_fk(model, model.joint_q0, model.joint_qd0, model.state())
+    ctl = model.control()
+    n_sub = ROD_FRAMES * ROD_SUBSTEPS
+    reset_robot_launches()
+    t0 = time.perf_counter()
+    state = run_steps(solver, state, ctl, n_sub, ROD_DT, True)
+    elapsed = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(zip(("chol_inv_solve", "pgs_solve_fused"),
+                        kernel_launches()))
+    if launches != dict(chol_inv_solve=n_sub, pgs_solve_fused=0):
+        raise AssertionError(f"rod: launches {launches} in {n_sub} substeps")
+    check_state(state, "rod", None)
+    quat = state.joint_q.view(HETERO_W, -1).view(HETERO_W, 7, 4)
+    if float((torch.linalg.vector_norm(quat, dim=-1) - 1).abs().max()) > 1e-2:
+        raise AssertionError("rod: ball quaternions off unit length")
+    bq = state.body_q.view(HETERO_W, 8, 7)[:, tip]
+    tip_z = bq[:, 2]
+    if not bool(((tip_z > 0.6) & (tip_z <= 1.01)).all()):
+        raise AssertionError(f"rod: tip z in [{float(tip_z.min()):.3f}, "
+                             f"{float(tip_z.max()):.3f}], not (0.6, 1.01]")
+    off = torch.zeros_like(bq[:, :3])
+    off[:, 1] = torch.as_tensor(offsets - offsets[0], dtype=off.dtype,
+                                device=dev)
+    shift = float((bq[:, :3] - bq[:1, :3] - off).abs().max())
+    if shift > 1e-4:
+        raise AssertionError(f"rod: world tips differ from world 0's moved "
+                             f"by their offsets by {shift:.3g}")
+    errs, recs = group_paths(solver, state, ctl, None, ROD_DT, "rod")
+    out = solver.step(state, None, ctl, None, ROD_DT)
+    alone = groups_alone(solver, state, ctl, None, out, ROD_DT)
+    rates, state, plain = turns(solver, state, state.clone(), ctl,
+                                ROD_TURN_FRAMES * ROD_SUBSTEPS, HETERO_W,
+                                ROD_DT)
+    check_state(state, "rod kernel path", None)
+    check_state(plain, "rod plain path", None)
+    Mi, rhs = recs[0]["chol"]
+    return dict(launches=launches, substeps=n_sub, worlds=HETERO_W,
+                setup_s=setup_s, peak_memory_bytes=peak,
+                tip_z=[float(tip_z.min()), float(tip_z.max())],
+                tip_shift_err=shift,
+                main_env_steps_per_s=n_sub * HETERO_W / elapsed,
+                env_steps_per_s=sum(rates[True]) / 2,
+                plain_env_steps_per_s=sum(rates[False]) / 2,
+                turns_kernel=rates[True], turns_plain=rates[False],
+                paths=errs, groups_alone=alone,
+                b1_max_abs_err=errs["b1 group 0"][0],
+                b1_bit_exact=errs["b1 group 0"][1], b1=b1_times(Mi, rhs))
+
+
+def ant_ball_halves(solver, rec, contacts):
+    """The two halves of every active ant-ball contact: the ant cell's
+    and the ball cell's normal impulses on the same slot (the ball cell's
+    two-sided entries, found in the ant cell's plan; a compacted entry
+    that was not kept counts as 0). Returns (pairs with an impulse, the
+    median and the largest |a - b| / max(a, b), both halves finite and
+    >= 0)."""
+    import numpy as np
+    import torch
+    ga, gb = solver.groups
+    halves = []
+    for grp in (ga, gb):
+        r = rec["groups"][grp.index]
+        (J, *_), kw = r["pgs"]
+        c = kw["c"]
+        lam = r["lam"][:, :c]                              # (n, K) normal
+        full = torch.zeros((lam.shape[0], grp.plan.c), device=lam.device)
+        idx = grp.tables.cap < grp.plan.c
+        # the compacted entries back onto the plan's slots: compaction
+        # picks the top-K scores, recomputed here as the step did
+        if idx:
+            act = contacts.rigid_contact_mask[grp.tables.row_slots]
+            if grp.tables.valid is not None:
+                act = act & grp.tables.valid
+            depth = contacts.rigid_contact_depth[grp.tables.row_slots]
+            from newton_tpu_torch.solvers.generalized.batched import \
+                compaction_indices
+            sel = compaction_indices(act.float() * torch.clamp(
+                1.0 + depth, min=0.5), grp.tables.cap)
+            full.scatter_(1, sel, lam)
+        else:
+            full = lam
+        halves.append(full)
+    ob = gb.plan.ob
+    pos = np.nonzero(ob >= 0)
+    slots = gb.plan.slots[pos]
+    a_slots = ga.plan.slots
+    j_a = np.argmax(a_slots[pos[0]] == slots[:, None], axis=1)
+    e = torch.as_tensor(pos[0], device=halves[0].device)
+    ha = halves[0][e, torch.as_tensor(j_a, device=e.device)]
+    hb = halves[1][e, torch.as_tensor(pos[1], device=e.device)]
+    act = contacts.rigid_contact_mask[torch.as_tensor(slots,
+                                                      device=e.device)]
+    on = act & ((ha > 0) | (hb > 0))
+    ok = bool(torch.isfinite(ha).all() and torch.isfinite(hb).all()
+              and (ha >= 0).all() and (hb >= 0).all())
+    rel = ((ha - hb).abs() / torch.maximum(ha, hb).clamp(min=1e-30))[on]
+    if not rel.numel():
+        return 0, 0.0, 0.0, ok
+    return int(on.sum()), float(rel.median()), float(rel.max()), ok
+
+
+def phase_ant_ball(dev):
+    """ant with a ball x 4096, domain-randomized per world from a seed
+    (ant masses and inertias x U(0.8, 1.2), every shape's mu in U(0.5,
+    1.25), applied after the solver is built, then notify_model_changed):
+    SolverMuJoCo(iterations=8, euler) through step, dt 1/240, 4 substeps
+    per frame, uniform ctrl; a warm-up frame then FRAMES frames with one
+    B1 and one B2 launch per group (ant d = 14, ball d = 6) per substep,
+    B2 of both groups with w_other; phase 5's ant gates, an active
+    ant-ball contact in >= 50% of worlds during the window, ball speed
+    finite and < 20 m/s; the two halves of the active ant-ball contacts
+    (reported); step against its groups stepped alone (1e-6); a kernel vs
+    plain step; env-steps/s in turns, setup time, peak device memory."""
+    import torch
+    import newton_tpu_torch as nt
+    import dataclasses
+    from newton_tpu_torch.solvers.generalized import linalg, pgs
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n = HETERO_W
+    t0 = time.perf_counter()
+    b, _ = ant_ball_scene(nt, n, os.path.join(nt.ASSET_DIR, "ant.xml"))
+    model = b.finalize(dev)
+    pipe = nt.CollisionPipeline(model)
+    solver = nt.SolverMuJoCo(model, iterations=ITERS, integrator="euler")
+    randomize_ant_ball(model, 60)
+    solver.notify_model_changed()
+    setup_s = time.perf_counter() - t0
+    ga, gb = solver.groups
+    if (ga.g.d, gb.g.d) != (14, 6) or ga.tables.other is None \
+            or gb.tables.other is None:
+        raise AssertionError("ant with ball: expected the ant (d = 14) and "
+                             "the ball (d = 6), both with two-sided entries")
+    if ga.row_model.body_mass.dim() != 2 or ga.tables.mu.dim() != 2:
+        raise AssertionError("ant with ball: the randomized constants did "
+                             "not reach per-row tables")
+    ball_slots = torch.as_tensor(gb.plan.slots[:, gb.plan.ob[0] >= 0],
+                                 device=dev)               # (n, 13)
+    sample = ctrl_sampler(model, dev, seed=61)
+    state = nt.eval_fk(model, model.joint_q0, model.joint_qd0, model.state())
+    plain = state.clone()
+    ctl = model.control()
+    state = run_steps(solver, state, ctl, SUBSTEPS, DT, True, pipe=pipe,
+                      sample=sample)
+    touched = torch.zeros(n, dtype=torch.bool, device=dev)
+    n_sub = FRAMES * SUBSTEPS
+    reset_robot_launches()
+    t0 = time.perf_counter()
+    state = run_steps(solver, state, ctl, n_sub, DT, True, pipe=pipe,
+                      sample=sample, touched=(ball_slots, touched))
+    elapsed = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(zip(("chol_inv_solve", "pgs_solve_fused"),
+                        kernel_launches()))
+    if launches != dict(chol_inv_solve=2 * n_sub, pgs_solve_fused=2 * n_sub):
+        raise AssertionError(f"ant with ball: launches {launches} in {n_sub}"
+                             " substeps, expected B1 and B2 once per group")
+    q = state.joint_q.view(n, 22)
+    zmin = check_state(dataclasses.replace(state, joint_q=q), "ant with ball")
+    in_touch = int(touched.sum())
+    if in_touch < n // 2:
+        raise AssertionError(f"ant with ball: {in_touch} of {n} worlds with "
+                             "an active ant-ball contact in the window")
+    v_ball = torch.linalg.vector_norm(state.joint_qd.view(n, 20)[:, 14:17],
+                                      dim=1)
+    if not bool(torch.isfinite(v_ball).all()) or float(v_ball.max()) >= 20:
+        raise AssertionError(f"ant with ball: ball speed "
+                             f"{float(v_ball.max()):.3g} m/s")
+    ctl.custom["mjc:ctrl"] = sample(1)[0]
+    contacts = pipe.collide(state)
+    errs, recs = group_paths(solver, state, ctl, contacts, DT,
+                             "ant with ball")
+    rec = {"groups": recs}
+    pairs, rel_med, rel_max, halves_ok = ant_ball_halves(solver, rec,
+                                                         contacts)
+    if not halves_ok:
+        raise AssertionError("ant with ball: a contact half is negative or "
+                             "not finite")
+    out = solver.step(state, None, ctl, contacts, DT)
+    alone = groups_alone(solver, state, ctl, contacts, out, DT)
+    end_state = state
+    plain = run_steps(solver, plain, ctl, SUBSTEPS, DT, False, pipe=pipe,
+                      sample=sample)
+    rates, state, plain = turns(solver, state, plain, ctl, n_sub, n, DT,
+                                pipe=pipe, sample=sample)
+    for st_, label in ((state, "kernel"), (plain, "plain")):
+        check_state(dataclasses.replace(st_, joint_q=st_.joint_q.view(n, 22)),
+                    f"ant with ball {label} path", 0.05)
+    times = {}
+    for gi, r in recs.items():
+        args, kw = r["pgs"]
+        Mi, rhs = r["chol"]
+        J = args[0]
+        times[gi] = dict(
+            d=Mi.shape[1], b1_instance=linalg.kernel_instance(Mi.shape[1]),
+            b1=b1_times(Mi, rhs),
+            b2_shape=(kw["c"], int(kw["ld"].numel()), J.shape[2]),
+            b2_instance=pgs.kernel_instance(kw["c"], int(kw["ld"].numel()),
+                                            J.shape[2]),
+            b2_ms=time_ms(lambda: pgs.pgs_solve_fused(*args, **kw),
+                          queued=True),
+            b2_plain_ms=time_ms(lambda: pgs.pgs_solve_fused_plain(
+                *args, **kw), n=10),
+            b2_w_other_max=float(kw["w_other"].max()))
+    return dict(launches=launches, substeps=n_sub, worlds=n,
+                setup_s=setup_s, peak_memory_bytes=peak, root_z_min=zmin,
+                worlds_touching_ball=in_touch,
+                ball_speed_max=float(v_ball.max()),
+                halves=dict(pairs=pairs, median_rel_diff=rel_med,
+                            max_rel_diff=rel_max),
+                main_env_steps_per_s=n_sub * n / elapsed,
+                env_steps_per_s=sum(rates[True]) / 2,
+                plain_env_steps_per_s=sum(rates[False]) / 2,
+                turns_kernel=rates[True], turns_plain=rates[False],
+                paths=errs, groups_alone=alone, times=times,
+                end_root_z=float(end_state.joint_q.view(n, 22)[:, 2].min()))
+
+
+def phase_showcase_ragged(dev):
+    """Not user configurations, at SHOWCASE_W worlds. (a) The joint
+    showcase (six articulation groups, d = 1, 1, 3, 0, 6, 1) with the
+    example's kicks: 0.5 s of step at dt 1/240, no contacts, one B1 launch
+    per group with dofs per substep and no B2; the example's gates in
+    every world; a kernel vs plain step (each group's B1 against its plain
+    version) and step against its groups alone. (b) The ragged pedestal
+    scene: 1.25 s of step with contacts, one B1 and one B2 launch per
+    substep (a ragged plan, pad entries masked); spheres at z = 0.3 on the
+    ground and 0.7 on the pedestal (+-0.05); a kernel vs plain step (B2
+    held against its plain version) and step against its group alone."""
+    import torch
+    import newton_tpu_torch as nt
+    from newton_tpu_torch.math import quat_rotate
+    n = SHOWCASE_W
+    out = {}
+    model = showcase_scene(nt, n).finalize(dev)
+    solver = nt.SolverFeatherstone(model)
+    dofs = sorted(g.g.d for g in solver.groups)
+    if dofs != [0, 1, 1, 1, 3, 6]:
+        raise AssertionError(f"showcase: groups of d = {dofs}")
+    idx, val = showcase_kicks(model.structure)
+    qd = model.joint_qd0.clone()
+    qd[torch.as_tensor(idx, device=dev)] = torch.as_tensor(val, device=dev)
+    state = nt.eval_fk(model, model.joint_q0, qd, model.state())
+    p0 = state.body_q[:, :3].view(n, 6, 3).clone()
+    ctl = model.control()
+    n_sub = 120
+    reset_robot_launches()
+    state = run_steps(solver, state, ctl, n_sub, DT, True)
+    launches = dict(zip(("chol_inv_solve", "pgs_solve_fused"),
+                        kernel_launches()))
+    if launches != dict(chol_inv_solve=5 * n_sub, pgs_solve_fused=0):
+        raise AssertionError(f"showcase: launches {launches} in {n_sub} "
+                             "substeps, expected B1 once per group with dofs")
+    check_state(state, "showcase", None)
+    p = state.body_q[:, :3].view(n, 6, 3)
+    bq = state.body_q.view(n, 6, 7)[:, 2]
+    tip = bq[:, :3] + quat_rotate(bq[:, 3:], torch.tensor(
+        [0.0, 0.0, 0.3], device=dev))
+    anchor = torch.tensor([2.0, 0.0, 1.3], device=dev)
+    gates = dict(
+        revolute_plane=float((p[:, 0, 1] - p0[:, 0, 1]).abs().max()),
+        revolute_moved=float((p[:, 0, 2] - p0[:, 0, 2]).abs().min()),
+        prismatic_locked=float((p[:, 1, 1:] - p0[:, 1, 1:]).abs().max()),
+        fixed_moved=float((p[:, 3] - p0[:, 3]).norm(dim=-1).max()),
+        free_fell=float((p0[:, 4, 2] - p[:, 4, 2]).min()),
+        ball_pivot=float((tip - anchor).norm(dim=-1).max()))
+    if not (gates["revolute_plane"] < 1e-3 and gates["revolute_moved"] > 1e-3
+            and gates["prismatic_locked"] < 1e-3
+            and gates["fixed_moved"] < 1e-4 and gates["free_fell"] > 0.05
+            and gates["ball_pivot"] < 2e-3):
+        raise AssertionError(f"showcase: gates {gates}")
+    errs, _ = group_paths(solver, state, ctl, None, DT, "showcase")
+    alone = groups_alone(solver, state, ctl, None,
+                         solver.step(state, None, ctl, None, DT), DT)
+    out["showcase"] = dict(launches=launches, substeps=n_sub, worlds=n,
+                           gates=gates, paths=errs, groups_alone=alone)
+
+    model = ragged_scene(nt, n).finalize(dev)
+    pipe = nt.CollisionPipeline(model)
+    solver = nt.SolverFeatherstone(model, contact_iterations=8)
+    plan = solver.contact_plans[0]
+    if plan.uniform or plan.valid is None:
+        raise AssertionError("ragged: expected a padded plan")
+    state = nt.eval_fk(model, model.joint_q0, model.joint_qd0, model.state())
+    ctl = model.control()
+    n_sub = 300
+    reset_robot_launches()
+    state = run_steps(solver, state, ctl, n_sub, DT, True, pipe=pipe)
+    launches = dict(zip(("chol_inv_solve", "pgs_solve_fused"),
+                        kernel_launches()))
+    if launches != dict(chol_inv_solve=n_sub, pgs_solve_fused=n_sub):
+        raise AssertionError(f"ragged: launches {launches} in {n_sub} "
+                             "substeps")
+    check_state(state, "ragged", None)
+    z = state.body_q[:, 2]
+    want = torch.where(torch.arange(n, device=dev) % 2 == 1, 0.7, 0.3)
+    z_err = float((z - want).abs().max())
+    if z_err > 0.05:
+        raise AssertionError(f"ragged: sphere z off by {z_err:.3f}")
+    contacts = pipe.collide(state)
+    errs, recs = group_paths(solver, state, ctl, contacts, DT, "ragged")
+    alone = groups_alone(solver, state, ctl, contacts,
+                         solver.step(state, None, ctl, contacts, DT), DT)
+    args, kw = recs[0]["pgs"]
+    from newton_tpu_torch.solvers.generalized import pgs
+    shape = (kw["c"], int(kw["ld"].numel()), args[0].shape[2])
+    out["ragged"] = dict(
+        launches=launches, substeps=n_sub, worlds=n, z_err=z_err,
+        paths=errs, groups_alone=alone, b2_shape=shape,
+        b2_instance=pgs.kernel_instance(*shape),
+        pad_entries=int((~plan.valid).sum()),
+        b2_ms=time_ms(lambda: pgs.pgs_solve_fused(*args, **kw),
+                      queued=True),
+        b2_plain_ms=time_ms(lambda: pgs.pgs_solve_fused_plain(*args, **kw),
+                            n=10))
+    return out
+
+
 def pgs_smem(rec):
     from newton_tpu_torch import _kernels
     args, kw = rec
@@ -1770,7 +2372,11 @@ def kernel_info():
             ("B1 d=9", lib.chol_kernel_info, (9,)),
             ("B1 d=6", lib.chol_kernel_info, (6,)),
             ("B2 (16, 6, 9)", lib.pgs_kernel_info, (16, 6, 9)),
-            ("B2 (14, 3, 6)", lib.pgs_kernel_info, (14, 3, 6))):
+            ("B2 (14, 3, 6)", lib.pgs_kernel_info, (14, 3, 6)),
+            ("B1 d=21", lib.chol_kernel_info, (21,)),
+            ("B2 (32, 8, 14)", lib.pgs_kernel_info, (32, 8, 14)),
+            ("B2 (14, 0, 6)", lib.pgs_kernel_info, (14, 0, 6)),
+            ("B2 (2, 0, 6)", lib.pgs_kernel_info, (2, 0, 6))):
         regs, blocks = ctypes.c_int(0), ctypes.c_int(0)
         _kernels.check(fn(*shape, ctypes.addressof(regs),
                           ctypes.addressof(blocks)), label)
@@ -1811,15 +2417,23 @@ def main():
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     results = {}
+    marks = [time.perf_counter()]
+
+    def mark(label):
+        """Seconds since the previous mark, under results["phase_s"]."""
+        marks.append(time.perf_counter())
+        results.setdefault("phase_s", {})[label] = marks[-1] - marks[-2]
 
     card = card_line()
     print(f"[1 device] {torch.cuda.get_device_name(0)}; nvidia-smi: {card}",
           flush=True)
+    mark("1")
 
     t0 = time.perf_counter()
     _kernels.lib()
     print(f"[2 build] {time.perf_counter() - t0:.1f} s "
           f"(nvcc sm_90a, ctypes)", flush=True)
+    mark("2")
     with open(os.path.join(os.path.dirname(_kernels.build()),
                            "ptxas.log")) as f:
         results["ptxas"] = [ln for ln in f.read().splitlines()
@@ -1833,6 +2447,7 @@ def main():
               f"d={d} {t['ms']:.4f} ms vs plain {t['plain_ms']:.4f} ms, "
               f"torch.linalg.solve {t['library_ms']:.4f} ms"
               for d, t in b1["times"].items()), flush=True)
+    mark("3")
 
     model, pipe, solver, state0 = build_ant(dev)
     b2, dropped, _ = phase_b2(dev, model, pipe, solver, state0)
@@ -1842,6 +2457,7 @@ def main():
           f"err {b2['max_abs_err']:.3g}, dqd err {b2['dqd_max_abs_err']:.3g}"
           f"; guard-mismatch envs {mism}; {b2['ms']:.4f} ms vs plain "
           f"{b2['plain_ms']:.4f} ms", flush=True)
+    mark("4")
 
     main_res, final = phase_main(dev, model, pipe, solver, state0)
     results["main"] = main_res
@@ -1850,12 +2466,14 @@ def main():
           f"{main_res['root_z_min']:.3f}; {main_res['env_steps_per_s']:.1f} "
           f"env-steps/s (plain path {main_res['plain_env_steps_per_s']:.1f})"
           f" on {card}", flush=True)
+    mark("5")
 
     paths = phase_paths(model, pipe, solver,
                         {"main-path end": final, "drop 0.08": dropped},
                         ctrl_sampler(model, dev, seed=3))
     results["paths"] = paths
     print(f"[6 kernel vs plain substep] {paths}", flush=True)
+    mark("6")
 
     _, sand_solver, sand0 = build_sand(dev)
     b34 = phase_b34(dev, sand_solver, sand0)
@@ -1870,6 +2488,7 @@ def main():
           f"given bins ({b34['g2p_with_binning_ms']:.4f} ms with its "
           f"binning), plain {b34['g2p_plain_ms']:.4f} ms; sand stencils "
           f"touch {b34['active_nodes']} nodes", flush=True)
+    mark("7")
 
     mpm, sand_end = phase_mpm_main(sand_solver, sand0)
     results["mpm"] = mpm
@@ -1878,6 +2497,7 @@ def main():
           f"{mpm['gates']}; {mpm['particle_steps_per_s']:.1f} "
           f"particle-steps/s (plain path "
           f"{mpm['plain_particle_steps_per_s']:.1f}) on {card}", flush=True)
+    mark("8")
 
     side = phase_mpm_side(dev)
     results["mpm_side"] = side
@@ -1885,6 +2505,7 @@ def main():
         f"{k}: launches {v['launches']} in {MPM_SIDE_STEPS} steps "
         f"({v['per_step']} per step), {v['particle_steps_per_s']:.1f} "
         f"particle-steps/s" for k, v in side.items()), flush=True)
+    mark("9")
 
     mpm_paths = phase_mpm_paths(sand_solver, sand_end)
     results["mpm_paths"] = mpm_paths
@@ -1892,6 +2513,7 @@ def main():
           f"{mpm_paths['c_max']:.3g}; " + "; ".join(
               f"{k}: " + ", ".join(f"{a} {b:.3g}" for a, b in v.items())
               for k, v in mpm_paths["errors"].items()), flush=True)
+    mark("10")
 
     hmodel, hpipe, hsolver = build_humanoid(dev)
     hum, hum_end = phase_humanoid_main(dev, hmodel, hpipe, hsolver)
@@ -1906,6 +2528,7 @@ def main():
           f"{hum['active_contacts_max']}; {hum['env_steps_per_s']:.1f} "
           f"env-steps/s (plain path {hum['plain_env_steps_per_s']:.1f}) on "
           f"{card}", flush=True)
+    mark("11")
 
     hpaths = phase_humanoid_paths(dev, hmodel, hpipe, hsolver, hum_end)
     results["humanoid_paths"] = hpaths
@@ -1918,6 +2541,7 @@ def main():
           f"{ht['b2_uncompacted_ms']:.4f} ms vs plain "
           f"{ht['b2_uncompacted_plain_ms']:.4f} ms; shared memory "
           f"{hpaths['smem_bytes']} B", flush=True)
+    mark("12")
 
     cart = phase_cartpole(dev)
     results["cartpole"] = cart
@@ -1929,6 +2553,7 @@ def main():
           f"{cart['paths']}; B1 d=2 {cart['b1']['ms']:.4f} ms vs plain "
           f"{cart['b1']['plain_ms']:.4f} ms, torch.linalg.solve "
           f"{cart['b1']['library_ms']:.4f} ms on {card}", flush=True)
+    mark("13")
 
     hw = phase_humanoid_worlds(dev)
     results["humanoid_worlds"] = hw
@@ -1943,6 +2568,7 @@ def main():
           f"B1 d=23 {hw['times']['b1']['ms']:.4f} ms (library "
           f"{hw['times']['b1']['library_ms']:.4f} ms), B2 (32, 17, 23) "
           f"{hw['times']['b2_ms']:.4f} ms on {card}", flush=True)
+    mark("14")
 
     chains = phase_chains(dev)
     results["chains"] = chains
@@ -1954,6 +2580,7 @@ def main():
         for k, v in chains.items() if isinstance(k, int))
         + "; B2 random (192, 40, 48) "
         + json.dumps(chains["random (192, 40, 48)"]), flush=True)
+    mark("15")
 
     cheetah = phase_cheetah(dev)
     results["half_cheetah"] = cheetah
@@ -1967,6 +2594,7 @@ def main():
           f"{cheetah['shift']}; B1 d=9 {cheetah['b1']['ms']:.4f} ms (library "
           f"{cheetah['b1']['library_ms']:.4f} ms), B2 (16, 6, 9) "
           f"{cheetah['b2_ms']:.4f} ms on {card}", flush=True)
+    mark("16")
 
     hop = phase_hopper_worlds(dev)
     results["hopper_worlds"] = hop
@@ -1980,8 +2608,55 @@ def main():
           f"B1 d=6 {hop['b1']['ms']:.4f} ms (library "
           f"{hop['b1']['library_ms']:.4f} ms), B2 (14, 3, 6) "
           f"{hop['b2_ms']:.4f} ms on {card}", flush=True)
+    mark("17")
+
+    rod = phase_rod(dev)
+    results["rod"] = rod
+    print(f"[18 rod x {HETERO_W}, ball joints, replicate with spacing + step]"
+          f" setup {rod['setup_s']:.2f} s, {rod['substeps']} substeps, "
+          f"launches {rod['launches']}, tip z {rod['tip_z']}, tips vs world "
+          f"0 moved by the spacing {rod['tip_shift_err']:.3g}; "
+          f"{rod['env_steps_per_s']:.1f} env-steps/s (plain path "
+          f"{rod['plain_env_steps_per_s']:.1f}); peak memory "
+          f"{rod['peak_memory_bytes']} B; step vs its group alone "
+          f"{rod['groups_alone']}; kernel vs plain step {rod['paths']}; B1 "
+          f"d=21 {rod['b1']['ms']:.4f} ms (library "
+          f"{rod['b1']['library_ms']:.4f} ms) on {card}", flush=True)
+    mark("18")
+
+    ab = phase_ant_ball(dev)
+    results["ant_ball"] = ab
+    print(f"[19 ant with a ball x {HETERO_W}, randomized, step] setup "
+          f"{ab['setup_s']:.2f} s, {ab['substeps']} substeps, launches "
+          f"{ab['launches']}, root z min {ab['root_z_min']:.3f}, worlds "
+          f"touching the ball in the window {ab['worlds_touching_ball']}, "
+          f"ball speed max {ab['ball_speed_max']:.3f} m/s, two-sided halves "
+          f"{ab['halves']}; {ab['env_steps_per_s']:.1f} env-steps/s (plain "
+          f"path {ab['plain_env_steps_per_s']:.1f}); peak memory "
+          f"{ab['peak_memory_bytes']} B; step vs its groups alone "
+          f"{ab['groups_alone']}; kernel vs plain step {ab['paths']}; "
+          + "; ".join(f"group {gi}: B1 d={t['d']} {t['b1']['ms']:.4f} ms "
+                      f"(library {t['b1']['library_ms']:.4f} ms), B2 "
+                      f"{t['b2_shape']} {t['b2_instance']} with w_other "
+                      f"{t['b2_ms']:.4f} ms" for gi, t in ab["times"].items())
+          + f" on {card}", flush=True)
+    mark("19")
+
+    sr = phase_showcase_ragged(dev)
+    results["showcase_ragged"] = sr
+    sc, rg = sr["showcase"], sr["ragged"]
+    print(f"[20 joint showcase and ragged plan x {SHOWCASE_W}] showcase: "
+          f"launches {sc['launches']} in {sc['substeps']} substeps, gates "
+          f"{sc['gates']}, vs groups alone {sc['groups_alone']}; ragged: "
+          f"launches {rg['launches']} in {rg['substeps']} substeps, z err "
+          f"{rg['z_err']:.4f}, {rg['pad_entries']} pad entries, B2 "
+          f"{rg['b2_shape']} {rg['b2_instance']} {rg['b2_ms']:.4f} ms, "
+          f"kernel vs plain step {rg['paths']}", flush=True)
+    mark("20")
 
     results["kernel_info"] = kernel_info()
+    print("[phase seconds] " + json.dumps(
+        {k: round(v, 1) for k, v in results["phase_s"].items()}), flush=True)
     print("[details] " + json.dumps(results, default=str), flush=True)
     hcases = hpaths["cases"].values()
 
@@ -2097,7 +2772,17 @@ def main():
              cheetah["b1_max_abs_err"], cheetah["b1"]),
             ("reg8", "hopper x 8192, replicate + step, RK4: 4 per substep "
              "(phase 17)", 6, WORLDS, hop["launches"]["chol_inv_solve"],
-             hop["b1_max_abs_err"], hop["b1"])):
+             hop["b1_max_abs_err"], hop["b1"]),
+            ("reg24", "rod x 4096, ball joints (phase 18)", 21, HETERO_W,
+             rod["launches"]["chol_inv_solve"], rod["b1_max_abs_err"],
+             rod["b1"]),
+            ("reg14", "ant with a ball x 4096, the ant's group: 2 groups "
+             "per substep (phase 19)", 14, HETERO_W,
+             ab["launches"]["chol_inv_solve"],
+             ab["paths"]["b1 group 0"][0], ab["times"][0]["b1"]),
+            ("reg8", "ant with a ball x 4096, the ball's group (phase 19)",
+             6, HETERO_W, ab["launches"]["chol_inv_solve"],
+             ab["paths"]["b1 group 1"][0], ab["times"][1]["b1"])):
         kernels.append(dict(
             name=f"chol_inv_solve [{label}] d={d} W={n}", **b1_src,
             instance=label, path=path, launches=launches, max_abs_err=err,
@@ -2129,6 +2814,30 @@ def main():
             instance=label, path=path, launches=launches, max_abs_err=err,
             ms=ms, plain_ms=plain_ms,
             **bound_fields("pgs_solve_fused", ms, c=c, nl=nl, d=d, W=n)))
+    for gi, label in ((0, "the ant's group"), (1, "the ball's group")):
+        t = ab["times"][gi]
+        c, nl, d = t["b2_shape"]
+        kernels.append(dict(
+            name=f"pgs_solve_fused [{t['b2_instance']}, w_other] "
+                 f"{t['b2_shape']} W={HETERO_W}", **b2_src,
+            instance=t["b2_instance"],
+            path=f"ant with a ball x 4096, {label}, two-sided contacts: "
+                 "2 groups per substep (phase 19)",
+            launches=ab["launches"]["pgs_solve_fused"],
+            max_abs_err=ab["paths"][f"b2 group {gi}"]["lam"],
+            ms=t["b2_ms"], plain_ms=t["b2_plain_ms"],
+            **bound_fields("pgs_solve_fused", t["b2_ms"], c=c, nl=nl, d=d,
+                           W=HETERO_W, w_other=True)))
+    c, nl, d = rg["b2_shape"]
+    kernels.append(dict(
+        name=f"pgs_solve_fused [{rg['b2_instance']}] {rg['b2_shape']} "
+             f"W={SHOWCASE_W}", **b2_src, instance=rg["b2_instance"],
+        path="ragged pedestal plan x 1024 (phase 20)",
+        launches=rg["launches"]["pgs_solve_fused"],
+        max_abs_err=rg["paths"]["b2 group 0"]["lam"], ms=rg["b2_ms"],
+        plain_ms=rg["b2_plain_ms"],
+        **bound_fields("pgs_solve_fused", rg["b2_ms"], c=c, nl=nl, d=d,
+                       W=SHOWCASE_W)))
     print(f"[bounds] H100 SXM peaks {PEAK_BYTES_PER_S / 1e12:g} TB/s, "
           f"{PEAK_F32_FLOPS / 1e12:g} TFLOP/s float32 (700 W); this card: "
           f"{card}", flush=True)

@@ -36,9 +36,10 @@ _SIGNATURES = {
     "chol_inv_solve_f32": [_P, _P, _P, _P, _I, _I, _P, _P],
     # d -> instance code (linalg.INSTANCE_CODES)
     "chol_kernel_instance": [_I],
-    # J, Minv, qd, b, act, mu, lam0, ld, lam, dqd, halvings,
-    # W, c, nl, d, iters, omega, use_cone, diag_scale, reg, scratch, stream
-    "pgs_solve_fused_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    # J, Minv, qd, b, act, mu, lam0, ld, w_other (or NULL), lam, dqd,
+    # halvings, W, c, nl, d, iters, omega, use_cone, diag_scale, reg,
+    # scratch, stream
+    "pgs_solve_fused_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _F, _I, _F, _F, _P, _P],
     # c, nl, d -> bytes of one pgs block's state
     "pgs_smem_bytes": [_I, _I, _I],

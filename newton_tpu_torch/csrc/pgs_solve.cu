@@ -19,6 +19,19 @@
 // dqd = MJ^T lambda_c + Minv[:, ld] (lambda_lo - lambda_hi) and the number
 // of halvings per env.
 //
+// Two-sided contacts (a contact between two articulations or worlds, solved
+// in both cells) pass w_other (W, 3c, block order), the point inverse mass
+// of the body on the contact's other side along each row: it adds to the
+// row's diagonal before the softening, diag = (rowsum(J * MJ) + w) *
+// diag_scale + reg, and to every Delassus product as a diagonal term,
+// y = J tmp + w x. One load per contact row and one multiply-add per matvec.
+// It is a kernel parameter of its own, and the register path has an
+// instance of each width with and one without it (kTwoSided), so that a
+// null w_other runs the instructions it ran before the operand existed
+// (an Args struct past 128 bytes, or the operand's live values, made the
+// one-sided reg<24> spill); the shared-memory path branches on the pointer.
+// A zero w_other gives the same bits as a null one.
+//
 // What bounds it on an H100: neither bytes nor FLOPs. At the humanoid's
 // main-path shape (c, nl, d) = (32, 17, 23), r = 130, W = 4096, a call
 // must move 13,344 B per env (16.3 us at 3.35 TB/s) and do ~221k FLOPs per
@@ -283,13 +296,20 @@ struct Args {
   size_t scratch_floats;  // state starts at scratch + e * scratch_floats
 };
 
+// w_other of the register path's contact lane: block-order row q c + i of
+// env blockIdx.x, from the block and thread indices at each use
+__device__ __forceinline__ float w_own(const float* w, int r3, int c) {
+  return w[(size_t)blockIdx.x * r3 + (threadIdx.x & 3) * c
+           + (threadIdx.x >> 2)];
+}
+
 // The register path: quad lane q < 3 of quad i owns interleaved contact
 // row 3 i + q, lane 3 the limit pair i; each keeps its J row (S floats)
 // and its rows' lambda, diag, v_free, b and act in registers for the whole
 // solve, and builds its MJ row from them.
-template <int S>
+template <int S, bool kTwoSided>
 __global__ void __launch_bounds__(128, 8)
-pgs_kernel_reg(Dims D, Args A) {
+pgs_kernel_reg(Dims D, Args A, const float* __restrict__ w_other) {
   // lane groups of phase 1: d in (S - 4, S], so 32 / pow2(d) is known
   constexpr int NT = 128, NW = 4, S4 = S / 4, G = S <= 16 ? 2 : 1;
   extern __shared__ float4 sm4[];
@@ -319,6 +339,11 @@ pgs_kernel_reg(Dims D, Args A) {
   //    lane's "row" is the one-hot e_ld, so that J tmp gives it tmp[ld]
   //    and every lane runs the same instructions in phase 2
   const int dof = limit ? ld[i] : -1;
+  // the other body's point inverse mass on the lane's contact row: added
+  // to its diagonal here and, in each matvec below, times the lane's own x
+  // (xs[xi], not yet overwritten there); read where it is used, so that it
+  // holds no register across the sweeps
+  const bool two_sided = kTwoSided && contact;
 #pragma unroll
   for (int f = 0; f < S; ++f)
     jr[f] = contact ? J[k * S + f] : (f == dof ? 1.f : 0.f);
@@ -350,6 +375,7 @@ pgs_kernel_reg(Dims D, Args A) {
       vsum += jr[4 * f4 + 2] * qv.z;
       vsum += jr[4 * f4 + 3] * qv.w;
     }
+    if constexpr (kTwoSided) dsum += w_own(w_other, r3, c);
     dg = dsum * A.diag_scale + A.reg;
     vf = vsum;
   } else if (limit) {
@@ -394,13 +420,14 @@ pgs_kernel_reg(Dims D, Args A) {
   const float rn0 = rcp_rn(n0);
   const float rs = rsqrtf(dg);
   if (owner)
-    xs[xi] = scaled_diff(rs, div_rn(aa[0], n0, rn0),
-                         div_rn(aa[1], n0, rn0));
+    xs[xi] = scaled_diff(rs, div_rn(aa[0], n0, rn0), div_rn(aa[1], n0, rn0));
   __syncthreads();
   float lam_max = 0.f;
   for (int it = 0; it < A.spectral_iters; ++it) {
     phase1<NT, S, G>(D, MJ, xs, part, tmp);
-    const float y = row_dot();
+    float y = row_dot();
+    if constexpr (kTwoSided)
+      if (two_sided) y += w_own(w_other, r3, c) * xs[xi];
     const float v0 = rs * y * aa[0], v1 = rs * (-y) * aa[1];
     const float nrm = sqrt_rn(block_sum<NW>(v0 * v0 + v1 * v1, red, buf));
     lam_max = nrm;
@@ -427,7 +454,9 @@ pgs_kernel_reg(Dims D, Args A) {
   const bool friction = contact && q > 0;
   for (int it = 0; it < A.iters; ++it) {
     phase1<NT, S, G>(D, MJ, xs, part, tmp);
-    const float y = row_dot();
+    float y = row_dot();
+    if constexpr (kTwoSided)
+      if (two_sided) y += w_own(w_other, r3, c) * lm[0];
     const float y0 = lm[0] - sd * ((y + vf) - bb[0]);
     // the quad's normal and tangents, exchanged in registers
     const float yn = __shfl_sync(0xffffffffu, y0, base);
@@ -477,7 +506,7 @@ pgs_kernel_reg(Dims D, Args A) {
 // contacts or limit pairs need.
 template <int NT, bool kGlobal = false>
 __global__ void __launch_bounds__(NT, NT == 128 && !kGlobal ? 4 : 1)
-pgs_kernel_smem(Dims D, Args A) {
+pgs_kernel_smem(Dims D, Args A, const float* __restrict__ w_other) {
   constexpr int NW = NT / 32, NQ = NT / 4;
   extern __shared__ float4 sm4[];
   float* sm = kGlobal ? A.scratch + blockIdx.x * A.scratch_floats
@@ -535,8 +564,13 @@ pgs_kernel_smem(Dims D, Args A) {
     limit_rows<NT>(D, Minv, ld, MJ);
   }
   __syncthreads();
+  // the other body's point inverse mass of interleaved contact row k
+  // (block-order row (k % 3) c + k / 3), read from global memory
+  const float* wo_e = w_other ? w_other + e * r3 : nullptr;
+  auto w_of = [&](int k) { return wo_e[(k % 3) * c + k / 3]; };
   for (int k = tid; k < r3; k += NT) {
-    diag[k] = dot4(J + k * s, MJ + k * s, s4) * A.diag_scale + A.reg;
+    const float dot = dot4(J + k * s, MJ + k * s, s4);
+    diag[k] = (wo_e ? dot + w_of(k) : dot) * A.diag_scale + A.reg;
     vfree[k] = dot4(J + k * s, qd, s4);
   }
   for (int l = tid; l < nl; l += NT) {
@@ -576,7 +610,9 @@ pgs_kernel_smem(Dims D, Args A) {
       const int i = p * NQ + quad;
       if (q < 3 && i < c) {
         const int k = 3 * i + q;
-        const float v = rsqrtf(diag[k]) * dot4(J + k * s, tmp, s4) * act[k];
+        float y = dot4(J + k * s, tmp, s4);
+        if (wo_e) y += w_of(k) * xs[k];
+        const float v = rsqrtf(diag[k]) * y * act[k];
         lamn[k] = v;
         acc += v * v;
       } else if (q == 3 && i < nl) {
@@ -622,9 +658,11 @@ pgs_kernel_smem(Dims D, Args A) {
       const bool contact = q < 3 && i < c;
       const int k = 3 * i + q;
       float yf = 0.f;
-      if (contact)
-        yf = lam[k] - div_rn(scale, diag[k])
-                          * ((dot4(J + k * s, tmp, s4) + vfree[k]) - b[k]);
+      if (contact) {
+        float y = dot4(J + k * s, tmp, s4);
+        if (wo_e) y += w_of(k) * lam[k];
+        yf = lam[k] - div_rn(scale, diag[k]) * ((y + vfree[k]) - b[k]);
+      }
       // the quad's normal and tangents, exchanged in registers
       const float yn = __shfl_sync(0xffffffffu, yf, base);
       const float y1 = __shfl_sync(0xffffffffu, yf, base + 1);
@@ -702,17 +740,22 @@ size_t scratch_floats(const Dims& D) {
 
 // The kernel of an instance, its threads and dynamic shared memory, with
 // the carveout and large-shared-memory opt-in it needs.
-using Kernel = void (*)(Dims, Args);
+using Kernel = void (*)(Dims, Args, const float*);
 
-cudaError_t prepare(const Dims& D, Kernel* k, int* threads, int* smem) {
+cudaError_t prepare(const Dims& D, bool two_sided, Kernel* k, int* threads,
+                    int* smem) {
   const int inst = instance(D);
   *threads = threads_for(D.r);
   *smem = inst > 1000 ? 0
                       : (int)(smem_floats(D) * sizeof(float)
                               + D.nl * sizeof(int));
   switch (inst) {
-    case 16: *k = pgs_kernel_reg<16>; break;
-    case 24: *k = pgs_kernel_reg<24>; break;
+    case 16:
+      *k = two_sided ? pgs_kernel_reg<16, true> : pgs_kernel_reg<16, false>;
+      break;
+    case 24:
+      *k = two_sided ? pgs_kernel_reg<24, true> : pgs_kernel_reg<24, false>;
+      break;
     case 128: *k = pgs_kernel_smem<128>; break;
     case 256: *k = pgs_kernel_smem<256>; break;
     case 1128: *k = pgs_kernel_smem<128, true>; break;
@@ -757,7 +800,8 @@ extern "C" int pgs_solve_fused_f32(const float* J, const float* Minv,
                                    const float* qd, const float* b,
                                    const float* act, const float* mu,
                                    const float* lam0, const int* ld,
-                                   float* lam, float* dqd, int* halvings,
+                                   const float* w_other, float* lam,
+                                   float* dqd, int* halvings,
                                    int W, int c, int nl, int d, int iters,
                                    float omega, int use_cone,
                                    float diag_scale, float reg,
@@ -769,23 +813,23 @@ extern "C" int pgs_solve_fused_f32(const float* J, const float* Minv,
     return (int)cudaErrorInvalidValue;
   Kernel k;
   int threads = 0, smem = 0;
-  const cudaError_t e = prepare(D, &k, &threads, &smem);
+  const cudaError_t e = prepare(D, w_other != nullptr, &k, &threads, &smem);
   if (e != cudaSuccess) return (int)e;
   const Args A{J, Minv, qd, b, act, mu, lam0, ld, lam, dqd, halvings,
                iters, D.r < 192 ? 3 : 8, use_cone, omega, diag_scale, reg,
                scratch, scratch_floats(D)};
-  k<<<W, threads, smem, (cudaStream_t)stream>>>(D, A);
+  k<<<W, threads, smem, (cudaStream_t)stream>>>(D, A, w_other);
   return (int)cudaGetLastError();
 }
 
 // Registers per thread and resident blocks per SM of the launch that
-// pgs_solve_fused_f32 makes at (c, nl, d).
+// pgs_solve_fused_f32 makes at (c, nl, d) without w_other.
 extern "C" int pgs_kernel_info(int c, int nl, int d, int* regs,
                                int* blocks_per_sm) {
   if (!valid(c, nl, d)) return (int)cudaErrorInvalidValue;
   Kernel k;
   int threads = 0, smem = 0;
-  cudaError_t e = prepare(make_dims(c, nl, d), &k, &threads, &smem);
+  cudaError_t e = prepare(make_dims(c, nl, d), false, &k, &threads, &smem);
   cudaFuncAttributes a;
   if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, k);
   if (e != cudaSuccess) return (int)e;

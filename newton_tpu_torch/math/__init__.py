@@ -6,6 +6,7 @@ from .quat import (
     quat_mul,
     quat_normalize,
     quat_rotate,
+    quat_to_axis_angle,
     quat_to_matrix,
 )
 from .spatial import (
@@ -18,7 +19,8 @@ from .transform import transform_inverse, transform_multiply, transform_point
 
 __all__ = [
     "cross", "quat_conjugate", "quat_from_axis_angle", "quat_integrate",
-    "quat_mul", "quat_normalize", "quat_rotate", "quat_to_matrix",
+    "quat_mul", "quat_normalize", "quat_rotate", "quat_to_axis_angle",
+    "quat_to_matrix",
     "orthonormal_basis", "spatial_cross", "spatial_cross_dual",
     "velocity_at_point", "transform_inverse", "transform_multiply",
     "transform_point",

@@ -7,8 +7,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["cross", "quat_mul", "quat_conjugate", "quat_normalize",
-           "quat_rotate", "quat_from_axis_angle", "quat_to_matrix",
-           "quat_integrate"]
+           "quat_rotate", "quat_from_axis_angle", "quat_to_axis_angle",
+           "quat_to_matrix", "quat_integrate"]
 
 
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -57,6 +57,20 @@ def quat_from_axis_angle(axis: torch.Tensor, angle: torch.Tensor
     half = 0.5 * angle
     return torch.cat([axis * torch.sin(half)[..., None],
                       torch.cos(half)[..., None]], dim=-1)
+
+
+def quat_to_axis_angle(q: torch.Tensor):
+    """(axis, angle) with angle in [0, pi]: q and -q give the same pair;
+    the axis is unit X at angle 0."""
+    q = torch.where(q[..., 3:4] < 0.0, -q, q)
+    v = q[..., :3]
+    ok = (v * v).sum(-1) > 1e-12
+    unit_x = torch.zeros_like(v)
+    unit_x[..., 0] = 1.0
+    safe_v = torch.where(ok[..., None], v, unit_x)
+    sin_half = torch.linalg.vector_norm(safe_v, dim=-1)
+    angle = torch.where(ok, 2.0 * torch.atan2(sin_half, q[..., 3]), 0.0)
+    return safe_v / sin_half[..., None], angle
 
 
 def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:

@@ -4,11 +4,17 @@ Joints are grouped by depth in the kinematic tree on the host; every level
 is processed for all its joints at once, over any leading batch dims
 (``(W, ...)`` in the batched step). Per-joint motion is branch-free: one
 axis-composition path covers revolute/prismatic/fixed/D6 joints, and static
-masks select the free-joint path.
+masks select the free-joint path and the ball-joint path (the quaternion
+coordinate as the rotation, the three dofs as the angular velocity in the
+joint-parent frame).
 
 ``KinematicCache`` holds the host numpy plans; ``kinematic_tables`` turns
 them into index tensors on a device once and caches them, so FK in the
-substep builds nothing from numpy.
+substep builds nothing from numpy. A model's per-joint and per-body
+constants may carry a leading row axis (the solver's row models of worlds
+whose constants differ): every constant is indexed along its entity axis
+counted from the end, so ``(J, ...)`` and ``(n, J, ...)`` tables both
+broadcast against ``(n, ...)`` coordinates.
 """
 
 from __future__ import annotations
@@ -122,8 +128,6 @@ def kinematic_tables(model: Model) -> SimpleNamespace:
     tab = kc._tables.get(dev)
     if tab is not None:
         return tab
-    if kc.is_ball.any():
-        raise NotImplementedError("ball joints are not ported yet")
 
     def L(a):
         return torch.as_tensor(np.asarray(a, dtype=np.int64), device=dev)
@@ -138,26 +142,29 @@ def kinematic_tables(model: Model) -> SimpleNamespace:
     tab.lin_q_idx, tab.ang_q_idx = L(kc.lin_q_idx), L(kc.ang_q_idx)
     tab.lin_qd_idx, tab.ang_qd_idx = L(kc.lin_axis_idx), L(kc.ang_axis_idx)
     tab.lin_mask, tab.ang_mask = F(kc.lin_mask), F(kc.ang_mask)
-    A_lin = model.joint_axis[tab.lin_qd_idx] * tab.lin_mask[..., None]
-    A_raw = model.joint_axis[tab.ang_qd_idx]
+    A_lin = model.joint_axis[..., tab.lin_qd_idx, :] * tab.lin_mask[..., None]
+    A_raw = model.joint_axis[..., tab.ang_qd_idx, :]
     pad = torch.zeros_like(A_raw)
     pad[..., 0] = 1.0
     # unused angular axes padded with unit X so axis-angle stays finite
     tab.A_lin = A_lin
     tab.A_ang = torch.where(tab.ang_mask[..., None] > 0, A_raw, pad)
     tab.is_free = torch.as_tensor(kc.is_free, device=dev)
+    tab.is_ball = torch.as_tensor(kc.is_ball, device=dev)
+    tab.any_ball = bool(kc.is_ball.any())
     tab.identity = F([0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 1.0])
     tab.levels = []
     for level in kc.levels:
         parent = st.joint_parent[level]
         child = st.joint_child[level]
         pc = np.maximum(parent, 0)
-        jX_c_inv = transform_inverse(model.joint_X_c[L(level)])
+        jX_c_inv = transform_inverse(model.joint_X_c[..., L(level), :])
         tab.levels.append(SimpleNamespace(
             j=L(level), parent=L(pc), child=L(child),
             has_parent=torch.as_tensor(parent >= 0, device=dev)[:, None],
-            X_p=model.joint_X_p[L(level)], X_c_inv=jX_c_inv,
-            com_p=model.body_com[L(pc)], com_c=model.body_com[L(child)],
+            X_p=model.joint_X_p[..., L(level), :], X_c_inv=jX_c_inv,
+            com_p=model.body_com[..., L(pc), :],
+            com_c=model.body_com[..., L(child), :],
             free=tab.is_free[L(level)][:, None]))
     kc._tables[dev] = tab
     return tab
@@ -169,12 +176,12 @@ def angular_axes(tab, joint_q: torch.Tensor):
     the coordinates before it (``r10 = qfromaa(a1, q1) r0``, the JAX
     package's order), and the joint rotation ``(..., J, 4)``."""
     q_ang = joint_q[..., tab.ang_q_idx] * tab.ang_mask        # (..., J, 3)
-    A_ang = tab.A_ang                                          # (J, 3, 3)
-    a0 = A_ang[:, 0].expand(q_ang.shape)
+    A_ang = tab.A_ang                                   # ([n,] J, 3, 3)
+    a0 = A_ang[..., 0, :].expand(q_ang.shape)
     r0 = quat_from_axis_angle(a0, q_ang[..., 0])
-    a1 = quat_rotate(r0, A_ang[:, 1])
+    a1 = quat_rotate(r0, A_ang[..., 1, :])
     r10 = quat_mul(quat_from_axis_angle(a1, q_ang[..., 1]), r0)
-    a2 = quat_rotate(r10, A_ang[:, 2])
+    a2 = quat_rotate(r10, A_ang[..., 2, :])
     rot = quat_mul(quat_from_axis_angle(a2, q_ang[..., 2]), r10)
     return (a0, a1, a2), rot
 
@@ -200,6 +207,11 @@ def joint_motion(tab, joint_q: torch.Tensor, joint_qd: torch.Tensor):
     rot = torch.where(free, quat_normalize(qj[..., 3:7]), rot)
     vel_v = torch.where(free, qdj[..., 0:3], vel_v)
     vel_w = torch.where(free, qdj[..., 3:6], vel_w)
+    if tab.any_ball:
+        # ball: the quaternion coordinate, the dofs as the angular velocity
+        ball = tab.is_ball[:, None]
+        rot = torch.where(ball, quat_normalize(qj[..., 0:4]), rot)
+        vel_w = torch.where(ball, qdj[..., 0:3], vel_w)
     return torch.cat([pos, rot], -1), torch.cat([vel_v, vel_w], -1)
 
 

@@ -1,14 +1,15 @@
 """Scene authoring: host-side ``ModelBuilder`` -> ``Model`` on a device.
 
 Port of the subset of ``newton_tpu/sim/builder.py`` that the gymnasium
-robots, the reference's replicated-world KPI scenes and the MPM path drive:
-bodies, articulations, free/revolute/prismatic/fixed joints and D6 joints
-with linear and angular axes, fixed tendons, plane/sphere/capsule shapes with
+robots, the reference's replicated-world KPI scenes, rods and the MPM path
+drive: bodies, articulations, free/revolute/prismatic/fixed/ball joints and
+D6 joints with linear and angular axes, ball-jointed rods (``add_rod``),
+fixed tendons, plane/sphere/capsule shapes with
 density-driven mass, particles, world contexts (``begin_world``,
 ``add_world``, ``add_builder`` and the vectorized ``replicate``) with
 per-world gravity, MJCF-style collision filtering, the static candidate
-contact pairs with their slot layout, and ``finalize`` onto an explicit
-device. Host storage is float64 numpy, like the JAX builder; the
+contact pairs with their slot layout, and ``finalize`` onto a device
+(the card unless the caller names another). Host storage is float64 numpy, like the JAX builder; the
 candidate-pair order and slot offsets are the JAX builder's exactly,
 because the solvers' contact rows follow them. Host work that grows with
 the number of worlds is vectorized, so that a model of 8192 humanoid
@@ -57,7 +58,7 @@ from .model import (
 __all__ = ["ModelBuilder", "ShapeConfig", "JointDofConfig"]
 
 _JOINT_TYPES = (JointType.FREE, JointType.REVOLUTE, JointType.PRISMATIC,
-                JointType.FIXED, JointType.D6)
+                JointType.FIXED, JointType.D6, JointType.BALL)
 _SHAPE_TYPES = (GeoType.PLANE, GeoType.SPHERE, GeoType.CAPSULE)
 # per-dof lists of the builder (one entry per dof, in dof order)
 _DOF_LISTS = ("joint_armature", "joint_target_ke", "joint_target_kd",
@@ -577,7 +578,7 @@ class ModelBuilder:
                   angular_axes: Optional[Sequence[JointDofConfig]] = None,
                   xform_p=None, xform_c=None, key: Optional[str] = None,
                   collision_filter_parent: bool = True) -> int:
-        """Free, revolute, prismatic, fixed or D6 joint between
+        """Free, revolute, prismatic, fixed, ball or D6 joint between
         ``parent`` (-1 = world) and ``child``. A prismatic joint takes one
         linear axis, a D6 joint 0-3 linear and 0-3 angular axes (at least
         one), each a dof with its own limits, armature and gains. A D6
@@ -606,6 +607,9 @@ class ModelBuilder:
                              "axes, at least one")
         if joint_type == JointType.FIXED:
             linear, angular, axes = [], [], []
+        if joint_type == JointType.BALL and (linear or len(angular) > 1):
+            raise ValueError("a ball joint takes at most one angular dof "
+                             "config, applied to its three dofs")
         dof_count, coord_count = joint_type.dof_count(len(axes))
 
         idx = self.joint_count
@@ -635,6 +639,14 @@ class ModelBuilder:
             rel = np_transform_multiply(np_transform_inverse(X_wp), X_wc)
             self.joint_q.extend(rel.tolist())
             self.joint_target_q.extend(rel.tolist())
+        elif joint_type == JointType.BALL:
+            # three angular dofs about the canonical axes of the joint-parent
+            # frame, one config for all; the coordinate is a quaternion
+            base = axes[0] if axes else self.default_joint_cfg
+            for a in np.eye(3):
+                self._append_dof(base, axis_override=a)
+            self.joint_q.extend([0.0, 0.0, 0.0, 1.0])
+            self.joint_target_q.extend([0.0, 0.0, 0.0, 1.0])
         else:
             for cfg in axes:
                 self._append_dof(cfg)
@@ -715,6 +727,18 @@ class ModelBuilder:
                         xform_c=None, key: Optional[str] = None) -> int:
         return self.add_joint(JointType.FIXED, parent, child,
                               xform_p=xform_p, xform_c=xform_c, key=key)
+
+    def add_joint_ball(self, parent: int, child: int, xform_p=None,
+                       xform_c=None, armature: Optional[float] = None,
+                       key: Optional[str] = None,
+                       collision_filter_parent: bool = True) -> int:
+        """Ball (spherical) joint: three angular dofs in the joint-parent
+        frame and a unit quaternion coordinate (xyzw)."""
+        cfg = self._dof_cfg(Axis.X, armature=armature)
+        return self.add_joint(JointType.BALL, parent, child,
+                              angular_axes=[cfg], xform_p=xform_p,
+                              xform_c=xform_c, key=key,
+                              collision_filter_parent=collision_filter_parent)
 
     def add_joint_free(self, child: int, parent: int = -1, xform_p=None,
                        xform_c=None, armature: Optional[float] = None,
@@ -859,6 +883,68 @@ class ModelBuilder:
         return self.add_shape(body, GeoType.CAPSULE, xf,
                               scale=(radius, half_height, 0.0), cfg=cfg,
                               key=key)
+
+    def add_rod(self, start_pos, end_pos, segments: int = 8,
+                radius: float = 0.02, density: float = 1000.0,
+                bend_ke: float = 100.0, bend_kd: float = 1.0,
+                root_joint: str = "free", root_parent: int = -1,
+                joint: str = "ball", key: Optional[str] = None) -> List[int]:
+        """Discrete elastic rod as a chain of capsules from ``start_pos``
+        to ``end_pos`` (the JAX builder's ``add_rod`` with
+        ``joint="ball"``): segment +Z is the tangent, consecutive segments
+        are joined by ball joints whose dof drive gains ``bend_ke`` and
+        ``bend_kd`` give the bending stiffness, and the first segment hangs
+        from ``root_parent`` by a fixed or ball joint at ``start_pos``, or
+        is free. Returns the body indices."""
+        if joint != "ball":
+            raise NotImplementedError(
+                f"add_rod joint={joint!r}: cable joints (XPBD/VBD) are not "
+                "ported yet; joint='ball' is")
+        if root_joint not in ("fixed", "ball", "free"):
+            raise ValueError(f"unknown root_joint {root_joint!r}")
+        p0 = np.asarray(start_pos, dtype=np.float64)
+        p1 = np.asarray(end_pos, dtype=np.float64)
+        axis = p1 - p0
+        length = float(np.linalg.norm(axis))
+        axis = axis / max(length, 1e-9)
+        seg_len = length / segments
+        q = np_quat_between_axes(np.array([0.0, 0, 1]), axis)
+        cfg = self.default_shape_cfg.copy()
+        cfg.density = density
+        name = key or "rod"
+        root_X_p = (np_transform(p0, q) if root_parent < 0
+                    else np_transform(np.zeros(3), q))
+        anchor_p = np_transform(np.array([0.0, 0, seg_len / 2]))
+        anchor_c = np_transform(np.array([0.0, 0, -seg_len / 2]))
+
+        def bend(j):
+            d0 = self.joint_qd_start[j]
+            self.joint_target_ke[d0:d0 + 3] = [float(bend_ke)] * 3
+            self.joint_target_kd[d0:d0 + 3] = [float(bend_kd)] * 3
+
+        bodies, prev = [], -1
+        for i in range(segments):
+            center = p0 + axis * (i + 0.5) * seg_len
+            b = self.add_body(xform=np_transform(center, q), key=f"{name}_{i}")
+            self.add_shape_capsule(b, radius=radius,
+                                   half_height=seg_len / 2 - radius * 0.5,
+                                   cfg=cfg, key=f"{name}_shape_{i}")
+            if i == 0 and root_joint == "fixed":
+                self.add_joint_fixed(root_parent, b, xform_p=root_X_p,
+                                     xform_c=anchor_c, key=f"{name}_root")
+            elif i == 0 and root_joint == "ball":
+                bend(self.add_joint_ball(root_parent, b, xform_p=root_X_p,
+                                         xform_c=anchor_c,
+                                         key=f"{name}_root"))
+            elif i == 0:
+                self.add_joint_free(b, key=f"{name}_root")
+            else:
+                bend(self.add_joint_ball(prev, b, xform_p=anchor_p,
+                                         xform_c=anchor_c,
+                                         key=f"{name}_j{i}"))
+            prev = b
+            bodies.append(b)
+        return bodies
 
     # ------------------------------------------------------------------
     # particles (the JAX builder's add_particle/add_particles/
@@ -1038,12 +1124,17 @@ class ModelBuilder:
                                  sc[:, 0] + sc[:, 1], MAXVAL))
 
     # ------------------------------------------------------------------
-    def finalize(self, device) -> Model:
-        """Build the Model with float32 tensors on ``device``."""
+    def finalize(self, device="cuda") -> Model:
+        """Build the Model with float32 tensors on ``device``: the card by
+        default (raises where CUDA is absent; pass ``"cpu"`` to build on
+        the CPU)."""
         if self._current_world != -1:
             raise RuntimeError("finalize() called inside an open world "
                                "scope")
         device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("finalize(): CUDA is not available; pass "
+                               "device='cpu' to build the model on the CPU")
         st = ModelStructure()
         st.world_count = max(self.world_count, 1)
         st.body_count = self.body_count

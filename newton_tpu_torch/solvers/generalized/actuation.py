@@ -6,6 +6,9 @@
 
 ``MJCActuation`` holds the host numpy tables the MJCF importer fills;
 ``ActuationTables`` moves them to the device once, at solver construction.
+A row model's parameter tables may carry a leading row axis ``(n, A, ...)``
+where the worlds' actuators differ; the dof and coordinate maps are one
+row's.
 The port covers the stateless joint-transmission path that ``motor``,
 ``position`` and ``velocity`` actuators take; activation dynamics, muscles
 and tendon transmissions raise.
@@ -100,13 +103,13 @@ class ActuationTables:
         self.gear = f(au.gear)
         cr = np.asarray(au.ctrlrange)
         fr = np.asarray(au.forcerange)
-        self.ctrl_lo, self.ctrl_hi = f(cr[:, 0]), f(cr[:, 1])
+        self.ctrl_lo, self.ctrl_hi = f(cr[..., 0]), f(cr[..., 1])
         self.ctrllimited = torch.as_tensor(au.ctrllimited, device=device)
-        self.force_lo, self.force_hi = f(fr[:, 0]), f(fr[:, 1])
+        self.force_lo, self.force_hi = f(fr[..., 0]), f(fr[..., 1])
         self.forcelimited = torch.as_tensor(au.forcelimited, device=device)
         gp, bp = np.asarray(au.gainprm), np.asarray(au.biasprm)
-        self.gp = [f(gp[:, k]) for k in range(3)]
-        self.bp = [f(bp[:, k]) for k in range(3)]
+        self.gp = [f(gp[..., k]) for k in range(3)]
+        self.bp = [f(bp[..., k]) for k in range(3)]
         self.gain_affine = torch.as_tensor(au.gaintype == GAIN_AFFINE,
                                            device=device)
         self.bias_affine = torch.as_tensor(au.biastype == BIAS_AFFINE,

@@ -4,14 +4,17 @@
 
 The JAX package restates the per-env step in a lanes-minor transposed
 layout for the TPU; the port keeps the env axis leading, ``(W, ...)``,
-with vectors as trailing ``3``/``4``/``7`` axes. One env is one row of the
-model's articulation group (see solver.py): ``step_batched`` runs W envs
-of a one-world model, ``step`` runs the N rows of a flat multi-world
-state, gathered into ``(N, ...)`` through the row tables and scattered
-back. Both run the same ``_substep``, so B1 and B2 take all envs of a
-substep in one launch each (B1 once per RK4 stage). The stages run in
+with vectors as trailing ``3``/``4``/``7`` axes. One env is one row of an
+articulation group (see solver.py): ``step_batched`` runs W envs of a
+one-world model, ``step`` runs the N rows of each group of a flat
+multi-world state, gathered into ``(N, ...)`` through the group's row
+tables and scattered back. Both run the same ``_substep``, so B1 and B2
+take all rows of a group in one launch each per substep (B1 once per RK4
+stage); a group of several per-row constants broadcasts its ``(n, ...)``
+tables against the ``(N, ...)`` rows. The stages run in
 the reference's order: dof subspace, spatial inertia, RNEA bias, applied
-(PD, fixed tendons) and external forces, MJCF actuation, CRBA, the
+(PD on linear coordinates and ball quaternions, fixed tendons) and
+external forces, MJCF actuation, CRBA, the
 Cholesky kernel (Euler: one solve of ``M + dt Kd``; RK4: four stages of
 ``M a = tau``, each after FK at its coordinates), the contact rows (top-K
 compacted) and the PGS kernel (or the limits-only solve without
@@ -31,8 +34,12 @@ import torch
 from ...math import (
     cross,
     orthonormal_basis,
+    quat_conjugate,
     quat_integrate,
+    quat_mul,
+    quat_normalize,
     quat_rotate,
+    quat_to_axis_angle,
     quat_to_matrix,
     spatial_cross,
     spatial_cross_dual,
@@ -112,7 +119,7 @@ def _bias_forces(t, model, body_qd, v_o, w_o, x_b, Iw):
         dV = Vc - torch.where(hasp, V[:, pbc], 0.0)
         A_p = torch.where(hasp, A[:, pbc], t.base_acc[:, cb])
         A[:, cb] = A_p + spatial_cross(Vc, dV)
-    m = model.body_mass[:, None]
+    m = model.body_mass[..., None]
 
     def apply_I(a):
         f = (a[..., 0:3] + cross(a[..., 3:6], x_b)) * m
@@ -137,7 +144,9 @@ def _applied_tau(t, q, qd, control, explicit=False):
     damping gains go implicit into M + dt*Kd, so the rhs carries only
     kd * target_qd (MuJoCo Euler); with ``explicit`` (the RK4 stages) the
     rhs carries kd * (target_qd - qd) and Kd stays zero. Tendon damping is
-    explicit in both, as in the JAX batched step."""
+    explicit in both, as in the JAX batched step. A ball joint's drive
+    acts on its three dofs: ke times the axis-angle vector of
+    ``target * current^-1`` (the same for q and -q) plus its damping."""
     tau = torch.zeros_like(qd)
     kd_implicit = torch.zeros_like(qd)
     if control is None:
@@ -152,6 +161,17 @@ def _applied_tau(t, q, qd, control, explicit=False):
         tau[:, t.lin_dof] = tau[:, t.lin_dof] + pd
         if not explicit:
             kd_implicit[:, t.lin_dof] = kd_implicit[:, t.lin_dof] + t.pd_kd
+    if len(t.ball_q):
+        cur = quat_normalize(q[:, t.ball_q])                 # (W, nb, 4)
+        tar = quat_normalize(control.joint_target_q[:, t.ball_q])
+        axis, ang = quat_to_axis_angle(quat_mul(tar, quat_conjugate(cur)))
+        vel = control.joint_target_qd[:, t.ball_d]           # (W, nb, 3)
+        if explicit:
+            vel = vel - qd[:, t.ball_d]
+        pd = t.ball_ke * (axis * ang[..., None]) + t.ball_kd * vel
+        tau[:, t.ball_d] = tau[:, t.ball_d] + pd
+        if not explicit:
+            kd_implicit[:, t.ball_d] = kd_implicit[:, t.ball_d] + t.ball_kd
     if t.tendons:
         L = q @ t.tendon_Cq.T                                # (W, T)
         Ld = qd @ t.tendon_Cd.T
@@ -169,7 +189,7 @@ def _crba(t, v_o, w_o, x_b, Iw, mass):
     anc = t.anc[None, :, :, None]                            # (1, b, d, 1)
     V = (vg[:, None] + cross(wg[:, None], xg[:, :, None])) * anc
     Wm = wg[:, None].expand_as(V) * anc                      # (W, b, d, 3)
-    M = torch.einsum("wbdc,wbec->wde", V * mass[t.bi][None, :, None, None],
+    M = torch.einsum("wbdc,wbec->wde", V * mass[..., t.bi][..., None, None],
                      V)
     H = Wm @ Iw[:, t.bi]                                     # (W, b, d, 3)
     M = M + torch.einsum("wbdk,wbek->wde", H, Wm)
@@ -183,34 +203,81 @@ def compaction_indices(score, K):
     return torch.sort(score, dim=1, descending=True, stable=True)[1][:, :K]
 
 
+def _at_bodies(x, gb, row_col):
+    """``x`` (W, b, ...) at the local bodies ``gb`` of each contact entry:
+    (c,) shared by every row, or (n, c) per row (``row_col`` the (n, 1)
+    row numbers of a ragged plan)."""
+    return x[:, gb] if row_col is None else x[row_col, gb]
+
+
+def _take_slots(x, idx):
+    """Entries ``idx`` (W, K) along axis 1 of x (W or 1, c, ...)."""
+    idx = idx.view(*idx.shape, *([1] * (x.dim() - 2)))
+    return x.expand(idx.shape[0], *x.shape[1:]).gather(
+        1, idx.expand(-1, -1, *x.shape[2:]))
+
+
+def _other_side(o, nrm, t1, t2, pos):
+    """Two-sided entries: the other body's pre-step point velocity along
+    the normal (for restitution), along the three row directions (the
+    moving-support rows, which shift b) and its point inverse mass along
+    them (w_other), each (W, c) or (W, 3c) in block order; zero where the
+    entry has no other body (solver.py:1182-1230 of the JAX package)."""
+    bq, bqd = o.bq, o.qd                                     # (W, c, 7|6)
+    com = bq[..., 0:3] + quat_rotate(bq[..., 3:7], o.com)
+    r = pos - com
+    v = torch.where(o.on, bqd[..., 0:3] + cross(bqd[..., 3:6], r), 0.0)
+    R = quat_to_matrix(bq[..., 3:7])
+    I_w = R @ o.inv_inertia @ R.transpose(-1, -2)            # (W, c, 3, 3)
+    dirs = (nrm, t1, t2)
+    const = torch.cat([_dot(d, v) * o.sgn for d in dirs], dim=1)
+    w = []
+    for d in dirs:
+        rxd = cross(r, d)
+        w.append(o.inv_mass + _dot(rxd, (I_w @ rxd[..., None])[..., 0]))
+    w_other = torch.where(o.on[..., 0].repeat(1, 3), torch.cat(w, dim=1),
+                          0.0)
+    return _dot(nrm, v) * o.sgn, const, w_other.contiguous()
+
+
 def _contact_system(solver, t, Minv, qd_g, v_o, w_o, body_qd, x_b, q,
                     contacts, dt):
     """Contact and limit rows of the PGS system: J (W, 3c, d), b and act
     (W, r), mu (W, c) in BLOCK row order [n | t1 | t2 | lim-lo | lim-hi],
-    from the row's c contact slots of each env (``contacts``, (W, c)).
-    With a cap K below the slot count, each env keeps its K slots of
-    highest score active * max(1 + depth, 0.5) (batched.py:684-736 of the
-    JAX package), after the restitution pre-velocity of every slot."""
+    from the row's c contact entries of each env (``contacts``, (W, c);
+    a ragged plan's pad entries masked off). With a cap K below the entry
+    count, each env keeps its K entries of highest score active * max(1 +
+    depth, 0.5) (batched.py:684-736 of the JAX package), after the
+    restitution pre-velocity of every entry. Two-sided entries add the
+    other body's motion to the pre-velocity, shift b by its velocity along
+    each row and pass its point inverse mass as B2's ``w_other``."""
     nrm = contacts.rigid_contact_normal                      # (W, c, 3)
     pos = contacts.rigid_contact_position
     depth = contacts.rigid_contact_depth
     active = contacts.rigid_contact_mask
+    if t.valid is not None:
+        active = active & t.valid
     W, c = active.shape
 
     def vel_of(gb, on):
-        return torch.where(on, velocity_at_point(body_qd[:, gb],
-                                                 pos - x_b[:, gb]), 0.0)
+        return torch.where(on, velocity_at_point(
+            _at_bodies(body_qd, gb, t.row_col),
+            pos - _at_bodies(x_b, gb, t.row_col)), 0.0)
 
     vn_pre = _dot(nrm, vel_of(t.gb1, t.on1) - vel_of(t.gb0, t.on0))
-    sign, mu, e_rest = t.sign, t.mu.expand(W, c), t.e_rest
+    sign, mu, e_rest = t.sign, t.mu.expand(W, c), t.e_rest.expand(W, c)
+    other = getattr(contacts, "other", None)
     if t.cap < c:
         score = active.to(depth.dtype) * torch.clamp(1.0 + depth, min=0.5)
         idx = compaction_indices(score, t.cap)               # (W, K)
-        i3 = idx[..., None].expand(-1, -1, 3)
-        nrm, pos = nrm.gather(1, i3), pos.gather(1, i3)
-        depth, active, vn_pre = (x.gather(1, idx)
-                                 for x in (depth, active, vn_pre))
-        sign, mu, e_rest = t.sign[idx], t.mu[idx], t.e_rest[idx]
+        nrm, pos, depth, active, vn_pre, mu, e_rest = (
+            _take_slots(x, idx) for x in (nrm, pos, depth, active, vn_pre,
+                                          mu, e_rest))
+        sign = (t.sign[idx] if t.sign.dim() == 2
+                else _take_slots(t.sign, idx))
+        if other is not None:
+            other = SimpleNamespace(**{k: _take_slots(v, idx) for k, v in
+                                       vars(other).items()})
         c = t.cap
 
     t1, t2 = orthonormal_basis(nrm)
@@ -218,6 +285,10 @@ def _contact_system(solver, t, Minv, qd_g, v_o, w_o, body_qd, x_b, q,
     Vp = vg[:, None] + cross(wg[:, None], pos[:, :, None])   # (W, c, d, 3)
     J = torch.cat([_dot(dirs[:, :, None], Vp) * sign
                    for dirs in (nrm, t1, t2)], dim=1)        # (W, 3c, d)
+    w_other = None
+    if other is not None:
+        vn_other, const, w_other = _other_side(other, nrm, t1, t2, pos)
+        vn_pre = vn_pre + vn_other
 
     diag_scale = 1.0 + (1.0 - solver.impratio) / solver.impratio
     rest = torch.where(vn_pre < -2.0 * 9.81 * dt, -e_rest * vn_pre, 0.0)
@@ -228,9 +299,13 @@ def _contact_system(solver, t, Minv, qd_g, v_o, w_o, body_qd, x_b, q,
     b_n = torch.where(depth > 0, rest + pen,
                       torch.where(rest > 0, rest, gap_allow))
     actf = active.to(J.dtype)
-    b_parts = [torch.where(active, b_n, 0.0),
-               torch.zeros((W, 2 * c), dtype=J.dtype, device=J.device)]
-    act_parts = [actf, actf, actf]
+    b_c = torch.cat([torch.where(active, b_n, 0.0),
+                     torch.zeros((W, 2 * c), dtype=J.dtype,
+                                 device=J.device)], dim=1)
+    if w_other is not None:
+        # the other side's velocity: each row measures the relative one
+        b_c = b_c - const
+    b_parts, act_parts = [b_c], [actf, actf, actf]
     if t.nl:
         qv = q[:, t.lim_coord]                               # (W, nl)
         k = solver.baumgarte / dt
@@ -246,6 +321,8 @@ def _contact_system(solver, t, Minv, qd_g, v_o, w_o, body_qd, x_b, q,
               omega=solver.contact_relaxation,
               use_cone=solver.friction_cone == "cone",
               diag_scale=diag_scale, reg=solver.contact_reg)
+    if w_other is not None:
+        kw["w_other"] = w_other
     return (J, Minv, qd_g, b_rows, act3, mu, lam0), kw
 
 
@@ -273,11 +350,14 @@ def _solve_limits(solver, t, Minv, qd_g, q, dt):
 
 
 def _integrate_coords(t, q, qd, dt):
-    """Semi-implicit Euler on the coordinates; free joints advance their
-    COM and integrate the world-frame angular velocity."""
+    """Semi-implicit Euler on the coordinates; ball joints integrate their
+    dofs as the angular velocity in the joint-parent frame, free joints
+    advance their COM and integrate the world-frame angular velocity."""
     q = q.clone()
     if len(t.lin_idx):
         q[:, t.lin_idx] = q[:, t.lin_idx] + dt * qd[:, t.lin_dof]
+    if len(t.ball_q):
+        q[:, t.ball_q] = quat_integrate(q[:, t.ball_q], qd[:, t.ball_d], dt)
     if t.free_p.shape[0]:
         quat = q[:, t.free_q]                                # (W, F, 4)
         new_quat = quat_integrate(quat, qd[:, t.free_w], dt)
@@ -288,27 +368,27 @@ def _integrate_coords(t, q, qd, dt):
     return q
 
 
-def _smooth(solver, t, q, qd, body_q, body_qd, body_f, control_b,
+def _smooth(solver, grp, q, qd, body_q, body_qd, body_f, control_b,
             explicit):
-    """The smooth dynamics at one configuration: the dof subspace (v_o,
-    w_o), world COMs x_b, the mass matrix M (W, d, d) of the group row,
-    the net generalized force tau_net = applied + external + actuator -
-    bias, and the implicit damping gains (zero with ``explicit``)."""
-    model = solver.row_model
+    """The smooth dynamics of a group's rows at one configuration: the dof
+    subspace (v_o, w_o), world COMs x_b, the mass matrix M (W, d, d), the
+    net generalized force tau_net = applied + external + actuator - bias,
+    and the implicit damping gains (zero with ``explicit``)."""
+    model, t = grp.row_model, grp.tables
     v_o, w_o = _dof_subspace(t, body_q, q)
     x_b, Iw = _spatial_inertia(model, body_q)
     tau_bias = _bias_forces(t, model, body_qd, v_o, w_o, x_b, Iw)
     tau, kd_implicit = _applied_tau(t, q, qd, control_b, explicit)
     tau = tau + _external_tau(t, body_f, x_b, v_o, w_o)
-    if (solver.actuation is not None and control_b is not None
+    if (grp.actuation is not None and control_b is not None
             and "mjc:ctrl" in control_b.custom):
-        tau = tau + actuator_forces(solver.actuation, q, qd,
+        tau = tau + actuator_forces(grp.actuation, q, qd,
                                     control_b.custom["mjc:ctrl"])
     M = _crba(t, v_o, w_o, x_b, Iw, model.body_mass)
     return v_o, w_o, x_b, M, tau - tau_bias, kd_implicit
 
 
-def _rk4(solver, t, state_b, control_b, dt, chol, record):
+def _rk4(solver, grp, state_b, control_b, dt, chol, record):
     """Classic RK4 on the smooth dynamics (MuJoCo's mj_RungeKutta tableau,
     the JAX package's ``_rk4_update``): four evaluations of ``M a =
     tau_net`` with explicit joint damping, one B1 call each; stages 2-4
@@ -316,15 +396,16 @@ def _rk4(solver, t, state_b, control_b, dt, chol, record):
     Returns stage 1's subspace, COMs and ``M^-1`` (for the contact and
     limit solve), the RK4 velocity and the tableau-weighted stage
     velocity that advances the coordinates."""
+    t = grp.tables
     q, qd = state_b.joint_q, state_b.joint_qd
 
     def accel(q_s, qd_s, stage):
         body_q, body_qd = state_b.body_q, state_b.body_qd
         if stage > 1:
-            body_q, body_qd = fk_bodies(solver.row_model, q_s, qd_s, body_q,
+            body_q, body_qd = fk_bodies(grp.row_model, q_s, qd_s, body_q,
                                         body_qd)
         v_o, w_o, x_b, M, tau_net, _ = _smooth(
-            solver, t, q_s, qd_s, body_q, body_qd, state_b.body_f,
+            solver, grp, q_s, qd_s, body_q, body_qd, state_b.body_f,
             control_b, explicit=True)
         rhs = tau_net[:, t.di]
         if record is not None and stage == 1:
@@ -346,24 +427,24 @@ def _rk4(solver, t, state_b, control_b, dt, chol, record):
     return first, qd_rk4, v_avg
 
 
-def _substep(solver, state_b: State, control_b, contacts_b, dt: float,
+def _substep(solver, grp, state_b: State, control_b, contacts_b, dt: float,
              kernels: bool, record: Optional[dict]) -> State:
-    """One substep of W envs of the row layout (leading axis of every
-    tensor; ``contacts_b`` holds the row's c slots, (W, c), or None)."""
-    model = solver.row_model
-    t = solver.tables
+    """One substep of W envs of a group's row layout (leading axis of every
+    tensor; ``contacts_b`` holds the row's c contact entries, (W, c), or
+    None)."""
+    model, t = grp.row_model, grp.tables
     q, qd = state_b.joint_q, state_b.joint_qd
     body_q, body_qd = state_b.body_q, state_b.body_qd
     chol = chol_inv_solve if kernels else chol_inv_solve_plain
 
     if solver.integrator == "rk4":
         (v_o, w_o, x_b, Minv), qd_smooth, v_avg = _rk4(
-            solver, t, state_b, control_b, dt, chol, record)
+            solver, grp, state_b, control_b, dt, chol, record)
         qd_g = qd_smooth[:, t.di]
     else:
         # group row: factor / solve / invert M + dt*Kd
         v_o, w_o, x_b, M, tau_net, kd_implicit = _smooth(
-            solver, t, q, qd, body_q, body_qd, state_b.body_f, control_b,
+            solver, grp, q, qd, body_q, body_qd, state_b.body_f, control_b,
             explicit=False)
         Mi = M + dt * torch.diag_embed(kd_implicit[:, t.di])
         rhs = (M @ qd[:, t.di, None])[..., 0] + dt * tau_net[:, t.di]
@@ -410,16 +491,17 @@ _CONTACT_ROWS = ("rigid_contact_normal", "rigid_contact_position",
                  "rigid_contact_depth", "rigid_contact_mask")
 
 
-def _has_contacts(solver, contacts) -> bool:
-    """Whether this substep has a contact system: contacts with slots and
-    a contact plan."""
+def _has_contacts(grp, contacts) -> bool:
+    """Whether a group has a contact system this substep: contacts with
+    slots and a contact plan."""
     return (contacts is not None and contacts.rigid_contact_max > 0
-            and solver.contact_plans[0] is not None)
+            and grp.plan is not None)
 
 
-def _contact_rows(solver, contacts, take):
-    """The row's slots of each env, or None without a contact system."""
-    if not _has_contacts(solver, contacts):
+def _contact_rows(grp, contacts, take):
+    """The group's contact entries of each env, or None without a contact
+    system."""
+    if not _has_contacts(grp, contacts):
         return None
     return SimpleNamespace(**{n: take(getattr(contacts, n))
                               for n in _CONTACT_ROWS})
@@ -438,29 +520,24 @@ def step_batched(solver, state_b: State, control_b=None, contacts_b=None,
     operands of the two kernel calls (``"chol"``: stage 1's under RK4;
     ``"pgs"``) and the contact impulses (``"lam"``), or the operands of the
     limits-only solve (``"limits"``) in a substep without contacts."""
-    t = solver.tables
     if not solver._model_is_row:
         raise NotImplementedError(
-            "step_batched takes a one-world model whose bodies and joints "
-            "all belong to its articulation; step() steps every world of "
-            "a replicated model")
-    rows = _contact_rows(solver, contacts_b, lambda x: x if
+            "step_batched takes a one-world model of one articulation whose "
+            "bodies and joints all belong to it; step() steps every world "
+            "and articulation of a model")
+    grp = solver.groups[0]
+    t = grp.tables
+    rows = _contact_rows(grp, contacts_b, lambda x: x if
                          t.slots_are_all else x[:, t.row_slots[0]])
-    return _substep(solver, state_b, control_b, rows, dt, kernels, record)
+    return _substep(solver, grp, state_b, control_b, rows, dt, kernels,
+                    record)
 
 
-def step(solver, state: State, control: Optional[Control] = None,
-         contacts=None, dt: float = 1e-3, kernels: bool = True,
-         record: Optional[dict] = None) -> State:
-    """One substep of a flat State (every world of the model: ``joint_q
-    (N nq,)``, ``body_q (N b, 7)``, ``mjc:ctrl (N A,)``, Contacts ``(C,)``),
-    the JAX package's ``SolverMuJoCo.step``. The N rows are gathered into
-    ``(N, ...)``, stepped as N envs, and scattered back; the result is a
-    new State. With ``contact:overflow:0`` in ``state.custom``
-    (``init_state``) the output carries each row's count of active
-    contacts that compaction dropped."""
-    t = solver.tables
-    # gather: each world's row, (N, k, ...) through the (N, k) row tables
+def _gather_rows(grp, state, control, contacts):
+    """A group's rows of a flat State, Control and Contacts: (n, k, ...)
+    through the group's (n, k) row tables; a two-sided entry also takes
+    its other body's pre-step pose and velocity."""
+    t = grp.tables
     rows = replace(
         state, body_q=state.body_q[t.row_body],
         body_qd=state.body_qd[t.row_body], body_f=state.body_f[t.row_body],
@@ -478,23 +555,60 @@ def step(solver, state: State, control: Optional[Control] = None,
             tendon_f=(None if control.tendon_f is None
                       else control.tendon_f[t.row_tendon]),
             custom=custom)
-    out = _substep(solver, rows, ctl,
-                   _contact_rows(solver, contacts, lambda x: x[t.row_slots]),
-                   dt, kernels, record)
+    crows = _contact_rows(grp, contacts, lambda x: x[t.row_slots])
+    if crows is not None and t.other is not None:
+        o = t.other
+        crows.other = SimpleNamespace(
+            bq=state.body_q[o.body], qd=state.body_qd[o.body], on=o.on,
+            sgn=o.sgn, inv_mass=o.inv_mass, inv_inertia=o.inv_inertia,
+            com=o.com)
+    return rows, ctl, crows
 
-    def put(x, idx, v):
-        x = x.clone()
-        x[idx] = v
+
+def step(solver, state: State, control: Optional[Control] = None,
+         contacts=None, dt: float = 1e-3, kernels: bool = True,
+         record: Optional[dict] = None) -> State:
+    """One substep of a flat State (every world of the model: ``joint_q
+    (N nq,)``, ``body_q (N b, 7)``, ``mjc:ctrl (N A,)``, Contacts ``(C,)``),
+    the JAX package's ``SolverMuJoCo.step``. Each articulation group's N
+    rows are gathered into ``(N, ...)`` from the input state, stepped as N
+    envs, and scattered back into disjoint indices of a new State (a group
+    without dofs keeps its bodies). With ``contact:overflow:<gi>`` in
+    ``state.custom`` (``init_state``) the output carries each row's count
+    of active contacts that compaction dropped. ``record`` receives what
+    ``step_batched`` records; for a model of several groups, one such dict
+    per group under ``record["groups"][gi]``."""
+    outs = []
+    for grp in solver.groups:
+        t = grp.tables
+        if t.d == 0:
+            continue
+        rec = record
+        if record is not None and len(solver.groups) > 1:
+            rec = record.setdefault("groups", {}).setdefault(grp.index, {})
+        rows, ctl, crows = _gather_rows(grp, state, control, contacts)
+        outs.append((t, _substep(solver, grp, rows, ctl, crows, dt, kernels,
+                                 rec)))
+
+    def put(name, idx_name):
+        x = getattr(state, name).clone()
+        for t, out in outs:
+            x[getattr(t, idx_name)] = getattr(out, name)
         return x
     custom = dict(state.custom)
-    if "contact:overflow:0" in custom:
-        over = torch.zeros_like(custom["contact:overflow:0"])
-        if _has_contacts(solver, contacts):
-            n_act = contacts.rigid_contact_mask[t.row_slots].sum(1)
-            over = torch.clamp(n_act - t.cap, min=0).to(over.dtype)
-        custom["contact:overflow:0"] = over
+    for grp in solver.groups:
+        key = f"contact:overflow:{grp.index}"
+        if key in custom and grp.g.d:
+            t = grp.tables
+            over = torch.zeros_like(custom[key])
+            if _has_contacts(grp, contacts):
+                mask = contacts.rigid_contact_mask[t.row_slots]
+                if t.valid is not None:
+                    mask = mask & t.valid
+                over = torch.clamp(mask.sum(1) - t.cap, min=0).to(over.dtype)
+            custom[key] = over
     return replace(
-        state, body_q=put(state.body_q, t.row_body, out.body_q),
-        body_qd=put(state.body_qd, t.row_body, out.body_qd),
-        joint_q=put(state.joint_q, t.row_coord, out.joint_q),
-        joint_qd=put(state.joint_qd, t.row_dof, out.joint_qd), custom=custom)
+        state, body_q=put("body_q", "row_body"),
+        body_qd=put("body_qd", "row_body"),
+        joint_q=put("joint_q", "row_coord"),
+        joint_qd=put("joint_qd", "row_dof"), custom=custom)

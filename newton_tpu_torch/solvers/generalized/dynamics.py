@@ -1,7 +1,9 @@
 """Host-side tables for generalized-coordinate dynamics (port of
 ``GeneralizedCache`` in ``newton_tpu/solvers/generalized/dynamics.py``).
 
-Each dof's motion subspace is a world-frame twist at the origin; the
+Each dof's motion subspace is a world-frame twist at the origin (a ball
+joint's three dofs rotate about the canonical axes of its joint-parent
+frame, through its anchor); the
 ancestor mask ``anc[b, d]`` of a group says whether its dof d moves its
 body b. Articulations are grouped by topology signature; a group's rows
 (one per articulation: N rows for N replicated worlds) share one ancestor
@@ -59,8 +61,9 @@ class GeneralizedCache:
         self.dof_joint = dof_joint
         self.dof_is_linear = np.where(free, off < 3, off < ln)
         self.dof_anchor_is_com = free & (off >= 3)     # free angular dofs
+        ball = jt[dof_joint] == int(JointType.BALL)
         self.dof_ang_slot = np.where(
-            ~free & (off >= ln) & (off - ln < dim[dof_joint, 1]),
+            ~free & ~ball & (off >= ln) & (off - ln < dim[dof_joint, 1]),
             off - ln, -1).astype(np.int32)
         self.dof_body = st.joint_child[dof_joint] if D \
             else np.zeros(0, np.int32)
@@ -100,14 +103,20 @@ class GeneralizedCache:
                 self._row_ancestors(st, body_idx[0], dof_idx[0]),
                 coord_idx))
 
-        # coordinate integration plan: every non-free joint's coordinates
-        # advance with its dofs of the same offset
+        # coordinate integration plan: the coordinates of every joint but
+        # the free and ball ones advance with its dofs of the same offset;
+        # a ball joint's quaternion (q start, dof start) integrates its
+        # three dofs as the angular velocity in the joint-parent frame
         nonfree = jt != int(JointType.FREE)
-        wq = np.where(nonfree, q_w, 0)
+        is_ball = jt == int(JointType.BALL)
+        wq = np.where(nonfree & ~is_ball, q_w, 0)
         jj = np.repeat(np.arange(J), wq)
         k = np.arange(int(wq.sum())) - np.repeat(np.cumsum(wq) - wq, wq)
         self.lin_coord_idx = (jq[:-1][jj] + k).astype(np.int32)
         self.lin_coord_dof = (jqd[:-1][jj] + k).astype(np.int32)
+        bj = np.nonzero(is_ball)[0]
+        self.quat_coord_starts = np.stack(
+            [jq[:-1][bj], jqd[:-1][bj]], 1).astype(np.int32).reshape(-1, 2)
         fj = np.nonzero(~nonfree)[0]
         self.free_joints = np.stack(
             [jq[:-1][fj], jqd[:-1][fj], st.joint_child[fj]],

@@ -14,6 +14,13 @@ are never materialized. Layout is env-major: ``J (W, 3c, d)``,
 ``mu (W, c)``, ``ld`` an int tensor of limited local dofs (nl,). Every
 shape has a kernel instance (``kernel_instance`` mirrors the kernel's choice
 from the shape alone).
+
+``w_other (W, 3c)``, optional, is a per-row addend of the Delassus operator
+on the contact rows: the point inverse mass of the body on a contact's other
+side when that body lies in another articulation or world (a two-sided
+contact, solved in both cells). It adds to the diagonal before the
+``diag_scale``/``reg`` softening and acts diagonally in every matvec,
+``A x + w_other * x`` (the JAX package's ``w_extra``); zero on limit rows.
 """
 
 from __future__ import annotations
@@ -107,11 +114,12 @@ def spectral_lam_max(Avec, diag, act, iters: int = 3):
 
 
 def pgs_core(J, MJ, cols, diag, v_free, b, act, mu, lam0, *, c, ld, iters,
-             omega, use_cone):
+             omega, use_cone, w_other=None):
     """Power-iteration step cap + projected-Jacobi sweep with the per-env
     divergence guard. J/MJ hold the 3c contact rows (W, 3c, d); ``cols`` =
-    Minv[:, :, ld] (W, d, nl) or None. Returns (lam (W, r), dqd (W, d),
-    halvings (W,) int32)."""
+    Minv[:, :, ld] (W, d, nl) or None; ``w_other`` (W, 3c) or None the
+    diagonal addend of the contact rows (``diag`` already holds it).
+    Returns (lam (W, r), dqd (W, d), halvings (W,) int32)."""
     r3 = 3 * c
     nl = 0 if cols is None else cols.shape[-1]
 
@@ -121,6 +129,8 @@ def pgs_core(J, MJ, cols, diag, v_free, b, act, mu, lam0, *, c, ld, iters,
             w = x[:, r3:r3 + nl] - x[:, r3 + nl:]
             tmp = tmp + torch.bmm(cols, w[:, :, None])[..., 0]
         y = torch.bmm(J, tmp[:, :, None])[..., 0]
+        if w_other is not None:
+            y = y + w_other * x[:, :r3]
         if nl:
             tl = tmp[:, ld]
             y = torch.cat([y, tl, -tl], dim=1)
@@ -172,13 +182,16 @@ def pgs_core(J, MJ, cols, diag, v_free, b, act, mu, lam0, *, c, ld, iters,
 
 
 def pgs_solve_fused_plain(J, Minv, qd, b, act, mu, lam0, *, c, ld, iters,
-                          omega, use_cone, diag_scale, reg,
+                          omega, use_cone, diag_scale, reg, w_other=None,
                           return_halvings=False):
     """Plain PyTorch version: Delassus pieces assembled outside, then
     ``pgs_core``. Returns (lam, dqd[, halvings])."""
     nl = int(ld.numel())
     MJ = torch.bmm(J, Minv)                               # (W, 3c, d)
-    diag = (J * MJ).sum(dim=2) * diag_scale + reg
+    diag = (J * MJ).sum(dim=2)
+    if w_other is not None:
+        diag = diag + w_other
+    diag = diag * diag_scale + reg
     v_free = (J * qd[:, None, :]).sum(dim=2)
     cols = None
     if nl:
@@ -189,17 +202,19 @@ def pgs_solve_fused_plain(J, Minv, qd, b, act, mu, lam0, *, c, ld, iters,
         v_free = torch.cat([v_free, vlim, -vlim], dim=1)
     lam, dqd, halv = pgs_core(J, MJ, cols, diag, v_free, b, act, mu, lam0,
                               c=c, ld=ld, iters=iters, omega=omega,
-                              use_cone=use_cone)
+                              use_cone=use_cone, w_other=w_other)
     return (lam, dqd, halv) if return_halvings else (lam, dqd)
 
 
-def _check(J, Minv, qd, b, act, mu, lam0, ld, c):
+def _check(J, Minv, qd, b, act, mu, lam0, ld, c, w_other):
     W, r3, d = J.shape
     nl = int(ld.numel())
     r = r3 + 2 * nl
     want = dict(J=(W, 3 * c, d), Minv=(W, d, d), qd=(W, d), b=(W, r),
-                act=(W, r), mu=(W, c), lam0=(W, r))
+                act=(W, r), mu=(W, c), lam0=(W, r), w_other=(W, 3 * c))
     got = dict(J=J, Minv=Minv, qd=qd, b=b, act=act, mu=mu, lam0=lam0)
+    if w_other is not None:
+        got["w_other"] = w_other
     for name, t in got.items():
         if t.dtype != torch.float32:
             raise TypeError(f"pgs_solve_fused: {name} must be float32")
@@ -215,22 +230,24 @@ def _check(J, Minv, qd, b, act, mu, lam0, ld, c):
 
 
 def pgs_solve_fused(J, Minv, qd, b, act, mu, lam0, *, c, ld, iters, omega,
-                    use_cone, diag_scale, reg, return_halvings=False):
+                    use_cone, diag_scale, reg, w_other=None,
+                    return_halvings=False):
     """Assemble the Delassus pieces and run the projected-Jacobi solve.
 
     CUDA tensors go to the kernel (or raise); CPU tensors to the plain
     version. ``pgs_solve_fused.launches`` counts kernel launches.
     Returns (lam (W, r), dqd (W, d)) and, with ``return_halvings``, the
     per-env count of divergence-guard halvings (W,) int32."""
-    W, d, nl, r = _check(J, Minv, qd, b, act, mu, lam0, ld, c)
+    W, d, nl, r = _check(J, Minv, qd, b, act, mu, lam0, ld, c, w_other)
     kw = dict(c=c, ld=ld, iters=iters, omega=omega, use_cone=use_cone,
-              diag_scale=diag_scale, reg=reg,
+              diag_scale=diag_scale, reg=reg, w_other=w_other,
               return_halvings=return_halvings)
     if J.device.type == "cpu":
         return pgs_solve_fused_plain(J, Minv, qd, b, act, mu, lam0, **kw)
     if J.device.type != "cuda":
         raise ValueError(f"pgs_solve_fused: unsupported device {J.device}")
-    ts = (J, Minv, qd, b, act, mu, lam0)
+    ts = (J, Minv, qd, b, act, mu, lam0) + (
+        () if w_other is None else (w_other,))
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("pgs_solve_fused kernel takes contiguous tensors")
     if ld.dtype != torch.int32 or not ld.is_contiguous():
@@ -247,6 +264,7 @@ def pgs_solve_fused(J, Minv, qd, b, act, mu, lam0, *, c, ld, iters, omega,
         err = _kernels.lib().pgs_solve_fused_f32(
             J.data_ptr(), Minv.data_ptr(), qd.data_ptr(), b.data_ptr(),
             act.data_ptr(), mu.data_ptr(), lam0.data_ptr(), ld.data_ptr(),
+            None if w_other is None else w_other.data_ptr(),
             lam.data_ptr(), dqd.data_ptr(), halv.data_ptr(),
             W, c, nl, d, int(iters), float(omega), int(bool(use_cone)),
             float(diag_scale), float(reg),

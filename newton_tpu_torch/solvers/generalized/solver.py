@@ -2,28 +2,40 @@
 entries of ``newton_tpu/solvers/generalized/solver.py``:
 ``SolverFeatherstone``, ``SolverMuJoCo``).
 
-Per substep: FK-derived dof subspaces, RNEA bias, applied and MJCF
-actuator forces, CRBA, one factor/solve/invert of ``M + dt*Kd`` (kernel;
-under RK4 four stages of ``M a = tau``, one kernel call each), the
-contact/limit rows and one projected-Jacobi solve (kernel), semi-implicit
-Euler (or the RK4 stage velocities) on the coordinates, FK. The
-constructor turns every static plan (dof tables, contact slots, limit
-rows, accumulation orders) into index tensors on the model's device, so
-the substep builds nothing from numpy and makes no host sync.
+Per substep: FK-derived dof subspaces, RNEA bias, applied forces (PD drives,
+the ball joints' quaternion-error drives, fixed tendons) and MJCF actuator
+forces, CRBA, one factor/solve/invert of ``M + dt*Kd`` (kernel; under RK4
+four stages of ``M a = tau``, one kernel call each), the contact/limit rows
+and one projected-Jacobi solve (kernel), semi-implicit Euler (or the RK4
+stage velocities) on the coordinates, FK. The constructor turns every
+static plan (dof tables, contact slots, limit rows, accumulation orders)
+into index tensors on the model's device, so the substep builds nothing
+from numpy and makes no host sync.
 
-The row view: the model's articulations form one group of identical rows
-(one row per world of a replicated model, one row for a one-world model).
-The substep tables describe one row in local indices (``row_model``), so
-building them costs the same at 8192 worlds as at one; ``step`` gathers
-every row of a flat multi-world state into the env-major layout through
-the group's row tables, runs the substep with one env per row, and
-scatters back; ``step_batched`` runs the same substep on a one-world
-model's ``(W, ...)`` envs. The port covers the static-contact path of the
-gymnasium ant, humanoid, cartpole, half_cheetah, hopper and walker2d
-under Euler and RK4 (D6 joints with linear and angular axes, prismatic
-joints, fixed tendons, top-K contact compaction); more than one group,
-rows that differ in their constants, heterogeneous contact plans,
-contacts across rows and everything else raise ``NotImplementedError``.
+The row view: the model's articulations form groups of rows with one
+topology (one row per world of a replicated model; a world may hold
+several articulations, each in its group). The substep tables of a group
+describe one row in local indices (``row_model``); a per-row constant
+(mass, inertia, joint frame, axis, armature, gains, limits, tendon and
+actuator parameters, a contact slot's friction and restitution) carries a
+leading row axis where the rows differ and stays one row where they all
+equal row 0, so building the tables of a homogeneous fleet costs the same
+at 8192 worlds as at one and its substep runs the same operations.
+``notify_model_changed`` rebuilds them from the model's current tensors
+(per-world randomization at reset). ``step`` gathers the rows of each group
+from the flat multi-world state into the env-major layout, runs the substep
+of each group with one env per row, and scatters back (the groups' indices
+are disjoint); ``step_batched`` runs the same substep on a one-world
+model's ``(W, ...)`` envs. A group's contact plan may be ragged (padded to
+its largest row, with per-row local bodies and a mask) and may hold
+two-sided contacts: a contact between bodies of two (group, row) cells is
+solved in both cells, each with the other body's point inverse mass on its
+Delassus diagonal and the other body's pre-step velocity as a moving
+support. The port covers the static-contact path of the gymnasium robots,
+ball-jointed rods and scenes of several articulations per world, under
+Euler and RK4; articulations attached to another articulation's body,
+joints outside the articulations and contacts of bodies outside them raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -43,15 +55,34 @@ from .dynamics import get_generalized_cache
 
 __all__ = ["SolverFeatherstone", "SolverMuJoCo", "row_model"]
 
+# MJCActuation tables that hold parameters (one row per actuator), as
+# opposed to the dof, coordinate and tendon maps
+_ACT_PARAMS = ("gear", "dyntype", "dynprm", "gaintype", "gainprm",
+               "biastype", "biasprm", "ctrlrange", "forcerange", "actrange",
+               "ctrllimited", "forcelimited", "actlimited", "lengthrange",
+               "acc0")
+
 
 class _GroupContacts:
-    """Static contact-slot plan of an articulation group: slot indices
-    (n, c), one row per group row, and the local body indices lb0/lb1
-    (c,) that every row shares (-1 = static shape)."""
+    """Static contact-slot plan of an articulation group (the JAX package's
+    ``_GroupContacts``): slot indices (n, c), one row per group row (a pad
+    entry is ``rigid_contact_max``, one past the end); the local body
+    indices lb0/lb1 (-1: static or in another cell), (c,) when every row
+    shares them, else (n, c); ``valid`` (n, c), the mask of a ragged plan's
+    real entries, or None; ``ob`` (n, c), the global body on the other side
+    of a two-sided contact (-1: none); ``w`` the force-report weight (0.5 on
+    each half of a two-sided contact)."""
 
-    def __init__(self, slots, lb0, lb1):
+    def __init__(self, slots, lb0, lb1, valid=None, ob=None, w=None):
         self.slots, self.lb0, self.lb1 = slots, lb0, lb1
         self.c = slots.shape[1]
+        self.valid = valid
+        self.ob = ob if ob is not None else -np.ones(slots.shape, np.int32)
+        self.w = w if w is not None else np.ones(lb0.shape, np.float32)
+
+    @property
+    def uniform(self) -> bool:
+        return self.lb0.ndim == 1
 
 
 def _body_env_tables(groups, n_body):
@@ -69,61 +100,91 @@ def _body_env_tables(groups, n_body):
 
 
 def _plan_group_contacts(st, groups):
-    """Assign contact slots to the rows of the (single) group, as the JAX
-    package's ``_plan_group_contacts`` does (solver.py:125-220): a slot
-    belongs to the row of its body1, else of its body0, and each row takes
-    its slots in ascending order. Only the homogeneous plan is ported: the
-    same number of slots in every row with the same local bodies. Slots
-    that no articulation owns, slots between two rows (the reference's
-    two-sided "ob" entries) and heterogeneous plans raise."""
-    S = len(st.slot_body0)
+    """Assign contact slots to (group, row) cells, the JAX package's
+    ``_plan_group_contacts`` (solver.py:125-220): a slot belongs to the
+    cell of its body1, else of its body0, and each row takes its slots in
+    ascending order. A slot whose two bodies lie in two cells is also
+    entered in body0's cell (two-sided: ``ob`` names the other body, each
+    half weighs 0.5). A group whose rows differ in their slot count or
+    local bodies gets a ragged plan, padded to its largest row. Slots of
+    bodies outside the articulations raise."""
+    plans = [None] * len(groups)
+    b0 = np.asarray(st.slot_body0)
+    b1 = np.asarray(st.slot_body1)
+    S = len(b0)
     if S == 0:
-        return [None] * len(groups)
-    g = groups[0]
+        return plans
     gi_of, e_of, lb_of = _body_env_tables(groups, st.body_count)
 
     def look(b):
         bc = np.maximum(b, 0)
         return tuple(np.where(b >= 0, t[bc], -1)
                      for t in (gi_of, e_of, lb_of))
-    b0 = np.asarray(st.slot_body0)
-    b1 = np.asarray(st.slot_body1)
     g0, e0, l0 = look(b0)
     g1, e1, l1 = look(b1)
-    owner_g = np.where(g1 >= 0, g1, g0)
-    owner_e = np.where(g1 >= 0, e1, e0)
-    if (owner_g < 0).any() or ((b0 >= 0) & (g0 < 0)).any():
+    if ((b0 >= 0) & (g0 < 0)).any() or ((b1 >= 0) & (g1 < 0)).any():
         raise NotImplementedError(
             "contact slots of bodies outside the articulations are not "
             "ported yet")
-    if ((g0 >= 0) & ((g0 != owner_g) | (e0 != owner_e))).any():
-        raise NotImplementedError(
-            "contacts between two articulations or two worlds (two-sided "
-            "contact rows) are not ported yet")
-    order = np.argsort(owner_e, kind="stable")
-    counts = np.bincount(owner_e, minlength=g.n)
-    c = int(counts[0])
-    if counts.min() != counts.max():
-        raise NotImplementedError(
-            "heterogeneous contact plans (rows with different slot counts) "
-            "are not ported yet")
-    slots = order.reshape(g.n, c).astype(np.int32)
-    lb0 = np.where(g0 >= 0, l0, -1)[slots]
-    lb1 = np.where(g1 >= 0, l1, -1)[slots]
-    if not ((lb0 == lb0[0]).all() and (lb1 == lb1[0]).all()):
-        raise NotImplementedError(
-            "heterogeneous contact plans (rows whose slots join different "
-            "bodies) are not ported yet")
-    return [_GroupContacts(slots, lb0[0].astype(np.int32),
-                           lb1[0].astype(np.int32))]
+    owner_g = np.where(g1 >= 0, g1, g0)
+    owner_e = np.where(g1 >= 0, e1, e0)
+    lb0 = np.where((g0 == owner_g) & (e0 == owner_e), l0, -1)
+    lb1 = np.where((g1 >= 0) & (g1 == owner_g) & (e1 == owner_e), l1, -1)
+    ob_own = np.where((lb0 < 0) & (b0 >= 0), b0,
+                      np.where((lb1 < 0) & (b1 >= 0), b1, -1))
+    dup = (g0 >= 0) & ((g0 != owner_g) | (e0 != owner_e))
+    slot_ids = np.arange(S, dtype=np.int32)
+    nd = int(dup.sum())
+    ent_g = np.concatenate([owner_g, g0[dup]])
+    ent_e = np.concatenate([owner_e, e0[dup]])
+    ent_s = np.concatenate([slot_ids, slot_ids[dup]])
+    ent_l0 = np.concatenate([lb0, l0[dup]])
+    ent_l1 = np.concatenate([lb1, -np.ones(nd, np.int32)])
+    ent_ob = np.concatenate([ob_own, b1[dup]])
+    ent_w = np.concatenate([np.where(dup, 0.5, 1.0),
+                            np.full(nd, 0.5)]).astype(np.float32)
+    pad = int(st.rigid_contact_max)
+    for gi, g in enumerate(groups):
+        m = ent_g == gi
+        if not m.any():
+            continue
+        order = np.argsort(ent_e[m], kind="stable")
+        e, s = ent_e[m][order], ent_s[m][order]
+        l0a, l1a = ent_l0[m][order], ent_l1[m][order]
+        oba, wa = ent_ob[m][order], ent_w[m][order]
+        counts = np.bincount(e, minlength=g.n)
+        if counts.min() == counts.max():
+            c = int(counts[0])
+            l0m, l1m = l0a.reshape(g.n, c), l1a.reshape(g.n, c)
+            obm, wm = oba.reshape(g.n, c), wa.reshape(g.n, c)
+            if ((l0m == l0m[0]).all() and (l1m == l1m[0]).all()
+                    and (wm == wm[0]).all()
+                    and ((obm >= 0) == (obm[0] >= 0)).all()):
+                plans[gi] = _GroupContacts(
+                    s.reshape(g.n, c).astype(np.int32),
+                    l0m[0].astype(np.int32), l1m[0].astype(np.int32),
+                    ob=obm.astype(np.int32), w=wm[0])
+                continue
+        # ragged: pad every row to the largest; pad entries read one past
+        # the end (clamped on read, masked by valid, dropped on scatter)
+        cmax = int(counts.max())
+        starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        k = np.arange(len(e)) - starts[e]
+
+        def fill(v, x, dtype):
+            out = np.full((g.n, cmax), v, dtype=dtype)
+            out[e, k] = x
+            return out
+        plans[gi] = _GroupContacts(
+            fill(pad, s, np.int32), fill(-1, l0a, np.int32),
+            fill(-1, l1a, np.int32), valid=fill(False, True, bool),
+            ob=fill(-1, oba, np.int32), w=fill(1.0, wa, np.float32))
+    return plans
 
 
 def _entity_rows(owner_row, n, what):
     """(n, k) entity indices per row, in ascending order, for entities
-    whose row is ``owner_row`` (-1: in no row, which raises)."""
-    if (owner_row < 0).any():
-        raise NotImplementedError(f"{what} outside the articulations are "
-                                  "not ported yet")
+    whose row is ``owner_row``."""
     counts = np.bincount(owner_row, minlength=n)
     if counts.min() != counts.max():
         raise NotImplementedError(f"rows with different numbers of {what} "
@@ -132,23 +193,51 @@ def _entity_rows(owner_row, n, what):
 
 
 def _check_rows(name, a):
-    """Raise unless every row of (n, ...) equals row 0."""
+    """Raise unless every row of (n, ...) equals row 0: the structure of a
+    group's rows (which dofs a tendon or actuator acts on) is one row's."""
     if len(a) and not (a == a[:1]).all():
         raise NotImplementedError(
-            f"worlds whose articulations differ in {name} are not ported "
-            "yet (heterogeneous worlds)")
+            f"worlds whose articulations differ in the structure of their "
+            f"{name} are not ported yet")
+
+
+def _group_rows(v: torch.Tensor, idx) -> torch.Tensor:
+    """``v`` gathered on the (n, k) entity rows ``idx``: (k, ...) when
+    every row equals row 0, else (n, k, ...)."""
+    r = v[torch.as_tensor(np.asarray(idx, dtype=np.int64), device=v.device)]
+    if r.shape[0] <= 1 or bool((r == r[:1]).all()):
+        return r[0]
+    return r
+
+
+def _param_rows(a: np.ndarray, idx) -> np.ndarray:
+    """The numpy counterpart of ``_group_rows``."""
+    r = np.asarray(a)[idx]
+    if r.shape[0] <= 1 or (r == r[:1]).all():
+        return r[0]
+    return r
+
+
+def _joint_rows(st, g):
+    """(n, nj) joint indices of the group's rows."""
+    a0 = np.asarray(st.articulation_start)[g.arts]
+    nj = int(st.articulation_start[g.arts[0] + 1] - a0[0])
+    return a0[:, None] + np.arange(nj)[None]
 
 
 def row_model(model: Model, g, tendon_rows, act_rows) -> Model:
-    """Row 0 of articulation group ``g`` as a one-world Model in local
-    indices: its bodies, joints, dofs and coordinates, the tendons and
-    actuators of ``tendon_rows[0]``/``act_rows[0]``, no shapes and no
-    particles. The substep's tables are built on it."""
+    """Articulation group ``g`` as a one-world Model in local indices: the
+    bodies, joints, dofs and coordinates of a row, the tendons and
+    actuators of ``tendon_rows``/``act_rows`` (n, k), no shapes and no
+    particles. Each per-entity tensor is row 0's where every row equals it,
+    else carries a leading row axis (n, ...). The substep's tables are built
+    on it."""
     st = model.structure
     a0 = int(g.arts[0])
     j0, j1 = int(st.articulation_start[a0]), int(st.articulation_start[a0 + 1])
     js = np.arange(j0, j1)
     bi, di, ci = g.body_idx[0], g.dof_idx[0], g.coord_idx[0]
+    q0, d0 = int(st.joint_q_start[j0]), int(st.joint_qd_start[j0])
     local_body = -np.ones(st.body_count, dtype=np.int64)
     local_body[bi] = np.arange(len(bi))
     parent = st.joint_parent[js]
@@ -166,8 +255,8 @@ def row_model(model: Model, g, tendon_rows, act_rows) -> Model:
                                 local_body[np.maximum(parent, 0)],
                                 -1).astype(i32)
     rst.joint_child = local_body[st.joint_child[js]].astype(i32)
-    rst.joint_q_start = (st.joint_q_start[j0:j1 + 1] - ci[0]).astype(i32)
-    rst.joint_qd_start = (st.joint_qd_start[j0:j1 + 1] - di[0]).astype(i32)
+    rst.joint_q_start = (st.joint_q_start[j0:j1 + 1] - q0).astype(i32)
+    rst.joint_qd_start = (st.joint_qd_start[j0:j1 + 1] - d0).astype(i32)
     rst.joint_dof_dim = st.joint_dof_dim[js].astype(i32)
     pj = st.joint_parent_joint[js]
     rst.joint_parent_joint = np.where(pj >= 0, pj - j0, -1).astype(i32)
@@ -181,32 +270,28 @@ def row_model(model: Model, g, tendon_rows, act_rows) -> Model:
     coef = st.tendon_coef[tr]
     rst.tendon_count = len(tr)
     rst.tendon_coef = coef
-    rst.tendon_coord = np.where(coef != 0, st.tendon_coord[tr] - ci[0],
+    rst.tendon_coord = np.where(coef != 0, st.tendon_coord[tr] - q0,
                                 0).astype(i32)
-    rst.tendon_dof = np.where(coef != 0, st.tendon_dof[tr] - di[0],
+    rst.tendon_dof = np.where(coef != 0, st.tendon_dof[tr] - d0,
                               0).astype(i32)
     au = st.mjc_actuation
-    if au is not None and au.n:
+    if au is not None and au.n and act_rows.size:
         ar = act_rows[0]
         rau = MJCActuation(len(ar))
-        for name in MJCActuation.__slots__:
-            v = getattr(au, name)
-            if isinstance(v, np.ndarray):
-                setattr(rau, name, v[ar].copy())
-        rau.dof = (au.dof[ar] - di[0]).astype(i32)
-        rau.coord = (au.coord[ar] - ci[0]).astype(i32)
+        rau.tendon, rau.sten = au.tendon[ar].copy(), au.sten[ar].copy()
+        for name in _ACT_PARAMS:
+            setattr(rau, name, _param_rows(getattr(au, name), act_rows))
+        rau.dof = (au.dof[ar] - d0).astype(i32)
+        rau.coord = (au.coord[ar] - q0).astype(i32)
         rst.mjc_actuation = rau.finish()
     rst.mjc_options = dict(st.mjc_options)
 
-    def L(a):
-        return torch.as_tensor(np.asarray(a, dtype=np.int64),
-                               device=model.device)
     w = max(int(st.articulation_world[a0]), 0)
     # each tensor field by the entities it is per: bodies, joints, dofs,
     # coordinates, tendons, the row's world; no shapes and no particles
-    take = {"joint_X_p": L(js), "joint_X_c": L(js), "joint_q0": L(ci),
-            "joint_target_q0": L(ci), "tendon_params": L(tr),
-            "gravity": L([w])}
+    rows = {"joint_X_p": _joint_rows(st, g), "joint_X_c": _joint_rows(st, g),
+            "joint_q0": g.coord_idx, "joint_target_q0": g.coord_idx,
+            "tendon_params": tendon_rows, "gravity": np.asarray([[w]])}
     kw = {}
     for f in fields(model):
         v = getattr(model, f.name)
@@ -215,12 +300,12 @@ def row_model(model: Model, g, tendon_rows, act_rows) -> Model:
         if f.name in ("joint_type_arr", "joint_parent", "joint_child"):
             v = torch.as_tensor(getattr(rst, f.name.replace("_arr", "")),
                                 device=v.device)
-        elif f.name in take:
-            v = v[take[f.name]]
+        elif f.name in rows:
+            v = _group_rows(v, rows[f.name])
         elif f.name.startswith("body_"):
-            v = v[L(bi)]
+            v = _group_rows(v, g.body_idx)
         elif f.name.startswith("joint_"):
-            v = v[L(di)]
+            v = _group_rows(v, g.dof_idx)
         else:
             v = v[:0]
         kw[f.name] = v
@@ -297,81 +382,82 @@ class SolverFeatherstone:
         self.contact_cap = contact_cap
 
         gc = get_generalized_cache(st)
-        if len(gc.groups) != 1:
-            raise NotImplementedError(
-                "multi-articulation worlds (more than one articulation "
-                "group) are not ported yet")
-        self.group = g = gc.groups[0]
-        if g.n * g.d != st.joint_dof_count:
+        groups = gc.groups
+        if sum(g.n * g.d for g in groups) != st.joint_dof_count:
             raise NotImplementedError(
                 "joints outside the articulations are not ported yet")
-        self.contact_plans = _plan_group_contacts(st, gc.groups)
-        # the tendons and actuators of each row, (n, T) and (n, A)
-        coord_row = -np.ones(st.joint_coord_count, dtype=np.int64)
-        coord_row[g.coord_idx] = np.arange(g.n)[:, None]
-        dof_row = -np.ones(st.joint_dof_count, dtype=np.int64)
-        dof_row[g.dof_idx] = np.arange(g.n)[:, None]
-        self.tendon_rows = (
-            _entity_rows(coord_row[st.tendon_coord[:, 0]], g.n,
-                         "fixed tendons") if st.tendon_count
-            else np.zeros((g.n, 0), dtype=np.int64))
+        self.contact_plans = _plan_group_contacts(st, groups)
+        # each group's static plan: its tendons and actuators per row
+        # (n, T) and (n, A), and its limit rows (decided on row 0's limits,
+        # as the JAX package does)
+        coord_grp = -np.ones((2, st.joint_coord_count), dtype=np.int64)
+        dof_grp = -np.ones((2, st.joint_dof_count), dtype=np.int64)
+        for gi, g in enumerate(groups):
+            coord_grp[:, g.coord_idx] = np.stack(np.broadcast_arrays(
+                gi, np.arange(g.n)[:, None]))
+            dof_grp[:, g.dof_idx] = np.stack(np.broadcast_arrays(
+                gi, np.arange(g.n)[:, None]))
+        tend = (coord_grp[:, st.tendon_coord[:, 0]] if st.tendon_count
+                else np.zeros((2, 0), np.int64))
         au = st.mjc_actuation
-        self.act_rows = (_entity_rows(dof_row[au.dof], g.n, "actuators")
-                         if au is not None and au.n
-                         else np.zeros((g.n, 0), dtype=np.int64))
-        self._check_homogeneous()
-        self.row_model = rm = row_model(model, g, self.tendon_rows,
-                                        self.act_rows)
-        # step_batched takes a one-world model that is its row: every body
-        # and coordinate in its articulation, in order
-        self._model_is_row = g.n == 1 and all(
+        acts = (dof_grp[:, au.dof] if au is not None and au.n
+                else np.zeros((2, 0), np.int64))
+        for what, owner in (("fixed tendons", tend), ("actuators", acts)):
+            if (owner[0] < 0).any():
+                raise NotImplementedError(f"{what} outside the articulations"
+                                          " are not ported yet")
+        lim_lo = model.joint_limit_lower.cpu().numpy()
+        lim_hi = model.joint_limit_upper.cpu().numpy()
+        lin = dict(zip(gc.lin_coord_dof.tolist(), gc.lin_coord_idx.tolist()))
+        self.groups = []
+        self.limit_plans = []
+        for gi, g in enumerate(groups):
+            grp = SimpleNamespace(index=gi, g=g, plan=self.contact_plans[gi])
+            t_idx = np.nonzero(tend[0] == gi)[0]
+            a_idx = np.nonzero(acts[0] == gi)[0]
+            grp.tendon_rows = t_idx[_entity_rows(tend[1][t_idx], g.n,
+                                                 "fixed tendons")]
+            grp.act_rows = a_idx[_entity_rows(acts[1][a_idx], g.n,
+                                              "actuators")]
+            self._check_structure(grp)
+            ld, lc = [], []
+            for k, dg in enumerate(g.dof_idx[0]):
+                cg = lin.get(int(dg))
+                if cg is not None and (lim_lo[dg] > -0.5 * MAXVAL
+                                       or lim_hi[dg] < 0.5 * MAXVAL):
+                    ld.append(k)
+                    lc.append(cg - int(g.coord_idx[0][0]))
+            grp.limit_plan = (np.asarray(ld, dtype=np.int32),
+                              np.asarray(lc, dtype=np.int32))
+            self.limit_plans.append(grp.limit_plan)
+            self.groups.append(grp)
+        # step_batched takes a one-world model that is its row: one group,
+        # every body and coordinate in its articulation, in order
+        g = groups[0] if groups else None
+        self._model_is_row = len(groups) == 1 and g.n == 1 and all(
             np.array_equal(idx[0], np.arange(total)) for idx, total in (
                 (g.body_idx, st.body_count), (g.dof_idx, st.joint_dof_count),
                 (g.coord_idx, st.joint_coord_count)))
-        rgc = get_generalized_cache(rm.structure)
-        rg = rgc.groups[0]
-        ld, lc = [], []
-        lim_lo = rm.joint_limit_lower.cpu().numpy()
-        lim_hi = rm.joint_limit_upper.cpu().numpy()
-        lin = dict(zip(rgc.lin_coord_dof.tolist(),
-                       rgc.lin_coord_idx.tolist()))
-        for k in range(rg.d):
-            c = lin.get(k)
-            if c is not None and (lim_lo[k] > -0.5 * MAXVAL
-                                  or lim_hi[k] < 0.5 * MAXVAL):
-                ld.append(k)
-                lc.append(c)
-        self.limit_plans = [(np.asarray(ld, dtype=np.int32),
-                             np.asarray(lc, dtype=np.int32))]
-        rau = rm.structure.mjc_actuation
-        self.actuation = (ActuationTables(rau, model.device)
-                          if rau is not None and rau.n > 0 else None)
-        self.gc = rgc
-        self.tables = self._build_tables()
+        self.notify_model_changed()
 
-    def _check_homogeneous(self):
-        """Every row must share row 0's constants: the substep's tables
-        hold one row."""
-        model, st, g = self.model, self.model.structure, self.group
+    # the first group's tables, for one-group models
+    @property
+    def group(self):
+        return self.groups[0].g
 
-        def rows(t, idx):
-            return t.detach().cpu().numpy()[idx]
-        a0 = st.articulation_start[g.arts]
-        jrows = a0[:, None] + np.arange(st.articulation_start[g.arts[0] + 1]
-                                        - a0[0])[None]
-        for name, idx in (("body_com", g.body_idx), ("body_mass", g.body_idx),
-                          ("body_inertia", g.body_idx),
-                          ("joint_X_p", jrows), ("joint_X_c", jrows),
-                          ("joint_axis", g.dof_idx),
-                          ("joint_armature", g.dof_idx),
-                          ("joint_target_ke", g.dof_idx),
-                          ("joint_target_kd", g.dof_idx),
-                          ("joint_limit_lower", g.dof_idx),
-                          ("joint_limit_upper", g.dof_idx),
-                          ("joint_velocity_limit", g.dof_idx),
-                          ("tendon_params", self.tendon_rows)):
-            _check_rows(name, rows(getattr(model, name), idx))
-        tr = self.tendon_rows
+    @property
+    def tables(self):
+        return self.groups[0].tables
+
+    @property
+    def row_model(self):
+        return self.groups[0].row_model
+
+    def _check_structure(self, grp):
+        """Every row of a group drives the same local dofs with its tendons
+        and actuators: those maps are one row's."""
+        st, g = self.model.structure, grp.g
+        tr = grp.tendon_rows
         if tr.size:
             coef = st.tendon_coef[tr]
             _check_rows("fixed tendons", coef)
@@ -380,21 +466,35 @@ class SolverFeatherstone:
                 _check_rows("fixed tendons", np.where(
                     coef != 0, idx[tr] - base[:, :1, None], 0))
         au = st.mjc_actuation
-        if self.act_rows.size:
-            ar = self.act_rows
+        if grp.act_rows.size:
+            ar = grp.act_rows
             _check_rows("actuators", au.dof[ar] - g.dof_idx[:, :1])
             _check_rows("actuators", au.coord[ar] - g.coord_idx[:, :1])
-            for name in ("gear", "gaintype", "gainprm", "biastype",
-                         "biasprm", "dyntype", "ctrlrange", "ctrllimited",
-                         "forcerange", "forcelimited"):
-                _check_rows("actuators", np.asarray(getattr(au, name))[ar])
-        plan = self.contact_plans[0]
-        if plan is not None:
-            for name in ("shape_material_mu", "shape_material_restitution"):
-                v = getattr(model, name).cpu().numpy()
-                per_slot = 0.5 * (v[np.maximum(st.slot_shape0, 0)]
-                                  + v[np.maximum(st.slot_shape1, 0)])
-                _check_rows(name, per_slot[plan.slots])
+
+    def notify_model_changed(self, flags: int = 0):
+        """Rebuild every group's per-row tables from the model's current
+        tensors: after an edit of ``body_mass``, ``body_inertia``,
+        ``shape_material_mu``, joint gains or limits, ... (per-world
+        randomization), the next substep uses the new values. The static
+        plans (groups, contact slots, which dofs have limit rows) stay.
+        ``flags`` is accepted for the reference's signature and ignored:
+        every table is rebuilt. A two-sided contact reads the other body's
+        ``body_inv_mass`` and ``body_inv_inertia``: keep them consistent
+        with ``body_mass`` and ``body_inertia`` when editing those."""
+        for grp in self.groups:
+            if grp.g.d == 0:
+                # no dofs (fixed joints only): nothing to step, its bodies
+                # keep their poses
+                grp.row_model = grp.gc = grp.actuation = None
+                grp.tables = SimpleNamespace(d=0)
+                continue
+            grp.row_model = rm = row_model(self.model, grp.g,
+                                           grp.tendon_rows, grp.act_rows)
+            grp.gc = get_generalized_cache(rm.structure)
+            rau = rm.structure.mjc_actuation
+            grp.actuation = (ActuationTables(rau, self.model.device)
+                             if rau is not None and rau.n > 0 else None)
+            grp.tables = self._build_tables(grp)
 
     def _plan_cap(self, c: int) -> int:
         """Resolved per-env contact cap for a plan with ``c`` slots."""
@@ -405,12 +505,13 @@ class SolverFeatherstone:
             return c
         return min(c, int(cap))
 
-    def _build_tables(self) -> SimpleNamespace:
-        """Every static index and per-row constant of the substep, on the
-        model's device, in the row model's local indices."""
-        model = self.row_model
+    def _build_tables(self, grp) -> SimpleNamespace:
+        """Every static index and per-row constant of a group's substep, on
+        the model's device, in the row model's local indices; a constant
+        is (k, ...) or, where the rows differ, (n, k, ...)."""
+        model = grp.row_model
         st = model.structure
-        gc = self.gc
+        gc = grp.gc
         dev = model.device
         kin = kinematic_tables(model)
 
@@ -424,15 +525,17 @@ class SolverFeatherstone:
             return torch.as_tensor(np.asarray(a, dtype=np.float32),
                                    device=dev)
 
-        t = SimpleNamespace(identity=kin.identity)
+        g = gc.groups[0]
+        t = SimpleNamespace(identity=kin.identity, d=g.d)
         # dof subspace
         dj = gc.dof_joint
         t.dof_parent = L(np.maximum(st.joint_parent[dj], 0))
         t.dof_hasp = B(st.joint_parent[dj] >= 0)[:, None]
-        t.dof_X_p = model.joint_X_p[L(dj)]
+        t.dof_X_p = model.joint_X_p[..., L(dj), :]
         t.model_axis = model.joint_axis
         # multi-axis joints: each angular dof takes its transported axis
-        # (slot 0-2 of its joint, sim/articulation.py:angular_axes)
+        # (slot 0-2 of its joint, sim/articulation.py:angular_axes); a ball
+        # joint's dofs keep their canonical axes
         t.ang_kin = None
         if (gc.dof_ang_slot > 0).any():
             t.ang_kin = kin
@@ -451,7 +554,7 @@ class SolverFeatherstone:
                 A_lin=kin.A_lin, dof_joint=L(dj),
                 dof_shift=B(shifted)[:, None])
         t.dof_body = L(gc.dof_body)
-        t.dof_com = model.body_com[t.dof_body]
+        t.dof_com = model.body_com[..., t.dof_body, :]
         t.dof_is_com = B(gc.dof_anchor_is_com)[:, None]
         t.dof_is_lin = B(gc.dof_is_linear)[:, None]
         # bias forces: forward levels and backward accumulation rounds
@@ -464,7 +567,7 @@ class SolverFeatherstone:
                     _accumulation_rounds(st, gc.kc.levels)]
         # gravity of each row's world as the base acceleration [-g, 0] of
         # its bodies, (n, b, 6)
-        full, rows = self.model, self.group
+        full, rows = self.model, grp.g
         worlds = np.maximum(full.structure.articulation_world[rows.arts], 0)
         grav = full.gravity[L(worlds)][:, None, :].expand(
             -1, st.body_count, 3)
@@ -474,11 +577,17 @@ class SolverFeatherstone:
         # gathers into the env-major rows and scatters back
         t.row_body, t.row_dof = L(rows.body_idx), L(rows.dof_idx)
         t.row_coord = L(rows.coord_idx)
-        t.row_tendon, t.row_act = L(self.tendon_rows), L(self.act_rows)
-        # applied forces (PD drives on linear coordinates)
+        t.row_tendon, t.row_act = L(grp.tendon_rows), L(grp.act_rows)
+        # applied forces: PD drives on linear coordinates and on ball
+        # joints (the quaternion error as an axis-angle torque)
         t.lin_idx, t.lin_dof = L(gc.lin_coord_idx), L(gc.lin_coord_dof)
-        t.pd_ke = model.joint_target_ke[t.lin_dof]
-        t.pd_kd = model.joint_target_kd[t.lin_dof]
+        t.pd_ke = model.joint_target_ke[..., t.lin_dof]
+        t.pd_kd = model.joint_target_kd[..., t.lin_dof]
+        bq = gc.quat_coord_starts
+        t.ball_q = L(bq[:, 0:1] + np.arange(4)[None])          # (nb, 4)
+        t.ball_d = L(bq[:, 1:2] + np.arange(3)[None])          # (nb, 3)
+        t.ball_ke = model.joint_target_ke[..., t.ball_d]
+        t.ball_kd = model.joint_target_kd[..., t.ball_d]
         # fixed tendons as dense maps: L = q C_q^T, Ldot = qd C_d^T,
         # tau += f C_d (the padding entries carry coef 0)
         T = st.tendon_count
@@ -491,70 +600,92 @@ class SolverFeatherstone:
                 np.add.at(Cd[i], st.tendon_dof[i], st.tendon_coef[i])
             t.tendon_Cq, t.tendon_Cd = F(Cq), F(Cd)
             t.tendon_ke, t.tendon_kd, t.tendon_L0 = \
-                model.tendon_params.unbind(1)
+                model.tendon_params.unbind(-1)
         # group row
-        g = gc.groups[0]
         t.di, t.bi = L(g.dof_idx[0]), L(g.body_idx[0])
         t.anc = F(g.anc)                                   # (b, d)
-        t.armature = model.joint_armature[t.di]
-        # contact rows: per-slot tables over the c slots of a row (the
-        # entries gather each row's slots first); with K < c the step
-        # gathers the top-K slots of each env from them
-        plan = self.contact_plans[0]
-        t.cap = None if plan is None else self._plan_cap(plan.c)
-        if plan is not None:
-            anc = np.asarray(g.anc, dtype=np.float32)
-            zero = np.zeros((g.d,), dtype=np.float32)
-            anc1 = np.where((plan.lb1 >= 0)[:, None],
-                            anc[np.maximum(plan.lb1, 0)], zero)
-            anc0 = np.where((plan.lb0 >= 0)[:, None],
-                            anc[np.maximum(plan.lb0, 0)], zero)
-            t.sign = F(anc1 - anc0)                        # (c, d)
-            t.gb0 = L(np.maximum(plan.lb0, 0))
-            t.gb1 = L(np.maximum(plan.lb1, 0))
-            t.on0 = B(plan.lb0 >= 0)[:, None]
-            t.on1 = B(plan.lb1 >= 0)[:, None]
-            fst = full.structure
-            t.row_slots = L(plan.slots)
-            t.slots_are_all = bool(np.array_equal(
-                plan.slots[0], np.arange(fst.rigid_contact_max)))
-            slots0 = L(plan.slots[0])
-            s0 = L(np.maximum(fst.slot_shape0, 0))[slots0]
-            s1 = L(np.maximum(fst.slot_shape1, 0))[slots0]
-            t.mu = 0.5 * (full.shape_material_mu[s0]
-                          + full.shape_material_mu[s1])
-            t.e_rest = 0.5 * (full.shape_material_restitution[s0]
-                              + full.shape_material_restitution[s1])
+        t.armature = model.joint_armature[..., t.di]
+        # contact rows
+        t.cap = None
+        if grp.plan is not None:
+            self._contact_tables(t, grp, L, B, F)
         # limit rows
-        ld, lc = self.limit_plans[0]
+        ld, lc = grp.limit_plan
         t.nl = len(ld)
         t.ld = L(ld)
         t.ld_i32 = torch.as_tensor(ld.astype(np.int32), device=dev)
         t.lim_coord = L(g.coord_idx[0][lc]) if len(ld) else L([])
-        t.lim_lo = model.joint_limit_lower[t.di[t.ld]]
-        t.lim_hi = model.joint_limit_upper[t.di[t.ld]]
+        t.lim_lo = model.joint_limit_lower[..., t.di[t.ld]]
+        t.lim_hi = model.joint_limit_upper[..., t.di[t.ld]]
         # integration
         fj = gc.free_joints
         t.free_p = L(fj[:, 0:1] + np.arange(3)[None])
         t.free_q = L(fj[:, 0:1] + np.arange(3, 7)[None])
         t.free_v = L(fj[:, 1:2] + np.arange(3)[None])
         t.free_w = L(fj[:, 1:2] + np.arange(3, 6)[None])
-        t.free_com = model.body_com[L(fj[:, 2])]
+        t.free_com = model.body_com[..., L(fj[:, 2]), :]
         t.vel_limit = model.joint_velocity_limit
         return t
 
+    def _contact_tables(self, t, grp, L, B, F):
+        """Per-slot tables over the c entries of a row (the entries gather
+        each row's slots first; with K < c the step gathers the top-K of
+        each env from them): signs of the dof columns, local bodies, the
+        ragged mask, friction and restitution, and the other body of each
+        two-sided entry (its constants; its state is read each step)."""
+        plan, g, full = grp.plan, grp.gc.groups[0], self.model
+        fst = full.structure
+        t.cap = self._plan_cap(plan.c)
+        anc = np.asarray(g.anc, dtype=np.float32)
+        zero = np.zeros((g.d,), dtype=np.float32)
+
+        def side(lb):
+            return np.where((lb >= 0)[..., None], anc[np.maximum(lb, 0)],
+                            zero)
+        t.sign = F(side(plan.lb1) - side(plan.lb0))        # (c|n c, d)
+        t.gb0 = L(np.maximum(plan.lb0, 0))
+        t.gb1 = L(np.maximum(plan.lb1, 0))
+        t.on0 = B(plan.lb0 >= 0)[..., None]
+        t.on1 = B(plan.lb1 >= 0)[..., None]
+        # ragged plans index the bodies of each row: (n, 1) row numbers
+        t.row_col = None if plan.uniform else L(np.arange(g.n)[:, None])
+        C = fst.rigid_contact_max
+        read = np.minimum(plan.slots, C - 1)
+        t.row_slots = L(read)
+        t.valid = None if plan.valid is None else B(plan.valid)
+        t.slots_are_all = bool(np.array_equal(read[0], np.arange(C)))
+        s0 = L(np.maximum(fst.slot_shape0, 0))
+        s1 = L(np.maximum(fst.slot_shape1, 0))
+        for name, attr in (("mu", "shape_material_mu"),
+                           ("e_rest", "shape_material_restitution")):
+            v = getattr(full, attr)
+            setattr(t, name, _group_rows(0.5 * (v[s0] + v[s1]), read))
+        ob = plan.ob
+        t.other = None
+        if (ob >= 0).any():
+            obc = L(np.maximum(ob, 0))                     # (n, c)
+            lb1 = np.broadcast_to(plan.lb1, ob.shape)
+            t.other = SimpleNamespace(
+                body=obc, on=B(ob >= 0)[..., None],
+                sgn=F(np.where(lb1 < 0, 1.0, -1.0) * (ob >= 0)),
+                inv_mass=full.body_inv_mass[obc],
+                inv_inertia=full.body_inv_inertia[obc],
+                com=full.body_com[obc])
+
     def init_state(self, state):
-        """The State with the solver's entries of ``State.custom``: for the
-        Euler path, ``contact:overflow:0`` (int32 per row), the number of
-        active contacts that top-K compaction dropped in the last step,
-        when the cap is below the row's slot count (the JAX package's
-        ``init_state`` without sleeping and warm start)."""
-        plan = self.contact_plans[0]
+        """The State with the solver's entries of ``State.custom``: for each
+        group ``gi`` whose contact cap is below its slot count,
+        ``contact:overflow:<gi>`` (int32 per row), the number of active
+        contacts that top-K compaction dropped in the last step (the JAX
+        package's ``init_state`` without sleeping and warm start)."""
         custom = dict(state.custom)
-        if plan is not None and self._plan_cap(plan.c) < plan.c:
-            custom.setdefault("contact:overflow:0", torch.zeros(
-                (self.group.n,), dtype=torch.int32,
-                device=state.joint_q.device))
+        for grp in self.groups:
+            plan = grp.plan
+            if (plan is not None and grp.g.d
+                    and self._plan_cap(plan.c) < plan.c):
+                custom.setdefault(f"contact:overflow:{grp.index}",
+                                  torch.zeros((grp.g.n,), dtype=torch.int32,
+                                              device=state.joint_q.device))
         return replace(state, custom=custom)
 
     def step(self, state_in, state_out=None, control=None, contacts=None,

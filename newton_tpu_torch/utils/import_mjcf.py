@@ -5,9 +5,11 @@ walker2d drive.
 Port of ``newton_tpu/utils/import_mjcf.py`` (``parse_mjcf``): compiler
 angle units and ``settotalmass``, ``<option>`` (captured into
 ``builder.mjc_options``; fluid forces raise), default classes,
-``<custom><numeric name="init_qpos">`` (MuJoCo's wxyz free-joint
-quaternion converted to xyzw), bodies with a free joint, or with slide and
-hinge joints (limits, armature, damping, stiffness): one slide is a
+``<custom><numeric name="init_qpos">`` (MuJoCo's wxyz free- and ball-joint
+quaternions converted to xyzw), bodies with a free joint, one ball joint
+(armature, damping, stiffness: the damping and stiffness on its three
+dofs' drive gains), or slide and hinge joints (limits, armature, damping,
+stiffness): one slide is a
 prismatic joint, one hinge a revolute joint, and slides followed by hinges
 one D6 joint that translates along the slides, then rotates about the
 hinges' common ``pos``. A slide's ``ref`` shifts its limits into
@@ -269,13 +271,14 @@ def parse_mjcf(builder, source: str):
     def parse_joint(j: ET.Element, body_class):
         a = resolve_attrs(j, "joint", body_class)
         jtype = a.get("type", "hinge")
-        if jtype not in ("hinge", "slide", "free"):
+        if jtype not in ("hinge", "slide", "free", "ball"):
             raise NotImplementedError(
                 f"MJCF joint type {jtype!r} is not supported by the port yet")
         ref = _parse_float(a.get("ref"), 0.0)
         if ref != 0.0 and jtype != "slide":
             raise NotImplementedError(
-                "MJCF ref on a hinge joint is not supported by the port yet")
+                f"MJCF ref on a {jtype} joint is not supported by the port "
+                "yet")
         axis = _parse_vec(a.get("axis"), default=[0, 0, 1], n=3)
         nrm = np.linalg.norm(axis)
         axis = axis / nrm if nrm > 0 else np.array([0.0, 0, 1])
@@ -334,6 +337,26 @@ def parse_mjcf(builder, source: str):
                     "not supported by the port yet")
             jidx = builder.add_joint_free(body_idx, parent=parent_idx,
                                           key=joints[0]["name"])
+        elif any(j["type"] == "ball" for j in joints):
+            j = joints[0]
+            if len(joints) > 1:
+                raise NotImplementedError(
+                    f"MJCF body {name!r} combines a ball joint with others; "
+                    "not supported by the port yet")
+            if j["limited"]:
+                raise NotImplementedError(
+                    f"MJCF ball joint {j['name']!r}: a limited ball joint "
+                    "(a cone limit) is not supported by the port yet")
+            # rotates about its pos; damping and stiffness act on its three
+            # dofs as the drive gains (a spring to the identity quaternion)
+            anchor = np_transform(j["pos"])
+            jidx = builder.add_joint_ball(
+                parent_idx, body_idx,
+                xform_p=np_transform_multiply(X_rel, anchor),
+                xform_c=anchor, armature=j["armature"], key=j["name"])
+            d0 = builder.joint_qd_start[jidx]
+            builder.joint_target_kd[d0:d0 + 3] = [j["damping"]] * 3
+            builder.joint_target_ke[d0:d0 + 3] = [j["stiffness"]] * 3
         else:
             # slides then hinges: one joint that translates, then rotates
             # (a D6 joint's linear axes come first, as the MJCF order here)
@@ -368,7 +391,7 @@ def parse_mjcf(builder, source: str):
         # each MJCF hinge's own dof and coordinate, for actuators and
         # tendons (a free joint takes 6 dofs and 7 coordinates)
         for k, j in enumerate(joints):
-            if j["name"]:
+            if j["name"] and j["type"] != "ball":
                 joint_dof_start[j["name"]] = jd_start + k
                 joint_coord_start[j["name"]] = jq_start + k
                 if j["type"] == "hinge":
@@ -539,8 +562,8 @@ def _parse_actuators(builder, act_root, resolve_attrs, joint_dof_start,
 
 
 def _mjc_qpos_to_newton(builder, qpos: np.ndarray) -> np.ndarray:
-    """MuJoCo qpos (free joint: pos + wxyz quat) -> the builder's layout
-    (pos + xyzw)."""
+    """MuJoCo qpos (free joint: pos + wxyz quat; ball joint: wxyz) -> the
+    builder's layout (pos + xyzw; xyzw)."""
     out = np.array(qpos, dtype=np.float64)
     i = 0
     for j, t in enumerate(builder.joint_type):
@@ -551,5 +574,9 @@ def _mjc_qpos_to_newton(builder, qpos: np.ndarray) -> np.ndarray:
             w = out[i + 3]
             out[i + 3:i + 6] = out[i + 4:i + 7]
             out[i + 6] = w
+        elif JointType(t) == JointType.BALL:
+            w = out[i]
+            out[i:i + 3] = out[i + 1:i + 4]
+            out[i + 3] = w
         i += nq
     return out

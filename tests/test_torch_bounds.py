@@ -25,6 +25,19 @@ def test_bytes_per_env(name, shape, nbytes):
                                                              4096 * flops)
 
 
+def test_pgs_w_other_cost():
+    """Two-sided contacts: B2 also reads the 3c addends of w_other, adds
+    them to the diagonal and does one more FMA per contact row in each of
+    the 3 + 8 matvecs."""
+    c, nl, d = 32, 8, 14
+    base_b, base_f = chip_smoke.kernel_cost("pgs_solve_fused", c=c, nl=nl,
+                                            d=d)
+    got_b, got_f = chip_smoke.kernel_cost("pgs_solve_fused", c=c, nl=nl,
+                                          d=d, w_other=True)
+    assert got_b == base_b + 4 * 3 * c
+    assert got_f == base_f + 3 * c + 2 * 11 * 3 * c
+
+
 def test_pgs_flops_count():
     """The MJ assembly (3c d^2 FMAs) plus 3 spectral + 8 sweep matvecs of
     2 x 3c d + nl d, diag/v_free and dqd, 2 FLOPs per FMA."""

@@ -679,37 +679,50 @@ def _two_link(kind):
 @pytest.mark.parametrize("kind", ["d6 linear", "ball", "two articulations",
                                   "heterogeneous contacts"])
 def test_unported_cases_raise(kind):
-    """A ball joint, two articulations in one world and a heterogeneous
-    contact plan (two worlds whose robots differ) raise
-    NotImplementedError. A D6 joint with a linear axis is ported: it
-    builds and steps (tests/test_torch_planar.py holds it against the JAX
-    package and MuJoCo-C)."""
+    """The cases that raised NotImplementedError before they were ported
+    now build and step: a D6 joint with a linear axis
+    (tests/test_torch_planar.py holds it against the JAX package and
+    MuJoCo-C), a ball joint, two articulations in one world and a
+    heterogeneous contact plan (two worlds whose scenes differ); the
+    parity of the last three with the JAX package is in
+    tests/test_torch_ball.py and tests/test_torch_hetero.py. An
+    articulation attached to another articulation's body still raises."""
+    if kind == "heterogeneous contacts":
+        a = nt.ModelBuilder()
+        a.add_ground_plane()
+        body = a.add_body()
+        a.add_shape_sphere(body, radius=0.1)
+        a.add_joint_free(body)
+        bb = nt.ModelBuilder()
+        bb.add_ground_plane()
+        bb.add_ground_plane()
+        body = bb.add_body()
+        bb.add_shape_sphere(body, radius=0.1)
+        bb.add_joint_free(body)
+        b = nt.ModelBuilder()
+        b.add_world(a)
+        b.add_world(bb)
+    else:
+        b = _two_link(kind)
+    m = b.finalize("cpu")
     if kind == "d6 linear":
-        m = _two_link(kind).finalize("cpu")
         assert tuple(m.structure.joint_dof_dim[1]) == (1, 1)
-        solver = nt.SolverMuJoCo(m, integrator="euler")
-        s = nt.eval_fk(m, m.joint_q0, m.joint_qd0, m.state())
-        out = solver.step(s, None, None,
-                          nt.CollisionPipeline(m).collide(s), DT)
-        assert bool(torch.isfinite(out.joint_q).all())
-        return
-    with pytest.raises(NotImplementedError):
-        if kind == "heterogeneous contacts":
-            a = nt.ModelBuilder()
-            a.add_ground_plane()
-            body = a.add_body()
-            a.add_shape_sphere(body, radius=0.1)
-            a.add_joint_free(body)
-            bb = nt.ModelBuilder()
-            bb.add_ground_plane()
-            bb.add_ground_plane()
-            body = bb.add_body()
-            bb.add_shape_sphere(body, radius=0.1)
-            bb.add_joint_free(body)
-            m = nt.ModelBuilder()
-            m.add_world(a)
-            m.add_world(bb)
-            nt.SolverMuJoCo(m.finalize("cpu"), integrator="euler")
-        else:
-            b = _two_link(kind)
-            nt.SolverMuJoCo(b.finalize("cpu"), integrator="euler")
+    solver = nt.SolverMuJoCo(m, integrator="euler")
+    if kind == "heterogeneous contacts":
+        assert not solver.contact_plans[0].uniform
+    s = nt.eval_fk(m, m.joint_q0, m.joint_qd0, m.state())
+    out = solver.step(s, None, m.control(),
+                      nt.CollisionPipeline(m).collide(s), DT)
+    assert bool(torch.isfinite(out.joint_q).all())
+    assert bool(torch.isfinite(out.body_q).all())
+    if kind == "two articulations":
+        inner = nt.ModelBuilder()
+        r = inner.add_body()
+        inner.add_shape_sphere(r, radius=0.1)
+        inner.add_joint_free(r)
+        c = inner.add_body()
+        inner.add_shape_sphere(c, radius=0.1)
+        inner.add_articulation()
+        inner.add_joint_revolute(r, c, axis="Y")
+        with pytest.raises(NotImplementedError):
+            nt.SolverMuJoCo(inner.finalize("cpu"), integrator="euler")

@@ -5,6 +5,7 @@ card.
     python3 tools/torch_kernel_ab.py [--parent DIR] [--mpm-only] [--out FILE]
     python3 tools/torch_kernel_ab.py --worlds [--out FILE]
     python3 tools/torch_kernel_ab.py --planar [--out FILE]
+    python3 tools/torch_kernel_ab.py --hetero [--out FILE]
 
 Builds this checkout's kernel library and, with ``--parent``, the library
 of the checkout at DIR (its own ``newton_tpu_torch/csrc``), then on the same
@@ -32,7 +33,9 @@ operands, in turns (parent, this, this, parent):
   - profiles one frame (4 substeps) of the humanoid and of the ant on the
     kernel path with torch.profiler: device time and device operations,
     and times env-steps/s of each kernel path over 10 frames, in the same
-    turns (skipped with ``--mpm-only``).
+    turns (skipped with ``--mpm-only``; only this checkout's when the
+    parent's B2 entry takes another argument list, as one from before
+    the w_other operand does).
 With ``--worlds`` (this checkout only) it profiles one frame of each of
 chip_smoke.py's replicated scenes, cartpole x 8192 and humanoid x 8192
 through ``replicate`` + ``step`` after their warm-up: device time, device
@@ -42,8 +45,12 @@ With ``--planar`` (this checkout only) it profiles the same way one frame
 of chip_smoke.py's planar paths: half_cheetah x 4096 (step_batched,
 euler, after one warm-up frame) and hopper x 8192 (replicate + step, dt
 0.002, after its warm-up) under RK4 and, for the host cost of the RK4
-stages, under euler. Writes one JSON object (to ``--out`` as well, when given). Without a CUDA
-device it exits 2.
+stages, under euler. With ``--hetero`` (this checkout only) it profiles
+the same way one frame of chip_smoke.py's heterogeneous paths after a
+warm-up frame: the rod x 4096 (ball joints, 8 substeps of 1/480 s) and the
+randomized ant with a ball x 4096 (two groups, two-sided contacts, 4
+substeps of 1/240 s). Writes one JSON object (to ``--out`` as well, when
+given). Without a CUDA device it exits 2.
 """
 
 import argparse
@@ -142,12 +149,17 @@ def caller(lib, kind, operands):
     lam = torch.empty((W, r), device=J.device)
     dqd = torch.empty((W, d), device=J.device)
     halv = torch.empty((W,), dtype=torch.int32, device=J.device)
-    scratch = [None] * (len(lib.pgs_solve_fused_f32.argtypes) - 21)
+    # a library with the w_other operand takes its pointer after ld (None:
+    # these shapes are one-sided), one with the global-scratch instance a
+    # scratch pointer
+    n_args = len(lib.pgs_solve_fused_f32.argtypes)
+    w_other = [None] if n_args >= 23 else []
+    scratch = [None] * (n_args - 21 - len(w_other))
 
     def run():
         err = lib.pgs_solve_fused_f32(
-            *[t.data_ptr() for t in (J, Minv, qd, b, act, mu, lam0, ld, lam,
-                                     dqd, halv)],
+            *[t.data_ptr() for t in (J, Minv, qd, b, act, mu, lam0, ld)],
+            *w_other, *[t.data_ptr() for t in (lam, dqd, halv)],
             W, kw["c"], int(ld.numel()), d, int(kw["iters"]),
             float(kw["omega"]), int(bool(kw["use_cone"])),
             float(kw["diag_scale"]), float(kw["reg"]), *scratch,
@@ -476,6 +488,54 @@ def planar_profile(dev):
     return out
 
 
+def hetero_profile(dev):
+    """One profiled frame of the rod x 4096 and of the randomized ant with a
+    ball x 4096 (flat ``step``), each after a warm-up frame, and the mean
+    wall time of a frame."""
+    import torch
+    import newton_tpu_torch as nt
+    out = {}
+    b, _ = cs.rod_scene(nt, cs.HETERO_W)
+    rm = b.finalize(dev)
+    rs = nt.SolverFeatherstone(rm)
+    rbox = {"s": nt.eval_fk(rm, rm.joint_q0, rm.joint_qd0, rm.state())}
+    rctl = rm.control()
+
+    def rod_frame():
+        rbox["s"] = cs.run_steps(rs, rbox["s"], rctl, cs.ROD_SUBSTEPS,
+                                 cs.ROD_DT, True)
+    b, _ = cs.ant_ball_scene(nt, cs.HETERO_W,
+                             os.path.join(nt.ASSET_DIR, "ant.xml"))
+    am = b.finalize(dev)
+    ap_ = nt.CollisionPipeline(am)
+    as_ = nt.SolverMuJoCo(am, iterations=cs.ITERS, integrator="euler")
+    cs.randomize_ant_ball(am, 60)
+    as_.notify_model_changed()
+    sample = cs.ctrl_sampler(am, dev, seed=61)
+    abox = {"s": nt.eval_fk(am, am.joint_q0, am.joint_qd0, am.state())}
+    actl = am.control()
+
+    def ant_frame():
+        abox["s"] = cs.run_steps(as_, abox["s"], actl, cs.SUBSTEPS, cs.DT,
+                                 True, pipe=ap_, sample=sample)
+    for name, run_frame, substeps in (("rod", rod_frame, cs.ROD_SUBSTEPS),
+                                      ("ant with a ball", ant_frame,
+                                       cs.SUBSTEPS)):
+        run_frame()                               # warm-up frame
+        prof = frame_profile(run_frame)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(cs.FRAMES):
+            run_frame()
+        wall_ms = (time.perf_counter() - t0) / cs.FRAMES * 1e3
+        out[name] = dict(prof, wall_ms=wall_ms,
+                         busy_share=prof["device_ms"] / wall_ms,
+                         worlds=cs.HETERO_W, substeps=substeps,
+                         env_steps_per_s=cs.HETERO_W * substeps / wall_ms
+                         * 1e3)
+    return out
+
+
 def main():
     import torch
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -487,6 +547,9 @@ def main():
                     help="only the profiles of the replicated scenes")
     ap.add_argument("--planar", action="store_true",
                     help="only the profiles of the planar robots' paths")
+    ap.add_argument("--hetero", action="store_true",
+                    help="only the profiles of the rod and the ant with a "
+                         "ball")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_kernel_ab: no CUDA device", file=sys.stderr)
@@ -497,6 +560,9 @@ def main():
                     a.out)
     if a.planar:
         return emit(dict(card=cs.card_line(), planar=planar_profile(dev)),
+                    a.out)
+    if a.hetero:
+        return emit(dict(card=cs.card_line(), hetero=hetero_profile(dev)),
                     a.out)
     from newton_tpu_torch import _kernels
     libs = {"this": _kernels.lib()}
@@ -518,6 +584,12 @@ def main():
     def use(tag):
         _kernels._lib = libs[tag]
 
+    # the frames run the port's wrappers on each library: a parent whose B2
+    # entry takes another argument list (one without w_other) runs none
+    sig = {tag: len(lib.pgs_solve_fused_f32.argtypes)
+           for tag, lib in libs.items()}
+    frame_tags = [t for t in ("parent", "this", "this", "parent")
+                  if t in libs and sig[t] == sig["this"]]
     frames = {}
     for name, (model, pipe, solver, state) in (
             ("humanoid", (*hum, cs.humanoid_reset(hum[0], dev, seed=11))),
@@ -530,11 +602,9 @@ def main():
                       sample=sample):
             box["s"] = cs.run_frames(model, pipe, solver, box["s"], sample,
                                      1, True)
-        order = (["parent", "this", "this", "parent"] if a.parent
-                 else ["this", "this"])
-        prof = {tag: [] for tag in libs}
-        rate = {tag: [] for tag in libs}
-        for tag in order:
+        prof = {tag: [] for tag in set(frame_tags)}
+        rate = {tag: [] for tag in set(frame_tags)}
+        for tag in frame_tags:
             use(tag)
             prof[tag].append(frame_profile(run_frame))
             t0 = time.perf_counter()
