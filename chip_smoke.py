@@ -130,7 +130,33 @@ Phases, one line each:
      plan (example_hetero_worlds.py with a static sphere pedestal in the
      odd worlds), 1.25 s with one B1 and one B2 (2, 0, 6) per substep,
      spheres at rest at z = 0.3 and 0.7 (+-0.05); each with a kernel vs
-     plain step and step against its groups alone.
+     plain step and step against its groups alone;
+ 21. ant x 4096 under SolverXPBD (bench.py --solver xpbd: replicate, the
+     static pipeline, iterations 8, dt 1/240, 4 substeps, direct ctrl x
+     mjc:actuator_gear each frame from a seeded generator): 10 warm-up
+     and 20 timed frames (bench.py times 50), no NaN, unit quaternions,
+     root z > 0 in every world and > 0.1 in 99% (the JAX package's XPBD
+     ant sinks below 0.1 too, ROADMAP C.13), no B1/B2 launch (no TPU
+     kernel lies on the XPBD path); 8 worlds stepped 4 substeps on the
+     card equal the port on the CPU (body_q 2e-4, joint_qd 5e-3; at most
+     one world whose contact set differs between the two left out); two
+     runs of one substep on the card agree within body_q 2e-5, body_qd
+     5e-3; one profiled frame; env-steps/s, setup seconds, peak device
+     memory;
+ 22. pyramid x 1024 (example_pyramid.py: six free boxes in rows 3-2-1,
+     mu 0.8) on SolverFeatherstone(contact_iterations=16), dt 1/240, 4
+     substeps, 40 frames: one group of d = 36 whose 288 box entries per
+     world are compacted to 32, one B1 (generic_smem) and one B2 ((32, 0,
+     36), smem128) launch per substep; the example's gates in every world
+     (top box z > 0.6, |x|, |y| < 0.1; every box |x|, |y| < 0.8); a kernel
+     vs plain step (phase 6's tolerances and guard-mismatch count); one
+     substep with contact_cap=0 (B2 (288, 0, 36) global256) held
+     likewise; env-steps/s in turns;
+ 23. domino spiral x 1024 (example_domino_spiral.py, the first domino
+     nudged) under SolverXPBD(iterations=4), dt 1/240, 4 substeps, 110
+     frames: the first five dominoes tipped (up-z < 0.75) in every world,
+     the worlds where all ten tipped, no B1/B2 launch; one profiled frame;
+     env-steps/s.
 It prints one JSON line listing the kernels (name, route, source,
 launches, error, times, and each time's least possible time on an H100
 SXM at 700 W from ``kernel_cost``: bound_ms, bound_by, share_of_bound;
@@ -138,8 +164,9 @@ library_ms where one PyTorch call computes the same function, else null
 with the reason; B1 and B2 also at the humanoid's shapes; B3 timed with
 its binning and given bins, B4 given bins, its bound counted on the nodes
 it reads; the binning, part of both, with its own entry; then one entry
-for each B1 and B2 instance on the paths of phases 13-20, with the W it
-runs at there, B2 on the two-sided groups with w_other), then the card
+for each B1 and B2 instance on the paths of phases 13-20 and 22, with
+the W it runs at there, B2 on the two-sided groups with w_other, B2 at
+the pyramid's uncompacted (288, 0, 36) off the main path), then the card
 line, then the result line ``{"ok": true,
 "device": {...}}``. Any failed phase raises: exit code != 0 and no result
 line. Without a CUDA device it exits 2 at once. A ``[details]`` line
@@ -1874,6 +1901,64 @@ def ragged_scene(lib, n):
     return b
 
 
+PYRAMID_H = 0.15                      # example_pyramid.py's half-extent
+DOMINO_N = 10                         # example_domino_spiral.py
+DOMINO_H = 0.30
+
+
+def pyramid_scene(lib, n):
+    """example_pyramid.py's world (six free boxes of half-extent 0.15 in
+    rows 3-2-1 with 2 mm gaps, mu 0.8, on a ground plane of mu 0.8)
+    replicated n times. Returns the builder and the top box's body index
+    in a world."""
+    w = lib.ModelBuilder()
+    cfg = lib.ShapeConfig(mu=0.8)
+    h = PYRAMID_H
+    top = None
+    for r, count in enumerate((3, 2, 1)):
+        x0 = -(count - 1) * h
+        for i in range(count):
+            top = w.add_body(xform=[x0 + i * 2 * h, 0, h + r * 2 * h
+                                    + 0.002 * r, 0, 0, 0, 1],
+                             key=f"box_{r}_{i}")
+            w.add_shape_box(top, hx=h, hy=h, hz=h, cfg=cfg)
+            w.add_joint_free(top)
+    b = lib.ModelBuilder()
+    b.replicate(w, n)
+    b.add_ground_plane(cfg=cfg)
+    return b, top
+
+
+def domino_scene(lib, n):
+    """example_domino_spiral.py's world (ten free boxes of half-extents
+    0.02 x 0.09 x 0.15 standing on a spiral of radius 1 + 0.02 per domino,
+    spaced 0.55 domino heights, mu 0.6) replicated n times, with the
+    ground plane. Returns the builder and the first domino's initial
+    velocity (0, 1.4, 0) (the nudge along the spiral's tangent) as a
+    (n * 10, 6) body_qd of every world."""
+    import math
+    import numpy as np
+    w = lib.ModelBuilder()
+    cfg = w.default_shape_cfg.copy()
+    cfg.mu = 0.6
+    theta, r = 0.0, 1.0
+    for i in range(DOMINO_N):
+        body = w.add_body(xform=[r * math.cos(theta), r * math.sin(theta),
+                                 DOMINO_H / 2, 0.0, 0.0, math.sin(theta / 2),
+                                 math.cos(theta / 2)], key=f"domino_{i}")
+        w.add_shape_box(body, hx=0.02, hy=0.09, hz=DOMINO_H / 2, cfg=cfg,
+                        key=f"domino_shape_{i}")
+        w.add_joint_free(body, key=f"domino_free_{i}")
+        theta += 0.55 * DOMINO_H / r
+        r += 0.02
+    b = lib.ModelBuilder()
+    b.replicate(w, n)
+    b.add_ground_plane()
+    qd = np.zeros((n, DOMINO_N, 6), dtype=np.float32)
+    qd[:, 0, 1] = 1.4
+    return b, qd.reshape(-1, 6)
+
+
 def randomize_ant_ball(model, seed):
     """Per-world domain randomization, from ``seed``: every ant body's
     mass and inertia times one factor U(0.8, 1.2) of its world, every
@@ -2341,6 +2426,345 @@ def phase_showcase_ragged(dev):
     return out
 
 
+XPBD_W = 4096                         # bench.py --solver xpbd's worlds
+XPBD_ITERS = 8
+XPBD_WARMUP = 10
+XPBD_FRAMES = 20                      # bench.py times 50
+XPBD_CPU_WORLDS = 8
+XPBD_REPEAT_TOL = {"body_q": 2e-5, "body_qd": 5e-3}
+BOX_W = 1024
+PYRAMID_FRAMES = 40                   # tests/test_examples.py
+DOMINO_FRAMES = 110                   # tests/test_examples.py
+
+
+def profile_frame(fn, substeps):
+    """One frame under torch.profiler: the device's busy share of the
+    frame's wall time (the kernels of one stream do not overlap; the
+    profiler's own host cost lengthens the frame), device ops per substep
+    and the device time of the ten largest kernels by name (ms per
+    frame). None where the profiler records no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return None
+    by_name = {}
+    for e in kernels:
+        name = e.name[:80]          # templated names, cut to their head
+        by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
+    busy = sum(by_name.values()) * 1e-6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return dict(wall_ms=wall * 1e3, device_busy_ms=busy * 1e3,
+                busy_share=busy / wall, device_ops=len(kernels),
+                device_ops_per_substep=len(kernels) / substeps,
+                top_kernels_ms={k: v * 1e-3 for k, v in top})
+
+
+def busy_unprofiled(prof, worlds, env_steps_per_s):
+    """The profiled frame's device time over an unprofiled frame's wall
+    time (the profiler's host cost lengthens the frame it records)."""
+    if prof is None:
+        return None
+    return prof["device_busy_ms"] / (1e3 * SUBSTEPS * worlds
+                                     / env_steps_per_s)
+
+
+def ant_xpbd_ctrl(model, gen):
+    """bench.py --solver xpbd's direct actuation for one frame: joint_f =
+    ctrl * mjc:actuator_gear, ctrl uniform in the ctrl range clipped to
+    [-1, 1], drawn from ``gen``."""
+    import torch
+    gear = model.custom["mjc:actuator_gear"]
+    lo = torch.clamp(model.custom["mjc:actuator_ctrlrange_lo"], -1.0, 0.0)
+    hi = torch.clamp(model.custom["mjc:actuator_ctrlrange_hi"], 0.0, 1.0)
+    u = torch.rand(gear.shape[0], generator=gen, device=gen.device)
+    return (lo + u * (hi - lo)) * gear
+
+
+def xpbd_frames(solver, pipe, state, ctl, frames, model=None, gen=None):
+    """``frames`` frames of SUBSTEPS XPBD substeps (collide each substep);
+    with a generator, a new direct ctrl each frame."""
+    import torch
+    for _ in range(frames):
+        if gen is not None:
+            ctl.joint_f = ant_xpbd_ctrl(model, gen)
+        for _ in range(SUBSTEPS):
+            state = solver.step(state, None, ctl, pipe.collide(state), DT)
+    torch.cuda.synchronize()
+    return state
+
+
+def world_slice(state, n, nb, nq, nd):
+    """The first n worlds of a flat State of worlds with nb bodies, nq
+    coordinates and nd dofs."""
+    from dataclasses import replace
+    return replace(state, body_q=state.body_q[:n * nb].clone(),
+                   body_qd=state.body_qd[:n * nb].clone(),
+                   body_f=state.body_f[:n * nb].clone(),
+                   joint_q=state.joint_q[:n * nq].clone(),
+                   joint_qd=state.joint_qd[:n * nd].clone())
+
+
+def phase_ant_xpbd(dev):
+    """ant x 4096 under SolverXPBD (bench.py --solver xpbd: replicate,
+    the static pipeline, iterations 8, dt 1/240, 4 substeps per frame,
+    direct ctrl x gear each frame from a seeded generator): 10 warm-up
+    and 20 timed frames; bench.py's gates (no NaN in joint_q/body_q, unit
+    quaternions to 1e-2), root z > 0 in every world and > 0.1 in 99% of
+    them (the JAX package's XPBD ant also sinks below 0.1 in a few
+    worlds: ROADMAP C.13); no B1/B2 launch (no TPU kernel lies on the
+    XPBD path); 8 worlds stepped 4 substeps on the card equal the port on
+    the CPU (body_q 2e-4, joint_qd 5e-3; a world whose contact set
+    differs between the two is counted and left out, at most one); two
+    runs of one substep on the card within XPBD_REPEAT_TOL (index_add_
+    adds in no fixed order); one profiled frame; env-steps/s, setup
+    seconds, peak device memory."""
+    import torch
+    import newton_tpu_torch as nt
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    robot = nt.ModelBuilder()
+    robot.add_mjcf(os.path.join(HERE, "newton_tpu_torch", "assets",
+                                "ant.xml"))
+    b = nt.ModelBuilder()
+    b.replicate(robot, XPBD_W)
+    model = b.finalize(dev)
+    pipe = nt.CollisionPipeline(model)
+    solver = nt.SolverXPBD(model, iterations=XPBD_ITERS)
+    state = nt.eval_fk(model, model.joint_q0, model.joint_qd0, model.state())
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    nb, nq, nd = (robot.body_count, robot.joint_coord_count,
+                  robot.joint_dof_count)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    ctl = model.control()
+    reset_robot_launches()
+    state = xpbd_frames(solver, pipe, state, ctl, XPBD_WARMUP, model, gen)
+    t0 = time.perf_counter()
+    state = xpbd_frames(solver, pipe, state, ctl, XPBD_FRAMES, model, gen)
+    elapsed = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if kernel_launches() != (0, 0):
+        raise AssertionError("ant xpbd: a B1/B2 kernel launched on the XPBD "
+                             "path")
+    check_state(state, "ant xpbd", None)
+    # the JAX package's own XPBD ant sinks its torso (a sphere of radius
+    # 0.25) below z = 0.1 in a few worlds under this ctrl (ROADMAP C.13,
+    # tools/xpbd_ant_depth.py): every torso above the ground, 99% above 0.1
+    root_z = state.joint_q.view(XPBD_W, nq)[:, 2]
+    low = int((root_z <= 0.1).sum())
+    if not bool((root_z > 0.0).all()) or low > XPBD_W // 100:
+        raise AssertionError(f"ant xpbd: root z min {float(root_z.min()):.3f}"
+                             f", {low} worlds at or below 0.1")
+    # 8 worlds on the card against the port on the CPU
+    small = nt.ModelBuilder()
+    small.replicate(robot, XPBD_CPU_WORLDS)
+    m_d, m_c = small.finalize(dev), small.finalize("cpu")
+    s_d = world_slice(state, XPBD_CPU_WORLDS, nb, nq, nd)
+    s_c = s_d.to("cpu")
+    c_d, c_c = m_d.control(), m_c.control()
+    c_d.joint_f = ctl.joint_f[:XPBD_CPU_WORLDS * nd].clone()
+    c_c.joint_f = c_d.joint_f.cpu()
+    p_d, p_c = nt.CollisionPipeline(m_d), nt.CollisionPipeline(m_c)
+    x_d = nt.SolverXPBD(m_d, iterations=XPBD_ITERS)
+    x_c = nt.SolverXPBD(m_c, iterations=XPBD_ITERS)
+    # a world whose contact set differs between the two (a slot within
+    # rounding of the margin) takes a different discrete path: counted
+    # and left out, at most one
+    flipped = torch.zeros(XPBD_CPU_WORLDS, dtype=torch.bool)
+    for _ in range(SUBSTEPS):
+        k_d, k_c = p_d.collide(s_d), p_c.collide(s_c)
+        flipped |= (k_d.rigid_contact_mask.cpu() != k_c.rigid_contact_mask
+                    ).view(XPBD_CPU_WORLDS, -1).any(1)
+        s_d = x_d.step(s_d, None, c_d, k_d, DT)
+        s_c = x_c.step(s_c, None, c_c, k_c, DT)
+    if int(flipped.sum()) > 1:
+        raise AssertionError(f"ant xpbd: {int(flipped.sum())} of "
+                             f"{XPBD_CPU_WORLDS} worlds changed their contact "
+                             "set between the card and the CPU")
+    vs_cpu = {"worlds_left_out": int(flipped.sum())}
+    for name, atol, per in (("body_q", 2e-4, nb), ("joint_qd", 5e-3, nd)):
+        a = getattr(s_d, name).cpu().view(XPBD_CPU_WORLDS, per, -1)
+        b_ = getattr(s_c, name).view(XPBD_CPU_WORLDS, per, -1)
+        ok, e = close(a[~flipped], b_[~flipped], atol, atol)
+        if not ok:
+            raise AssertionError(f"ant xpbd: {name} card vs CPU off "
+                                 f"tolerance ({e:.3g})")
+        vs_cpu[name] = e
+    # two runs of one substep on the card
+    contacts = pipe.collide(state)
+    a = solver.step(state, None, ctl, contacts, DT)
+    b2 = solver.step(state, None, ctl, contacts, DT)
+    repeat = {n: float((getattr(a, n) - getattr(b2, n)).abs().max())
+              for n in ("body_q", "body_qd", "joint_q", "joint_qd")}
+    for n, tol in XPBD_REPEAT_TOL.items():
+        if repeat[n] > tol:
+            raise AssertionError(f"ant xpbd: two runs of a substep differ "
+                                 f"in {n} by {repeat[n]:.3g} > {tol}")
+    prof = profile_frame(lambda: xpbd_frames(solver, pipe, state, ctl, 1,
+                                             model, gen), SUBSTEPS)
+    n_sub = XPBD_FRAMES * SUBSTEPS
+    rate = n_sub * XPBD_W / elapsed
+    return dict(worlds=XPBD_W, setup_s=setup_s, substeps=n_sub,
+                env_steps_per_s=rate,
+                busy_share_unprofiled=busy_unprofiled(prof, XPBD_W, rate),
+                peak_memory_bytes=peak,
+                root_z_min=float(root_z.min()), worlds_root_z_below_0_1=low,
+                vs_cpu=vs_cpu,
+                repeat_max_diff=repeat, profile=prof)
+
+
+def phase_pyramid(dev):
+    """example_pyramid.py x 1024 on SolverFeatherstone(contact_iterations=
+    16): one articulation group (d = 36) whose 288 box contact entries per
+    world are compacted to 32; 40 frames of 4 substeps with one B1
+    (generic_smem) and one B2 ((32, 0, 36)) launch per substep and the
+    example's gates in every world; a kernel vs plain step (B1 and B2 held
+    against their plain versions on the step's operands, phase 6's
+    tolerances and guard-mismatch count); one substep with contact_cap=0
+    (all 288 entries: B2's global-scratch instance at (288, 0, 36)) held
+    likewise; env-steps/s in turns, times of both kernels."""
+    import torch
+    import newton_tpu_torch as nt
+    from newton_tpu_torch.solvers.generalized import linalg, pgs
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    b, top = pyramid_scene(nt, BOX_W)
+    model = b.finalize(dev)
+    pipe = nt.CollisionPipeline(model)
+    solver = nt.SolverFeatherstone(model, contact_iterations=16)
+    state0 = nt.eval_fk(model, model.joint_q0, model.joint_qd0,
+                        model.state())
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    grp = solver.groups[0]
+    if [(g.g.n, g.g.d) for g in solver.groups] != [(BOX_W, 36)] \
+            or grp.plan.c != 288 or grp.tables.cap != 32 \
+            or grp.tables.other is not None:
+        raise AssertionError("pyramid: expected one group of d = 36 with 288 "
+                             "one-sided entries compacted to 32")
+    b1_inst, b2_inst = linalg.kernel_instance(36), pgs.kernel_instance(32, 0,
+                                                                       36)
+    ctl = model.control()
+    n_sub = PYRAMID_FRAMES * SUBSTEPS
+    reset_robot_launches()
+    t0 = time.perf_counter()
+    state = run_steps(solver, state0, ctl, n_sub, DT, True, pipe=pipe)
+    elapsed = time.perf_counter() - t0
+    launches = dict(zip(("chol_inv_solve", "pgs_solve_fused"),
+                        kernel_launches()))
+    if launches != dict(chol_inv_solve=n_sub, pgs_solve_fused=n_sub):
+        raise AssertionError(f"pyramid: launches {launches} in {n_sub} "
+                             "substeps")
+    check_state(state, "pyramid", None)
+    pos = state.body_q[:, :3].view(BOX_W, 6, 3)
+    top_p = pos[:, top]
+    gates = dict(top_z_min=float(top_p[:, 2].min()),
+                 top_xy_max=float(top_p[:, :2].abs().max()),
+                 box_xy_max=float(pos[..., :2].abs().max()))
+    if not (gates["top_z_min"] > 0.6 and gates["top_xy_max"] < 0.1
+            and gates["box_xy_max"] < 0.8):
+        raise AssertionError(f"pyramid: example gates fail {gates}")
+    contacts = pipe.collide(state)
+    errs, recs = group_paths(solver, state, ctl, contacts, DT, "pyramid")
+    Mi, rhs = recs[0]["chol"]
+    args, kw = recs[0]["pgs"]
+    b2_ms = time_ms(lambda: pgs.pgs_solve_fused(*args, **kw), queued=True)
+    b2_plain_ms = time_ms(lambda: pgs.pgs_solve_fused_plain(*args, **kw),
+                          n=10)
+    # every entry: contact_cap=0
+    full = nt.SolverFeatherstone(model, contact_iterations=16, contact_cap=0)
+    rec = {}
+    before = kernel_launches()
+    full.step(state, None, ctl, contacts, DT, record=rec)
+    full_launches = [a - b_ for a, b_ in zip(kernel_launches(), before)]
+    fargs, fkw = rec["pgs"]
+    if fkw["c"] != 288 or pgs.kernel_instance(288, 0, 36) != "global256":
+        raise AssertionError("pyramid: contact_cap=0 expected B2 at "
+                             "(288, 0, 36) global256")
+    e_lam, e_dqd, n_diff, _, _ = compare_pgs(fargs, fkw, BOX_W // 100)
+    full_ms = time_ms(lambda: pgs.pgs_solve_fused(*fargs, **fkw),
+                      queued=True)
+    full_plain_ms = time_ms(lambda: pgs.pgs_solve_fused_plain(*fargs,
+                                                              **fkw), n=3)
+    rates, _, _ = turns(solver, state, state.clone(), ctl,
+                        FRAMES * SUBSTEPS, BOX_W, DT, pipe=pipe)
+    return dict(worlds=BOX_W, setup_s=setup_s, substeps=n_sub,
+                launches=launches, gates=gates,
+                main_env_steps_per_s=n_sub * BOX_W / elapsed,
+                env_steps_per_s=sum(rates[True]) / 2,
+                plain_env_steps_per_s=sum(rates[False]) / 2,
+                turns_kernel=rates[True], turns_plain=rates[False],
+                peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                active_entries_mean=float(
+                    contacts.rigid_contact_mask.float().sum() / BOX_W),
+                paths=errs, b1_instance=b1_inst, b2_instance=b2_inst,
+                b1_max_abs_err=errs["b1 group 0"][0],
+                b1=b1_times(Mi, rhs), b2_ms=b2_ms, b2_plain_ms=b2_plain_ms,
+                pgs_lam_err=errs["b2 group 0"]["lam"],
+                uncompacted=dict(launches=full_launches, lam_err=e_lam,
+                                 dqd_err=e_dqd, guard_mismatch_rows=n_diff,
+                                 ms=full_ms, plain_ms=full_plain_ms,
+                                 scratch_bytes=4 * BOX_W
+                                 * pgs.scratch_floats(288, 0, 36)))
+
+
+def phase_domino(dev):
+    """example_domino_spiral.py x 1024 under SolverXPBD(iterations=4), dt
+    1/240, 4 substeps per frame, 110 frames with the first domino nudged:
+    the example's gate (the first five dominoes tipped, up-z < 0.75) in
+    every world, the worlds where all ten tipped, finite state and unit
+    quaternions, no B1/B2 launch; one profiled frame; env-steps/s."""
+    import torch
+    import newton_tpu_torch as nt
+    t0 = time.perf_counter()
+    b, qd = domino_scene(nt, BOX_W)
+    model = b.finalize(dev)
+    pipe = nt.CollisionPipeline(model)
+    solver = nt.SolverXPBD(model, iterations=4)
+    state = model.state()
+    state.body_qd = torch.as_tensor(qd, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    reset_robot_launches()
+    t0 = time.perf_counter()
+    state = xpbd_frames(solver, pipe, state, None, DOMINO_FRAMES)
+    elapsed = time.perf_counter() - t0
+    if kernel_launches() != (0, 0):
+        raise AssertionError("domino: a B1/B2 kernel launched on the XPBD "
+                             "path")
+    check_state(state, "domino", None)
+    q = state.body_q.view(BOX_W, DOMINO_N, 7)[..., 3:7]
+    up_z = 1.0 - 2.0 * (q[..., 0] ** 2 + q[..., 1] ** 2)
+    tipped = up_z < 0.75
+    first5 = int(tipped[:, :DOMINO_N // 2].all(1).sum())
+    if first5 != BOX_W:
+        raise AssertionError(f"domino: the first five tipped in {first5} of "
+                             f"{BOX_W} worlds")
+    prof = profile_frame(lambda: xpbd_frames(solver, pipe, state, None, 1),
+                         SUBSTEPS)
+    n_sub = DOMINO_FRAMES * SUBSTEPS
+    rate = n_sub * BOX_W / elapsed
+    return dict(worlds=BOX_W, setup_s=setup_s, substeps=n_sub,
+                env_steps_per_s=rate,
+                busy_share_unprofiled=busy_unprofiled(prof, BOX_W, rate),
+                worlds_first_five_tipped=first5,
+                worlds_all_tipped=int(tipped.all(1).sum()),
+                tipped_per_world_mean=float(tipped.float().sum(1).mean()),
+                profile=prof)
+
+
 def pgs_smem(rec):
     from newton_tpu_torch import _kernels
     args, kw = rec
@@ -2376,7 +2800,10 @@ def kernel_info():
             ("B1 d=21", lib.chol_kernel_info, (21,)),
             ("B2 (32, 8, 14)", lib.pgs_kernel_info, (32, 8, 14)),
             ("B2 (14, 0, 6)", lib.pgs_kernel_info, (14, 0, 6)),
-            ("B2 (2, 0, 6)", lib.pgs_kernel_info, (2, 0, 6))):
+            ("B2 (2, 0, 6)", lib.pgs_kernel_info, (2, 0, 6)),
+            ("B1 d=36", lib.chol_kernel_info, (36,)),
+            ("B2 (32, 0, 36)", lib.pgs_kernel_info, (32, 0, 36)),
+            ("B2 (288, 0, 36)", lib.pgs_kernel_info, (288, 0, 36))):
         regs, blocks = ctypes.c_int(0), ctypes.c_int(0)
         _kernels.check(fn(*shape, ctypes.addressof(regs),
                           ctypes.addressof(blocks)), label)
@@ -2654,6 +3081,45 @@ def main():
           f"kernel vs plain step {rg['paths']}", flush=True)
     mark("20")
 
+    ax = phase_ant_xpbd(dev)
+    results["ant_xpbd"] = ax
+    print(f"[21 ant x {XPBD_W} under XPBD, bench.py --solver xpbd] setup "
+          f"{ax['setup_s']:.2f} s, {ax['substeps']} timed substeps, root z "
+          f"min {ax['root_z_min']:.3f} ({ax['worlds_root_z_below_0_1']} "
+          f"worlds below 0.1); {ax['env_steps_per_s']:.1f} "
+          f"env-steps/s; peak memory {ax['peak_memory_bytes']} B; "
+          f"{XPBD_CPU_WORLDS} worlds card vs CPU after {SUBSTEPS} substeps "
+          f"{ax['vs_cpu']}; two runs of a substep differ by "
+          f"{ax['repeat_max_diff']}; device busy "
+          f"{ax['busy_share_unprofiled']} of an unprofiled frame; profiled "
+          f"frame {ax['profile']} on {card}", flush=True)
+    mark("21")
+
+    pyr = phase_pyramid(dev)
+    results["pyramid"] = pyr
+    print(f"[22 pyramid x {BOX_W}, SolverFeatherstone on box rows] setup "
+          f"{pyr['setup_s']:.2f} s, {pyr['substeps']} substeps, launches "
+          f"{pyr['launches']}, gates {pyr['gates']}; "
+          f"{pyr['env_steps_per_s']:.1f} env-steps/s (plain path "
+          f"{pyr['plain_env_steps_per_s']:.1f}); kernel vs plain step "
+          f"{pyr['paths']}; B1 d=36 {pyr['b1_instance']} "
+          f"{pyr['b1']['ms']:.4f} ms (library {pyr['b1']['library_ms']:.4f}"
+          f" ms), B2 (32, 0, 36) {pyr['b2_instance']} {pyr['b2_ms']:.4f} ms"
+          f"; contact_cap=0: B2 (288, 0, 36) global256 "
+          f"{pyr['uncompacted']} on {card}", flush=True)
+    mark("22")
+
+    dom = phase_domino(dev)
+    results["domino"] = dom
+    print(f"[23 domino spiral x {BOX_W} under XPBD] setup "
+          f"{dom['setup_s']:.2f} s, {dom['substeps']} substeps, first five "
+          f"tipped in {dom['worlds_first_five_tipped']} worlds, all ten in "
+          f"{dom['worlds_all_tipped']}; {dom['env_steps_per_s']:.1f} "
+          f"env-steps/s; device busy {dom['busy_share_unprofiled']} of an "
+          f"unprofiled frame; profiled frame {dom['profile']} on {card}",
+          flush=True)
+    mark("23")
+
     results["kernel_info"] = kernel_info()
     print("[phase seconds] " + json.dumps(
         {k: round(v, 1) for k, v in results["phase_s"].items()}), flush=True)
@@ -2838,6 +3304,34 @@ def main():
         plain_ms=rg["b2_plain_ms"],
         **bound_fields("pgs_solve_fused", rg["b2_ms"], c=c, nl=nl, d=d,
                        W=SHOWCASE_W)))
+    for label, path, d, n, launches, err, t in (
+            (pyr["b1_instance"], "pyramid x 1024 on SolverFeatherstone, "
+             "box rows (phase 22)", 36, BOX_W,
+             pyr["launches"]["chol_inv_solve"], pyr["b1_max_abs_err"],
+             pyr["b1"]),):
+        kernels.append(dict(
+            name=f"chol_inv_solve [{label}] d={d} W={n}", **b1_src,
+            instance=label, path=path, launches=launches, max_abs_err=err,
+            ms=t["ms"], plain_ms=t["plain_ms"],
+            **bound_fields("chol_inv_solve", t["ms"], d=d, W=n),
+            library_ms=t["library_ms"]))
+    unc = pyr["uncompacted"]
+    for label, path, shape, launches, err, ms, plain_ms in (
+            (pyr["b2_instance"], "pyramid x 1024 on SolverFeatherstone, "
+             "288 box entries compacted to 32 (phase 22)", (32, 0, 36),
+             pyr["launches"]["pgs_solve_fused"], pyr["pgs_lam_err"],
+             pyr["b2_ms"], pyr["b2_plain_ms"]),
+            ("global256", "pyramid x 1024 with contact_cap=0, every box "
+             "entry: one substep (phase 22)", (288, 0, 36),
+             unc["launches"][1], unc["lam_err"], unc["ms"],
+             unc["plain_ms"])):
+        c, nl, d = shape
+        kernels.append(dict(
+            name=f"pgs_solve_fused [{label}] {shape} W={BOX_W}", **b2_src,
+            instance=label, path=path, launches=launches, max_abs_err=err,
+            ms=ms, plain_ms=plain_ms,
+            **bound_fields("pgs_solve_fused", ms, c=c, nl=nl, d=d,
+                           W=BOX_W)))
     print(f"[bounds] H100 SXM peaks {PEAK_BYTES_PER_S / 1e12:g} TB/s, "
           f"{PEAK_F32_FLOPS / 1e12:g} TFLOP/s float32 (700 W); this card: "
           f"{card}", flush=True)

@@ -1,9 +1,9 @@
 """newton_tpu_torch: the PyTorch/CUDA port of newton_tpu.
 
 The JAX package ``newton_tpu`` is the reference; this package re-implements
-two of its paths in PyTorch: the robot path (MJCF robot -> static collision
--> batched generalized step) and the MPM path (particles ->
-``SolverImplicitMPM``). Every TPU kernel of the JAX package has a
+three of its paths in PyTorch: the robot path (MJCF robot -> static collision
+-> batched generalized step), the rigid-body path of ``SolverXPBD`` and the
+MPM path (particles -> ``SolverImplicitMPM``). Every TPU kernel of the JAX package has a
 hand-written CUDA counterpart for Hopper in ``csrc/``: the Cholesky and PGS
 kernels of the robot path, the P2G/G2P transfers of the MPM path. It
 imports torch, never jax.
@@ -23,7 +23,7 @@ _torch.set_float32_matmul_precision("highest")
 from .core.types import MAXVAL, Axis  # noqa: E402
 from .geometry.types import GeoType, ShapeFlags  # noqa: E402
 from .parallel.envs import batch_state  # noqa: E402
-from .sim.articulation import eval_fk  # noqa: E402
+from .sim.articulation import eval_fk, eval_ik  # noqa: E402
 from .sim.builder import JointDofConfig, ModelBuilder, ShapeConfig  # noqa: E402
 from .sim.collide import CollisionPipeline  # noqa: E402
 from .sim.contacts import Contacts  # noqa: E402
@@ -33,12 +33,15 @@ from .sim.model import Model, ModelStructure  # noqa: E402
 from .sim.state import State  # noqa: E402
 from .solvers.generalized.solver import SolverFeatherstone, SolverMuJoCo  # noqa: E402
 from .solvers.solver_mpm import SolverImplicitMPM, SolverMPM  # noqa: E402
+from .solvers.solver_xpbd import SolverXPBD  # noqa: E402
 
 __all__ = [
     "MAXVAL", "Axis", "GeoType", "ShapeFlags", "batch_state", "eval_fk",
+    "eval_ik",
     "JointDofConfig", "ModelBuilder", "ShapeConfig", "CollisionPipeline",
     "Contacts", "Control", "JointType", "Model", "ModelStructure", "State",
     "SolverFeatherstone", "SolverMuJoCo", "SolverImplicitMPM", "SolverMPM",
+    "SolverXPBD",
     "ParticleFlags", "ASSET_DIR",
 ]
 

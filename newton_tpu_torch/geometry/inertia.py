@@ -6,7 +6,8 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["compute_sphere_inertia", "compute_capsule_inertia",
+__all__ = ["compute_sphere_inertia", "compute_box_inertia",
+           "compute_capsule_inertia", "compute_cylinder_inertia",
            "transform_inertia"]
 
 
@@ -15,6 +16,16 @@ def compute_sphere_inertia(density: float, r: float):
     m = density * (4.0 / 3.0) * np.pi * r**3
     Ia = (2.0 / 5.0) * m * r * r
     return m, np.zeros(3), np.diag([Ia, Ia, Ia])
+
+
+def compute_box_inertia(density: float, hx: float, hy: float, hz: float):
+    """Solid box with half-extents (hx, hy, hz)."""
+    lx, ly, lz = 2 * hx, 2 * hy, 2 * hz
+    m = density * lx * ly * lz
+    Ixx = m / 12.0 * (ly * ly + lz * lz)
+    Iyy = m / 12.0 * (lx * lx + lz * lz)
+    Izz = m / 12.0 * (lx * lx + ly * ly)
+    return m, np.zeros(3), np.diag([Ixx, Iyy, Izz])
 
 
 def compute_capsule_inertia(density: float, r: float, h: float):
@@ -29,6 +40,14 @@ def compute_capsule_inertia(density: float, r: float, h: float):
     Ixx_s = 0.4 * ms * r * r + ms * (h * h + 3.0 * h * r / 4.0)
     Ixx = Ixx_c + Ixx_s
     Izz = Izz_c + Izz_s
+    return m, np.zeros(3), np.diag([Ixx, Ixx, Izz])
+
+
+def compute_cylinder_inertia(density: float, r: float, h: float):
+    """Solid cylinder of half-height h along Z."""
+    m = density * np.pi * r * r * (2.0 * h)
+    Izz = 0.5 * m * r * r
+    Ixx = m * ((2 * h) ** 2 / 12.0 + r * r / 4.0)
     return m, np.zeros(3), np.diag([Ixx, Ixx, Izz])
 
 

@@ -7,8 +7,12 @@ and scales ``s0/s1 (..., 3)`` and return ``(position (..., K, 3),
 normal (..., K, 3), depth (..., K))``; the normal points from shape0 to
 shape1 and depth > 0 means overlap (thickness is the caller's).
 
-Shape frames: PLANE has normal +Z; SPHERE radius = scale[0]; CAPSULE radius
-= scale[0], half-height = scale[1], axis +Z.
+Shape frames: PLANE has normal +Z; SPHERE radius = scale[0]; BOX
+half-extents = scale; CAPSULE and CYLINDER radius = scale[0], half-height =
+scale[1], axis +Z. A cylinder collides as the capsule of the same radius
+and half-height (the JAX package's model, kept for parity: its flat end
+caps engage one radius early), except against a plane, where its rim
+points are exact.
 """
 
 from __future__ import annotations
@@ -17,22 +21,37 @@ from typing import Dict, Tuple
 
 import torch
 
-from ..math import quat_rotate, transform_point
+from ..math import (
+    orthonormal_basis,
+    quat_rotate,
+    quat_to_matrix,
+    transform_point,
+    transform_point_inv,
+)
 from .types import GeoType
 
 __all__ = ["pair_slot_count", "PRIMITIVE_FNS", "contact_fn_for",
-           "plane_sphere", "plane_capsule", "sphere_sphere", "sphere_capsule",
-           "capsule_capsule"]
+           "plane_sphere", "plane_capsule", "plane_box", "plane_cylinder",
+           "sphere_sphere", "sphere_capsule", "sphere_box",
+           "sphere_cylinder", "capsule_capsule", "capsule_box",
+           "capsule_cylinder", "box_box", "box_cylinder"]
 
 _EPS = 1e-9     # the JAX package's guard on every division and normal
 
-_P, _S, _C = int(GeoType.PLANE), int(GeoType.SPHERE), int(GeoType.CAPSULE)
+_P, _S, _B = int(GeoType.PLANE), int(GeoType.SPHERE), int(GeoType.BOX)
+_C, _CY = int(GeoType.CAPSULE), int(GeoType.CYLINDER)
 
 # slots per pair class among the shape types the builder takes (the JAX
 # package's values: they fix the contact slot layout)
 _SLOTS: Dict[Tuple[int, int], int] = {
-    (_P, _S): 1, (_P, _C): 2, (_S, _S): 1, (_S, _C): 1, (_C, _C): 2,
+    (_P, _S): 1, (_P, _B): 8, (_P, _C): 2, (_P, _CY): 4,
+    (_S, _S): 1, (_S, _B): 1, (_S, _C): 1, (_S, _CY): 1,
+    (_B, _B): 16, (_B, _C): 4, (_B, _CY): 4,
+    (_C, _C): 2, (_C, _CY): 2, (_CY, _CY): 2,
 }
+# the eight box corners' signs, x slowest (the JAX package's order)
+_CORNER_SIGNS = [[sx, sy, sz] for sx in (-1.0, 1.0) for sy in (-1.0, 1.0)
+                 for sz in (-1.0, 1.0)]
 
 
 def pair_slot_count(t0: int, t1: int) -> int:
@@ -57,6 +76,29 @@ def _segment_endpoints(X, half_h):
     return a, b
 
 
+def _box_corners(X, half):
+    """(..., 8, 3) world-space corners of boxes with half-extents half."""
+    signs = torch.tensor(_CORNER_SIGNS, dtype=X.dtype, device=X.device)
+    return transform_point(X[..., None, :], signs * half[..., None, :])
+
+
+def _box_sdf_local(p, half):
+    """Signed distance and its gradient of axis-aligned boxes at local
+    points p (..., 3). Inside, the gradient is the axis of largest
+    q = |p| - half, ties to the first (as ``jnp.argmax``)."""
+    q = p.abs() - half
+    outside = torch.clamp(q, min=0.0)
+    o2 = (outside * outside).sum(-1)
+    d_out = torch.where(o2 > 0.0, torch.sqrt(torch.clamp(o2, min=_EPS * _EPS)),
+                        0.0)
+    d_in = torch.clamp(q.max(-1).values, max=0.0)
+    g_out = outside * torch.sign(p) / torch.clamp(d_out, min=_EPS)[..., None]
+    one_hot = torch.nn.functional.one_hot(q.argmax(-1), 3).to(p.dtype)
+    g_in = torch.sign(p) * one_hot
+    inside = (d_in < 0.0) & (d_out <= _EPS)
+    return d_out + d_in, torch.where(inside[..., None], g_in, g_out)
+
+
 def plane_sphere(X0, X1, s0, s1):
     c = X1[..., 0:3]
     d, n = _plane_sdf(X0, c)
@@ -72,6 +114,36 @@ def plane_capsule(X0, X1, s0, s1):
     depth = s1[..., 0:1] - d
     pos = pts - n * (d[..., None] - 0.5 * depth[..., None])
     return pos, n.expand_as(pos), depth
+
+
+def plane_box(X0, X1, s0, s1):
+    """Eight slots: the box corners against the plane."""
+    corners = _box_corners(X1, s1)                          # (..., 8, 3)
+    d, n = _plane_sdf(X0[..., None, :], corners)
+    pos = corners - n * (d[..., None] * 0.5)
+    return pos, n.expand_as(pos), -d
+
+
+def plane_cylinder(X0, X1, s0, s1):
+    """Four rim points: on each cap circle the point nearest the plane and
+    the one opposite it (an axis along the normal takes the basis
+    tangent)."""
+    ez = torch.zeros_like(X1[..., 0:3])
+    ez[..., 2] = 1.0
+    axis = quat_rotate(X1[..., 3:7], ez)
+    _, n = _plane_sdf(X0, X1[..., 0:3])
+    radial = -(n - axis * (n * axis).sum(-1, keepdim=True))
+    rn = torch.linalg.vector_norm(radial, dim=-1, keepdim=True)
+    t1, _ = orthonormal_basis(axis)
+    radial = torch.where(rn > 1e-6, radial / torch.clamp(rn, min=_EPS), t1)
+    r, h = s1[..., 0:1], s1[..., 1:2]
+    top = X1[..., 0:3] + axis * h
+    bot = X1[..., 0:3] - axis * h
+    pts = torch.stack([top + radial * r, bot + radial * r,
+                       top - radial * r, bot - radial * r], dim=-2)
+    d, n2 = _plane_sdf(X0[..., None, :], pts)
+    pos = pts - n2 * (d[..., None] * 0.5)
+    return pos, n2.expand_as(pos), -d
 
 
 def _closest_point_segment_segment(p1, q1, p2, q2):
@@ -124,6 +196,15 @@ def sphere_capsule(X0, X1, s0, s1):
     return pos[..., None, :], n[..., None, :], depth[..., None]
 
 
+def sphere_box(X0, X1, s0, s1):
+    """One slot: the sphere centre against the box's signed distance."""
+    d, g = _box_sdf_local(transform_point_inv(X1, X0[..., 0:3]), s1)
+    n = -quat_rotate(X1[..., 3:7], g)               # sphere -> box surface
+    depth = s0[..., 0] - d
+    pos = X0[..., 0:3] + n * (s0[..., 0] - 0.5 * depth)[..., None]
+    return pos[..., None, :], n[..., None, :], depth[..., None]
+
+
 def capsule_capsule(X0, X1, s0, s1):
     """Two slots: the closest points, and the closest points with both
     segments' endpoints swapped (near-parallel capsules resting on each
@@ -139,13 +220,112 @@ def capsule_capsule(X0, X1, s0, s1):
     return pos, n, depth
 
 
-# dispatch table keyed by (type0, type1) in canonical order
+def capsule_box(X0, X1, s0, s1):
+    """Four slots: the capsule's endpoints and two interior points of its
+    axis at thirds, each against the box's signed distance."""
+    a, b = _segment_endpoints(X0, s0[..., 1])
+    ts = torch.tensor([0.0, 1.0 / 3.0, 2.0 / 3.0, 1.0], dtype=X0.dtype,
+                      device=X0.device)
+    pts = a[..., None, :] + (b - a)[..., None, :] * ts[:, None]  # (..., 4, 3)
+    d, g = _box_sdf_local(transform_point_inv(X1[..., None, :], pts),
+                          s1[..., None, :])
+    n = -quat_rotate(X1[..., None, 3:7], g)
+    depth = s0[..., 0:1] - d
+    pos = pts + n * (s0[..., 0:1] - 0.5 * depth)[..., None]
+    return pos, n, depth
+
+
+def _take(x, idx):
+    """x (..., 6, ...) at axis index idx (...,) along dim -2 or -1."""
+    return torch.gather(x, -1, idx[..., None])[..., 0]
+
+
+def box_box(X0, X1, s0, s1):
+    """Sixteen slots from the face axes' separating-axis test: the axis of
+    least overlap among the six face normals is the normal; each box's
+    corners past the other's face along it, clamped into that face's
+    rectangle, are the manifold points (set 1 then set 0; edge-edge
+    contact takes the nearest face axis, as in the JAX package)."""
+    R0 = quat_to_matrix(X0[..., 3:7])                        # (..., 3, 3)
+    R1 = quat_to_matrix(X1[..., 3:7])
+    axes = torch.cat([R0.transpose(-1, -2), R1.transpose(-1, -2)], -2)
+    dp = X1[..., 0:3] - X0[..., 0:3]
+    r0 = ((axes @ R0).abs() @ s0[..., None])[..., 0]          # (..., 6)
+    r1 = ((axes @ R1).abs() @ s1[..., None])[..., 0]
+    dist = (axes @ dp[..., None])[..., 0]
+    overlap = r0 + r1 - dist.abs()
+    best = overlap.argmin(-1)                                # first of ties
+    n_axis = torch.gather(axes, -2, best[..., None, None].expand(
+        *best.shape, 1, 3))[..., 0, :]
+    sign = torch.sign(_take(dist, best))
+    sign = torch.where(sign == 0, 1.0, sign)
+    n = n_axis * sign[..., None]                             # 0 -> 1
+    min_overlap = _take(overlap, best)
+    separated = min_overlap < 0.0
+
+    c0 = _box_corners(X0, s0)                                # (..., 8, 3)
+    c1 = _box_corners(X1, s1)
+    face0 = (X0[..., 0:3] * n).sum(-1) + _take(r0, best)
+    depth1 = face0[..., None] - (c1 * n[..., None, :]).sum(-1)  # (..., 8)
+    face1 = (X1[..., 0:3] * n).sum(-1) - _take(r1, best)
+    depth0 = (c0 * n[..., None, :]).sum(-1) - face1[..., None]
+    # corners past the face are clamped into the other box's face
+    # rectangle; the axis along the normal is widened so it never clamps
+    big = 10.0 * (s0.max(-1).values + s1.max(-1).values)[..., None]
+    n_in0 = (n[..., None, :] @ R0)[..., 0, :].abs()          # (..., 3)
+    n_in1 = (n[..., None, :] @ R1)[..., 0, :].abs()
+    ext0 = (s0 + big * n_in0)[..., None, :]
+    ext1 = (s1 + big * n_in1)[..., None, :]
+    l1_in0 = (c1 - X0[..., None, 0:3]) @ R0
+    l0_in1 = (c0 - X1[..., None, 0:3]) @ R1
+    c1 = X0[..., None, 0:3] + torch.minimum(torch.maximum(
+        l1_in0, -ext0), ext0) @ R0.transpose(-1, -2)
+    c0 = X1[..., None, 0:3] + torch.minimum(torch.maximum(
+        l0_in1, -ext1), ext1) @ R1.transpose(-1, -2)
+    cap = torch.clamp(min_overlap, min=0.0)[..., None]
+    sep = separated[..., None]
+    depth1 = torch.where(sep, -1.0, torch.minimum(depth1, cap))
+    depth0 = torch.where(sep, -1.0, torch.minimum(depth0, cap))
+    pos1 = c1 + n[..., None, :] * (0.5 * depth1)[..., None]
+    pos0 = c0 - n[..., None, :] * (0.5 * depth0)[..., None]
+    pos = torch.cat([pos1, pos0], -2)
+    return (pos, n[..., None, :].expand_as(pos),
+            torch.cat([depth1, depth0], -1))
+
+
+def box_cylinder(X0, X1, s0, s1):
+    """The cylinder as a capsule against the box: capsule_box with the
+    arguments swapped and the normal turned back to box -> cylinder."""
+    pos, nrm, depth = capsule_box(X1, X0, s1, s0)
+    return pos, -nrm, depth
+
+
+def sphere_cylinder(X0, X1, s0, s1):
+    """The cylinder as a capsule of its radius and half-height."""
+    return sphere_capsule(X0, X1, s0, s1)
+
+
+def capsule_cylinder(X0, X1, s0, s1):
+    """The cylinder as a capsule of its radius and half-height."""
+    return capsule_capsule(X0, X1, s0, s1)
+
+# dispatch table keyed by (type0, type1); capsule_box is keyed (CAPSULE,
+# BOX) as in the JAX package, so a BOX-CAPSULE pair runs it swapped
 PRIMITIVE_FNS = {
     (_P, _S): plane_sphere,
     (_P, _C): plane_capsule,
+    (_P, _B): plane_box,
+    (_P, _CY): plane_cylinder,
     (_S, _S): sphere_sphere,
     (_S, _C): sphere_capsule,
+    (_S, _B): sphere_box,
+    (_S, _CY): sphere_cylinder,
     (_C, _C): capsule_capsule,
+    (_C, _B): capsule_box,
+    (_B, _B): box_box,
+    (_C, _CY): capsule_cylinder,
+    (_CY, _CY): capsule_capsule,
+    (_B, _CY): box_cylinder,
 }
 
 

@@ -7,8 +7,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["cross", "quat_mul", "quat_conjugate", "quat_normalize",
-           "quat_rotate", "quat_from_axis_angle", "quat_to_axis_angle",
-           "quat_to_matrix", "quat_integrate"]
+           "quat_rotate", "quat_rotate_inv", "quat_from_axis_angle",
+           "quat_to_axis_angle", "quat_to_matrix", "quat_integrate"]
 
 
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -47,6 +47,14 @@ def quat_normalize(q: torch.Tensor) -> torch.Tensor:
 def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Rotate vector(s) v by quaternion(s) q."""
     u = q[..., :3]
+    w = q[..., 3:4]
+    t = 2.0 * cross(u, v)
+    return v + w * t + cross(u, t)
+
+
+def quat_rotate_inv(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vector(s) v by the inverse of quaternion(s) q."""
+    u = -q[..., :3]
     w = q[..., 3:4]
     t = 2.0 * cross(u, v)
     return v + w * t + cross(u, t)

@@ -8,7 +8,7 @@ import torch
 from .quat import cross
 
 __all__ = ["spatial_cross", "spatial_cross_dual", "velocity_at_point",
-           "orthonormal_basis"]
+           "orthonormal_basis", "safe_norm", "safe_normalize"]
 
 
 def spatial_cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -39,3 +39,19 @@ def orthonormal_basis(n: torch.Tensor):
     t1 = torch.stack([1.0 + s * nx * nx * a, s * b, -s * nx], dim=-1)
     t2 = torch.stack([b, s + ny * ny * a, -ny], dim=-1)
     return t1, t2
+
+
+def safe_norm(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Norm over the last axis; 0 where the squared norm is <= eps."""
+    n2 = (v * v).sum(-1)
+    ok = n2 > eps
+    return torch.where(ok, torch.sqrt(torch.where(ok, n2, 1.0)), 0.0)
+
+
+def safe_normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Unit vector over the last axis; 0 where the squared norm is <= eps."""
+    n2 = (v * v).sum(-1, keepdim=True)
+    ok = n2 > eps
+    safe_v = torch.where(ok, v, 1.0)
+    unit = safe_v / torch.sqrt((safe_v * safe_v).sum(-1, keepdim=True))
+    return torch.where(ok, unit, 0.0)

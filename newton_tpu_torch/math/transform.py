@@ -5,9 +5,10 @@ from __future__ import annotations
 
 import torch
 
-from .quat import quat_conjugate, quat_mul, quat_rotate
+from .quat import quat_conjugate, quat_mul, quat_rotate, quat_rotate_inv
 
-__all__ = ["transform_multiply", "transform_inverse", "transform_point"]
+__all__ = ["transform_multiply", "transform_inverse", "transform_point",
+           "transform_point_inv"]
 
 
 def transform_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -24,3 +25,8 @@ def transform_inverse(t: torch.Tensor) -> torch.Tensor:
 
 def transform_point(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return t[..., 0:3] + quat_rotate(t[..., 3:7], x)
+
+
+def transform_point_inv(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Point x in the frame of transform t."""
+    return quat_rotate_inv(t[..., 3:7], x - t[..., 0:3])

@@ -10,11 +10,14 @@ joint-parent frame).
 
 ``KinematicCache`` holds the host numpy plans; ``kinematic_tables`` turns
 them into index tensors on a device once and caches them, so FK in the
-substep builds nothing from numpy. A model's per-joint and per-body
-constants may carry a leading row axis (the solver's row models of worlds
-whose constants differ): every constant is indexed along its entity axis
-counted from the end, so ``(J, ...)`` and ``(n, J, ...)`` tables both
-broadcast against ``(n, ...)`` coordinates.
+substep builds nothing from numpy. ``eval_ik`` inverts maximal coordinates
+to generalized ones for every joint at once and writes them with one
+indexed copy per array, through a scatter plan built once per structure.
+A model's per-joint and per-body constants may carry a leading row axis
+(the solver's row models of worlds whose constants differ): every
+constant is indexed along its entity axis counted from the end, so
+``(J, ...)`` and ``(n, J, ...)`` tables both broadcast against ``(n, ...)``
+coordinates.
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ from ..math import (
     quat_mul,
     quat_normalize,
     quat_rotate,
+    quat_rotate_inv,
+    quat_to_axis_angle,
     transform_inverse,
     transform_multiply,
     transform_point,
@@ -41,7 +46,7 @@ from .model import Model, ModelStructure
 from .state import State
 
 __all__ = ["KinematicCache", "get_kinematic_cache", "kinematic_tables",
-           "angular_axes", "joint_motion", "eval_fk", "fk_bodies"]
+           "angular_axes", "joint_motion", "eval_fk", "fk_bodies", "eval_ik"]
 
 
 class KinematicCache:
@@ -259,3 +264,129 @@ def eval_fk(model: Model, joint_q: torch.Tensor, joint_qd: torch.Tensor,
                                 state.body_qd)
     return replace(state, body_q=body_q, body_qd=body_qd, joint_q=joint_q,
                    joint_qd=joint_qd)
+
+
+# eval_ik's per-joint value columns: coordinates [rel transform (7) |
+# linear (3) | angular (3)], dofs [COM velocity (3) | world angular
+# velocity (3) | joint-frame angular velocity (3) | linear (3) | angular (3)]
+_Q_REL, _Q_LIN, _Q_ANG, _Q_COLS = 0, 7, 10, 13
+_D_V, _D_W, _D_WJ, _D_LIN, _D_ANG, _D_COLS = 0, 3, 6, 9, 12, 15
+
+
+def _ik_plan(st: ModelStructure):
+    """Host scatter plan of eval_ik: for each coordinate and dof that a
+    joint writes, its flat destination and its (joint, column) source.
+    Free joints write their relative transform and world twist, ball joints
+    their relative quaternion and joint-frame angular velocity, revolute,
+    prismatic and D6 joints their linear then angular axes' values; fixed
+    joints write nothing (their entries stay 0)."""
+    J = st.joint_count
+    jt = np.asarray(st.joint_type, dtype=np.int64)
+    qs = np.asarray(st.joint_q_start, dtype=np.int64)[:J]
+    ds = np.asarray(st.joint_qd_start, dtype=np.int64)[:J]
+    dim = np.asarray(st.joint_dof_dim, dtype=np.int64).reshape(-1, 2)
+    free = np.isin(jt, [int(JointType.FREE), int(JointType.DISTANCE)])
+    ball = jt == int(JointType.BALL)
+    axes = np.isin(jt, [int(JointType.REVOLUTE), int(JointType.PRISMATIC),
+                        int(JointType.D6)])
+    plan = {"q": ([], []), "d": ([], [])}
+
+    def put(kind, mask, cols):
+        starts, width = (qs, _Q_COLS) if kind == "q" else (ds, _D_COLS)
+        j = np.nonzero(mask)[0]
+        dst, src = plan[kind]
+        dst.append((starts[j][:, None] + np.arange(len(cols))).reshape(-1))
+        src.append((j[:, None] * width + np.asarray(cols)[None, :])
+                   .reshape(-1))
+
+    def span(start, n):
+        return list(range(start, start + n))
+    put("q", free, span(_Q_REL, 7))
+    put("d", free, span(_D_V, 3) + span(_D_W, 3))
+    put("q", ball, span(_Q_REL + 3, 4))
+    put("d", ball, span(_D_WJ, 3))
+    # axis joints: their linear axes first, then their angular axes
+    for ln in range(4):
+        for an in range(4):
+            m = axes & (dim[:, 0] == ln) & (dim[:, 1] == an)
+            if m.any():
+                put("q", m, span(_Q_LIN, ln) + span(_Q_ANG, an))
+                put("d", m, span(_D_LIN, ln) + span(_D_ANG, an))
+
+    def cat(xs):
+        return np.concatenate(xs) if xs else np.zeros(0, dtype=np.int64)
+    return (cat(plan["q"][0]), cat(plan["q"][1]), cat(plan["d"][0]),
+            cat(plan["d"][1]))
+
+
+def _ik_tables(model: Model) -> SimpleNamespace:
+    st = model.structure
+    kc = get_kinematic_cache(st)
+    dev = model.device
+    cache = kc.__dict__.setdefault("_ik_tables", {})
+    tab = cache.get(dev)
+    if tab is None:
+        def L(a):
+            return torch.as_tensor(np.asarray(a, dtype=np.int64), device=dev)
+        q_dst, q_src, d_dst, d_src = _ik_plan(st)
+        parent = np.asarray(st.joint_parent, dtype=np.int64)
+        tab = SimpleNamespace(
+            q_dst=L(q_dst), q_src=L(q_src), d_dst=L(d_dst), d_src=L(d_src),
+            parent=L(np.maximum(parent, 0)),
+            has_parent=torch.as_tensor(parent >= 0, device=dev)[:, None],
+            child=L(st.joint_child))
+        cache[dev] = tab
+    return tab
+
+
+def eval_ik(model: Model, state: State):
+    """Inverse kinematics of a flat State: (joint_q, joint_qd) from its body
+    transforms and twists (the JAX package's ``eval_ik``). Each joint's
+    relative transform from the parent anchor to the child anchor gives its
+    coordinates: a free joint the transform itself, a ball joint its
+    rotation, revolute, prismatic and D6 joints the anchor displacement
+    projected on the linear axes and the rotation angle projected on the
+    angular axes. Velocities are relative to the parent, in the parent
+    anchor frame (a free joint's: the COM velocity and angular velocity
+    differences, world frame)."""
+    st = model.structure
+    dtype = state.body_q.dtype
+    dev = state.body_q.device
+    joint_q = torch.zeros(st.joint_coord_count, dtype=dtype, device=dev)
+    joint_qd = torch.zeros(st.joint_dof_count, dtype=dtype, device=dev)
+    if st.joint_count == 0:
+        return joint_q, joint_qd
+    kin = kinematic_tables(model)
+    t = _ik_tables(model)
+    body_q, body_qd = state.body_q, state.body_qd
+    X_wp = torch.where(t.has_parent, body_q[t.parent], kin.identity)
+    X_wpj = transform_multiply(X_wp, model.joint_X_p)
+    X_wc = body_q[t.child]
+    X_wcj = transform_multiply(X_wc, model.joint_X_c)
+    rel = transform_multiply(transform_inverse(X_wpj), X_wcj)
+
+    qd_p = torch.where(t.has_parent, body_qd[t.parent], 0.0)
+    qd_c = body_qd[t.child]
+    w_rel = qd_c[:, 3:6] - qd_p[:, 3:6]
+    x_anchor = X_wcj[:, 0:3]
+    com_p = transform_point(X_wp, model.body_com[t.parent])
+    com_c = transform_point(X_wc, model.body_com[t.child])
+    v_p_at = qd_p[:, 0:3] + cross(qd_p[:, 3:6], x_anchor - com_p)
+    v_c_at = qd_c[:, 0:3] + cross(qd_c[:, 3:6], x_anchor - com_c)
+    q_pj = X_wpj[:, 3:7]
+    w_rel_j = quat_rotate_inv(q_pj, w_rel)
+    v_rel_j = quat_rotate_inv(q_pj, v_c_at - v_p_at)
+
+    A_lin, A_ang = kin.A_lin, kin.A_ang                       # (J, 3, 3)
+    q_lin = (rel[:, None, 0:3] * A_lin).sum(-1)               # (J, 3)
+    qd_lin = (v_rel_j[:, None, :] * A_lin).sum(-1)
+    axis_out, ang = quat_to_axis_angle(rel[:, 3:7])
+    q_ang = ang[:, None] * (axis_out[:, None, :] * A_ang).sum(-1)
+    qd_ang = (w_rel_j[:, None, :] * A_ang).sum(-1)
+
+    vals_q = torch.cat([rel, q_lin, q_ang], -1).reshape(-1)
+    vals_d = torch.cat([qd_c[:, 0:3] - qd_p[:, 0:3], w_rel, w_rel_j, qd_lin,
+                        qd_ang], -1).reshape(-1)
+    joint_q[t.q_dst] = vals_q[t.q_src]
+    joint_qd[t.d_dst] = vals_d[t.d_src]
+    return joint_q, joint_qd

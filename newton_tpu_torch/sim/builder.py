@@ -4,7 +4,7 @@ Port of the subset of ``newton_tpu/sim/builder.py`` that the gymnasium
 robots, the reference's replicated-world KPI scenes, rods and the MPM path
 drive: bodies, articulations, free/revolute/prismatic/fixed/ball joints and
 D6 joints with linear and angular axes, ball-jointed rods (``add_rod``),
-fixed tendons, plane/sphere/capsule shapes with
+fixed tendons, plane/sphere/box/capsule/cylinder shapes with
 density-driven mass, particles, world contexts (``begin_world``,
 ``add_world``, ``add_builder`` and the vectorized ``replicate``) with
 per-world gravity, MJCF-style collision filtering, the static candidate
@@ -39,7 +39,9 @@ from ..core.host_math import (
 )
 from ..core.types import MAXVAL, Axis, AxisType, axis_to_vec3
 from ..geometry.inertia import (
+    compute_box_inertia,
     compute_capsule_inertia,
+    compute_cylinder_inertia,
     compute_sphere_inertia,
     transform_inertia,
 )
@@ -59,7 +61,16 @@ __all__ = ["ModelBuilder", "ShapeConfig", "JointDofConfig"]
 
 _JOINT_TYPES = (JointType.FREE, JointType.REVOLUTE, JointType.PRISMATIC,
                 JointType.FIXED, JointType.D6, JointType.BALL)
-_SHAPE_TYPES = (GeoType.PLANE, GeoType.SPHERE, GeoType.CAPSULE)
+# each shape type the port builds, with its mass properties from
+# (density, scale)
+_SHAPE_MASS = {
+    GeoType.PLANE: None,
+    GeoType.SPHERE: lambda rho, s: compute_sphere_inertia(rho, s[0]),
+    GeoType.BOX: lambda rho, s: compute_box_inertia(rho, s[0], s[1], s[2]),
+    GeoType.CAPSULE: lambda rho, s: compute_capsule_inertia(rho, s[0], s[1]),
+    GeoType.CYLINDER: lambda rho, s: compute_cylinder_inertia(rho, s[0],
+                                                              s[1]),
+}
 # per-dof lists of the builder (one entry per dof, in dof order)
 _DOF_LISTS = ("joint_armature", "joint_target_ke", "joint_target_kd",
               "joint_limit_lower", "joint_limit_upper", "joint_limit_ke",
@@ -80,6 +91,12 @@ def _as_transform(xform) -> np.ndarray:
         raise ValueError(f"Transform must have 7 components [p, q_xyzw], "
                          f"got {t.shape}")
     return t.copy()
+
+
+def _axis_shape_xform(xform, axis: AxisType) -> np.ndarray:
+    """``xform`` with the shape's +Z turned onto ``axis``."""
+    q = np_quat_between_axes(np.array([0.0, 0.0, 1.0]), axis_to_vec3(axis))
+    return np_transform_multiply(_as_transform(xform), np_transform(q=q))
 
 
 @dataclass
@@ -800,7 +817,7 @@ class ModelBuilder:
                   key: Optional[str] = None) -> int:
         """Collision shape attached to ``body`` (-1 = static)."""
         geo_type = GeoType(geo_type)
-        if geo_type not in _SHAPE_TYPES:
+        if geo_type not in _SHAPE_MASS:
             raise NotImplementedError(
                 f"shape type {geo_type.name} is not ported yet")
         cfg = cfg or self.default_shape_cfg
@@ -819,14 +836,9 @@ class ModelBuilder:
         self.shape_key.append(key or f"shape_{idx}")
         self.shape_world.append(self._current_world)
 
-        if body >= 0 and cfg.density > 0.0:
-            sc = self.shape_scale[idx]
-            if geo_type == GeoType.SPHERE:
-                m, c, I = compute_sphere_inertia(cfg.density, sc[0])
-            elif geo_type == GeoType.CAPSULE:
-                m, c, I = compute_capsule_inertia(cfg.density, sc[0], sc[1])
-            else:
-                m = 0.0
+        mass_of = _SHAPE_MASS[geo_type]
+        if body >= 0 and cfg.density > 0.0 and mass_of is not None:
+            m, c, I = mass_of(cfg.density, self.shape_scale[idx])
             if m > 0.0:
                 self._update_body_mass(body, m, I, c,
                                        self.shape_transform[idx])
@@ -872,15 +884,33 @@ class ModelBuilder:
                               scale=(radius, radius, radius), cfg=cfg,
                               key=key)
 
+    def add_shape_box(self, body: int, xform=None, hx: float = 0.5,
+                      hy: float = 0.5, hz: float = 0.5,
+                      cfg: Optional[ShapeConfig] = None,
+                      key: Optional[str] = None) -> int:
+        """Box of half-extents (hx, hy, hz) along the shape frame's axes."""
+        return self.add_shape(body, GeoType.BOX, xform, scale=(hx, hy, hz),
+                              cfg=cfg, key=key)
+
     def add_shape_capsule(self, body: int, xform=None, radius: float = 1.0,
                           half_height: float = 0.5, axis: AxisType = Axis.Z,
                           cfg: Optional[ShapeConfig] = None,
                           key: Optional[str] = None) -> int:
         """Capsule along +Z in the shape frame; ``axis`` rotates it."""
-        q = np_quat_between_axes(np.array([0.0, 0.0, 1.0]),
-                                 axis_to_vec3(axis))
-        xf = np_transform_multiply(_as_transform(xform), np_transform(q=q))
-        return self.add_shape(body, GeoType.CAPSULE, xf,
+        return self.add_shape(body, GeoType.CAPSULE,
+                              _axis_shape_xform(xform, axis),
+                              scale=(radius, half_height, 0.0), cfg=cfg,
+                              key=key)
+
+    def add_shape_cylinder(self, body: int, xform=None, radius: float = 1.0,
+                           half_height: float = 0.5, axis: AxisType = Axis.Z,
+                           cfg: Optional[ShapeConfig] = None,
+                           key: Optional[str] = None) -> int:
+        """Solid cylinder along +Z in the shape frame; ``axis`` rotates it.
+        It collides as the capsule of its radius and half-height, except
+        against a plane (see ``geometry/narrow_phase.py``)."""
+        return self.add_shape(body, GeoType.CYLINDER,
+                              _axis_shape_xform(xform, axis),
                               scale=(radius, half_height, 0.0), cfg=cfg,
                               key=key)
 
@@ -1115,13 +1145,15 @@ class ModelBuilder:
         return pairs.astype(np.int32), slots, int(slots[-1])
 
     def _collision_radius(self) -> np.ndarray:
-        """Per-shape bounding radius: sphere r, capsule r + half height,
-        plane MAXVAL."""
+        """Per-shape bounding radius: sphere r, box |half-extents|, capsule
+        and cylinder r + half height, plane MAXVAL."""
         typ = np.asarray(self.shape_type, dtype=np.int64).reshape(-1)
         sc = np.asarray(self.shape_scale, dtype=np.float64).reshape(-1, 3)
-        return np.where(typ == int(GeoType.SPHERE), sc[:, 0],
-                        np.where(typ == int(GeoType.CAPSULE),
-                                 sc[:, 0] + sc[:, 1], MAXVAL))
+        return np.select(
+            [typ == int(GeoType.SPHERE), typ == int(GeoType.BOX),
+             np.isin(typ, [int(GeoType.CAPSULE), int(GeoType.CYLINDER)])],
+            [sc[:, 0], np.linalg.norm(sc, axis=1), sc[:, 0] + sc[:, 1]],
+            MAXVAL)
 
     # ------------------------------------------------------------------
     def finalize(self, device="cuda") -> Model:

@@ -14,7 +14,7 @@ prismatic joint, one hinge a revolute joint, and slides followed by hinges
 one D6 joint that translates along the slides, then rotates about the
 hinges' common ``pos``. A slide's ``ref`` shifts its limits into
 displacement space and is kept in the ``mjc:qpos_ref`` coordinate
-attribute at that slide's coordinate. Plane/sphere/capsule
+attribute at that slide's coordinate. Plane/sphere/box/capsule/cylinder
 geoms with contype/conaffinity, ``<tendon><fixed>`` couplings of hinges,
 and motor/position/velocity actuators on hinges and slides into the
 ``MJCActuation`` tables. Actuators and tendons address each joint's own dof
@@ -222,7 +222,7 @@ def parse_mjcf(builder, source: str):
     def add_geom(geom: ET.Element, body_idx: int, body_class):
         a = resolve_attrs(geom, "geom", body_class)
         gtype = a.get("type", "sphere")
-        if gtype not in ("plane", "sphere", "capsule"):
+        if gtype not in ("plane", "sphere", "box", "capsule", "cylinder"):
             raise NotImplementedError(
                 f"MJCF geom type {gtype!r} is not supported by the port yet")
         contype = int(_parse_float(a.get("contype"), 1))
@@ -254,7 +254,10 @@ def parse_mjcf(builder, source: str):
             m_val, r = float(a["mass"]), float(size[0])
             vol = {"sphere": 4.0 / 3.0 * math.pi * r ** 3,
                    "capsule": math.pi * r * r * (2.0 * hh)
-                   + 4.0 / 3.0 * math.pi * r ** 3}.get(gtype, 0.0)
+                   + 4.0 / 3.0 * math.pi * r ** 3,
+                   "cylinder": math.pi * r * r * (2.0 * hh),
+                   "box": 8.0 * float(size[0]) * float(size[1])
+                   * float(size[2])}.get(gtype, 0.0)
             if vol > 1e-12 and m_val > 0.0:
                 cfg.density = m_val / vol
         key = a.get("name")
@@ -263,10 +266,18 @@ def parse_mjcf(builder, source: str):
         elif gtype == "sphere":
             builder.add_shape_sphere(body_idx, xform=xf,
                                      radius=float(size[0]), cfg=cfg, key=key)
-        else:
+        elif gtype == "box":
+            builder.add_shape_box(body_idx, xform=xf, hx=float(size[0]),
+                                  hy=float(size[1]), hz=float(size[2]),
+                                  cfg=cfg, key=key)
+        elif gtype == "capsule":
             builder.add_shape_capsule(body_idx, xform=xf,
                                       radius=float(size[0]), half_height=hh,
                                       axis="Z", cfg=cfg, key=key)
+        else:
+            builder.add_shape_cylinder(body_idx, xform=xf,
+                                       radius=float(size[0]), half_height=hh,
+                                       axis="Z", cfg=cfg, key=key)
 
     def parse_joint(j: ET.Element, body_class):
         a = resolve_attrs(j, "joint", body_class)

@@ -175,8 +175,8 @@ def test_humanoid_raises_naming_element(tmp_path):
 
 
 @pytest.mark.parametrize("snippet, word", [
-    ('<worldbody><body><geom type="box" size="1 1 1"/></body></worldbody>',
-     "box"),
+    ('<worldbody><body><geom type="ellipsoid" size="1 1 1"/></body>'
+     '</worldbody>', "ellipsoid"),
     ('<worldbody><body><joint type="slide"/><joint type="hinge"/>'
      '<geom size="0.1"/></body></worldbody>', "slide"),
     ('<worldbody><body><site name="s"/><geom size="0.1"/></body>'
