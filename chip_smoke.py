@@ -156,7 +156,39 @@ Phases, one line each:
      nudged) under SolverXPBD(iterations=4), dt 1/240, 4 substeps, 110
      frames: the first five dominoes tipped (up-z < 0.75) in every world,
      the worlds where all ten tipped, no B1/B2 launch; one profiled frame;
-     env-steps/s.
+     env-steps/s;
+ 24. the bench cloth (bench.py --mode cloth as published: a 100 x 100
+     grid of cell 0.01 pinned along its top row at z = 2, mass 2, tri_ke
+     500, edge_ke 1) under SolverStyle3D(iterations=4), no contacts, dt
+     1/240, 4 substeps: 10 warm-up and 50 timed frames; finite, the pinned
+     row within 1e-3 of z = 2, the free vertices' mean z below 2, no
+     triangle edge beyond 2.5 x its rest length, the PD system's 8-step
+     PCG residual below 1e-3 relative on the slow test's right-hand side;
+     no B1-B4 launch (no TPU kernel lies on the cloth path); one profiled
+     frame (device ops per substep, busy share, no device-to-host copy);
+     one substep on the card against the CPU (particle_q 2e-4,
+     particle_qd 5e-3) and two card runs of it against each other (same
+     tolerances); vertex-steps/s, setup seconds, peak device memory;
+ 25. example_cloth_style3d.py as published (two sewn 10 x 10 panels on a
+     static capsule torso over a ground plane, CollisionPipeline soft
+     contacts each substep, SolverStyle3D(iterations=6, contact_ke=2e4),
+     dt 1/480, 8 substeps, 50 frames): the example's test_final (finite,
+     seam gap < 0.25, max z > 0.9, the last held at every frame through
+     frame 40 and reported at frame 50: the garment slides off its torso
+     from about frame 50 in both packages, ROADMAP C.16); a card vs CPU
+     substep with contacts;
+ 26. SolverVBD(iterations=4): (a) example_cloth_bending.py as published,
+     40 frames, its test_final; (b) the bench cloth (not a published
+     configuration), 10 warm-up and 20 timed frames: finite and the
+     pinned row within 1e-3 (the drape is reported, not gated: the JAX
+     package's VBD over-stretches this cloth, ROADMAP C.15), profile, a
+     card vs CPU substep from rest (gated) and from the run's end state
+     (reported);
+ 27. SolverSemiImplicit: test_semi_implicit_stable's 6 x 6 cloth (dt
+     1/2000, 20 substeps, 30 frames) and a soft block of 4^3 cells
+     (example_softbody_hanging.py's material) pinned at one face for 1 s:
+     finite, the pinned particles exactly in place, the block sagged by
+     less than 0.6; a card vs CPU substep of each.
 It prints one JSON line listing the kernels (name, route, source,
 launches, error, times, and each time's least possible time on an H100
 SXM at 700 W from ``kernel_cost``: bound_ms, bound_by, share_of_bound;
@@ -2440,9 +2472,10 @@ DOMINO_FRAMES = 110                   # tests/test_examples.py
 def profile_frame(fn, substeps):
     """One frame under torch.profiler: the device's busy share of the
     frame's wall time (the kernels of one stream do not overlap; the
-    profiler's own host cost lengthens the frame), device ops per substep
-    and the device time of the ten largest kernels by name (ms per
-    frame). None where the profiler records no device activity."""
+    profiler's own host cost lengthens the frame), device ops per substep,
+    the device-to-host and host-to-device copies, and the device time of
+    the ten largest kernels by name (ms per frame). None where the
+    profiler records no device activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2465,6 +2498,8 @@ def profile_frame(fn, substeps):
     return dict(wall_ms=wall * 1e3, device_busy_ms=busy * 1e3,
                 busy_share=busy / wall, device_ops=len(kernels),
                 device_ops_per_substep=len(kernels) / substeps,
+                memcpy_dtoh=sum("DtoH" in e.name for e in kernels),
+                memcpy_htod=sum("HtoD" in e.name for e in kernels),
                 top_kernels_ms={k: v * 1e-3 for k, v in top})
 
 
@@ -2763,6 +2798,394 @@ def phase_domino(dev):
                 worlds_all_tipped=int(tipped.all(1).sum()),
                 tipped_per_world_mean=float(tipped.float().sum(1).mean()),
                 profile=prof)
+
+
+# ----------------------------------------------------------------------
+# cloth (phases 24-27): no TPU kernel lies on this path; the scenes are
+# written against a builder module ``lib`` with the JAX package's API, so
+# the CPU tests build the same scenes with both packages
+# ----------------------------------------------------------------------
+CLOTH_DIM = 100                       # bench.py --cloth-dim
+CLOTH_CELL = 0.01
+CLOTH_Z = 2.0
+CLOTH_WARMUP = 10                     # bench.py's chunk
+CLOTH_FRAMES = 50                     # bench.py --frames
+VBD_FRAMES = 20
+CLOTH_ITERS = 4                       # bench.py's SolverStyle3D iterations
+GARMENT_DT = 1.0 / 480.0              # example_cloth_style3d.py
+GARMENT_SUBSTEPS = 8
+GARMENT_FRAMES = 50                   # tests/test_examples.py
+# the garment slides off its torso from about frame 50 in both packages
+# (ROADMAP C.16): "hangs on the torso" (max z > 0.9) is held through
+# frame 40, the example's own frame-50 reading is reported
+GARMENT_HOLD_FRAMES = 40
+BENDING_FRAMES = 40                   # tests/test_examples.py
+SEMI_DT = 1.0 / 2000.0                # test_semi_implicit_stable
+SEMI_SUBSTEPS = 20
+SEMI_FRAMES = 30
+# one substep on the card against the CPU (tests/test_batched_step.py's
+# tolerances), and two runs of one substep on the card (index_add_ adds
+# in no fixed order)
+CLOTH_CPU_TOL = {"particle_q": 2e-4, "particle_qd": 5e-3}
+CLOTH_REPEAT_TOL = {"particle_q": 2e-4, "particle_qd": 5e-3}
+
+
+def cloth_bench_scene(lib, dim=CLOTH_DIM, cell=CLOTH_CELL):
+    """bench.py --mode cloth: a (dim + 1)^2 grid pinned along its top row
+    at z = 2 (mass 2, tri_ke 500, edge_ke 1)."""
+    b = lib.ModelBuilder()
+    b.add_cloth_grid(pos=(0, 0, CLOTH_Z), dim_x=dim, dim_y=dim, cell_x=cell,
+                     cell_y=cell, mass=2.0, fix_top=True, tri_ke=500.0,
+                     edge_ke=1.0)
+    return b
+
+
+def small_cloth_scene(lib):
+    """tests/test_cloth_solvers.py's cloth: 6 x 6 cells of 0.1 at z = 1,
+    pinned along its top row."""
+    b = lib.ModelBuilder()
+    b.add_cloth_grid(pos=(0, 0, 1.0), dim_x=6, dim_y=6, cell_x=0.1,
+                     cell_y=0.1, mass=1.0, fix_top=True, tri_ke=500.0,
+                     edge_ke=2.0)
+    return b
+
+
+def garment_scene(lib, dim=10, cell=0.05):
+    """example_cloth_style3d.py: two vertical 10 x 10 panels either side
+    of a static capsule torso over a ground plane, their top rows' outer
+    thirds sewn (ke 3e3, kd 2, shrink 0.9). Returns (builder, (seam_a,
+    seam_b))."""
+    import numpy as np
+    b = lib.ModelBuilder(gravity=-9.81)
+    q_y = np.array([0.0, np.sin(np.pi / 4), 0.0, np.cos(np.pi / 4)])
+    b.add_shape_capsule(-1, radius=0.16, half_height=0.2,
+                        xform=np.concatenate([[0.25, 0.25, 0.9], q_y]),
+                        key="torso_shape")
+    b.add_ground_plane()
+    q_x = np.array([np.sin(np.pi / 4), 0.0, 0.0, np.cos(np.pi / 4)])
+    panels = []
+    for y in (0.06, 0.46):
+        panels.append(b.particle_count)
+        b.add_cloth_grid(pos=(0.0, y, 1.15), rot=q_x, dim_x=dim, dim_y=dim,
+                         cell_x=cell, cell_y=cell, mass=0.4, radius=0.02,
+                         tri_ke=800.0, tri_kd=8.0, edge_ke=0.5)
+    top_a = [panels[0] + dim * (dim + 1) + i for i in range(dim + 1)]
+    top_b = [panels[1] + dim * (dim + 1) + i for i in range(dim + 1)]
+    third = (dim + 1) // 3
+    seam_a = top_a[:third] + top_a[-third:]
+    seam_b = top_b[:third] + top_b[-third:]
+    b.sew_particles(seam_a, seam_b, ke=3.0e3, kd=2.0, shrink=0.9)
+    return b, (seam_a, seam_b)
+
+
+def bending_scene(lib):
+    """example_cloth_bending.py: two 8 x 8 sheets pinned at their top
+    rows, edge_ke 0.02 and 20. Returns (builder, [(start, end)] per
+    sheet)."""
+    b = lib.ModelBuilder(gravity=-9.81)
+    spans = []
+    for i, edge_ke in enumerate((0.02, 20.0)):
+        start = b.particle_count
+        b.add_cloth_grid(pos=(0.0, 0.6 * i, 1.2), dim_x=8, dim_y=8,
+                         cell_x=0.06, cell_y=0.06, mass=0.5, fix_top=True,
+                         tri_ke=500.0, tri_kd=5.0, edge_ke=edge_ke,
+                         edge_kd=0.02)
+        spans.append((start, b.particle_count))
+    return b, spans
+
+
+def soft_grid_scene(lib, n=4):
+    """A soft block of n^3 cells of 0.1 (five tetrahedra each) with
+    example_softbody_hanging.py's material (density 80, k_mu = k_lambda
+    = 2e3, k_damp 2), pinned at its x = 0 face."""
+    b = lib.ModelBuilder()
+    b.add_soft_grid(pos=(0.0, -0.2, 1.0), rot=None, vel=(0, 0, 0),
+                    dim_x=n, dim_y=n, dim_z=n, cell_x=0.1, cell_y=0.1,
+                    cell_z=0.1, density=80.0, k_mu=2.0e3, k_lambda=2.0e3,
+                    k_damp=2.0, fix_left=True, radius=0.03)
+    return b
+
+
+def cloth_run(solver, state, frames, substeps, dt, pipe=None):
+    """``frames`` frames of ``substeps`` substeps (collide each substep
+    where a pipeline is given), then one synchronize."""
+    import torch
+    for _ in range(frames * substeps):
+        state = solver.step(state, None, None,
+                            None if pipe is None else pipe.collide(state), dt)
+    torch.cuda.synchronize()
+    return state
+
+
+def cloth_gates(model, state, label, pinned_z=CLOTH_Z, drape=True):
+    """test_cloth_hangs' gates at the bench cloth's cell: finite, the
+    pinned row within 1e-3 of its height and, with ``drape``, the free
+    vertices' mean z below it and no triangle edge longer than 2.5 x its
+    rest length (the last two are reported either way)."""
+    import torch
+    q = state.particle_q
+    if not bool(torch.isfinite(q).all()):
+        raise AssertionError(f"{label}: non-finite particle state")
+    fixed = model.particle_inv_mass == 0
+    pin_err = float((q[fixed, 2] - pinned_z).abs().max())
+    z_free = float(q[~fixed, 2].mean())
+    ti = model.tri_indices.long()
+    q0 = model.particle_q
+    stretch = float(((q[ti[:, 0]] - q[ti[:, 1]]).norm(dim=-1)
+                     / (q0[ti[:, 0]] - q0[ti[:, 1]]).norm(dim=-1)).max())
+    if pin_err > 1e-3 or (drape and (not z_free < pinned_z
+                                     or stretch > 2.5)):
+        raise AssertionError(f"{label}: pinned row off by {pin_err:.3g}, "
+                             f"free mean z {z_free:.4f}, edge stretch "
+                             f"{stretch:.3f}")
+    return dict(pinned_err=pin_err, free_z_mean=z_free,
+                edge_stretch_max=stretch)
+
+
+def cloth_vs_cpu(dev, builder, make_solver, state, dt, label, pipe=False,
+                 gate=True):
+    """One substep on the card against the same substep on the CPU from
+    the same state (the model finalized again on each), then two runs of
+    that substep on the card against each other; with ``gate``, both
+    held to their tolerances."""
+    import torch
+    import newton_tpu_torch as nt
+    out, spread = {}, {}
+    for side, d in (("card", dev), ("cpu", "cpu")):
+        m = builder.finalize(d)
+        s = state.to(d)
+        c = nt.CollisionPipeline(m).collide(s) if pipe else None
+        solver = make_solver(m)
+        out[side] = solver.step(s, None, None, c, dt)
+        if side == "card":
+            again = solver.step(s, None, None, c, dt)
+            spread = {n: float((getattr(out[side], n) - getattr(again, n))
+                               .abs().max()) for n in CLOTH_REPEAT_TOL}
+    err = {}
+    for n, tol in CLOTH_CPU_TOL.items():
+        ok, err[n] = close(getattr(out["card"], n).cpu(),
+                           getattr(out["cpu"], n), tol, tol)
+        if gate and not ok:
+            raise AssertionError(f"{label}: {n} card vs CPU off tolerance "
+                                 f"({err[n]:.3g})")
+    for n, tol in CLOTH_REPEAT_TOL.items():
+        if gate and spread[n] > tol:
+            raise AssertionError(f"{label}: two runs of a substep differ in "
+                                 f"{n} by {spread[n]:.3g} > {tol}")
+    torch.cuda.synchronize()
+    return dict(vs_cpu=err, repeat_max_diff=spread)
+
+
+def no_tpu_kernel(label):
+    """No B1-B4 launch since the last resets (no TPU kernel lies on the
+    cloth path)."""
+    if kernel_launches() != (0, 0) or any(mpm_launches().values()):
+        raise AssertionError(f"{label}: a B1-B4 kernel launched on the "
+                             "cloth path")
+
+
+def reset_all_launches():
+    reset_robot_launches()
+    reset_mpm_launches()
+
+
+def bench_cloth_phase(dev, make_solver, frames, label, pcg=False,
+                      drape=True):
+    """The bench cloth under one solver: setup, CLOTH_WARMUP warm-up and
+    ``frames`` timed frames of SUBSTEPS substeps at DT, the gates (the
+    drape gates with ``drape``), one profiled frame, the card against the
+    CPU from the timed run's end state (without ``drape``: gated from
+    rest, reported from the end state); vertex-steps/s."""
+    import torch
+    import newton_tpu_torch as nt
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    b = cloth_bench_scene(nt)
+    model = b.finalize(dev)
+    solver = make_solver(model)
+    state = model.state()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    reset_all_launches()
+    state = cloth_run(solver, state, CLOTH_WARMUP, SUBSTEPS, DT)
+    t0 = time.perf_counter()
+    state = cloth_run(solver, state, frames, SUBSTEPS, DT)
+    elapsed = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    no_tpu_kernel(label)
+    gates = cloth_gates(model, state, label, drape=drape)
+    N = model.particle_count
+    res = dict(vertices=N, setup_s=setup_s, substeps=frames * SUBSTEPS,
+               vertex_steps_per_s=N * frames * SUBSTEPS / elapsed,
+               peak_memory_bytes=peak, gates=gates)
+    if pcg:
+        # the PD system's CG: 8 iterations from zero on the slow test's
+        # right-hand side (tests/test_cloth_solvers.py:186-195)
+        diag = solver._diag(DT)
+        rhs = diag[:, None] * state.particle_q
+        x = solver._pcg(torch.zeros_like(rhs), rhs, diag, solver.w,
+                        solver.PCG_ITERATIONS)
+        rel = float((rhs - solver._apply_A(x, diag, solver.w)).norm()
+                    / rhs.norm())
+        if not rel < 1e-3:
+            raise AssertionError(f"{label}: PCG residual {rel:.3g} >= 1e-3")
+        res["pcg_relative_residual"] = rel
+    prof = profile_frame(lambda: cloth_run(solver, state, 1, SUBSTEPS, DT),
+                         SUBSTEPS)
+    if prof is not None and prof["memcpy_dtoh"]:
+        raise AssertionError(f"{label}: {prof['memcpy_dtoh']} device-to-"
+                             "host copies in a profiled frame")
+    res["profile"] = prof
+    res["busy_share_unprofiled"] = busy_unprofiled(
+        prof, N, res["vertex_steps_per_s"])
+    if hasattr(solver, "colors"):
+        res["colors"] = [len(c) for c in solver.colors]
+    if drape:
+        res.update(cloth_vs_cpu(dev, b, make_solver, state, DT, label))
+    else:
+        # a cloth that does not hold (C.15) moves metres per frame: float32
+        # rounding that differs between the card and the CPU grows within
+        # one substep there, so the gate takes the substep from rest
+        res.update(cloth_vs_cpu(dev, b, make_solver, model.state(), DT,
+                                label))
+        end = cloth_vs_cpu(dev, b, make_solver, state, DT, label, gate=False)
+        res["vs_cpu_end_state"] = end["vs_cpu"]
+        res["repeat_max_diff_end_state"] = end["repeat_max_diff"]
+    return res
+
+
+def phase_cloth_style3d(dev):
+    """bench.py --mode cloth as published: SolverStyle3D(iterations=4) on
+    the 100 x 100 pinned grid, no contacts."""
+    import newton_tpu_torch as nt
+    return bench_cloth_phase(
+        dev, lambda m: nt.SolverStyle3D(m, iterations=CLOTH_ITERS),
+        CLOTH_FRAMES, "cloth style3d", pcg=True)
+
+
+def phase_garment(dev):
+    """example_cloth_style3d.py as published: the sewn panels on the
+    capsule torso, CollisionPipeline soft contacts each substep,
+    SolverStyle3D(iterations=6, contact_ke=2e4), dt 1/480, 8 substeps,
+    50 frames; the example's test_final, with "hangs on the torso" (max
+    z > 0.9) held at every frame through GARMENT_HOLD_FRAMES and reported
+    at frame 50 (ROADMAP C.16); a card vs CPU substep with the
+    contacts."""
+    import torch
+    import newton_tpu_torch as nt
+    t0 = time.perf_counter()
+    b, (seam_a, seam_b) = garment_scene(nt)
+    model = b.finalize(dev)
+    pipe = nt.CollisionPipeline(model)
+
+    def make(m):
+        return nt.SolverStyle3D(m, iterations=6, contact_ke=2.0e4)
+    solver = make(model)
+    state = model.state()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    reset_all_launches()
+    t0 = time.perf_counter()
+    z_frames = []               # max z after each frame, read at the end
+    for _ in range(GARMENT_FRAMES):
+        for _ in range(GARMENT_SUBSTEPS):
+            state = solver.step(state, None, None, pipe.collide(state),
+                                GARMENT_DT)
+        z_frames.append(state.particle_q[:, 2].max())
+    z_frames = torch.stack(z_frames).tolist()
+    elapsed = time.perf_counter() - t0
+    no_tpu_kernel("garment")
+    q = state.particle_q
+    gap = float((q[seam_a] - q[seam_b]).norm(dim=-1).mean())
+    z_max = z_frames[-1]
+    z_hold = min(z_frames[:GARMENT_HOLD_FRAMES])
+    if not bool(torch.isfinite(q).all()) or not gap < 0.25 or \
+            not z_hold > 0.9:
+        raise AssertionError(f"garment: seam gap {gap:.3f}, max z through "
+                             f"frame {GARMENT_HOLD_FRAMES} down to "
+                             f"{z_hold:.3f}")
+    n_sub = GARMENT_FRAMES * GARMENT_SUBSTEPS
+    active = int(pipe.collide(state).soft_contact_mask.sum())
+    res = dict(vertices=model.particle_count, soft_pairs=pipe.soft_contact_max,
+               active_soft_contacts_at_end=active, setup_s=setup_s,
+               substeps=n_sub, seconds=elapsed,
+               vertex_steps_per_s=model.particle_count * n_sub / elapsed,
+               seam_gap=gap, z_max=z_max, z_max_min_to_hold_frame=z_hold,
+               z_max_frames_5=z_frames[4::5])
+    res.update(cloth_vs_cpu(dev, b, make, state, GARMENT_DT, "garment",
+                            pipe=True))
+    return res
+
+
+def phase_vbd(dev):
+    """(a) example_cloth_bending.py as published under SolverVBD(
+    iterations=4), 40 frames, its test_final; (b) the bench cloth under
+    SolverVBD(iterations=4) (not a published configuration: VBD's
+    coloured sweep at the bench width)."""
+    import torch
+    import newton_tpu_torch as nt
+    b, spans = bending_scene(nt)
+    model = b.finalize(dev)
+    solver = nt.SolverVBD(model, iterations=4)
+    reset_all_launches()
+    t0 = time.perf_counter()
+    state = cloth_run(solver, model.state(), BENDING_FRAMES, SUBSTEPS, DT)
+    elapsed = time.perf_counter() - t0
+    no_tpu_kernel("bending")
+    q = state.particle_q
+    width = [float(q[s:e, 0].max() - q[s:e, 0].min()) for s, e in spans]
+    if not bool(torch.isfinite(q).all()) or \
+            not width[1] > width[0] - 0.02 or not float(q[:, 2].min()) < 1.15:
+        raise AssertionError(f"bending: spans {width}, min z "
+                             f"{float(q[:, 2].min()):.3f}")
+    bending = dict(colors=len(solver.colors), spans=width, seconds=elapsed,
+                   z_min=float(q[:, 2].min()))
+    # the JAX package's VBD does not hold this cloth (ROADMAP C.15: edges
+    # stretched ~12x and vertices at 50-80 m/s from the first frame, the
+    # free mean z above the pinned row by frame 30): only the pinned row
+    # and finiteness are gated here, the drape is reported
+    grid = bench_cloth_phase(dev, lambda m: nt.SolverVBD(m, iterations=4),
+                             VBD_FRAMES, "cloth vbd", drape=False)
+    return dict(bending=bending, grid=grid)
+
+
+def phase_semi_implicit(dev):
+    """test_semi_implicit_stable's cloth (6 x 6, dt 1/2000, 20 substeps,
+    30 frames) and the pinned soft block of 4^3 cells for 1 s under
+    SolverSemiImplicit: finite, the pinned particles exactly in place,
+    the block sagged; a card vs CPU substep of each."""
+    import torch
+    import newton_tpu_torch as nt
+    res = {}
+    for label, b, frames in (
+            ("cloth", small_cloth_scene(nt), SEMI_FRAMES),
+            ("soft block", soft_grid_scene(nt),
+             int(round(1.0 / (SEMI_DT * SEMI_SUBSTEPS))))):
+        model = b.finalize(dev)
+        solver = nt.SolverSemiImplicit(model)
+        s0 = model.state()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        state = cloth_run(solver, s0, frames, SEMI_SUBSTEPS, SEMI_DT)
+        elapsed = time.perf_counter() - t0
+        no_tpu_kernel(f"semi-implicit {label}")
+        q = state.particle_q
+        pinned = model.particle_inv_mass == 0
+        moved = float((q[pinned] - s0.particle_q[pinned]).abs().max())
+        sag = float(s0.particle_q[:, 2].min() - q[:, 2].min())
+        if not bool(torch.isfinite(q).all()) or moved != 0.0 or \
+                not 0.0 < sag < 0.6:
+            raise AssertionError(f"semi-implicit {label}: pinned moved "
+                                 f"{moved:.3g}, sag {sag:.4f}")
+        r = dict(vertices=model.particle_count,
+                 tets=model.structure.tet_count,
+                 substeps=frames * SEMI_SUBSTEPS, seconds=elapsed,
+                 pinned_moved=moved, sag=sag)
+        r.update(cloth_vs_cpu(dev, b, nt.SolverSemiImplicit, state,
+                              SEMI_DT, f"semi-implicit {label}"))
+        res[label] = r
+    return res
 
 
 def pgs_smem(rec):
@@ -3119,6 +3542,58 @@ def main():
           f"unprofiled frame; profiled frame {dom['profile']} on {card}",
           flush=True)
     mark("23")
+
+    sty = phase_cloth_style3d(dev)
+    results["cloth_style3d"] = sty
+    print(f"[24 cloth {CLOTH_DIM}x{CLOTH_DIM} under Style3D, bench.py --mode "
+          f"cloth] {sty['vertices']} vertices, setup {sty['setup_s']:.2f} s, "
+          f"{sty['substeps']} timed substeps, gates {sty['gates']}, PCG "
+          f"residual {sty['pcg_relative_residual']:.3g}; "
+          f"{sty['vertex_steps_per_s']:.1f} vertex-steps/s; peak memory "
+          f"{sty['peak_memory_bytes']} B; card vs CPU substep "
+          f"{sty['vs_cpu']}; two runs of a substep differ by "
+          f"{sty['repeat_max_diff']}; device busy "
+          f"{sty['busy_share_unprofiled']} of an unprofiled frame; profiled "
+          f"frame {sty['profile']} on {card}", flush=True)
+    mark("24")
+
+    gar = phase_garment(dev)
+    results["garment"] = gar
+    print(f"[25 Style3D garment, example_cloth_style3d.py] {gar['vertices']} "
+          f"vertices, {gar['soft_pairs']} soft pairs "
+          f"({gar['active_soft_contacts_at_end']} active at the end), "
+          f"{gar['substeps']} substeps in {gar['seconds']:.2f} s, seam gap "
+          f"{gar['seam_gap']:.4f}, max z {gar['z_max']:.4f} at frame "
+          f"{GARMENT_FRAMES} ({gar['z_max_min_to_hold_frame']:.4f} at its "
+          f"lowest through frame {GARMENT_HOLD_FRAMES}; every 5th frame "
+          f"{gar['z_max_frames_5']}); card vs CPU "
+          f"substep {gar['vs_cpu']}, repeat {gar['repeat_max_diff']} on "
+          f"{card}", flush=True)
+    mark("25")
+
+    vbd = phase_vbd(dev)
+    results["vbd"] = vbd
+    vb, vg = vbd["bending"], vbd["grid"]
+    print(f"[26 VBD] (a) example_cloth_bending.py: spans {vb['spans']}, min "
+          f"z {vb['z_min']:.4f}, {vb['seconds']:.2f} s; (b) cloth "
+          f"{CLOTH_DIM}x{CLOTH_DIM} under VBD(iterations=4): setup "
+          f"{vg['setup_s']:.2f} s, gates {vg['gates']}; "
+          f"{vg['vertex_steps_per_s']:.1f} vertex-steps/s; peak memory "
+          f"{vg['peak_memory_bytes']} B; card vs CPU substep {vg['vs_cpu']}"
+          f", repeat {vg['repeat_max_diff']}; device busy "
+          f"{vg['busy_share_unprofiled']} of an unprofiled frame; profiled "
+          f"frame {vg['profile']} on {card}", flush=True)
+    mark("26")
+
+    semi = phase_semi_implicit(dev)
+    results["semi_implicit"] = semi
+    print("[27 SemiImplicit] " + "; ".join(
+        f"{k}: {v['vertices']} vertices, {v['tets']} tets, "
+        f"{v['substeps']} substeps in {v['seconds']:.2f} s, pinned moved "
+        f"{v['pinned_moved']}, sag {v['sag']:.4f}, card vs CPU substep "
+        f"{v['vs_cpu']}, repeat {v['repeat_max_diff']}"
+        for k, v in semi.items()) + f" on {card}", flush=True)
+    mark("27")
 
     results["kernel_info"] = kernel_info()
     print("[phase seconds] " + json.dumps(

@@ -1,9 +1,11 @@
 """newton_tpu_torch: the PyTorch/CUDA port of newton_tpu.
 
 The JAX package ``newton_tpu`` is the reference; this package re-implements
-three of its paths in PyTorch: the robot path (MJCF robot -> static collision
--> batched generalized step), the rigid-body path of ``SolverXPBD`` and the
-MPM path (particles -> ``SolverImplicitMPM``). Every TPU kernel of the JAX package has a
+four of its paths in PyTorch: the robot path (MJCF robot -> static collision
+-> batched generalized step), the rigid-body path of ``SolverXPBD``, the
+MPM path (particles -> ``SolverImplicitMPM``) and the cloth path (cloth and
+soft topology, particle-shape contacts -> ``SolverStyle3D``, ``SolverVBD``,
+``SolverSemiImplicit``). Every TPU kernel of the JAX package has a
 hand-written CUDA counterpart for Hopper in ``csrc/``: the Cholesky and PGS
 kernels of the robot path, the P2G/G2P transfers of the MPM path. It
 imports torch, never jax.
@@ -33,6 +35,9 @@ from .sim.model import Model, ModelStructure  # noqa: E402
 from .sim.state import State  # noqa: E402
 from .solvers.generalized.solver import SolverFeatherstone, SolverMuJoCo  # noqa: E402
 from .solvers.solver_mpm import SolverImplicitMPM, SolverMPM  # noqa: E402
+from .solvers.solver_semi_implicit import SolverSemiImplicit  # noqa: E402
+from .solvers.solver_style3d import SolverStyle3D  # noqa: E402
+from .solvers.solver_vbd import SolverVBD  # noqa: E402
 from .solvers.solver_xpbd import SolverXPBD  # noqa: E402
 
 __all__ = [
@@ -41,7 +46,7 @@ __all__ = [
     "JointDofConfig", "ModelBuilder", "ShapeConfig", "CollisionPipeline",
     "Contacts", "Control", "JointType", "Model", "ModelStructure", "State",
     "SolverFeatherstone", "SolverMuJoCo", "SolverImplicitMPM", "SolverMPM",
-    "SolverXPBD",
+    "SolverSemiImplicit", "SolverStyle3D", "SolverVBD", "SolverXPBD",
     "ParticleFlags", "ASSET_DIR",
 ]
 

@@ -1,3 +1,4 @@
+from .mat33 import det3, inv3, solve3
 from .quat import (
     cross,
     quat_conjugate,
@@ -26,7 +27,7 @@ from .transform import (
 )
 
 __all__ = [
-    "cross", "quat_conjugate", "quat_from_axis_angle", "quat_integrate",
+    "det3", "inv3", "solve3", "cross", "quat_conjugate", "quat_from_axis_angle", "quat_integrate",
     "quat_mul", "quat_normalize", "quat_rotate", "quat_rotate_inv",
     "quat_to_axis_angle", "quat_to_matrix",
     "orthonormal_basis", "safe_norm", "safe_normalize", "spatial_cross",

@@ -5,11 +5,14 @@ robots, the reference's replicated-world KPI scenes, rods and the MPM path
 drive: bodies, articulations, free/revolute/prismatic/fixed/ball joints and
 D6 joints with linear and angular axes, ball-jointed rods (``add_rod``),
 fixed tendons, plane/sphere/box/capsule/cylinder shapes with
-density-driven mass, particles, world contexts (``begin_world``,
+density-driven mass, particles, cloth and soft topology (springs and
+seams, membrane triangles, bending edges, tetrahedra, the cloth grid and
+mesh, the soft grid and mesh), world contexts (``begin_world``,
 ``add_world``, ``add_builder`` and the vectorized ``replicate``) with
 per-world gravity, MJCF-style collision filtering, the static candidate
-contact pairs with their slot layout, and ``finalize`` onto a device
-(the card unless the caller names another). Host storage is float64 numpy, like the JAX builder; the
+contact pairs with their slot layout, the particle-shape candidates, and
+``finalize`` onto a device (the card unless the caller names another).
+Host storage is float64 numpy, like the JAX builder; the
 candidate-pair order and slot offsets are the JAX builder's exactly,
 because the solvers' contact rows follow them. Host work that grows with
 the number of worlds is vectorized, so that a model of 8192 humanoid
@@ -238,6 +241,34 @@ class ModelBuilder:
         self.particle_radius: List[float] = []
         self.particle_flags: List[int] = []
         self.particle_world: List[int] = []
+        # particle and soft-contact materials carried onto the Model (the
+        # JAX builder's defaults)
+        self.soft_contact_ke = 1.0e3
+        self.soft_contact_kd = 10.0
+        self.soft_contact_kf = 1.0e3
+        self.soft_contact_mu = 0.5
+        self.soft_contact_margin = 0.2
+        self.particle_ke = 1.0e3
+        self.particle_kd = 1.0e2
+        self.particle_kf = 1.0e2
+        self.particle_mu = 0.5
+        self.particle_max_velocity = 1.0e5
+        # cloth and soft topology
+        self.spring_indices: List[Tuple[int, int]] = []
+        self.spring_rest_length: List[float] = []
+        self.spring_stiffness: List[float] = []
+        self.spring_damping: List[float] = []
+        self.tri_indices: List[Tuple[int, int, int]] = []
+        self.tri_poses: List[np.ndarray] = []
+        self.tri_materials: List[Tuple[float, ...]] = []
+        self.tri_areas: List[float] = []
+        self.edge_indices: List[Tuple[int, int, int, int]] = []
+        self.edge_rest_angle: List[float] = []
+        self.edge_rest_length: List[float] = []
+        self.edge_bending_properties: List[Tuple[float, float]] = []
+        self.tet_indices: List[Tuple[int, int, int, int]] = []
+        self.tet_poses: List[np.ndarray] = []
+        self.tet_materials: List[Tuple[float, float, float]] = []
 
         # custom attributes: name -> (spec, {index: value})
         self.custom_attributes: Dict[str, Tuple[AttributeSpec, dict]] = {}
@@ -270,6 +301,22 @@ class ModelBuilder:
     @property
     def particle_count(self) -> int:
         return len(self.particle_q)
+
+    @property
+    def spring_count(self) -> int:
+        return len(self.spring_indices)
+
+    @property
+    def tri_count(self) -> int:
+        return len(self.tri_indices)
+
+    @property
+    def edge_count(self) -> int:
+        return len(self.edge_indices)
+
+    @property
+    def tet_count(self) -> int:
+        return len(self.tet_indices)
 
     @property
     def current_world(self) -> int:
@@ -335,7 +382,7 @@ class ModelBuilder:
         w0, b0, s0 = self.world_count, self.body_count, self.shape_count
         j0, d0, q0 = (self.joint_count, self.joint_dof_count,
                       self.joint_coord_count)
-        t0 = len(self.tendon_params)
+        t0, p0 = len(self.tendon_params), self.particle_count
         nb, ns, nj = o.body_count, o.shape_count, o.joint_count
         na, npart = o.articulation_count, o.particle_count
         nd, nq = o.joint_dof_count, o.joint_coord_count
@@ -423,6 +470,7 @@ class ModelBuilder:
         self.particle_radius += list(o.particle_radius) * count
         self.particle_flags += list(o.particle_flags) * count
         self.particle_world += per_world(npart)
+        self._copy_topology(o, p0, npart, count)
         self._merge_mjcf_data(o, count, d0, q0, t0)
 
     def add_builder(self, other: "ModelBuilder", xform=None,
@@ -504,6 +552,7 @@ class ModelBuilder:
         self.tendon_params += list(other.tendon_params)
         self.tendon_key += [pre + k for k in other.tendon_key]
         # particles
+        p0 = self.particle_count
         for p, v in zip(other.particle_q, other.particle_qd):
             self.particle_q.append(np.asarray(p) if X is None
                                    else np_transform_point(X, p))
@@ -513,7 +562,33 @@ class ModelBuilder:
         self.particle_radius += list(other.particle_radius)
         self.particle_flags += list(other.particle_flags)
         self.particle_world += [w] * other.particle_count
+        self._copy_topology(other, p0, other.particle_count, 1)
         self._merge_mjcf_data(other, 1, d0, q0, t0)
+
+    def _copy_topology(self, o: "ModelBuilder", p0: int, npart: int,
+                       count: int) -> None:
+        """``count`` copies of ``o``'s springs, triangles, bending edges
+        and tetrahedra, copy i's particle indices offset by p0 + i npart;
+        a -1 wing stays -1."""
+        def rows(table, width):
+            a = np.asarray(table, dtype=np.int64).reshape(-1, width)
+            out = a[None] + (p0 + npart * np.arange(count))[:, None, None]
+            out = np.where(a[None] >= 0, out, a[None])
+            return [tuple(r) for r in out.reshape(-1, width).tolist()]
+
+        def copies(lst):
+            return [x.copy() for _ in range(count) for x in lst]
+        self.spring_indices += rows(o.spring_indices, 2)
+        self.tri_indices += rows(o.tri_indices, 3)
+        self.edge_indices += rows(o.edge_indices, 4)
+        self.tet_indices += rows(o.tet_indices, 4)
+        for name in ("spring_rest_length", "spring_stiffness",
+                     "spring_damping", "tri_materials", "tri_areas",
+                     "edge_rest_angle", "edge_rest_length",
+                     "edge_bending_properties", "tet_materials"):
+            getattr(self, name).extend(list(getattr(o, name)) * count)
+        self.tri_poses += copies(o.tri_poses)
+        self.tet_poses += copies(o.tet_poses)
 
     def _merge_mjcf_data(self, o: "ModelBuilder", count: int, d0: int,
                          q0: int, t0: int) -> None:
@@ -1038,6 +1113,335 @@ class ModelBuilder:
         return list(range(start, self.particle_count))
 
     # ------------------------------------------------------------------
+    # cloth and soft topology (the JAX builder's springs, triangles,
+    # bending edges, tetrahedra and their grid and mesh helpers: same
+    # arguments, defaults, entity order and rest values; the grid helpers
+    # compute a whole grid's rows with array operations)
+    # ------------------------------------------------------------------
+    def _particle_array(self) -> np.ndarray:
+        return np.asarray(self.particle_q, dtype=np.float64).reshape(-1, 3)
+
+    def add_spring(self, i: int, j: int, ke: float = 1.0e3, kd: float = 0.0,
+                   control: float = 1.0) -> int:
+        """Spring between particles i and j; its rest length is their
+        current distance times ``control``."""
+        rest = float(np.linalg.norm(self.particle_q[i]
+                                    - self.particle_q[j])) * control
+        self.spring_indices.append((int(i), int(j)))
+        self.spring_rest_length.append(rest)
+        self.spring_stiffness.append(float(ke))
+        self.spring_damping.append(float(kd))
+        return len(self.spring_indices) - 1
+
+    def sew_particles(self, indices_a, indices_b, ke: float = 2.0e3,
+                      kd: float = 1.0, shrink: float = 0.0) -> List[int]:
+        """Seam springs between paired particles of two panels, rest length
+        ``1 - shrink`` times their current separation. Returns the spring
+        indices."""
+        return [self.add_spring(int(a), int(b), ke=ke, kd=kd,
+                                control=max(1.0 - float(shrink), 0.0))
+                for a, b in zip(indices_a, indices_b)]
+
+    def add_triangle(self, i: int, j: int, k: int, tri_ke: float = 100.0,
+                     tri_ka: float = 100.0, tri_kd: float = 10.0,
+                     tri_drag: float = 0.0, tri_lift: float = 0.0) -> float:
+        """Membrane triangle; stores the inverse of its 2x2 rest matrix in
+        the triangle's own plane basis and returns its rest area (raises
+        ValueError on a degenerate triangle)."""
+        return self.add_triangles([(i, j, k)], tri_ke=tri_ke, tri_ka=tri_ka,
+                                  tri_kd=tri_kd, tri_drag=tri_drag,
+                                  tri_lift=tri_lift)[0]
+
+    def add_triangles(self, indices, tri_ke: float = 100.0,
+                      tri_ka: float = 100.0, tri_kd: float = 10.0,
+                      tri_drag: float = 0.0,
+                      tri_lift: float = 0.0) -> List[float]:
+        """Triangles ``indices`` (T, 3) with one material; returns their
+        rest areas."""
+        idx = np.asarray(indices, dtype=np.int64).reshape(-1, 3)
+        if not len(idx):
+            return []
+        Q = self._particle_array()
+        p = Q[idx[:, 0]]
+        qp, rp = Q[idx[:, 1]] - p, Q[idx[:, 2]] - p
+        n = np.cross(qp, rp)
+        area = 0.5 * np.linalg.norm(n, axis=-1)
+        if (area < 1e-12).any():
+            raise ValueError("Degenerate triangle")
+        e1 = qp / np.linalg.norm(qp, axis=-1)[:, None]
+        e2 = np.cross(n / (2.0 * area)[:, None], e1)
+        D = np.stack([np.stack([(qp * e1).sum(-1), (rp * e1).sum(-1)], -1),
+                      np.stack([(qp * e2).sum(-1), (rp * e2).sum(-1)], -1)],
+                     -2)
+        self.tri_indices += [tuple(t) for t in idx.tolist()]
+        self.tri_poses += list(np.linalg.inv(D))
+        self.tri_materials += [(tri_ke, tri_ka, tri_kd, tri_drag,
+                                tri_lift)] * len(idx)
+        self.tri_areas += area.tolist()
+        return area.tolist()
+
+    def add_edge(self, i: int, j: int, k: int, l: int,
+                 rest: Optional[float] = None, edge_ke: float = 100.0,
+                 edge_kd: float = 0.0) -> int:
+        """Bending edge between triangles (i, k, l) and (j, l, k): wings
+        i and j (-1 for none), shared edge (k, l). Without ``rest`` the
+        rest angle is the current dihedral angle (0 where a wing is
+        missing or a triangle degenerate)."""
+        if rest is None:
+            rest = 0.0
+            if i >= 0 and j >= 0:
+                x1, x2 = self.particle_q[k], self.particle_q[l]
+                x3, x4 = self.particle_q[i], self.particle_q[j]
+                e = x2 - x1
+                e_norm = np.linalg.norm(e)
+                n1 = np.cross(x3 - x1, x2 - x1)
+                n2 = np.cross(x2 - x1, x4 - x1)
+                if (e_norm > 1e-12 and np.linalg.norm(n1) > 1e-12
+                        and np.linalg.norm(n2) > 1e-12):
+                    n1 /= np.linalg.norm(n1)
+                    n2 /= np.linalg.norm(n2)
+                    cos_t = float(np.clip(n1 @ n2, -1.0, 1.0))
+                    sin_t = float(np.clip(np.cross(n1, n2) @ (e / e_norm),
+                                          -1.0, 1.0))
+                    rest = math.atan2(sin_t, cos_t)
+        self.edge_indices.append((int(i), int(j), int(k), int(l)))
+        self.edge_rest_angle.append(float(rest))
+        self.edge_rest_length.append(float(np.linalg.norm(
+            self.particle_q[l] - self.particle_q[k])))
+        self.edge_bending_properties.append((edge_ke, edge_kd))
+        return len(self.edge_indices) - 1
+
+    def add_edges(self, indices, **kwargs) -> List[int]:
+        return [self.add_edge(int(a), int(b), int(c), int(d), **kwargs)
+                for a, b, c, d in np.asarray(indices).reshape(-1, 4)]
+
+    def add_tetrahedron(self, i: int, j: int, k: int, l: int,
+                        k_mu: float = 1.0e3, k_lambda: float = 1.0e3,
+                        k_damp: float = 0.0) -> float:
+        """NeoHookean tetrahedron; stores the inverse rest matrix and
+        returns the rest volume (raises ValueError when it is inverted or
+        degenerate)."""
+        p, q, r, s = (self.particle_q[x] for x in (i, j, k, l))
+        D = np.stack([q - p, r - p, s - p], axis=1)
+        vol = float(np.linalg.det(D)) / 6.0
+        if vol <= 0.0:
+            raise ValueError("Inverted or degenerate tetrahedron")
+        self.tet_indices.append((int(i), int(j), int(k), int(l)))
+        self.tet_poses.append(np.linalg.inv(D))
+        self.tet_materials.append((k_mu, k_lambda, k_damp))
+        return vol
+
+    def add_cloth_grid(self, pos, rot=None, vel=(0, 0, 0), dim_x: int = 10,
+                       dim_y: int = 10, cell_x: float = 0.1,
+                       cell_y: float = 0.1, mass: float = 1.0,
+                       fix_left: bool = False, fix_right: bool = False,
+                       fix_top: bool = False, fix_bottom: bool = False,
+                       radius: float = 0.05, tri_ke: float = 100.0,
+                       tri_ka: float = 100.0, tri_kd: float = 10.0,
+                       edge_ke: float = 100.0, edge_kd: float = 0.0,
+                       add_springs: bool = False, spring_ke: float = 100.0,
+                       spring_kd: float = 0.0) -> List[int]:
+        """Regular cloth grid of (dim_x + 1) x (dim_y + 1) particles in the
+        XY plane of ``rot``, x fastest; the fixed edges' particles get mass
+        0. Two triangles per cell (the diagonal alternating with the cell's
+        parity), bending rows as collinear triples along x then y (rest
+        angle 0), optional structural springs."""
+        rot = np_quat_identity() if rot is None \
+            else np.asarray(rot, dtype=np.float64)
+        pos = np.asarray(pos, dtype=np.float64)
+        vel = np.asarray(vel, dtype=np.float64)
+        nx, ny = dim_x + 1, dim_y + 1
+        start = self.particle_count
+        pm = mass / (nx * ny)
+        yi, xi = np.divmod(np.arange(nx * ny), nx)
+        local = np.stack([xi * cell_x, yi * cell_y, np.zeros(nx * ny)], 1)
+        fixed = ((fix_left & (xi == 0)) | (fix_right & (xi == nx - 1))
+                 | (fix_bottom & (yi == 0)) | (fix_top & (yi == ny - 1)))
+        self.add_particles(pos + np_quat_rotate(rot, local),
+                           np.broadcast_to(vel, (nx * ny, 3)),
+                           np.where(fixed, 0.0, pm), radius)
+        idx = start + np.arange(nx * ny).reshape(ny, nx)
+        v0, v1 = idx[:-1, :-1], idx[:-1, 1:]
+        v2, v3 = idx[1:, :-1], idx[1:, 1:]
+        even = ((np.arange(dim_y)[:, None] + np.arange(dim_x)[None]) % 2
+                == 0)[..., None]
+        tri_a = np.where(even, np.stack([v0, v1, v3], -1),
+                         np.stack([v0, v1, v2], -1))
+        tri_b = np.where(even, np.stack([v0, v3, v2], -1),
+                         np.stack([v1, v3, v2], -1))
+        self.add_triangles(np.stack([tri_a, tri_b], 2),
+                           tri_ke=tri_ke, tri_ka=tri_ka, tri_kd=tri_kd)
+        self._add_grid_bend_edges(idx, edge_ke, edge_kd)
+        if add_springs:
+            right = np.stack([idx, np.roll(idx, -1, 1)], -1)
+            up = np.stack([idx, np.roll(idx, -1, 0)], -1)
+            both = np.stack([right, up], 2)                 # (ny, nx, 2, 2)
+            ok = np.stack([np.broadcast_to(np.arange(nx) < dim_x, (ny, nx)),
+                           np.broadcast_to((np.arange(ny) < dim_y)[:, None],
+                                           (ny, nx))], 2)
+            pairs = both[ok]
+            Q = self._particle_array()
+            rest = np.linalg.norm(Q[pairs[:, 0]] - Q[pairs[:, 1]], axis=-1)
+            self.spring_indices += [tuple(p) for p in pairs.tolist()]
+            self.spring_rest_length += rest.tolist()
+            self.spring_stiffness += [float(spring_ke)] * len(pairs)
+            self.spring_damping += [float(spring_kd)] * len(pairs)
+        return list(range(start, self.particle_count))
+
+    def _add_grid_bend_edges(self, idx, edge_ke, edge_kd):
+        """Bending rows of a grid of particle indices ``idx`` (ny, nx):
+        every collinear triple (o0, o1, m, m) along x, row by row, then
+        along y, column by column; rest angle and rest length 0."""
+        rows = np.concatenate([
+            np.stack([idx[:, :-2], idx[:, 2:], idx[:, 1:-1]], -1)
+            .reshape(-1, 3),
+            np.stack([idx[:-2], idx[2:], idx[1:-1]], -1)
+            .transpose(1, 0, 2).reshape(-1, 3)])
+        n = len(rows)
+        self.edge_indices += [(a, b, m, m) for a, b, m in rows.tolist()]
+        self.edge_rest_angle += [0.0] * n
+        self.edge_rest_length += [0.0] * n
+        self.edge_bending_properties += [(edge_ke, edge_kd)] * n
+
+    def add_cloth_mesh(self, pos, rot, vel, vertices, indices,
+                       density: float = 1.0, scale: float = 1.0,
+                       radius: float = 0.05, tri_ke: float = 100.0,
+                       tri_ka: float = 100.0, tri_kd: float = 10.0,
+                       edge_ke: float = 100.0,
+                       edge_kd: float = 0.0) -> List[int]:
+        """Cloth from a triangle mesh: masses lumped from the triangle
+        areas, a bending edge on every edge shared by two triangles."""
+        rot = np_quat_identity() if rot is None \
+            else np.asarray(rot, dtype=np.float64)
+        pos = np.asarray(pos, dtype=np.float64)
+        vel = np.asarray(vel, dtype=np.float64)
+        verts = np.asarray(vertices, dtype=np.float64).reshape(-1, 3) * scale
+        faces = np.asarray(indices, dtype=np.int64).reshape(-1, 3)
+        start = self.particle_count
+        for v in verts:
+            self.add_particle(pos + np_quat_rotate(rot, v), vel, 0.0,
+                              radius=radius)
+        areas = self.add_triangles(faces + start, tri_ke=tri_ke,
+                                   tri_ka=tri_ka, tri_kd=tri_kd)
+        for (a, b, c), ar in zip(faces + start, areas):
+            m = density * ar / 3.0
+            for vtx in (a, b, c):
+                self.particle_mass[vtx] += m
+        edge_map: Dict[Tuple[int, int], List[int]] = {}
+        for a, b, c in (faces + start).tolist():
+            for (u, v), opp in (((a, b), c), ((b, c), a), ((c, a), b)):
+                edge_map.setdefault((min(u, v), max(u, v)), []).append(opp)
+        for (u, v), opps in edge_map.items():
+            if len(opps) == 2:
+                self.add_edge(opps[0], opps[1], u, v, edge_ke=edge_ke,
+                              edge_kd=edge_kd)
+        return list(range(start, self.particle_count))
+
+    def add_soft_grid(self, pos, rot, vel, dim_x: int, dim_y: int,
+                      dim_z: int, cell_x: float, cell_y: float,
+                      cell_z: float, density: float = 100.0,
+                      k_mu: float = 1.0e3, k_lambda: float = 1.0e3,
+                      k_damp: float = 0.0, radius: float = 0.05,
+                      fix_left: bool = False, fix_right: bool = False,
+                      fix_top: bool = False, fix_bottom: bool = False,
+                      tri_ke: float = 0.0, tri_ka: float = 0.0,
+                      tri_kd: float = 0.0) -> List[int]:
+        """Hexahedral soft-body grid, five tetrahedra per cell with the
+        split alternating with the cell's parity; a tetrahedron the split
+        leaves inverted is added with two vertices swapped."""
+        rot = np_quat_identity() if rot is None \
+            else np.asarray(rot, dtype=np.float64)
+        pos = np.asarray(pos, dtype=np.float64)
+        vel = np.asarray(vel, dtype=np.float64)
+        nx, ny, nz = dim_x + 1, dim_y + 1, dim_z + 1
+        start = self.particle_count
+        pm = (density * cell_x * cell_y * cell_z * dim_x * dim_y * dim_z
+              / (nx * ny * nz))
+
+        def vidx(xi, yi, zi):
+            return start + zi * nx * ny + yi * nx + xi
+
+        for zi in range(nz):
+            for yi in range(ny):
+                for xi in range(nx):
+                    local = np.array([xi * cell_x, yi * cell_y, zi * cell_z])
+                    fixed = ((fix_left and xi == 0)
+                             or (fix_right and xi == nx - 1)
+                             or (fix_bottom and zi == 0)
+                             or (fix_top and zi == nz - 1))
+                    self.add_particle(pos + np_quat_rotate(rot, local), vel,
+                                      0.0 if fixed else pm, radius=radius)
+        for zi in range(dim_z):
+            for yi in range(dim_y):
+                for xi in range(dim_x):
+                    v = [vidx(xi, yi, zi), vidx(xi + 1, yi, zi),
+                         vidx(xi + 1, yi + 1, zi), vidx(xi, yi + 1, zi),
+                         vidx(xi, yi, zi + 1), vidx(xi + 1, yi, zi + 1),
+                         vidx(xi + 1, yi + 1, zi + 1),
+                         vidx(xi, yi + 1, zi + 1)]
+                    if (xi + yi + zi) % 2 == 0:
+                        tets = [(0, 1, 2, 5), (0, 2, 7, 5), (0, 2, 3, 7),
+                                (0, 5, 7, 4), (2, 7, 5, 6)]
+                    else:
+                        tets = [(1, 3, 0, 4), (1, 6, 3, 4), (1, 2, 3, 6),
+                                (3, 6, 4, 7), (1, 4, 6, 5)]
+                    for a, b, c, d in tets:
+                        try:
+                            self.add_tetrahedron(v[a], v[b], v[c], v[d],
+                                                 k_mu, k_lambda, k_damp)
+                        except ValueError:
+                            self.add_tetrahedron(v[a], v[c], v[b], v[d],
+                                                 k_mu, k_lambda, k_damp)
+        return list(range(start, self.particle_count))
+
+    def add_soft_mesh(self, pos, rot, vel, vertices, indices,
+                      density: float = 100.0, scale: float = 1.0,
+                      k_mu: float = 1.0e3, k_lambda: float = 1.0e3,
+                      k_damp: float = 0.0, radius: float = 0.05,
+                      tri_ke: float = 0.0, tri_ka: float = 0.0,
+                      tri_kd: float = 0.0) -> List[int]:
+        """Soft body from a tetrahedral mesh (``indices`` (T, 4)): masses
+        lumped from the volumes, a membrane triangle on every face that
+        belongs to one tetrahedron only."""
+        rot = np_quat_identity() if rot is None \
+            else np.asarray(rot, dtype=np.float64)
+        pos = np.asarray(pos, dtype=np.float64)
+        vel = np.asarray(vel, dtype=np.float64)
+        verts = np.asarray(vertices, dtype=np.float64).reshape(-1, 3) * scale
+        tets = np.asarray(indices, dtype=np.int64).reshape(-1, 4) \
+            + self.particle_count
+        start = self.particle_count
+        for v in verts:
+            self.add_particle(pos + np_quat_rotate(rot, v), vel, 0.0,
+                              radius=radius)
+        for a, b, c, d in tets.tolist():
+            try:
+                vol = self.add_tetrahedron(a, b, c, d, k_mu, k_lambda,
+                                           k_damp)
+            except ValueError:
+                vol = self.add_tetrahedron(a, c, b, d, k_mu, k_lambda,
+                                           k_damp)
+            for vtx in (a, b, c, d):
+                self.particle_mass[vtx] += density * vol / 4.0
+        faces: Dict[Tuple[int, ...], Tuple[int, int, int]] = {}
+        for a, b, c, d in tets.tolist():
+            for f in ((a, c, b), (a, b, d), (a, d, c), (b, c, d)):
+                key = tuple(sorted(f))
+                if key in faces:
+                    del faces[key]
+                else:
+                    faces[key] = f
+        for f in faces.values():
+            try:
+                self.add_triangle(f[0], f[1], f[2], tri_ke, tri_ka, tri_kd)
+            except ValueError:
+                pass
+        return list(range(start, self.particle_count))
+
+    def add_muscle(self, *args, **kwargs):
+        raise NotImplementedError("muscles are not ported yet")
+
+    # ------------------------------------------------------------------
     # custom attributes and importers
     # ------------------------------------------------------------------
     def add_custom_attribute(self, name: str, frequency: AttributeFrequency,
@@ -1144,6 +1548,26 @@ class ModelBuilder:
             slots[1:] = np.cumsum(per)
         return pairs.astype(np.int32), slots, int(slots[-1])
 
+    def _compute_soft_pairs(self):
+        """Particle-shape candidates, one soft contact slot each: every
+        particle with every shape that collides with particles in its
+        world or in no world (a global particle meets every such shape),
+        sorted by particle then shape (the JAX builder's set and order).
+        Rows of particles at a time, so the mask stays small."""
+        COLL = int(ShapeFlags.COLLIDE_PARTICLES)
+        flags = np.asarray(self.shape_flags, dtype=np.int64).reshape(-1)
+        shapes = np.nonzero(flags & COLL)[0]
+        sw = np.asarray(self.shape_world, dtype=np.int64).reshape(-1)[shapes]
+        pw = np.asarray(self.particle_world, dtype=np.int64).reshape(-1)
+        parts = [np.zeros((0, 2), dtype=np.int64)]
+        rows = max(1, (1 << 24) // max(len(shapes), 1))
+        for s in range(0, len(pw) if len(shapes) else 0, rows):
+            w = pw[s:s + rows, None]
+            p, k = np.nonzero((w == -1) | (sw[None] == -1) | (w == sw[None]))
+            parts.append(np.stack([p + s, shapes[k]], 1))
+        pairs = np.concatenate(parts).astype(np.int32)
+        return pairs, len(pairs)
+
     def _collision_radius(self) -> np.ndarray:
         """Per-shape bounding radius: sphere r, box |half-extents|, capsule
         and cylinder r + half height, plane MAXVAL."""
@@ -1176,6 +1600,8 @@ class ModelBuilder:
         st.joint_dof_count = self.joint_dof_count
         st.articulation_count = self.articulation_count
         st.particle_count = self.particle_count
+        st.spring_count, st.tri_count = self.spring_count, self.tri_count
+        st.edge_count, st.tet_count = self.edge_count, self.tet_count
         st.mjc_actuation = self.mjc_actuation
         st.mjc_options = dict(self.mjc_options)
 
@@ -1219,6 +1645,8 @@ class ModelBuilder:
         st.slot_body1 = np.where(st.slot_shape1 >= 0,
                                  sb[np.maximum(st.slot_shape1, 0)],
                                  -1).astype(i32)
+
+        st.soft_pairs, st.soft_contact_max = self._compute_soft_pairs()
 
         # fixed tendons, padded to the longest with coef 0 at coordinate
         # and dof 0 (the JAX builder's layout); an entry is its axis's own
@@ -1274,6 +1702,11 @@ class ModelBuilder:
         def i32t(x):
             return torch.as_tensor(np.asarray(x, dtype=np.int32),
                                    device=device)
+
+        def table(rows, shape, to=None):
+            a = np.asarray(rows, dtype=np.float64 if to is None
+                           else np.int64).reshape((-1,) + shape)
+            return f32(a, a.shape) if to is None else to(a)
 
         def stack(xs, width):
             return f32(np.stack(xs) if len(xs) else np.zeros((0, width)),
@@ -1332,6 +1765,27 @@ class ModelBuilder:
                                             out=np.zeros_like(pmass))),
             particle_radius=f32(self.particle_radius),
             particle_flags=i32t(self.particle_flags),
+            spring_indices=table(self.spring_indices, (2,), i32t),
+            spring_rest_length=f32(self.spring_rest_length),
+            spring_stiffness=f32(self.spring_stiffness),
+            spring_damping=f32(self.spring_damping),
+            tri_indices=table(self.tri_indices, (3,), i32t),
+            tri_poses=table(self.tri_poses, (2, 2)),
+            tri_materials=table(self.tri_materials, (5,)),
+            tri_areas=f32(self.tri_areas),
+            edge_indices=table(self.edge_indices, (4,), i32t),
+            edge_rest_angle=f32(self.edge_rest_angle),
+            edge_rest_length=f32(self.edge_rest_length),
+            edge_bending_properties=table(self.edge_bending_properties,
+                                          (2,)),
+            tet_indices=table(self.tet_indices, (4,), i32t),
+            tet_poses=table(self.tet_poses, (3, 3)),
+            tet_materials=table(self.tet_materials, (3,)),
+            **{name: f32(getattr(self, name)) for name in (
+                "particle_ke", "particle_kd", "particle_kf", "particle_mu",
+                "particle_max_velocity", "soft_contact_ke",
+                "soft_contact_kd", "soft_contact_kf", "soft_contact_mu",
+                "soft_contact_margin")},
             custom=custom,
             structure=st,
         )

@@ -11,19 +11,25 @@ once, as the JAX package's ``collide``) and returns ``(C, ...)`` Contacts,
 or a batched state (``body_q (W, B, 7)``, the env axis the JAX package
 vmaps over written out) and returns ``(W, C, ...)`` Contacts. The plan is
 built with array operations, so that a model of thousands of worlds
-plans in well under a second. Only static mode with primitive pairs is
-ported: dynamic pair budgets, mesh/SDF, soft and persistent-manifold modes
-raise.
+plans in well under a second. Particle-shape (soft) contacts run on a
+flat state: one slot per candidate of ``ModelStructure.soft_pairs``, the
+particle against the shape's signed distance (plane, sphere and box
+exactly; every other type as the capsule of its scale, as the JAX
+package does). Only static mode with primitive pairs is ported: dynamic
+pair budgets, mesh/SDF and persistent-manifold modes raise, and so does a
+batched state of a model with soft candidates.
 """
 
 from __future__ import annotations
 
+from dataclasses import replace
 from types import SimpleNamespace
 import numpy as np
 import torch
 
-from ..geometry.narrow_phase import contact_fn_for
-from ..math import transform_multiply
+from ..geometry.narrow_phase import _box_sdf_local, contact_fn_for
+from ..geometry.types import GeoType
+from ..math import quat_rotate, transform_multiply, transform_point_inv
 from .contacts import Contacts
 from .model import Model
 from .state import State, map_tensors
@@ -40,10 +46,12 @@ class CollisionPipeline:
     """
 
     def __init__(self, model: Model, rigid_contact_margin: float = 0.01,
-                 mode: str = "auto", dynamic_pair_budget=None,
+                 soft_contact_margin: float = 0.01, mode: str = "auto",
+                 dynamic_pair_budget=None,
                  persistent_manifolds: bool = False):
         self.model = model
         self.rigid_contact_margin = float(rigid_contact_margin)
+        self.soft_contact_margin = float(soft_contact_margin)
         if persistent_manifolds:
             raise NotImplementedError(
                 "persistent manifolds are not ported yet")
@@ -99,13 +107,66 @@ class CollisionPipeline:
             [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 1.0], dtype=torch.float32,
             device=dev)
 
+        # soft contacts: per candidate (particle, shape) the shape's frame
+        # on its body and its signed-distance class
+        sp = np.asarray(st.soft_pairs, dtype=np.int64).reshape(-1, 2)
+        self.soft_contact_max = len(sp)
+        if len(sp):
+            si = sp[:, 1]
+            t = typ[si]
+            self.soft = SimpleNamespace(
+                particle=L(sp[:, 0]),
+                particle_i32=torch.as_tensor(sp[:, 0].astype(np.int32),
+                                             device=dev),
+                shape_i32=torch.as_tensor(si.astype(np.int32), device=dev),
+                body=L(np.maximum(sb[si], 0)),
+                static=torch.as_tensor(sb[si] < 0, device=dev)[:, None],
+                X_local=model.shape_transform[L(si)],
+                scale=model.shape_scale[L(si)],
+                radius=model.particle_radius[L(sp[:, 0])],
+                kind=[torch.as_tensor(t == int(g), device=dev)
+                      for g in (GeoType.PLANE, GeoType.SPHERE,
+                                GeoType.BOX)])
+
     def collide(self, state: State) -> Contacts:
-        """Contacts of a flat State (``body_q (B, 7)``: ``(C,)`` Contacts)
-        or of a batched one (``body_q (W, B, 7)``: ``(W, C)``)."""
+        """Contacts of a flat State (``body_q (B, 7)``: ``(C,)`` Contacts,
+        with the soft contacts) or of a batched one (``body_q (W, B, 7)``:
+        ``(W, C)``)."""
         if state.body_q.dim() == 2:
-            return map_tensors(self._collide(state.body_q[None]),
-                               lambda t: t[0])
+            out = map_tensors(self._collide(state.body_q[None]),
+                              lambda t: t[0])
+            if self.soft_contact_max:
+                out = self._collide_soft(state, out)
+            return out
+        if self.soft_contact_max:
+            raise NotImplementedError(
+                "soft contacts of a batched (W, ...) state are not ported; "
+                "collide the flat state")
         return self._collide(state.body_q)
+
+    def _collide_soft(self, state: State, out: Contacts) -> Contacts:
+        """Particle-shape contacts of a flat state: the particle's centre
+        in the shape frame, the shape's signed distance d and outward
+        gradient; depth = radius - d, active within the soft margin."""
+        sc = self.soft
+        if self.model.body_count == 0:
+            X_body = self._identity.expand(len(sc.body), 7)
+        else:
+            X_body = torch.where(sc.static, self._identity,
+                                 state.body_q[sc.body])
+        X_ws = transform_multiply(X_body, sc.X_local)
+        p = state.particle_q[sc.particle]
+        d, g = _shape_sdf(sc.kind, transform_point_inv(X_ws, p), sc.scale)
+        n_world = quat_rotate(X_ws[:, 3:7], g)
+        depth = sc.radius - d
+        active = depth > -self.soft_contact_margin
+        return replace(
+            out, soft_contact_mask=active,
+            soft_contact_particle=sc.particle_i32,
+            soft_contact_shape=sc.shape_i32,
+            soft_contact_position=p - n_world * d[:, None],
+            soft_contact_normal=n_world,
+            soft_contact_depth=torch.where(active, depth, 0.0))
 
     def _collide(self, body_q: torch.Tensor) -> Contacts:
         model = self.model
@@ -139,3 +200,33 @@ class CollisionPipeline:
             out.rigid_contact_depth[:, pc.slots] = torch.where(
                 active, depth, 0.0).reshape(W, nk)
         return out
+
+
+def _safe_norm(x: torch.Tensor, eps: float = 1e-9) -> torch.Tensor:
+    return torch.sqrt(torch.clamp((x * x).sum(-1), min=eps * eps))
+
+
+def _shape_sdf(kind, p_local: torch.Tensor, scale: torch.Tensor):
+    """Signed distance and outward gradient at local points (P, 3) of a
+    plane (+Z), a sphere, a box, or else the capsule of the scale (radius
+    s0, half-height s1 along Z); ``kind`` holds the (P,) plane, sphere and
+    box masks. Every form is evaluated and one selected per point."""
+    is_plane, is_sphere, is_box = kind
+    r = _safe_norm(p_local)
+    d_box, g_box = _box_sdf_local(p_local, scale)
+    z = torch.minimum(torch.maximum(p_local[:, 2], -scale[:, 1]),
+                      scale[:, 1])
+    dc = p_local - torch.stack([torch.zeros_like(z), torch.zeros_like(z),
+                                z], -1)
+    dist_c = _safe_norm(dc)
+    g_plane = torch.zeros_like(p_local)
+    g_plane[:, 2] = 1.0
+    d = torch.where(is_plane, p_local[:, 2],
+                    torch.where(is_sphere, r - scale[:, 0],
+                                torch.where(is_box, d_box,
+                                            dist_c - scale[:, 0])))
+    g = torch.where(is_plane[:, None], g_plane,
+                    torch.where(is_sphere[:, None], p_local / r[:, None],
+                                torch.where(is_box[:, None], g_box,
+                                            dc / dist_c[:, None])))
+    return d, g

@@ -4,11 +4,18 @@ Each candidate shape pair owns a fixed number of slots; inactive slots
 carry ``mask = False`` and zero depth. The normal points from shape0 toward
 shape1; depth is positive when overlapping. Leading batch dims are allowed
 (``(W, C, ...)`` from the batched collision pipeline).
+
+Soft (particle-shape) contacts have one slot per candidate (particle,
+shape) pair of ``ModelStructure.soft_pairs``; their normal points out of
+the shape (the direction that pushes the particle free) and their depth is
+the particle radius minus its signed distance. A Contacts built without
+soft capacity leaves the soft fields ``None`` (``soft_contact_max == 0``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -26,14 +33,27 @@ class Contacts:
     rigid_contact_normal: torch.Tensor    # (..., C, 3) shape0 -> shape1
     rigid_contact_depth: torch.Tensor     # (..., C) > 0 overlapping
     rigid_contact_force: torch.Tensor     # (..., C, 3)
+    soft_contact_mask: Optional[torch.Tensor] = None      # (P,) bool
+    soft_contact_particle: Optional[torch.Tensor] = None  # (P,) int32
+    soft_contact_shape: Optional[torch.Tensor] = None     # (P,) int32
+    soft_contact_position: Optional[torch.Tensor] = None  # (P, 3)
+    soft_contact_normal: Optional[torch.Tensor] = None    # (P, 3) outward
+    soft_contact_depth: Optional[torch.Tensor] = None     # (P,) > 0 inside
 
     @property
     def rigid_contact_max(self) -> int:
         return self.rigid_contact_mask.shape[-1]
 
+    @property
+    def soft_contact_max(self) -> int:
+        m = self.soft_contact_mask
+        return 0 if m is None else m.shape[-1]
+
     @classmethod
     def zeros(cls, capacity: int, batch=(), dtype=torch.float32,
               device=None) -> "Contacts":
+        """Empty rigid slots and no soft capacity (``collide`` fills in
+        the soft fields)."""
         C = int(capacity)
         z = dict(dtype=dtype, device=device)
         return cls(

@@ -3,9 +3,9 @@
 ``Model`` is a dataclass of tensors on one device; ``ModelStructure`` holds
 the host-side numpy topology (counts, joint tree, candidate contact pairs,
 actuation tables) that the solvers turn into static index tensors once, at
-construction. The port carries the fields the robot and MPM paths read; the
-names match the JAX package's so the bridge (utils/bridge.py) maps them
-1:1.
+construction. The port carries the fields the robot, MPM and cloth paths
+read; the names match the JAX package's so the bridge (utils/bridge.py)
+maps them 1:1.
 """
 
 from __future__ import annotations
@@ -62,6 +62,10 @@ class ModelStructure:
         self.joint_dof_count = 0
         self.articulation_count = 0
         self.particle_count = 0
+        self.spring_count = 0
+        self.tri_count = 0
+        self.edge_count = 0
+        self.tet_count = 0
         self.eq_count = 0
         self.tendon_count = 0
         self.sten_count = 0
@@ -93,6 +97,10 @@ class ModelStructure:
         self.candidate_pairs = np.zeros((0, 2), dtype=np.int32)
         self.candidate_pair_slots = np.zeros(1, dtype=np.int32)
         self.rigid_contact_max = 0
+        # particle-shape candidates (particle, shape), sorted; one soft
+        # contact slot each
+        self.soft_pairs = np.zeros((0, 2), dtype=np.int32)
+        self.soft_contact_max = 0
         self.slot_shape0 = np.zeros(0, dtype=np.int32)
         self.slot_shape1 = np.zeros(0, dtype=np.int32)
         self.slot_body0 = np.zeros(0, dtype=np.int32)
@@ -122,10 +130,18 @@ MODEL_FLOAT_FIELDS = (
     "joint_qd0", "joint_q0", "joint_target_q0", "gravity", "tendon_params",
     "particle_q", "particle_qd", "particle_mass", "particle_inv_mass",
     "particle_radius",
+    "spring_rest_length", "spring_stiffness", "spring_damping",
+    "tri_poses", "tri_materials", "tri_areas",
+    "edge_rest_angle", "edge_rest_length", "edge_bending_properties",
+    "tet_poses", "tet_materials",
+    "particle_ke", "particle_kd", "particle_kf", "particle_mu",
+    "particle_max_velocity", "soft_contact_ke", "soft_contact_kd",
+    "soft_contact_kf", "soft_contact_mu", "soft_contact_margin",
 )
 MODEL_INT_FIELDS = (
     "body_flags", "shape_body", "shape_type", "shape_flags", "shape_world",
     "joint_type_arr", "joint_parent", "joint_child", "particle_flags",
+    "spring_indices", "tri_indices", "edge_indices", "tet_indices",
 )
 
 
@@ -182,6 +198,33 @@ class Model:
     particle_inv_mass: torch.Tensor  # (N,), 0 = pinned
     particle_radius: torch.Tensor  # (N,)
     particle_flags: torch.Tensor  # (N,) int32 ParticleFlags
+    # cloth and soft topology (empty tables keep their trailing shape)
+    spring_indices: torch.Tensor  # (Sp, 2) int32
+    spring_rest_length: torch.Tensor  # (Sp,)
+    spring_stiffness: torch.Tensor  # (Sp,)
+    spring_damping: torch.Tensor  # (Sp,)
+    tri_indices: torch.Tensor     # (T, 3) int32
+    tri_poses: torch.Tensor       # (T, 2, 2) inverse rest matrix
+    tri_materials: torch.Tensor   # (T, 5) ke, ka, kd, drag, lift
+    tri_areas: torch.Tensor       # (T,)
+    edge_indices: torch.Tensor    # (E, 4) int32 (o0, o1, v0, v1), -1 wings
+    edge_rest_angle: torch.Tensor  # (E,)
+    edge_rest_length: torch.Tensor  # (E,)
+    edge_bending_properties: torch.Tensor  # (E, 2) ke, kd
+    tet_indices: torch.Tensor     # (Tt, 4) int32
+    tet_poses: torch.Tensor       # (Tt, 3, 3) inverse rest matrix
+    tet_materials: torch.Tensor   # (Tt, 3) k_mu, k_lambda, k_damp
+    # global particle material scalars (0-d)
+    particle_ke: torch.Tensor
+    particle_kd: torch.Tensor
+    particle_kf: torch.Tensor
+    particle_mu: torch.Tensor
+    particle_max_velocity: torch.Tensor
+    soft_contact_ke: torch.Tensor
+    soft_contact_kd: torch.Tensor
+    soft_contact_kf: torch.Tensor
+    soft_contact_mu: torch.Tensor
+    soft_contact_margin: torch.Tensor
     custom: Dict[str, torch.Tensor] = field(default_factory=dict)
     structure: ModelStructure = None
 

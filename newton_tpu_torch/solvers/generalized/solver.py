@@ -289,6 +289,7 @@ def row_model(model: Model, g, tendon_rows, act_rows) -> Model:
     w = max(int(st.articulation_world[a0]), 0)
     # each tensor field by the entities it is per: bodies, joints, dofs,
     # coordinates, tendons, the row's world; no shapes and no particles
+    # (the 0-d material scalars stay as they are)
     rows = {"joint_X_p": _joint_rows(st, g), "joint_X_c": _joint_rows(st, g),
             "joint_q0": g.coord_idx, "joint_target_q0": g.coord_idx,
             "tendon_params": tendon_rows, "gravity": np.asarray([[w]])}
@@ -306,7 +307,7 @@ def row_model(model: Model, g, tendon_rows, act_rows) -> Model:
             v = _group_rows(v, g.body_idx)
         elif f.name.startswith("joint_"):
             v = _group_rows(v, g.dof_idx)
-        else:
+        elif v.dim():
             v = v[:0]
         kw[f.name] = v
     return Model(custom={}, structure=rst, **kw)

@@ -1,5 +1,6 @@
-"""Common solver interface and rigid-body integration (port of
-``SolverBase`` and ``integrate_bodies`` in ``newton_tpu/solvers/solver.py``)."""
+"""Common solver interface, rigid-body and particle integration (port of
+``SolverBase``, ``integrate_bodies`` and ``integrate_particles`` in
+``newton_tpu/solvers/solver.py``)."""
 
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ from ..sim.control import Control
 from ..sim.model import Model
 from ..sim.state import State
 
-__all__ = ["SolverBase", "integrate_bodies", "body_gravity"]
+__all__ = ["SolverBase", "integrate_bodies", "integrate_particles",
+           "body_gravity", "particle_gravity"]
 
 
 class SolverBase:
@@ -40,10 +42,43 @@ class SolverBase:
         raise NotImplementedError
 
 
+def _world_gravity(model: Model, worlds) -> torch.Tensor:
+    w = np.maximum(np.asarray(worlds, dtype=np.int64), 0)
+    return model.gravity[torch.as_tensor(w, device=model.device)]
+
+
 def body_gravity(model: Model) -> torch.Tensor:
     """Each body's world gravity (B, 3) (a global body takes world 0's)."""
-    w = np.maximum(np.asarray(model.structure.body_world, dtype=np.int64), 0)
-    return model.gravity[torch.as_tensor(w, device=model.device)]
+    return _world_gravity(model, model.structure.body_world)
+
+
+def particle_gravity(model: Model) -> torch.Tensor:
+    """Each particle's world gravity (N, 3) (a global particle takes world
+    0's). Solvers compute it once: it is a host-to-device copy."""
+    return _world_gravity(model, model.structure.particle_world)
+
+
+def integrate_particles(model: Model, state: State, dt: float,
+                        gravity: Optional[torch.Tensor] = None):
+    """Semi-implicit Euler for the particles (the JAX package's
+    ``integrate_particles``): the velocity takes gravity and
+    ``particle_f / m``, is clamped to ``particle_max_velocity`` in norm,
+    then moves the position; pinned particles (inverse mass 0) keep both.
+    ``gravity`` (N, 3) is ``particle_gravity(model)``, computed here when
+    not given. Returns (particle_q, particle_qd)."""
+    if model.particle_count == 0:
+        return state.particle_q, state.particle_qd
+    g = particle_gravity(model) if gravity is None else gravity
+    inv_m = model.particle_inv_mass[:, None]
+    active = inv_m > 0.0
+    v_new = state.particle_qd + (g * active + state.particle_f * inv_m) * dt
+    vmax = model.particle_max_velocity
+    vn = torch.linalg.vector_norm(v_new, dim=-1, keepdim=True)
+    v_new = torch.where(vn > vmax,
+                        v_new * (vmax / torch.clamp(vn, min=1e-9)), v_new)
+    x_new = state.particle_q + v_new * dt
+    return (torch.where(active, x_new, state.particle_q),
+            torch.where(active, v_new, state.particle_qd))
 
 
 def integrate_bodies(model: Model, state: State, dt: float,

@@ -33,7 +33,8 @@ from ..sim.state import State
 from ..solvers.generalized.actuation import MJCActuation
 
 __all__ = ["STRUCTURE_FIELDS", "ACTUATION_FIELDS", "STATE_FIELDS",
-           "CONTROL_FIELDS", "CONTACT_FIELDS", "model_from_numpy",
+           "CONTROL_FIELDS", "CONTACT_FIELDS", "SOFT_CONTACT_FIELDS",
+           "model_from_numpy",
            "model_to_numpy", "state_from_numpy", "state_to_numpy",
            "control_from_numpy", "control_to_numpy", "contacts_from_numpy",
            "contacts_to_numpy"]
@@ -51,6 +52,8 @@ STRUCTURE_FIELDS = (
     "slot_shape0", "slot_shape1", "slot_body0", "slot_body1",
     "mjc_options", "particle_count", "particle_world",
     "tendon_coord", "tendon_dof", "tendon_coef",
+    "spring_count", "tri_count", "edge_count", "tet_count", "soft_pairs",
+    "soft_contact_max",
 )
 ACTUATION_FIELDS = ("n", "dof", "coord", "tendon", "sten", "gear",
                     "dyntype", "dynprm", "gaintype", "gainprm", "biastype",
@@ -65,6 +68,11 @@ CONTACT_FIELDS = ("rigid_contact_mask", "rigid_contact_shape0",
                   "rigid_contact_shape1", "rigid_contact_position",
                   "rigid_contact_normal", "rigid_contact_depth",
                   "rigid_contact_force")
+# present where the contacts have soft capacity (the JAX package's always
+# have them, possibly empty)
+SOFT_CONTACT_FIELDS = ("soft_contact_mask", "soft_contact_particle",
+                       "soft_contact_shape", "soft_contact_position",
+                       "soft_contact_normal", "soft_contact_depth")
 
 
 def _tensor(x, device, dtype=None):
@@ -165,8 +173,17 @@ def control_to_numpy(control: Control) -> dict:
 
 
 def contacts_from_numpy(d: Dict[str, Any], device) -> Contacts:
-    return Contacts(**{n: _tensor(d[n], device) for n in CONTACT_FIELDS})
+    """Soft fields are taken where ``d`` has them with a nonzero
+    capacity; otherwise the Contacts has none."""
+    soft = {}
+    if d.get("soft_contact_mask") is not None and \
+            np.asarray(d["soft_contact_mask"]).shape[-1]:
+        soft = {n: _tensor(d[n], device) for n in SOFT_CONTACT_FIELDS}
+    return Contacts(**{n: _tensor(d[n], device) for n in CONTACT_FIELDS},
+                    **soft)
 
 
 def contacts_to_numpy(contacts: Contacts) -> dict:
-    return {n: _numpy(getattr(contacts, n)) for n in CONTACT_FIELDS}
+    names = CONTACT_FIELDS + (SOFT_CONTACT_FIELDS
+                              if contacts.soft_contact_max else ())
+    return {n: _numpy(getattr(contacts, n)) for n in names}
