@@ -140,8 +140,8 @@ Phases, one line each:
      kernel lies on the XPBD path); 8 worlds stepped 4 substeps on the
      card equal the port on the CPU (body_q 2e-4, joint_qd 5e-3; at most
      one world whose contact set differs between the two left out); two
-     runs of one substep on the card agree within body_q 2e-5, body_qd
-     5e-3; one profiled frame; env-steps/s, setup seconds, peak device
+     runs of one substep on the card equal bit for bit; one profiled
+     frame; env-steps/s, setup seconds, peak device
      memory;
  22. pyramid x 1024 (example_pyramid.py: six free boxes in rows 3-2-1,
      mu 0.8) on SolverFeatherstone(contact_iterations=16), dt 1/240, 4
@@ -167,8 +167,8 @@ Phases, one line each:
      no B1-B4 launch (no TPU kernel lies on the cloth path); one profiled
      frame (device ops per substep, busy share, no device-to-host copy);
      one substep on the card against the CPU (particle_q 2e-4,
-     particle_qd 5e-3) and two card runs of it against each other (same
-     tolerances); vertex-steps/s, setup seconds, peak device memory;
+     particle_qd 5e-3) and two card runs of it against each other (bit
+     for bit); vertex-steps/s, setup seconds, peak device memory;
  25. example_cloth_style3d.py as published (two sewn 10 x 10 panels on a
      static capsule torso over a ground plane, CollisionPipeline soft
      contacts each substep, SolverStyle3D(iterations=6, contact_ke=2e4),
@@ -183,12 +183,42 @@ Phases, one line each:
      pinned row within 1e-3 (the drape is reported, not gated: the JAX
      package's VBD over-stretches this cloth, ROADMAP C.15), profile, a
      card vs CPU substep from rest (gated) and from the run's end state
-     (reported);
+     (reported); (c) the garment lowered into the ground plane: one
+     substep with active soft contacts, card vs CPU reported;
  27. SolverSemiImplicit: test_semi_implicit_stable's 6 x 6 cloth (dt
      1/2000, 20 substeps, 30 frames) and a soft block of 4^3 cells
      (example_softbody_hanging.py's material) pinned at one face for 1 s:
      finite, the pinned particles exactly in place, the block sagged by
-     less than 0.6; a card vs CPU substep of each.
+     less than 0.6; a card vs CPU substep of each;
+ 28. IK at bench.py --mode ik's configuration: the 3-link revolute-Z
+     chain, IKObjectivePosition(link=2, offset=(0.5, 0, 0)), 4096
+     seeded targets (angle U(0, 2 pi), radius U(0.5, 2.4)), 4 GAUSS
+     seeds, 16 LM iterations: finite q, tip error < 0.02 in >= 99% of
+     problems, at most one host sync per solve; 64 problems on the card
+     against the CPU (residual 1e-5, Jacobian 1e-4 relative, q after one
+     LM step from each seed off the straight start 1e-4, both meet the
+     tip gate after 16 iterations; the whole solves' q reported);
+     solves/s over 5 solves, peak device memory;
+ 29. warm start and sleeping x 4096: the ant under
+     test_sleep_and_warm_start's settings (60 frames, root z in (0.3,
+     0.8) in every world), example_mujoco_sleeping.py's boxes with
+     warm_start=True (its test_final in every world, the asleep worlds'
+     body_q bit-frozen over a further frame) and the humanoid with
+     warm_start=True through top-32 compaction (phase 11's gates); for
+     each B2 with its warm lam0 held against the plain version, the
+     guard halvings warm and cold, env-steps/s warm and cold in turns;
+ 30. equality rows x 4096 (60 frames, no contacts): the CONNECT linkage,
+     the mimic pair and a WELD, each with tests/test_equality.py's gates
+     in every world, per substep one B1 launch on M + dt Kd and one of
+     B1 without the inverse (chol_solve) on the equality system, r = 3,
+     1, 6, each held against the plain version;
+ 31. URDF x 4096: example_basic_urdf.py's double pendulum through
+     add_urdf (15 frames of 8 substeps at dt 1/480, its test_final in
+     every world) and the same robot with a <mimic> elbow (|q_elbow +
+     q_shoulder| < 2e-2).
+Phases 21 and 24-27 run one substep twice on the card and require the
+two results to be equal bit for bit (every sum whose terms share a
+destination adds in a fixed order).
 It prints one JSON line listing the kernels (name, route, source,
 launches, error, times, and each time's least possible time on an H100
 SXM at 700 W from ``kernel_cost``: bound_ms, bound_by, share_of_bound;
@@ -198,7 +228,11 @@ its binning and given bins, B4 given bins, its bound counted on the nodes
 it reads; the binning, part of both, with its own entry; then one entry
 for each B1 and B2 instance on the paths of phases 13-20 and 22, with
 the W it runs at there, B2 on the two-sided groups with w_other, B2 at
-the pyramid's uncompacted (288, 0, 36) off the main path), then the card
+the pyramid's uncompacted (288, 0, 36) off the main path; B1 without
+the inverse on the equality systems (chol_solve, bound on the solve's
+own bytes, beside torch.linalg.solve(A, rhs)), B1 on the sleeping boxes
+and the URDF pendulum, B2 with a
+warm lam0 on the ant, the boxes and the humanoid), then the card
 line, then the result line ``{"ok": true,
 "device": {...}}``. Any failed phase raises: exit code != 0 and no result
 line. Without a CUDA device it exits 2 at once. A ``[details]`` line
@@ -236,6 +270,8 @@ def kernel_cost(name, W=1, **shape):
 
     chol_inv_solve (d): reads Mi and rhs, writes Minv and x; the factor's
         (d-1) d (d+1) / 6 FMAs and the substitutions' d (d-1) (d+1).
+    chol_solve (d): reads Mi and rhs, writes x; the factor's FMAs and the
+        two substitutions of one column, d (d-1).
     pgs_solve_fused (c, nl, d; iters = 8; w_other = False): reads J,
         Minv, qd, b, act, lam0 and mu, writes lam, dqd and the int32
         halvings (the per-call ld vector is not per env); the MJ = J Minv
@@ -261,6 +297,11 @@ def kernel_cost(name, W=1, **shape):
         nbytes = 2 * (d * d + d) * f
         fma = (d - 1) * d * (d + 1) // 6 + d * (d - 1) * (d + 1)
         flops = 2 * fma + 2 * d * (d + 1) + d
+    elif name == "chol_solve":
+        d = shape["d"]
+        nbytes = (d * d + 2 * d) * f
+        fma = (d - 1) * d * (d + 1) // 6 + d * (d - 1)
+        flops = 2 * fma + 2 * d + d
     elif name == "pgs_solve_fused":
         c, nl, d = shape["c"], shape["nl"], shape["d"]
         iters = shape.get("iters", 8)
@@ -1227,7 +1268,15 @@ def kernel_launches():
 def reset_robot_launches():
     from newton_tpu_torch.solvers.generalized import linalg, pgs
     linalg.chol_inv_solve.launches = 0
+    linalg.chol_solve.launches = 0
     pgs.pgs_solve_fused.launches = 0
+
+
+def solve_launches():
+    """Launches of B1 without the inverse (``chol_solve``: the equality
+    rows' systems)."""
+    from newton_tpu_torch.solvers.generalized import linalg
+    return linalg.chol_solve.launches
 
 
 def flat_turns(model, pipe, solver, state, plain, sample, n, dt=DT):
@@ -1275,6 +1324,32 @@ def b1_times(Mi, rhs):
         plain_ms=time_ms(lambda: linalg.chol_inv_solve_plain(Mi, rhs),
                          n=10),
         library_ms=library_b1_ms(Mi, rhs))
+
+
+def b1s_times(A, rhs):
+    """Times of B1 without the inverse, its plain version, and the library
+    call that computes the same function, torch.linalg.solve(A, rhs)."""
+    import torch
+    from newton_tpu_torch.solvers.generalized import linalg
+    return dict(
+        ms=time_ms(lambda: linalg.chol_solve(A, rhs), queued=True),
+        plain_ms=time_ms(lambda: linalg.chol_solve_plain(A, rhs), n=10),
+        library_ms=time_ms(lambda: torch.linalg.solve(A, rhs), queued=True))
+
+
+def b1s_check(A, rhs, label):
+    """B1 without the inverse against its plain version on captured
+    operands: within atol 1e-5, rtol 1e-4 (and whether bit for bit
+    equal)."""
+    import torch
+    from newton_tpu_torch.solvers.generalized import linalg
+    got = linalg.chol_solve(A, rhs)
+    ref = linalg.chol_solve_plain(A, rhs)
+    ok, err = close(got, ref, 1e-5, 1e-4)
+    if not ok:
+        raise AssertionError(f"{label} B1 solve: kernel vs plain off "
+                             f"tolerance ({err:.3g})")
+    return err, torch.equal(got, ref)
 
 
 def b1_check(Mi, rhs, label):
@@ -2463,7 +2538,7 @@ XPBD_ITERS = 8
 XPBD_WARMUP = 10
 XPBD_FRAMES = 20                      # bench.py times 50
 XPBD_CPU_WORLDS = 8
-XPBD_REPEAT_TOL = {"body_q": 2e-5, "body_qd": 5e-3}
+REPEAT_FIELDS_RIGID = ("body_q", "body_qd", "joint_q", "joint_qd")
 BOX_W = 1024
 PYRAMID_FRAMES = 40                   # tests/test_examples.py
 DOMINO_FRAMES = 110                   # tests/test_examples.py
@@ -2559,8 +2634,8 @@ def phase_ant_xpbd(dev):
     XPBD path); 8 worlds stepped 4 substeps on the card equal the port on
     the CPU (body_q 2e-4, joint_qd 5e-3; a world whose contact set
     differs between the two is counted and left out, at most one); two
-    runs of one substep on the card within XPBD_REPEAT_TOL (index_add_
-    adds in no fixed order); one profiled frame; env-steps/s, setup
+    runs of one substep on the card equal bit for bit (every sum in a
+    fixed order); one profiled frame; env-steps/s, setup
     seconds, peak device memory."""
     import torch
     import newton_tpu_torch as nt
@@ -2641,11 +2716,11 @@ def phase_ant_xpbd(dev):
     a = solver.step(state, None, ctl, contacts, DT)
     b2 = solver.step(state, None, ctl, contacts, DT)
     repeat = {n: float((getattr(a, n) - getattr(b2, n)).abs().max())
-              for n in ("body_q", "body_qd", "joint_q", "joint_qd")}
-    for n, tol in XPBD_REPEAT_TOL.items():
-        if repeat[n] > tol:
+              for n in REPEAT_FIELDS_RIGID}
+    for n in REPEAT_FIELDS_RIGID:
+        if not torch.equal(getattr(a, n), getattr(b2, n)):
             raise AssertionError(f"ant xpbd: two runs of a substep differ "
-                                 f"in {n} by {repeat[n]:.3g} > {tol}")
+                                 f"in {n} by {repeat[n]:.3g}")
     prof = profile_frame(lambda: xpbd_frames(solver, pipe, state, ctl, 1,
                                              model, gen), SUBSTEPS)
     n_sub = XPBD_FRAMES * SUBSTEPS
@@ -2827,7 +2902,7 @@ SEMI_FRAMES = 30
 # tolerances), and two runs of one substep on the card (index_add_ adds
 # in no fixed order)
 CLOTH_CPU_TOL = {"particle_q": 2e-4, "particle_qd": 5e-3}
-CLOTH_REPEAT_TOL = {"particle_q": 2e-4, "particle_qd": 5e-3}
+REPEAT_FIELDS_CLOTH = ("particle_q", "particle_qd", "body_q", "body_qd")
 
 
 def cloth_bench_scene(lib, dim=CLOTH_DIM, cell=CLOTH_CELL):
@@ -2945,9 +3020,9 @@ def cloth_gates(model, state, label, pinned_z=CLOTH_Z, drape=True):
 def cloth_vs_cpu(dev, builder, make_solver, state, dt, label, pipe=False,
                  gate=True):
     """One substep on the card against the same substep on the CPU from
-    the same state (the model finalized again on each), then two runs of
-    that substep on the card against each other; with ``gate``, both
-    held to their tolerances."""
+    the same state (the model finalized again on each), with ``gate`` held
+    to its tolerances, then two runs of that substep on the card, which
+    must be equal bit for bit (every sum in a fixed order)."""
     import torch
     import newton_tpu_torch as nt
     out, spread = {}, {}
@@ -2959,8 +3034,12 @@ def cloth_vs_cpu(dev, builder, make_solver, state, dt, label, pipe=False,
         out[side] = solver.step(s, None, None, c, dt)
         if side == "card":
             again = solver.step(s, None, None, c, dt)
-            spread = {n: float((getattr(out[side], n) - getattr(again, n))
-                               .abs().max()) for n in CLOTH_REPEAT_TOL}
+            spread = {n: float(torch.cat([
+                (getattr(out[side], n) - getattr(again, n)).abs().flatten(),
+                torch.zeros(1, device=d)]).max())
+                for n in REPEAT_FIELDS_CLOTH}
+            same = {n: torch.equal(getattr(out[side], n), getattr(again, n))
+                    for n in REPEAT_FIELDS_CLOTH}
     err = {}
     for n, tol in CLOTH_CPU_TOL.items():
         ok, err[n] = close(getattr(out["card"], n).cpu(),
@@ -2968,10 +3047,10 @@ def cloth_vs_cpu(dev, builder, make_solver, state, dt, label, pipe=False,
         if gate and not ok:
             raise AssertionError(f"{label}: {n} card vs CPU off tolerance "
                                  f"({err[n]:.3g})")
-    for n, tol in CLOTH_REPEAT_TOL.items():
-        if gate and spread[n] > tol:
+    for n in REPEAT_FIELDS_CLOTH:
+        if not same[n]:
             raise AssertionError(f"{label}: two runs of a substep differ in "
-                                 f"{n} by {spread[n]:.3g} > {tol}")
+                                 f"{n} by {spread[n]:.3g}")
     torch.cuda.synchronize()
     return dict(vs_cpu=err, repeat_max_diff=spread)
 
@@ -3122,7 +3201,9 @@ def phase_vbd(dev):
     """(a) example_cloth_bending.py as published under SolverVBD(
     iterations=4), 40 frames, its test_final; (b) the bench cloth under
     SolverVBD(iterations=4) (not a published configuration: VBD's
-    coloured sweep at the bench width)."""
+    coloured sweep at the bench width); (c) one substep with soft
+    contacts (the garment lowered into the ground plane) run twice on
+    the card, equal bit for bit."""
     import torch
     import newton_tpu_torch as nt
     b, spans = bending_scene(nt)
@@ -3147,7 +3228,22 @@ def phase_vbd(dev):
     # and finiteness are gated here, the drape is reported
     grid = bench_cloth_phase(dev, lambda m: nt.SolverVBD(m, iterations=4),
                              VBD_FRAMES, "cloth vbd", drape=False)
-    return dict(bending=bending, grid=grid)
+    # (c) soft contacts: the garment lowered 1.2 m, its hems in the ground
+    # plane; one substep on the card twice (bit for bit) and on the CPU
+    # (reported)
+    gb, _ = garment_scene(nt)
+    gm = gb.finalize(dev)
+    s0 = gm.state()
+    s0.particle_q[:, 2] -= 1.2
+    c = nt.CollisionPipeline(gm).collide(s0)
+    act = int((c.soft_contact_mask & (c.soft_contact_depth > 0)).sum())
+    if act == 0:
+        raise AssertionError("vbd soft contacts: no active soft contact")
+    soft = cloth_vs_cpu(dev, gb, lambda m: nt.SolverVBD(m, iterations=4), s0,
+                        GARMENT_DT, "vbd soft contacts", pipe=True,
+                        gate=False)
+    soft["active_soft_contacts"] = act
+    return dict(bending=bending, grid=grid, soft_contacts=soft)
 
 
 def phase_semi_implicit(dev):
@@ -3186,6 +3282,760 @@ def phase_semi_implicit(dev):
                               SEMI_DT, f"semi-implicit {label}"))
         res[label] = r
     return res
+
+
+# ----------------------------------------------------------------------
+# phases 28-31: inverse kinematics, warm start and sleeping, equality
+# rows, URDF
+# ----------------------------------------------------------------------
+
+IK_PROBLEMS = 4096                    # bench.py --worlds' default
+IK_SEEDS = 4                          # bench_ik
+IK_ITERS = 16                         # bench_ik
+IK_REPS = 5                           # bench_ik's timed solves
+IK_CPU_PROBLEMS = 64
+IK_TIP_TOL = 0.02                     # tests/test_utils.py:87
+WS_W = 4096
+WS_FRAMES = 60                        # tests/test_utils.py:139
+SLEEP_FRAMES = 60                     # tests/test_examples.py
+WS_TURN_FRAMES = 5
+EQ_W = 4096
+EQ_FRAMES = 60                        # tests/test_equality.py
+URDF_W = 4096
+URDF_DT = 1.0 / 480.0                 # example_basic_urdf.py
+URDF_SUBSTEPS = 8
+URDF_FRAMES = 15                      # tests/test_examples.py
+DOUBLE_PENDULUM_URDF = """<?xml version="1.0"?>
+<robot name="double_pendulum">
+  <link name="base">
+    <inertial><mass value="0"/><inertia ixx="0" iyy="0" izz="0"
+      ixy="0" ixz="0" iyz="0"/></inertial>
+  </link>
+  <link name="upper">
+    <inertial>
+      <origin xyz="0 0 -0.25"/>
+      <mass value="1.0"/>
+      <inertia ixx="0.02" iyy="0.02" izz="0.001" ixy="0" ixz="0" iyz="0"/>
+    </inertial>
+    <collision>
+      <origin xyz="0 0 -0.25"/>
+      <geometry><cylinder radius="0.03" length="0.5"/></geometry>
+    </collision>
+  </link>
+  <link name="lower">
+    <inertial>
+      <origin xyz="0 0 -0.25"/>
+      <mass value="1.0"/>
+      <inertia ixx="0.02" iyy="0.02" izz="0.001" ixy="0" ixz="0" iyz="0"/>
+    </inertial>
+    <collision>
+      <origin xyz="0 0 -0.25"/>
+      <geometry><cylinder radius="0.03" length="0.5"/></geometry>
+    </collision>
+  </link>
+  <joint name="shoulder" type="revolute">
+    <parent link="base"/>
+    <child link="upper"/>
+    <origin xyz="0 0 1.2"/>
+    <axis xyz="0 1 0"/>
+    <limit lower="-3.14" upper="3.14" effort="50" velocity="10"/>
+  </joint>
+  <joint name="elbow" type="revolute">
+    <parent link="upper"/>
+    <child link="lower"/>
+    <origin xyz="0 0 -0.5"/>
+    <axis xyz="0 1 0"/>
+    <limit lower="-3.14" upper="3.14" effort="50" velocity="10"/>
+    {mimic}
+  </joint>
+</robot>
+"""
+MIMIC_TAG = '<mimic joint="shoulder" multiplier="-1" offset="0"/>'
+
+
+def ik_chain_scene(lib):
+    """bench_ik's chain: three 1 m links with capsules on revolute Z
+    joints, the first at the origin."""
+    b = lib.ModelBuilder()
+    prev = -1
+    for i in range(3):
+        link = b.add_body(xform=[0.5 + i, 0, 0, 0, 0, 0, 1])
+        b.add_shape_capsule(link, radius=0.05, half_height=0.25)
+        b.add_joint_revolute(parent=prev, child=link, axis="Z",
+                             xform_p=[0.5, 0, 0, 0, 0, 0, 1] if prev >= 0
+                             else [0, 0, 0, 0, 0, 0, 1],
+                             xform_c=[-0.5, 0, 0, 0, 0, 0, 1])
+        prev = link
+    return b
+
+
+def ik_targets(n, seed):
+    """bench_ik's targets (n, 3): angle U(0, 2 pi), radius U(0.5, 2.4),
+    z 0, from a seeded numpy generator (all within the chain's 3 m
+    reach)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    ang = rng.uniform(0.0, 2 * np.pi, n)
+    rad = rng.uniform(0.5, 2.4, n)
+    return np.stack([rad * np.cos(ang), rad * np.sin(ang),
+                     np.zeros(n)], -1).astype(np.float32)
+
+
+def ik_tip_point(model, q):
+    """The chain's tip (P, 3) at coordinates (P, 3): link 2's point (0.5,
+    0, 0)."""
+    import torch
+    from newton_tpu_torch.math import transform_point
+    from newton_tpu_torch.sim.articulation import fk_bodies
+    P = q.shape[0]
+    bq, _ = fk_bodies(model, q, torch.zeros_like(q),
+                      model.body_q.expand(P, -1, -1),
+                      model.body_qd.expand(P, -1, -1))
+    return transform_point(bq[:, 2], q.new_tensor([0.5, 0.0, 0.0]))
+
+
+def ik_tip_error(model, q, targets):
+    """|tip - target| (P,) of coordinates (P, 3)."""
+    import torch
+    return torch.linalg.vector_norm(ik_tip_point(model, q) - targets, dim=-1)
+
+
+def count_syncs(fn):
+    """(fn's result, host synchronizations it made): CUDA's sync debug
+    mode warns at each synchronizing call."""
+    import warnings
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode(1)
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def phase_ik(dev):
+    """bench_ik as published on the port: IKSolver(chain,
+    [IKObjectivePosition(link=2, offset=(0.5, 0, 0))], iterations=16,
+    n_seeds=4) (GAUSS seeds from the solver's generator, drawn anew in
+    each solve, as a user calls it) on 4096 seeded targets: a warm-up
+    solve, then 5 timed solves; finite q, tip error below 0.02 in >= 99%
+    of problems, host syncs per solve (at most one), peak device memory.
+    64 problems on the card against the port on the CPU, both handed one
+    draw of the seeds (``IKSolver.seeds`` replaced): the residual (1e-5)
+    and its Jacobian (1e-4 of its largest entry) at the seeds and at the
+    card's solutions; q after one LM step from each seed off the straight
+    start (seeds 1-3), one seed per solve so no best-seed choice enters,
+    within 1e-4; and both packages' whole solves meet the tip gate. q of
+    the whole solve and of one step from the straight start (seed 0) are
+    reported, not gated: the redundant chain's straight start is singular
+    (J^T J of rank 1, lambda 0.01), so float32 rounding moves q along the
+    null space by ~1e-4 in one step, and more as lambda falls to 1e-8."""
+    import torch
+    import newton_tpu_torch as nt
+    from newton_tpu_torch.ik import IKObjectivePosition, IKSolver
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = ik_chain_scene(nt).finalize(dev)
+    obj = [IKObjectivePosition(link=2, offset=(0.5, 0, 0))]
+    ik = IKSolver(model, obj, iterations=IK_ITERS, n_seeds=IK_SEEDS)
+    tg = torch.as_tensor(ik_targets(IK_PROBLEMS, 0), device=dev)
+    q0 = torch.zeros(3, device=dev)
+    q = ik.solve(q0, [tg])
+    torch.cuda.synchronize()
+    q, syncs = count_syncs(lambda: ik.solve(q0, [tg]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(IK_REPS):
+        q = ik.solve(q0, [tg])
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if not bool(torch.isfinite(q).all()):
+        raise AssertionError("ik: non-finite q")
+    err = ik_tip_error(model, q, tg)
+    miss = int((err >= IK_TIP_TOL).sum())
+    if miss > IK_PROBLEMS // 100:
+        raise AssertionError(f"ik: {miss} problems with tip error >= "
+                             f"{IK_TIP_TOL}")
+    if syncs > 1:
+        raise AssertionError(f"ik: {syncs} host syncs in one solve")
+    # card against the CPU: what each LM iteration computes (the
+    # residual and its forward-mode Jacobian) at the seeds and at the
+    # card's solutions, then LM steps and solves from one draw of seeds
+    seeds = ik.seeds(q0)
+    mc = ik_chain_scene(nt).finalize("cpu")
+    n = IK_CPU_PROBLEMS
+    kc = IKSolver(mc, obj, iterations=IK_ITERS, n_seeds=IK_SEEDS)
+    err_r = err_j = 0.0
+    for x in (seeds[None].expand(n, -1, -1), q[:n, None]):
+        tgt = [tg[:n, None]]
+        r_d, J_d = ik.residual_and_jacobian(x.contiguous(), tgt)
+        r_c, J_c = kc.residual_and_jacobian(x.cpu().contiguous(),
+                                            [tgt[0].cpu()])
+        err_r = max(err_r, float((r_d.cpu() - r_c).abs().max()))
+        err_j = max(err_j, float((J_d.cpu() - J_c).abs().max()
+                                 / J_c.abs().max()))
+    if not (err_r < 1e-5 and err_j < 1e-4):
+        raise AssertionError(f"ik: card vs CPU residual {err_r:.3g} (1e-5) "
+                             f"or Jacobian {err_j:.3g} (1e-4 relative)")
+
+    def pair(iterations, rows):
+        """(card, CPU) solutions of the n problems from seed rows
+        ``rows`` of the shared draw."""
+        out = []
+        for m, t, x in ((model, tg[:n], seeds[rows]),
+                        (mc, tg[:n].cpu(), seeds[rows].cpu())):
+            k = IKSolver(m, obj, iterations=iterations, n_seeds=IK_SEEDS)
+            k.seeds = lambda q0, x=x: x
+            out.append(k.solve(q0.to(m.device), [t]).cpu())
+        return out
+    per_seed = []
+    for i in range(1, IK_SEEDS):
+        a, b = pair(1, slice(i, i + 1))
+        per_seed.append(float((a - b).abs().max()))
+    if max(per_seed) >= 1e-4:
+        raise AssertionError(f"ik: q after one LM step, card vs CPU, per "
+                             f"seed 1..{IK_SEEDS - 1}: {per_seed} (1e-4)")
+    a, b = pair(1, slice(0, 1))
+    e0 = float((a - b).abs().max())
+    tips = [ik_tip_point(mc, x) for x in (a, b)]
+    e0_tip = float((tips[0] - tips[1]).norm(dim=-1).max())
+    a, b = pair(IK_ITERS, slice(None))
+    d = (a - b).abs().amax(1)
+    e_card = ik_tip_error(mc, a, tg[:n].cpu())
+    e_cpu = ik_tip_error(mc, b, tg[:n].cpu())
+    if int((e_card >= IK_TIP_TOL).sum() + (e_cpu >= IK_TIP_TOL).sum()) > 2:
+        raise AssertionError("ik: the card's or the CPU's 64 problems miss "
+                             "the tip gate")
+    return dict(problems=IK_PROBLEMS, seeds=IK_SEEDS, lm_iterations=IK_ITERS,
+                solves_per_s=IK_REPS * IK_PROBLEMS / elapsed,
+                seconds_per_solve=elapsed / IK_REPS,
+                host_syncs_per_solve=syncs, peak_memory_bytes=peak,
+                tip_error_max=float(err.max()),
+                tip_error_median=float(err.median()),
+                problems_missing_tip_gate=miss,
+                vs_cpu_residual=err_r, vs_cpu_jacobian_rel=err_j,
+                vs_cpu_one_step_q_per_seed=per_seed,
+                vs_cpu_one_step_q_straight_seed=e0,
+                vs_cpu_one_step_tip_straight_seed=e0_tip,
+                vs_cpu_problems_apart_1e_4=int((d > 1e-4).sum()),
+                vs_cpu_q_max_diff=float(d.max()),
+                vs_cpu_tip_error_max=(float(e_card.max()),
+                                      float(e_cpu.max())))
+
+
+def sleeping_scene(lib, n):
+    """example_mujoco_sleeping.py's world (three free boxes of half-extent
+    0.2 at x = 0, 1, 2, dropped from 5-45 mm) replicated n times, on a
+    ground plane."""
+    w = lib.ModelBuilder()
+    for i in range(3):
+        body = w.add_body(xform=[i * 1.0, 0, 0.205 + 0.02 * i, 0, 0, 0, 1],
+                          key=f"box{i}")
+        w.add_shape_box(body, hx=0.2, hy=0.2, hz=0.2)
+        w.add_joint_free(body)
+    b = lib.ModelBuilder()
+    b.replicate(w, n)
+    b.add_ground_plane()
+    return b
+
+
+def linkage_scene(lib, n, kind):
+    """tests/test_equality.py's scenes replicated n times: ``"connect"``,
+    two 1 m links on revolute Y joints 0.4 m apart tied at their tips by
+    a CONNECT; ``"mimic"``, the same links 1 m apart, the first joint
+    mimicking the second; ``"weld"`` (test size, not in the JAX tests):
+    a pendulum link and a free 0.1 m box welded at its tip."""
+    w = lib.ModelBuilder()
+    l1 = w.add_body(xform=[0.5, 0, 0, 0, 0, 0, 1])
+    w.add_shape_capsule(l1, radius=0.05, half_height=0.25)
+    j1 = w.add_joint_revolute(parent=-1, child=l1, axis="Y",
+                              xform_c=[-0.5, 0, 0, 0, 0, 0, 1])
+    if kind == "weld":
+        box = w.add_body(xform=[1.0, 0, 0, 0, 0, 0, 1])
+        w.add_shape_box(box, hx=0.1, hy=0.1, hz=0.1)
+        w.add_joint_free(box)
+        w.add_equality_constraint(lib.EqType.WELD, body1=box, body2=l1)
+    else:
+        y = 0.4 if kind == "connect" else 1.0
+        l2 = w.add_body(xform=[0.5, y, 0, 0, 0, 0, 1])
+        w.add_shape_capsule(l2, radius=0.05, half_height=0.25)
+        j2 = w.add_joint_revolute(parent=-1, child=l2, axis="Y",
+                                  xform_p=[0, y, 0, 0, 0, 0, 1],
+                                  xform_c=[-0.5, 0, 0, 0, 0, 0, 1])
+        if kind == "connect":
+            w.add_equality_constraint(lib.EqType.CONNECT, body1=l1,
+                                      body2=l2, anchor=(0.5, 0, 0))
+        else:
+            w.add_constraint_mimic(j1, j2, multiplier=1.0)
+    b = lib.ModelBuilder()
+    b.replicate(w, n)
+    return b
+
+
+def urdf_scene(lib, n, mimic=False):
+    """example_basic_urdf.py's double pendulum through add_urdf (with
+    ``mimic``, its elbow mimics the shoulder with multiplier -1)
+    replicated n times."""
+    w = lib.ModelBuilder(gravity=-9.81)
+    w.add_urdf(DOUBLE_PENDULUM_URDF.replace("{mimic}",
+                                            MIMIC_TAG if mimic else ""))
+    b = lib.ModelBuilder(gravity=-9.81)
+    b.replicate(w, n)
+    return b
+
+
+def b2_warm_cold(args, kw, label, n):
+    """B2 with a warm lam0 on a substep's operands against its plain
+    version: lam (1e-4) and dqd (1e-3) in every row, phase 6's
+    tolerances; the rows whose guard halvings differ are counted, not
+    left out (a warm start begins near the fixed point, where
+    ||dlambda||^2 is rounding noise and the guard's threshold decisions
+    follow the sum order). Also the guard halvings of the same operands
+    started warm and cold."""
+    import torch
+    from newton_tpu_torch.solvers.generalized import pgs
+    lam_k, dqd_k, h_k = pgs.pgs_solve_fused(*args, **kw,
+                                            return_halvings=True)
+    lam_p, dqd_p, h_p = pgs.pgs_solve_fused_plain(*args, **kw,
+                                                  return_halvings=True)
+    ok1, e_lam = close(lam_k, lam_p, 1e-4, 1e-4)
+    ok2, e_dqd = close(dqd_k, dqd_p, 1e-3, 1e-3)
+    if not (ok1 and ok2):
+        raise AssertionError(f"{label}: B2 with a warm lam0, kernel vs "
+                             f"plain off tolerance (lam {e_lam:.3g}, dqd "
+                             f"{e_dqd:.3g})")
+    lam0 = args[6]
+    if not float(lam0.abs().max()) > 0.0:
+        raise AssertionError(f"{label}: B2 got a zero warm lam0")
+    cold = args[:6] + (torch.zeros_like(lam0),)
+    _, _, h_cold = pgs.pgs_solve_fused_plain(*cold, **kw,
+                                             return_halvings=True)
+    return dict(lam_err=e_lam, dqd_err=e_dqd,
+                guard_mismatch_rows=int((h_k != h_p).sum()),
+                halvings_warm=int(h_p.sum()), halvings_cold=int(h_cold.sum()),
+                lam0_nonzero_rows=int((lam0.abs().amax(1) > 0).sum()),
+                ms=time_ms(lambda: pgs.pgs_solve_fused(*args, **kw),
+                           queued=True),
+                plain_ms=time_ms(lambda: pgs.pgs_solve_fused_plain(*args,
+                                                                   **kw),
+                                 n=10),
+                shape=(kw["c"], int(kw["ld"].numel()), args[0].shape[2]),
+                instance=pgs.kernel_instance(kw["c"], int(kw["ld"].numel()),
+                                             args[0].shape[2]))
+
+
+def b2_random_lam0(dev):
+    """B2 on phase 4's random ant-shaped operands with a random nonzero
+    lam0 (act x |N(0, 0.1)|): kernel vs plain as phase 4 holds them (at
+    most W / 1000 envs with other guard halvings)."""
+    import torch
+    out = {}
+    for nl, cone in ((8, False), (8, True), (0, False)):
+        args, ld = random_pgs_inputs(dev, 25, nl, 14, seed=21 + nl)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(nl)
+        lam0 = args[4] * (0.1 * torch.randn(args[6].shape, generator=gen,
+                                            device=dev)).abs()
+        kw = dict(iters=ITERS, omega=0.8, diag_scale=1.0, reg=1e-3, c=25,
+                  ld=ld, use_cone=cone)
+        e1, e2, n_diff, _, _ = compare_pgs(args[:6] + (lam0,), kw, W // 1000)
+        out[f"nl={nl} cone={cone}"] = dict(lam_err=e1, dqd_err=e2,
+                                           guard_mismatch_envs=n_diff)
+    return out
+
+
+def warm_turns(run, warm, cold, frames, n):
+    """env-steps/s of the warm and the cold solver in turns (cold, warm,
+    warm, cold), each continuing its own state: ``run(solver_index,
+    frames)`` advances one."""
+    rates = {"warm": [], "cold": []}
+    for key in ("cold", "warm", "warm", "cold"):
+        t0 = time.perf_counter()
+        run(key, frames)
+        rates[key].append(frames * SUBSTEPS * n / (time.perf_counter() - t0))
+    return {k: sum(v) / 2 for k, v in rates.items()}, rates
+
+
+def phase_warm_sleep(dev):
+    """Contact warm start and sleeping, three scenes of 4096 worlds:
+    (a) the ant under test_sleep_and_warm_start's settings
+    (SolverFeatherstone(contact_iterations=4, warm_start=True,
+    sleep_threshold=0.05, sleep_steps=8), zero ctrl) through
+    step_batched, 60 frames of 4 substeps at dt 1/240: finite, root z in
+    (0.3, 0.8) in every world; (b) example_mujoco_sleeping.py replicated
+    (sleep_threshold=0.12, sleep_steps=8, plus warm_start=True) through
+    step, 60 frames: its test_final in every world, and the asleep
+    worlds' body_q bit-frozen over a further frame; (c) the humanoid with
+    warm_start=True through top-K compaction (phase 11's configuration
+    and gates, 10 + 10 frames). For each: one B1 and one B2 launch per
+    substep, B2 with its warm lam0 against the plain version, the guard
+    halvings of those operands warm and cold, env-steps/s warm against
+    cold (the same solver without warm start) in turns."""
+    import torch
+    import newton_tpu_torch as nt
+    from newton_tpu_torch.solvers.generalized import linalg
+    out = {"random_lam0": b2_random_lam0(dev)}
+    # (a) the ant
+    model, pipe, _, state0 = build_ant(dev)
+    kw = dict(contact_iterations=4, sleep_threshold=0.05, sleep_steps=8)
+    solvers = {k: nt.SolverFeatherstone(model, warm_start=(k == "warm"),
+                                        **kw) for k in ("warm", "cold")}
+    au = model.structure.mjc_actuation
+    zero = lambda n: torch.zeros((n, au.n), device=dev)  # noqa: E731
+    states = {k: nt.batch_state(s.init_state(state0), WS_W)
+              for k, s in solvers.items()}
+    reset_robot_launches()
+    st = run_frames(model, pipe, solvers["warm"], states["warm"], zero,
+                    WS_FRAMES, True)
+    n_sub = WS_FRAMES * SUBSTEPS
+    launches = kernel_launches()
+    if launches != (n_sub, n_sub):
+        raise AssertionError(f"ant warm/sleep: launches {launches} in "
+                             f"{n_sub} substeps")
+    check_state(st, "ant warm/sleep", None)
+    z = st.joint_q[:, 2]
+    if not (bool((z > 0.3).all()) and bool((z < 0.8).all())):
+        raise AssertionError(f"ant warm/sleep: root z in [{float(z.min())},"
+                             f" {float(z.max())}]")
+    rec = {}
+    c = pipe.collide(st)
+    solvers["warm"].step_batched(st, None, batched_control(model, zero(WS_W)),
+                                 c, DT, record=rec)
+    ant = b2_warm_cold(*rec["pgs"], "ant warm/sleep", WS_W)
+    ant["b1"] = b1_check(*rec["chol"], "ant warm/sleep")
+    ant["b1_times"] = b1_times(*rec["chol"])
+    asleep = int((st.custom["sleep:count:0"] >= 8).sum())
+    states["warm"] = st
+    states["cold"] = run_frames(model, pipe, solvers["cold"],
+                                states["cold"], zero, WS_FRAMES, True)
+
+    def run_ant(key, frames):
+        states[key] = run_frames(model, pipe, solvers[key], states[key],
+                                 zero, frames, True)
+    rate, rates = warm_turns(run_ant, "warm", "cold", WS_TURN_FRAMES, WS_W)
+    out["ant"] = dict(worlds=WS_W, substeps=n_sub, launches=launches,
+                      root_z=(float(z.min()), float(z.max())),
+                      worlds_asleep=asleep, b2=ant,
+                      env_steps_per_s_warm=rate["warm"],
+                      env_steps_per_s_cold=rate["cold"], turns=rates)
+    # (b) the sleeping boxes
+    b = sleeping_scene(nt, WS_W)
+    model = b.finalize(dev)
+    pipe = nt.CollisionPipeline(model)
+    kw = dict(sleep_threshold=0.12, sleep_steps=8)
+    solvers = {k: nt.SolverFeatherstone(model, warm_start=(k == "warm"),
+                                        **kw) for k in ("warm", "cold")}
+    s0 = nt.eval_fk(model, model.joint_q0, model.joint_qd0, model.state())
+    states = {k: s.init_state(s0) for k, s in solvers.items()}
+    ctl = model.control()
+    reset_robot_launches()
+    n_sub = SLEEP_FRAMES * SUBSTEPS
+    st = run_steps(solvers["warm"], states["warm"], ctl, n_sub, DT, True,
+                   pipe=pipe)
+    launches = kernel_launches()
+    if launches != (n_sub, n_sub):
+        raise AssertionError(f"sleeping boxes: launches {launches} in "
+                             f"{n_sub} substeps")
+    cnt = st.custom["sleep:count:0"]
+    asleep = cnt >= 8
+    qd = st.body_qd.view(WS_W, 3, 6)
+    zb = st.body_q[:, 2].view(WS_W, 3)
+    gates = dict(worlds_asleep=int(asleep.sum()),
+                 qd_max=float(qd.abs().max()),
+                 z_err_max=float((zb - 0.2).abs().max()))
+    if not (bool(asleep.all()) and gates["qd_max"] < 0.12 + 0.3
+            and gates["z_err_max"] < 0.03
+            and bool(torch.isfinite(st.body_q).all())):
+        raise AssertionError(f"sleeping boxes: test_final fails {gates}")
+    rec = {}
+    nxt = solvers["warm"].step(st, None, ctl, pipe.collide(st), DT,
+                               record=rec)
+    for _ in range(SUBSTEPS - 1):
+        nxt = solvers["warm"].step(nxt, None, ctl, pipe.collide(nxt), DT)
+    still = asleep & (nxt.custom["sleep:count:0"] >= 8)
+    bq0 = st.body_q.view(WS_W, 3, 7)[still]
+    bq1 = nxt.body_q.view(WS_W, 3, 7)[still]
+    if not torch.equal(bq0, bq1):
+        raise AssertionError("sleeping boxes: an asleep world's body_q "
+                             "moved over a frame")
+    boxes = b2_warm_cold(*rec["pgs"], "sleeping boxes", WS_W)
+    boxes["b1"] = b1_check(*rec["chol"], "sleeping boxes")
+    boxes["b1_times"] = b1_times(*rec["chol"])
+    boxes["d"] = solvers["warm"].groups[0].g.d
+    boxes["b1_instance"] = linalg.kernel_instance(boxes["d"])
+    states["warm"] = nxt
+    states["cold"] = run_steps(solvers["cold"], states["cold"], ctl, n_sub,
+                               DT, True, pipe=pipe)
+
+    def run_boxes(key, frames):
+        states[key] = run_steps(solvers[key], states[key], ctl,
+                                frames * SUBSTEPS, DT, True, pipe=pipe)
+    rate, rates = warm_turns(run_boxes, "warm", "cold", WS_TURN_FRAMES, WS_W)
+    out["sleeping_boxes"] = dict(worlds=WS_W, substeps=n_sub,
+                                 launches=launches, gates=gates,
+                                 worlds_still_asleep=int(still.sum()),
+                                 b2=boxes, env_steps_per_s_warm=rate["warm"],
+                                 env_steps_per_s_cold=rate["cold"],
+                                 turns=rates)
+    # (c) the humanoid, warm, through top-K
+    b = nt.ModelBuilder()
+    b.add_mjcf(os.path.join(nt.ASSET_DIR, "humanoid.xml"))
+    model = b.finalize(dev)
+    pipe = nt.CollisionPipeline(model)
+    solvers = {k: nt.SolverMuJoCo(model, iterations=ITERS,
+                                  integrator="euler",
+                                  warm_start=(k == "warm"))
+               for k in ("warm", "cold")}
+    if solvers["warm"].groups[0].tables.cap != 32:
+        raise AssertionError("humanoid warm: expected top-32 compaction")
+    sample = ctrl_sampler(model, dev, seed=10)
+    states = {k: humanoid_reset(model, dev, seed=11) for k in solvers}
+    st = run_frames(model, pipe, solvers["warm"], states["warm"], sample,
+                    HUMANOID_WARMUP, True)
+    reset_robot_launches()
+    st = run_frames(model, pipe, solvers["warm"], st, sample, FRAMES, True)
+    n_sub = FRAMES * SUBSTEPS
+    launches = kernel_launches()
+    if launches != (n_sub, n_sub):
+        raise AssertionError(f"humanoid warm: launches {launches} in "
+                             f"{n_sub} substeps")
+    zmin = check_state(st, "humanoid warm", z_min=0.3)
+    rec = {}
+    solvers["warm"].step_batched(
+        st, None, batched_control(model, sample(HUMANOID_W)),
+        pipe.collide(st), DT, record=rec)
+    hum = b2_warm_cold(*rec["pgs"], "humanoid warm", HUMANOID_W)
+    states["warm"] = st
+    states["cold"] = run_frames(model, pipe, solvers["cold"],
+                                states["cold"], sample,
+                                HUMANOID_WARMUP + FRAMES, True)
+
+    def run_hum(key, frames):
+        states[key] = run_frames(model, pipe, solvers[key], states[key],
+                                 sample, frames, True)
+    rate, rates = warm_turns(run_hum, "warm", "cold", WS_TURN_FRAMES,
+                             HUMANOID_W)
+    out["humanoid"] = dict(worlds=HUMANOID_W, substeps=n_sub,
+                           launches=launches, root_z_min=zmin, b2=hum,
+                           env_steps_per_s_warm=rate["warm"],
+                           env_steps_per_s_cold=rate["cold"], turns=rates)
+    return out
+
+
+def eq_gates(kind, state, n):
+    """test_equality.py's gates in every world: CONNECT, the anchors
+    within 5e-3, |q0 - q1| < 1e-3 and |q0| > 0.5; mimic, |q0 - q1| <
+    2e-2; WELD, the box's origin within 5e-3 of the link's tip, its
+    orientation within 1e-2 rad of the link's, and |q0| > 0.5."""
+    import torch
+    from newton_tpu_torch.math import (quat_conjugate, quat_mul,
+                                       transform_point)
+    bq = state.body_q.view(n, 2, 7)
+    q = state.joint_q.view(n, -1)
+    if kind == "connect":
+        p1 = transform_point(bq[:, 0], bq.new_tensor([0.5, 0.0, 0.0]))
+        p2 = transform_point(bq[:, 1], bq.new_tensor([0.5, -0.4, 0.0]))
+        g = dict(drift=float((p1 - p2).norm(dim=-1).max()),
+                 q_diff=float((q[:, 0] - q[:, 1]).abs().max()),
+                 q0_min=float(q[:, 0].abs().min()))
+        ok = g["drift"] < 5e-3 and g["q_diff"] < 1e-3 and g["q0_min"] > 0.5
+    elif kind == "mimic":
+        g = dict(q_diff=float((q[:, 0] - q[:, 1]).abs().max()))
+        ok = g["q_diff"] < 2e-2
+    else:
+        tip = transform_point(bq[:, 0], bq.new_tensor([0.5, 0.0, 0.0]))
+        qe = quat_mul(bq[:, 1, 3:7], quat_conjugate(bq[:, 0, 3:7]))
+        ang = 2.0 * torch.atan2(qe[:, :3].norm(dim=-1), qe[:, 3].abs())
+        g = dict(drift=float((tip - bq[:, 1, :3]).norm(dim=-1).max()),
+                 angle=float(ang.max()), q0_min=float(q[:, 0].abs().min()))
+        ok = g["drift"] < 5e-3 and g["angle"] < 1e-2 and g["q0_min"] > 0.5
+    if not ok or not bool(torch.isfinite(state.body_q).all()):
+        raise AssertionError(f"equality {kind}: gates fail {g}")
+    return g
+
+
+def phase_equality(dev):
+    """Equality rows, each scene replicated 4096 times through step with
+    SolverFeatherstone's defaults, 60 frames of 4 substeps at dt 1/240,
+    no contacts (as tests/test_equality.py): the CONNECT linkage, the
+    mimic pair and a WELD (linkage_scene), each with its gates in every
+    world, per substep one B1 launch on M + dt Kd and one of B1 without
+    the inverse (``chol_solve``) on the equality system, r = 3, 1 and 6,
+    the latter held against its plain version and timed beside
+    torch.linalg.solve(A, rhs), a kernel vs plain step."""
+    import torch
+    import newton_tpu_torch as nt
+    from newton_tpu_torch.solvers.generalized import linalg
+    out = {}
+    for kind, r in (("connect", 3), ("mimic", 1), ("weld", 6)):
+        model = linkage_scene(nt, EQ_W, kind).finalize(dev)
+        solver = nt.SolverFeatherstone(model)
+        grp = solver.groups[0]
+        if len(solver.groups) != 1 or grp.tables.eq.rows != r:
+            raise AssertionError(f"equality {kind}: expected one group with "
+                                 f"{r} equality rows")
+        state = nt.eval_fk(model, model.joint_q0, model.joint_qd0,
+                           model.state())
+        ctl = model.control()
+        reset_robot_launches()
+        n_sub = EQ_FRAMES * SUBSTEPS
+        t0 = time.perf_counter()
+        state = run_steps(solver, state, ctl, n_sub, DT, True)
+        elapsed = time.perf_counter() - t0
+        launches = kernel_launches()
+        eq_launches = solve_launches()
+        if launches != (n_sub, 0) or eq_launches != n_sub:
+            raise AssertionError(f"equality {kind}: launches {launches}, "
+                                 f"{eq_launches} of chol_solve in {n_sub} "
+                                 f"substeps")
+        gates = eq_gates(kind, state, EQ_W)
+        rec = {}
+        k = solver.step(state, None, ctl, None, DT, record=rec)
+        p = solver.step(state, None, ctl, None, DT, kernels=False)
+        paths = {}
+        for name, atol in (("joint_q", 2e-4), ("joint_qd", 5e-3),
+                           ("body_q", 2e-4)):
+            ok, paths[name] = close(getattr(k, name), getattr(p, name),
+                                    atol, atol)
+            if not ok:
+                raise AssertionError(f"equality {kind}: {name} kernel vs "
+                                     f"plain step off tolerance")
+        A, rhs = rec["eq"]
+        out[kind] = dict(
+            worlds=EQ_W, substeps=n_sub, launches=launches,
+            eq_launches=eq_launches, gates=gates,
+            env_steps_per_s=n_sub * EQ_W / elapsed, rows=r,
+            d=grp.g.d, paths=paths,
+            b1_eq=b1s_check(A, rhs, f"equality {kind}"),
+            b1_eq_times=b1s_times(A, rhs),
+            b1_eq_instance=linalg.kernel_instance(r),
+            b1_m=b1_check(*rec["chol"], f"equality {kind} M"),
+            b1_m_instance=linalg.kernel_instance(grp.g.d))
+    return out
+
+
+def phase_urdf(dev):
+    """example_basic_urdf.py's double pendulum through the port's
+    add_urdf, replicated 4096 times, through step (dt 1/480, 8 substeps
+    per frame, 15 frames, the shoulder started at pi / 2): its test_final
+    in every world (finite, the shoulder off pi / 2 by > 0.01, max z <
+    1.3), one B1 launch per substep (d = 2); the same robot with the
+    elbow mimicking the shoulder (multiplier -1) through a <mimic> tag:
+    |q_elbow + q_shoulder| < 2e-2 in every world, and one more launch per
+    substep of B1 without the inverse (r = 1)."""
+    import numpy as np
+    import torch
+    import newton_tpu_torch as nt
+    out = {}
+    for mimic in (False, True):
+        label = "mimic" if mimic else "double pendulum"
+        t0 = time.perf_counter()
+        model = urdf_scene(nt, URDF_W, mimic).finalize(dev)
+        solver = nt.SolverFeatherstone(model)
+        q0 = model.joint_q0.clone().view(URDF_W, 2)
+        q0[:, 0] = np.pi / 2
+        if mimic:
+            q0[:, 1] = -np.pi / 2
+        state = nt.eval_fk(model, q0.reshape(-1), model.joint_qd0,
+                           model.state())
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        ctl = model.control()
+        reset_robot_launches()
+        n_sub = URDF_FRAMES * URDF_SUBSTEPS
+        t0 = time.perf_counter()
+        state = run_steps(solver, state, ctl, n_sub, URDF_DT, True)
+        elapsed = time.perf_counter() - t0
+        launches = kernel_launches()
+        eq_launches = solve_launches()
+        if launches != (n_sub, 0) or eq_launches != (n_sub if mimic else 0):
+            raise AssertionError(f"urdf {label}: launches {launches}, "
+                                 f"{eq_launches} of chol_solve in {n_sub} "
+                                 f"substeps")
+        jq = state.joint_q.view(URDF_W, 2)
+        zmax = float(state.body_q[:, 2].max())
+        g = dict(shoulder_off_min=float((jq[:, 0] - np.pi / 2).abs().min()),
+                 z_max=zmax)
+        ok = (bool(torch.isfinite(state.body_q).all())
+              and bool(torch.isfinite(state.joint_q).all())
+              and g["shoulder_off_min"] > 0.01 and zmax < 1.3)
+        if mimic:
+            g["mimic_err"] = float((jq[:, 1] + jq[:, 0]).abs().max())
+            ok = ok and g["mimic_err"] < 2e-2
+        if not ok:
+            raise AssertionError(f"urdf {label}: gates fail {g}")
+        rec = {}
+        solver.step(state, None, ctl, None, URDF_DT, record=rec)
+        r = dict(worlds=URDF_W, setup_s=setup_s, substeps=n_sub,
+                 launches=launches, eq_launches=eq_launches, gates=g,
+                 env_steps_per_s=n_sub * URDF_W / elapsed,
+                 b1=b1_check(*rec["chol"], f"urdf {label}"),
+                 b1_times=b1_times(*rec["chol"]))
+        if mimic:
+            r["b1_eq"] = b1s_check(*rec["eq"], "urdf mimic")
+        out[label] = r
+    return out
+
+
+def slice_kernel_entries(eq, ws, urdf, b1_src, b2_src):
+    """The kernels line's entries of phases 29-31: B1 without the inverse
+    on the equality systems (r = 3, 1, 6), B1 on the sleeping boxes and
+    the URDF pendulum; B2 with a warm lam0 on the ant, the boxes and the
+    humanoid."""
+    out = []
+    for kind, r, what in (("connect", 3, "CONNECT linkage"),
+                          ("mimic", 1, "mimic pair"), ("weld", 6, "WELD")):
+        v = eq[kind]
+        t = v["b1_eq_times"]
+        out.append(dict(
+            name=f"chol_solve [{v['b1_eq_instance']}] r={r} W={EQ_W}",
+            **b1_src, instance=v["b1_eq_instance"],
+            path=f"{what} x 4096, the equality system r = {r}: B1 without "
+                 "the inverse, once per substep (phase 30)",
+            launches=v["eq_launches"], max_abs_err=v["b1_eq"][0],
+            ms=t["ms"], plain_ms=t["plain_ms"],
+            **bound_fields("chol_solve", t["ms"], d=r, W=EQ_W),
+            library_ms=t["library_ms"]))
+    for label, path, d, n, launches, err, t in (
+            (ws["sleeping_boxes"]["b2"]["b1_instance"], "sleeping boxes "
+             "x 4096, three free boxes per world, warm start (phase 29)",
+             ws["sleeping_boxes"]["b2"]["d"], WS_W,
+             ws["sleeping_boxes"]["launches"][0],
+             ws["sleeping_boxes"]["b2"]["b1"][0],
+             ws["sleeping_boxes"]["b2"]["b1_times"]),
+            ("reg8", "URDF double pendulum x 4096, add_urdf (phase 31)", 2,
+             URDF_W, urdf["double pendulum"]["launches"][0],
+             urdf["double pendulum"]["b1"][0],
+             urdf["double pendulum"]["b1_times"])):
+        out.append(dict(
+            name=f"chol_inv_solve [{label}] d={d} W={n}", **b1_src,
+            instance=label, path=path, launches=launches, max_abs_err=err,
+            ms=t["ms"], plain_ms=t["plain_ms"],
+            **bound_fields("chol_inv_solve", t["ms"], d=d, W=n),
+            library_ms=t["library_ms"]))
+    for key, path, n in (
+            ("ant", "ant x 4096, contact_iterations=4, warm lam0 "
+             "(phase 29)", WS_W),
+            ("sleeping_boxes", "sleeping boxes x 4096, warm lam0 "
+             "(phase 29)", WS_W),
+            ("humanoid", "humanoid x 4096, top-32 compaction, warm lam0 "
+             "(phase 29)", HUMANOID_W)):
+        v = ws[key]["b2"]
+        c, nl, d = v["shape"]
+        it = 4 if key == "ant" else (16 if key == "sleeping_boxes"
+                                     else ITERS)
+        out.append(dict(
+            name=f"pgs_solve_fused [{v['instance']}, warm] {v['shape']} "
+                 f"W={n}", **b2_src, instance=v["instance"], path=path,
+            launches=ws[key]["launches"][1], max_abs_err=v["lam_err"],
+            ms=v["ms"], plain_ms=v["plain_ms"],
+            **bound_fields("pgs_solve_fused", v["ms"], c=c, nl=nl, d=d, W=n,
+                           iters=it)))
+    return out
 
 
 def pgs_smem(rec):
@@ -3582,7 +4432,10 @@ def main():
           f"{vg['peak_memory_bytes']} B; card vs CPU substep {vg['vs_cpu']}"
           f", repeat {vg['repeat_max_diff']}; device busy "
           f"{vg['busy_share_unprofiled']} of an unprofiled frame; profiled "
-          f"frame {vg['profile']} on {card}", flush=True)
+          f"frame {vg['profile']}; (c) soft contacts: "
+          f"{vbd['soft_contacts']['active_soft_contacts']} active, repeat "
+          f"{vbd['soft_contacts']['repeat_max_diff']}, card vs CPU "
+          f"{vbd['soft_contacts']['vs_cpu']} on {card}", flush=True)
     mark("26")
 
     semi = phase_semi_implicit(dev)
@@ -3594,6 +4447,64 @@ def main():
         f"{v['vs_cpu']}, repeat {v['repeat_max_diff']}"
         for k, v in semi.items()) + f" on {card}", flush=True)
     mark("27")
+
+    ik = phase_ik(dev)
+    results["ik"] = ik
+    print(f"[28 IK, bench.py --mode ik] {ik['problems']} problems x "
+          f"{ik['seeds']} seeds x {ik['lm_iterations']} LM iterations: "
+          f"{ik['solves_per_s']:.1f} solves/s, host syncs per solve "
+          f"{ik['host_syncs_per_solve']}, peak memory "
+          f"{ik['peak_memory_bytes']} B, tip error max "
+          f"{ik['tip_error_max']:.3g} (median {ik['tip_error_median']:.3g}),"
+          f" {ik['problems_missing_tip_gate']} problems off the 0.02 gate; "
+          f"{IK_CPU_PROBLEMS} problems card vs CPU: residual "
+          f"{ik['vs_cpu_residual']:.3g}, Jacobian "
+          f"{ik['vs_cpu_jacobian_rel']:.3g} relative; q after one step "
+          f"from seeds 1-3 {ik['vs_cpu_one_step_q_per_seed']}, from the "
+          f"straight seed {ik['vs_cpu_one_step_q_straight_seed']:.3g} (tips "
+          f"{ik['vs_cpu_one_step_tip_straight_seed']:.3g} m); after {IK_ITERS} "
+          f"{ik['vs_cpu_problems_apart_1e_4']} apart by > 1e-4 (tip errors "
+          f"{ik['vs_cpu_tip_error_max']}) on {card}", flush=True)
+    mark("28")
+
+    ws = phase_warm_sleep(dev)
+    results["warm_sleep"] = ws
+    print("[29 warm start and sleeping x 4096] B2 with random lam0 "
+          f"{ws['random_lam0']}; " + "; ".join(
+        f"{k}: launches {v['launches']} in {v['substeps']} substeps, B2 "
+        f"{v['b2']['shape']} {v['b2']['instance']} warm vs plain lam "
+        f"{v['b2']['lam_err']:.3g} ({v['b2']['guard_mismatch_rows']} rows "
+        f"with other halvings), guard halvings warm "
+        f"{v['b2']['halvings_warm']} cold {v['b2']['halvings_cold']}; "
+        f"{v['env_steps_per_s_warm']:.1f} env-steps/s warm, "
+        f"{v['env_steps_per_s_cold']:.1f} cold"
+        for k, v in ws.items() if k != "random_lam0")
+        + f"; ant root z {ws['ant']['root_z']}, "
+        f"{ws['ant']['worlds_asleep']} ant worlds asleep; boxes "
+        f"{ws['sleeping_boxes']['gates']}, "
+        f"{ws['sleeping_boxes']['worlds_still_asleep']} worlds bit-frozen "
+        f"over a frame on {card}", flush=True)
+    mark("29")
+
+    eq = phase_equality(dev)
+    results["equality"] = eq
+    print("[30 equality rows x 4096] " + "; ".join(
+        f"{k}: launches {v['launches']} and {v['eq_launches']} of "
+        f"chol_solve in {v['substeps']} substeps, gates "
+        f"{v['gates']}, B1 solve r={v['rows']} {v['b1_eq_instance']} "
+        f"{v['b1_eq_times']['ms']:.4f} ms (library "
+        f"{v['b1_eq_times']['library_ms']:.4f} ms), {v['env_steps_per_s']:.1f}"
+        f" env-steps/s" for k, v in eq.items()) + f" on {card}", flush=True)
+    mark("30")
+
+    urdf = phase_urdf(dev)
+    results["urdf"] = urdf
+    print("[31 URDF x 4096, add_urdf] " + "; ".join(
+        f"{k}: setup {v['setup_s']:.2f} s, launches {v['launches']} in "
+        f"{v['substeps']} substeps, gates {v['gates']}, "
+        f"{v['env_steps_per_s']:.1f} env-steps/s" for k, v in urdf.items())
+        + f" on {card}", flush=True)
+    mark("31")
 
     results["kernel_info"] = kernel_info()
     print("[phase seconds] " + json.dumps(
@@ -3806,7 +4717,8 @@ def main():
             instance=label, path=path, launches=launches, max_abs_err=err,
             ms=ms, plain_ms=plain_ms,
             **bound_fields("pgs_solve_fused", ms, c=c, nl=nl, d=d,
-                           W=BOX_W)))
+                           W=BOX_W, iters=16)))
+    kernels += slice_kernel_entries(eq, ws, urdf, b1_src, b2_src)
     print(f"[bounds] H100 SXM peaks {PEAK_BYTES_PER_S / 1e12:g} TB/s, "
           f"{PEAK_F32_FLOPS / 1e12:g} TFLOP/s float32 (700 W); this card: "
           f"{card}", flush=True)

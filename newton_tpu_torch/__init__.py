@@ -1,11 +1,12 @@
 """newton_tpu_torch: the PyTorch/CUDA port of newton_tpu.
 
 The JAX package ``newton_tpu`` is the reference; this package re-implements
-four of its paths in PyTorch: the robot path (MJCF robot -> static collision
--> batched generalized step), the rigid-body path of ``SolverXPBD``, the
-MPM path (particles -> ``SolverImplicitMPM``) and the cloth path (cloth and
-soft topology, particle-shape contacts -> ``SolverStyle3D``, ``SolverVBD``,
-``SolverSemiImplicit``). Every TPU kernel of the JAX package has a
+these of its paths in PyTorch: the robot path (MJCF or URDF robot -> static
+collision -> batched generalized step, with contact warm start, sleeping
+and equality constraints), the rigid-body path of ``SolverXPBD``, the MPM
+path (particles -> ``SolverImplicitMPM``), the cloth path (cloth and soft
+topology, particle-shape contacts -> ``SolverStyle3D``, ``SolverVBD``,
+``SolverSemiImplicit``) and batched inverse kinematics (``ik``). Every TPU kernel of the JAX package has a
 hand-written CUDA counterpart for Hopper in ``csrc/``: the Cholesky and PGS
 kernels of the robot path, the P2G/G2P transfers of the MPM path. It
 imports torch, never jax.
@@ -30,7 +31,7 @@ from .sim.builder import JointDofConfig, ModelBuilder, ShapeConfig  # noqa: E402
 from .sim.collide import CollisionPipeline  # noqa: E402
 from .sim.contacts import Contacts  # noqa: E402
 from .sim.control import Control  # noqa: E402
-from .sim.enums import JointType, ParticleFlags  # noqa: E402
+from .sim.enums import EqType, JointType, ParticleFlags  # noqa: E402
 from .sim.model import Model, ModelStructure  # noqa: E402
 from .sim.state import State  # noqa: E402
 from .solvers.generalized.solver import SolverFeatherstone, SolverMuJoCo  # noqa: E402
@@ -44,7 +45,7 @@ __all__ = [
     "MAXVAL", "Axis", "GeoType", "ShapeFlags", "batch_state", "eval_fk",
     "eval_ik",
     "JointDofConfig", "ModelBuilder", "ShapeConfig", "CollisionPipeline",
-    "Contacts", "Control", "JointType", "Model", "ModelStructure", "State",
+    "Contacts", "Control", "EqType", "JointType", "Model", "ModelStructure", "State",
     "SolverFeatherstone", "SolverMuJoCo", "SolverImplicitMPM", "SolverMPM",
     "SolverSemiImplicit", "SolverStyle3D", "SolverVBD", "SolverXPBD",
     "ParticleFlags", "ASSET_DIR",

@@ -1,5 +1,8 @@
 // Batched small SPD factor + solve + explicit inverse, one warp per env
-// (d <= 32) or one block per env (any larger d).
+// (d <= 32) or one block per env (any larger d). Called with Minv null, it
+// solves for rhs alone (the equality rows' system, whose inverse nothing
+// reads): the same factor, then one substitution column, by lane 0 of the
+// warp or thread 0 of the block, with the same arithmetic as the full call.
 //
 // Replaces the TPU kernel newton_tpu/solvers/generalized/linalg_pallas.py
 // :: chol_inv_solve_pallas (body _kernel, math _chol_core / _solve_core):
@@ -160,7 +163,7 @@ chol_kernel(const float* __restrict__ Mi, const float* __restrict__ rhs,
   // one column per lane; only d = 32 has a 33rd, for lane 0 in a second
   // pass (the loop is kept rolled: two passes' registers would spill)
 #pragma unroll 1
-  for (int c = lane; c <= d; c += kWarp) {
+  for (int c = Minv ? lane : d + lane; c <= d; c += kWarp) {
     float b[D];
 #pragma unroll
     for (int r = 0; r < D; ++r)
@@ -237,7 +240,7 @@ chol_kernel_generic(const float* __restrict__ Mi,
   const int tid = threadIdx.x, nt = blockDim.x;
   const float* A = Mi + e * d * d;
   for (int g = tid; g < d * d; g += nt) L[g] = A[g];
-  for (int g = tid; g < d * (d + 1); g += nt) {
+  for (int g = (Minv ? 0 : d * d) + tid; g < d * (d + 1); g += nt) {
     const int c = g / d, r = g - c * d;
     B[g] = c < d ? (r == c ? 1.f : 0.f) : rhs[e * d + r];
   }
@@ -264,8 +267,9 @@ chol_kernel_generic(const float* __restrict__ Mi,
     __syncthreads();
   }
 
-  // L y = b then L^T x = y, one thread per column of [I | rhs]
-  for (int c = tid; c <= d; c += nt) {
+  // L y = b then L^T x = y, one thread per column of [I | rhs] (of rhs
+  // alone without Minv)
+  for (int c = (Minv ? 0 : d) + tid; c <= d; c += nt) {
     float* b = B + (size_t)c * d;
     for (int i = 0; i < d; ++i) {
       const float yi = div_rn(b[i], L[i * d + i], rinv[i]);
@@ -279,7 +283,7 @@ chol_kernel_generic(const float* __restrict__ Mi,
     }
   }
   __syncthreads();
-  for (int g = tid; g < d * d; g += nt) {
+  for (int g = tid; Minv && g < d * d; g += nt) {
     const int r = g / d, c = g - r * d;
     Minv[e * d * d + g] = B[(size_t)c * d + r];
   }
@@ -348,6 +352,7 @@ extern "C" long long chol_scratch_floats(int d) {
              ? (long long)generic_floats(d) : 0;
 }
 
+// Minv null: x alone (no inverse is computed or written).
 extern "C" int chol_inv_solve_f32(const float* Mi, const float* rhs,
                                   float* Minv, float* x, int W, int d,
                                   float* scratch, void* stream) {

@@ -32,6 +32,7 @@ import torch
 from ..core.host_math import (
     np_quat_between_axes,
     np_quat_identity,
+    np_quat_mul,
     np_quat_rotate,
     np_transform,
     np_transform_identity,
@@ -51,7 +52,7 @@ from ..geometry.inertia import (
 from ..geometry.narrow_phase import pair_slot_count
 from ..geometry.types import GeoType, ShapeFlags
 from ..solvers.generalized.actuation import MJCActuation
-from .enums import BodyFlags, JointType, ParticleFlags
+from .enums import BodyFlags, EqType, JointType, ParticleFlags
 from .model import (
     AttributeAssignment,
     AttributeFrequency,
@@ -233,6 +234,18 @@ class ModelBuilder:
         self.tendon_coefs: List[List[float]] = []
         self.tendon_params: List[Tuple[float, float, float]] = []  # ke,kd,L0
         self.tendon_key: List[str] = []
+
+        # equality constraints: bodies (CONNECT, WELD) or joints (JOINT)
+        self.eq_type: List[int] = []
+        self.eq_obj1: List[int] = []
+        self.eq_obj2: List[int] = []
+        self.eq_anchor: List[np.ndarray] = []
+        self.eq_relpose: List[np.ndarray] = []
+        self.eq_polycoef: List[np.ndarray] = []
+        self.eq_enabled: List[bool] = []
+        self.eq_torquescale: List[float] = []
+        self.eq_world: List[int] = []
+        self.eq_key: List[str] = []
 
         # particles
         self.particle_q: List[np.ndarray] = []
@@ -472,6 +485,7 @@ class ModelBuilder:
         self.particle_world += per_world(npart)
         self._copy_topology(o, p0, npart, count)
         self._merge_mjcf_data(o, count, d0, q0, t0)
+        self._copy_equalities(o, count, j0, b0, worlds)
 
     def add_builder(self, other: "ModelBuilder", xform=None,
                     key_prefix: Optional[str] = None) -> None:
@@ -564,6 +578,7 @@ class ModelBuilder:
         self.particle_world += [w] * other.particle_count
         self._copy_topology(other, p0, other.particle_count, 1)
         self._merge_mjcf_data(other, 1, d0, q0, t0)
+        self._copy_equalities(other, 1, j0, b0, [w], pre)
 
     def _copy_topology(self, o: "ModelBuilder", p0: int, npart: int,
                        count: int) -> None:
@@ -872,6 +887,76 @@ class ModelBuilder:
                                    float(rest_length)))
         self.tendon_key.append(key or f"tendon_{idx}")
         return idx
+
+    def add_equality_constraint(
+            self, constraint_type: EqType, body1: int = -1, body2: int = -1,
+            joint1: int = -1, joint2: int = -1,
+            anchor=(0.0, 0.0, 0.0), relpose=None,
+            polycoef: Sequence[float] = (0.0, 1.0, 0.0, 0.0, 0.0),
+            torquescale: float = 1.0, enabled: bool = True,
+            key: Optional[str] = None) -> int:
+        """A CONNECT or WELD constraint between two bodies (-1: the world;
+        ``anchor`` in body1's frame, ``relpose`` body1's pose relative to
+        body2 for a WELD), or a JOINT constraint q1 = poly(q2) between the
+        first coordinates of two joints (``polycoef`` c0..c4; joint2 -1:
+        q1 = c0). The JAX builder's signature."""
+        ct = EqType(constraint_type)
+        idx = len(self.eq_type)
+        if ct == EqType.JOINT:
+            obj1, obj2 = int(joint1), int(joint2)
+        else:
+            obj1, obj2 = int(body1), int(body2)
+        pc = np.zeros(5)
+        pc[:len(polycoef)] = np.asarray(polycoef, dtype=np.float64)[:5]
+        self.eq_type.append(int(ct))
+        self.eq_obj1.append(obj1)
+        self.eq_obj2.append(obj2)
+        self.eq_anchor.append(np.asarray(anchor, dtype=np.float64))
+        self.eq_relpose.append(_as_transform(relpose))
+        self.eq_polycoef.append(pc)
+        self.eq_enabled.append(bool(enabled))
+        self.eq_torquescale.append(float(torquescale))
+        self.eq_world.append(self._current_world)
+        self.eq_key.append(key or f"equality_{idx}")
+        return idx
+
+    def add_constraint_mimic(self, joint1: int, joint2: int,
+                             multiplier: float = 1.0, offset: float = 0.0,
+                             enabled: bool = True,
+                             key: Optional[str] = None) -> int:
+        """Mimic constraint: q1 = offset + multiplier * q2 (a JOINT
+        equality constraint)."""
+        return self.add_equality_constraint(
+            EqType.JOINT, joint1=joint1, joint2=joint2,
+            polycoef=(offset, multiplier, 0.0, 0.0, 0.0), enabled=enabled,
+            key=key)
+
+    def _copy_equalities(self, o: "ModelBuilder", count: int, j0: int,
+                         b0: int, worlds, pre: str = "") -> None:
+        """``count`` copies of ``o``'s equality constraints: copy i's
+        objects move by j0 + i * joints (JOINT) or b0 + i * bodies, and
+        take world ``worlds[i]``."""
+        ne = len(o.eq_type)
+        if not ne:
+            return
+        typ = np.asarray(o.eq_type)
+        is_joint = typ == int(EqType.JOINT)
+        step = np.where(is_joint, o.joint_count, o.body_count)
+        base = np.where(is_joint, j0, b0)
+        for name in ("eq_obj1", "eq_obj2"):
+            a = np.asarray(getattr(o, name), dtype=np.int64)
+            out = (a[None] + base[None] + step[None]
+                   * np.arange(count)[:, None])
+            getattr(self, name).extend(
+                np.where(a[None] >= 0, out, -1).reshape(-1).tolist())
+        self.eq_type += list(o.eq_type) * count
+        for name in ("eq_anchor", "eq_relpose", "eq_polycoef"):
+            getattr(self, name).extend(x.copy() for _ in range(count)
+                                       for x in getattr(o, name))
+        self.eq_enabled += list(o.eq_enabled) * count
+        self.eq_torquescale += list(o.eq_torquescale) * count
+        self.eq_world += np.repeat(np.asarray(worlds), ne).tolist()
+        self.eq_key += [pre + k for k in o.eq_key] * count
 
     def _filter_body_pair(self, body_a: int, body_b: int):
         """Disable collision between every shape of two bodies."""
@@ -1456,6 +1541,114 @@ class ModelBuilder:
     def add_custom_values(self, name: str, values: Dict[int, float]):
         self.custom_attributes[name][1].update(values)
 
+    def add_urdf(self, source: str, xform=None, floating: bool = False,
+                 scale: float = 1.0, key_prefix: Optional[str] = None,
+                 **kwargs):
+        """Import a URDF file or XML string (see ``utils/import_urdf.py``);
+        returns name -> index maps of its bodies and joints."""
+        from ..utils.import_urdf import parse_urdf
+        return parse_urdf(self, source, xform=xform, floating=floating,
+                          scale=scale, key_prefix=key_prefix, **kwargs)
+
+    def collapse_fixed_joints(self) -> None:
+        """Merge every body attached to another body by a fixed joint into
+        that body (mass, COM and inertia combined; its shapes, outgoing
+        joints and CONNECT/WELD constraints moved onto it), the JAX
+        builder's ``collapse_fixed_joints``; bodies fixed to the world
+        stay. Call before ``finalize``. Builders with fixed tendons, MJCF
+        actuators, custom attributes or particles raise (their joint and
+        dof maps are not remapped)."""
+        if (self.tendon_params or self.mjc_actuation is not None
+                or self.custom_attributes or self.particle_count):
+            raise NotImplementedError(
+                "collapse_fixed_joints with fixed tendons, MJCF actuators, "
+                "custom attributes or particles is not ported yet")
+        while True:
+            fixed = [j for j in range(self.joint_count)
+                     if self.joint_type[j] == int(JointType.FIXED)
+                     and self.joint_parent[j] >= 0]
+            if not fixed:
+                return
+            self._collapse_joint(fixed[0])
+
+    def _collapse_joint(self, j: int) -> None:
+        parent, child = self.joint_parent[j], self.joint_child[j]
+        # the child's frame in the parent's, through the joint
+        X_pc = np_transform_multiply(self.joint_X_p[j],
+                                     np_transform_inverse(self.joint_X_c[j]))
+        m_c = self.body_mass[child]
+        if m_c > 0:
+            com_c = np_transform_point(X_pc, self.body_com[child])
+            m_p, c_p = self.body_mass[parent], self.body_com[parent]
+            m_new = m_p + m_c
+            c_new = (m_p * c_p + m_c * com_c) / m_new
+            ident = np.array([0.0, 0, 0, 1])
+            self.body_inertia[parent] = (
+                transform_inertia(m_p, self.body_inertia[parent],
+                                  c_p - c_new, ident)
+                + transform_inertia(m_c, self.body_inertia[child],
+                                    com_c - c_new, X_pc[3:]))
+            self.body_mass[parent] = m_new
+            self.body_com[parent] = c_new
+        for s in range(self.shape_count):
+            if self.shape_body[s] == child:
+                self.shape_body[s] = parent
+                self.shape_transform[s] = np_transform_multiply(
+                    X_pc, self.shape_transform[s])
+        for j2 in range(self.joint_count):
+            if j2 != j and self.joint_parent[j2] == child:
+                self.joint_parent[j2] = parent
+                self.joint_X_p[j2] = np_transform_multiply(
+                    X_pc, self.joint_X_p[j2])
+        q_pc = X_pc[3:]
+        for e, typ in enumerate(self.eq_type):
+            if typ == int(EqType.JOINT):
+                continue
+            rel = self.eq_relpose[e]
+            if self.eq_obj1[e] == child:
+                # body1's anchor into the parent's frame; a WELD holds the
+                # parent at the orientation that held the child
+                self.eq_obj1[e] = parent
+                self.eq_anchor[e] = np_transform_point(X_pc,
+                                                       self.eq_anchor[e])
+                rel = np.concatenate([rel[:3], np_quat_mul(
+                    rel[3:], q_pc * [-1.0, -1.0, -1.0, 1.0])])
+            if self.eq_obj2[e] == child:
+                self.eq_obj2[e] = parent
+                rel = np.concatenate([rel[:3], np_quat_mul(q_pc, rel[3:])])
+            self.eq_relpose[e] = rel
+        # delete joint j (it has no dofs or coordinates) and body child
+        for lst in (self.joint_type, self.joint_parent, self.joint_child,
+                    self.joint_X_p, self.joint_X_c, self.joint_key,
+                    self.joint_world, self.joint_dof_dim):
+            del lst[j]
+        del self.joint_q_start[j + 1]
+        del self.joint_qd_start[j + 1]
+        self.articulation_start = [a - 1 if a > j else a
+                                   for a in self.articulation_start]
+        for e, typ in enumerate(self.eq_type):
+            if typ == int(EqType.JOINT):
+                for name in ("eq_obj1", "eq_obj2"):
+                    if getattr(self, name)[e] > j:
+                        getattr(self, name)[e] -= 1
+        for lst in (self.body_q, self.body_qd, self.body_com, self.body_mass,
+                    self.body_inertia, self.body_flags, self.body_world,
+                    self.body_key):
+            del lst[child]
+
+        def remap(x):
+            return x - 1 if x > child else x
+        self.shape_body = [remap(x) for x in self.shape_body]
+        self.joint_parent = [remap(x) for x in self.joint_parent]
+        self.joint_child = [remap(x) for x in self.joint_child]
+        for e, typ in enumerate(self.eq_type):
+            if typ != int(EqType.JOINT):
+                self.eq_obj1[e] = remap(self.eq_obj1[e])
+                self.eq_obj2[e] = remap(self.eq_obj2[e])
+        self._body_filter_pairs = {
+            (remap(a), remap(b)) for a, b in self._body_filter_pairs
+            if a != child and b != child and remap(a) != remap(b)}
+
     def add_mjcf(self, source: str, **kwargs):
         """Import an MJCF file (see ``utils/import_mjcf.py``)."""
         from ..utils.import_mjcf import parse_mjcf
@@ -1647,6 +1840,9 @@ class ModelBuilder:
                                  -1).astype(i32)
 
         st.soft_pairs, st.soft_contact_max = self._compute_soft_pairs()
+        st.eq_count = len(self.eq_type)
+        st.eq_type = np.asarray(self.eq_type, dtype=i32)
+        st.eq_world = np.asarray(self.eq_world, dtype=i32)
 
         # fixed tendons, padded to the longest with coef 0 at coordinate
         # and dof 0 (the JAX builder's layout); an entry is its axis's own
@@ -1786,6 +1982,14 @@ class ModelBuilder:
                 "particle_max_velocity", "soft_contact_ke",
                 "soft_contact_kd", "soft_contact_kf", "soft_contact_mu",
                 "soft_contact_margin")},
+            eq_obj1=i32t(self.eq_obj1),
+            eq_obj2=i32t(self.eq_obj2),
+            eq_anchor=stack(self.eq_anchor, 3),
+            eq_relpose=stack(self.eq_relpose, 7),
+            eq_polycoef=stack(self.eq_polycoef, 5),
+            eq_enabled=torch.as_tensor(np.asarray(self.eq_enabled,
+                                                  dtype=bool), device=device),
+            eq_torquescale=f32(self.eq_torquescale),
             custom=custom,
             structure=st,
         )

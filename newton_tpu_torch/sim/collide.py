@@ -174,6 +174,7 @@ class CollisionPipeline:
         C = self.rigid_contact_max
         out = Contacts.zeros(C, (W,), dtype=body_q.dtype,
                              device=body_q.device)
+        out.slots = model.structure
         out.rigid_contact_shape0 = self._slot_shape0.expand(W, C).clone()
         out.rigid_contact_shape1 = self._slot_shape1.expand(W, C).clone()
         if C == 0 or not self.classes:

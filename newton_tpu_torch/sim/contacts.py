@@ -14,7 +14,7 @@ soft capacity leaves the soft fields ``None`` (``soft_contact_max == 0``).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 import torch
@@ -39,6 +39,10 @@ class Contacts:
     soft_contact_position: Optional[torch.Tensor] = None  # (P, 3)
     soft_contact_normal: Optional[torch.Tensor] = None    # (P, 3) outward
     soft_contact_depth: Optional[torch.Tensor] = None     # (P,) > 0 inside
+    # the ModelStructure whose static pipeline (CollisionPipeline) filled
+    # these slots, in its slot order; None for Contacts made any other way
+    slots: Optional[object] = field(default=None, repr=False,
+                                    compare=False)
 
     @property
     def rigid_contact_max(self) -> int:

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 from enum import IntEnum, IntFlag
 
-__all__ = ["BodyFlags", "JointType", "ParticleFlags"]
+__all__ = ["BodyFlags", "EqType", "JointType", "ParticleFlags"]
 
 
 class BodyFlags(IntFlag):
@@ -40,3 +40,11 @@ class JointType(IntEnum):
         elif self == JointType.CABLE:
             dof, coord = num_axes, 0
         return dof, coord
+
+
+class EqType(IntEnum):
+    """Equality constraint types (same values as the JAX package's)."""
+
+    CONNECT = 0
+    WELD = 1
+    JOINT = 2

@@ -22,7 +22,7 @@ from .state import State
 
 __all__ = ["Model", "ModelStructure", "AttributeFrequency",
            "AttributeAssignment", "AttributeSpec", "MODEL_FLOAT_FIELDS",
-           "MODEL_INT_FIELDS"]
+           "MODEL_INT_FIELDS", "MODEL_BOOL_FIELDS"]
 
 
 class AttributeFrequency(enum.Enum):
@@ -88,6 +88,8 @@ class ModelStructure:
         self.shape_type = np.zeros(0, dtype=np.int32)
         self.shape_flags = np.zeros(0, dtype=np.int32)
         self.shape_collision_group = np.zeros(0, dtype=np.int32)
+        self.eq_world = np.zeros(0, dtype=np.int32)
+        self.eq_type = np.zeros(0, dtype=np.int32)
 
         self.body_key: List[str] = []
         self.joint_key: List[str] = []
@@ -137,12 +139,15 @@ MODEL_FLOAT_FIELDS = (
     "particle_ke", "particle_kd", "particle_kf", "particle_mu",
     "particle_max_velocity", "soft_contact_ke", "soft_contact_kd",
     "soft_contact_kf", "soft_contact_mu", "soft_contact_margin",
+    "eq_anchor", "eq_relpose", "eq_polycoef", "eq_torquescale",
 )
 MODEL_INT_FIELDS = (
     "body_flags", "shape_body", "shape_type", "shape_flags", "shape_world",
     "joint_type_arr", "joint_parent", "joint_child", "particle_flags",
     "spring_indices", "tri_indices", "edge_indices", "tet_indices",
+    "eq_obj1", "eq_obj2",
 )
+MODEL_BOOL_FIELDS = ("eq_enabled",)
 
 
 @dataclass
@@ -225,6 +230,15 @@ class Model:
     soft_contact_kf: torch.Tensor
     soft_contact_mu: torch.Tensor
     soft_contact_margin: torch.Tensor
+    # equality constraints (E = structure.eq_count; the kinds are
+    # structure.eq_type): bodies (CONNECT, WELD) or joints (JOINT)
+    eq_obj1: torch.Tensor         # (E,) int32, -1 = the world
+    eq_obj2: torch.Tensor         # (E,) int32
+    eq_anchor: torch.Tensor       # (E, 3) in body1's frame
+    eq_relpose: torch.Tensor      # (E, 7) WELD: body1 relative to body2
+    eq_polycoef: torch.Tensor     # (E, 5) JOINT: q1 = poly(q2)
+    eq_enabled: torch.Tensor      # (E,) bool
+    eq_torquescale: torch.Tensor  # (E,)
     custom: Dict[str, torch.Tensor] = field(default_factory=dict)
     structure: ModelStructure = None
 

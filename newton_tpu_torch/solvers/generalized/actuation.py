@@ -19,6 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ...core.segment_sum import FixedOrderSum
+
 __all__ = ["MJCActuation", "ActuationTables", "actuator_forces",
            "DYN_NONE", "GAIN_FIXED", "GAIN_AFFINE", "BIAS_NONE",
            "BIAS_AFFINE"]
@@ -75,7 +77,8 @@ class MJCActuation:
 class ActuationTables:
     """Device copies of the tables ``actuator_forces`` reads."""
 
-    def __init__(self, au: MJCActuation, device, dtype=torch.float32):
+    def __init__(self, au: MJCActuation, device, n_dof: int,
+                 dtype=torch.float32):
         if au.has_muscle:
             raise NotImplementedError("muscle actuators are not ported yet")
         if au.has_act:
@@ -99,6 +102,9 @@ class ActuationTables:
 
         self.n = au.n
         self.dof = i(au.dof)
+        # the actuators' torques into the n_dof dofs in a fixed order (two
+        # actuators may share a dof)
+        self.dof_sum = FixedOrderSum(au.dof, n_dof, device)
         self.coord = i(au.coord)
         self.gear = f(au.gear)
         cr = np.asarray(au.ctrlrange)
@@ -135,5 +141,4 @@ def actuator_forces(tab: ActuationTables, q: torch.Tensor, qd: torch.Tensor,
     force = gain * ctrl_c + bias
     force = torch.where(tab.forcelimited,
                         torch.clamp(force, tab.force_lo, tab.force_hi), force)
-    tau = torch.zeros_like(qd)
-    return tau.index_add_(1, tab.dof, gear * force)
+    return tab.dof_sum(gear * force, dim=1)

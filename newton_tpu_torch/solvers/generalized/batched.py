@@ -18,7 +18,9 @@ external forces, MJCF actuation, CRBA, the
 Cholesky kernel (Euler: one solve of ``M + dt Kd``; RK4: four stages of
 ``M a = tau``, each after FK at its coordinates), the contact rows (top-K
 compacted) and the PGS kernel (or the limits-only solve without
-contacts), the velocity clips, coordinate integration and FK.
+contacts; with warm start B2 starts from the last substep's impulses),
+the equality rows (their system through the Cholesky kernel), the
+velocity clips, coordinate integration, FK and sleeping.
 Every index comes from the solver's device tables (``solver.tables``), in
 the row's local indices.
 """
@@ -44,13 +46,15 @@ from ...math import (
     spatial_cross,
     spatial_cross_dual,
     transform_multiply,
+    transform_point,
     velocity_at_point,
 )
 from ...sim.articulation import angular_axes, fk_bodies
 from ...sim.control import Control
 from ...sim.state import State
 from .actuation import actuator_forces
-from .linalg import chol_inv_solve, chol_inv_solve_plain
+from .linalg import (chol_inv_solve, chol_inv_solve_plain, chol_solve,
+                     chol_solve_plain)
 from .pgs import pgs_solve_fused, pgs_solve_fused_plain
 
 __all__ = ["step", "step_batched", "compaction_indices"]
@@ -241,7 +245,7 @@ def _other_side(o, nrm, t1, t2, pos):
 
 
 def _contact_system(solver, t, Minv, qd_g, v_o, w_o, body_qd, x_b, q,
-                    contacts, dt):
+                    contacts, dt, warm=None):
     """Contact and limit rows of the PGS system: J (W, 3c, d), b and act
     (W, r), mu (W, c) in BLOCK row order [n | t1 | t2 | lim-lo | lim-hi],
     from the row's c contact entries of each env (``contacts``, (W, c);
@@ -250,7 +254,11 @@ def _contact_system(solver, t, Minv, qd_g, v_o, w_o, body_qd, x_b, q,
     depth, 0.5) (batched.py:684-736 of the JAX package), after the
     restitution pre-velocity of every entry. Two-sided entries add the
     other body's motion to the pre-velocity, shift b by its velocity along
-    each row and pass its point inverse mass as B2's ``w_other``."""
+    each row and pass its point inverse mass as B2's ``w_other``. With
+    ``warm`` (W, 3 c) (the last impulses in full entry space, block
+    order), B2 starts from them, gathered through the compaction and
+    zeroed on inactive rows; limit rows start at 0. Returns B2's operands,
+    its keywords and the compaction indices (W, K) (None without)."""
     nrm = contacts.rigid_contact_normal                      # (W, c, 3)
     pos = contacts.rigid_contact_position
     depth = contacts.rigid_contact_depth
@@ -267,6 +275,8 @@ def _contact_system(solver, t, Minv, qd_g, v_o, w_o, body_qd, x_b, q,
     vn_pre = _dot(nrm, vel_of(t.gb1, t.on1) - vel_of(t.gb0, t.on0))
     sign, mu, e_rest = t.sign, t.mu.expand(W, c), t.e_rest.expand(W, c)
     other = getattr(contacts, "other", None)
+    idx = None
+    c_full = c
     if t.cap < c:
         score = active.to(depth.dtype) * torch.clamp(1.0 + depth, min=0.5)
         idx = compaction_indices(score, t.cap)               # (W, K)
@@ -316,6 +326,13 @@ def _contact_system(solver, t, Minv, qd_g, v_o, w_o, body_qd, x_b, q,
     b_rows = torch.cat(b_parts, dim=1)
     act3 = torch.cat(act_parts, dim=1)
     lam0 = torch.zeros_like(b_rows)
+    if warm is not None:
+        # block layout [n | t1 | t2] of the full entries; an index gather
+        # gives the JAX package's one-hot contraction's numbers
+        w3 = warm.view(W, 3, c_full)
+        if idx is not None:
+            w3 = w3.gather(2, idx[:, None, :].expand(W, 3, c))
+        lam0[:, :3 * c] = act3[:, :3 * c] * w3.reshape(W, 3 * c)
     mu = mu.contiguous()
     kw = dict(c=c, ld=t.ld_i32, iters=solver.contact_iterations,
               omega=solver.contact_relaxation,
@@ -323,7 +340,7 @@ def _contact_system(solver, t, Minv, qd_g, v_o, w_o, body_qd, x_b, q,
               diag_scale=diag_scale, reg=solver.contact_reg)
     if w_other is not None:
         kw["w_other"] = w_other
-    return (J, Minv, qd_g, b_rows, act3, mu, lam0), kw
+    return (J, Minv, qd_g, b_rows, act3, mu, lam0), kw, idx
 
 
 def _solve_limits(solver, t, Minv, qd_g, q, dt):
@@ -347,6 +364,75 @@ def _solve_limits(solver, t, Minv, qd_g, q, dt):
         lam = torch.clamp(lam - omega * r / diag, min=0.0)
         lam = torch.where(active, lam, 0.0)
     return qd_g + (Minv[:, :, t.ld] @ (s * lam)[..., None])[..., 0]
+
+
+def _solve_equality(solver, t, Minv, qd_g, v_o, w_o, body_q, q, dt, solve,
+                    record):
+    """Exact bilateral impulse solve of the row's equality constraints
+    (the JAX package's ``_solve_equality``, solver.py:928-1012): per
+    CONNECT three positional rows at the two anchors, per WELD those and
+    three angular rows, per JOINT one row qd1 - poly'(q2) qd2, each with a
+    Baumgarte bias; then (J M^-1 J^T + contact_reg I) lam = -(J qd + b)
+    through B1 without the inverse (``chol_solve``: the kernel on the
+    card), qd += M^-1 J^T lam."""
+    e = t.eq
+    W, d = qd_g.shape
+    vg, wg = v_o[:, t.di], w_o[:, t.di]                      # (W, d, 3)
+    bq = body_q[:, t.bi]                                     # (W, b, 7)
+    beta = solver.baumgarte / dt
+    zero = qd_g.new_zeros(d)
+    ident = e.identity.expand(W, 4)
+    rows_J, rows_b = [], []
+    for i, kind in enumerate(e.kinds):
+        if kind == 2:                   # JOINT: qd1 - poly'(q2) qd2 = 0
+            pc = e.polycoef[i]
+            row = qd_g.new_zeros(W, d)
+            row[:, e.dof1[i]] = 1.0
+            q1 = q[:, e.coord1[i]]
+            if e.dof2[i] >= 0:
+                x2 = q[:, e.coord2[i]]
+                row[:, e.dof2[i]] = -(pc[..., 1] + 2 * pc[..., 2] * x2
+                                      + 3 * pc[..., 3] * x2 ** 2
+                                      + 4 * pc[..., 4] * x2 ** 3)
+                target = (pc[..., 0] + pc[..., 1] * x2 + pc[..., 2] * x2 ** 2
+                          + pc[..., 3] * x2 ** 3 + pc[..., 4] * x2 ** 4)
+            else:
+                target = pc[..., 0]
+            rows_J.append(row[:, None, :])
+            rows_b.append((beta * (q1 - target))[:, None])
+            continue
+        lb1, lb2 = e.lb1[i], e.lb2[i]
+        a1, a2 = e.anchor1[i], e.anchor2[i]
+        p1 = (transform_point(bq[:, lb1], a1) if lb1 >= 0
+              else a1.expand(W, 3))
+        p2 = (transform_point(bq[:, lb2], a2) if lb2 >= 0
+              else a2.expand(W, 3))
+        anc1 = t.anc[lb1] if lb1 >= 0 else zero
+        anc2 = t.anc[lb2] if lb2 >= 0 else zero
+        V1 = vg + cross(wg, p1[:, None, :])                  # (W, d, 3)
+        V2 = vg + cross(wg, p2[:, None, :])
+        Jpos = V1 * anc1[None, :, None] - V2 * anc2[None, :, None]
+        rows_J.append(Jpos.transpose(1, 2))                  # (W, 3, d)
+        rows_b.append(beta * (p1 - p2))
+        if kind == 1:                   # WELD adds the angular rows
+            rows_J.append((wg * (anc1 - anc2)[None, :, None]).transpose(1, 2))
+            q1r = bq[:, lb1, 3:7] if lb1 >= 0 else ident
+            q2r = bq[:, lb2, 3:7] if lb2 >= 0 else ident
+            target_q = quat_mul(q2r, e.relpose[i].expand(W, 4))
+            qe = quat_mul(q1r, quat_conjugate(target_q))
+            qe = torch.where(qe[:, 3:4] < 0, -qe, qe)
+            rows_b.append(beta * 2.0 * qe[:, 0:3])
+    J = torch.cat(rows_J, dim=1)                             # (W, r, d)
+    b = torch.cat(rows_b, dim=1)                             # (W, r)
+    MinvJt = torch.einsum("wde,wre->wdr", Minv, J)
+    A = torch.einsum("wrd,wds->wrs", J, MinvJt)
+    A = A + solver.contact_reg * torch.eye(A.shape[-1], dtype=A.dtype,
+                                           device=A.device)
+    rhs = -(torch.einsum("wrd,wd->wr", J, qd_g) + b)
+    if record is not None:
+        record["eq"] = (A, rhs)
+    lam = solve(A.contiguous(), rhs.contiguous())
+    return qd_g + torch.einsum("wdr,wr->wd", MinvJt, lam)
 
 
 def _integrate_coords(t, q, qd, dt):
@@ -451,10 +537,14 @@ def _substep(solver, grp, state_b: State, control_b, contacts_b, dt: float,
         if record is not None:
             record["chol"] = (Mi, rhs)
         Minv, qd_g = chol(Mi, rhs)
+    custom = {}
     # the impulse solve on M^-1 (stage 1's under RK4)
     if contacts_b is not None:
-        args, kw = _contact_system(solver, t, Minv, qd_g, v_o, w_o, body_qd,
-                                   x_b, q, contacts_b, dt)
+        warm = state_b.custom.get("contact:lam") if solver.warm_start \
+            else None
+        args, kw, idx = _contact_system(solver, t, Minv, qd_g, v_o, w_o,
+                                        body_qd, x_b, q, contacts_b, dt,
+                                        warm)
         if record is not None:
             record["pgs"] = (args, kw)
         pgs = pgs_solve_fused if kernels else pgs_solve_fused_plain
@@ -462,10 +552,27 @@ def _substep(solver, grp, state_b: State, control_b, contacts_b, dt: float,
         if record is not None:
             record["lam"] = lam
         qd_g = qd_g + dqd
+        if solver.warm_start:
+            # back to full entry space (unique slots per row: a plain
+            # scatter, no atomics)
+            c = kw["c"]
+            lam3 = lam[:, :3 * c]
+            if idx is not None:
+                W = lam.shape[0]
+                lam3 = lam.new_zeros(W, 3, contacts_b.rigid_contact_mask
+                                     .shape[1]).scatter_(
+                    2, idx[:, None, :].expand(W, 3, c),
+                    lam3.view(W, 3, c)).view(W, -1)
+            custom["contact:lam"] = lam3
     elif t.nl:
         if record is not None:
             record["limits"] = (Minv, qd_g)
         qd_g = _solve_limits(solver, t, Minv, qd_g, q, dt)
+    # bilateral equality rows, after the contacts and limits
+    if t.eq is not None:
+        qd_g = _solve_equality(solver, t, Minv, qd_g, v_o, w_o, body_q, q, dt,
+                               chol_solve if kernels else chol_solve_plain,
+                               record)
     qd_new = qd.clone()
     qd_new[:, t.di] = qd_g
 
@@ -483,8 +590,23 @@ def _substep(solver, grp, state_b: State, control_b, contacts_b, dt: float,
         v_int = torch.where(torch.isfinite(v_int), v_int, 0.0)
     q_new = _integrate_coords(t, q, v_int, dt)
     body_q2, body_qd2 = fk_bodies(model, q_new, qd_new, body_q, body_qd)
+    if solver.sleep_threshold > 0.0:
+        # a row quiet (every dof below the threshold, no joint_f on it)
+        # for sleep_steps substeps keeps its coordinates and poses bit for
+        # bit and stops (the JAX package's _apply_sleep)
+        speed = qd_new.abs().amax(-1)
+        quiet = speed < solver.sleep_threshold
+        if control_b is not None:
+            quiet = quiet & (control_b.joint_f.abs().amax(-1) == 0.0)
+        cnt = torch.where(quiet, state_b.custom["sleep:count"] + 1, 0)
+        custom["sleep:count"] = cnt.to(torch.int32)
+        asleep = (cnt >= solver.sleep_steps)[:, None]
+        q_new = torch.where(asleep, q, q_new)
+        qd_new = torch.where(asleep, 0.0, qd_new)
+        body_q2 = torch.where(asleep[..., None], body_q, body_q2)
+        body_qd2 = torch.where(asleep[..., None], 0.0, body_qd2)
     return replace(state_b, body_q=body_q2, body_qd=body_qd2, joint_q=q_new,
-                   joint_qd=qd_new)
+                   joint_qd=qd_new, custom=custom)
 
 
 _CONTACT_ROWS = ("rigid_contact_normal", "rigid_contact_position",
@@ -529,20 +651,48 @@ def step_batched(solver, state_b: State, control_b=None, contacts_b=None,
     t = grp.tables
     rows = _contact_rows(grp, contacts_b, lambda x: x if
                          t.slots_are_all else x[:, t.row_slots[0]])
-    return _substep(solver, grp, state_b, control_b, rows, dt, kernels,
-                    record)
+    # the one-world group's entries of State.custom, (W, 1, ...) as
+    # batch_state tiles init_state's, carried as (W, ...)
+    W = state_b.joint_q.shape[0]
+    keys = _custom_keys(solver, grp)
+    if "sleep:count" in keys and keys["sleep:count"] not in state_b.custom:
+        raise ValueError(
+            "sleeping enabled: initialize the state with "
+            "solver.init_state(state) before batch_state to allocate the "
+            "sleep counters")
+    inner = {k: state_b.custom[v].reshape(W, *state_b.custom[v].shape[2:])
+             for k, v in keys.items() if v in state_b.custom}
+    out = _substep(solver, grp, replace(state_b, custom=inner), control_b,
+                   rows, dt, kernels, record)
+    custom = dict(state_b.custom)
+    for k, v in out.custom.items():
+        custom[keys[k]] = v.reshape(W, 1, *v.shape[1:])
+    return replace(out, custom=custom)
 
 
-def _gather_rows(grp, state, control, contacts):
+def _custom_keys(solver, grp):
+    """The substep's own State.custom entries -> the group's keys."""
+    keys = {}
+    if solver.warm_start and grp.plan is not None:
+        keys["contact:lam"] = f"contact:lam:{grp.index}"
+    if solver.sleep_threshold > 0.0:
+        keys["sleep:count"] = f"sleep:count:{grp.index}"
+    return keys
+
+
+def _gather_rows(grp, state, control, contacts, keys=None):
     """A group's rows of a flat State, Control and Contacts: (n, k, ...)
     through the group's (n, k) row tables; a two-sided entry also takes
-    its other body's pre-step pose and velocity."""
+    its other body's pre-step pose and velocity. ``keys`` maps the
+    substep's State.custom entries to the group's (per row already)."""
     t = grp.tables
     rows = replace(
         state, body_q=state.body_q[t.row_body],
         body_qd=state.body_qd[t.row_body], body_f=state.body_f[t.row_body],
         joint_q=state.joint_q[t.row_coord],
-        joint_qd=state.joint_qd[t.row_dof], custom={})
+        joint_qd=state.joint_qd[t.row_dof],
+        custom={k: state.custom[v] for k, v in (keys or {}).items()
+                if v in state.custom})
     ctl = None
     if control is not None:
         custom = {}
@@ -578,7 +728,11 @@ def step(solver, state: State, control: Optional[Control] = None,
     of active contacts that compaction dropped. ``record`` receives what
     ``step_batched`` records; for a model of several groups, one such dict
     per group under ``record["groups"][gi]``."""
+    if solver.sleep_threshold > 0.0 and "sleep:count:0" not in state.custom:
+        # counters allocated lazily, as the JAX package's step does
+        state = solver.init_state(state)
     outs = []
+    custom = dict(state.custom)
     for grp in solver.groups:
         t = grp.tables
         if t.d == 0:
@@ -586,16 +740,17 @@ def step(solver, state: State, control: Optional[Control] = None,
         rec = record
         if record is not None and len(solver.groups) > 1:
             rec = record.setdefault("groups", {}).setdefault(grp.index, {})
-        rows, ctl, crows = _gather_rows(grp, state, control, contacts)
-        outs.append((t, _substep(solver, grp, rows, ctl, crows, dt, kernels,
-                                 rec)))
+        keys = _custom_keys(solver, grp)
+        rows, ctl, crows = _gather_rows(grp, state, control, contacts, keys)
+        out = _substep(solver, grp, rows, ctl, crows, dt, kernels, rec)
+        outs.append((t, out))
+        custom.update({keys[k]: v for k, v in out.custom.items()})
 
     def put(name, idx_name):
         x = getattr(state, name).clone()
         for t, out in outs:
             x[getattr(t, idx_name)] = getattr(out, name)
         return x
-    custom = dict(state.custom)
     for grp in solver.groups:
         key = f"contact:overflow:{grp.index}"
         if key in custom and grp.g.d:

@@ -8,15 +8,18 @@ version beside it, ``chol_inv_solve_plain``, which is the counterpart of the
 JAX package's ``batched._chol_t`` / ``batched._cho_solve_t``. Layout is
 env-major: ``Mi (W, d, d)``, ``rhs (W, d)``. Every d has a kernel instance
 (``kernel_instance`` mirrors the kernel's choice from the shape alone).
+``chol_solve`` launches the same kernel for x alone (the equality rows'
+system, whose inverse nothing reads; the JAX package's ``solve_psd``); its
+x equals ``chol_inv_solve``'s bit for bit.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["chol_inv_solve", "chol_inv_solve_plain", "cholesky_plain",
-           "cho_solve_plain", "kernel_instance", "generic_floats",
-           "INSTANCE_CODES"]
+__all__ = ["chol_inv_solve", "chol_inv_solve_plain", "chol_solve",
+           "chol_solve_plain", "cholesky_plain", "cho_solve_plain",
+           "kernel_instance", "generic_floats", "INSTANCE_CODES"]
 
 _REG_SIZES = (8, 14, 16, 23, 24, 32)    # one warp per env, D registers
 _SMEM_BYTES = 227 * 1024                # shared memory of one H100 block
@@ -93,6 +96,12 @@ def chol_inv_solve_plain(Mi: torch.Tensor, rhs: torch.Tensor):
     return x[:, :, :d].contiguous(), x[:, :, d].contiguous()
 
 
+def chol_solve_plain(Mi: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of ``chol_solve``: x (W, d)."""
+    L = cholesky_plain(Mi)
+    return cho_solve_plain(L, rhs[:, :, None])[:, :, 0].contiguous()
+
+
 def _check(Mi: torch.Tensor, rhs: torch.Tensor):
     if Mi.dtype != torch.float32 or rhs.dtype != torch.float32:
         raise TypeError("chol_inv_solve takes float32 tensors")
@@ -105,21 +114,19 @@ def _check(Mi: torch.Tensor, rhs: torch.Tensor):
         raise ValueError("Mi and rhs must be on the same device")
 
 
-def chol_inv_solve(Mi: torch.Tensor, rhs: torch.Tensor):
-    """Factor Mi = L L^T and return (Minv, x = Mi^-1 rhs), env-major.
-
-    CUDA tensors go to the kernel (or raise); CPU tensors to the plain
-    version. ``chol_inv_solve.launches`` counts kernel launches."""
-    _check(Mi, rhs)
-    if Mi.device.type == "cpu":
-        return chol_inv_solve_plain(Mi, rhs)
+def _launch(Mi: torch.Tensor, rhs: torch.Tensor, wrapper):
+    """One launch of the kernel for ``wrapper`` (``chol_inv_solve``:
+    (Minv, x); ``chol_solve``: (None, x)), counted in
+    ``wrapper.launches``."""
     if Mi.device.type != "cuda":
-        raise ValueError(f"chol_inv_solve: unsupported device {Mi.device}")
+        raise ValueError(f"{wrapper.__name__}: unsupported device "
+                         f"{Mi.device}")
     W, d, _ = Mi.shape
     if not (Mi.is_contiguous() and rhs.is_contiguous()):
-        raise ValueError("chol_inv_solve kernel takes contiguous tensors")
+        raise ValueError(f"{wrapper.__name__} kernel takes contiguous "
+                         "tensors")
     from ... import _kernels
-    Minv = torch.empty_like(Mi)
+    Minv = torch.empty_like(Mi) if wrapper is chol_inv_solve else None
     x = torch.empty_like(rhs)
     scratch = None
     if W and kernel_instance(d) == "generic_global":
@@ -128,11 +135,35 @@ def chol_inv_solve(Mi: torch.Tensor, rhs: torch.Tensor):
     with torch.cuda.device(Mi.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernels.lib().chol_inv_solve_f32(
-            Mi.data_ptr(), rhs.data_ptr(), Minv.data_ptr(), x.data_ptr(),
+            Mi.data_ptr(), rhs.data_ptr(),
+            None if Minv is None else Minv.data_ptr(), x.data_ptr(),
             W, d, None if scratch is None else scratch.data_ptr(), stream)
-    chol_inv_solve.launches += 1
-    _kernels.check(err, "chol_inv_solve")
+    wrapper.launches += 1
+    _kernels.check(err, wrapper.__name__)
     return Minv, x
 
 
+def chol_inv_solve(Mi: torch.Tensor, rhs: torch.Tensor):
+    """Factor Mi = L L^T and return (Minv, x = Mi^-1 rhs), env-major.
+
+    CUDA tensors go to the kernel (or raise); CPU tensors to the plain
+    version. ``chol_inv_solve.launches`` counts kernel launches."""
+    _check(Mi, rhs)
+    if Mi.device.type == "cpu":
+        return chol_inv_solve_plain(Mi, rhs)
+    return _launch(Mi, rhs, chol_inv_solve)
+
+
+def chol_solve(Mi: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """x = Mi^-1 rhs alone, through the same kernel without the inverse.
+
+    CUDA tensors go to the kernel (or raise); CPU tensors to the plain
+    version. ``chol_solve.launches`` counts kernel launches."""
+    _check(Mi, rhs)
+    if Mi.device.type == "cpu":
+        return chol_solve_plain(Mi, rhs)
+    return _launch(Mi, rhs, chol_solve)[1]
+
+
 chol_inv_solve.launches = 0
+chol_solve.launches = 0

@@ -33,8 +33,12 @@ solved in both cells, each with the other body's point inverse mass on its
 Delassus diagonal and the other body's pre-step velocity as a moving
 support. The port covers the static-contact path of the gymnasium robots,
 ball-jointed rods and scenes of several articulations per world, under
-Euler and RK4; articulations attached to another articulation's body,
-joints outside the articulations and contacts of bodies outside them raise
+Euler and RK4, with contact warm start (``warm_start``), sleeping
+(``sleep_threshold``, ``sleep_steps``) and equality constraints (CONNECT,
+WELD and JOINT rows, planned per group as the JAX package plans them);
+articulations attached to another articulation's body, joints outside the
+articulations, contacts of bodies outside them, and equality constraints
+between two articulations or that not every row of a group carries raise
 ``NotImplementedError``.
 """
 
@@ -179,6 +183,147 @@ def _plan_group_contacts(st, groups):
             fill(pad, s, np.int32), fill(-1, l0a, np.int32),
             fill(-1, l1a, np.int32), valid=fill(False, True, bool),
             ob=fill(-1, oba, np.int32), w=fill(1.0, wa, np.float32))
+    return plans
+
+
+def _dof_env_tables(groups, n_dof):
+    """Flat dof -> (group, row, local dof) lookup arrays."""
+    gi_of = -np.ones(n_dof, dtype=np.int32)
+    e_of = -np.ones(n_dof, dtype=np.int32)
+    ld_of = -np.ones(n_dof, dtype=np.int32)
+    for gi, g in enumerate(groups):
+        di = np.asarray(g.dof_idx)                             # (n, d)
+        gi_of[di] = gi
+        e_of[di] = np.arange(g.n, dtype=np.int32)[:, None]
+        ld_of[di] = np.arange(di.shape[1], dtype=np.int32)[None, :]
+    return gi_of, e_of, ld_of
+
+
+class _GroupEquality:
+    """Static equality plan of an articulation group (the JAX package's
+    ``_GroupEquality``): m constraints per row, in ascending constraint
+    order, each row with the same kinds and local indices. ``kinds`` (m,)
+    0 CONNECT, 1 WELD, 2 JOINT; ``lb1``/``lb2`` local bodies (-1 the
+    world); ``dof1``/``dof2``/``coord1``/``coord2`` the JOINT rows' local
+    dofs and coordinates (dof2 -1: q1 = c0); ``anchor1``/``anchor2``
+    (m, 3) in each body's frame (body2's from the initial poses),
+    ``relpose`` (m, 4) and ``polycoef`` (m, 5), each row 0's where every
+    row equals it, else (n, m, ...); ``rows`` the impulse rows (3 per
+    CONNECT, 6 per WELD, 1 per JOINT)."""
+
+    def __init__(self, eq_idx, kinds, lb1, lb2, dof1, dof2, coord1, coord2,
+                 anchor1, anchor2, relpose, polycoef):
+        self.eq_idx, self.kinds = eq_idx, kinds
+        self.lb1, self.lb2 = lb1, lb2
+        self.dof1, self.dof2, self.coord1, self.coord2 = \
+            dof1, dof2, coord1, coord2
+        self.anchor1, self.anchor2 = anchor1, anchor2
+        self.relpose, self.polycoef = relpose, polycoef
+        self.rows = int(sum(3 if k == 0 else (6 if k == 1 else 1)
+                            for k in kinds))
+
+
+def _plan_group_equality(model, groups):
+    """Assign the model's equality constraints to (group, row) cells, the
+    JAX package's ``_plan_group_equality`` (solver.py:1664-1762): a
+    CONNECT/WELD constraint belongs to the cell of body1 (body2 where
+    body1 is the world), a JOINT constraint to the cell of joint1's dof.
+    Where the JAX planner would drop constraints or mix up indices
+    without a word, the port raises naming the case: rows of a group
+    that carry different constraints (ROADMAP C.18), constraints between
+    two cells (C.18), constraints on bodies or joints outside the
+    articulations or with no dof, and disabled constraints (the JAX
+    solver applies them all)."""
+    st = model.structure
+    plans = [None] * len(groups)
+    E = int(st.eq_count)
+    if E == 0:
+        return plans
+    from ...core.host_math import np_transform_inverse, np_transform_point
+    if not bool(model.eq_enabled.all()):
+        raise NotImplementedError(
+            "disabled equality constraints are not ported (the JAX "
+            "package's solver applies every constraint)")
+    bgi, be, blb = _body_env_tables(groups, st.body_count)
+    dgi, de, dld = _dof_env_tables(groups, st.joint_dof_count)
+    bq0 = model.body_q.detach().cpu().double().numpy()
+    obj1 = model.eq_obj1.cpu().numpy().astype(np.int64)
+    obj2 = model.eq_obj2.cpu().numpy().astype(np.int64)
+    anchors = model.eq_anchor.detach().cpu().double().numpy()
+    relposes = model.eq_relpose.detach().cpu().double().numpy()
+    polys = model.eq_polycoef.detach().cpu().double().numpy()
+    qs = np.asarray(st.joint_q_start, dtype=np.int64)
+    ds = np.asarray(st.joint_qd_start, dtype=np.int64)
+    per_cell = {}
+    for e in range(E):
+        kind, o1, o2 = int(st.eq_type[e]), int(obj1[e]), int(obj2[e])
+        if kind == 2:
+            if o1 < 0 or ds[o1 + 1] == ds[o1]:
+                raise NotImplementedError(
+                    f"equality constraint {e}: a JOINT constraint on joint "
+                    f"{o1}, which has no dof, is not ported")
+            d1 = ds[o1]
+            if dgi[d1] < 0:
+                raise NotImplementedError(
+                    f"equality constraint {e}: joint {o1} lies outside the "
+                    "articulations")
+            cell = (int(dgi[d1]), int(de[d1]))
+            ld2 = lc2 = -1
+            if o2 >= 0:
+                d2 = ds[o2]
+                if ds[o2 + 1] == d2 or (int(dgi[d2]), int(de[d2])) != cell:
+                    raise NotImplementedError(
+                        f"equality constraint {e}: a JOINT constraint "
+                        "between joints of two articulations or worlds is "
+                        "not ported (ROADMAP C.18)")
+                ld2 = int(dld[d2])
+            g = groups[cell[0]]
+            c_base = int(g.coord_idx[cell[1]][0])
+            lc2 = int(qs[o2]) - c_base if o2 >= 0 else -1
+            per_cell.setdefault(cell, []).append(
+                (e, 2, -1, -1, int(dld[d1]), ld2, int(qs[o1]) - c_base, lc2,
+                 np.zeros(3), np.zeros(3), np.array([0.0, 0, 0, 1]),
+                 polys[e]))
+            continue
+        cells = {(int(bgi[b]), int(be[b])) for b in (o1, o2) if b >= 0}
+        if any(b >= 0 and bgi[b] < 0 for b in (o1, o2)) or not cells:
+            raise NotImplementedError(
+                f"equality constraint {e}: bodies outside the "
+                "articulations are not ported")
+        if len(cells) > 1:
+            raise NotImplementedError(
+                f"equality constraint {e}: a constraint between bodies of "
+                "two articulations or worlds is not ported (ROADMAP C.18)")
+        a1 = anchors[e]
+        p_w = np_transform_point(bq0[o1], a1) if o1 >= 0 else a1
+        a2 = (np_transform_point(np_transform_inverse(bq0[o2]), p_w)
+              if o2 >= 0 else p_w)
+        per_cell.setdefault(cells.pop(), []).append(
+            (e, kind, int(blb[o1]) if o1 >= 0 else -1,
+             int(blb[o2]) if o2 >= 0 else -1, -1, -1, -1, -1, a1, a2,
+             relposes[e][3:7], polys[e]))
+    for gi, g in enumerate(groups):
+        rows = [per_cell.get((gi, r), []) for r in range(g.n)]
+        if not any(rows):
+            continue
+        if len({len(r) for r in rows}) != 1:
+            raise NotImplementedError(
+                f"articulation group {gi}: rows with different numbers of "
+                "equality constraints are not ported (the JAX planner drops "
+                "them: ROADMAP C.18)")
+        key = [tuple(x[1:8]) for x in rows[0]]
+        if any([tuple(x[1:8]) for x in r] != key for r in rows[1:]):
+            raise NotImplementedError(
+                f"articulation group {gi}: rows whose equality constraints "
+                "differ in kind or local bodies and joints are not ported "
+                "(the JAX planner applies row 0's: ROADMAP C.18)")
+        idx = np.asarray([[x[0] for x in r] for r in rows], dtype=np.int32)
+        col = [np.asarray([x[k] for x in rows[0]], dtype=np.int32)
+               for k in range(1, 8)]
+        per_row = [np.asarray([[x[k] for x in r] for r in rows])
+                   for k in range(8, 12)]
+        plans[gi] = _GroupEquality(idx, *col, *[
+            a[0] if (a == a[:1]).all() else a for a in per_row])
     return plans
 
 
@@ -349,7 +494,8 @@ class SolverFeatherstone:
                  contact_cap: Optional[int] = None,
                  integrator: str = "euler",
                  warm_start: bool = False,
-                 sleep_threshold: float = 0.0):
+                 sleep_threshold: float = 0.0,
+                 sleep_steps: int = 16):
         integrator = str(integrator).lower()
         if integrator not in ("euler", "implicitfast", "implicit", "rk4"):
             raise ValueError(f"unknown integrator {integrator!r}")
@@ -357,17 +503,11 @@ class SolverFeatherstone:
             raise NotImplementedError(
                 f"integrator {integrator!r} is not ported yet (euler and "
                 "rk4 only)")
-        if warm_start:
-            raise NotImplementedError("contact warm start is not ported yet")
-        if sleep_threshold > 0.0:
-            raise NotImplementedError("sleeping is not ported yet")
         if friction_cone not in ("pyramid", "cone"):
             raise ValueError(f"unknown friction_cone {friction_cone!r}")
         st = model.structure
-        for what, n in (("equality constraints", st.eq_count),
-                        ("spatial tendons", st.sten_count)):
-            if n:
-                raise NotImplementedError(f"{what} are not ported yet")
+        if st.sten_count:
+            raise NotImplementedError("spatial tendons are not ported yet")
 
         self.model = model
         self.integrator = integrator
@@ -381,6 +521,14 @@ class SolverFeatherstone:
         self.friction_cone = friction_cone
         self.max_velocity = float(max_velocity)
         self.contact_cap = contact_cap
+        # contact impulses carried from substep to substep in full slot
+        # space (State.custom["contact:lam:<gi>"]), the start of B2's sweep
+        self.warm_start = bool(warm_start)
+        # a row whose dofs all stay below sleep_threshold, with no
+        # joint_f on them, for sleep_steps substeps freezes (counters in
+        # State.custom["sleep:count:<gi>"])
+        self.sleep_threshold = float(sleep_threshold)
+        self.sleep_steps = int(sleep_steps)
 
         gc = get_generalized_cache(st)
         groups = gc.groups
@@ -388,6 +536,7 @@ class SolverFeatherstone:
             raise NotImplementedError(
                 "joints outside the articulations are not ported yet")
         self.contact_plans = _plan_group_contacts(st, groups)
+        self.equality_plans = _plan_group_equality(model, groups)
         # each group's static plan: its tendons and actuators per row
         # (n, T) and (n, A), and its limit rows (decided on row 0's limits,
         # as the JAX package does)
@@ -413,7 +562,8 @@ class SolverFeatherstone:
         self.groups = []
         self.limit_plans = []
         for gi, g in enumerate(groups):
-            grp = SimpleNamespace(index=gi, g=g, plan=self.contact_plans[gi])
+            grp = SimpleNamespace(index=gi, g=g, plan=self.contact_plans[gi],
+                                  eplan=self.equality_plans[gi])
             t_idx = np.nonzero(tend[0] == gi)[0]
             a_idx = np.nonzero(acts[0] == gi)[0]
             grp.tendon_rows = t_idx[_entity_rows(tend[1][t_idx], g.n,
@@ -493,7 +643,8 @@ class SolverFeatherstone:
                                            grp.tendon_rows, grp.act_rows)
             grp.gc = get_generalized_cache(rm.structure)
             rau = rm.structure.mjc_actuation
-            grp.actuation = (ActuationTables(rau, self.model.device)
+            grp.actuation = (ActuationTables(rau, self.model.device,
+                                             rm.structure.joint_dof_count)
                              if rau is not None and rau.n > 0 else None)
             grp.tables = self._build_tables(grp)
 
@@ -618,6 +769,10 @@ class SolverFeatherstone:
         t.lim_coord = L(g.coord_idx[0][lc]) if len(ld) else L([])
         t.lim_lo = model.joint_limit_lower[..., t.di[t.ld]]
         t.lim_hi = model.joint_limit_upper[..., t.di[t.ld]]
+        # equality rows
+        t.eq = None
+        if grp.eplan is not None:
+            t.eq = self._equality_tables(grp.eplan, L, F)
         # integration
         fj = gc.free_joints
         t.free_p = L(fj[:, 0:1] + np.arange(3)[None])
@@ -673,20 +828,48 @@ class SolverFeatherstone:
                 inv_inertia=full.body_inv_inertia[obc],
                 com=full.body_com[obc])
 
+    def _equality_tables(self, ep, L, F):
+        """The equality plan on the device: per constraint its kind and
+        local indices (host ints: the rows are built by a loop over the
+        constraints, as in the JAX package) and its constants, (3,) or,
+        where the rows differ, (n, 3)."""
+        return SimpleNamespace(
+            rows=ep.rows, kinds=ep.kinds.tolist(), lb1=ep.lb1.tolist(),
+            lb2=ep.lb2.tolist(), dof1=ep.dof1.tolist(),
+            dof2=ep.dof2.tolist(), coord1=ep.coord1.tolist(),
+            coord2=ep.coord2.tolist(),
+            anchor1=F(ep.anchor1).unbind(-2), anchor2=F(ep.anchor2).unbind(-2),
+            relpose=F(ep.relpose).unbind(-2),
+            polycoef=F(ep.polycoef).unbind(-2), identity=F([0, 0, 0, 1]))
+
     def init_state(self, state):
-        """The State with the solver's entries of ``State.custom``: for each
-        group ``gi`` whose contact cap is below its slot count,
-        ``contact:overflow:<gi>`` (int32 per row), the number of active
-        contacts that top-K compaction dropped in the last step (the JAX
-        package's ``init_state`` without sleeping and warm start)."""
+        """The State with the solver's entries of ``State.custom`` (the JAX
+        package's ``init_state``), for each group ``gi``: with sleeping,
+        ``sleep:count:<gi>`` (int32 per row), the substeps each row has
+        been quiet; with warm start and a contact plan,
+        ``contact:lam:<gi>`` (float32 (rows, 3 c)), the last impulses in
+        full slot space, block order [n | t1 | t2]; and where the contact
+        cap is below the slot count, ``contact:overflow:<gi>`` (int32 per
+        row), the number of active contacts that top-K compaction dropped
+        in the last step."""
         custom = dict(state.custom)
+        dev = state.joint_q.device
         for grp in self.groups:
-            plan = grp.plan
+            gi, n, plan = grp.index, grp.g.n, grp.plan
+            if self.sleep_threshold > 0.0:
+                custom.setdefault(f"sleep:count:{gi}",
+                                  torch.zeros((n,), dtype=torch.int32,
+                                              device=dev))
+            if self.warm_start and plan is not None and grp.g.d:
+                custom.setdefault(f"contact:lam:{gi}",
+                                  torch.zeros((n, 3 * plan.c),
+                                              dtype=torch.float32,
+                                              device=dev))
             if (plan is not None and grp.g.d
                     and self._plan_cap(plan.c) < plan.c):
-                custom.setdefault(f"contact:overflow:{grp.index}",
-                                  torch.zeros((grp.g.n,), dtype=torch.int32,
-                                              device=state.joint_q.device))
+                custom.setdefault(f"contact:overflow:{gi}",
+                                  torch.zeros((n,), dtype=torch.int32,
+                                              device=dev))
         return replace(state, custom=custom)
 
     def step(self, state_in, state_out=None, control=None, contacts=None,

@@ -1,10 +1,12 @@
 """Semi-implicit (symplectic Euler) force-based solver (port of
 ``newton_tpu/solvers/solver_semi_implicit.py``).
 
-Explicit particle forces, each scattered with ``index_add_``: springs,
-co-rotational membrane triangles, NeoHookean tetrahedra, a dihedral
-spring on each bending edge and penalty soft contacts with friction; then
-one symplectic Euler step of the bodies and the particles. The 3x3
+Explicit particle forces: springs, co-rotational membrane triangles,
+NeoHookean tetrahedra, a dihedral spring on each bending edge and penalty
+soft contacts with friction, every term summed into its particle by one
+fixed-order sum over a table built at construction (two runs of a step are
+equal bit for bit on the card, where ``index_add_`` adds in no fixed
+order); then one symplectic Euler step of the bodies and the particles. The 3x3
 determinants and inverses of the tetrahedra are closed-form, so a step
 never waits for the device.
 
@@ -19,8 +21,10 @@ from __future__ import annotations
 from dataclasses import replace
 from typing import Optional
 
+import numpy as np
 import torch
 
+from ..core.segment_sum import FixedOrderSum, check_static_slots
 from ..math import det3, inv3
 from ..sim.contacts import Contacts
 from ..sim.control import Control
@@ -66,6 +70,12 @@ class SolverSemiImplicit(SolverBase):
             self._edges = (torch.clamp(ei[:, 0], min=0),
                            torch.clamp(ei[:, 1], min=0), ei[:, 2], ei[:, 3],
                            (ei[:, 0] >= 0) & (ei[:, 1] >= 0))
+        # each force term's particle, in _particle_forces' order
+        self._force_dst = [c.cpu().numpy() for part in (
+            self._springs, self._tris, self._tets,
+            self._edges[:4] if self._edges is not None else None)
+            if part is not None for c in part]
+        self._sums = {}
 
     def step(self, state_in: State, state_out: Optional[State] = None,
              control: Optional[Control] = None,
@@ -87,7 +97,7 @@ class SolverSemiImplicit(SolverBase):
     def _particle_forces(self, model: Model, state: State,
                          contacts: Optional[Contacts]) -> torch.Tensor:
         px, pv = state.particle_q, state.particle_qd
-        f = torch.zeros_like(px)
+        terms = []
 
         if self._springs is not None:
             i, j = self._springs
@@ -98,8 +108,7 @@ class SolverSemiImplicit(SolverBase):
             fs = (model.spring_stiffness * (dist - model.spring_rest_length)
                   + model.spring_damping * dv)
             fvec = n * fs[:, None]
-            f.index_add_(0, i, fvec)
-            f.index_add_(0, j, -fvec)
+            terms += [fvec, -fvec]
 
         if self._tris is not None:
             a, b, c = self._tris
@@ -124,9 +133,7 @@ class SolverSemiImplicit(SolverBase):
             f1 = H[:, 0, 0, None] * u1 + H[:, 1, 0, None] * u2
             f2 = H[:, 0, 1, None] * u1 + H[:, 1, 1, None] * u2
             vd = kd[:, None] * (pv[a] + pv[b] + pv[c]) / 3.0
-            f.index_add_(0, a, -(f1 + f2) - vd)
-            f.index_add_(0, b, f1 - vd)
-            f.index_add_(0, c, f2 - vd)
+            terms += [-(f1 + f2) - vd, f1 - vd, f2 - vd]
 
         if self._tets is not None:
             a, b, c, d_ = self._tets
@@ -146,10 +153,8 @@ class SolverSemiImplicit(SolverBase):
                 P @ model.tet_poses.transpose(-1, -2))
             fb, fc, fd = H[:, :, 0], H[:, :, 1], H[:, :, 2]
             vdamp = k_damp[:, None]
-            f.index_add_(0, a, -(fb + fc + fd) - vdamp * pv[a])
-            f.index_add_(0, b, fb - vdamp * pv[b])
-            f.index_add_(0, c, fc - vdamp * pv[c])
-            f.index_add_(0, d_, fd - vdamp * pv[d_])
+            terms += [-(fb + fc + fd) - vdamp * pv[a], fb - vdamp * pv[b],
+                      fc - vdamp * pv[c], fd - vdamp * pv[d_]]
 
         if self._edges is not None:
             o0, o1, v0, v1, valid = self._edges
@@ -170,12 +175,11 @@ class SolverSemiImplicit(SolverBase):
                       * (theta - model.edge_rest_angle) * valid)[:, None]
             d3 = n1 / n1n[:, None]
             d4 = n2 / n2n[:, None]
-            f.index_add_(0, o0, -torque * d3 * 0.5)
-            f.index_add_(0, o1, -torque * d4 * 0.5)
-            f.index_add_(0, v0, torque * (d3 + d4) * 0.25)
-            f.index_add_(0, v1, torque * (d3 + d4) * 0.25)
+            terms += [-torque * d3 * 0.5, -torque * d4 * 0.5,
+                      torque * (d3 + d4) * 0.25, torque * (d3 + d4) * 0.25]
 
         if contacts is not None and contacts.soft_contact_max:
+            check_static_slots(contacts, model.structure, soft=True)
             pi = contacts.soft_contact_particle.long()
             n = contacts.soft_contact_normal
             depth = contacts.soft_contact_depth
@@ -188,6 +192,26 @@ class SolverSemiImplicit(SolverBase):
             vt_n = _norm(vt)
             ft = -vt / torch.clamp(vt_n, min=1e-6)[:, None] * torch.minimum(
                 model.particle_kf * vt_n, model.soft_contact_mu * fn)[:, None]
-            f.index_add_(0, pi, n * fn[:, None]
-                         + torch.where(act[:, None], ft, 0.0))
-        return f
+            terms.append(n * fn[:, None] + torch.where(act[:, None], ft, 0.0))
+        soft = contacts is not None and contacts.soft_contact_max > 0
+        if not terms:
+            return torch.zeros_like(px)
+        return self._force_sum(soft)(torch.cat(terms))
+
+    def _force_sum(self, soft: bool) -> FixedOrderSum:
+        """The fixed-order sum of ``_particle_forces``' terms, in their
+        order: springs (i, j), triangles (a, b, c), tetrahedra (a, b, c,
+        d), bending edges (o0, o1, v0, v1), then, with ``soft``, the
+        static pipeline's soft slots (``soft_pairs``)."""
+        s = self._sums.get(soft)
+        if s is None:
+            model = self.model
+            dst = list(self._force_dst)
+            if soft:
+                sp = np.asarray(model.structure.soft_pairs,
+                                dtype=np.int64).reshape(-1, 2)
+                dst.append(sp[:, 0])
+            dst = (np.concatenate(dst) if dst else np.zeros(0, np.int64))
+            s = FixedOrderSum(dst, model.particle_count, model.device)
+            self._sums[soft] = s
+        return s

@@ -8,7 +8,10 @@ system A x = M/h^2 y + sum_c w_c S_c^T p_c, with A = M/h^2 + sum_c w_c
 S_c^T S_c, matrix-free by 8 iterations of Jacobi-preconditioned CG
 warm-started from the previous iterate (A is the same scalar matrix on the
 three axes, so the axes are three right-hand sides of one CG). A matvec is
-two ``index_add_`` scatters over the constraint list. Soft contacts add a
+one gather over each vertex's constraint neighbours, summed in a fixed
+order (tables built at construction: two runs of a substep are equal bit
+for bit on the card, where ``index_add_`` adds in no fixed order); so is
+the right-hand side's sum of projections. Soft contacts add a
 penalty force to the inertia target, self-contact (hash-grid vertex pairs
 anchored at the start of the step) a penalty force to each iteration's
 right-hand side, so A never changes.
@@ -26,6 +29,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core.segment_sum import (FixedOrderSum, check_static_slots,
+                                soft_contact_sum)
 from ..geometry.hashgrid import HashGrid
 from ..sim.contacts import Contacts
 from ..sim.control import Control
@@ -146,6 +151,23 @@ class SolverStyle3D(SolverBase):
         self._b = torch.as_tensor(pairs[:, 1], device=dev)
         self.c_rest = torch.as_tensor(rest, device=dev)
         self.w = torch.as_tensor(w, dtype=torch.float32, device=dev)
+        # each vertex's incident constraints in ascending order, padded
+        # with weight 0 (constraint 0, neighbour 0): (N, K) neighbour,
+        # constraint index and sign (+1 where the vertex is the pair's
+        # first end, -1 its second, 0 a pad)
+        n = len(pairs)
+        T = FixedOrderSum(np.concatenate([pairs[:, 0], pairs[:, 1]]), N,
+                          dev).table.cpu().numpy()
+        pad = T == 2 * n
+        other = np.concatenate([pairs[:, 1], pairs[:, 0], [0]])
+        self._nbr = torch.as_tensor(other[T], device=dev)
+        self._nbr_con = torch.as_tensor(np.where(pad, 0, T % max(n, 1)),
+                                        device=dev)
+        self._nbr_sgn = torch.as_tensor(
+            np.where(pad, 0.0, np.where(T < n, 1.0, -1.0)),
+            dtype=torch.float32, device=dev)[..., None]
+        self._nbr_w = self._weights(self.w)
+        self._soft_sum = None
         # each vertex's summed constraint weight, in the JAX package's
         # order of accumulation (float64)
         self._deg_w = np.zeros(N)
@@ -178,13 +200,16 @@ class SolverStyle3D(SolverBase):
             self._diags[dt] = d
         return d
 
+    def _weights(self, w: torch.Tensor) -> torch.Tensor:
+        """(N, K, 1) weights of each vertex's neighbours (0 on pads)."""
+        return w[self._nbr_con][..., None] * self._nbr_sgn.abs()
+
     def _apply_A(self, x: torch.Tensor, diag: torch.Tensor,
                  w: torch.Tensor) -> torch.Tensor:
-        """A x for (N, 3) x, matrix-free over the constraint list."""
-        y = diag[:, None] * x
-        y.index_add_(0, self._a, -w[:, None] * x[self._b])
-        y.index_add_(0, self._b, -w[:, None] * x[self._a])
-        return y
+        """A x for (N, 3) x, matrix-free: each vertex's neighbours summed
+        in a fixed order."""
+        wn = self._nbr_w if w is self.w else self._weights(w)
+        return diag[:, None] * x - (wn * x[self._nbr]).sum(1)
 
     def _pcg(self, x0: torch.Tensor, rhs: torch.Tensor, diag: torch.Tensor,
              w: torch.Tensor, iters: int) -> torch.Tensor:
@@ -231,8 +256,11 @@ class SolverStyle3D(SolverBase):
             act = contacts.soft_contact_mask & (depth > 0)
             f = torch.where(act[:, None], self.contact_ke * depth[:, None]
                             * contacts.soft_contact_normal, 0.0)
-            f_con = torch.zeros_like(x0).index_add_(
-                0, contacts.soft_contact_particle.long(), f)
+            check_static_slots(contacts, model.structure, soft=True)
+            if self._soft_sum is None:
+                self._soft_sum = soft_contact_sum(model.structure, N,
+                                                  self.device)
+            f_con = self._soft_sum(f)
             a_ext = a_ext + f_con * inv_m
         y = x0 + dt * v0 * active + dt * dt * a_ext
 
@@ -249,8 +277,8 @@ class SolverStyle3D(SolverBase):
             d = x[a] - x[b]
             dist = torch.clamp(torch.linalg.vector_norm(d, dim=-1), min=1e-9)
             contrib = w[:, None] * (d * (self.c_rest / dist)[:, None])
-            rhs = rhs_inertia.index_add(0, a, contrib).index_add_(
-                0, b, -contrib)
+            rhs = rhs_inertia + (self._nbr_sgn
+                                 * contrib[self._nbr_con]).sum(1)
             if nbr is not None:
                 idx, msk = nbr
                 dd = x[idx] - x[:, None, :]

@@ -28,6 +28,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core.segment_sum import check_static_slots, soft_contact_sum
 from ..geometry.hashgrid import HashGrid
 from ..math import solve3
 from ..sim.contacts import Contacts
@@ -148,6 +149,7 @@ class SolverVBD(SolverBase):
                  self_contact_max_per_cell: int = 4,
                  coloring: ColoringAlgorithm = ColoringAlgorithm.MCS):
         super().__init__(model)
+        self._soft_sum = None
         self.iterations = int(iterations)
         self.contact_ke = float(contact_ke)
         self.handle_self_contact = bool(handle_self_contact)
@@ -302,16 +304,20 @@ class SolverVBD(SolverBase):
         if contacts is not None and contacts.soft_contact_max > 0:
             # the penalty of each particle's active contacts, constant
             # through the sweeps
-            pi = contacts.soft_contact_particle.long()
             depth = contacts.soft_contact_depth
             nrm = contacts.soft_contact_normal
             act = contacts.soft_contact_mask & (depth > 0)
-            gP = torch.zeros_like(x0).index_add_(0, pi, torch.where(
-                act[:, None], -self.contact_ke * depth[:, None] * nrm, 0.0))
-            HP = x0.new_zeros((N, 3, 3)).index_add_(0, pi, torch.where(
-                act[:, None, None], self.contact_ke * nrm[:, :, None]
-                * nrm[:, None, :], 0.0))
-            soft = (gP, HP)
+            check_static_slots(contacts, model.structure, soft=True)
+            if self._soft_sum is None:
+                self._soft_sum = soft_contact_sum(model.structure, N,
+                                                  x0.device)
+            # gradient and Hessian summed in one fixed-order pass
+            gH = torch.cat([
+                -self.contact_ke * depth[:, None] * nrm,
+                (self.contact_ke * nrm[:, :, None] * nrm[:, None, :]
+                 ).flatten(1)], 1)
+            gH = self._soft_sum(torch.where(act[:, None], gH, 0.0))
+            soft = (gH[:, 0:3], gH[:, 3:12].unflatten(1, (3, 3)))
         nbr = None
         if self.handle_self_contact and N > 1 and \
                 self.self_contact_radius > 0:

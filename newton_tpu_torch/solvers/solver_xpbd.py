@@ -11,9 +11,11 @@ model: every world of a replicated model at once, since worlds share no
 joint or contact.
 
 The JAX package sums the corrections with ``segment_sum``; here every such
-sum is ``index_add_``, which on the card adds in no fixed order, so two runs
-may differ in the last bits. Particles, cables, hydroelastic (compliant)
-contacts, soft contacts and Dahl friction are not ported and raise.
+sum is a ``FixedOrderSum`` over tables built once from the joint list and
+the static pipeline's contact slots, so two runs of a substep are equal bit
+for bit on the card (``index_add_`` would add in no fixed order).
+Particles, cables, hydroelastic (compliant) contacts, soft contacts and
+Dahl friction are not ported and raise.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core.segment_sum import FixedOrderSum, check_static_slots
 from ..math import (
     cross,
     quat_conjugate,
@@ -163,6 +166,7 @@ class SolverXPBD(SolverBase):
         cb = None
         lam_n = torch.zeros(C, dtype=x.dtype, device=x.device)
         if C:
+            check_static_slots(contacts, model.structure, rigid=True)
             cb = plan.contact_bodies(model, contacts)
             cb.anchors = plan.contact_local_anchors(model, state_in,
                                                     contacts, cb)
@@ -174,15 +178,13 @@ class SolverXPBD(SolverBase):
                 model, x, q, Iinv, dt, self.joint_linear_compliance,
                 self.joint_angular_compliance, control)]
             if C:
-                idx, vals, lam_n = plan.solve_rigid_contacts(
+                vals, lam_n = plan.solve_rigid_contacts(
                     model, x, q, Iinv, contacts, cb, lam_n, dt,
                     self.max_depenetration_velocity)
                 vals = torch.cat([vals[:, 0:6] * contact_scale,
                                   vals[:, 6:7]], -1)
-                rows.append((idx, vals))
-            idx = torch.cat([r[0] for r in rows])
-            acc = x.new_zeros(B, 7).index_add_(
-                0, idx, torch.cat([r[1] for r in rows]))
+                rows.append(vals)
+            acc = plan.sums(C)[1](torch.cat(rows))
             denom = torch.clamp(acc[:, 6:7], min=1.0)
             x = x + self.relaxation * acc[:, 0:3] / denom
             dq = quat_mul(torch.cat([acc[:, 3:6] / denom,
@@ -268,6 +270,14 @@ class _XPBDPlan:
                                    device=dev)[:, None]
         parent = np.asarray(st.joint_parent, dtype=np.int64)
         self.J = J
+        self.dev = dev
+        B = st.body_count
+        child = np.asarray(st.joint_child, dtype=np.int64)
+        # the destinations of the sums: each joint's row for its child,
+        # then for its parent (none for a joint to the world)
+        self._jdst = np.concatenate([child, np.where(parent >= 0, parent,
+                                                     -1)])
+        self._sums = {}
         self.parent = L(np.maximum(parent, 0))
         self.hasp = Bm(parent >= 0)
         self.child = L(st.joint_child)
@@ -303,6 +313,9 @@ class _XPBDPlan:
         if len(one):
             j = L(one)
             self.f_joint = SimpleNamespace(
+                sum=FixedOrderSum(np.concatenate([
+                    child[one], np.where(parent[one] >= 0, parent[one],
+                                         -1)]), B, dev),
                 dof=L(dof0[one]), parent=self.parent[j],
                 hasp=self.hasp[j], child=self.child[j], rev=self.rev[j],
                 X_p=model.joint_X_p[j], axis=self.axis[j],
@@ -311,6 +324,36 @@ class _XPBDPlan:
         self.shape_body = L(st.shape_body)
         self.gravity = body_gravity(model)
         self.dynamic = (model.body_inv_mass > 0)[:, None]
+
+    def sums(self, C: int):
+        """The fixed-order sums of a substep with C contact slots: (the
+        contact rows' (2C: body1's, then body0's), the joint rows' then
+        the contact rows' (2J + 2C)), each into the B bodies. Built once
+        per C from the static pipeline's slots (``slot_shape0/1``), which
+        ``CollisionPipeline(model)`` fills in that order; a static side
+        drops its (zero) row."""
+        s = self._sums.get(C)
+        if s is None:
+            st = self.st
+            S = len(np.asarray(st.slot_shape0))
+            if C and C != S:
+                raise ValueError(
+                    f"SolverXPBD sums the {S} contact slots of the model's "
+                    f"static pipeline (CollisionPipeline(model)); got {C}")
+            sb = np.asarray(st.shape_body, dtype=np.int64)
+
+            def body(shape):
+                shape = np.asarray(shape, dtype=np.int64)
+                return np.where(shape >= 0, sb[np.maximum(shape, 0)], -1)
+            cdst = (np.concatenate([body(st.slot_shape1),
+                                    body(st.slot_shape0)]) if C
+                    else np.zeros(0, np.int64))
+            B = st.body_count
+            s = (FixedOrderSum(cdst, B, self.dev),
+                 FixedOrderSum(np.concatenate([self._jdst, cdst]), B,
+                               self.dev))
+            self._sums[C] = s
+        return s
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -341,9 +384,8 @@ class _XPBDPlan:
         t_p = torch.where(fj.rev, -force,
                           cross(X_pj[:, 0:3] - com_p, -force))
         wrench_p = torch.cat([-f_c, t_p], -1) * fj.hasp
-        return f_out.index_add_(0, torch.cat([fj.child, fj.parent]),
-                                torch.cat([torch.cat([f_c, t_c], -1),
-                                           wrench_p]))
+        return f_out + fj.sum(torch.cat([torch.cat([f_c, t_c], -1),
+                                         wrench_p]))
 
     # ------------------------------------------------------------------
     def solve_joints(self, model: Model, x, q, Iinv, dt, lin_compliance,
@@ -352,11 +394,10 @@ class _XPBDPlan:
         none; ball joints positional only; revolute axis alignment and
         limits; prismatic slide limits; fixed and prismatic rotation lock;
         target drives of revolute and prismatic joints with a stiffness).
-        Returns (body index, rows [dx | dtheta | count] (2J, 7)): each
-        joint's row for its child, then for its parent."""
+        Returns the rows [dx | dtheta | count] (2J, 7): each joint's row
+        for its child, then for its parent (``sums``' order)."""
         if self.J == 0:
-            return (torch.zeros(0, dtype=torch.long, device=x.device),
-                    x.new_zeros(0, 7))
+            return x.new_zeros(0, 7)
         parent, child, hasp = self.parent, self.child, self.hasp
         p_origin = x - quat_rotate(q, model.body_com)
         pose = torch.cat([p_origin, q], -1)
@@ -435,7 +476,7 @@ class _XPBDPlan:
         rows = torch.cat([
             torch.cat([lin_c, -_mv(Iinv_c, tor_c), cnt[:, None]], -1),
             torch.cat([lin_p, _mv(Iinv_p, tor_p), cnt[:, None] * hasp], -1)])
-        return torch.cat([child, parent]), rows
+        return rows
 
     # ------------------------------------------------------------------
     def contact_bodies(self, model: Model, contacts: Contacts):
@@ -451,8 +492,7 @@ class _XPBDPlan:
         return SimpleNamespace(
             b0=torch.where(dyn0, b0r, 0), b1=torch.where(dyn1, b1r, 0),
             dyn0=dyn0[:, None], dyn1=dyn1[:, None],
-            seg=torch.cat([torch.where(dyn1, b1r, 0),
-                           torch.where(dyn0, b0r, 0)]),
+            sum=self.sums(contacts.rigid_contact_max)[0],
             mu=0.5 * (mu[s0] + mu[s1]), e=0.5 * (e[s0] + e[s1]))
 
     def contact_local_anchors(self, model: Model, state_in: State,
@@ -479,9 +519,8 @@ class _XPBDPlan:
         """Non-penetration and positional (static) friction corrections of
         every slot, penetration measured at the current poses from the
         collide-time anchors; the push-out is capped at max_depen_vel dt.
-        Returns (body index, rows [dx | dtheta | count] (2C, 7): each
-        slot's row for body1, then body0), and the accumulated normal
-        impulses."""
+        Returns the rows [dx | dtheta | count] (2C, 7) (each slot's row
+        for body1, then body0) and the accumulated normal impulses."""
         b0, b1, dyn0, dyn1 = cb.b0, cb.b1, cb.dyn0, cb.dyn1
         inv_m = model.body_inv_mass
         im0 = torch.where(dyn0[:, 0], inv_m[b0], 0.0)
@@ -519,7 +558,7 @@ class _XPBDPlan:
                        act * dyn1], -1),
             torch.cat([-imp * im0[:, None], -_mv(I0, cross(r0, imp)),
                        act * dyn0], -1)])
-        return cb.seg, rows, lam_n
+        return rows, lam_n
 
     # ------------------------------------------------------------------
     def velocity_plan(self, model: Model, x, q, state_in: State,
@@ -527,7 +566,6 @@ class _XPBDPlan:
         """What the four velocity passes of a substep share: the slots'
         arms, generalized inverse masses, active masks and averaging
         divisors, and the pre-step normal velocities for restitution."""
-        B = model.body_count
         b0, b1, dyn0, dyn1 = cb.b0, cb.b1, cb.dyn0, cb.dyn1
         Iinv = self.inv_inertia_world(model, q)
         inv_m = model.body_inv_mass
@@ -544,7 +582,7 @@ class _XPBDPlan:
         vp.active = contacts.rigid_contact_mask & (lam_n > 0.0)
         vp.f_cap = cb.mu * lam_n / dt
         act = vp.active.to(x.dtype)
-        vp.div = self._divisor(act, cb, B)
+        vp.div = self._divisor(act, cb)
         if enable_restitution:
             x_in = state_in.body_q[:, 0:3] + quat_rotate(
                 state_in.body_q[:, 3:7], model.body_com)
@@ -566,12 +604,11 @@ class _XPBDPlan:
         return vp
 
     @staticmethod
-    def _divisor(act, cb, B):
+    def _divisor(act, cb):
         """Each slot's averaging divisor: the larger active-slot count of
         its two dynamic bodies, at least 1."""
         d0, d1 = cb.dyn0[:, 0].to(act.dtype), cb.dyn1[:, 0].to(act.dtype)
-        cnt = act.new_zeros(B).index_add_(0, cb.seg,
-                                          torch.cat([act * d1, act * d0]))
+        cnt = cb.sum(torch.cat([act * d1, act * d0]))
         return torch.clamp(torch.maximum(cnt[cb.b1] * d1, cnt[cb.b0] * d0),
                            min=1.0)
 
@@ -603,7 +640,7 @@ class _XPBDPlan:
             dvn = torch.where(vp.approach, vp.vn_target - vn,
                               torch.where(bias, -excess, 0.0))
             rest = vp.approach | bias
-            div_r = self._divisor(rest.to(v.dtype), cb, v.shape[0])
+            div_r = self._divisor(rest.to(v.dtype), cb)
             imp = imp + n * torch.where(
                 rest, dvn / torch.clamp(vp.w_n, min=1e-9) / div_r,
                 0.0)[:, None]
@@ -612,5 +649,5 @@ class _XPBDPlan:
                        _mv(vp.I1, cross(vp.r1, imp)) * dyn1], -1),
             torch.cat([-imp * (vp.im0 * dyn0[:, 0])[:, None],
                        -_mv(vp.I0, cross(vp.r0, imp)) * dyn0], -1)])
-        acc = v.new_zeros(v.shape[0], 6).index_add_(0, cb.seg, rows)
+        acc = cb.sum(rows)
         return v + acc[:, 0:3], w + acc[:, 3:6]

@@ -4,11 +4,12 @@ The bridge takes plain dicts of numpy arrays (and Python values for the
 structure), so it imports neither jax nor the JAX package: the caller
 reads the JAX ``Model`` leaves and ``ModelStructure`` fields into numpy
 (``np.asarray(getattr(model, name))`` for every name in
-``MODEL_FLOAT_FIELDS``/``MODEL_INT_FIELDS``, ``getattr(structure, name)``
-for ``STRUCTURE_FIELDS``) and gets the port's objects on a device. The
-``*_to_numpy`` functions go the other way, so a round trip is exact. A
-multi-world model (``replicate``, ``add_world``) needs nothing more: its
-leaves are the flat ones, and its world tables are structure fields.
+``MODEL_FLOAT_FIELDS``/``MODEL_INT_FIELDS``/``MODEL_BOOL_FIELDS``,
+``getattr(structure, name)`` for ``STRUCTURE_FIELDS``) and gets the
+port's objects on a device. The ``*_to_numpy`` functions go the other
+way, so a round trip is exact. A multi-world model (``replicate``,
+``add_world``) needs nothing more: its leaves are the flat ones, and its
+world tables are structure fields.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 from ..sim.contacts import Contacts
 from ..sim.control import Control
 from ..sim.model import (
+    MODEL_BOOL_FIELDS,
     MODEL_FLOAT_FIELDS,
     MODEL_INT_FIELDS,
     AttributeAssignment,
@@ -53,7 +55,7 @@ STRUCTURE_FIELDS = (
     "mjc_options", "particle_count", "particle_world",
     "tendon_coord", "tendon_dof", "tendon_coef",
     "spring_count", "tri_count", "edge_count", "tet_count", "soft_pairs",
-    "soft_contact_max",
+    "soft_contact_max", "eq_world", "eq_type",
 )
 ACTUATION_FIELDS = ("n", "dof", "coord", "tendon", "sten", "gear",
                     "dyntype", "dynprm", "gaintype", "gainprm", "biastype",
@@ -116,20 +118,25 @@ def model_from_numpy(leaves: Dict[str, Any], structure: Dict[str, Any],
                      device) -> Model:
     """The port's Model on ``device`` from numpy leaves and structure
     fields (``structure["mjc_actuation"]`` is a dict of ACTUATION_FIELDS
-    or None; ``structure["custom_specs"]`` maps names to dicts of
+    or None; ``leaves["eq_enabled"]`` may be missing (all enabled);
+    ``structure["custom_specs"]`` maps names to dicts of
     frequency/assignment values, shape and default)."""
     kw = {n: _tensor(leaves[n], device, torch.float32)
           for n in MODEL_FLOAT_FIELDS}
     kw.update({n: _tensor(leaves[n], device, torch.int32)
                for n in MODEL_INT_FIELDS})
+    # eq_enabled may be left out: every constraint enabled
+    kw["eq_enabled"] = _tensor(leaves.get(
+        "eq_enabled", np.ones(int(structure["eq_count"]), bool)), device,
+        torch.bool)
     kw["custom"] = {k: _tensor(v, device, torch.float32)
                     for k, v in leaves.get("custom", {}).items()}
     return Model(structure=_structure_from_dict(structure), **kw)
 
 
 def model_to_numpy(model: Model) -> Tuple[dict, dict]:
-    leaves = {n: _numpy(getattr(model, n))
-              for n in MODEL_FLOAT_FIELDS + MODEL_INT_FIELDS}
+    leaves = {n: _numpy(getattr(model, n)) for n in
+              MODEL_FLOAT_FIELDS + MODEL_INT_FIELDS + MODEL_BOOL_FIELDS}
     leaves["custom"] = {k: _numpy(v) for k, v in model.custom.items()}
     st = model.structure
     structure = {n: getattr(st, n) for n in STRUCTURE_FIELDS}

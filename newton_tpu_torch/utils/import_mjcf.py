@@ -16,9 +16,9 @@ hinges' common ``pos``. A slide's ``ref`` shifts its limits into
 displacement space and is kept in the ``mjc:qpos_ref`` coordinate
 attribute at that slide's coordinate. Plane/sphere/box/capsule/cylinder
 geoms with contype/conaffinity, ``<tendon><fixed>`` couplings of hinges,
-and motor/position/velocity actuators on hinges and slides into the
-``MJCActuation`` tables. Actuators and tendons address each joint's own dof
-and coordinate.
+``<equality>`` connect, weld and joint rows, and motor/position/velocity
+actuators on hinges and slides into the ``MJCActuation`` tables.
+Actuators and tendons address each joint's own dof and coordinate.
 
 Visual-only elements (lights, cameras, textures, materials, ``<visual>``,
 ``<size>``) are skipped by name. Every other element raises
@@ -45,7 +45,7 @@ from ..core.host_math import (
 )
 from ..core.types import MAXVAL
 from ..sim.builder import JointDofConfig
-from ..sim.enums import JointType
+from ..sim.enums import EqType, JointType
 from ..sim.model import AttributeAssignment, AttributeFrequency
 from ..solvers.generalized.actuation import (
     BIAS_AFFINE,
@@ -56,7 +56,7 @@ from ..solvers.generalized.actuation import (
 __all__ = ["parse_mjcf"]
 
 _TOP_LEVEL = {"compiler", "option", "custom", "default", "asset",
-              "worldbody", "actuator", "tendon"}
+              "worldbody", "actuator", "tendon", "equality"}
 _VISUAL_ONLY = {"visual", "size", "light", "camera", "texture", "material"}
 _BODY_CHILDREN = {"body", "geom", "joint", "freejoint"}
 
@@ -185,6 +185,7 @@ def parse_mjcf(builder, source: str):
 
     name_to_body: Dict[str, int] = {"world": -1}
     name_to_joint: Dict[str, tuple] = {}      # hinge -> (joint, axis)
+    eq_joint: Dict[str, tuple] = {}           # hinge, slide -> (joint, axis)
     joint_dof_start: Dict[str, int] = {}
     joint_coord_start: Dict[str, int] = {}
     coord_refs: Dict[int, float] = {}         # slide coordinate -> ref
@@ -407,6 +408,8 @@ def parse_mjcf(builder, source: str):
                 joint_coord_start[j["name"]] = jq_start + k
                 if j["type"] == "hinge":
                     name_to_joint[j["name"]] = (jidx, k)
+                if j["type"] in ("hinge", "slide"):
+                    eq_joint[j["name"]] = (jidx, k)
         for g in elem.findall("geom"):
             add_geom(g, body_idx, childclass)
         for child in elem.findall("body"):
@@ -440,6 +443,10 @@ def parse_mjcf(builder, source: str):
     tendon_root = root.find("tendon")
     if tendon_root is not None:
         _parse_tendons(builder, tendon_root, resolve_attrs, name_to_joint)
+
+    eq_root = root.find("equality")
+    if eq_root is not None:
+        _parse_equality(builder, eq_root, name_to_body, eq_joint)
 
     act_root = root.find("actuator")
     if act_root is not None:
@@ -489,6 +496,67 @@ def _parse_tendons(builder, tendon_root, resolve_attrs, name_to_joint):
                 stiffness=_parse_float(a.get("stiffness"), 0.0),
                 damping=_parse_float(a.get("damping"), 0.0),
                 key=fx.get("name"))
+
+
+def _parse_equality(builder, eq_root, name_to_body, eq_joint):
+    """``<connect>`` (anchor in body1's frame), ``<weld>`` (body1 held at
+    body2's orientation and at its initial offset) and ``<joint>`` (q1 =
+    polycoef(q2)) as the JAX importer reads them; a missing body2 or
+    joint2 is the world or a constant. ``solref``/``solimp`` are not read
+    (the solver's rows are hard, as the JAX package's). Attributes that
+    would change the constraint and are not ported raise."""
+    def body(eq, attr):
+        name = eq.get(attr)
+        if name is None:
+            return -1
+        if name not in name_to_body:
+            raise ValueError(f"MJCF <{eq.tag}> {attr}={name!r} names no body")
+        return name_to_body[name]
+
+    def joint(eq, attr):
+        name = eq.get(attr)
+        if name is None:
+            return -1
+        if name not in eq_joint:
+            raise ValueError(f"MJCF <joint> equality {attr}={name!r} names "
+                             "no hinge or slide")
+        j, k = eq_joint[name]
+        if k:
+            raise NotImplementedError(
+                f"MJCF <joint> equality on {name!r}, the axis {k} of a "
+                "multi-axis joint, is not supported by the port yet")
+        return j
+
+    for eq in eq_root:
+        if eq.tag not in ("connect", "weld", "joint"):
+            _unsupported(eq.tag, "equality")
+        if eq.get("active", "true") != "true":
+            raise NotImplementedError(
+                "MJCF inactive equality constraints are not supported by "
+                "the port yet")
+        if eq.tag == "weld":
+            for attr in ("relpose", "anchor", "torquescale"):
+                if attr in eq.attrib:
+                    raise NotImplementedError(
+                        f"MJCF <weld> attribute {attr!r} is not supported "
+                        "by the port yet")
+        if eq.tag == "connect":
+            builder.add_equality_constraint(
+                EqType.CONNECT, body1=body(eq, "body1"),
+                body2=body(eq, "body2"),
+                anchor=_parse_vec(eq.get("anchor"), default=[0, 0, 0], n=3),
+                key=eq.get("name"))
+        elif eq.tag == "weld":
+            builder.add_equality_constraint(
+                EqType.WELD, body1=body(eq, "body1"), body2=body(eq, "body2"),
+                key=eq.get("name"))
+        else:
+            builder.add_equality_constraint(
+                EqType.JOINT, joint1=joint(eq, "joint1"),
+                joint2=joint(eq, "joint2"),
+                polycoef=_parse_vec(eq.get("polycoef"),
+                                    default=[0, 1, 0, 0, 0], n=5),
+                key=eq.get("name"))
 
 
 def _parse_actuators(builder, act_root, resolve_attrs, joint_dof_start,

@@ -15,6 +15,8 @@ import chip_smoke
     ("pgs_solve_fused", dict(c=25, nl=8, d=14), 6656),     # ant
     ("chol_inv_solve", dict(d=23), 4416),                  # humanoid
     ("chol_inv_solve", dict(d=14), 1680),                  # ant
+    ("chol_solve", dict(d=6), 192),                        # WELD rows
+    ("chol_solve", dict(d=1), 12),                         # mimic row
     ("pgs_solve_fused", dict(c=192, nl=17, d=23), 65824),  # uncompacted
 ])
 def test_bytes_per_env(name, shape, nbytes):
@@ -36,6 +38,17 @@ def test_pgs_w_other_cost():
                                           d=d, w_other=True)
     assert got_b == base_b + 4 * 3 * c
     assert got_f == base_f + 3 * c + 2 * 11 * 3 * c
+
+
+def test_chol_solve_counts_one_column():
+    """The solve alone: the factor's FMAs and the two substitutions of one
+    column (d (d - 1) FMAs, 2 d divisions), no inverse written."""
+    d = 3
+    nbytes, flops = chip_smoke.kernel_cost("chol_solve", d=d)
+    assert nbytes == 4 * (d * d + 2 * d)
+    assert flops == 2 * ((d - 1) * d * (d + 1) // 6 + d * (d - 1)) + 3 * d
+    full = chip_smoke.kernel_cost("chol_inv_solve", d=d)
+    assert nbytes < full[0] and flops < full[1]
 
 
 def test_pgs_flops_count():

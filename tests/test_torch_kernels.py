@@ -66,6 +66,25 @@ def test_chol_plain_matches_pallas(d):
                                rtol=1e-5)
 
 
+@pytest.mark.parametrize("d", [1, 3, 6])
+def test_chol_solve_plain_matches_solve_psd(d):
+    """B1 without the inverse on the equality systems' sizes (r = 1, 3,
+    6) against the JAX package's solve_psd, and bit for bit the x of the
+    full plain version."""
+    import jax.numpy as jnp
+    from newton_tpu.solvers.generalized.linalg import solve_psd
+    W = 64
+    rng = np.random.RandomState(100 + d)
+    spd = _spd(rng, W, d)
+    rhs = rng.randn(W, d).astype(np.float32)
+    x = linalg.chol_solve(torch.as_tensor(spd), torch.as_tensor(rhs))
+    ref = np.asarray(solve_psd(jnp.asarray(spd), jnp.asarray(rhs)))
+    np.testing.assert_allclose(x.numpy(), ref, atol=1e-5, rtol=1e-5)
+    _, x_full = linalg.chol_inv_solve_plain(torch.as_tensor(spd),
+                                            torch.as_tensor(rhs))
+    assert torch.equal(x, x_full)
+
+
 @pytest.mark.parametrize("nl", [0, 3])
 @pytest.mark.parametrize("use_cone", [False, True])
 def test_pgs_plain_matches_pallas(nl, use_cone):
@@ -146,6 +165,8 @@ def test_wrappers_check_inputs():
         linalg.chol_inv_solve(M.double(), torch.zeros(2, 4).double())
     with pytest.raises(ValueError):
         linalg.chol_inv_solve(M, torch.zeros(2, 5))
+    with pytest.raises(ValueError):
+        linalg.chol_solve(M, torch.zeros(2, 5))
     args = [torch.as_tensor(a) for a in _pgs_inputs(0, 2, 0, 4, 3)]
     with pytest.raises(ValueError):
         pgs.pgs_solve_fused(*args, c=3, ld=torch.zeros(0, dtype=torch.int32),
@@ -176,6 +197,26 @@ def test_chol_kernel_matches_plain(d):
     minv_p, x_p = linalg.chol_inv_solve_plain(Mi, rhs)
     torch.testing.assert_close(minv_k, minv_p, atol=1e-5, rtol=1e-4)
     torch.testing.assert_close(x_k, x_p, atol=1e-5, rtol=1e-4)
+
+
+@gpu
+@needs_cuda
+@pytest.mark.parametrize("d", [1, 3, 6, 45])
+def test_chol_solve_kernel_matches_plain(d):
+    """The kernel without the inverse (the equality rows' sizes, and the
+    generic instance at 45): x bit for bit the plain version's and the
+    full kernel's, one count on chol_solve and none on chol_inv_solve."""
+    rng = np.random.RandomState(200 + d)
+    W = 4097
+    Mi = torch.as_tensor(_spd(rng, W, d), device="cuda")
+    rhs = torch.as_tensor(rng.randn(W, d).astype(np.float32), device="cuda")
+    before = (linalg.chol_solve.launches, linalg.chol_inv_solve.launches)
+    x = linalg.chol_solve(Mi, rhs)
+    torch.cuda.synchronize()
+    assert (linalg.chol_solve.launches,
+            linalg.chol_inv_solve.launches) == (before[0] + 1, before[1])
+    assert torch.equal(x, linalg.chol_solve_plain(Mi, rhs))
+    assert torch.equal(x, linalg.chol_inv_solve(Mi, rhs)[1])
 
 
 @gpu

@@ -192,6 +192,13 @@ def test_humanoid_raises_naming_element(tmp_path):
 def test_unsupported_mjcf_raises(tmp_path, snippet, word):
     path = tmp_path / "m.xml"
     path.write_text(f'<mujoco model="m">{snippet}</mujoco>')
+    if word == "equality":
+        # <equality> imports now (connect, weld and joint rows); an empty
+        # section adds no constraint
+        b = nt.ModelBuilder()
+        b.add_mjcf(str(path))
+        assert b.eq_type == [] and b.finalize("cpu").structure.eq_count == 0
+        return
     if word == "slide":
         # a slide then a hinge in one body is one D6 joint now; a slide
         # after a hinge (a translation along a rotated axis) still raises
