@@ -134,7 +134,7 @@ Phases, one line each:
  21. ant x 4096 under SolverXPBD (bench.py --solver xpbd: replicate, the
      static pipeline, iterations 8, dt 1/240, 4 substeps, direct ctrl x
      mjc:actuator_gear each frame from a seeded generator): 10 warm-up
-     and 20 timed frames (bench.py times 50), no NaN, unit quaternions,
+     and 10 timed frames (bench.py times 50), no NaN, unit quaternions,
      root z > 0 in every world and > 0.1 in 99% (the JAX package's XPBD
      ant sinks below 0.1 too, ROADMAP C.13), no B1/B2 launch (no TPU
      kernel lies on the XPBD path); 8 worlds stepped 4 substeps on the
@@ -216,9 +216,30 @@ Phases, one line each:
      add_urdf (15 frames of 8 substeps at dt 1/480, its test_final in
      every world) and the same robot with a <mimic> elbow (|q_elbow +
      q_shoulder| < 2e-2).
-Phases 21 and 24-27 run one substep twice on the card and require the
-two results to be equal bit for bit (every sum whose terms share a
-destination adds in a fixed order).
+ 32. the Newton QP (the ant x 4096, solver="newton": one B1 and no B2 per
+     substep, no host sync beyond the Euler PGS substep's, the masked
+     solve timed), tests/test_parity_mujoco.py's resting ball x 4096 (1
+     s at dt 0.002, force within 1% of the weight, z within 2e-3) and
+     the ant under penalty limits without body forces (B2 at (25, 0,
+     14));
+ 33. the humanoid x 4096 under implicitfast (one B1 and B2 per substep,
+     equal to Euler within 1e-6: D = 0) and implicit (LU, no B1; B2 in
+     its non-symmetric form, held against its twin within 1e-5);
+ 34. example_tendon_finger.py's finger x 4096 (spatial tendon over wrap
+     cylinders), 3 s under euler and implicitfast: the pip flexes past
+     0.3 rad, |q| < 1 after 2.5 s;
+ 35. the test arm (newton_tpu_torch/assets/muscle_arm.xml: muscles on
+     spatial tendons, filter, cylinder, intvelocity and damper actuators)
+     x 4096 under euler and implicitfast: activations in [0, 1], the
+     flexor flexes the elbow; SolverSemiImplicit's muscle pair x 4096;
+ 36. SolverKamino: the heavy stack x 1024 (error < 0.03, PGS's > 2x), the
+     kicked four-bar x 4096 (drift < 2e-2) and build_stacks(3, 2) x 1024
+     (islands equal the dense factor within 5e-5 / 5e-4).
+Phases 21, 24-27 and 32-36 run one substep twice on the card and require
+the two results to be equal bit for bit (every sum whose terms share a
+destination adds in a fixed order); phases 32-36 also step 64 worlds on
+the card against the same on the CPU (joint_q/body_q 2e-4, joint_qd
+5e-3) and report peak device memory.
 It prints one JSON line listing the kernels (name, route, source,
 launches, error, times, and each time's least possible time on an H100
 SXM at 700 W from ``kernel_cost``: bound_ms, bound_by, share_of_bound;
@@ -232,7 +253,8 @@ the pyramid's uncompacted (288, 0, 36) off the main path; B1 without
 the inverse on the equality systems (chol_solve, bound on the solve's
 own bytes, beside torch.linalg.solve(A, rhs)), B1 on the sleeping boxes
 and the URDF pendulum, B2 with a
-warm lam0 on the ant, the boxes and the humanoid), then the card
+warm lam0 on the ant, the boxes and the humanoid; B1 and B2 at each
+shape of phases 32-36, B2's non-symmetric form among them), then the card
 line, then the result line ``{"ok": true,
 "device": {...}}``. Any failed phase raises: exit code != 0 and no result
 line. Without a CUDA device it exits 2 at once. A ``[details]`` line
@@ -1895,7 +1917,7 @@ SHOWCASE_W = 1024
 ROD_DT = 1.0 / 480.0                  # example_rod_swing.py
 ROD_SUBSTEPS = 8
 ROD_FRAMES = 60                       # 1 s, the example's test_final
-ROD_TURN_FRAMES = 4                   # frames per turn of the rate turns
+ROD_TURN_FRAMES = 2                   # frames per turn of the rate turns
 ROD_SPACING = 0.1
 BALL_RADIUS = 0.2                     # the ant's ball: 0.45 kg, 0.2 m
 BALL_MASS = 0.45
@@ -2536,7 +2558,7 @@ def phase_showcase_ragged(dev):
 XPBD_W = 4096                         # bench.py --solver xpbd's worlds
 XPBD_ITERS = 8
 XPBD_WARMUP = 10
-XPBD_FRAMES = 20                      # bench.py times 50
+XPBD_FRAMES = 10                      # bench.py times 50
 XPBD_CPU_WORLDS = 8
 REPEAT_FIELDS_RIGID = ("body_q", "body_qd", "joint_q", "joint_qd")
 BOX_W = 1024
@@ -2627,7 +2649,7 @@ def phase_ant_xpbd(dev):
     """ant x 4096 under SolverXPBD (bench.py --solver xpbd: replicate,
     the static pipeline, iterations 8, dt 1/240, 4 substeps per frame,
     direct ctrl x gear each frame from a seeded generator): 10 warm-up
-    and 20 timed frames; bench.py's gates (no NaN in joint_q/body_q, unit
+    and 10 timed frames; bench.py's gates (no NaN in joint_q/body_q, unit
     quaternions to 1e-2), root z > 0 in every world and > 0.1 in 99% of
     them (the JAX package's XPBD ant also sinks below 0.1 in a few
     worlds: ROADMAP C.13); no B1/B2 launch (no TPU kernel lies on the
@@ -3292,13 +3314,13 @@ def phase_semi_implicit(dev):
 IK_PROBLEMS = 4096                    # bench.py --worlds' default
 IK_SEEDS = 4                          # bench_ik
 IK_ITERS = 16                         # bench_ik
-IK_REPS = 5                           # bench_ik's timed solves
+IK_REPS = 2                           # bench_ik times 5
 IK_CPU_PROBLEMS = 64
 IK_TIP_TOL = 0.02                     # tests/test_utils.py:87
 WS_W = 4096
 WS_FRAMES = 60                        # tests/test_utils.py:139
 SLEEP_FRAMES = 60                     # tests/test_examples.py
-WS_TURN_FRAMES = 5
+WS_TURN_FRAMES = 2
 EQ_W = 4096
 EQ_FRAMES = 60                        # tests/test_equality.py
 URDF_W = 4096
@@ -3400,9 +3422,13 @@ def ik_tip_error(model, q, targets):
     return torch.linalg.vector_norm(ik_tip_point(model, q) - targets, dim=-1)
 
 
+SYNC_SITES = []
+
+
 def count_syncs(fn):
     """(fn's result, host synchronizations it made): CUDA's sync debug
-    mode warns at each synchronizing call."""
+    mode warns at each synchronizing call; the Python lines that made them
+    are left in SYNC_SITES."""
     import warnings
     import torch
     torch.cuda.synchronize()
@@ -3413,7 +3439,12 @@ def count_syncs(fn):
             out = fn()
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    return out, sum("synchroniz" in str(w.message) for w in caught)
+    # one warning per synchronizing call ("called a synchronizing CUDA
+    # operation"); the mode's own notice, once per process, is not one
+    SYNC_SITES[:] = [f"{w.filename}:{w.lineno}: {str(w.message)[:200]}"
+                     for w in caught
+                     if "called a synchronizing" in str(w.message)]
+    return out, len(SYNC_SITES)
 
 
 def phase_ik(dev):
@@ -3421,7 +3452,7 @@ def phase_ik(dev):
     [IKObjectivePosition(link=2, offset=(0.5, 0, 0))], iterations=16,
     n_seeds=4) (GAUSS seeds from the solver's generator, drawn anew in
     each solve, as a user calls it) on 4096 seeded targets: a warm-up
-    solve, then 5 timed solves; finite q, tip error below 0.02 in >= 99%
+    solve, then 2 timed solves; finite q, tip error below 0.02 in >= 99%
     of problems, host syncs per solve (at most one), peak device memory.
     64 problems on the card against the port on the CPU, both handed one
     draw of the seeds (``IKSolver.seeds`` replaced): the residual (1e-5)
@@ -3918,6 +3949,211 @@ def phase_equality(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 32-36: the rest of the generalized solvers
+# ---------------------------------------------------------------------------
+
+NQP_W = 4096                          # phase 32: the ant under the Newton QP
+BALL_W = 4096                         # phase 32: the resting ball
+BALL_DT = 0.002                       # tests/test_parity_mujoco.py:188
+BALL_STEPS = 500                      # 1 s
+FINGER_W = 4096                       # phase 34
+FINGER_FRAMES = 180                   # 3 s at 4 x 1/240
+FINGER_PULL_S = 1.5                   # example_tendon_finger.py
+ARM_W = 4096                          # phase 35
+ARM_DT = 0.002                        # muscle_arm.xml's timestep
+ARM_STEPS = 150
+PAIR_W = 4096                         # phase 35: SolverSemiImplicit muscles
+PAIR_STEPS = 200                      # tests/test_solvers.py:140
+STACK_W = 1024                        # phase 36
+STACK_FRAMES = 120
+FOURBAR_W = 4096
+FOURBAR_FRAMES = 120
+ISLAND_W = 1024
+ISLAND_STEPS = 60                     # tests/test_kamino_islands.py
+PARITY_W = 64                         # the card against the CPU, one substep
+HEAVY_ZS = (0.25, 0.75, 1.25)         # example_heavy_stack_kamino.py
+MUSCLE_ARM = "muscle_arm.xml"         # newton_tpu_torch/assets
+
+# example_tendon_finger.py's MJCF (newton_tpu/examples): a two-segment
+# finger flexed by a spatial tendon over a wrap cylinder at each knuckle
+FINGER_MJCF = """
+<mujoco model="finger">
+  <option gravity="0 0 -9.81" timestep="0.004"/>
+  <worldbody>
+    <site name="origin" pos="-0.02 0 -0.02"/>
+    <body name="proximal" pos="0 0 0">
+      <joint name="mcp" type="hinge" axis="0 1 0" range="-5 95"
+             damping="0.05"/>
+      <geom name="pseg" type="capsule" fromto="0 0 0 0.05 0 0" size="0.009"/>
+      <geom name="pwrap" type="cylinder" pos="0.0 0 -0.012" zaxis="0 1 0"
+            size="0.008 0.012" contype="0" conaffinity="0"/>
+      <site name="pal" pos="0.025 0 -0.011"/>
+      <body name="distal" pos="0.05 0 0">
+        <joint name="pip" type="hinge" axis="0 1 0" range="-5 110"
+               damping="0.05"/>
+        <geom name="dseg" type="capsule" fromto="0 0 0 0.04 0 0"
+              size="0.008"/>
+        <geom name="dwrap" type="cylinder" pos="0.0 0 -0.011" zaxis="0 1 0"
+              size="0.007 0.011" contype="0" conaffinity="0"/>
+        <site name="tip" pos="0.035 0 -0.009"/>
+      </body>
+    </body>
+  </worldbody>
+  <tendon>
+    <spatial name="flexor" stiffness="45" damping="0.3">
+      <site site="origin"/>
+      <geom geom="pwrap"/>
+      <site site="pal"/>
+      <geom geom="dwrap"/>
+      <site site="tip"/>
+    </spatial>
+  </tendon>
+  <actuator>
+    <motor name="pull" tendon="flexor" gear="1" ctrlrange="-8 0"
+           ctrllimited="true"/>
+  </actuator>
+</mujoco>
+"""
+
+# tests/test_parity_mujoco.py:73's resting ball
+BALL_MJCF = """
+<mujoco model="ball">
+  <option gravity="0 0 -9.81" timestep="0.002"/>
+  <worldbody>
+    <geom type="plane" size="5 5 0.1"/>
+    <body name="ball" pos="0 0 0.25">
+      <freejoint/>
+      <geom type="sphere" size="0.1" density="1000"/>
+    </body>
+  </worldbody>
+</mujoco>
+"""
+
+
+def replicated(lib, sub, n):
+    """``sub`` alone for n = 1, else n copies of it, one world each, under
+    its gravity."""
+    if n == 1:
+        return sub
+    b = lib.ModelBuilder(gravity=sub.gravity)
+    b.replicate(sub, n)
+    return b
+
+
+def mjcf_scene(lib, xml, n):
+    """An MJCF text imported (through a temporary file: the port's importer
+    reads files), replicated to n worlds."""
+    import tempfile
+    r = lib.ModelBuilder()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "scene.xml")
+        with open(path, "w") as f:
+            f.write(xml)
+        r.add_mjcf(path)
+    return replicated(lib, r, n)
+
+
+def heavy_stack_scene(lib, n):
+    """example_heavy_stack_kamino.py: three 0.5 m boxes stacked at z =
+    0.25, 0.75, 1.25, densities 1000, 1000 and 100000 (a 100:1 mass
+    ratio), free joints in one articulation, a ground plane."""
+    r = lib.ModelBuilder()
+    r.add_articulation()
+    for z, dn in zip(HEAVY_ZS, (1000.0, 1000.0, 100000.0)):
+        body = r.add_body(xform=[0, 0, z, 0, 0, 0, 1])
+        r.add_shape_box(body, hx=0.25, hy=0.25, hz=0.25,
+                        cfg=lib.ShapeConfig(density=dn))
+        r.add_joint_free(body)
+    r.add_ground_plane()
+    return replicated(lib, r, n)
+
+
+
+def fourbar_scene(lib, n):
+    """example_fourbar_kamino.py: crank and rocker on revolute joints about
+    y, a free coupler closing the loop through two CONNECT constraints."""
+    r = lib.ModelBuilder()
+    crank = r.add_body(xform=[0.0, 0, 0.5, 0, 0, 0, 1], key="crank")
+    r.add_shape_capsule(crank, radius=0.04, half_height=0.25)
+    r.add_joint_revolute(parent=-1, child=crank, axis="Y",
+                         xform_c=[0, 0, -0.5, 0, 0, 0, 1])
+    rocker = r.add_body(xform=[1.0, 0, 0.4, 0, 0, 0, 1], key="rocker")
+    r.add_shape_capsule(rocker, radius=0.04, half_height=0.2)
+    r.add_joint_revolute(parent=-1, child=rocker, axis="Y",
+                         xform_p=[1.0, 0, 0, 0, 0, 0, 1],
+                         xform_c=[0, 0, -0.4, 0, 0, 0, 1])
+    coupler = r.add_body(xform=[0.5, 0, 0.9, 0, 0, 0, 1], key="coupler")
+    r.add_shape_capsule(coupler, radius=0.04, half_height=0.45)
+    r.add_joint_free(coupler)
+    r.add_equality_constraint(lib.EqType.CONNECT, body1=crank, body2=coupler,
+                              anchor=(0.0, 0.0, 0.5))
+    r.add_equality_constraint(lib.EqType.CONNECT, body1=rocker,
+                              body2=coupler, anchor=(0.0, 0.0, 0.4))
+    return replicated(lib, r, n)
+
+
+def fourbar_drift(body_q):
+    """The loop's gap (W,): the crank tip against the coupler's end
+    (example_fourbar_kamino.py's test_final), body_q (W, 3, 7)."""
+    import numpy as np
+    import torch
+    from newton_tpu_torch.core.host_math import (np_transform_inverse,
+                                                 np_transform_point)
+    from newton_tpu_torch.math import transform_point
+    a2 = np_transform_point(np_transform_inverse(
+        np.array([0.5, 0, 0.9, 0, 0, 0, 1.0])), np.array([0.0, 0.0, 1.0]))
+
+    def pt(x, p):
+        return transform_point(x, torch.as_tensor(
+            p, dtype=x.dtype, device=x.device).expand(*x.shape[:-1], 3))
+    tip_c = pt(body_q[:, 0], [0.0, 0.0, 0.5])
+    tip_k = pt(body_q[:, 2], a2)
+    return torch.linalg.vector_norm(tip_c - tip_k, dim=-1)
+
+
+def stacks_scene(lib, n_stacks=3, height=2, n=1, spacing=2.0, h=0.1):
+    """tests/test_kamino_islands.py:build_stacks: stacks of boxes in their
+    own collision groups (the ground pairs with all), so the contact plan
+    splits into islands; n worlds of it."""
+    r = lib.ModelBuilder(gravity=-9.81)
+    for s in range(n_stacks):
+        cfg = r.default_shape_cfg.copy()
+        cfg.mu = 0.7
+        cfg.collision_group = s + 1
+        for i in range(height):
+            bb = r.add_body(xform=[s * spacing, 0.0, h + 2 * h * 1.01 * i,
+                                   0, 0, 0, 1], key=f"s{s}b{i}")
+            r.add_shape_box(bb, hx=h, hy=h, hz=h, cfg=cfg)
+            r.add_joint_free(bb)
+    gcfg = r.default_shape_cfg.copy()
+    gcfg.mu = 0.7
+    gcfg.collision_group = -1
+    r.add_ground_plane(cfg=gcfg)
+    return replicated(lib, r, n)
+
+
+def muscle_pair_scene(lib, n, passive=False):
+    """tests/test_solvers.py:140's muscle between two free 0.2 m boxes 1 m
+    apart (f0 50, lm 0.5, lt 0.1), no gravity; with ``passive`` :356's
+    variant (2 m apart, f0 0, passive_ke 100, passive_kd 5, lm 1)."""
+    r = lib.ModelBuilder(gravity=0.0)
+    b1 = r.add_body(xform=[0, 0, 1, 0, 0, 0, 1])
+    r.add_shape_box(b1, hx=0.1, hy=0.1, hz=0.1)
+    r.add_joint_free(b1)
+    b2 = r.add_body(xform=[2.0 if passive else 1.0, 0, 1, 0, 0, 0, 1])
+    r.add_shape_box(b2, hx=0.1, hy=0.1, hz=0.1)
+    r.add_joint_free(b2)
+    if passive:
+        r.add_muscle([b1, b2], [(0.1, 0, 0), (-0.1, 0, 0)], f0=0.0, lm=1.0,
+                     lt=0.0, lmax=3.0, pen=0.0, passive_ke=100.0,
+                     passive_kd=5.0)
+    else:
+        r.add_muscle([b1, b2], [(0.1, 0, 0), (-0.1, 0, 0)], f0=50.0,
+                     lm=0.5, lt=0.1, lmax=1.0, pen=0.1)
+    return replicated(lib, r, n)
+
+
 def phase_urdf(dev):
     """example_basic_urdf.py's double pendulum through the port's
     add_urdf, replicated 4096 times, through step (dt 1/480, 8 substeps
@@ -4033,6 +4269,811 @@ def slice_kernel_entries(eq, ws, urdf, b1_src, b2_src):
                  f"W={n}", **b2_src, instance=v["instance"], path=path,
             launches=ws[key]["launches"][1], max_abs_err=v["lam_err"],
             ms=v["ms"], plain_ms=v["plain_ms"],
+            **bound_fields("pgs_solve_fused", v["ms"], c=c, nl=nl, d=d, W=n,
+                           iters=it)))
+    return out
+
+
+def gen_launches():
+    """Launches of B1, B1 without the inverse and B2 since the last
+    reset_robot_launches()."""
+    return kernel_launches() + (solve_launches(),)
+
+
+def slice_batched(x, n):
+    """The first n envs of a batched State or Control (custom entries
+    too)."""
+    import dataclasses
+    import torch
+    kw = {}
+    for f in dataclasses.fields(x):
+        v = getattr(x, f.name)
+        if isinstance(v, torch.Tensor):
+            kw[f.name] = v[:n].clone()
+        elif f.name == "custom":
+            kw[f.name] = {k: t[:n].clone() for k, t in v.items()}
+    return dataclasses.replace(x, **kw)
+
+
+def slice_flat(state, ctl, n, sub):
+    """The first n worlds of a flat State and Control of a model
+    replicated from the one-world builder ``sub`` (its bodies, coordinates,
+    dofs, actuators and muscles per world)."""
+    from dataclasses import replace
+    nb, nq, nd = sub.body_count, sub.joint_coord_count, sub.joint_dof_count
+    au = sub.mjc_actuation
+    A = 0 if au is None else au.n
+    M = len(sub.muscle_params)
+    s = world_slice(state, n, nb, nq, nd)
+    if "mjc:act" in state.custom:
+        s = replace(s, custom={"mjc:act":
+                               state.custom["mjc:act"][:n * A].clone()})
+    else:
+        s = replace(s, custom={})
+    custom = {}
+    if "mjc:ctrl" in ctl.custom:
+        custom["mjc:ctrl"] = ctl.custom["mjc:ctrl"][:n * A].clone()
+    c = replace(ctl, joint_target_q=ctl.joint_target_q[:n * nq].clone(),
+                joint_target_qd=ctl.joint_target_qd[:n * nd].clone(),
+                joint_f=ctl.joint_f[:n * nd].clone(),
+                tendon_f=None if ctl.tendon_f is None
+                else ctl.tendon_f[:n * len(sub.tendon_params)].clone(),
+                muscle_activations=None if ctl.muscle_activations is None
+                else ctl.muscle_activations[:n * M].clone(), custom=custom)
+    return s, c
+
+
+def vs_cpu(step_d, step_c, s_d, c_d, pipe_d, pipe_c, label, n,
+           substeps=1):
+    """``substeps`` substeps of n envs or worlds on the card and the same
+    on the CPU from the same inputs: joint_q/body_q within 2e-4 and
+    joint_qd within 5e-3 (atol = rtol, tests/test_batched_step.py:69-75);
+    a world whose contact set differs between the two sides takes another
+    discrete path and is counted and left out, at most one."""
+    import torch
+    s_c, c_c = s_d.to("cpu"), c_d.to("cpu")
+    flipped = torch.zeros(n, dtype=torch.bool)
+    for _ in range(substeps):
+        k_d = k_c = None
+        if pipe_d is not None:
+            k_d, k_c = pipe_d.collide(s_d), pipe_c.collide(s_c)
+            flipped |= (k_d.rigid_contact_mask.cpu() != k_c.rigid_contact_mask
+                        ).view(n, -1).any(1)
+        s_d = step_d(s_d, c_d, k_d)
+        s_c = step_c(s_c, c_c, k_c)
+    if int(flipped.sum()) > 1:
+        raise AssertionError(f"{label}: {int(flipped.sum())} of {n} worlds "
+                             "changed their contact set between the card "
+                             "and the CPU")
+    out = {"worlds_left_out": int(flipped.sum())}
+    for name, atol in (("joint_q", 2e-4), ("joint_qd", 5e-3),
+                       ("body_q", 2e-4)):
+        a = getattr(s_d, name).cpu().reshape(n, -1)
+        b = getattr(s_c, name).reshape(n, -1)
+        ok, e = close(a[~flipped], b[~flipped], atol, atol)
+        if not ok:
+            raise AssertionError(f"{label}: {name} card vs CPU off "
+                                 f"tolerance ({e:.3g})")
+        out[name] = e
+    return out
+
+
+def repeat_bits(step, label):
+    """Two runs of one substep from the same inputs (``step`` returns a
+    State): equal bit for bit in every rigid field and ``mjc:act``."""
+    import torch
+    a, b = step(), step()
+    diff = {}
+    for n in REPEAT_FIELDS_RIGID:
+        x, y = getattr(a, n), getattr(b, n)
+        diff[n] = float((x - y).abs().max()) if x.numel() else 0.0
+        if not torch.equal(x, y):
+            raise AssertionError(f"{label}: two runs of a substep differ in "
+                                 f"{n} by {diff[n]:.3g}")
+    if "mjc:act" in a.custom:
+        if not torch.equal(a.custom["mjc:act"], b.custom["mjc:act"]):
+            raise AssertionError(f"{label}: two runs differ in mjc:act")
+    return diff
+
+
+def batched_turns(model, pipe, solver, state, sample, frames, n):
+    """env-steps/s of the kernel and plain paths of step_batched in turns
+    (plain, kernel, kernel, plain)."""
+    rates = {True: [], False: []}
+    plain = state.clone()
+    for kernels in (False, True, True, False):
+        t0 = time.perf_counter()
+        if kernels:
+            state = run_frames(model, pipe, solver, state, sample, frames,
+                               True)
+        else:
+            plain = run_frames(model, pipe, solver, plain, sample, frames,
+                               False)
+        rates[kernels].append(frames * SUBSTEPS * n
+                              / (time.perf_counter() - t0))
+    return dict(env_steps_per_s=sum(rates[True]) / 2,
+                plain_env_steps_per_s=sum(rates[False]) / 2,
+                turns_kernel=rates[True], turns_plain=rates[False])
+
+
+def flat_rates(solver, state, ctl, n_sub, n, dt, pipe=None):
+    """env-steps/s of the kernel and plain paths of step in turns, and one
+    profiled frame of SUBSTEPS substeps."""
+    rates, _, _ = turns(solver, state, state.clone(), ctl, n_sub, n, dt,
+                        pipe=pipe)
+    rate = sum(rates[True]) / 2
+    prof = profile_frame(lambda: run_steps(solver, state, ctl, SUBSTEPS, dt,
+                                           True, pipe=pipe), SUBSTEPS)
+    return dict(env_steps_per_s=rate,
+                plain_env_steps_per_s=sum(rates[False]) / 2,
+                turns_kernel=rates[True], turns_plain=rates[False],
+                profile=prof,
+                busy_share_unprofiled=busy_unprofiled(prof, n, rate))
+
+
+def b2_record(args, kw, label, tol=(1e-4, 1e-4, 1e-3)):
+    """B2 against its plain version on captured operands (lam within atol
+    tol[0], rtol tol[1], dqd within atol tol[2], rtol tol[1]; envs whose
+    guard halvings differ counted, at most W / 1000), and both timed."""
+    import torch
+    from newton_tpu_torch.solvers.generalized import pgs
+    n = args[0].shape[0]
+    lam_k, dqd_k, h_k = pgs.pgs_solve_fused(*args, **kw,
+                                            return_halvings=True)
+    lam_p, dqd_p, h_p = pgs.pgs_solve_fused_plain(*args, **kw,
+                                                  return_halvings=True)
+    same = h_k == h_p
+    n_diff = int((~same).sum())
+    if n_diff > n // 1000:
+        raise AssertionError(f"{label} B2: {n_diff} envs with different "
+                             "guard halvings")
+    ok1, e1 = close(lam_k[same], lam_p[same], tol[0], tol[1])
+    ok2, e2 = close(dqd_k[same], dqd_p[same], tol[2], tol[1])
+    if not (ok1 and ok2):
+        raise AssertionError(f"{label} B2: kernel vs plain off tolerance "
+                             f"(lam {e1:.3g}, dqd {e2:.3g})")
+    c, nl, d = kw["c"], int(kw["ld"].numel()), args[0].shape[2]
+    return dict(shape=(c, nl, d), lam_err=e1, dqd_err=e2,
+                guard_mismatch_rows=n_diff,
+                symmetric=kw.get("symmetric", True),
+                instance=pgs.kernel_instance(c, nl, d),
+                equal_bits=bool(torch.equal(lam_k, lam_p)),
+                ms=time_ms(lambda: pgs.pgs_solve_fused(*args, **kw),
+                           queued=True),
+                plain_ms=time_ms(lambda: pgs.pgs_solve_fused_plain(*args,
+                                                                   **kw),
+                                 n=10))
+
+
+def phase_newton_qp(dev):
+    """The Newton QP, penalty limits and no body forces: (a) the ant x 4096
+    through step_batched under SolverMuJoCo(iterations=8, solver="newton",
+    integrator="euler") as phase 5 (a warm-up frame, 10 checked frames,
+    uniform ctrl): one B1 and no B2 per substep, phase 5's gates, host
+    syncs per substep no more than the Euler PGS substep's, the masked
+    solve (torch.linalg.solve_ex at (4096, 116, 116)) timed per call; (b)
+    tests/test_parity_mujoco.py:73's resting ball x 4096 under the Newton
+    QP, 1 s at dt 0.002: the mean normal force of the last 10 substeps
+    within 1% of the weight and z within 2e-3 of the radius in every
+    world; (c) the ant under limit_mode="penalty", apply_body_forces=False
+    (PGS): one B1 and one B2 (25, 0, 14) per substep, phase 5's gates.
+    Each: 64 envs on the card against the CPU, one substep twice bit for
+    bit, env-steps/s in turns, peak memory."""
+    import torch
+    import newton_tpu_torch as nt
+    out = {}
+    for key, kw in (("newton", dict(solver="newton")),
+                    ("penalty", dict(limit_mode="penalty",
+                                     apply_body_forces=False))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        model, pipe, _, state0 = build_ant(dev)
+        solver = nt.SolverMuJoCo(model, iterations=ITERS, integrator="euler",
+                                 **kw)
+        sample = ctrl_sampler(model, dev, seed=40)
+        state = nt.batch_state(state0, NQP_W)
+        state = run_frames(model, pipe, solver, state, sample, 1, True)
+        reset_robot_launches()
+        t0 = time.perf_counter()
+        state = run_frames(model, pipe, solver, state, sample, FRAMES, True)
+        elapsed = time.perf_counter() - t0
+        n_sub = FRAMES * SUBSTEPS
+        launches = gen_launches()
+        want = (n_sub, 0 if key == "newton" else n_sub, 0)
+        if launches != want:
+            raise AssertionError(f"ant {key}: launches {launches} in "
+                                 f"{n_sub} substeps, want {want}")
+        zmin = check_state(state, f"ant {key}", z_min=0.1)
+        ctl = batched_control(model, sample(NQP_W))
+        contacts = pipe.collide(state)
+        rec = {}
+        _, syncs = count_syncs(lambda: solver.step_batched(
+            state, None, ctl, contacts, DT, record=rec))
+        sites = list(SYNC_SITES)
+        pgs_solver = nt.SolverMuJoCo(model, iterations=ITERS,
+                                     integrator="euler")
+        _, syncs_pgs = count_syncs(lambda: pgs_solver.step_batched(
+            state, None, ctl, contacts, DT))
+        if syncs > syncs_pgs:
+            raise AssertionError(f"ant {key}: {syncs} host syncs per substep"
+                                 f", the Euler PGS substep {syncs_pgs}: "
+                                 f"{sites}")
+        r = dict(envs=NQP_W, substeps=n_sub, launches=launches,
+                 root_z_min=zmin, host_syncs_per_substep=syncs,
+                 host_syncs_euler_pgs=syncs_pgs,
+                 main_env_steps_per_s=n_sub * NQP_W / elapsed,
+                 b1=b1_check(*rec["chol"], f"ant {key}"),
+                 b1_times=b1_times(*rec["chol"]))
+        if key == "newton":
+            H, rhs = rec["newton_H"]
+            r["masked_solve_shape"] = tuple(H.shape)
+            r["masked_solve_ms"] = time_ms(lambda: torch.linalg.solve_ex(
+                H, rhs[..., None], check_errors=False), queued=True)
+            r["masked_solves_per_substep"] = solver.newton_iterations
+        else:
+            r["b2"] = b2_record(*rec["pgs"], f"ant {key}")
+            if r["b2"]["shape"] != (25, 0, 14):
+                raise AssertionError(f"ant penalty: B2 at {r['b2']['shape']}")
+        cpu_model = build_ant("cpu")[0]
+        cpu_solver = nt.SolverMuJoCo(cpu_model, iterations=ITERS,
+                                     integrator="euler", **kw)
+        r["vs_cpu"] = vs_cpu(
+            lambda s, c, k: solver.step_batched(s, None, c, k, DT),
+            lambda s, c, k: cpu_solver.step_batched(s, None, c, k, DT),
+            slice_batched(state, PARITY_W), slice_batched(ctl, PARITY_W),
+            pipe, nt.CollisionPipeline(cpu_model), f"ant {key}", PARITY_W)
+        r["repeat_max_diff"] = repeat_bits(lambda: solver.step_batched(
+            state, None, ctl, contacts, DT), f"ant {key}")
+        r.update(batched_turns(model, pipe, solver, state, sample, 1,
+                               NQP_W))
+        r["profile"] = profile_frame(lambda: run_frames(
+            model, pipe, solver, state, sample, 1, True), SUBSTEPS)
+        r["busy_share_unprofiled"] = busy_unprofiled(
+            r["profile"], NQP_W, r["env_steps_per_s"])
+        r["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        out["ant_" + key] = r
+    # (b) the resting ball
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = mjcf_scene(nt, BALL_MJCF, BALL_W).finalize(dev)
+    solver = nt.SolverMuJoCo(model, integrator="euler", solver="newton")
+    pipe = nt.CollisionPipeline(model)
+    state = nt.eval_fk(model, model.joint_q0, model.joint_qd0, model.state())
+    ctl = model.control()
+    reset_robot_launches()
+    forces = []
+    t0 = time.perf_counter()
+    for k in range(BALL_STEPS):
+        rec = {} if k >= BALL_STEPS - 10 else None
+        state = solver.step(state, None, ctl, pipe.collide(state), BALL_DT,
+                            record=rec)
+        if rec is not None:
+            c = rec["pgs"][1]["c"]
+            forces.append(rec["lam"][:, :c].sum(1) / BALL_DT)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = gen_launches()
+    if launches != (BALL_STEPS, 0, 0):
+        raise AssertionError(f"resting ball: launches {launches}")
+    weight = 1000 * 4 / 3 * 3.141592653589793 * 0.1 ** 3 * 9.81
+    f = torch.stack(forces).mean(0)
+    z = state.joint_q.view(BALL_W, 7)[:, 2]
+    g = dict(force_rel_err_max=float(((f - weight) / weight).abs().max()),
+             z_err_max=float((z - 0.1).abs().max()))
+    if not (g["force_rel_err_max"] < 0.01 and g["z_err_max"] < 2e-3):
+        raise AssertionError(f"resting ball: gates fail {g}")
+    out["ball"] = dict(worlds=BALL_W, substeps=BALL_STEPS, launches=launches,
+                       gates=g,
+                       env_steps_per_s=BALL_STEPS * BALL_W / elapsed,
+                       peak_memory_bytes=torch.cuda.max_memory_allocated())
+    return out
+
+
+def phase_implicit(dev):
+    """The implicit integrators on the humanoid x 4096 as phase 11 (10
+    warm-up and 10 checked frames, top-32 contacts, uniform ctrl):
+    implicitfast (one B1 and one B2 per substep; the humanoid's tendons
+    have no damping and its motors no velocity gain, so D = 0 and its
+    substep equals the Euler substep within 1e-6) and implicit (no B1: LU
+    by torch.linalg.solve_ex; one B2 per substep in its non-symmetric
+    form, held against its twin on the captured operands within atol
+    1e-5, rtol 1e-4). Gates phase 11's; host syncs per substep against the
+    Euler substep's; 64 envs on the card against the CPU; one substep
+    twice bit for bit; the LU timed per call; env-steps/s in turns; peak
+    memory."""
+    import torch
+    import newton_tpu_torch as nt
+    out = {}
+    for integ in ("implicitfast", "implicit"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        model, pipe, euler = build_humanoid(dev)
+        solver = nt.SolverMuJoCo(model, iterations=ITERS, integrator=integ)
+        sample = ctrl_sampler(model, dev, seed=50)
+        state = humanoid_reset(model, dev, seed=51)
+        state = run_frames(model, pipe, solver, state, sample,
+                           HUMANOID_WARMUP, True)
+        touched = torch.zeros(HUMANOID_W, dtype=torch.bool, device=dev)
+        reset_robot_launches()
+        t0 = time.perf_counter()
+        state = run_frames(model, pipe, solver, state, sample, FRAMES, True,
+                           touched)
+        elapsed = time.perf_counter() - t0
+        n_sub = FRAMES * SUBSTEPS
+        launches = gen_launches()
+        want = (n_sub if integ == "implicitfast" else 0, n_sub, 0)
+        if launches != want:
+            raise AssertionError(f"humanoid {integ}: launches {launches}, "
+                                 f"want {want}")
+        zmin = check_state(state, f"humanoid {integ}", z_min=0.3)
+        untouched = int((~touched).sum())
+        if untouched > HUMANOID_W // 100:
+            raise AssertionError(f"humanoid {integ}: {untouched} envs "
+                                 "without an active contact in the window")
+        ctl = batched_control(model, sample(HUMANOID_W))
+        contacts = pipe.collide(state)
+        rec = {}
+        _, syncs = count_syncs(lambda: solver.step_batched(
+            state, None, ctl, contacts, DT, record=rec))
+        _, syncs_euler = count_syncs(lambda: euler.step_batched(
+            state, None, ctl, contacts, DT))
+        if syncs > syncs_euler:
+            raise AssertionError(f"humanoid {integ}: {syncs} host syncs per "
+                                 f"substep, Euler {syncs_euler}")
+        r = dict(envs=HUMANOID_W, substeps=n_sub, launches=launches,
+                 root_z_min=zmin, envs_untouched_in_window=untouched,
+                 host_syncs_per_substep=syncs,
+                 host_syncs_euler=syncs_euler,
+                 main_env_steps_per_s=n_sub * HUMANOID_W / elapsed)
+        if integ == "implicitfast":
+            a = solver.step_batched(state, None, ctl, contacts, DT)
+            b = euler.step_batched(state, None, ctl, contacts, DT)
+            d = max(float((getattr(a, n) - getattr(b, n)).abs().max())
+                    for n in REPEAT_FIELDS_RIGID)
+            if d > 1e-6:
+                raise AssertionError(f"humanoid implicitfast: {d:.3g} from "
+                                     "the Euler substep with D = 0")
+            r["vs_euler_max_diff"] = d
+            r["b1"] = b1_check(*rec["chol"], "humanoid implicitfast")
+            r["b1_times"] = b1_times(*rec["chol"])
+            r["b2"] = b2_record(*rec["pgs"], "humanoid implicitfast")
+        else:
+            Mi, rhs = rec["lu"]
+            d = Mi.shape[-1]
+            B = torch.cat([torch.eye(d, device=dev).expand_as(Mi),
+                           rhs[..., None]], -1)
+            r["lu_shape"] = tuple(B.shape)
+            r["lu_ms"] = time_ms(lambda: torch.linalg.solve_ex(
+                Mi, B, check_errors=False), queued=True)
+            r["b2"] = b2_record(*rec["pgs"], "humanoid implicit",
+                                tol=(1e-5, 1e-4, 1e-5))
+            if r["b2"]["symmetric"]:
+                raise AssertionError("humanoid implicit: B2 ran the "
+                                     "symmetric form")
+        cpu_model = build_humanoid("cpu")[0]
+        cpu_solver = nt.SolverMuJoCo(cpu_model, iterations=ITERS,
+                                     integrator=integ)
+        r["vs_cpu"] = vs_cpu(
+            lambda s, c, k: solver.step_batched(s, None, c, k, DT),
+            lambda s, c, k: cpu_solver.step_batched(s, None, c, k, DT),
+            slice_batched(state, PARITY_W), slice_batched(ctl, PARITY_W),
+            pipe, nt.CollisionPipeline(cpu_model), f"humanoid {integ}",
+            PARITY_W)
+        r["repeat_max_diff"] = repeat_bits(lambda: solver.step_batched(
+            state, None, ctl, contacts, DT), f"humanoid {integ}")
+        r.update(batched_turns(model, pipe, solver, state, sample, 1,
+                               HUMANOID_W))
+        r["profile"] = profile_frame(lambda: run_frames(
+            model, pipe, solver, state, sample, 1, True), SUBSTEPS)
+        r["busy_share_unprofiled"] = busy_unprofiled(
+            r["profile"], HUMANOID_W, r["env_steps_per_s"])
+        r["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        out[integ] = r
+    return out
+
+
+def flat_scene_checks(make, solver_fn, solver, state, ctl, dt, label, dev,
+                      pipe=None):
+    """64 worlds of a replicated scene (``make(lib, n)`` returns the
+    builder, ``make(lib, 1)`` the one-world one) on the card against the
+    CPU (``solver_fn(model)`` makes the solver), and one substep of the
+    full state through ``solver`` twice bit for bit."""
+    import newton_tpu_torch as nt
+    sub = make(nt, 1)
+    m_d, m_c = make(nt, PARITY_W).finalize(dev), make(
+        nt, PARITY_W).finalize("cpu")
+    x_d, x_c = solver_fn(m_d), solver_fn(m_c)
+    p_d = p_c = None
+    if pipe is not None:
+        p_d, p_c = nt.CollisionPipeline(m_d), nt.CollisionPipeline(m_c)
+    s_d, c_d = slice_flat(state, ctl, PARITY_W, sub)
+    res = vs_cpu(lambda s, c, k: x_d.step(s, None, c, k, dt),
+                 lambda s, c, k: x_c.step(s, None, c, k, dt), s_d, c_d, p_d,
+                 p_c, label, PARITY_W)
+
+    def one():
+        k = None if pipe is None else pipe.collide(state)
+        return solver.step(state, None, ctl, k, dt)
+    return res, repeat_bits(one, label)
+
+
+def phase_tendons(dev):
+    """Spatial tendons: example_tendon_finger.py's MJCF replicated x 4096
+    under SolverMuJoCo(iterations=8), dt 1/240, 4 substeps per frame, the
+    example's ctrl schedule (-6 until 1.5 s, then 0) for 3 s, under euler
+    and implicitfast: one B1 (d = 2) per substep and the limits-only
+    solve; finite; the pip flexes past 0.3 rad during the pull in every
+    world; |q| < 1.0 after 2.5 s (the example's test_final); 64 worlds on
+    the card against the CPU; one substep twice bit for bit; env-steps/s
+    in turns; peak memory."""
+    import torch
+    import newton_tpu_torch as nt
+
+    def make(lib, n):
+        return mjcf_scene(lib, FINGER_MJCF, n)
+    out = {}
+    for integ in ("euler", "implicitfast"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        model = make(nt, FINGER_W).finalize(dev)
+
+        def solver_fn(m, integ=integ):
+            return nt.SolverMuJoCo(m, iterations=ITERS, integrator=integ)
+        solver = solver_fn(model)
+        state = nt.eval_fk(model, model.joint_q0, model.joint_qd0,
+                           model.state())
+        ctl = model.control()
+        reset_robot_launches()
+        pip_max = torch.zeros(FINGER_W, device=dev)
+        t0 = time.perf_counter()
+        for f in range(FINGER_FRAMES):
+            pull = -6.0 if f * SUBSTEPS * DT < FINGER_PULL_S else 0.0
+            ctl.custom["mjc:ctrl"] = torch.full((FINGER_W,), pull,
+                                                device=dev)
+            for _ in range(SUBSTEPS):
+                state = solver.step(state, None, ctl, None, DT)
+            pip_max = torch.maximum(pip_max, state.joint_q.view(
+                FINGER_W, 2)[:, 1])
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        n_sub = FINGER_FRAMES * SUBSTEPS
+        launches = gen_launches()
+        if launches != (n_sub, 0, 0):
+            raise AssertionError(f"finger {integ}: launches {launches}")
+        q = state.joint_q.view(FINGER_W, 2)
+        g = dict(pip_flex_min=float(pip_max.min()),
+                 q_abs_max_end=float(q.abs().max()))
+        if not (bool(torch.isfinite(state.joint_q).all())
+                and g["pip_flex_min"] > 0.3 and g["q_abs_max_end"] < 1.0):
+            raise AssertionError(f"finger {integ}: gates fail {g}")
+        ctl.custom["mjc:ctrl"] = torch.full((FINGER_W,), -6.0, device=dev)
+        rec = {}
+        solver.step(state, None, ctl, None, DT, record=rec)
+        vs, rep = flat_scene_checks(make, solver_fn, solver, state,
+                                    ctl, DT,
+                                    f"finger {integ}", dev)
+        out[integ] = dict(
+            worlds=FINGER_W, substeps=n_sub, launches=launches, gates=g,
+            main_env_steps_per_s=n_sub * FINGER_W / elapsed,
+            b1=b1_check(*rec["chol"], f"finger {integ}"),
+            b1_times=b1_times(*rec["chol"]), vs_cpu=vs,
+            repeat_max_diff=rep,
+            **flat_rates(solver, state, ctl, 8, FINGER_W, DT),
+            peak_memory_bytes=torch.cuda.max_memory_allocated())
+    return out
+
+
+def phase_muscles(dev):
+    """Actuators and muscles: newton_tpu_torch/assets/muscle_arm.xml (a
+    test scene: muscles on spatial tendons over a wrap cylinder, a filter
+    <general>, <cylinder>, <intvelocity> and <damper>) replicated x 4096
+    under SolverMuJoCo, Euler then implicitfast, 150 steps of 2 ms; half
+    the worlds with full flexor ctrl, half with none: one B1 (d = 2) per
+    substep; finite; the muscles' activations in [0, 1]; the flexed
+    worlds' elbow past the idle worlds' by 0.2 rad; 64 worlds on the card
+    against the CPU, a substep twice bit for bit, env-steps/s in turns.
+    Then SolverSemiImplicit's waypoint muscles, tests/test_solvers.py:140's
+    pair x 4096, 200 steps of 1 ms: zero activation holds the bodies to
+    1e-6, full activation closes the gap below 0.9 about the midpoint
+    (within 1e-5)."""
+    import torch
+    import newton_tpu_torch as nt
+    arm_path = os.path.join(nt.ASSET_DIR, MUSCLE_ARM)
+
+    def make(lib, n):
+        r = lib.ModelBuilder()
+        r.add_mjcf(arm_path)
+        return replicated(lib, r, n)
+    out = {}
+    for integ in ("euler", "implicitfast"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = make(nt, ARM_W).finalize(dev)
+
+        def solver_fn(m, integ=integ):
+            return nt.SolverMuJoCo(m, iterations=ITERS, integrator=integ)
+        solver = solver_fn(model)
+        setup_s = time.perf_counter() - t0
+        state = nt.eval_fk(model, model.joint_q0, model.joint_qd0,
+                           model.state())
+        ctl = model.control()
+        A = model.structure.mjc_actuation.n // ARM_W
+        ctrl = torch.zeros(ARM_W, A, device=dev)
+        ctrl[ARM_W // 2:, 0] = 1.0                     # the flexor
+        ctl.custom["mjc:ctrl"] = ctrl.reshape(-1)
+        reset_robot_launches()
+        t0 = time.perf_counter()
+        for _ in range(ARM_STEPS):
+            state = solver.step(state, None, ctl, None, ARM_DT)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = gen_launches()
+        if launches != (ARM_STEPS, 0, 0):
+            raise AssertionError(f"muscle arm {integ}: launches {launches}")
+        act = state.custom["mjc:act"].view(ARM_W, A)[:, :2]
+        q = state.joint_q.view(ARM_W, 2)
+        g = dict(act_min=float(act.min()), act_max=float(act.max()),
+                 elbow_flexed_min=float(q[ARM_W // 2:, 1].min()),
+                 elbow_idle_max=float(q[:ARM_W // 2, 1].max()))
+        if not (bool(torch.isfinite(state.joint_q).all())
+                and g["act_min"] >= 0.0 and g["act_max"] <= 1.0
+                and g["elbow_flexed_min"] > g["elbow_idle_max"] + 0.2):
+            raise AssertionError(f"muscle arm {integ}: gates fail {g}")
+        rec = {}
+        solver.step(state, None, ctl, None, ARM_DT, record=rec)
+        vs, rep = flat_scene_checks(make, solver_fn, solver, state,
+                                    ctl, ARM_DT,
+                                    f"muscle arm {integ}", dev)
+        out["arm_" + integ] = dict(
+            worlds=ARM_W, setup_s=setup_s, substeps=ARM_STEPS,
+            launches=launches, gates=g,
+            main_env_steps_per_s=ARM_STEPS * ARM_W / elapsed,
+            b1=b1_check(*rec["chol"], f"muscle arm {integ}"),
+            b1_times=b1_times(*rec["chol"]), vs_cpu=vs, repeat_max_diff=rep,
+            **flat_rates(solver, state, ctl, 10, ARM_W, ARM_DT),
+            peak_memory_bytes=torch.cuda.max_memory_allocated())
+    # SolverSemiImplicit's waypoint muscles
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = muscle_pair_scene(nt, PAIR_W).finalize(dev)
+    solver = nt.SolverSemiImplicit(model)
+    res = {}
+    for a in (0.0, 1.0):
+        ctl = model.control()
+        ctl.muscle_activations = torch.full((PAIR_W,), a, device=dev)
+        state = model.state()
+        t0 = time.perf_counter()
+        for _ in range(PAIR_STEPS):
+            state = solver.step(state, None, ctl, None, 1e-3)
+        torch.cuda.synchronize()
+        res[a] = (state, PAIR_STEPS * PAIR_W / (time.perf_counter() - t0))
+    bq0, bq1 = res[0.0][0].body_q, res[1.0][0].body_q.view(PAIR_W, 2, 7)
+    gap = torch.linalg.vector_norm(bq1[:, 1, :3] - bq1[:, 0, :3], dim=-1)
+    mid = 0.5 * (bq1[:, 0, 0] + bq1[:, 1, 0])
+    g = dict(hold_err=float((bq0 - model.body_q).abs().max()),
+             gap_max=float(gap.max()),
+             mid_err=float((mid - 0.5).abs().max()))
+    if not (g["hold_err"] < 1e-6 and g["gap_max"] < 0.9
+            and g["mid_err"] < 1e-5):
+        raise AssertionError(f"muscle pair: gates fail {g}")
+    ctl = model.control()
+    ctl.muscle_activations = torch.ones(PAIR_W, device=dev)
+    rep = repeat_bits(lambda: solver.step(res[1.0][0], None, ctl, None,
+                                          1e-3), "muscle pair")
+    out["semi_implicit_pair"] = dict(
+        worlds=PAIR_W, steps=PAIR_STEPS, gates=g, repeat_max_diff=rep,
+        env_steps_per_s=res[1.0][1],
+        peak_memory_bytes=torch.cuda.max_memory_allocated())
+    return out
+
+
+def phase_kamino(dev):
+    """SolverKamino: (a) example_heavy_stack_kamino.py x 1024
+    (iterations=8, 120 frames): stack error < 0.03 in every world, and the
+    PGS solver's (contact_iterations=8) more than twice Kamino's
+    (tests/test_equality.py:171); (b) example_fourbar_kamino.py x 4096,
+    the crank kicked to 2 rad/s, 120 frames: loop drift < 2e-2 and |q0| >
+    0.1 in every world; (c) tests/test_kamino_islands.py's build_stacks(3,
+    2) x 1024: the island solve equals the dense solve within 5e-5 (q) and
+    5e-4 (qd) over 60 steps. One B1 per group per substep (d = 18, 8, 36);
+    the factor (torch.linalg.cholesky_ex) timed per call; host syncs per
+    substep; 64 worlds on the card against the CPU; a substep twice bit
+    for bit; env-steps/s; peak memory."""
+    import torch
+    import newton_tpu_torch as nt
+    out = {}
+    # (a) the heavy stack
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = heavy_stack_scene(nt, STACK_W).finalize(dev)
+    pipe = nt.CollisionPipeline(model)
+    zs = torch.tensor(HEAVY_ZS, device=dev)
+    errs, rates, ends = {}, {}, {}
+    for key, solver in (("kamino", nt.SolverKamino(model, iterations=8)),
+                        ("pgs", nt.SolverFeatherstone(
+                            model, contact_iterations=8))):
+        state = nt.eval_fk(model, model.joint_q0, model.joint_qd0,
+                           model.state())
+        ctl = model.control()
+        reset_robot_launches()
+        n_sub = STACK_FRAMES * SUBSTEPS
+        t0 = time.perf_counter()
+        state = run_steps(solver, state, ctl, n_sub, DT, True, pipe=pipe)
+        rates[key] = n_sub * STACK_W / (time.perf_counter() - t0)
+        if key == "kamino":
+            launches = gen_launches()
+            if launches != (n_sub, 0, 0):
+                raise AssertionError(f"heavy stack: launches {launches}")
+            kam = solver
+        errs[key] = (state.body_q.view(STACK_W, 3, 7)[..., 2] - zs).abs()             .amax(1)
+        ends[key] = state
+    g = dict(kamino_err_max=float(errs["kamino"].max()),
+             pgs_over_kamino_min=float((errs["pgs"] / errs["kamino"]).min()))
+    if not (g["kamino_err_max"] < 0.03 and g["pgs_over_kamino_min"] > 2.0):
+        raise AssertionError(f"heavy stack: gates fail {g}")
+    state, ctl = ends["kamino"], model.control()
+    contacts = pipe.collide(state)
+    rec = {}
+    _, syncs = count_syncs(lambda: kam.step(state, None, ctl, contacts, DT,
+                                            record=rec))
+    K = rec["admm_factor"]
+    r = dict(worlds=STACK_W, substeps=n_sub, launches=launches, gates=g,
+             host_syncs_per_substep=syncs, factor_shape=tuple(K.shape),
+             factor_ms=time_ms(lambda: torch.linalg.cholesky_ex(
+                 K, check_errors=False), queued=True),
+             b1=b1_check(*rec["chol"], "heavy stack"),
+             b1_times=b1_times(*rec["chol"]),
+             main_env_steps_per_s=rates["kamino"],
+             pgs_env_steps_per_s=rates["pgs"],
+             **flat_rates(kam, state, ctl, 8, STACK_W, DT, pipe=pipe))
+
+    r["vs_cpu"], r["repeat_max_diff"] = flat_scene_checks(
+        heavy_stack_scene, lambda m: nt.SolverKamino(m, iterations=8), kam,
+        state, ctl, DT, "heavy stack", dev, pipe=pipe)
+    r["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    out["heavy_stack"] = r
+    # (b) the four-bar
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = fourbar_scene(nt, FOURBAR_W).finalize(dev)
+    solver = nt.SolverKamino(model)
+    qd0 = model.joint_qd0.clone().view(FOURBAR_W, -1)
+    qd0[:, 0] = 2.0
+    state = nt.eval_fk(model, model.joint_q0, qd0.reshape(-1), model.state())
+    ctl = model.control()
+    reset_robot_launches()
+    n_sub = FOURBAR_FRAMES * SUBSTEPS
+    t0 = time.perf_counter()
+    state = run_steps(solver, state, ctl, n_sub, DT, True)
+    elapsed = time.perf_counter() - t0
+    launches = gen_launches()
+    if launches != (n_sub, 0, n_sub):
+        raise AssertionError(f"four-bar: launches {launches}")
+    drift = fourbar_drift(state.body_q.view(FOURBAR_W, 3, 7))
+    q0 = state.joint_q.view(FOURBAR_W, -1)[:, 0]
+    g = dict(drift_max=float(drift.max()), q0_abs_min=float(q0.abs().min()))
+    if not (g["drift_max"] < 2e-2 and g["q0_abs_min"] > 0.1):
+        raise AssertionError(f"four-bar: gates fail {g}")
+    rec = {}
+    solver.step(state, None, ctl, None, DT, record=rec)
+
+    vs, rep = flat_scene_checks(fourbar_scene, nt.SolverKamino, solver,
+                                state, ctl, DT, "four-bar", dev)
+    out["fourbar"] = dict(
+        worlds=FOURBAR_W, substeps=n_sub, launches=launches, gates=g,
+        env_steps_per_s=n_sub * FOURBAR_W / elapsed,
+        b1=b1_check(*rec["chol"], "four-bar"),
+        b1_times=b1_times(*rec["chol"]), vs_cpu=vs, repeat_max_diff=rep,
+        peak_memory_bytes=torch.cuda.max_memory_allocated())
+    # (c) islands against the dense factor
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = stacks_scene(nt, n=ISLAND_W).finalize(dev)
+    pipe = nt.CollisionPipeline(model)
+    ends = {}
+    for key, isl in (("islands", True), ("dense", False)):
+        solver = nt.SolverKamino(model, iterations=16, use_islands=isl,
+                                 contact_cap=0)
+        if (solver.groups[0].tables.islands is None) == isl:
+            raise AssertionError(f"stacks: the {key} path did not engage")
+        state = solver.init_state(nt.eval_fk(
+            model, model.joint_q0, model.joint_qd0, model.state()))
+        reset_robot_launches()
+        t0 = time.perf_counter()
+        state = run_steps(solver, state, model.control(), ISLAND_STEPS, DT,
+                          True, pipe=pipe)
+        rates[key] = ISLAND_STEPS * ISLAND_W / (time.perf_counter() - t0)
+        if gen_launches() != (ISLAND_STEPS, 0, 0):
+            raise AssertionError(f"stacks {key}: launches {gen_launches()}")
+        ends[key] = state
+        if isl:
+            rec = {}
+            solver.step(state, None, None, pipe.collide(state), DT,
+                        record=rec)
+            K = rec["admm_factor"]
+            isl_factor = dict(shape=tuple(K.shape), ms=time_ms(
+                lambda: torch.linalg.cholesky_ex(K, check_errors=False),
+                queued=True), b1_times=b1_times(*rec["chol"]),
+                b1=b1_check(*rec["chol"], "stacks"))
+    e_q = float((ends["islands"].body_q - ends["dense"].body_q).abs().max())
+    e_qd = float((ends["islands"].body_qd - ends["dense"].body_qd).abs()
+                 .max())
+    if not (e_q < 5e-5 and e_qd < 5e-4):
+        raise AssertionError(f"stacks: islands vs dense q {e_q:.3g}, qd "
+                             f"{e_qd:.3g}")
+    out["islands"] = dict(worlds=ISLAND_W, steps=ISLAND_STEPS,
+                          island_vs_dense=(e_q, e_qd), **isl_factor,
+                          env_steps_per_s_islands=rates["islands"],
+                          env_steps_per_s_dense=rates["dense"],
+                          peak_memory_bytes=torch.cuda.max_memory_allocated())
+    return out
+
+
+def rest_kernel_entries(nqp, imp, ten, mus, kam, b1_src, b2_src):
+    """The kernels line's entries of phases 32-36: B1 at d = 14 (the Newton
+    QP ant), 23 (implicitfast), 2 (finger, arm), 18 (heavy stack), 8
+    (four-bar), 36 (stacks); B2 at (25, 0, 14) (penalty limits) and
+    (32, 17, 23) implicitfast and non-symmetric (implicit)."""
+    from newton_tpu_torch.solvers.generalized import linalg
+    out = []
+    for path, d, n, launches, err, t in (
+            ("ant x 4096 under the Newton QP (phase 32)", 14,
+             NQP_W, nqp["ant_newton"]["launches"][0],
+             nqp["ant_newton"]["b1"][0], nqp["ant_newton"]["b1_times"]),
+            ("ant x 4096, penalty limits, no body forces "
+             "(phase 32)", 14, NQP_W, nqp["ant_penalty"]["launches"][0],
+             nqp["ant_penalty"]["b1"][0], nqp["ant_penalty"]["b1_times"]),
+            ("humanoid x 4096, implicitfast: M + dt (Kd + D) "
+             "(phase 33)", 23, HUMANOID_W,
+             imp["implicitfast"]["launches"][0],
+             imp["implicitfast"]["b1"][0], imp["implicitfast"]["b1_times"]),
+            ("tendon finger x 4096, euler (phase 34)", 2, FINGER_W,
+             ten["euler"]["launches"][0], ten["euler"]["b1"][0],
+             ten["euler"]["b1_times"]),
+            ("tendon finger x 4096, implicitfast (phase 34)", 2,
+             FINGER_W, ten["implicitfast"]["launches"][0],
+             ten["implicitfast"]["b1"][0], ten["implicitfast"]["b1_times"]),
+            ("muscle arm x 4096, euler (phase 35)", 2, ARM_W,
+             mus["arm_euler"]["launches"][0], mus["arm_euler"]["b1"][0],
+             mus["arm_euler"]["b1_times"]),
+            ("muscle arm x 4096, implicitfast (phase 35)", 2,
+             ARM_W, mus["arm_implicitfast"]["launches"][0],
+             mus["arm_implicitfast"]["b1"][0],
+             mus["arm_implicitfast"]["b1_times"]),
+            ("heavy stack x 1024, SolverKamino (phase 36)", 18,
+             STACK_W, kam["heavy_stack"]["launches"][0],
+             kam["heavy_stack"]["b1"][0], kam["heavy_stack"]["b1_times"]),
+            ("four-bar x 4096, SolverKamino (phase 36)", 8,
+             FOURBAR_W, kam["fourbar"]["launches"][0],
+             kam["fourbar"]["b1"][0], kam["fourbar"]["b1_times"]),
+            ("build_stacks(3, 2) x 1024, SolverKamino islands "
+             "(phase 36)", 36, ISLAND_W, ISLAND_STEPS,
+             kam["islands"]["b1"][0], kam["islands"]["b1_times"])):
+        label = linalg.kernel_instance(d)
+        out.append(dict(
+            name=f"chol_inv_solve [{label}] d={d} W={n}", **b1_src,
+            instance=label, path=path, launches=launches, max_abs_err=err,
+            ms=t["ms"], plain_ms=t["plain_ms"],
+            **bound_fields("chol_inv_solve", t["ms"], d=d, W=n),
+            library_ms=t["library_ms"]))
+    for key, path, n, launches, v, it in (
+            ("penalty", "ant x 4096, penalty limits: no limit rows "
+             "(phase 32)", NQP_W, nqp["ant_penalty"]["launches"][1],
+             nqp["ant_penalty"]["b2"], ITERS),
+            ("implicitfast", "humanoid x 4096, implicitfast (phase 33)",
+             HUMANOID_W, imp["implicitfast"]["launches"][1],
+             imp["implicitfast"]["b2"], ITERS),
+            ("implicit", "humanoid x 4096, implicit: the non-symmetric form "
+             "(Minv J^T) on the LU inverse (phase 33)", HUMANOID_W,
+             imp["implicit"]["launches"][1], imp["implicit"]["b2"], ITERS)):
+        c, nl, d = v["shape"]
+        form = "" if v["symmetric"] else ", non-symmetric"
+        out.append(dict(
+            name=f"pgs_solve_fused [{v['instance']}{form}] {v['shape']} "
+                 f"W={n}", **b2_src, instance=v["instance"], path=path,
+            launches=launches, max_abs_err=v["lam_err"], ms=v["ms"],
+            plain_ms=v["plain_ms"],
             **bound_fields("pgs_solve_fused", v["ms"], c=c, nl=nl, d=d, W=n,
                            iters=it)))
     return out
@@ -4506,6 +5547,67 @@ def main():
         + f" on {card}", flush=True)
     mark("31")
 
+    nqp = phase_newton_qp(dev)
+    results["newton_qp"] = nqp
+    print("[32 Newton QP, penalty limits x 4096] " + "; ".join(
+        f"ant {k}: launches {nqp['ant_' + k]['launches']} in "
+        f"{nqp['ant_' + k]['substeps']} substeps, root z min "
+        f"{nqp['ant_' + k]['root_z_min']:.3f}, host syncs per substep "
+        f"{nqp['ant_' + k]['host_syncs_per_substep']} (Euler PGS "
+        f"{nqp['ant_' + k]['host_syncs_euler_pgs']}), "
+        f"{nqp['ant_' + k]['env_steps_per_s']:.1f} env-steps/s (plain "
+        f"{nqp['ant_' + k]['plain_env_steps_per_s']:.1f}), peak "
+        f"{nqp['ant_' + k]['peak_memory_bytes'] / 2 ** 20:.0f} MiB"
+        for k in ("newton", "penalty"))
+        + f"; masked solve {nqp['ant_newton']['masked_solve_shape']} "
+        f"{nqp['ant_newton']['masked_solve_ms']:.4f} ms per call; resting "
+        f"ball {nqp['ball']['gates']} on {card}", flush=True)
+    mark("32")
+
+    imp = phase_implicit(dev)
+    results["implicit"] = imp
+    print("[33 implicit integrators, humanoid x 4096] " + "; ".join(
+        f"{k}: launches {v['launches']} in {v['substeps']} substeps, root z "
+        f"min {v['root_z_min']:.3f}, host syncs {v['host_syncs_per_substep']}"
+        f" (Euler {v['host_syncs_euler']}), B2 {v['b2']['shape']} "
+        f"{v['b2']['instance']} symmetric={v['b2']['symmetric']} lam err "
+        f"{v['b2']['lam_err']:.3g} ({v['b2']['guard_mismatch_rows']} rows "
+        f"with other halvings) {v['b2']['ms']:.4f} ms, "
+        f"{v['env_steps_per_s']:.1f} env-steps/s (plain "
+        f"{v['plain_env_steps_per_s']:.1f})" for k, v in imp.items())
+        + f"; LU {imp['implicit']['lu_shape']} "
+        f"{imp['implicit']['lu_ms']:.4f} ms per call on {card}", flush=True)
+    mark("33")
+
+    ten = phase_tendons(dev)
+    results["tendons"] = ten
+    print("[34 spatial tendons, finger x 4096] " + "; ".join(
+        f"{k}: launches {v['launches']} in {v['substeps']} substeps, gates "
+        f"{v['gates']}, vs CPU {v['vs_cpu']}, {v['env_steps_per_s']:.1f} "
+        f"env-steps/s (plain {v['plain_env_steps_per_s']:.1f})"
+        for k, v in ten.items()) + f" on {card}", flush=True)
+    mark("34")
+
+    mus = phase_muscles(dev)
+    results["muscles"] = mus
+    print("[35 actuators and muscles x 4096] " + "; ".join(
+        f"{k}: gates {v['gates']}, {v['env_steps_per_s']:.1f} env-steps/s"
+        for k, v in mus.items()) + f" on {card}", flush=True)
+    mark("35")
+
+    kam = phase_kamino(dev)
+    results["kamino"] = kam
+    print(f"[36 SolverKamino] heavy stack x {STACK_W}: gates "
+          f"{kam['heavy_stack']['gates']}, factor "
+          f"{kam['heavy_stack']['factor_shape']} "
+          f"{kam['heavy_stack']['factor_ms']:.4f} ms, host syncs "
+          f"{kam['heavy_stack']['host_syncs_per_substep']}; four-bar x "
+          f"{FOURBAR_W}: gates {kam['fourbar']['gates']}; islands x "
+          f"{ISLAND_W}: vs dense {kam['islands']['island_vs_dense']}, factor "
+          f"{kam['islands']['shape']} {kam['islands']['ms']:.4f} ms on "
+          f"{card}", flush=True)
+    mark("36")
+
     results["kernel_info"] = kernel_info()
     print("[phase seconds] " + json.dumps(
         {k: round(v, 1) for k, v in results["phase_s"].items()}), flush=True)
@@ -4719,6 +5821,7 @@ def main():
             **bound_fields("pgs_solve_fused", ms, c=c, nl=nl, d=d,
                            W=BOX_W, iters=16)))
     kernels += slice_kernel_entries(eq, ws, urdf, b1_src, b2_src)
+    kernels += rest_kernel_entries(nqp, imp, ten, mus, kam, b1_src, b2_src)
     print(f"[bounds] H100 SXM peaks {PEAK_BYTES_PER_S / 1e12:g} TB/s, "
           f"{PEAK_F32_FLOPS / 1e12:g} TFLOP/s float32 (700 W); this card: "
           f"{card}", flush=True)

@@ -34,6 +34,7 @@ from .sim.control import Control  # noqa: E402
 from .sim.enums import EqType, JointType, ParticleFlags  # noqa: E402
 from .sim.model import Model, ModelStructure  # noqa: E402
 from .sim.state import State  # noqa: E402
+from .solvers.generalized.kamino import SolverKamino  # noqa: E402
 from .solvers.generalized.solver import SolverFeatherstone, SolverMuJoCo  # noqa: E402
 from .solvers.solver_mpm import SolverImplicitMPM, SolverMPM  # noqa: E402
 from .solvers.solver_semi_implicit import SolverSemiImplicit  # noqa: E402
@@ -46,7 +47,8 @@ __all__ = [
     "eval_ik",
     "JointDofConfig", "ModelBuilder", "ShapeConfig", "CollisionPipeline",
     "Contacts", "Control", "EqType", "JointType", "Model", "ModelStructure", "State",
-    "SolverFeatherstone", "SolverMuJoCo", "SolverImplicitMPM", "SolverMPM",
+    "SolverFeatherstone", "SolverKamino", "SolverMuJoCo",
+    "SolverImplicitMPM", "SolverMPM",
     "SolverSemiImplicit", "SolverStyle3D", "SolverVBD", "SolverXPBD",
     "ParticleFlags", "ASSET_DIR",
 ]

@@ -32,6 +32,19 @@
 // one-sided reg<24> spill); the shared-memory path branches on the pointer.
 // A zero w_other gives the same bits as a null one.
 //
+// A non-symmetric Minv (the implicit integrator's inverse of M + dt (Kd +
+// D + dbias/dqd)) takes minv_t = 1: the block then stages Minv^T, so MJ =
+// J Minv^T and MJ^T lambda = Minv J^T lambda, the reference's Delassus
+// operator and dqd, and the stage also writes the limit columns Minv[:,
+// ld] from the untransposed source (where registers are free), in place
+// of limit_rows. The register path has an instance of its own for it
+// (kMinvT: the one-sided reg<24> spilled 4 bytes when the flag was read
+// at run time; its instances may hold 72 registers, 7 blocks per SM, as
+// at 64 the two-sided reg<24> spilled 8 bytes), the shared-memory path
+// reads it as a launch argument.
+// With minv_t = 0 (every symmetric Minv) the kernels run the instructions
+// they ran before the form existed.
+//
 // What bounds it on an H100: neither bytes nor FLOPs. At the humanoid's
 // main-path shape (c, nl, d) = (32, 17, 23), r = 130, W = 4096, a call
 // must move 13,344 B per env (16.3 us at 3.35 TB/s) and do ~221k FLOPs per
@@ -73,7 +86,7 @@
 //     step halves it exactly.
 //   - Occupancy: 128 threads under __launch_bounds__(128, 8) (64
 //     registers, no spills) for r <= 160, 8 blocks of <= 27 KB on an SM;
-//     4096 envs are ~3.9 waves. Above 160 rows (the uncompacted humanoid,
+//     4096 envs are ~3.9 waves (the non-symmetric instances: 7 blocks). Above 160 rows (the uncompacted humanoid,
 //     r = 610, ~133 KB: one block per SM) 256 threads, with the large-
 //     shared-memory opt-in above 48 KB.
 //   - A shape whose block would need more than the 227 KB of shared memory
@@ -227,7 +240,8 @@ __device__ __forceinline__ void phase1(const Dims& D, const float* MJx,
   __syncthreads();
 }
 
-// Stage J (block-order row b c + i to interleaved row 3 i + b), Minv and
+// Stage J (block-order row b c + i to interleaved row 3 i + b), Minv (with
+// minv_t its transpose, and then the limit rows of MJ, Minv[:, ld]^T) and
 // qd with row stride s, zero-padded, ld, and zero the padding rows of MJ
 // and xs; asynchronous copies into shared memory, plain ones into global
 // scratch (kGlobal). Ends with a barrier.
@@ -238,7 +252,7 @@ __device__ __forceinline__ void stage(const Dims& D, size_t e,
                                       const float* __restrict__ gqd,
                                       const int* __restrict__ gld, float* qd,
                                       float* xs, float* J, float* MJ,
-                                      float* Minv, int* ld) {
+                                      float* Minv, int* ld, int minv_t) {
   constexpr int NW = NT / 32;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int c = D.c, d = D.d, s = D.s;
@@ -258,12 +272,17 @@ __device__ __forceinline__ void stage(const Dims& D, size_t e,
   for (int q = w; q < s; q += NW)
     for (int f = lane; f < s; f += 32) {
       if (q < d && f < d) {
-        if constexpr (kGlobal) Minv[q * s + f] = Me[q * d + f];
-        else copy_async(Minv + q * s + f, Me + q * d + f);
+        const int src = minv_t ? f * d + q : q * d + f;
+        if constexpr (kGlobal) Minv[q * s + f] = Me[src];
+        else copy_async(Minv + q * s + f, Me + src);
       } else {
         Minv[q * s + f] = 0.f;
       }
     }
+  if (minv_t)
+    for (int l = w; l < D.nl; l += NW)
+      for (int f = lane; f < s; f += 32)
+        MJ[(D.r3 + l) * s + f] = f < d ? Me[f * d + gld[l]] : 0.f;
   for (int f = threadIdx.x; f < s; f += NT)
     qd[f] = f < d ? gqd[e * d + f] : 0.f;
   for (int g = threadIdx.x; g < D.nl; g += NT) ld[g] = gld[g];
@@ -307,9 +326,10 @@ __device__ __forceinline__ float w_own(const float* w, int r3, int c) {
 // row 3 i + q, lane 3 the limit pair i; each keeps its J row (S floats)
 // and its rows' lambda, diag, v_free, b and act in registers for the whole
 // solve, and builds its MJ row from them.
-template <int S, bool kTwoSided>
-__global__ void __launch_bounds__(128, 8)
-pgs_kernel_reg(Dims D, Args A, const float* __restrict__ w_other) {
+template <int S, bool kTwoSided, bool kMinvT>
+__global__ void __launch_bounds__(128, kMinvT ? 7 : 8)
+pgs_kernel_reg(Dims D, Args A, const float* __restrict__ w_other,
+               int /* minv_t: this path's is kMinvT */) {
   // lane groups of phase 1: d in (S - 4, S], so 32 / pow2(d) is known
   constexpr int NT = 128, NW = 4, S4 = S / 4, G = S <= 16 ? 2 : 1;
   extern __shared__ float4 sm4[];
@@ -326,7 +346,7 @@ pgs_kernel_reg(Dims D, Args A, const float* __restrict__ w_other) {
   float* red = part + D.P * d;                 // 2 x NW
   int* ld = reinterpret_cast<int*>(red + 2 * NW);
   const size_t e = blockIdx.x;
-  stage<NT>(D, e, A.J, A.Minv, A.qd, A.ld, qd, xs, J, MJ, Minv, ld);
+  stage<NT>(D, e, A.J, A.Minv, A.qd, A.ld, qd, xs, J, MJ, Minv, ld, kMinvT);
 
   const int q = tid & 3, i = tid >> 2, base = (tid & 31) & ~3;
   const bool contact = q < 3 && i < c, limit = q == 3 && i < nl;
@@ -382,7 +402,7 @@ pgs_kernel_reg(Dims D, Args A, const float* __restrict__ w_other) {
     dg = Minv[dof * S + dof] * A.diag_scale + A.reg;
     vf = qd[dof];
   }
-  limit_rows<NT>(D, Minv, ld, MJ);
+  if constexpr (!kMinvT) limit_rows<NT>(D, Minv, ld, MJ);
   float lm[2] = {0.f, 0.f}, bb[2] = {0.f, 0.f}, aa[2] = {0.f, 0.f}, mu = 0.f;
   if (contact || limit) {
     // block-order rows: the contact row, or the limit pair lo / hi
@@ -506,7 +526,8 @@ pgs_kernel_reg(Dims D, Args A, const float* __restrict__ w_other) {
 // contacts or limit pairs need.
 template <int NT, bool kGlobal = false>
 __global__ void __launch_bounds__(NT, NT == 128 && !kGlobal ? 4 : 1)
-pgs_kernel_smem(Dims D, Args A, const float* __restrict__ w_other) {
+pgs_kernel_smem(Dims D, Args A, const float* __restrict__ w_other,
+                int minv_t) {
   constexpr int NW = NT / 32, NQ = NT / 4;
   extern __shared__ float4 sm4[];
   float* sm = kGlobal ? A.scratch + blockIdx.x * A.scratch_floats
@@ -541,7 +562,7 @@ pgs_kernel_smem(Dims D, Args A, const float* __restrict__ w_other) {
   }
   for (int g = tid; g < c; g += NT) mu[g] = A.mu[e * c + g];
   stage<NT, kGlobal>(D, e, A.J, A.Minv, A.qd, A.ld, qd, xs, J, MJ, Minv,
-                     ld);
+                     ld, minv_t);
 
   // 1. Delassus pieces: MJ = J Minv (groups of lanes over dofs, one row
   //    each), the limit columns Minv[:, ld]^T, diag and v_free
@@ -561,7 +582,7 @@ pgs_kernel_smem(Dims D, Args A, const float* __restrict__ w_other) {
         }
         MJ[k * s + f] = acc;
       }
-    limit_rows<NT>(D, Minv, ld, MJ);
+    if (!minv_t) limit_rows<NT>(D, Minv, ld, MJ);
   }
   __syncthreads();
   // the other body's point inverse mass of interleaved contact row k
@@ -740,10 +761,10 @@ size_t scratch_floats(const Dims& D) {
 
 // The kernel of an instance, its threads and dynamic shared memory, with
 // the carveout and large-shared-memory opt-in it needs.
-using Kernel = void (*)(Dims, Args, const float*);
+using Kernel = void (*)(Dims, Args, const float*, int);
 
-cudaError_t prepare(const Dims& D, bool two_sided, Kernel* k, int* threads,
-                    int* smem) {
+cudaError_t prepare(const Dims& D, bool two_sided, bool minv_t, Kernel* k,
+                    int* threads, int* smem) {
   const int inst = instance(D);
   *threads = threads_for(D.r);
   *smem = inst > 1000 ? 0
@@ -751,10 +772,16 @@ cudaError_t prepare(const Dims& D, bool two_sided, Kernel* k, int* threads,
                               + D.nl * sizeof(int));
   switch (inst) {
     case 16:
-      *k = two_sided ? pgs_kernel_reg<16, true> : pgs_kernel_reg<16, false>;
+      *k = two_sided ? (minv_t ? pgs_kernel_reg<16, true, true>
+                               : pgs_kernel_reg<16, true, false>)
+                     : (minv_t ? pgs_kernel_reg<16, false, true>
+                               : pgs_kernel_reg<16, false, false>);
       break;
     case 24:
-      *k = two_sided ? pgs_kernel_reg<24, true> : pgs_kernel_reg<24, false>;
+      *k = two_sided ? (minv_t ? pgs_kernel_reg<24, true, true>
+                               : pgs_kernel_reg<24, true, false>)
+                     : (minv_t ? pgs_kernel_reg<24, false, true>
+                               : pgs_kernel_reg<24, false, false>);
       break;
     case 128: *k = pgs_kernel_smem<128>; break;
     case 256: *k = pgs_kernel_smem<256>; break;
@@ -805,7 +832,8 @@ extern "C" int pgs_solve_fused_f32(const float* J, const float* Minv,
                                    int W, int c, int nl, int d, int iters,
                                    float omega, int use_cone,
                                    float diag_scale, float reg,
-                                   float* scratch, void* stream) {
+                                   float* scratch, int minv_t,
+                                   void* stream) {
   if (W <= 0) return 0;
   if (!valid(c, nl, d)) return (int)cudaErrorInvalidValue;
   const Dims D = make_dims(c, nl, d);
@@ -813,12 +841,13 @@ extern "C" int pgs_solve_fused_f32(const float* J, const float* Minv,
     return (int)cudaErrorInvalidValue;
   Kernel k;
   int threads = 0, smem = 0;
-  const cudaError_t e = prepare(D, w_other != nullptr, &k, &threads, &smem);
+  const cudaError_t e = prepare(D, w_other != nullptr, minv_t != 0, &k,
+                                &threads, &smem);
   if (e != cudaSuccess) return (int)e;
   const Args A{J, Minv, qd, b, act, mu, lam0, ld, lam, dqd, halvings,
                iters, D.r < 192 ? 3 : 8, use_cone, omega, diag_scale, reg,
                scratch, scratch_floats(D)};
-  k<<<W, threads, smem, (cudaStream_t)stream>>>(D, A, w_other);
+  k<<<W, threads, smem, (cudaStream_t)stream>>>(D, A, w_other, minv_t);
   return (int)cudaGetLastError();
 }
 
@@ -829,7 +858,8 @@ extern "C" int pgs_kernel_info(int c, int nl, int d, int* regs,
   if (!valid(c, nl, d)) return (int)cudaErrorInvalidValue;
   Kernel k;
   int threads = 0, smem = 0;
-  cudaError_t e = prepare(make_dims(c, nl, d), false, &k, &threads, &smem);
+  cudaError_t e = prepare(make_dims(c, nl, d), false, false, &k, &threads,
+                          &smem);
   cudaFuncAttributes a;
   if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, k);
   if (e != cudaSuccess) return (int)e;

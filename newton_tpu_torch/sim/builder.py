@@ -53,6 +53,7 @@ from ..geometry.narrow_phase import pair_slot_count
 from ..geometry.types import GeoType, ShapeFlags
 from ..solvers.generalized.actuation import MJCActuation
 from .enums import BodyFlags, EqType, JointType, ParticleFlags
+from .tendon import SpatialTendonPath, spatial_tendon_rest_lengths
 from .model import (
     AttributeAssignment,
     AttributeFrequency,
@@ -74,6 +75,7 @@ _SHAPE_MASS = {
     GeoType.CAPSULE: lambda rho, s: compute_capsule_inertia(rho, s[0], s[1]),
     GeoType.CYLINDER: lambda rho, s: compute_cylinder_inertia(rho, s[0],
                                                               s[1]),
+    GeoType.NONE: None,                 # sites: massless frame markers
 }
 # per-dof lists of the builder (one entry per dof, in dof order)
 _DOF_LISTS = ("joint_armature", "joint_target_ke", "joint_target_kd",
@@ -115,6 +117,7 @@ class ShapeConfig:
     has_shape_collision: bool = True
     has_particle_collision: bool = True
     is_visible: bool = True
+    is_site: bool = False
     contype: int = 1
     conaffinity: int = 1
 
@@ -123,14 +126,26 @@ class ShapeConfig:
         f = 0
         if self.is_visible:
             f |= int(ShapeFlags.VISIBLE)
-        if self.has_shape_collision:
+        if self.has_shape_collision and not self.is_site:
             f |= int(ShapeFlags.COLLIDE_SHAPES)
-        if self.has_particle_collision:
+        if self.has_particle_collision and not self.is_site:
             f |= int(ShapeFlags.COLLIDE_PARTICLES)
+        if self.is_site:
+            f |= int(ShapeFlags.SITE)
         return f
 
     def copy(self) -> "ShapeConfig":
         return dc_replace(self)
+
+    def mark_as_site(self) -> "ShapeConfig":
+        """A massless, non-colliding copy (the site configuration)."""
+        cfg = dc_replace(self)
+        cfg.is_site = True
+        cfg.density = 0.0
+        cfg.has_shape_collision = False
+        cfg.has_particle_collision = False
+        cfg.collision_group = 0
+        return cfg
 
 
 @dataclass
@@ -174,6 +189,7 @@ class ModelBuilder:
         self.joint_world: List[int] = []
         self.articulation_world: List[int] = []
         self.default_shape_cfg = ShapeConfig()
+        self.default_site_cfg = ShapeConfig().mark_as_site()
         self.default_joint_cfg = JointDofConfig()
         self.mjc_options: Dict[str, object] = {}
         self.mjc_actuation = None
@@ -234,6 +250,17 @@ class ModelBuilder:
         self.tendon_coefs: List[List[float]] = []
         self.tendon_params: List[Tuple[float, float, float]] = []  # ke,kd,L0
         self.tendon_key: List[str] = []
+        # spatial tendons: site-routed paths with sphere/cylinder wraps
+        # (ke, kd, L0; L0 NaN: the build-pose length at finalize)
+        self.sten_paths: List[SpatialTendonPath] = []
+        self.sten_params: List[Tuple[float, float, float]] = []
+        self.sten_key: List[str] = []
+        # waypoint muscles (SolverSemiImplicit): per muscle its first
+        # waypoint and (f0, lm, lt, lmax, pen, passive_ke, passive_kd)
+        self.muscle_start: List[int] = []
+        self.muscle_params: List[Tuple[float, ...]] = []
+        self.muscle_bodies: List[int] = []
+        self.muscle_points: List[np.ndarray] = []
 
         # equality constraints: bodies (CONNECT, WELD) or joints (JOINT)
         self.eq_type: List[int] = []
@@ -476,6 +503,9 @@ class ModelBuilder:
                               for c in o.tendon_coefs]
         self.tendon_params += list(o.tendon_params) * count
         self.tendon_key += list(o.tendon_key) * count
+        s0 = len(self.sten_params)
+        for i in range(count):
+            self._copy_sten_muscles(o, b0 + i * nb)
         # particles
         self.particle_q += copies(o.particle_q)
         self.particle_qd += copies(o.particle_qd)
@@ -484,7 +514,7 @@ class ModelBuilder:
         self.particle_flags += list(o.particle_flags) * count
         self.particle_world += per_world(npart)
         self._copy_topology(o, p0, npart, count)
-        self._merge_mjcf_data(o, count, d0, q0, t0)
+        self._merge_mjcf_data(o, count, d0, q0, t0, s0)
         self._copy_equalities(o, count, j0, b0, worlds)
 
     def add_builder(self, other: "ModelBuilder", xform=None,
@@ -565,6 +595,8 @@ class ModelBuilder:
         self.tendon_coefs += [list(c) for c in other.tendon_coefs]
         self.tendon_params += list(other.tendon_params)
         self.tendon_key += [pre + k for k in other.tendon_key]
+        s0 = len(self.sten_params)
+        self._copy_sten_muscles(other, b0, pre)
         # particles
         p0 = self.particle_count
         for p, v in zip(other.particle_q, other.particle_qd):
@@ -577,8 +609,25 @@ class ModelBuilder:
         self.particle_flags += list(other.particle_flags)
         self.particle_world += [w] * other.particle_count
         self._copy_topology(other, p0, other.particle_count, 1)
-        self._merge_mjcf_data(other, 1, d0, q0, t0)
+        self._merge_mjcf_data(other, 1, d0, q0, t0, s0)
         self._copy_equalities(other, 1, j0, b0, [w], pre)
+
+    def _copy_sten_muscles(self, o: "ModelBuilder", boff: int,
+                           pre: str = "") -> None:
+        """One copy of ``o``'s spatial tendons and muscles, its bodies
+        offset by ``boff`` (the world's -1 stays)."""
+        for path, prm, k in zip(o.sten_paths, o.sten_params, o.sten_key):
+            self.sten_paths.append(path.remapped(lambda b: b + boff))
+            self.sten_params.append(prm)
+            self.sten_key.append(pre + k)
+        ends = list(o.muscle_start[1:]) + [len(o.muscle_bodies)]
+        for mi, (s, e) in enumerate(zip(o.muscle_start, ends)):
+            self.muscle_start.append(len(self.muscle_bodies))
+            self.muscle_params.append(o.muscle_params[mi])
+            for w in range(s, e):
+                mb = o.muscle_bodies[w]
+                self.muscle_bodies.append(mb + boff if mb >= 0 else -1)
+                self.muscle_points.append(o.muscle_points[w].copy())
 
     def _copy_topology(self, o: "ModelBuilder", p0: int, npart: int,
                        count: int) -> None:
@@ -606,7 +655,7 @@ class ModelBuilder:
         self.tet_poses += copies(o.tet_poses)
 
     def _merge_mjcf_data(self, o: "ModelBuilder", count: int, d0: int,
-                         q0: int, t0: int) -> None:
+                         q0: int, t0: int, s0: int = 0) -> None:
         """Custom attributes, MJCF options and actuator tables of ``count``
         copies of ``o`` whose dofs, coordinates and tendons start at d0,
         q0 and t0. Each copy's actuators drive that copy's dofs, and
@@ -629,10 +678,10 @@ class ModelBuilder:
         au = o.mjc_actuation
         if au is None or au.n == 0:
             return
-        nt = len(o.tendon_params)
+        nt, ns = len(o.tendon_params), len(o.sten_params)
         rep = MJCActuation(au.n * count)
         for name, base, stride in (("dof", d0, nd), ("coord", q0, nq),
-                                   ("tendon", t0, nt), ("sten", 0, 0)):
+                                   ("tendon", t0, nt), ("sten", s0, ns)):
             a = np.asarray(getattr(au, name))
             off = (base + stride * ks)[:, None] + a[None, :]
             setattr(rep, name, np.where(a[None, :] >= 0, off, a[None, :])
@@ -649,10 +698,11 @@ class ModelBuilder:
                     [getattr(prev, name), getattr(rep, name)]))
             rep = merged
         self.mjc_actuation = rep.finish()
-        if "mjc:ctrl" in self.custom_attributes:
-            spec, values = self.custom_attributes["mjc:ctrl"]
-            self.custom_attributes["mjc:ctrl"] = (
-                dc_replace(spec, shape=(rep.n,)), values)
+        for key in ("mjc:ctrl", "mjc:act"):
+            if key in self.custom_attributes:
+                spec, values = self.custom_attributes[key]
+                self.custom_attributes[key] = (
+                    dc_replace(spec, shape=(rep.n,)), values)
 
     # ------------------------------------------------------------------
     # bodies, articulations, joints
@@ -1022,6 +1072,14 @@ class ModelBuilder:
         self.body_mass[body] = m1
         self.body_com[body] = c1
         self.body_inertia[body] = I0s + I1s
+
+    def add_site(self, body: int, xform=None, key: Optional[str] = None,
+                 cfg: Optional[ShapeConfig] = None) -> int:
+        """A massless, non-colliding frame marker on ``body`` (-1: the
+        world): a ``GeoType.NONE`` shape that the static pipeline gives no
+        contact slot."""
+        return self.add_shape(body, GeoType.NONE, xform,
+                              cfg=cfg or self.default_site_cfg, key=key)
 
     def add_shape_plane(self, body: int = -1, xform=None,
                         width: float = 10.0, length: float = 10.0,
@@ -1523,8 +1581,43 @@ class ModelBuilder:
                 pass
         return list(range(start, self.particle_count))
 
-    def add_muscle(self, *args, **kwargs):
-        raise NotImplementedError("muscles are not ported yet")
+    def add_muscle(self, bodies: Sequence[int], positions: Sequence,
+                   f0: float, lm: float, lt: float, lmax: float,
+                   pen: float, passive_ke: float = 0.0,
+                   passive_kd: float = 0.0) -> int:
+        """Muscle-tendon unit routed through body-frame waypoints: an
+        activation (``Control.muscle_activations``) pulls with ``act *
+        f0`` along the path, and passive_ke/passive_kd add tension when
+        the path stretches past ``lm + lt`` (applied by
+        ``SolverSemiImplicit``)."""
+        idx = len(self.muscle_params)
+        self.muscle_start.append(len(self.muscle_bodies))
+        self.muscle_params.append((float(f0), float(lm), float(lt),
+                                   float(lmax), float(pen),
+                                   float(passive_ke), float(passive_kd)))
+        for b, p in zip(bodies, positions):
+            self.muscle_bodies.append(int(b))
+            self.muscle_points.append(np.asarray(p, dtype=np.float64))
+        return idx
+
+    def add_tendon_spatial(self, elems: Sequence[tuple],
+                           stiffness: float = 0.0, damping: float = 0.0,
+                           rest_length: Optional[float] = None,
+                           key: Optional[str] = None) -> int:
+        """Spatial tendon routed through body-frame sites with optional
+        sphere/cylinder wrap geoms (MuJoCo ``<spatial>``). ``elems`` in
+        path order: ("site", body, pos), ("sphere", body, pos, radius,
+        side_or_None), ("cylinder", body, pos, axis, radius,
+        side_or_None). Its passive force ``-ke (L - L0) - kd Ldot`` acts
+        through the moment rows (sim/tendon.py); actuators may drive it.
+        ``rest_length=None`` takes L0 from the build pose at finalize."""
+        idx = len(self.sten_params)
+        self.sten_paths.append(SpatialTendonPath(elems))
+        self.sten_params.append((float(stiffness), float(damping),
+                                 float("nan") if rest_length is None
+                                 else float(rest_length)))
+        self.sten_key.append(key or f"sten_{idx}")
+        return idx
 
     # ------------------------------------------------------------------
     # custom attributes and importers
@@ -1797,6 +1890,20 @@ class ModelBuilder:
         st.edge_count, st.tet_count = self.edge_count, self.tet_count
         st.mjc_actuation = self.mjc_actuation
         st.mjc_options = dict(self.mjc_options)
+        # spatial tendons; a NaN rest length is the build-pose length
+        # (MuJoCo springlength=-1)
+        st.sten_count = len(self.sten_params)
+        st.sten_paths = list(self.sten_paths)
+        st.sten_key = list(self.sten_key)
+        sten_params = np.asarray(self.sten_params,
+                                 dtype=np.float64).reshape(-1, 3)
+        unset = np.nonzero(np.isnan(sten_params[:, 2]))[0]
+        if len(unset):
+            sten_params[unset, 2] = spatial_tendon_rest_lengths(
+                [st.sten_paths[k] for k in unset], self.body_q)
+        st.muscle_count = len(self.muscle_params)
+        st.muscle_start = np.asarray(
+            self.muscle_start + [len(self.muscle_bodies)], dtype=np.int32)
 
         i32 = np.int32
         st.joint_type = np.asarray(self.joint_type, dtype=i32)
@@ -1954,6 +2061,12 @@ class ModelBuilder:
             joint_target_q0=f32(self.joint_target_q),
             gravity=f32(gravity),
             tendon_params=f32(self.tendon_params, (0, 3)),
+            sten_params=f32(sten_params, (0, 3)),
+            muscle_params=f32(np.asarray(self.muscle_params,
+                                         dtype=np.float64).reshape(-1, 7),
+                              (0, 7)),
+            muscle_bodies=i32t(self.muscle_bodies),
+            muscle_points=stack(self.muscle_points, 3),
             particle_q=stack(self.particle_q, 3),
             particle_qd=stack(self.particle_qd, 3),
             particle_mass=f32(pmass),

@@ -21,6 +21,8 @@ class Control:
         joint_target_qd: velocity targets ``(..., joint_dof_count)``.
         joint_f: generalized force input ``(..., joint_dof_count)``.
         tendon_f: force added to each fixed tendon ``(..., T)``, or None.
+        muscle_activations: each waypoint muscle's activation in [0, 1]
+            ``(..., M)`` (``SolverSemiImplicit``), or None.
         custom: namespaced solver controls (``mjc:ctrl``: MJCF actuator
             inputs ``(..., A)``; a multi-world model's is flat, ``(N A,)``,
             world i's actuators at ``[i A, (i + 1) A)``).
@@ -30,6 +32,7 @@ class Control:
     joint_target_qd: torch.Tensor
     joint_f: torch.Tensor
     tendon_f: Optional[torch.Tensor] = None
+    muscle_activations: Optional[torch.Tensor] = None
     custom: Dict[str, Any] = field(default_factory=dict)
 
     def to(self, device) -> "Control":

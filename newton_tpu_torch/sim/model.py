@@ -69,6 +69,10 @@ class ModelStructure:
         self.eq_count = 0
         self.tendon_count = 0
         self.sten_count = 0
+        self.sten_paths: List[Any] = []       # sim/tendon.SpatialTendonPath
+        self.sten_key: List[str] = []
+        self.muscle_count = 0
+        self.muscle_start = np.zeros(1, dtype=np.int32)
         self.up_axis = 2
 
         self.joint_type = np.zeros(0, dtype=np.int32)
@@ -130,6 +134,7 @@ MODEL_FLOAT_FIELDS = (
     "joint_limit_upper", "joint_limit_ke", "joint_limit_kd",
     "joint_friction", "joint_effort_limit", "joint_velocity_limit",
     "joint_qd0", "joint_q0", "joint_target_q0", "gravity", "tendon_params",
+    "sten_params", "muscle_params", "muscle_points",
     "particle_q", "particle_qd", "particle_mass", "particle_inv_mass",
     "particle_radius",
     "spring_rest_length", "spring_stiffness", "spring_damping",
@@ -145,7 +150,7 @@ MODEL_INT_FIELDS = (
     "body_flags", "shape_body", "shape_type", "shape_flags", "shape_world",
     "joint_type_arr", "joint_parent", "joint_child", "particle_flags",
     "spring_indices", "tri_indices", "edge_indices", "tet_indices",
-    "eq_obj1", "eq_obj2",
+    "eq_obj1", "eq_obj2", "muscle_bodies",
 )
 MODEL_BOOL_FIELDS = ("eq_enabled",)
 
@@ -197,6 +202,10 @@ class Model:
     joint_target_q0: torch.Tensor  # (Q,)
     gravity: torch.Tensor         # (W, 3), one row per world
     tendon_params: torch.Tensor   # (T, 3) ke, kd, rest length
+    sten_params: torch.Tensor     # (Ts, 3) spatial tendons' ke, kd, L0
+    muscle_params: torch.Tensor   # (M, 7) f0 lm lt lmax pen ke kd
+    muscle_bodies: torch.Tensor   # (Mw,) int32 waypoint body
+    muscle_points: torch.Tensor   # (Mw, 3) waypoint in its body's frame
     particle_q: torch.Tensor      # (N, 3) initial positions
     particle_qd: torch.Tensor     # (N, 3)
     particle_mass: torch.Tensor   # (N,)
@@ -292,4 +301,6 @@ class Model:
                        joint_f=torch.zeros_like(self.joint_qd0),
                        tendon_f=self.tendon_params.new_zeros(
                            self.tendon_params.shape[0]),
+                       muscle_activations=self.muscle_params.new_zeros(
+                           self.muscle_params.shape[0]),
                        custom=self._custom_for(AttributeAssignment.CONTROL))

@@ -13,14 +13,18 @@ take all rows of a group in one launch each per substep (B1 once per RK4
 stage); a group of several per-row constants broadcasts its ``(n, ...)``
 tables against the ``(N, ...)`` rows. The stages run in
 the reference's order: dof subspace, spatial inertia, RNEA bias, applied
-(PD on linear coordinates and ball quaternions, fixed tendons) and
-external forces, MJCF actuation, CRBA, the
-Cholesky kernel (Euler: one solve of ``M + dt Kd``; RK4: four stages of
-``M a = tau``, each after FK at its coordinates), the contact rows (top-K
-compacted) and the PGS kernel (or the limits-only solve without
-contacts; with warm start B2 starts from the last substep's impulses),
-the equality rows (their system through the Cholesky kernel), the
-velocity clips, coordinate integration, FK and sleeping.
+(PD on linear coordinates and ball quaternions, fixed tendons, penalty
+limits) and external forces, spatial tendons, MJCF actuation (and the
+activations' step), CRBA, the
+Cholesky kernel (Euler: one solve of ``M + dt Kd``; implicitfast: of ``M
++ dt (Kd + D)``; RK4: four stages of ``M a = tau``, each after FK at its
+coordinates; implicit: an LU of ``M + dt (Kd + D + dbias/dqd)`` instead),
+the contact rows (top-K compacted) and the PGS kernel (its non-symmetric
+form under implicit; or the Newton QP, or Kamino's PADMM; or the
+limits-only solve without contacts; with warm start the solve starts
+from the last substep's impulses), the equality rows (their system
+through the Cholesky kernel), the velocity clips, coordinate
+integration, FK and sleeping.
 Every index comes from the solver's device tables (``solver.tables``), in
 the row's local indices.
 """
@@ -52,9 +56,12 @@ from ...math import (
 from ...sim.articulation import angular_axes, fk_bodies
 from ...sim.control import Control
 from ...sim.state import State
+from ...sim.tendon import eval_spatial_tendons
 from .actuation import actuator_forces
 from .linalg import (chol_inv_solve, chol_inv_solve_plain, chol_solve,
                      chol_solve_plain)
+from .kamino import solve_contacts_admm
+from .newton_qp import solve_contacts_newton
 from .pgs import pgs_solve_fused, pgs_solve_fused_plain
 
 __all__ = ["step", "step_batched", "compaction_indices"]
@@ -153,6 +160,15 @@ def _applied_tau(t, q, qd, control, explicit=False):
     ``target * current^-1`` (the same for q and -q) plus its damping."""
     tau = torch.zeros_like(qd)
     kd_implicit = torch.zeros_like(qd)
+    if t.penalty is not None:
+        # one-sided limit springs (limit_mode="penalty"): -ke viol, and -kd
+        # qd where the limit is violated
+        lo, hi, ke, kd = t.penalty
+        ql = q[:, t.lin_idx]
+        viol = torch.clamp(ql - lo, max=0.0) + torch.clamp(ql - hi, min=0.0)
+        lim = -ke * viol - torch.where(viol != 0.0, kd * qd[:, t.lin_dof],
+                                       0.0)
+        tau[:, t.lin_dof] = tau[:, t.lin_dof] + lim
     if control is None:
         return tau, kd_implicit
     tau = tau + control.joint_f
@@ -454,34 +470,139 @@ def _integrate_coords(t, q, qd, dt):
     return q
 
 
+def _tendon_state(t, q, qd):
+    """The row's fixed tendons' lengths and velocities (W, T)."""
+    return q @ t.tendon_Cq.T, qd @ t.tendon_Cd.T
+
+
+def _spatial_tendons(t, body_q, qd, v_o, w_o):
+    """The row's spatial tendons: lengths L, velocities V = J qd (W, Ts)
+    and moment rows J (W, Ts, d)."""
+    k = t.sten
+    Ls, Js = eval_spatial_tendons(k.paths, body_q, v_o[:, t.di],
+                                  w_o[:, t.di], t.anc_bd)
+    L = torch.stack(Ls, dim=1)
+    J = torch.stack(Js, dim=1)
+    return L, (J * qd[:, None, t.di]).sum(-1), J
+
+
 def _smooth(solver, grp, q, qd, body_q, body_qd, body_f, control_b,
-            explicit):
+            explicit, act=None, dt=0.0):
     """The smooth dynamics of a group's rows at one configuration: the dof
-    subspace (v_o, w_o), world COMs x_b, the mass matrix M (W, d, d), the
-    net generalized force tau_net = applied + external + actuator - bias,
-    and the implicit damping gains (zero with ``explicit``)."""
+    subspace (v_o, w_o), world COMs x_b, world inertias Iw, the mass matrix
+    M (W, d, d), the net generalized force tau_net = applied + external +
+    spatial tendons + actuator - bias, the implicit damping gains (zero
+    with ``explicit``), and for the implicit integrators and activation
+    dynamics: the spatial tendons (L, V, J), the actuators' dfdv and the
+    next activation ``act_new`` (``act`` (W, A) the current one)."""
     model, t = grp.row_model, grp.tables
     v_o, w_o = _dof_subspace(t, body_q, q)
     x_b, Iw = _spatial_inertia(model, body_q)
     tau_bias = _bias_forces(t, model, body_qd, v_o, w_o, x_b, Iw)
     tau, kd_implicit = _applied_tau(t, q, qd, control_b, explicit)
-    tau = tau + _external_tau(t, body_f, x_b, v_o, w_o)
-    if (grp.actuation is not None and control_b is not None
+    if solver.apply_body_forces:
+        tau = tau + _external_tau(t, body_f, x_b, v_o, w_o)
+    out = SimpleNamespace(sten=None, dfdv=None, act_new=None)
+    if t.sten is not None:
+        # spatial tendons: f = -ke (L - L0) - kd V through the moment rows
+        L, V, J = out.sten = _spatial_tendons(t, body_q, qd, v_o, w_o)
+        f = -t.sten.ke * (L - t.sten.L0) - t.sten.kd * V
+        tau = tau.clone()
+        tau[:, t.di] = tau[:, t.di] + (J * f[..., None]).sum(1)
+    au = grp.actuation
+    if (au is not None and control_b is not None
             and "mjc:ctrl" in control_b.custom):
-        tau = tau + actuator_forces(grp.actuation, q, qd,
-                                    control_b.custom["mjc:ctrl"])
+        tendon = _tendon_state(t, q, qd) if au.has_tendon else None
+        tau_a, out.act_new, _, out.dfdv = actuator_forces(
+            au, q, qd, control_b.custom["mjc:ctrl"], act, dt,
+            sten=out.sten, tendon=tendon)
+        tau = tau + tau_a
     M = _crba(t, v_o, w_o, x_b, Iw, model.body_mass)
-    return v_o, w_o, x_b, M, tau - tau_bias, kd_implicit
+    out.v_o, out.w_o, out.x_b, out.Iw, out.M = v_o, w_o, x_b, Iw, M
+    out.tau_net, out.kd_implicit = tau - tau_bias, kd_implicit
+    return out
 
 
-def _rk4(solver, grp, state_b, control_b, dt, chol, record):
+def _bias_jacobian(t, model, body_qd, v_o, w_o, x_b, Iw):
+    """d tau_bias / d qd (W, d, d), the Coriolis derivative that
+    ``integrator="implicit"`` adds. The bias is quadratic in qd and the
+    twists linear: dof k moves every body it carries with its subspace
+    column S_k = (v_o_k, w_o_k), so one forward-mode pass of the RNEA with
+    the d tangents on an axis of their own (W, B, d, 6) gives every
+    column. The JAX package takes ``jax.jacfwd`` over all (D,) dofs of a
+    model and reads the per-row blocks (ROADMAP C.21); the port forms only
+    the blocks."""
+    bw = body_qd[..., 3:6]
+    V = torch.cat([body_qd[..., 0:3] - cross(bw, x_b), bw], -1)  # (W, B, 6)
+    S = torch.cat([v_o[:, t.di], w_o[:, t.di]], -1)             # (W, d, 6)
+    dV = t.anc_bd[None, :, :, None] * S[:, None]       # (W, B, d, 6)
+    W = body_qd.shape[0]
+    A = t.base_acc.expand(W, -1, -1).clone()
+    dA = torch.zeros_like(dV)
+    for pbc, cb, hasp in t.levels:
+        Vc, dVc = V[:, cb], dV[:, cb]
+        rel = Vc - torch.where(hasp, V[:, pbc], 0.0)
+        drel = dVc - torch.where(hasp[..., None], dV[:, pbc], 0.0)
+        A_p = torch.where(hasp, A[:, pbc], t.base_acc[:, cb])
+        dA_p = torch.where(hasp[..., None], dA[:, pbc], 0.0)
+        A[:, cb] = A_p + spatial_cross(Vc, rel)
+        dA[:, cb] = (dA_p + spatial_cross(dVc, rel[:, :, None])
+                     + spatial_cross(Vc[:, :, None], drel))
+    m = model.body_mass[..., None, None]
+    xb, Iwb = x_b[:, :, None], Iw[:, :, None]
+
+    def apply_I(a):
+        # the 3x3 products as broadcast sums: as batched matmuls of this
+        # shape they ran as cuBLAS gemv, the implicit substep's largest
+        # kernel after the elementwise ones
+        f = (a[..., 0:3] + cross(a[..., 3:6], xb)) * m
+        tq = (Iwb * a[..., None, 3:6]).sum(-1) + cross(xb, f)
+        return torch.cat([f, tq], -1)
+    IV = apply_I(V[:, :, None])                                # (W, B, 1, 6)
+    dF = (apply_I(dA) + spatial_cross_dual(dV, IV)
+          + spatial_cross_dual(V[:, :, None], apply_I(dV)))
+    dF = _accumulate(t, dF)[:, t.dof_body]                  # (W, D, d, 6)
+    return (_dot(v_o[..., None, :], dF[..., 0:3])
+            + _dot(w_o[..., None, :], dF[..., 3:6]))[:, t.di]
+
+
+def _damping_matrix(solver, grp, sm):
+    """The implicit integrators' D = -d tau / d qd beyond the diagonal
+    joint damping (W, d, d): the fixed tendons' kd c c^T, the joint
+    actuators' -gear^2 dfdv on their dofs, the spatial tendons' kd J^T J
+    with their actuators' -gear^2 dfdv on kd, and under "implicit" the
+    Coriolis derivative. Each sum in a fixed order (dense products and
+    FixedOrderSums)."""
+    t, au = grp.tables, grp.actuation
+    W, d = sm.M.shape[0], sm.M.shape[1]
+    D = sm.M.new_zeros(W, d, d)
+    if t.D_tendon is not None:
+        D = D + t.D_tendon
+    neg = None
+    if au is not None and sm.dfdv is not None:
+        neg = -(au.gear * au.gear) * sm.dfdv                 # (W, A)
+        dj = au.dof_sum(torch.where(au.is_joint, neg, 0.0), dim=1)
+        D = D + torch.diag_embed(dj[:, t.di])
+    if sm.sten is not None:
+        J = sm.sten[2]                                       # (W, Ts, d)
+        kd = t.sten.kd.expand(W, J.shape[1])
+        if neg is not None and au.has_sten:
+            kd = kd + au.sten_sum(torch.where(au.is_st, neg, 0.0), dim=1)
+        D = D + torch.einsum("wtd,wt,wte->wde", J, kd, J)
+    if solver.integrator == "implicit":
+        D = D + sm.jbias
+    return D
+
+
+def _rk4(solver, grp, state_b, control_b, dt, chol, record, act=None):
     """Classic RK4 on the smooth dynamics (MuJoCo's mj_RungeKutta tableau,
     the JAX package's ``_rk4_update``): four evaluations of ``M a =
     tau_net`` with explicit joint damping, one B1 call each; stages 2-4
     at coordinates integrated from the substep's start (FK at each).
-    Returns stage 1's subspace, COMs and ``M^-1`` (for the contact and
-    limit solve), the RK4 velocity and the tableau-weighted stage
-    velocity that advances the coordinates."""
+    Activation dynamics advance once, with stage 1's values. Returns
+    stage 1's subspace, COMs and ``M^-1`` (for the contact and limit
+    solve), the RK4 velocity, the tableau-weighted stage velocity that
+    advances the coordinates and the next activation."""
     t = grp.tables
     q, qd = state_b.joint_q, state_b.joint_qd
 
@@ -490,16 +611,16 @@ def _rk4(solver, grp, state_b, control_b, dt, chol, record):
         if stage > 1:
             body_q, body_qd = fk_bodies(grp.row_model, q_s, qd_s, body_q,
                                         body_qd)
-        v_o, w_o, x_b, M, tau_net, _ = _smooth(
-            solver, grp, q_s, qd_s, body_q, body_qd, state_b.body_f,
-            control_b, explicit=True)
-        rhs = tau_net[:, t.di]
+        sm = _smooth(solver, grp, q_s, qd_s, body_q, body_qd,
+                     state_b.body_f, control_b, explicit=True, act=act,
+                     dt=dt)
+        rhs = sm.tau_net[:, t.di]
         if record is not None and stage == 1:
-            record["chol"] = (M, rhs)
-        Minv, a_g = chol(M, rhs)
+            record["chol"] = (sm.M, rhs)
+        Minv, a_g = chol(sm.M, rhs)
         a = torch.zeros_like(qd)
         a[:, t.di] = a_g
-        return a, (v_o, w_o, x_b, Minv)
+        return a, (sm.v_o, sm.w_o, sm.x_b, Minv, sm.act_new)
 
     a1, first = accel(q, qd, 1)
     v2 = qd + 0.5 * dt * a1
@@ -522,22 +643,49 @@ def _substep(solver, grp, state_b: State, control_b, contacts_b, dt: float,
     q, qd = state_b.joint_q, state_b.joint_qd
     body_q, body_qd = state_b.body_q, state_b.body_qd
     chol = chol_inv_solve if kernels else chol_inv_solve_plain
+    act = state_b.custom.get("mjc:act")
+    symmetric = True
 
     if solver.integrator == "rk4":
-        (v_o, w_o, x_b, Minv), qd_smooth, v_avg = _rk4(
-            solver, grp, state_b, control_b, dt, chol, record)
+        (v_o, w_o, x_b, Minv, act_new), qd_smooth, v_avg = _rk4(
+            solver, grp, state_b, control_b, dt, chol, record, act)
         qd_g = qd_smooth[:, t.di]
     else:
-        # group row: factor / solve / invert M + dt*Kd
-        v_o, w_o, x_b, M, tau_net, kd_implicit = _smooth(
-            solver, grp, q, qd, body_q, body_qd, state_b.body_f, control_b,
-            explicit=False)
-        Mi = M + dt * torch.diag_embed(kd_implicit[:, t.di])
-        rhs = (M @ qd[:, t.di, None])[..., 0] + dt * tau_net[:, t.di]
-        if record is not None:
-            record["chol"] = (Mi, rhs)
-        Minv, qd_g = chol(Mi, rhs)
+        # group row: factor / solve / invert M + dt*Kd (+ dt*D under the
+        # implicit integrators)
+        sm = _smooth(solver, grp, q, qd, body_q, body_qd, state_b.body_f,
+                     control_b, explicit=False, act=act, dt=dt)
+        v_o, w_o, x_b, M, act_new = sm.v_o, sm.w_o, sm.x_b, sm.M, sm.act_new
+        Mi = M + dt * torch.diag_embed(sm.kd_implicit[:, t.di])
+        qd_d = qd[:, t.di]
+        rhs = (M @ qd_d[..., None])[..., 0] + dt * sm.tau_net[:, t.di]
+        if solver.integrator in ("implicitfast", "implicit"):
+            if solver.integrator == "implicit":
+                sm.jbias = _bias_jacobian(t, model, body_qd, v_o, w_o, x_b,
+                                          sm.Iw)
+            D = _damping_matrix(solver, grp, sm)
+            Mi = Mi + dt * D
+            rhs = rhs + dt * (D @ qd_d[..., None])[..., 0]
+        if solver.integrator == "implicit":
+            # the Coriolis derivative makes the system non-symmetric: LU
+            # (torch.linalg.solve_ex without its error check, no host
+            # sync), the inverse and the solution in one call
+            d = Mi.shape[-1]
+            eye = torch.eye(d, dtype=Mi.dtype, device=Mi.device)
+            if record is not None:
+                record["lu"] = (Mi, rhs)
+            X = torch.linalg.solve_ex(
+                Mi, torch.cat([eye.expand_as(Mi), rhs[..., None]], -1),
+                check_errors=False)[0]
+            Minv, qd_g = X[..., :d].contiguous(), X[..., d].contiguous()
+            symmetric = False
+        else:
+            if record is not None:
+                record["chol"] = (Mi, rhs)
+            Minv, qd_g = chol(Mi, rhs)
     custom = {}
+    if act_new is not None:
+        custom["mjc:act"] = act_new
     # the impulse solve on M^-1 (stage 1's under RK4)
     if contacts_b is not None:
         warm = state_b.custom.get("contact:lam") if solver.warm_start \
@@ -547,8 +695,23 @@ def _substep(solver, grp, state_b: State, control_b, contacts_b, dt: float,
                                         warm)
         if record is not None:
             record["pgs"] = (args, kw)
-        pgs = pgs_solve_fused if kernels else pgs_solve_fused_plain
-        lam, dqd = pgs(*args, **kw)
+        if solver.contact_solver == "admm":
+            lam, dqd = solve_contacts_admm(solver, t, *args, c=kw["c"],
+                                           E=t.lim_E,
+                                           w_other=kw.get("w_other"),
+                                           record=record)
+        elif solver.contact_solver == "newton":
+            J, Minv_, qd_, b_rows, act3, mu, _ = args
+            lam, dqd = solve_contacts_newton(
+                J, Minv_, qd_, b_rows, act3, mu, c=kw["c"], E=t.lim_E,
+                impratio=solver.impratio, reg=solver.contact_reg,
+                iterations=solver.newton_iterations,
+                w_other=kw.get("w_other"), record=record)
+        else:
+            pgs = pgs_solve_fused if kernels else pgs_solve_fused_plain
+            if not symmetric:
+                kw["symmetric"] = False
+            lam, dqd = pgs(*args, **kw)
         if record is not None:
             record["lam"] = lam
         qd_g = qd_g + dqd
@@ -641,7 +804,10 @@ def step_batched(solver, state_b: State, control_b=None, contacts_b=None,
     compares the kernel path with. ``record``, when a dict, receives the
     operands of the two kernel calls (``"chol"``: stage 1's under RK4;
     ``"pgs"``) and the contact impulses (``"lam"``), or the operands of the
-    limits-only solve (``"limits"``) in a substep without contacts."""
+    limits-only solve (``"limits"``) in a substep without contacts; under
+    ``integrator="implicit"`` the LU's operands (``"lu"``) in place of
+    ``"chol"``; the Newton QP's last masked system (``"newton_H"``) and
+    Kamino's factored matrix (``"admm_factor"``)."""
     if not solver._model_is_row:
         raise NotImplementedError(
             "step_batched takes a one-world model of one articulation whose "
@@ -662,11 +828,15 @@ def step_batched(solver, state_b: State, control_b=None, contacts_b=None,
             "sleep counters")
     inner = {k: state_b.custom[v].reshape(W, *state_b.custom[v].shape[2:])
              for k, v in keys.items() if v in state_b.custom}
+    if "mjc:act" in state_b.custom:
+        # the activations (W, A), one world's actuators per env
+        inner["mjc:act"] = state_b.custom["mjc:act"]
     out = _substep(solver, grp, replace(state_b, custom=inner), control_b,
                    rows, dt, kernels, record)
     custom = dict(state_b.custom)
     for k, v in out.custom.items():
-        custom[keys[k]] = v.reshape(W, 1, *v.shape[1:])
+        custom[k if k == "mjc:act" else keys[k]] = (
+            v if k == "mjc:act" else v.reshape(W, 1, *v.shape[1:]))
     return replace(out, custom=custom)
 
 
@@ -693,6 +863,8 @@ def _gather_rows(grp, state, control, contacts, keys=None):
         joint_qd=state.joint_qd[t.row_dof],
         custom={k: state.custom[v] for k, v in (keys or {}).items()
                 if v in state.custom})
+    if "mjc:act" in state.custom and t.row_act.numel():
+        rows.custom["mjc:act"] = state.custom["mjc:act"][t.row_act]
     ctl = None
     if control is not None:
         custom = {}
@@ -744,6 +916,13 @@ def step(solver, state: State, control: Optional[Control] = None,
         rows, ctl, crows = _gather_rows(grp, state, control, contacts, keys)
         out = _substep(solver, grp, rows, ctl, crows, dt, kernels, rec)
         outs.append((t, out))
+        act = out.custom.pop("mjc:act", None)
+        if act is not None:
+            # each row's activations back into the flat (N A,) layout
+            if "mjc:act" not in custom or custom["mjc:act"] is \
+                    state.custom.get("mjc:act"):
+                custom["mjc:act"] = state.custom["mjc:act"].clone()
+            custom["mjc:act"][t.row_act] = act
         custom.update({keys[k]: v for k, v in out.custom.items()})
 
     def put(name, idx_name):

@@ -21,6 +21,14 @@ side when that body lies in another articulation or world (a two-sided
 contact, solved in both cells). It adds to the diagonal before the
 ``diag_scale``/``reg`` softening and acts diagonally in every matvec,
 ``A x + w_other * x`` (the JAX package's ``w_extra``); zero on limit rows.
+
+``symmetric=False`` is the form for a ``Minv`` that is not symmetric (the
+implicit integrator's inverse of ``M + dt (Kd + D + dbias/dqd)``): the
+contact rows use ``Minv J^T`` as the reference does (``MJ = J Minv^T``,
+the kernel stages ``Minv`` transposed) and the limit rows the columns
+``Minv[:, ld]``, so the Delassus operator is ``[J; E] Minv [J; E]^T`` and
+``dqd = Minv [J; E]^T lam``. The default, ``symmetric=True``, forms ``MJ =
+J Minv`` as every symmetric call did before the option existed.
 """
 
 from __future__ import annotations
@@ -183,11 +191,11 @@ def pgs_core(J, MJ, cols, diag, v_free, b, act, mu, lam0, *, c, ld, iters,
 
 def pgs_solve_fused_plain(J, Minv, qd, b, act, mu, lam0, *, c, ld, iters,
                           omega, use_cone, diag_scale, reg, w_other=None,
-                          return_halvings=False):
+                          return_halvings=False, symmetric=True):
     """Plain PyTorch version: Delassus pieces assembled outside, then
     ``pgs_core``. Returns (lam, dqd[, halvings])."""
     nl = int(ld.numel())
-    MJ = torch.bmm(J, Minv)                               # (W, 3c, d)
+    MJ = torch.bmm(J, Minv if symmetric else Minv.transpose(1, 2))
     diag = (J * MJ).sum(dim=2)
     if w_other is not None:
         diag = diag + w_other
@@ -231,7 +239,7 @@ def _check(J, Minv, qd, b, act, mu, lam0, ld, c, w_other):
 
 def pgs_solve_fused(J, Minv, qd, b, act, mu, lam0, *, c, ld, iters, omega,
                     use_cone, diag_scale, reg, w_other=None,
-                    return_halvings=False):
+                    return_halvings=False, symmetric=True):
     """Assemble the Delassus pieces and run the projected-Jacobi solve.
 
     CUDA tensors go to the kernel (or raise); CPU tensors to the plain
@@ -241,7 +249,7 @@ def pgs_solve_fused(J, Minv, qd, b, act, mu, lam0, *, c, ld, iters, omega,
     W, d, nl, r = _check(J, Minv, qd, b, act, mu, lam0, ld, c, w_other)
     kw = dict(c=c, ld=ld, iters=iters, omega=omega, use_cone=use_cone,
               diag_scale=diag_scale, reg=reg, w_other=w_other,
-              return_halvings=return_halvings)
+              return_halvings=return_halvings, symmetric=symmetric)
     if J.device.type == "cpu":
         return pgs_solve_fused_plain(J, Minv, qd, b, act, mu, lam0, **kw)
     if J.device.type != "cuda":
@@ -268,7 +276,8 @@ def pgs_solve_fused(J, Minv, qd, b, act, mu, lam0, *, c, ld, iters, omega,
             lam.data_ptr(), dqd.data_ptr(), halv.data_ptr(),
             W, c, nl, d, int(iters), float(omega), int(bool(use_cone)),
             float(diag_scale), float(reg),
-            None if scratch is None else scratch.data_ptr(), stream)
+            None if scratch is None else scratch.data_ptr(),
+            int(not symmetric), stream)
     pgs_solve_fused.launches += 1
     _kernels.check(err, "pgs_solve_fused")
     return (lam, dqd, halv) if return_halvings else (lam, dqd)

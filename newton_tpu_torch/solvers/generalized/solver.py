@@ -33,7 +33,11 @@ solved in both cells, each with the other body's point inverse mass on its
 Delassus diagonal and the other body's pre-step velocity as a moving
 support. The port covers the static-contact path of the gymnasium robots,
 ball-jointed rods and scenes of several articulations per world, under
-Euler and RK4, with contact warm start (``warm_start``), sleeping
+the four integrators (euler, implicitfast, implicit, rk4), with the PGS
+kernel or the Newton QP (``contact_solver``), constraint or penalty
+joint limits (``limit_mode``), spatial tendons (each within one row),
+MJCF actuation with activation dynamics and muscles (acc0 solved per row
+at construction), contact warm start (``warm_start``), sleeping
 (``sleep_threshold``, ``sleep_steps``) and equality constraints (CONNECT,
 WELD and JOINT rows, planned per group as the JAX package plans them);
 articulations attached to another articulation's body, joints outside the
@@ -327,6 +331,40 @@ def _plan_group_equality(model, groups):
     return plans
 
 
+def _local_index(idx, rows):
+    """Global entity indices ``idx`` (n, k) (-1: none) as positions in each
+    row's entity list ``rows`` (n, m): (n, k), -1 kept."""
+    idx = np.asarray(idx)
+    rows = np.asarray(rows)
+    out = -np.ones(idx.shape, dtype=np.int32)
+    for r in range(idx.shape[0] if idx.ndim == 2 else 0):
+        pos = {int(x): i for i, x in enumerate(rows[r])}
+        out[r] = [pos.get(int(x), -1) if x >= 0 else -1 for x in idx[r]]
+    return out
+
+
+def _plan_spatial_tendons(st, groups):
+    """Each spatial tendon's (group, row) cell, (2, Ts), and its path in
+    that row's local bodies. A tendon's bodies must lie in one cell (or the
+    world); one spanning two articulations or worlds raises."""
+    paths = list(getattr(st, "sten_paths", []) or [])
+    own = -np.ones((2, len(paths)), dtype=np.int64)
+    local = []
+    if not paths:
+        return own, local
+    gi_of, e_of, lb_of = _body_env_tables(groups, st.body_count)
+    for k, p in enumerate(paths):
+        bodies = {int(e[1]) for e in p.elems if e[1] >= 0}
+        cells = {(int(gi_of[b]), int(e_of[b])) for b in bodies}
+        if not bodies or any(gi_of[b] < 0 for b in bodies) or len(cells) != 1:
+            raise NotImplementedError(
+                f"spatial tendon {k}: a tendon whose bodies are not all in "
+                "one articulation of one world is not ported")
+        own[:, k] = cells.pop()
+        local.append(p.remapped(lambda b: int(lb_of[b])))
+    return own, local
+
+
 def _entity_rows(owner_row, n, what):
     """(n, k) entity indices per row, in ascending order, for entities
     whose row is ``owner_row``."""
@@ -370,7 +408,8 @@ def _joint_rows(st, g):
     return a0[:, None] + np.arange(nj)[None]
 
 
-def row_model(model: Model, g, tendon_rows, act_rows) -> Model:
+def row_model(model: Model, g, tendon_rows, act_rows,
+              sten_rows=None) -> Model:
     """Articulation group ``g`` as a one-world Model in local indices: the
     bodies, joints, dofs and coordinates of a row, the tendons and
     actuators of ``tendon_rows``/``act_rows`` (n, k), no shapes and no
@@ -423,11 +462,14 @@ def row_model(model: Model, g, tendon_rows, act_rows) -> Model:
     if au is not None and au.n and act_rows.size:
         ar = act_rows[0]
         rau = MJCActuation(len(ar))
-        rau.tendon, rau.sten = au.tendon[ar].copy(), au.sten[ar].copy()
+        # tendon transmissions index the row's fixed and spatial tendons
+        rau.tendon = _local_index(au.tendon[act_rows], tendon_rows)[0]
+        rau.sten = _local_index(au.sten[act_rows], sten_rows)[0]
         for name in _ACT_PARAMS:
             setattr(rau, name, _param_rows(getattr(au, name), act_rows))
-        rau.dof = (au.dof[ar] - d0).astype(i32)
-        rau.coord = (au.coord[ar] - q0).astype(i32)
+        rau.dof = np.where(au.dof[ar] >= 0, au.dof[ar] - d0, -1).astype(i32)
+        rau.coord = np.where(au.coord[ar] >= 0, au.coord[ar] - q0,
+                             -1).astype(i32)
         rst.mjc_actuation = rau.finish()
     rst.mjc_options = dict(st.mjc_options)
 
@@ -435,9 +477,12 @@ def row_model(model: Model, g, tendon_rows, act_rows) -> Model:
     # each tensor field by the entities it is per: bodies, joints, dofs,
     # coordinates, tendons, the row's world; no shapes and no particles
     # (the 0-d material scalars stay as they are)
+    if sten_rows is None:
+        sten_rows = np.zeros((g.n, 0), np.int64)
     rows = {"joint_X_p": _joint_rows(st, g), "joint_X_c": _joint_rows(st, g),
             "joint_q0": g.coord_idx, "joint_target_q0": g.coord_idx,
-            "tendon_params": tendon_rows, "gravity": np.asarray([[w]])}
+            "tendon_params": tendon_rows, "sten_params": sten_rows,
+            "gravity": np.asarray([[w]])}
     kw = {}
     for f in fields(model):
         v = getattr(model, f.name)
@@ -448,6 +493,8 @@ def row_model(model: Model, g, tendon_rows, act_rows) -> Model:
                                 device=v.device)
         elif f.name in rows:
             v = _group_rows(v, rows[f.name])
+        elif f.name.startswith("muscle_"):
+            v = v[:0]
         elif f.name.startswith("body_"):
             v = _group_rows(v, g.body_idx)
         elif f.name.startswith("joint_"):
@@ -489,28 +536,45 @@ class SolverFeatherstone:
                  baumgarte: float = 0.2,
                  contact_slop: float = 1e-4,
                  depenetration_velocity: float = 10.0,
+                 angular_damping: float = 0.0,
                  friction_cone: str = "pyramid",
-                 max_velocity: float = 1.0e3,
-                 contact_cap: Optional[int] = None,
-                 integrator: str = "euler",
-                 warm_start: bool = False,
+                 limit_mode: str = "constraint",
                  sleep_threshold: float = 0.0,
-                 sleep_steps: int = 16):
+                 sleep_steps: int = 16,
+                 warm_start: bool = False,
+                 max_velocity: float = 1.0e3,
+                 update_mass_matrix_interval: int = 1,
+                 contact_cap: Optional[int] = None,
+                 contact_solver: str = "pgs",
+                 newton_iterations: int = 8,
+                 integrator: str = "euler",
+                 apply_body_forces: bool = True):
         integrator = str(integrator).lower()
         if integrator not in ("euler", "implicitfast", "implicit", "rk4"):
             raise ValueError(f"unknown integrator {integrator!r}")
-        if integrator not in ("euler", "rk4"):
-            raise NotImplementedError(
-                f"integrator {integrator!r} is not ported yet (euler and "
-                "rk4 only)")
         if friction_cone not in ("pyramid", "cone"):
             raise ValueError(f"unknown friction_cone {friction_cone!r}")
+        if limit_mode not in ("constraint", "penalty"):
+            raise ValueError(f"unknown limit_mode {limit_mode!r}")
+        if contact_solver not in ("pgs", "newton"):
+            raise ValueError(f"unknown contact_solver {contact_solver!r}")
         st = model.structure
-        if st.sten_count:
-            raise NotImplementedError("spatial tendons are not ported yet")
 
         self.model = model
         self.integrator = integrator
+        # "constraint": limit rows in the impulse solve; "penalty": one-sided
+        # springs (joint_limit_ke/kd) into tau, no limit rows
+        self.limit_mode = limit_mode
+        # False skips the projection of State.body_f into tau
+        self.apply_body_forces = bool(apply_body_forces)
+        # "pgs" (B2) or "newton": the active-set Newton QP on pyramid
+        # facets (newton_qp.py), newton_iterations masked solves
+        self.contact_solver = contact_solver
+        self.newton_iterations = int(newton_iterations)
+        # accepted and stored for the reference's signature; the JAX
+        # package reads neither
+        self.angular_damping = float(angular_damping)
+        self.update_mass_matrix_interval = int(update_mass_matrix_interval)
         self.contact_iterations = int(contact_iterations)
         self.contact_relaxation = float(contact_relaxation)
         self.contact_reg = float(contact_reg)
@@ -549,9 +613,17 @@ class SolverFeatherstone:
                 gi, np.arange(g.n)[:, None]))
         tend = (coord_grp[:, st.tendon_coord[:, 0]] if st.tendon_count
                 else np.zeros((2, 0), np.int64))
+        sten, self._sten_local = _plan_spatial_tendons(st, groups)
         au = st.mjc_actuation
-        acts = (dof_grp[:, au.dof] if au is not None and au.n
-                else np.zeros((2, 0), np.int64))
+        acts = np.zeros((2, 0), np.int64)
+        if au is not None and au.n:
+            # an actuator's cell: its dof's, or its tendon's
+            acts = np.where(au.dof >= 0, dof_grp[:, np.maximum(au.dof, 0)],
+                            -1)
+            for idx, own in ((au.tendon, tend), (au.sten, sten)):
+                if (idx >= 0).any():
+                    acts = np.where(idx >= 0, own[:, np.maximum(idx, 0)],
+                                    acts)
         for what, owner in (("fixed tendons", tend), ("actuators", acts)):
             if (owner[0] < 0).any():
                 raise NotImplementedError(f"{what} outside the articulations"
@@ -570,6 +642,9 @@ class SolverFeatherstone:
                                                  "fixed tendons")]
             grp.act_rows = a_idx[_entity_rows(acts[1][a_idx], g.n,
                                               "actuators")]
+            s_idx = np.nonzero(sten[0] == gi)[0]
+            grp.sten_rows = s_idx[_entity_rows(sten[1][s_idx], g.n,
+                                               "spatial tendons")]
             self._check_structure(grp)
             ld, lc = [], []
             for k, dg in enumerate(g.dof_idx[0]):
@@ -590,6 +665,64 @@ class SolverFeatherstone:
                 (g.body_idx, st.body_count), (g.dof_idx, st.joint_dof_count),
                 (g.coord_idx, st.joint_coord_count)))
         self.notify_model_changed()
+        au = st.mjc_actuation
+        if au is not None and au.n and au.has_muscle:
+            self._compute_muscle_acc0(au)
+            self.notify_model_changed()
+
+    def group_mass_matrices(self, state):
+        """Each group's joint-space mass matrices (n, d, d) at ``state`` (a
+        flat State of the model), from the substep's CRBA."""
+        from .batched import _crba, _dof_subspace, _gather_rows, \
+            _spatial_inertia
+        out = []
+        for grp in self.groups:
+            t = grp.tables
+            if t.d == 0:
+                out.append(None)
+                continue
+            rows, _, _ = _gather_rows(grp, state, None, None)
+            v_o, w_o = _dof_subspace(t, rows.body_q, rows.joint_q)
+            x_b, Iw = _spatial_inertia(grp.row_model, rows.body_q)
+            out.append(_crba(t, v_o, w_o, x_b, Iw, grp.row_model.body_mass))
+        return out
+
+    def _compute_muscle_acc0(self, au):
+        """acc0_a = |M(q0)^-1 moment_a| per actuator (MuJoCo's actuator
+        acc0, which resolves a muscle's force < 0 as scale / acc0): one
+        float64 host solve per group at the model's default pose, each
+        actuator with its own row's M (the JAX package takes row 0 of the
+        first group the actuator moves)."""
+        from .batched import _dof_subspace, _gather_rows, _spatial_tendons
+        state = self.model.state()
+        Ms = self.group_mass_matrices(state)
+        for grp, M in zip(self.groups, Ms):
+            if M is None or not grp.act_rows.size:
+                continue
+            t = grp.tables
+            rau = grp.row_model.structure.mjc_actuation
+            n, A, d = grp.g.n, grp.act_rows.shape[1], grp.g.d
+            gear = np.asarray(au.gear, np.float64)[grp.act_rows]  # (n, A)
+            mom = np.zeros((n, A, d))
+            for a in range(A):
+                if rau.dof[a] >= 0:
+                    mom[:, a, rau.dof[a]] = gear[:, a]
+                elif rau.tendon[a] >= 0:
+                    Cd = t.tendon_Cd[rau.tendon[a]].double().cpu().numpy()
+                    mom[:, a] = Cd[None] * gear[:, a, None]
+            if (rau.sten >= 0).any():
+                rows, _, _ = _gather_rows(grp, state, None, None)
+                v_o, w_o = _dof_subspace(t, rows.body_q, rows.joint_q)
+                _, _, J = _spatial_tendons(t, rows.body_q, rows.joint_qd,
+                                           v_o, w_o)
+                J = J.double().cpu().numpy()                  # (n, Ts, d)
+                for a in np.nonzero(rau.sten >= 0)[0]:
+                    mom[:, a] = J[:, rau.sten[a]] * gear[:, a, None]
+            qacc = np.linalg.solve(M.double().cpu().numpy(),
+                                   mom.transpose(0, 2, 1))    # (n, d, A)
+            acc0 = np.maximum(np.linalg.norm(qacc, axis=1), 1e-12)
+            has = np.abs(mom).sum(-1) > 0
+            au.acc0[grp.act_rows[has]] = acc0[has]
 
     # the first group's tables, for one-group models
     @property
@@ -619,8 +752,17 @@ class SolverFeatherstone:
         au = st.mjc_actuation
         if grp.act_rows.size:
             ar = grp.act_rows
-            _check_rows("actuators", au.dof[ar] - g.dof_idx[:, :1])
-            _check_rows("actuators", au.coord[ar] - g.coord_idx[:, :1])
+            for idx, base in ((au.dof, g.dof_idx), (au.coord, g.coord_idx)):
+                _check_rows("actuators", np.where(idx[ar] >= 0,
+                                                  idx[ar] - base[:, :1], -1))
+            # tendon transmissions: the k-th tendon of each row
+            for idx, rows in ((au.tendon, grp.tendon_rows),
+                              (au.sten, grp.sten_rows)):
+                _check_rows("actuators", _local_index(idx[ar], rows))
+        if grp.sten_rows.size:
+            _check_rows("spatial tendons", np.asarray(
+                [[hash(self._sten_local[k].key()) for k in r]
+                 for r in grp.sten_rows]))
 
     def notify_model_changed(self, flags: int = 0):
         """Rebuild every group's per-row tables from the model's current
@@ -640,16 +782,20 @@ class SolverFeatherstone:
                 grp.tables = SimpleNamespace(d=0)
                 continue
             grp.row_model = rm = row_model(self.model, grp.g,
-                                           grp.tendon_rows, grp.act_rows)
+                                           grp.tendon_rows, grp.act_rows,
+                                           grp.sten_rows)
             grp.gc = get_generalized_cache(rm.structure)
-            rau = rm.structure.mjc_actuation
-            grp.actuation = (ActuationTables(rau, self.model.device,
-                                             rm.structure.joint_dof_count)
-                             if rau is not None and rau.n > 0 else None)
             grp.tables = self._build_tables(grp)
+            rau = rm.structure.mjc_actuation
+            grp.actuation = (ActuationTables(
+                rau, self.model.device, rm.structure.joint_dof_count,
+                tendon_Cd=getattr(grp.tables, "tendon_Cd", None),
+                n_sten=grp.sten_rows.shape[1])
+                if rau is not None and rau.n > 0 else None)
 
-    def _plan_cap(self, c: int) -> int:
-        """Resolved per-env contact cap for a plan with ``c`` slots."""
+    def _plan_cap(self, c: int, grp=None) -> int:
+        """Resolved per-env contact cap for a plan with ``c`` slots (of
+        group ``grp``)."""
         cap = self.contact_cap
         if cap is None:
             return min(c, 32)
@@ -735,6 +881,10 @@ class SolverFeatherstone:
         t.lin_idx, t.lin_dof = L(gc.lin_coord_idx), L(gc.lin_coord_dof)
         t.pd_ke = model.joint_target_ke[..., t.lin_dof]
         t.pd_kd = model.joint_target_kd[..., t.lin_dof]
+        t.penalty = None
+        if self.limit_mode == "penalty" and len(gc.lin_coord_dof):
+            t.penalty = tuple(getattr(model, f"joint_limit_{k}")[..., t.lin_dof]
+                              for k in ("lower", "upper", "ke", "kd"))
         bq = gc.quat_coord_starts
         t.ball_q = L(bq[:, 0:1] + np.arange(4)[None])          # (nb, 4)
         t.ball_d = L(bq[:, 1:2] + np.arange(3)[None])          # (nb, 3)
@@ -753,19 +903,45 @@ class SolverFeatherstone:
             t.tendon_Cq, t.tendon_Cd = F(Cq), F(Cd)
             t.tendon_ke, t.tendon_kd, t.tendon_L0 = \
                 model.tendon_params.unbind(-1)
+        # the implicit integrators' constant part of the damping matrix D:
+        # the fixed tendons' kd c c^T, (d, d) or (n, d, d) (the actuators'
+        # velocity gains and the spatial tendons' kd enter per substep)
+        t.D_tendon = None
+        if T and self.integrator in ("implicitfast", "implicit"):
+            t.D_tendon = torch.einsum("...t,td,te->...de", t.tendon_kd,
+                                      t.tendon_Cd, t.tendon_Cd)
         # group row
         t.di, t.bi = L(g.dof_idx[0]), L(g.body_idx[0])
         t.anc = F(g.anc)                                   # (b, d)
+        # every local body's dof ancestry (B, d)
+        anc_all = np.zeros((st.body_count, g.d), dtype=np.float32)
+        anc_all[g.body_idx[0]] = g.anc
+        t.anc_bd = F(anc_all)
+        # spatial tendons: paths in the row's local bodies, (ke, kd, L0)
+        # per tendon ((Ts,) or (n, Ts))
+        t.sten = None
+        if grp.sten_rows.size:
+            ke, kd, L0 = model.sten_params.unbind(-1)
+            t.sten = SimpleNamespace(
+                paths=[self._sten_local[k] for k in grp.sten_rows[0]],
+                ke=ke, kd=kd, L0=L0)
         t.armature = model.joint_armature[..., t.di]
         # contact rows
         t.cap = None
         if grp.plan is not None:
             self._contact_tables(t, grp, L, B, F)
-        # limit rows
+        # limit rows (none under penalty limits)
         ld, lc = grp.limit_plan
+        if self.limit_mode == "penalty":
+            ld, lc = ld[:0], lc[:0]
         t.nl = len(ld)
         t.ld = L(ld)
         t.ld_i32 = torch.as_tensor(ld.astype(np.int32), device=dev)
+        # the limit rows' one-hots (nl, d), the rows the Newton QP and
+        # Kamino's PADMM materialize (B2 reads Minv[:, ld] instead)
+        E = np.zeros((len(ld), g.d), dtype=np.float32)
+        E[np.arange(len(ld)), ld] = 1.0
+        t.lim_E = F(E)
         t.lim_coord = L(g.coord_idx[0][lc]) if len(ld) else L([])
         t.lim_lo = model.joint_limit_lower[..., t.di[t.ld]]
         t.lim_hi = model.joint_limit_upper[..., t.di[t.ld]]
@@ -791,7 +967,7 @@ class SolverFeatherstone:
         two-sided entry (its constants; its state is read each step)."""
         plan, g, full = grp.plan, grp.gc.groups[0], self.model
         fst = full.structure
-        t.cap = self._plan_cap(plan.c)
+        t.cap = self._plan_cap(plan.c, grp)
         anc = np.asarray(g.anc, dtype=np.float32)
         zero = np.zeros((g.d,), dtype=np.float32)
 
@@ -866,7 +1042,7 @@ class SolverFeatherstone:
                                               dtype=torch.float32,
                                               device=dev))
             if (plan is not None and grp.g.d
-                    and self._plan_cap(plan.c) < plan.c):
+                    and self._plan_cap(plan.c, grp) < plan.c):
                 custom.setdefault(f"contact:overflow:{gi}",
                                   torch.zeros((n,), dtype=torch.int32,
                                               device=dev))
@@ -897,12 +1073,25 @@ class SolverMuJoCo(SolverFeatherstone):
     """The reference's MuJoCo-flavoured front end: ``iterations`` sets the
     contact iterations and ``integrator="auto"`` reads the MJCF
     ``<option integrator=...>`` captured at import (RK4 for gymnasium's
-    ant, hopper and walker2d; euler where the asset names none)."""
+    ant, hopper and walker2d; euler where the asset names none).
+    ``solver="newton"`` or ``"cg"`` selects the Newton QP contact solve
+    (``contact_solver="newton"``) with ``newton_iterations = max(8,
+    ls_iterations)`` when ``ls_iterations`` is given, as in the JAX
+    package. Every other keyword goes to ``SolverFeatherstone``: unknown
+    keywords raise ``TypeError`` (the JAX package warns and drops them, a
+    deliberate difference: a dropped keyword is different physics)."""
 
     def __init__(self, model: Model, iterations: int = 16,
+                 ls_iterations: int = 0, solver: str = "pgs",
                  integrator: str = "auto", **kwargs):
         integ = str(integrator).lower()
         if integ == "auto":
             integ = model.structure.mjc_options.get("integrator", "euler")
+        if solver not in ("pgs", "newton", "cg"):
+            raise ValueError(f"unknown solver {solver!r}")
+        if solver in ("newton", "cg"):
+            kwargs["contact_solver"] = "newton"
+            if ls_iterations:
+                kwargs["newton_iterations"] = max(8, int(ls_iterations))
         super().__init__(model, contact_iterations=iterations,
                          integrator=integ, **kwargs)

@@ -10,6 +10,12 @@ order); then one symplectic Euler step of the bodies and the particles. The 3x3
 determinants and inverses of the tetrahedra are closed-form, so a step
 never waits for the device.
 
+Waypoint muscles (``ModelBuilder.add_muscle``) pull along their paths with
+``act * f0`` (``Control.muscle_activations``), plus a passive tension
+``max(ke (L - lm - lt) + kd Ldot, 0)`` past the rest length, as equal and
+opposite wrenches on the waypoints' bodies; the per-muscle length sums and
+the wrenches into the bodies are fixed-order sums too.
+
 The bending force copies the JAX package's formula, including what it
 does on the cloth grid's collinear bending rows (v0 == v1): their edge
 vector is zero, so the angle is atan2(0, 0) = 0, their rest angle, and a
@@ -25,7 +31,7 @@ import numpy as np
 import torch
 
 from ..core.segment_sum import FixedOrderSum, check_static_slots
-from ..math import det3, inv3
+from ..math import cross, det3, inv3, quat_rotate, transform_point
 from ..sim.contacts import Contacts
 from ..sim.control import Control
 from ..sim.model import Model
@@ -70,6 +76,8 @@ class SolverSemiImplicit(SolverBase):
             self._edges = (torch.clamp(ei[:, 0], min=0),
                            torch.clamp(ei[:, 1], min=0), ei[:, 2], ei[:, 3],
                            (ei[:, 0] >= 0) & (ei[:, 1] >= 0))
+        self._muscles = self._muscle_plan(model) if st.muscle_count \
+            else None
         # each force term's particle, in _particle_forces' order
         self._force_dst = [c.cpu().numpy() for part in (
             self._springs, self._tris, self._tets,
@@ -85,6 +93,10 @@ class SolverSemiImplicit(SolverBase):
         if model.particle_count:
             state = replace(state, particle_f=state.particle_f
                             + self._particle_forces(model, state, contacts))
+        if (self._muscles is not None and control is not None
+                and control.muscle_activations is not None):
+            state = replace(state, body_f=state.body_f
+                            + self._muscle_forces(model, state, control))
         body_q, body_qd = integrate_bodies(model, state, dt,
                                            self.angular_damping,
                                            gravity=self._body_g)
@@ -94,6 +106,59 @@ class SolverSemiImplicit(SolverBase):
                        particle_q=particle_q, particle_qd=particle_qd)
 
     # ------------------------------------------------------------------
+    def _muscle_plan(self, model: Model):
+        """Each muscle's segments (consecutive waypoints): their waypoints,
+        bodies and muscle, the sum of segment lengths into the muscles and
+        of the segments' wrenches into the bodies."""
+        st = model.structure
+        starts = np.asarray(st.muscle_start, dtype=np.int64)
+        w0 = np.concatenate([np.arange(starts[m], starts[m + 1] - 1)
+                             for m in range(st.muscle_count)])
+        w0 = w0.astype(np.int64)
+        seg = np.repeat(np.arange(st.muscle_count),
+                        np.maximum(np.diff(starts) - 1, 0))
+        bodies = model.muscle_bodies.cpu().numpy().astype(np.int64)
+        if (bodies < 0).any():
+            raise NotImplementedError(
+                "muscle waypoints on the world (body -1) are not ported (the "
+                "JAX package reads them as the last body)")
+        dev = model.device
+
+        def L(a):
+            return torch.as_tensor(a, dtype=torch.long, device=dev)
+        b0, b1 = bodies[w0], bodies[w0 + 1]
+        return dict(w0=L(w0), w1=L(w0 + 1), seg=L(seg), b0=L(b0), b1=L(b1),
+                    len_sum=FixedOrderSum(seg, st.muscle_count, dev),
+                    body_sum=FixedOrderSum(np.concatenate([b0, b1]),
+                                           model.body_count, dev))
+
+    def _muscle_forces(self, model: Model, state: State, control):
+        """Contraction ``act * f0`` along each waypoint segment plus the
+        passive tension, as equal and opposite wrenches (B, 6)."""
+        p = self._muscles
+        bq, bqd = state.body_q, state.body_qd
+        b0, b1, seg = p["b0"], p["b1"], p["seg"]
+        p0 = transform_point(bq[b0], model.muscle_points[p["w0"]])
+        p1 = transform_point(bq[b1], model.muscle_points[p["w1"]])
+        d = p1 - p0
+        ln = _norm(d)
+        n = d / torch.clamp(ln, min=1e-9)[:, None]
+        prm = model.muscle_params
+        fmag = control.muscle_activations[seg] * prm[seg, 0]
+        # passive elasticity past the rest length lm + lt; tendons never
+        # push
+        xc = bq[:, 0:3] + quat_rotate(bq[:, 3:7], model.body_com)
+        v0 = bqd[b0, 0:3] + cross(bqd[b0, 3:6], p0 - xc[b0])
+        v1 = bqd[b1, 0:3] + cross(bqd[b1, 3:6], p1 - xc[b1])
+        L = p["len_sum"](ln)
+        Ldot = p["len_sum"](((v1 - v0) * n).sum(-1))
+        f_pass = torch.clamp(prm[:, 5] * (L - (prm[:, 1] + prm[:, 2]))
+                             + prm[:, 6] * Ldot, min=0.0)
+        fvec = n * (fmag + f_pass[seg])[:, None]       # pulls p0 toward p1
+        w0 = torch.cat([fvec, cross(p0 - xc[b0], fvec)], -1)
+        w1 = torch.cat([-fvec, cross(p1 - xc[b1], -fvec)], -1)
+        return p["body_sum"](torch.cat([w0, w1]))
+
     def _particle_forces(self, model: Model, state: State,
                          contacts: Optional[Contacts]) -> torch.Tensor:
         px, pv = state.particle_q, state.particle_qd

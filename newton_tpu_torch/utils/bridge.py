@@ -32,6 +32,7 @@ from ..sim.model import (
     ModelStructure,
 )
 from ..sim.state import State
+from ..sim.tendon import SpatialTendonPath
 from ..solvers.generalized.actuation import MJCActuation
 
 __all__ = ["STRUCTURE_FIELDS", "ACTUATION_FIELDS", "STATE_FIELDS",
@@ -56,6 +57,7 @@ STRUCTURE_FIELDS = (
     "tendon_coord", "tendon_dof", "tendon_coef",
     "spring_count", "tri_count", "edge_count", "tet_count", "soft_pairs",
     "soft_contact_max", "eq_world", "eq_type",
+    "sten_paths", "sten_key", "muscle_count", "muscle_start",
 )
 ACTUATION_FIELDS = ("n", "dof", "coord", "tendon", "sten", "gear",
                     "dyntype", "dynprm", "gaintype", "gainprm", "biastype",
@@ -65,7 +67,7 @@ ACTUATION_FIELDS = ("n", "dof", "coord", "tendon", "sten", "gear",
 STATE_FIELDS = ("body_q", "body_qd", "body_f", "joint_q", "joint_qd",
                 "particle_q", "particle_qd", "particle_f")
 CONTROL_FIELDS = ("joint_target_q", "joint_target_qd", "joint_f",
-                  "tendon_f")
+                  "tendon_f", "muscle_activations")
 CONTACT_FIELDS = ("rigid_contact_mask", "rigid_contact_shape0",
                   "rigid_contact_shape1", "rigid_contact_position",
                   "rigid_contact_normal", "rigid_contact_depth",
@@ -100,6 +102,10 @@ def _structure_from_dict(d: Dict[str, Any]) -> ModelStructure:
         elif isinstance(v, (list, dict)):
             v = type(v)(v)
         setattr(st, name, v)
+    # spatial tendon paths: any object with ``elems`` (the JAX package's
+    # SpatialTendonPath) becomes the port's
+    st.sten_paths = [SpatialTendonPath([tuple(e) for e in p.elems])
+                     for p in st.sten_paths]
     au = d.get("mjc_actuation")
     if au is not None:
         a = MJCActuation(int(au["n"]))
@@ -140,6 +146,8 @@ def model_to_numpy(model: Model) -> Tuple[dict, dict]:
     leaves["custom"] = {k: _numpy(v) for k, v in model.custom.items()}
     st = model.structure
     structure = {n: getattr(st, n) for n in STRUCTURE_FIELDS}
+    structure["sten_paths"] = [SpatialTendonPath(list(p.elems))
+                               for p in st.sten_paths]
     au = st.mjc_actuation
     structure["mjc_actuation"] = None if au is None else {
         n: getattr(au, n) for n in ACTUATION_FIELDS}

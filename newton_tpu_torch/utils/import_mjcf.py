@@ -15,10 +15,17 @@ one D6 joint that translates along the slides, then rotates about the
 hinges' common ``pos``. A slide's ``ref`` shifts its limits into
 displacement space and is kept in the ``mjc:qpos_ref`` coordinate
 attribute at that slide's coordinate. Plane/sphere/box/capsule/cylinder
-geoms with contype/conaffinity, ``<tendon><fixed>`` couplings of hinges,
-``<equality>`` connect, weld and joint rows, and motor/position/velocity
-actuators on hinges and slides into the ``MJCActuation`` tables.
-Actuators and tendons address each joint's own dof and coordinate.
+geoms with contype/conaffinity, ``<site>`` in bodies and the worldbody
+(massless, never colliding), ``<tendon><fixed>`` couplings of hinges and
+``<spatial>`` tendons through sites and sphere/cylinder wrap geoms (with
+``sidesite``; a one- or two-value ``springlength`` whose first value is the
+rest length), ``<equality>`` connect, weld and joint rows, and
+motor/position/velocity/general/intvelocity/damper/cylinder/muscle
+actuators on hinges, slides and tendons into the ``MJCActuation`` tables
+(a muscle's ``lengthrange`` from its joint's range, or from its spatial
+tendon's build-pose length placed mid-``range``). Actuators and tendons
+address each joint's own dof and coordinate. A ``<pulley>`` raises (the
+JAX importer drops the tendon with a warning).
 
 Visual-only elements (lights, cameras, textures, materials, ``<visual>``,
 ``<size>``) are skipped by name. Every other element raises
@@ -39,6 +46,8 @@ from ..core.host_math import (
     np_quat_from_axis_angle,
     np_quat_identity,
     np_quat_mul,
+    np_quat_rotate,
+    np_quat_rotate_inv,
     np_transform,
     np_transform_identity,
     np_transform_multiply,
@@ -47,9 +56,20 @@ from ..core.types import MAXVAL
 from ..sim.builder import JointDofConfig
 from ..sim.enums import EqType, JointType
 from ..sim.model import AttributeAssignment, AttributeFrequency
+from ..geometry.types import GeoType
+from ..sim.tendon import spatial_tendon_rest_length
 from ..solvers.generalized.actuation import (
     BIAS_AFFINE,
+    BIAS_MUSCLE,
+    BIAS_NONE,
+    DYN_FILTER,
     DYN_FILTEREXACT,
+    DYN_INTEGRATOR,
+    DYN_MUSCLE,
+    DYN_NONE,
+    GAIN_AFFINE,
+    GAIN_FIXED,
+    GAIN_MUSCLE,
     MJCActuation,
 )
 
@@ -58,7 +78,7 @@ __all__ = ["parse_mjcf"]
 _TOP_LEVEL = {"compiler", "option", "custom", "default", "asset",
               "worldbody", "actuator", "tendon", "equality"}
 _VISUAL_ONLY = {"visual", "size", "light", "camera", "texture", "material"}
-_BODY_CHILDREN = {"body", "geom", "joint", "freejoint"}
+_BODY_CHILDREN = {"body", "geom", "joint", "freejoint", "site"}
 
 
 def _unsupported(tag: str, where: str):
@@ -184,11 +204,12 @@ def parse_mjcf(builder, source: str):
                 _unsupported(ch.tag, "asset")
 
     name_to_body: Dict[str, int] = {"world": -1}
-    name_to_joint: Dict[str, tuple] = {}      # hinge -> (joint, axis)
     eq_joint: Dict[str, tuple] = {}           # hinge, slide -> (joint, axis)
     joint_dof_start: Dict[str, int] = {}
     joint_coord_start: Dict[str, int] = {}
     coord_refs: Dict[int, float] = {}         # slide coordinate -> ref
+    name_to_site: Dict[str, int] = {}
+    name_to_shape: Dict[str, int] = {}
 
     def local_xform(attrib) -> np.ndarray:
         pos = _parse_vec(attrib.get("pos"), default=[0, 0, 0], n=3)
@@ -204,9 +225,12 @@ def parse_mjcf(builder, source: str):
         elif "axisangle" in attrib:
             aa = _parse_vec(attrib["axisangle"], n=4)
             q = np_quat_from_axis_angle(aa[:3], to_rad(aa[3]))
-        elif "zaxis" in attrib or "xyaxes" in attrib:
+        elif "zaxis" in attrib:
+            z = _parse_vec(attrib["zaxis"], n=3)
+            q = np_quat_between_axes([0, 0, 1], z / np.linalg.norm(z))
+        elif "xyaxes" in attrib:
             raise NotImplementedError(
-                "MJCF zaxis/xyaxes frames are not supported by the port yet")
+                "MJCF xyaxes frames are not supported by the port yet")
         else:
             q = np_quat_identity()
         return np_transform(pos, q)
@@ -263,22 +287,37 @@ def parse_mjcf(builder, source: str):
                 cfg.density = m_val / vol
         key = a.get("name")
         if gtype == "plane":
-            builder.add_shape_plane(body_idx, xform=xf, cfg=cfg, key=key)
+            sidx = builder.add_shape_plane(body_idx, xform=xf, cfg=cfg,
+                                           key=key)
         elif gtype == "sphere":
-            builder.add_shape_sphere(body_idx, xform=xf,
-                                     radius=float(size[0]), cfg=cfg, key=key)
+            sidx = builder.add_shape_sphere(body_idx, xform=xf,
+                                            radius=float(size[0]), cfg=cfg,
+                                            key=key)
         elif gtype == "box":
-            builder.add_shape_box(body_idx, xform=xf, hx=float(size[0]),
-                                  hy=float(size[1]), hz=float(size[2]),
-                                  cfg=cfg, key=key)
+            sidx = builder.add_shape_box(body_idx, xform=xf,
+                                         hx=float(size[0]),
+                                         hy=float(size[1]),
+                                         hz=float(size[2]), cfg=cfg, key=key)
         elif gtype == "capsule":
-            builder.add_shape_capsule(body_idx, xform=xf,
-                                      radius=float(size[0]), half_height=hh,
-                                      axis="Z", cfg=cfg, key=key)
+            sidx = builder.add_shape_capsule(body_idx, xform=xf,
+                                             radius=float(size[0]),
+                                             half_height=hh, axis="Z",
+                                             cfg=cfg, key=key)
         else:
-            builder.add_shape_cylinder(body_idx, xform=xf,
-                                       radius=float(size[0]), half_height=hh,
-                                       axis="Z", cfg=cfg, key=key)
+            sidx = builder.add_shape_cylinder(body_idx, xform=xf,
+                                              radius=float(size[0]),
+                                              half_height=hh, axis="Z",
+                                              cfg=cfg, key=key)
+        if key:
+            name_to_shape[key] = sidx
+
+    def add_site(site: ET.Element, body_idx: int, body_class):
+        a = resolve_attrs(site, "site", body_class)
+        sidx = builder.add_site(body_idx, xform=local_xform(a),
+                                key=a.get("name",
+                                          f"site_{builder.shape_count}"))
+        if a.get("name"):
+            name_to_site[a["name"]] = sidx
 
     def parse_joint(j: ET.Element, body_class):
         a = resolve_attrs(j, "joint", body_class)
@@ -406,12 +445,12 @@ def parse_mjcf(builder, source: str):
             if j["name"] and j["type"] != "ball":
                 joint_dof_start[j["name"]] = jd_start + k
                 joint_coord_start[j["name"]] = jq_start + k
-                if j["type"] == "hinge":
-                    name_to_joint[j["name"]] = (jidx, k)
                 if j["type"] in ("hinge", "slide"):
                     eq_joint[j["name"]] = (jidx, k)
         for g in elem.findall("geom"):
             add_geom(g, body_idx, childclass)
+        for st_ in elem.findall("site"):
+            add_site(st_, body_idx, childclass)
         for child in elem.findall("body"):
             parse_body(child, body_idx, X_world, childclass)
 
@@ -419,12 +458,14 @@ def parse_mjcf(builder, source: str):
     if worldbody is None:
         raise ValueError("MJCF has no <worldbody>")
     for ch in worldbody:
-        if ch.tag not in {"body", "geom"} | _VISUAL_ONLY:
+        if ch.tag not in {"body", "geom", "site"} | _VISUAL_ONLY:
             _unsupported(ch.tag, "worldbody")
     builder.add_articulation(key=root.get("model") or "mjcf")
     b0 = builder.body_count
     for g in worldbody.findall("geom"):
         add_geom(g, -1, None)
+    for st_ in worldbody.findall("site"):
+        add_site(st_, -1, None)
     for body in worldbody.findall("body"):
         parse_body(body, -1, np_transform_identity(), None)
     if total_mass > 0.0:
@@ -441,8 +482,12 @@ def parse_mjcf(builder, source: str):
         builder.add_custom_values("mjc:qpos_ref", coord_refs)
 
     tendon_root = root.find("tendon")
+    name_to_tendon: Dict[str, int] = {}
+    name_to_sten: Dict[str, int] = {}
     if tendon_root is not None:
-        _parse_tendons(builder, tendon_root, resolve_attrs, name_to_joint)
+        _parse_tendons(builder, tendon_root, resolve_attrs, eq_joint,
+                       name_to_site, name_to_shape, name_to_tendon,
+                       name_to_sten)
 
     eq_root = root.find("equality")
     if eq_root is not None:
@@ -451,7 +496,7 @@ def parse_mjcf(builder, source: str):
     act_root = root.find("actuator")
     if act_root is not None:
         _parse_actuators(builder, act_root, resolve_attrs, joint_dof_start,
-                         joint_coord_start)
+                         joint_coord_start, name_to_tendon, name_to_sten)
 
     custom_elem = root.find("custom")
     if custom_elem is not None:
@@ -467,18 +512,25 @@ def parse_mjcf(builder, source: str):
                 joint_coord_start=joint_coord_start)
 
 
-def _parse_tendons(builder, tendon_root, resolve_attrs, name_to_joint):
-    """``<fixed>`` tendons over named hinges, each entry at its hinge's own
-    axis of the Newton joint."""
+def _parse_tendons(builder, tendon_root, resolve_attrs, name_to_joint,
+                   name_to_site, name_to_shape, name_to_tendon, name_to_sten):
+    """``<fixed>`` tendons over named hinges and slides, each entry at its
+    joint's own axis of the Newton joint, and ``<spatial>`` tendons through
+    sites and wrap geoms."""
     for fx in tendon_root:
-        if fx.tag != "fixed":
+        if fx.tag not in ("fixed", "spatial"):
             _unsupported(fx.tag, "tendon")
         a = resolve_attrs(fx, "tendon", None)
-        for attr in ("limited", "range", "springlength", "frictionloss"):
+        for attr in ("limited", "range", "frictionloss") + (
+                ("springlength",) if fx.tag == "fixed" else ()):
             if attr in a:
                 raise NotImplementedError(
-                    f"MJCF <fixed> tendon attribute {attr!r} is not "
+                    f"MJCF <{fx.tag}> tendon attribute {attr!r} is not "
                     "supported by the port yet")
+        if fx.tag == "spatial":
+            _parse_spatial(builder, fx, a, name_to_site, name_to_shape,
+                           name_to_sten)
+            continue
         joints, axes, coefs = [], [], []
         for jel in fx:
             if jel.tag != "joint":
@@ -486,16 +538,98 @@ def _parse_tendons(builder, tendon_root, resolve_attrs, name_to_joint):
             jn = jel.get("joint", "")
             if jn not in name_to_joint:
                 raise ValueError(f"MJCF <fixed> tendon {fx.get('name')!r} "
-                                 f"names {jn!r}, which is not a hinge")
+                                 f"names {jn!r}, which is not a hinge or "
+                                 "a slide")
             joints.append(name_to_joint[jn][0])
             axes.append(name_to_joint[jn][1])
             coefs.append(float(jel.get("coef", "1")))
         if joints:
-            builder.add_tendon_fixed(
+            tid = builder.add_tendon_fixed(
                 joints, coefs, axes=axes,
                 stiffness=_parse_float(a.get("stiffness"), 0.0),
                 damping=_parse_float(a.get("damping"), 0.0),
                 key=fx.get("name"))
+            if fx.get("name"):
+                name_to_tendon[fx.get("name")] = tid
+
+
+def _site_world(builder, sidx):
+    """A site's world position at the build pose."""
+    sb = int(builder.shape_body[sidx])
+    p = np.asarray(builder.shape_transform[sidx][:3])
+    if sb < 0:
+        return p
+    bx = np.asarray(builder.body_q[sb])
+    return bx[:3] + np_quat_rotate(bx[3:7], p)
+
+
+def _parse_spatial(builder, sp, a, name_to_site, name_to_shape,
+                   name_to_sten):
+    """One ``<spatial>`` tendon: sites (body-frame points) and sphere or
+    cylinder wrap geoms, a sidesite in the wrap body's frame."""
+    name = sp.get("name")
+    elems = []
+    for ch in sp:
+        if ch.tag == "site":
+            sname = ch.get("site", "")
+            if sname not in name_to_site:
+                raise ValueError(f"MJCF <spatial> {name!r} names site "
+                                 f"{sname!r}, which is not defined")
+            sidx = name_to_site[sname]
+            elems.append(("site", int(builder.shape_body[sidx]),
+                          tuple(np.asarray(builder.shape_transform[sidx][:3]))
+                          ))
+        elif ch.tag == "geom":
+            gname = ch.get("geom", "")
+            if gname not in name_to_shape:
+                raise ValueError(f"MJCF <spatial> {name!r} names geom "
+                                 f"{gname!r}, which is not defined")
+            gidx = name_to_shape[gname]
+            gb = int(builder.shape_body[gidx])
+            gx = np.asarray(builder.shape_transform[gidx])
+            gt = int(builder.shape_type[gidx])
+            side = None
+            ssname = ch.get("sidesite")
+            if ssname:
+                if ssname not in name_to_site:
+                    raise ValueError(f"MJCF <spatial> {name!r} names "
+                                     f"sidesite {ssname!r}, which is not "
+                                     "defined")
+                # the sidesite in the wrap body's frame (exact on the wrap
+                # body, a build-pose approximation elsewhere)
+                sw = _site_world(builder, name_to_site[ssname])
+                if gb >= 0:
+                    bx = np.asarray(builder.body_q[gb])
+                    side = tuple(np_quat_rotate_inv(bx[3:7], sw - bx[:3]))
+                else:
+                    side = tuple(sw)
+            r = float(builder.shape_scale[gidx][0])
+            if gt == int(GeoType.SPHERE):
+                elems.append(("sphere", gb, tuple(gx[:3]), r, side))
+            elif gt == int(GeoType.CYLINDER):
+                ax = np_quat_rotate(gx[3:7], np.array([0.0, 0.0, 1.0]))
+                elems.append(("cylinder", gb, tuple(gx[:3]), tuple(ax), r,
+                              side))
+            else:
+                raise NotImplementedError(
+                    f"MJCF <spatial> {name!r}: a wrap geom of type "
+                    f"{GeoType(gt).name} is not supported (sphere and "
+                    "cylinder only)")
+        elif ch.tag == "pulley":
+            raise NotImplementedError(
+                f"MJCF <spatial> {name!r}: <pulley> is not supported by the "
+                "port (the JAX importer skips the tendon with a warning)")
+        else:
+            _unsupported(ch.tag, "spatial")
+    # springlength takes one or two values (a dead band); the first is the
+    # rest length, -1 (the default) the build-pose length
+    slen = float(_parse_vec(a.get("springlength"), default=[-1.0])[0])
+    tid = builder.add_tendon_spatial(
+        elems, stiffness=_parse_float(a.get("stiffness"), 0.0),
+        damping=_parse_float(a.get("damping"), 0.0),
+        rest_length=None if slen < 0 else slen, key=name)
+    if name:
+        name_to_sten[name] = tid
 
 
 def _parse_equality(builder, eq_root, name_to_body, eq_joint):
@@ -559,10 +693,96 @@ def _parse_equality(builder, eq_root, name_to_body, eq_joint):
                 key=eq.get("name"))
 
 
+_DYN = {"none": DYN_NONE, "integrator": DYN_INTEGRATOR,
+        "filter": DYN_FILTER, "filterexact": DYN_FILTEREXACT,
+        "muscle": DYN_MUSCLE}
+_GAIN = {"fixed": GAIN_FIXED, "affine": GAIN_AFFINE, "muscle": GAIN_MUSCLE}
+_BIAS = {"none": BIAS_NONE, "affine": BIAS_AFFINE, "muscle": BIAS_MUSCLE}
+_ACTUATORS = ("motor", "position", "velocity", "general", "intvelocity",
+              "damper", "cylinder", "muscle")
+
+
+def _lowered(tag, a, r):
+    """An actuator shortcut lowered to the canonical gain/bias/dyntype
+    form (MuJoCo's, as the JAX importer lowers it) into ``r``."""
+    if tag == "general":
+        for key, table, default in (("dyntype", _DYN, "none"),
+                                    ("gaintype", _GAIN, "fixed"),
+                                    ("biastype", _BIAS, "none")):
+            v = a.get(key, default)
+            if v not in table:
+                raise NotImplementedError(
+                    f"MJCF <general {key}={v!r}> is not supported by the "
+                    "port yet")
+            r[key] = table[v]
+        for key, n in (("dynprm", 3), ("gainprm", 9), ("biasprm", 9)):
+            v = _parse_vec(a.get(key))
+            if v is not None:
+                r[key] = list(v[:n]) + [0.0] * max(0, n - len(v))
+    elif tag == "position":
+        kp = _parse_float(a.get("kp"), 1.0)
+        kv = _parse_float(a.get("kv"), 0.0)
+        r["gainprm"] = [kp] + [0.0] * 8
+        r["biastype"] = BIAS_AFFINE
+        r["biasprm"] = [0.0, -kp, -kv] + [0.0] * 6
+        tc = _parse_float(a.get("timeconst"), 0.0)
+        if tc > 0.0:
+            r["dyntype"] = DYN_FILTEREXACT
+            r["dynprm"] = [tc, 0.0, 0.0]
+    elif tag == "velocity":
+        kv = _parse_float(a.get("kv"), 1.0)
+        r["gainprm"] = [kv] + [0.0] * 8
+        r["biastype"] = BIAS_AFFINE
+        r["biasprm"] = [0.0, 0.0, -kv] + [0.0] * 6
+    elif tag == "intvelocity":
+        kp = _parse_float(a.get("kp"), 1.0)
+        kv = _parse_float(a.get("kv"), 0.0)
+        r["dyntype"] = DYN_INTEGRATOR
+        r["gainprm"] = [kp] + [0.0] * 8
+        r["biastype"] = BIAS_AFFINE
+        r["biasprm"] = [0.0, -kp, -kv] + [0.0] * 6
+        if r["actrange"] is None:
+            r["actrange"] = r["ctrlrange"]
+    elif tag == "damper":
+        kv = _parse_float(a.get("kv"), 1.0)
+        r["gaintype"] = GAIN_AFFINE
+        r["gainprm"] = [0.0, 0.0, -kv] + [0.0] * 6
+    elif tag == "cylinder":
+        area = _parse_float(a.get("area"), 1.0)
+        if a.get("diameter") is not None:
+            area = math.pi * float(a["diameter"]) ** 2 / 4.0
+        r["dyntype"] = DYN_FILTER
+        r["dynprm"] = [_parse_float(a.get("timeconst"), 1.0), 0.0, 0.0]
+        r["gainprm"] = [area] + [0.0] * 8
+        bias = _parse_vec(a.get("bias"), default=[0, 0, 0], n=3)
+        if np.any(bias != 0):
+            r["biastype"] = BIAS_AFFINE
+            r["biasprm"] = list(bias) + [0.0] * 6
+    elif tag == "muscle":
+        tc = _parse_vec(a.get("timeconst"), default=[0.01, 0.04], n=2)
+        r["dyntype"] = DYN_MUSCLE
+        r["dynprm"] = [tc[0], tc[1], _parse_float(a.get("tausmooth"), 0.0)]
+        rg = _parse_vec(a.get("range"), default=[0.75, 1.05], n=2)
+        prm = [rg[0], rg[1], _parse_float(a.get("force"), -1.0),
+               _parse_float(a.get("scale"), 200.0),
+               _parse_float(a.get("lmin"), 0.5),
+               _parse_float(a.get("lmax"), 1.6),
+               _parse_float(a.get("vmax"), 1.5),
+               _parse_float(a.get("fpmax"), 1.3),
+               _parse_float(a.get("fvmax"), 1.2)]
+        r["gaintype"] = GAIN_MUSCLE
+        r["biastype"] = BIAS_MUSCLE
+        r["gainprm"] = list(prm)
+        r["biasprm"] = list(prm)
+        if r["ctrlrange"] is None:
+            r["ctrlrange"] = np.array([0.0, 1.0])
+
+
 def _parse_actuators(builder, act_root, resolve_attrs, joint_dof_start,
-                     joint_coord_start):
-    """Motor/position/velocity actuators on hinge and slide joints ->
-    MJCActuation."""
+                     joint_coord_start, name_to_tendon, name_to_sten):
+    """Actuators on hinge and slide joints and on fixed and spatial tendons
+    -> MJCActuation (and ``mjc:act``, the activation state, where an
+    actuator has activation dynamics)."""
     builder.add_custom_attribute("mjc:actuator_gear",
                                  AttributeFrequency.JOINT_DOF, default=0.0)
     builder.add_custom_attribute("mjc:actuator_ctrlrange_lo",
@@ -572,72 +792,84 @@ def _parse_actuators(builder, act_root, resolve_attrs, joint_dof_start,
                                  AttributeFrequency.JOINT_DOF, default=MAXVAL)
     recs = []
     for act in act_root:
-        if act.tag not in ("motor", "position", "velocity"):
+        if act.tag not in _ACTUATORS:
             _unsupported(act.tag, "actuator")
         a = resolve_attrs(act, act.tag, None)
-        for trn in ("tendon", "site", "body", "jointinparent"):
+        for trn in ("site", "body", "jointinparent", "cranksite"):
             if trn in a:
                 _unsupported(f"{act.tag} {trn}=...", "actuator")
-        jname = a.get("joint")
-        if jname is None or jname not in joint_dof_start:
-            raise NotImplementedError(
-                f"MJCF <{act.tag}> without a hinge or slide joint "
-                "transmission is not supported by the port yet")
-        r = dict(dof=joint_dof_start[jname], coord=joint_coord_start[jname],
+        jname, tname = a.get("joint"), a.get("tendon")
+        r = dict(dof=-1, coord=-1, tendon=-1, sten=-1,
                  gear=float(a["gear"].split()[0]) if a.get("gear") else 1.0,
                  ctrlrange=_parse_vec(a.get("ctrlrange"), n=2),
                  forcerange=_parse_vec(a.get("forcerange"), n=2),
-                 gainprm=[1.0] + [0.0] * 8, biastype=0, biasprm=[0.0] * 9,
-                 dyntype=0, dynprm=[1.0, 0.0, 0.0])
-        if act.tag == "position":
-            kp = _parse_float(a.get("kp"), 1.0)
-            kv = _parse_float(a.get("kv"), 0.0)
-            r["gainprm"] = [kp] + [0.0] * 8
-            r["biastype"] = BIAS_AFFINE
-            r["biasprm"] = [0.0, -kp, -kv] + [0.0] * 6
-            tc = _parse_float(a.get("timeconst"), 0.0)
-            if tc > 0.0:
-                r["dyntype"] = DYN_FILTEREXACT
-                r["dynprm"] = [tc, 0.0, 0.0]
-        elif act.tag == "velocity":
-            kv = _parse_float(a.get("kv"), 1.0)
-            r["gainprm"] = [kv] + [0.0] * 8
-            r["biastype"] = BIAS_AFFINE
-            r["biasprm"] = [0.0, 0.0, -kv] + [0.0] * 6
+                 actrange=_parse_vec(a.get("actrange"), n=2),
+                 dyntype=DYN_NONE, dynprm=[1.0, 0.0, 0.0],
+                 gaintype=GAIN_FIXED, gainprm=[1.0] + [0.0] * 8,
+                 biastype=BIAS_NONE, biasprm=[0.0] * 9)
+        if tname is not None and tname in name_to_tendon:
+            r["tendon"] = name_to_tendon[tname]
+        elif tname is not None and tname in name_to_sten:
+            r["sten"] = name_to_sten[tname]
+        elif jname is not None and jname in joint_dof_start:
+            r["dof"] = joint_dof_start[jname]
+            r["coord"] = joint_coord_start[jname]
+        else:
+            raise NotImplementedError(
+                f"MJCF <{act.tag}> without a hinge, slide or tendon "
+                "transmission is not supported by the port yet")
+        _lowered(act.tag, a, r)
         recs.append(r)
-        crv = r["ctrlrange"] if r["ctrlrange"] is not None \
-            else np.array([-MAXVAL, MAXVAL])
-        dof = r["dof"]
-        builder.add_custom_values("mjc:actuator_gear", {dof: r["gear"]})
-        builder.add_custom_values("mjc:actuator_ctrlrange_lo",
-                                  {dof: float(crv[0])})
-        builder.add_custom_values("mjc:actuator_ctrlrange_hi",
-                                  {dof: float(crv[1])})
+        if r["dof"] >= 0:
+            crv = r["ctrlrange"] if r["ctrlrange"] is not None \
+                else np.array([-MAXVAL, MAXVAL])
+            dof = r["dof"]
+            builder.add_custom_values("mjc:actuator_gear", {dof: r["gear"]})
+            builder.add_custom_values("mjc:actuator_ctrlrange_lo",
+                                      {dof: float(crv[0])})
+            builder.add_custom_values("mjc:actuator_ctrlrange_hi",
+                                      {dof: float(crv[1])})
     if not recs:
         return
     au = MJCActuation(len(recs))
     for i, r in enumerate(recs):
-        au.dof[i] = r["dof"]
-        au.coord[i] = r["coord"]
-        au.gear[i] = r["gear"]
-        au.dyntype[i] = r["dyntype"]
+        for key in ("dof", "coord", "tendon", "sten", "gear", "dyntype",
+                    "gaintype", "biastype"):
+            getattr(au, key)[i] = r[key]
         au.dynprm[i] = r["dynprm"]
         au.gainprm[i] = r["gainprm"]
-        au.biastype[i] = r["biastype"]
         au.biasprm[i] = r["biasprm"]
         for key, rng, lim in (("ctrlrange", au.ctrlrange, au.ctrllimited),
-                              ("forcerange", au.forcerange, au.forcelimited)):
+                              ("forcerange", au.forcerange, au.forcelimited),
+                              ("actrange", au.actrange, au.actlimited)):
             v = r[key]
             if v is not None and (v[0] != 0.0 or v[1] != 0.0):
                 rng[i] = v
                 lim[i] = True
-        lo = builder.joint_limit_lower[r["dof"]]
-        hi = builder.joint_limit_upper[r["dof"]]
-        au.lengthrange[i] = sorted([r["gear"] * lo, r["gear"] * hi])
+        if r["dof"] >= 0:
+            # the joint's range in transmission length (MuJoCo's compiled
+            # lengthrange of a joint transmission)
+            lo = builder.joint_limit_lower[r["dof"]]
+            hi = builder.joint_limit_upper[r["dof"]]
+            au.lengthrange[i] = sorted([r["gear"] * lo, r["gear"] * hi])
+        elif r["sten"] >= 0 and r["gaintype"] == GAIN_MUSCLE:
+            # MuJoCo finds a tendon muscle's lengthrange by a simulation;
+            # the JAX importer (and so the port) places the build-pose
+            # length at the middle of the muscle's operating range
+            Lb = spatial_tendon_rest_length(builder.sten_paths[r["sten"]],
+                                            builder.body_q)
+            rg = r["gainprm"][:2]
+            lopt = Lb / max(0.5 * (rg[0] + rg[1]), 1e-9)
+            au.lengthrange[i] = sorted([r["gear"] * rg[0] * lopt,
+                                        r["gear"] * rg[1] * lopt])
     builder.mjc_actuation = au.finish()
     builder.add_custom_attribute("mjc:ctrl", AttributeFrequency.ONCE,
                                  shape=(len(recs),),
                                  assignment=AttributeAssignment.CONTROL)
+    if au.has_act:
+        builder.add_custom_attribute("mjc:act", AttributeFrequency.ONCE,
+                                     shape=(len(recs),),
+                                     assignment=AttributeAssignment.STATE)
 
 
 def _mjc_qpos_to_newton(builder, qpos: np.ndarray) -> np.ndarray:

@@ -162,15 +162,20 @@ def test_bridge_from_jax_model(ant):
 
 
 def test_humanoid_raises_naming_element(tmp_path):
-    """The humanoid's fixed tendons import; a spatial tendon added to them
-    is not ported, and the importer says so instead of dropping it."""
+    """The humanoid's fixed tendons import, and so do spatial tendons now;
+    a spatial tendon through a <pulley> added to them is not ported, and
+    the importer says so instead of dropping it (the JAX importer skips
+    the tendon with a warning)."""
     with open(HUMANOID) as f:
         text = f.read()
     path = tmp_path / "humanoid_spatial.xml"
     path.write_text(text.replace(
-        "<tendon>", '<tendon><spatial name="s"><site site="a"/></spatial>'))
+        "<worldbody>", '<worldbody><site name="a"/><site name="b" '
+        'pos="0 0 1"/>').replace(
+        "<tendon>", '<tendon><spatial name="s"><site site="a"/><pulley '
+        'divisor="2"/><site site="b"/></spatial>'))
     nt.ModelBuilder().add_mjcf(HUMANOID)
-    with pytest.raises(NotImplementedError, match="spatial"):
+    with pytest.raises(NotImplementedError, match="pulley"):
         nt.ModelBuilder().add_mjcf(str(path))
 
 
@@ -192,6 +197,19 @@ def test_humanoid_raises_naming_element(tmp_path):
 def test_unsupported_mjcf_raises(tmp_path, snippet, word):
     path = tmp_path / "m.xml"
     path.write_text(f'<mujoco model="m">{snippet}</mujoco>')
+    if word in ("site", "tendon"):
+        # sites (massless, never colliding) and actuators on fixed tendons
+        # import now
+        b = nt.ModelBuilder()
+        b.add_mjcf(str(path))
+        m = b.finalize("cpu")
+        if word == "site":
+            assert int(nt.GeoType.NONE) in b.shape_type
+            assert m.structure.rigid_contact_max == 0
+        else:
+            au = m.structure.mjc_actuation
+            assert (au.tendon[0], au.dof[0]) == (0, -1)
+        return
     if word == "equality":
         # <equality> imports now (connect, weld and joint rows); an empty
         # section adds no constraint

@@ -190,17 +190,18 @@ def test_cpu_path_launches_no_kernel(ant):
 def test_unported_integrators_raise(ant, integrator):
     """gymnasium's ant.xml declares RK4; "auto" honours it, and "auto" and
     "rk4" build and step the ant under RK4 (tests/test_torch_rk4.py holds
-    it against the JAX package). The implicit integrators are not ported:
-    the port raises instead of running euler under another name."""
-    if integrator in ("auto", "rk4"):
-        solver = nt.SolverMuJoCo(ant.tm, iterations=8, integrator=integrator)
-        assert solver.integrator == "rk4"
-        s = nt.batch_state(nt.eval_fk(ant.tm, ant.tm.joint_q0,
-                                      ant.tm.joint_qd0, ant.tm.state()), 2)
-        out = solver.step_batched(s, None, None,
-                                  nt.CollisionPipeline(ant.tm).collide(s), DT)
-        assert bool(torch.isfinite(out.joint_q).all())
-        assert not torch.equal(out.joint_q, s.joint_q)
-        return
-    with pytest.raises(NotImplementedError, match="integrator"):
-        nt.SolverMuJoCo(ant.tm, iterations=8, integrator=integrator)
+    it against the JAX package). The implicit integrators are ported now
+    (tests/test_torch_implicit.py holds them against the JAX package):
+    each builds and steps the ant under its own name; an unknown one
+    raises."""
+    solver = nt.SolverMuJoCo(ant.tm, iterations=8, integrator=integrator)
+    assert solver.integrator == ("rk4" if integrator == "auto"
+                                 else integrator)
+    s = nt.batch_state(nt.eval_fk(ant.tm, ant.tm.joint_q0,
+                                  ant.tm.joint_qd0, ant.tm.state()), 2)
+    out = solver.step_batched(s, None, None,
+                              nt.CollisionPipeline(ant.tm).collide(s), DT)
+    assert bool(torch.isfinite(out.joint_q).all())
+    assert not torch.equal(out.joint_q, s.joint_q)
+    with pytest.raises(ValueError, match="integrator"):
+        nt.SolverMuJoCo(ant.tm, iterations=8, integrator="verlet")

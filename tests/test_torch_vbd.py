@@ -230,9 +230,9 @@ def test_vbd_unported_rigid_paths_raise():
     with pytest.raises(NotImplementedError, match="AVBD"):
         solver.step(m.state(), None, None,
                     nt.CollisionPipeline(m).collide(m.state()), DT)
-    with pytest.raises(NotImplementedError, match="muscles"):
-        nt.ModelBuilder().add_muscle([0], [[0, 0, 0]], 1.0, 1.0, 1.0, 1.0,
-                                     1.0)
+    # muscles are ported (SolverSemiImplicit, tests/test_torch_muscle.py)
+    assert nt.ModelBuilder().add_muscle([0], [[0, 0, 0]], 1.0, 1.0, 1.0,
+                                        1.0, 1.0) == 0
 
 
 # ----------------------------------------------------------------------

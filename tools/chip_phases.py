@@ -4,9 +4,10 @@ one's seconds and results as a JSON line.
 
     python3 tools/chip_phases.py 24 25 26 27   # on a machine with a GPU
     python3 tools/chip_phases.py 28 29 30 31 --tests tests/test_torch_determinism.py
+    python3 tools/chip_phases.py 32 33 34 35 36
 
-Phases 21-31 are the ones that take only the device (``dev``); the CUDA
-kernels are built first when a phase launches them (22, 29-31). With
+Phases 21-36 are the ones that take only the device (``dev``); the CUDA
+kernels are built first when a phase launches them (22, 29-36). With
 ``--tests``, the GPU cases of the named test files run afterwards
 (``pytest -m gpu``). Writes the results to chiprun_out/phases.json too.
 """
@@ -25,8 +26,10 @@ PHASES = {"21": "phase_ant_xpbd", "22": "phase_pyramid",
           "25": "phase_garment", "26": "phase_vbd",
           "27": "phase_semi_implicit", "28": "phase_ik",
           "29": "phase_warm_sleep", "30": "phase_equality",
-          "31": "phase_urdf"}
-KERNEL_PHASES = {"22", "29", "30", "31"}
+          "31": "phase_urdf", "32": "phase_newton_qp",
+          "33": "phase_implicit", "34": "phase_tendons",
+          "35": "phase_muscles", "36": "phase_kamino"}
+KERNEL_PHASES = {"22", "29", "30", "31", "32", "33", "34", "35", "36"}
 
 
 def main(argv):

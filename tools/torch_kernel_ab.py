@@ -151,10 +151,11 @@ def caller(lib, kind, operands):
     halv = torch.empty((W,), dtype=torch.int32, device=J.device)
     # a library with the w_other operand takes its pointer after ld (None:
     # these shapes are one-sided), one with the global-scratch instance a
-    # scratch pointer
+    # scratch pointer, one with the non-symmetric form its flag (0: the
+    # symmetric form these operands have)
     n_args = len(lib.pgs_solve_fused_f32.argtypes)
     w_other = [None] if n_args >= 23 else []
-    scratch = [None] * (n_args - 21 - len(w_other))
+    scratch = [None] * (n_args >= 22) + [0] * (n_args >= 24)
 
     def run():
         err = lib.pgs_solve_fused_f32(
