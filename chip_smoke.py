@@ -235,11 +235,37 @@ Phases, one line each:
  36. SolverKamino: the heavy stack x 1024 (error < 0.03, PGS's > 2x), the
      kicked four-bar x 4096 (drift < 2e-2) and build_stacks(3, 2) x 1024
      (islands equal the dense factor within 5e-5 / 5e-4).
-Phases 21, 24-27 and 32-36 run one substep twice on the card and require
-the two results to be equal bit for bit (every sum whose terms share a
-destination adds in a fixed order); phases 32-36 also step 64 worlds on
-the card against the same on the CPU (joint_q/body_q 2e-4, joint_qd
-5e-3) and report peak device memory.
+ 37. example_basic_conveyor_forces.py x 4096: a kinematic belt (a body
+     without a joint at 0.6 m/s) under two crates on free joints, mu 0.9,
+     SolverMuJoCo(iterations=16, warm_start=False) with step_with_contacts
+     every substep: B1 at d = 12 and B2 (32, 0, 12) with the belt as the
+     moving support (w_other 0, constant rows); each crate at the belt's
+     speed within 5%, each world's normal force within 10% of both
+     crates' weight, the drag finite;
+ 38. a two-link arm mounted on a free box base x 4096 (two groups, the
+     arm carrying the base as its mount): the reference defect C.24 (the
+     base falls at g (m_base + m_arm) / m_base) held as pinned;
+ 39. tests/test_stacking.py's third-law tower x 4096 (contact_cap=0):
+     the ground carries both weights, the box-box contact one, within 35%;
+ 40. the bench cloth under SolverXPBD(iterations=4, no particle-particle
+     contacts) beside Style3D's vertex-steps/s, and a 20 x 20 grid four
+     substeps card vs CPU;
+ 41. tests/test_cloth_solvers.py's two layers widened to 70 x 70 cells
+     each (10,082 particles), particle-particle contacts through the hash
+     grid: separated by more than 0.025; 42. a granular pile of 32,768
+     particles (radius 0.05) on the ground: above z = 0.03 and no two
+     closer than 0.085; the hash grid's dropped candidates counted;
+ 43. example_cable_pile.py x 1024 and tests/test_cable.py's cantilevers x
+     1024 (the stiffer sags less); 44. example_cable_dahl_hysteresis.py x
+     1024 and the Dahl presliding hold of tests/test_dahl_friction.py:63
+     x 1024. Phases 40-44 launch no B1-B4 kernel.
+Phases 37-44 report device ms and operations per frame, the busy share,
+host syncs per substep and peak memory. Phases 21, 24-27 and 32-44 run
+one substep twice on the card and require the two results to be equal
+bit for bit (every sum whose terms share a destination adds in a fixed
+order); phases 32-44 also step 64 worlds (or the particle scenes) on the
+card against the same on the CPU (joint_q/body_q 2e-4, joint_qd 5e-3) and
+report peak device memory.
 It prints one JSON line listing the kernels (name, route, source,
 launches, error, times, and each time's least possible time on an H100
 SXM at 700 W from ``kernel_cost``: bound_ms, bound_by, share_of_bound;
@@ -254,7 +280,8 @@ the inverse on the equality systems (chol_solve, bound on the solve's
 own bytes, beside torch.linalg.solve(A, rhs)), B1 on the sleeping boxes
 and the URDF pendulum, B2 with a
 warm lam0 on the ant, the boxes and the humanoid; B1 and B2 at each
-shape of phases 32-36, B2's non-symmetric form among them), then the card
+shape of phases 32-39, B2's non-symmetric form and the conveyor's
+moving support among them), then the card
 line, then the result line ``{"ok": true,
 "device": {...}}``. Any failed phase raises: exit code != 0 and no result
 line. Without a CUDA device it exits 2 at once. A ``[details]`` line
@@ -2128,8 +2155,11 @@ def groups_alone(solver, state, ctl, contacts, out, dt):
         one = batched._substep(solver, grp, rows, c, crows, dt, True, None)
         for name, idx in (("joint_q", t.row_coord), ("joint_qd", t.row_dof),
                           ("body_q", t.row_body), ("body_qd", t.row_body)):
+            mine = getattr(one, name)
+            if name.startswith("body_"):
+                mine = mine[:, :t.nb]       # not a mounted row's mounts
             worst = max(worst, float((getattr(out, name)[idx]
-                                      - getattr(one, name)).abs().max()))
+                                      - mine).abs().max()))
     torch.cuda.synchronize()
     if worst > STEP_VS_BATCHED_TOL:
         raise AssertionError(f"step vs its groups stepped alone: {worst} > "
@@ -5010,6 +5040,971 @@ def phase_kamino(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 37-44: bodies outside the articulations, mounted articulations,
+# contact-force reports, and the rest of SolverXPBD
+# ---------------------------------------------------------------------------
+CONVEYOR_W = 4096
+BELT_SPEED = 0.6                      # example_basic_conveyor_forces.py
+CONVEYOR_ITERS = 16
+CONVEYOR_WARMUP = 8                   # frames: the crates reach belt speed
+MOUNT_W = 4096
+MOUNT_WARMUP = 2
+TURN_FRAMES = 2                       # frames per turn of the rate turns
+TOWER_W = 4096
+TOWER_ITERS = 40                      # tests/test_stacking.py:166
+TOWER_SETTLE = 200                    # substeps, tests/test_stacking.py:175
+TOWER_H = 0.1
+XPBD_CLOTH_ITERS = 4
+XPBD_CPU_DIM = 20                     # the card against the CPU, 4 substeps
+LAYER_DIM = 70                        # 2 x 71^2 = 10,082 particles
+LAYER_FRAMES = 10                     # tests/test_cloth_solvers.py:115
+GRAN_DIMS = (64, 64, 8)               # 32,768: bench.py --mode mpm's count
+GRAN_WARMUP = 50
+GRAN_ITERS = 3
+GRAN_MAX_PER_CELL = 8                 # the hash grid's budget (default 4)
+CABLE_W = 1024
+CABLE_WARMUP = 1
+PILE_FRAMES = 4                       # timed: its substep is ~9,000 ops
+CABLE_ITERS = 6
+SAG_W = 1024                          # three cantilevers per world
+SAG_DT = 1.0 / 960.0                  # tests/test_cable.py:59
+SAG_STEPS = 1500                      # tests/test_cable.py:69
+SAG_KE = (0.5, 5.0, 500.0)
+DAHL_W = 1024
+DAHL_DT = 1.0 / 480.0                 # example_cable_dahl_hysteresis.py
+DAHL_SUBSTEPS = 8
+DAHL_FRAMES = 60                      # 1 s: forward 0.5 s, back 0.5 s
+DAHL_TIMED = 2                        # frames of the eager timed window
+HOLD_FRAMES = 60                      # tests/test_dahl_friction.py:69
+HOLD_PUSH = 15.0
+
+
+def conveyor_scene(lib, n):
+    """example_basic_conveyor_forces.py: a kinematic belt (a jointless box
+    moving at BELT_SPEED along x) and two crates on free joints (one
+    articulation), mu 0.9, replicated to n worlds."""
+    import numpy as np
+    sub = lib.ModelBuilder(gravity=-9.81)
+    cfg = sub.default_shape_cfg.copy()
+    cfg.mu = 0.9
+    belt = sub.add_body(xform=[0.0, 0.0, 0.05, 0, 0, 0, 1],
+                        qd=np.array([BELT_SPEED, 0, 0, 0, 0, 0]),
+                        kinematic=True, key="belt")
+    sub.add_shape_box(belt, hx=2.0, hy=0.5, hz=0.05, cfg=cfg, key="belt_top")
+    for i in range(2):
+        bb = sub.add_body(xform=[-1.0 + 0.5 * i, 0.0, 0.2, 0, 0, 0, 1],
+                          key=f"crate_{i}")
+        sub.add_shape_box(bb, hx=0.1, hy=0.1, hz=0.1, cfg=cfg,
+                          key=f"crate_shape_{i}")
+        sub.add_joint_free(bb, key=f"crate_free_{i}")
+    return replicated(lib, sub, n)
+
+
+def mounted_scene(lib, n, ground=True):
+    """A two-link arm (revolute joints about y, capsules) mounted on a free
+    box base: the arm is its own articulation whose root joint hangs from
+    the base's body; on a ground plane unless ``ground`` is False;
+    replicated to n worlds."""
+    sub = lib.ModelBuilder(gravity=-9.81)
+    base = sub.add_body(xform=[0.0, 0.0, 0.5, 0, 0, 0, 1], key="base")
+    sub.add_shape_box(base, hx=0.3, hy=0.2, hz=0.1)
+    sub.add_joint_free(base)
+    sub.add_articulation()
+    l1 = sub.add_body(xform=[0.2, 0.0, 0.85, 0, 0, 0, 1], key="upper")
+    sub.add_shape_capsule(l1, radius=0.04, half_height=0.2)
+    sub.add_joint_revolute(base, l1, xform_p=[0.2, 0, 0.1, 0, 0, 0, 1],
+                           xform_c=[0, 0, -0.25, 0, 0, 0, 1], axis=(0, 1, 0))
+    l2 = sub.add_body(xform=[0.2, 0.0, 1.35, 0, 0, 0, 1], key="lower")
+    sub.add_shape_capsule(l2, radius=0.04, half_height=0.2)
+    sub.add_joint_revolute(l1, l2, xform_p=[0, 0, 0.25, 0, 0, 0, 1],
+                           xform_c=[0, 0, -0.25, 0, 0, 0, 1], axis=(0, 1, 0))
+    if ground:
+        sub.add_ground_plane()
+    return replicated(lib, sub, n)
+
+
+def tower_scene(lib, n):
+    """tests/test_stacking.py:27's build_tower(2, jitter=False): two boxes
+    of half-extent 0.1 stacked on a ground plane, mu 0.8, on free joints
+    (one articulation); replicated to n worlds."""
+    sub = lib.ModelBuilder(gravity=-9.81)
+    cfg = sub.default_shape_cfg.copy()
+    cfg.mu = 0.8
+    for i in range(2):
+        z = TOWER_H + 2 * TOWER_H * 1.002 * i
+        bb = sub.add_body(xform=[0.0, 0.0, z, 0.0, 0.0, 0.0, 1.0],
+                          key=f"b{i}")
+        sub.add_shape_box(bb, hx=TOWER_H, hy=TOWER_H, hz=TOWER_H, cfg=cfg)
+        sub.add_joint_free(bb)
+    sub.add_ground_plane()
+    return replicated(lib, sub, n)
+
+
+def layers_scene(lib, dim=None, radius=0.03, gap=0.004):
+    """tests/test_cloth_solvers.py:58's two overlapping cloth layers
+    (cell 0.1, radius 0.03, gap 0.004, no gravity), dim x dim cells each
+    (LAYER_DIM by default)."""
+    dim = LAYER_DIM if dim is None else dim
+    b = lib.ModelBuilder()
+    b.gravity = 0.0
+    for z in (1.0, 1.0 + gap):
+        b.add_cloth_grid(pos=(0, 0, z), dim_x=dim, dim_y=dim, cell_x=0.1,
+                         cell_y=0.1, mass=1.0, radius=radius, tri_ke=500.0,
+                         edge_ke=2.0)
+    return b
+
+
+def granular_scene(lib, dims=None):
+    """tests/test_cloth_solvers.py:229's particle grid (cell 0.11, mass
+    0.1, radius 0.05 from z = 0.3) at dims[0] x dims[1] x dims[2]
+    (GRAN_DIMS by default) on a ground plane."""
+    dims = GRAN_DIMS if dims is None else dims
+    b = lib.ModelBuilder()
+    b.add_particle_grid(pos=(-0.055 * dims[0], -0.055 * dims[1], 0.3),
+                        dim_x=dims[0], dim_y=dims[1], dim_z=dims[2],
+                        cell_x=0.11, cell_y=0.11, cell_z=0.11, mass=0.1,
+                        radius=0.05)
+    b.add_ground_plane()
+    return b
+
+
+def cable_pile_scene(lib, n):
+    """example_cable_pile.py: five free cable rods of six segments (rod
+    graphs, radius 0.03, bend_ke 20, twist_ke 10) dropped from 0.6-2.0 m
+    in random directions (seed 3) onto a ground plane; n worlds. Its 440
+    candidate pairs exceed the pipeline's dynamic-mode threshold: the
+    example's pipeline runs the JAX package's dynamic mode (not ported,
+    ROADMAP A.5); the phase collides every candidate pair in static mode
+    (``CollisionPipeline(model, mode="static")``)."""
+    import numpy as np
+    sub = lib.ModelBuilder()
+    rng = np.random.default_rng(3)
+    n_seg = 6
+    for k in range(5):
+        a = rng.uniform(0, 2 * np.pi)
+        x0 = np.array([rng.uniform(-0.2, 0.2), rng.uniform(-0.2, 0.2),
+                       0.6 + 0.35 * k])
+        d = np.array([np.cos(a), np.sin(a), 0.0]) * 0.8
+        pts = [x0 + d * (i / n_seg) for i in range(n_seg + 1)]
+        sub.add_rod_graph(pts, [(i, i + 1) for i in range(n_seg)],
+                          radius=0.03, density=800.0, joint="cable",
+                          bend_ke=20.0, bend_kd=0.5, twist_ke=10.0,
+                          twist_kd=0.2, key=f"rod{k}")
+    sub.add_ground_plane()
+    return replicated(lib, sub, n)
+
+
+def sag_scene(lib, n):
+    """tests/test_cable.py:32's cantilever (6 cable segments from
+    (0, 0, 1) to (0.6, 0, 1), fixed root, stretch_ke 2e4) at each bend
+    stiffness of SAG_KE, side by side in y in one world; n worlds. Returns
+    (builder, the tip bodies of one world)."""
+    sub = lib.ModelBuilder(gravity=-9.81)
+    tips = []
+    for k, ke in enumerate(SAG_KE):
+        y = 0.5 * k
+        bodies = sub.add_rod([0, y, 1.0], [0.6, y, 1.0], segments=6,
+                             radius=0.01, joint="cable", bend_ke=ke,
+                             bend_kd=0.4, stretch_ke=2.0e4, stretch_kd=1.0,
+                             root_joint="fixed")
+        tips.append(bodies[-1])
+    return replicated(lib, sub, n), tips
+
+
+def dahl_scene(lib, n):
+    """example_cable_dahl_hysteresis.py: a ten-segment cable on the ground
+    hitched by a cable joint to a kinematic handle (0.4 m/s along x),
+    mu 0.6; n worlds. Returns (builder, handle, tail) of one world."""
+    import numpy as np
+    from newton_tpu_torch.core.host_math import np_transform
+    sub = lib.ModelBuilder(gravity=-9.81)
+    cfg = sub.default_shape_cfg.copy()
+    cfg.mu = 0.6
+    handle = sub.add_body(xform=np_transform(np.array([-0.05, 0.0, 0.035])),
+                          qd=np.array([0.4, 0, 0, 0, 0, 0]), kinematic=True,
+                          key="handle")
+    sub.add_shape_box(handle, hx=0.03, hy=0.03, hz=0.03, cfg=cfg)
+    bodies = sub.add_rod([0.0, 0.0, 0.03], [0.8, 0.0, 0.03], segments=10,
+                         radius=0.025, joint="cable", bend_ke=2.0,
+                         bend_kd=0.05, stretch_ke=2.0e4, stretch_kd=1.0,
+                         root_joint="free", key="cable")
+    q_tan = np.array([0.0, np.sin(np.pi / 4), 0.0, np.cos(np.pi / 4)])
+    sub.add_joint_cable(handle, bodies[0],
+                        xform_p=np_transform(np.array([0.03, 0.0, 0.0]),
+                                             q_tan),
+                        xform_c=np_transform(np.array([0.0, 0.0, -0.04])),
+                        stretch_stiffness=2.0e4, stretch_damping=1.0,
+                        bend_stiffness=1.0, bend_damping=0.05, key="hitch")
+    sub.add_ground_plane(cfg=cfg)
+    return replicated(lib, sub, n), handle, bodies[-1]
+
+
+def dahl_box_scene(lib, n):
+    """tests/test_dahl_friction.py:20: a 0.2 m box (8 kg) on the ground on
+    a free joint, mu 0.5; n worlds."""
+    sub = lib.ModelBuilder()
+    body = sub.add_body(xform=[0, 0, 0.1, 0, 0, 0, 1])
+    cfg = sub.default_shape_cfg.copy()
+    cfg.mu = 0.5
+    sub.add_shape_box(body, hx=0.1, hy=0.1, hz=0.1, cfg=cfg)
+    sub.add_joint_free(body)
+    sub.add_ground_plane(cfg=cfg)
+    return replicated(lib, sub, n)
+
+
+def path_metrics(frame_fn, substep_fn, units, rate):
+    """One profiled frame (device ms and operations per frame, busy share
+    profiled and of an unprofiled frame at ``rate`` units-steps/s), the
+    host syncs of one substep, and the peak device memory so far."""
+    import torch
+    prof = profile_frame(frame_fn, SUBSTEPS)
+    _, syncs = count_syncs(substep_fn)
+    return dict(profile=prof, busy_share_unprofiled=busy_unprofiled(
+        prof, units, rate), host_syncs_per_substep=syncs,
+        sync_sites=list(SYNC_SITES),
+        peak_memory_bytes=torch.cuda.max_memory_allocated())
+
+
+def repeat_fields(step, fields, label):
+    """Two runs of one substep from the same inputs equal bit for bit in
+    ``fields`` (State fields, or custom keys)."""
+    import torch
+    a, b = step(), step()
+    for n in fields:
+        ca, cb = getattr(a, "custom", {}), getattr(b, "custom", {})
+        x = ca[n] if n in ca else getattr(a, n)
+        y = cb[n] if n in cb else getattr(b, n)
+        if not torch.equal(x, y):
+            raise AssertionError(f"{label}: two runs of a substep differ in "
+                                 f"{n}")
+    return True
+
+
+def xpbd_vs_cpu(dev, builder, make_solver, state, substeps, dt, label,
+                pipe=False, tol=None):
+    """``substeps`` XPBD substeps on the card against the same on the CPU
+    from one state (the model finalized on each side): particle_q and
+    body_q within 2e-4, particle_qd and body_qd within 5e-3 (joint_q 2e-4,
+    joint_qd 5e-3), the errors returned."""
+    import newton_tpu_torch as nt
+    tol = tol or {"particle_q": 2e-4, "particle_qd": 5e-3, "body_q": 2e-4,
+                  "body_qd": 5e-3, "joint_q": 2e-4, "joint_qd": 5e-3}
+    out = {}
+    for side, d in (("card", dev), ("cpu", "cpu")):
+        m = builder.finalize(d)
+        solver = make_solver(m)
+        s = solver.init_state(state.to(d)) if hasattr(
+            solver, "init_state") else state.to(d)
+        p = nt.CollisionPipeline(m, mode="static") if pipe else None
+        for _ in range(substeps):
+            s = solver.step(s, None, None, None if p is None
+                            else p.collide(s), dt)
+        out[side] = s
+    err = {}
+    for n, t in tol.items():
+        a, b = getattr(out["card"], n), getattr(out["cpu"], n)
+        if not a.numel():
+            continue
+        ok, err[n] = close(a.cpu(), b, t, t)
+        if not ok:
+            raise AssertionError(f"{label}: {n} card vs CPU off tolerance "
+                                 f"({err[n]:.3g})")
+    return err
+
+
+def phase_conveyor(dev):
+    """example_basic_conveyor_forces.py x 4096 (replicate): the kinematic
+    belt at 0.6 m/s under two crates, SolverMuJoCo(iterations=16,
+    warm_start=False), step_with_contacts every substep, dt 1/240, 4
+    substeps: one group of d = 12 (both crates), 48 entries per world (16
+    belt-crate entries per crate with the belt as the moving support, 16
+    crate-crate) compacted to 32: one B1 (d = 12) and one B2 ((32, 0, 12),
+    w_other 0 with a non-zero constant row) per substep. Warm-up frames,
+    then 10 frames; gates: each crate moving at the belt's speed within 5%,
+    the summed normal force of each world within 10% of both crates'
+    weight, the drag force finite; a kernel vs plain substep (2e-4 /
+    5e-3); 64 worlds on the card against the CPU; two runs of a substep
+    and its force report bit-equal; device ms and operations per frame,
+    busy share, host syncs per substep, peak memory."""
+    import torch
+    import newton_tpu_torch as nt
+    from newton_tpu_torch.solvers.generalized import linalg, pgs
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = conveyor_scene(nt, CONVEYOR_W).finalize(dev)
+    pipe = nt.CollisionPipeline(model)
+
+    def solver_fn(m):
+        return nt.SolverMuJoCo(m, iterations=CONVEYOR_ITERS,
+                               warm_start=False)
+    solver = solver_fn(model)
+    state = model.state()
+    ctl = model.control()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    grp = solver.groups[0]
+    if [(g.g.n, g.g.d) for g in solver.groups] != [(CONVEYOR_W, 12)] \
+            or grp.plan.c != 48 or grp.tables.cap != 32 \
+            or grp.tables.other is None:
+        raise AssertionError("conveyor: expected one group of d = 12 with 48 "
+                             "entries (the belt on their other side) "
+                             "compacted to 32")
+
+    def sub_step(s):
+        return solver.step_with_contacts(s, None, ctl, pipe.collide(s), DT)
+    for _ in range(CONVEYOR_WARMUP * SUBSTEPS):
+        state, _ = sub_step(state)
+    torch.cuda.synchronize()
+    reset_robot_launches()
+    n_sub = FRAMES * SUBSTEPS
+    t0 = time.perf_counter()
+    for _ in range(n_sub):
+        state, rep = sub_step(state)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = gen_launches()
+    if launches != (n_sub, n_sub, 0):
+        raise AssertionError(f"conveyor: launches {launches} in {n_sub} "
+                             "substeps")
+    check_flat(state, CONVEYOR_W, "conveyor")
+    C1 = model.structure.rigid_contact_max // CONVEYOR_W
+    f = rep.rigid_contact_force.view(CONVEYOR_W, C1, 3)
+    on = rep.rigid_contact_mask.view(CONVEYOR_W, C1, 1)
+    normal = (f[..., 2:3].abs() * on).sum((1, 2))
+    drag = (f[..., 0:1] * on).sum((1, 2))
+    mass = model.body_mass.view(CONVEYOR_W, 3)[:, 1:].sum(1)
+    vx = state.body_qd.view(CONVEYOR_W, 3, 6)[:, 1:, 0]
+    gates = dict(
+        crate_speed_err_max=float((vx / BELT_SPEED - 1).abs().max()),
+        normal_over_weight_err_max=float((normal / (9.81 * mass) - 1)
+                                         .abs().max()),
+        drag_finite=bool(torch.isfinite(drag).all()),
+        drag_mean=float(drag.mean()))
+    if not (gates["crate_speed_err_max"] < 0.05
+            and gates["normal_over_weight_err_max"] < 0.10
+            and gates["drag_finite"]):
+        raise AssertionError(f"conveyor: gates fail {gates}")
+    contacts = pipe.collide(state)
+    errs, recs = group_paths(solver, state, ctl, contacts, DT, "conveyor")
+    Mi, rhs = recs[0]["chol"]
+    args, kw = recs[0]["pgs"]
+    if "w_other" not in kw:
+        raise AssertionError("conveyor: B2 got no w_other")
+    const_rows = float((args[3][:, :3 * kw["c"]]).abs().max())
+    vs, rep_bits = flat_scene_checks(conveyor_scene, solver_fn, solver,
+                                     state, ctl, DT, "conveyor", dev,
+                                     pipe=pipe)
+    repeat_fields(lambda: sub_step(state)[1], ("rigid_contact_force",),
+                  "conveyor force report")
+    rate_rates, _, _ = turns(solver, state, state.clone(), ctl,
+                             TURN_FRAMES * SUBSTEPS, CONVEYOR_W, DT,
+                             pipe=pipe)
+    rate = sum(rate_rates[True]) / 2
+    metrics = path_metrics(
+        lambda: [sub_step(state) for _ in range(SUBSTEPS)],
+        lambda: sub_step(state), CONVEYOR_W, rate)
+    return dict(worlds=CONVEYOR_W, setup_s=setup_s, substeps=n_sub,
+                launches=launches, gates=gates,
+                main_env_steps_per_s=n_sub * CONVEYOR_W / elapsed,
+                env_steps_per_s=rate,
+                plain_env_steps_per_s=sum(rate_rates[False]) / 2,
+                paths=errs, vs_cpu=vs, repeat_max_diff=rep_bits,
+                b1_instance=linalg.kernel_instance(12),
+                b1_max_abs_err=errs["b1 group 0"][0], b1=b1_times(Mi, rhs),
+                b2=b2_record(args, kw, "conveyor"),
+                b2_const_row_max=const_rows,
+                b2_w_other_max=float(kw["w_other"].abs().max()),
+                b2_smem_bytes=pgs.smem_bytes(kw["c"], 0, 12), **metrics)
+
+
+def phase_mounted(dev):
+    """An articulation mounted on another's body x 4096: mounted_scene (a
+    two-link arm on a free box base, ground plane), SolverMuJoCo(
+    iterations=8, euler) through step, dt 1/240, 4 substeps: two groups
+    (the base d = 6, the arm d = 2 carrying the base as its mount), one B1
+    per group and one B2 per group with contacts per substep; 10 warm-up
+    and 10 frames with finite state, unit quaternions and the base above
+    the ground; a kernel vs plain substep; 64 worlds on the card against
+    the CPU; two runs bit-equal; the pinned reference defect (ROADMAP
+    C.24): lifted clear of the ground and released at rest, the base
+    accelerates at g (m_base + m_arm) / m_base, not g, while the arm's
+    joints stay at rest; device ms and operations per frame, busy share,
+    host syncs per substep, peak memory."""
+    import torch
+    import newton_tpu_torch as nt
+    from newton_tpu_torch.solvers.generalized import linalg, pgs
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = mounted_scene(nt, MOUNT_W).finalize(dev)
+    pipe = nt.CollisionPipeline(model)
+
+    def solver_fn(m):
+        return nt.SolverMuJoCo(m, iterations=ITERS, integrator="euler")
+    solver = solver_fn(model)
+    state0 = nt.eval_fk(model, model.joint_q0, model.joint_qd0,
+                        model.state())
+    ctl = model.control()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    shape = [(g.g.n, g.g.d) for g in solver.groups]
+    if shape != [(MOUNT_W, 6), (MOUNT_W, 2)] or solver.mount_order != [1]:
+        raise AssertionError(f"mounted: groups {shape}, mounts "
+                             f"{solver.mount_order}")
+    n_contact_groups = sum(g.plan is not None for g in solver.groups)
+    state = run_steps(solver, state0, ctl, MOUNT_WARMUP * SUBSTEPS, DT, True,
+                      pipe=pipe)
+    reset_robot_launches()
+    n_sub = FRAMES * SUBSTEPS
+    t0 = time.perf_counter()
+    state = run_steps(solver, state, ctl, n_sub, DT, True, pipe=pipe)
+    elapsed = time.perf_counter() - t0
+    launches = gen_launches()
+    if launches != (2 * n_sub, n_contact_groups * n_sub, 0):
+        raise AssertionError(f"mounted: launches {launches} in {n_sub} "
+                             "substeps")
+    check_flat(state, MOUNT_W, "mounted")
+    base_z = float(state.body_q.view(MOUNT_W, 3, 7)[:, 0, 2].min())
+    if not base_z > 0.0:
+        raise AssertionError(f"mounted: base below the ground ({base_z})")
+    contacts = pipe.collide(state)
+    errs, recs = group_paths(solver, state, ctl, contacts, DT, "mounted")
+    vs, rep_bits = flat_scene_checks(mounted_scene, solver_fn, solver,
+                                     state, ctl, DT, "mounted", dev,
+                                     pipe=pipe)
+    # C.24: lifted 10 m, released at rest, one substep without contacts
+    lifted = state0.clone()
+    lifted.body_q[:, 2] += 10.0
+    lifted = nt.eval_ik(model, lifted)
+    lifted = nt.eval_fk(model, lifted[0], torch.zeros_like(lifted[1]),
+                        state0)
+    one = solver.step(lifted, None, ctl, None, DT)
+    m = model.body_mass.view(MOUNT_W, 3)
+    a_base = one.body_qd.view(MOUNT_W, 3, 6)[:, 0, 2] / DT
+    expect = -9.81 * m.sum(1) / m[:, 0]
+    defect = dict(
+        base_az_mean=float(a_base.mean()), expected_jax=float(expect.mean()),
+        rel_err_max=float(((a_base - expect) / expect).abs().max()),
+        arm_qd_abs_max=float(one.joint_qd.view(MOUNT_W, 8)[:, 6:].abs()
+                             .max()))
+    if not (defect["rel_err_max"] < 1e-4 and defect["arm_qd_abs_max"]
+            < 1e-6):
+        raise AssertionError(f"mounted: the pinned C.24 free fall moved "
+                             f"{defect}")
+    rate_rates, _, _ = turns(solver, state, state.clone(), ctl,
+                             TURN_FRAMES * SUBSTEPS, MOUNT_W, DT, pipe=pipe)
+    rate = sum(rate_rates[True]) / 2
+    metrics = path_metrics(
+        lambda: run_steps(solver, state, ctl, SUBSTEPS, DT, True,
+                          pipe=pipe),
+        lambda: solver.step(state, None, ctl, pipe.collide(state), DT),
+        MOUNT_W, rate)
+    times = {}
+    for gi, r in recs.items():
+        t = dict(b1=b1_times(*r["chol"]), d=r["chol"][0].shape[-1])
+        t["b1_instance"] = linalg.kernel_instance(t["d"])
+        if "pgs" in r:
+            t["b2"] = b2_record(*r["pgs"], f"mounted group {gi}")
+        times[gi] = t
+    return dict(worlds=MOUNT_W, setup_s=setup_s, substeps=n_sub,
+                groups=shape, launches=launches, base_z_min=base_z,
+                main_env_steps_per_s=n_sub * MOUNT_W / elapsed,
+                env_steps_per_s=rate,
+                plain_env_steps_per_s=sum(rate_rates[False]) / 2,
+                paths=errs, vs_cpu=vs, repeat_max_diff=rep_bits,
+                defect_c24=defect, times=times, **metrics)
+
+
+def phase_tower(dev):
+    """tests/test_stacking.py's test_third_law_reaction x 4096: two boxes
+    stacked on the ground, SolverMuJoCo(iterations=40, euler,
+    warm_start=False, contact_cap=0) through step, 200 substeps of 1/240
+    to settle, then 10 frames and step_with_contacts: one group of d = 12
+    with 32 entries, every one solved (B2 (32, 0, 12)); gates in every
+    world: the ground carries both weights and the box-box contact one
+    weight, within 35%; a kernel vs plain substep; two runs of the force
+    report bit-equal; device ms and operations per frame, busy share,
+    host syncs per substep, peak memory."""
+    import torch
+    import newton_tpu_torch as nt
+    from newton_tpu_torch.geometry.types import GeoType
+    from newton_tpu_torch.solvers.generalized import linalg
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = tower_scene(nt, TOWER_W).finalize(dev)
+    pipe = nt.CollisionPipeline(model)
+    solver = nt.SolverMuJoCo(model, iterations=TOWER_ITERS,
+                             integrator="euler", warm_start=False,
+                             contact_cap=0)
+    state = solver.init_state(model.state())
+    ctl = model.control()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    state = run_steps(solver, state, ctl, TOWER_SETTLE, DT, True, pipe=pipe)
+    reset_robot_launches()
+    n_sub = FRAMES * SUBSTEPS
+    t0 = time.perf_counter()
+    state = run_steps(solver, state, ctl, n_sub, DT, True, pipe=pipe)
+    elapsed = time.perf_counter() - t0
+    launches = gen_launches()
+    if launches != (n_sub, n_sub, 0):
+        raise AssertionError(f"tower: launches {launches}")
+    check_flat(state, TOWER_W, "tower")
+
+    def report():
+        return solver.step_with_contacts(state, None, ctl,
+                                         pipe.collide(state), DT)[1]
+    c2 = report()
+    st = model.structure
+    plane = torch.as_tensor(st.shape_type == int(GeoType.PLANE), device=dev)
+    s0 = c2.rigid_contact_shape0.long().clamp(min=0)
+    s1 = c2.rigid_contact_shape1.long().clamp(min=0)
+    gnd = c2.rigid_contact_mask & (plane[s0] | plane[s1])
+    bb = c2.rigid_contact_mask & ~plane[s0] & ~plane[s1]
+    C1 = st.rigid_contact_max // TOWER_W
+    fz = c2.rigid_contact_force[:, 2].view(TOWER_W, C1)
+    w_one = 9.81 / model.body_inv_mass.view(TOWER_W, 2)[:, 0]
+    f_gnd = (fz * gnd.view(TOWER_W, C1)).sum(1).abs()
+    f_bb = (fz * bb.view(TOWER_W, C1)).sum(1).abs()
+    gates = dict(ground_err_max=float(((f_gnd - 2 * w_one) / (2 * w_one))
+                                      .abs().max()),
+                 box_box_err_max=float(((f_bb - w_one) / w_one).abs().max()))
+    if not (gates["ground_err_max"] < 0.35
+            and gates["box_box_err_max"] < 0.35):
+        raise AssertionError(f"tower: third-law gates fail {gates}")
+    contacts = pipe.collide(state)
+    errs, recs = group_paths(solver, state, ctl, contacts, DT, "tower")
+    repeat_fields(report, ("rigid_contact_force",), "tower force report")
+    rate = n_sub * TOWER_W / elapsed
+    metrics = path_metrics(
+        lambda: run_steps(solver, state, ctl, SUBSTEPS, DT, True,
+                          pipe=pipe), report, TOWER_W, rate)
+    args, kw = recs[0]["pgs"]
+    return dict(worlds=TOWER_W, setup_s=setup_s, substeps=n_sub,
+                launches=launches, gates=gates, env_steps_per_s=rate,
+                paths=errs, b1_instance=linalg.kernel_instance(12),
+                b1_max_abs_err=errs["b1 group 0"][0],
+                b1=b1_times(*recs[0]["chol"]),
+                b2=b2_record(args, kw, "tower", tol=(1e-4, 1e-4, 1e-3)),
+                **metrics)
+
+
+def xpbd_particle_phase(dev, builder, make_solver, warmup, frames, label,
+                        pipe=False, gates=None, units=None):
+    """A particle scene under SolverXPBD: setup, ``warmup`` and ``frames``
+    timed frames of SUBSTEPS substeps at DT (collide each substep with
+    ``pipe``), no B1-B4 launch, the gates (``gates(model, state)``
+    returns them and raises on failure), one substep twice on the card
+    bit for bit, the rate in particle-steps/s, path metrics."""
+    import torch
+    import newton_tpu_torch as nt
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = builder.finalize(dev)
+    solver = make_solver(model)
+    p = nt.CollisionPipeline(model, mode="static") if pipe else None
+    state = solver.init_state(model.state())
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    reset_all_launches()
+    state = cloth_run(solver, state, warmup, SUBSTEPS, DT, p)
+    t0 = time.perf_counter()
+    state = cloth_run(solver, state, frames, SUBSTEPS, DT, p)
+    elapsed = time.perf_counter() - t0
+    no_tpu_kernel(label)
+    N = units or model.particle_count
+    rate = N * frames * SUBSTEPS / elapsed
+    res = dict(particles=model.particle_count, setup_s=setup_s,
+               substeps=frames * SUBSTEPS, particle_steps_per_s=rate,
+               gates=None if gates is None else gates(model, state))
+    if "xpbd:grid_overflow" in state.custom:
+        res["grid_overflow_last_substep"] = int(
+            state.custom["xpbd:grid_overflow"].sum())
+
+    def one():
+        return solver.step(state, None, None,
+                           None if p is None else p.collide(state), DT)
+    repeat_fields(one, [n for n in REPEAT_FIELDS_CLOTH
+                        if getattr(state, n).numel()]
+                  + [k for k in ("xpbd:grid_overflow", "xpbd:dahl_f")
+                     if k in state.custom], label)
+    res.update(path_metrics(
+        lambda: cloth_run(solver, state, 1, SUBSTEPS, DT, p), one, N, rate))
+    return res, model, state
+
+
+def phase_xpbd_cloth(dev, style3d_rate=None):
+    """The bench cloth (bench.py --mode cloth's 100 x 100 grid) under
+    SolverXPBD(iterations=4, enable_particle_particle=False): 10 warm-up
+    and 10 timed frames, phase 24's gates and card-vs-CPU substep
+    (bench_cloth_phase), beside Style3D's rate in this call (phase 24's,
+    or, run alone, Style3D's over the same frames); a 20 x 20 grid of the
+    same cell four substeps on the card against the CPU (2e-4 / 5e-3);
+    host syncs per substep."""
+    import newton_tpu_torch as nt
+    if style3d_rate is None:
+        style3d_rate = bench_cloth_phase(
+            dev, lambda m: nt.SolverStyle3D(m, iterations=CLOTH_ITERS),
+            FRAMES, "cloth style3d")["vertex_steps_per_s"]
+
+    def make(m):
+        return nt.SolverXPBD(m, iterations=XPBD_CLOTH_ITERS,
+                             enable_particle_particle=False)
+    made = []
+
+    def make_kept(m):
+        made.append((m, make(m)))
+        return made[-1][1]
+    # XPBD's membrane is the triangles' edge springs at tri_ke 500: the
+    # drape stretches past Style3D's 2.5 x gate (the JAX package's too),
+    # so the drape is reported and the pinned row and finiteness gated
+    res = bench_cloth_phase(dev, make_kept, FRAMES, "XPBD bench cloth",
+                            drape=False)
+    m, solver = made[0]
+    s0 = m.state()
+    res["host_syncs_per_substep"] = count_syncs(
+        lambda: solver.step(s0, None, None, None, DT))[1]
+    small = cloth_bench_scene(nt, XPBD_CPU_DIM)
+    res["vs_cpu_20x20_4_substeps"] = xpbd_vs_cpu(
+        dev, small, make, small.finalize("cpu").state(), SUBSTEPS, DT,
+        "XPBD cloth 20 x 20")
+    res["style3d_vertex_steps_per_s"] = style3d_rate
+    return res
+
+
+def layer_separation(model, state):
+    """The least distance between a particle of the first layer and one of
+    the second."""
+    import torch
+    q = state.particle_q
+    n = q.shape[0] // 2
+    best = float("inf")
+    for i in range(0, n, 2048):
+        best = min(best, float(torch.cdist(
+            q[i:min(i + 2048, n)], q[n:],
+            compute_mode="donot_use_mm_for_euclid_dist").min()))
+    return best
+
+
+def min_pair_distance(q, chunk=2048):
+    """The least distance between two particles, in row chunks."""
+    import torch
+    best = float("inf")
+    for i in range(0, q.shape[0], chunk):
+        d = torch.cdist(q[i:i + chunk], q,
+                        compute_mode="donot_use_mm_for_euclid_dist")
+        rows = torch.arange(i, min(i + chunk, q.shape[0]), device=q.device)
+        d[rows - i, rows] = float("inf")
+        best = min(best, float(d.min()))
+    return best
+
+
+def phase_xpbd_particles(dev):
+    """(a) XPBD self-collision: the two layers of tests/test_cloth_solvers
+    .py:58 widened to 70 x 70 cells each (10,082 particles),
+    SolverXPBD(iterations=4) with particle-particle contacts through the
+    hash grid (cell 0.06, 4 candidates per cell), 10 frames: finite and
+    the layers separated by more than 0.025 (test_xpbd_cloth_self_
+    collision), the grid's dropped candidates counted; one substep card vs
+    CPU. (b) The granular pile: 64 x 64 x 8 particles (32,768, MPM sand's
+    count) of radius 0.05 on a ground plane, SolverXPBD(iterations=3),
+    soft contacts each substep, 50 warm-up and 10 frames: finite, every
+    particle above z = 0.03 and no two closer than 0.085 (test_xpbd_
+    granular_no_interpenetration) with the grid's budget raised to 8
+    candidates per hashed cell (``particle_max_per_cell``: the default 4
+    drops 50,212 candidates of the start state, ROADMAP C.25; both counts
+    reported), one substep card vs CPU. Each with no
+    B1-B4 launch, a substep twice bit for bit, device ms and operations
+    per frame, busy share, host syncs per substep, peak memory."""
+    import torch
+    import newton_tpu_torch as nt
+    out = {}
+
+    def layer_gates(model, state):
+        q = state.particle_q
+        sep = layer_separation(model, state)
+        g = dict(finite=bool(torch.isfinite(q).all()), separation=sep)
+        if not (g["finite"] and sep > 0.025):
+            raise AssertionError(f"XPBD layers: gates fail {g}")
+        return g
+
+    def make_layers(m):
+        return nt.SolverXPBD(m, iterations=4)
+    b = layers_scene(nt)
+    res, model, state = xpbd_particle_phase(dev, b, make_layers, 0,
+                                            LAYER_FRAMES, "XPBD layers",
+                                            gates=layer_gates)
+    res["vs_cpu"] = xpbd_vs_cpu(dev, b, make_layers, state, 1, DT,
+                                "XPBD layers")
+    out["self_collision"] = res
+
+    def gran_gates(model, state):
+        q = state.particle_q
+        g = dict(finite=bool(torch.isfinite(q).all()),
+                 z_min=float(q[:, 2].min()), pair_min=min_pair_distance(q))
+        if not (g["finite"] and g["z_min"] > 0.03 and g["pair_min"] > 0.085):
+            raise AssertionError(f"granular: gates fail {g}")
+        return g
+
+    def make_gran(m):
+        return nt.SolverXPBD(m, iterations=GRAN_ITERS,
+                             particle_max_per_cell=GRAN_MAX_PER_CELL)
+    b = granular_scene(nt)
+    res, model, state = xpbd_particle_phase(dev, b, make_gran, GRAN_WARMUP,
+                                            FRAMES, "granular", pipe=True,
+                                            gates=gran_gates)
+    res["vs_cpu"] = xpbd_vs_cpu(dev, b, make_gran, state, 1, DT, "granular",
+                                pipe=True)
+    # the default budget of 4 candidates per hashed cell drops contacts at
+    # this count (ROADMAP C.25): counted at the start state for both
+    from newton_tpu_torch.geometry.hashgrid import HashGrid
+    q0 = model.particle_q
+    res["start_overflow_by_budget"] = {
+        k: int(HashGrid(cell_size=0.1, max_per_cell=k).query(
+            q0, 0.1, count_overflow=True)[2].sum()) for k in (4, 8)}
+    out["granular"] = res
+    return out
+
+
+def rigid_gates(state, label):
+    """Finite bodies and unit quaternions (1e-3)."""
+    import torch
+    q = state.body_q
+    g = dict(finite=bool(torch.isfinite(q).all() and torch.isfinite(
+        state.body_qd).all()),
+        quat_norm_err=float((q[:, 3:7].norm(dim=-1) - 1).abs().max()))
+    if not (g["finite"] and g["quat_norm_err"] < 1e-3):
+        raise AssertionError(f"{label}: gates fail {g}")
+    return g
+
+
+def graphed_steps(step, state, n, fields):
+    """Substeps of ``step`` (a State to the next) replayed from one CUDA
+    graph of it: a copy of ``state`` becomes the graph's inputs, and after
+    each replay its ``fields`` (State fields or custom keys) are copied
+    back into them. Returns (the inputs, ``replay(k=n)``); the caller may
+    edit the inputs between replays. Used for gate windows that the eager
+    host cost of a substep (the XPBD substep is ~9,000 eager operations)
+    would make the run's longest; the timed windows stay eager."""
+    import torch
+    static = state.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            step(static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step(static)
+
+    def get(x, f):
+        return x.custom[f] if f in x.custom else getattr(x, f)
+
+    def replay(k=n):
+        for _ in range(k):
+            graph.replay()
+            for f in fields:
+                get(static, f).copy_(get(out, f))
+    return static, replay
+
+
+def phase_cables(dev):
+    """(a) example_cable_pile.py x 1024 (five rods of six cable segments,
+    SolverXPBD(iterations=6), every candidate pair in static mode, dt
+    1/240): 1 warm-up and 4 timed frames, finite and unit quaternions;
+    (b) tests/test_cable.py's cantilevers at bend_ke 0.5, 5, 500 (three
+    per world) x 1024, 1500 substeps of 1/960 under
+    SolverXPBD(iterations=8) (replayed from a CUDA graph of the substep):
+    the stiffer sags less in every world, the stiffest tip above 0.85 and
+    the softest below 0.7 (test_cable_bend_stiffness_controls_sag); (c)
+    example_cable_dahl_hysteresis.py x 1024 (friction_model="dahl", sigma
+    5e4, iterations 8, the handle forward 0.5 s and back 0.5 s, dt 1/480,
+    8 substeps, 60 frames from a CUDA graph, then 2 timed eager frames):
+    finite, unit quaternions, the tail moved more than 5 mm and less than
+    the handle's 0.2 m, the bristle state finite; (d) the Dahl presliding
+    hold of tests/test_dahl_friction.py:63 x 1024 (a box pushed with 15 N,
+    below mu m g = 39 N, for 60 frames, from a CUDA graph): every box crept
+    less than 0.1 m. Each with no B1-B4 launch; (a) and (c): one substep
+    card vs CPU (64 worlds: body_q 2e-4, body_qd 5e-3), a substep twice
+    bit for bit, device ms and operations per frame, busy share, host
+    syncs per substep, peak memory, env-steps/s."""
+    import torch
+    import newton_tpu_torch as nt
+    out = {}
+    # (a) the pile
+    b = cable_pile_scene(nt, CABLE_W)
+
+    def make_pile(m):
+        return nt.SolverXPBD(m, iterations=CABLE_ITERS)
+    res, model, state = xpbd_particle_phase(
+        dev, b, make_pile, CABLE_WARMUP, PILE_FRAMES, "cable pile", pipe=True,
+        gates=lambda m, s: rigid_gates(s, "cable pile"), units=CABLE_W)
+    res["env_steps_per_s"] = res.pop("particle_steps_per_s")
+    nb = model.body_count // CABLE_W
+    res["pile_z_max"] = float(state.body_q[:, 2].max())
+    res["slots_per_world"] = model.structure.rigid_contact_max // CABLE_W
+    small = cable_pile_scene(nt, PARITY_W)
+    res["vs_cpu"] = xpbd_vs_cpu(dev, small, make_pile, world_slice(
+        state, PARITY_W, nb, 0, 0), 1, DT, "cable pile", pipe=True)
+    out["pile"] = res
+    # (b) sag ordering
+    torch.cuda.synchronize()
+    b, tips = sag_scene(nt, SAG_W)
+    model = b.finalize(dev)
+    solver = nt.SolverXPBD(model, iterations=8)
+    state = nt.eval_fk(model, model.joint_q0, model.joint_qd0, model.state())
+    reset_all_launches()
+    t0 = time.perf_counter()
+    state, run = graphed_steps(
+        lambda s: solver.step(s, None, None, None, SAG_DT), state,
+        SAG_STEPS, ("body_q", "body_qd", "joint_q", "joint_qd"))
+    run()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    no_tpu_kernel("cable sag")
+    rigid_gates(state, "cable sag")
+    nb = model.body_count // SAG_W
+    z = state.body_q.view(SAG_W, nb, 7)[:, tips, 2]             # (W, 3)
+    g = dict(ordered=bool(((z[:, 0] < z[:, 1]) & (z[:, 1] < z[:, 2])
+                           & (z[:, 2] <= 1.01)).all()),
+             stiff_min=float(z[:, 2].min()), soft_max=float(z[:, 0].max()),
+             tips_mean=[float(x) for x in z.mean(0)])
+    if not (g["ordered"] and g["stiff_min"] > 0.85 and g["soft_max"] < 0.7):
+        raise AssertionError(f"cable sag: gates fail {g}")
+    out["sag"] = dict(worlds=SAG_W, substeps=SAG_STEPS, gates=g,
+                      graphed_s=elapsed)
+    # (c) Dahl hysteresis
+    b, handle, tail = dahl_scene(nt, DAHL_W)
+    model = b.finalize(dev)
+    pipe = nt.CollisionPipeline(model)
+
+    def make_dahl(m):
+        return nt.SolverXPBD(m, iterations=8, friction_model="dahl",
+                             dahl_sigma=5.0e4)
+    solver = make_dahl(model)
+    state = solver.init_state(model.state())
+    nb = model.body_count // DAHL_W
+    hidx = torch.arange(DAHL_W, device=dev) * nb + handle
+
+    def dahl_step(s):
+        return solver.step(s, None, None, pipe.collide(s), DAHL_DT)
+    reset_all_launches()
+    t0 = time.perf_counter()
+    state, run = graphed_steps(dahl_step, state, DAHL_SUBSTEPS,
+                               ("body_q", "body_qd", "joint_q", "joint_qd",
+                                "xpbd:dahl_f"))
+    tail_x = []
+    for f in range(DAHL_FRAMES):
+        hv = 0.4 if (f * DAHL_SUBSTEPS * DAHL_DT) % 1.0 < 0.5 else -0.4
+        state.body_qd[hidx, 0] = hv          # between replays, as the
+        run()                                # example sets it per substep
+        tail_x.append(state.body_q.view(DAHL_W, nb, 7)[:, tail, 0].clone())
+    torch.cuda.synchronize()
+    graphed_s = time.perf_counter() - t0
+    no_tpu_kernel("Dahl hysteresis")
+    rigid_gates(state, "Dahl hysteresis")
+    tx = torch.stack(tail_x, 1)
+    span = tx.max(1).values - tx.min(1).values
+    g = dict(tail_span_min=float(span.min()), tail_span_max=float(span.max()),
+             bristle_finite=bool(torch.isfinite(
+                 state.custom["xpbd:dahl_f"]).all()))
+    if not (g["tail_span_min"] > 0.005 and g["tail_span_max"] < 0.2
+            and g["bristle_finite"]):
+        raise AssertionError(f"Dahl hysteresis: gates fail {g}")
+    state = state.clone()
+    t0 = time.perf_counter()
+    s = state
+    for _ in range(DAHL_TIMED * DAHL_SUBSTEPS):
+        s = dahl_step(s)
+    torch.cuda.synchronize()
+    rate = DAHL_TIMED * DAHL_SUBSTEPS * DAHL_W / (time.perf_counter() - t0)
+    repeat_fields(lambda: dahl_step(state),
+                  ("body_q", "body_qd", "xpbd:dahl_f"), "Dahl hysteresis")
+    small, _, _ = dahl_scene(nt, PARITY_W)
+    s64 = world_slice(state, PARITY_W, nb, 0, 0)
+    s64.custom = {"xpbd:dahl_f": state.custom["xpbd:dahl_f"][
+        :PARITY_W * pipe.rigid_contact_max // DAHL_W].clone()}
+    vs = xpbd_vs_cpu(dev, small, make_dahl, s64, 1, DAHL_DT,
+                     "Dahl hysteresis", pipe=True)
+    out["dahl"] = dict(worlds=DAHL_W, substeps=DAHL_FRAMES * DAHL_SUBSTEPS,
+                       gates=g, graphed_s=graphed_s, env_steps_per_s=rate,
+                       vs_cpu=vs, **path_metrics(
+                           lambda: [dahl_step(state)
+                                    for _ in range(SUBSTEPS)],
+                           lambda: dahl_step(state), DAHL_W, rate))
+    # (d) presliding hold
+    model = dahl_box_scene(nt, DAHL_W).finalize(dev)
+    pipe = nt.CollisionPipeline(model)
+    solver = nt.SolverXPBD(model, iterations=4, friction_model="dahl",
+                           dahl_sigma=1.0e5)
+    state = solver.init_state(model.state())
+    state.body_f[:, 0] = HOLD_PUSH
+    state, run = graphed_steps(
+        lambda s: solver.step(s, None, None, pipe.collide(s), DT), state,
+        HOLD_FRAMES * SUBSTEPS, ("body_q", "body_qd", "joint_q", "joint_qd",
+                                 "xpbd:dahl_f"))
+    run()
+    torch.cuda.synchronize()
+    rigid_gates(state, "Dahl hold")
+    creep = float(state.body_q[:, 0].max())
+    if not creep < 0.1:
+        raise AssertionError(f"Dahl hold: a box crept {creep:.3f} m")
+    out["hold"] = dict(worlds=DAHL_W, substeps=HOLD_FRAMES * SUBSTEPS,
+                       creep_max=creep)
+    no_tpu_kernel("Dahl hold")
+    return out
+
+
+def free_body_kernel_entries(conv, mnt, tower, b1_src, b2_src):
+    """The kernels line's entries of phases 37-39: B1 at d = 12 (the
+    conveyor, the tower), the mounted scene's two groups (d = 6, 2); B2 at
+    (32, 0, 12) with w_other (the belt a moving support), the tower's
+    (32, 0, 12) and the mounted groups' shapes."""
+    out = []
+    b1s = [(conv["b1_instance"], "conveyor x 4096, step_with_contacts "
+            "(phase 37)", 12, CONVEYOR_W, conv["launches"][0],
+            conv["b1_max_abs_err"], conv["b1"]),
+           (tower["b1_instance"], "third-law tower x 4096, contact_cap=0 "
+            "(phase 39)", 12, TOWER_W, tower["launches"][0],
+            tower["b1_max_abs_err"], tower["b1"])]
+    for gi, t in mnt["times"].items():
+        b1s.append((t["b1_instance"], f"mounted arm x 4096, group {gi} of 2 "
+                    "(phase 38)", t["d"], MOUNT_W, mnt["launches"][0],
+                    mnt["paths"][f"b1 group {gi}"][0], t["b1"]))
+    for label, path, d, n, launches, err, t in b1s:
+        out.append(dict(
+            name=f"chol_inv_solve [{label}] d={d} W={n}", **b1_src,
+            instance=label, path=path, launches=launches, max_abs_err=err,
+            ms=t["ms"], plain_ms=t["plain_ms"],
+            **bound_fields("chol_inv_solve", t["ms"], d=d, W=n),
+            library_ms=t["library_ms"]))
+    b2s = [("conveyor x 4096, the belt's entries a moving support "
+            "(w_other 0, constant rows) (phase 37)", CONVEYOR_W,
+            conv["launches"][1], conv["b2"], CONVEYOR_ITERS, True),
+           ("third-law tower x 4096, contact_cap=0 (phase 39)", TOWER_W,
+            tower["launches"][1], tower["b2"], TOWER_ITERS, False)]
+    for gi, t in mnt["times"].items():
+        if "b2" in t:
+            b2s.append((f"mounted arm x 4096, group {gi} (phase 38)",
+                        MOUNT_W, mnt["launches"][1], t["b2"], ITERS, False))
+    for path, n, launches, v, it, w_other in b2s:
+        c, nl, d = v["shape"]
+        tag = ", w_other" if w_other else ""
+        out.append(dict(
+            name=f"pgs_solve_fused [{v['instance']}{tag}] {v['shape']} "
+                 f"W={n}", **b2_src, instance=v["instance"], path=path,
+            launches=launches, max_abs_err=v["lam_err"], ms=v["ms"],
+            plain_ms=v["plain_ms"],
+            **bound_fields("pgs_solve_fused", v["ms"], c=c, nl=nl, d=d, W=n,
+                           iters=it, w_other=w_other)))
+    return out
+
+
 def rest_kernel_entries(nqp, imp, ten, mus, kam, b1_src, b2_src):
     """The kernels line's entries of phases 32-36: B1 at d = 14 (the Newton
     QP ant), 23 (implicitfast), 2 (finger, arm), 18 (heavy stack), 8
@@ -5608,6 +6603,69 @@ def main():
           f"{card}", flush=True)
     mark("36")
 
+    conv = phase_conveyor(dev)
+    results["conveyor"] = conv
+    print(f"[37 conveyor x {CONVEYOR_W}, kinematic belt, step_with_contacts] "
+          f"launches {conv['launches']} in {conv['substeps']} substeps, gates "
+          f"{conv['gates']}, B2 {conv['b2']['shape']} "
+          f"{conv['b2']['instance']} with w_other (constant rows up to "
+          f"{conv['b2_const_row_max']:.3f} m/s), vs CPU {conv['vs_cpu']}, "
+          f"host syncs {conv['host_syncs_per_substep']}, "
+          f"{conv['env_steps_per_s']:.1f} env-steps/s (plain "
+          f"{conv['plain_env_steps_per_s']:.1f}) on {card}", flush=True)
+    mark("37")
+
+    mnt = phase_mounted(dev)
+    results["mounted"] = mnt
+    print(f"[38 mounted arm x {MOUNT_W}] groups {mnt['groups']}, launches "
+          f"{mnt['launches']} in {mnt['substeps']} substeps, vs CPU "
+          f"{mnt['vs_cpu']}, C.24 pinned {mnt['defect_c24']}, host syncs "
+          f"{mnt['host_syncs_per_substep']}, {mnt['env_steps_per_s']:.1f} "
+          f"env-steps/s (plain {mnt['plain_env_steps_per_s']:.1f}) on "
+          f"{card}", flush=True)
+    mark("38")
+
+    tower = phase_tower(dev)
+    results["tower"] = tower
+    print(f"[39 third-law tower x {TOWER_W}] launches {tower['launches']}, "
+          f"gates {tower['gates']}, B2 {tower['b2']['shape']} "
+          f"{tower['b2']['instance']}, host syncs "
+          f"{tower['host_syncs_per_substep']}, "
+          f"{tower['env_steps_per_s']:.1f} env-steps/s on {card}", flush=True)
+    mark("39")
+
+    xcloth = phase_xpbd_cloth(dev, sty["vertex_steps_per_s"])
+    results["xpbd_cloth"] = xcloth
+    print(f"[40 bench cloth under SolverXPBD] {xcloth['vertices']} vertices, "
+          f"gates {xcloth['gates']}, vs CPU {xcloth['vs_cpu']}, 20 x 20 x 4 "
+          f"substeps vs CPU {xcloth['vs_cpu_20x20_4_substeps']}, host syncs "
+          f"{xcloth['host_syncs_per_substep']}, "
+          f"{xcloth['vertex_steps_per_s']:.1f} vertex-steps/s (Style3D "
+          f"{xcloth['style3d_vertex_steps_per_s']:.1f} in this run) on "
+          f"{card}", flush=True)
+    mark("40")
+
+    xpart = phase_xpbd_particles(dev)
+    results["xpbd_particles"] = xpart
+    print("[41-42 XPBD self-collision, granular pile] " + "; ".join(
+        f"{k}: {v['particles']} particles, gates {v['gates']}, grid overflow "
+        f"{v.get('grid_overflow_last_substep')}, vs CPU {v['vs_cpu']}, host "
+        f"syncs {v['host_syncs_per_substep']}, "
+        f"{v['particle_steps_per_s']:.1f} particle-steps/s"
+        for k, v in xpart.items()) + f" on {card}", flush=True)
+    mark("41-42")
+
+    cab = phase_cables(dev)
+    results["cables"] = cab
+    print(f"[43-44 cables and Dahl friction x {CABLE_W}] pile: gates "
+          f"{cab['pile']['gates']}, vs CPU {cab['pile']['vs_cpu']}, "
+          f"{cab['pile']['env_steps_per_s']:.1f} env-steps/s; sag "
+          f"{cab['sag']['gates']}; Dahl hysteresis {cab['dahl']['gates']}, vs "
+          f"CPU {cab['dahl']['vs_cpu']}, {cab['dahl']['env_steps_per_s']:.1f} "
+          f"env-steps/s; presliding hold: creep {cab['hold']['creep_max']:.4f} "
+          f"m on {card}", flush=True)
+    mark("43-44")
+
     results["kernel_info"] = kernel_info()
     print("[phase seconds] " + json.dumps(
         {k: round(v, 1) for k, v in results["phase_s"].items()}), flush=True)
@@ -5822,6 +6880,7 @@ def main():
                            W=BOX_W, iters=16)))
     kernels += slice_kernel_entries(eq, ws, urdf, b1_src, b2_src)
     kernels += rest_kernel_entries(nqp, imp, ten, mus, kam, b1_src, b2_src)
+    kernels += free_body_kernel_entries(conv, mnt, tower, b1_src, b2_src)
     print(f"[bounds] H100 SXM peaks {PEAK_BYTES_PER_S / 1e12:g} TB/s, "
           f"{PEAK_F32_FLOPS / 1e12:g} TFLOP/s float32 (700 W); this card: "
           f"{card}", flush=True)

@@ -12,8 +12,6 @@ are the JAX package's.
 
 from __future__ import annotations
 
-from typing import Tuple
-
 import torch
 
 __all__ = ["HashGrid", "neighbor_pairs"]
@@ -61,11 +59,14 @@ class HashGrid:
         order = torch.argsort(h, stable=True)
         return h[order], order
 
-    def query(self, x: torch.Tensor, radius: float
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def query(self, x: torch.Tensor, radius: float,
+              count_overflow: bool = False):
         """Neighbours within ``radius`` of each particle: (idx (N, 27 K)
         int64, mask of the same shape); self pairs and candidates beyond
-        the radius are masked off."""
+        the radius are masked off. With ``count_overflow`` also each
+        particle's count (N,) int32 of the candidates that its 27 cells
+        held beyond the budget of K each (particles whose hash matches the
+        cell's, before the distance test), which the query drops."""
         N = x.shape[0]
         K = self.max_per_cell
         h_sorted, perm = self.build(x)
@@ -83,7 +84,11 @@ class HashGrid:
         dist2 = (d * d).sum(-1)
         mask = (valid & (dist2 < radius * radius)
                 & (cand != torch.arange(N, device=x.device)[:, None]))
-        return cand, mask
+        if not count_overflow:
+            return cand, mask
+        held = torch.searchsorted(h_sorted, nh, right=True) - start
+        over = torch.clamp(held - K, min=0).sum(1).to(torch.int32)
+        return cand, mask, over
 
 
 def neighbor_pairs(x: torch.Tensor, radius: float, cell_size: float = None,

@@ -49,9 +49,6 @@ _SLOTS: Dict[Tuple[int, int], int] = {
     (_B, _B): 16, (_B, _C): 4, (_B, _CY): 4,
     (_C, _C): 2, (_C, _CY): 2, (_CY, _CY): 2,
 }
-# the eight box corners' signs, x slowest (the JAX package's order)
-_CORNER_SIGNS = [[sx, sy, sz] for sx in (-1.0, 1.0) for sy in (-1.0, 1.0)
-                 for sz in (-1.0, 1.0)]
 
 
 def pair_slot_count(t0: int, t1: int) -> int:
@@ -77,8 +74,13 @@ def _segment_endpoints(X, half_h):
 
 
 def _box_corners(X, half):
-    """(..., 8, 3) world-space corners of boxes with half-extents half."""
-    signs = torch.tensor(_CORNER_SIGNS, dtype=X.dtype, device=X.device)
+    """(..., 8, 3) world-space corners of boxes with half-extents half,
+    signs (-, -, -), (-, -, +), ..., (+, +, +) (x slowest, z fastest: the
+    JAX package's order). The signs are made on the device (a copy from
+    host memory in every substep would make the host wait for the card)."""
+    bits = torch.arange(8, device=X.device)[:, None] >> torch.arange(
+        2, -1, -1, device=X.device)
+    signs = ((bits & 1) * 2 - 1).to(X.dtype)
     return transform_point(X[..., None, :], signs * half[..., None, :])
 
 
@@ -224,8 +226,7 @@ def capsule_box(X0, X1, s0, s1):
     """Four slots: the capsule's endpoints and two interior points of its
     axis at thirds, each against the box's signed distance."""
     a, b = _segment_endpoints(X0, s0[..., 1])
-    ts = torch.tensor([0.0, 1.0 / 3.0, 2.0 / 3.0, 1.0], dtype=X0.dtype,
-                      device=X0.device)
+    ts = torch.arange(4, dtype=X0.dtype, device=X0.device) / 3.0
     pts = a[..., None, :] + (b - a)[..., None, :] * ts[:, None]  # (..., 4, 3)
     d, g = _box_sdf_local(transform_point_inv(X1[..., None, :], pts),
                           s1[..., None, :])

@@ -193,7 +193,12 @@ def angular_axes(tab, joint_q: torch.Tensor):
 
 def joint_motion(tab, joint_q: torch.Tensor, joint_qd: torch.Tensor):
     """Local joint transforms ``(..., J, 7)`` and twists ``(..., J, 6)`` in
-    the parent-anchor frame, for all joints at once."""
+    the parent-anchor frame, for all joints at once. A model whose joints
+    have no coordinates (or no dofs: fixed and cable chains) reads zeros."""
+    if joint_q.shape[-1] == 0:
+        joint_q = joint_q.new_zeros(*joint_q.shape[:-1], 1)
+    if joint_qd.shape[-1] == 0:
+        joint_qd = joint_qd.new_zeros(*joint_qd.shape[:-1], 1)
     qj = joint_q[..., tab.q_idx] * tab.q_mask                 # (..., J, 7)
     qdj = joint_qd[..., tab.qd_idx] * tab.qd_mask             # (..., J, 6)
     q_lin = joint_q[..., tab.lin_q_idx] * tab.lin_mask        # (..., J, 3)

@@ -65,7 +65,8 @@ from .model import (
 __all__ = ["ModelBuilder", "ShapeConfig", "JointDofConfig"]
 
 _JOINT_TYPES = (JointType.FREE, JointType.REVOLUTE, JointType.PRISMATIC,
-                JointType.FIXED, JointType.D6, JointType.BALL)
+                JointType.FIXED, JointType.D6, JointType.BALL,
+                JointType.DISTANCE, JointType.CABLE)
 # each shape type the port builds, with its mass properties from
 # (density, scale)
 _SHAPE_MASS = {
@@ -708,17 +709,24 @@ class ModelBuilder:
     # bodies, articulations, joints
     # ------------------------------------------------------------------
     def add_body(self, xform=None, com=None, I_m=None, mass: float = 0.0,
-                 key: Optional[str] = None) -> int:
-        """Add a rigid body; mass and inertia accumulate from shapes."""
+                 key: Optional[str] = None, qd=None,
+                 kinematic: bool = False) -> int:
+        """Add a rigid body; mass and inertia accumulate from shapes. ``qd``
+        is its initial twist [v_com, w] (world frame). A ``kinematic`` body
+        (``BodyFlags.KINEMATIC``) gets a zero inverse mass and inertia at
+        ``finalize``: no force moves it, and a body without a joint keeps
+        ``qd`` as the velocity of a moving support (a conveyor belt)."""
         idx = self.body_count
         self.body_q.append(_as_transform(xform))
-        self.body_qd.append(np.zeros(6))
+        self.body_qd.append(np.zeros(6) if qd is None
+                            else np.asarray(qd, dtype=np.float64))
         self.body_com.append(np.zeros(3) if com is None
                              else np.asarray(com, dtype=np.float64))
         self.body_mass.append(float(mass))
         self.body_inertia.append(np.zeros((3, 3)) if I_m is None
                                  else np.asarray(I_m, dtype=np.float64))
-        self.body_flags.append(int(BodyFlags.NONE))
+        self.body_flags.append(int(BodyFlags.KINEMATIC) if kinematic
+                               else int(BodyFlags.NONE))
         self.body_key.append(key or f"body_{idx}")
         self.body_world.append(self._current_world)
         return idx
@@ -735,20 +743,25 @@ class ModelBuilder:
                   angular_axes: Optional[Sequence[JointDofConfig]] = None,
                   xform_p=None, xform_c=None, key: Optional[str] = None,
                   collision_filter_parent: bool = True) -> int:
-        """Free, revolute, prismatic, fixed, ball or D6 joint between
-        ``parent`` (-1 = world) and ``child``. A prismatic joint takes one
-        linear axis, a D6 joint 0-3 linear and 0-3 angular axes (at least
-        one), each a dof with its own limits, armature and gains. A D6
-        joint's linear dofs and coordinates come first, then its angular
-        ones: it translates along its linear axes in the parent-anchor
-        frame, then rotates about the translated anchor."""
+        """Free, revolute, prismatic, fixed, ball, D6, distance or cable
+        joint between ``parent`` (-1 = world) and ``child``. A prismatic
+        joint takes one linear axis, a D6 joint 0-3 linear and 0-3 angular
+        axes (at least one), each a dof with its own limits, armature and
+        gains. A D6 joint's linear dofs and coordinates come first, then its
+        angular ones: it translates along its linear axes in the
+        parent-anchor frame, then rotates about the translated anchor. A
+        distance joint has a free joint's six dofs and seven coordinates
+        (its config's limits on all six); a cable joint six dofs (three
+        linear, three angular configs) and no coordinates."""
         joint_type = JointType(joint_type)
         if joint_type not in _JOINT_TYPES:
             raise NotImplementedError(
                 f"joint type {joint_type.name} is not ported yet")
         linear = list(linear_axes or [])
         angular = list(angular_axes or [])
-        if linear and joint_type not in (JointType.PRISMATIC, JointType.D6):
+        if linear and joint_type not in (JointType.PRISMATIC, JointType.D6,
+                                         JointType.DISTANCE,
+                                         JointType.CABLE):
             raise ValueError(f"a {joint_type.name} joint takes no linear "
                              "axes")
         if joint_type == JointType.PRISMATIC and (len(linear) != 1
@@ -767,6 +780,10 @@ class ModelBuilder:
         if joint_type == JointType.BALL and (linear or len(angular) > 1):
             raise ValueError("a ball joint takes at most one angular dof "
                              "config, applied to its three dofs")
+        if joint_type == JointType.CABLE and (len(linear) != 3
+                                              or len(angular) != 3):
+            raise ValueError("a cable joint takes three linear and three "
+                             "angular axes")
         dof_count, coord_count = joint_type.dof_count(len(axes))
 
         idx = self.joint_count
@@ -781,7 +798,7 @@ class ModelBuilder:
         self.joint_world.append(self._current_world)
         self.joint_dof_dim.append((len(linear), len(angular)))
 
-        if joint_type == JointType.FREE:
+        if joint_type in (JointType.FREE, JointType.DISTANCE):
             base = axes[0] if axes else self.default_joint_cfg
             canon = [np.array([1.0, 0, 0]), np.array([0, 1.0, 0]),
                      np.array([0, 0, 1.0])]
@@ -804,6 +821,11 @@ class ModelBuilder:
                 self._append_dof(base, axis_override=a)
             self.joint_q.extend([0.0, 0.0, 0.0, 1.0])
             self.joint_target_q.extend([0.0, 0.0, 0.0, 1.0])
+        elif joint_type == JointType.CABLE:
+            # six constraint dofs, no coordinate: the maximal-coordinate
+            # solvers integrate the segments' transforms directly
+            for cfg in axes:
+                self._append_dof(cfg)
         else:
             for cfg in axes:
                 self._append_dof(cfg)
@@ -905,6 +927,66 @@ class ModelBuilder:
         return self.add_joint(JointType.FREE, parent, child,
                               angular_axes=[cfg], xform_p=xform_p,
                               xform_c=xform_c, key=key)
+
+    def add_joint_distance(self, parent: int, child: int,
+                           min_distance: float = -1.0,
+                           max_distance: float = 1.0, xform_p=None,
+                           xform_c=None, key: Optional[str] = None,
+                           collision_filter_parent: bool = True) -> int:
+        """Distance joint: a free joint's dofs and coordinates, its limits
+        ``min_distance``/``max_distance`` on every dof (the JAX builder's
+        ``add_joint_distance``; SolverXPBD leaves it unconstrained, as the
+        JAX package does)."""
+        cfg = self.default_joint_cfg.copy()
+        cfg.limit_lower = float(min_distance)
+        cfg.limit_upper = float(max_distance)
+        return self.add_joint(JointType.DISTANCE, parent, child,
+                              linear_axes=[cfg], xform_p=xform_p,
+                              xform_c=xform_c, key=key,
+                              collision_filter_parent=collision_filter_parent)
+
+    def add_joint_cable(self, parent: int, child: int, xform_p=None,
+                        xform_c=None, stretch_stiffness: float = 1.0e5,
+                        stretch_damping: float = 0.0,
+                        shear_stiffness: Optional[float] = None,
+                        shear_damping: Optional[float] = None,
+                        bend_stiffness: float = 0.0,
+                        bend_damping: float = 0.0,
+                        twist_stiffness: Optional[float] = None,
+                        twist_damping: Optional[float] = None,
+                        key: Optional[str] = None,
+                        collision_filter_parent: bool = True) -> int:
+        """Cable (Cosserat rod) joint (the JAX builder's
+        ``add_joint_cable``): six dofs whose drive gains hold the split
+        stiffness and damping in the order [shear_x, shear_y, stretch_z,
+        bend_x, bend_y, twist_z], each anchor's local +Z the material
+        tangent; no coordinates (SolverXPBD integrates the segments).
+        Shear defaults to the stretch values, twist to the bend values."""
+        if shear_stiffness is None and shear_damping is None:
+            shear_stiffness, shear_damping = stretch_stiffness, \
+                stretch_damping
+        shear_stiffness = (stretch_stiffness if shear_stiffness is None
+                           else shear_stiffness)
+        shear_damping = 0.0 if shear_damping is None else shear_damping
+        if twist_stiffness is None and twist_damping is None:
+            twist_stiffness, twist_damping = bend_stiffness, bend_damping
+        twist_stiffness = (bend_stiffness if twist_stiffness is None
+                           else twist_stiffness)
+        twist_damping = 0.0 if twist_damping is None else twist_damping
+
+        def cfg(axis, ke, kd):
+            return JointDofConfig(axis=axis, target_ke=float(ke),
+                                  target_kd=float(kd), armature=0.0)
+        lin = [cfg(Axis.X, shear_stiffness, shear_damping),
+               cfg(Axis.Y, shear_stiffness, shear_damping),
+               cfg(Axis.Z, stretch_stiffness, stretch_damping)]
+        ang = [cfg(Axis.X, bend_stiffness, bend_damping),
+               cfg(Axis.Y, bend_stiffness, bend_damping),
+               cfg(Axis.Z, twist_stiffness, twist_damping)]
+        return self.add_joint(JointType.CABLE, parent, child,
+                              linear_axes=lin, angular_axes=ang,
+                              xform_p=xform_p, xform_c=xform_c, key=key,
+                              collision_filter_parent=collision_filter_parent)
 
     def add_tendon_fixed(self, joints: Sequence[int],
                          coefs: Sequence[float], stiffness: float = 0.0,
@@ -1136,18 +1218,22 @@ class ModelBuilder:
                 radius: float = 0.02, density: float = 1000.0,
                 bend_ke: float = 100.0, bend_kd: float = 1.0,
                 root_joint: str = "free", root_parent: int = -1,
-                joint: str = "ball", key: Optional[str] = None) -> List[int]:
+                joint: str = "ball", stretch_ke: float = 1.0e5,
+                stretch_kd: float = 0.0, twist_ke: Optional[float] = None,
+                twist_kd: Optional[float] = None,
+                key: Optional[str] = None) -> List[int]:
         """Discrete elastic rod as a chain of capsules from ``start_pos``
-        to ``end_pos`` (the JAX builder's ``add_rod`` with
-        ``joint="ball"``): segment +Z is the tangent, consecutive segments
-        are joined by ball joints whose dof drive gains ``bend_ke`` and
-        ``bend_kd`` give the bending stiffness, and the first segment hangs
-        from ``root_parent`` by a fixed or ball joint at ``start_pos``, or
-        is free. Returns the body indices."""
-        if joint != "ball":
-            raise NotImplementedError(
-                f"add_rod joint={joint!r}: cable joints (XPBD/VBD) are not "
-                "ported yet; joint='ball' is")
+        to ``end_pos`` (the JAX builder's ``add_rod``): segment +Z is the
+        tangent. ``joint="ball"`` joins consecutive segments by ball joints
+        whose dof drive gains ``bend_ke`` and ``bend_kd`` give the bending
+        stiffness (every rigid solver); ``joint="cable"`` by cable joints
+        with the split stretch/shear (``stretch_ke``/``stretch_kd``) and
+        bend/twist (``bend_*``, ``twist_*``, twist defaulting to bend)
+        stiffness (SolverXPBD). The first segment hangs from
+        ``root_parent`` by a fixed or ball joint at ``start_pos``, or is
+        free. Returns the body indices."""
+        if joint not in ("ball", "cable"):
+            raise ValueError(f"unknown rod joint {joint!r}")
         if root_joint not in ("fixed", "ball", "free"):
             raise ValueError(f"unknown root_joint {root_joint!r}")
         p0 = np.asarray(start_pos, dtype=np.float64)
@@ -1165,11 +1251,6 @@ class ModelBuilder:
         anchor_p = np_transform(np.array([0.0, 0, seg_len / 2]))
         anchor_c = np_transform(np.array([0.0, 0, -seg_len / 2]))
 
-        def bend(j):
-            d0 = self.joint_qd_start[j]
-            self.joint_target_ke[d0:d0 + 3] = [float(bend_ke)] * 3
-            self.joint_target_kd[d0:d0 + 3] = [float(bend_kd)] * 3
-
         bodies, prev = [], -1
         for i in range(segments):
             center = p0 + axis * (i + 0.5) * seg_len
@@ -1181,16 +1262,90 @@ class ModelBuilder:
                 self.add_joint_fixed(root_parent, b, xform_p=root_X_p,
                                      xform_c=anchor_c, key=f"{name}_root")
             elif i == 0 and root_joint == "ball":
-                bend(self.add_joint_ball(root_parent, b, xform_p=root_X_p,
-                                         xform_c=anchor_c,
-                                         key=f"{name}_root"))
+                self._bend(self.add_joint_ball(
+                    root_parent, b, xform_p=root_X_p, xform_c=anchor_c,
+                    key=f"{name}_root"), bend_ke, bend_kd)
             elif i == 0:
                 self.add_joint_free(b, key=f"{name}_root")
+            elif joint == "cable":
+                self.add_joint_cable(
+                    prev, b, xform_p=anchor_p, xform_c=anchor_c,
+                    stretch_stiffness=stretch_ke, stretch_damping=stretch_kd,
+                    bend_stiffness=bend_ke, bend_damping=bend_kd,
+                    twist_stiffness=twist_ke, twist_damping=twist_kd,
+                    key=f"{name}_j{i}")
             else:
-                bend(self.add_joint_ball(prev, b, xform_p=anchor_p,
-                                         xform_c=anchor_c,
-                                         key=f"{name}_j{i}"))
+                self._bend(self.add_joint_ball(
+                    prev, b, xform_p=anchor_p, xform_c=anchor_c,
+                    key=f"{name}_j{i}"), bend_ke, bend_kd)
             prev = b
+            bodies.append(b)
+        return bodies
+
+    def _bend(self, j: int, ke: float, kd: float) -> None:
+        """A ball joint's bending stiffness: its three dofs' drive gains."""
+        d0 = self.joint_qd_start[j]
+        self.joint_target_ke[d0:d0 + 3] = [float(ke)] * 3
+        self.joint_target_kd[d0:d0 + 3] = [float(kd)] * 3
+
+    def add_rod_graph(self, points, edges, radius: float = 0.02,
+                      density: float = 1000.0, bend_ke: float = 100.0,
+                      bend_kd: float = 1.0, joint: str = "ball",
+                      stretch_ke: float = 1.0e5, stretch_kd: float = 0.0,
+                      twist_ke: Optional[float] = None,
+                      twist_kd: Optional[float] = None,
+                      key: Optional[str] = None) -> List[int]:
+        """Branching rod network (the JAX builder's ``add_rod_graph``): one
+        capsule body per edge ``(i, j)`` of ``points`` (P, 3), joined where
+        edges share a point by ball joints (bending through the drive
+        gains) or, with ``joint="cable"``, cable joints whose child frame
+        is anchored in the rest pose (the branch angle is unstrained). An
+        edge whose start point no earlier edge reached gets a free joint.
+        Returns the per-edge body indices."""
+        if joint not in ("ball", "cable"):
+            raise ValueError(f"unknown rod joint {joint!r}")
+        pts = np.asarray(points, dtype=np.float64)
+        cfg = self.default_shape_cfg.copy()
+        cfg.density = density
+        name = key or "rodg"
+        point_body, body_rot, bodies = {}, {}, []
+        for ei, (i, j) in enumerate(edges):
+            i, j = int(i), int(j)
+            axis = pts[j] - pts[i]
+            length = float(np.linalg.norm(axis))
+            axis = axis / max(length, 1e-9)
+            q = np_quat_between_axes(np.array([0.0, 0, 1]), axis)
+            b = self.add_body(xform=np_transform((pts[i] + pts[j]) / 2, q),
+                              key=f"{name}_{ei}")
+            body_rot[b] = q
+            self.add_shape_capsule(b, radius=radius,
+                                   half_height=max(length / 2 - radius * 0.5,
+                                                   radius * 0.25),
+                                   cfg=cfg, key=f"{name}_shape_{ei}")
+            if i in point_body:
+                parent, off = point_body[i]
+                if joint == "cable":
+                    q_cl = np_quat_mul(np.array([-q[0], -q[1], -q[2], q[3]]),
+                                       body_rot[parent])
+                    self.add_joint_cable(
+                        parent, b, xform_p=np_transform(off),
+                        xform_c=np_transform(
+                            np.array([0.0, 0, -length / 2]), q_cl),
+                        stretch_stiffness=stretch_ke,
+                        stretch_damping=stretch_kd, bend_stiffness=bend_ke,
+                        bend_damping=bend_kd, twist_stiffness=twist_ke,
+                        twist_damping=twist_kd, key=f"{name}_j{ei}")
+                else:
+                    self._bend(self.add_joint_ball(
+                        parent, b, xform_p=np_transform(off),
+                        xform_c=np_transform(np.array([0.0, 0,
+                                                       -length / 2])),
+                        key=f"{name}_j{ei}"), bend_ke, bend_kd)
+            else:
+                self.add_joint_free(b, key=f"{name}_root{ei}")
+            if i not in point_body:
+                point_body[i] = (b, np.array([0.0, 0, -length / 2]))
+            point_body[j] = (b, np.array([0.0, 0, length / 2]))
             bodies.append(b)
         return bodies
 
@@ -1995,6 +2150,10 @@ class ModelBuilder:
             safe = np.where(ok[:, None, None], body_inertia, np.eye(3)[None])
             inv_inertia = np.where(ok[:, None, None], np.linalg.inv(safe),
                                    0.0)
+            kin = (np.asarray(self.body_flags, dtype=np.int64)
+                   & int(BodyFlags.KINEMATIC)) != 0
+            inv_mass[kin] = 0.0
+            inv_inertia[kin] = 0.0
 
         def f32(x, shape_if_empty=(0,)):
             a = np.asarray(x, dtype=np.float64)

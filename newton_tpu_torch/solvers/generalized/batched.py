@@ -118,18 +118,29 @@ def _accumulate(t, F):
     return F
 
 
-def _bias_forces(t, model, body_qd, v_o, w_o, x_b, Iw):
-    """RNEA bias torques (W, D) with spatial vectors [v, w] at the origin:
-    gravity enters as the base acceleration, qdd = 0."""
+def _accelerations(t, body_qd, x_b, mount=None):
+    """The RNEA's forward pass, qdd = 0: each body's twist V and
+    acceleration A (W, B, 6) at the origin, gravity as the base
+    acceleration [-g, 0]; a mounted row's mount bodies take the
+    accelerations of the rows carrying them (``mount.acc``)."""
     bw = body_qd[..., 3:6]
     V = torch.cat([body_qd[..., 0:3] - cross(bw, x_b), bw], -1)  # (W, B, 6)
     W = body_qd.shape[0]
     A = t.base_acc.expand(W, -1, -1).clone()
+    if mount is not None and mount.acc is not None:
+        A[:, t.mount_local] = mount.acc
     for pbc, cb, hasp in t.levels:
         Vc = V[:, cb]
         dV = Vc - torch.where(hasp, V[:, pbc], 0.0)
         A_p = torch.where(hasp, A[:, pbc], t.base_acc[:, cb])
         A[:, cb] = A_p + spatial_cross(Vc, dV)
+    return V, A
+
+
+def _bias_wrenches(t, model, body_qd, x_b, Iw, mount=None):
+    """Each body's RNEA wrench I A + V x* I V (W, B, 6) at the origin,
+    before the accumulation into the parents."""
+    V, A = _accelerations(t, body_qd, x_b, mount)
     m = model.body_mass[..., None]
 
     def apply_I(a):
@@ -137,7 +148,18 @@ def _bias_forces(t, model, body_qd, v_o, w_o, x_b, Iw):
         tau = (Iw @ a[..., 3:6, None])[..., 0] + cross(x_b, f)
         return torch.cat([f, tau], -1)
 
-    F = apply_I(A) + spatial_cross_dual(V, apply_I(V))
+    return apply_I(A) + spatial_cross_dual(V, apply_I(V))
+
+
+def _bias_forces(t, model, body_qd, v_o, w_o, x_b, Iw, mount=None):
+    """RNEA bias torques (W, D) with spatial vectors [v, w] at the origin:
+    gravity enters as the base acceleration, qdd = 0. ``mount.F`` (W, B,
+    6) adds the subtree wrenches of the rows mounted on this row's bodies
+    (their bias less their external wrench), as the JAX package's RNEA
+    accumulates every articulation into the body it hangs from."""
+    F = _bias_wrenches(t, model, body_qd, x_b, Iw, mount)
+    if mount is not None and mount.F is not None:
+        F = F + mount.F
     F = _accumulate(t, F)[:, t.dof_body]
     return _dot(v_o, F[..., 0:3]) + _dot(w_o, F[..., 3:6])
 
@@ -356,7 +378,7 @@ def _contact_system(solver, t, Minv, qd_g, v_o, w_o, body_qd, x_b, q,
               diag_scale=diag_scale, reg=solver.contact_reg)
     if w_other is not None:
         kw["w_other"] = w_other
-    return (J, Minv, qd_g, b_rows, act3, mu, lam0), kw, idx
+    return (J, Minv, qd_g, b_rows, act3, mu, lam0), kw, idx, (nrm, t1, t2)
 
 
 def _solve_limits(solver, t, Minv, qd_g, q, dt):
@@ -487,7 +509,7 @@ def _spatial_tendons(t, body_q, qd, v_o, w_o):
 
 
 def _smooth(solver, grp, q, qd, body_q, body_qd, body_f, control_b,
-            explicit, act=None, dt=0.0):
+            explicit, act=None, dt=0.0, mount=None):
     """The smooth dynamics of a group's rows at one configuration: the dof
     subspace (v_o, w_o), world COMs x_b, world inertias Iw, the mass matrix
     M (W, d, d), the net generalized force tau_net = applied + external +
@@ -498,7 +520,7 @@ def _smooth(solver, grp, q, qd, body_q, body_qd, body_f, control_b,
     model, t = grp.row_model, grp.tables
     v_o, w_o = _dof_subspace(t, body_q, q)
     x_b, Iw = _spatial_inertia(model, body_q)
-    tau_bias = _bias_forces(t, model, body_qd, v_o, w_o, x_b, Iw)
+    tau_bias = _bias_forces(t, model, body_qd, v_o, w_o, x_b, Iw, mount)
     tau, kd_implicit = _applied_tau(t, q, qd, control_b, explicit)
     if solver.apply_body_forces:
         tau = tau + _external_tau(t, body_f, x_b, v_o, w_o)
@@ -634,8 +656,25 @@ def _rk4(solver, grp, state_b, control_b, dt, chol, record, act=None):
     return first, qd_rk4, v_avg
 
 
+def _entry_forces(lam, dirs, idx, c, contacts_b, dt):
+    """Each contact entry's force (W, c_full, 3): its impulses along the
+    normal and the two tangents over dt, scattered from the K compacted
+    entries back to the row's full entry list (unique per row: a plain
+    scatter), zero on the entries compaction left out."""
+    W = lam.shape[0]
+    ln, l1, l2 = lam[:, :3 * c].view(W, 3, c).unbind(1)
+    f = (ln[..., None] * dirs[0] + l1[..., None] * dirs[1]
+         + l2[..., None] * dirs[2]) / dt                     # (W, c, 3)
+    if idx is None:
+        return f
+    c_full = contacts_b.rigid_contact_mask.shape[1]
+    return f.new_zeros(W, c_full, 3).scatter_(
+        1, idx[..., None].expand(W, c, 3), f)
+
+
 def _substep(solver, grp, state_b: State, control_b, contacts_b, dt: float,
-             kernels: bool, record: Optional[dict]) -> State:
+             kernels: bool, record: Optional[dict],
+             report: Optional[dict] = None) -> State:
     """One substep of W envs of a group's row layout (leading axis of every
     tensor; ``contacts_b`` holds the row's c contact entries, (W, c), or
     None)."""
@@ -653,8 +692,12 @@ def _substep(solver, grp, state_b: State, control_b, contacts_b, dt: float,
     else:
         # group row: factor / solve / invert M + dt*Kd (+ dt*D under the
         # implicit integrators)
+        mount = None
+        if "mount:acc" in state_b.custom or "mount:F" in state_b.custom:
+            mount = SimpleNamespace(acc=state_b.custom.get("mount:acc"),
+                                    F=state_b.custom.get("mount:F"))
         sm = _smooth(solver, grp, q, qd, body_q, body_qd, state_b.body_f,
-                     control_b, explicit=False, act=act, dt=dt)
+                     control_b, explicit=False, act=act, dt=dt, mount=mount)
         v_o, w_o, x_b, M, act_new = sm.v_o, sm.w_o, sm.x_b, sm.M, sm.act_new
         Mi = M + dt * torch.diag_embed(sm.kd_implicit[:, t.di])
         qd_d = qd[:, t.di]
@@ -690,9 +733,9 @@ def _substep(solver, grp, state_b: State, control_b, contacts_b, dt: float,
     if contacts_b is not None:
         warm = state_b.custom.get("contact:lam") if solver.warm_start \
             else None
-        args, kw, idx = _contact_system(solver, t, Minv, qd_g, v_o, w_o,
-                                        body_qd, x_b, q, contacts_b, dt,
-                                        warm)
+        args, kw, idx, dirs = _contact_system(solver, t, Minv, qd_g, v_o,
+                                              w_o, body_qd, x_b, q,
+                                              contacts_b, dt, warm)
         if record is not None:
             record["pgs"] = (args, kw)
         if solver.contact_solver == "admm":
@@ -714,6 +757,9 @@ def _substep(solver, grp, state_b: State, control_b, contacts_b, dt: float,
             lam, dqd = pgs(*args, **kw)
         if record is not None:
             record["lam"] = lam
+        if report is not None:
+            report["force"] = _entry_forces(lam, dirs, idx, kw["c"],
+                                            contacts_b, dt)
         qd_g = qd_g + dqd
         if solver.warm_start:
             # back to full entry space (unique slots per row: a plain
@@ -794,7 +840,8 @@ def _contact_rows(grp, contacts, take):
 
 def step_batched(solver, state_b: State, control_b=None, contacts_b=None,
                  dt: float = 1e-3, kernels: bool = True,
-                 record: Optional[dict] = None) -> State:
+                 record: Optional[dict] = None,
+                 report: Optional[dict] = None) -> State:
     """One substep of W independent envs of a one-world model (leading
     axis of every tensor; ``contacts_b`` from ``collide`` on the batched
     state).
@@ -807,7 +854,9 @@ def step_batched(solver, state_b: State, control_b=None, contacts_b=None,
     limits-only solve (``"limits"``) in a substep without contacts; under
     ``integrator="implicit"`` the LU's operands (``"lu"``) in place of
     ``"chol"``; the Newton QP's last masked system (``"newton_H"``) and
-    Kamino's factored matrix (``"admm_factor"``)."""
+    Kamino's factored matrix (``"admm_factor"``). ``report``, when a dict,
+    receives each contact entry's force (``"force"``, (W, c, 3)), the
+    force report of ``step_with_contacts``."""
     if not solver._model_is_row:
         raise NotImplementedError(
             "step_batched takes a one-world model of one articulation whose "
@@ -832,7 +881,7 @@ def step_batched(solver, state_b: State, control_b=None, contacts_b=None,
         # the activations (W, A), one world's actuators per env
         inner["mjc:act"] = state_b.custom["mjc:act"]
     out = _substep(solver, grp, replace(state_b, custom=inner), control_b,
-                   rows, dt, kernels, record)
+                   rows, dt, kernels, record, report)
     custom = dict(state_b.custom)
     for k, v in out.custom.items():
         custom[k if k == "mjc:act" else keys[k]] = (
@@ -857,8 +906,8 @@ def _gather_rows(grp, state, control, contacts, keys=None):
     substep's State.custom entries to the group's (per row already)."""
     t = grp.tables
     rows = replace(
-        state, body_q=state.body_q[t.row_body],
-        body_qd=state.body_qd[t.row_body], body_f=state.body_f[t.row_body],
+        state, body_q=state.body_q[t.row_read],
+        body_qd=state.body_qd[t.row_read], body_f=state.body_f[t.row_read],
         joint_q=state.joint_q[t.row_coord],
         joint_qd=state.joint_qd[t.row_dof],
         custom={k: state.custom[v] for k, v in (keys or {}).items()
@@ -887,22 +936,83 @@ def _gather_rows(grp, state, control, contacts, keys=None):
     return rows, ctl, crows
 
 
+def _mount_coupling(solver, state):
+    """The cross-articulation terms of the JAX package's whole-model RNEA,
+    for the rows mounted on another articulation's body: each mounted
+    row's mount accelerations (the carrier's forward pass, carriers
+    first), and each carrier body's extra wrench, the subtree wrenches of
+    the rows hanging from it (their bias less their external wrenches,
+    carried rows first; one fixed-order sum per group). Returns
+    {group index: (acc (n, m, 6) or None, F (n, b + m, 6) or None)}."""
+    model = solver.model
+    B = model.structure.body_count
+    g = model.gravity[solver.mount_world]
+    A_flat = torch.cat([-g, torch.zeros_like(g)], -1)        # (B, 6)
+    acc = {}
+    for gi in sorted(solver.acc_groups | set(solver.mount_order),
+                     key=solver.mount_depth.__getitem__):
+        grp = solver.groups[gi]
+        t = grp.tables
+        m_acc = A_flat[t.row_read[:, t.nb:]] if grp.mounts is not None \
+            else None
+        acc[gi] = m_acc
+        if gi in solver.acc_groups:
+            body_q = state.body_q[t.row_read]
+            x_b = body_q[..., 0:3] + quat_rotate(body_q[..., 3:7],
+                                                 grp.row_model.body_com)
+            _, A = _accelerations(t, state.body_qd[t.row_read], x_b,
+                                  SimpleNamespace(acc=m_acc))
+            A_flat[t.row_body] = A[:, :t.nb]
+    extra = torch.zeros(B, 6, dtype=A_flat.dtype, device=A_flat.device)
+    for gi in reversed(solver.mount_order):
+        grp = solver.groups[gi]
+        t, rm = grp.tables, grp.row_model
+        body_q = state.body_q[t.row_read]
+        x_b, Iw = _spatial_inertia(rm, body_q)
+        F = _bias_wrenches(t, rm, state.body_qd[t.row_read], x_b, Iw,
+                           SimpleNamespace(acc=acc[gi]))
+        if solver.apply_body_forces:
+            f = state.body_f[t.row_read]
+            F = F - torch.cat([f[..., 0:3], f[..., 3:6]
+                               + cross(x_b, f[..., 0:3])], -1)
+        F = F + extra[t.row_read]
+        # only the row's own bodies hang from the mounts
+        F = torch.cat([F[:, :t.nb], torch.zeros_like(F[:, t.nb:])], 1)
+        F_hat = _accumulate(t, F)[:, t.nb:]                  # (n, m, 6)
+        extra = extra + solver.mount_sums[gi](F_hat.reshape(-1, 6))
+    out = {}
+    for grp in solver.groups:
+        gi = grp.index
+        F = (extra[grp.tables.row_read]
+             if grp.tables.d and gi in solver.acc_groups else None)
+        if acc.get(gi) is not None or F is not None:
+            out[gi] = (acc.get(gi), F)
+    return out
+
+
 def step(solver, state: State, control: Optional[Control] = None,
          contacts=None, dt: float = 1e-3, kernels: bool = True,
-         record: Optional[dict] = None) -> State:
+         record: Optional[dict] = None,
+         report: Optional[dict] = None) -> State:
     """One substep of a flat State (every world of the model: ``joint_q
     (N nq,)``, ``body_q (N b, 7)``, ``mjc:ctrl (N A,)``, Contacts ``(C,)``),
     the JAX package's ``SolverMuJoCo.step``. Each articulation group's N
     rows are gathered into ``(N, ...)`` from the input state, stepped as N
     envs, and scattered back into disjoint indices of a new State (a group
-    without dofs keeps its bodies). With ``contact:overflow:<gi>`` in
+    without dofs keeps its bodies, and so does a body outside every
+    articulation). A mounted group steps from its mounts' pre-step poses
+    and twists, and its bodies follow its mounts' new poses through FK
+    after every group has stepped. With ``contact:overflow:<gi>`` in
     ``state.custom`` (``init_state``) the output carries each row's count
     of active contacts that compaction dropped. ``record`` receives what
     ``step_batched`` records; for a model of several groups, one such dict
-    per group under ``record["groups"][gi]``."""
+    per group under ``record["groups"][gi]``. ``report``, when a dict,
+    receives each group's per-entry contact forces under
+    ``report[gi]``."""
     if solver.sleep_threshold > 0.0 and "sleep:count:0" not in state.custom:
         # counters allocated lazily, as the JAX package's step does
         state = solver.init_state(state)
+    coupling = _mount_coupling(solver, state) if solver.mount_order else {}
     outs = []
     custom = dict(state.custom)
     for grp in solver.groups:
@@ -912,10 +1022,18 @@ def step(solver, state: State, control: Optional[Control] = None,
         rec = record
         if record is not None and len(solver.groups) > 1:
             rec = record.setdefault("groups", {}).setdefault(grp.index, {})
+        rep = None
+        if report is not None:
+            rep = report.setdefault(grp.index, {})
         keys = _custom_keys(solver, grp)
         rows, ctl, crows = _gather_rows(grp, state, control, contacts, keys)
-        out = _substep(solver, grp, rows, ctl, crows, dt, kernels, rec)
-        outs.append((t, out))
+        if grp.index in coupling:
+            m_acc, m_F = coupling[grp.index]
+            rows.custom.update({k: v for k, v in (("mount:acc", m_acc),
+                                                  ("mount:F", m_F))
+                                if v is not None})
+        out = _substep(solver, grp, rows, ctl, crows, dt, kernels, rec, rep)
+        outs.append((grp, out))
         act = out.custom.pop("mjc:act", None)
         if act is not None:
             # each row's activations back into the flat (N A,) layout
@@ -927,8 +1045,11 @@ def step(solver, state: State, control: Optional[Control] = None,
 
     def put(name, idx_name):
         x = getattr(state, name).clone()
-        for t, out in outs:
-            x[getattr(t, idx_name)] = getattr(out, name)
+        for grp, out in outs:
+            t = grp.tables
+            v = getattr(out, name)
+            x[getattr(t, idx_name)] = v[:, :t.nb] if idx_name == "row_body" \
+                else v
         return x
     for grp in solver.groups:
         key = f"contact:overflow:{grp.index}"
@@ -941,8 +1062,18 @@ def step(solver, state: State, control: Optional[Control] = None,
                     mask = mask & t.valid
                 over = torch.clamp(mask.sum(1) - t.cap, min=0).to(over.dtype)
             custom[key] = over
+    body_q, body_qd = put("body_q", "row_body"), put("body_qd", "row_body")
+    if solver.mount_order:
+        # mounted rows follow their mounts' new poses (carriers first)
+        outs_of = {grp.index: out for grp, out in outs}
+        for gi in solver.mount_order:
+            grp = solver.groups[gi]
+            t, out = grp.tables, outs_of[gi]
+            bq, bqd = fk_bodies(grp.row_model, out.joint_q, out.joint_qd,
+                                body_q[t.row_read], body_qd[t.row_read])
+            body_q[t.row_body] = bq[:, :t.nb]
+            body_qd[t.row_body] = bqd[:, :t.nb]
     return replace(
-        state, body_q=put("body_q", "row_body"),
-        body_qd=put("body_qd", "row_body"),
+        state, body_q=body_q, body_qd=body_qd,
         joint_q=put("joint_q", "row_coord"),
         joint_qd=put("joint_qd", "row_dof"), custom=custom)

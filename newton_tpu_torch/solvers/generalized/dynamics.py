@@ -56,7 +56,9 @@ class GeneralizedCache:
         # per dof: its joint, its offset in the joint, and the joint's kind
         dof_joint = np.repeat(np.arange(J, dtype=np.int32), qd_w)
         off = np.arange(D) - jqd[:-1][dof_joint] if D else np.zeros(0, int)
-        free = jt[dof_joint] == int(JointType.FREE)
+        # a distance joint has a free joint's layout (6 dofs, 7 coordinates)
+        free_kinds = [int(JointType.FREE), int(JointType.DISTANCE)]
+        free = np.isin(jt[dof_joint], free_kinds)
         ln = dim[dof_joint, 0]
         self.dof_joint = dof_joint
         self.dof_is_linear = np.where(free, off < 3, off < ln)
@@ -107,7 +109,7 @@ class GeneralizedCache:
         # the free and ball ones advance with its dofs of the same offset;
         # a ball joint's quaternion (q start, dof start) integrates its
         # three dofs as the angular velocity in the joint-parent frame
-        nonfree = jt != int(JointType.FREE)
+        nonfree = ~np.isin(jt, free_kinds)
         is_ball = jt == int(JointType.BALL)
         wq = np.where(nonfree & ~is_ball, q_w, 0)
         jj = np.repeat(np.arange(J), wq)

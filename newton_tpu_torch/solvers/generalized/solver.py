@@ -39,11 +39,25 @@ joint limits (``limit_mode``), spatial tendons (each within one row),
 MJCF actuation with activation dynamics and muscles (acc0 solved per row
 at construction), contact warm start (``warm_start``), sleeping
 (``sleep_threshold``, ``sleep_steps``) and equality constraints (CONNECT,
-WELD and JOINT rows, planned per group as the JAX package plans them);
-articulations attached to another articulation's body, joints outside the
-articulations, contacts of bodies outside them, and equality constraints
-between two articulations or that not every row of a group carries raise
-``NotImplementedError``.
+WELD and JOINT rows, planned per group as the JAX package plans them).
+
+Bodies outside every articulation (a kinematic conveyor belt, a body
+without a joint) keep their pose and velocity; a contact with one is an
+entry of the articulation side's cell whose other body is that body (its
+point inverse mass, zero for a kinematic body, on B2's diagonal, its
+velocity as a moving support), and a contact between two such bodies is
+dropped, as in the JAX package. An articulation mounted on a body of
+another (its root joint's parent) carries that body in its row model:
+its dof subspace and FK start from the mount's pose, its RNEA from the
+mount's twist and acceleration, and the wrench of its subtree enters the
+carrying articulation's bias forces; neither mass matrix sees the other
+(ROADMAP C.24, the JAX package's coupling). ``step_with_contacts``
+reports each slot's contact force (impulse / dt, summed over the entries
+of a slot in a fixed order). Equality constraints between two
+articulations or that not every row of a group carries raise
+``NotImplementedError`` (ROADMAP C.18), and so do cable joints (no
+coordinates: ``SolverXPBD`` steps them) and a mounted articulation under
+RK4, the implicit integrator or sleeping.
 """
 
 from __future__ import annotations
@@ -55,8 +69,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ...core.segment_sum import FixedOrderSum
 from ...core.types import MAXVAL
 from ...sim.articulation import kinematic_tables
+from ...sim.enums import JointType
 from ...sim.model import Model, ModelStructure
 from .actuation import MJCActuation, ActuationTables
 from .dynamics import get_generalized_cache
@@ -113,9 +129,11 @@ def _plan_group_contacts(st, groups):
     cell of its body1, else of its body0, and each row takes its slots in
     ascending order. A slot whose two bodies lie in two cells is also
     entered in body0's cell (two-sided: ``ob`` names the other body, each
-    half weighs 0.5). A group whose rows differ in their slot count or
-    local bodies gets a ragged plan, padded to its largest row. Slots of
-    bodies outside the articulations raise."""
+    half weighs 0.5). A slot whose other side is a body outside every
+    articulation names it in ``ob`` (weight 1: that body takes no
+    impulse); a slot with no side in an articulation is dropped. A group
+    whose rows differ in their slot count or local bodies gets a ragged
+    plan, padded to its largest row."""
     plans = [None] * len(groups)
     b0 = np.asarray(st.slot_body0)
     b1 = np.asarray(st.slot_body1)
@@ -130,10 +148,6 @@ def _plan_group_contacts(st, groups):
                      for t in (gi_of, e_of, lb_of))
     g0, e0, l0 = look(b0)
     g1, e1, l1 = look(b1)
-    if ((b0 >= 0) & (g0 < 0)).any() or ((b1 >= 0) & (g1 < 0)).any():
-        raise NotImplementedError(
-            "contact slots of bodies outside the articulations are not "
-            "ported yet")
     owner_g = np.where(g1 >= 0, g1, g0)
     owner_e = np.where(g1 >= 0, e1, e0)
     lb0 = np.where((g0 == owner_g) & (e0 == owner_e), l0, -1)
@@ -408,13 +422,43 @@ def _joint_rows(st, g):
     return a0[:, None] + np.arange(nj)[None]
 
 
+def _group_mounts(st, g):
+    """The bodies outside a group that its rows are mounted on (a root
+    joint's parent that is not a body of the row): (n, m) global body
+    indices, each row's in the order of its joints, or None. Every row
+    must mount the same local joints."""
+    J = _joint_rows(st, g)                                    # (n, nj)
+    parent = np.asarray(st.joint_parent, dtype=np.int64)[J]
+    bi = np.asarray(g.body_idx)
+    ext = (parent >= 0) & ~(parent[..., None] == bi[:, None, :]).any(-1)
+    if not ext.any():
+        return None
+    if not (ext == ext[:1]).all():
+        raise NotImplementedError(
+            "rows of an articulation group mounted on other bodies at "
+            "different joints are not ported")
+    m = parent[:, ext[0]]                                     # (n, k)
+    _, first = np.unique(m[0], return_index=True)
+    keep = np.sort(first)
+    mounts = m[:, keep]
+    # two joints of a row on one mount body share its entry in every row
+    if not all(len(np.unique(r)) == len(keep) for r in mounts):
+        raise NotImplementedError(
+            "rows of an articulation group mounted on different numbers of "
+            "bodies are not ported")
+    return mounts.astype(np.int64)
+
+
 def row_model(model: Model, g, tendon_rows, act_rows,
-              sten_rows=None) -> Model:
+              sten_rows=None, mounts=None) -> Model:
     """Articulation group ``g`` as a one-world Model in local indices: the
     bodies, joints, dofs and coordinates of a row, the tendons and
     actuators of ``tendon_rows``/``act_rows`` (n, k), no shapes and no
     particles. Each per-entity tensor is row 0's where every row equals it,
-    else carries a leading row axis (n, ...). The substep's tables are built
+    else carries a leading row axis (n, ...). ``mounts`` (n, m): bodies
+    outside the group that its root joints hang from, appended after the
+    row's own bodies as bodies without a joint (the substep reads their
+    pose and twist and never moves them). The substep's tables are built
     on it."""
     st = model.structure
     a0 = int(g.arts[0])
@@ -422,15 +466,17 @@ def row_model(model: Model, g, tendon_rows, act_rows,
     js = np.arange(j0, j1)
     bi, di, ci = g.body_idx[0], g.dof_idx[0], g.coord_idx[0]
     q0, d0 = int(st.joint_q_start[j0]), int(st.joint_qd_start[j0])
+    body_rows = np.asarray(g.body_idx)
+    if mounts is not None:
+        body_rows = np.concatenate([body_rows, mounts], 1)
     local_body = -np.ones(st.body_count, dtype=np.int64)
-    local_body[bi] = np.arange(len(bi))
+    local_body[body_rows[0]] = np.arange(body_rows.shape[1])
     parent = st.joint_parent[js]
     if ((parent >= 0) & (local_body[np.maximum(parent, 0)] < 0)).any():
         raise NotImplementedError(
-            "articulations attached to a body of another articulation are "
-            "not ported yet")
+            "a joint whose parent lies outside the row and its mounts")
     rst = ModelStructure()
-    rst.body_count, rst.joint_count = len(bi), len(js)
+    rst.body_count, rst.joint_count = body_rows.shape[1], len(js)
     rst.joint_coord_count, rst.joint_dof_count = len(ci), len(di)
     rst.articulation_count = 1
     i32 = np.int32
@@ -443,11 +489,14 @@ def row_model(model: Model, g, tendon_rows, act_rows,
     rst.joint_qd_start = (st.joint_qd_start[j0:j1 + 1] - d0).astype(i32)
     rst.joint_dof_dim = st.joint_dof_dim[js].astype(i32)
     pj = st.joint_parent_joint[js]
-    rst.joint_parent_joint = np.where(pj >= 0, pj - j0, -1).astype(i32)
+    # a mounted root's parent joint lies in another articulation: a root
+    # of the row
+    rst.joint_parent_joint = np.where((pj >= j0) & (pj < j1), pj - j0,
+                                      -1).astype(i32)
     rst.joint_world = np.full(len(js), -1, i32)
     rst.articulation_start = np.asarray([0, len(js)], i32)
     rst.articulation_world = np.full(1, -1, i32)
-    rst.body_world = np.full(len(bi), -1, i32)
+    rst.body_world = np.full(body_rows.shape[1], -1, i32)
     # fixed tendons of the row: local coordinates and dofs (a padding
     # entry, coef 0, keeps index 0)
     tr = tendon_rows[0]
@@ -496,7 +545,7 @@ def row_model(model: Model, g, tendon_rows, act_rows,
         elif f.name.startswith("muscle_"):
             v = v[:0]
         elif f.name.startswith("body_"):
-            v = _group_rows(v, g.body_idx)
+            v = _group_rows(v, body_rows)
         elif f.name.startswith("joint_"):
             v = _group_rows(v, g.dof_idx)
         elif v.dim():
@@ -594,11 +643,20 @@ class SolverFeatherstone:
         self.sleep_threshold = float(sleep_threshold)
         self.sleep_steps = int(sleep_steps)
 
+        a_start = np.asarray(st.articulation_start, dtype=np.int64)
+        if st.joint_count and (len(a_start) < 2 or a_start[0] != 0
+                               or a_start[-1] != st.joint_count):
+            # unreachable from ModelBuilder: add_joint puts every joint in
+            # the current articulation, opening one when there is none
+            raise NotImplementedError(
+                "joints outside the articulations (a ModelStructure whose "
+                "articulation_start does not cover every joint; no "
+                "ModelBuilder call makes one) are not ported")
         gc = get_generalized_cache(st)
         groups = gc.groups
-        if sum(g.n * g.d for g in groups) != st.joint_dof_count:
+        if (np.asarray(st.joint_type) == int(JointType.CABLE)).any():
             raise NotImplementedError(
-                "joints outside the articulations are not ported yet")
+                "cable joints carry no coordinates: SolverXPBD steps them")
         self.contact_plans = _plan_group_contacts(st, groups)
         self.equality_plans = _plan_group_equality(model, groups)
         # each group's static plan: its tendons and actuators per row
@@ -635,7 +693,8 @@ class SolverFeatherstone:
         self.limit_plans = []
         for gi, g in enumerate(groups):
             grp = SimpleNamespace(index=gi, g=g, plan=self.contact_plans[gi],
-                                  eplan=self.equality_plans[gi])
+                                  eplan=self.equality_plans[gi],
+                                  mounts=_group_mounts(st, g))
             t_idx = np.nonzero(tend[0] == gi)[0]
             a_idx = np.nonzero(acts[0] == gi)[0]
             grp.tendon_rows = t_idx[_entity_rows(tend[1][t_idx], g.n,
@@ -657,6 +716,8 @@ class SolverFeatherstone:
                               np.asarray(lc, dtype=np.int32))
             self.limit_plans.append(grp.limit_plan)
             self.groups.append(grp)
+        self._plan_mounts(groups)
+        self._force_sums = {}               # step_with_contacts' tables
         # step_batched takes a one-world model that is its row: one group,
         # every body and coordinate in its articulation, in order
         g = groups[0] if groups else None
@@ -669,6 +730,57 @@ class SolverFeatherstone:
         if au is not None and au.n and au.has_muscle:
             self._compute_muscle_acc0(au)
             self.notify_model_changed()
+
+    def _plan_mounts(self, groups):
+        """The order of the mount coupling: ``mount_order`` lists the
+        mounted groups, carriers before the groups they carry (the
+        accelerations go down this order, the wrenches up it);
+        ``acc_groups`` the groups whose accelerations a mounted group
+        reads. Mounted groups raise under RK4, the implicit integrator
+        and sleeping (their stages and freezes are per group)."""
+        st = self.model.structure
+        gi_of, _, _ = _body_env_tables(groups, st.body_count)
+        parents = {}
+        for grp in self.groups:
+            if grp.mounts is not None:
+                parents[grp.index] = {int(x) for x in
+                                      np.unique(gi_of[grp.mounts]) if x >= 0}
+        self.mount_order, self.acc_groups = [], set()
+        if not parents:
+            return
+        if self.integrator in ("rk4", "implicit") or self.sleep_threshold > 0:
+            raise NotImplementedError(
+                "an articulation mounted on another's body under RK4, the "
+                "implicit integrator or sleeping is not ported")
+        done = set()
+        while len(done) < len(parents):
+            ready = [g for g in parents if g not in done
+                     and not (parents[g] - done) & set(parents)]
+            if not ready:
+                raise ValueError("articulation mounts form a cycle")
+            self.mount_order += sorted(ready)
+            done |= set(ready)
+        # every carrier of a mounted group, transitively, and each group's
+        # depth in the mount tree (carriers first)
+        stack = list(parents)
+        while stack:
+            for p in parents.get(stack.pop(), ()):
+                if p not in self.acc_groups:
+                    self.acc_groups.add(p)
+                    stack.append(p)
+        self.mount_depth = {g.index: 0 for g in self.groups}
+        for gi in self.mount_order:
+            self.mount_depth[gi] = 1 + max(
+                (self.mount_depth[p] for p in parents[gi]), default=0)
+        dev = self.model.device
+        self.mount_world = torch.as_tensor(np.maximum(np.asarray(
+            st.body_world, dtype=np.int64), 0), device=dev)
+        # each mounted group's subtree wrenches into its mount bodies, in a
+        # fixed order (several rows may hang from one body)
+        self.mount_sums = {
+            gi: FixedOrderSum(self.groups[gi].mounts.reshape(-1),
+                              st.body_count, dev)
+            for gi in self.mount_order}
 
     def group_mass_matrices(self, state):
         """Each group's joint-space mass matrices (n, d, d) at ``state`` (a
@@ -783,7 +895,7 @@ class SolverFeatherstone:
                 continue
             grp.row_model = rm = row_model(self.model, grp.g,
                                            grp.tendon_rows, grp.act_rows,
-                                           grp.sten_rows)
+                                           grp.sten_rows, grp.mounts)
             grp.gc = get_generalized_cache(rm.structure)
             grp.tables = self._build_tables(grp)
             rau = rm.structure.mjc_actuation
@@ -874,6 +986,12 @@ class SolverFeatherstone:
         # each row's entries in the model's flat layout, (n, k): what step
         # gathers into the env-major rows and scatters back
         t.row_body, t.row_dof = L(rows.body_idx), L(rows.dof_idx)
+        # the bodies a row reads: its own, then its mounts (never written)
+        t.nb = rows.body_idx.shape[1]
+        t.row_read = t.row_body if grp.mounts is None else L(
+            np.concatenate([rows.body_idx, grp.mounts], 1))
+        t.mount_local = (None if grp.mounts is None else
+                         L(t.nb + np.arange(grp.mounts.shape[1])))
         t.row_coord = L(rows.coord_idx)
         t.row_tendon, t.row_act = L(grp.tendon_rows), L(grp.act_rows)
         # applied forces: PD drives on linear coordinates and on ball
@@ -1050,23 +1168,96 @@ class SolverFeatherstone:
 
     def step(self, state_in, state_out=None, control=None, contacts=None,
              dt: float = 1e-3, kernels: bool = True,
-             record: Optional[dict] = None):
+             record: Optional[dict] = None, report: Optional[dict] = None):
         """One substep of a flat State of the model (every world at once),
         the reference's entry; returns the new State (``state_out`` is not
         written, as in the reference). ``contacts`` are the flat ``(C,)``
         Contacts of ``CollisionPipeline.collide``. See batched.step."""
         from .batched import step
         return step(self, state_in, control, contacts, dt, kernels=kernels,
-                    record=record)
+                    record=record, report=report)
 
     def step_batched(self, state_b, state_out=None, control_b=None,
                      contacts_b=None, dt: float = 1e-3, kernels: bool = True,
-                     record: Optional[dict] = None):
+                     record: Optional[dict] = None,
+                     report: Optional[dict] = None):
         """One substep of a one-world model over a leading env axis (see
         batched.step_batched)."""
         from .batched import step_batched
         return step_batched(self, state_b, control_b, contacts_b, dt,
-                            kernels=kernels, record=record)
+                            kernels=kernels, record=record, report=report)
+
+    def step_with_contacts(self, state_in, state_out, control, contacts,
+                           dt: float, kernels: bool = True):
+        """``step`` (``step_batched`` for a batched ``(W, ...)`` state) and
+        the Contacts with ``rigid_contact_force`` filled: each entry's
+        impulses along the normal and the two tangents over dt, times its
+        plan weight (0.5 on each half of a two-sided contact), added into
+        its slot (the JAX package's ``step_with_contacts``). The entries
+        of a slot add in a fixed order (a table built once), so two runs
+        give the same bits. Returns (State, Contacts)."""
+        report = {}
+        batched = state_in.joint_q.dim() == 2
+        run = self.step_batched if batched else self.step
+        out = run(state_in, state_out, control, contacts, dt,
+                  kernels=kernels, report=report)
+        if contacts is None or contacts.rigid_contact_max == 0:
+            return out, contacts
+        total, weights = self._force_sum(batched)
+        terms = []
+        for grp in self.groups:
+            if grp.index not in weights:
+                continue
+            w = weights[grp.index]
+            f = report.get("force") if batched else \
+                report.get(grp.index, {}).get("force")
+            if f is None:
+                f = contacts.rigid_contact_force.new_zeros(
+                    (contacts.rigid_contact_mask.shape[0] if batched
+                     else grp.plan.slots.shape[0]), grp.plan.c, 3)
+            f = f * w
+            terms.append(f.reshape(f.shape[0], -1, 3) if batched
+                         else f.reshape(-1, 3))
+        force = total(torch.cat(terms, dim=1 if batched else 0),
+                      dim=1 if batched else 0)
+        return out, replace(contacts, rigid_contact_force=(
+            contacts.rigid_contact_force + force))
+
+    def update_contacts(self, contacts, state_in, state_out=None,
+                        dt: float = 1e-3):
+        """The contact force report of a step from ``state_in`` with no
+        control (the JAX package's ``update_contacts``)."""
+        return self.step_with_contacts(state_in, None, None, contacts,
+                                       dt)[1]
+
+    def _force_sum(self, batched: bool):
+        """The fixed-order sum of every group's contact entries (rows x
+        entries, in group order) into the C slots, a ragged plan's pad
+        entries dropped, and each group's entry weights ((c, 1) or
+        (n, c, 1)) on the device; built once."""
+        key = "batched" if batched else "flat"
+        sums = self._force_sums
+        if key not in sums:
+            st = self.model.structure
+            C = int(st.rigid_contact_max)
+            dst, weights = [], {}
+            for grp in self.groups:
+                plan = grp.plan
+                if plan is None or not grp.g.d:
+                    continue
+                slots = np.asarray(plan.slots[:1] if batched else plan.slots,
+                                   dtype=np.int64)
+                if plan.valid is not None:
+                    valid = plan.valid[:1] if batched else plan.valid
+                    slots = np.where(valid, slots, -1)
+                dst.append(np.where(slots < C, slots, -1).reshape(-1))
+                weights[grp.index] = torch.as_tensor(
+                    np.asarray(plan.w, dtype=np.float32)[..., None],
+                    device=self.model.device)
+            sums[key] = (FixedOrderSum(
+                np.concatenate(dst) if dst else np.zeros(0, np.int64), C,
+                self.model.device), weights)
+        return sums[key]
 
 
 class SolverMuJoCo(SolverFeatherstone):

@@ -686,7 +686,9 @@ def test_unported_cases_raise(kind):
     heterogeneous contact plan (two worlds whose scenes differ); the
     parity of the last three with the JAX package is in
     tests/test_torch_ball.py and tests/test_torch_hetero.py. An
-    articulation attached to another articulation's body still raises."""
+    articulation attached to another articulation's body now steps too
+    (its parity is in tests/test_torch_free_bodies.py); under RK4 it
+    still raises."""
     if kind == "heterogeneous contacts":
         a = nt.ModelBuilder()
         a.add_ground_plane()
@@ -724,5 +726,11 @@ def test_unported_cases_raise(kind):
         inner.add_shape_sphere(c, radius=0.1)
         inner.add_articulation()
         inner.add_joint_revolute(r, c, axis="Y")
-        with pytest.raises(NotImplementedError):
-            nt.SolverMuJoCo(inner.finalize("cpu"), integrator="euler")
+        mm = inner.finalize("cpu")
+        solver = nt.SolverMuJoCo(mm, integrator="euler")
+        assert solver.mount_order == [1]
+        s = nt.eval_fk(mm, mm.joint_q0, mm.joint_qd0, mm.state())
+        out = solver.step(s, None, mm.control(), None, DT)
+        assert bool(torch.isfinite(out.body_q).all())
+        with pytest.raises(NotImplementedError, match="mounted"):
+            nt.SolverMuJoCo(mm, integrator="rk4")

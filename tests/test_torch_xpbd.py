@@ -359,23 +359,28 @@ def test_xpbd_dynamic_dynamic_box_stack():
 
 
 def test_xpbd_unported_features_raise():
-    """Particles, cable joints, Dahl friction, batched contacts and
-    compliant (hydroelastic) contacts raise, naming themselves."""
+    """Batched contacts and compliant (hydroelastic) contacts raise, naming
+    themselves, and so does an unknown friction model. Particles, cable
+    joints and Dahl friction, which raised before they were ported, build
+    and step (their parity with the JAX package is in
+    tests/test_torch_xpbd_particles.py and tests/test_torch_cable.py)."""
     b = nt.ModelBuilder()
     b.add_particle([0.0, 0.0, 1.0])
-    with pytest.raises(NotImplementedError, match="particles"):
-        nt.SolverXPBD(b.finalize("cpu"))
+    pm = b.finalize("cpu")
+    ps = nt.SolverXPBD(pm).step(pm.state(), None, None, None, DT)
+    assert float(ps.particle_q[0, 2]) < 1.0
     m = _pendulum(nt).finalize("cpu")
-    with pytest.raises(NotImplementedError, match="dahl"):
-        nt.SolverXPBD(m, friction_model="dahl")
+    dahl = nt.SolverXPBD(m, friction_model="dahl")
+    assert "xpbd:dahl_f" in dahl.init_state(m.state()).custom
     with pytest.raises(ValueError, match="friction_model"):
         nt.SolverXPBD(m, friction_model="viscous")
-    m.structure.joint_type = np.full_like(m.structure.joint_type,
-                                          int(nt.JointType.CABLE))
+    rod = nt.ModelBuilder()
+    rod.add_rod([0, 0, 1], [1, 0, 1], joint="cable")
+    rm = rod.finalize("cpu")
+    rs = nt.SolverXPBD(rm).step(rm.state(), None, None, None, DT)
+    assert bool(torch.isfinite(rs.body_q).all())
     with pytest.raises(NotImplementedError, match="cable"):
-        nt.SolverXPBD(m)
-    with pytest.raises(NotImplementedError, match="cable"):
-        nt.ModelBuilder().add_rod([0, 0, 1], [1, 0, 1], joint="cable")
+        nt.SolverMuJoCo(rm)
     m = _sphere(nt).finalize("cpu")
     solver = nt.SolverXPBD(m)
     s = m.state()

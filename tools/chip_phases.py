@@ -5,9 +5,11 @@ one's seconds and results as a JSON line.
     python3 tools/chip_phases.py 24 25 26 27   # on a machine with a GPU
     python3 tools/chip_phases.py 28 29 30 31 --tests tests/test_torch_determinism.py
     python3 tools/chip_phases.py 32 33 34 35 36
+    python3 tools/chip_phases.py 37 38 39 40 41 43
 
-Phases 21-36 are the ones that take only the device (``dev``); the CUDA
-kernels are built first when a phase launches them (22, 29-36). With
+Phases 21-43 are the ones that take only the device (``dev``; 41 runs
+41 and 42, 43 runs 43 and 44, 40 times Style3D beside XPBD); the CUDA
+kernels are built first when a phase launches them (22, 29-39). With
 ``--tests``, the GPU cases of the named test files run afterwards
 (``pytest -m gpu``). Writes the results to chiprun_out/phases.json too.
 """
@@ -28,8 +30,12 @@ PHASES = {"21": "phase_ant_xpbd", "22": "phase_pyramid",
           "29": "phase_warm_sleep", "30": "phase_equality",
           "31": "phase_urdf", "32": "phase_newton_qp",
           "33": "phase_implicit", "34": "phase_tendons",
-          "35": "phase_muscles", "36": "phase_kamino"}
-KERNEL_PHASES = {"22", "29", "30", "31", "32", "33", "34", "35", "36"}
+          "35": "phase_muscles", "36": "phase_kamino",
+          "37": "phase_conveyor", "38": "phase_mounted",
+          "39": "phase_tower", "40": "phase_xpbd_cloth",
+          "41": "phase_xpbd_particles", "43": "phase_cables"}
+KERNEL_PHASES = {"22", "29", "30", "31", "32", "33", "34", "35", "36",
+                 "37", "38", "39"}
 
 
 def main(argv):
