@@ -154,9 +154,10 @@ Phases, one line each:
      likewise; env-steps/s in turns;
  23. domino spiral x 1024 (example_domino_spiral.py, the first domino
      nudged) under SolverXPBD(iterations=4), dt 1/240, 4 substeps, 110
-     frames: the first five dominoes tipped (up-z < 0.75) in every world,
-     the worlds where all ten tipped, no B1/B2 launch; one profiled frame;
-     env-steps/s;
+     frames replayed from a CUDA graph of the substep: the first five
+     dominoes tipped (up-z < 0.75) in every world, the worlds where all
+     ten tipped, no B1/B2 launch; one profiled frame; env-steps/s over 2
+     eager frames;
  24. the bench cloth (bench.py --mode cloth as published: a 100 x 100
      grid of cell 0.01 pinned along its top row at z = 2, mass 2, tri_ke
      500, edge_ke 1) under SolverStyle3D(iterations=4), no contacts, dt
@@ -255,17 +256,37 @@ Phases, one line each:
      grid: separated by more than 0.025; 42. a granular pile of 32,768
      particles (radius 0.05) on the ground: above z = 0.03 and no two
      closer than 0.085; the hash grid's dropped candidates counted;
- 43. example_cable_pile.py x 1024 and tests/test_cable.py's cantilevers x
-     1024 (the stiffer sags less); 44. example_cable_dahl_hysteresis.py x
-     1024 and the Dahl presliding hold of tests/test_dahl_friction.py:63
-     x 1024. Phases 40-44 launch no B1-B4 kernel.
-Phases 37-44 report device ms and operations per frame, the busy share,
-host syncs per substep and peak memory. Phases 21, 24-27 and 32-44 run
+ 43. example_cable_pile.py x 1024 in the example's pipeline mode
+     (dynamic-pair, ``mode="auto"``; static and dynamic slot counts, the
+     overflow count, the start state's active pairs equal to static
+     mode's) and tests/test_cable.py's cantilevers x 1024 (the stiffer
+     sags less); 44. example_cable_dahl_hysteresis.py x 1024 and the Dahl
+     presliding hold of tests/test_dahl_friction.py:63 x 1024. Phases
+     40-47 launch no B1-B4 kernel.
+ 45. example_basic_shapes.py x 4096 (the cone and ellipsoid pairs through
+     one batch of support-map MPR): the example's rest heights in every
+     world; tests/test_geometry.py:441's cone on a box x 4096: cone z =
+     0.75 +- 0.06; operations of a collide and the support batch's share;
+ 46. example_box_pile.py x 1024 in dynamic-pair mode (budget 8 x 96 x W):
+     the example's gates, broad_phase_dropped per frame; 47. the same pile
+     with broad_phase="sap": its active shape pairs equal top-k's in every
+     world at the start, after 8 frames and compressed (ROADMAP C.26 not
+     copied), both broad phases timed;
+ 48. example_peg_insertion.py x 4096 (SolverMuJoCo, one B1 d = 6 and one
+     B2 (72, 0, 6) per substep) and example_kamino_mass_ratio.py x 1024
+     (SolverKamino, one B1 d = 12) on persistent manifolds: the examples'
+     gates (the peg in 99% of worlds), B1 and B2 against their plain
+     versions, timed.
+Phases 37-48 report device ms and operations per frame, the busy share,
+host syncs per substep and peak memory. Phases 21, 24-27 and 32-48 run
 one substep twice on the card and require the two results to be equal
 bit for bit (every sum whose terms share a destination adds in a fixed
-order); phases 32-44 also step 64 worlds (or the particle scenes) on the
-card against the same on the CPU (joint_q/body_q 2e-4, joint_qd 5e-3) and
-report peak device memory.
+order); phases 32-48 also step 64 worlds (8 for the box pile, 16 for
+phase 48; 4 substeps on 45-48) or the particle scenes on the card against
+the same on the CPU (joint_q/body_q 2e-4, joint_qd 5e-3; on 45-46 a
+world off tolerance on a tie of the contact geometry is held to a
+float64 CPU run, and the results count such worlds) and report peak
+device memory.
 It prints one JSON line listing the kernels (name, route, source,
 launches, error, times, and each time's least possible time on an H100
 SXM at 700 W from ``kernel_cost``: bound_ms, bound_by, share_of_bound;
@@ -280,7 +301,7 @@ the inverse on the equality systems (chol_solve, bound on the solve's
 own bytes, beside torch.linalg.solve(A, rhs)), B1 on the sleeping boxes
 and the URDF pendulum, B2 with a
 warm lam0 on the ant, the boxes and the humanoid; B1 and B2 at each
-shape of phases 32-39, B2's non-symmetric form and the conveyor's
+shape of phases 32-39 and 48, B2's non-symmetric form and the conveyor's
 moving support among them), then the card
 line, then the result line ``{"ok": true,
 "device": {...}}``. Any failed phase raises: exit code != 0 and no result
@@ -2594,6 +2615,9 @@ REPEAT_FIELDS_RIGID = ("body_q", "body_qd", "joint_q", "joint_qd")
 BOX_W = 1024
 PYRAMID_FRAMES = 40                   # tests/test_examples.py
 DOMINO_FRAMES = 110                   # tests/test_examples.py
+# eager frames behind the env-steps/s of a path whose gate window is
+# replayed from a CUDA graph (phases 23, 45)
+RATE_FRAMES = 10
 
 
 def profile_frame(fn, substeps):
@@ -2884,10 +2908,12 @@ def phase_pyramid(dev):
 
 def phase_domino(dev):
     """example_domino_spiral.py x 1024 under SolverXPBD(iterations=4), dt
-    1/240, 4 substeps per frame, 110 frames with the first domino nudged:
-    the example's gate (the first five dominoes tipped, up-z < 0.75) in
-    every world, the worlds where all ten tipped, finite state and unit
-    quaternions, no B1/B2 launch; one profiled frame; env-steps/s."""
+    1/240, 4 substeps per frame, 110 frames with the first domino nudged
+    (replayed from a CUDA graph of the substep): the example's gate (the
+    first five dominoes tipped, up-z < 0.75) in every world, the worlds
+    where all ten tipped, finite state and unit quaternions, no B1/B2
+    launch; one profiled frame; env-steps/s over RATE_FRAMES eager frames
+    (and over the graph's replays of the gate window)."""
     import torch
     import newton_tpu_torch as nt
     t0 = time.perf_counter()
@@ -2900,8 +2926,13 @@ def phase_domino(dev):
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     reset_robot_launches()
+    state, gate_s = graphed_gate_run(
+        lambda s: solver.step(s, None, None, pipe.collide(s), DT), state,
+        DOMINO_FRAMES * SUBSTEPS, ("body_q", "body_qd", "joint_q",
+                                   "joint_qd"))
+    state = state.clone()
     t0 = time.perf_counter()
-    state = xpbd_frames(solver, pipe, state, None, DOMINO_FRAMES)
+    xpbd_frames(solver, pipe, state, None, RATE_FRAMES)
     elapsed = time.perf_counter() - t0
     if kernel_launches() != (0, 0):
         raise AssertionError("domino: a B1/B2 kernel launched on the XPBD "
@@ -2917,9 +2948,11 @@ def phase_domino(dev):
     prof = profile_frame(lambda: xpbd_frames(solver, pipe, state, None, 1),
                          SUBSTEPS)
     n_sub = DOMINO_FRAMES * SUBSTEPS
-    rate = n_sub * BOX_W / elapsed
+    rate = RATE_FRAMES * SUBSTEPS * BOX_W / elapsed
     return dict(worlds=BOX_W, setup_s=setup_s, substeps=n_sub,
-                env_steps_per_s=rate,
+                gate_window_graphed_s=gate_s, env_steps_per_s=rate,
+                rate_frames=RATE_FRAMES,
+                graph_env_steps_per_s=n_sub * BOX_W / gate_s,
                 busy_share_unprofiled=busy_unprofiled(prof, BOX_W, rate),
                 worlds_first_five_tipped=first5,
                 worlds_all_tipped=int(tipped.all(1).sum()),
@@ -5173,10 +5206,9 @@ def cable_pile_scene(lib, n):
     """example_cable_pile.py: five free cable rods of six segments (rod
     graphs, radius 0.03, bend_ke 20, twist_ke 10) dropped from 0.6-2.0 m
     in random directions (seed 3) onto a ground plane; n worlds. Its 440
-    candidate pairs exceed the pipeline's dynamic-mode threshold: the
-    example's pipeline runs the JAX package's dynamic mode (not ported,
-    ROADMAP A.5); the phase collides every candidate pair in static mode
-    (``CollisionPipeline(model, mode="static")``)."""
+    candidate pairs a world exceed the pipeline's dynamic-mode threshold
+    (8 per shape): ``CollisionPipeline(model)`` runs dynamic-pair mode, as
+    the example's does."""
     import numpy as np
     sub = lib.ModelBuilder()
     rng = np.random.default_rng(3)
@@ -5282,35 +5314,78 @@ def repeat_fields(step, fields, label):
 
 
 def xpbd_vs_cpu(dev, builder, make_solver, state, substeps, dt, label,
-                pipe=False, tol=None):
+                pipe=False, tol=None, pipe_kw=None, ties=False):
     """``substeps`` XPBD substeps on the card against the same on the CPU
-    from one state (the model finalized on each side): particle_q and
-    body_q within 2e-4, particle_qd and body_qd within 5e-3 (joint_q 2e-4,
-    joint_qd 5e-3), the errors returned."""
+    from one state (the model finalized on each side; collide with
+    ``CollisionPipeline(model, **pipe_kw)``, static mode unless named):
+    particle_q and body_q within 2e-4, particle_qd and body_qd within 5e-3
+    (joint_q 2e-4, joint_qd 5e-3), every world compared, the errors
+    returned. With ``ties`` (the rigid scenes of phases 45-46), a world
+    off tolerance is held instead to the same substeps in float64 on the
+    CPU (the model and state cast): on a tie of the contact geometry (a
+    flat face on a flat face, whose contact points the last bits decide)
+    the float32 CPU run parts from the float64 one while the card keeps
+    to it. The worlds so held and the float32 CPU's gap to the float64 run
+    are returned; a world that agrees with neither run fails."""
+    import torch
     import newton_tpu_torch as nt
+    from newton_tpu_torch.sim.state import map_tensors
     tol = tol or {"particle_q": 2e-4, "particle_qd": 5e-3, "body_q": 2e-4,
                   "body_qd": 5e-3, "joint_q": 2e-4, "joint_qd": 5e-3}
-    out = {}
-    for side, d in (("card", dev), ("cpu", "cpu")):
+
+    def f64(x):
+        return map_tensors(x, lambda t: t.double() if t.is_floating_point()
+                           else t)
+    sides = {}
+    for side, d in (("card", dev), ("cpu", "cpu")) + (
+            (("float64", "cpu"),) if ties else ()):
         m = builder.finalize(d)
-        solver = make_solver(m)
-        s = solver.init_state(state.to(d)) if hasattr(
-            solver, "init_state") else state.to(d)
-        p = nt.CollisionPipeline(m, mode="static") if pipe else None
+        m = f64(m) if side == "float64" else m
+        p = nt.CollisionPipeline(m, **(pipe_kw or {"mode": "static"})) \
+            if pipe else None
+        sides[side] = (make_solver(m), p)
+
+    def run(side, s):
+        solver, p = sides[side]
+        if hasattr(solver, "init_state"):
+            s = solver.init_state(s)
         for _ in range(substeps):
             s = solver.step(s, None, None, None if p is None
                             else p.collide(s), dt)
-        out[side] = s
-    err = {}
-    for n, t in tol.items():
-        a, b = getattr(out["card"], n), getattr(out["cpu"], n)
-        if not a.numel():
-            continue
-        ok, err[n] = close(a.cpu(), b, t, t)
-        if not ok:
-            raise AssertionError(f"{label}: {n} card vs CPU off tolerance "
-                                 f"({err[n]:.3g})")
-    return err
+        return s
+    n = max(builder.world_count, 1) if ties else 1
+
+    def per_world(a, b):
+        """((n,) every field of a within tolerance of b in that world,
+        {field: max abs error})."""
+        ok, err = torch.ones(n, dtype=torch.bool), {}
+        for k, t in tol.items():
+            x, y = getattr(a, k), getattr(b, k)
+            if not x.numel():
+                continue
+            x = x.cpu().double().reshape(n, -1)
+            y = y.double().reshape(n, -1)
+            diff = (x - y).abs()
+            ok &= (diff <= t + t * y.abs()).all(1)
+            err[k] = float(diff.max())
+        return ok, err
+    card = run("card", state.to(dev))
+    cpu = run("cpu", state.to("cpu"))
+    ok, err = per_world(card, cpu)
+    if bool(ok.all()):
+        return err
+    if not ties:
+        raise AssertionError(f"{label}: card vs CPU off tolerance {err}")
+    exact = run("float64", f64(state.to("cpu")))
+    ok64, err64 = per_world(card, exact)
+    _, err32 = per_world(cpu, exact)
+    if not bool((ok | ok64).all()):
+        raise AssertionError(
+            f"{label}: {int((~ok & ~ok64).sum())} of {n} worlds off "
+            f"tolerance against the CPU in float32 {err} and in float64 "
+            f"{err64} (float32 vs float64 on the CPU {err32})")
+    return dict(err, worlds_held_to_float64=int((~ok).sum()),
+                card_vs_float64=err64, cpu_vs_float64=err32)
 
 
 def phase_conveyor(dev):
@@ -5593,12 +5668,13 @@ def phase_tower(dev):
 
 
 def xpbd_particle_phase(dev, builder, make_solver, warmup, frames, label,
-                        pipe=False, gates=None, units=None):
+                        pipe=False, gates=None, units=None, pipe_kw=None):
     """A particle scene under SolverXPBD: setup, ``warmup`` and ``frames``
     timed frames of SUBSTEPS substeps at DT (collide each substep with
-    ``pipe``), no B1-B4 launch, the gates (``gates(model, state)``
-    returns them and raises on failure), one substep twice on the card
-    bit for bit, the rate in particle-steps/s, path metrics."""
+    ``pipe``: ``CollisionPipeline(model, **pipe_kw)``, static mode unless
+    named), no B1-B4 launch, the gates (``gates(model, state)`` returns
+    them and raises on failure), one substep twice on the card bit for
+    bit, the rate in particle-steps/s, path metrics."""
     import torch
     import newton_tpu_torch as nt
     torch.cuda.synchronize()
@@ -5606,7 +5682,8 @@ def xpbd_particle_phase(dev, builder, make_solver, warmup, frames, label,
     t0 = time.perf_counter()
     model = builder.finalize(dev)
     solver = make_solver(model)
-    p = nt.CollisionPipeline(model, mode="static") if pipe else None
+    p = nt.CollisionPipeline(model, **(pipe_kw or {"mode": "static"})) \
+        if pipe else None
     state = solver.init_state(model.state())
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -5841,16 +5918,36 @@ def phase_cables(dev):
 
     def make_pile(m):
         return nt.SolverXPBD(m, iterations=CABLE_ITERS)
+    auto = {"mode": "auto"}             # the example's pipeline: dynamic
     res, model, state = xpbd_particle_phase(
         dev, b, make_pile, CABLE_WARMUP, PILE_FRAMES, "cable pile", pipe=True,
-        gates=lambda m, s: rigid_gates(s, "cable pile"), units=CABLE_W)
+        gates=lambda m, s: rigid_gates(s, "cable pile"), units=CABLE_W,
+        pipe_kw=auto)
     res["env_steps_per_s"] = res.pop("particle_steps_per_s")
     nb = model.body_count // CABLE_W
     res["pile_z_max"] = float(state.body_q[:, 2].max())
-    res["slots_per_world"] = model.structure.rigid_contact_max // CABLE_W
+    dyn = nt.CollisionPipeline(model, **auto)
+    if dyn.mode != "dynamic":
+        raise AssertionError("cable pile: the example's pipeline is not "
+                             "in dynamic mode")
+    res["slots_per_world"] = dict(
+        static=model.structure.rigid_contact_max // CABLE_W,
+        dynamic=dyn.rigid_contact_max / CABLE_W)
+    res["broad_phase_dropped_last_substep"] = int(
+        dyn.collide(state).broad_phase_dropped)
+    # one static collide of the start state: both modes activate the
+    # same shape pairs
+    s0 = model.state()
+    same = torch.equal(touching_pairs(dyn.collide(s0)), touching_pairs(
+        nt.CollisionPipeline(model, mode="static").collide(s0)))
+    if not same:
+        raise AssertionError("cable pile: dynamic and static modes activate "
+                             "different shape pairs at the start state")
+    res["start_pairs_equal_static"] = same
     small = cable_pile_scene(nt, PARITY_W)
     res["vs_cpu"] = xpbd_vs_cpu(dev, small, make_pile, world_slice(
-        state, PARITY_W, nb, 0, 0), 1, DT, "cable pile", pipe=True)
+        state, PARITY_W, nb, 0, 0), 1, DT, "cable pile", pipe=True,
+        pipe_kw=auto)
     out["pile"] = res
     # (b) sag ordering
     torch.cuda.synchronize()
@@ -6074,6 +6171,638 @@ def rest_kernel_entries(nqp, imp, ten, mus, kam, b1_src, b2_src):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 45-48: the other primitive shapes, dynamic collision, SAP and
+# persistent manifolds
+# ---------------------------------------------------------------------------
+SHAPES_W = 4096
+SHAPES_FRAMES = 60                    # tests/test_examples.py's count
+CONE_FRAMES = 90                      # tests/test_geometry.py:464
+PILE_W = 1024
+PILE_FRAMES_46 = 8                    # the example test's frame count
+PILE_PARITY_W = 8
+PEG_W = 4096
+PEG_DT = 1.0 / 480.0
+PEG_SUBSTEPS = 8
+PEG_FRAMES = 80                       # tests/test_examples.py's count
+MASS_W = 1024
+MASS_FRAMES = 60
+MANIFOLD_PARITY_W = 16
+
+
+def basic_shapes_scene(lib, n):
+    """example_basic_shapes.py: a sphere, box, capsule, cylinder, cone and
+    ellipsoid on free joints dropped from 0.6 m, 0.8 m apart along x, onto
+    a ground plane; n worlds. Returns (builder, the rest test of each
+    body: (z_rest, tol) or (None, (lo, hi)), as the example's
+    test_final)."""
+    sub = lib.ModelBuilder(gravity=-9.81)
+    expect = []
+    for x, add, rest in (
+            (-2.0, lambda b: sub.add_shape_sphere(b, radius=0.2),
+             (0.2, 0.03)),
+            (-1.2, lambda b: sub.add_shape_box(b, hx=0.15, hy=0.15,
+                                               hz=0.15), (0.15, 0.03)),
+            (-0.4, lambda b: sub.add_shape_capsule(b, radius=0.12,
+                                                   half_height=0.15),
+             (None, (0.1, 0.3))),
+            (0.4, lambda b: sub.add_shape_cylinder(b, radius=0.15,
+                                                   half_height=0.12),
+             (None, (0.1, 0.3))),
+            (1.2, lambda b: sub.add_shape_cone(b, radius=0.15,
+                                               half_height=0.15),
+             (None, (0.08, 0.35))),
+            (2.0, lambda b: sub.add_shape_ellipsoid(b, rx=0.2, ry=0.14,
+                                                    rz=0.1),
+             (None, (0.08, 0.25)))):
+        body = sub.add_body(xform=[x, 0, 0.6, 0, 0, 0, 1])
+        add(body)
+        sub.add_joint_free(body)
+        expect.append(rest)
+    sub.add_ground_plane()
+    return replicated(lib, sub, n), expect
+
+
+def cone_stack_scene(lib, n):
+    """tests/test_geometry.py:441: a cone (r 0.3, h 0.25) base-down on a
+    box (0.5, 0.5, 0.25) on free joints above a ground plane; n worlds."""
+    sub = lib.ModelBuilder()
+    base = sub.add_body(xform=[0, 0, 0.25, 0, 0, 0, 1])
+    sub.add_shape_box(base, hx=0.5, hy=0.5, hz=0.25)
+    sub.add_joint_free(base)
+    cone = sub.add_body(xform=[0, 0, 0.75, 0, 0, 0, 1])
+    sub.add_shape_cone(cone, radius=0.3, half_height=0.25)
+    sub.add_joint_free(cone)
+    sub.add_ground_plane()
+    return replicated(lib, sub, n)
+
+
+def box_pile_scene(lib, n):
+    """example_box_pile.py: 96 boxes of half-size 0.12 on free joints, six
+    layers of 4 x 4 at a 0.3 pitch (jitter 0.02, seed 7) from 0.3 m, 0.35
+    m apart, above a ground plane; n worlds."""
+    import numpy as np
+    sub = lib.ModelBuilder()
+    rng = np.random.default_rng(7)
+    for layer in range(6):
+        for i in range(4):
+            for j in range(4):
+                x = (i - 2) * 0.3 + rng.uniform(-0.02, 0.02)
+                y = (j - 2) * 0.3 + rng.uniform(-0.02, 0.02)
+                body = sub.add_body(xform=[x, y, 0.3 + layer * 0.35, 0, 0,
+                                           0, 1])
+                sub.add_shape_box(body, hx=0.12, hy=0.12, hz=0.12)
+                sub.add_joint_free(body)
+    sub.add_ground_plane()
+    return replicated(lib, sub, n)
+
+
+def peg_scene(lib, n):
+    """example_peg_insertion.py: a square peg (half-width 0.05, half-height
+    0.1) 1 mm off-centre and turned 0.005 rad over a four-wall socket of
+    1 mm clearance a side, mu 0.2, on a ground plane; n worlds."""
+    import numpy as np
+    sub = lib.ModelBuilder(gravity=-9.81)
+    cfg = sub.default_shape_cfg.copy()
+    cfg.mu = 0.2
+    w, t, depth = 0.051, 0.02, 0.12
+    for dx, dy, hx, hy in ((w + t, 0.0, t, w + 2 * t),
+                           (-(w + t), 0.0, t, w + 2 * t),
+                           (0.0, w + t, w, t), (0.0, -(w + t), w, t)):
+        sub.add_shape_box(-1, xform=[dx, dy, depth, 0, 0, 0, 1], hx=hx,
+                          hy=hy, hz=depth, cfg=cfg)
+    q = [0.0, 0.0, float(np.sin(0.0025)), float(np.cos(0.0025))]
+    peg = sub.add_body(xform=[0.0008, -0.0006, 2 * depth + 0.09] + q,
+                       key="peg")
+    sub.add_shape_box(peg, hx=0.05, hy=0.05, hz=0.1, cfg=cfg)
+    sub.add_joint_free(peg)
+    sub.add_ground_plane()
+    return replicated(lib, sub, n)
+
+
+def mass_ratio_scene(lib, n):
+    """example_kamino_mass_ratio.py: an 800 kg block (density 1e5) on a
+    0.8 kg box (density 100), both of half-size 0.1, on a ground plane;
+    n worlds."""
+    sub = lib.ModelBuilder(gravity=-9.81)
+    light = sub.default_shape_cfg.copy()
+    light.density = 100.0
+    heavy = sub.default_shape_cfg.copy()
+    heavy.density = 100000.0
+    lb = sub.add_body(xform=[0, 0, 0.1, 0, 0, 0, 1], key="light")
+    sub.add_shape_box(lb, hx=0.1, hy=0.1, hz=0.1, cfg=light)
+    sub.add_joint_free(lb)
+    hb = sub.add_body(xform=[0, 0, 0.3 * 1.003, 0, 0, 0, 1], key="heavy")
+    sub.add_shape_box(hb, hx=0.1, hy=0.1, hz=0.1, cfg=heavy)
+    sub.add_joint_free(hb)
+    sub.add_ground_plane()
+    return replicated(lib, sub, n)
+
+
+def touching_pairs(c):
+    """The sorted keys a S + b (a < b, S a large stride) of the shape pairs
+    with an active slot: every world's at once, on the host."""
+    import torch
+    m = c.rigid_contact_mask
+    a = c.rigid_contact_shape0[m].long()
+    b = c.rigid_contact_shape1[m].long()
+    return torch.unique(torch.minimum(a, b) * (1 << 24)
+                        + torch.maximum(a, b)).cpu()
+
+
+def count_ops(fn):
+    """(fn's result, aten operations it dispatched)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+    with Count():
+        out = fn()
+    return out, Count.n
+
+
+def collide_ops(pipe, state):
+    """Operations of one collide, of its support batch alone, and of the
+    same support pairs run one class at a time (the JAX package's
+    layout)."""
+    _, total = count_ops(lambda: pipe.collide(state))
+    X = pipe._aabb.world_transforms(state.body_q)
+    jobs = [(pc, pc.shape0, pc.shape1) for pc in pipe.classes
+            if pc.support]
+    _, merged = count_ops(lambda: pipe._narrow(X, jobs))
+    per_class = sum(count_ops(lambda j=j: pipe._narrow(X, [j]))[1]
+                    for j in jobs)
+    return dict(collide=total, support_batch=merged,
+                support_share=merged / total, support_classes=len(jobs),
+                support_one_class_at_a_time=per_class)
+
+
+def host_ms(fn, n):
+    """Mean wall time of one call: n calls, a synchronize closing the
+    window (after 2 warm-up calls)."""
+    import torch
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def graphed_gate_run(step, state, n, fields):
+    """``n`` substeps of ``step`` replayed from one CUDA graph (the gate
+    windows of phases 43-45), the time of the replays."""
+    import torch
+    static, run = graphed_steps(step, state, n, fields)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    return static, time.perf_counter() - t0
+
+
+def xpbd_rigid_phase(dev, builder, make_solver, frames, label, n, gate,
+                     parity_builder, dt=DT, pipe_kw=None):
+    """A rigid XPBD scene of n worlds: setup; ``frames`` frames, then the
+    gate ``gate(model, pipe, state)``. In static mode the frames replay
+    from one CUDA graph of the substep and RATE_FRAMES eager frames after
+    them give env-steps/s (the graph's replays give another); in dynamic
+    mode (the box pile: device-bound, so a graph saves it nothing) they
+    run eagerly, the first a warm-up and the rest timed for env-steps/s,
+    with broad_phase_dropped summed per frame on the device. No B1-B4
+    launch; 4 substeps of ``parity_builder``'s worlds (the first of the
+    state's; the same pair budget a world) on the card against the CPU,
+    every world compared, a tie of the contact geometry decided by a
+    float64 run (see ``xpbd_vs_cpu``); one substep twice bit for bit;
+    device ms, operations and busy share of a frame, host syncs per
+    substep, peak memory. Returns (results, model, pipeline, state)."""
+    import torch
+    import newton_tpu_torch as nt
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = builder.finalize(dev)
+    solver = make_solver(model)
+    pipe = nt.CollisionPipeline(model, **(pipe_kw or {}))
+    state = model.state()
+    torch.cuda.synchronize()
+    res = dict(worlds=n, setup_s=time.perf_counter() - t0, mode=pipe.mode,
+               slots_per_world=pipe.rigid_contact_max / n)
+
+    def step(s):
+        return solver.step(s, None, None, pipe.collide(s), dt)
+    reset_all_launches()
+    fields = ("body_q", "body_qd", "joint_q", "joint_qd")
+    n_sub = frames * SUBSTEPS
+    if pipe.mode == "static":
+        t0 = time.perf_counter()
+        state, gate_s = graphed_gate_run(step, state, n_sub, fields)
+        res.update(graph_capture_s=time.perf_counter() - t0 - gate_s,
+                   gate_window_s=gate_s,
+                   graph_env_steps_per_s=n_sub * n / gate_s)
+        state = state.clone()
+        t0 = time.perf_counter()
+        s = state
+        for _ in range(RATE_FRAMES * SUBSTEPS):
+            s = step(s)
+        torch.cuda.synchronize()
+        res.update(rate_frames=RATE_FRAMES, env_steps_per_s=RATE_FRAMES
+                   * SUBSTEPS * n / (time.perf_counter() - t0))
+    else:
+        dropped = []
+        for f in range(frames):
+            if f == 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            d = torch.zeros((), dtype=torch.int32, device=dev)
+            for _ in range(SUBSTEPS):
+                c = pipe.collide(state)
+                d = d + c.broad_phase_dropped
+                state = solver.step(state, None, None, c, dt)
+            dropped.append(d)
+        torch.cuda.synchronize()
+        res.update(rate_frames=frames - 1, env_steps_per_s=(frames - 1)
+                   * SUBSTEPS * n / (time.perf_counter() - t0),
+                   broad_phase_dropped_per_frame=[int(d) for d in dropped])
+    rigid_gates(state, label)
+    res["gates"] = gate(model, pipe, state)
+    no_tpu_kernel(label)
+    pw = max(parity_builder.world_count, 1)
+    kw = dict(pipe_kw or {})
+    if "dynamic_pair_budget" in kw:
+        kw["dynamic_pair_budget"] = kw["dynamic_pair_budget"] * pw // n
+    res["vs_cpu"] = xpbd_vs_cpu(
+        dev, parity_builder, make_solver,
+        world_slice(state, pw, model.body_count // n, 0, 0), SUBSTEPS, dt,
+        label, pipe=True, pipe_kw=kw, ties=True)
+    repeat_fields(lambda: step(state), fields, label)
+    res["repeat_bit_equal"] = True
+    res.update(path_metrics(
+        lambda: [step(state) for _ in range(SUBSTEPS)],
+        lambda: step(state), n, res["env_steps_per_s"]))
+    return res, model, pipe, state
+
+
+def shape_rest_gates(expect, n):
+    """example_basic_shapes.py's test_final in every world: each body's
+    z at its rest height within its tolerance, or inside its range."""
+    def gate(model, pipe, state):
+        z = state.body_q[:, 2].view(n, -1)
+        g = {}
+        for k, (rest, tol) in enumerate(expect):
+            zk = z[:, k]
+            ok = ((zk - rest).abs() < tol) if rest is not None else (
+                (zk > tol[0]) & (zk < tol[1]))
+            g[f"body{k}"] = dict(z_min=float(zk.min()), z_max=float(zk.max()),
+                                 worlds_ok=int(ok.sum()))
+            if not bool(ok.all()):
+                raise AssertionError(f"basic shapes: body {k} off its rest "
+                                     f"in {int((~ok).sum())} worlds {g}")
+        return g
+    return gate
+
+
+def phase_shapes(dev):
+    """(a) example_basic_shapes.py x 4096 as the example runs it:
+    SolverXPBD(iterations=4), dt 1/240, 4 substeps, static mode, the cone
+    and the ellipsoid against the others through one batch of support-map
+    MPR; 60 frames from a CUDA graph, then the example's test_final rest
+    heights in every world; (b) tests/test_geometry.py:441's cone on a box
+    x 4096, 90 frames: cone z = 0.75 +- 0.06 and upright in every world.
+    Each: RATE_FRAMES timed eager frames (env-steps/s), no B1-B4 launch,
+    4 substeps of 64 worlds of the gated state card vs CPU, a substep
+    twice bit for bit, host syncs per substep, device ms and operations
+    per frame; operations of one collide and the support batch's share,
+    and the same support pairs one class at a time."""
+    import newton_tpu_torch as nt
+    out = {}
+    b, expect = basic_shapes_scene(nt, SHAPES_W)
+
+    def make(m):
+        return nt.SolverXPBD(m, iterations=4)
+    res, model, pipe, state = xpbd_rigid_phase(
+        dev, b, make, SHAPES_FRAMES, "basic shapes", SHAPES_W,
+        shape_rest_gates(expect, SHAPES_W),
+        basic_shapes_scene(nt, PARITY_W)[0])
+    res["ops"] = collide_ops(pipe, state)
+    out["basic_shapes"] = res
+
+    def cone_gate(model, pipe, state):
+        q = state.body_q.view(SHAPES_W, 2, 7)[:, 1]
+        g = dict(z_min=float(q[:, 2].min()), z_max=float(q[:, 2].max()),
+                 tilt_max=float(q[:, 3:5].abs().max()))
+        if not ((q[:, 2] - 0.75).abs().max() < 0.06 and g["tilt_max"] < 0.1):
+            raise AssertionError(f"cone on a box: gates fail {g}")
+        return g
+    res, model, pipe, state = xpbd_rigid_phase(
+        dev, cone_stack_scene(nt, SHAPES_W), make, CONE_FRAMES,
+        "cone on a box", SHAPES_W, cone_gate,
+        cone_stack_scene(nt, PARITY_W))
+    res["ops"] = collide_ops(pipe, state)
+    out["cone_on_box"] = res
+    return out
+
+
+def pile_gate(model, pipe, state):
+    """example_box_pile.py's test_final in every world: finite poses,
+    every z > 0, max z < 3, and fewer dynamic slots than static ones."""
+    z = state.body_q[:, 2]
+    g = dict(z_min=float(z.min()), z_max=float(z.max()),
+             dynamic_slots=pipe.rigid_contact_max,
+             static_slots=model.structure.rigid_contact_max)
+    if not (g["z_min"] > 0.0 and g["z_max"] < 3.0
+            and g["dynamic_slots"] < g["static_slots"]):
+        raise AssertionError(f"box pile: gates fail {g}")
+    return g
+
+
+def compressed_pile(state):
+    """The pile's bodies moved down so that each layer sits 5 mm into the
+    one below and the lowest 5 mm into the ground (every box-box and
+    box-ground pair of a column touching)."""
+    import torch
+    s = state.clone()
+    layer = torch.round((s.body_q[:, 2] - 0.3) / 0.35)
+    s.body_q[:, 2] = 0.115 + 0.235 * torch.clamp(layer, min=0.0)
+    return s
+
+
+def phase_box_pile(dev):
+    """example_box_pile.py x 1024: 96 boxes a world, SolverXPBD(iterations
+    =4), dt 1/120, 4 substeps, mode="dynamic" with a budget of 8 x 96 x W
+    pairs (the example's 8 per box): the example test's 8 eager frames
+    (the first a warm-up, 7 timed for env-steps/s, broad_phase_dropped
+    summed per frame), its gates after them; no B1-B4 launch; 4 substeps
+    of 8 worlds card vs CPU; a substep twice bit for bit (the per-call
+    fixed-order sums); host syncs per substep, device ms and operations
+    per frame, busy share, peak memory."""
+    import newton_tpu_torch as nt
+    budget = 8 * 96 * PILE_W
+
+    def make(m):
+        return nt.SolverXPBD(m, iterations=4)
+    res, model, pipe, state = xpbd_rigid_phase(
+        dev, box_pile_scene(nt, PILE_W), make, PILE_FRAMES_46, "box pile",
+        PILE_W, pile_gate, box_pile_scene(nt, PILE_PARITY_W),
+        dt=1.0 / 120.0,
+        pipe_kw=dict(mode="dynamic", dynamic_pair_budget=budget))
+    res.update(budget_pairs=budget,
+               static_slots_per_world=model.structure.rigid_contact_max
+               // PILE_W)
+    return res, model, pipe, state
+
+
+def phase_pile_sap(dev):
+    """Phases 46 and 47: the dynamic box pile, then SAP on its model."""
+    pile = phase_box_pile(dev)
+    return pile[0], phase_sap(dev, pile)
+
+
+def sap_reach(model, pipe, state, pairs):
+    """Of the pair keys ``pairs`` (``touching_pairs``), those that a
+    windowed sweep over each world's own shapes reaches: both members of
+    the pipeline's swept class (the pile has one: box-box), in one world
+    and at most ``pipe.sap_window`` apart in that world's order of lower
+    AABB bounds along ``pipe.sap_axis`` (ties by index); or a pair with
+    a shape outside it (the plane classes: culled by height, not swept).
+    The worlds' orders come from one numpy lexsort on the host."""
+    import numpy as np
+    import torch
+    from newton_tpu_torch.geometry.broad_phase import compute_shape_aabbs
+    (swept,) = [pc.sap.u.cpu().numpy() for pc in pipe.classes
+                if getattr(pc, "sap", None) is not None]
+    lo = compute_shape_aabbs(model, state, pipe.rigid_contact_margin,
+                             pipe._aabb)[0][swept, pipe.sap_axis]
+    world = np.asarray(model.structure.shape_world, dtype=np.int64)
+    order = np.lexsort((swept, lo.cpu().numpy(), world[swept]))
+    pos = np.full(len(world), -1, np.int64)
+    pos[swept[order]] = np.arange(len(swept))
+    a, b = (pairs >> 24).numpy(), (pairs & ((1 << 24) - 1)).numpy()
+    keep = (pos[a] < 0) | (pos[b] < 0) | (
+        (world[a] == world[b]) & (np.abs(pos[a] - pos[b]) <= pipe.sap_window))
+    return pairs[torch.as_tensor(keep)]
+
+
+def phase_sap(dev, pile):
+    """The box pile of phase 46 with broad_phase="sap" (window 16): at the
+    start state, after phase 46's 8 frames, and with every layer
+    compressed 5 mm into the next, its set of active shape pairs equals
+    exactly those of top-k's that a window of 16 reaches in each world's
+    own order (``sap_reach``: the check that the sort keeps every world's
+    shapes apart exactly, ROADMAP C.26 not copied; a column's 24 boxes
+    share an x range, so a window of 16 misses some touching pairs once
+    the layers touch, as the JAX package's SAP does). Both broad phases'
+    collide timed in this call (device time, CUDA events on a held stream;
+    wall time); a SAP substep twice bit for bit; host syncs of a SAP
+    collide."""
+    import torch
+    import newton_tpu_torch as nt
+    model, topk, state = pile[1], pile[2], pile[3]
+    sap = nt.CollisionPipeline(model, mode="dynamic", broad_phase="sap",
+                               sap_window=16,
+                               dynamic_pair_budget=topk.dynamic_pair_budget)
+    res = dict(worlds=PILE_W, window=16)
+    checks = {}
+    for label, s in (("start", model.state()), ("after 8 frames", state),
+                     ("compressed", compressed_pile(state))):
+        c = sap.collide(s)
+        a, b = touching_pairs(topk.collide(s)), touching_pairs(c)
+        reach = sap_reach(model, sap, s, a)
+        checks[label] = dict(topk_pairs=int(a.numel()),
+                             topk_pairs_in_window=int(reach.numel()),
+                             sap_pairs=int(b.numel()),
+                             equal_to_topk=torch.equal(a, b),
+                             sap_dropped=int(c.broad_phase_dropped))
+        if not torch.equal(b, reach):
+            raise AssertionError(
+                f"SAP at {label}: {b.numel()} active pairs against the "
+                f"{reach.numel()} of top-k's {a.numel()} that its window "
+                "reaches")
+    res["checks"] = checks
+    s = compressed_pile(state)
+    res["collide_ms"] = {k: dict(
+        device=time_ms(lambda p=p: p.collide(s), n=10, queued=True),
+        wall=host_ms(lambda p=p: p.collide(s), 10))
+        for k, p in (("topk", topk), ("sap", sap))}
+    _, res["host_syncs_per_collide"] = count_syncs(lambda: sap.collide(s))
+    solver = nt.SolverXPBD(model, iterations=4)
+    repeat_fields(lambda: solver.step(s, None, None, sap.collide(s),
+                                      1.0 / 120.0),
+                  ("body_q", "body_qd"), "SAP pile")
+    res["repeat_bit_equal"] = True
+    return res
+
+
+def manifold_phase(dev, make_scene, make_solver, n, frames, substeps, dt,
+                   label, gate, b2=True):
+    """A scene of n worlds on persistent manifolds under a generalized
+    solver: ``frames`` frames of ``substeps`` substeps of
+    ``collide(s, prev=c)`` then ``step``; launches (one B1, and one B2
+    where ``b2``, per substep); the gate; env-steps/s; a kernel vs plain
+    substep (B1 and B2 against their plain versions on its operands);
+    B2 and B1 timed on captured operands; 4 substeps of 16 worlds card vs
+    CPU; a substep twice bit for bit; host syncs per substep; device ms,
+    operations and busy share; peak memory."""
+    import torch
+    import newton_tpu_torch as nt
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = make_scene(nt, n).finalize(dev)
+    pipe = nt.CollisionPipeline(model, persistent_manifolds=True)
+    solver = make_solver(model)
+    state, c = solver.init_state(model.state()), pipe.contacts()
+    ctl = model.control()
+    torch.cuda.synchronize()
+    res = dict(worlds=n, setup_s=time.perf_counter() - t0,
+               slots_per_world=pipe.rigid_contact_max / n)
+
+    def run(s, c, k):
+        for _ in range(k):
+            c = pipe.collide(s, prev=c)
+            s = solver.step(s, None, ctl, c, dt)
+        return s, c
+    reset_robot_launches()
+    n_sub = frames * substeps
+    t0 = time.perf_counter()
+    state, c = run(state, c, n_sub)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = gen_launches()
+    want = (n_sub, n_sub if b2 else 0, 0)
+    if launches[:2] != want[:2] or launches[2]:
+        raise AssertionError(f"{label}: launches {launches}, expected "
+                             f"{want}")
+    rigid_gates(state, label)
+    res.update(substeps=n_sub, launches=launches, gates=gate(state),
+               env_steps_per_s=n_sub * n / elapsed)
+    contacts = pipe.collide(state, prev=c)
+    errs, recs = group_paths(solver, state, ctl, contacts, dt, label)
+    res["paths"] = errs
+    res["b1"] = dict(d=recs[0]["chol"][0].shape[-1],
+                     **b1_times(*recs[0]["chol"]))
+    if b2:
+        args, kw = recs[0]["pgs"]
+        res["b2"] = b2_record(args, kw, label)
+    sub = make_scene(nt, 1)
+    m_c = make_scene(nt, MANIFOLD_PARITY_W).finalize("cpu")
+    p_c = nt.CollisionPipeline(m_c, persistent_manifolds=True)
+    x_c = make_solver(m_c)
+    m_d = make_scene(nt, MANIFOLD_PARITY_W).finalize(dev)
+    p_d = nt.CollisionPipeline(m_d, persistent_manifolds=True)
+    x_d = make_solver(m_d)
+    s_small = world_slice(state, MANIFOLD_PARITY_W, sub.body_count,
+                          sub.joint_coord_count, sub.joint_dof_count)
+    s_small.custom = {}
+    out = {}
+    for side, (m, p, x) in (("card", (m_d, p_d, x_d)),
+                            ("cpu", (m_c, p_c, x_c))):
+        s = x.init_state(s_small.to(m.body_q.device))
+        k = p.contacts()
+        for _ in range(4):
+            k = p.collide(s, prev=k)
+            s = x.step(s, None, None, k, dt)
+        out[side] = s
+    vs = {}
+    for name, tol in (("body_q", 2e-4), ("body_qd", 5e-3),
+                      ("joint_q", 2e-4), ("joint_qd", 5e-3)):
+        ok, vs[name] = close(getattr(out["card"], name).cpu(),
+                             getattr(out["cpu"], name), tol, tol)
+        if not ok:
+            raise AssertionError(f"{label}: {name} card vs CPU off "
+                                 f"tolerance ({vs[name]:.3g})")
+    res["vs_cpu"] = vs
+
+    def one():
+        k = pipe.collide(state, prev=c)
+        return solver.step(state, None, ctl, k, dt)
+    res["repeat_max_diff"] = repeat_bits(one, label)
+    rate = res["env_steps_per_s"]
+    res.update(path_metrics(lambda: run(state, c, substeps), one, n, rate))
+    return res
+
+
+def phase_manifolds(dev):
+    """(a) example_peg_insertion.py x 4096: SolverMuJoCo(iterations=30,
+    warm_start=False, contact_cap=0), dt 1/480, 8 substeps, 80 frames of
+    ``collide(s, prev=c)``: one B1 (d = 6) and one B2 (72, 0, 6) per
+    substep; gate: the example's test_final (seated below the mouth,
+    centred within 1 cm, upright > 0.98) in 99% of worlds; (b)
+    example_kamino_mass_ratio.py x 1024: SolverKamino(iterations=32,
+    contact_cap=0), dt 1/240, 60 frames: one B1 (d = 12) per substep, no
+    B2 (its own PADMM); gate: light z = 0.1 +- 0.01 and heavy z = 0.3 +-
+    0.012 in every world. Each: see ``manifold_phase``."""
+    import newton_tpu_torch as nt
+    out = {}
+
+    def peg_gate(state):
+        q = state.body_q.view(PEG_W, 1, 7)[:, 0]
+        up = 1.0 - 2.0 * (q[:, 3] ** 2 + q[:, 4] ** 2)
+        ok = ((q[:, 2] < 0.26) & (q[:, 0].abs() < 0.01)
+              & (q[:, 1].abs() < 0.01) & (up > 0.98))
+        g = dict(worlds_ok=int(ok.sum()), z_max=float(q[:, 2].max()),
+                 upright_min=float(up.min()))
+        if g["worlds_ok"] < 0.99 * PEG_W:
+            raise AssertionError(f"peg insertion: gates fail {g}")
+        return g
+    out["peg"] = manifold_phase(
+        dev, peg_scene, lambda m: nt.SolverMuJoCo(
+            m, iterations=30, warm_start=False, contact_cap=0), PEG_W,
+        PEG_FRAMES, PEG_SUBSTEPS, PEG_DT, "peg insertion", peg_gate)
+
+    def mass_gate(state):
+        z = state.body_q.view(MASS_W, 2, 7)[..., 2]
+        g = dict(light_err_max=float((z[:, 0] - 0.1).abs().max()),
+                 heavy_err_max=float((z[:, 1] - 0.3).abs().max()))
+        if not (g["light_err_max"] < 0.01 and g["heavy_err_max"] < 0.012):
+            raise AssertionError(f"mass ratio: gates fail {g}")
+        return g
+    out["mass_ratio"] = manifold_phase(
+        dev, mass_ratio_scene, lambda m: nt.SolverKamino(
+            m, iterations=32, contact_cap=0), MASS_W, MASS_FRAMES, SUBSTEPS,
+        DT, "Kamino mass ratio", mass_gate, b2=False)
+    return out
+
+
+def shape_kernel_entries(man, b1_src, b2_src):
+    """The kernels line's entries of phase 48: B1 at d = 6 (the peg) and
+    d = 12 (the Kamino stack), B2 at (72, 0, 6) with 30 iterations."""
+    out = []
+    for key, path in (("peg", "peg insertion x 4096, persistent manifolds, "
+                       "SolverMuJoCo (phase 48)"),
+                      ("mass_ratio", "Kamino mass ratio x 1024, persistent "
+                       "manifolds (phase 48)")):
+        r = man[key]
+        d, n = r["b1"]["d"], r["worlds"]
+        from newton_tpu_torch.solvers.generalized import linalg
+        inst = linalg.kernel_instance(d)
+        out.append(dict(
+            name=f"chol_inv_solve [{inst}] d={d} W={n}", **b1_src,
+            instance=inst, path=path, launches=r["launches"][0],
+            max_abs_err=r["paths"]["b1 group 0"][0], ms=r["b1"]["ms"],
+            plain_ms=r["b1"]["plain_ms"],
+            **bound_fields("chol_inv_solve", r["b1"]["ms"], d=d, W=n),
+            library_ms=r["b1"]["library_ms"]))
+    b2 = man["peg"]["b2"]
+    c, nl, d = b2["shape"]
+    out.append(dict(
+        name=f"pgs_solve_fused [{b2['instance']}] {b2['shape']} W={PEG_W}",
+        **b2_src, instance=b2["instance"],
+        path="peg insertion x 4096: 4 walls x 16 box-box + 8 plane-box "
+             "slots, contact_cap=0, 30 iterations (phase 48)",
+        launches=man["peg"]["launches"][1], max_abs_err=b2["lam_err"],
+        ms=b2["ms"], plain_ms=b2["plain_ms"],
+        **bound_fields("pgs_solve_fused", b2["ms"], c=c, nl=nl, d=d,
+                       W=PEG_W, iters=30)))
+    return out
+
+
 def pgs_smem(rec):
     from newton_tpu_torch import _kernels
     args, kw = rec
@@ -6112,7 +6841,9 @@ def kernel_info():
             ("B2 (2, 0, 6)", lib.pgs_kernel_info, (2, 0, 6)),
             ("B1 d=36", lib.chol_kernel_info, (36,)),
             ("B2 (32, 0, 36)", lib.pgs_kernel_info, (32, 0, 36)),
-            ("B2 (288, 0, 36)", lib.pgs_kernel_info, (288, 0, 36))):
+            ("B2 (288, 0, 36)", lib.pgs_kernel_info, (288, 0, 36)),
+            ("B1 d=12", lib.chol_kernel_info, (12,)),
+            ("B2 (72, 0, 6)", lib.pgs_kernel_info, (72, 0, 6))):
         regs, blocks = ctypes.c_int(0), ctypes.c_int(0)
         _kernels.check(fn(*shape, ctypes.addressof(regs),
                           ctypes.addressof(blocks)), label)
@@ -6666,6 +7397,42 @@ def main():
           f"m on {card}", flush=True)
     mark("43-44")
 
+    shp = phase_shapes(dev)
+    results["shapes"] = shp
+    print("[45 cones and ellipsoids x 4096] " + "; ".join(
+        f"{k}: gates {v['gates']}, vs CPU {v['vs_cpu']}, operations a "
+        f"collide {v['ops']}, host syncs {v['host_syncs_per_substep']}, "
+        f"{v['env_steps_per_s']:.1f} env-steps/s" for k, v in shp.items())
+        + f" on {card}", flush=True)
+    mark("45")
+
+    pile, sap = phase_pile_sap(dev)
+    results["box_pile"], results["sap"] = pile, sap
+    print(f"[46 dynamic box pile x {PILE_W}] gates "
+          f"{pile['gates']}, slots a world "
+          f"{pile['slots_per_world']:.0f} (static "
+          f"{pile['static_slots_per_world']}), dropped per frame "
+          f"{pile['broad_phase_dropped_per_frame']}, vs CPU "
+          f"{pile['vs_cpu']}, host syncs {pile['host_syncs_per_substep']}, "
+          f"peak {pile['peak_memory_bytes'] / 2**30:.2f} GiB, "
+          f"{pile['env_steps_per_s']:.1f} env-steps/s on {card}", flush=True)
+    print(f"[47 SAP x {PILE_W}] {sap['checks']}, collide ms "
+          f"{sap['collide_ms']} on {card}", flush=True)
+    mark("46-47")
+
+    man = phase_manifolds(dev)
+    results["manifolds"] = man
+    print("[48 persistent manifolds] " + "; ".join(
+        f"{k}: launches {v['launches']}, gates {v['gates']}, vs CPU "
+        f"{v['vs_cpu']}, B1 d={v['b1']['d']} {v['b1']['ms']:.4f} ms"
+        + (f", B2 {v['b2']['shape']} {v['b2']['instance']} lam err "
+           f"{v['b2']['lam_err']:.3g} {v['b2']['ms']:.4f} ms"
+           if "b2" in v else "")
+        + f", host syncs {v['host_syncs_per_substep']}, "
+        f"{v['env_steps_per_s']:.1f} env-steps/s" for k, v in man.items())
+        + f" on {card}", flush=True)
+    mark("48")
+
     results["kernel_info"] = kernel_info()
     print("[phase seconds] " + json.dumps(
         {k: round(v, 1) for k, v in results["phase_s"].items()}), flush=True)
@@ -6881,6 +7648,7 @@ def main():
     kernels += slice_kernel_entries(eq, ws, urdf, b1_src, b2_src)
     kernels += rest_kernel_entries(nqp, imp, ten, mus, kam, b1_src, b2_src)
     kernels += free_body_kernel_entries(conv, mnt, tower, b1_src, b2_src)
+    kernels += shape_kernel_entries(man, b1_src, b2_src)
     print(f"[bounds] H100 SXM peaks {PEAK_BYTES_PER_S / 1e12:g} TB/s, "
           f"{PEAK_F32_FLOPS / 1e12:g} TFLOP/s float32 (700 W); this card: "
           f"{card}", flush=True)

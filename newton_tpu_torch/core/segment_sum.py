@@ -9,6 +9,13 @@ time, with a stable sort, and pads each destination's list to the largest
 degree with a sentinel that reads an appended zero row. Each sum is then
 one gather and one ``sum`` over the padded axis: a PyTorch reduction with
 no atomics, adding in the same order every run.
+
+Where the destinations are a device tensor that changes every call (the
+dynamic-pair pipeline reassigns its contact slots every frame),
+``DynamicOrderSum`` sorts them on the device with a stable sort, finds
+each destination's run by binary search and reduces each run in sorted
+(= term) order with ``torch.segment_reduce``: no float atomics, no host
+sync (no degree is read back), the same bits every run.
 """
 
 from __future__ import annotations
@@ -16,7 +23,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["FixedOrderSum", "soft_contact_sum", "check_static_slots"]
+__all__ = ["FixedOrderSum", "DynamicOrderSum", "soft_contact_sum",
+           "check_static_slots"]
 
 
 class FixedOrderSum:
@@ -56,6 +64,32 @@ class FixedOrderSum:
         g = ext.index_select(dim, self.table.reshape(-1))
         g = g.unflatten(dim, (self.n_dest, self.max_degree))
         return g.sum(dim + 1)
+
+
+class DynamicOrderSum:
+    """``out[d] = sum of terms[i] with dst[i] == d``, each destination's
+    terms added in ascending term order, for destinations ``dst``
+    (n_terms,) on the device (negative: dropped). The order is planned
+    once per ``dst`` (one stable sort, one binary search) and serves every
+    call with those destinations."""
+
+    def __init__(self, dst: torch.Tensor, n_dest: int):
+        self.n_terms, self.n_dest = dst.shape[0], int(n_dest)
+        key = torch.where(dst < 0, self.n_dest, dst.long())
+        sk, self.perm = torch.sort(key, stable=True)
+        self.offsets = torch.searchsorted(
+            sk, torch.arange(self.n_dest + 1, device=dst.device))
+
+    def __call__(self, terms: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """Sum ``terms`` (its axis ``dim`` of length n_terms) into
+        (n_dest,) along that axis."""
+        dim = dim % terms.dim()
+        if terms.shape[dim] != self.n_terms:
+            raise ValueError(f"expected {self.n_terms} terms along axis "
+                             f"{dim}, got {terms.shape[dim]}")
+        g = terms.index_select(dim, self.perm).movedim(dim, 0)
+        return torch.segment_reduce(g, "sum", offsets=self.offsets, axis=0,
+                                    unsafe=True).movedim(0, dim)
 
 
 def soft_contact_sum(structure, n_particles: int, device) -> FixedOrderSum:

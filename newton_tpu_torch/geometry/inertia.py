@@ -8,6 +8,7 @@ import numpy as np
 
 __all__ = ["compute_sphere_inertia", "compute_box_inertia",
            "compute_capsule_inertia", "compute_cylinder_inertia",
+           "compute_cone_inertia", "compute_ellipsoid_inertia",
            "transform_inertia"]
 
 
@@ -49,6 +50,26 @@ def compute_cylinder_inertia(density: float, r: float, h: float):
     Izz = 0.5 * m * r * r
     Ixx = m * ((2 * h) ** 2 / 12.0 + r * r / 4.0)
     return m, np.zeros(3), np.diag([Ixx, Ixx, Izz])
+
+
+def compute_cone_inertia(density: float, r: float, h: float):
+    """Solid cone of half-height h along Z, apex at +h, base at -h; its
+    center of mass lies at -h/2 (a quarter of the height above the
+    base)."""
+    H = 2.0 * h
+    m = density * np.pi * r * r * H / 3.0
+    Izz = (3.0 / 10.0) * m * r * r
+    Ixx = m * (3.0 / 20.0 * r * r + 3.0 / 80.0 * H * H)
+    return m, np.array([0.0, 0.0, -h / 2.0]), np.diag([Ixx, Ixx, Izz])
+
+
+def compute_ellipsoid_inertia(density: float, a: float, b: float,
+                              c: float):
+    """Solid ellipsoid with radii (a, b, c) along the shape axes."""
+    m = density * (4.0 / 3.0) * np.pi * a * b * c
+    return m, np.zeros(3), np.diag([m / 5.0 * (b * b + c * c),
+                                    m / 5.0 * (a * a + c * c),
+                                    m / 5.0 * (a * a + b * b)])
 
 
 def transform_inertia(m: float, I: np.ndarray, p: np.ndarray,

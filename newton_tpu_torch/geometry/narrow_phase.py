@@ -8,11 +8,16 @@ normal (..., K, 3), depth (..., K))``; the normal points from shape0 to
 shape1 and depth > 0 means overlap (thickness is the caller's).
 
 Shape frames: PLANE has normal +Z; SPHERE radius = scale[0]; BOX
-half-extents = scale; CAPSULE and CYLINDER radius = scale[0], half-height =
-scale[1], axis +Z. A cylinder collides as the capsule of the same radius
-and half-height (the JAX package's model, kept for parity: its flat end
-caps engage one radius early), except against a plane, where its rim
-points are exact.
+half-extents = scale; CAPSULE, CYLINDER and CONE radius = scale[0],
+half-height = scale[1], axis +Z (the cone's apex at +h); ELLIPSOID radii =
+scale. A cylinder collides as the capsule of the same radius and
+half-height (the JAX package's model, kept for parity: its flat end caps
+engage one radius early, ROADMAP C.12), except against a plane, where its
+rim points are exact. Every other pair of the six analytic types without
+a function of its own (a cone or an ellipsoid against a box, capsule,
+cylinder or cone) runs through the support-map MPR of
+``geometry/mpr.py`` (``contact_fn_for``'s fallback). Pairs with a mesh,
+convex hull, heightfield or SDF raise (ROADMAP A.6).
 """
 
 from __future__ import annotations
@@ -22,8 +27,10 @@ from typing import Dict, Tuple
 import torch
 
 from ..math import (
+    cross,
     orthonormal_basis,
     quat_rotate,
+    quat_rotate_inv,
     quat_to_matrix,
     transform_point,
     transform_point_inv,
@@ -32,27 +39,38 @@ from .types import GeoType
 
 __all__ = ["pair_slot_count", "PRIMITIVE_FNS", "contact_fn_for",
            "plane_sphere", "plane_capsule", "plane_box", "plane_cylinder",
+           "plane_cone", "plane_ellipsoid",
            "sphere_sphere", "sphere_capsule", "sphere_box",
-           "sphere_cylinder", "capsule_capsule", "capsule_box",
-           "capsule_cylinder", "box_box", "box_cylinder"]
+           "sphere_cylinder", "sphere_ellipsoid", "capsule_capsule",
+           "capsule_box", "capsule_cylinder", "box_box", "box_cylinder",
+           "ellipsoid_ellipsoid"]
 
 _EPS = 1e-9     # the JAX package's guard on every division and normal
 
 _P, _S, _B = int(GeoType.PLANE), int(GeoType.SPHERE), int(GeoType.BOX)
-_C, _CY = int(GeoType.CAPSULE), int(GeoType.CYLINDER)
+_C, _CY, _CO = int(GeoType.CAPSULE), int(GeoType.CYLINDER), int(GeoType.CONE)
+_M, _E, _CX = int(GeoType.MESH), int(GeoType.ELLIPSOID), int(GeoType.CONVEX)
+_HF = int(GeoType.HFIELD)
 
-# slots per pair class among the shape types the builder takes (the JAX
-# package's values: they fix the contact slot layout)
+# slots per pair class, keyed (lower type, higher type): the JAX package's
+# table, which fixes the contact slot layout; 4 for a pair not listed
 _SLOTS: Dict[Tuple[int, int], int] = {
-    (_P, _S): 1, (_P, _B): 8, (_P, _C): 2, (_P, _CY): 4,
-    (_S, _S): 1, (_S, _B): 1, (_S, _C): 1, (_S, _CY): 1,
-    (_B, _B): 16, (_B, _C): 4, (_B, _CY): 4,
-    (_C, _C): 2, (_C, _CY): 2, (_CY, _CY): 2,
+    (_P, _S): 1, (_P, _B): 8, (_P, _C): 2, (_P, _CY): 4, (_P, _CO): 4,
+    (_P, _E): 1, (_P, _M): 8, (_P, _CX): 8,
+    (_S, _S): 1, (_S, _B): 1, (_S, _C): 1, (_S, _CY): 1, (_S, _CO): 1,
+    (_S, _E): 1, (_S, _M): 4, (_S, _CX): 1,
+    (_B, _B): 16, (_B, _C): 4, (_C, _C): 2, (_B, _M): 16, (_C, _M): 8,
+    (_M, _M): 16, (_CY, _CY): 2, (_B, _CY): 4, (_C, _CY): 2, (_E, _E): 1,
+    (_B, _CX): 5, (_CX, _CX): 5, (_C, _CX): 8,
+    (_HF, _S): 1, (_HF, _C): 2, (_HF, _B): 8, (_HF, _M): 16,
+    # the support-map MPR pairs (contact_fn_for's fallback)
+    (_C, _CO): 2, (_CY, _CO): 4, (_CO, _CO): 4, (_B, _CO): 4,
+    (_CO, _E): 1, (_B, _E): 4, (_C, _E): 1, (_CY, _E): 2,
 }
 
 
 def pair_slot_count(t0: int, t1: int) -> int:
-    return _SLOTS[(min(int(t0), int(t1)), max(int(t0), int(t1)))]
+    return _SLOTS.get((min(int(t0), int(t1)), max(int(t0), int(t1))), 4)
 
 
 def _plane_sdf(X_plane, p_world):
@@ -130,6 +148,19 @@ def plane_cylinder(X0, X1, s0, s1):
     """Four rim points: on each cap circle the point nearest the plane and
     the one opposite it (an axis along the normal takes the basis
     tangent)."""
+    axis, radial = _axis_radial(X0, X1)
+    r, h = s1[..., 0:1], s1[..., 1:2]
+    top = X1[..., 0:3] + axis * h
+    bot = X1[..., 0:3] - axis * h
+    return _plane_points(X0, torch.stack(
+        [top + radial * r, bot + radial * r, top - radial * r,
+         bot - radial * r], dim=-2))
+
+
+def _axis_radial(X0, X1):
+    """The shape's world axis (its +Z), and the unit direction normal to it
+    that points toward the plane (an axis along the plane normal takes the
+    basis tangent t1)."""
     ez = torch.zeros_like(X1[..., 0:3])
     ez[..., 2] = 1.0
     axis = quat_rotate(X1[..., 3:7], ez)
@@ -138,14 +169,47 @@ def plane_cylinder(X0, X1, s0, s1):
     rn = torch.linalg.vector_norm(radial, dim=-1, keepdim=True)
     t1, _ = orthonormal_basis(axis)
     radial = torch.where(rn > 1e-6, radial / torch.clamp(rn, min=_EPS), t1)
-    r, h = s1[..., 0:1], s1[..., 1:2]
-    top = X1[..., 0:3] + axis * h
-    bot = X1[..., 0:3] - axis * h
-    pts = torch.stack([top + radial * r, bot + radial * r,
-                       top - radial * r, bot - radial * r], dim=-2)
+    return axis, radial
+
+
+def _plane_points(X0, pts):
+    """Contacts of world points (..., K, 3) against a plane: each point
+    pushed half its depth along the normal."""
     d, n2 = _plane_sdf(X0[..., None, :], pts)
     pos = pts - n2 * (d[..., None] * 0.5)
     return pos, n2.expand_as(pos), -d
+
+
+def plane_cone(X0, X1, s0, s1):
+    """Four slots: the apex and three base-rim points 120 degrees apart,
+    the first the rim point nearest the plane."""
+    axis, radial = _axis_radial(X0, X1)
+    r, h = s1[..., 0:1], s1[..., 1:2]
+    apex = X1[..., 0:3] + axis * h
+    base = X1[..., 0:3] - axis * h
+    side = cross(axis, radial)
+    pts = torch.stack([apex, base + radial * r,
+                       base - 0.5 * radial * r + 0.866 * side * r,
+                       base - 0.5 * radial * r - 0.866 * side * r], dim=-2)
+    return _plane_points(X0, pts)
+
+
+def _ellipsoid_support(X, s, d):
+    """World support point of ellipsoids of radii s along world
+    directions d: s v / |v| with v = s (R^T d)."""
+    v = quat_rotate_inv(X[..., 3:7], d) * s
+    return transform_point(X, s * v / torch.clamp(
+        torch.linalg.vector_norm(v, dim=-1, keepdim=True), min=_EPS))
+
+
+def plane_ellipsoid(X0, X1, s0, s1):
+    """One slot: the ellipsoid's support point along -n against the
+    plane."""
+    _, n = _plane_sdf(X0, X1[..., 0:3])
+    p = _ellipsoid_support(X1, s1, -n)
+    d, n2 = _plane_sdf(X0, p)
+    pos = p - n2 * (d[..., None] * 0.5)
+    return pos[..., None, :], n2[..., None, :], -d[..., None]
 
 
 def _closest_point_segment_segment(p1, q1, p2, q2):
@@ -205,6 +269,34 @@ def sphere_box(X0, X1, s0, s1):
     depth = s0[..., 0] - d
     pos = X0[..., 0:3] + n * (s0[..., 0] - 0.5 * depth)[..., None]
     return pos[..., None, :], n[..., None, :], depth[..., None]
+
+
+def _unit(d):
+    """d / max(|d|, eps) (the JAX package's centre-line normal)."""
+    return d / torch.clamp(torch.linalg.vector_norm(d, dim=-1, keepdim=True),
+                           min=_EPS)
+
+
+def sphere_ellipsoid(X0, X1, s0, s1):
+    """One slot, along the centre line: the ellipsoid's support point
+    toward the sphere against the sphere's radius (the JAX package's
+    approximation)."""
+    n = _unit(X1[..., 0:3] - X0[..., 0:3])
+    sup = _ellipsoid_support(X1, s1, -n)
+    depth = s0[..., 0] - ((sup - X0[..., 0:3]) * n).sum(-1)
+    pos = X0[..., 0:3] + n * (s0[..., 0] - 0.5 * depth)[..., None]
+    return pos[..., None, :], n[..., None, :], depth[..., None]
+
+
+def ellipsoid_ellipsoid(X0, X1, s0, s1):
+    """One slot, along the centre line: the gap between the two support
+    points toward each other (the JAX package's approximation)."""
+    n = _unit(X1[..., 0:3] - X0[..., 0:3])
+    sup0 = _ellipsoid_support(X0, s0, n)
+    sup1 = _ellipsoid_support(X1, s1, -n)
+    depth = ((sup0 - sup1) * n).sum(-1)
+    return (0.5 * (sup0 + sup1))[..., None, :], n[..., None, :], \
+        depth[..., None]
 
 
 def capsule_capsule(X0, X1, s0, s1):
@@ -317,9 +409,12 @@ PRIMITIVE_FNS = {
     (_P, _C): plane_capsule,
     (_P, _B): plane_box,
     (_P, _CY): plane_cylinder,
+    (_P, _CO): plane_cone,
+    (_P, _E): plane_ellipsoid,
     (_S, _S): sphere_sphere,
     (_S, _C): sphere_capsule,
     (_S, _B): sphere_box,
+    (_S, _E): sphere_ellipsoid,
     (_S, _CY): sphere_cylinder,
     (_C, _C): capsule_capsule,
     (_C, _B): capsule_box,
@@ -327,17 +422,25 @@ PRIMITIVE_FNS = {
     (_C, _CY): capsule_cylinder,
     (_CY, _CY): capsule_capsule,
     (_B, _CY): box_cylinder,
+    (_E, _E): ellipsoid_ellipsoid,
 }
 
 
 def contact_fn_for(t0: int, t1: int):
-    """(fn, swapped, slots) for a type pair; raises for pair classes the
-    port does not have yet."""
+    """(fn, swapped, slots) for a type pair. A pair of the six analytic
+    types without a function of its own gets the support-map MPR function
+    of the sorted pair (``swapped`` when t0 > t1, as the JAX package
+    keys it); a pair with any other type raises."""
     key = (int(t0), int(t1))
     if key in PRIMITIVE_FNS:
         return PRIMITIVE_FNS[key], False, pair_slot_count(t0, t1)
     if key[::-1] in PRIMITIVE_FNS:
         return PRIMITIVE_FNS[key[::-1]], True, pair_slot_count(t0, t1)
+    from .support import SUPPORT_TYPES, support_contact_fn
+    if key[0] in SUPPORT_TYPES and key[1] in SUPPORT_TYPES:
+        k = pair_slot_count(t0, t1)
+        lo, hi = min(key), max(key)
+        return support_contact_fn(lo, hi, k), key[0] > key[1], k
     raise NotImplementedError(
         f"contact pair {GeoType(t0).name}-{GeoType(t1).name} is not ported "
-        "yet")
+        "yet (mesh, convex hull, heightfield and SDF shapes: ROADMAP A.6)")

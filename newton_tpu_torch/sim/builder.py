@@ -4,7 +4,7 @@ Port of the subset of ``newton_tpu/sim/builder.py`` that the gymnasium
 robots, the reference's replicated-world KPI scenes, rods and the MPM path
 drive: bodies, articulations, free/revolute/prismatic/fixed/ball joints and
 D6 joints with linear and angular axes, ball-jointed rods (``add_rod``),
-fixed tendons, plane/sphere/box/capsule/cylinder shapes with
+fixed tendons, plane/sphere/box/capsule/cylinder/cone/ellipsoid shapes with
 density-driven mass, particles, cloth and soft topology (springs and
 seams, membrane triangles, bending edges, tetrahedra, the cloth grid and
 mesh, the soft grid and mesh), world contexts (``begin_world``,
@@ -45,7 +45,9 @@ from ..core.types import MAXVAL, Axis, AxisType, axis_to_vec3
 from ..geometry.inertia import (
     compute_box_inertia,
     compute_capsule_inertia,
+    compute_cone_inertia,
     compute_cylinder_inertia,
+    compute_ellipsoid_inertia,
     compute_sphere_inertia,
     transform_inertia,
 )
@@ -76,6 +78,9 @@ _SHAPE_MASS = {
     GeoType.CAPSULE: lambda rho, s: compute_capsule_inertia(rho, s[0], s[1]),
     GeoType.CYLINDER: lambda rho, s: compute_cylinder_inertia(rho, s[0],
                                                               s[1]),
+    GeoType.CONE: lambda rho, s: compute_cone_inertia(rho, s[0], s[1]),
+    GeoType.ELLIPSOID: lambda rho, s: compute_ellipsoid_inertia(
+        rho, s[0], s[1], s[2]),
     GeoType.NONE: None,                 # sites: massless frame markers
 }
 # per-dof lists of the builder (one entry per dof, in dof order)
@@ -1214,6 +1219,25 @@ class ModelBuilder:
                               scale=(radius, half_height, 0.0), cfg=cfg,
                               key=key)
 
+    def add_shape_cone(self, body: int, xform=None, radius: float = 1.0,
+                       half_height: float = 0.5, axis: AxisType = Axis.Z,
+                       cfg: Optional[ShapeConfig] = None,
+                       key: Optional[str] = None) -> int:
+        """Solid cone along +Z in the shape frame (apex at +half_height,
+        base disc of ``radius`` at -half_height); ``axis`` rotates it."""
+        return self.add_shape(body, GeoType.CONE,
+                              _axis_shape_xform(xform, axis),
+                              scale=(radius, half_height, 0.0), cfg=cfg,
+                              key=key)
+
+    def add_shape_ellipsoid(self, body: int, xform=None, rx: float = 1.0,
+                            ry: float = 1.0, rz: float = 1.0,
+                            cfg: Optional[ShapeConfig] = None,
+                            key: Optional[str] = None) -> int:
+        """Solid ellipsoid of radii (rx, ry, rz) along the shape axes."""
+        return self.add_shape(body, GeoType.ELLIPSOID, xform,
+                              scale=(rx, ry, rz), cfg=cfg, key=key)
+
     def add_rod(self, start_pos, end_pos, segments: int = 8,
                 radius: float = 0.02, density: float = 1000.0,
                 bend_ke: float = 100.0, bend_kd: float = 1.0,
@@ -2010,14 +2034,18 @@ class ModelBuilder:
         return pairs, len(pairs)
 
     def _collision_radius(self) -> np.ndarray:
-        """Per-shape bounding radius: sphere r, box |half-extents|, capsule
-        and cylinder r + half height, plane MAXVAL."""
+        """Per-shape bounding radius: sphere r, box |half-extents|, capsule,
+        cylinder and cone r + half height, ellipsoid its largest radius,
+        plane MAXVAL."""
         typ = np.asarray(self.shape_type, dtype=np.int64).reshape(-1)
         sc = np.asarray(self.shape_scale, dtype=np.float64).reshape(-1, 3)
         return np.select(
             [typ == int(GeoType.SPHERE), typ == int(GeoType.BOX),
-             np.isin(typ, [int(GeoType.CAPSULE), int(GeoType.CYLINDER)])],
-            [sc[:, 0], np.linalg.norm(sc, axis=1), sc[:, 0] + sc[:, 1]],
+             np.isin(typ, [int(GeoType.CAPSULE), int(GeoType.CYLINDER),
+                           int(GeoType.CONE)]),
+             typ == int(GeoType.ELLIPSOID)],
+            [sc[:, 0], np.linalg.norm(sc, axis=1), sc[:, 0] + sc[:, 1],
+             sc.max(axis=1, initial=0.0)],
             MAXVAL)
 
     # ------------------------------------------------------------------
@@ -2082,6 +2110,7 @@ class ModelBuilder:
         st.shape_body = np.asarray(self.shape_body, dtype=i32)
         st.shape_type = np.asarray(self.shape_type, dtype=i32)
         st.shape_flags = np.asarray(self.shape_flags, dtype=i32)
+        st.shape_filter_pairs = set(self.shape_collision_filter_pairs)
         st.shape_collision_group = np.asarray(self.shape_collision_group,
                                               dtype=i32)
         st.body_key = list(self.body_key)

@@ -10,12 +10,19 @@ shape) pair of ``ModelStructure.soft_pairs``; their normal points out of
 the shape (the direction that pushes the particle free) and their depth is
 the particle radius minus its signed distance. A Contacts built without
 soft capacity leaves the soft fields ``None`` (``soft_contact_max == 0``).
+
+``broad_phase_dropped`` counts the overlapping candidate pairs that the
+dynamic-pair pipeline's budgets had no slot for this call, and
+``mesh_samples_dropped`` the mesh samples beyond a pair's slots (0 until
+mesh contacts are ported): device scalars, read only when the caller
+asks. ``custom`` carries namespaced per-slot data, such as the
+persistent manifolds' anchors ``manifold:a0/a1/n0``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -39,10 +46,16 @@ class Contacts:
     soft_contact_position: Optional[torch.Tensor] = None  # (P, 3)
     soft_contact_normal: Optional[torch.Tensor] = None    # (P, 3) outward
     soft_contact_depth: Optional[torch.Tensor] = None     # (P,) > 0 inside
+    broad_phase_dropped: Optional[torch.Tensor] = None    # () int32
+    mesh_samples_dropped: Optional[torch.Tensor] = None   # () int32
+    custom: Dict[str, Any] = field(default_factory=dict)
     # the ModelStructure whose static pipeline (CollisionPipeline) filled
     # these slots, in its slot order; None for Contacts made any other way
     slots: Optional[object] = field(default=None, repr=False,
                                     compare=False)
+    # True where the dynamic-pair pipeline filled the slots: which shape
+    # pair a slot holds changes from call to call
+    dynamic: bool = field(default=False, repr=False, compare=False)
 
     @property
     def rigid_contact_max(self) -> int:
@@ -71,6 +84,10 @@ class Contacts:
             rigid_contact_normal=torch.zeros((*batch, C, 3), **z),
             rigid_contact_depth=torch.zeros((*batch, C), **z),
             rigid_contact_force=torch.zeros((*batch, C, 3), **z),
+            broad_phase_dropped=torch.zeros(batch, dtype=torch.int32,
+                                            device=device),
+            mesh_samples_dropped=torch.zeros(batch, dtype=torch.int32,
+                                             device=device),
         )
 
     def to(self, device) -> "Contacts":

@@ -98,6 +98,8 @@ class ModelStructure:
         self.body_key: List[str] = []
         self.joint_key: List[str] = []
         self.shape_key: List[str] = []
+        # shape pairs excluded from collision, (lower, higher) index
+        self.shape_filter_pairs: set = set()
 
         # collision candidates: pairs, cumulative slot offsets, slot maps
         self.candidate_pairs = np.zeros((0, 2), dtype=np.int32)

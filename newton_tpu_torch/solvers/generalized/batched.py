@@ -829,6 +829,18 @@ def _has_contacts(grp, contacts) -> bool:
             and grp.plan is not None)
 
 
+def _refuse_dynamic(contacts):
+    """The solver's contact plans read each slot's fixed pair: Contacts of
+    the dynamic-pair pipeline, whose slots change every call, raise (the
+    JAX package documents that its plan needs static mode,
+    sim/collide.py:123-127, but computes with whatever the slots hold)."""
+    if getattr(contacts, "dynamic", False):
+        raise ValueError(
+            "the generalized solvers' per-slot contact plan needs the static "
+            "pipeline's slots: build CollisionPipeline(model, mode='static') "
+            "(dynamic-pair Contacts reassign their slots every call)")
+
+
 def _contact_rows(grp, contacts, take):
     """The group's contact entries of each env, or None without a contact
     system."""
@@ -857,6 +869,7 @@ def step_batched(solver, state_b: State, control_b=None, contacts_b=None,
     Kamino's factored matrix (``"admm_factor"``). ``report``, when a dict,
     receives each contact entry's force (``"force"``, (W, c, 3)), the
     force report of ``step_with_contacts``."""
+    _refuse_dynamic(contacts_b)
     if not solver._model_is_row:
         raise NotImplementedError(
             "step_batched takes a one-world model of one articulation whose "
@@ -1009,6 +1022,7 @@ def step(solver, state: State, control: Optional[Control] = None,
     per group under ``record["groups"][gi]``. ``report``, when a dict,
     receives each group's per-entry contact forces under
     ``report[gi]``."""
+    _refuse_dynamic(contacts)
     if solver.sleep_threshold > 0.0 and "sleep:count:0" not in state.custom:
         # counters allocated lazily, as the JAX package's step does
         state = solver.init_state(state)

@@ -19,7 +19,9 @@ The JAX package sums the corrections with ``segment_sum`` and
 ``.at[].add``; here every such sum is a ``FixedOrderSum`` over tables
 built once from the joint list, the particle constraint lists and the
 static pipeline's contact slots, so two runs of a substep are equal bit
-for bit on the card (``index_add_`` would add in no fixed order). The
+for bit on the card (``index_add_`` would add in no fixed order); the
+dynamic-pair pipeline's Contacts, whose slots change every call, are
+summed by a ``DynamicOrderSum`` planned once per substep on the device. The
 particle-particle candidates come from the hash grid's fixed budget per
 cell; the candidates beyond it are counted in
 ``State.custom["xpbd:grid_overflow"]``, not dropped in silence.
@@ -35,8 +37,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core.segment_sum import (FixedOrderSum, check_static_slots,
-                                soft_contact_sum)
+from ..core.segment_sum import (DynamicOrderSum, FixedOrderSum,
+                                check_static_slots, soft_contact_sum)
 from ..math import (
     cross,
     quat_conjugate,
@@ -187,7 +189,8 @@ class SolverXPBD(SolverBase):
         lam_n = torch.zeros(C, dtype=state_in.body_q.dtype,
                             device=state_in.body_q.device)
         if B and C:
-            check_static_slots(contacts, model.structure, rigid=True)
+            if not getattr(contacts, "dynamic", False):
+                check_static_slots(contacts, model.structure, rigid=True)
             cb = plan.contact_bodies(model, contacts)
             cb.anchors = plan.contact_local_anchors(model, state_in,
                                                     contacts, cb)
@@ -204,7 +207,8 @@ class SolverXPBD(SolverBase):
                 custom["xpbd:grid_overflow"] = over
             soft = None
             if S:
-                check_static_slots(contacts, model.structure, soft=True)
+                if not getattr(contacts, "dynamic", False):  # soft: static
+                    check_static_slots(contacts, model.structure, soft=True)
                 soft = pp.soft_frame(model, state_in, contacts, dt)
         # 3. positional iterations: averaged Jacobi over all constraints
         contact_scale = self.rigid_contact_relaxation / self.relaxation
@@ -221,7 +225,7 @@ class SolverXPBD(SolverBase):
                     vals = torch.cat([vals[:, 0:6] * contact_scale,
                                       vals[:, 6:7]], -1)
                     rows.append(vals)
-                acc = plan.sums(C)[1](torch.cat(rows))
+                acc = plan.sum_rows(rows, C, cb)
                 denom = torch.clamp(acc[:, 6:7], min=1.0)
                 x = x + self.relaxation * acc[:, 0:3] / denom
                 dq = quat_mul(torch.cat([acc[:, 3:6] / denom,
@@ -404,6 +408,15 @@ class _XPBDPlan:
                 linear=torch.tensor([True, True, False, False],
                                     device=dev)[:, None, None],
                 sum=FixedOrderSum(self._jdst, B, dev))
+
+    def sum_rows(self, rows, C: int, cb):
+        """The joint rows' and (with C contact slots) the contact rows'
+        sum into the bodies: one fixed-order table over both for the
+        static pipeline's slots; the joints' table plus the contacts'
+        per-call sum (``cb.sum``) for dynamic-pair Contacts."""
+        if not (C and cb.dynamic):
+            return self.sums(C)[1](torch.cat(rows))
+        return self.sums(0)[1](rows[0]) + cb.sum(rows[1])
 
     def sums(self, C: int):
         """The fixed-order sums of a substep with C contact slots: (the
@@ -602,10 +615,19 @@ class _XPBDPlan:
         dyn1 = (contacts.rigid_contact_shape1 >= 0) & (b1r >= 0)
         mu = model.shape_material_mu
         e = model.shape_material_restitution
+        dynamic = getattr(contacts, "dynamic", False)
+        if dynamic:
+            # the slots' bodies change every call: the sum's order is
+            # planned from this call's destinations, on the device
+            csum = DynamicOrderSum(torch.cat([torch.where(dyn1, b1r, -1),
+                                              torch.where(dyn0, b0r, -1)]),
+                                   model.body_count)
+        else:
+            csum = self.sums(contacts.rigid_contact_max)[0]
         return SimpleNamespace(
             b0=torch.where(dyn0, b0r, 0), b1=torch.where(dyn1, b1r, 0),
-            dyn0=dyn0[:, None], dyn1=dyn1[:, None],
-            sum=self.sums(contacts.rigid_contact_max)[0],
+            dyn0=dyn0[:, None], dyn1=dyn1[:, None], sum=csum,
+            dynamic=dynamic,
             mu=0.5 * (mu[s0] + mu[s1]), e=0.5 * (e[s0] + e[s1]))
 
     def contact_local_anchors(self, model: Model, state_in: State,

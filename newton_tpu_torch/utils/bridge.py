@@ -36,7 +36,8 @@ from ..sim.tendon import SpatialTendonPath
 from ..solvers.generalized.actuation import MJCActuation
 
 __all__ = ["STRUCTURE_FIELDS", "ACTUATION_FIELDS", "STATE_FIELDS",
-           "CONTROL_FIELDS", "CONTACT_FIELDS", "SOFT_CONTACT_FIELDS",
+           "CONTROL_FIELDS", "CONTACT_FIELDS", "CONTACT_COUNTERS",
+           "SOFT_CONTACT_FIELDS",
            "model_from_numpy",
            "model_to_numpy", "state_from_numpy", "state_to_numpy",
            "control_from_numpy", "control_to_numpy", "contacts_from_numpy",
@@ -58,6 +59,7 @@ STRUCTURE_FIELDS = (
     "spring_count", "tri_count", "edge_count", "tet_count", "soft_pairs",
     "soft_contact_max", "eq_world", "eq_type",
     "sten_paths", "sten_key", "muscle_count", "muscle_start",
+    "shape_filter_pairs",
 )
 ACTUATION_FIELDS = ("n", "dof", "coord", "tendon", "sten", "gear",
                     "dyntype", "dynprm", "gaintype", "gainprm", "biastype",
@@ -72,6 +74,8 @@ CONTACT_FIELDS = ("rigid_contact_mask", "rigid_contact_shape0",
                   "rigid_contact_shape1", "rigid_contact_position",
                   "rigid_contact_normal", "rigid_contact_depth",
                   "rigid_contact_force")
+# the device scalars of the dynamic-pair and mesh budgets' overflow
+CONTACT_COUNTERS = ("broad_phase_dropped", "mesh_samples_dropped")
 # present where the contacts have soft capacity (the JAX package's always
 # have them, possibly empty)
 SOFT_CONTACT_FIELDS = ("soft_contact_mask", "soft_contact_particle",
@@ -96,10 +100,12 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
 def _structure_from_dict(d: Dict[str, Any]) -> ModelStructure:
     st = ModelStructure()
     for name in STRUCTURE_FIELDS:
+        if name == "shape_filter_pairs" and name not in d:
+            continue            # none: the structure's empty set
         v = d[name]
         if isinstance(v, np.ndarray):
             v = v.copy()
-        elif isinstance(v, (list, dict)):
+        elif isinstance(v, (list, dict, set)):
             v = type(v)(v)
         setattr(st, name, v)
     # spatial tendon paths: any object with ``elems`` (the JAX package's
@@ -189,16 +195,26 @@ def control_to_numpy(control: Control) -> dict:
 
 def contacts_from_numpy(d: Dict[str, Any], device) -> Contacts:
     """Soft fields are taken where ``d`` has them with a nonzero
-    capacity; otherwise the Contacts has none."""
+    capacity; otherwise the Contacts has none. The overflow counters and
+    the ``custom`` entries are taken where ``d`` has them."""
     soft = {}
     if d.get("soft_contact_mask") is not None and \
             np.asarray(d["soft_contact_mask"]).shape[-1]:
         soft = {n: _tensor(d[n], device) for n in SOFT_CONTACT_FIELDS}
+    counters = {n: _tensor(d[n], device, torch.int32)
+                for n in CONTACT_COUNTERS if d.get(n) is not None}
     return Contacts(**{n: _tensor(d[n], device) for n in CONTACT_FIELDS},
-                    **soft)
+                    **soft, **counters,
+                    custom={k: _tensor(v, device)
+                            for k, v in d.get("custom", {}).items()})
 
 
 def contacts_to_numpy(contacts: Contacts) -> dict:
     names = CONTACT_FIELDS + (SOFT_CONTACT_FIELDS
                               if contacts.soft_contact_max else ())
-    return {n: _numpy(getattr(contacts, n)) for n in names}
+    out = {n: _numpy(getattr(contacts, n)) for n in names}
+    out.update({n: _numpy(getattr(contacts, n)) for n in CONTACT_COUNTERS
+                if getattr(contacts, n) is not None})
+    if contacts.custom:
+        out["custom"] = {k: _numpy(v) for k, v in contacts.custom.items()}
+    return out

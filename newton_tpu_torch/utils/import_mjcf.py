@@ -14,8 +14,8 @@ prismatic joint, one hinge a revolute joint, and slides followed by hinges
 one D6 joint that translates along the slides, then rotates about the
 hinges' common ``pos``. A slide's ``ref`` shifts its limits into
 displacement space and is kept in the ``mjc:qpos_ref`` coordinate
-attribute at that slide's coordinate. Plane/sphere/box/capsule/cylinder
-geoms with contype/conaffinity, ``<site>`` in bodies and the worldbody
+attribute at that slide's coordinate. Plane/sphere/box/capsule/cylinder/
+ellipsoid geoms with contype/conaffinity, ``<site>`` in bodies and the worldbody
 (massless, never colliding), ``<tendon><fixed>`` couplings of hinges and
 ``<spatial>`` tendons through sites and sphere/cylinder wrap geoms (with
 ``sidesite``; a one- or two-value ``springlength`` whose first value is the
@@ -247,7 +247,8 @@ def parse_mjcf(builder, source: str):
     def add_geom(geom: ET.Element, body_idx: int, body_class):
         a = resolve_attrs(geom, "geom", body_class)
         gtype = a.get("type", "sphere")
-        if gtype not in ("plane", "sphere", "box", "capsule", "cylinder"):
+        if gtype not in ("plane", "sphere", "box", "capsule", "cylinder",
+                         "ellipsoid"):
             raise NotImplementedError(
                 f"MJCF geom type {gtype!r} is not supported by the port yet")
         contype = int(_parse_float(a.get("contype"), 1))
@@ -282,7 +283,9 @@ def parse_mjcf(builder, source: str):
                    + 4.0 / 3.0 * math.pi * r ** 3,
                    "cylinder": math.pi * r * r * (2.0 * hh),
                    "box": 8.0 * float(size[0]) * float(size[1])
-                   * float(size[2])}.get(gtype, 0.0)
+                   * float(size[2]),
+                   "ellipsoid": 4.0 / 3.0 * math.pi * float(size[0])
+                   * float(size[1]) * float(size[2])}.get(gtype, 0.0)
             if vol > 1e-12 and m_val > 0.0:
                 cfg.density = m_val / vol
         key = a.get("name")
@@ -303,6 +306,12 @@ def parse_mjcf(builder, source: str):
                                              radius=float(size[0]),
                                              half_height=hh, axis="Z",
                                              cfg=cfg, key=key)
+        elif gtype == "ellipsoid":
+            sidx = builder.add_shape_ellipsoid(body_idx, xform=xf,
+                                               rx=float(size[0]),
+                                               ry=float(size[1]),
+                                               rz=float(size[2]), cfg=cfg,
+                                               key=key)
         else:
             sidx = builder.add_shape_cylinder(body_idx, xform=xf,
                                               radius=float(size[0]),

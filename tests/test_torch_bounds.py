@@ -18,6 +18,9 @@ import chip_smoke
     ("chol_solve", dict(d=6), 192),                        # WELD rows
     ("chol_solve", dict(d=1), 12),                         # mimic row
     ("pgs_solve_fused", dict(c=192, nl=17, d=23), 65824),  # uncompacted
+    ("pgs_solve_fused", dict(c=72, nl=0, d=6, iters=30), 9124),  # the peg
+    ("chol_inv_solve", dict(d=6), 336),                    # the peg
+    ("chol_inv_solve", dict(d=12), 1248),                  # two free boxes
 ])
 def test_bytes_per_env(name, shape, nbytes):
     got, flops = chip_smoke.kernel_cost(name, **shape)
@@ -66,10 +69,21 @@ def test_pgs_flops_count():
                        + 2 * 576 * 23 + 576 * 23 + 17 * 23)
 
 
+def test_pgs_flops_peg():
+    """The peg's B2 (72, 0, 6) at 30 iterations: 216 contact rows, no
+    limit rows, 8 spectral iterations (216 rows >= 192) and 30 sweeps."""
+    r3, d = 216, 6
+    fma = r3 * d * d + 2 * r3 * d + 38 * (2 * r3 * d) + r3 * d
+    assert chip_smoke.kernel_cost("pgs_solve_fused", c=72, nl=0, d=6,
+                                  iters=30)[1] == 2 * fma == 220320
+
+
 @pytest.mark.parametrize("name, shape, by", [
     ("pgs_solve_fused", dict(c=32, nl=17, d=23, W=4096), "bytes"),
     ("pgs_solve_fused", dict(c=192, nl=17, d=23, W=4096), "operations"),
     ("chol_inv_solve", dict(d=23, W=4096), "bytes"),
+    ("pgs_solve_fused", dict(c=72, nl=0, d=6, iters=30, W=4096),
+     "operations"),
     ("mpm_p2g", dict(N=32768, C=13, res=64), "bytes"),
     ("mpm_g2p", dict(N=32768, C=12, active_nodes=14283), "bytes"),
 ])

@@ -172,8 +172,8 @@ def test_pair_function_matches_jax(name):
 def test_pair_contact_fn_and_slots():
     """``contact_fn_for`` returns each new class with the JAX package's
     function order and slot count (plane-box 8, box-box 16, capsule-box 4,
-    plane-cylinder 4, ...), BOX-CAPSULE as capsule_box swapped; an
-    unported pair raises naming itself."""
+    plane-cylinder 4, ...), BOX-CAPSULE as capsule_box swapped; a pair of
+    a type still unported (a mesh) raises naming itself."""
     from newton_tpu.geometry import narrow_phase as j_np
     B, C, CY = GeoType.BOX, GeoType.CAPSULE, GeoType.CYLINDER
     for name, (t0, t1) in PAIRS.items():
@@ -186,8 +186,8 @@ def test_pair_contact_fn_and_slots():
     assert [t_np.pair_slot_count(int(a), int(b)) for a, b in (
         (GeoType.PLANE, B), (B, B), (C, B), (GeoType.PLANE, CY))] \
         == [8, 16, 4, 4]
-    with pytest.raises(NotImplementedError, match="CONE-BOX"):
-        t_np.contact_fn_for(int(GeoType.CONE), int(B))
+    with pytest.raises(NotImplementedError, match="MESH-BOX"):
+        t_np.contact_fn_for(int(GeoType.MESH), int(B))
 
 
 def test_box_box_deepest_corner():

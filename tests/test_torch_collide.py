@@ -89,8 +89,8 @@ def test_pair_function_matches_jax(name):
 
 def test_unported_pair_raises():
     from newton_tpu_torch.geometry.types import GeoType
-    with pytest.raises(NotImplementedError, match="CONE-BOX"):
-        t_np.contact_fn_for(int(GeoType.CONE), int(GeoType.BOX))
+    with pytest.raises(NotImplementedError, match="MESH-BOX"):
+        t_np.contact_fn_for(int(GeoType.MESH), int(GeoType.BOX))
     fn, swapped, k = t_np.contact_fn_for(int(GeoType.BOX),
                                          int(GeoType.CAPSULE))
     assert (fn, swapped, k) == (t_np.capsule_box, True, 4)

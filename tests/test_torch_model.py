@@ -197,6 +197,13 @@ def test_humanoid_raises_naming_element(tmp_path):
 def test_unsupported_mjcf_raises(tmp_path, snippet, word):
     path = tmp_path / "m.xml"
     path.write_text(f'<mujoco model="m">{snippet}</mujoco>')
+    if word == "ellipsoid":
+        # ellipsoid geoms import now: one ELLIPSOID shape on the body
+        b = nt.ModelBuilder()
+        b.add_mjcf(str(path))
+        assert b.shape_type == [int(nt.GeoType.ELLIPSOID)]
+        assert b.finalize("cpu").body_mass.numpy()[0] > 0
+        return
     if word in ("site", "tendon"):
         # sites (massless, never colliding) and actuators on fixed tendons
         # import now

@@ -6,10 +6,12 @@ one's seconds and results as a JSON line.
     python3 tools/chip_phases.py 28 29 30 31 --tests tests/test_torch_determinism.py
     python3 tools/chip_phases.py 32 33 34 35 36
     python3 tools/chip_phases.py 37 38 39 40 41 43
+    python3 tools/chip_phases.py 43 45 46 48
 
-Phases 21-43 are the ones that take only the device (``dev``; 41 runs
-41 and 42, 43 runs 43 and 44, 40 times Style3D beside XPBD); the CUDA
-kernels are built first when a phase launches them (22, 29-39). With
+Phases 21-48 are the ones that take only the device (``dev``; 41 runs
+41 and 42, 43 runs 43 and 44, 46 runs 46 and 47, 40 times Style3D beside
+XPBD); the CUDA kernels are built first when a phase launches them (22,
+29-39, 48). With
 ``--tests``, the GPU cases of the named test files run afterwards
 (``pytest -m gpu``). Writes the results to chiprun_out/phases.json too.
 """
@@ -33,9 +35,11 @@ PHASES = {"21": "phase_ant_xpbd", "22": "phase_pyramid",
           "35": "phase_muscles", "36": "phase_kamino",
           "37": "phase_conveyor", "38": "phase_mounted",
           "39": "phase_tower", "40": "phase_xpbd_cloth",
-          "41": "phase_xpbd_particles", "43": "phase_cables"}
+          "41": "phase_xpbd_particles", "43": "phase_cables",
+          "45": "phase_shapes", "46": "phase_pile_sap",
+          "48": "phase_manifolds"}
 KERNEL_PHASES = {"22", "29", "30", "31", "32", "33", "34", "35", "36",
-                 "37", "38", "39"}
+                 "37", "38", "39", "48"}
 
 
 def main(argv):
