@@ -6,7 +6,8 @@ collision -> batched generalized step, with contact warm start, sleeping
 and equality constraints), the rigid-body path of ``SolverXPBD``, the MPM
 path (particles -> ``SolverImplicitMPM``), the cloth path (cloth and soft
 topology, particle-shape contacts -> ``SolverStyle3D``, ``SolverVBD``,
-``SolverSemiImplicit``) and batched inverse kinematics (``ik``). Every TPU kernel of the JAX package has a
+``SolverSemiImplicit``), mesh, convex-hull, heightfield and hydroelastic
+contacts, and batched inverse kinematics (``ik``). Every TPU kernel of the JAX package has a
 hand-written CUDA counterpart for Hopper in ``csrc/``: the Cholesky and PGS
 kernels of the robot path, the P2G/G2P transfers of the MPM path. It
 imports torch, never jax.
@@ -24,7 +25,7 @@ _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")
 
 from .core.types import MAXVAL, Axis  # noqa: E402
-from .geometry.types import GeoType, ShapeFlags  # noqa: E402
+from .geometry.types import SDF, GeoType, Heightfield, Mesh, ShapeFlags  # noqa: E402
 from .parallel.envs import batch_state  # noqa: E402
 from .sim.articulation import eval_fk, eval_ik  # noqa: E402
 from .sim.builder import JointDofConfig, ModelBuilder, ShapeConfig  # noqa: E402
@@ -43,7 +44,8 @@ from .solvers.solver_vbd import SolverVBD  # noqa: E402
 from .solvers.solver_xpbd import SolverXPBD  # noqa: E402
 
 __all__ = [
-    "MAXVAL", "Axis", "GeoType", "ShapeFlags", "batch_state", "eval_fk",
+    "MAXVAL", "Axis", "GeoType", "ShapeFlags", "Mesh", "SDF", "Heightfield",
+    "batch_state", "eval_fk",
     "eval_ik",
     "JointDofConfig", "ModelBuilder", "ShapeConfig", "CollisionPipeline",
     "Contacts", "Control", "EqType", "JointType", "Model", "ModelStructure", "State",

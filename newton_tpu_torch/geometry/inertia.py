@@ -1,6 +1,6 @@
-"""Mass properties of the primitives the port builds (host numpy; port of
-``newton_tpu/geometry/inertia.py``). Inertia tensors are about the shape's
-center of mass, in the shape frame."""
+"""Mass properties of the primitives and triangle meshes the port builds
+(host numpy; port of ``newton_tpu/geometry/inertia.py``). Inertia tensors
+are about the shape's center of mass, in the shape frame."""
 
 from __future__ import annotations
 
@@ -9,7 +9,7 @@ import numpy as np
 __all__ = ["compute_sphere_inertia", "compute_box_inertia",
            "compute_capsule_inertia", "compute_cylinder_inertia",
            "compute_cone_inertia", "compute_ellipsoid_inertia",
-           "transform_inertia"]
+           "compute_mesh_inertia", "transform_inertia"]
 
 
 def compute_sphere_inertia(density: float, r: float):
@@ -70,6 +70,56 @@ def compute_ellipsoid_inertia(density: float, a: float, b: float,
     return m, np.zeros(3), np.diag([m / 5.0 * (b * b + c * c),
                                     m / 5.0 * (a * a + c * c),
                                     m / 5.0 * (a * a + b * b)])
+
+
+def compute_mesh_inertia(density: float, vertices: np.ndarray, indices: np.ndarray,
+                         is_solid: bool = True, thickness: float = 0.01):
+    """Mass properties of a triangle mesh via the divergence theorem.
+
+    Vectorized over triangles. For non-solid (shell) meshes, integrates
+    surface area times thickness.
+    """
+    v = np.asarray(vertices, dtype=np.float64).reshape(-1, 3)
+    f = np.asarray(indices, dtype=np.int64).reshape(-1, 3)
+    p0, p1, p2 = v[f[:, 0]], v[f[:, 1]], v[f[:, 2]]
+
+    if not is_solid:
+        # Shell: per-triangle area mass at centroid + thin-plate approx
+        n = np.cross(p1 - p0, p2 - p0)
+        area2 = np.linalg.norm(n, axis=1)
+        tri_mass = density * thickness * 0.5 * area2
+        m = tri_mass.sum()
+        centroid = (p0 + p1 + p2) / 3.0
+        com = (tri_mass[:, None] * centroid).sum(axis=0) / max(m, 1e-12)
+        # point-mass lumping at vertices of each triangle (1/3 each)
+        I = np.zeros((3, 3))
+        for pk in (p0, p1, p2):
+            r = pk - com
+            r2 = (r * r).sum(axis=1)
+            w = tri_mass / 3.0
+            I += np.einsum("t,t->", w, r2) * np.eye(3) - np.einsum("t,ti,tj->ij", w, r, r)
+        return float(m), com, I
+
+    # Solid: signed tetrahedra against the origin
+    det = np.einsum("ti,ti->t", p0, np.cross(p1, p2))
+    vol = det.sum() / 6.0
+    m = density * vol
+    com = (det[:, None] * (p0 + p1 + p2)).sum(axis=0) / (24.0 * max(vol, 1e-12))
+
+    # Covariance-based inertia (canonical tetra covariance pushed through affine map)
+    # C = integral of x x^T over solid
+    C = np.zeros((3, 3))
+    # canonical simplex covariance constants
+    for a_idx, pa in enumerate((p0, p1, p2)):
+        for b_idx, pb in enumerate((p0, p1, p2)):
+            w = 2.0 if a_idx == b_idx else 1.0
+            C += np.einsum("t,ti,tj->ij", det * w, pa, pb)
+    C /= 120.0
+    C *= density
+    # shift to COM
+    C -= m * np.outer(com, com)
+    I = np.trace(C) * np.eye(3) - C
+    return float(m), com, I
 
 
 def transform_inertia(m: float, I: np.ndarray, p: np.ndarray,

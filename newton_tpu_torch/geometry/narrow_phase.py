@@ -17,7 +17,8 @@ rim points are exact. Every other pair of the six analytic types without
 a function of its own (a cone or an ellipsoid against a box, capsule,
 cylinder or cone) runs through the support-map MPR of
 ``geometry/mpr.py`` (``contact_fn_for``'s fallback). Pairs with a mesh,
-convex hull, heightfield or SDF raise (ROADMAP A.6).
+convex hull or heightfield have no function here: the pipeline's mesh
+classes take them (``sim/collide_mesh.py``).
 """
 
 from __future__ import annotations
@@ -430,7 +431,9 @@ def contact_fn_for(t0: int, t1: int):
     """(fn, swapped, slots) for a type pair. A pair of the six analytic
     types without a function of its own gets the support-map MPR function
     of the sorted pair (``swapped`` when t0 > t1, as the JAX package
-    keys it); a pair with any other type raises."""
+    keys it); a pair with any other type (a mesh kind: the pipeline's
+    mesh classes take it, ``sim/collide_mesh.py``) gets (None, False,
+    slots), as in the JAX package."""
     key = (int(t0), int(t1))
     if key in PRIMITIVE_FNS:
         return PRIMITIVE_FNS[key], False, pair_slot_count(t0, t1)
@@ -441,6 +444,4 @@ def contact_fn_for(t0: int, t1: int):
         k = pair_slot_count(t0, t1)
         lo, hi = min(key), max(key)
         return support_contact_fn(lo, hi, k), key[0] > key[1], k
-    raise NotImplementedError(
-        f"contact pair {GeoType(t0).name}-{GeoType(t1).name} is not ported "
-        "yet (mesh, convex hull, heightfield and SDF shapes: ROADMAP A.6)")
+    return None, False, pair_slot_count(t0, t1)

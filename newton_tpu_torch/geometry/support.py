@@ -12,8 +12,8 @@ Shape frames (as ``geometry/narrow_phase.py``): SPHERE radius = scale[0];
 BOX half-extents = scale; CAPSULE, CYLINDER and CONE radius = scale[0],
 half-height = scale[1], axis +Z (the cone's apex at +h, its base disc at
 -h); ELLIPSOID radii = scale; CONVEX and MESH a hull vertex cloud (padded
-by repetition). The hull types' maps are here, but the builder makes no
-CONVEX or MESH shape yet (ROADMAP A.6).
+by repetition; the model's ``shape_hull_verts``), which the hull
+support pairs of dynamic-pair mode read.
 
 ``make_support_mixed`` and ``support_center_mixed`` take a per-row type
 instead of one type: they evaluate the local support of each type present

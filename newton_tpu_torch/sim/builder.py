@@ -5,7 +5,9 @@ robots, the reference's replicated-world KPI scenes, rods and the MPM path
 drive: bodies, articulations, free/revolute/prismatic/fixed/ball joints and
 D6 joints with linear and angular axes, ball-jointed rods (``add_rod``),
 fixed tendons, plane/sphere/box/capsule/cylinder/cone/ellipsoid shapes with
-density-driven mass, particles, cloth and soft topology (springs and
+density-driven mass, triangle-mesh, convex-hull, heightfield and SDF shapes
+(their samples, hulls and SDF bakes prepared at ``finalize`` by
+``sim/mesh_prep.py``), particles, cloth and soft topology (springs and
 seams, membrane triangles, bending edges, tetrahedra, the cloth grid and
 mesh, the soft grid and mesh), world contexts (``begin_world``,
 ``add_world``, ``add_builder`` and the vectorized ``replicate``) with
@@ -52,9 +54,12 @@ from ..geometry.inertia import (
     transform_inertia,
 )
 from ..geometry.narrow_phase import pair_slot_count
-from ..geometry.types import GeoType, ShapeFlags
+from ..geometry.types import SDF, GeoType, Heightfield, Mesh, ShapeFlags
 from ..solvers.generalized.actuation import MJCActuation
 from .enums import BodyFlags, EqType, JointType, ParticleFlags
+from .mesh_prep import (MESH_KINDS, _convex_hull_mesh,
+                        mesh_collision_radius, mesh_mass,
+                        prepare_mesh_data)
 from .tendon import SpatialTendonPath, spatial_tendon_rest_lengths
 from .model import (
     AttributeAssignment,
@@ -82,6 +87,9 @@ _SHAPE_MASS = {
     GeoType.ELLIPSOID: lambda rho, s: compute_ellipsoid_inertia(
         rho, s[0], s[1], s[2]),
     GeoType.NONE: None,                 # sites: massless frame markers
+    # mesh kinds: a mesh or hull's mass comes from its source (mesh_mass)
+    GeoType.MESH: None, GeoType.CONVEX: None, GeoType.HFIELD: None,
+    GeoType.SDF: None,
 }
 # per-dof lists of the builder (one entry per dof, in dof order)
 _DOF_LISTS = ("joint_armature", "joint_target_ke", "joint_target_kd",
@@ -118,6 +126,9 @@ class ShapeConfig:
     density: float = 1000.0
     mu: float = 0.5
     restitution: float = 0.0
+    # hydroelastic modulus (Pa/m): pressure = kh * penetration, read by a
+    # CollisionPipeline(hydroelastic=True)
+    kh: float = 1.0e6
     thickness: float = 1.0e-5
     collision_group: int = 1
     has_shape_collision: bool = True
@@ -126,6 +137,9 @@ class ShapeConfig:
     is_site: bool = False
     contype: int = 1
     conaffinity: int = 1
+    # > 0: the resolution of a mesh shape's SDF bake (24 by default; 48 and
+    # above bake a sparse texture)
+    sdf_max_resolution: int = 0
 
     @property
     def flags(self) -> int:
@@ -219,6 +233,10 @@ class ModelBuilder:
         self.shape_collision_group: List[int] = []
         self.shape_contype: List[int] = []
         self.shape_conaffinity: List[int] = []
+        self.shape_material_kh: List[float] = []
+        self.shape_sdf_resolution: List[int] = []
+        # Mesh, Heightfield or SDF sources of mesh-kind shapes (None else)
+        self.shape_source: List[object] = []
         self.shape_key: List[str] = []
         self.shape_collision_filter_pairs: Set[Tuple[int, int]] = set()
         self._body_filter_pairs: Set[Tuple[int, int]] = set()
@@ -466,7 +484,8 @@ class ModelBuilder:
         for name in ("shape_type", "shape_flags", "shape_thickness",
                      "shape_material_mu", "shape_material_restitution",
                      "shape_collision_group", "shape_contype",
-                     "shape_conaffinity", "shape_key"):
+                     "shape_conaffinity", "shape_material_kh",
+                     "shape_sdf_resolution", "shape_source", "shape_key"):
             getattr(self, name).extend(list(getattr(o, name)) * count)
         self.shape_world += per_world(ns)
         for mine, theirs, base, stride in (
@@ -556,7 +575,8 @@ class ModelBuilder:
         for name in ("shape_type", "shape_flags", "shape_thickness",
                      "shape_material_mu", "shape_material_restitution",
                      "shape_collision_group", "shape_contype",
-                     "shape_conaffinity"):
+                     "shape_conaffinity", "shape_material_kh",
+                     "shape_sdf_resolution", "shape_source"):
             getattr(self, name).extend(getattr(other, name))
         self.shape_key += [pre + k for k in other.shape_key]
         self.shape_world += [w] * other.shape_count
@@ -1111,8 +1131,9 @@ class ModelBuilder:
     # ------------------------------------------------------------------
     def add_shape(self, body: int, geo_type: GeoType, xform=None,
                   scale=(1.0, 1.0, 1.0), cfg: Optional[ShapeConfig] = None,
-                  key: Optional[str] = None) -> int:
-        """Collision shape attached to ``body`` (-1 = static)."""
+                  key: Optional[str] = None, source=None) -> int:
+        """Collision shape attached to ``body`` (-1 = static); ``source``
+        is a mesh kind's Mesh, Heightfield or SDF."""
         geo_type = GeoType(geo_type)
         if geo_type not in _SHAPE_MASS:
             raise NotImplementedError(
@@ -1130,10 +1151,16 @@ class ModelBuilder:
         self.shape_collision_group.append(int(cfg.collision_group))
         self.shape_contype.append(int(cfg.contype))
         self.shape_conaffinity.append(int(cfg.conaffinity))
+        self.shape_material_kh.append(float(cfg.kh))
+        self.shape_sdf_resolution.append(int(cfg.sdf_max_resolution))
+        self.shape_source.append(source)
         self.shape_key.append(key or f"shape_{idx}")
         self.shape_world.append(self._current_world)
 
         mass_of = _SHAPE_MASS[geo_type]
+        if geo_type in (GeoType.MESH, GeoType.CONVEX):
+            def mass_of(rho, sc):
+                return mesh_mass(source, rho, sc)
         if body >= 0 and cfg.density > 0.0 and mass_of is not None:
             m, c, I = mass_of(cfg.density, self.shape_scale[idx])
             if m > 0.0:
@@ -1237,6 +1264,64 @@ class ModelBuilder:
         """Solid ellipsoid of radii (rx, ry, rz) along the shape axes."""
         return self.add_shape(body, GeoType.ELLIPSOID, xform,
                               scale=(rx, ry, rz), cfg=cfg, key=key)
+
+    def add_shape_mesh(self, body: int, xform=None, mesh: Mesh = None,
+                       scale=(1.0, 1.0, 1.0),
+                       cfg: Optional[ShapeConfig] = None,
+                       key: Optional[str] = None) -> int:
+        """Triangle mesh (vertices in the shape frame, times ``scale``);
+        its mass from the mesh's volume at the config's density."""
+        if mesh is None:
+            raise ValueError("add_shape_mesh requires a Mesh source")
+        return self.add_shape(body, GeoType.MESH, xform, scale=scale,
+                              cfg=cfg, key=key, source=mesh)
+
+    def add_shape_convex_hull(self, body: int, xform=None,
+                              mesh: Mesh = None, scale=(1.0, 1.0, 1.0),
+                              cfg: Optional[ShapeConfig] = None,
+                              key: Optional[str] = None) -> int:
+        """The convex hull of a mesh (computed on the host), colliding as
+        a convex vertex cloud."""
+        if mesh is None:
+            raise ValueError("add_shape_convex_hull requires a Mesh source")
+        return self.add_shape(body, GeoType.CONVEX, xform, scale=scale,
+                              cfg=cfg, key=key,
+                              source=_convex_hull_mesh(mesh))
+
+    def add_shape_sdf(self, body: int, xform=None, sdf: SDF = None,
+                      scale=(1.0, 1.0, 1.0),
+                      cfg: Optional[ShapeConfig] = None,
+                      key: Optional[str] = None) -> int:
+        """A shape given by its SDF grid. As in the JAX package, the
+        collision pipeline gives its pairs no contacts (skipped with a
+        warning; ROADMAP C)."""
+        return self.add_shape(body, GeoType.SDF, xform, scale=scale,
+                              cfg=cfg, key=key, source=sdf)
+
+    def add_shape_heightfield(self, body: int = -1, xform=None,
+                              heightfield: Heightfield = None,
+                              cfg: Optional[ShapeConfig] = None,
+                              key: Optional[str] = None) -> int:
+        """A heightfield, centred at the shape origin, +Z up."""
+        if heightfield is None:
+            raise ValueError("add_shape_heightfield requires a Heightfield "
+                             "source")
+        return self.add_shape(body, GeoType.HFIELD, xform,
+                              scale=(heightfield.size_x, heightfield.size_y,
+                                     1.0), cfg=cfg, key=key,
+                              source=heightfield)
+
+    def approximate_meshes(self, method: str = "convex_hull",
+                           maxhullvert: int = 64) -> None:
+        """Replace every mesh shape's source by its convex hull (the shape
+        becomes CONVEX and collides through MPR)."""
+        for s, src in enumerate(self.shape_source):
+            if isinstance(src, Mesh) and \
+                    self.shape_type[s] == int(GeoType.MESH):
+                hull = _convex_hull_mesh(src)
+                hull.maxhullvert = maxhullvert
+                self.shape_source[s] = hull
+                self.shape_type[s] = int(GeoType.CONVEX)
 
     def add_rod(self, start_pos, end_pos, segments: int = 8,
                 radius: float = 0.02, density: float = 1000.0,
@@ -2036,10 +2121,10 @@ class ModelBuilder:
     def _collision_radius(self) -> np.ndarray:
         """Per-shape bounding radius: sphere r, box |half-extents|, capsule,
         cylinder and cone r + half height, ellipsoid its largest radius,
-        plane MAXVAL."""
+        plane MAXVAL; mesh kinds as ``mesh_prep.mesh_collision_radius``."""
         typ = np.asarray(self.shape_type, dtype=np.int64).reshape(-1)
         sc = np.asarray(self.shape_scale, dtype=np.float64).reshape(-1, 3)
-        return np.select(
+        r = np.select(
             [typ == int(GeoType.SPHERE), typ == int(GeoType.BOX),
              np.isin(typ, [int(GeoType.CAPSULE), int(GeoType.CYLINDER),
                            int(GeoType.CONE)]),
@@ -2047,6 +2132,10 @@ class ModelBuilder:
             [sc[:, 0], np.linalg.norm(sc, axis=1), sc[:, 0] + sc[:, 1],
              sc.max(axis=1, initial=0.0)],
             MAXVAL)
+        for s in np.nonzero(np.isin(typ, MESH_KINDS))[0].tolist():
+            r[s] = mesh_collision_radius(int(typ[s]), sc[s],
+                                         self.shape_source[s])
+        return r
 
     # ------------------------------------------------------------------
     def finalize(self, device="cuda") -> Model:
@@ -2131,6 +2220,10 @@ class ModelBuilder:
                                  -1).astype(i32)
 
         st.soft_pairs, st.soft_contact_max = self._compute_soft_pairs()
+        mesh_tensors, mesh_st = prepare_mesh_data(self, st.candidate_pairs,
+                                                  device)
+        for name, v in mesh_st.items():
+            setattr(st, name, v)
         st.eq_count = len(self.eq_type)
         st.eq_type = np.asarray(self.eq_type, dtype=i32)
         st.eq_world = np.asarray(self.eq_world, dtype=i32)
@@ -2227,6 +2320,7 @@ class ModelBuilder:
             shape_collision_radius=f32(self._collision_radius()),
             shape_material_mu=f32(self.shape_material_mu),
             shape_material_restitution=f32(self.shape_material_restitution),
+            shape_material_kh=f32(self.shape_material_kh),
             shape_world=i32t(st.shape_world),
             joint_type_arr=i32t(st.joint_type),
             joint_parent=i32t(st.joint_parent),
@@ -2293,4 +2387,5 @@ class ModelBuilder:
             eq_torquescale=f32(self.eq_torquescale),
             custom=custom,
             structure=st,
+            **mesh_tensors,
         )

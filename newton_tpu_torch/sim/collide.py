@@ -41,11 +41,19 @@ whose gap stays within the margin keeps its anchored points.
 Cones and ellipsoids against boxes, capsules, cylinders and cones run
 through the support-map MPR of ``geometry/mpr.py``; the support pairs of
 every class of a call run as one batch, each row with its own types'
-support maps. Particle-shape (soft) contacts run on a flat state: one
-slot per candidate of ``ModelStructure.soft_pairs``, the particle
-against the shape's signed distance. Mesh, convex-hull, heightfield and
-hydroelastic contacts raise (ROADMAP A.6), and so do a batched state with
-dynamic mode, persistence or soft candidates.
+support maps. Mesh, convex-hull and heightfield pairs run through
+``sim/collide_mesh.py`` (surface samples against signed distances, hulls
+through MPR), in static mode over a flat or a batched state, with
+``hydroelastic=True`` as pressure-field contacts with a stiffness per
+slot (static mode only: the JAX package's dynamic mode has no
+hydroelastic branch and ignores the flag, ROADMAP C); in dynamic-pair
+mode as the kinds plane-mesh, mesh-primitive, mesh-mesh, plane-hull and
+hull support pairs. A pair with an SDF shape gets no contacts (skipped
+with a warning, as in the JAX package). Particle-shape (soft) contacts
+run on a flat state: one slot per candidate of
+``ModelStructure.soft_pairs``, the particle against the shape's signed
+distance. A batched state with dynamic mode, persistence or soft
+candidates raises.
 """
 
 from __future__ import annotations
@@ -60,19 +68,22 @@ import torch
 from ..geometry.broad_phase import (AABBPlan, compute_shape_aabbs,
                                     is_member)
 from ..geometry.narrow_phase import (PRIMITIVE_FNS, _box_sdf_local,
-                                     contact_fn_for)
+                                     contact_fn_for, pair_slot_count)
 from ..geometry.support import (keep_deepest, make_support_mixed,
                                 support_center_mixed)
 from ..geometry.types import GeoType
 from ..math import (quat_rotate, quat_rotate_inv, transform_multiply,
                     transform_point, transform_point_inv)
+from .collide_mesh import (MESH_TYPES, check_dynamic_sdf, convex_contacts,
+                           dynamic_class_code, dynamic_contacts,
+                           install_mesh_classes, mesh_contacts)
 from .contacts import Contacts
 from .model import Model
 from .state import State, map_tensors
 
 __all__ = ["CollisionPipeline", "collide", "match_contacts"]
 
-_UNPORTED = (GeoType.MESH, GeoType.SDF, GeoType.CONVEX, GeoType.HFIELD)
+_NO_PRIM = MESH_TYPES + (int(GeoType.SDF),)
 
 
 class CollisionPipeline:
@@ -101,9 +112,7 @@ class CollisionPipeline:
         self.model = model
         self.rigid_contact_margin = float(rigid_contact_margin)
         self.soft_contact_margin = float(soft_contact_margin)
-        if hydroelastic:
-            raise NotImplementedError(
-                "hydroelastic contacts are not ported yet (ROADMAP A.6)")
+        self.hydroelastic = bool(hydroelastic)
         self.persistent_manifolds = bool(persistent_manifolds)
         self.manifold_slide_tol = float(manifold_slide_tol)
         if broad_phase not in ("topk", "sap"):
@@ -123,6 +132,10 @@ class CollisionPipeline:
         if mode not in ("static", "dynamic"):
             raise ValueError(f"mode must be 'static', 'dynamic' or 'auto', "
                              f"got {mode!r}")
+        if self.hydroelastic and mode == "dynamic":
+            raise ValueError("hydroelastic contacts run in static mode only "
+                             "(the JAX package's dynamic mode ignores the "
+                             "flag); pass mode='static'")
         self.mode = mode
         dev = self.device = model.device
 
@@ -135,33 +148,47 @@ class CollisionPipeline:
         self._aabb = AABBPlan(model)
         self._identity = self._aabb.identity
 
-        # one class per (type, type) combination of the pairs, in order of
-        # first appearance (the JAX package's class order and slot layout)
+        # one class per (type, type) combination of the primitive pairs, in
+        # order of first appearance (the JAX package's class order and slot
+        # layout); the mesh kinds' pairs form their own classes
         t0, t1 = typ[pairs[:, 0]], typ[pairs[:, 1]]
-        _, first, inv = np.unique(t0 * 64 + t1, return_index=True,
+        prim = ~(np.isin(t0, _NO_PRIM) | np.isin(t1, _NO_PRIM))
+        self._hull_t = None
+        self.classes, self.mesh_classes = [], []
+        code = np.where(prim, t0 * 64 + t1, -1)
+        _, first, inv = np.unique(code, return_index=True,
                                   return_inverse=True)
-        self.classes = []
         for u in np.argsort(first):
             sel = np.nonzero(inv.reshape(-1) == u)[0]
+            if not prim[sel[0]]:
+                continue
             ta, tb = int(t0[sel[0]]), int(t1[sel[0]])
-            for t in (ta, tb):
-                if GeoType(t) in _UNPORTED:
-                    raise NotImplementedError(
-                        f"contacts of {GeoType(t).name} shapes are not "
-                        "ported yet (mesh, convex hull, heightfield and SDF: "
-                        "ROADMAP A.6)")
             fn, swapped, k = contact_fn_for(ta, tb)
             support = (ta, tb) not in PRIMITIVE_FNS and \
                 (tb, ta) not in PRIMITIVE_FNS
             self.classes.append(SimpleNamespace(
-                fn=fn, swapped=swapped, k=k, types01=(ta, tb),
+                kind="prim", fn=fn, swapped=swapped, k=k, types01=(ta, tb),
                 support=support, sel=sel, i0=pairs[sel, 0],
                 i1=pairs[sel, 1], shape0=L(pairs[sel, 0]),
                 shape1=L(pairs[sel, 1]), n=len(sel)))
+        skipped = set()
         if mode == "dynamic":
+            skipped = self._dynamic_mesh_classes(pairs, t0, t1, ~prim)
             self._build_dynamic(model)
         else:
+            sel = np.nonzero(~prim)[0]
+            self.mesh_classes = install_mesh_classes(self, pairs, sel)
+            covered = np.zeros(len(pairs), dtype=bool)
+            covered[prim] = True
+            for pc in self.mesh_classes:
+                covered[pc.sel] = True
+            skipped = {(int(a), int(b)) for a, b in
+                       zip(t0[~covered], t1[~covered])}
             self._build_static(model)
+        if skipped:
+            import warnings
+            warnings.warn("collision pairs with unsupported type classes "
+                          f"skipped: {sorted(skipped)}")
 
         # soft contacts: per candidate (particle, shape) the shape's frame
         # on its body and its signed-distance class
@@ -208,6 +235,56 @@ class CollisionPipeline:
         self._slot_shape1 = torch.as_tensor(
             np.asarray(st.slot_shape1, dtype=np.int32), device=self.device)
 
+    def _dynamic_mesh_classes(self, pairs, t0, t1, sel_mask):
+        """The dynamic classes of the mesh-kind pairs (``sel_mask``),
+        merged with the primitive classes in order of each class's first
+        pair (the JAX package's class order, hence its slot layout).
+        Returns the type pairs that no class takes."""
+        L, dev = self._L, self.device
+        sel_all = np.nonzero(sel_mask)[0]
+        k = np.asarray([pair_slot_count(x, y) for x, y in
+                        zip(t0[sel_all], t1[sel_all])], dtype=np.int64)
+        code, kind, names, ok = dynamic_class_code(t0[sel_all],
+                                                   t1[sel_all], k)
+        st = self.model.structure
+        self._sdf_ids, self._tex_ids = L(st.shape_sdf_id), L(
+            st.shape_sdf_tex_id)
+        has_sdf = (np.asarray(st.shape_sdf_id) >= 0) | \
+            (np.asarray(st.shape_sdf_tex_id) >= 0)
+        mt = (int(GeoType.MESH), int(GeoType.HFIELD))
+        if (code >= 0).any():
+            for u in np.unique(code[code >= 0]):
+                rows = np.nonzero(code == u)[0]
+                sel = sel_all[rows]
+                i0, i1 = pairs[sel, 0], pairs[sel, 1]
+                ta, tb = int(t0[sel[0]]), int(t1[sel[0]])
+                pc = SimpleNamespace(
+                    kind=names[kind[rows[0]]], k=int(k[rows[0]]),
+                    types01=(ta, tb), sel=sel, i0=i0, i1=i1,
+                    shape0=L(i0), shape1=L(i1), n=len(sel))
+                if pc.kind == "mesh_mesh":
+                    check_dynamic_sdf(self, i0, i1)
+                if pc.kind == "mesh_prim":
+                    pc.m_is_0 = ta in mt
+                    other = tb if pc.m_is_0 else ta
+                    pc.other_kind = [torch.tensor(other == g, device=dev)
+                                     for g in (int(GeoType.PLANE),
+                                               int(GeoType.SPHERE),
+                                               int(GeoType.BOX))]
+                    pc.bidir = bool(has_sdf[i0 if pc.m_is_0 else i1].all())
+                self.classes.append(pc)
+            self.classes.sort(key=lambda c: int(c.sel[0]))
+        bad = sel_all[~ok]
+        return {(int(a), int(b)) for a, b in zip(t0[bad], t1[bad])}
+
+    def _hulls(self) -> torch.Tensor:
+        """The hull vertex clouds (S, H, 3) on the pipeline's device."""
+        if self._hull_t is None:
+            self._hull_t = torch.as_tensor(
+                self.model.structure.shape_hull_verts, dtype=torch.float32,
+                device=self.device)
+        return self._hull_t
+
     def _build_dynamic(self, model: Model):
         """Budgets and slot ranges of dynamic-pair mode: a plane class
         keeps all its pairs; the finite classes share the budget in
@@ -237,6 +314,9 @@ class CollisionPipeline:
                 pc.r_other = model.shape_collision_radius[pc.other]
         self.rigid_contact_max = offset
         self._types_t = torch.as_tensor(typ, device=self.device)
+        self._mesh_t = torch.as_tensor(np.isin(typ, [int(GeoType.MESH),
+                                                     int(GeoType.HFIELD)]),
+                                       device=self.device)
 
     def _build_sap(self, model: Model, pc):
         """A class's SAP plan: its member shapes (sorted), their worlds,
@@ -369,7 +449,10 @@ class CollisionPipeline:
         self._stamp(out)
         out.rigid_contact_shape0 = self._slot_shape0.expand(W, C).clone()
         out.rigid_contact_shape1 = self._slot_shape1.expand(W, C).clone()
-        if C == 0 or not self.classes:
+        if self.hydroelastic:
+            out.rigid_contact_stiffness = torch.zeros(
+                (W, C), dtype=body_q.dtype, device=body_q.device)
+        if C == 0 or not (self.classes or self.mesh_classes):
             return out
         X_ws = self._aabb.world_transforms(body_q)              # (W, S, 7)
         margin = self.rigid_contact_margin
@@ -387,6 +470,27 @@ class CollisionPipeline:
             out.rigid_contact_normal[:, pc.slots] = nrm.reshape(W, nk, 3)
             out.rigid_contact_depth[:, pc.slots] = torch.where(
                 active, depth, 0.0).reshape(W, nk)
+        dropped = out.mesh_samples_dropped
+        for pc in self.mesh_classes:
+            stiff = None
+            if pc.kind == "cc":
+                pos, nrm, depth = convex_contacts(self, pc, X_ws)
+            else:
+                pos, nrm, depth, stiff, dr = mesh_contacts(self, pc, X_ws)
+                dropped = dropped + dr
+            k = depth.shape[-1]
+            idx = pc.out.view(pc.n, pc.slots)[:, :k].reshape(-1)
+            active = depth > -margin
+            nk = pc.n * k
+            out.rigid_contact_mask[:, idx] = active.reshape(W, nk)
+            out.rigid_contact_position[:, idx] = pos.reshape(W, nk, 3)
+            out.rigid_contact_normal[:, idx] = nrm.reshape(W, nk, 3)
+            out.rigid_contact_depth[:, idx] = torch.where(
+                active, depth, 0.0).reshape(W, nk)
+            if stiff is not None:
+                out.rigid_contact_stiffness[:, idx] = torch.where(
+                    active, stiff, 0.0).reshape(W, nk)
+        out.mesh_samples_dropped = dropped
         return out
 
     # ------------------------------------------------------------------
@@ -455,8 +559,14 @@ class CollisionPipeline:
             bf = torch.cat([bf, bf.new_zeros(pad)])
             near = torch.cat([near, near.new_zeros(pad)])
         t0, t1 = pc.types01
-        if t0 != t1:
+        if pc.kind == "mesh_prim":
+            # a mesh side may be MESH or HFIELD: orient by mesh-ness
+            swap = self._mesh_t[af] != pc.m_is_0
+        elif pc.kind != "mesh_mesh" and t0 != t1:
             swap = self._types_t[af] != t0
+        else:
+            swap = None
+        if swap is not None:
             af, bf = torch.where(swap, bf, af), torch.where(swap, af, bf)
         return af, bf, near, torch.clamp(n_near - pc.cap, min=0)
 
@@ -472,14 +582,21 @@ class CollisionPipeline:
         lo, hi, X_ws = compute_shape_aabbs(model, state, margin, self._aabb)
         picks = [self._select(pc, lo, hi, X_ws) for pc in self.classes]
         dropped = torch.stack([p[3] for p in picks]).sum(dtype=torch.int32)
-        res = self._narrow(X_ws, [(pc, p[0], p[1])
-                                  for pc, p in zip(self.classes, picks)])
+        prim = [j for j, pc in enumerate(self.classes) if pc.kind == "prim"]
+        res = dict(zip(prim, self._narrow(X_ws, [
+            (self.classes[j], picks[j][0], picks[j][1]) for j in prim])))
         thick = model.shape_thickness
-        for pc, (i0, i1, near, _), (pos, nrm, depth) in zip(
-                self.classes, picks, res):
+        samples = out.mesh_samples_dropped
+        for j, (pc, (i0, i1, near, _)) in enumerate(zip(self.classes,
+                                                        picks)):
+            if pc.kind == "prim":
+                pos, nrm, depth = res[j]
+            else:
+                pos, nrm, depth, dr = dynamic_contacts(self, pc, i0, i1, X_ws)
+                samples = samples + dr
             depth = depth + (thick[i0] + thick[i1])[:, None]
             active = (depth > -margin) & near[:, None]
-            idx = pc.out
+            idx = pc.out.view(pc.cap, pc.k)[:, :depth.shape[1]].reshape(-1)
             out.rigid_contact_mask[idx] = active.reshape(-1)
             out.rigid_contact_position[idx] = pos.reshape(-1, 3)
             out.rigid_contact_normal[idx] = nrm.reshape(-1, 3)
@@ -490,6 +607,7 @@ class CollisionPipeline:
             out.rigid_contact_shape1[idx] = torch.where(
                 active, i1[:, None].to(torch.int32), -1).reshape(-1)
         out.broad_phase_dropped = dropped
+        out.mesh_samples_dropped = samples
         return out
 
     # ------------------------------------------------------------------
@@ -606,26 +724,27 @@ def _safe_norm(x: torch.Tensor, eps: float = 1e-9) -> torch.Tensor:
 
 
 def _shape_sdf(kind, p_local: torch.Tensor, scale: torch.Tensor):
-    """Signed distance and outward gradient at local points (P, 3) of a
+    """Signed distance and outward gradient at local points (..., 3) of a
     plane (+Z), a sphere, a box, or else the capsule of the scale (radius
-    s0, half-height s1 along Z); ``kind`` holds the (P,) plane, sphere and
-    box masks. Every form is evaluated and one selected per point."""
+    s0, half-height s1 along Z); ``kind`` holds the plane, sphere and box
+    masks and ``scale`` the scales, both broadcasting against the points'
+    leading dims. Every form is evaluated and one selected per point."""
     is_plane, is_sphere, is_box = kind
     r = _safe_norm(p_local)
     d_box, g_box = _box_sdf_local(p_local, scale)
-    z = torch.minimum(torch.maximum(p_local[:, 2], -scale[:, 1]),
-                      scale[:, 1])
+    z = torch.minimum(torch.maximum(p_local[..., 2], -scale[..., 1]),
+                      scale[..., 1])
     dc = p_local - torch.stack([torch.zeros_like(z), torch.zeros_like(z),
                                 z], -1)
     dist_c = _safe_norm(dc)
     g_plane = torch.zeros_like(p_local)
-    g_plane[:, 2] = 1.0
-    d = torch.where(is_plane, p_local[:, 2],
-                    torch.where(is_sphere, r - scale[:, 0],
+    g_plane[..., 2] = 1.0
+    d = torch.where(is_plane, p_local[..., 2],
+                    torch.where(is_sphere, r - scale[..., 0],
                                 torch.where(is_box, d_box,
-                                            dist_c - scale[:, 0])))
-    g = torch.where(is_plane[:, None], g_plane,
-                    torch.where(is_sphere[:, None], p_local / r[:, None],
-                                torch.where(is_box[:, None], g_box,
-                                            dc / dist_c[:, None])))
+                                            dist_c - scale[..., 0])))
+    g = torch.where(is_plane[..., None], g_plane,
+                    torch.where(is_sphere[..., None], p_local / r[..., None],
+                                torch.where(is_box[..., None], g_box,
+                                            dc / dist_c[..., None])))
     return d, g

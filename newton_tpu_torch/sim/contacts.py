@@ -13,9 +13,12 @@ soft capacity leaves the soft fields ``None`` (``soft_contact_max == 0``).
 
 ``broad_phase_dropped`` counts the overlapping candidate pairs that the
 dynamic-pair pipeline's budgets had no slot for this call, and
-``mesh_samples_dropped`` the mesh samples beyond a pair's slots (0 until
-mesh contacts are ported): device scalars, read only when the caller
-asks. ``custom`` carries namespaced per-slot data, such as the
+``mesh_samples_dropped`` the in-contact mesh samples beyond their pair's
+slots: device scalars (one per env of a batched call), read only when
+the caller asks. ``rigid_contact_stiffness`` is set by a hydroelastic
+pipeline only: each slot's normal stiffness c (N/m) such that c depth is
+its share of the patch's pressure integral (0: a rigid contact);
+``SolverXPBD`` solves such slots as compliant rows. ``custom`` carries namespaced per-slot data, such as the
 persistent manifolds' anchors ``manifold:a0/a1/n0``.
 """
 
@@ -48,6 +51,7 @@ class Contacts:
     soft_contact_depth: Optional[torch.Tensor] = None     # (P,) > 0 inside
     broad_phase_dropped: Optional[torch.Tensor] = None    # () int32
     mesh_samples_dropped: Optional[torch.Tensor] = None   # () int32
+    rigid_contact_stiffness: Optional[torch.Tensor] = None  # (..., C)
     custom: Dict[str, Any] = field(default_factory=dict)
     # the ModelStructure whose static pipeline (CollisionPipeline) filled
     # these slots, in its slot order; None for Contacts made any other way

@@ -22,7 +22,7 @@ from .state import State
 
 __all__ = ["Model", "ModelStructure", "AttributeFrequency",
            "AttributeAssignment", "AttributeSpec", "MODEL_FLOAT_FIELDS",
-           "MODEL_INT_FIELDS", "MODEL_BOOL_FIELDS"]
+           "MODEL_INT_FIELDS", "MODEL_BOOL_FIELDS", "MODEL_UINT8_FIELDS"]
 
 
 class AttributeFrequency(enum.Enum):
@@ -113,6 +113,14 @@ class ModelStructure:
         self.slot_shape1 = np.zeros(0, dtype=np.int32)
         self.slot_body0 = np.zeros(0, dtype=np.int32)
         self.slot_body1 = np.zeros(0, dtype=np.int32)
+        # mesh kinds (sim/mesh_prep.py): each shape's dense SDF grid and
+        # sparse texture in the pools (-1: none), hull vertex clouds
+        # (S, H, 3) float32 (boxes' corners, hulls' vertices), and the mean
+        # vector area of each shape's samples (float64)
+        self.shape_sdf_id = np.zeros(0, dtype=np.int32)
+        self.shape_sdf_tex_id = np.zeros(0, dtype=np.int32)
+        self.shape_hull_verts = np.zeros((0, 1, 3), dtype=np.float32)
+        self.shape_sample_cell_area = np.zeros(0)
 
         # fixed tendons (T, K): coordinate, dof and coefficient per entry
         self.tendon_coord = np.zeros((0, 1), dtype=np.int32)
@@ -130,7 +138,10 @@ MODEL_FLOAT_FIELDS = (
     "body_inertia", "body_inv_inertia",
     "shape_transform", "shape_scale", "shape_thickness",
     "shape_collision_radius", "shape_material_mu",
-    "shape_material_restitution",
+    "shape_material_restitution", "shape_material_kh",
+    "shape_sample_points", "shape_sample_areas",
+    "sdf_grids", "sdf_lower", "sdf_upper", "sdf_tex_scale",
+    "sdf_tex_offset", "sdf_tex_coarse", "sdf_tex_lower", "sdf_tex_upper",
     "joint_X_p", "joint_X_c", "joint_axis", "joint_armature",
     "joint_target_ke", "joint_target_kd", "joint_limit_lower",
     "joint_limit_upper", "joint_limit_ke", "joint_limit_kd",
@@ -153,7 +164,10 @@ MODEL_INT_FIELDS = (
     "joint_type_arr", "joint_parent", "joint_child", "particle_flags",
     "spring_indices", "tri_indices", "edge_indices", "tet_indices",
     "eq_obj1", "eq_obj2", "muscle_bodies",
+    "sdf_tex_block_index", "sdf_tex_blocks",
 )
+# integer fields stored as uint8 (the texture's quantized corners)
+MODEL_UINT8_FIELDS = ("sdf_tex_blocks",)
 MODEL_BOOL_FIELDS = ("eq_enabled",)
 
 
@@ -182,6 +196,7 @@ class Model:
     shape_collision_radius: torch.Tensor
     shape_material_mu: torch.Tensor
     shape_material_restitution: torch.Tensor
+    shape_material_kh: torch.Tensor  # (S,) hydroelastic modulus
     shape_world: torch.Tensor     # (S,) int32
     joint_type_arr: torch.Tensor  # (J,) int32
     joint_parent: torch.Tensor    # (J,) int32
@@ -250,6 +265,23 @@ class Model:
     eq_polycoef: torch.Tensor     # (E, 5) JOINT: q1 = poly(q2)
     eq_enabled: torch.Tensor      # (E,) bool
     eq_torquescale: torch.Tensor  # (E,)
+    # mesh kinds (sim/mesh_prep.py): K contact samples per shape in its
+    # frame and their vector areas; the pooled dense SDF grids over their
+    # boxes; the pooled sparse textures (n, B, B, B) block indices into
+    # one block pool (nb, 9, 9, 9) uint8 with per-block scale and offset,
+    # and their coarse grids and boxes
+    shape_sample_points: torch.Tensor  # (S, K, 3)
+    shape_sample_areas: torch.Tensor   # (S, K, 3)
+    sdf_grids: torch.Tensor       # (G, R, R, R)
+    sdf_lower: torch.Tensor       # (G, 3)
+    sdf_upper: torch.Tensor       # (G, 3)
+    sdf_tex_block_index: torch.Tensor  # (T, B, B, B) int32, -1 coarse
+    sdf_tex_blocks: torch.Tensor  # (nb, 9, 9, 9) uint8
+    sdf_tex_scale: torch.Tensor   # (nb,)
+    sdf_tex_offset: torch.Tensor  # (nb,)
+    sdf_tex_coarse: torch.Tensor  # (T, B+1, B+1, B+1)
+    sdf_tex_lower: torch.Tensor   # (T, 3)
+    sdf_tex_upper: torch.Tensor   # (T, 3)
     custom: Dict[str, torch.Tensor] = field(default_factory=dict)
     structure: ModelStructure = None
 

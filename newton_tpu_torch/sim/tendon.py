@@ -91,9 +91,21 @@ def _normalize(a):
     return a * inv[..., None], 1.0 / inv
 
 
+_CONSTS = {}
+
+
 def _const(v, like):
-    return torch.as_tensor(np.asarray(v, dtype=np.float64), dtype=like.dtype,
-                           device=like.device)
+    """A host constant (a site's position, a wrap's axis) on ``like``'s
+    device and dtype, copied once: a copy from host memory in every call
+    would make the host wait for the card and cannot be captured in a
+    CUDA graph."""
+    a = np.asarray(v, dtype=np.float64)
+    key = (a.tobytes(), a.shape, like.dtype, str(like.device))
+    t = _CONSTS.get(key)
+    if t is None:
+        t = _CONSTS[key] = torch.as_tensor(a, dtype=like.dtype,
+                                           device=like.device)
+    return t
 
 
 def _point_world(body_q, body: int, pos):

@@ -25,7 +25,14 @@ summed by a ``DynamicOrderSum`` planned once per substep on the device. The
 particle-particle candidates come from the hash grid's fixed budget per
 cell; the candidates beyond it are counted in
 ``State.custom["xpbd:grid_overflow"]``, not dropped in silence.
-Hydroelastic (compliant) contact stiffness raises (not ported).
+Hydroelastic Contacts (``rigid_contact_stiffness``, from
+``CollisionPipeline(hydroelastic=True)``) make their slots compliant
+rows: an XPBD constraint of compliance 1 / (c dt^2), scaled by the
+share of each correction that the averaged Jacobi update realizes (the
+previous iteration's per-body constraint counts), so that the settled
+force is c depth, the patch's pressure integral; such a slot may push
+but not pull, keeps the velocity stop of an approaching contact, and
+reports c depth as its force.
 """
 
 from __future__ import annotations
@@ -210,8 +217,13 @@ class SolverXPBD(SolverBase):
                 if not getattr(contacts, "dynamic", False):  # soft: static
                     check_static_slots(contacts, model.structure, soft=True)
                 soft = pp.soft_frame(model, state_in, contacts, dt)
-        # 3. positional iterations: averaged Jacobi over all constraints
+        # 3. positional iterations: averaged Jacobi over all constraints;
+        # compliant slots read the previous iteration's per-body counts
         contact_scale = self.rigid_contact_relaxation / self.relaxation
+        stiff = None if contacts is None else \
+            contacts.rigid_contact_stiffness
+        denom_prev = torch.ones(B, dtype=state_in.body_q.dtype,
+                                device=state_in.body_q.device)
         for _ in range(self.iterations):
             if B:
                 Iinv = plan.inv_inertia_world(model, q)
@@ -221,12 +233,14 @@ class SolverXPBD(SolverBase):
                 if C:
                     vals, lam_n = plan.solve_rigid_contacts(
                         model, x, q, Iinv, contacts, cb, lam_n, dt,
-                        self.max_depenetration_velocity)
+                        self.max_depenetration_velocity, stiff,
+                        self.rigid_contact_relaxation, denom_prev)
                     vals = torch.cat([vals[:, 0:6] * contact_scale,
                                       vals[:, 6:7]], -1)
                     rows.append(vals)
                 acc = plan.sum_rows(rows, C, cb)
                 denom = torch.clamp(acc[:, 6:7], min=1.0)
+                denom_prev = denom[:, 0]
                 x = x + self.relaxation * acc[:, 0:3] / denom
                 dq = quat_mul(torch.cat([acc[:, 3:6] / denom,
                                          torch.zeros_like(denom)], -1), q)
@@ -286,11 +300,18 @@ class SolverXPBD(SolverBase):
     def step_with_contacts(self, state_in, state_out, control, contacts, dt):
         """``step`` and the contact force report from the accumulated normal
         impulses: f = rigid_contact_relaxation lambda / dt^2 along the
-        normal (the JAX package's ``step_with_contacts``)."""
+        normal, c depth at a compliant slot (the JAX package's
+        ``step_with_contacts``)."""
         out = self.step(state_in, state_out, control, contacts, dt)
         if contacts is None or contacts.rigid_contact_max == 0:
             return out, contacts
         fmag = self.rigid_contact_relaxation * self._last_lam_n / (dt * dt)
+        stiff = contacts.rigid_contact_stiffness
+        if stiff is not None:
+            # compliant slots report the patch integral c depth (the
+            # impulse would carry the Jacobi averaging factor)
+            fmag = torch.where(stiff > 0.0,
+                               stiff * contacts.rigid_contact_depth, fmag)
         return out, replace(contacts, rigid_contact_force=(
             contacts.rigid_contact_normal * fmag[:, None]))
 
@@ -306,10 +327,6 @@ def _check_contacts(contacts):
     if contacts.rigid_contact_mask.dim() != 1:
         raise ValueError("SolverXPBD.step takes the flat (C,) Contacts of a "
                          "flat State")
-    if getattr(contacts, "rigid_contact_stiffness", None) is not None:
-        raise NotImplementedError(
-            "SolverXPBD hydroelastic (compliant) contact stiffness is not "
-            "ported yet")
 
 
 class _XPBDPlan:
@@ -650,10 +667,15 @@ class _XPBDPlan:
 
     def solve_rigid_contacts(self, model: Model, x, q, Iinv,
                              contacts: Contacts, cb, lam_n, dt,
-                             max_depen_vel=3.0):
+                             max_depen_vel=3.0, stiff=None, gamma_relax=1.0,
+                             denom_prev=None):
         """Non-penetration and positional (static) friction corrections of
         every slot, penetration measured at the current poses from the
         collide-time anchors; the push-out is capped at max_depen_vel dt.
+        A slot with stiffness c > 0 (``stiff`` (C,)) is a compliant row,
+        alpha = gamma / (c dt^2), gamma the realized share of a correction:
+        gamma_relax (w0 / n0 + w1 / n1) / (w0 + w1), n the bodies' counts of
+        the previous iteration (``denom_prev``).
         Returns the rows [dx | dtheta | count] (2C, 7) (each slot's row
         for body1, then body0) and the accumulated normal impulses."""
         b0, b1, dyn0, dyn1 = cb.b0, cb.b1, cb.dyn0, cb.dyn1
@@ -671,8 +693,23 @@ class _XPBDPlan:
         depth = torch.clamp(depth, max=max_depen_vel * dt)
         r0 = a0 - x[b0]
         r1 = a1 - x[b1]
-        w = im0 + _quad(cross(r0, n), I0) + im1 + _quad(cross(r1, n), I1)
-        dlam = torch.where(active, depth / torch.clamp(w, min=1e-9), 0.0)
+        if stiff is None:
+            w = im0 + _quad(cross(r0, n), I0) + im1 + _quad(cross(r1, n), I1)
+            dlam = torch.where(active, depth / torch.clamp(w, min=1e-9), 0.0)
+        else:
+            w0 = im0 + _quad(cross(r0, n), I0)
+            w1 = im1 + _quad(cross(r1, n), I1)
+            d0 = torch.clamp(denom_prev[b0], min=1.0)
+            d1 = torch.clamp(denom_prev[b1], min=1.0)
+            gamma = gamma_relax * torch.where(
+                w0 + w1 > 0.0, (w0 / d0 + w1 / d1)
+                / torch.clamp(w0 + w1, min=1e-12), 1.0)
+            soft = stiff > 0.0
+            alpha = torch.where(soft, gamma / (torch.where(soft, stiff, 1.0)
+                                               * dt * dt), 0.0)
+            dlam = torch.where(active, (depth - alpha * lam_n)
+                               / torch.clamp(w0 + w1 + alpha, min=1e-9), 0.0)
+        # a compliant slot may push but not pull
         dlam = torch.maximum(dlam, -lam_n)
         lam_n = lam_n + dlam
         # static friction: cancel the anchors' tangential drift within the
@@ -735,6 +772,10 @@ class _XPBDPlan:
             # existed at the substep's start is bias, removed up to d0/dt
             vp.bias_cap = torch.clamp(contacts.rigid_contact_depth,
                                       min=0.0) / dt
+            # compliant slots keep their settled penetration: no bias
+            # removal there
+            stiff = contacts.rigid_contact_stiffness
+            vp.rigid = None if stiff is None else stiff <= 0.0
             vp.vn_old_pos = torch.clamp(vn_old, min=0.0)
         return vp
 
@@ -793,6 +834,8 @@ class _XPBDPlan:
             excess = torch.minimum(torch.clamp(vn - vp.vn_old_pos, min=0.0),
                                    vp.bias_cap)
             bias = vp.active & (excess > 0.0)
+            if vp.rigid is not None:
+                bias = bias & vp.rigid
             dvn = torch.where(vp.approach, vp.vn_target - vn,
                               torch.where(bias, -excess, 0.0))
             rest = vp.approach | bias

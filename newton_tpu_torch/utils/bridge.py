@@ -9,7 +9,10 @@ reads the JAX ``Model`` leaves and ``ModelStructure`` fields into numpy
 port's objects on a device. The ``*_to_numpy`` functions go the other
 way, so a round trip is exact. A multi-world model (``replicate``,
 ``add_world``) needs nothing more: its leaves are the flat ones, and its
-world tables are structure fields.
+world tables are structure fields. The mesh kinds' leaves (sample
+points and areas, SDF grids, texture pools; ``sdf_tex_blocks`` as uint8)
+and structure fields (SDF and texture ids, hull vertex clouds, sample
+cell areas) ride the same lists.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from ..sim.model import (
     MODEL_BOOL_FIELDS,
     MODEL_FLOAT_FIELDS,
     MODEL_INT_FIELDS,
+    MODEL_UINT8_FIELDS,
     AttributeAssignment,
     AttributeFrequency,
     AttributeSpec,
@@ -37,6 +41,7 @@ from ..solvers.generalized.actuation import MJCActuation
 
 __all__ = ["STRUCTURE_FIELDS", "ACTUATION_FIELDS", "STATE_FIELDS",
            "CONTROL_FIELDS", "CONTACT_FIELDS", "CONTACT_COUNTERS",
+           "CONTACT_OPTIONAL",
            "SOFT_CONTACT_FIELDS",
            "model_from_numpy",
            "model_to_numpy", "state_from_numpy", "state_to_numpy",
@@ -59,7 +64,8 @@ STRUCTURE_FIELDS = (
     "spring_count", "tri_count", "edge_count", "tet_count", "soft_pairs",
     "soft_contact_max", "eq_world", "eq_type",
     "sten_paths", "sten_key", "muscle_count", "muscle_start",
-    "shape_filter_pairs",
+    "shape_filter_pairs", "shape_sdf_id", "shape_sdf_tex_id",
+    "shape_hull_verts", "shape_sample_cell_area",
 )
 ACTUATION_FIELDS = ("n", "dof", "coord", "tendon", "sten", "gear",
                     "dyntype", "dynprm", "gaintype", "gainprm", "biastype",
@@ -76,6 +82,9 @@ CONTACT_FIELDS = ("rigid_contact_mask", "rigid_contact_shape0",
                   "rigid_contact_force")
 # the device scalars of the dynamic-pair and mesh budgets' overflow
 CONTACT_COUNTERS = ("broad_phase_dropped", "mesh_samples_dropped")
+# the hydroelastic slots' stiffness (the JAX package's Contacts always
+# carry it, zeros without hydroelastic contacts; the port's only then)
+CONTACT_OPTIONAL = ("rigid_contact_stiffness",)
 # present where the contacts have soft capacity (the JAX package's always
 # have them, possibly empty)
 SOFT_CONTACT_FIELDS = ("soft_contact_mask", "soft_contact_particle",
@@ -135,7 +144,8 @@ def model_from_numpy(leaves: Dict[str, Any], structure: Dict[str, Any],
     frequency/assignment values, shape and default)."""
     kw = {n: _tensor(leaves[n], device, torch.float32)
           for n in MODEL_FLOAT_FIELDS}
-    kw.update({n: _tensor(leaves[n], device, torch.int32)
+    kw.update({n: _tensor(leaves[n], device, torch.uint8
+                          if n in MODEL_UINT8_FIELDS else torch.int32)
                for n in MODEL_INT_FIELDS})
     # eq_enabled may be left out: every constraint enabled
     kw["eq_enabled"] = _tensor(leaves.get(
@@ -196,13 +206,18 @@ def control_to_numpy(control: Control) -> dict:
 def contacts_from_numpy(d: Dict[str, Any], device) -> Contacts:
     """Soft fields are taken where ``d`` has them with a nonzero
     capacity; otherwise the Contacts has none. The overflow counters and
-    the ``custom`` entries are taken where ``d`` has them."""
+    the ``custom`` entries are taken where ``d`` has them, the stiffness
+    where it has one per rigid slot."""
     soft = {}
     if d.get("soft_contact_mask") is not None and \
             np.asarray(d["soft_contact_mask"]).shape[-1]:
         soft = {n: _tensor(d[n], device) for n in SOFT_CONTACT_FIELDS}
     counters = {n: _tensor(d[n], device, torch.int32)
                 for n in CONTACT_COUNTERS if d.get(n) is not None}
+    C = np.asarray(d["rigid_contact_mask"]).shape[-1]
+    counters.update({n: _tensor(d[n], device, torch.float32)
+                     for n in CONTACT_OPTIONAL if d.get(n) is not None
+                     and np.asarray(d[n]).shape[-1:] == (C,)})
     return Contacts(**{n: _tensor(d[n], device) for n in CONTACT_FIELDS},
                     **soft, **counters,
                     custom={k: _tensor(v, device)
@@ -213,7 +228,8 @@ def contacts_to_numpy(contacts: Contacts) -> dict:
     names = CONTACT_FIELDS + (SOFT_CONTACT_FIELDS
                               if contacts.soft_contact_max else ())
     out = {n: _numpy(getattr(contacts, n)) for n in names}
-    out.update({n: _numpy(getattr(contacts, n)) for n in CONTACT_COUNTERS
+    out.update({n: _numpy(getattr(contacts, n))
+                for n in CONTACT_COUNTERS + CONTACT_OPTIONAL
                 if getattr(contacts, n) is not None})
     if contacts.custom:
         out["custom"] = {k: _numpy(v) for k, v in contacts.custom.items()}

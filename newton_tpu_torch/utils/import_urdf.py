@@ -17,9 +17,9 @@ is a planar joint (the JAX importer makes it fixed), a ``<mimic>`` may
 name a joint declared after it (the JAX importer drops it),
 ``enable_self_collisions=False`` filters every pair of this robot's
 links and ``collapse_fixed_joints=True`` merges fixed-jointed links (the
-JAX importer reads neither). Collision meshes raise (mesh contacts are
-not ported: ROADMAP A.6); visual meshes are skipped, as in the JAX
-importer.
+JAX importer reads neither). Collision meshes raise (mesh files are not
+read: ROADMAP A item 14; a ``Mesh`` built in code collides through
+``add_shape_mesh``); visual meshes are skipped, as in the JAX importer.
 """
 
 from __future__ import annotations
@@ -130,7 +130,8 @@ def parse_urdf(builder, source: str, xform=None, floating: bool = False,
                 if not is_visual:
                     raise NotImplementedError(
                         f"URDF collision mesh of link {link.get('name')!r}:"
-                        " mesh contacts are not ported yet (ROADMAP A.6)")
+                        " mesh-file geoms are not ported (ROADMAP A item "
+                        "14); build the Mesh and call add_shape_mesh")
             else:
                 raise NotImplementedError(
                     f"URDF geometry {[c.tag for c in geom]} of link "

@@ -186,8 +186,9 @@ def test_pair_contact_fn_and_slots():
     assert [t_np.pair_slot_count(int(a), int(b)) for a, b in (
         (GeoType.PLANE, B), (B, B), (C, B), (GeoType.PLANE, CY))] \
         == [8, 16, 4, 4]
-    with pytest.raises(NotImplementedError, match="MESH-BOX"):
-        t_np.contact_fn_for(int(GeoType.MESH), int(B))
+    # a mesh pair has no primitive function: the mesh classes take it
+    assert t_np.contact_fn_for(int(GeoType.MESH), int(B)) == (None, False,
+                                                              16)
 
 
 def test_box_box_deepest_corner():

@@ -88,9 +88,12 @@ def test_pair_function_matches_jax(name):
 
 
 def test_unported_pair_raises():
+    """A mesh-kind pair has no primitive function (the mesh classes of
+    the pipeline take it): (None, False, slots), as the JAX package."""
     from newton_tpu_torch.geometry.types import GeoType
-    with pytest.raises(NotImplementedError, match="MESH-BOX"):
-        t_np.contact_fn_for(int(GeoType.MESH), int(GeoType.BOX))
+    assert t_np.contact_fn_for(int(GeoType.MESH), int(GeoType.BOX)) == \
+        j_np.contact_fn_for(int(GeoType.MESH), int(GeoType.BOX)) == \
+        (None, False, 16)
     fn, swapped, k = t_np.contact_fn_for(int(GeoType.BOX),
                                          int(GeoType.CAPSULE))
     assert (fn, swapped, k) == (t_np.capsule_box, True, 4)

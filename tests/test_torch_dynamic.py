@@ -380,7 +380,8 @@ def test_generalized_solver_refuses_dynamic_contacts():
     """A generalized solver's per-slot plan needs the static slots: it
     raises on dynamic-pair Contacts (the JAX package computes with them);
     a batched state with dynamic mode raises too, and so does a
-    hydroelastic pipeline."""
+    hydroelastic pipeline in dynamic mode (the JAX package's ignores the
+    flag there)."""
     m = pile_scene(nt, worlds=1, n_side=2, layers=2).finalize("cpu")
     pipe = nt.CollisionPipeline(m, mode="dynamic", dynamic_pair_budget=8)
     c = pipe.collide(m.state())
@@ -391,8 +392,10 @@ def test_generalized_solver_refuses_dynamic_contacts():
                 solver, "init_state") else m.state(), None, None, c, 1e-3)
     with pytest.raises(NotImplementedError, match="flat State"):
         pipe.collide(nt.batch_state(m.state(), 2))
-    with pytest.raises(NotImplementedError, match="A.6"):
-        nt.CollisionPipeline(m, hydroelastic=True)
+    # hydroelastic contacts are ported, in static mode only
+    assert nt.CollisionPipeline(m, hydroelastic=True).hydroelastic
+    with pytest.raises(ValueError, match="static"):
+        nt.CollisionPipeline(m, hydroelastic=True, mode="dynamic")
     auto = nt.CollisionPipeline(pile_scene(nt, n_side=3, layers=2)
                                 .finalize("cpu"))
     assert auto.mode == "dynamic"       # 342 candidate pairs > 8 x 38

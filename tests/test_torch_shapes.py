@@ -218,8 +218,9 @@ def test_new_pair_function_matches_jax(name):
 def test_every_primitive_pair_resolves():
     """tests/test_geometry.py:425 on the port: every pair of the seven
     primitive types resolves to a contact function with the JAX package's
-    orientation and slot count; a mesh, convex or heightfield pair
-    raises naming ROADMAP A.6."""
+    orientation and slot count; a mesh, convex or heightfield pair gets
+    no primitive function (the pipeline's mesh classes take it), as in
+    the JAX package."""
     from newton_tpu.geometry import narrow_phase as j_np
     prims = (G.PLANE,) + ANALYTIC
     for t0, t1 in itertools.product(prims, prims):
@@ -229,8 +230,9 @@ def test_every_primitive_pair_resolves():
         jfn, jswapped, jk = j_np.contact_fn_for(int(t0), int(t1))
         assert fn is not None and (swapped, k) == (jswapped, jk), (t0, t1)
     for t in (G.MESH, G.CONVEX, G.HFIELD):
-        with pytest.raises(NotImplementedError, match="A.6"):
-            t_np.contact_fn_for(int(t), int(G.BOX))
+        got = t_np.contact_fn_for(int(t), int(G.BOX))
+        assert got[0] is None and got == j_np.contact_fn_for(int(t),
+                                                             int(G.BOX))
     assert len(SUPPORT_PAIRS) == 9
 
 

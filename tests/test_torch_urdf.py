@@ -5,7 +5,8 @@ example_basic_urdf.py (its leaves and 40 substeps against the JAX
 package, its test_final on the port); a ``<mimic>`` joint (the JOINT
 equality row, against the JAX package); and where the port differs on
 purpose: planar joints, self-collision filtering, a mimic declared
-before its source, collision meshes (raise, ROADMAP A.6).
+before its source, collision meshes (raise: mesh files are ROADMAP A
+item 14).
 
 Tolerances: leaves 1e-6; joint_q and body_q atol 2e-4, joint_qd 5e-3
 (tests/test_batched_step.py:69-75).
@@ -230,7 +231,7 @@ def test_self_collisions_filtered_unless_enabled():
 
 def test_mimic_before_its_source_and_meshes():
     """A mimic tag may name a joint declared after it; a collision mesh
-    raises naming A.6, a visual mesh is skipped."""
+    file raises naming its ROADMAP item, a visual mesh is skipped."""
     src = cs.DOUBLE_PENDULUM_URDF.replace("{mimic}", "")
     src = src.replace('<joint name="shoulder" type="revolute">',
                       '<joint name="shoulder" type="revolute">'
@@ -242,7 +243,7 @@ def test_mimic_before_its_source_and_meshes():
     mesh = src.replace('<geometry><cylinder radius="0.03" length="0.5"/>'
                        '</geometry>', '<geometry><mesh filename="a.stl"/>'
                        '</geometry>', 1)
-    with pytest.raises(NotImplementedError, match="A.6"):
+    with pytest.raises(NotImplementedError, match="mesh-file"):
         nt.ModelBuilder().add_urdf(mesh)
     visual = src.replace("<collision>", "<visual>", 1).replace(
         "</collision>", "</visual>", 1)

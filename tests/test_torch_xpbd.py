@@ -390,8 +390,9 @@ def test_xpbd_unported_features_raise():
                     pipe.collide(nt.batch_state(s, 2)), DT)
     c = pipe.collide(s)
     c.rigid_contact_stiffness = torch.ones(c.rigid_contact_max)
-    with pytest.raises(NotImplementedError, match="hydroelastic"):
-        solver.step(s, None, None, c, DT)
+    # compliant (hydroelastic) slots are ported: they step
+    assert bool(torch.isfinite(solver.step(s, None, None, c, DT)
+                               .body_q).all())
 
 
 def test_xpbd_step_keeps_body_f_and_inputs():

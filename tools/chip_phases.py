@@ -7,11 +7,12 @@ one's seconds and results as a JSON line.
     python3 tools/chip_phases.py 32 33 34 35 36
     python3 tools/chip_phases.py 37 38 39 40 41 43
     python3 tools/chip_phases.py 43 45 46 48
+    python3 tools/chip_phases.py 49 50 51
 
-Phases 21-48 are the ones that take only the device (``dev``; 41 runs
+Phases 21-51 are the ones that take only the device (``dev``; 41 runs
 41 and 42, 43 runs 43 and 44, 46 runs 46 and 47, 40 times Style3D beside
 XPBD); the CUDA kernels are built first when a phase launches them (22,
-29-39, 48). With
+29-39, 48-50). With
 ``--tests``, the GPU cases of the named test files run afterwards
 (``pytest -m gpu``). Writes the results to chiprun_out/phases.json too.
 """
@@ -37,9 +38,10 @@ PHASES = {"21": "phase_ant_xpbd", "22": "phase_pyramid",
           "39": "phase_tower", "40": "phase_xpbd_cloth",
           "41": "phase_xpbd_particles", "43": "phase_cables",
           "45": "phase_shapes", "46": "phase_pile_sap",
-          "48": "phase_manifolds"}
+          "48": "phase_manifolds", "49": "phase_terrain",
+          "50": "phase_mesh_scenes", "51": "phase_pile_hulls"}
 KERNEL_PHASES = {"22", "29", "30", "31", "32", "33", "34", "35", "36",
-                 "37", "38", "39", "48"}
+                 "37", "38", "39", "48", "49", "50"}
 
 
 def main(argv):
