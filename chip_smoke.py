@@ -297,7 +297,24 @@ Phases, one line each:
      test_final in every world;
  51. example_pile_sap.py as published (512 hulls, dynamic SAP, budget
      4096, window 24), dt 1/120 for 0.5 s: 0 dropped, z in (-0.05, 2);
-     the card against the CPU per hull (1% may part on MPR ties).
+     the card against the CPU per hull (1% may part on MPR ties);
+ 52. the slice's main path: example_vbd_rigid_rigid_contact.py x 4096
+     (two boxes of half-size 0.12, mu 0.6, persistent manifolds) under
+     SolverVBD(iterations=8)'s AVBD, dt 1/240, 50 frames eager: one B1
+     solve (chol_solve, d = 6, W = 8192 bodies) a sweep, the example's
+     test_final in every world, 16 worlds against the CPU (float64
+     witness), 0 host syncs; the ball pendulum x 4096 (length within
+     2e-3) and the VBD cable rod x 1024 at bend_ke 0.5 and 500;
+ 53. SolverCoupled: the seesaw x 1024 (SolverMuJoCo with SolverXPBD, the
+     consensus's residuals; B1 d = 1 and B2 twice a substep, 0 host
+     syncs), the cloth on a ball x 1024 (SolverVBD for the particles),
+     the head-on pair x 4096 split between SolverXPBD and SolverMuJoCo,
+     and the mixed tower x 1024 split between SolverXPBD and SolverVBD
+     (finite over 2 frames and held to the CPU: the reference's tower
+     fails its gate, ROADMAP C.33); each scene's gates in every world and
+     4 worlds on the card against the CPU (float64 witness).
+Phase 49 holds a world off tolerance against the CPU to a float64 CPU
+run (the plain versions of B1 and B2 run float64 on the CPU).
 Phases 37-51 report device ms and operations per frame, the busy share,
 host syncs per substep and peak memory (49-51 require 0 host syncs).
 Phases 21, 24-27 and 32-51 run
@@ -4411,15 +4428,31 @@ def slice_flat(state, ctl, n, sub):
     return s, c
 
 
+def to_float64(x):
+    """A Model, State or Control with every floating-point tensor cast to
+    float64 (the witness runs on the CPU)."""
+    from newton_tpu_torch.sim.state import map_tensors
+    return map_tensors(x, lambda t: t.double() if t.is_floating_point()
+                       else t)
+
+
 def vs_cpu(step_d, step_c, s_d, c_d, pipe_d, pipe_c, label, n,
-           substeps=1):
+           substeps=1, witness=None):
     """``substeps`` substeps of n envs or worlds on the card and the same
     on the CPU from the same inputs: joint_q/body_q within 2e-4 and
     joint_qd within 5e-3 (atol = rtol, tests/test_batched_step.py:69-75);
     a world whose contact set differs between the two sides takes another
-    discrete path and is counted and left out, at most one."""
+    discrete path and is counted and left out, at most one. With
+    ``witness`` (step, pipeline) of the model cast to float64 on the CPU,
+    a world off tolerance against the float32 CPU run is held instead to
+    the same substeps in float64 (``xpbd_vs_cpu``'s rule: at a tie the
+    float32 CPU run may part from exact arithmetic while the card keeps
+    to it) and counted; a world that agrees with neither fails."""
     import torch
     s_c, c_c = s_d.to("cpu"), c_d.to("cpu")
+    s_w = c_w = None
+    if witness is not None:
+        s_w, c_w = to_float64(s_c), to_float64(c_c)
     flipped = torch.zeros(n, dtype=torch.bool)
     for _ in range(substeps):
         k_d = k_c = None
@@ -4429,20 +4462,36 @@ def vs_cpu(step_d, step_c, s_d, c_d, pipe_d, pipe_c, label, n,
                         ).view(n, -1).any(1)
         s_d = step_d(s_d, c_d, k_d)
         s_c = step_c(s_c, c_c, k_c)
+        if witness is not None:
+            step_w, pipe_w = witness
+            s_w = step_w(s_w, c_w, None if pipe_w is None
+                         else pipe_w.collide(s_w))
     if int(flipped.sum()) > 1:
         raise AssertionError(f"{label}: {int(flipped.sum())} of {n} worlds "
                              "changed their contact set between the card "
                              "and the CPU")
     out = {"worlds_left_out": int(flipped.sum())}
+    held = torch.zeros(n, dtype=torch.bool)
     for name, atol in (("joint_q", 2e-4), ("joint_qd", 5e-3),
                        ("body_q", 2e-4)):
         a = getattr(s_d, name).cpu().reshape(n, -1)
         b = getattr(s_c, name).reshape(n, -1)
-        ok, e = close(a[~flipped], b[~flipped], atol, atol)
-        if not ok:
+        ok = ((a - b).abs() <= atol + atol * b.abs()).all(1) | flipped
+        if witness is not None and not bool(ok.all()):
+            w = getattr(s_w, name).reshape(n, -1)
+            ok64 = ((a.double() - w).abs() <= atol + atol * w.abs()).all(1)
+            held |= ~ok & ok64
+            ok = ok | ok64
+        if not bool(ok.all()):
+            e = float((a - b)[~ok].abs().max())
             raise AssertionError(f"{label}: {name} card vs CPU off "
-                                 f"tolerance ({e:.3g})")
-        out[name] = e
+                                 f"tolerance ({e:.3g}) in "
+                                 f"{int((~ok).sum())} worlds")
+        keep = ~flipped & ~held
+        out[name] = float((a[keep] - b[keep]).abs().max()) \
+            if bool(keep.any()) else 0.0
+    if witness is not None:
+        out["worlds_held_to_float64"] = int(held.sum())
     return out
 
 
@@ -4762,25 +4811,32 @@ def phase_implicit(dev):
 
 
 def flat_scene_checks(make, solver_fn, solver, state, ctl, dt, label, dev,
-                      pipe=None, pipe_kw=None):
+                      pipe=None, pipe_kw=None, witness=False):
     """64 worlds of a replicated scene (``make(lib, n)`` returns the
     builder, ``make(lib, 1)`` the one-world one) on the card against the
-    CPU (``solver_fn(model)`` makes the solver), and one substep of the
-    full state through ``solver`` twice bit for bit."""
+    CPU (``solver_fn(model)`` makes the solver; with ``witness`` a world
+    off tolerance is held to a float64 CPU run, see ``vs_cpu``), and one
+    substep of the full state through ``solver`` twice bit for bit."""
     import newton_tpu_torch as nt
     sub = make(nt, 1)
     m_d, m_c = make(nt, PARITY_W).finalize(dev), make(
         nt, PARITY_W).finalize("cpu")
     x_d, x_c = solver_fn(m_d), solver_fn(m_c)
     p_d = p_c = None
+    kw = pipe_kw or {}
     if pipe is not None:
-        kw = pipe_kw or {}
         p_d, p_c = (nt.CollisionPipeline(m_d, **kw),
                     nt.CollisionPipeline(m_c, **kw))
+    wit = None
+    if witness:
+        m_w = to_float64(make(nt, PARITY_W).finalize("cpu"))
+        x_w = solver_fn(m_w)
+        wit = (lambda s, c, k: x_w.step(s, None, c, k, dt),
+               None if pipe is None else nt.CollisionPipeline(m_w, **kw))
     s_d, c_d = slice_flat(state, ctl, PARITY_W, sub)
     res = vs_cpu(lambda s, c, k: x_d.step(s, None, c, k, dt),
                  lambda s, c, k: x_c.step(s, None, c, k, dt), s_d, c_d, p_d,
-                 p_c, label, PARITY_W)
+                 p_c, label, PARITY_W, witness=wit)
 
     def one():
         k = None if pipe is None else pipe.collide(state)
@@ -5383,13 +5439,9 @@ def xpbd_vs_cpu(dev, builder, make_solver, state, substeps, dt, label,
     units of the tolerance). Those are counted and their gaps returned."""
     import torch
     import newton_tpu_torch as nt
-    from newton_tpu_torch.sim.state import map_tensors
     tol = tol or {"particle_q": 2e-4, "particle_qd": 5e-3, "body_q": 2e-4,
                   "body_qd": 5e-3, "joint_q": 2e-4, "joint_qd": 5e-3}
-
-    def f64(x):
-        return map_tensors(x, lambda t: t.double() if t.is_floating_point()
-                           else t)
+    f64 = to_float64
     sides = {}
     for side, d in (("card", dev), ("cpu", "cpu")) + (
             (("float64", "cpu"),) if ties else ()):
@@ -7023,7 +7075,8 @@ def pile_sap_scene(lib, n_hulls=PILE_HULLS):
 
 
 def gen_mesh_phase(dev, make, solver_fn, n, warmup, frames, label, gate,
-                   pipe_kw=None, sample_ctrl=False, field_slots=False):
+                   pipe_kw=None, sample_ctrl=False, field_slots=False,
+                   witness=False):
     """A mesh-kind scene of n worlds under a generalized solver through
     replicate + step: setup (with the pooled SDF bytes); ``warmup`` frames
     then ``frames`` timed frames of SUBSTEPS substeps (a new uniform
@@ -7031,7 +7084,8 @@ def gen_mesh_phase(dev, make, solver_fn, n, warmup, frames, label, gate,
     substep, counted; finite bodies and unit quaternions, and the gate; a
     substep through the kernels against the plain twins on the same state
     (B1, B2 on their operands; the states at 2e-4 / 5e-3); 64 worlds on
-    the card against the CPU; one substep twice bit for bit; env-steps/s
+    the card against the CPU (with ``witness``, a world off tolerance
+    held to a float64 CPU run); one substep twice bit for bit; env-steps/s
     of the kernel and plain paths in turns; device ms, busy share, host
     syncs per substep, peak memory; the mesh samples dropped; with
     ``field_slots``, how many worlds touched a heightfield in the last
@@ -7107,7 +7161,7 @@ def gen_mesh_phase(dev, make, solver_fn, n, warmup, frames, label, gate,
                b2=b2_record(args, kw, label, mismatch_div=TERRAIN_B2_DIV))
     res["vs_cpu"], res["repeat_max_diff"] = flat_scene_checks(
         make, solver_fn, solver, state, ctl, DT, label, dev, pipe=pipe,
-        pipe_kw=pipe_kw)
+        pipe_kw=pipe_kw, witness=witness)
     rates, _, _ = turns(solver, state, state.clone(), ctl,
                         TURN_FRAMES * SUBSTEPS, n, DT, pipe=pipe,
                         sample=sample)
@@ -7132,7 +7186,8 @@ def phase_terrain(dev):
     each leg and the legs' samples in its 24^3 grid); one warm-up frame,
     then TERRAIN_FRAMES frames of 4 substeps at dt 1/240 with random
     ctrl; gates: finite, unit quaternions, every torso z in (-0.3, 1.5)
-    (the example's test_final), B1 (d = 14) and B2 once a substep; see
+    (the example's test_final), B1 (d = 14) and B2 once a substep; the
+    64 worlds against the CPU with a float64 witness; see
     ``gen_mesh_phase`` for the rest."""
     import newton_tpu_torch as nt
 
@@ -7146,7 +7201,7 @@ def phase_terrain(dev):
         dev, terrain_ant_scene, lambda m: nt.SolverMuJoCo(
             m, iterations=ITERS, integrator="euler"), TERRAIN_W, 1,
         TERRAIN_FRAMES, "terrain ant", gate, sample_ctrl=True,
-        field_slots=True)
+        field_slots=True, witness=True)
     if res["field_worlds"] < TERRAIN_W // 4:
         raise AssertionError(f"terrain ant: only {res['field_worlds']} "
                              "worlds touch the heightfield")
@@ -7269,6 +7324,653 @@ def phase_pile_hulls(dev):
         raise AssertionError(f"pile: host syncs {SYNC_SITES}")
     res["classes"] = [(pc.kind, pc.n, pc.cap) for pc in pipe.classes]
     return res
+
+
+VBD_W = 4096                          # the VBD box stack x 4096 (phase 52)
+VBD_ITERS = 8                         # example_vbd_rigid_rigid_contact.py
+VBD_FRAMES = 50                       # its test_final's frame count
+VBD_H = 0.12
+VBD_PARITY_W = 16                     # worlds held to the CPU
+PENDULUM_W = 4096
+PENDULUM_FRAMES = 60                  # tests/test_solvers.py:319
+ROD_VBD_W = 1024
+ROD_VBD_DT = 1.0 / 960.0              # tests/test_cable.py:121
+ROD_VBD_STEPS = 600
+COUPLED_W = 1024                      # phase 53 (a), (b), (d)
+SEESAW_DT = 1.0 / 480.0               # example_mujoco_xpbd_coupled.py
+SEESAW_SUBSTEPS = 8
+SEESAW_FRAMES = 60
+CLOTH_BALL_FRAMES = 60                # tests/test_equality.py:89
+PAIR_W = 4096                         # phase 53 (c)
+PAIR_FRAMES = 120                     # tests/test_equality.py:260
+TOWER_N, TOWER_BOX_H = 4, 0.08        # example_xpbd_vbd_coupled.py
+COUPLED_PARITY_W = 4
+COUPLED_SPACING = 2.0                 # m between the worlds of the
+# particle scenes: particle-particle contacts do not look at worlds
+
+
+def spaced(lib, sub, n, grid=None):
+    """``sub`` alone for n = 1, else n copies of it, one world each,
+    COUPLED_SPACING apart on a square grid laid out for ``grid`` worlds
+    (default n; the first n places of a larger run's grid give the card-
+    vs-CPU check the same worlds): the particle-particle contacts of the
+    JAX package and the port do not look at worlds, so worlds with
+    particles must not overlap."""
+    import math
+    if n == 1 and grid is None:
+        return sub
+    b = lib.ModelBuilder(gravity=sub.gravity)
+    side = max(1, int(math.ceil(math.sqrt(grid or n))))
+    for i in range(n):
+        b.add_world(sub, xform=[(i % side) * COUPLED_SPACING,
+                                (i // side) * COUPLED_SPACING, 0.0,
+                                0.0, 0.0, 0.0, 1.0])
+    return b
+
+
+def vbd_stack_scene(lib, n):
+    """example_vbd_rigid_rigid_contact.py: two boxes of half-size 0.12 (mu
+    0.6) dropped from z = 0.15 and 0.6 (the upper 0.02 off in x) on a
+    ground plane, in each of n worlds."""
+    sub = lib.ModelBuilder(gravity=-9.81)
+    cfg = sub.default_shape_cfg.copy()
+    cfg.mu = 0.6
+    for i, z in enumerate((0.15, 0.6)):
+        body = sub.add_body(xform=[0.02 * i, 0.0, z, 0, 0, 0, 1],
+                            key=f"box_{i}")
+        sub.add_shape_box(body, hx=VBD_H, hy=VBD_H, hz=VBD_H, cfg=cfg)
+        sub.add_joint_free(body)
+    sub.add_ground_plane()
+    return replicated(lib, sub, n)
+
+
+def vbd_pendulum_scene(lib, n=1):
+    """tests/test_solvers.py:319's pendulum: a 1 m bar on a ball joint at
+    the origin, its centre 0.5 m out along x; n worlds."""
+    sub = lib.ModelBuilder()
+    link = sub.add_body(xform=[0.5, 0, 0, 0, 0, 0, 1])
+    sub.add_shape_box(link, hx=0.5, hy=0.05, hz=0.05)
+    sub.add_joint_ball(-1, link, xform_p=[0, 0, 0, 0, 0, 0, 1],
+                       xform_c=[-0.5, 0, 0, 0, 0, 0, 1])
+    return replicated(lib, sub, n)
+
+
+def vbd_rod_scene(lib, n, bend_ke):
+    """tests/test_cable.py:121's rod: six cable segments from (0, 0, 1)
+    to (0.6, 0, 1), radius 0.01, stretch_ke 2e4, fixed root; n worlds."""
+    sub = lib.ModelBuilder(gravity=-9.81)
+    sub.add_rod([0, 0, 1.0], [0.6, 0, 1.0], segments=6, radius=0.01,
+                joint="cable", bend_ke=bend_ke, stretch_ke=2.0e4,
+                root_joint="fixed")
+    return replicated(lib, sub, n)
+
+
+def mixed_tower_scene(lib, n):
+    """example_xpbd_vbd_coupled.py's tower: four boxes of half-size 0.08
+    (mu 0.7) stacked 1% apart on a ground plane; n worlds."""
+    sub = lib.ModelBuilder(gravity=-9.81)
+    cfg = sub.default_shape_cfg.copy()
+    cfg.mu = 0.7
+    for i in range(TOWER_N):
+        z = TOWER_BOX_H + 2 * TOWER_BOX_H * 1.01 * i
+        body = sub.add_body(xform=[0, 0, z, 0, 0, 0, 1], key=f"box_{i}")
+        sub.add_shape_box(body, hx=TOWER_BOX_H, hy=TOWER_BOX_H,
+                          hz=TOWER_BOX_H, cfg=cfg)
+        sub.add_joint_free(body)
+    sub.add_ground_plane()
+    return replicated(lib, sub, n)
+
+
+def cloth_ball_scene(lib, n, grid=None):
+    """example_coupled_cloth_ball.py: a free ball (r 0.2) at z = 0.5 under
+    an 8 x 8 cloth (cell 0.08, mass 0.5, tri_ke 500, edge_ke 2) at z = 1
+    over a ground plane; n worlds, COUPLED_SPACING apart."""
+    sub = lib.ModelBuilder()
+    body = sub.add_body(xform=[0.25, 0.25, 0.5, 0, 0, 0, 1], key="ball")
+    sub.add_shape_sphere(body, radius=0.2)
+    sub.add_joint_free(body)
+    sub.add_ground_plane()
+    sub.add_cloth_grid(pos=(0, 0, 1.0), dim_x=8, dim_y=8, cell_x=0.08,
+                       cell_y=0.08, mass=0.5, tri_ke=500.0, edge_ke=2.0)
+    return spaced(lib, sub, n, grid)
+
+
+def seesaw_scene(lib, n, grid=None):
+    """example_mujoco_xpbd_coupled.py: a plank (1 x 0.44 x 0.04) on a
+    frictionless hinge about Y at z = 0.3, a 6 x 6 cloth (cell 0.05, mass
+    0.8, radius 0.012, tri_ke 800, tri_kd 5, edge_ke 2) dropped over its +x
+    end, a ground plane; n worlds, COUPLED_SPACING apart."""
+    sub = lib.ModelBuilder(gravity=-9.81)
+    plank = sub.add_body(xform=[0, 0, 0.3, 0, 0, 0, 1], key="plank")
+    sub.add_shape_box(plank, hx=0.5, hy=0.22, hz=0.02)
+    sub.add_joint_revolute(-1, plank, axis="Y",
+                           xform_p=[0, 0, 0.3, 0, 0, 0, 1], key="hinge")
+    sub.add_cloth_grid(pos=(0.22, -0.16, 0.45), dim_x=6, dim_y=6,
+                       cell_x=0.05, cell_y=0.05, mass=0.8, radius=0.012,
+                       tri_ke=800.0, tri_kd=5.0, edge_ke=2.0)
+    sub.add_ground_plane()
+    return spaced(lib, sub, n, grid)
+
+
+def head_on_pair_scene(lib, n):
+    """tests/test_equality.py:260's pair: two free spheres (r 0.2,
+    restitution 0.9) 1 m apart at z = 0.5, no gravity; n worlds. The
+    velocities (+-1 m/s along x) are set on the state."""
+    sub = lib.ModelBuilder(gravity=0.0)
+    cfg = sub.default_shape_cfg.copy()
+    cfg.restitution = 0.9
+    for x in (-0.5, 0.5):
+        body = sub.add_body(xform=[x, 0, 0.5, 0, 0, 0, 1])
+        sub.add_shape_sphere(body, radius=0.2, cfg=cfg)
+        sub.add_joint_free(body)
+    return replicated(lib, sub, n)
+
+
+def particle_blob_scene(lib):
+    """tests/test_equality.py:209's scene: a free box (0.8 x 0.8 x 0.2,
+    density 500) under a blob of 40 particles (mass 0.05, seed 0), gravity
+    -10, no ground."""
+    import numpy as np
+    b = lib.ModelBuilder(gravity=-10.0)
+    box = b.add_body(xform=[0, 0, 0.0, 0, 0, 0, 1])
+    b.add_shape_box(box, hx=0.4, hy=0.4, hz=0.1,
+                    cfg=lib.ShapeConfig(density=500.0))
+    b.add_joint_free(box)
+    rng = np.random.RandomState(0)
+    for p in rng.uniform(-0.2, 0.2, (40, 3)) * [1, 1, 0.5] + [0, 0, 0.5]:
+        b.add_particle(p, (0, 0, 0), mass=0.05, radius=0.01)
+    return b
+
+
+def flat_slice(state, n, sub):
+    """The first n worlds of a flat State of a model replicated from the
+    one-world builder ``sub``: its bodies, coordinates, dofs and
+    particles."""
+    from dataclasses import replace
+    s = world_slice(state, n, sub.body_count, sub.joint_coord_count,
+                    sub.joint_dof_count)
+    k = n * sub.particle_count
+    return replace(s, particle_q=state.particle_q[:k].clone(),
+                   particle_qd=state.particle_qd[:k].clone(),
+                   particle_f=state.particle_f[:k].clone(), custom={})
+
+
+def b1_solve_operands(step):
+    """Run ``step`` (a SolverVBD step) with AVBD's ``linalg.chol_solve``
+    calls recording their operands; returns the last call's (A, rhs)."""
+    from types import SimpleNamespace
+    from newton_tpu_torch.solvers import solver_vbd
+    rec, lib = [], solver_vbd.linalg
+
+    def recording(A, rhs):
+        rec.append((A.clone(), rhs.clone()))
+        return lib.chol_solve(A, rhs)
+    solver_vbd.linalg = SimpleNamespace(chol_solve=recording)
+    try:
+        step()
+    finally:
+        solver_vbd.linalg = lib
+    return rec[-1]
+
+
+def b1_solve_record(step, label):
+    """B1 without the inverse on the operands of ``step``'s last call:
+    held against its plain version (``b1s_check``) and timed beside its
+    plain version and torch.linalg.solve (``b1s_times``)."""
+    A, rhs = b1_solve_operands(step)
+    err, exact = b1s_check(A, rhs, label)
+    return dict(W=A.shape[0], d=A.shape[-1], max_abs_err=err,
+                bit_equal=exact, **b1s_times(A, rhs))
+
+
+def eager_window(sub, state, substeps, n, label, per_substep):
+    """``substeps`` eager substeps of ``sub`` (a State to the next) timed
+    for env-steps/s, the kernels' launch counters set to 0 just before
+    and read just after: ``per_substep`` (B1, B2, B1 without the inverse)
+    launches a substep, each kernel listed launched at least once."""
+    import torch
+    torch.cuda.synchronize()
+    reset_robot_launches()
+    t0 = time.perf_counter()
+    for _ in range(substeps):
+        state = sub(state)
+    torch.cuda.synchronize()
+    rate = substeps * n / (time.perf_counter() - t0)
+    launches = gen_launches()
+    want = tuple(k * substeps for k in per_substep)
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches} in {substeps} "
+                             f"substeps, want {want}")
+    return state, dict(substeps=substeps, launches=launches,
+                       env_steps_per_s=rate)
+
+
+def phase_vbd_rigid(dev):
+    """(a) The slice's main path: example_vbd_rigid_rigid_contact.py as
+    published, x 4096 (``vbd_stack_scene``): CollisionPipeline(
+    persistent_manifolds=True), SolverVBD(iterations=8), dt 1/240, 4
+    substeps a frame, 50 frames eager, one B1 solve (``chol_solve``, d =
+    6, W = 8192 bodies) a sweep, counted; the example's test_final in
+    every world (box 0 at 0.12 within 0.05, box 1 at 0.36 within 0.09,
+    |v| < 0.5); 16 worlds 4 substeps on the card against the CPU (a world
+    off tolerance held to a float64 CPU run); one substep twice bit for
+    bit; B1 against its plain version on the substep's operands, timed
+    with torch.linalg.solve; device ops and aten calls a substep, busy
+    share profiled and unprofiled, host syncs a substep (0 required).
+    (b) tests/test_solvers.py:319's ball pendulum x 4096, SolverVBD(
+    iterations=6), 60 frames: the bar's centre within 2e-3 of 0.5 from the
+    pivot at every frame. (c) tests/test_cable.py:121's rod x 1024 at
+    bend_ke 0.5 and 500 (600 substeps at 1/960, replayed from a CUDA graph
+    after an eager frame): the stiff tip above the floppy one and above
+    0.9, at most 1.01."""
+    import torch
+    import newton_tpu_torch as nt
+    out = {}
+    # (a) the box stack
+    t0 = time.perf_counter()
+    model = vbd_stack_scene(nt, VBD_W).finalize(dev)
+    pipe = nt.CollisionPipeline(model, persistent_manifolds=True)
+    solver = nt.SolverVBD(model, iterations=VBD_ITERS)
+    torch.cuda.synchronize()
+    res = dict(worlds=VBD_W, setup_s=time.perf_counter() - t0,
+               slots_per_world=model.structure.rigid_contact_max / VBD_W)
+    carry = [pipe.contacts()]
+
+    def sub(s):
+        carry[0] = pipe.collide(s, prev=carry[0])
+        return solver.step(s, None, None, carry[0], DT)
+    state, win = eager_window(sub, model.state(), VBD_FRAMES * SUBSTEPS,
+                              VBD_W, "VBD box stack", (0, 0, VBD_ITERS))
+    res.update(win)
+    rigid_gates(state, "VBD box stack")
+    z = state.body_q[:, 2].view(VBD_W, 2)
+    g = dict(z0_err_max=float((z[:, 0] - VBD_H).abs().max()),
+             z1_err_max=float((z[:, 1] - 3 * VBD_H).abs().max()),
+             v_max=float(state.body_qd[:, 0:3].abs().max()))
+    if not (g["z0_err_max"] < 0.05 and g["z1_err_max"] < 0.09
+            and g["v_max"] < 0.5):
+        raise AssertionError(f"VBD box stack: gates fail {g}")
+    res["gates"] = g
+    c = carry[0]
+    res["active_slots_per_world"] = float(c.rigid_contact_mask.sum()) / VBD_W
+    res["vs_cpu"] = xpbd_vs_cpu(
+        dev, vbd_stack_scene(nt, VBD_PARITY_W),
+        lambda m: nt.SolverVBD(m, iterations=VBD_ITERS),
+        world_slice(state, VBD_PARITY_W, 2, 14, 12), SUBSTEPS, DT,
+        "VBD box stack", pipe=True, pipe_kw={"persistent_manifolds": True},
+        ties=True)
+    repeat_fields(lambda: solver.step(state, None, None, c, DT),
+                  ("body_q", "body_qd"), "VBD box stack")
+    res["repeat_bit_equal"] = True
+    res["b1"] = b1_solve_record(
+        lambda: solver.step(state, None, None, c, DT), "VBD box stack")
+    res["aten_ops_per_substep"] = count_ops(
+        lambda: solver.step(state, None, None, pipe.collide(state, prev=c),
+                            DT))[1]
+    res.update(path_metrics(
+        lambda: [solver.step(state, None, None, c, DT)
+                 for _ in range(SUBSTEPS)],
+        lambda: solver.step(state, None, None, pipe.collide(state, prev=c),
+                            DT), VBD_W, res["env_steps_per_s"]))
+    if res["host_syncs_per_substep"]:
+        raise AssertionError(f"VBD box stack: host syncs {SYNC_SITES}")
+    out["stack"] = res
+
+    # (b) the ball pendulum
+    t0 = time.perf_counter()
+    model = vbd_pendulum_scene(nt, PENDULUM_W).finalize(dev)
+    solver = nt.SolverVBD(model, iterations=6)
+    state = nt.eval_fk(model, model.joint_q0, model.joint_qd0, model.state())
+    worst = torch.zeros((), device=dev)
+    zr = torch.tensor([1e9, -1e9], device=dev)
+    substeps = 0
+    reset_robot_launches()
+    for _ in range(PENDULUM_FRAMES):
+        for _ in range(SUBSTEPS):
+            state = solver.step(state, None, None, None, DT)
+            substeps += 1
+        x = state.body_q[:, 0:3]
+        worst = torch.maximum(worst, (x.norm(dim=1) - 0.5).abs().max())
+        zr = torch.stack([torch.minimum(zr[0], x[:, 2].min()),
+                          torch.maximum(zr[1], x[:, 2].max())])
+    torch.cuda.synchronize()
+    r = dict(worlds=PENDULUM_W, seconds=time.perf_counter() - t0,
+             substeps=substeps, launches=gen_launches(),
+             length_err_max=float(worst), z_range=[float(v) for v in zr])
+    if r["launches"] != (0, 0, 6 * substeps):
+        raise AssertionError(f"VBD pendulum: launches {r['launches']}")
+    if not (r["length_err_max"] < 2e-3 and r["z_range"][0] > -0.501
+            and r["z_range"][1] < 0.05):
+        raise AssertionError(f"VBD pendulum: gates fail {r}")
+    r["env_steps_per_s"] = substeps * PENDULUM_W / r["seconds"]
+    r["b1"] = b1_solve_record(
+        lambda: solver.step(state, None, None, None, DT), "VBD pendulum")
+    out["pendulum"] = r
+
+    # (c) the cable rod
+    tips = []
+    for ke in (0.5, 500.0):
+        t0 = time.perf_counter()
+        model = vbd_rod_scene(nt, ROD_VBD_W, ke).finalize(dev)
+        solver = nt.SolverVBD(model, iterations=6)
+        state = nt.eval_fk(model, model.joint_q0, model.joint_qd0,
+                           model.state())
+
+        def step(s, solver=solver):
+            return solver.step(s, None, None, None, ROD_VBD_DT)
+        state, win = eager_window(step, state, SUBSTEPS, ROD_VBD_W,
+                                  f"VBD rod {ke}", (0, 0, 6))
+        state, gate_s = graphed_gate_run(step, state,
+                                         ROD_VBD_STEPS - SUBSTEPS,
+                                         ("body_q", "body_qd"))
+        nb = model.body_count // ROD_VBD_W
+        tip = state.body_q.view(ROD_VBD_W, nb, 7)[:, -1, 2]
+        tips.append(dict(bend_ke=ke, tip_z_min=float(tip.min()),
+                         tip_z_max=float(tip.max()),
+                         seconds=time.perf_counter() - t0,
+                         graph_env_steps_per_s=(ROD_VBD_STEPS - SUBSTEPS)
+                         * ROD_VBD_W / gate_s, **win))
+        rigid_gates(state, f"VBD rod {ke}")
+    if not (tips[0]["tip_z_max"] < tips[1]["tip_z_min"]
+            and tips[1]["tip_z_max"] <= 1.01 and tips[1]["tip_z_min"] > 0.9):
+        raise AssertionError(f"VBD rod: gates fail {tips}")
+    out["rod"] = dict(runs=tips, b1=b1_solve_record(
+        lambda: step(state), "VBD rod"))
+    return out
+
+
+def coupled_solver(lib, m, scene):
+    """The SolverCoupled of phase 53's scene as its example or test builds
+    it, and its dt (``lib``: the port, or the JAX package's solvers)."""
+    import numpy as np
+    S = getattr(lib, "solvers", lib)
+    if scene == "seesaw":
+        return S.SolverCoupled(
+            m, rigid_solver=S.SolverMuJoCo(m, iterations=4),
+            particle_solver=S.SolverXPBD(m, iterations=4),
+            consensus_iters=2), SEESAW_DT
+    if scene == "cloth_ball":
+        return S.SolverCoupled(
+            m, rigid_solver=S.SolverXPBD(m, iterations=2),
+            particle_solver=S.SolverVBD(m, iterations=2)), DT
+    if scene == "pair":
+        return S.SolverCoupled(
+            m, rigid_solver=S.SolverXPBD(m, iterations=4),
+            second_rigid_solver=S.SolverMuJoCo(m, iterations=8),
+            body_partition=np.arange(m.body_count) % 2 == 0,
+            consensus_iters=1), DT
+    return S.SolverCoupled(
+        m, rigid_solver=S.SolverXPBD(m, iterations=8),
+        second_rigid_solver=S.SolverVBD(m, iterations=8),
+        body_partition=np.arange(m.body_count) % 2 == 0,
+        consensus_iters=2), DT
+
+
+SPACED = ("seesaw", "cloth_ball")    # the scenes with particles
+
+
+def pair_velocities(state, n):
+    """tests/test_equality.py:260's start: body 0 of each world at +1 m/s
+    along x, body 1 at -1 m/s (body and joint velocities)."""
+    from dataclasses import replace
+    qd = state.body_qd.clone().view(n, 2, 6)
+    qd[:, 0, 0], qd[:, 1, 0] = 1.0, -1.0
+    jqd = state.joint_qd.clone().view(n, 12)
+    jqd[:, 0], jqd[:, 6] = 1.0, -1.0
+    return replace(state, body_qd=qd.view(-1, 6), joint_qd=jqd.view(-1))
+
+
+def coupled_phase(dev, scene, make, n, frames, substeps, label, gate,
+                  per_substep, eager_frames=2, graph=True,
+                  parity_substeps=SUBSTEPS, parity_from_start=False):
+    """A coupled scene of n worlds: setup; ``eager_frames`` eager frames
+    timed, the launches of B1, B2 and B1 without the inverse counted a
+    substep (``per_substep``); the rest of ``frames`` replayed from a
+    CUDA graph of the substep (or eager); finite bodies and particles,
+    unit quaternions and ``gate(state)``; COUPLED_PARITY_W worlds
+    ``parity_substeps`` substeps on the card against the CPU from the
+    window's end (or its start; a world off tolerance held to a float64
+    CPU run); one
+    substep twice bit for bit; device ops, busy share, host syncs a
+    substep, peak memory. Returns (results, model, solver, state)."""
+    import torch
+    import newton_tpu_torch as nt
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = make(nt, n).finalize(dev)
+    pipe = nt.CollisionPipeline(model)
+    solver, dt = coupled_solver(nt, model, scene)
+    state = solver.init_state(nt.eval_fk(model, model.joint_q0,
+                                         model.joint_qd0, model.state()))
+    if scene == "pair":
+        state = pair_velocities(state, n)
+    state0 = state.clone()
+    ctl = model.control()
+    torch.cuda.synchronize()
+    res = dict(worlds=n, setup_s=time.perf_counter() - t0,
+               particles=model.particle_count,
+               soft_slots=model.structure.soft_contact_max,
+               rigid_slots=model.structure.rigid_contact_max)
+
+    def sub(s):
+        return solver.step(s, None, ctl, pipe.collide(s), dt)
+    state, win = eager_window(sub, state, eager_frames * substeps, n, label,
+                              per_substep)
+    res.update(win)
+    rest = (frames - eager_frames) * substeps
+    fields = ("body_q", "body_qd", "joint_q", "joint_qd", "particle_q",
+              "particle_qd") + (("coupled:residuals",)
+                                if "coupled:residuals" in state.custom
+                                else ())
+    t0 = time.perf_counter()
+    if graph:
+        state, gate_s = graphed_gate_run(sub, state, rest, fields)
+        state = state.clone()
+        res["graph_env_steps_per_s"] = rest * n / gate_s
+    else:
+        for _ in range(rest):
+            state = sub(state)
+        torch.cuda.synchronize()
+    res["gate_window_s"] = time.perf_counter() - t0
+    rigid_gates(state, label)
+    if model.particle_count and not bool(torch.isfinite(
+            state.particle_q).all()):
+        raise AssertionError(f"{label}: particles not finite")
+    res["gates"] = gate(model, state)
+    if "coupled:residuals" in state.custom:
+        res["residuals"] = [float(v) for v in
+                            state.custom["coupled:residuals"]]
+    sub1 = make(nt, 1)
+    pb = (make(nt, COUPLED_PARITY_W, grid=n) if scene in SPACED
+          else make(nt, COUPLED_PARITY_W))
+    res["vs_cpu"] = xpbd_vs_cpu(
+        dev, pb,
+        lambda m: coupled_solver(nt, m, scene)[0],
+        flat_slice(state0 if parity_from_start else state,
+                   COUPLED_PARITY_W, sub1), parity_substeps, dt,
+        label, pipe=True, ties=True)
+    c = pipe.collide(state)
+    repeat_fields(lambda: solver.step(state, None, ctl, c, dt),
+                  fields[:6], label)
+    res["repeat_bit_equal"] = True
+    res.update(path_metrics(
+        lambda: [sub(state) for _ in range(SUBSTEPS)], lambda: sub(state),
+        n, res["env_steps_per_s"]))
+    if res["host_syncs_per_substep"]:
+        raise AssertionError(f"{label}: host syncs {SYNC_SITES}")
+    return res, model, solver, state, ctl, pipe, dt
+
+
+def phase_coupled(dev):
+    """SolverCoupled, each scene replicated:
+    (a) example_mujoco_xpbd_coupled.py's seesaw x 1024: SolverMuJoCo(
+    iterations=4) and SolverXPBD(iterations=4), consensus_iters=2,
+    init_state's residuals, dt 1/480, 8 substeps a frame, 60 frames: per
+    substep two B1 (d = 1) and two B2 launches (one per round), counted;
+    the example's test_final in every world (the hinge tipped past 0.02,
+    the cloth in (-0.01, 0.6)); B1 and B2 against their plain versions on
+    the rigid step's operands, timed; 0 host syncs;
+    (b) example_coupled_cloth_ball.py x 1024: SolverXPBD(iterations=2)
+    and SolverVBD(iterations=2) for the particles (its AVBD runs on the
+    ball too: one B1 solve a sweep), 60 frames: the ball at z = 0.2 within
+    0.05 in every world (tests/test_equality.py:89's gate);
+    (c) tests/test_equality.py:260's head-on pair x 4096 split between
+    SolverXPBD and SolverMuJoCo(iterations=8) by a body partition, 120
+    frames: body 0 below -0.7 m/s, body 1 above 0.7, their sum within
+    0.1 in every world; B1 and B2 against their plain versions;
+    (d) example_xpbd_vbd_coupled.py's tower x 1024 split between
+    SolverXPBD(iterations=8) and SolverVBD(iterations=8): the JAX
+    package's run fails its gate here (ROADMAP C.33), so 2 frames are
+    gated on finiteness and held to the CPU over those 2 frames, and the
+    boxes' z after 10 frames is reported."""
+    import torch
+    out = {}
+    n_a = COUPLED_W
+
+    def seesaw_gate(model, state):
+        q = state.joint_q
+        pz = state.particle_q[:, 2]
+        g = dict(hinge_min=float(q.min()), cloth_z_min=float(pz.min()),
+                 cloth_z_max=float(pz.max()))
+        if not (g["hinge_min"] > 0.02 and g["cloth_z_min"] > -0.01
+                and g["cloth_z_max"] < 0.6):
+            raise AssertionError(f"seesaw: gates fail {g}")
+        return g
+    res, model, solver, state, ctl, pipe, dt = coupled_phase(
+        dev, "seesaw", seesaw_scene, n_a, SEESAW_FRAMES, SEESAW_SUBSTEPS,
+        "seesaw", seesaw_gate, (2, 2, 0))
+    errs, recs = group_paths(solver.rigid_solver, state, ctl,
+                             pipe.collide(state), dt, "seesaw")
+    Mi, rhs = recs[0]["chol"]
+    args, kw = recs[0]["pgs"]
+    res.update(paths=errs, b1=dict(d=Mi.shape[-1], W=Mi.shape[0],
+                                   **b1_times(Mi, rhs)),
+               b2=b2_record(args, kw, "seesaw"))
+    out["seesaw"] = res
+
+    def ball_gate(model, state):
+        z = state.body_q[:, 2]
+        g = dict(ball_z_min=float(z.min()), ball_z_max=float(z.max()),
+                 particle_speed_max=float(state.particle_qd.norm(
+                     dim=1).max()))
+        if not ((z - 0.2).abs().max() < 0.05):
+            raise AssertionError(f"cloth on a ball: gates fail {g}")
+        return g
+    res, model, solver, state, ctl, pipe, dt = coupled_phase(
+        dev, "cloth_ball", cloth_ball_scene, n_a, CLOTH_BALL_FRAMES,
+        SUBSTEPS, "cloth on a ball", ball_gate, (0, 0, 2))
+    c = pipe.collide(state)
+    res["b1"] = b1_solve_record(
+        lambda: solver.step(state, None, ctl, c, dt), "cloth on a ball")
+    out["cloth_ball"] = res
+
+    def pair_gate(model, state):
+        v = state.body_qd[:, 0].view(-1, 2)
+        g = dict(v0_max=float(v[:, 0].max()), v1_min=float(v[:, 1].min()),
+                 momentum_err_max=float((v[:, 0] + v[:, 1]).abs().max()))
+        if not (g["v0_max"] < -0.7 and g["v1_min"] > 0.7
+                and g["momentum_err_max"] < 0.1):
+            raise AssertionError(f"head-on pair: gates fail {g}")
+        return g
+    res, model, solver, state, ctl, pipe, dt = coupled_phase(
+        dev, "pair", head_on_pair_scene, PAIR_W, PAIR_FRAMES, SUBSTEPS,
+        "head-on pair", pair_gate, (1, 1, 0))
+    # the pair's MuJoCo step on a state in contact: the window's end has
+    # them apart, so the start is replayed to the collision (18 frames)
+    s = pair_velocities(solver.init_state(model.state()), PAIR_W)
+    for _ in range(18 * SUBSTEPS):
+        s = solver.step(s, None, ctl, pipe.collide(s), dt)
+    c = pipe.collide(s)
+    res["contact_worlds_at_collision"] = int(
+        c.rigid_contact_mask.view(PAIR_W, -1).any(1).sum())
+    errs, recs = group_paths(solver.second_rigid_solver, s, ctl, c, dt,
+                             "head-on pair")
+    Mi, rhs = recs[0]["chol"]
+    args, kw = recs[0]["pgs"]
+    res.update(paths=errs, b1=dict(d=Mi.shape[-1], W=Mi.shape[0],
+                                   **b1_times(Mi, rhs)),
+               b2=b2_record(args, kw, "head-on pair"))
+    out["pair"] = res
+
+    def tower_gate(model, state):
+        return dict(finite=True)
+    res, model, solver, state, ctl, pipe, dt = coupled_phase(
+        dev, "tower", mixed_tower_scene, n_a, 2, SUBSTEPS, "mixed tower",
+        tower_gate, (0, 0, VBD_ITERS * 2), eager_frames=2, graph=False,
+        parity_substeps=2 * SUBSTEPS, parity_from_start=True)
+    for _ in range(8 * SUBSTEPS):
+        state = solver.step(state, None, ctl, pipe.collide(state), dt)
+    z = state.body_q[:, 2].view(n_a, TOWER_N)
+    res["box_z_frame_10"] = dict(
+        median=[float(v) for v in z.median(0).values],
+        min=[float(v) for v in z.min(0).values],
+        max=[float(v) for v in z.max(0).values],
+        target=[TOWER_BOX_H + 2 * TOWER_BOX_H * 1.01 * i
+                for i in range(TOWER_N)],
+        finite=bool(torch.isfinite(state.body_q).all()))
+    c = pipe.collide(state)
+    res["b1"] = b1_solve_record(
+        lambda: solver.step(state, None, ctl, c, dt), "mixed tower")
+    out["tower"] = res
+    return out
+
+
+def coupled_kernel_entries(vbd, cpl, b1_src, b2_src):
+    """The kernels line's entries of phases 52-53: B1 without the inverse
+    on AVBD's 6x6 systems (the main path and each other VBD path), and B1
+    and B2 on the seesaw's and the pair's SolverMuJoCo."""
+    from newton_tpu_torch.solvers.generalized import linalg
+    out = []
+    for r, launches, path in (
+            (vbd["stack"]["b1"], vbd["stack"]["launches"][2],
+             "VBD box stack x 4096, AVBD's per-body 6x6 systems (phase 52,"
+             " the main path)"),
+            (vbd["pendulum"]["b1"], vbd["pendulum"]["launches"][2],
+             "VBD ball pendulum x 4096 (phase 52)"),
+            (vbd["rod"]["b1"], vbd["rod"]["runs"][1]["launches"][2],
+             "VBD cable rod x 1024, 6 bodies a world, one eager frame "
+             "counted (phase 52)"),
+            (cpl["cloth_ball"]["b1"], cpl["cloth_ball"]["launches"][2],
+             "cloth on a ball x 1024, SolverVBD's AVBD on the ball, two "
+             "eager frames counted (phase 53)"),
+            (cpl["tower"]["b1"], cpl["tower"]["launches"][2],
+             "mixed tower x 1024, SolverVBD's side of the partition, two "
+             "frames counted (phase 53)")):
+        d, n = r["d"], r["W"]
+        inst = linalg.kernel_instance(d)
+        out.append(dict(
+            name=f"chol_solve [{inst}] d={d} W={n}", **dict(
+                b1_src, library="torch.linalg.solve(A, rhs)"),
+            instance=inst, path=path, launches=launches,
+            max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"],
+            **bound_fields("chol_solve", r["ms"], d=d, W=n),
+            library_ms=r["library_ms"]))
+    for key, path in (("seesaw", "seesaw x 1024, SolverMuJoCo in "
+                       "SolverCoupled's consensus: 2 a substep (phase 53)"),
+                      ("pair", "head-on pair x 4096, SolverMuJoCo's side "
+                       "of the body partition (phase 53)")):
+        r = cpl[key]
+        d, w = r["b1"]["d"], r["b1"]["W"]
+        inst = linalg.kernel_instance(d)
+        out.append(dict(
+            name=f"chol_inv_solve [{inst}] d={d} W={w}", **b1_src,
+            instance=inst, path=path, launches=r["launches"][0],
+            max_abs_err=r["paths"]["b1 group 0"][0], ms=r["b1"]["ms"],
+            plain_ms=r["b1"]["plain_ms"],
+            **bound_fields("chol_inv_solve", r["b1"]["ms"], d=d, W=w),
+            library_ms=r["b1"]["library_ms"]))
+        b2 = r["b2"]
+        c, nl, d = b2["shape"]
+        out.append(dict(
+            name=f"pgs_solve_fused [{b2['instance']}] {b2['shape']} W={w}",
+            **b2_src, instance=b2["instance"], path=path,
+            launches=r["launches"][1], max_abs_err=b2["lam_err"],
+            ms=b2["ms"], plain_ms=b2["plain_ms"],
+            **bound_fields("pgs_solve_fused", b2["ms"], c=c, nl=nl, d=d,
+                           W=w, iters=b2.get("iters", ITERS))))
+    return out
 
 
 def mesh_kernel_entries(ter, mesh, b1_src, b2_src):
@@ -7969,6 +8671,37 @@ def main():
           f"{hp['env_steps_per_s']:.1f} env-steps/s on {card}", flush=True)
     mark("51")
 
+    vbd52 = phase_vbd_rigid(dev)
+    results["vbd_rigid"] = vbd52
+    st52 = vbd52["stack"]
+    print(f"[52 AVBD, the slice's main path] VBD box stack x {VBD_W}: setup "
+          f"{st52['setup_s']:.1f} s, launches {st52['launches']} in "
+          f"{st52['substeps']} substeps, gates {st52['gates']}, vs CPU "
+          f"{st52['vs_cpu']}, B1 solve d={st52['b1']['d']} W="
+          f"{st52['b1']['W']} {st52['b1']['ms']:.4f} ms (plain "
+          f"{st52['b1']['plain_ms']:.4f} ms, torch.linalg.solve "
+          f"{st52['b1']['library_ms']:.4f} ms), aten calls a substep "
+          f"{st52['aten_ops_per_substep']}, profiled frame "
+          f"{st52['profile']}, busy {st52['busy_share_unprofiled']}, host "
+          f"syncs {st52['host_syncs_per_substep']}, "
+          f"{st52['env_steps_per_s']:.1f} env-steps/s; pendulum x "
+          f"{PENDULUM_W}: length err {vbd52['pendulum']['length_err_max']:.3g}"
+          f", {vbd52['pendulum']['env_steps_per_s']:.1f} env-steps/s; rod x "
+          f"{ROD_VBD_W}: {vbd52['rod']['runs']} on {card}", flush=True)
+    mark("52")
+
+    cpl = phase_coupled(dev)
+    results["coupled"] = cpl
+    print("[53 SolverCoupled] " + "; ".join(
+        f"{k}: launches {v['launches']} in {v['substeps']} eager substeps, "
+        f"gates {v['gates']}, residuals {v.get('residuals')}, vs CPU "
+        f"{v['vs_cpu']}, host syncs {v['host_syncs_per_substep']}, busy "
+        f"{v['busy_share_unprofiled']}, {v['env_steps_per_s']:.1f} "
+        f"env-steps/s" for k, v in cpl.items())
+        + f"; tower z at frame 10 {cpl['tower']['box_z_frame_10']} on "
+        f"{card}", flush=True)
+    mark("53")
+
     results["kernel_info"] = kernel_info()
     print("[phase seconds] " + json.dumps(
         {k: round(v, 1) for k, v in results["phase_s"].items()}), flush=True)
@@ -8186,6 +8919,7 @@ def main():
     kernels += free_body_kernel_entries(conv, mnt, tower, b1_src, b2_src)
     kernels += shape_kernel_entries(man, b1_src, b2_src)
     kernels += mesh_kernel_entries(ter, mesh, b1_src, b2_src)
+    kernels += coupled_kernel_entries(vbd52, cpl, b1_src, b2_src)
     print(f"[bounds] H100 SXM peaks {PEAK_BYTES_PER_S / 1e12:g} TB/s, "
           f"{PEAK_F32_FLOPS / 1e12:g} TFLOP/s float32 (700 W); this card: "
           f"{card}", flush=True)

@@ -6,7 +6,8 @@ collision -> batched generalized step, with contact warm start, sleeping
 and equality constraints), the rigid-body path of ``SolverXPBD``, the MPM
 path (particles -> ``SolverImplicitMPM``), the cloth path (cloth and soft
 topology, particle-shape contacts -> ``SolverStyle3D``, ``SolverVBD``,
-``SolverSemiImplicit``), mesh, convex-hull, heightfield and hydroelastic
+``SolverSemiImplicit``), rigid bodies under ``SolverVBD``'s AVBD, the
+co-simulation of two solvers (``SolverCoupled``), mesh, convex-hull, heightfield and hydroelastic
 contacts, and batched inverse kinematics (``ik``). Every TPU kernel of the JAX package has a
 hand-written CUDA counterpart for Hopper in ``csrc/``: the Cholesky and PGS
 kernels of the robot path, the P2G/G2P transfers of the MPM path. It
@@ -37,6 +38,7 @@ from .sim.model import Model, ModelStructure  # noqa: E402
 from .sim.state import State  # noqa: E402
 from .solvers.generalized.kamino import SolverKamino  # noqa: E402
 from .solvers.generalized.solver import SolverFeatherstone, SolverMuJoCo  # noqa: E402
+from .solvers.solver_coupled import SolverCoupled  # noqa: E402
 from .solvers.solver_mpm import SolverImplicitMPM, SolverMPM  # noqa: E402
 from .solvers.solver_semi_implicit import SolverSemiImplicit  # noqa: E402
 from .solvers.solver_style3d import SolverStyle3D  # noqa: E402
@@ -49,7 +51,7 @@ __all__ = [
     "eval_ik",
     "JointDofConfig", "ModelBuilder", "ShapeConfig", "CollisionPipeline",
     "Contacts", "Control", "EqType", "JointType", "Model", "ModelStructure", "State",
-    "SolverFeatherstone", "SolverKamino", "SolverMuJoCo",
+    "SolverCoupled", "SolverFeatherstone", "SolverKamino", "SolverMuJoCo",
     "SolverImplicitMPM", "SolverMPM",
     "SolverSemiImplicit", "SolverStyle3D", "SolverVBD", "SolverXPBD",
     "ParticleFlags", "ASSET_DIR",

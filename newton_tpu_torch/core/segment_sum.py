@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 __all__ = ["FixedOrderSum", "DynamicOrderSum", "soft_contact_sum",
-           "check_static_slots"]
+           "slot_body_dst", "check_static_slots"]
 
 
 class FixedOrderSum:
@@ -98,6 +98,28 @@ def soft_contact_sum(structure, n_particles: int, device) -> FixedOrderSum:
     (``CollisionPipeline(model)``), each slot's particle first."""
     sp = np.asarray(structure.soft_pairs, dtype=np.int64).reshape(-1, 2)
     return FixedOrderSum(sp[:, 0], n_particles, device)
+
+
+def slot_body_dst(structure, C: int, solver: str) -> np.ndarray:
+    """The destinations of per-slot rows over the static pipeline's C
+    rigid slots (``CollisionPipeline(model)`` fills ``slot_shape0/1`` in
+    that order): each slot's body1, then each slot's body0, -1 where that
+    side is static (its row is zero and dropped). Raises unless C is the
+    pipeline's slot count."""
+    S = len(np.asarray(structure.slot_shape0))
+    if C and C != S:
+        raise ValueError(
+            f"{solver} sums the {S} contact slots of the model's static "
+            f"pipeline (CollisionPipeline(model)); got {C}")
+    if not C:
+        return np.zeros(0, np.int64)
+    sb = np.asarray(structure.shape_body, dtype=np.int64)
+
+    def body(shape):
+        shape = np.asarray(shape, dtype=np.int64)
+        return np.where(shape >= 0, sb[np.maximum(shape, 0)], -1)
+    return np.concatenate([body(structure.slot_shape1),
+                           body(structure.slot_shape0)])
 
 
 def check_static_slots(contacts, structure, rigid: bool = False,

@@ -5,7 +5,8 @@ kernel ``newton_tpu/solvers/generalized/linalg_pallas.py``).
 on CUDA tensors it launches the hand-written kernel in
 ``csrc/chol_inv_solve.cu``; on CPU tensors it runs the plain PyTorch
 version beside it, ``chol_inv_solve_plain``, which is the counterpart of the
-JAX package's ``batched._chol_t`` / ``batched._cho_solve_t``. Layout is
+JAX package's ``batched._chol_t`` / ``batched._cho_solve_t`` (in float32,
+or in float64 on the CPU; the kernel takes float32 only). Layout is
 env-major: ``Mi (W, d, d)``, ``rhs (W, d)``. Every d has a kernel instance
 (``kernel_instance`` mirrors the kernel's choice from the shape alone).
 ``chol_solve`` launches the same kernel for x alone (the equality rows'
@@ -103,8 +104,13 @@ def chol_solve_plain(Mi: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
 
 
 def _check(Mi: torch.Tensor, rhs: torch.Tensor):
-    if Mi.dtype != torch.float32 or rhs.dtype != torch.float32:
-        raise TypeError("chol_inv_solve takes float32 tensors")
+    # the kernel is float32; the plain version also runs float64 on the
+    # CPU (the float64 witness of a card-vs-CPU check)
+    ok = (torch.float32, torch.float64) if Mi.device.type == "cpu" \
+        else (torch.float32,)
+    if Mi.dtype not in ok or rhs.dtype != Mi.dtype:
+        raise TypeError("chol_inv_solve takes float32 tensors (float64 on "
+                        "the CPU)")
     if Mi.dim() != 3 or Mi.shape[1] != Mi.shape[2]:
         raise ValueError(f"Mi must be (W, d, d), got {tuple(Mi.shape)}")
     if rhs.shape != Mi.shape[:2]:

@@ -223,9 +223,14 @@ def _check(J, Minv, qd, b, act, mu, lam0, ld, c, w_other):
     got = dict(J=J, Minv=Minv, qd=qd, b=b, act=act, mu=mu, lam0=lam0)
     if w_other is not None:
         got["w_other"] = w_other
+    # the kernel is float32; the plain version also runs float64 on the
+    # CPU (the float64 witness of a card-vs-CPU check)
+    dtype = torch.float64 if (J.device.type == "cpu"
+                              and J.dtype == torch.float64) else torch.float32
     for name, t in got.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"pgs_solve_fused: {name} must be float32")
+        if t.dtype != dtype:
+            raise TypeError(f"pgs_solve_fused: {name} must be float32 "
+                            "(float64 on the CPU, all alike)")
         if tuple(t.shape) != want[name]:
             raise ValueError(f"pgs_solve_fused: {name} must be "
                              f"{want[name]}, got {tuple(t.shape)}")

@@ -14,9 +14,25 @@ gradient: it never moves, and its (possibly singular) Hessian never
 reaches the solve. A substep runs a fixed number of device operations with
 no host synchronization.
 
-Rigid bodies: only the case without contacts and joints (or without
-bodies) is ported, where the bodies integrate freely; AVBD's rigid block
-solve raises.
+Rigid bodies run the AVBD extension after the particles (the JAX
+package's ``_rigid_avbd``): implicit Euler as a per-body block descent.
+Each of ``iterations`` sweeps assembles, for every body at once, the
+gradient and the 6x6 Hessian of its inertia and of the penalty energies
+of its contacts (normal, and friction clamped to the cone, with
+augmented-Lagrangian multipliers updated after the sweep) and of its
+joints (welds, the rotation lock of FIXED joints, the cables' split
+stretch/shear and bend/twist stiffness), and takes one Newton step,
+bodies in parallel (the JAX package's batched Jacobi). The 6x6 systems
+are symmetric positive definite by construction and go through B1's
+solve (``linalg.chol_solve``, the kernel of ``csrc/chol_inv_solve.cu``
+on the card); a body without mass gets the identity system and a zero
+gradient, so it never moves and its Hessian never reaches the factor.
+A velocity pass then removes the normal approach velocity at persisting
+contacts. Every per-body sum is a ``FixedOrderSum`` over the joints and
+the static pipeline's contact slots (a ``DynamicOrderSum`` for
+dynamic-pair Contacts), so two runs of a substep are equal bit for bit.
+A bodies' phase without contacts and joints integrates freely, as the
+JAX package's first branch.
 """
 
 from __future__ import annotations
@@ -28,16 +44,22 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core.segment_sum import check_static_slots, soft_contact_sum
+from ..core.segment_sum import (DynamicOrderSum, FixedOrderSum,
+                                check_static_slots, slot_body_dst,
+                                soft_contact_sum)
 from ..geometry.hashgrid import HashGrid
-from ..math import solve3
+from ..math import (cross, inv3, quat_conjugate, quat_mul, quat_normalize,
+                    quat_rotate, quat_rotate_inv, quat_to_matrix, solve3,
+                    transform_multiply)
 from ..sim.contacts import Contacts
 from ..sim.control import Control
+from ..sim.enums import JointType
 from ..sim.graph_coloring import ColoringAlgorithm, color_graph
 from ..sim.model import Model
 from ..sim.state import State
 from .solver import SolverBase, body_gravity, integrate_bodies, \
     particle_gravity
+from .generalized import linalg
 from .solver_style3d import _host, cloth_constraints
 
 __all__ = ["SolverVBD"]
@@ -136,6 +158,11 @@ class SolverVBD(SolverBase):
     Args:
         iterations: Gauss-Seidel sweeps per substep.
         contact_ke: penalty stiffness of the soft contacts.
+        rigid_contact_ke: AVBD's penalty stiffness of the rigid contacts
+            (normal and friction).
+        rigid_joint_ke: AVBD's stiffness of the joint welds and of the
+            FIXED joints' rotation lock (a cable's comes from its
+            ``joint_target_ke``).
         handle_self_contact: vertex-vertex penalty pairs from a hash grid
             of the step's start positions, the stretch 1-ring excluded.
         coloring: the vertex order of the colouring (MCS or greedy).
@@ -143,6 +170,8 @@ class SolverVBD(SolverBase):
 
     def __init__(self, model: Model, iterations: int = 4,
                  contact_ke: float = 1.0e4,
+                 rigid_contact_ke: float = 1.0e5,
+                 rigid_joint_ke: float = 1.0e6,
                  handle_self_contact: bool = False,
                  self_contact_ke: float = 2.0e3,
                  self_contact_radius: Optional[float] = None,
@@ -152,10 +181,13 @@ class SolverVBD(SolverBase):
         self._soft_sum = None
         self.iterations = int(iterations)
         self.contact_ke = float(contact_ke)
+        self.rigid_contact_ke = float(rigid_contact_ke)
+        self.rigid_joint_ke = float(rigid_joint_ke)
         self.handle_self_contact = bool(handle_self_contact)
         self.self_contact_ke = float(self_contact_ke)
         self.self_contact_max_per_cell = int(self_contact_max_per_cell)
         self._body_g = body_gravity(model) if model.body_count else None
+        self._rigid = _AVBDPlan(model) if model.body_count else None
         st = model.structure
         N = st.particle_count
         dev = model.device
@@ -334,14 +366,360 @@ class SolverVBD(SolverBase):
                        body_q=body_q, body_qd=body_qd)
 
     def _rigid_avbd(self, state_in: State, control, contacts, dt: float):
-        """Rigid bodies: without bodies, or without contacts and joints,
-        they integrate freely (the JAX package's first branch); AVBD's
-        block solve for contacts and joints is not ported."""
+        """The bodies' phase: without bodies, or without contacts and
+        joints, they integrate freely (the JAX package's first branch);
+        otherwise ``iterations`` AVBD sweeps and the velocity pass.
+        Returns (body_q, body_qd)."""
         model = self.model
         if model.body_count == 0 or (contacts is None
                                      and model.structure.joint_count == 0):
             return integrate_bodies(model, state_in, dt,
                                     gravity=self._body_g)
-        raise NotImplementedError(
-            "SolverVBD's rigid bodies with contacts or joints (AVBD) are "
-            "not ported yet")
+        return self._rigid.solve(model, state_in, contacts, dt,
+                                 self.iterations, self.rigid_contact_ke,
+                                 self.rigid_joint_ke)
+
+
+def _mm(A, B):
+    """Batched small matrix product (..., n, k) x (..., k, m), as a
+    broadcast product and sum (a batched matmul of 3x3 blocks runs as a
+    slow general kernel on the card)."""
+    return (A[..., :, :, None] * B[..., None, :, :]).sum(-2)
+
+
+def _mv(M, v):
+    return (M * v[..., None, :]).sum(-1)
+
+
+def _outer(a, b):
+    return a[..., :, None] * b[..., None, :]
+
+
+def _skew(r):
+    """[r]x (..., 3, 3): [r]x v = r x v."""
+    x, y, z = r.unbind(-1)
+    o = torch.zeros_like(x)
+    return torch.stack([torch.stack([o, -z, y], -1),
+                        torch.stack([z, o, -x], -1),
+                        torch.stack([-y, x, o], -1)], -2)
+
+
+def _blocks(a, b, c, d):
+    """The 6x6 matrices [[a, b], [c, d]] of (..., 3, 3) blocks."""
+    return torch.cat([torch.cat([a, b], -1), torch.cat([c, d], -1)], -2)
+
+
+class _AVBDPlan:
+    """The rigid phase of ``SolverVBD``, its static tables built once: the
+    joints' bodies and kinds (welds, the rotation lock of FIXED, the
+    cables' six stiffness slots), and the fixed-order sums of the
+    per-joint and per-slot gradient and Hessian rows into the bodies.
+    FREE and DISTANCE joints carry no energy (their rows are zero in the
+    JAX package), so they are left out of the tables."""
+
+    def __init__(self, model: Model):
+        st = model.structure
+        dev = model.device
+        self.st, self.dev = st, dev
+        self.B = st.body_count
+        self.shape_body = torch.as_tensor(
+            np.asarray(st.shape_body, dtype=np.int64), device=dev)
+        self.gravity = body_gravity(model)
+        self.dynamic = model.body_inv_mass > 0                # (B,)
+        ft = model.body_mass.dtype
+        self.eye6 = torch.eye(6, dtype=ft, device=dev)
+        self.identity = torch.tensor([0.0, 0, 0, 0, 0, 0, 1], dtype=ft,
+                                     device=dev)
+        self._sums = {}
+        self.cable = None
+        jt = np.asarray(st.joint_type, dtype=np.int64).reshape(-1)
+        free = np.isin(jt, (int(JointType.FREE), int(JointType.DISTANCE)))
+        sel = np.nonzero(~free)[0]
+        self.J = J = len(sel)
+        if not J:
+            self._jdst = np.zeros(0, np.int64)
+            return
+        self.sel = torch.as_tensor(sel, device=dev)
+        jt = jt[sel]
+        parent = np.asarray(st.joint_parent, dtype=np.int64)[sel]
+        child = np.asarray(st.joint_child, dtype=np.int64)[sel]
+        # the rows' destinations: each joint's row for its child, then
+        # for its parent (none for a joint to the world)
+        self._jdst = np.concatenate([child, np.where(parent >= 0, parent,
+                                                     -1)])
+        self.parent = torch.as_tensor(np.maximum(parent, 0), device=dev)
+        self.child = torch.as_tensor(child, device=dev)
+        self.hasp = torch.as_tensor(parent >= 0, device=dev)[:, None]
+        self.lock = torch.as_tensor(jt == int(JointType.FIXED), device=dev)
+        is_cable = jt == int(JointType.CABLE)
+        if is_cable.any():
+            # [shear_x, shear_y, stretch_z, bend_x, bend_y, twist_z]: each
+            # joint's six dof slots, clamped into range as a JAX gather is
+            D = max(int(st.joint_dof_count), 1)
+            d0 = np.asarray(st.joint_qd_start, dtype=np.int64)[sel]
+            self.cable = SimpleNamespace(
+                mask=torch.as_tensor(is_cable, device=dev),
+                dof=torch.as_tensor(np.minimum(d0[:, None] + np.arange(6),
+                                               D - 1), device=dev),
+                z=torch.tensor([0.0, 0, 1], dtype=ft, device=dev))
+
+    def sums(self, C: int):
+        """(the contact rows' sum (2C: body1's, then body0's), the joint
+        rows' then the contact rows' sum (2J + 2C)), each into the B
+        bodies; built once per C from the static pipeline's slots
+        (``slot_shape0/1``), a static side's (zero) row dropped."""
+        s = self._sums.get(C)
+        if s is None:
+            cdst = slot_body_dst(self.st, C, "SolverVBD")
+            s = (FixedOrderSum(cdst, self.B, self.dev),
+                 FixedOrderSum(np.concatenate([self._jdst, cdst]), self.B,
+                               self.dev))
+            self._sums[C] = s
+        return s
+
+    def world_inertia(self, model: Model, q):
+        """R I R^T of every body (B, 3, 3)."""
+        R = quat_to_matrix(q)
+        return _mm(_mm(R, model.body_inertia), R.transpose(-1, -2))
+
+    def contact_plan(self, model: Model, contacts: Contacts, x_prev,
+                     q_prev):
+        """Per slot: the bodies (0 where static), dynamic masks, friction,
+        the fixed-order sum of its rows, and each side's collide-time
+        anchor in its body's COM frame (a static side's: the world
+        point)."""
+        s0 = torch.clamp(contacts.rigid_contact_shape0.long(), min=0)
+        s1 = torch.clamp(contacts.rigid_contact_shape1.long(), min=0)
+        b0r, b1r = self.shape_body[s0], self.shape_body[s1]
+        dyn0 = (contacts.rigid_contact_shape0 >= 0) & (b0r >= 0)
+        dyn1 = (contacts.rigid_contact_shape1 >= 0) & (b1r >= 0)
+        b0 = torch.where(dyn0, b0r, 0)
+        b1 = torch.where(dyn1, b1r, 0)
+        if getattr(contacts, "dynamic", False):
+            # the slots' bodies change every call: the order of the sum
+            # is planned from this call's destinations, on the device
+            csum = DynamicOrderSum(torch.cat([torch.where(dyn1, b1r, -1),
+                                              torch.where(dyn0, b0r, -1)]),
+                                   self.B)
+            dynamic = True
+        else:
+            check_static_slots(contacts, self.st, rigid=True)
+            csum = self.sums(contacts.rigid_contact_max)[0]
+            dynamic = False
+        n = contacts.rigid_contact_normal
+        p = contacts.rigid_contact_position
+        half = n * (0.5 * contacts.rigid_contact_depth)[:, None]
+        p0, p1 = p + half, p - half
+        dyn0c, dyn1c = dyn0[:, None], dyn1[:, None]
+        mu = model.shape_material_mu
+        return SimpleNamespace(
+            b0=b0, b1=b1, dyn0=dyn0c, dyn1=dyn1c, n=n, sum=csum,
+            dynamic=dynamic, mask=contacts.rigid_contact_mask,
+            mu=0.5 * (mu[s0] + mu[s1]),
+            l0=torch.where(dyn0c, quat_rotate_inv(q_prev[b0],
+                                                  p0 - x_prev[b0]), p0),
+            l1=torch.where(dyn1c, quat_rotate_inv(q_prev[b1],
+                                                  p1 - x_prev[b1]), p1))
+
+    @staticmethod
+    def anchors(cp, x, q):
+        """The slots' anchors at the poses (x, q) and the penetration
+        along the normal."""
+        a0 = torch.where(cp.dyn0, x[cp.b0] + quat_rotate(q[cp.b0], cp.l0),
+                         cp.l0)
+        a1 = torch.where(cp.dyn1, x[cp.b1] + quat_rotate(q[cp.b1], cp.l1),
+                         cp.l1)
+        return a0, a1, -((a1 - a0) * cp.n).sum(-1)
+
+    def contact_rows(self, cp, x, q, lam, kc):
+        """Each slot's gradient and Hessian rows [g (6) | H (36)] (2C, 42),
+        body1's then body0's: the normal penalty kc max(pen, 0) + lam and
+        the tangential anchor drift's, clamped to the mu cone."""
+        a0, a1, pen = self.anchors(cp, x, q)
+        n = cp.n
+        act = cp.mask & ((pen > 0) | (lam > 0))
+        f_mag = torch.where(act, kc * torch.clamp(pen, min=0.0) + lam, 0.0)
+        r0 = a0 - x[cp.b0]
+        r1 = a1 - x[cp.b1]
+        J1 = torch.cat([n, cross(r1, n)], -1)
+        J0 = torch.cat([n, cross(r0, n)], -1)
+        d = a1 - a0
+        t_err = d - n * (d * n).sum(-1, keepdim=True)
+        t_len = torch.linalg.vector_norm(t_err, dim=-1)
+        t_dir = t_err / torch.clamp(t_len, min=1e-9)[:, None]
+        ft = torch.minimum(kc * t_len, cp.mu * f_mag)
+        ft = torch.where(act, ft, 0.0)
+        T1 = torch.cat([t_dir, cross(r1, t_dir)], -1)
+        T0 = torch.cat([t_dir, cross(r0, t_dir)], -1)
+        g1 = torch.where(cp.dyn1, -f_mag[:, None] * J1 + ft[:, None] * T1,
+                         0.0)
+        g0 = torch.where(cp.dyn0, f_mag[:, None] * J0 - ft[:, None] * T0,
+                         0.0)
+        w = act.to(x.dtype)[:, None, None] * kc
+        H1 = (w * cp.dyn1[:, :, None]) * (_outer(J1, J1) + _outer(T1, T1))
+        H0 = (w * cp.dyn0[:, :, None]) * (_outer(J0, J0) + _outer(T0, T0))
+        return torch.cat([torch.cat([g1, H1.flatten(1)], -1),
+                          torch.cat([g0, H0.flatten(1)], -1)])
+
+    def joint_rows(self, model: Model, x, q, kj):
+        """Each joint's gradient and Hessian rows [g (6) | H (36)] (2J,
+        42), the child's then the parent's: the anchor weld (K_lin, kj I;
+        a cable's stretch along the parent anchor's +Z and shear across
+        it) and the angular penalty (a FIXED
+        joint's rotation vector under kj I; a cable's bend, aligning the
+        tangents, and twist about them)."""
+        J = self.J
+        dt_ = x.dtype
+        parent, child, hasp = self.parent, self.child, self.hasp
+        pose = torch.cat([x - quat_rotate(q, model.body_com), q], -1)
+        X_wp = torch.where(hasp, pose[parent], self.identity)
+        X_pj = transform_multiply(X_wp, model.joint_X_p[self.sel])
+        X_cj = transform_multiply(pose[child], model.joint_X_c[self.sel])
+        Cv = X_cj[:, 0:3] - X_pj[:, 0:3]
+        rc = X_cj[:, 0:3] - x[child]
+        rp = X_pj[:, 0:3] - x[parent]
+        top = torch.eye(3, dtype=dt_, device=x.device).expand(J, 3, 3)
+        lockf = self.lock.to(dt_)[:, None, None]
+        cab = self.cable
+        if cab is not None:
+            z = cab.z.expand(J, 3)
+            t_p = quat_rotate(X_pj[:, 3:7], z)
+            t_c = quat_rotate(X_cj[:, 3:7], z)
+            ttT = _outer(t_p, t_p)
+            ke6 = model.joint_target_ke[cab.dof]
+            K_cab = (ke6[:, 2, None, None] * ttT
+                     + ke6[:, 0, None, None] * (top - ttT))
+            K_lin = torch.where(cab.mask[:, None, None], K_cab, kj * top)
+        else:
+            K_lin = kj * top
+        gl = _mv(K_lin, Cv)
+        Rc, Rp = _skew(rc), _skew(rp)
+        KRc, KRp = _mm(K_lin, Rc), _mm(K_lin, Rp)
+        q_rel = quat_mul(quat_conjugate(X_pj[:, 3:7]), X_cj[:, 3:7])
+        q_rel = torch.where(q_rel[:, 3:4] < 0, -q_rel, q_rel)
+        dO = quat_rotate(X_pj[:, 3:7], 2.0 * q_rel[:, 0:3]) * lockf[:, 0]
+        K_ang = kj * lockf * top
+        if cab is not None:
+            tau = 2.0 * torch.atan2(q_rel[:, 2], q_rel[:, 3])
+            t_mid = t_p + t_c
+            t_mid = t_mid / torch.clamp(torch.linalg.vector_norm(
+                t_mid, dim=-1, keepdim=True), min=1e-9)
+            e_cab = cross(t_p, t_c) + t_mid * tau[:, None]
+            dO = torch.where(cab.mask[:, None], e_cab, dO)
+            K_ang_cab = (ke6[:, 5, None, None] * ttT
+                         + ke6[:, 3, None, None] * (top - ttT))
+            K_ang = torch.where(cab.mask[:, None, None], K_ang_cab, K_ang)
+        ga = _mv(K_ang, dO)
+        Hc = _blocks(K_lin, -KRc, _mm(Rc, K_lin), -_mm(Rc, KRc) + K_ang)
+        Hp = _blocks(K_lin, -KRp, _mm(Rp, K_lin), -_mm(Rp, KRp) + K_ang)
+        gc = torch.cat([gl, cross(rc, gl) + ga], -1)
+        gp = torch.cat([-gl, -cross(rp, gl) - ga], -1)
+        return torch.cat([torch.cat([gc, Hc.flatten(1)], -1),
+                          torch.cat([gp, Hp.flatten(1)], -1)])
+
+    def solve(self, model: Model, state_in: State, contacts, dt, iterations,
+              kc, kj):
+        """The AVBD sweeps from the unconstrained prediction, the
+        velocities from the poses, the contacts' velocity pass. Returns
+        (body_q, body_qd)."""
+        B, J = self.B, self.J
+        if contacts is not None and contacts.rigid_contact_mask.dim() != 1:
+            raise ValueError("SolverVBD.step takes the flat (C,) Contacts "
+                             "of a flat State")
+        h2 = 1.0 / (dt * dt)
+        bq_pred, bqd_pred = integrate_bodies(model, state_in, dt,
+                                             gravity=self.gravity)
+        x_t = bq_pred[:, 0:3] + quat_rotate(bq_pred[:, 3:7], model.body_com)
+        q_t = bq_pred[:, 3:7]
+        x_prev = state_in.body_q[:, 0:3] + quat_rotate(
+            state_in.body_q[:, 3:7], model.body_com)
+        q_prev = state_in.body_q[:, 3:7]
+        m = model.body_mass[:, None]
+        dyn = self.dynamic[:, None]
+        C = contacts.rigid_contact_max if contacts is not None else 0
+        cp = self.contact_plan(model, contacts, x_prev, q_prev) if C \
+            else None
+        zero3 = torch.zeros_like(x_t)[:, :, None].expand(B, 3, 3)
+        eye3 = torch.eye(3, dtype=x_t.dtype, device=x_t.device)
+        q_t_conj = quat_conjugate(q_t)
+        x, q = x_t, q_t
+        lam = x_t.new_zeros(C)
+        for _ in range(iterations):
+            rows = []
+            if J:
+                rows.append(self.joint_rows(model, x, q, kj))
+            if C:
+                rows.append(self.contact_rows(cp, x, q, lam, kc))
+            if not rows:
+                acc = x.new_zeros(B, 42)
+            elif C and cp.dynamic:
+                acc = cp.sum(rows[-1])
+                if J:
+                    acc = acc + self.sums(0)[1](rows[0])
+            else:
+                acc = self.sums(C)[1](torch.cat(rows))
+            # the inertia term: h^-2 (m (x - x_t), I_w theta_err)
+            Iw = self.world_inertia(model, q)
+            qe = quat_mul(q, q_t_conj)
+            qe = torch.where(qe[:, 3:4] < 0, -qe, qe)
+            g = acc[:, 0:6] + h2 * torch.cat([m * (x - x_t),
+                                              _mv(Iw, 2.0 * qe[:, 0:3])], -1)
+            H = acc[:, 6:].unflatten(1, (6, 6)) + _blocks(
+                h2 * m[:, :, None] * eye3, zero3, zero3, h2 * Iw) \
+                + 1e-8 * self.eye6
+            # a body without mass: the identity system, a zero step
+            H = torch.where(dyn[:, :, None], H, self.eye6)
+            g = torch.where(dyn, g, 0.0)
+            delta = -linalg.chol_solve(H.contiguous(), g.contiguous())
+            x = x + delta[:, 0:3]
+            dq = quat_mul(torch.cat([delta[:, 3:6], torch.zeros_like(
+                delta[:, :1])], -1), q)
+            q = quat_normalize(q + 0.5 * dq)
+            if C:
+                # the augmented-Lagrangian multipliers
+                pen = self.anchors(cp, x, q)[2]
+                lam = torch.clamp(lam + kc * pen, min=0.0) * cp.mask
+        v = (x - x_prev) / dt
+        dq_rel = quat_mul(q, quat_conjugate(q_prev))
+        w = 2.0 / dt * dq_rel[:, 0:3]
+        w = torch.where(dq_rel[:, 3:4] < 0.0, -w, w)
+        v = torch.where(dyn, v, bqd_pred[:, 0:3])
+        w = torch.where(dyn, w, bqd_pred[:, 3:6])
+        if C:
+            v, w = self.velocity_pass(model, cp, x, q, v, w)
+        body_q = torch.cat([x - quat_rotate(q, model.body_com), q], -1)
+        return body_q, torch.cat([v, w], -1)
+
+    def velocity_pass(self, model: Model, cp, x, q, v, w):
+        """The penalty push-out is elastic: the normal approach velocity
+        at the persisting contacts (pen > -1e-4) is removed by one
+        impulse per slot, inelastic, summed per body."""
+        a0, a1, pen = self.anchors(cp, x, q)
+        n = cp.n
+        act = cp.mask & (pen > -1e-4)
+        eye3 = torch.eye(3, dtype=x.dtype, device=x.device)
+        Iinv = inv3(self.world_inertia(model, q) + 1e-9 * eye3)
+        inv_m = model.body_inv_mass
+        b0, b1, dyn0, dyn1 = cp.b0, cp.b1, cp.dyn0, cp.dyn1
+        im0 = torch.where(dyn0[:, 0], inv_m[b0], 0.0)
+        im1 = torch.where(dyn1[:, 0], inv_m[b1], 0.0)
+        I0 = torch.where(dyn0[:, :, None], Iinv[b0], 0.0)
+        I1 = torch.where(dyn1[:, :, None], Iinv[b1], 0.0)
+        r0 = a0 - x[b0]
+        r1 = a1 - x[b1]
+        vrel = (torch.where(dyn1, v[b1] + cross(w[b1], r1), 0.0)
+                - torch.where(dyn0, v[b0] + cross(w[b0], r0), 0.0))
+        vn = (vrel * n).sum(-1)
+        r0n, r1n = cross(r0, n), cross(r1, n)
+        w_eff = (im0 + im1 + (r0n * _mv(I0, r0n)).sum(-1)
+                 + (r1n * _mv(I1, r1n)).sum(-1))
+        dlam = torch.where(act, -vn / torch.clamp(w_eff, min=1e-9), 0.0)
+        imp = n * dlam[:, None]
+        rows = torch.cat([
+            torch.where(dyn1, torch.cat([imp * im1[:, None],
+                                         _mv(I1, cross(r1, imp))], -1), 0.0),
+            torch.where(dyn0, torch.cat([-imp * im0[:, None],
+                                         -_mv(I0, cross(r0, imp))], -1),
+                        0.0)])
+        acc = cp.sum(rows)
+        return v + acc[:, 0:3], w + acc[:, 3:6]

@@ -45,7 +45,8 @@ import numpy as np
 import torch
 
 from ..core.segment_sum import (DynamicOrderSum, FixedOrderSum,
-                                check_static_slots, soft_contact_sum)
+                                check_static_slots, slot_body_dst,
+                                soft_contact_sum)
 from ..math import (
     cross,
     quat_conjugate,
@@ -444,21 +445,8 @@ class _XPBDPlan:
         drops its (zero) row."""
         s = self._sums.get(C)
         if s is None:
-            st = self.st
-            S = len(np.asarray(st.slot_shape0))
-            if C and C != S:
-                raise ValueError(
-                    f"SolverXPBD sums the {S} contact slots of the model's "
-                    f"static pipeline (CollisionPipeline(model)); got {C}")
-            sb = np.asarray(st.shape_body, dtype=np.int64)
-
-            def body(shape):
-                shape = np.asarray(shape, dtype=np.int64)
-                return np.where(shape >= 0, sb[np.maximum(shape, 0)], -1)
-            cdst = (np.concatenate([body(st.slot_shape1),
-                                    body(st.slot_shape0)]) if C
-                    else np.zeros(0, np.int64))
-            B = st.body_count
+            cdst = slot_body_dst(self.st, C, "SolverXPBD")
+            B = self.st.body_count
             s = (FixedOrderSum(cdst, B, self.dev),
                  FixedOrderSum(np.concatenate([self._jdst, cdst]), B,
                                self.dev))

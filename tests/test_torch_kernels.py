@@ -161,8 +161,11 @@ def test_pgs_divergence_guard_converges():
 
 def test_wrappers_check_inputs():
     M = torch.eye(4).expand(2, 4, 4).contiguous()
+    # float64 runs the plain version on the CPU; mixed or other types raise
     with pytest.raises(TypeError):
-        linalg.chol_inv_solve(M.double(), torch.zeros(2, 4).double())
+        linalg.chol_inv_solve(M.double(), torch.zeros(2, 4))
+    with pytest.raises(TypeError):
+        linalg.chol_solve(M.half(), torch.zeros(2, 4).half())
     with pytest.raises(ValueError):
         linalg.chol_inv_solve(M, torch.zeros(2, 5))
     with pytest.raises(ValueError):

@@ -6,7 +6,7 @@ contacts; pinned vertices held exactly; the JAX package's VBD gates on
 the port; the semi-implicit forces term by term (springs, membrane
 triangles, NeoHookean tetrahedra, bending edges, soft contacts) and its
 stability gate; the reference's grid-cloth bending behaviour under
-SemiImplicit (ROADMAP C.14); the features that are not ported raise. On
+SemiImplicit (ROADMAP C.14); a body's contact step under AVBD. On
 a CUDA card: a VBD substep at the bench cloth's width against the CPU.
 
 Tolerances: angles 1e-5 and gradients 1e-4 of their scale (float32
@@ -216,20 +216,35 @@ def test_cloth_bending_example_gates():
 
 
 def test_vbd_unported_rigid_paths_raise():
-    """Bodies with contacts under VBD (AVBD) raise; bodies without
-    contacts or joints integrate freely, as the JAX package's first
-    branch."""
-    b = nt.ModelBuilder()
-    body = b.add_body(xform=[0, 0, 1.0, 0, 0, 0, 1])
-    b.add_shape_sphere(body, radius=0.1)
-    b.add_ground_plane()
-    m = b.finalize("cpu")
+    """Bodies without contacts or joints integrate freely, as the JAX
+    package's first branch; a body with contacts takes AVBD's block
+    solve (ported: the same sphere-on-plane step matches the JAX
+    package's, body_q 2e-4, body_qd 5e-3)."""
+    import jax.numpy as jnp
+    import newton_tpu.solvers as js
+    from newton_tpu.sim.collide import CollisionPipeline as JPipe
+    from test_torch_free_bodies import _pair, _port_state
+
+    def scene(lib):
+        b = lib.ModelBuilder()
+        body = b.add_body(xform=[0, 0, 0.09, 0, 0, 0, 1])
+        b.add_shape_sphere(body, radius=0.1)
+        b.add_ground_plane()
+        return b
+    jm, m = _pair(scene)
     solver = nt.SolverVBD(m)
     s = solver.step(m.state(), None, None, None, DT)
     assert float(s.body_qd[0, 2]) < 0.0
-    with pytest.raises(NotImplementedError, match="AVBD"):
-        solver.step(m.state(), None, None,
-                    nt.CollisionPipeline(m).collide(m.state()), DT)
+    js_ = jm.state().replace(body_qd=jnp.asarray(
+        [[0.3, 0, -0.2, 0, 1.0, 0]], jnp.float32))
+    ref = js.SolverVBD(jm).step(js_, None, None, JPipe(jm).collide(js_), DT)
+    ts = _port_state(js_)
+    got = solver.step(ts, None, None, nt.CollisionPipeline(m).collide(ts),
+                      DT)
+    for name, tol in (("body_q", 2e-4), ("body_qd", 5e-3)):
+        np.testing.assert_allclose(getattr(got, name).numpy(),
+                                   np.asarray(getattr(ref, name)), atol=tol,
+                                   rtol=tol, err_msg=name)
     # muscles are ported (SolverSemiImplicit, tests/test_torch_muscle.py)
     assert nt.ModelBuilder().add_muscle([0], [[0, 0, 0]], 1.0, 1.0, 1.0,
                                         1.0, 1.0) == 0

@@ -8,11 +8,12 @@ one's seconds and results as a JSON line.
     python3 tools/chip_phases.py 37 38 39 40 41 43
     python3 tools/chip_phases.py 43 45 46 48
     python3 tools/chip_phases.py 49 50 51
+    python3 tools/chip_phases.py 52 53 --tests tests/test_torch_avbd.py tests/test_torch_coupled.py
 
-Phases 21-51 are the ones that take only the device (``dev``; 41 runs
+Phases 21-53 are the ones that take only the device (``dev``; 41 runs
 41 and 42, 43 runs 43 and 44, 46 runs 46 and 47, 40 times Style3D beside
 XPBD); the CUDA kernels are built first when a phase launches them (22,
-29-39, 48-50). With
+29-39, 48-50, 52-53). With
 ``--tests``, the GPU cases of the named test files run afterwards
 (``pytest -m gpu``). Writes the results to chiprun_out/phases.json too.
 """
@@ -39,9 +40,10 @@ PHASES = {"21": "phase_ant_xpbd", "22": "phase_pyramid",
           "41": "phase_xpbd_particles", "43": "phase_cables",
           "45": "phase_shapes", "46": "phase_pile_sap",
           "48": "phase_manifolds", "49": "phase_terrain",
-          "50": "phase_mesh_scenes", "51": "phase_pile_hulls"}
+          "50": "phase_mesh_scenes", "51": "phase_pile_hulls",
+          "52": "phase_vbd_rigid", "53": "phase_coupled"}
 KERNEL_PHASES = {"22", "29", "30", "31", "32", "33", "34", "35", "36",
-                 "37", "38", "39", "48", "49", "50"}
+                 "37", "38", "39", "48", "49", "50", "52", "53"}
 
 
 def main(argv):
