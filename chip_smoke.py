@@ -312,7 +312,40 @@ Phases, one line each:
      and the mixed tower x 1024 split between SolverXPBD and SolverVBD
      (finite over 2 frames and held to the CPU: the reference's tower
      fails its gate, ROADMAP C.33); each scene's gates in every world and
-     4 worlds on the card against the CPU (float64 witness).
+     4 worlds on the card against the CPU (float64 witness);
+ 54. the slice's main path: an ONNX policy drives the ant x 4096 through
+     the RL layer (example_robot_policy.py's workload at Ant-v5's
+     width): replicate(ant with a torso site "imu", 4096) (the ground is
+     each world's ant.xml floor) -> SolverMuJoCo(iterations=8, euler)
+     through step_with_contacts; a frame reads a 36-wide observation
+     from ArticulationView (root z and quaternion, 8 hinge angles, root
+     twist, 8 hinge rates), SensorIMU (acceleration / 9.81, angular
+     velocity) and SensorContact (the ground's net force on the four
+     lower legs over the world's weight), runs the MLP 36-64-64-8 (Tanh,
+     weights N(0, 1)/sqrt(fan_in) from numpy default_rng(0), biases 0)
+     serialized by encode_mlp through OnnxModule, drives the 8 hinges
+     through Actuator(ControllerPD(40, 1) to mid + half-range x action,
+     ClampMaxEffort(150), delay_steps=2: one frame of lag, C.35) into
+     joint_f, steps 4 substeps of dt 1/240, then resets (solver.reset,
+     view.eval_fk, the mask on the device) the worlds whose torso left
+     [0.2, 1.0] and, at frame 20, every 7th world; 5 warm-up then 60
+     timed frames with one B1 (reg14) and one B2 launch a substep;
+     finite, unit quaternions, the reset worlds bit for bit at the
+     initial state and the others bit for bit as without the reset; a
+     frame through the kernels against one through the plain versions
+     (joint_q 2e-4, joint_qd 5e-3, actions 1e-5), B1 and B2 against
+     their twins on its operands; two runs of a frame bit for bit; 0 host
+     syncs a frame; env-steps/s, device ms and operations a frame, busy
+     share, policy and sensor ms, worlds reset;
+ 55. beside it, the mesh-geom Franka (example_ik_franka.py's MJCF of
+     gymnasium-robotics' Panda: includes, classes, 20 binary STL meshes;
+     skipped, saying why, where the assets are absent): its counts, the
+     example's IK reach batched (its first solve, joint_q0 to its first
+     target, for each of 4096 problems, then each problem's own point of
+     the example's circle from that pose; 2 seeds x 12 LM iterations;
+     the example's bound, median error < 0.03), and the
+     kitchen scene and the Adroit pen finalized to test_importers.py's
+     counts; finalize seconds, solves/s and the error.
 Phase 49 holds a world off tolerance against the CPU to a float64 CPU
 run (the plain versions of B1 and B2 run float64 on the CPU).
 Phases 37-51 report device ms and operations per frame, the busy share,
@@ -8004,6 +8037,410 @@ def mesh_kernel_entries(ter, mesh, b1_src, b2_src):
     return out
 
 
+POLICY_W = 4096                       # the ONNX-policy ant x 4096 (54)
+POLICY_KP, POLICY_KD = 40.0, 1.0          # the hinges' PD gains
+POLICY_EFFORT = 150.0                     # ClampMaxEffort, ant.xml's gear
+POLICY_DELAY = 2                          # Delay(2): one frame of lag
+POLICY_HEALTHY = (0.2, 1.0)               # Ant-v5's healthy_z_range
+POLICY_RESET_FRAME = 20                   # every 7th world reset here too
+POLICY_RESET_EVERY = 7
+POLICY_WARMUP = 5
+POLICY_FRAMES = 60
+POLICY_SIZES = (36, 64, 64, 8)
+POLICY_TOL = {"joint_q": 2e-4, "joint_qd": 5e-3, "action": 1e-5}
+FRANKA_XML = """
+<mujoco model="panda">
+  <compiler angle="radian" meshdir="{d}/meshes" inertiafromgeom="auto"/>
+  <include file="{d}/assets.xml"/>
+  <worldbody>
+    <include file="{d}/chain.xml"/>
+  </worldbody>
+  <include file="{d}/actuator.xml"/>
+</mujoco>
+"""
+FRANKA_COUNTS = dict(bodies=10, dofs=9, mesh_shapes=20, triangles=136040)
+FRANKA_TARGETS = 4096
+FRANKA_IK_TOL = 0.03                      # example_ik_franka.py's median
+
+
+def policy_ant_scene(lib, n):
+    """gymnasium's ant with a site keyed "imu" on its torso, in each of n
+    worlds (the ground: each world's ant.xml floor)."""
+    import newton_tpu_torch as nt
+    sub = lib.ModelBuilder()
+    sub.add_mjcf(os.path.join(nt.ASSET_DIR, "ant.xml"))
+    sub.add_site(0, key="imu")
+    return replicated(lib, sub, n)
+
+
+def policy_layers(seed=0):
+    """The policy MLP's [(W (in, out), b)]: W from N(0, 1) / sqrt(fan_in)
+    (numpy default_rng(seed)), b = 0."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [(rng.standard_normal((a, b)).astype(np.float32) / np.sqrt(a),
+             np.zeros(b, np.float32))
+            for a, b in zip(POLICY_SIZES[:-1], POLICY_SIZES[1:])]
+
+
+def policy_sensor_sets(st, n):
+    """Each world's four lower-leg shapes and its floor shape (n, 4) and
+    (n,), by key, in world order."""
+    import numpy as np
+    keys = np.asarray(st.shape_key)
+    world = np.asarray(st.shape_world)
+    legs = np.nonzero(np.char.endswith(keys, "ankle_geom"))[0]
+    floors = np.nonzero(keys == "floor")[0]
+    legs = legs.reshape(n, 4)
+    if not ((world[legs] == np.arange(n)[:, None]).all()
+            and (world[floors] == np.arange(n)).all()):
+        raise AssertionError("policy ant: shapes not in world order")
+    return legs, floors
+
+
+class PolicyAnt:
+    """Phase 54's loop on the port: ``frame(c, k)`` takes the carry ``c``
+    (state, the state a frame earlier, the last Contacts with forces, the
+    delay ring) through one policy call, 4 substeps and the reset, and
+    returns (carry, observation, action, reset mask, the state before
+    the reset). Nothing in a frame reads a value back to the host."""
+
+    def __init__(self, nt, model, n, device, layers, reset_frame):
+        import numpy as np
+        import torch
+        from newton_tpu_torch.actuators import (Actuator, ClampMaxEffort)
+        from newton_tpu_torch.controllers import (ControllerPD, OnnxModule,
+                                                  encode_mlp)
+        from newton_tpu_torch.sensors import SensorContact, SensorIMU
+        from newton_tpu_torch.utils import ArticulationView
+        self.nt, self.model, self.n = nt, model, n
+        self.reset_frame = reset_frame
+        st = model.structure
+        self.pipe = nt.CollisionPipeline(model)
+        self.solver = nt.SolverMuJoCo(model, iterations=ITERS,
+                                      integrator="euler")
+        self.view = v = ArticulationView(model, "*")
+        self.imu = SensorIMU(model, np.nonzero(
+            np.asarray(st.shape_key) == "imu")[0])
+        legs, floors = policy_sensor_sets(st, n)
+        self.contact = SensorContact(model, legs.tolist(),
+                                     [[f] for f in floors])
+        self.policy = OnnxModule(encode_mlp(layers, "Tanh", "Tanh"),
+                                 device=device)
+        hinge_dofs, hinge_coords = v.dof_idx[:, 6:], v.coord_idx[:, 7:]
+        self.actuator = Actuator(
+            model, hinge_dofs.reshape(-1),
+            ControllerPD(POLICY_KP, POLICY_KD,
+                         coord_indices=hinge_coords.reshape(-1)),
+            ClampMaxEffort(POLICY_EFFORT), delay_steps=POLICY_DELAY)
+        lo, hi = (x[:, 6:] for x in v.get_dof_limits())
+        self.mid, self.half = 0.5 * (lo + hi), 0.5 * (hi - lo)
+        g = float(torch.linalg.vector_norm(model.gravity[0]))
+        self.weight = (model.body_mass.view(n, -1).sum(1, keepdim=True)
+                       * g)
+        self.control = model.control()
+        self.every = torch.arange(n, device=device) % POLICY_RESET_EVERY == 0
+
+    def start(self):
+        m = self.model
+        s = self.nt.eval_fk(m, m.joint_q0, m.joint_qd0, m.state())
+        return dict(state=s, prev=None, contacts=self.pipe.collide(s),
+                    carry=self.actuator.init_carry())
+
+    def observe(self, c):
+        """The 36-wide observation of carry ``c``."""
+        import torch
+        v, s = self.view, c["state"]
+        root = v.get_root_transforms(s)
+        acc, gyro = self.imu.update(s, c["prev"], SUBSTEPS * DT)
+        force, _ = self.contact.update(c["contacts"])
+        return torch.cat([root[:, 2:3], root[:, 3:7],
+                          v.get_dof_positions(s)[:, 7:],
+                          v.get_root_velocities(s),
+                          v.get_dof_velocities(s)[:, 6:], acc / 9.81, gyro,
+                          force / self.weight], 1)
+
+    def frame(self, c, k, kernels=True):
+        s = c["state"]
+        obs = self.observe(c)
+        action = self.policy(obs)
+        carry, ctl = self.actuator(c["carry"], s, self.control,
+                                   (self.mid + self.half * action)
+                                   .reshape(-1))
+        prev = s
+        contacts = None
+        for _ in range(SUBSTEPS):
+            s, contacts = self.solver.step_with_contacts(
+                s, None, ctl, self.pipe.collide(s), DT, kernels=kernels)
+        z = self.view.get_root_transforms(s)[:, 2]
+        mask = (z < POLICY_HEALTHY[0]) | (z > POLICY_HEALTHY[1])
+        if k == self.reset_frame:
+            mask = mask | self.every
+        before = s
+        s = self.view.eval_fk(self.solver.reset(s, mask), mask)
+        return (dict(state=s, prev=prev, contacts=contacts, carry=carry),
+                obs, action, mask, before)
+
+
+def policy_gates(loop, c, label):
+    """Finite bodies and coordinates, unit quaternions."""
+    import torch
+    s = c["state"]
+    for name in ("body_q", "body_qd", "joint_q", "joint_qd"):
+        if not bool(torch.isfinite(getattr(s, name)).all()):
+            raise AssertionError(f"{label}: non-finite {name}")
+    qn = torch.linalg.vector_norm(s.body_q[:, 3:7], dim=-1)
+    err = float((qn - 1).abs().max())
+    if err > 1e-3:
+        raise AssertionError(f"{label}: quaternion norms off by {err}")
+    return dict(quat_norm_err=err)
+
+
+def reset_gate(model, n, mask, before, after):
+    """The reset worlds' joint_q/joint_qd are the model's initial ones bit
+    for bit; the others are as before the reset, bit for bit."""
+    import torch
+    out = {}
+    for name, init in (("joint_q", model.joint_q0),
+                       ("joint_qd", model.joint_qd0)):
+        a = getattr(after, name).view(n, -1)
+        b = getattr(before, name).view(n, -1)
+        i = init.view(n, -1)
+        if not (torch.equal(a[mask], i[mask])
+                and torch.equal(a[~mask], b[~mask])):
+            raise AssertionError(f"policy ant: reset is not exact in {name}")
+    out["worlds_reset_at_frame"] = int(mask.sum())
+    return out
+
+
+def phase_policy_ant(dev):
+    """Phase 54 (see the module docstring)."""
+    import torch
+    import newton_tpu_torch as nt
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = policy_ant_scene(nt, POLICY_W).finalize(dev)
+    loop = PolicyAnt(nt, model, POLICY_W, dev, policy_layers(),
+                     POLICY_RESET_FRAME)
+    c = loop.start()
+    torch.cuda.synchronize()
+    res = dict(worlds=POLICY_W, setup_s=time.perf_counter() - t0)
+    for k in range(POLICY_WARMUP):
+        c = loop.frame(c, k)[0]
+    torch.cuda.synchronize()
+    reset_robot_launches()
+    n_reset = torch.zeros((), dtype=torch.long, device=dev)
+    at_reset = None
+    t0 = time.perf_counter()
+    for k in range(POLICY_WARMUP, POLICY_WARMUP + POLICY_FRAMES):
+        c, obs, action, mask, before = loop.frame(c, k)
+        n_reset += mask.sum()
+        if k == POLICY_RESET_FRAME:
+            at_reset = (mask, before, c["state"])
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    n_sub = POLICY_FRAMES * SUBSTEPS
+    launches = gen_launches()
+    if launches != (n_sub, n_sub, 0):
+        raise AssertionError(f"policy ant: launches {launches} in {n_sub} "
+                             "substeps")
+    res.update(frames=POLICY_FRAMES, substeps=n_sub, launches=launches,
+               env_steps_per_s=n_sub * POLICY_W / elapsed,
+               frame_ms=elapsed * 1e3 / POLICY_FRAMES,
+               worlds_reset=int(n_reset),
+               gates=policy_gates(loop, c, "policy ant"))
+    res["gates"].update(reset_gate(model, POLICY_W, *at_reset))
+    res["gates"]["torso_z_mean"] = float(
+        loop.view.get_root_transforms(c["state"])[:, 2].mean())
+    # a frame through the kernels against one through the plain versions
+    k = POLICY_WARMUP + POLICY_FRAMES
+    ck, _, ak, _, _ = loop.frame(c, k)
+    cp, _, ap, _, _ = loop.frame(c, k, kernels=False)
+    paths = {}
+    for name, a, b in (("joint_q", ck["state"].joint_q, cp["state"].joint_q),
+                       ("joint_qd", ck["state"].joint_qd,
+                        cp["state"].joint_qd), ("action", ak, ap)):
+        ok, e = close(a, b, POLICY_TOL[name], POLICY_TOL[name])
+        if not ok:
+            raise AssertionError(f"policy ant: {name} kernel vs plain frame "
+                                 f"off tolerance ({e:.3g})")
+        paths[name] = e
+    # B1 and B2 against their twins on one substep's operands
+    ctl = loop.actuator(c["carry"], c["state"], loop.control,
+                        loop.mid.reshape(-1))[1]
+    errs, recs = group_paths(loop.solver, c["state"], ctl,
+                             loop.pipe.collide(c["state"]), DT, "policy ant")
+    Mi, rhs = recs[0]["chol"]
+    args, kw = recs[0]["pgs"]
+    res.update(paths=paths, substep_paths=errs,
+               b1=dict(d=Mi.shape[-1], **b1_times(Mi, rhs)),
+               b2=b2_record(args, kw, "policy ant",
+                            mismatch_div=TERRAIN_B2_DIV))
+    # two runs of a frame, bit for bit; host syncs of a frame
+    a, b = loop.frame(c, k), loop.frame(c, k)
+    for name in REPEAT_FIELDS_RIGID:
+        if not torch.equal(getattr(a[0]["state"], name),
+                           getattr(b[0]["state"], name)):
+            raise AssertionError(f"policy ant: two runs of a frame differ "
+                                 f"in {name}")
+    if not (torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])):
+        raise AssertionError("policy ant: two runs of a frame differ in "
+                             "the observation or the action")
+    _, syncs = count_syncs(lambda: loop.frame(c, k))
+    res.update(host_syncs_per_frame=syncs, sync_sites=list(SYNC_SITES))
+    if syncs:
+        raise AssertionError(f"policy ant: {syncs} host syncs a frame: "
+                             f"{SYNC_SITES}")
+    prof = profile_frame(lambda: loop.frame(c, k), SUBSTEPS)
+    res.update(profile=prof, busy_share_unprofiled=busy_unprofiled(
+        prof, POLICY_W, res["env_steps_per_s"]))
+    if prof is not None:
+        res["device_ms_per_frame"] = prof["device_busy_ms"]
+        res["device_ops_per_frame"] = prof["device_ops"]
+    obs = loop.observe(c)
+    res["policy_ms"] = time_ms(lambda: loop.policy(obs), queued=True)
+    res["sensor_ms"] = time_ms(lambda: loop.observe(c), queued=True)
+    res["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    return res
+
+
+def robotics_assets():
+    """gymnasium-robotics' asset directory: $GYMNASIUM_ROBOTICS_ASSETS, else
+    the installed package's (found without importing it), else None."""
+    import importlib.util
+    d = os.environ.get("GYMNASIUM_ROBOTICS_ASSETS")
+    if d:
+        return d
+    spec = importlib.util.find_spec("gymnasium_robotics")
+    if spec is None or not spec.submodule_search_locations:
+        return None
+    d = os.path.join(list(spec.submodule_search_locations)[0], "envs",
+                     "assets")
+    return d if os.path.isdir(d) else None
+
+
+def franka_ik_targets(n, share=1.0):
+    """example_ik_franka.py's circle (radius 0.1 about (0.45, 0, 0.55),
+    y stretched to 0.15) at n angles over one turn, each times ``share``
+    (share 0: every problem at the example's first target) (P, 3)."""
+    import numpy as np
+    ang = np.linspace(0.0, 2 * np.pi, n, endpoint=False) * share
+    return np.stack([0.45 + 0.1 * np.cos(ang), 0.15 * np.sin(ang),
+                     np.full(n, 0.55)], -1).astype(np.float32)
+
+
+def franka_reach_error(model, ee, q, targets):
+    """|link7's point (0, 0, 0.1) - target| (P,) at coordinates (P, Q)."""
+    import torch
+    from newton_tpu_torch.math import transform_point
+    from newton_tpu_torch.sim.articulation import fk_bodies
+    P = q.shape[0]
+    bq, _ = fk_bodies(model, q, torch.zeros_like(q),
+                      model.body_q.expand(P, -1, -1),
+                      model.body_qd.expand(P, -1, -1))
+    tip = transform_point(bq[:, ee], q.new_tensor([0.0, 0.0, 0.1]))
+    return torch.linalg.vector_norm(tip - targets, dim=-1)
+
+
+def phase_franka(dev, n_targets=FRANKA_TARGETS):
+    """Phase 55 (see the module docstring); None where the assets are
+    absent."""
+    import numpy as np
+    import torch
+    import newton_tpu_torch as nt
+    from newton_tpu_torch.ik import IKObjectivePosition, IKSolver
+    assets = robotics_assets()
+    if assets is None:
+        return None
+    t0 = time.perf_counter()
+    b = nt.ModelBuilder(gravity=0.0)
+    b.add_mjcf(FRANKA_XML.format(d=os.path.join(
+        assets, "kitchen_franka", "franka_assets")))
+    t1 = time.perf_counter()
+    model = b.finalize(dev)
+    res = dict(import_s=t1 - t0, finalize_s=time.perf_counter() - t1)
+    st = model.structure
+    mesh = np.nonzero(np.asarray(st.shape_type) == int(nt.GeoType.MESH))[0]
+    counts = dict(bodies=st.body_count, dofs=model.joint_dof_count,
+                  mesh_shapes=len(mesh),
+                  triangles=sum(len(b.shape_source[i].indices) // 3
+                                for i in mesh))
+    if counts != FRANKA_COUNTS:
+        raise AssertionError(f"Franka: counts {counts}, want "
+                             f"{FRANKA_COUNTS}")
+    ee = list(st.body_key).index("panda0_link7")
+    ik = IKSolver(model, [IKObjectivePosition(link=ee,
+                                              offset=(0.0, 0.0, 0.1))],
+                  joint_limit_weight=0.1, iterations=12, n_seeds=2)
+    # the example's tracking, batched: its first solve (from joint_q0 to
+    # its first target) for every problem, then each problem's own point
+    # of the circle from that pose, as the example follows the circle
+    q = model.joint_q0.expand(n_targets, -1)
+    ik.solve(q[:8], [torch.as_tensor(franka_ik_targets(8), device=dev)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for share in (0.0, 1.0):
+        targets = torch.as_tensor(franka_ik_targets(n_targets, share),
+                                  device=dev)
+        q = ik.solve(q, [targets])
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    err = franka_reach_error(model, ee, q, targets)
+    res.update(counts=counts, targets=n_targets, seeds=2, iterations=12,
+               solves_per_s=2 * n_targets / solve_s,
+               reach_err_median=float(err.median()),
+               reach_err_max=float(err.max()))
+    if not res["reach_err_median"] < FRANKA_IK_TOL:
+        raise AssertionError(f"Franka IK: median reach error "
+                             f"{res['reach_err_median']}")
+    for name, path, want in (
+            ("kitchen", "kitchen_franka/kitchen_assets/kitchen_env_model.xml",
+             (43, 29, 150)),
+            ("adroit_pen", "adroit_hand/adroit_pen.xml", (29, 30, 60))):
+        t0 = time.perf_counter()
+        b = nt.ModelBuilder()
+        import warnings
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")      # the pen's tendon ranges
+            b.add_mjcf(os.path.join(assets, path))
+        m = b.finalize(dev)
+        got = (m.structure.body_count, m.joint_dof_count,
+               m.structure.shape_count)
+        if got[:2] != want[:2] or not got[2] > want[2]:
+            raise AssertionError(f"{name}: counts {got}, want {want}")
+        res[name] = dict(bodies=got[0], dofs=got[1], shapes=got[2],
+                         finalize_s=time.perf_counter() - t0)
+    return res
+
+
+def policy_kernel_entries(pol, b1_src, b2_src):
+    """The kernels line's entries of phase 54: B1 and B2 at the policy
+    ant's shapes (the slice's main path)."""
+    from newton_tpu_torch.solvers.generalized import linalg
+    path = ("ONNX-policy ant x 4096 through the RL layer, replicate + "
+            "step_with_contacts (phase 54, the main path)")
+    d = pol["b1"]["d"]
+    inst = linalg.kernel_instance(d)
+    b2 = pol["b2"]
+    c, nl, d2 = b2["shape"]
+    return [
+        dict(name=f"chol_inv_solve [{inst}] d={d} W={POLICY_W}", **b1_src,
+             instance=inst, path=path, launches=pol["launches"][0],
+             max_abs_err=pol["substep_paths"]["b1 group 0"][0],
+             ms=pol["b1"]["ms"], plain_ms=pol["b1"]["plain_ms"],
+             **bound_fields("chol_inv_solve", pol["b1"]["ms"], d=d,
+                            W=POLICY_W),
+             library_ms=pol["b1"]["library_ms"]),
+        dict(name=f"pgs_solve_fused [{b2['instance']}] {b2['shape']} "
+                  f"W={POLICY_W}", **b2_src, instance=b2["instance"],
+             path=path, launches=pol["launches"][1],
+             max_abs_err=b2["lam_err"], ms=b2["ms"],
+             plain_ms=b2["plain_ms"],
+             **bound_fields("pgs_solve_fused", b2["ms"], c=c, nl=nl, d=d2,
+                            W=POLICY_W, iters=ITERS))]
+
+
 def pgs_smem(rec):
     from newton_tpu_torch import _kernels
     args, kw = rec
@@ -8702,6 +9139,42 @@ def main():
         f"{card}", flush=True)
     mark("53")
 
+    pol = phase_policy_ant(dev)
+    results["policy_ant"] = pol
+    print(f"[54 ONNX-policy ant x {POLICY_W}, the RL layer, the main path] "
+          f"setup {pol['setup_s']:.1f} s, launches {pol['launches']} in "
+          f"{pol['substeps']} substeps, gates {pol['gates']}, worlds reset "
+          f"{pol['worlds_reset']}, kernel vs plain frame {pol['paths']}, B1 "
+          f"d={pol['b1']['d']} {pol['b1']['ms']:.4f} ms (plain "
+          f"{pol['b1']['plain_ms']:.4f} ms, torch.linalg.solve "
+          f"{pol['b1']['library_ms']:.4f} ms), B2 {pol['b2']['shape']} "
+          f"{pol['b2']['instance']} {pol['b2']['ms']:.4f} ms (plain "
+          f"{pol['b2']['plain_ms']:.4f} ms), host syncs a frame "
+          f"{pol['host_syncs_per_frame']}, device ms a frame "
+          f"{pol.get('device_ms_per_frame')}, device ops a frame "
+          f"{pol.get('device_ops_per_frame')}, busy "
+          f"{pol['busy_share_unprofiled']}, policy {pol['policy_ms']:.4f} "
+          f"ms, sensors {pol['sensor_ms']:.4f} ms, frame "
+          f"{pol['frame_ms']:.2f} ms, {pol['env_steps_per_s']:.1f} "
+          f"env-steps/s on {card}", flush=True)
+    mark("54")
+
+    fr = phase_franka(dev)
+    results["franka"] = fr
+    if fr is None:
+        print("[55 mesh-geom Franka] skipped: gymnasium-robotics' assets "
+              "are not installed here (no gymnasium_robotics package, no "
+              "$GYMNASIUM_ROBOTICS_ASSETS)", flush=True)
+    else:
+        print(f"[55 mesh-geom Franka] import {fr['import_s']:.1f} s, "
+              f"finalize {fr['finalize_s']:.1f} s, counts {fr['counts']}, "
+              f"IK {fr['targets']} targets x 2 seeds x 12 iterations: "
+              f"{fr['solves_per_s']:.1f} solves/s, reach error median "
+              f"{fr['reach_err_median']:.4g} max {fr['reach_err_max']:.4g};"
+              f" kitchen {fr['kitchen']}, Adroit pen {fr['adroit_pen']} on "
+              f"{card}", flush=True)
+    mark("55")
+
     results["kernel_info"] = kernel_info()
     print("[phase seconds] " + json.dumps(
         {k: round(v, 1) for k, v in results["phase_s"].items()}), flush=True)
@@ -8920,6 +9393,7 @@ def main():
     kernels += shape_kernel_entries(man, b1_src, b2_src)
     kernels += mesh_kernel_entries(ter, mesh, b1_src, b2_src)
     kernels += coupled_kernel_entries(vbd52, cpl, b1_src, b2_src)
+    kernels += policy_kernel_entries(pol, b1_src, b2_src)
     print(f"[bounds] H100 SXM peaks {PEAK_BYTES_PER_S / 1e12:g} TB/s, "
           f"{PEAK_F32_FLOPS / 1e12:g} TFLOP/s float32 (700 W); this card: "
           f"{card}", flush=True)

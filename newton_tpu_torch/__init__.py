@@ -8,7 +8,10 @@ path (particles -> ``SolverImplicitMPM``), the cloth path (cloth and soft
 topology, particle-shape contacts -> ``SolverStyle3D``, ``SolverVBD``,
 ``SolverSemiImplicit``), rigid bodies under ``SolverVBD``'s AVBD, the
 co-simulation of two solvers (``SolverCoupled``), mesh, convex-hull, heightfield and hydroelastic
-contacts, and batched inverse kinematics (``ik``). Every TPU kernel of the JAX package has a
+contacts, batched inverse kinematics (``ik``), mesh-file geoms in the MJCF
+and URDF importers, and the RL layer: ``utils.ArticulationView``, world
+reset (``Solver.reset``), ``actuators``, ``controllers`` (with an ONNX
+interpreter) and ``sensors`` (IMU, contact, frame transform). Every TPU kernel of the JAX package has a
 hand-written CUDA counterpart for Hopper in ``csrc/``: the Cholesky and PGS
 kernels of the robot path, the P2G/G2P transfers of the MPM path. It
 imports torch, never jax.

@@ -12,7 +12,7 @@ __all__ = [
     "np_quat_identity", "np_quat_mul", "np_quat_rotate", "np_quat_rotate_inv",
     "np_quat_from_axis_angle", "np_transform_identity", "np_transform",
     "np_transform_multiply", "np_transform_inverse", "np_transform_point",
-    "np_transform_vector", "np_quat_between_axes",
+    "np_transform_vector", "np_quat_between_axes", "np_quat_from_matrix",
 ]
 
 
@@ -48,6 +48,25 @@ def np_quat_from_axis_angle(axis, angle: float) -> np.ndarray:
     h = 0.5 * float(angle)
     s = np.sin(h)
     return np.array([axis[0] * s, axis[1] * s, axis[2] * s, np.cos(h)])
+
+
+def np_quat_from_matrix(m: np.ndarray) -> np.ndarray:
+    """The unit quaternion (xyzw) of a rotation matrix."""
+    m = np.asarray(m, dtype=np.float64)
+    t = np.trace(m)
+    if t > 0.0:
+        s = np.sqrt(t + 1.0) * 2.0
+        return np.array([(m[2, 1] - m[1, 2]) / s, (m[0, 2] - m[2, 0]) / s,
+                         (m[1, 0] - m[0, 1]) / s, 0.25 * s])
+    i = int(np.argmax(np.diag(m)))
+    j, k = (i + 1) % 3, (i + 2) % 3
+    s = np.sqrt(max(m[i, i] - m[j, j] - m[k, k] + 1.0, 0.0)) * 2.0
+    q = np.zeros(4)
+    q[i] = 0.25 * s
+    q[j] = (m[j, i] + m[i, j]) / s
+    q[k] = (m[k, i] + m[i, k]) / s
+    q[3] = (m[k, j] - m[j, k]) / s
+    return q / np.linalg.norm(q)
 
 
 def np_quat_between_axes(a, b) -> np.ndarray:

@@ -166,34 +166,65 @@ def find_redundant_edges(
     absorbed: List[np.ndarray] = [np.zeros(0, np.int64)] * M
     num_absorbers = np.zeros(M, np.int64)
     absorb_count = np.zeros(M, np.int64)
-    # chunked AABB broad phase + exact OBB containment of both endpoints
-    for s in range(0, M, chunk):
-        sl = slice(s, min(s + chunk, M))
-        nb = sl.stop - sl.start
-        over = ((lo[sl][:, None, :] <= hi[None, :, :] + eps)
-                & (hi[sl][:, None, :] >= lo[None, :, :] - eps)).all(-1)
-        over &= absorbable[None, :] & valid[sl][:, None]
-        over[np.arange(nb), np.arange(sl.start, sl.stop)] = False
-        bi, ej = np.nonzero(over)
-        if len(bi) == 0:
-            continue
-        b = bi + s
-        d0 = verts[edges[ej, 0]] - center[b]
-        d1 = verts[edges[ej, 1]] - center[b]
-        Rb = R[b]                                                   # (P, 3, 3)
-        p0 = np.einsum("pij,pj->pi", Rb, d0)
-        p1 = np.einsum("pij,pj->pi", Rb, d1)
-        inside = ((np.abs(p0) <= half[b] + eps).all(1)
-                  & (np.abs(p1) <= half[b] + eps).all(1))
-        b, ej = b[inside], ej[inside]
-        if len(b) == 0:
-            continue
-        np.add.at(absorb_count, b, 1)
-        np.add.at(num_absorbers, ej, 1)
-        for bb in np.unique(b):
-            lst = ej[b == bb]
-            absorbed[bb] = (lst if absorbed[bb].size == 0
-                            else np.concatenate([absorbed[bb], lst]))
+    # AABB broad phase as a sweep along the mesh's longest axis x: a box b
+    # can overlap only the absorbable boxes whose lower x lies in
+    # [lo_x(b) - eps - L, hi_x(b) + eps], L the longest of them along x (a
+    # window of the boxes sorted by lower x, widened a little against
+    # rounding). The longest 2% of the
+    # absorbable boxes are every box's candidates instead, so that L stays
+    # short. The pairs then take the dense test's exact AABB overlap and
+    # the exact OBB containment of both endpoints, so the pairs found (and
+    # each box's absorbed list, in ascending edge order) are the dense
+    # test's.
+    boxes = np.nonzero(valid)[0]
+    cand = np.nonzero(absorbable)[0]
+    if len(boxes) and len(cand):
+        ax = int(np.argmax(verts.max(0) - verts.min(0)))
+        ext = hi[cand, ax] - lo[cand, ax]
+        cut = np.quantile(ext, 0.98)
+        long_c = cand[ext > cut]
+        cand = cand[ext <= cut]
+        order = cand[np.argsort(lo[cand, ax], kind="stable")]
+        lo_sorted = lo[order, ax]
+        L = float(cut)
+        pad = 2.0 * eps + 1e-9 * max(diag, 1.0)
+        first = np.searchsorted(lo_sorted, lo[boxes, ax] - L - pad, "left")
+        last = np.searchsorted(lo_sorted, hi[boxes, ax] + pad, "right")
+        width = last - first + len(long_c)
+        for s in range(0, len(boxes), chunk):
+            sl = slice(s, s + chunk)
+            w = width[sl]
+            if not w.sum():
+                continue
+            b = np.repeat(boxes[sl], w)
+            k = np.arange(int(w.sum())) - np.repeat(np.cumsum(w) - w, w)
+            nl = len(long_c)
+            short = np.repeat(first[sl], w) + k - nl
+            ej = np.where(k < nl, np.append(long_c, 0)[np.minimum(k, nl)],
+                          np.append(order, 0)[np.clip(short, 0,
+                                                      len(order))])
+            keep_p = ((lo[b] <= hi[ej] + eps) & (hi[b] >= lo[ej] - eps)).all(1)
+            keep_p &= b != ej
+            b, ej = b[keep_p], ej[keep_p]
+            if len(b) == 0:
+                continue
+            d0 = verts[edges[ej, 0]] - center[b]
+            d1 = verts[edges[ej, 1]] - center[b]
+            Rb = R[b]                                               # (P, 3, 3)
+            p0 = np.einsum("pij,pj->pi", Rb, d0)
+            p1 = np.einsum("pij,pj->pi", Rb, d1)
+            inside = ((np.abs(p0) <= half[b] + eps).all(1)
+                      & (np.abs(p1) <= half[b] + eps).all(1))
+            b, ej = b[inside], ej[inside]
+            if len(b) == 0:
+                continue
+            srt = np.lexsort((ej, b))
+            b, ej = b[srt], ej[srt]
+            np.add.at(absorb_count, b, 1)
+            np.add.at(num_absorbers, ej, 1)
+            ub, starts = np.unique(b, return_index=True)
+            for bb, lst in zip(ub, np.split(ej, starts[1:])):
+                absorbed[bb] = lst
 
     return EdgeRedundancyResult(
         edge_indices=edges, dihedral_angles=angles,

@@ -120,10 +120,12 @@ class IKSolver:
             (default: one on the model's device seeded 0).
         method: ``"lm"`` or ``"bfgs"``.
 
-    ``solve(q0, targets)``: q0 (Q,); targets, one per objective, each
-    (P, t) or (t,); every problem starts from each row of ``seeds(q0)``.
-    Returns (P, Q) (or (Q,) for unbatched targets), each problem's best
-    seed (lowest cost, the first on ties).
+    ``solve(q0, targets)``: q0 (Q,), or (P, Q) for a start of each
+    problem's own (a warm start from the previous solve's poses); targets,
+    one per objective, each (P, t) or (t,); every problem starts from
+    each row of ``seeds(q0)`` (the same perturbations added to each
+    problem's start). Returns (P, Q) (or (Q,) for unbatched targets),
+    each problem's best seed (lowest cost, the first on ties).
     """
 
     def __init__(self, model: Model, objectives: List,
@@ -194,7 +196,8 @@ class IKSolver:
 
     # ------------------------------------------------------------------
     def seeds(self, q0: torch.Tensor) -> torch.Tensor:
-        """(S, Q) initial guesses: q0, then q0 plus the sampled noise."""
+        """(S, ..., Q) initial guesses: q0 (..., Q), then q0 plus the
+        sampled noise (S - 1, Q)."""
         S, Q = self.n_seeds, q0.shape[-1]
         if S <= 1:
             return q0[None]
@@ -210,6 +213,7 @@ class IKSolver:
             noise = roberts_noise(S, Q, self.seed_scale, q0.dtype, q0.device)
         else:
             noise = torch.zeros(S - 1, Q, dtype=q0.dtype, device=q0.device)
+        noise = noise.view((S - 1,) + (1,) * (q0.dim() - 1) + (Q,))
         return torch.cat([q0[None], q0[None] + noise], 0)
 
     def solve(self, q0, targets):
@@ -223,7 +227,10 @@ class IKSolver:
             targets = [t[None] for t in targets]
         S0 = self.seeds(q0)
         P, S = targets[0].shape[0], S0.shape[0]
-        q = S0[None].expand(P, S, -1).contiguous()          # (P, S, Q)
+        if q0.dim() == 2:                                   # (S, P, Q)
+            q = S0.transpose(0, 1).contiguous()
+        else:
+            q = S0[None].expand(P, S, -1).contiguous()      # (P, S, Q)
         tg = [t[:, None, :] for t in targets]               # (P, 1, t)
         if self.method == "bfgs":
             q, cost = _bfgs(lambda x: (self.residual(x, tg) ** 2).sum(-1),

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 from dataclasses import replace
 from types import SimpleNamespace
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -113,6 +113,12 @@ class KinematicCache:
             np.nonzero(depth == d)[0].astype(np.int32)
             for d in range(self.max_depth)]
         self.depth = depth
+        # each joint's articulation (masked FK; the JAX package's table:
+        # a joint outside every articulation reads articulation 0)
+        art = np.asarray(st.articulation_start, dtype=np.int64)
+        j = np.arange(J)
+        a = np.searchsorted(art, j, side="right") - 1
+        self.joint_articulation = np.where((a >= 0) & (j < art[-1]), a, 0)
         self._tables = {}
 
 
@@ -170,7 +176,8 @@ def kinematic_tables(model: Model) -> SimpleNamespace:
             X_p=model.joint_X_p[..., L(level), :], X_c_inv=jX_c_inv,
             com_p=model.body_com[..., L(pc), :],
             com_c=model.body_com[..., L(child), :],
-            free=tab.is_free[L(level)][:, None]))
+            free=tab.is_free[L(level)][:, None],
+            art=L(kc.joint_articulation[level])))
     kc._tables[dev] = tab
     return tab
 
@@ -225,8 +232,11 @@ def joint_motion(tab, joint_q: torch.Tensor, joint_qd: torch.Tensor):
     return torch.cat([pos, rot], -1), torch.cat([vel_v, vel_w], -1)
 
 
-def fk_bodies(model: Model, joint_q, joint_qd, body_q0, body_qd0):
-    """Body transforms and twists ``[v_com, w]`` from generalized coords."""
+def fk_bodies(model: Model, joint_q, joint_qd, body_q0, body_qd0,
+              mask=None):
+    """Body transforms and twists ``[v_com, w]`` from generalized coords;
+    with ``mask`` (articulation_count,) bool, the bodies of the
+    articulations it leaves out keep ``body_q0``/``body_qd0``."""
     tab = kinematic_tables(model)
     X_j, v_j = joint_motion(tab, joint_q, joint_qd)
     body_q = body_q0.clone()
@@ -255,18 +265,25 @@ def fk_bodies(model: Model, joint_q, joint_qd, body_q0, body_qd0):
             lin_w + cross(ang_w, x_child - X_wcj[..., 0:3]))
         w_total = w_parent + ang_w
         v_com = v_parent_origin + lin_origin + cross(w_total, com_c_vec)
+        qd_c = torch.cat([v_com, w_total], -1)
+        if mask is not None:
+            on = mask[lv.art][:, None]
+            X_wc = torch.where(on, X_wc, body_q[..., lv.child, :])
+            qd_c = torch.where(on, qd_c, body_qd[..., lv.child, :])
         body_q[..., lv.child, :] = X_wc
-        body_qd[..., lv.child, :] = torch.cat([v_com, w_total], -1)
+        body_qd[..., lv.child, :] = qd_c
     return body_q, body_qd
 
 
 def eval_fk(model: Model, joint_q: torch.Tensor, joint_qd: torch.Tensor,
-            state: State) -> State:
+            state: State, mask: Optional[torch.Tensor] = None) -> State:
     """Forward kinematics: a new State with ``body_q``/``body_qd`` computed
     from ``joint_q``/``joint_qd``: the flat state of every world of the
-    model, or leading batch dims of a one-world model."""
+    model, or leading batch dims of a one-world model. ``mask``
+    (articulation_count,) bool on the model's device: the articulations
+    it leaves out keep ``state``'s bodies (a partial reset)."""
     body_q, body_qd = fk_bodies(model, joint_q, joint_qd, state.body_q,
-                                state.body_qd)
+                                state.body_qd, mask)
     return replace(state, body_q=body_q, body_qd=body_qd, joint_q=joint_q,
                    joint_qd=joint_qd)
 

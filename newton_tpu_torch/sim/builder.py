@@ -2007,7 +2007,8 @@ class ModelBuilder:
             if a != child and b != child and remap(a) != remap(b)}
 
     def add_mjcf(self, source: str, **kwargs):
-        """Import an MJCF file (see ``utils/import_mjcf.py``)."""
+        """Import an MJCF file or XML string, lengths times ``scale`` (see
+        ``utils/import_mjcf.py``)."""
         from ..utils.import_mjcf import parse_mjcf
         return parse_mjcf(self, source, **kwargs)
 
@@ -2203,6 +2204,7 @@ class ModelBuilder:
         st.shape_collision_group = np.asarray(self.shape_collision_group,
                                               dtype=i32)
         st.body_key = list(self.body_key)
+        st.articulation_key = list(self.articulation_key)
         st.joint_key = list(self.joint_key)
         st.shape_key = list(self.shape_key)
 

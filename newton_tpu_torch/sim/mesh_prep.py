@@ -21,6 +21,8 @@ pairs instead of testing every mesh shape against every shape.
 
 from __future__ import annotations
 
+import hashlib
+from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -121,7 +123,26 @@ def _heightfield_samples(src: Heightfield, k: int):
     return pts, areas
 
 
+# a mesh's samples by content (vertices, indices, scale, count): a model
+# that holds a mesh another model of the process prepared (the kitchen's
+# Franka after the arm alone) reads them back
+_MESH_SAMPLES: "OrderedDict[tuple, tuple]" = OrderedDict()
+_MESH_SAMPLES_MAX = 128
+
+
 def _mesh_samples(src: Mesh, scale, k: int):
+    key = (hashlib.sha1(src.vertices.tobytes()).hexdigest(),
+           hashlib.sha1(src.indices.tobytes()).hexdigest(),
+           tuple(np.asarray(scale, np.float64).tolist()), k)
+    hit = _MESH_SAMPLES.get(key)
+    if hit is None:
+        hit = _MESH_SAMPLES[key] = _mesh_samples_of(src, scale, k)
+        if len(_MESH_SAMPLES) > _MESH_SAMPLES_MAX:
+            _MESH_SAMPLES.popitem(last=False)
+    return hit[0].copy(), hit[1].copy()
+
+
+def _mesh_samples_of(src: Mesh, scale, k: int):
     sv = src.vertices * scale
     pts = _fps_sample(_surface_sample_candidates(sv, src.indices), k,
                       seeds=_feature_edge_seeds(sv, src.indices, k))

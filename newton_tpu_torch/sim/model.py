@@ -96,6 +96,7 @@ class ModelStructure:
         self.eq_type = np.zeros(0, dtype=np.int32)
 
         self.body_key: List[str] = []
+        self.articulation_key: List[str] = []
         self.joint_key: List[str] = []
         self.shape_key: List[str] = []
         # shape pairs excluded from collision, (lower, higher) index

@@ -74,6 +74,7 @@ from ...core.types import MAXVAL
 from ...sim.articulation import kinematic_tables
 from ...sim.enums import JointType
 from ...sim.model import Model, ModelStructure
+from ..solver import SolverBase
 from .actuation import MJCActuation, ActuationTables
 from .dynamics import get_generalized_cache
 
@@ -573,7 +574,7 @@ def _accumulation_rounds(st, levels):
     return rounds
 
 
-class SolverFeatherstone:
+class SolverFeatherstone(SolverBase):
     """Batched generalized-coordinate dynamics with a projected-Jacobi
     contact solve (same defaults as the JAX package's)."""
 

@@ -4,6 +4,7 @@
 
 from __future__ import annotations
 
+from dataclasses import replace
 from typing import Optional
 
 import numpy as np
@@ -40,6 +41,55 @@ class SolverBase:
              control: Optional[Control], contacts: Optional[Contacts],
              dt: float) -> State:
         raise NotImplementedError
+
+    def reset(self, state: State, world_mask=None) -> State:
+        """The flat ``state`` with the worlds that ``world_mask``
+        (world_count,) bool selects back at the model's initial State:
+        bodies, particles and coordinates (``custom`` stays); with
+        ``world_mask=None`` the initial State itself (a copy). As in the
+        JAX package, global entities (world -1) are reset whatever the
+        mask says, every call (ROADMAP C.38). The initial State and each
+        entity's world index live on the device from the first call: a
+        reset reads nothing back to the host."""
+        plan = getattr(self, "_reset_plan", None)
+        if plan is None:
+            plan = self._reset_plan = _ResetPlan(self.model)
+        if world_mask is None:
+            return plan.init.clone()
+        mask = torch.as_tensor(world_mask, dtype=torch.bool,
+                               device=self.model.device)
+        kw = {}
+        for names, (idx, glob) in plan.sel.items():
+            m = mask[idx] | glob
+            for name in names:
+                new, old = getattr(plan.init, name), getattr(state, name)
+                kw[name] = torch.where(
+                    m.reshape((-1,) + (1,) * (old.dim() - 1)), new, old)
+        return replace(state, **kw)
+
+
+class _ResetPlan:
+    """``SolverBase.reset``'s device tables: the initial State and, per
+    entity kind, each entity's world (clamped at 0) and whether it is
+    global."""
+
+    def __init__(self, model: Model):
+        st, dev = model.structure, model.device
+        self.init = model.state()
+
+        def worlds(w):
+            w = np.asarray(w, dtype=np.int64)
+            return (torch.as_tensor(np.maximum(w, 0), device=dev),
+                    torch.as_tensor(w < 0, device=dev))
+        self.sel = {("body_q", "body_qd", "body_f"): worlds(st.body_world),
+                    ("particle_q", "particle_qd", "particle_f"):
+                        worlds(st.particle_world)}
+        if st.joint_count:
+            jw = np.asarray(st.joint_world, dtype=np.int64)
+            self.sel[("joint_q",)] = worlds(np.repeat(
+                jw, np.diff(np.asarray(st.joint_q_start))))
+            self.sel[("joint_qd",)] = worlds(np.repeat(
+                jw, np.diff(np.asarray(st.joint_qd_start))))
 
 
 def _world_gravity(model: Model, worlds) -> torch.Tensor:

@@ -1,0 +1,3 @@
+from .selection import ArticulationView, match_labels
+
+__all__ = ["ArticulationView", "match_labels"]

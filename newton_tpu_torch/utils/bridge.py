@@ -56,7 +56,7 @@ STRUCTURE_FIELDS = (
     "joint_qd_start", "joint_dof_dim", "joint_world", "joint_parent_joint",
     "articulation_start", "articulation_world", "body_world", "shape_world",
     "shape_body", "shape_type", "shape_flags", "shape_collision_group",
-    "body_key", "joint_key", "shape_key",
+    "body_key", "joint_key", "shape_key", "articulation_key",
     "candidate_pairs", "candidate_pair_slots", "rigid_contact_max",
     "slot_shape0", "slot_shape1", "slot_body0", "slot_body1",
     "mjc_options", "particle_count", "particle_world",

@@ -15,7 +15,10 @@ one D6 joint that translates along the slides, then rotates about the
 hinges' common ``pos``. A slide's ``ref`` shifts its limits into
 displacement space and is kept in the ``mjc:qpos_ref`` coordinate
 attribute at that slide's coordinate. Plane/sphere/box/capsule/cylinder/
-ellipsoid geoms with contype/conaffinity, ``<site>`` in bodies and the worldbody
+ellipsoid geoms and mesh geoms on ``<asset><mesh>`` STL/OBJ files (under
+the compiler's ``meshdir``, times the mesh's ``scale`` and the importer's;
+a geom's ``mass`` becomes a density through the mesh's volume) with
+contype/conaffinity, ``<site>`` in bodies and the worldbody
 (massless, never colliding), ``<tendon><fixed>`` couplings of hinges and
 ``<spatial>`` tendons through sites and sphere/cylinder wrap geoms (with
 ``sidesite``; a one- or two-value ``springlength`` whose first value is the
@@ -27,15 +30,27 @@ tendon's build-pose length placed mid-``range``). Actuators and tendons
 address each joint's own dof and coordinate. A ``<pulley>`` raises (the
 JAX importer drops the tendon with a warning).
 
-Visual-only elements (lights, cameras, textures, materials, ``<visual>``,
-``<size>``) are skipped by name. Every other element raises
-``NotImplementedError`` naming it: the importer never drops physics in
-silence.
+``<include file=...>`` inlines the file's children (paths relative to
+the including file); repeated top-level sections merge into the first,
+and of repeated ``<compiler>`` elements the first sets the options, as
+in the JAX importer, while a mesh file is looked up under each one's
+``meshdir`` in document order. Visual-only elements (lights, cameras,
+textures, materials, ``<visual>``, ``<size>``) are skipped by name, and so
+are readouts and presets that carry no physics: ``<sensor>``,
+``<keyframe>``; ``<inertial>`` is read only as the JAX importer reads it
+(not under ``inertiafromgeom="auto"``, ROADMAP C.40), and an explicit
+``<contact><pair>`` is skipped as there (``<exclude>`` filters the two
+bodies' shapes). Every other element raises ``NotImplementedError``
+naming it, and so does a missing include or mesh file: the importer
+never drops physics in silence.
 """
 
 from __future__ import annotations
 
 import math
+import os
+import struct
+import warnings
 import xml.etree.ElementTree as ET
 from typing import Dict, Optional
 
@@ -44,6 +59,7 @@ import numpy as np
 from ..core.host_math import (
     np_quat_between_axes,
     np_quat_from_axis_angle,
+    np_quat_from_matrix,
     np_quat_identity,
     np_quat_mul,
     np_quat_rotate,
@@ -56,7 +72,8 @@ from ..core.types import MAXVAL
 from ..sim.builder import JointDofConfig
 from ..sim.enums import EqType, JointType
 from ..sim.model import AttributeAssignment, AttributeFrequency
-from ..geometry.types import GeoType
+from ..geometry.inertia import compute_mesh_inertia
+from ..geometry.types import GeoType, Mesh
 from ..sim.tendon import spatial_tendon_rest_length
 from ..solvers.generalized.actuation import (
     BIAS_AFFINE,
@@ -76,9 +93,14 @@ from ..solvers.generalized.actuation import (
 __all__ = ["parse_mjcf"]
 
 _TOP_LEVEL = {"compiler", "option", "custom", "default", "asset",
-              "worldbody", "actuator", "tendon", "equality"}
+              "worldbody", "actuator", "tendon", "equality", "contact"}
 _VISUAL_ONLY = {"visual", "size", "light", "camera", "texture", "material"}
-_BODY_CHILDREN = {"body", "geom", "joint", "freejoint", "site"}
+# readouts and presets without physics, skipped as the JAX importer does
+_NO_PHYSICS = {"sensor", "keyframe"}
+_BODY_CHILDREN = {"body", "geom", "joint", "freejoint", "site", "inertial"}
+# sections that may repeat, merged into the first (MuJoCo allows repeats)
+_MERGED = ("asset", "default", "worldbody", "actuator", "tendon",
+           "equality", "contact", "sensor", "keyframe")
 
 
 def _unsupported(tag: str, where: str):
@@ -142,16 +164,134 @@ def _load_defaults(elem: ET.Element, parent=None) -> _Defaults:
     return d
 
 
-def parse_mjcf(builder, source: str):
-    """Parse an MJCF file into ``builder``. Returns name -> index maps."""
-    root = ET.parse(source).getroot()
+def _expand_includes(elem: ET.Element, base_dir: str, depth: int = 0):
+    """Inline ``<include file=...>``: the included file's root children
+    replace the element, its own includes relative to its directory. A
+    file that cannot be read raises (the JAX importer warns and drops the
+    subtree)."""
+    if depth > 8:
+        raise ValueError("MJCF <include> nesting deeper than 8")
+    i = 0
+    while i < len(elem):
+        child = elem[i]
+        if child.tag != "include":
+            _expand_includes(child, base_dir, depth)
+            i += 1
+            continue
+        path = os.path.join(base_dir, child.get("file", ""))
+        try:
+            sub = ET.parse(path).getroot()
+        except (OSError, ET.ParseError) as e:
+            raise ValueError(f"MJCF <include file={child.get('file')!r}> "
+                             f"cannot be read: {e}") from e
+        _expand_includes(sub, os.path.dirname(os.path.abspath(path)),
+                         depth + 1)
+        del elem[i]
+        for j, grand in enumerate(list(sub)):
+            elem.insert(i + j, grand)
+        i += len(sub)
+
+
+def _merge_repeated_sections(root: ET.Element):
+    """Fold every repeat of a mergeable top-level section into its first
+    occurrence."""
+    for tag in _MERGED:
+        secs = root.findall(tag)
+        for extra in secs[1:]:
+            for child in list(extra):
+                secs[0].append(child)
+            root.remove(extra)
+
+
+def _load_mesh_file(path: str) -> Mesh:
+    """A binary STL or an OBJ file as a Mesh; any other file raises naming
+    it (the JAX importer drops the geom in silence, an ASCII STL
+    included)."""
+    ext = os.path.splitext(path)[1].lower()
+    try:
+        if ext == ".stl":
+            return _load_stl(path)
+        if ext == ".obj":
+            return _load_obj(path)
+    except Exception as e:
+        raise ValueError(f"mesh file {path!r} cannot be read as an "
+                         f"{ext[1:].upper()} file: {e}") from e
+    raise NotImplementedError(f"mesh file {path!r}: only binary STL and OBJ "
+                              "files are read")
+
+
+def _load_stl(path: str) -> Mesh:
+    """Binary STL; equal vertices (rounded to 8 decimals) merged in the
+    sorted order ``np.unique`` gives, as the JAX importer merges them."""
+    with open(path, "rb") as f:
+        f.read(80)
+        count = struct.unpack("<I", f.read(4))[0]
+        data = np.frombuffer(f.read(count * 50), dtype=np.uint8)
+    if data.size != count * 50:
+        raise ValueError(f"{count} triangles announced, {data.size // 50} "
+                         "present (an ASCII STL?)")
+    tri = data.reshape(count, 50)
+    verts = tri[:, 12:48].copy().view(np.float32).reshape(count, 3, 3)
+    flat = verts.reshape(-1, 3).astype(np.float64)
+    uniq, inv = np.unique(np.round(flat, 8), axis=0, return_inverse=True)
+    return Mesh(uniq, inv.astype(np.int32))
+
+
+def _load_obj(path: str) -> Mesh:
+    """OBJ ``v`` and ``f`` lines; a polygon becomes a triangle fan."""
+    vs, fs = [], []
+    with open(path) as f:
+        for line in f:
+            if line.startswith("v "):
+                vs.append([float(x) for x in line.split()[1:4]])
+            elif line.startswith("f "):
+                idx = [int(t.split("/")[0]) - 1 for t in line.split()[1:]]
+                for k in range(1, len(idx) - 1):
+                    fs.append([idx[0], idx[k], idx[k + 1]])
+    return Mesh(np.asarray(vs), np.asarray(fs, dtype=np.int32).reshape(-1))
+
+
+def _mesh_path(base_dir: str, meshdirs, fname: str) -> str:
+    """The first of ``base_dir/meshdir/fname`` over the compilers'
+    meshdirs (document order) that exists; raises naming every place
+    tried."""
+    tried = []
+    for md in meshdirs:
+        path = os.path.join(base_dir, md, fname)
+        if os.path.exists(path):
+            return path
+        tried.append(path)
+    raise FileNotFoundError(f"MJCF mesh file {fname!r} not found: tried "
+                            f"{tried}")
+
+
+def parse_mjcf(builder, source: str, scale: float = 1.0):
+    """Parse an MJCF file (or an XML string) into ``builder``, lengths
+    times ``scale``. Returns name -> index maps."""
+    if os.path.exists(source):
+        root = ET.parse(source).getroot()
+        base_dir = os.path.dirname(os.path.abspath(source))
+    else:
+        root = ET.fromstring(source)
+        base_dir = "."
+    _expand_includes(root, base_dir)
+    _merge_repeated_sections(root)
     for child in root:
-        if child.tag not in _TOP_LEVEL | _VISUAL_ONLY:
+        if child.tag not in _TOP_LEVEL | _VISUAL_ONLY | _NO_PHYSICS:
             _unsupported(child.tag, root.tag)
-        if child.tag in _TOP_LEVEL and len(root.findall(child.tag)) > 1:
+        if child.tag in ("option", "custom") and \
+                len(root.findall(child.tag)) > 1:
             raise NotImplementedError(
                 f"repeated MJCF <{child.tag}> sections are not supported by "
                 "the port yet")
+    if scale != 1.0 and any(root.find(t) is not None
+                            for t in ("tendon", "equality")):
+        raise NotImplementedError(
+            "MJCF import with scale != 1 and tendons or equality "
+            "constraints is not supported by the port yet")
+    meshdirs = [c.get("meshdir", c.get("assetdir"))
+                for c in root.findall("compiler")]
+    meshdirs = [m for m in meshdirs if m is not None] or [""]
 
     compiler = root.find("compiler")
     angle_deg = True
@@ -197,12 +337,6 @@ def parse_mjcf(builder, source: str):
     defaults = _load_defaults(defaults_elem) if defaults_elem is not None \
         else _Defaults()
 
-    asset = root.find("asset")
-    if asset is not None:
-        for ch in asset:
-            if ch.tag not in _VISUAL_ONLY:
-                _unsupported(ch.tag, "asset")
-
     name_to_body: Dict[str, int] = {"world": -1}
     eq_joint: Dict[str, tuple] = {}           # hinge, slide -> (joint, axis)
     joint_dof_start: Dict[str, int] = {}
@@ -212,7 +346,7 @@ def parse_mjcf(builder, source: str):
     name_to_shape: Dict[str, int] = {}
 
     def local_xform(attrib) -> np.ndarray:
-        pos = _parse_vec(attrib.get("pos"), default=[0, 0, 0], n=3)
+        pos = _parse_vec(attrib.get("pos"), default=[0, 0, 0], n=3) * scale
         if "quat" in attrib:
             q_wxyz = _parse_vec(attrib["quat"], n=4)
             q = np.array([q_wxyz[1], q_wxyz[2], q_wxyz[3], q_wxyz[0]])
@@ -229,8 +363,12 @@ def parse_mjcf(builder, source: str):
             z = _parse_vec(attrib["zaxis"], n=3)
             q = np_quat_between_axes([0, 0, 1], z / np.linalg.norm(z))
         elif "xyaxes" in attrib:
-            raise NotImplementedError(
-                "MJCF xyaxes frames are not supported by the port yet")
+            v = _parse_vec(attrib["xyaxes"], n=6)
+            xa = v[:3] / np.linalg.norm(v[:3])
+            ya = v[3:] - xa * (xa @ v[3:])
+            ya = ya / np.linalg.norm(ya)
+            q = np_quat_from_matrix(np.stack([xa, ya, np.cross(xa, ya)],
+                                             axis=1))
         else:
             q = np_quat_identity()
         return np_transform(pos, q)
@@ -244,13 +382,43 @@ def parse_mjcf(builder, source: str):
         out.update(elem.attrib)
         return out
 
+    # mesh assets: vertices times the mesh's scale (its default class's
+    # too) and the importer's
+    meshes: Dict[str, Mesh] = {}
+    asset = root.find("asset")
+    if asset is not None:
+        for ch in asset:
+            if ch.tag not in _VISUAL_ONLY | {"mesh"}:
+                _unsupported(ch.tag, "asset")
+            if ch.tag != "mesh":
+                continue
+            a = resolve_attrs(ch, "mesh", None)
+            if not a.get("file"):
+                raise NotImplementedError(
+                    f"MJCF <mesh name={a.get('name')!r}> without a file "
+                    "(inline vertices) is not supported by the port yet")
+            name = a.get("name") or \
+                os.path.splitext(os.path.basename(a["file"]))[0]
+            mesh = _load_mesh_file(_mesh_path(base_dir, meshdirs, a["file"]))
+            mscale = _parse_vec(a.get("scale"), default=[1, 1, 1], n=3)
+            # the scaled vertices' own mass properties (the JAX importer
+            # keeps the unscaled ones: ROADMAP C.42)
+            meshes[name] = Mesh(mesh.vertices * mscale * scale, mesh.indices)
+
     def add_geom(geom: ET.Element, body_idx: int, body_class):
         a = resolve_attrs(geom, "geom", body_class)
         gtype = a.get("type", "sphere")
         if gtype not in ("plane", "sphere", "box", "capsule", "cylinder",
-                         "ellipsoid"):
+                         "ellipsoid", "mesh"):
             raise NotImplementedError(
                 f"MJCF geom type {gtype!r} is not supported by the port yet")
+        mesh = None
+        if gtype == "mesh":
+            mesh = meshes.get(a.get("mesh", ""))
+            if mesh is None:
+                raise ValueError(f"MJCF geom {a.get('name')!r} names mesh "
+                                 f"{a.get('mesh')!r}, which no <mesh> "
+                                 "asset defines")
         contype = int(_parse_float(a.get("contype"), 1))
         conaffinity = int(_parse_float(a.get("conaffinity"), 1))
         collides = (contype != 0) or (conaffinity != 0)
@@ -263,11 +431,11 @@ def parse_mjcf(builder, source: str):
         cfg.collision_group = 1 if collides else 0
         cfg.contype = contype
         cfg.conaffinity = conaffinity
-        size = _parse_vec(a.get("size"), default=[0.01, 0, 0], n=3)
+        size = _parse_vec(a.get("size"), default=[0.01, 0, 0], n=3) * scale
         xf = local_xform(a)
         half_h = None
         if "fromto" in a:
-            ft = _parse_vec(a["fromto"], n=6)
+            ft = _parse_vec(a["fromto"], n=6) * scale
             d = ft[3:] - ft[:3]
             length = np.linalg.norm(d)
             xf = np_transform(0.5 * (ft[:3] + ft[3:]),
@@ -286,6 +454,9 @@ def parse_mjcf(builder, source: str):
                    * float(size[2]),
                    "ellipsoid": 4.0 / 3.0 * math.pi * float(size[0])
                    * float(size[1]) * float(size[2])}.get(gtype, 0.0)
+            if mesh is not None:
+                vol = float(compute_mesh_inertia(1.0, mesh.vertices,
+                                                 mesh.indices)[0])
             if vol > 1e-12 and m_val > 0.0:
                 cfg.density = m_val / vol
         key = a.get("name")
@@ -306,6 +477,9 @@ def parse_mjcf(builder, source: str):
                                              radius=float(size[0]),
                                              half_height=hh, axis="Z",
                                              cfg=cfg, key=key)
+        elif gtype == "mesh":
+            sidx = builder.add_shape_mesh(body_idx, xform=xf, mesh=mesh,
+                                          cfg=cfg, key=key)
         elif gtype == "ellipsoid":
             sidx = builder.add_shape_ellipsoid(body_idx, xform=xf,
                                                rx=float(size[0]),
@@ -347,7 +521,8 @@ def parse_mjcf(builder, source: str):
         if limited is None:
             limited = autolimits and (rng[0] != 0.0 or rng[1] != 0.0)
         return dict(type=jtype, name=a.get("name"),
-                    pos=_parse_vec(a.get("pos"), default=[0, 0, 0], n=3),
+                    pos=_parse_vec(a.get("pos"), default=[0, 0, 0],
+                                   n=3) * scale,
                     axis=axis, limited=limited, range=rng,
                     damping=_parse_float(a.get("damping"), 0.0),
                     armature=_parse_float(a.get("armature"), 0.0),
@@ -358,7 +533,8 @@ def parse_mjcf(builder, source: str):
         """A hinge's limits in radians; a slide's in metres, shifted by its
         ``ref`` (MuJoCo qpos = Newton displacement + ref)."""
         if j["type"] == "slide":
-            lo, hi = j["range"][0] - j["ref"], j["range"][1] - j["ref"]
+            lo, hi = ((j["range"][0] - j["ref"]) * scale,
+                      (j["range"][1] - j["ref"]) * scale)
         else:
             lo, hi = to_rad(j["range"][0]), to_rad(j["range"][1])
         return JointDofConfig(
@@ -447,7 +623,7 @@ def parse_mjcf(builder, source: str):
                 xform_c=anchor, key=joints[0]["name"])
             for k, j in enumerate(lin):
                 if j["ref"] != 0.0:
-                    coord_refs[jq_start + k] = j["ref"]
+                    coord_refs[jq_start + k] = j["ref"] * scale
         # each MJCF hinge's own dof and coordinate, for actuators and
         # tendons (a free joint takes 6 dofs and 7 coordinates)
         for k, j in enumerate(joints):
@@ -502,6 +678,21 @@ def parse_mjcf(builder, source: str):
     if eq_root is not None:
         _parse_equality(builder, eq_root, name_to_body, eq_joint)
 
+    contact = root.find("contact")
+    if contact is not None:
+        for ch in contact:
+            if ch.tag == "exclude":
+                b1 = name_to_body.get(ch.get("body1", ""))
+                b2 = name_to_body.get(ch.get("body2", ""))
+                if b1 is None or b2 is None:
+                    raise ValueError(f"MJCF <exclude> names no body: "
+                                     f"{ch.get('body1')!r}, "
+                                     f"{ch.get('body2')!r}")
+                if b1 >= 0 and b2 >= 0:
+                    builder._filter_body_pair(b1, b2)
+            elif ch.tag != "pair":
+                _unsupported(ch.tag, "contact")
+
     act_root = root.find("actuator")
     if act_root is not None:
         _parse_actuators(builder, act_root, resolve_attrs, joint_dof_start,
@@ -526,10 +717,16 @@ def _parse_tendons(builder, tendon_root, resolve_attrs, name_to_joint,
     """``<fixed>`` tendons over named hinges and slides, each entry at its
     joint's own axis of the Newton joint, and ``<spatial>`` tendons through
     sites and wrap geoms."""
+    unlimited = []
     for fx in tendon_root:
         if fx.tag not in ("fixed", "spatial"):
             _unsupported(fx.tag, "tendon")
         a = resolve_attrs(fx, "tendon", None)
+        if fx.tag == "fixed" and ("limited" in a or "range" in a):
+            # a fixed tendon's length range is dropped, as the JAX importer
+            # drops it (ROADMAP C.41), and said so below
+            unlimited.append(fx.get("name"))
+            a = {k: v for k, v in a.items() if k not in ("limited", "range")}
         for attr in ("limited", "range", "frictionloss") + (
                 ("springlength",) if fx.tag == "fixed" else ()):
             if attr in a:
@@ -560,6 +757,9 @@ def _parse_tendons(builder, tendon_root, resolve_attrs, name_to_joint,
                 key=fx.get("name"))
             if fx.get("name"):
                 name_to_tendon[fx.get("name")] = tid
+    if unlimited:
+        warnings.warn(f"MJCF: the length ranges of {len(unlimited)} fixed "
+                      f"tendons are not ported and are dropped: {unlimited}")
 
 
 def _site_world(builder, sidx):

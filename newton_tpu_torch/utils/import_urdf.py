@@ -17,9 +17,12 @@ is a planar joint (the JAX importer makes it fixed), a ``<mimic>`` may
 name a joint declared after it (the JAX importer drops it),
 ``enable_self_collisions=False`` filters every pair of this robot's
 links and ``collapse_fixed_joints=True`` merges fixed-jointed links (the
-JAX importer reads neither). Collision meshes raise (mesh files are not
-read: ROADMAP A item 14; a ``Mesh`` built in code collides through
-``add_shape_mesh``); visual meshes are skipped, as in the JAX importer.
+JAX importer reads neither). A collision mesh is read from its binary
+STL or OBJ file (``package://`` stripped, relative to the URDF's
+directory, times its ``scale`` and the importer's) into
+``add_shape_mesh``; a file that cannot be read raises naming it (the JAX
+importer drops the shape). Visual meshes are skipped, as in the JAX
+importer.
 """
 
 from __future__ import annotations
@@ -37,6 +40,8 @@ from ..core.host_math import (
     np_transform_multiply,
 )
 from ..core.types import MAXVAL
+from ..geometry.types import Mesh
+from .import_mjcf import _load_mesh_file
 
 __all__ = ["parse_urdf"]
 
@@ -71,8 +76,10 @@ def parse_urdf(builder, source: str, xform=None, floating: bool = False,
     ``dict(bodies=..., joints=...)``, name -> index maps."""
     if os.path.exists(source):
         root = ET.parse(source).getroot()
+        base_dir = os.path.dirname(os.path.abspath(source))
     else:
         root = ET.fromstring(source)
+        base_dir = "."
     pre = (key_prefix + "/") if key_prefix else ""
     links = {link.get("name"): link for link in root.findall("link")}
     joints = root.findall("joint")
@@ -127,11 +134,18 @@ def parse_urdf(builder, source: str, xform=None, floating: bool = False,
                     half_height=float(el.get("length")) * scale / 2,
                     axis="Z", cfg=cfg, key=key)
             elif geom.find("mesh") is not None:
-                if not is_visual:
-                    raise NotImplementedError(
-                        f"URDF collision mesh of link {link.get('name')!r}:"
-                        " mesh-file geoms are not ported (ROADMAP A item "
-                        "14); build the Mesh and call add_shape_mesh")
+                if is_visual:
+                    continue
+                # a collision mesh: its file (package:// stripped) under
+                # the URDF's directory, times its scale and the importer's
+                mel = geom.find("mesh")
+                fname = mel.get("filename", "").replace("package://", "")
+                m = _load_mesh_file(os.path.join(base_dir, fname))
+                msc = np.array(mel.get("scale", "1 1 1").split(),
+                               dtype=np.float64)
+                # mass properties of the scaled vertices (ROADMAP C.42)
+                builder.add_shape_mesh(body_idx, xform=xf, mesh=Mesh(
+                    m.vertices * msc * scale, m.indices), cfg=cfg, key=key)
             else:
                 raise NotImplementedError(
                     f"URDF geometry {[c.tag for c in geom]} of link "

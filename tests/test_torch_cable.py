@@ -4,14 +4,14 @@ CPU: the builder (``add_joint_distance``, ``add_joint_cable``,
 FK and IK of their layouts, the cables' compliant rows in SolverXPBD's
 joint sweep and ``cable_velocity_pass``, Dahl friction
 (``friction_model="dahl"``), and the ball-jointed rod graph under
-SolverFeatherstone (tests/test_solvers.py:211); the JAX package's gates of
-tests/test_cable.py:45-102 and tests/test_dahl_friction.py:45-77 on the
-port. On a CUDA card: the cable pile's substep on the card against the
-CPU and two card runs of it bit for bit.
+SolverFeatherstone (tests/test_solvers.py:211). The JAX package's gates
+of tests/test_cable.py:45-102 and tests/test_dahl_friction.py:45-77 on the
+port are in test_torch_cable_gates.py. On a CUDA card: the cable pile's
+substep on the card against the CPU and two card runs of it bit for bit.
 
 Tolerances: body_q and joint_q atol = rtol = 2e-4, body_qd and joint_qd
 5e-3 (tests/test_batched_step.py:69-75); one joint sweep and one damping
-pass 1e-5; the gates are the JAX tests'.
+pass 1e-5.
 
 JAX is imported inside the tests, so the GPU cases collect where JAX is
 absent (the card's machine)::
@@ -27,7 +27,6 @@ import pytest
 import torch
 
 import newton_tpu_torch as nt
-from newton_tpu_torch.math import quat_mul
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import chip_smoke as cs  # noqa: E402  (the scenes of phases 43-44)
@@ -259,39 +258,6 @@ def test_cable_pile_matches_jax():
              1.0 / 240.0, fk=False, pipe=True, iterations=6)
 
 
-def test_cable_sag_and_twist_gates():
-    """tests/test_cable.py:67 and :83 on the port: the stiffer cantilever
-    sags less after 1500 substeps of 1/960 (the stiffest tip above 0.85,
-    the softest below 0.7, none above 1.01), and a tip twisted 90 degrees
-    relaxes through the fixed root within 400 substeps (every quaternion's
-    z below 0.15)."""
-    b, tip = cs.sag_scene(nt, 1)            # the three side by side
-    m = b.finalize("cpu")
-    s = nt.eval_fk(m, m.joint_q0, m.joint_qd0, m.state())
-    solver = nt.SolverXPBD(m, iterations=8)
-    for _ in range(1500):
-        s = solver.step(s, None, None, None, 1.0 / 960.0)
-    assert bool(torch.isfinite(s.body_q).all())
-    tips = s.body_q[tip, 2].tolist()
-    assert tips[0] < tips[1] < tips[2] <= 1.01, tips
-    assert tips[2] > 0.85 and tips[0] < 0.7, tips
-    b = nt.ModelBuilder(gravity=0.0)
-    bodies = b.add_rod([0, 0, 0], [0, 0, 0.8], segments=8, radius=0.01,
-                       joint="cable", bend_ke=50.0, bend_kd=0.5,
-                       twist_ke=20.0, twist_kd=0.5, stretch_ke=2.0e4,
-                       stretch_kd=1.0, root_joint="fixed")
-    m = b.finalize("cpu")
-    s = nt.eval_fk(m, m.joint_q0, m.joint_qd0, m.state())
-    qz = torch.tensor([0, 0, np.sin(np.pi / 4), np.cos(np.pi / 4)],
-                      dtype=torch.float32)
-    s.body_q[bodies[-1], 3:7] = quat_mul(qz, s.body_q[bodies[-1], 3:7])
-    solver = nt.SolverXPBD(m, iterations=8)
-    for _ in range(400):
-        s = solver.step(s, None, None, None, 1.0 / 960.0)
-    assert bool(torch.isfinite(s.body_q).all())
-    assert float(s.body_q[:, 5].abs().max()) < 0.15
-
-
 def _dahl_box(lib):
     return cs.dahl_box_scene(lib, 1)
 
@@ -338,31 +304,6 @@ def _push(solver, pipe, state, frames, force=None):
                                 1.0 / 240.0)
         xs.append(float(state.body_q[0, 0]))
     return state, np.asarray(xs)
-
-
-def test_dahl_gates():
-    """tests/test_dahl_friction.py:45-77 on the port: a box launched at
-    2 m/s stops within 0.1-0.45 m and keeps a bristle state; a push of
-    15 N (below mu m g = 39 N) creeps less than 0.1 m in 1 s; without
-    init_state the solver raises, naming it."""
-    m = _dahl_box(nt).finalize("cpu")
-    pipe = nt.CollisionPipeline(m)
-    sol = nt.SolverXPBD(m, iterations=4, friction_model="dahl",
-                        dahl_sigma=5.0e4)
-    s = sol.init_state(m.state())
-    s.body_qd[0, 0] = 2.0
-    s, xs = _push(sol, pipe, s, 90)
-    assert bool(torch.isfinite(s.body_q).all())
-    assert abs(float(s.body_qd[0, 0])) < 0.05
-    assert 0.1 < xs[-1] < 0.45
-    assert (s.custom["xpbd:dahl_f"].abs().sum(1) > 1e-6).any()
-    sol = nt.SolverXPBD(m, iterations=4, friction_model="dahl",
-                        dahl_sigma=1.0e5)
-    s, xs = _push(sol, pipe, sol.init_state(m.state()), 60, force=15.0)
-    assert xs[-1] < 0.1, xs[-1]
-    with pytest.raises(ValueError, match="init_state"):
-        nt.SolverXPBD(m, friction_model="dahl").step(
-            m.state(), None, None, pipe.collide(m.state()), 1.0 / 240.0)
 
 
 @gpu

@@ -231,7 +231,8 @@ def test_self_collisions_filtered_unless_enabled():
 
 def test_mimic_before_its_source_and_meshes():
     """A mimic tag may name a joint declared after it; a collision mesh
-    file raises naming its ROADMAP item, a visual mesh is skipped."""
+    file that cannot be read raises naming the file, a visual mesh is
+    skipped."""
     src = cs.DOUBLE_PENDULUM_URDF.replace("{mimic}", "")
     src = src.replace('<joint name="shoulder" type="revolute">',
                       '<joint name="shoulder" type="revolute">'
@@ -243,7 +244,7 @@ def test_mimic_before_its_source_and_meshes():
     mesh = src.replace('<geometry><cylinder radius="0.03" length="0.5"/>'
                        '</geometry>', '<geometry><mesh filename="a.stl"/>'
                        '</geometry>', 1)
-    with pytest.raises(NotImplementedError, match="mesh-file"):
+    with pytest.raises(ValueError, match="a.stl"):
         nt.ModelBuilder().add_urdf(mesh)
     visual = src.replace("<collision>", "<visual>", 1).replace(
         "</collision>", "</visual>", 1)
