@@ -346,6 +346,36 @@ Phases, one line each:
      the example's bound, median error < 0.03), and the
      kitchen scene and the Adroit pen finalized to test_importers.py's
      counts; finalize seconds, solves/s and the error.
+ 56. the slice's main path: the ant x 1024 filmed by its track cameras
+     (replicate(gymnasium's ant, 1024, spacing=(4, 4, 0)), SolverMuJoCo(
+     iterations=8, euler) through step, dt 1/240, 4 substeps a frame with
+     uniform random ctrl; each world's 64 x 64 camera at its torso plus
+     ant.xml's track offset (0, -3, 0.3), looking along +Y, fovy 45
+     degrees, posed on the device from body_q and rendered every frame
+     through SensorTiledCamera: R = 4,194,304 rays against S = 14,336
+     shapes, the camera having no world axis, C.43): a warm-up frame then
+     10 frames with one B1 (d = 14) and one B2 a substep and one K1 launch
+     a render; finite, unit quaternions, finite channels; the pixel that
+     points at the torso centre shows the world's torso in >= 99% of
+     worlds, at the analytic sphere distance within 1e-4; 0 host syncs a
+     frame; env-steps/s with rendering, render ms, K1 timed at this shape;
+     K1 against its plain twin (t 1e-5 max(1, t), normals 1e-4, shape
+     index equal except at ties, counted) on one camera's 4,096 rays at
+     this shape (S = 14,336), the twin timed on that run, and on the ant
+     x 16 scene (R = 65,536, S = 224), primary and shadow rays; device
+     ops a frame and busy share;
+ 57. the other rendering paths once each at the main path's cameras: (b)
+     shadows on the main scene (K1 twice a render, hdr darker); (a) the
+     fractal terrain (128 x 128 over 128 m) as a visual-only MESH of
+     32,258 triangles (no bake) under the grid, through K2, with (c) a
+     12 m heightfield sphere-traced through its bake and (d) a global
+     cloud of 256 Gaussians (plain compositing) in one render: each seen,
+     finite; K2 timed at the render's shape, against its plain twin on
+     65,536 of its rays and both against every triangle on 4,096 of them;
+     (e) the golden images (tests/golden_data) at tests/test_sensors.py's
+     gates; (f) ViewerRTX writes a decodable PNG of the ant scene,
+     ViewerBase.pick from a torso's camera returns that torso, ViewerFile
+     records 2 frames.
 Phase 49 holds a world off tolerance against the CPU to a float64 CPU
 run (the plain versions of B1 and B2 run float64 on the CPU).
 Phases 37-51 report device ms and operations per frame, the busy share,
@@ -374,7 +404,9 @@ own bytes, beside torch.linalg.solve(A, rhs)), B1 on the sleeping boxes
 and the URDF pendulum, B2 with a
 warm lam0 on the ant, the boxes and the humanoid; B1 and B2 at each
 shape of phases 32-39 and 48-50, B2's non-symmetric form and the
-conveyor's moving support among them), then the card
+conveyor's moving support among them; K1 at phase 56's shape, its
+plain twin timed on one camera's rays, and at the ant x 16 parity scene,
+K2 at phase 57 (a)'s, their bounds from kernel_cost), then the card
 line, then the result line ``{"ok": true,
 "device": {...}}``. Any failed phase raises: exit code != 0 and no result
 line. Without a CUDA device it exits 2 at once. A ``[details]`` line
@@ -432,7 +464,32 @@ def kernel_cost(name, W=1, **shape):
     mpm_bin (N, tiles, active_tiles): reads base, writes the bins (see
         below); no floating-point work.
     The bins and scratch slots of the MPM kernels are their design's own
-    traffic and count in neither bound."""
+    traffic and count in neither bound.
+    raycast_closest (R, classes = shapes of each class: plane, sphere,
+        box, capsule; shapes of no class are skipped): reads the rays (R x
+        24 B) and each shape's transform, scale and class once (44 B),
+        writes t, the shape and the normal (20 B a ray). Per (ray, shape)
+        pair, what the function needs of the ray in the shape's frame:
+        o - p (3) and, for a box or a capsule, two 3x3 rotations (2 x 15;
+        the matrix made once a shape), 33; for a plane only the local z
+        of o and d, 13; for a sphere no rotation (its test reads only
+        dot products), 3. Then the class: plane 1 (a division), sphere 17,
+        box 26 (3 reciprocals, the slab test's 12 products and
+        differences, 11 min/max), capsule 39 (the cylinder's 19, each
+        cap's 10 from the cylinder's partial sums); per ray the winner's
+        frame, normal and rotation back, 113. K1 itself does more (two
+        quaternion rotations a pair, 63, every class in the shape's
+        frame, each cap's sums anew): it rounds as its plain twin does,
+        to equal it bit for bit. The bound counts the function.
+    raycast_mesh (R, M, nodes, tris, bvh_nodes, leaf_slots, vertices): reads
+        the rays, each mesh shape's transform and scale (40 B), the BVH
+        once (24 B a node's box, 13 B a leaf slot's indices and mask, 12 B
+        a vertex), writes t and the normal (16 B a pair). Per pair: the
+        ray into the frame (a 3x3 rotation) and through the scale (33 +
+        6), 3 reciprocals, the normal's rescale (12); per node visited the
+        slab test (23);
+        per triangle tested Moller-Trumbore (52). ``nodes`` and ``tris``
+        are the counts of this run's data (the kernel's counters)."""
     f = 4
     if name == "chol_inv_solve":
         d = shape["d"]
@@ -469,6 +526,20 @@ def kernel_cost(name, W=1, **shape):
         # offsets (K + 1), slot_of (K), nactive and a record (tile, begin,
         # end) per non-empty tile; integer work only
         return n * 12 + n * 16 + (2 * K + 2 + 3 * act) * 4, 0
+    elif name == "raycast_closest":
+        R, cls = shape["R"], shape["classes"]
+        per = (13 + 1, 3 + 17, 33 + 26, 33 + 39)
+        nbytes = R * 44 + sum(cls) * 44
+        flops = R * (sum(c * k for c, k in zip(cls, per)) + 113)
+        return nbytes, flops
+    elif name == "raycast_mesh":
+        R, M = shape["R"], shape["M"]
+        nbytes = (R * 24 + M * 40 + shape["bvh_nodes"] * 24
+                  + shape["leaf_slots"] * 13 + shape["vertices"] * 12
+                  + M * R * 16)
+        flops = M * R * (39 + 3 + 12) + shape["nodes"] * 23 \
+            + shape["tris"] * 52
+        return nbytes, flops
     else:
         raise KeyError(name)
     return W * nbytes, W * flops
@@ -8414,6 +8485,692 @@ def phase_franka(dev, n_targets=FRANKA_TARGETS):
     return res
 
 
+CAM_W = 1024                          # the ant x 1024 filmed (phase 56)
+CAM_RES = 64                          # one 64 x 64 camera per world
+CAM_FOV = 0.7853981633974483          # MuJoCo's default fovy, 45 degrees
+CAM_SPACING = (4.0, 4.0, 0.0)         # replicate's square grid, 32 x 32
+CAM_OFFSET = (0.0, -3.0, 0.3)         # ant.xml:22, the "track" camera
+CAM_QUAT = (0.7071067811865476, 0.0, 0.0, 0.7071067811865476)
+CAM_FRAMES = 10
+CAM_TORSO_R = 0.25                    # ant.xml's torso_geom
+CAM_SEEN_SHARE = 0.99
+CAM_DEPTH_TOL = 1e-4
+CAM_PARITY_W = 16                     # K1 against its twin: R = 65,536
+CAM_PLAIN_RAYS = 4096                 # the twin timed at the main shape
+CAM_T_TOL = 1e-5                      # t: 1e-5 max(1, t)
+CAM_N_TOL = 1e-4                      # normals
+K2_RAYS = 65536                       # K2 against its twin
+K2_BRUTE_RAYS = 4096                  # both against every triangle
+SPLAT_N = 256
+TERRAIN_MESH = dict(nx=128, ny=128, size_x=128.0, size_y=128.0)
+
+
+def camera_ant_scene(lib, n):
+    """Gymnasium's ant in each of n worlds on replicate's square grid
+    (the offset of world i is 4 (i mod 32), 4 (i div 32) for n = 1024;
+    both packages apply it twice to a free root, so the ants stand 8 m
+    apart: ROADMAP C.45); the ground is each world's ant.xml floor, n
+    coincident z = 0 planes."""
+    import newton_tpu_torch as nt
+    sub = lib.ModelBuilder()
+    sub.add_mjcf(os.path.join(nt.ASSET_DIR, "ant.xml"))
+    b = lib.ModelBuilder(gravity=sub.gravity)
+    b.replicate(sub, n, spacing=CAM_SPACING)
+    return b
+
+
+def camera_extras_scene(lib, n):
+    """Phase 57's scene: camera_ant_scene with three global visual-only
+    shapes (collision off): the fractal terrain (128 x 128 samples over
+    128 m, amplitude 0.5, seed 57) as a MESH of 32,258 triangles under the
+    grid (no bake), a 12 m fractal heightfield (amplitude 0.4, seed 58;
+    sphere-traced through its bake) in the grid's middle, and a cloud of
+    SPLAT_N Gaussians over it (numpy default_rng(57))."""
+    import importlib
+    import math
+    import numpy as np
+    terrain = importlib.import_module(lib.__name__ + ".geometry.terrain")
+    b = camera_ant_scene(lib, n)
+    cfg = b.default_shape_cfg.copy()
+    cfg.has_shape_collision = False
+    mid = (math.ceil(math.sqrt(n)) - 1) * CAM_SPACING[0]   # C.45: twice
+    field = terrain.generate_fractal_terrain(**TERRAIN_MESH, seed=57)
+    b.add_shape_mesh(-1, xform=[mid, mid, 0, 0, 0, 0, 1],
+                     mesh=terrain.heightfield_to_mesh(field), cfg=cfg,
+                     key="terrain_mesh")
+    b.add_shape_heightfield(
+        -1, xform=[mid, mid + 2.0, 0, 0, 0, 0, 1], cfg=cfg,
+        key="heightfield", heightfield=terrain.generate_fractal_terrain(
+            nx=32, ny=32, size_x=12.0, size_y=12.0, amplitude=0.4, seed=58))
+    rng = np.random.default_rng(57)
+    q = rng.standard_normal((SPLAT_N, 4))
+    b.add_shape_gaussian(
+        -1, means=np.c_[rng.uniform(mid - 6, mid + 6, (SPLAT_N, 2)),
+                        rng.uniform(0.3, 1.5, SPLAT_N)],
+        scales=rng.uniform(0.05, 0.3, (SPLAT_N, 3)),
+        quats=q / np.linalg.norm(q, axis=1, keepdims=True),
+        colors=rng.uniform(0.0, 1.0, (SPLAT_N, 3)),
+        opacities=rng.uniform(0.3, 0.9, SPLAT_N), key="splats")
+    return b
+
+
+class CameraAnt:
+    """Phase 56's loop on the port: ``frame(state)`` draws a uniform
+    mjc:ctrl in [-1, 1], steps SUBSTEPS substeps of SolverMuJoCo(
+    iterations=8, euler) through the static pipeline, places every world's
+    track camera and renders it; nothing reads a value back to the host.
+
+    The track camera (ant.xml's ``mode="trackcom"``) sits at the torso's
+    position plus (0, -3, 0.3) with a fixed orientation looking along +Y;
+    MuJoCo follows the subtree's centre of mass, this follows the torso
+    body."""
+
+    def __init__(self, nt, model, n, device, seed=56):
+        import numpy as np
+        import torch
+        from newton_tpu_torch.sensors import SensorTiledCamera
+        st = model.structure
+        self.nt, self.model, self.n = nt, model, n
+        self.pipe = nt.CollisionPipeline(model)
+        self.solver = nt.SolverMuJoCo(model, iterations=ITERS,
+                                      integrator="euler")
+        self.cam = SensorTiledCamera(model, width=CAM_RES, height=CAM_RES,
+                                     fov_y=CAM_FOV)
+        torso = np.nonzero(np.asarray(st.body_key) == "torso")[0]
+        shape = np.nonzero(np.asarray(st.shape_key) == "torso_geom")[0]
+        if len(torso) != n or len(shape) != n:
+            raise AssertionError(f"camera ant: {len(torso)} torsos, "
+                                 f"{len(shape)} torso geoms in {n} worlds")
+        self.torso = torch.as_tensor(torso, device=device)
+        self.torso_shape = torch.as_tensor(shape, device=device)
+        self.offset = torch.tensor(CAM_OFFSET, device=device)
+        self.quat = torch.tensor(CAM_QUAT, device=device).expand(n, 4)
+        self.ctl = model.control()
+        self.gen = torch.Generator(device=device)
+        self.gen.manual_seed(seed)
+        self.A = st.mjc_actuation.n
+
+    def start(self):
+        m = self.model
+        return self.solver.init_state(self.nt.eval_fk(
+            m, m.joint_q0, m.joint_qd0, m.state()))
+
+    def poses(self, state):
+        import torch
+        return torch.cat([state.body_q[self.torso, 0:3] + self.offset,
+                          self.quat], 1)
+
+    def frame(self, state, kernels=True):
+        import torch
+        self.ctl.custom["mjc:ctrl"] = 2 * torch.rand(
+            self.A, generator=self.gen, device=self.gen.device) - 1
+        for _ in range(SUBSTEPS):
+            state = self.solver.step(state, None, self.ctl,
+                                     self.pipe.collide(state), DT,
+                                     kernels=kernels)
+        return state, self.cam.render(state, self.poses(state))
+
+
+def torso_pixel(cam):
+    """The pixel whose track-camera ray points nearest the torso centre
+    (the same pixel in every world): its index in the H W image."""
+    import numpy as np
+    x, y, z, w = CAM_QUAT
+    R = np.array([[1 - 2 * (y * y + z * z), 2 * (x * y - z * w),
+                   2 * (x * z + y * w)],
+                  [2 * (x * y + z * w), 1 - 2 * (x * x + z * z),
+                   2 * (y * z - x * w)],
+                  [2 * (x * z - y * w), 2 * (y * z + x * w),
+                   1 - 2 * (x * x + y * y)]])
+    to_c = -np.asarray(CAM_OFFSET) / np.linalg.norm(CAM_OFFSET)
+    d = cam._pixel_dirs.cpu().numpy().astype(np.float64) @ R.T
+    return int(np.argmax(d @ to_c))
+
+
+def torso_gate(loop, state, out, label):
+    """The torso pixel shows each world's own torso in CAM_SEEN_SHARE of
+    the worlds, at the analytic sphere distance (float64) within
+    CAM_DEPTH_TOL."""
+    import torch
+    n, pix = loop.n, torso_pixel(loop.cam)
+    R = loop.cam.width * loop.cam.height
+    seen = out["shape_index"].reshape(n, R)[:, pix] == loop.torso_shape
+    o, d = loop.cam.rays(loop.poses(state))
+    o, d = (x.view(n, R, 3)[:, pix].double() for x in (o, d))
+    oc = o - state.body_q[loop.torso, 0:3].double()
+    b = (d * oc).sum(-1)
+    c = (oc * oc).sum(-1) - CAM_TORSO_R ** 2
+    t = -b - torch.sqrt(torch.clamp(b * b - c, min=0.0))
+    err = (out["depth"].reshape(n, R)[:, pix].double() - t)[seen].abs()
+    g = dict(pixel=pix, seen_share=float(seen.double().mean()),
+             depth_err_max=float(err.max()) if err.numel() else None)
+    if not (g["seen_share"] >= CAM_SEEN_SHARE
+            and g["depth_err_max"] is not None
+            and g["depth_err_max"] <= CAM_DEPTH_TOL):
+        raise AssertionError(f"{label}: torso gate fails {g}")
+    return g
+
+
+def once_ms(fn):
+    """Device time of one call after one untimed call (CUDA events)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1)
+
+
+def timed_call(fn):
+    """(fn(), the device time in ms of that one call), by CUDA events."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
+def analytic_inputs(model, state):
+    """closest_analytic's shape operands: (X, scale, class codes) and the
+    shapes of each class (plane, sphere, box, capsule)."""
+    import numpy as np
+    import torch
+    from newton_tpu_torch.geometry import raycast
+    cls = raycast.shape_classes(model)
+    counts = tuple(int((cls == k).sum()) for k in range(4))
+    return (raycast.shape_world_transforms(model, state), model.shape_scale,
+            torch.as_tensor(cls, device=state.body_q.device), counts)
+
+
+def k1_compare(o, d, X, sc, cls, max_dist, label):
+    """K1 against its plain twin on the same inputs: t within CAM_T_TOL
+    max(1, t), normals within CAM_N_TOL, the same shape except where the
+    two shapes' t differ by less than CAM_T_TOL (a tie, counted). The
+    result also holds the plain twin's device time on this (its only)
+    run."""
+    import torch
+    from newton_tpu_torch.geometry import raycast
+    tk, sk, nk = raycast.closest_analytic(o, d, X, sc, cls, max_dist)
+    (tp, sp, np_), plain_ms = timed_call(
+        lambda: raycast.closest_analytic_plain(o, d, X, sc, cls, max_dist))
+    same = sk == sp
+    ties = 0
+    for r in torch.nonzero(~same).flatten().tolist()[:100]:
+        ts = []
+        for s in (int(sk[r]), int(sp[r])):
+            if s < 0:
+                ts.append(float("inf"))
+                continue
+            t, _, _ = raycast.closest_analytic_plain(
+                o[r:r + 1], d[r:r + 1], X[s:s + 1], sc[s:s + 1],
+                cls[s:s + 1], max_dist)
+            ts.append(float(t[0]))
+        ties += abs(ts[0] - ts[1]) < CAM_T_TOL * max(1.0, ts[1])
+    mism = int((~same).sum())
+    both = same & (sp >= 0)
+    t_err = float((tk - tp)[both].abs().max()) if both.any() else 0.0
+    t_ok = bool(((tk - tp)[both].abs()
+                 <= CAM_T_TOL * torch.clamp(tp[both], min=1.0)).all())
+    n_err = float((nk - np_)[both].abs().max()) if both.any() else 0.0
+    res = dict(rays=o.shape[0], shapes=X.shape[0], hits=int(both.sum()),
+               t_max_abs_err=t_err, n_max_abs_err=n_err,
+               shape_mismatches=mism, ties=int(ties),
+               bit_equal=bool(torch.equal(tk, tp) and torch.equal(sk, sp)
+                              and torch.equal(nk, np_)),
+               plain_ms=plain_ms)
+    if not (t_ok and n_err <= CAM_N_TOL and mism == ties):
+        raise AssertionError(f"{label}: K1 vs plain off tolerance {res}")
+    return res, (tp, sp, np_)
+
+
+def k1_parity(dev):
+    """K1 against its plain twin on the ant x CAM_PARITY_W scene after two
+    frames (R = 65,536 rays, S = 224 shapes): the track cameras' rays, and
+    the shadow rays from the plain result's hits toward the light; both
+    timed."""
+    import torch
+    import newton_tpu_torch as nt
+    from newton_tpu_torch.geometry import raycast
+    model = camera_ant_scene(nt, CAM_PARITY_W).finalize(dev)
+    loop = CameraAnt(nt, model, CAM_PARITY_W, dev, seed=57)
+    state = loop.start()
+    for _ in range(2):
+        state, _ = loop.frame(state)
+    o, d = loop.cam.rays(loop.poses(state))
+    X, sc, cls, counts = analytic_inputs(model, state)
+    md = loop.cam.max_dist
+    out = dict(class_counts=counts)
+    out["primary"], (tp, sp, np_) = k1_compare(o, d, X, sc, cls, md,
+                                               "K1 primary")
+    out["plain_ms"] = out["primary"].pop("plain_ms")
+    out["ms"] = time_ms(lambda: raycast.closest_analytic(o, d, X, sc, cls,
+                                                         md), n=10)
+    so = o + d * tp[:, None] + np_ * 1e-3
+    sd = (-loop.cam._light).expand_as(so)
+    out["shadow"], _ = k1_compare(so, sd, X, sc, cls, md, "K1 shadow")
+    return out
+
+
+def phase_camera_ant(dev):
+    """Phase 56 (see the module docstring). Returns (results, (model,
+    loop, state)) for phase 57."""
+    import torch
+    import newton_tpu_torch as nt
+    from newton_tpu_torch.geometry import bvh, raycast
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = camera_ant_scene(nt, CAM_W).finalize(dev)
+    loop = CameraAnt(nt, model, CAM_W, dev)
+    state = loop.start()
+    torch.cuda.synchronize()
+    label = f"camera ant x {CAM_W}"
+    res = dict(worlds=CAM_W, cameras=CAM_W, rays=CAM_W * CAM_RES ** 2,
+               shapes=model.structure.shape_count,
+               setup_s=time.perf_counter() - t0)
+    state, out = loop.frame(state)
+    torch.cuda.synchronize()
+    reset_robot_launches()
+    raycast.closest_analytic.launches = 0
+    bvh.mesh_closest.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(CAM_FRAMES):
+        state, out = loop.frame(state)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    n_sub = CAM_FRAMES * SUBSTEPS
+    launches = gen_launches() + (raycast.closest_analytic.launches,
+                                 bvh.mesh_closest.launches)
+    if launches != (n_sub, n_sub, 0, CAM_FRAMES, 0):
+        raise AssertionError(f"{label}: launches (B1, B1 solve, B2, K1, K2) "
+                             f"{launches} in {n_sub} substeps and "
+                             f"{CAM_FRAMES} renders")
+    gates = rigid_gates(state, label)
+    for k in ("depth", "normal", "color", "albedo", "hdr"):
+        if not bool(torch.isfinite(out[k]).all()):
+            raise AssertionError(f"{label}: non-finite {k}")
+    gates.update(torso_gate(loop, state, out, label))
+    gates["hit_share"] = float((out["shape_index"] >= 0).double().mean())
+    res.update(frames=CAM_FRAMES, substeps=n_sub, launches=launches,
+               gates=gates, env_steps_per_s=n_sub * CAM_W / elapsed,
+               frame_ms=elapsed * 1e3 / CAM_FRAMES)
+    poses = loop.poses(state)
+    res["render_ms"] = time_ms(lambda: loop.cam.render(state, poses), n=3)
+    o, d = loop.cam.rays(poses)
+    X, sc, cls, counts = analytic_inputs(model, state)
+    md = loop.cam.max_dist
+    sub = slice(0, CAM_PLAIN_RAYS)
+    # K1 against its twin at the main path's shapes (S = 14,336: 112
+    # shared-memory tiles, the 1,024 coincident floors) on one camera
+    cmp, _ = k1_compare(o[sub], d[sub], X, sc, cls, md, f"{label}: K1")
+    if not cmp["hits"]:
+        raise AssertionError(f"{label}: K1 vs plain saw no hit {cmp}")
+    res["k1"] = dict(
+        rays=o.shape[0], shapes=X.shape[0], class_counts=counts,
+        ms=time_ms(lambda: raycast.closest_analytic(o, d, X, sc, cls, md),
+                   n=3),
+        plain_rays=CAM_PLAIN_RAYS, plain_ms=cmp.pop("plain_ms"),
+        compare=cmp,
+        ms_on_plain_rays=time_ms(lambda: raycast.closest_analytic(
+            o[sub], d[sub], X, sc, cls, md), n=10))
+    _, syncs = count_syncs(lambda: loop.frame(state))
+    res.update(host_syncs_per_frame=syncs, sync_sites=list(SYNC_SITES))
+    if syncs:
+        raise AssertionError(f"{label}: {syncs} host syncs a frame: "
+                             f"{SYNC_SITES}")
+    prof = profile_frame(lambda: loop.frame(state), SUBSTEPS)
+    res.update(profile=prof, busy_share_unprofiled=busy_unprofiled(
+        prof, CAM_W, res["env_steps_per_s"]))
+    if prof is not None:
+        res["device_ms_per_frame"] = prof["device_busy_ms"]
+        res["device_ops_per_frame"] = prof["device_ops"]
+    res["parity"] = k1_parity(dev)
+    res["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    return res, (model, loop, state)
+
+
+def golden_scene(lib, which):
+    """tests/test_sensors.py:63-87's sphere and box (``"sphere_box"``) or
+    tools/gen_golden_camera_mesh.py's icosahedron mesh and box
+    (``"mesh"``), each over a ground plane."""
+    import numpy as np
+    b = lib.ModelBuilder()
+    if which == "sphere_box":
+        body = b.add_body(xform=[0, 0, 0.5, 0, 0, 0, 1])
+        b.add_shape_sphere(body, radius=0.5)
+        b.add_joint_free(body)
+        box = b.add_body(xform=[1.2, 0, 0.25, 0, 0, 0, 1])
+    else:
+        phi = (1.0 + np.sqrt(5.0)) / 2.0
+        v = np.array([[-1, phi, 0], [1, phi, 0], [-1, -phi, 0],
+                      [1, -phi, 0], [0, -1, phi], [0, 1, phi], [0, -1, -phi],
+                      [0, 1, -phi], [phi, 0, -1], [phi, 0, 1], [-phi, 0, -1],
+                      [-phi, 0, 1]], dtype=np.float64)
+        v *= 0.5 / np.linalg.norm(v[0])
+        f = np.array([[0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10],
+                      [0, 10, 11], [1, 5, 9], [5, 11, 4], [11, 10, 2],
+                      [10, 7, 6], [7, 1, 8], [3, 9, 4], [3, 4, 2], [3, 2, 6],
+                      [3, 6, 8], [3, 8, 9], [4, 9, 5], [2, 4, 11], [6, 2, 10],
+                      [8, 6, 7], [9, 8, 1]], dtype=np.int32)
+        mb = b.add_body(xform=[0.0, 0.0, 0.6, 0, 0, 0, 1])
+        b.add_shape_mesh(mb, mesh=lib.Mesh(v, f.reshape(-1),
+                                           compute_inertia=False))
+        b.add_joint_free(mb)
+        box = b.add_body(xform=[1.1, 0.2, 0.25, 0, 0, 0, 1])
+    b.add_shape_box(box, hx=0.25, hy=0.25, hz=0.25)
+    b.add_joint_free(box)
+    b.add_ground_plane()
+    return b
+
+
+GOLDEN_CAM_MESH = (0.0, -3.0, 1.6, 0.42, 0.0, 0.0, 0.9075)
+
+
+def golden_render(dev, which, golden_dir):
+    """Render a golden scene at 48 x 32 as tests/test_sensors.py does and
+    hold it to the stored image with that test's gates: shape-index match
+    > 0.98, median depth error < 5e-3 (and color error < 0.02 on the mesh
+    scene, rendered with shadows)."""
+    import numpy as np
+    import newton_tpu_torch as nt
+    from newton_tpu_torch.sensors import SensorTiledCamera
+    name = ("camera_sphere_box.npz" if which == "sphere_box"
+            else "camera_mesh_scene.npz")
+    gold = np.load(os.path.join(golden_dir, name))
+    m = golden_scene(nt, which).finalize(dev)
+    s = nt.eval_fk(m, m.joint_q0, m.joint_qd0, m.state())
+    if which == "sphere_box":
+        cam = SensorTiledCamera(m, width=48, height=32)
+        xf = gold["cam_xform"]
+    else:
+        cam = SensorTiledCamera(m, width=48, height=32, shadows=True,
+                                light_dir=(0.3, 0.2, -0.9))
+        xf = np.asarray(GOLDEN_CAM_MESH, np.float32)
+    out = cam.render(s, np.asarray(xf, np.float32)[None])
+    sidx = out["shape_index"][0].cpu().numpy()
+    depth = out["depth"][0].cpu().numpy()
+    both = (sidx >= 0) & (gold["shape_index"] >= 0)
+    g = dict(shape_match=float((sidx == gold["shape_index"]).mean()),
+             depth_err_median=float(np.median(np.abs(
+                 depth - gold["depth"])[both])))
+    ok = g["shape_match"] > 0.98 and g["depth_err_median"] < 5e-3
+    if which == "mesh":
+        g["color_err"] = float(np.abs(out["color"][0].cpu().numpy()
+                                      - gold["color"]).mean())
+        ok = ok and g["color_err"] < 0.02
+    if not ok:
+        raise AssertionError(f"golden {which}: gates fail {g}")
+    return g
+
+
+def png_size(path):
+    """(width, height) of a PNG whose pixels decompress to that size."""
+    import struct
+    import zlib
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path}: not a PNG")
+    w, h = struct.unpack(">II", data[16:24])
+    pos, idat = 8, b""
+    while pos < len(data):
+        n = struct.unpack(">I", data[pos:pos + 4])[0]
+        if data[pos + 4:pos + 8] == b"IDAT":
+            idat += data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    if len(zlib.decompress(idat)) != h * (1 + 3 * w):
+        raise AssertionError(f"{path}: pixel data of the wrong size")
+    return w, h
+
+
+def camera_viewers(dev, model, loop, state):
+    """(f): ViewerRTX writes a decodable PNG of world 0's ant, picking from
+    a torso's camera returns that torso in three worlds, ViewerFile
+    records 2 frames."""
+    import tempfile
+    import numpy as np
+    from newton_tpu_torch.viewer import ViewerFile, ViewerNull, ViewerRTX
+    out = {}
+    torso = state.body_q[loop.torso, 0:3].cpu().numpy().astype(np.float64)
+    with tempfile.TemporaryDirectory() as tmp:
+        v = ViewerRTX(out_dir=tmp, width=160, height=120,
+                      cam_pos=torso[0] + [2.0, -2.5, 1.2],
+                      cam_target=torso[0])
+        v.set_model(model)
+        v.begin_frame(0.0)
+        v.log_state(state)
+        v.end_frame()
+        out["rtx_png"] = png_size(os.path.join(tmp, "frame_00000.png"))
+        out["rtx_lit_share"] = float((v.last_image.max(-1) > 0.05).mean())
+        if out["rtx_png"] != (160, 120) or out["rtx_lit_share"] <= 0.0:
+            raise AssertionError(f"ViewerRTX: {out}")
+        path = os.path.join(tmp, "rec.json")
+        rec = ViewerFile(path)
+        rec.set_model(model)
+        for k in range(2):
+            rec.begin_frame(k * SUBSTEPS * DT)
+            rec.log_state(state)
+            rec.end_frame()
+        rec.save()
+        data = ViewerFile.load(path)
+        out["file_frames"] = len(data["frames"])
+        if out["file_frames"] != 2 or \
+                data["header"]["shape_count"] != model.structure.shape_count:
+            raise AssertionError(f"ViewerFile: {out}")
+    pick = ViewerNull()
+    pick.set_model(model)
+    tshape = loop.torso_shape.cpu().numpy()
+    out["pick"] = []
+    for w in sorted({0, loop.n // 2, loop.n - 1}):
+        eye = torso[w] + np.asarray(CAM_OFFSET)
+        s, t = pick.pick(state, eye, -np.asarray(CAM_OFFSET)
+                         / np.linalg.norm(CAM_OFFSET))
+        out["pick"].append((w, s, t))
+        if s != int(tshape[w]):
+            raise AssertionError(f"pick from world {w}'s camera: shape {s}, "
+                                 f"want its torso {int(tshape[w])}")
+    return out
+
+
+def phase_camera_paths(dev, main):
+    """Phase 57 (see the module docstring)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import newton_tpu_torch as nt
+    from newton_tpu_torch.geometry import bvh, raycast
+    from newton_tpu_torch.sensors import SensorTiledCamera
+    model0, loop, state0 = main
+    label = "camera paths"
+    res = {}
+    # (b) shadows on the main path's scene: K1 twice a render
+    shad = SensorTiledCamera(model0, width=CAM_RES, height=CAM_RES,
+                             fov_y=CAM_FOV, shadows=True)
+    poses = loop.poses(state0)
+    raycast.closest_analytic.launches = 0
+    lit, dark = loop.cam.render(state0, poses), shad.render(state0, poses)
+    torch.cuda.synchronize()
+    res["shadows"] = dict(
+        k1_launches=raycast.closest_analytic.launches,
+        ms=once_ms(lambda: shad.render(state0, poses)),
+        hdr_mean=float(dark["hdr"].mean()),
+        hdr_mean_unshadowed=float(lit["hdr"].mean()))
+    if res["shadows"]["k1_launches"] != 3 or not \
+            res["shadows"]["hdr_mean"] < res["shadows"]["hdr_mean_unshadowed"]:
+        raise AssertionError(f"{label}: shadows {res['shadows']}")
+    # (a), (c), (d): the terrain mesh, the heightfield, the splat cloud
+    t0 = time.perf_counter()
+    model = camera_extras_scene(nt, CAM_W).finalize(dev)
+    st = model.structure
+    keys = list(st.shape_key)
+    mesh_s, hf_s = keys.index("terrain_mesh"), keys.index("heightfield")
+    if st.shape_sdf_id[mesh_s] >= 0 or st.shape_sdf_id[hf_s] < 0:
+        raise AssertionError(f"{label}: bakes {st.shape_sdf_id[mesh_s]}, "
+                             f"{st.shape_sdf_id[hf_s]}")
+    state = dataclasses.replace(model.state(), body_q=state0.body_q.clone())
+    cam = SensorTiledCamera(model, width=CAM_RES, height=CAM_RES,
+                            fov_y=CAM_FOV)
+    res["setup_s"] = time.perf_counter() - t0
+    raycast.closest_analytic.launches = 0
+    bvh.mesh_closest.launches = 0
+    t0 = time.perf_counter()
+    out = cam.render(state, poses)
+    torch.cuda.synchronize()
+    res["first_render_s"] = time.perf_counter() - t0
+    sidx = out["shape_index"]
+    res.update(
+        launches=(raycast.closest_analytic.launches,
+                  bvh.mesh_closest.launches),
+        mesh_pixels=int((sidx == mesh_s).sum()),
+        heightfield_pixels=int((sidx == hf_s).sum()),
+        splat_alpha_max=float(out["splat_alpha"].max()),
+        splat_alpha_min=float(out["splat_alpha"].min()),
+        render_ms=once_ms(lambda: cam.render(state, poses)))
+    for k in ("depth", "normal", "color", "splat_alpha"):
+        if not bool(torch.isfinite(out[k]).all()):
+            raise AssertionError(f"{label}: non-finite {k}")
+    if not (res["launches"] == (1, 1) and res["mesh_pixels"] > 0
+            and res["heightfield_pixels"] > 0
+            and res["splat_alpha_max"] > 0.3
+            and res["splat_alpha_min"] == 0.0):
+        raise AssertionError(f"{label}: {res}")
+    o, d = cam.rays(poses)
+    X, sc, cls, counts = analytic_inputs(model, state)
+    res["k1"] = dict(rays=o.shape[0], shapes=X.shape[0], class_counts=counts,
+                     ms=time_ms(lambda: raycast.closest_analytic(
+                         o, d, X, sc, cls, cam.max_dist), n=3))
+    # K2 at the render's shape, its plain twin on every 64th ray, both
+    # against every triangle on K2_BRUTE_RAYS of those
+    sel, bvh_of, pool = raycast._tables(model, dev)["mesh"]
+    Xm, scm = X[sel], sc[sel]
+    stats = {}
+    bvh.mesh_closest(pool, o, d, bvh_of, Xm, scm, stats=stats)
+    k2 = dict(rays=o.shape[0], mesh_shapes=int(sel.shape[0]),
+              triangles=int(pool.mask.sum()),
+              leaf_slots=int(pool.mask.numel()), nodes=int(pool.lo.shape[0]),
+              leaf_budget=pool.leaf_budget, depth=int(pool.params_np[0, 3]),
+              vertices=int(pool.verts.shape[0]), visited=stats,
+              ms=time_ms(lambda: bvh.mesh_closest(pool, o, d, bvh_of, Xm,
+                                                  scm), n=3))
+    step = o.shape[0] // K2_RAYS
+    os_, ds_ = o[::step].contiguous(), d[::step].contiguous()
+    sub_stats = {}
+    tk, nk = bvh.mesh_closest(pool, os_, ds_, bvh_of, Xm, scm,
+                              stats=sub_stats)
+    tp, np_ = bvh.mesh_closest_plain(pool, os_, ds_, bvh_of, Xm, scm)
+    hit = tp < 1e10
+    k2.update(
+        plain_rays=os_.shape[0], plain_visited=sub_stats,
+        plain_ms=once_ms(lambda: bvh.mesh_closest_plain(
+            pool, os_, ds_, bvh_of, Xm, scm)),
+        ms_on_plain_rays=time_ms(lambda: bvh.mesh_closest(
+            pool, os_, ds_, bvh_of, Xm, scm), n=10),
+        plain_hits=int(hit.sum()),
+        hits_agree=bool(torch.equal(hit, tk < 1e10)),
+        t_max_abs_err=float((tk - tp)[hit].abs().max()),
+        n_max_abs_err=float((nk - np_)[hit[..., None].expand_as(nk)]
+                            .abs().max()),
+        bit_equal=bool(torch.equal(tk, tp) and torch.equal(nk, np_)))
+    ok = k2["hits_agree"] and k2["n_max_abs_err"] <= CAM_N_TOL and bool(
+        ((tk - tp)[hit].abs() <= CAM_T_TOL * torch.clamp(tp[hit], min=1.0))
+        .all())
+    # brute force: every triangle, in the mesh's (scaled) frame, on half
+    # hits and half misses of the plain twin's
+    pick = torch.cat([torch.nonzero(hit[0]).flatten()[:K2_BRUTE_RAYS // 2],
+                      torch.nonzero(~hit[0]).flatten()[:K2_BRUTE_RAYS // 2]])
+    ob, db = bvh._local_rays(os_[pick], ds_[pick], Xm, scm)
+    tri = pool.verts[pool.tris[pool.mask.bool()].long()]     # (T, 3, 3)
+    best = torch.full((pick.shape[0],), 1e10, device=dev)
+    for a in range(0, tri.shape[0], 2048):
+        tt, _ = bvh.ray_triangles(ob[0][:, None], db[0][:, None],
+                                  tri[None, a:a + 2048, 0],
+                                  tri[None, a:a + 2048, 1],
+                                  tri[None, a:a + 2048, 2])
+        best = torch.minimum(best, tt.amin(1))
+    bh = best < 1e10
+    k2["brute_rays"] = int(pick.shape[0])
+    k2["brute_hits"] = int(bh.sum())
+    for name, t in (("kernel", tk[0, pick]), ("plain", tp[0, pick])):
+        agree = torch.equal(bh, t < 1e10)
+        e = (t - best)[bh].abs()
+        k2[f"brute_{name}_t_err"] = float(e.max()) if e.numel() else 0.0
+        ok = ok and agree and bool(
+            (e <= CAM_T_TOL * torch.clamp(best[bh], min=1.0)).all())
+    res["k2"] = k2
+    if not ok:
+        raise AssertionError(f"{label}: K2 vs plain or brute force {k2}")
+    # (e) the golden scenes, (f) the viewers
+    golden = os.path.join(HERE, "tests", "golden_data")
+    res["golden"] = {w: golden_render(dev, w, golden)
+                     for w in ("sphere_box", "mesh")}
+    res["viewers"] = camera_viewers(dev, model0, loop, state0)
+    res["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    return res
+
+
+def camera_kernel_entries(cam, paths):
+    """The kernels line's entries of phases 56-57: K1 at the main path's
+    shape and at the parity scene's, K2 at phase 57 (a)'s."""
+    no_library = ("no single PyTorch call computes this function: {}")
+    src = dict(route="cuda", source="newton_tpu_torch/csrc/raycast.cu",
+               library_ms=None)
+    k1, par, k2 = cam["k1"], cam["parity"], paths["k2"]
+    k1_none = ("none: no TPU kernel; newton_tpu/geometry/raycast.py:121 "
+               "raycast_model's dense analytic classes (XLA-fused)")
+    k1_lib = no_library.format("the closest hit over shapes of several "
+                               "classes")
+    return [
+        dict(name=f"raycast_closest (K1) ant x {CAM_W} track cameras "
+                  f"R={k1['rays']} S={k1['shapes']}", **src,
+             replaces=k1_none, library=k1_lib,
+             path=f"camera ant x {CAM_W}, one render a frame (phase 56, "
+                  "the main path)",
+             launches=cam["launches"][3],
+             max_abs_err=k1["compare"]["t_max_abs_err"],
+             ties=k1["compare"]["ties"], ms=k1["ms"],
+             plain_ms=k1["plain_ms"], plain_rays=k1["plain_rays"],
+             ms_on_plain_rays=k1["ms_on_plain_rays"],
+             **bound_fields("raycast_closest", k1["ms"], R=k1["rays"],
+                            classes=k1["class_counts"])),
+        dict(name=f"raycast_closest (K1) ant x {CAM_PARITY_W} "
+                  f"R={par['primary']['rays']} S={par['primary']['shapes']}",
+             **src, replaces=k1_none, library=k1_lib,
+             path="K1 against its plain twin (phase 56), off the main path",
+             launches=0, max_abs_err=par["primary"]["t_max_abs_err"],
+             shadow_max_abs_err=par["shadow"]["t_max_abs_err"],
+             ties=(par["primary"]["ties"], par["shadow"]["ties"]),
+             ms=par["ms"], plain_ms=par["plain_ms"],
+             **bound_fields("raycast_closest", par["ms"],
+                            R=par["primary"]["rays"],
+                            classes=par["class_counts"])),
+        dict(name=f"raycast_mesh (K2) terrain mesh R={k2['rays']} "
+                  f"M={k2['mesh_shapes']} T={k2['triangles']}", **src,
+             replaces="none: no TPU kernel; newton_tpu/geometry/bvh.py:164 "
+                      "MeshBVH.raycast's vmapped lax.while_loop walk",
+             library=no_library.format("a BVH closest-hit walk"),
+             path=f"camera ant x {CAM_W} over the terrain mesh, one render "
+                  "(phase 57 (a))",
+             launches=paths["launches"][1],
+             max_abs_err=k2["t_max_abs_err"], ms=k2["ms"],
+             plain_ms=k2["plain_ms"], plain_rays=k2["plain_rays"],
+             ms_on_plain_rays=k2["ms_on_plain_rays"],
+             **bound_fields("raycast_mesh", k2["ms"], R=k2["rays"],
+                            M=k2["mesh_shapes"],
+                            nodes=k2["visited"]["nodes"],
+                            tris=k2["visited"]["triangles"],
+                            bvh_nodes=k2["nodes"],
+                            leaf_slots=k2["leaf_slots"],
+                            vertices=k2["vertices"]))]
+
+
 def policy_kernel_entries(pol, b1_src, b2_src):
     """The kernels line's entries of phase 54: B1 and B2 at the policy
     ant's shapes (the slice's main path)."""
@@ -8485,6 +9242,12 @@ def kernel_info():
         regs, blocks = ctypes.c_int(0), ctypes.c_int(0)
         _kernels.check(fn(*shape, ctypes.addressof(regs),
                           ctypes.addressof(blocks)), label)
+        out[label] = dict(registers=regs.value, blocks_per_sm=blocks.value)
+    for which, label in enumerate(("K1 raycast_closest",
+                                   "K2 raycast_mesh")):
+        regs, blocks = ctypes.c_int(0), ctypes.c_int(0)
+        _kernels.check(lib.raycast_kernel_info(
+            which, ctypes.addressof(regs), ctypes.addressof(blocks)), label)
         out[label] = dict(registers=regs.value, blocks_per_sm=blocks.value)
     for which, label in enumerate(("binning", "B3 tile", "B3 node rows",
                                    "B4 tile")):
@@ -9175,6 +9938,49 @@ def main():
               f"{card}", flush=True)
     mark("55")
 
+    cam, main_cam = phase_camera_ant(dev)
+    results["camera_ant"] = cam
+    par = cam["parity"]
+    print(f"[56 camera ant x {CAM_W}, the main path] setup "
+          f"{cam['setup_s']:.1f} s, launches (B1, B1 solve, B2, K1, K2) "
+          f"{cam['launches']} in {cam['substeps']} substeps, gates "
+          f"{cam['gates']}, {cam['env_steps_per_s']:.1f} env-steps/s with "
+          f"rendering, frame {cam['frame_ms']:.2f} ms, render "
+          f"{cam['render_ms']:.2f} ms, K1 R={cam['k1']['rays']} "
+          f"S={cam['k1']['shapes']} {cam['k1']['ms']:.3f} ms (plain "
+          f"{cam['k1']['plain_ms']:.2f} ms on {CAM_PLAIN_RAYS} rays, K1 "
+          f"{cam['k1']['ms_on_plain_rays']:.4f} ms there; K1 vs plain "
+          f"there {cam['k1']['compare']}), host syncs a "
+          f"frame {cam['host_syncs_per_frame']}, device ms a frame "
+          f"{cam.get('device_ms_per_frame')}, device ops a frame "
+          f"{cam.get('device_ops_per_frame')}, busy "
+          f"{cam['busy_share_unprofiled']}; K1 vs plain x {CAM_PARITY_W}: "
+          f"primary {par['primary']}, shadow {par['shadow']}, "
+          f"{par['ms']:.4f} ms vs plain {par['plain_ms']:.2f} ms on {card}",
+          flush=True)
+    mark("56")
+
+    cpaths = phase_camera_paths(dev, main_cam)
+    results["camera_paths"] = cpaths
+    del main_cam
+    k2 = cpaths["k2"]
+    print(f"[57 camera paths] shadows {cpaths['shadows']}; terrain mesh, "
+          f"heightfield and splats: setup {cpaths['setup_s']:.1f} s, "
+          f"launches (K1, K2) {cpaths['launches']}, mesh pixels "
+          f"{cpaths['mesh_pixels']}, heightfield pixels "
+          f"{cpaths['heightfield_pixels']}, splat alpha max "
+          f"{cpaths['splat_alpha_max']:.3f}, render "
+          f"{cpaths['render_ms']:.1f} ms; K1 {cpaths['k1']['ms']:.3f} ms; "
+          f"K2 R={k2['rays']} T={k2['triangles']} {k2['ms']:.3f} ms "
+          f"(visited {k2['visited']}), vs plain on {k2['plain_rays']} rays "
+          f"t err {k2['t_max_abs_err']:.3g} n err {k2['n_max_abs_err']:.3g} "
+          f"bit-equal {k2['bit_equal']}, plain {k2['plain_ms']:.1f} ms vs "
+          f"{k2['ms_on_plain_rays']:.4f} ms, brute force t err "
+          f"{k2['brute_kernel_t_err']:.3g}/{k2['brute_plain_t_err']:.3g}; "
+          f"golden {cpaths['golden']}; viewers {cpaths['viewers']} on "
+          f"{card}", flush=True)
+    mark("57")
+
     results["kernel_info"] = kernel_info()
     print("[phase seconds] " + json.dumps(
         {k: round(v, 1) for k, v in results["phase_s"].items()}), flush=True)
@@ -9394,6 +10200,7 @@ def main():
     kernels += mesh_kernel_entries(ter, mesh, b1_src, b2_src)
     kernels += coupled_kernel_entries(vbd52, cpl, b1_src, b2_src)
     kernels += policy_kernel_entries(pol, b1_src, b2_src)
+    kernels += camera_kernel_entries(cam, cpaths)
     print(f"[bounds] H100 SXM peaks {PEAK_BYTES_PER_S / 1e12:g} TB/s, "
           f"{PEAK_F32_FLOPS / 1e12:g} TFLOP/s float32 (700 W); this card: "
           f"{card}", flush=True)

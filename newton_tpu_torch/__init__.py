@@ -11,10 +11,14 @@ co-simulation of two solvers (``SolverCoupled``), mesh, convex-hull, heightfield
 contacts, batched inverse kinematics (``ik``), mesh-file geoms in the MJCF
 and URDF importers, and the RL layer: ``utils.ArticulationView``, world
 reset (``Solver.reset``), ``actuators``, ``controllers`` (with an ONNX
-interpreter) and ``sensors`` (IMU, contact, frame transform). Every TPU kernel of the JAX package has a
+interpreter) and ``sensors`` (IMU, contact, frame transform), and the
+rendering and viewing layer: the tiled camera
+(``sensors.SensorTiledCamera``: ray casts, mesh BVHs, Gaussian splats)
+and ``viewer``. Every TPU kernel of the JAX package has a
 hand-written CUDA counterpart for Hopper in ``csrc/``: the Cholesky and PGS
-kernels of the robot path, the P2G/G2P transfers of the MPM path. It
-imports torch, never jax.
+kernels of the robot path, the P2G/G2P transfers of the MPM path; two
+more, with no TPU counterpart, cast the camera's rays. It imports torch,
+never jax.
 
 Physics needs true float32 products: TF32 would corrupt mass matrices and
 Delassus operators, so it is switched off here for matmuls and cuDNN.

@@ -25,7 +25,8 @@ _CSRC = os.path.join(_HERE, "csrc")
 _BUILD = os.path.join(_HERE, "_build")
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-_SOURCES = ("chol_inv_solve.cu", "pgs_solve.cu", "mpm_transfer.cu")
+_SOURCES = ("chol_inv_solve.cu", "pgs_solve.cu", "mpm_transfer.cu",
+            "raycast.cu")
 _HEADERS = ("exact_math.cuh",)
 
 _lib = None
@@ -64,6 +65,14 @@ _SIGNATURES = {
     "chol_scratch_floats": [_I],
     # c, nl, d -> floats of global scratch per env
     "pgs_scratch_floats": [_I, _I, _I],
+    # o, d, R, X, scale, cls, S, max_dist, t, shape, n, stream
+    "raycast_closest_f32": [_P, _P, _I, _P, _P, _P, _I, _F, _P, _P, _P, _P],
+    # o, d, R, X (or NULL), scale (or NULL), bvh_of, M, lo, hi, tris, mask,
+    # verts, params, K, t, n, stats (or NULL), stream
+    "raycast_mesh_f32": [_P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+                         _I, _P, _P, _P, _P],
+    # which (0: K1, 1: K2), &registers, &blocks per SM
+    "raycast_kernel_info": [_I, _P, _P],
 }
 _RESTYPES = {"chol_scratch_floats": ctypes.c_longlong,
              "pgs_scratch_floats": ctypes.c_longlong}

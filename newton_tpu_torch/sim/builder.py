@@ -87,6 +87,7 @@ _SHAPE_MASS = {
     GeoType.ELLIPSOID: lambda rho, s: compute_ellipsoid_inertia(
         rho, s[0], s[1], s[2]),
     GeoType.NONE: None,                 # sites: massless frame markers
+    GeoType.GAUSSIAN: None,             # splat clouds: visual only
     # mesh kinds: a mesh or hull's mass comes from its source (mesh_mass)
     GeoType.MESH: None, GeoType.CONVEX: None, GeoType.HFIELD: None,
     GeoType.SDF: None,
@@ -1195,6 +1196,25 @@ class ModelBuilder:
         return self.add_shape(body, GeoType.NONE, xform,
                               cfg=cfg or self.default_site_cfg, key=key)
 
+    def add_shape_gaussian(self, body: int, xform=None, means=None,
+                           scales=None, quats=None, colors=None,
+                           opacities=None, key: Optional[str] = None) -> int:
+        """A Gaussian-splat cloud on ``body``: visual only, massless and
+        never colliding. The tiled camera composites it (its splat
+        channel); viewers may draw it."""
+        splat = {
+            "means": np.asarray(means if means is not None
+                                else np.zeros((0, 3)), dtype=np.float64),
+            "scales": np.asarray(scales if scales is not None
+                                 else np.full((0, 3), 0.01)),
+            "quats": np.asarray(quats if quats is not None
+                                else np.tile([0.0, 0, 0, 1], (0, 1))),
+            "colors": colors, "opacities": opacities,
+        }
+        return self.add_shape(body, GeoType.GAUSSIAN, xform,
+                              cfg=self.default_site_cfg.copy(),
+                              source=splat, key=key)
+
     def add_shape_plane(self, body: int = -1, xform=None,
                         width: float = 10.0, length: float = 10.0,
                         cfg: Optional[ShapeConfig] = None,
@@ -2139,6 +2159,30 @@ class ModelBuilder:
         return r
 
     # ------------------------------------------------------------------
+    def _finalize_sources(self, st: ModelStructure) -> None:
+        """The structure's geometry sources, as the JAX finalize lists
+        them: meshes pooled by object identity, SDFs and heightfields in
+        shape order, each shape's index into its kind's list, and the
+        splat clouds (shape, source dict)."""
+        mesh_ids: Dict[int, int] = {}
+        st.meshes, st.sdfs, st.heightfields = [], [], []
+        st.shape_source_id = np.full(self.shape_count, -1, dtype=np.int32)
+        for s, src in enumerate(self.shape_source):
+            if isinstance(src, Mesh):
+                mid = mesh_ids.get(id(src))
+                if mid is None:
+                    mid = mesh_ids[id(src)] = len(st.meshes)
+                    st.meshes.append(src)
+                st.shape_source_id[s] = mid
+            elif isinstance(src, SDF):
+                st.shape_source_id[s] = len(st.sdfs)
+                st.sdfs.append(src)
+            elif isinstance(src, Heightfield):
+                st.shape_source_id[s] = len(st.heightfields)
+                st.heightfields.append(src)
+        st.gaussians = [(s, src) for s, src in enumerate(self.shape_source)
+                        if isinstance(src, dict) and "means" in src]
+
     def finalize(self, device="cuda") -> Model:
         """Build the Model with float32 tensors on ``device``: the card by
         default (raises where CUDA is absent; pass ``"cpu"`` to build on
@@ -2226,6 +2270,7 @@ class ModelBuilder:
                                                   device)
         for name, v in mesh_st.items():
             setattr(st, name, v)
+        self._finalize_sources(st)
         st.eq_count = len(self.eq_type)
         st.eq_type = np.asarray(self.eq_type, dtype=i32)
         st.eq_world = np.asarray(self.eq_world, dtype=i32)

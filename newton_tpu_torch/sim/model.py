@@ -122,6 +122,15 @@ class ModelStructure:
         self.shape_sdf_tex_id = np.zeros(0, dtype=np.int32)
         self.shape_hull_verts = np.zeros((0, 1, 3), dtype=np.float32)
         self.shape_sample_cell_area = np.zeros(0)
+        # geometry sources: the meshes pooled by object identity, SDFs and
+        # heightfields in shape order, each shape's index into its kind's
+        # list (-1: none); the Gaussian splat clouds as (shape, source
+        # dict) for the viewers and the tiled camera
+        self.meshes: List[Any] = []
+        self.sdfs: List[Any] = []
+        self.heightfields: List[Any] = []
+        self.shape_source_id = np.zeros(0, dtype=np.int32)
+        self.gaussians: List[Tuple[int, Dict[str, Any]]] = []
 
         # fixed tendons (T, K): coordinate, dof and coefficient per entry
         self.tendon_coord = np.zeros((0, 1), dtype=np.int32)

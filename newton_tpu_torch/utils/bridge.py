@@ -12,7 +12,10 @@ way, so a round trip is exact. A multi-world model (``replicate``,
 world tables are structure fields. The mesh kinds' leaves (sample
 points and areas, SDF grids, texture pools; ``sdf_tex_blocks`` as uint8)
 and structure fields (SDF and texture ids, hull vertex clouds, sample
-cell areas) ride the same lists.
+cell areas) ride the same lists. The geometry sources are optional
+structure fields (``SOURCE_FIELDS``): the splat clouds (``gaussians``,
+(shape, dict) pairs) are copied, and the meshes (any object with
+``vertices`` and ``indices``) become the port's ``Mesh``.
 """
 
 from __future__ import annotations
@@ -39,7 +42,8 @@ from ..sim.state import State
 from ..sim.tendon import SpatialTendonPath
 from ..solvers.generalized.actuation import MJCActuation
 
-__all__ = ["STRUCTURE_FIELDS", "ACTUATION_FIELDS", "STATE_FIELDS",
+__all__ = ["STRUCTURE_FIELDS", "SOURCE_FIELDS", "ACTUATION_FIELDS",
+           "STATE_FIELDS",
            "CONTROL_FIELDS", "CONTACT_FIELDS", "CONTACT_COUNTERS",
            "CONTACT_OPTIONAL",
            "SOFT_CONTACT_FIELDS",
@@ -67,6 +71,8 @@ STRUCTURE_FIELDS = (
     "shape_filter_pairs", "shape_sdf_id", "shape_sdf_tex_id",
     "shape_hull_verts", "shape_sample_cell_area",
 )
+# optional: a dict without them gives the structure's empty sources
+SOURCE_FIELDS = ("gaussians", "meshes", "shape_source_id")
 ACTUATION_FIELDS = ("n", "dof", "coord", "tendon", "sten", "gear",
                     "dyntype", "dynprm", "gaintype", "gainprm", "biastype",
                     "biasprm", "ctrlrange", "forcerange", "actrange",
@@ -117,6 +123,16 @@ def _structure_from_dict(d: Dict[str, Any]) -> ModelStructure:
         elif isinstance(v, (list, dict, set)):
             v = type(v)(v)
         setattr(st, name, v)
+    if "gaussians" in d:
+        st.gaussians = [(int(s), {k: (None if v is None else np.array(v))
+                                  for k, v in src.items()})
+                        for s, src in d["gaussians"]]
+    if "meshes" in d:
+        from ..geometry.types import Mesh
+        st.meshes = [Mesh(np.asarray(m.vertices), np.asarray(m.indices),
+                          compute_inertia=False) for m in d["meshes"]]
+    if "shape_source_id" in d:
+        st.shape_source_id = np.array(d["shape_source_id"], dtype=np.int32)
     # spatial tendon paths: any object with ``elems`` (the JAX package's
     # SpatialTendonPath) becomes the port's
     st.sten_paths = [SpatialTendonPath([tuple(e) for e in p.elems])
@@ -161,7 +177,8 @@ def model_to_numpy(model: Model) -> Tuple[dict, dict]:
               MODEL_FLOAT_FIELDS + MODEL_INT_FIELDS + MODEL_BOOL_FIELDS}
     leaves["custom"] = {k: _numpy(v) for k, v in model.custom.items()}
     st = model.structure
-    structure = {n: getattr(st, n) for n in STRUCTURE_FIELDS}
+    structure = {n: getattr(st, n) for n in STRUCTURE_FIELDS
+                 + SOURCE_FIELDS}
     structure["sten_paths"] = [SpatialTendonPath(list(p.elems))
                                for p in st.sten_paths]
     au = st.mjc_actuation
