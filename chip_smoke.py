@@ -104,7 +104,7 @@ Phases, one line each:
  18. rod x 4096 (example_rod_swing.py's ball-jointed rod, replicated 0.1 m
      apart in y, so each world's root joint_X_p differs; SolverFeatherstone
      step at dt 1/480, 8 substeps per frame, no contacts, as the example):
-     1 s with one B1 launch (d = 21, reg24) per substep and no B2; finite
+     1/3 s with one B1 launch (d = 21, reg24) per substep and no B2; finite
      state, unit ball quaternions, every tip z in (0.6, 1.01], world k's
      tip world 0's moved by its offset (1e-4); step against its group
      stepped alone (1e-6); a kernel vs plain step; env-steps/s in turns,
@@ -219,7 +219,7 @@ Phases, one line each:
      q_shoulder| < 2e-2).
  32. the Newton QP (the ant x 4096, solver="newton": one B1 and no B2 per
      substep, no host sync beyond the Euler PGS substep's, the masked
-     solve timed), tests/test_parity_mujoco.py's resting ball x 4096 (1
+     solve timed), tests/test_parity_mujoco.py's resting ball x 4096 (0.5
      s at dt 0.002, force within 1% of the weight, z within 2e-3) and
      the ant under penalty limits without body forces (B2 at (25, 0,
      14));
@@ -233,9 +233,10 @@ Phases, one line each:
      spatial tendons, filter, cylinder, intvelocity and damper actuators)
      x 4096 under euler and implicitfast: activations in [0, 1], the
      flexor flexes the elbow; SolverSemiImplicit's muscle pair x 4096;
- 36. SolverKamino: the heavy stack x 1024 (error < 0.03, PGS's > 2x), the
-     kicked four-bar x 4096 (drift < 2e-2) and build_stacks(3, 2) x 1024
-     (islands equal the dense factor within 5e-5 / 5e-4).
+ 36. SolverKamino: the heavy stack x 1024 (60 frames, error < 0.03,
+     PGS's > 2x), the kicked four-bar x 4096 (60 frames, drift < 2e-2) and
+     build_stacks(3, 2) x 1024 (islands equal the dense factor within
+     5e-5 / 5e-4 over 30 steps).
  37. example_basic_conveyor_forces.py x 4096: a kinematic belt (a body
      without a joint at 0.6 m/s) under two crates on free joints, mu 0.9,
      SolverMuJoCo(iterations=16, warm_start=False) with step_with_contacts
@@ -287,7 +288,7 @@ Phases, one line each:
      field, B1 and B2 against their plain versions (N / 100 B2 rows whose
      guard halvings differ counted), the card against the CPU on 64
      worlds, the SDF pool's bytes and the mesh samples dropped;
- 50. x 1024 each, 1 s (the stack 0.5 s): example_mesh_stack.py
+ 50. x 1024 each, 1 s (the stack 0.25 s): example_mesh_stack.py
      (hydroelastic, SolverFeatherstone: B1 d = 18, B2 on the mesh-mesh
      and mesh-plane rows), example_compliant_pad.py (hydroelastic,
      SolverXPBD's compliant rows: the settled depth within 30% of
@@ -305,11 +306,11 @@ Phases, one line each:
      test_final in every world, 16 worlds against the CPU (float64
      witness), 0 host syncs; the ball pendulum x 4096 (length within
      2e-3) and the VBD cable rod x 1024 at bend_ke 0.5 and 500;
- 53. SolverCoupled: the seesaw x 1024 (SolverMuJoCo with SolverXPBD, the
+ 53. SolverCoupled: the seesaw x 256 (SolverMuJoCo with SolverXPBD, the
      consensus's residuals; B1 d = 1 and B2 twice a substep, 0 host
-     syncs), the cloth on a ball x 1024 (SolverVBD for the particles),
+     syncs), the cloth on a ball x 256 (SolverVBD for the particles),
      the head-on pair x 4096 split between SolverXPBD and SolverMuJoCo,
-     and the mixed tower x 1024 split between SolverXPBD and SolverVBD
+     and the mixed tower x 256 split between SolverXPBD and SolverVBD
      (finite over 2 frames and held to the CPU: the reference's tower
      fails its gate, ROADMAP C.33); each scene's gates in every world and
      4 worlds on the card against the CPU (float64 witness);
@@ -375,7 +376,32 @@ Phases, one line each:
      (e) the golden images (tests/golden_data) at tests/test_sensors.py's
      gates; (f) ViewerRTX writes a decodable PNG of the ant scene,
      ViewerBase.pick from a torso's camera returns that torso, ViewerFile
-     records 2 frames.
+     records 2 frames;
+ 58. the main path of autograd: the ant x 4096 trained by
+     gradient. Roots 0.08 into the ground, open-loop MJCF ctrl u (4096,
+     2 frames, 8) from torch.Generator seed 0, uniform in [-1, 1];
+     2 frames x 4 substeps of static collide + step_batched (8
+     iterations, euler), loss = -mean(root x) + 1e-3 mean(u^2); five
+     torch.optim.Adam steps (lr 0.05), one loss.backward() each, every
+     count set to 0 before and read after: one B1 and one B2 launch a
+     forward substep, one K3 (B1's backward) and one K4 (B2's) a
+     backward substep; loss and gradients finite, the loss falls, every
+     substep has worlds with an active contact row (their share
+     reported); the gradient through the kernels against the plain
+     versions' autograd on the card from the same u, ||dg|| / ||g|| <=
+     1e-3, worlds whose B2 halvings differ counted and left out; two
+     backward passes bit-equal; 0 host syncs in a forward substep (the
+     backward's count reported); train steps/s, env-steps/s of forward
+     plus backward, the backward/forward ratio, peak memory (frames
+     checkpointed above 40 GB) and one profiled train step. (a) K3
+     against autograd of the plain version (atol 1e-5, rtol 1e-4, and
+     normwise against float64 at most 2x the plain's) for chol_inv_solve
+     at d = 14, 23 (W = 4096) and chol_solve at d = 6 (W = 8192), timed
+     beside the plain backward and torch.linalg.solve's backward; (b) K4
+     against autograd of the plain version (normwise 1e-3 per input,
+     NaN where the plain's is) on the ant's captured operands, random
+     box and cone, nl = 0, w_other and the humanoid's (32, 17, 23),
+     envs of other halvings counted, timed at the ant's and humanoid's.
 Phase 49 holds a world off tolerance against the CPU to a float64 CPU
 run (the plain versions of B1 and B2 run float64 on the CPU).
 Phases 37-51 report device ms and operations per frame, the busy share,
@@ -406,7 +432,8 @@ warm lam0 on the ant, the boxes and the humanoid; B1 and B2 at each
 shape of phases 32-39 and 48-50, B2's non-symmetric form and the
 conveyor's moving support among them; K1 at phase 56's shape, its
 plain twin timed on one camera's rays, and at the ant x 16 parity scene,
-K2 at phase 57 (a)'s, their bounds from kernel_cost), then the card
+K2 at phase 57 (a)'s, their bounds from kernel_cost; K3 at phase 58's
+three shapes and K4 at the ant's and the humanoid's), then the card
 line, then the result line ``{"ok": true,
 "device": {...}}``. Any failed phase raises: exit code != 0 and no result
 line. Without a CUDA device it exits 2 at once. A ``[details]`` line
@@ -414,6 +441,12 @@ carries the per-case errors, the throughput turns, the compiler's
 register report and, for B1 and B2 at each main-path shape and each
 kernel of B3, B4 and the binning, registers per thread and resident
 blocks per SM (and shared memory per block).
+
+    python3 chip_smoke.py --function-times times.json
+
+also writes, at exit, the wall seconds and calls of each function of this
+script (inclusive of the functions it calls), keyed by the phase function
+that was running: where a phase's time goes.
 """
 
 import functools
@@ -428,6 +461,7 @@ W = 4096
 DT = 1.0 / 240.0
 SUBSTEPS = 4
 FRAMES = 10
+TURN_FRAMES = 2                       # frames per turn of the rate turns
 ITERS = 8
 
 
@@ -481,6 +515,20 @@ def kernel_cost(name, W=1, **shape):
         quaternion rotations a pair, 63, every class in the shape's
         frame, each cap's sums anew): it rounds as its plain twin does,
         to equal it bit for bit. The bound counts the function.
+    chol_backward (d, inverse = True): K3. With the inverse: reads Minv,
+        gMinv, x and gx, writes gMi and grhs; grhs = Minv gx (d^2 FMAs),
+        T = gMinv Minv and Minv T (2 d^3), G = -(grhs x^T + .) (d^2 each)
+        and the fold onto the lower triangle (d^2 / 2 additions). Without
+        (chol_solve's backward, grhs given): reads x and grhs, writes gMi.
+    pgs_backward (c, nl, d; iters = 8; w_other = False): K4. Reads what
+        pgs_solve_fused reads and the cotangents of lam and dqd, writes
+        the gradients of J, Minv, qd, b, mu and lam0; the forward's
+        operations again (the VJP needs the iterates it is not given),
+        then per Delassus matvec its adjoint (the two transposed products
+        and the two rank-1 updates of gJ and gMJ: 4 x 3c d + 2 nl d), the
+        adjoint of dqd, and the assembly's (gJ += gMJ Minv^T and gMinv +=
+        J^T gMJ: 2 x 3c d^2; diag and v_free: 3 x 3c d); with ``w_other``
+        its gradient too.
     raycast_mesh (R, M, nodes, tris, bvh_nodes, leaf_slots, vertices): reads
         the rays, each mesh shape's transform and scale (40 B), the BVH
         once (24 B a node's box, 13 B a leaf slot's indices and mask, 12 B
@@ -513,6 +561,28 @@ def kernel_cost(name, W=1, **shape):
         if shape.get("w_other"):
             nbytes += r3 * f
             flops += r3 + 2 * (spec + iters) * r3
+    elif name == "chol_backward":
+        d, inv = shape["d"], shape.get("inverse", True)
+        if inv:
+            nbytes = (3 * d * d + 3 * d) * f
+            flops = 4 * d ** 3 + 2 * d * d + 2 * d * d + d * d // 2
+        else:
+            nbytes = (d * d + 2 * d) * f
+            flops = d * d + d * d // 2
+    elif name == "pgs_backward":
+        c, nl, d = shape["c"], shape["nl"], shape["d"]
+        iters = shape.get("iters", 8)
+        r3, r = 3 * c, 3 * c + 2 * nl
+        spec = 3 if r < 192 else 8
+        nbytes = (2 * (r3 * d + d * d + d + 2 * r + c) + 2 * r + d) * f
+        fwd = (r3 * d * d + 2 * r3 * d
+               + (spec + iters) * (2 * r3 * d + nl * d) + r3 * d + nl * d)
+        bwd = ((spec + iters) * (4 * r3 * d + 2 * nl * d) + r3 * d + nl * d
+               + 2 * r3 * d * d + 3 * r3 * d)
+        flops = 2 * (fwd + bwd)
+        if shape.get("w_other"):
+            nbytes += 2 * r3 * f
+            flops += 2 * r3 + 4 * (spec + iters) * r3
     elif name in ("mpm_p2g", "mpm_g2p"):
         n, ch = shape["N"], shape["C"]
         nodes = shape["res"] ** 3 if name == "mpm_p2g" \
@@ -581,7 +651,7 @@ def close(a, b, atol, rtol):
     return ok, float(diff.max()) if diff.numel() else 0.0
 
 
-def time_ms(fn, n=50, queued=False):
+def time_ms(fn, n=20, queued=False):
     """Mean device time of one call, CUDA events around n calls. With
     ``queued`` the stream is first held busy (a spin kernel) for longer
     than the host takes to enqueue the n calls, so that a kernel shorter
@@ -871,9 +941,9 @@ def phase_main(dev, model, pipe, solver, state0):
             raise AssertionError(f"main path: {name} launched {n} times in "
                                  f"{n_sub} substeps")
     zmin = check_state(state, "main path")
-    # throughput in turns (plain, kernel, kernel, plain), each turn FRAMES
-    # frames continuing its own path's state, so drift on the card hits
-    # both paths alike
+    # throughput in turns (plain, kernel, kernel, plain), each turn
+    # TURN_FRAMES frames continuing its own path's state, so drift on the
+    # card hits both paths alike
     plain = run_frames(model, pipe, solver, nt.batch_state(state0, W),
                        sample, 1, False)
     rates = {True: [], False: []}
@@ -882,12 +952,13 @@ def phase_main(dev, model, pipe, solver, state0):
                   pgs.pgs_solve_fused.launches)
         t0 = time.perf_counter()
         if kernels:
-            state = run_frames(model, pipe, solver, state, sample, FRAMES,
-                               True)
+            state = run_frames(model, pipe, solver, state, sample,
+                               TURN_FRAMES, True)
         else:
-            plain = run_frames(model, pipe, solver, plain, sample, FRAMES,
-                               False)
-        rates[kernels].append(n_sub * W / (time.perf_counter() - t0))
+            plain = run_frames(model, pipe, solver, plain, sample,
+                               TURN_FRAMES, False)
+        rates[kernels].append(TURN_FRAMES * SUBSTEPS * W
+                              / (time.perf_counter() - t0))
         after = (linalg.chol_inv_solve.launches,
                  pgs.pgs_solve_fused.launches)
         if not kernels and after != before:
@@ -1271,7 +1342,6 @@ def phase_humanoid_main(dev, model, pipe, solver):
     from newton_tpu_torch.solvers.generalized import linalg, pgs
     sample = ctrl_sampler(model, dev, seed=10)
     state = humanoid_reset(model, dev, seed=11)
-    plain = state.clone()
     state = run_frames(model, pipe, solver, state, sample, HUMANOID_WARMUP,
                        True)
     touched = torch.zeros(HUMANOID_W, dtype=torch.bool, device=dev)
@@ -1299,22 +1369,21 @@ def phase_humanoid_main(dev, model, pipe, solver):
         raise AssertionError(f"humanoid main path: {untouched} envs without "
                              "an active contact in the window")
     n_act = pipe.collide(state).rigid_contact_mask.sum(1)
-    # throughput in turns, as phase 5; the plain path starts from the same
-    # reset and warms up as the kernel path did
-    plain = run_frames(model, pipe, solver, plain, sample, HUMANOID_WARMUP,
-                       False)
+    # throughput in turns, as phase 5; the plain path starts from a copy
+    # of the kernel path's state at the window's end
+    plain = state.clone()
     rates = {True: [], False: []}
     for kernels in (False, True, True, False):
         before = (linalg.chol_inv_solve.launches,
                   pgs.pgs_solve_fused.launches)
         t0 = time.perf_counter()
         if kernels:
-            state = run_frames(model, pipe, solver, state, sample, FRAMES,
-                               True)
+            state = run_frames(model, pipe, solver, state, sample,
+                               TURN_FRAMES, True)
         else:
-            plain = run_frames(model, pipe, solver, plain, sample, FRAMES,
-                               False)
-        rates[kernels].append(n_sub * HUMANOID_W
+            plain = run_frames(model, pipe, solver, plain, sample,
+                               TURN_FRAMES, False)
+        rates[kernels].append(TURN_FRAMES * SUBSTEPS * HUMANOID_W
                               / (time.perf_counter() - t0))
         after = (linalg.chol_inv_solve.launches,
                  pgs.pgs_solve_fused.launches)
@@ -1493,9 +1562,10 @@ def solve_launches():
 
 
 def flat_turns(model, pipe, solver, state, plain, sample, n, dt=DT):
-    """env-steps/s of the kernel and plain paths in turns, FRAMES frames
-    each (see ``turns``)."""
-    return turns(solver, state, plain, model.control(), FRAMES * SUBSTEPS,
+    """env-steps/s of the kernel and plain paths in turns, TURN_FRAMES
+    frames each (see ``turns``)."""
+    return turns(solver, state, plain, model.control(),
+                 TURN_FRAMES * SUBSTEPS,
                  n, dt, pipe=pipe, sample=sample)
 
 
@@ -1650,7 +1720,6 @@ def phase_humanoid_worlds(dev):
                                                     WORLDS, ITERS)
     sample = ctrl_sampler(model, dev, seed=30)
     state = flat_reset(model, dev, seed=31)
-    plain = state.clone()
     state = run_flat_frames(model, pipe, solver, state, sample,
                             HUMANOID_WARMUP, True)
     rec = {}
@@ -1684,8 +1753,7 @@ def phase_humanoid_worlds(dev):
         raise AssertionError(f"humanoid worlds: {untouched} worlds without "
                              "an active contact in the window")
     end_state = state
-    plain = run_flat_frames(model, pipe, solver, plain, sample,
-                            HUMANOID_WARMUP, False)
+    plain = state.clone()
     rates, state, plain = flat_turns(model, pipe, solver, state, plain,
                                      sample, WORLDS)
     check_flat(plain, WORLDS, "humanoid worlds plain path", root_z=0.05)
@@ -1955,12 +2023,13 @@ def phase_cheetah(dev):
         before = kernel_launches()
         t0 = time.perf_counter()
         if kernels:
-            state = run_frames(model, pipe, solver, state, sample, FRAMES,
-                               True)
+            state = run_frames(model, pipe, solver, state, sample,
+                               TURN_FRAMES, True)
         else:
-            plain = run_frames(model, pipe, solver, plain, sample, FRAMES,
-                               False)
-        rates[kernels].append(n_sub * PLANAR_W / (time.perf_counter() - t0))
+            plain = run_frames(model, pipe, solver, plain, sample,
+                               TURN_FRAMES, False)
+        rates[kernels].append(TURN_FRAMES * SUBSTEPS * PLANAR_W
+                              / (time.perf_counter() - t0))
         if not kernels and kernel_launches() != before:
             raise AssertionError("the half_cheetah plain path launched a "
                                  "kernel")
@@ -2033,7 +2102,6 @@ def phase_hopper_worlds(dev):
                              "expected the asset's rk4")
     sample = ctrl_sampler(model, dev, seed=50)
     state = flat_reset(model, dev, seed=51, noise=HOPPER_NOISE)
-    plain = state.clone()
     state = run_flat_frames(model, pipe, solver, state, sample,
                             HOPPER_WARMUP, True, dt=HOPPER_DT)
     rec = {}
@@ -2063,8 +2131,7 @@ def phase_hopper_worlds(dev):
                              "once per substep")
     zmin = check_torso(state, WORLDS, "hopper", 0.0)
     end_state = state
-    plain = run_flat_frames(model, pipe, solver, plain, sample,
-                            HOPPER_WARMUP, False, dt=HOPPER_DT)
+    plain = state.clone()
     rates, state, plain = flat_turns(model, pipe, solver, state, plain,
                                      sample, WORLDS, dt=HOPPER_DT)
     check_torso(plain, WORLDS, "hopper plain path", 0.0)
@@ -2107,7 +2174,9 @@ HETERO_W = 4096
 SHOWCASE_W = 1024
 ROD_DT = 1.0 / 480.0                  # example_rod_swing.py
 ROD_SUBSTEPS = 8
-ROD_FRAMES = 60                       # 1 s, the example's test_final
+ROD_FRAMES = 20                       # 1/3 s; the example's test_final
+                                      # runs 1 s (the tip stays in
+                                      # 0.92-0.97 throughout)
 ROD_TURN_FRAMES = 2                   # frames per turn of the rate turns
 ROD_SPACING = 0.1
 BALL_RADIUS = 0.2                     # the ant's ball: 0.45 kg, 0.2 m
@@ -2408,7 +2477,7 @@ def group_paths(solver, state, ctl, contacts, dt, label):
 
 
 def phase_rod(dev):
-    """rod x 4096 (example_rod_swing.py, ROD_SPACING apart): 1 s of
+    """rod x 4096 (example_rod_swing.py, ROD_SPACING apart): 1/3 s of
     SolverFeatherstone.step at dt 1/480, 8 substeps per frame, no contacts
     (as the example): one B1 launch (d = 21) per substep and no B2; finite
     state, unit ball quaternions, every tip z in (0.6, 1.01] (the
@@ -2614,8 +2683,9 @@ def phase_ant_ball(dev):
     end_state = state
     plain = run_steps(solver, plain, ctl, SUBSTEPS, DT, False, pipe=pipe,
                       sample=sample)
-    rates, state, plain = turns(solver, state, plain, ctl, n_sub, n, DT,
-                                pipe=pipe, sample=sample)
+    rates, state, plain = turns(solver, state, plain, ctl,
+                                TURN_FRAMES * SUBSTEPS, n, DT, pipe=pipe,
+                                sample=sample)
     for st_, label in ((state, "kernel"), (plain, "plain")):
         check_state(dataclasses.replace(st_, joint_q=st_.joint_q.view(n, 22)),
                     f"ant with ball {label} path", 0.05)
@@ -2760,22 +2830,24 @@ PYRAMID_FRAMES = 40                   # tests/test_examples.py
 DOMINO_FRAMES = 110                   # tests/test_examples.py
 # eager frames behind the env-steps/s of a path whose gate window is
 # replayed from a CUDA graph (phases 23, 45, 50)
-RATE_FRAMES = 5
+RATE_FRAMES = 2
 
 
 def profile_frame(fn, substeps):
-    """One frame under torch.profiler: the device's busy share of the
-    frame's wall time (the kernels of one stream do not overlap; the
-    profiler's own host cost lengthens the frame), device ops per substep,
-    the device-to-host and host-to-device copies, and the device time of
-    the ten largest kernels by name (ms per frame). None where the
-    profiler records no device activity."""
+    """``fn`` (``substeps`` substeps: a frame, or one substep) under
+    torch.profiler, recording the device's activity only: the device's
+    busy share of the window's wall time (the kernels of one stream do not
+    overlap; the profiler's own host cost lengthens the window), device
+    ops per substep, the device-to-host and host-to-device copies, and the
+    device time of the ten largest kernels by name (ms in the window).
+    None where the profiler records no device activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # host-side operator events are not read; recording them would multiply
+    # the events the profiler must collect and hand back
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2795,7 +2867,8 @@ def profile_frame(fn, substeps):
         by_name[name] = by_name.get(name, 0.0) + us
     busy = sum(by_name.values()) * 1e-6
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    return dict(wall_ms=wall * 1e3, device_busy_ms=busy * 1e3,
+    return dict(substeps=substeps, wall_ms=wall * 1e3,
+                device_busy_ms=busy * 1e3,
                 busy_share=busy / wall, device_ops=len(kernels),
                 device_ops_per_substep=len(kernels) / substeps,
                 memcpy_dtoh=sum("DtoH" in e.name() for e in kernels),
@@ -2804,11 +2877,12 @@ def profile_frame(fn, substeps):
 
 
 def busy_unprofiled(prof, worlds, env_steps_per_s):
-    """The profiled frame's device time over an unprofiled frame's wall
-    time (the profiler's host cost lengthens the frame it records)."""
+    """The profiled window's device time over the wall time of its
+    substeps unprofiled (the profiler's host cost lengthens the window it
+    records)."""
     if prof is None:
         return None
-    return prof["device_busy_ms"] / (1e3 * SUBSTEPS * worlds
+    return prof["device_busy_ms"] / (1e3 * prof["substeps"] * worlds
                                      / env_steps_per_s)
 
 
@@ -2860,7 +2934,7 @@ def phase_ant_xpbd(dev):
     the CPU (body_q 2e-4, joint_qd 5e-3; a world whose contact set
     differs between the two is counted and left out, at most one); two
     runs of one substep on the card equal bit for bit (every sum in a
-    fixed order); one profiled frame; env-steps/s, setup
+    fixed order); one profiled substep; env-steps/s, setup
     seconds, peak device memory."""
     import torch
     import newton_tpu_torch as nt
@@ -2946,8 +3020,8 @@ def phase_ant_xpbd(dev):
         if not torch.equal(getattr(a, n), getattr(b2, n)):
             raise AssertionError(f"ant xpbd: two runs of a substep differ "
                                  f"in {n} by {repeat[n]:.3g}")
-    prof = profile_frame(lambda: xpbd_frames(solver, pipe, state, ctl, 1,
-                                             model, gen), SUBSTEPS)
+    prof = profile_frame(lambda: solver.step(state, None, ctl,
+                                             pipe.collide(state), DT), 1)
     n_sub = XPBD_FRAMES * SUBSTEPS
     rate = n_sub * XPBD_W / elapsed
     return dict(worlds=XPBD_W, setup_s=setup_s, substeps=n_sub,
@@ -3034,7 +3108,7 @@ def phase_pyramid(dev):
     full_plain_ms = time_ms(lambda: pgs.pgs_solve_fused_plain(*fargs,
                                                               **fkw), n=3)
     rates, _, _ = turns(solver, state, state.clone(), ctl,
-                        FRAMES * SUBSTEPS, BOX_W, DT, pipe=pipe)
+                        TURN_FRAMES * SUBSTEPS, BOX_W, DT, pipe=pipe)
     return dict(worlds=BOX_W, setup_s=setup_s, substeps=n_sub,
                 launches=launches, gates=gates,
                 main_env_steps_per_s=n_sub * BOX_W / elapsed,
@@ -3526,7 +3600,7 @@ def phase_semi_implicit(dev):
 IK_PROBLEMS = 4096                    # bench.py --worlds' default
 IK_SEEDS = 4                          # bench_ik
 IK_ITERS = 16                         # bench_ik
-IK_REPS = 2                           # bench_ik times 5
+IK_REPS = 1                           # bench_ik times 5
 IK_CPU_PROBLEMS = 64
 IK_TIP_TOL = 0.02                     # tests/test_utils.py:87
 WS_W = 4096
@@ -3664,7 +3738,7 @@ def phase_ik(dev):
     [IKObjectivePosition(link=2, offset=(0.5, 0, 0))], iterations=16,
     n_seeds=4) (GAUSS seeds from the solver's generator, drawn anew in
     each solve, as a user calls it) on 4096 seeded targets: a warm-up
-    solve, then 2 timed solves; finite q, tip error below 0.02 in >= 99%
+    solve, then 1 timed solve; finite q, tip error below 0.02 in >= 99%
     of problems, host syncs per solve (at most one), peak device memory.
     64 problems on the card against the port on the CPU, both handed one
     draw of the seeds (``IKSolver.seeds`` replaced): the residual (1e-5)
@@ -4164,7 +4238,7 @@ def phase_equality(dev):
 NQP_W = 4096                          # phase 32: the ant under the Newton QP
 BALL_W = 4096                         # phase 32: the resting ball
 BALL_DT = 0.002                       # tests/test_parity_mujoco.py:188
-BALL_STEPS = 500                      # 1 s
+BALL_STEPS = 250                      # 0.5 s (the test runs 1 s)
 FINGER_W = 4096                       # phase 34
 FINGER_FRAMES = 180                   # 3 s at 4 x 1/240
 FINGER_PULL_S = 1.5                   # example_tendon_finger.py
@@ -4175,11 +4249,11 @@ ARM_STEPS = 150
 PAIR_W = 4096                         # phase 35: SolverSemiImplicit muscles
 PAIR_STEPS = 200                      # tests/test_solvers.py:140
 STACK_W = 1024                        # phase 36
-STACK_FRAMES = 120
+STACK_FRAMES = 60                     # the example runs 120: cut for time
 FOURBAR_W = 4096
-FOURBAR_FRAMES = 120
+FOURBAR_FRAMES = 60                   # the example runs 120: cut for time
 ISLAND_W = 1024
-ISLAND_STEPS = 60                     # tests/test_kamino_islands.py
+ISLAND_STEPS = 30                     # tests/test_kamino_islands.py: 60
 PARITY_W = 64                         # the card against the CPU, one substep
 HEAVY_ZS = (0.25, 0.75, 1.25)         # example_heavy_stack_kamino.py
 MUSCLE_ARM = "muscle_arm.xml"         # newton_tpu_torch/assets
@@ -4695,7 +4769,8 @@ def phase_newton_qp(dev):
     syncs per substep no more than the Euler PGS substep's, the masked
     solve (torch.linalg.solve_ex at (4096, 116, 116)) timed per call; (b)
     tests/test_parity_mujoco.py:73's resting ball x 4096 under the Newton
-    QP, 1 s at dt 0.002: the mean normal force of the last 10 substeps
+    QP, 0.5 s at dt 0.002 (the test runs 1 s): the mean normal force of
+    the last 10 substeps
     within 1% of the weight and z within 2e-3 of the radius in every
     world; (c) the ant under limit_mode="penalty", apply_body_forces=False
     (PGS): one B1 and one B2 (25, 0, 14) per substep, phase 5's gates.
@@ -5139,16 +5214,17 @@ def phase_muscles(dev):
 
 def phase_kamino(dev):
     """SolverKamino: (a) example_heavy_stack_kamino.py x 1024
-    (iterations=8, 120 frames): stack error < 0.03 in every world, and the
-    PGS solver's (contact_iterations=8) more than twice Kamino's
-    (tests/test_equality.py:171); (b) example_fourbar_kamino.py x 4096,
-    the crank kicked to 2 rad/s, 120 frames: loop drift < 2e-2 and |q0| >
-    0.1 in every world; (c) tests/test_kamino_islands.py's build_stacks(3,
-    2) x 1024: the island solve equals the dense solve within 5e-5 (q) and
-    5e-4 (qd) over 60 steps. One B1 per group per substep (d = 18, 8, 36);
-    the factor (torch.linalg.cholesky_ex) timed per call; host syncs per
-    substep; 64 worlds on the card against the CPU; a substep twice bit
-    for bit; env-steps/s; peak memory."""
+    (iterations=8, 60 frames of the example's 120): stack error < 0.03 in
+    every world, and the PGS solver's (contact_iterations=8) more than
+    twice Kamino's (tests/test_equality.py:171); (b)
+    example_fourbar_kamino.py x 4096, the crank kicked to 2 rad/s, 60
+    frames (the example's 120): loop drift < 2e-2 and |q0| > 0.1 in every
+    world; (c) tests/test_kamino_islands.py's build_stacks(3, 2) x 1024:
+    the island solve equals the dense solve within 5e-5 (q) and 5e-4 (qd)
+    over 30 steps (the test runs 60). One B1 per group per substep (d =
+    18, 8, 36); the factor (torch.linalg.cholesky_ex) timed per call;
+    host syncs per substep; 64 worlds on the card against the CPU; a
+    substep twice bit for bit; env-steps/s; peak memory."""
     import torch
     import newton_tpu_torch as nt
     out = {}
@@ -5289,7 +5365,6 @@ CONVEYOR_ITERS = 16
 CONVEYOR_WARMUP = 8                   # frames: the crates reach belt speed
 MOUNT_W = 4096
 MOUNT_WARMUP = 2
-TURN_FRAMES = 2                       # frames per turn of the rate turns
 TOWER_W = 4096
 TOWER_ITERS = 40                      # tests/test_stacking.py:166
 TOWER_SETTLE = 200                    # substeps, tests/test_stacking.py:175
@@ -5315,7 +5390,7 @@ DAHL_DT = 1.0 / 480.0                 # example_cable_dahl_hysteresis.py
 DAHL_SUBSTEPS = 8
 DAHL_FRAMES = 60                      # 1 s: forward 0.5 s, back 0.5 s
 DAHL_TIMED = 2                        # frames of the eager timed window
-HOLD_FRAMES = 60                      # tests/test_dahl_friction.py:69
+HOLD_FRAMES = 30                      # tests/test_dahl_friction.py:69: 60
 HOLD_PUSH = 15.0
 
 
@@ -5492,11 +5567,13 @@ def dahl_box_scene(lib, n):
 
 
 def path_metrics(frame_fn, substep_fn, units, rate):
-    """One profiled frame (device ms and operations per frame, busy share
-    profiled and of an unprofiled frame at ``rate`` units-steps/s), the
-    host syncs of one substep, and the peak device memory so far."""
+    """One profiled substep (device ms and operations of the substep, busy
+    share profiled and of an unprofiled substep at ``rate``
+    units-steps/s), the host syncs of one substep, and the peak device
+    memory so far. ``frame_fn`` (a frame of SUBSTEPS substeps) is not
+    run: profiling one substep keeps the profiler's cost down."""
     import torch
-    prof = profile_frame(frame_fn, SUBSTEPS)
+    prof = profile_frame(substep_fn, 1)
     _, syncs = count_syncs(substep_fn)
     return dict(profile=prof, busy_share_unprofiled=busy_unprofiled(
         prof, units, rate), host_syncs_per_substep=syncs,
@@ -5723,7 +5800,7 @@ def phase_mounted(dev):
     the CPU; two runs bit-equal; the pinned reference defect (ROADMAP
     C.24): lifted clear of the ground and released at rest, the base
     accelerates at g (m_base + m_arm) / m_base, not g, while the arm's
-    joints stay at rest; device ms and operations per frame, busy share,
+    joints stay at rest; device ms and operations of a substep, busy share,
     host syncs per substep, peak memory."""
     import torch
     import newton_tpu_torch as nt
@@ -5818,7 +5895,7 @@ def phase_tower(dev):
     with 32 entries, every one solved (B2 (32, 0, 12)); gates in every
     world: the ground carries both weights and the box-box contact one
     weight, within 35%; a kernel vs plain substep; two runs of the force
-    report bit-equal; device ms and operations per frame, busy share,
+    report bit-equal; device ms and operations of a substep, busy share,
     host syncs per substep, peak memory."""
     import torch
     import newton_tpu_torch as nt
@@ -6014,7 +6091,7 @@ def phase_xpbd_particles(dev):
     drops 50,212 candidates of the start state, ROADMAP C.25; both counts
     reported), one substep card vs CPU. Each with no
     B1-B4 launch, a substep twice bit for bit, device ms and operations
-    per frame, busy share, host syncs per substep, peak memory."""
+    of a substep, busy share, host syncs per substep, peak memory."""
     import torch
     import newton_tpu_torch as nt
     out = {}
@@ -6123,10 +6200,11 @@ def phase_cables(dev):
     finite, unit quaternions, the tail moved more than 5 mm and less than
     the handle's 0.2 m, the bristle state finite; (d) the Dahl presliding
     hold of tests/test_dahl_friction.py:63 x 1024 (a box pushed with 15 N,
-    below mu m g = 39 N, for 60 frames, from a CUDA graph): every box crept
+    below mu m g = 39 N, for 30 frames (the test's 60), from a CUDA
+    graph): every box crept
     less than 0.1 m. Each with no B1-B4 launch; (a) and (c): one substep
     card vs CPU (64 worlds: body_q 2e-4, body_qd 5e-3), a substep twice
-    bit for bit, device ms and operations per frame, busy share, host
+    bit for bit, device ms and operations of a substep, busy share, host
     syncs per substep, peak memory, env-steps/s."""
     import torch
     import newton_tpu_torch as nt
@@ -6394,17 +6472,17 @@ def rest_kernel_entries(nqp, imp, ten, mus, kam, b1_src, b2_src):
 # persistent manifolds
 # ---------------------------------------------------------------------------
 SHAPES_W = 4096
-SHAPES_FRAMES = 60                    # tests/test_examples.py's count
-CONE_FRAMES = 90                      # tests/test_geometry.py:464
+SHAPES_FRAMES = 30                    # tests/test_examples.py's: 60
+CONE_FRAMES = 30                      # tests/test_geometry.py:464: 90
 PILE_W = 1024
 PILE_FRAMES_46 = 8                    # the example test's frame count
 PILE_PARITY_W = 8
 PEG_W = 4096
 PEG_DT = 1.0 / 480.0
 PEG_SUBSTEPS = 8
-PEG_FRAMES = 80                       # tests/test_examples.py's count
+PEG_FRAMES = 30                       # tests/test_examples.py's: 80
 MASS_W = 1024
-MASS_FRAMES = 60
+MASS_FRAMES = 30                      # the example's test runs 60
 MANIFOLD_PARITY_W = 16
 
 
@@ -6598,7 +6676,7 @@ def xpbd_rigid_phase(dev, builder, make_solver, frames, label, n, gate,
     state's; the same pair budget a world) on the card against the CPU,
     every world compared, a tie of the contact geometry decided by a
     float64 run (see ``xpbd_vs_cpu``); one substep twice bit for bit;
-    device ms, operations and busy share of a frame, host syncs per
+    device ms, operations and busy share of a substep, host syncs per
     substep, peak memory. Returns (results, model, pipeline, state)."""
     import torch
     import newton_tpu_torch as nt
@@ -6691,9 +6769,11 @@ def phase_shapes(dev):
     """(a) example_basic_shapes.py x 4096 as the example runs it:
     SolverXPBD(iterations=4), dt 1/240, 4 substeps, static mode, the cone
     and the ellipsoid against the others through one batch of support-map
-    MPR; 60 frames from a CUDA graph, then the example's test_final rest
+    MPR; 30 frames (the example's 60) from a CUDA graph, then the
+    example's test_final rest
     heights in every world; (b) tests/test_geometry.py:441's cone on a box
-    x 4096, 90 frames: cone z = 0.75 +- 0.06 and upright in every world.
+    x 4096, 30 frames (the test's 90): cone z = 0.75 +- 0.06 and upright
+    in every world.
     Each: RATE_FRAMES timed eager frames (env-steps/s), no B1-B4 launch,
     4 substeps of 64 worlds of the gated state card vs CPU, a substep
     twice bit for bit, host syncs per substep, device ms and operations
@@ -6760,7 +6840,7 @@ def phase_box_pile(dev):
     summed per frame), its gates after them; no B1-B4 launch; 4 substeps
     of 8 worlds card vs CPU; a substep twice bit for bit (the per-call
     fixed-order sums); host syncs per substep, device ms and operations
-    per frame, busy share, peak memory."""
+    of a substep, busy share, peak memory."""
     import newton_tpu_torch as nt
     budget = 8 * 96 * PILE_W
 
@@ -6949,12 +7029,14 @@ def manifold_phase(dev, make_scene, make_solver, n, frames, substeps, dt,
 
 def phase_manifolds(dev):
     """(a) example_peg_insertion.py x 4096: SolverMuJoCo(iterations=30,
-    warm_start=False, contact_cap=0), dt 1/480, 8 substeps, 80 frames of
+    warm_start=False, contact_cap=0), dt 1/480, 8 substeps, 30 frames (the
+    example's 80) of
     ``collide(s, prev=c)``: one B1 (d = 6) and one B2 (72, 0, 6) per
     substep; gate: the example's test_final (seated below the mouth,
     centred within 1 cm, upright > 0.98) in 99% of worlds; (b)
     example_kamino_mass_ratio.py x 1024: SolverKamino(iterations=32,
-    contact_cap=0), dt 1/240, 60 frames: one B1 (d = 12) per substep, no
+    contact_cap=0), dt 1/240, 30 frames (its test runs 60): one B1 (d =
+    12) per substep, no
     B2 (its own PADMM); gate: light z = 0.1 +- 0.01 and heavy z = 0.3 +-
     0.012 in every world. Each: see ``manifold_phase``."""
     import newton_tpu_torch as nt
@@ -7031,7 +7113,7 @@ TERRAIN_FRAMES = 40                   # timed frames after one warm-up:
 # the feet meet the field after ~21 frames, so ~19 frames of contact
 MESH_W = 1024                         # each scene of phase 50
 MESH_FRAMES = 60                      # 1 s, the examples' test_final
-MESH_STACK_FRAMES = 30                # the crates start at rest: 0.5 s
+MESH_STACK_FRAMES = 15                # the crates start at rest: 0.25 s
 NUT_RES = 64                          # the torus's texture bake
 PAD_KH = 5.0e5                        # example_compliant_pad.py
 PAD_H = 0.1
@@ -7316,7 +7398,7 @@ def phase_terrain(dev):
 
 def phase_mesh_scenes(dev):
     """Each x 1024 for 1 s (60 frames of 4 substeps, dt 1/240; the mesh
-    stack, whose crates start at rest, 0.5 s), every world gated by its
+    stack, whose crates start at rest, 0.25 s), every world gated by its
     example's test_final, finite, unit quaternions, a
     substep twice bit for bit and no host sync:
     (a) example_mesh_stack.py, hydroelastic, SolverFeatherstone(
@@ -7436,11 +7518,11 @@ VBD_FRAMES = 50                       # its test_final's frame count
 VBD_H = 0.12
 VBD_PARITY_W = 16                     # worlds held to the CPU
 PENDULUM_W = 4096
-PENDULUM_FRAMES = 60                  # tests/test_solvers.py:319
+PENDULUM_FRAMES = 30                  # tests/test_solvers.py:319: 60
 ROD_VBD_W = 1024
 ROD_VBD_DT = 1.0 / 960.0              # tests/test_cable.py:121
 ROD_VBD_STEPS = 600
-COUPLED_W = 1024                      # phase 53 (a), (b), (d)
+COUPLED_W = 256                       # phase 53 (a), (b), (d)
 SEESAW_DT = 1.0 / 480.0               # example_mujoco_xpbd_coupled.py
 SEESAW_SUBSTEPS = 8
 SEESAW_FRAMES = 60
@@ -7662,11 +7744,11 @@ def phase_vbd_rigid(dev):
     with torch.linalg.solve; device ops and aten calls a substep, busy
     share profiled and unprofiled, host syncs a substep (0 required).
     (b) tests/test_solvers.py:319's ball pendulum x 4096, SolverVBD(
-    iterations=6), 60 frames: the bar's centre within 2e-3 of 0.5 from the
-    pivot at every frame. (c) tests/test_cable.py:121's rod x 1024 at
-    bend_ke 0.5 and 500 (600 substeps at 1/960, replayed from a CUDA graph
-    after an eager frame): the stiff tip above the floppy one and above
-    0.9, at most 1.01."""
+    iterations=6), 30 frames (the test runs 60): the bar's centre within
+    2e-3 of 0.5 from the pivot at every frame. (c)
+    tests/test_cable.py:121's rod x 1024 at bend_ke 0.5 and 500 (600
+    substeps at 1/960, replayed from a CUDA graph after an eager frame):
+    the stiff tip above the floppy one and above 0.9, at most 1.01."""
     import torch
     import newton_tpu_torch as nt
     out = {}
@@ -7908,14 +7990,14 @@ def coupled_phase(dev, scene, make, n, frames, substeps, label, gate,
 
 def phase_coupled(dev):
     """SolverCoupled, each scene replicated:
-    (a) example_mujoco_xpbd_coupled.py's seesaw x 1024: SolverMuJoCo(
+    (a) example_mujoco_xpbd_coupled.py's seesaw x 256: SolverMuJoCo(
     iterations=4) and SolverXPBD(iterations=4), consensus_iters=2,
     init_state's residuals, dt 1/480, 8 substeps a frame, 60 frames: per
     substep two B1 (d = 1) and two B2 launches (one per round), counted;
     the example's test_final in every world (the hinge tipped past 0.02,
     the cloth in (-0.01, 0.6)); B1 and B2 against their plain versions on
     the rigid step's operands, timed; 0 host syncs;
-    (b) example_coupled_cloth_ball.py x 1024: SolverXPBD(iterations=2)
+    (b) example_coupled_cloth_ball.py x 256: SolverXPBD(iterations=2)
     and SolverVBD(iterations=2) for the particles (its AVBD runs on the
     ball too: one B1 solve a sweep), 60 frames: the ball at z = 0.2 within
     0.05 in every world (tests/test_equality.py:89's gate);
@@ -7923,11 +8005,11 @@ def phase_coupled(dev):
     SolverXPBD and SolverMuJoCo(iterations=8) by a body partition, 120
     frames: body 0 below -0.7 m/s, body 1 above 0.7, their sum within
     0.1 in every world; B1 and B2 against their plain versions;
-    (d) example_xpbd_vbd_coupled.py's tower x 1024 split between
+    (d) example_xpbd_vbd_coupled.py's tower x 256 split between
     SolverXPBD(iterations=8) and SolverVBD(iterations=8): the JAX
     package's run fails its gate here (ROADMAP C.33), so 2 frames are
     gated on finiteness and held to the CPU over those 2 frames, and the
-    boxes' z after 10 frames is reported."""
+    boxes' z after 4 frames is reported."""
     import torch
     out = {}
     n_a = COUPLED_W
@@ -7981,10 +8063,15 @@ def phase_coupled(dev):
         dev, "pair", head_on_pair_scene, PAIR_W, PAIR_FRAMES, SUBSTEPS,
         "head-on pair", pair_gate, (1, 1, 0))
     # the pair's MuJoCo step on a state in contact: the window's end has
-    # them apart, so the start is replayed to the collision (18 frames)
+    # them apart, so the start is replayed to the collision (18 frames,
+    # from a CUDA graph of the substep, as the gate window was)
     s = pair_velocities(solver.init_state(model.state()), PAIR_W)
-    for _ in range(18 * SUBSTEPS):
-        s = solver.step(s, None, ctl, pipe.collide(s), dt)
+    s, replay = graphed_steps(
+        lambda x: solver.step(x, None, ctl, pipe.collide(x), dt), s,
+        18 * SUBSTEPS, ("body_q", "body_qd", "joint_q", "joint_qd")
+        + tuple(k for k in ("coupled:residuals",) if k in s.custom))
+    replay()
+    s = s.clone()
     c = pipe.collide(s)
     res["contact_worlds_at_collision"] = int(
         c.rigid_contact_mask.view(PAIR_W, -1).any(1).sum())
@@ -8003,10 +8090,10 @@ def phase_coupled(dev):
         dev, "tower", mixed_tower_scene, n_a, 2, SUBSTEPS, "mixed tower",
         tower_gate, (0, 0, VBD_ITERS * 2), eager_frames=2, graph=False,
         parity_substeps=2 * SUBSTEPS, parity_from_start=True)
-    for _ in range(8 * SUBSTEPS):
+    for _ in range(2 * SUBSTEPS):
         state = solver.step(state, None, ctl, pipe.collide(state), dt)
     z = state.body_q[:, 2].view(n_a, TOWER_N)
-    res["box_z_frame_10"] = dict(
+    res["box_z_frame_4"] = dict(
         median=[float(v) for v in z.median(0).values],
         min=[float(v) for v in z.min(0).values],
         max=[float(v) for v in z.max(0).values],
@@ -8036,10 +8123,10 @@ def coupled_kernel_entries(vbd, cpl, b1_src, b2_src):
              "VBD cable rod x 1024, 6 bodies a world, one eager frame "
              "counted (phase 52)"),
             (cpl["cloth_ball"]["b1"], cpl["cloth_ball"]["launches"][2],
-             "cloth on a ball x 1024, SolverVBD's AVBD on the ball, two "
+             "cloth on a ball x 256, SolverVBD's AVBD on the ball, two "
              "eager frames counted (phase 53)"),
             (cpl["tower"]["b1"], cpl["tower"]["launches"][2],
-             "mixed tower x 1024, SolverVBD's side of the partition, two "
+             "mixed tower x 256, SolverVBD's side of the partition, two "
              "frames counted (phase 53)")):
         d, n = r["d"], r["W"]
         inst = linalg.kernel_instance(d)
@@ -8051,7 +8138,7 @@ def coupled_kernel_entries(vbd, cpl, b1_src, b2_src):
             plain_ms=r["plain_ms"],
             **bound_fields("chol_solve", r["ms"], d=d, W=n),
             library_ms=r["library_ms"]))
-    for key, path in (("seesaw", "seesaw x 1024, SolverMuJoCo in "
+    for key, path in (("seesaw", "seesaw x 256, SolverMuJoCo in "
                        "SolverCoupled's consensus: 2 a substep (phase 53)"),
                       ("pair", "head-on pair x 4096, SolverMuJoCo's side "
                        "of the body partition (phase 53)")):
@@ -9198,6 +9285,61 @@ def policy_kernel_entries(pol, b1_src, b2_src):
                             W=POLICY_W, iters=ITERS))]
 
 
+def grad_kernel_entries(grad, gk):
+    """The kernels line's entries of phase 58: K3 at the ant's d = 14 (the
+    main path) and at its other cases, K4 at the ant's captured operands
+    (the main path) and at the humanoid's shape."""
+    no_library = ("no single PyTorch call computes this function: {}")
+    k3_src = dict(route="cuda",
+                  source="newton_tpu_torch/csrc/chol_backward.cu",
+                  replaces="none: no TPU kernel; the backward of "
+                           "newton_tpu/solvers/generalized/linalg_pallas.py"
+                           ":91, which jax.grad reaches through "
+                           "batched.py:329,345 (_chol_t, _cho_solve_t)",
+                  library="torch.autograd.grad through torch.linalg.solve"
+                          "(Mi, [I | rhs])")
+    k4_src = dict(route="cuda",
+                  source="newton_tpu_torch/csrc/pgs_backward.cu",
+                  replaces="none: no TPU kernel; the backward of "
+                           "newton_tpu/solvers/generalized/pgs_pallas.py"
+                           ":204, which jax.grad reaches through "
+                           "batched.py:840-850 and pgs_pallas.py:90",
+                  library_ms=None, library=no_library.format(
+                      "the VJP of a projected-Jacobi solve"))
+    path = (f"ant x {GRAD_W} trained by gradient through SolverMuJoCo "
+            "(phase 58, the main path)")
+    out = []
+    for i, c in enumerate(gk["k3"]):
+        e = c["errors"]
+        out.append(dict(
+            name=f"chol_backward (K3) {c['which']} d={c['d']} W={c['W']}",
+            **k3_src, path=path if i == 0 else "K3 against the plain "
+            "version's autograd (phase 58 (a)), off the main path",
+            launches=grad["launches"]["K3"] if i == 0 else 0,
+            max_abs_err=max(e["Mi"]["max_abs_err"], e["rhs"]["max_abs_err"]),
+            ms=c["ms"], plain_ms=c["plain_ms"],
+            library_ms=c["library_ms"],
+            bound_ms=c["bound_ms"], bound_by=c["bound_by"],
+            share_of_bound=c["share_of_bound"]))
+    times = gk["k4_times"]
+    for label, shape, launches in (
+            ("ant substep (25, 8, 14)", (25, 8, 14), grad["launches"]["K4"]),
+            ("humanoid (32, 17, 23)", (32, 17, 23), 0)):
+        ms, plain_ms = times[label]
+        c, nl, d = shape
+        out.append(dict(
+            name=f"pgs_backward (K4) {label} W={K4_W}", **k4_src,
+            path=path if launches else "K4 against the plain version's "
+            "autograd (phase 58 (b)), off the main path",
+            launches=launches, max_abs_err=gk["k4"][label]["worst"],
+            error_kind="largest normwise relative error over the inputs' "
+                       "gradients, envs of equal halvings",
+            ms=ms, plain_ms=plain_ms,
+            **bound_fields("pgs_backward", ms, c=c, nl=nl, d=d, W=K4_W,
+                           iters=ITERS)))
+    return out
+
+
 def pgs_smem(rec):
     from newton_tpu_torch import _kernels
     args, kw = rec
@@ -9243,6 +9385,20 @@ def kernel_info():
         _kernels.check(fn(*shape, ctypes.addressof(regs),
                           ctypes.addressof(blocks)), label)
         out[label] = dict(registers=regs.value, blocks_per_sm=blocks.value)
+    regs, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    _kernels.check(lib.chol_backward_kernel_info(
+        ctypes.addressof(regs), ctypes.addressof(blocks)), "K3")
+    out["K3 chol_backward"] = dict(registers=regs.value,
+                                   blocks_per_sm=blocks.value)
+    for shape in ((25, 8, 14), (32, 17, 23)):
+        regs, blocks = ctypes.c_int(0), ctypes.c_int(0)
+        label = f"K4 pgs_backward {shape}"
+        _kernels.check(lib.pgs_backward_kernel_info(
+            *shape, ITERS, ctypes.addressof(regs), ctypes.addressof(blocks)),
+            label)
+        out[label] = dict(registers=regs.value, blocks_per_sm=blocks.value,
+                          smem_bytes=4 * lib.pgs_backward_scratch_floats(
+                              *shape, ITERS))
     for which, label in enumerate(("K1 raycast_closest",
                                    "K2 raycast_mesh")):
         regs, blocks = ctypes.c_int(0), ctypes.c_int(0)
@@ -9260,6 +9416,445 @@ def kernel_info():
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 58: the ant x 4096 trained by gradient through SolverMuJoCo (the
+# slice's main path): collide + step_batched under autograd, B1 and B2
+# forward, K3 and K4 backward, five Adam steps on open-loop controls.
+
+GRAD_W = 4096
+GRAD_FRAMES = 2                       # one ctrl vector a frame
+GRAD_STEPS = 5                        # Adam steps
+GRAD_LR = 0.05
+GRAD_U_COST = 1e-3                    # loss = -mean x + 1e-3 mean(u^2)
+GRAD_DROP = 0.08                      # roots start this far into the ground
+GRAD_REL_TOL = 1e-3                   # ||g_kernel - g_plain|| / ||g_plain||
+GRAD_MEM_LIMIT = 40e9                 # bytes; above it, checkpoint frames
+K3_SHAPES = (("chol_inv_solve", 14, 4096), ("chol_inv_solve", 23, 4096),
+             ("chol_solve", 6, 8192))
+K4_W = 4096
+K4_RTOL = 1e-3                        # per case, normwise, kept envs
+K3_ATOL, K3_RTOL = 1e-5, 1e-4         # elementwise against the plain VJP
+
+
+def grad_launches():
+    """(B1, B2, K3, K4) launch counts."""
+    from newton_tpu_torch.solvers.generalized import linalg, pgs
+    return (linalg.chol_inv_solve.launches, pgs.pgs_solve_fused.launches,
+            linalg.chol_backward.launches, pgs.pgs_backward.launches)
+
+
+def reset_grad_launches():
+    from newton_tpu_torch.solvers.generalized import linalg, pgs
+    reset_robot_launches()
+    linalg.chol_backward.launches = 0
+    pgs.pgs_backward.launches = 0
+
+
+def grad_start_state(model, state0, dev, n, seed=58):
+    """n ant worlds with perturbed coordinates and velocities, roots
+    GRAD_DROP into the ground (contact rows active from the first
+    substep)."""
+    import numpy as np
+    import torch
+    import newton_tpu_torch as nt
+    rng = np.random.RandomState(seed)
+    sb = nt.batch_state(state0, n)
+    q = sb.joint_q.cpu().numpy() + 0.02 * rng.randn(*sb.joint_q.shape)
+    q[:, 2] -= GRAD_DROP
+    qd = sb.joint_qd.cpu().numpy() + 0.1 * rng.randn(*sb.joint_qd.shape)
+    return nt.eval_fk(model, torch.as_tensor(q, dtype=torch.float32,
+                                             device=dev),
+                      torch.as_tensor(qd, dtype=torch.float32, device=dev),
+                      sb)
+
+
+def ant_grad_loss(model, pipe, solver, s0, u, kernels=True, ckpt=False,
+                  stats=None):
+    """-mean(torso x after GRAD_FRAMES x SUBSTEPS substeps) + GRAD_U_COST
+    mean(u^2), u (n, GRAD_FRAMES, A); ``stats``, a dict, gathers each
+    substep's worlds with an active contact row (device tensors) and, with
+    ``"pgs"`` a list, each substep's B2 operands."""
+    import torch
+
+    def frame(s, uf):
+        ctl = batched_control(model, uf)
+        for _ in range(SUBSTEPS):
+            c = pipe.collide(s)
+            rec = {} if stats is not None and "pgs" in stats else None
+            if stats is not None:
+                stats.setdefault("active", []).append(
+                    c.rigid_contact_mask.any(1))
+            s = solver.step_batched(s, None, ctl, c, DT, kernels=kernels,
+                                    record=rec)
+            if rec is not None:
+                stats["pgs"].append(rec["pgs"])
+        return s
+    s = s0
+    for f in range(u.shape[1]):
+        if ckpt:
+            import torch.utils.checkpoint as cp
+            s = cp.checkpoint(frame, s, u[:, f], use_reentrant=False)
+        else:
+            s = frame(s, u[:, f])
+    return -s.joint_q[:, 0].mean() + GRAD_U_COST * (u * u).mean()
+
+
+def grad_of(model, pipe, solver, s0, u0, kernels=True, ckpt=False,
+            stats=None):
+    """(loss, d loss / d u) from u0."""
+    import torch
+    u = u0.detach().clone().requires_grad_(True)
+    loss = ant_grad_loss(model, pipe, solver, s0, u, kernels, ckpt, stats)
+    (g,) = torch.autograd.grad(loss, u)
+    return loss.detach(), g
+
+
+def halving_mismatch(records):
+    """Worlds whose B2 guard halvings differ between the kernel and the
+    plain version on any substep's captured operands (n,) bool."""
+    import torch
+    from newton_tpu_torch.solvers.generalized import pgs
+    bad = None
+    with torch.no_grad():
+        for args, kw in records:
+            args = [a.detach() for a in args]
+            kw = {k: (v.detach() if torch.is_tensor(v) else v)
+                  for k, v in kw.items()}
+            h_k = pgs.pgs_solve_fused(*args, **kw, return_halvings=True)[2]
+            h_p = pgs.pgs_solve_fused_plain(*args, **kw,
+                                             return_halvings=True)[2]
+            d = h_k != h_p
+            bad = d if bad is None else bad | d
+    return bad
+
+
+def phase_grad_ant(dev):
+    """The gradient-trained ant x GRAD_W: launches per substep, finite
+    loss and gradients, the loss falls over GRAD_STEPS Adam steps, kernel
+    against plain gradient, bit-equal repeats, host syncs, rates, peak
+    memory. Returns (results, the scene and its first substep's B2
+    operands for phase 58 (b))."""
+    import torch
+    t0 = time.perf_counter()
+    model, pipe, solver, state0 = build_ant(dev)
+    s0 = grad_start_state(model, state0, dev, GRAD_W)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    A = model.structure.mjc_actuation.n
+    u0 = 2 * torch.rand((GRAD_W, GRAD_FRAMES, A), generator=gen,
+                        device=dev) - 1
+    setup_s = time.perf_counter() - t0
+    out = dict(worlds=GRAD_W, substeps=GRAD_FRAMES * SUBSTEPS,
+               adam_steps=GRAD_STEPS, lr=GRAD_LR, setup_s=setup_s)
+    # warm-up and the memory probe: one forward and backward
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    grad_of(model, pipe, solver, s0, u0)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    ckpt = peak > GRAD_MEM_LIMIT
+    out["peak_memory_bytes_uncheckpointed"] = peak
+    out["checkpointed"] = ckpt
+    if ckpt:
+        torch.cuda.reset_peak_memory_stats()
+        grad_of(model, pipe, solver, s0, u0, ckpt=True)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+    out["peak_memory_bytes"] = peak
+    # the training run: every count set to 0 just before, read just after
+    u = u0.clone().requires_grad_(True)
+    opt = torch.optim.Adam([u], lr=GRAD_LR)
+    losses, fwd_s, bwd_s, finite, active = [], 0.0, 0.0, True, []
+    torch.cuda.synchronize()
+    reset_grad_launches()
+    t_run = time.perf_counter()
+    for _ in range(GRAD_STEPS):
+        opt.zero_grad(set_to_none=True)
+        stats = {}
+        t1 = time.perf_counter()
+        loss = ant_grad_loss(model, pipe, solver, s0, u, ckpt=ckpt,
+                             stats=stats)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        fwd_s += t2 - t1
+        bwd_s += t3 - t2
+        losses.append(float(loss.detach()))
+        finite &= bool(torch.isfinite(loss)) and bool(
+            torch.isfinite(u.grad).all())
+        active.append(torch.stack(stats["active"]).float().mean(1))
+        opt.step()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
+    launches = grad_launches()
+    with torch.no_grad():
+        loss_after = float(ant_grad_loss(model, pipe, solver, s0, u))
+    active = torch.stack(active)                     # (steps, substeps)
+    n_sub = GRAD_FRAMES * SUBSTEPS
+    per_substep = GRAD_STEPS * n_sub
+    fwd_b = GRAD_STEPS * n_sub * (2 if ckpt else 1)   # + the recompute
+    out.update(
+        launches=dict(zip(("B1", "B2", "K3", "K4"), launches)),
+        losses=losses, loss_after=loss_after,
+        active_world_share=dict(min=float(active.min()),
+                                mean=float(active.mean())),
+        train_steps_per_s=GRAD_STEPS / run_s,
+        env_steps_per_s=GRAD_W * n_sub * GRAD_STEPS / run_s,
+        forward_ms=1e3 * fwd_s / GRAD_STEPS,
+        backward_ms=1e3 * bwd_s / GRAD_STEPS,
+        backward_over_forward=bwd_s / fwd_s)
+    gates = dict(
+        finite=finite and all(map(lambda v: v == v, losses)),
+        loss_falls=loss_after < losses[0],
+        launches=launches == (fwd_b, fwd_b, per_substep, per_substep),
+        contacts_every_substep=bool((active > 0).all()))
+    # kernel against plain gradient from u0 (the plain versions under
+    # autograd on the card); worlds whose B2 halvings differ are counted
+    # and left out (each world's gradient is its own: the loss is a mean)
+    stats = {"pgs": []}
+    loss_k, g_k = grad_of(model, pipe, solver, s0, u0, stats=stats)
+    _, g_p = grad_of(model, pipe, solver, s0, u0, kernels=False)
+    bad = halving_mismatch(stats["pgs"])
+    keep = ~bad
+    rel = float((g_k[keep] - g_p[keep]).norm() / g_p[keep].norm())
+    rel_all = float((g_k - g_p).norm() / g_p.norm())
+    worst = ((g_k - g_p).flatten(1).norm(dim=1)
+             / g_p.flatten(1).norm(dim=1).clamp(min=1e-30))
+    out["kernel_vs_plain"] = dict(
+        rel_err=rel, rel_err_all_worlds=rel_all, bound=GRAD_REL_TOL,
+        halving_mismatch_worlds=int(bad.sum()),
+        worst_world_rel_err=float(worst[keep].max()),
+        max_abs_err=float((g_k - g_p).abs().max()))
+    gates["kernel_vs_plain"] = rel <= GRAD_REL_TOL
+    # repeats: two backward passes from the same u0
+    _, g_k2 = grad_of(model, pipe, solver, s0, u0)
+    gates["bit_equal_repeat"] = bool(torch.equal(g_k, g_k2))
+    out["repeat_max_abs_diff"] = float((g_k - g_k2).abs().max())
+    # host syncs: one forward substep under autograd, and one backward
+    u = u0.clone().requires_grad_(True)
+    ctl = batched_control(model, u[:, 0])
+
+    def one_substep():
+        return solver.step_batched(s0, None, ctl, pipe.collide(s0), DT)
+    s1, n_fwd = count_syncs(one_substep)
+    loss1 = -s1.joint_q[:, 0].mean()
+    _, n_bwd = count_syncs(lambda: loss1.backward())
+    out["host_syncs"] = dict(forward_substep=n_fwd,
+                             backward_of_one_substep=n_bwd,
+                             backward_sites=list(SYNC_SITES[:4]))
+    gates["no_sync_forward"] = n_fwd == 0
+    # one profiled train step (forward + backward) from u0: device time,
+    # operations, busy share, and the kernels' share of device time
+    prof = profile_frame(lambda: grad_of(model, pipe, solver, s0, u0), n_sub)
+    if prof is not None:
+        step_ms = 1e3 / out["train_steps_per_s"]
+        top = prof["top_kernels_ms"]
+        out["profile"] = dict(
+            device_ms_per_train_step=prof["device_busy_ms"],
+            device_ops_per_train_step=prof["device_ops"],
+            wall_ms_profiled=prof["wall_ms"],
+            busy_share_unprofiled=prof["device_busy_ms"] / step_ms,
+            memcpy=(prof["memcpy_dtoh"], prof["memcpy_htod"]),
+            top_kernels_ms=top,
+            k3_k4_share=sum(v for k, v in top.items()
+                            if "backward_kernel" in k)
+            / prof["device_busy_ms"])
+    out["gates"] = gates
+    if not all(gates.values()):
+        raise AssertionError(f"phase 58: gates {gates}; {out}")
+    return out, (model, pipe, solver, stats["pgs"][0])
+
+
+def k3_case(dev, which, d, n, seed):
+    """K3 against autograd of the plain version (float32, the card) and of
+    a float64 one: elementwise and normwise errors, and the times of K3,
+    the plain backward and torch.linalg.solve's backward."""
+    import numpy as np
+    import torch
+    from newton_tpu_torch.solvers.generalized import linalg
+    rng = np.random.RandomState(seed)
+    A = rng.randn(n, d, d).astype(np.float32)
+    spd = A @ np.transpose(A, (0, 2, 1)) + 2.0 * np.eye(d, dtype=np.float32)
+    Mi = torch.as_tensor(spd, device=dev)
+    rhs = torch.as_tensor(rng.randn(n, d).astype(np.float32), device=dev)
+    gx = torch.as_tensor(rng.randn(n, d).astype(np.float32), device=dev)
+    gM = torch.as_tensor(rng.randn(n, d, d).astype(np.float32), device=dev)
+    inv = which == "chol_inv_solve"
+
+    def vjp(fn, Mi, rhs, gx, gM):
+        Mi = Mi.detach().requires_grad_(True)
+        rhs = rhs.detach().requires_grad_(True)
+        out = fn(Mi, rhs)
+        outs, cots = ((out[0], out[1]), (gM, gx)) if inv else ((out,), (gx,))
+        return torch.autograd.grad(outs, (Mi, rhs), cots)
+    k_fn = linalg.chol_inv_solve if inv else linalg.chol_solve
+    p_fn = linalg.chol_inv_solve_plain if inv else linalg.chol_solve_plain
+    before = linalg.chol_backward.launches
+    gk = vjp(k_fn, Mi, rhs, gx, gM)
+    torch.cuda.synchronize()
+    launched = linalg.chol_backward.launches - before
+    gp = vjp(p_fn, Mi, rhs, gx, gM)
+    g64 = vjp(p_fn, Mi.double(), rhs.double(), gx.double(), gM.double())
+    ok = True
+    errs = {}
+    for name, a, b, r in zip(("Mi", "rhs"), gk, gp, g64):
+        o, e = close(a, b, K3_ATOL, K3_RTOL)
+        ek = float(((a.double() - r).flatten(1).norm(dim=1)
+                    / r.flatten(1).norm(dim=1)).max())
+        ep = float(((b.double() - r).flatten(1).norm(dim=1)
+                    / r.flatten(1).norm(dim=1)).max())
+        ok &= o and ek <= max(2 * ep, 1e-6)
+        errs[name] = dict(max_abs_err=e, normwise_kernel=ek,
+                          normwise_plain=ep)
+    if launched != 1 or not ok:
+        raise AssertionError(f"K3 {which} d={d}: launches {launched}, "
+                             f"{errs}")
+    # times: K3 alone, the plain backward alone, torch.linalg.solve's
+    if inv:
+        Minv, x = linalg.chol_inv_solve(Mi, rhs)
+        ms = time_ms(lambda: linalg.chol_backward(Minv, x, gx, gM),
+                     queued=True)
+    else:
+        x = linalg.chol_solve(Mi, rhs)
+        grhs = linalg.chol_solve(Mi, gx)
+        ms = time_ms(lambda: linalg.chol_backward(None, x, None, None, grhs),
+                     queued=True)
+    M_ = Mi.detach().requires_grad_(True)
+    r_ = rhs.detach().requires_grad_(True)
+    out = p_fn(M_, r_)
+    outs, cots = ((out[0], out[1]), (gM, gx)) if inv else ((out,), (gx,))
+    plain_ms = time_ms(lambda: torch.autograd.grad(
+        outs, (M_, r_), cots, retain_graph=True), n=5)
+    B = solve_operand(Mi, rhs) if inv else rhs[:, :, None]
+    M2 = Mi.detach().requires_grad_(True)
+    B2 = B.detach().requires_grad_(True)
+    X = torch.linalg.solve(M2, B2)
+    G = torch.cat([gM, gx[:, :, None]], 2) if inv else gx[:, :, None]
+    library_ms = time_ms(lambda: torch.autograd.grad(
+        X, (M2, B2), G, retain_graph=True), queued=True)
+    return dict(which=which, d=d, W=n, errors=errs, ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms,
+                **bound_fields("chol_backward", ms, d=d, W=n,
+                               inverse=inv))
+
+
+def k4_case(args, kw, glam, gdqd):
+    """K4 against autograd of the plain version on one operand set: the
+    envs whose B2 halvings differ from the plain version's are counted and
+    left out; the largest normwise error over the inputs' gradients."""
+    import torch
+    from newton_tpu_torch.solvers.generalized import pgs
+    names = ("J", "Minv", "qd", "b", "mu", "lam0")
+    diff_idx = (0, 1, 2, 3, 5, 6)
+
+    def vjp(fn):
+        ins = [a.detach().clone() for a in args]
+        for i in diff_idx:
+            ins[i].requires_grad_(True)
+        w = kw.get("w_other")
+        kw2 = dict(kw)
+        if w is not None:
+            kw2["w_other"] = w.detach().clone().requires_grad_(True)
+        lam, dqd, halv = fn(*ins, **kw2, return_halvings=True)
+        wrt = [ins[i] for i in diff_idx] + (
+            [kw2["w_other"]] if w is not None else [])
+        return torch.autograd.grad((lam, dqd), wrt, (glam, gdqd)), halv
+    before = pgs.pgs_backward.launches
+    gk, hk = vjp(pgs.pgs_solve_fused)
+    torch.cuda.synchronize()
+    launched = pgs.pgs_backward.launches - before
+    gp, hp = vjp(pgs.pgs_solve_fused_plain)
+    keep = hk == hp
+    errs = {}
+    for name, a, b in zip(names + ("w_other",), gk, gp):
+        num = (a[keep] - b[keep]).norm()
+        den = b[keep].norm().clamp(min=1e-30)
+        errs[name] = float(num / den)
+    worst = max(errs.values())
+    finite_where_plain = bool(all(
+        torch.equal(torch.isfinite(a), torch.isfinite(b))
+        for a, b in zip(gk, gp)))
+    return dict(errors=errs, worst=worst, launches=launched,
+                halving_mismatch_envs=int((~keep).sum()),
+                nan_pattern_equal=finite_where_plain)
+
+
+def k4_time(args, kw, glam, gdqd):
+    """(K4 ms, plain backward ms) at one operand set."""
+    import torch
+    from newton_tpu_torch.solvers.generalized import pgs
+    w = kw.get("w_other")
+    a = [t.detach() for t in args]
+    ms = time_ms(lambda: pgs.pgs_backward(
+        *a, kw["ld"], w, glam, gdqd, c=kw["c"], iters=kw["iters"],
+        omega=kw["omega"], use_cone=kw["use_cone"],
+        diag_scale=kw["diag_scale"], reg=kw["reg"],
+        symmetric=kw.get("symmetric", True)), queued=True)
+    ins = [t.clone().requires_grad_(i in (0, 1, 2, 3, 5, 6))
+           for i, t in enumerate(a)]
+    lam, dqd = pgs.pgs_solve_fused_plain(*ins, **kw)
+    wrt = [ins[i] for i in (0, 1, 2, 3, 5, 6)]
+    plain_ms = time_ms(lambda: torch.autograd.grad(
+        (lam, dqd), wrt, (glam, gdqd), retain_graph=True), n=3)
+    return ms, plain_ms
+
+
+def phase_grad_kernels(dev, ant_rec):
+    """Phase 58 (a): K3 against autograd of the plain version at d = 14
+    and 23 (W = 4096) and chol_solve's backward at d = 6 (W = 8192); (b):
+    K4 on the ant's captured operands, random box and cone, nl = 0,
+    w_other, and the humanoid's (32, 17, 23)."""
+    import numpy as np
+    import torch
+    a = [k3_case(dev, which, d, n, seed=580 + d)
+         for which, d, n in K3_SHAPES]
+    cases = {}
+    gen = np.random.RandomState(581)
+
+    def cots(args, kw):
+        n, r = args[3].shape
+        d = args[0].shape[2]
+        return (torch.as_tensor(gen.randn(n, r).astype(np.float32),
+                                device=dev),
+                torch.as_tensor(gen.randn(n, d).astype(np.float32),
+                                device=dev))
+    args, kw = ant_rec
+    args = [t.detach() for t in args]
+    kw = {k: (v.detach() if torch.is_tensor(v) else v) for k, v in kw.items()}
+    kw.pop("return_halvings", None)
+    ant = (args, kw)
+    sets = {"ant substep (25, 8, 14)": ant}
+    base = dict(iters=ITERS, omega=0.8, diag_scale=1.0, reg=1e-3)
+    for label, (c, nl, d, cone, two) in {
+            "random box (25, 8, 14)": (25, 8, 14, False, False),
+            "random cone (25, 8, 14)": (25, 8, 14, True, False),
+            "random nl=0 (25, 0, 14)": (25, 0, 14, False, False),
+            "random w_other (25, 8, 14)": (25, 8, 14, False, True),
+            "humanoid (32, 17, 23)": (32, 17, 23, False, False)}.items():
+        r_args, ld = random_pgs_inputs(dev, c, nl, d, seed=582 + nl + d,
+                                       n=K4_W)
+        k = dict(base, c=c, ld=ld, use_cone=cone)
+        if two:
+            k["w_other"] = torch.as_tensor(
+                np.abs(gen.rand(K4_W, 3 * c)).astype(np.float32),
+                device=dev)
+        sets[label] = (list(r_args), k)
+    times = {}
+    for label, (args, kw) in sets.items():
+        glam, gdqd = cots(args, kw)
+        res = k4_case(args, kw, glam, gdqd)
+        if res["launches"] != 1 or res["worst"] > K4_RTOL or not \
+                res["nan_pattern_equal"] or \
+                res["halving_mismatch_envs"] > max(K4_W // 1000, 1):
+            raise AssertionError(f"K4 {label}: {res}")
+        cases[label] = res
+        if label.startswith(("ant", "humanoid")):
+            times[label] = k4_time(args, kw, glam, gdqd)
+    return dict(k3=a, k4=cases, k4_times=times)
+
+
 def bound_fields(name, ms, prefix="", **shape):
     """bound_ms, bound_by and share_of_bound of one timed call at W envs."""
     t, by = bound_ms(*kernel_cost(name, **shape))
@@ -9267,8 +9862,54 @@ def bound_fields(name, ms, prefix="", **shape):
             f"{prefix}share_of_bound": t / ms}
 
 
+def function_timers(path):
+    """Wrap every function of this script (and its classes' methods) in a
+    wall-clock timer, inclusive of what it calls, keyed by the phase_*
+    function that is running; the table goes to ``path`` as JSON at exit,
+    sorted by seconds."""
+    import atexit
+    import collections
+    import inspect
+    table = collections.defaultdict(lambda: [0.0, 0])
+    phase = ["main"]
+
+    def wrap(name, f):
+        @functools.wraps(f)
+        def timed(*args, **kw):
+            outer = phase[0]
+            if name.startswith("phase_"):
+                phase[0] = name
+            t0 = time.perf_counter()
+            try:
+                return f(*args, **kw)
+            finally:
+                cell = table[f"{phase[0]} :: {name}"]
+                cell[0] += time.perf_counter() - t0
+                cell[1] += 1
+                phase[0] = outer
+        return timed
+    mod = sys.modules[__name__]
+    for name, f in list(vars(mod).items()):
+        if (inspect.isfunction(f) and f.__module__ == __name__
+                and name not in ("main", "function_timers")):
+            setattr(mod, name, wrap(name, f))
+    for cls in (PolicyAnt, CameraAnt):
+        for name, f in list(vars(cls).items()):
+            if inspect.isfunction(f):
+                setattr(cls, name, wrap(f"{cls.__name__}.{name}", f))
+
+    def dump():
+        rows = sorted(([k, v[0], v[1]] for k, v in table.items()),
+                      key=lambda r: -r[1])
+        with open(path, "w") as f:
+            json.dump({"seconds_calls": rows}, f, indent=0)
+    atexit.register(dump)
+
+
 def main():
     import torch
+    if "--function-times" in sys.argv:
+        function_timers(sys.argv[sys.argv.index("--function-times") + 1])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
@@ -9532,8 +10173,8 @@ def main():
           f"{XPBD_CPU_WORLDS} worlds card vs CPU after {SUBSTEPS} substeps "
           f"{ax['vs_cpu']}; two runs of a substep differ by "
           f"{ax['repeat_max_diff']}; device busy "
-          f"{ax['busy_share_unprofiled']} of an unprofiled frame; profiled "
-          f"frame {ax['profile']} on {card}", flush=True)
+          f"{ax['busy_share_unprofiled']} of an unprofiled substep; "
+          f"profiled substep {ax['profile']} on {card}", flush=True)
     mark("21")
 
     pyr = phase_pyramid(dev)
@@ -9845,7 +10486,7 @@ def main():
           f"{ter['b2']['instance']} {ter['b2']['ms']:.4f} ms, paths "
           f"{ter['paths']}, vs CPU {ter['vs_cpu']}, mesh samples dropped "
           f"{ter['mesh_samples_dropped']}, host syncs "
-          f"{ter['host_syncs_per_substep']}, device ms a frame "
+          f"{ter['host_syncs_per_substep']}, device ms a substep "
           f"{ter['profile'] and ter['profile'].get('device_busy_ms')}, busy "
           f"{ter['busy_share_unprofiled']}, peak "
           f"{ter['peak_memory_bytes'] / 2**30:.2f} GiB, "
@@ -9881,7 +10522,7 @@ def main():
           f"{st52['b1']['W']} {st52['b1']['ms']:.4f} ms (plain "
           f"{st52['b1']['plain_ms']:.4f} ms, torch.linalg.solve "
           f"{st52['b1']['library_ms']:.4f} ms), aten calls a substep "
-          f"{st52['aten_ops_per_substep']}, profiled frame "
+          f"{st52['aten_ops_per_substep']}, profiled substep "
           f"{st52['profile']}, busy {st52['busy_share_unprofiled']}, host "
           f"syncs {st52['host_syncs_per_substep']}, "
           f"{st52['env_steps_per_s']:.1f} env-steps/s; pendulum x "
@@ -9898,7 +10539,7 @@ def main():
         f"{v['vs_cpu']}, host syncs {v['host_syncs_per_substep']}, busy "
         f"{v['busy_share_unprofiled']}, {v['env_steps_per_s']:.1f} "
         f"env-steps/s" for k, v in cpl.items())
-        + f"; tower z at frame 10 {cpl['tower']['box_z_frame_10']} on "
+        + f"; tower z at frame 4 {cpl['tower']['box_z_frame_4']} on "
         f"{card}", flush=True)
     mark("53")
 
@@ -9980,6 +10621,45 @@ def main():
           f"golden {cpaths['golden']}; viewers {cpaths['viewers']} on "
           f"{card}", flush=True)
     mark("57")
+
+    grad, (gmodel, _, _, ant_rec) = phase_grad_ant(dev)
+    results["grad_ant"] = grad
+    kv = grad["kernel_vs_plain"]
+    print(f"[58 gradient-trained ant x {GRAD_W}, the main path] setup "
+          f"{grad['setup_s']:.1f} s, {GRAD_STEPS} Adam steps of "
+          f"{grad['substeps']} substeps, launches {grad['launches']}, gates "
+          f"{grad['gates']}, loss {grad['losses'][0]:.5f} -> "
+          f"{grad['loss_after']:.5f}, worlds with an active contact row "
+          f"{grad['active_world_share']}, {grad['train_steps_per_s']:.3f} "
+          f"train steps/s, {grad['env_steps_per_s']:.1f} env-steps/s "
+          f"(forward + backward), forward {grad['forward_ms']:.1f} ms, "
+          f"backward {grad['backward_ms']:.1f} ms (ratio "
+          f"{grad['backward_over_forward']:.3f}), peak memory "
+          f"{grad['peak_memory_bytes'] / 1e9:.2f} GB (checkpointed: "
+          f"{grad['checkpointed']}); kernel vs plain gradient "
+          f"{kv['rel_err']:.3g} (bound {kv['bound']:g}, all worlds "
+          f"{kv['rel_err_all_worlds']:.3g}, halving mismatch worlds "
+          f"{kv['halving_mismatch_worlds']}); repeat max diff "
+          f"{grad['repeat_max_abs_diff']:.3g}; host syncs "
+          f"{grad['host_syncs']}; profiled train step "
+          f"{grad.get('profile')} on {card}", flush=True)
+    gk = phase_grad_kernels(dev, ant_rec)
+    results["grad_kernels"] = gk
+    del gmodel, ant_rec
+    print("[58 (a) K3] " + "; ".join(
+        f"{c['which']} d={c['d']} W={c['W']}: {c['ms']:.4f} ms (bound "
+        f"{c['bound_ms']:.4f} ms by {c['bound_by']}, share "
+        f"{c['share_of_bound']:.3f}), plain backward {c['plain_ms']:.3f} "
+        f"ms, torch.linalg.solve backward {c['library_ms']:.4f} ms, errors "
+        f"{c['errors']}" for c in gk["k3"]) + f" on {card}", flush=True)
+    print("[58 (b) K4] " + "; ".join(
+        f"{k}: worst rel {v['worst']:.3g}, halving mismatch "
+        f"{v['halving_mismatch_envs']}, NaN pattern equal "
+        f"{v['nan_pattern_equal']}" for k, v in gk["k4"].items())
+        + "; times " + "; ".join(
+            f"{k}: K4 {t[0]:.4f} ms, plain backward {t[1]:.3f} ms"
+            for k, t in gk["k4_times"].items()) + f" on {card}", flush=True)
+    mark("58")
 
     results["kernel_info"] = kernel_info()
     print("[phase seconds] " + json.dumps(
@@ -10201,6 +10881,7 @@ def main():
     kernels += coupled_kernel_entries(vbd52, cpl, b1_src, b2_src)
     kernels += policy_kernel_entries(pol, b1_src, b2_src)
     kernels += camera_kernel_entries(cam, cpaths)
+    kernels += grad_kernel_entries(grad, gk)
     print(f"[bounds] H100 SXM peaks {PEAK_BYTES_PER_S / 1e12:g} TB/s, "
           f"{PEAK_F32_FLOPS / 1e12:g} TFLOP/s float32 (700 W); this card: "
           f"{card}", flush=True)

@@ -18,7 +18,7 @@ import shutil
 import subprocess
 import tempfile
 
-__all__ = ["lib", "build", "check"]
+__all__ = ["lib", "build", "check", "refuse_grad"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
@@ -26,7 +26,7 @@ _BUILD = os.path.join(_HERE, "_build")
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _SOURCES = ("chol_inv_solve.cu", "pgs_solve.cu", "mpm_transfer.cu",
-            "raycast.cu")
+            "raycast.cu", "chol_backward.cu", "pgs_backward.cu")
 _HEADERS = ("exact_math.cuh",)
 
 _lib = None
@@ -73,9 +73,27 @@ _SIGNATURES = {
                          _I, _P, _P, _P, _P],
     # which (0: K1, 1: K2), &registers, &blocks per SM
     "raycast_kernel_info": [_I, _P, _P],
+    # K3: Minv (or NULL), x, gx (or NULL), gMinv (or NULL), grhs (written
+    # with Minv, read without), gMi, W, d, scratch (W d d with gMinv), stream
+    "chol_inv_solve_backward_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
+    # &registers, &blocks per SM of K3's launch
+    "chol_backward_kernel_info": [_P, _P],
+    # K4: J, Minv, qd, b, act, mu, lam0, ld, w_other (or NULL), glam (or
+    # NULL), gdqd (or NULL), gJ, gMinv, gqd, gb, gmu, glam0, gw (NULL
+    # without w_other), W, c, nl, d, iters, omega, use_cone, diag_scale,
+    # reg, scratch (the global instance), minv_t, stream
+    "pgs_solve_backward_f32": [_P] * 18 + [_I] * 5 + [_F, _I, _F, _F, _P,
+                                                     _I, _P],
+    # c, nl, d, iters -> K4's instance (0: shared memory, 1: global)
+    "pgs_backward_instance": [_I, _I, _I, _I],
+    # c, nl, d, iters -> floats of one env's K4 workspace
+    "pgs_backward_scratch_floats": [_I, _I, _I, _I],
+    # c, nl, d, iters, &registers, &blocks per SM of K4's launch
+    "pgs_backward_kernel_info": [_I, _I, _I, _I, _P, _P],
 }
 _RESTYPES = {"chol_scratch_floats": ctypes.c_longlong,
-             "pgs_scratch_floats": ctypes.c_longlong}
+             "pgs_scratch_floats": ctypes.c_longlong,
+             "pgs_backward_scratch_floats": ctypes.c_longlong}
 
 
 def _nvcc() -> str:
@@ -160,3 +178,14 @@ def check(err: int, name: str) -> None:
     if err != 0:
         msg = lib().ntt_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} at launch: {msg}")
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where a kernel without a backward would drop a gradient: grad
+    mode is on and an input requires grad."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: an input requires grad, and this "
+                           "kernel's backward is not ported yet; run it "
+                           "under torch.no_grad() or detach its inputs")

@@ -326,6 +326,7 @@ def mesh_closest(pool: BVHPool, o, d, bvh_of, xform=None, scale=None,
     if o.device.type != "cuda":
         raise ValueError(f"mesh_closest: unsupported device {o.device}")
     from .. import _kernels
+    _kernels.refuse_grad("mesh_closest (K2)", o, d, xform, scale)
     M, R = bvh_of.shape[0], o.shape[0]
     t = torch.empty((M, R), dtype=o.dtype, device=o.device)
     n = torch.empty((M, R, 3), dtype=o.dtype, device=o.device)

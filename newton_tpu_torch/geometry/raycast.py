@@ -297,6 +297,7 @@ def closest_analytic(o, d, X, scale, cls, max_dist: float = 1e6):
     if o.device.type != "cuda":
         raise ValueError(f"closest_analytic: unsupported device {o.device}")
     from .. import _kernels
+    _kernels.refuse_grad("closest_analytic (K1)", o, d, X, scale)
     R = o.shape[0]
     o, d, X, scale = (x.contiguous().to(torch.float32)
                       for x in (o, d, X, scale))

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from dataclasses import replace as dataclass_replace
 from typing import Any, Dict, Optional
 
 import torch
@@ -34,6 +35,12 @@ class Control:
     tendon_f: Optional[torch.Tensor] = None
     muscle_activations: Optional[torch.Tensor] = None
     custom: Dict[str, Any] = field(default_factory=dict)
+
+    def replace(self, **kw) -> "Control":
+        """A copy with the given fields replaced (the JAX package's
+        ``replace``); the tensors are not copied, so a graph through them
+        is kept."""
+        return dataclass_replace(self, **kw)
 
     def to(self, device) -> "Control":
         return map_tensors(self, lambda t: t.to(device))

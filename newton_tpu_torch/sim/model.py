@@ -315,6 +315,12 @@ class Model:
     def particle_count(self) -> int:
         return self.structure.particle_count
 
+    def replace(self, **kw) -> "Model":
+        """A copy with the given fields replaced, the same structure (the
+        JAX package's ``replace``: ``SolverXPBD.step(..., model=m)`` steps
+        it); the tensors are not copied, so a graph through them is kept."""
+        return replace(self, **kw)
+
     def to(self, device) -> "Model":
         kw = {f.name: getattr(self, f.name).to(device) for f in fields(self)
               if isinstance(getattr(self, f.name), torch.Tensor)}

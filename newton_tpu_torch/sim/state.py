@@ -11,6 +11,7 @@ tiles a one-world State to the env-major layout ``(W, ...)`` that
 from __future__ import annotations
 
 from dataclasses import dataclass, field, fields, replace
+from dataclasses import replace as dataclass_replace
 from typing import Any, Dict
 
 import torch
@@ -57,6 +58,12 @@ class State:
     particle_qd: torch.Tensor
     particle_f: torch.Tensor
     custom: Dict[str, Any] = field(default_factory=dict)
+
+    def replace(self, **kw) -> "State":
+        """A copy with the given fields replaced (the JAX package's
+        ``replace``); the tensors are not copied, so a graph through them
+        is kept."""
+        return dataclass_replace(self, **kw)
 
     def to(self, device) -> "State":
         return map_tensors(self, lambda t: t.to(device))

@@ -12,6 +12,16 @@ env-major: ``Mi (W, d, d)``, ``rhs (W, d)``. Every d has a kernel instance
 ``chol_solve`` launches the same kernel for x alone (the equality rows'
 system, whose inverse nothing reads; the JAX package's ``solve_psd``); its
 x equals ``chol_inv_solve``'s bit for bit.
+
+Gradients: on the CPU autograd runs through the plain version. On the card
+both wrappers are ``torch.autograd.Function``s whose backward is the
+kernel in ``csrc/chol_backward.cu`` (``chol_backward.launches`` counts it):
+from the saved Minv and x it forms grhs = Minv gx and the Mi gradient
+-(grhs x^T + Minv gMinv Minv), folded onto the lower triangle as autograd
+of the plain factor gives it (the factor reads only that triangle).
+``chol_solve`` keeps no inverse: its backward gets grhs from one more
+``chol_solve`` launch (counted in ``chol_solve.launches``), then the
+kernel forms -grhs x^T.
 """
 
 from __future__ import annotations
@@ -20,6 +30,7 @@ import torch
 
 __all__ = ["chol_inv_solve", "chol_inv_solve_plain", "chol_solve",
            "chol_solve_plain", "cholesky_plain", "cho_solve_plain",
+           "chol_backward", "fold_lower",
            "kernel_instance", "generic_floats", "INSTANCE_CODES"]
 
 _REG_SIZES = (8, 14, 16, 23, 24, 32)    # one warp per env, D registers
@@ -149,27 +160,114 @@ def _launch(Mi: torch.Tensor, rhs: torch.Tensor, wrapper):
     return Minv, x
 
 
+def fold_lower(G: torch.Tensor) -> torch.Tensor:
+    """The gradient of a function of the lower triangle of a symmetric
+    matrix, from its gradient G as a function of the whole matrix: G_ij +
+    G_ji below the diagonal, G_ii on it, 0 above (what autograd of
+    ``cholesky_plain`` gives; the kernel writes the same)."""
+    low = torch.tril(G, -1) + torch.tril(G.transpose(-1, -2), -1)
+    return low + torch.diag_embed(torch.diagonal(G, dim1=-2, dim2=-1))
+
+
+def chol_backward(Minv, x, gx, gMinv, grhs=None):
+    """One launch of K3 (``csrc/chol_backward.cu``), counted in
+    ``chol_backward.launches``: returns (gMi (W, d, d), grhs (W, d)).
+    With Minv, grhs = Minv gx is formed (gx or gMinv may be None, a zero
+    cotangent); without it (``chol_solve``) grhs is given."""
+    if x.device.type != "cuda":
+        raise ValueError(f"chol_backward: unsupported device {x.device}")
+    W, d = x.shape
+    Minv, x, gx, gMinv, grhs = (None if t is None else t.contiguous()
+                                for t in (Minv, x, gx, gMinv, grhs))
+    if not all(t.dtype == torch.float32 and t.device == x.device
+               for t in (Minv, x, gx, gMinv, grhs) if t is not None):
+        raise TypeError("chol_backward takes float32 tensors on one device")
+    if Minv is None and grhs is None:
+        raise ValueError("chol_backward: Minv or grhs is needed")
+    from ... import _kernels
+    gMi = torch.empty((W, d, d), dtype=x.dtype, device=x.device)
+    if grhs is None:
+        grhs = torch.empty_like(x)
+    scratch = (torch.empty((W, d, d), dtype=x.dtype, device=x.device)
+               if gMinv is not None and W else None)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _kernels.lib().chol_inv_solve_backward_f32(
+            ptr(Minv), x.data_ptr(), ptr(gx), ptr(gMinv), grhs.data_ptr(),
+            gMi.data_ptr(), W, d, ptr(scratch), stream)
+    chol_backward.launches += 1
+    _kernels.check(err, "chol_backward")
+    return gMi, grhs
+
+
+class _CholInvSolve(torch.autograd.Function):
+    """B1 forward, K3 backward."""
+
+    @staticmethod
+    def forward(ctx, Mi, rhs):
+        Minv, x = _launch(Mi, rhs, chol_inv_solve)
+        ctx.save_for_backward(Minv, x)
+        ctx.set_materialize_grads(False)
+        return Minv, x
+
+    @staticmethod
+    def backward(ctx, gMinv, gx):
+        Minv, x = ctx.saved_tensors
+        if gMinv is None and gx is None:
+            return None, None
+        gMi, grhs = chol_backward(Minv, x, gx, gMinv)
+        return gMi, (grhs if gx is not None else None)
+
+
+class _CholSolve(torch.autograd.Function):
+    """B1 forward without the inverse; backward: one more B1 solve for
+    grhs, then K3."""
+
+    @staticmethod
+    def forward(ctx, Mi, rhs):
+        x = _launch(Mi, rhs, chol_solve)[1]
+        ctx.save_for_backward(Mi, x)
+        ctx.set_materialize_grads(False)
+        return x
+
+    @staticmethod
+    def backward(ctx, gx):
+        if gx is None:
+            return None, None
+        Mi, x = ctx.saved_tensors
+        grhs = _launch(Mi, gx.contiguous(), chol_solve)[1]
+        gMi = chol_backward(None, x, None, None, grhs)[0] \
+            if ctx.needs_input_grad[0] else None
+        return gMi, grhs
+
+
 def chol_inv_solve(Mi: torch.Tensor, rhs: torch.Tensor):
     """Factor Mi = L L^T and return (Minv, x = Mi^-1 rhs), env-major.
 
-    CUDA tensors go to the kernel (or raise); CPU tensors to the plain
-    version. ``chol_inv_solve.launches`` counts kernel launches."""
+    CUDA tensors go to the kernel (or raise), its backward to K3; CPU
+    tensors to the plain version, under autograd.
+    ``chol_inv_solve.launches`` counts kernel launches."""
     _check(Mi, rhs)
     if Mi.device.type == "cpu":
         return chol_inv_solve_plain(Mi, rhs)
-    return _launch(Mi, rhs, chol_inv_solve)
+    return _CholInvSolve.apply(Mi, rhs)
 
 
 def chol_solve(Mi: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     """x = Mi^-1 rhs alone, through the same kernel without the inverse.
 
-    CUDA tensors go to the kernel (or raise); CPU tensors to the plain
-    version. ``chol_solve.launches`` counts kernel launches."""
+    CUDA tensors go to the kernel (or raise), its backward to one more
+    launch and K3; CPU tensors to the plain version, under autograd.
+    ``chol_solve.launches`` counts kernel launches."""
     _check(Mi, rhs)
     if Mi.device.type == "cpu":
         return chol_solve_plain(Mi, rhs)
-    return _launch(Mi, rhs, chol_solve)[1]
+    return _CholSolve.apply(Mi, rhs)
 
 
 chol_inv_solve.launches = 0
 chol_solve.launches = 0
+chol_backward.launches = 0

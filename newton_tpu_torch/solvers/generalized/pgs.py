@@ -29,6 +29,15 @@ the kernel stages ``Minv`` transposed) and the limit rows the columns
 ``Minv[:, ld]``, so the Delassus operator is ``[J; E] Minv [J; E]^T`` and
 ``dqd = Minv [J; E]^T lam``. The default, ``symmetric=True``, forms ``MJ =
 J Minv`` as every symmetric call did before the option existed.
+
+Gradients: on the CPU autograd runs through the plain version, whose
+``maximum``/``minimum`` give half the gradient to each side at a tie, as
+the JAX package's ``jnp.maximum``/``jnp.clip`` do. On the card the wrapper
+is a ``torch.autograd.Function`` whose backward is the kernel in
+``csrc/pgs_backward.cu`` (``pgs_backward.launches`` counts it): it runs the
+forward again, keeps every iterate, and computes what autograd of the
+plain version computes for J, Minv, qd, b, mu, lam0 and w_other (act and
+the halvings carry none).
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["pgs_solve_fused", "pgs_solve_fused_plain", "pgs_core",
+           "pgs_backward", "backward_instance", "backward_scratch_floats",
            "spectral_lam_max", "spectral_iters", "kernel_instance",
            "smem_bytes", "scratch_floats", "INSTANCE_CODES"]
 
@@ -117,8 +127,14 @@ def spectral_lam_max(Avec, diag, act, iters: int = 3):
         u2 = inv_sqrt_d * Avec(inv_sqrt_d * u) * act
         nrm = torch.linalg.vector_norm(u2, dim=-1, keepdim=True)
         lam_max = nrm[..., 0]
-        u = u2 / torch.clamp(nrm, min=1e-9)
+        u = u2 / torch.maximum(nrm, _const(1e-9, nrm))
     return lam_max
+
+
+def _const(v, like):
+    """A 0-d constant for ``torch.maximum``/``minimum``, whose gradient,
+    unlike ``clamp``'s, splits evenly at a tie (as JAX's does)."""
+    return torch.full((), v, dtype=like.dtype, device=like.device)
 
 
 def pgs_core(J, MJ, cols, diag, v_free, b, act, mu, lam0, *, c, ld, iters,
@@ -146,29 +162,32 @@ def pgs_core(J, MJ, cols, diag, v_free, b, act, mu, lam0, *, c, ld, iters,
 
     lam_max = spectral_lam_max(Avec, diag, act,
                                iters=spectral_iters(act.shape[1]))
-    step = torch.clamp(1.8 / torch.clamp(1.1 * lam_max, min=1e-9), max=1.0)
+    step = torch.minimum(
+        1.8 / torch.maximum(1.1 * lam_max, _const(1e-9, lam_max)),
+        _const(1.0, lam_max))
     scale = omega * step                                  # (W,)
     halvings = torch.zeros_like(scale, dtype=torch.int32)
 
     lam = lam0
     prev_dn = None
+    zero, eps, one = (_const(v, diag) for v in (0.0, 1e-9, 1.0))
     for _ in range(iters):
         res = Avec(lam) + v_free - b
         lam_full = lam - (scale[:, None] / diag) * res
-        ln = torch.clamp(lam_full[:, 0:c], min=0.0)
+        ln = torch.maximum(lam_full[:, 0:c], zero)
         cap = mu * ln
         lt1 = lam_full[:, c:2 * c]
         lt2 = lam_full[:, 2 * c:r3]
         if use_cone:
             tmag = torch.sqrt(lt1 * lt1 + lt2 * lt2)
-            sc = torch.clamp(cap / torch.clamp(tmag, min=1e-9), max=1.0)
+            sc = torch.minimum(cap / torch.maximum(tmag, eps), one)
             lt1, lt2 = lt1 * sc, lt2 * sc
         else:
             lt1 = torch.minimum(torch.maximum(lt1, -cap), cap)
             lt2 = torch.minimum(torch.maximum(lt2, -cap), cap)
         parts = [ln, lt1, lt2]
         if nl:
-            parts.append(torch.clamp(lam_full[:, r3:], min=0.0))
+            parts.append(torch.maximum(lam_full[:, r3:], zero))
         lam_new = torch.cat(parts, dim=1) * act
         lam_new = torch.where(torch.isfinite(lam_new), lam_new,
                               torch.zeros_like(lam_new))
@@ -214,6 +233,102 @@ def pgs_solve_fused_plain(J, Minv, qd, b, act, mu, lam0, *, c, ld, iters,
     return (lam, dqd, halv) if return_halvings else (lam, dqd)
 
 
+def backward_scratch_floats(c: int, nl: int, d: int, iters: int) -> int:
+    """Floats of one env's workspace in K4 (csrc/pgs_backward.cu:
+    make_layout): J, MJ and their gradients, Minv and its gradient, the
+    row vectors, the kept power iterates and sweeps, each array rounded up
+    to 4 floats."""
+    def up(n):
+        return (n + 3) & ~3
+    r3, r = 3 * c, 3 * c + 2 * nl
+    K = spectral_iters(r)
+    return (4 * up(r3 * d) + 2 * up(d * d) + 7 * up(r) + up(c) + up(r3)
+            + up((K + 1) * r) + up(K * r) + up(K * d) + up(K)
+            + up((iters + 1) * r) + up(iters * r) + up(iters * d)
+            + up(iters + 1) + up(iters) + 5 * up(r) + up(d))
+
+
+def backward_instance(c: int, nl: int, d: int, iters: int) -> str:
+    """K4's instance: ``smem`` (the env's workspace in shared memory) or
+    ``global`` (in a per-env slice of a global scratch)."""
+    kernel_instance(c, nl, d)                     # validates the shape
+    return ("smem" if 4 * backward_scratch_floats(c, nl, d, iters)
+            <= _SMEM_BYTES else "global")
+
+
+def pgs_backward(J, Minv, qd, b, act, mu, lam0, ld, w_other, glam, gdqd, *,
+                 c, iters, omega, use_cone, diag_scale, reg, symmetric):
+    """One launch of K4 (``csrc/pgs_backward.cu``), counted in
+    ``pgs_backward.launches``: the gradients (gJ, gMinv, gqd, gb, gmu,
+    glam0, gw_other or None) of ``pgs_solve_fused``'s inputs from the
+    cotangents of lam and dqd (either may be None, a zero cotangent)."""
+    if J.device.type != "cuda":
+        raise ValueError(f"pgs_backward: unsupported device {J.device}")
+    W, r3, d = J.shape
+    nl = int(ld.numel())
+    r = r3 + 2 * nl
+    glam = None if glam is None else glam.contiguous()
+    gdqd = None if gdqd is None else gdqd.contiguous()
+    from ... import _kernels
+    gJ = torch.empty_like(J)
+    gMinv = torch.empty_like(Minv)
+    gqd = torch.empty_like(qd)
+    gb = torch.empty((W, r), dtype=J.dtype, device=J.device)
+    gmu = torch.empty_like(mu)
+    glam0 = torch.empty((W, r), dtype=J.dtype, device=J.device)
+    gw = None if w_other is None else torch.empty_like(w_other)
+    scratch = None
+    if W and backward_instance(c, nl, d, iters) == "global":
+        scratch = torch.empty((W, backward_scratch_floats(c, nl, d, iters)),
+                              dtype=J.dtype, device=J.device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    with torch.cuda.device(J.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _kernels.lib().pgs_solve_backward_f32(
+            J.data_ptr(), Minv.data_ptr(), qd.data_ptr(), b.data_ptr(),
+            act.data_ptr(), mu.data_ptr(), lam0.data_ptr(), ld.data_ptr(),
+            ptr(w_other), ptr(glam), ptr(gdqd), gJ.data_ptr(),
+            gMinv.data_ptr(), gqd.data_ptr(), gb.data_ptr(), gmu.data_ptr(),
+            glam0.data_ptr(), ptr(gw), W, c, nl, d, int(iters),
+            float(omega), int(bool(use_cone)), float(diag_scale),
+            float(reg), ptr(scratch), int(not symmetric), stream)
+    pgs_backward.launches += 1
+    _kernels.check(err, "pgs_backward")
+    return gJ, gMinv, gqd, gb, gmu, glam0, gw
+
+
+class _PGSSolve(torch.autograd.Function):
+    """B2 forward, K4 backward. act and the halvings carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, J, Minv, qd, b, act, mu, lam0, w_other, ld, kw):
+        lam, dqd, halv = _launch(J, Minv, qd, b, act, mu, lam0, ld,
+                                 w_other, **kw)
+        ctx.save_for_backward(J, Minv, qd, b, act, mu, lam0, w_other, ld)
+        ctx.kw = kw
+        ctx.mark_non_differentiable(halv)
+        ctx.set_materialize_grads(False)
+        return lam, dqd, halv
+
+    @staticmethod
+    def backward(ctx, glam, gdqd, _ghalv):
+        J, Minv, qd, b, act, mu, lam0, w_other, ld = ctx.saved_tensors
+        if glam is None and gdqd is None:
+            return (None,) * 10
+        kw = ctx.kw
+        gJ, gMinv, gqd, gb, gmu, glam0, gw = pgs_backward(
+            J, Minv, qd, b, act, mu, lam0, ld, w_other, glam, gdqd,
+            c=kw["c"], iters=kw["iters"], omega=kw["omega"],
+            use_cone=kw["use_cone"], diag_scale=kw["diag_scale"],
+            reg=kw["reg"], symmetric=kw["symmetric"])
+        need = ctx.needs_input_grad
+        out = (gJ, gMinv, gqd, gb, None, gmu, glam0, gw)
+        return tuple(g if n else None for g, n in zip(out, need)) \
+            + (None, None)
+
+
 def _check(J, Minv, qd, b, act, mu, lam0, ld, c, w_other):
     W, r3, d = J.shape
     nl = int(ld.numel())
@@ -251,14 +366,28 @@ def pgs_solve_fused(J, Minv, qd, b, act, mu, lam0, *, c, ld, iters, omega,
     version. ``pgs_solve_fused.launches`` counts kernel launches.
     Returns (lam (W, r), dqd (W, d)) and, with ``return_halvings``, the
     per-env count of divergence-guard halvings (W,) int32."""
-    W, d, nl, r = _check(J, Minv, qd, b, act, mu, lam0, ld, c, w_other)
-    kw = dict(c=c, ld=ld, iters=iters, omega=omega, use_cone=use_cone,
-              diag_scale=diag_scale, reg=reg, w_other=w_other,
-              return_halvings=return_halvings, symmetric=symmetric)
+    _check(J, Minv, qd, b, act, mu, lam0, ld, c, w_other)
     if J.device.type == "cpu":
-        return pgs_solve_fused_plain(J, Minv, qd, b, act, mu, lam0, **kw)
+        return pgs_solve_fused_plain(
+            J, Minv, qd, b, act, mu, lam0, c=c, ld=ld, iters=iters,
+            omega=omega, use_cone=use_cone, diag_scale=diag_scale, reg=reg,
+            w_other=w_other, return_halvings=return_halvings,
+            symmetric=symmetric)
     if J.device.type != "cuda":
         raise ValueError(f"pgs_solve_fused: unsupported device {J.device}")
+    kw = dict(c=c, iters=iters, omega=omega, use_cone=use_cone,
+              diag_scale=diag_scale, reg=reg, symmetric=symmetric)
+    lam, dqd, halv = _PGSSolve.apply(J, Minv, qd, b, act, mu, lam0,
+                                     w_other, ld, kw)
+    return (lam, dqd, halv) if return_halvings else (lam, dqd)
+
+
+def _launch(J, Minv, qd, b, act, mu, lam0, ld, w_other, *, c, iters, omega,
+            use_cone, diag_scale, reg, symmetric):
+    """One launch of B2, counted in ``pgs_solve_fused.launches``."""
+    W, r3, d = J.shape
+    nl = int(ld.numel())
+    r = r3 + 2 * nl
     ts = (J, Minv, qd, b, act, mu, lam0) + (
         () if w_other is None else (w_other,))
     if not all(t.is_contiguous() for t in ts):
@@ -285,7 +414,8 @@ def pgs_solve_fused(J, Minv, qd, b, act, mu, lam0, *, c, ld, iters, omega,
             int(not symmetric), stream)
     pgs_solve_fused.launches += 1
     _kernels.check(err, "pgs_solve_fused")
-    return (lam, dqd, halv) if return_halvings else (lam, dqd)
+    return lam, dqd, halv
 
 
 pgs_solve_fused.launches = 0
+pgs_backward.launches = 0

@@ -187,6 +187,7 @@ def bin_particles(base: torch.Tensor, res: int) -> Bins:
     if not base.is_contiguous():
         raise ValueError("bin_particles kernel takes a contiguous base")
     from .. import _kernels
+    _kernels.refuse_grad("bin_particles", base)
     N = base.shape[0]
     K = tiles(res)[1]
     meta = torch.empty((_kernels.lib().mpm_meta_ints(res),),
@@ -240,6 +241,7 @@ def p2g_apply(base: torch.Tensor, w_ax: torch.Tensor, vals: torch.Tensor,
     if vals.device.type == "cpu":
         return p2g_apply_plain(base, w_ax, vals, res)
     from .. import _kernels
+    _kernels.refuse_grad("p2g_apply (B3)", w_ax, vals)
     if bins is None:
         bins = bin_particles(base, res)
     N, C = vals.shape
@@ -274,6 +276,7 @@ def g2p_apply(base: torch.Tensor, w_ax: torch.Tensor, grid: torch.Tensor,
     if grid.device.type == "cpu":
         return g2p_apply_plain(base, w_ax, grid)
     from .. import _kernels
+    _kernels.refuse_grad("g2p_apply (B4)", w_ax, grid)
     if bins is None:
         bins = bin_particles(base, res)
     N, C = base.shape[0], grid.shape[-1]

@@ -166,11 +166,23 @@ class SolverXPBD(SolverBase):
     # ------------------------------------------------------------------
     def step(self, state_in: State, state_out: Optional[State] = None,
              control: Optional[Control] = None,
-             contacts: Optional[Contacts] = None, dt: float = 1e-3) -> State:
+             contacts: Optional[Contacts] = None, dt: float = 1e-3,
+             model: Optional[Model] = None) -> State:
         """One substep of a flat State; returns the new State (``state_out``
         is not written). Its ``body_f`` is ``state_in``'s: the joint
-        forces' wrenches act inside the substep only."""
-        model, plan, pp = self.model, self._plan, self._pplan
+        forces' wrenches act inside the substep only.
+
+        ``model``, when given, stands in for the solver's model in this
+        substep: the same topology with other parameters (spring rest
+        lengths, masses, stiffnesses), the hook for differentiating a
+        rollout with respect to them. Every constant of the plans is then
+        gathered from it again (host work: a path for gradients, not for a
+        hot loop)."""
+        if model is None or model is self.model:
+            model, plan, pp = self.model, self._plan, self._pplan
+        else:
+            plan = _XPBDPlan(model)
+            pp = _ParticlePlan(model, self) if model.particle_count else None
         B, N = model.body_count, model.particle_count
         _check_contacts(contacts)
         C = contacts.rigid_contact_max if contacts is not None else 0

@@ -21,6 +21,9 @@ import chip_smoke
     ("pgs_solve_fused", dict(c=72, nl=0, d=6, iters=30), 9124),  # the peg
     ("chol_inv_solve", dict(d=6), 336),                    # the peg
     ("chol_inv_solve", dict(d=12), 1248),                  # two free boxes
+    ("chol_backward", dict(d=14), 2520),                   # K3, the ant
+    ("chol_backward", dict(d=6, inverse=False), 192),      # K3, AVBD
+    ("pgs_backward", dict(c=25, nl=8, d=14), 12520),       # K4, the ant
 ])
 def test_bytes_per_env(name, shape, nbytes):
     got, flops = chip_smoke.kernel_cost(name, **shape)
@@ -148,3 +151,26 @@ def test_active_nodes_by_hand():
 def test_unknown_kernel_raises():
     with pytest.raises(KeyError):
         chip_smoke.kernel_cost("svd3", N=1)
+
+
+def test_backward_flops_count():
+    """K3: grhs = Minv gx, T = gMinv Minv and Minv T (2 d^3 FMAs), the
+    outer product and sum, the fold (d^2 / 2); without the inverse only
+    the outer product and the fold. K4: B2's forward again, then per
+    matvec the adjoint's 4 x 3c d + 2 nl d FMAs, dqd's adjoint and the
+    assembly's (2 x 3c d^2 + 3 x 3c d)."""
+    d = 14
+    assert chip_smoke.kernel_cost("chol_backward", d=d)[1] == \
+        4 * d ** 3 + 4 * d * d + d * d // 2
+    assert chip_smoke.kernel_cost("chol_backward", d=d, inverse=False)[1] \
+        == d * d + d * d // 2
+    c, nl, r3 = 25, 8, 75
+    fwd = chip_smoke.kernel_cost("pgs_solve_fused", c=c, nl=nl, d=d)[1]
+    bwd = 11 * (4 * r3 * d + 2 * nl * d) + r3 * d + nl * d \
+        + 2 * r3 * d * d + 3 * r3 * d
+    assert chip_smoke.kernel_cost("pgs_backward", c=c, nl=nl, d=d)[1] == \
+        fwd + 2 * bwd
+    two = chip_smoke.kernel_cost("pgs_backward", c=c, nl=nl, d=d,
+                                 w_other=True)
+    base = chip_smoke.kernel_cost("pgs_backward", c=c, nl=nl, d=d)
+    assert two[0] == base[0] + 2 * 4 * r3

@@ -328,3 +328,164 @@ def test_humanoid_substep_kernels_match_plain(cap):
         torch.testing.assert_close(getattr(k, name)[same],
                                    getattr(p, name)[same], atol=atol,
                                    rtol=atol)
+
+
+# --- the backward kernels K3 (B1's) and K4 (B2's) and the guards of the
+# kernels without one. Tolerances: K3 elementwise atol 1e-5, rtol 1e-4
+# against autograd of the plain version (chip_smoke phase 58 (a)); K4
+# normwise 1e-3 over each input's gradient on the envs whose halvings
+# equal the plain version's (at most 0.1% differ), and NaN exactly where
+# the plain version's gradient is NaN.
+
+def _vjp(fn, ins, diff, cots, **kw):
+    ins = [t.detach().clone().requires_grad_(i in diff)
+           for i, t in enumerate(ins)]
+    outs = fn(*ins, **kw)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    n = len(cots)
+    return torch.autograd.grad(outs[:n], [ins[i] for i in diff], cots), outs
+
+
+@gpu
+@needs_cuda
+@pytest.mark.parametrize("which, d, W", [("inv", 14, 4096), ("inv", 23, 4096),
+                                         ("solve", 6, 8192),
+                                         ("inv", 45, 64)])
+def test_k3_matches_plain_autograd(which, d, W):
+    """chol_inv_solve's and chol_solve's backward on the card (K3; for
+    chol_solve one more B1 solve first) against autograd of the plain
+    versions on the same inputs, with cotangents on both outputs."""
+    rng = np.random.RandomState(300 + d)
+    Mi = torch.as_tensor(_spd(rng, W, d), device="cuda")
+    rhs = torch.as_tensor(rng.randn(W, d).astype(np.float32), device="cuda")
+    gx = torch.as_tensor(rng.randn(W, d).astype(np.float32), device="cuda")
+    gM = torch.as_tensor(rng.randn(W, d, d).astype(np.float32),
+                         device="cuda")
+    inv = which == "inv"
+    kfn = linalg.chol_inv_solve if inv else linalg.chol_solve
+    pfn = linalg.chol_inv_solve_plain if inv else linalg.chol_solve_plain
+    cots = (gM, gx) if inv else (gx,)
+    before = (linalg.chol_backward.launches, linalg.chol_solve.launches)
+    gk, outs = _vjp(kfn, (Mi, rhs), (0, 1), cots)
+    torch.cuda.synchronize()
+    assert all(o.grad_fn is not None for o in outs)
+    assert linalg.chol_backward.launches == before[0] + 1
+    if not inv:        # the forward's launch and the backward's solve
+        assert linalg.chol_solve.launches == before[1] + 2
+    gp, _ = _vjp(pfn, (Mi, rhs), (0, 1), cots)
+    for a, b in zip(gk, gp):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4)
+    assert torch.equal(torch.triu(gk[0], 1), torch.zeros_like(gk[0]))
+
+
+_K4_CASES = {
+    "box": (25, 8, 14, False, False, True),
+    "cone": (25, 8, 14, True, False, True),
+    "nl0": (25, 0, 14, False, False, True),
+    "w_other": (25, 8, 14, False, True, True),
+    "nonsymmetric": (25, 8, 14, False, False, False),
+    "humanoid": (32, 17, 23, False, False, True),
+    "uncompacted": (192, 17, 23, False, False, True),
+}
+
+
+@gpu
+@needs_cuda
+@pytest.mark.parametrize("case", list(_K4_CASES))
+def test_k4_matches_plain_autograd(case):
+    """pgs_solve_fused's backward on the card (K4) against autograd of
+    the plain version: the ant's shape with the box and the cone, nl = 0,
+    w_other, a non-symmetric Minv, the humanoid's compacted system and its
+    uncompacted one (K4's global-scratch instance)."""
+    c, nl, d, cone, two, sym = _K4_CASES[case]
+    W = 4096 if c < 100 else 256
+    rng = np.random.RandomState(400 + c + nl)
+    ops = [torch.as_tensor(a, device="cuda")
+           for a in _pgs_inputs(500 + nl, c, nl, d, W)]
+    if not sym:
+        ops[1] = ops[1] + 0.1 * torch.as_tensor(
+            rng.randn(W, d, d).astype(np.float32), device="cuda")
+    ld = torch.arange(d - nl, d, dtype=torch.int32, device="cuda")
+    kw = dict(c=c, ld=ld, iters=8, omega=0.8, use_cone=cone,
+              diag_scale=1.0, reg=1e-3, return_halvings=True,
+              symmetric=sym)
+    diff = (0, 1, 2, 3, 5, 6)
+    if two:
+        ops.append(torch.as_tensor(np.abs(rng.rand(W, 3 * c)), device="cuda",
+                                   dtype=torch.float32))
+        diff = diff + (7,)
+    r = 3 * c + 2 * nl
+    cots = (torch.as_tensor(rng.randn(W, r).astype(np.float32),
+                            device="cuda"),
+            torch.as_tensor(rng.randn(W, d).astype(np.float32),
+                            device="cuda"))
+
+    def call(fn):
+        def f(J, Minv, qd, b, act, mu, lam0, w=None, **k):
+            return fn(J, Minv, qd, b, act, mu, lam0, w_other=w, **k)
+        return f
+    before = pgs.pgs_backward.launches
+    gk, ok = _vjp(call(pgs.pgs_solve_fused), ops, diff, cots, **kw)
+    torch.cuda.synchronize()
+    assert pgs.pgs_backward.launches == before + 1
+    assert ok[0].grad_fn is not None and ok[2].grad_fn is None
+    gp, op = _vjp(call(pgs.pgs_solve_fused_plain), ops, diff, cots, **kw)
+    same = ok[2] == op[2]
+    assert int((~same).sum()) <= max(W // 1000, 1)
+    for a, b in zip(gk, gp):
+        assert torch.equal(torch.isnan(a[same]), torch.isnan(b[same]))
+        fin = torch.isfinite(b[same])
+        err = (a[same][fin] - b[same][fin]).norm() / b[same][fin].norm()
+        assert float(err) <= 1e-3
+
+
+@gpu
+@needs_cuda
+def test_kernels_without_backward_refuse_grad():
+    """B3, B4, the MPM binning, K1 and K2 have no backward yet: on the card
+    each raises on an input that requires grad (never a silent zero), and
+    runs under torch.no_grad()."""
+    from newton_tpu_torch.geometry import bvh, raycast
+    from newton_tpu_torch.solvers import mpm_transfer as mt
+    dev = torch.device("cuda")
+    n, res = 64, 8
+    base = torch.randint(0, res - 2, (n, 3), dtype=torch.int32, device=dev)
+    w = torch.full((n, 3, 3), 1.0 / 3.0, device=dev, requires_grad=True)
+    vals = torch.ones(n, 4, device=dev)
+    with pytest.raises(RuntimeError, match="p2g_apply"):
+        mt.p2g_apply(base, w, vals, res)
+    grid = torch.ones(res, res, res, 4, device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match="g2p_apply"):
+        mt.g2p_apply(base, w.detach(), grid)
+    with torch.no_grad():
+        assert mt.p2g_apply(base, w, vals, res).shape == (res, res, res, 4)
+    o = torch.zeros(4, 3, device=dev, requires_grad=True)
+    dirs = torch.tensor([[0.0, 0.0, -1.0]], device=dev).expand(4, 3)
+    X = torch.tensor([[0.0, 0, -1, 0, 0, 0, 1]], device=dev)
+    sc = torch.tensor([[0.5, 0.5, 0.5]], device=dev)
+    cls = torch.tensor([1], dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="K1"):
+        raycast.closest_analytic(o, dirs, X, sc, cls)
+    v = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1]], np.float32)
+    f = np.array([[0, 2, 1], [0, 1, 3], [0, 3, 2], [1, 2, 3]], np.int32)
+    pool = bvh.BVHPool([bvh.MeshBVH(v, f)], [v], dev)
+    with pytest.raises(RuntimeError, match="K2"):
+        bvh.mesh_closest(pool, o + 0.2, dirs.contiguous(),
+                         torch.zeros(1, dtype=torch.int32, device=dev))
+
+
+@gpu
+@needs_cuda
+@pytest.mark.parametrize("c, nl, d, iters", [
+    (25, 8, 14, 8), (32, 17, 23, 8), (192, 17, 23, 8), (288, 0, 36, 16),
+    (1, 0, 3, 8), (0, 2, 4, 30)])
+def test_k4_instance_mirror(c, nl, d, iters):
+    """pgs.backward_instance / backward_scratch_floats equal the kernel's
+    own choice and workspace (pgs_backward_instance,
+    pgs_backward_scratch_floats)."""
+    from newton_tpu_torch import _kernels
+    lib = _kernels.lib()
+    code = lib.pgs_backward_instance(c, nl, d, iters)
+    assert ("smem", "global")[code] == pgs.backward_instance(c, nl, d, iters)
+    assert lib.pgs_backward_scratch_floats(c, nl, d, iters) == \
+        pgs.backward_scratch_floats(c, nl, d, iters)
