@@ -359,19 +359,25 @@ Phases, one line each:
      a render; finite, unit quaternions, finite channels; the pixel that
      points at the torso centre shows the world's torso in >= 99% of
      worlds, at the analytic sphere distance within 1e-4; 0 host syncs a
-     frame; env-steps/s with rendering, render ms, K1 timed at this shape;
-     K1 against its plain twin (t 1e-5 max(1, t), normals 1e-4, shape
-     index equal except at ties, counted) on one camera's 4,096 rays at
-     this shape (S = 14,336), the twin timed on that run, and on the ant
-     x 16 scene (R = 65,536, S = 224), primary and shadow rays; device
-     ops a frame and busy share;
+     frame; env-steps/s with rendering, render ms, K1 timed at this shape
+     (queued and back to back) and its counters read (box tests, boxes
+     opened, pairs of each class: by warp, and by each ray's own passes,
+     the work its culling left); K1 against its plain twin bit for bit
+     (t, shape index, normal; t within 1e-5 max(1, t), normals within
+     1e-4 and ties reported beside) on 4,096 rays, whole image rows of 64
+     cameras spread over the grid, at this shape (S = 14,336), the twin
+     timed on that run, and on the ant x 16 scene (R = 65,536, S = 224),
+     primary and shadow rays; device ops a frame and busy share;
  57. the other rendering paths once each at the main path's cameras: (b)
-     shadows on the main scene (K1 twice a render, hdr darker); (a) the
+     shadows on the main scene (K1 twice a render, hdr darker; K1 bit for
+     bit against its twin on the shadow rays of phase 56's 64 camera
+     rows, as the camera makes them); (a) the
      fractal terrain (128 x 128 over 128 m) as a visual-only MESH of
      32,258 triangles (no bake) under the grid, through K2, with (c) a
      12 m heightfield sphere-traced through its bake and (d) a global
      cloud of 256 Gaussians (plain compositing) in one render: each seen,
-     finite; K2 timed at the render's shape, against its plain twin on
+     finite; K1 bit for bit against its twin on those rows among the
+     extra shapes; K2 timed at the render's shape, against its plain twin on
      65,536 of its rays and both against every triangle on 4,096 of them;
      (e) the golden images (tests/golden_data) at tests/test_sensors.py's
      gates; (f) ViewerRTX writes a decodable PNG of the ant scene,
@@ -401,7 +407,14 @@ Phases, one line each:
      against autograd of the plain version (normwise 1e-3 per input,
      NaN where the plain's is) on the ant's captured operands, random
      box and cone, nl = 0, w_other and the humanoid's (32, 17, 23),
-     envs of other halvings counted, timed at the ant's and humanoid's.
+     envs of other halvings counted (K4 differentiates the forward that
+     B2 saved, whose halvings are B2's) and held to finite gradients
+     wherever B2's forward and the plain gradient are finite, timed at
+     the ant's and humanoid's from B2's saved forward; B2 with its
+     forward saved gives the bits it gives without; K4's and B2's save
+     instance's registers and blocks per SM, K4's ptxas lines (registers
+     and spill of each instance), and the saved forward's bytes a train
+     step.
 Phase 49 holds a world off tolerance against the CPU to a float64 CPU
 run (the plain versions of B1 and B2 run float64 on the CPU).
 Phases 37-51 report device ms and operations per frame, the busy share,
@@ -430,10 +443,13 @@ own bytes, beside torch.linalg.solve(A, rhs)), B1 on the sleeping boxes
 and the URDF pendulum, B2 with a
 warm lam0 on the ant, the boxes and the humanoid; B1 and B2 at each
 shape of phases 32-39 and 48-50, B2's non-symmetric form and the
-conveyor's moving support among them; K1 at phase 56's shape, its
-plain twin timed on one camera's rays, and at the ant x 16 parity scene,
+conveyor's moving support among them; K1 at phase 56's shape (its bound
+from the work each ray's own culling left, the warps' and the all-pairs
+bounds beside), its
+plain twin timed on 64 cameras' rows, and at the ant x 16 parity scene,
 K2 at phase 57 (a)'s, their bounds from kernel_cost; K3 at phase 58's
-three shapes and K4 at the ant's and the humanoid's), then the card
+three shapes and K4 at the ant's and the humanoid's, the forward that
+B2 saves for it beside), then the card
 line, then the result line ``{"ok": true,
 "device": {...}}``. Any failed phase raises: exit code != 0 and no result
 line. Without a CUDA device it exits 2 at once. A ``[details]`` line
@@ -514,7 +530,19 @@ def kernel_cost(name, W=1, **shape):
         frame, normal and rotation back, 113. K1 itself does more (two
         quaternion rotations a pair, 63, every class in the shape's
         frame, each cap's sums anew): it rounds as its plain twin does,
-        to equal it bit for bit. The bound counts the function.
+        to equal it bit for bit. This counts every pair: the function
+        without culling.
+    raycast_closest_culled (R, S, boxes, pairs = pairs of each class,
+        box_tests): K1 with culling, the work this run's data needs (the
+        kernel's per-ray counters: each ray's test of every top box and
+        of the groups of the top boxes it passes, the pairs of the groups
+        it passes; the kernels line gives the warps' work, every live
+        ray charged for what its warp opened, beside it): reads the rays,
+        each shape once (44 B and its 4 B place in the order), each box
+        once (24 B); per pair its class's cost above, per box test 56
+        (the distance bound and margin 14, the coordinates' size 16: 6
+        absolute values, 8 maxima, a product and a sum; the grown slab
+        test 26), per ray 113.
     chol_backward (d, inverse = True): K3. With the inverse: reads Minv,
         gMinv, x and gx, writes gMi and grhs; grhs = Minv gx (d^2 FMAs),
         T = gMinv Minv and Minv T (2 d^3), G = -(grhs x^T + .) (d^2 each)
@@ -528,7 +556,9 @@ def kernel_cost(name, W=1, **shape):
         and the two rank-1 updates of gJ and gMJ: 4 x 3c d + 2 nl d), the
         adjoint of dqd, and the assembly's (gJ += gMJ Minv^T and gMinv +=
         J^T gMJ: 2 x 3c d^2; diag and v_free: 3 x 3c d); with ``w_other``
-        its gradient too.
+        its gradient too. This is the function's work from its inputs:
+        the iterates that B2 saves for K4 (pgs.save_floats an env) are
+        the design's own traffic and count in neither bound.
     raycast_mesh (R, M, nodes, tris, bvh_nodes, leaf_slots, vertices): reads
         the rays, each mesh shape's transform and scale (40 B), the BVH
         once (24 B a node's box, 13 B a leaf slot's indices and mask, 12 B
@@ -601,6 +631,12 @@ def kernel_cost(name, W=1, **shape):
         per = (13 + 1, 3 + 17, 33 + 26, 33 + 39)
         nbytes = R * 44 + sum(cls) * 44
         flops = R * (sum(c * k for c, k in zip(cls, per)) + 113)
+        return nbytes, flops
+    elif name == "raycast_closest_culled":
+        per = (13 + 1, 3 + 17, 33 + 26, 33 + 39)
+        nbytes = shape["R"] * 44 + shape["S"] * 48 + shape["boxes"] * 24
+        flops = (sum(c * k for c, k in zip(shape["pairs"], per))
+                 + 56 * shape["box_tests"] + 113 * shape["R"])
         return nbytes, flops
     elif name == "raycast_mesh":
         R, M = shape["R"], shape["M"]
@@ -8778,11 +8814,12 @@ def analytic_inputs(model, state):
 
 
 def k1_compare(o, d, X, sc, cls, max_dist, label):
-    """K1 against its plain twin on the same inputs: t within CAM_T_TOL
-    max(1, t), normals within CAM_N_TOL, the same shape except where the
-    two shapes' t differ by less than CAM_T_TOL (a tie, counted). The
-    result also holds the plain twin's device time on this (its only)
-    run."""
+    """K1 against its plain twin on the same inputs: t, shape index and
+    normal equal bit for bit (culling must not change the first minimum;
+    the errors and ties, t within CAM_T_TOL max(1, t), normals within
+    CAM_N_TOL, the same shape except where the two shapes' t differ by
+    less than CAM_T_TOL, are reported beside). The result also holds the
+    plain twin's device time on this (its only) run."""
     import torch
     from newton_tpu_torch.geometry import raycast
     tk, sk, nk = raycast.closest_analytic(o, d, X, sc, cls, max_dist)
@@ -8813,9 +8850,23 @@ def k1_compare(o, d, X, sc, cls, max_dist, label):
                bit_equal=bool(torch.equal(tk, tp) and torch.equal(sk, sp)
                               and torch.equal(nk, np_)),
                plain_ms=plain_ms)
-    if not (t_ok and n_err <= CAM_N_TOL and mism == ties):
-        raise AssertionError(f"{label}: K1 vs plain off tolerance {res}")
+    if not (t_ok and n_err <= CAM_N_TOL and mism == ties
+            and res["bit_equal"]):
+        raise AssertionError(f"{label}: K1 vs plain not bit-equal {res}")
     return res, (tp, sp, np_)
+
+
+def camera_rows(n_cam, res, n_rays, dev):
+    """Indices of n_rays rays of the (n_cam res res) camera-major rays:
+    whole image rows of 64 cameras spread over the grid of worlds (every
+    n_cam / 64-th), each at its own row, so that the kernel's warps keep
+    half a row each as on the main path."""
+    import torch
+    k = n_rays // res
+    cams = torch.arange(k, device=dev) * max(1, n_cam // k) % n_cam
+    rows = torch.arange(k, device=dev) * 23 % res
+    base = (cams * res + rows) * res
+    return (base[:, None] + torch.arange(res, device=dev)).reshape(-1)
 
 
 def k1_parity(dev):
@@ -8838,8 +8889,11 @@ def k1_parity(dev):
     out["primary"], (tp, sp, np_) = k1_compare(o, d, X, sc, cls, md,
                                                "K1 primary")
     out["plain_ms"] = out["primary"].pop("plain_ms")
+    out["work"] = {}
+    raycast.closest_analytic(o, d, X, sc, cls, md, stats=out["work"])
     out["ms"] = time_ms(lambda: raycast.closest_analytic(o, d, X, sc, cls,
-                                                         md), n=10)
+                                                         md), n=10,
+                        queued=True)
     so = o + d * tp[:, None] + np_ * 1e-3
     sd = (-loop.cam._light).expand_as(so)
     out["shadow"], _ = k1_compare(so, sd, X, sc, cls, md, "K1 shadow")
@@ -8894,20 +8948,27 @@ def phase_camera_ant(dev):
     o, d = loop.cam.rays(poses)
     X, sc, cls, counts = analytic_inputs(model, state)
     md = loop.cam.max_dist
-    sub = slice(0, CAM_PLAIN_RAYS)
-    # K1 against its twin at the main path's shapes (S = 14,336: 112
-    # shared-memory tiles, the 1,024 coincident floors) on one camera
-    cmp, _ = k1_compare(o[sub], d[sub], X, sc, cls, md, f"{label}: K1")
+    sub = camera_rows(CAM_W, CAM_RES, CAM_PLAIN_RAYS, dev)
+    os_, ds_ = o[sub].contiguous(), d[sub].contiguous()
+    # K1 against its twin at the main path's shapes (S = 14,336, the
+    # 1,024 coincident floors) on rows of 64 cameras across the grid
+    cmp, _ = k1_compare(os_, ds_, X, sc, cls, md, f"{label}: K1")
     if not cmp["hits"]:
         raise AssertionError(f"{label}: K1 vs plain saw no hit {cmp}")
+    work = {}
+    raycast.closest_analytic(o, d, X, sc, cls, md, stats=work)
+    # timed with the stream held busy (the device's time, pre-pass
+    # included) and back to back (the pre-pass's host dispatch included)
     res["k1"] = dict(
-        rays=o.shape[0], shapes=X.shape[0], class_counts=counts,
+        rays=o.shape[0], shapes=X.shape[0], class_counts=counts, work=work,
         ms=time_ms(lambda: raycast.closest_analytic(o, d, X, sc, cls, md),
-                   n=3),
+                   n=3, queued=True),
+        ms_unqueued=time_ms(lambda: raycast.closest_analytic(
+            o, d, X, sc, cls, md), n=3),
         plain_rays=CAM_PLAIN_RAYS, plain_ms=cmp.pop("plain_ms"),
         compare=cmp,
         ms_on_plain_rays=time_ms(lambda: raycast.closest_analytic(
-            o[sub], d[sub], X, sc, cls, md), n=10))
+            os_, ds_, X, sc, cls, md), n=10, queued=True))
     _, syncs = count_syncs(lambda: loop.frame(state))
     res.update(host_syncs_per_frame=syncs, sync_sites=list(SYNC_SITES))
     if syncs:
@@ -9093,6 +9154,16 @@ def phase_camera_paths(dev, main):
     if res["shadows"]["k1_launches"] != 3 or not \
             res["shadows"]["hdr_mean"] < res["shadows"]["hdr_mean_unshadowed"]:
         raise AssertionError(f"{label}: shadows {res['shadows']}")
+    # K1 against its twin on the shadow rays of rows of 64 cameras, made
+    # as the camera makes them (misses too: their origin lies 1e10 away)
+    sub = camera_rows(CAM_W, CAM_RES, CAM_PLAIN_RAYS, dev)
+    o, d = (x[sub].contiguous() for x in loop.cam.rays(poses))
+    X0, sc0, cls0, _ = analytic_inputs(model0, state0)
+    t, _, n = raycast.closest_analytic(o, d, X0, sc0, cls0, shad.max_dist)
+    so = o + d * t[:, None] + n * 1e-3
+    sd = (-shad._light).expand_as(so).contiguous()
+    res["shadows"]["k1_compare"], _ = k1_compare(
+        so, sd, X0, sc0, cls0, shad.max_dist, f"{label}: K1 shadow rays")
     # (a), (c), (d): the terrain mesh, the heightfield, the splat cloud
     t0 = time.perf_counter()
     model = camera_extras_scene(nt, CAM_W).finalize(dev)
@@ -9131,9 +9202,12 @@ def phase_camera_paths(dev, main):
         raise AssertionError(f"{label}: {res}")
     o, d = cam.rays(poses)
     X, sc, cls, counts = analytic_inputs(model, state)
+    cmp, _ = k1_compare(o[sub].contiguous(), d[sub].contiguous(), X, sc,
+                        cls, cam.max_dist, f"{label}: K1 with the extras")
     res["k1"] = dict(rays=o.shape[0], shapes=X.shape[0], class_counts=counts,
+                     compare=cmp,
                      ms=time_ms(lambda: raycast.closest_analytic(
-                         o, d, X, sc, cls, cam.max_dist), n=3))
+                         o, d, X, sc, cls, cam.max_dist), n=3, queued=True))
     # K2 at the render's shape, its plain twin on every 64th ray, both
     # against every triangle on K2_BRUTE_RAYS of those
     sel, bvh_of, pool = raycast._tables(model, dev)["mesh"]
@@ -9223,10 +9297,10 @@ def camera_kernel_entries(cam, paths):
              launches=cam["launches"][3],
              max_abs_err=k1["compare"]["t_max_abs_err"],
              ties=k1["compare"]["ties"], ms=k1["ms"],
+             ms_unqueued=k1["ms_unqueued"],
              plain_ms=k1["plain_ms"], plain_rays=k1["plain_rays"],
              ms_on_plain_rays=k1["ms_on_plain_rays"],
-             **bound_fields("raycast_closest", k1["ms"], R=k1["rays"],
-                            classes=k1["class_counts"])),
+             work=k1["work"], **k1_bounds(k1)),
         dict(name=f"raycast_closest (K1) ant x {CAM_PARITY_W} "
                   f"R={par['primary']['rays']} S={par['primary']['shapes']}",
              **src, replaces=k1_none, library=k1_lib,
@@ -9234,10 +9308,9 @@ def camera_kernel_entries(cam, paths):
              launches=0, max_abs_err=par["primary"]["t_max_abs_err"],
              shadow_max_abs_err=par["shadow"]["t_max_abs_err"],
              ties=(par["primary"]["ties"], par["shadow"]["ties"]),
-             ms=par["ms"], plain_ms=par["plain_ms"],
-             **bound_fields("raycast_closest", par["ms"],
-                            R=par["primary"]["rays"],
-                            classes=par["class_counts"])),
+             ms=par["ms"], plain_ms=par["plain_ms"], work=par["work"],
+             **k1_bounds(dict(par, rays=par["primary"]["rays"],
+                              shapes=par["primary"]["shapes"]))),
         dict(name=f"raycast_mesh (K2) terrain mesh R={k2['rays']} "
                   f"M={k2['mesh_shapes']} T={k2['triangles']}", **src,
              replaces="none: no TPU kernel; newton_tpu/geometry/bvh.py:164 "
@@ -9321,6 +9394,7 @@ def grad_kernel_entries(grad, gk):
             library_ms=c["library_ms"],
             bound_ms=c["bound_ms"], bound_by=c["bound_by"],
             share_of_bound=c["share_of_bound"]))
+    from newton_tpu_torch.solvers.generalized import pgs
     times = gk["k4_times"]
     for label, shape, launches in (
             ("ant substep (25, 8, 14)", (25, 8, 14), grad["launches"]["K4"]),
@@ -9336,8 +9410,27 @@ def grad_kernel_entries(grad, gk):
                        "gradients, envs of equal halvings",
             ms=ms, plain_ms=plain_ms,
             **bound_fields("pgs_backward", ms, c=c, nl=nl, d=d, W=K4_W,
-                           iters=ITERS)))
+                           iters=ITERS),
+            # beside the bound: the forward that B2 saves for K4 (the
+            # design's traffic, not the function's), read once
+            saved_forward_bytes=4 * K4_W * pgs.save_floats(c, nl, d, ITERS),
+            saved_forward_read_ms=4 * K4_W * pgs.save_floats(c, nl, d, ITERS)
+            / PEAK_BYTES_PER_S * 1e3))
     return out
+
+
+def k1_bounds(k1):
+    """K1's bound from the work each ray's own culling left (the bound),
+    from the work its warps did (warp_), and with every pair (all_pairs_)."""
+    w = k1["work"]
+    shape = dict(R=k1["rays"], S=k1["shapes"], boxes=w["groups"] + w["tops"])
+    return dict(
+        **bound_fields("raycast_closest_culled", k1["ms"], **shape,
+                       pairs=w["ray_pairs"], box_tests=w["ray_box_tests"]),
+        **bound_fields("raycast_closest_culled", k1["ms"], "warp_", **shape,
+                       pairs=w["pairs"], box_tests=w["box_tests"]),
+        **bound_fields("raycast_closest", k1["ms"], "all_pairs_",
+                       R=k1["rays"], classes=k1["class_counts"]))
 
 
 def pgs_smem(rec):
@@ -9742,8 +9835,9 @@ def k3_case(dev, which, d, n, seed):
 
 def k4_case(args, kw, glam, gdqd):
     """K4 against autograd of the plain version on one operand set: the
-    envs whose B2 halvings differ from the plain version's are counted and
-    left out; the largest normwise error over the inputs' gradients."""
+    envs whose B2 halvings differ from the plain version's (K4 follows
+    B2's) are counted and left out; the largest normwise error over the
+    inputs' gradients."""
     import torch
     from newton_tpu_torch.solvers.generalized import pgs
     names = ("J", "Minv", "qd", "b", "mu", "lam0")
@@ -9760,12 +9854,15 @@ def k4_case(args, kw, glam, gdqd):
         lam, dqd, halv = fn(*ins, **kw2, return_halvings=True)
         wrt = [ins[i] for i in diff_idx] + (
             [kw2["w_other"]] if w is not None else [])
-        return torch.autograd.grad((lam, dqd), wrt, (glam, gdqd)), halv
+        fwd_finite = (torch.isfinite(lam).all(1)
+                      & torch.isfinite(dqd).all(1))
+        return (torch.autograd.grad((lam, dqd), wrt, (glam, gdqd)), halv,
+                fwd_finite)
     before = pgs.pgs_backward.launches
-    gk, hk = vjp(pgs.pgs_solve_fused)
+    gk, hk, fk = vjp(pgs.pgs_solve_fused)
     torch.cuda.synchronize()
     launched = pgs.pgs_backward.launches - before
-    gp, hp = vjp(pgs.pgs_solve_fused_plain)
+    gp, hp, _ = vjp(pgs.pgs_solve_fused_plain)
     keep = hk == hp
     errs = {}
     for name, a, b in zip(names + ("w_other",), gk, gp):
@@ -9774,21 +9871,35 @@ def k4_case(args, kw, glam, gdqd):
         errs[name] = float(num / den)
     worst = max(errs.values())
     finite_where_plain = bool(all(
-        torch.equal(torch.isfinite(a), torch.isfinite(b))
+        torch.equal(torch.isfinite(a[keep]), torch.isfinite(b[keep]))
+        for a, b in zip(gk, gp)))
+    # envs of other halvings: finite wherever B2's forward there and the
+    # plain gradient are finite (the cone's zero tangent is NaN in both)
+    other = ~keep & fk
+    finite_elsewhere = bool(all(
+        torch.isfinite(a[other])[torch.isfinite(b[other])].all()
         for a, b in zip(gk, gp)))
     return dict(errors=errs, worst=worst, launches=launched,
                 halving_mismatch_envs=int((~keep).sum()),
-                nan_pattern_equal=finite_where_plain)
+                nan_pattern_equal=finite_where_plain,
+                finite_in_other_envs=finite_elsewhere)
 
 
 def k4_time(args, kw, glam, gdqd):
-    """(K4 ms, plain backward ms) at one operand set."""
+    """(K4 ms, plain backward ms) at one operand set, K4 given the forward
+    that B2 saved there."""
     import torch
     from newton_tpu_torch.solvers.generalized import pgs
     w = kw.get("w_other")
     a = [t.detach() for t in args]
+    W, r3, d = a[0].shape
+    save = torch.empty((W, pgs.save_floats(kw["c"], int(kw["ld"].numel()),
+                                           d, kw["iters"])), device=a[0].device)
+    pgs._launch(*a, kw["ld"], w, save=save, **{
+        k: kw[k] for k in ("c", "iters", "omega", "use_cone", "diag_scale",
+                           "reg")}, symmetric=kw.get("symmetric", True))
     ms = time_ms(lambda: pgs.pgs_backward(
-        *a, kw["ld"], w, glam, gdqd, c=kw["c"], iters=kw["iters"],
+        *a, kw["ld"], w, glam, gdqd, save, c=kw["c"], iters=kw["iters"],
         omega=kw["omega"], use_cone=kw["use_cone"],
         diag_scale=kw["diag_scale"], reg=kw["reg"],
         symmetric=kw.get("symmetric", True)), queued=True)
@@ -9846,13 +9957,83 @@ def phase_grad_kernels(dev, ant_rec):
         glam, gdqd = cots(args, kw)
         res = k4_case(args, kw, glam, gdqd)
         if res["launches"] != 1 or res["worst"] > K4_RTOL or not \
-                res["nan_pattern_equal"] or \
+                res["nan_pattern_equal"] or not \
+                res["finite_in_other_envs"] or \
                 res["halving_mismatch_envs"] > max(K4_W // 1000, 1):
             raise AssertionError(f"K4 {label}: {res}")
         cases[label] = res
         if label.startswith(("ant", "humanoid")):
             times[label] = k4_time(args, kw, glam, gdqd)
-    return dict(k3=a, k4=cases, k4_times=times)
+    return dict(k3=a, k4=cases, k4_times=times,
+                b2_save_bit_equal=b2_save_equal(*sets[
+                    "ant substep (25, 8, 14)"]),
+                k4_info=k4_info(), k4_ptxas=ptxas_lines("pgs_backward_kernel"),
+                save_bytes_per_train_step=4 * GRAD_W
+                * GRAD_FRAMES * SUBSTEPS * pgs_save_floats(ant_rec))
+
+
+def pgs_save_floats(rec):
+    """Floats per env that B2 saves for K4 at a captured call's shape."""
+    from newton_tpu_torch.solvers.generalized import pgs
+    args, kw = rec
+    return pgs.save_floats(kw["c"], int(kw["ld"].numel()),
+                           args[0].shape[2], kw["iters"])
+
+
+def b2_save_equal(args, kw):
+    """B2 with its forward saved gives the bits it gives without."""
+    import torch
+    from newton_tpu_torch.solvers.generalized import pgs
+    a = [t.detach() for t in args]
+    k = {n: kw[n] for n in ("c", "iters", "omega", "use_cone", "diag_scale",
+                            "reg")}
+    k["symmetric"] = kw.get("symmetric", True)
+    save = torch.empty((a[0].shape[0], pgs_save_floats((a, kw))),
+                       device=a[0].device)
+    plain = pgs._launch(*a, kw["ld"], kw.get("w_other"), **k)
+    saved = pgs._launch(*a, kw["ld"], kw.get("w_other"), save=save, **k)
+    return all(torch.equal(x, y) for x, y in zip(plain, saved))
+
+
+def ptxas_lines(kernel):
+    """{instance: its registers line and its spill line} of the kernel
+    instances whose mangled name holds ``kernel``, from the build's
+    ptxas.log."""
+    import re
+    from newton_tpu_torch import _kernels
+    out, name = {}, None
+    with open(os.path.join(os.path.dirname(_kernels.build()),
+                           "ptxas.log")) as f:
+        for ln in f:
+            m = re.search(r"Function properties for (\S+)", ln)
+            if m:
+                name = m.group(1) if kernel in m.group(1) else None
+                if name:
+                    t = re.search(r"ILi(\d+)E", name)
+                    name = f"{kernel}<{t.group(1)}>" if t else name
+                    out[name] = []
+            elif name and ("spill" in ln or "registers" in ln):
+                out[name].append(ln.strip().replace("ptxas info    : ", ""))
+    return out
+
+
+def k4_info():
+    """K4's and B2's save instance's registers and blocks per SM at the
+    ant's and the humanoid's shapes."""
+    import ctypes
+    from newton_tpu_torch import _kernels
+    lib = _kernels.lib()
+    out = {}
+    for shape in ((25, 8, 14), (32, 17, 23)):
+        for label, fn, extra in (("K4", lib.pgs_backward_kernel_info,
+                                  (ITERS,)),
+                                 ("B2 save", lib.pgs_save_kernel_info, ())):
+            regs, blocks = ctypes.c_int(0), ctypes.c_int(0)
+            _kernels.check(fn(*shape, *extra, ctypes.addressof(regs),
+                              ctypes.addressof(blocks)), label)
+            out[f"{label} {shape}"] = dict(registers=regs.value,
+                                           blocks_per_sm=blocks.value)
+    return out
 
 
 def bound_fields(name, ms, prefix="", **shape):
@@ -10588,7 +10769,9 @@ def main():
           f"{cam['gates']}, {cam['env_steps_per_s']:.1f} env-steps/s with "
           f"rendering, frame {cam['frame_ms']:.2f} ms, render "
           f"{cam['render_ms']:.2f} ms, K1 R={cam['k1']['rays']} "
-          f"S={cam['k1']['shapes']} {cam['k1']['ms']:.3f} ms (plain "
+          f"S={cam['k1']['shapes']} {cam['k1']['ms']:.3f} ms queued, "
+          f"{cam['k1']['ms_unqueued']:.3f} ms back to back, work "
+          f"{cam['k1']['work']} (plain "
           f"{cam['k1']['plain_ms']:.2f} ms on {CAM_PLAIN_RAYS} rays, K1 "
           f"{cam['k1']['ms_on_plain_rays']:.4f} ms there; K1 vs plain "
           f"there {cam['k1']['compare']}), host syncs a "
@@ -10655,10 +10838,16 @@ def main():
     print("[58 (b) K4] " + "; ".join(
         f"{k}: worst rel {v['worst']:.3g}, halving mismatch "
         f"{v['halving_mismatch_envs']}, NaN pattern equal "
-        f"{v['nan_pattern_equal']}" for k, v in gk["k4"].items())
+        f"{v['nan_pattern_equal']}, finite in other envs "
+        f"{v['finite_in_other_envs']}" for k, v in gk["k4"].items())
         + "; times " + "; ".join(
             f"{k}: K4 {t[0]:.4f} ms, plain backward {t[1]:.3f} ms"
-            for k, t in gk["k4_times"].items()) + f" on {card}", flush=True)
+            for k, t in gk["k4_times"].items())
+        + f"; registers and blocks per SM {gk['k4_info']}; ptxas "
+        f"{gk['k4_ptxas']}; B2's saved "
+        f"forward {gk['save_bytes_per_train_step'] / 1e6:.1f} MB a train "
+        f"step; B2 with the save bit-equal to without "
+        f"{gk['b2_save_bit_equal']} on {card}", flush=True)
     mark("58")
 
     results["kernel_info"] = kernel_info()

@@ -27,7 +27,7 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _SOURCES = ("chol_inv_solve.cu", "pgs_solve.cu", "mpm_transfer.cu",
             "raycast.cu", "chol_backward.cu", "pgs_backward.cu")
-_HEADERS = ("exact_math.cuh",)
+_HEADERS = ("exact_math.cuh", "pgs_save.cuh")
 
 _lib = None
 
@@ -43,6 +43,13 @@ _SIGNATURES = {
     "pgs_solve_fused_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _F, _I, _F, _F, _P, _I,
                             _P],
+    # the same with the forward saved: ..., minv_t, save, stream
+    "pgs_solve_fused_save_f32": [_P] * 12 + [_I, _I, _I, _I, _I, _F, _I, _F,
+                                             _F, _P, _I, _P, _P],
+    # c, nl, d, iters -> floats per env of the saved forward
+    "pgs_save_floats": [_I, _I, _I, _I],
+    # c, nl, d, &registers, &blocks per SM of the save instance
+    "pgs_save_kernel_info": [_I, _I, _I, _P, _P],
     # c, nl, d -> bytes of one pgs block's state
     "pgs_smem_bytes": [_I, _I, _I],
     # c, nl, d -> instance code (pgs.INSTANCE_CODES)
@@ -65,8 +72,10 @@ _SIGNATURES = {
     "chol_scratch_floats": [_I],
     # c, nl, d -> floats of global scratch per env
     "pgs_scratch_floats": [_I, _I, _I],
-    # o, d, R, X, scale, cls, S, max_dist, t, shape, n, stream
-    "raycast_closest_f32": [_P, _P, _I, _P, _P, _P, _I, _F, _P, _P, _P, _P],
+    # o, d, R, X, scale, cls, order, counts, gbox, tbox, max_dist, t,
+    # shape, n, stats (or NULL), stream
+    "raycast_closest_f32": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _F, _P,
+                            _P, _P, _P, _P],
     # o, d, R, X (or NULL), scale (or NULL), bvh_of, M, lo, hi, tris, mask,
     # verts, params, K, t, n, stats (or NULL), stream
     "raycast_mesh_f32": [_P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
@@ -79,10 +88,11 @@ _SIGNATURES = {
     # &registers, &blocks per SM of K3's launch
     "chol_backward_kernel_info": [_P, _P],
     # K4: J, Minv, qd, b, act, mu, lam0, ld, w_other (or NULL), glam (or
-    # NULL), gdqd (or NULL), gJ, gMinv, gqd, gb, gmu, glam0, gw (NULL
-    # without w_other), W, c, nl, d, iters, omega, use_cone, diag_scale,
-    # reg, scratch (the global instance), minv_t, stream
-    "pgs_solve_backward_f32": [_P] * 18 + [_I] * 5 + [_F, _I, _F, _F, _P,
+    # NULL), gdqd (or NULL), save (B2's saved forward), gJ, gMinv, gqd,
+    # gb, gmu, glam0, gw (NULL without w_other), W, c, nl, d, iters,
+    # omega, use_cone, diag_scale, reg, scratch (the global instance),
+    # minv_t, stream
+    "pgs_solve_backward_f32": [_P] * 19 + [_I] * 5 + [_F, _I, _F, _F, _P,
                                                      _I, _P],
     # c, nl, d, iters -> K4's instance (0: shared memory, 1: global)
     "pgs_backward_instance": [_I, _I, _I, _I],
@@ -93,7 +103,8 @@ _SIGNATURES = {
 }
 _RESTYPES = {"chol_scratch_floats": ctypes.c_longlong,
              "pgs_scratch_floats": ctypes.c_longlong,
-             "pgs_backward_scratch_floats": ctypes.c_longlong}
+             "pgs_backward_scratch_floats": ctypes.c_longlong,
+             "pgs_save_floats": ctypes.c_longlong}
 
 
 def _nvcc() -> str:

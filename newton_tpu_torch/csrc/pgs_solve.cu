@@ -97,14 +97,29 @@
 //     port's robots reaches it.
 // Tensor cores are not used: the float32 parity the port holds forbids
 // TF32, and the work is a few microseconds at the float32 peak.
+//
+// Saving the forward for the backward (K4, csrc/pgs_backward.cu): where an
+// input requires grad the wrapper passes `save`, W x pgs_save_floats
+// floats, and the launch takes an instance of its path with kSave set,
+// which also writes per env what the adjoint needs of this forward
+// (pgs_save.cuh: each power iteration's Delassus product and d-vector
+// and norm; each sweep's d-vector, residual, pre-projection lambda, new
+// lambda and guard flag), so that K4 differentiates the iterates this
+// launch took. Without `save` the instances without kSave run, whose
+// instructions are those they ran before saving existed; the register
+// path's save instances may hold 72 registers (7 blocks per SM), 80 (6)
+// with a non-symmetric Minv, where 72 spilled 8 bytes.
 
 #include <cuda_runtime.h>
 
 #include "exact_math.cuh"
+#include "pgs_save.cuh"
 
 namespace {
 
 using ntt::copy_async;
+using ntt::save_layout;
+using ntt::SaveLayout;
 using ntt::div_rn;
 using ntt::rcp_rn;
 using ntt::sqrt_rn;
@@ -326,10 +341,12 @@ __device__ __forceinline__ float w_own(const float* w, int r3, int c) {
 // row 3 i + q, lane 3 the limit pair i; each keeps its J row (S floats)
 // and its rows' lambda, diag, v_free, b and act in registers for the whole
 // solve, and builds its MJ row from them.
-template <int S, bool kTwoSided, bool kMinvT>
-__global__ void __launch_bounds__(128, kMinvT ? 7 : 8)
+template <int S, bool kTwoSided, bool kMinvT, bool kSave>
+__global__ void __launch_bounds__(128, kMinvT && kSave ? 6
+                                       : kMinvT || kSave ? 7 : 8)
 pgs_kernel_reg(Dims D, Args A, const float* __restrict__ w_other,
-               int /* minv_t: this path's is kMinvT */) {
+               int /* minv_t: this path's is kMinvT */,
+               float* __restrict__ save) {
   // lane groups of phase 1: d in (S - 4, S], so 32 / pow2(d) is known
   constexpr int NT = 128, NW = 4, S4 = S / 4, G = S <= 16 ? 2 : 1;
   extern __shared__ float4 sm4[];
@@ -448,8 +465,23 @@ pgs_kernel_reg(Dims D, Args A, const float* __restrict__ w_other,
     float y = row_dot();
     if constexpr (kTwoSided)
       if (two_sided) y += w_own(w_other, r3, c) * xs[xi];
+    if constexpr (kSave) {
+      const SaveLayout L = save_layout(r, d, A.spectral_iters, A.iters);
+      float* sv = save + (size_t)ntt::fresh_bid() * L.total;
+      for (int f = tid; f < d; f += NT) sv[L.ptp + it * d + f] = tmp[f];
+      if (contact) sv[L.py + it * r + q * c + i] = y;
+      if (limit) {
+        sv[L.py + it * r + r3 + i] = y;
+        sv[L.py + it * r + r3 + nl + i] = -y;
+      }
+    }
     const float v0 = rs * y * aa[0], v1 = rs * (-y) * aa[1];
     const float nrm = sqrt_rn(block_sum<NW>(v0 * v0 + v1 * v1, red, buf));
+    if constexpr (kSave)
+      if (tid == 0) {
+        const SaveLayout L = save_layout(r, d, A.spectral_iters, A.iters);
+        save[(size_t)ntt::fresh_bid() * L.total + L.nrm + it] = nrm;
+      }
     lam_max = nrm;
     // the next step's x = D^-1/2 u, u = v / max(nrm, 1e-9); after the
     // last step the first sweep's x = lam0
@@ -474,10 +506,16 @@ pgs_kernel_reg(Dims D, Args A, const float* __restrict__ w_other,
   const bool friction = contact && q > 0;
   for (int it = 0; it < A.iters; ++it) {
     phase1<NT, S, G>(D, MJ, xs, part, tmp);
+    if constexpr (kSave) {
+      const SaveLayout L = save_layout(r, d, A.spectral_iters, A.iters);
+      float* sv = save + (size_t)ntt::fresh_bid() * L.total;
+      for (int f = tid; f < d; f += NT) sv[L.tmp + it * d + f] = tmp[f];
+    }
     float y = row_dot();
     if constexpr (kTwoSided)
       if (two_sided) y += w_own(w_other, r3, c) * lm[0];
-    const float y0 = lm[0] - sd * ((y + vf) - bb[0]);
+    const float res0 = (y + vf) - bb[0];
+    const float y0 = lm[0] - sd * res0;
     // the quad's normal and tangents, exchanged in registers
     const float yn = __shfl_sync(0xffffffffu, y0, base);
     const float y1 = __shfl_sync(0xffffffffu, y0, base + 1);
@@ -491,17 +529,40 @@ pgs_kernel_reg(Dims D, Args A, const float* __restrict__ w_other,
       fr = fminf(fmaxf(y0, -cap), cap);
     }
     const float v0 = finite_or_zero((friction ? fr : fmaxf(y0, 0.f)) * aa[0]);
-    const float yh = lm[1] - sd * ((-y + -vf) - bb[1]);
+    const float res1 = (-y + -vf) - bb[1];
+    const float yh = lm[1] - sd * res1;
     const float v1 = finite_or_zero(fmaxf(yh, 0.f) * aa[1]);
     const float dl0 = v0 - lm[0], dl1 = v1 - lm[1];
     lm[0] = v0;
     lm[1] = v1;
     if (owner) xs[xi] = v0 - v1;
+    if constexpr (kSave) {
+      const SaveLayout L = save_layout(r, d, A.spectral_iters, A.iters);
+      float* sv = save + (size_t)ntt::fresh_bid() * L.total + it * r;
+      if (owner) {
+        const int row0 = contact ? q * c + i : r3 + i;
+        sv[L.lam + row0] = v0;
+        sv[L.res + row0] = res0;
+        sv[L.yf + row0] = y0;
+      }
+      if (limit) {
+        sv[L.lam + r3 + nl + i] = v1;
+        sv[L.res + r3 + nl + i] = res1;
+        sv[L.yf + r3 + nl + i] = yh;
+      }
+    }
     const float dn = block_sum<NW>(dl0 * dl0 + dl1 * dl1, red, buf);
-    if (it > 0 && dn > prev_dn * 1.02f) {
+    const bool grow = it > 0 && dn > prev_dn * 1.02f;
+    if (grow) {
       sd *= 0.5f;
       ++halvings;
     }
+    if constexpr (kSave)
+      if (tid == 0) {
+        const SaveLayout L = save_layout(r, d, A.spectral_iters, A.iters);
+        save[(size_t)ntt::fresh_bid() * L.total + L.grow + it] =
+            grow ? 1.f : 0.f;
+      }
     prev_dn = dn;
   }
 
@@ -524,10 +585,10 @@ pgs_kernel_reg(Dims D, Args A, const float* __restrict__ w_other,
 // memory (interleaved contact rows, limits last), or with kGlobal in the
 // env's slice of the global scratch, and quads make as many passes as the
 // contacts or limit pairs need.
-template <int NT, bool kGlobal = false>
+template <int NT, bool kGlobal = false, bool kSave = false>
 __global__ void __launch_bounds__(NT, NT == 128 && !kGlobal ? 4 : 1)
 pgs_kernel_smem(Dims D, Args A, const float* __restrict__ w_other,
-                int minv_t) {
+                int minv_t, float* __restrict__ save) {
   constexpr int NW = NT / 32, NQ = NT / 4;
   extern __shared__ float4 sm4[];
   float* sm = kGlobal ? A.scratch + blockIdx.x * A.scratch_floats
@@ -624,8 +685,16 @@ pgs_kernel_smem(Dims D, Args A, const float* __restrict__ w_other,
   }
   __syncthreads();
   float lam_max = 0.f;
+  float* sv = nullptr;
+  SaveLayout SL;
+  if constexpr (kSave) {
+    SL = save_layout(r, d, A.spectral_iters, A.iters);
+    sv = save + e * SL.total;
+  }
   for (int it = 0; it < A.spectral_iters; ++it) {
     phase1<NT>(D, MJ, xs, part, tmp);
+    if constexpr (kSave)
+      for (int f = tid; f < d; f += NT) sv[SL.ptp + it * d + f] = tmp[f];
     float acc = 0.f;
     for (int p = 0; p < passes; ++p) {
       const int i = p * NQ + quad;
@@ -633,12 +702,17 @@ pgs_kernel_smem(Dims D, Args A, const float* __restrict__ w_other,
         const int k = 3 * i + q;
         float y = dot4(J + k * s, tmp, s4);
         if (wo_e) y += w_of(k) * xs[k];
+        if constexpr (kSave) sv[SL.py + it * r + q * c + i] = y;
         const float v = rsqrtf(diag[k]) * y * act[k];
         lamn[k] = v;
         acc += v * v;
       } else if (q == 3 && i < nl) {
         const float t = tmp[ld[i]];
         const int lo = r3 + i, hi = r3 + nl + i;
+        if constexpr (kSave) {
+          sv[SL.py + it * r + lo] = t;
+          sv[SL.py + it * r + hi] = -t;
+        }
         const float vlo = rsqrtf(diag[lo]) * t * act[lo];
         const float vhi = rsqrtf(diag[hi]) * (-t) * act[hi];
         lamn[lo] = vlo;
@@ -647,6 +721,8 @@ pgs_kernel_smem(Dims D, Args A, const float* __restrict__ w_other,
       }
     }
     const float nrm = sqrt_rn(block_sum<NW>(acc, red, buf));
+    if constexpr (kSave)
+      if (tid == 0) sv[SL.nrm + it] = nrm;
     lam_max = nrm;
     // the next step's x = D^-1/2 u, u = lamn / max(nrm, 1e-9); after the
     // last step the first sweep's x = lam0
@@ -673,6 +749,8 @@ pgs_kernel_smem(Dims D, Args A, const float* __restrict__ w_other,
   int halvings = 0;
   for (int it = 0; it < A.iters; ++it) {
     phase1<NT>(D, MJ, xs, part, tmp);
+    if constexpr (kSave)
+      for (int f = tid; f < d; f += NT) sv[SL.tmp + it * d + f] = tmp[f];
     float acc = 0.f;
     for (int p = 0; p < passes; ++p) {
       const int i = p * NQ + quad;
@@ -682,7 +760,12 @@ pgs_kernel_smem(Dims D, Args A, const float* __restrict__ w_other,
       if (contact) {
         float y = dot4(J + k * s, tmp, s4);
         if (wo_e) y += w_of(k) * lam[k];
-        yf = lam[k] - div_rn(scale, diag[k]) * ((y + vfree[k]) - b[k]);
+        const float res = (y + vfree[k]) - b[k];
+        yf = lam[k] - div_rn(scale, diag[k]) * res;
+        if constexpr (kSave) {
+          sv[SL.res + it * r + q * c + i] = res;
+          sv[SL.yf + it * r + q * c + i] = yf;
+        }
       }
       // the quad's normal and tangents, exchanged in registers
       const float yn = __shfl_sync(0xffffffffu, yf, base);
@@ -704,6 +787,7 @@ pgs_kernel_smem(Dims D, Args A, const float* __restrict__ w_other,
         const float dl = v - lam[k];
         lamn[k] = v;
         xs[k] = v;
+        if constexpr (kSave) sv[SL.lam + it * r + q * c + i] = v;
         acc += dl * dl;
       } else if (q == 3 && i < nl) {
         const float t = tmp[ld[i]];
@@ -711,10 +795,14 @@ pgs_kernel_smem(Dims D, Args A, const float* __restrict__ w_other,
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int kk = r3 + h * nl + i;
-          const float yl =
-              lam[kk] - div_rn(scale, diag[kk])
-                            * (((h ? -t : t) + vfree[kk]) - b[kk]);
+          const float res = ((h ? -t : t) + vfree[kk]) - b[kk];
+          const float yl = lam[kk] - div_rn(scale, diag[kk]) * res;
           v2[h] = finite_or_zero(fmaxf(yl, 0.f) * act[kk]);
+          if constexpr (kSave) {
+            sv[SL.res + it * r + kk] = res;
+            sv[SL.yf + it * r + kk] = yl;
+            sv[SL.lam + it * r + kk] = v2[h];
+          }
           const float dl = v2[h] - lam[kk];
           lamn[kk] = v2[h];
           acc += dl * dl;
@@ -723,10 +811,13 @@ pgs_kernel_smem(Dims D, Args A, const float* __restrict__ w_other,
       }
     }
     const float dn = block_sum<NW>(acc, red, buf);   // lamn, xs complete
-    if (it > 0 && dn > prev_dn * 1.02f) {
+    const bool grow = it > 0 && dn > prev_dn * 1.02f;
+    if (grow) {
       scale *= 0.5f;
       ++halvings;
     }
+    if constexpr (kSave)
+      if (tid == 0) sv[SL.grow + it] = grow ? 1.f : 0.f;
     prev_dn = dn;
     float* t = lam;
     lam = lamn;
@@ -761,33 +852,37 @@ size_t scratch_floats(const Dims& D) {
 
 // The kernel of an instance, its threads and dynamic shared memory, with
 // the carveout and large-shared-memory opt-in it needs.
-using Kernel = void (*)(Dims, Args, const float*, int);
+using Kernel = void (*)(Dims, Args, const float*, int, float*);
 
-cudaError_t prepare(const Dims& D, bool two_sided, bool minv_t, Kernel* k,
-                    int* threads, int* smem) {
+template <int S, bool kSave>
+Kernel reg_kernel(bool two_sided, bool minv_t) {
+  return two_sided ? (minv_t ? pgs_kernel_reg<S, true, true, kSave>
+                             : pgs_kernel_reg<S, true, false, kSave>)
+                   : (minv_t ? pgs_kernel_reg<S, false, true, kSave>
+                             : pgs_kernel_reg<S, false, false, kSave>);
+}
+
+template <bool kSave>
+Kernel pick(int inst, bool two_sided, bool minv_t) {
+  switch (inst) {
+    case 16: return reg_kernel<16, kSave>(two_sided, minv_t);
+    case 24: return reg_kernel<24, kSave>(two_sided, minv_t);
+    case 128: return pgs_kernel_smem<128, false, kSave>;
+    case 256: return pgs_kernel_smem<256, false, kSave>;
+    case 1128: return pgs_kernel_smem<128, true, kSave>;
+    default: return pgs_kernel_smem<256, true, kSave>;
+  }
+}
+
+cudaError_t prepare(const Dims& D, bool two_sided, bool minv_t, bool save,
+                    Kernel* k, int* threads, int* smem) {
   const int inst = instance(D);
   *threads = threads_for(D.r);
   *smem = inst > 1000 ? 0
                       : (int)(smem_floats(D) * sizeof(float)
                               + D.nl * sizeof(int));
-  switch (inst) {
-    case 16:
-      *k = two_sided ? (minv_t ? pgs_kernel_reg<16, true, true>
-                               : pgs_kernel_reg<16, true, false>)
-                     : (minv_t ? pgs_kernel_reg<16, false, true>
-                               : pgs_kernel_reg<16, false, false>);
-      break;
-    case 24:
-      *k = two_sided ? (minv_t ? pgs_kernel_reg<24, true, true>
-                               : pgs_kernel_reg<24, true, false>)
-                     : (minv_t ? pgs_kernel_reg<24, false, true>
-                               : pgs_kernel_reg<24, false, false>);
-      break;
-    case 128: *k = pgs_kernel_smem<128>; break;
-    case 256: *k = pgs_kernel_smem<256>; break;
-    case 1128: *k = pgs_kernel_smem<128, true>; break;
-    default: *k = pgs_kernel_smem<256, true>; break;
-  }
+  *k = save ? pick<true>(inst, two_sided, minv_t)
+            : pick<false>(inst, two_sided, minv_t);
   // the most shared memory per SM, so that 8 blocks fit; above 48 KB per
   // block the large-shared-memory opt-in
   cudaError_t e = cudaFuncSetAttribute(
@@ -823,6 +918,41 @@ extern "C" long long pgs_scratch_floats(int c, int nl, int d) {
   return instance(D) > 1000 ? (long long)scratch_floats(D) : 0;
 }
 
+// Floats per env of the forward that a launch with `save` writes.
+extern "C" long long pgs_save_floats(int c, int nl, int d, int iters) {
+  if (!valid(c, nl, d) || iters < 0) return 0;
+  const int r = 3 * c + 2 * nl;
+  return save_layout(r, d, r < 192 ? 3 : 8, iters).total;
+}
+
+namespace {
+
+int launch(const float* J, const float* Minv, const float* qd,
+           const float* b, const float* act, const float* mu,
+           const float* lam0, const int* ld, const float* w_other, float* lam,
+           float* dqd, int* halvings, int W, int c, int nl, int d, int iters,
+           float omega, int use_cone, float diag_scale, float reg,
+           float* scratch, int minv_t, float* save, void* stream) {
+  if (W <= 0) return 0;
+  if (!valid(c, nl, d)) return (int)cudaErrorInvalidValue;
+  const Dims D = make_dims(c, nl, d);
+  if (instance(D) > 1000 && scratch == nullptr)
+    return (int)cudaErrorInvalidValue;
+  Kernel k;
+  int threads = 0, smem = 0;
+  const cudaError_t e = prepare(D, w_other != nullptr, minv_t != 0,
+                                save != nullptr, &k, &threads, &smem);
+  if (e != cudaSuccess) return (int)e;
+  const Args A{J, Minv, qd, b, act, mu, lam0, ld, lam, dqd, halvings,
+               iters, D.r < 192 ? 3 : 8, use_cone, omega, diag_scale, reg,
+               scratch, scratch_floats(D)};
+  k<<<W, threads, smem, (cudaStream_t)stream>>>(D, A, w_other, minv_t, save);
+  return (int)cudaGetLastError();
+}
+
+
+}  // namespace
+
 extern "C" int pgs_solve_fused_f32(const float* J, const float* Minv,
                                    const float* qd, const float* b,
                                    const float* act, const float* mu,
@@ -834,36 +964,54 @@ extern "C" int pgs_solve_fused_f32(const float* J, const float* Minv,
                                    float diag_scale, float reg,
                                    float* scratch, int minv_t,
                                    void* stream) {
-  if (W <= 0) return 0;
-  if (!valid(c, nl, d)) return (int)cudaErrorInvalidValue;
-  const Dims D = make_dims(c, nl, d);
-  if (instance(D) > 1000 && scratch == nullptr)
-    return (int)cudaErrorInvalidValue;
-  Kernel k;
-  int threads = 0, smem = 0;
-  const cudaError_t e = prepare(D, w_other != nullptr, minv_t != 0, &k,
-                                &threads, &smem);
-  if (e != cudaSuccess) return (int)e;
-  const Args A{J, Minv, qd, b, act, mu, lam0, ld, lam, dqd, halvings,
-               iters, D.r < 192 ? 3 : 8, use_cone, omega, diag_scale, reg,
-               scratch, scratch_floats(D)};
-  k<<<W, threads, smem, (cudaStream_t)stream>>>(D, A, w_other, minv_t);
-  return (int)cudaGetLastError();
+  return launch(J, Minv, qd, b, act, mu, lam0, ld, w_other, lam, dqd,
+                halvings, W, c, nl, d, iters, omega, use_cone, diag_scale,
+                reg, scratch, minv_t, nullptr, stream);
 }
 
-// Registers per thread and resident blocks per SM of the launch that
-// pgs_solve_fused_f32 makes at (c, nl, d) without w_other.
-extern "C" int pgs_kernel_info(int c, int nl, int d, int* regs,
-                               int* blocks_per_sm) {
+// The same launch with the forward saved: save holds W x pgs_save_floats
+// floats, filled by the kSave instances.
+extern "C" int pgs_solve_fused_save_f32(
+    const float* J, const float* Minv, const float* qd, const float* b,
+    const float* act, const float* mu, const float* lam0, const int* ld,
+    const float* w_other, float* lam, float* dqd, int* halvings, int W,
+    int c, int nl, int d, int iters, float omega, int use_cone,
+    float diag_scale, float reg, float* scratch, int minv_t, float* save,
+    void* stream) {
+  if (W > 0 && save == nullptr) return (int)cudaErrorInvalidValue;
+  return launch(J, Minv, qd, b, act, mu, lam0, ld, w_other, lam, dqd,
+                halvings, W, c, nl, d, iters, omega, use_cone, diag_scale,
+                reg, scratch, minv_t, save, stream);
+}
+
+namespace {
+
+int kernel_info(int c, int nl, int d, bool save, int* regs,
+                int* blocks_per_sm) {
   if (!valid(c, nl, d)) return (int)cudaErrorInvalidValue;
   Kernel k;
   int threads = 0, smem = 0;
-  cudaError_t e = prepare(make_dims(c, nl, d), false, false, &k, &threads,
-                          &smem);
+  cudaError_t e = prepare(make_dims(c, nl, d), false, false, save, &k,
+                          &threads, &smem);
   cudaFuncAttributes a;
   if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, k);
   if (e != cudaSuccess) return (int)e;
   *regs = a.numRegs;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks_per_sm, k, threads, smem);
+}
+
+}  // namespace
+
+// Registers per thread and resident blocks per SM of the launch that
+// pgs_solve_fused_f32 makes at (c, nl, d) without w_other.
+extern "C" int pgs_kernel_info(int c, int nl, int d, int* regs,
+                               int* blocks_per_sm) {
+  return kernel_info(c, nl, d, false, regs, blocks_per_sm);
+}
+
+// The same for pgs_solve_fused_save_f32 (the kSave instance).
+extern "C" int pgs_save_kernel_info(int c, int nl, int d, int* regs,
+                                    int* blocks_per_sm) {
+  return kernel_info(c, nl, d, true, regs, blocks_per_sm);
 }

@@ -8,18 +8,63 @@
 // width, R = 4.19 M rays and S = 14,336 shapes, one (R, S, 3) float array
 // is 721 GB) and an eager walk reads a flag back to the host at every node.
 //
-// K1, raycast_closest_f32: one thread per ray, 128 rays a block. The shapes
-// (world transform, scale, class) are staged through shared memory 128 at a
-// time; every thread of a warp reads the same shape (a broadcast) and takes
-// the same class branch. Each pair moves the ray into the shape's frame and
-// runs the class's intersector (raycast.py: plane; sphere, also for
-// ellipsoids; box; capsule, also for cylinders), keeping the running
-// minimum with a strict < in ascending shape order (the JAX argmin's first
-// minimum). The winner's normal is computed once, after the loop.
-// What bounds it: operations. Every pair is evaluated (no culling: the
-// place of a shape BVH in ROADMAP), ~60 FLOPs to move the ray and 2-60 for
-// the class, against 40 bytes of ray in and 20 bytes out per ray.
-//
+// K1, raycast_closest_f32: one thread per ray, 128 rays a block; a warp
+// holds 32 consecutive rays (half a 64-pixel camera row: coherent). What
+// bounds it on an H100: operations. Each (ray, shape) pair moves the ray
+// into the shape's frame (two quaternion rotations, ~60 FLOPs) and runs
+// the class's intersector (raycast.py: plane; sphere, also for
+// ellipsoids; box; capsule, also for cylinders: up to three square roots
+// and a division), all correctly rounded without FMA; with every pair
+// evaluated, the tiled camera's 4.19 M rays against 14,336 shapes are
+// 6.0e10 pairs a render, though a camera sees its own world of 1,024.
+// The design evaluates fewer pairs and leaves each pair's arithmetic as
+// it was. A pre-pass in plain PyTorch (raycast.py: cull_tables, on the
+// device, no host sync) gives
+//   - `order`: the finite shapes (sphere, box, capsule) in Morton order
+//     of their centres, then the planes it keeps, then the rest;
+//     `counts` = (finite, planes kept);
+//   - each finite shape's world box (its class, scale and rotation),
+//     unions of G = 16 consecutive ones in that order (`gbox`) and of F
+//     = 16 consecutive groups (`tbox`);
+//   - one plane of each set of planes with no rotation (q.xyz == 0) and
+//     equal height, the lowest index: the ray reaches such planes at the
+//     same local z and t, bit for bit, so no other can win (ties go to
+//     the lowest index).
+// The kernel evaluates the kept planes, then walks the top boxes and,
+// in an opened top box, its groups: each lane tests its ray against the
+// box grown by a margin (box_pass), and the warp opens the box where
+// one lane passes it (__any_sync), so the warp stays converged and each
+// shape's loads are a broadcast. A box whose grown entry t exceeds the
+// lane's running best (strictly) or max_dist does not need that lane.
+// The running minimum compares (t, shape index), so the winner is the
+// first minimum in ascending index order (the JAX argmin's) whatever the
+// order of evaluation, and evaluating a pair that culling could have
+// skipped never changes it.
+// The margin: a rounded intersector reports hits off its exact shape.
+// In a far world (|o| ~ 350 m) the discriminant b^2 - c cancels and a
+// grazing ray's t moves by ~1e-2; a hit lies within sqrt(r^2 + 2 delta)
+// of a sphere's centre, delta ~ 7e-7 |o|^2 (the rounding of b^2 and c),
+// so within 1.2e-3 |o| of the shape's box, the same for the capsule's
+// cylinder and caps; a box's slab test and the culling test themselves
+// err by ~1e-6 |o|. Far from the world's origin every coordinate rounds
+// by half an ulp of its size (p - h of a box, ro - p of a pair), a few
+// ulps together whatever the ray's length. The margin is m0 + kr D + ka A:
+// m0 = 1 mm, D the distance bound from the ray origin to the box, kr = 2e-3
+// plus 1.5 sqrt(| |d|^2 - 1 |) for a direction that is not of unit length,
+// A the largest coordinate of the box and the ray origin, ka = 2^-20 (8
+// ulps). A shape with a non-finite transform or scale, or a quaternion off
+// unit length by more than 1e-5, gets an unbounded box.
+// tests/test_torch_raycast_cull.py checks on grazing rays from the far
+// corner of a 32 x 32 grid of worlds, and from near worlds moved 1e4-1e5 m
+// from the origin, that every winner's boxes pass, and that a plain-PyTorch
+// walk of this algorithm equals the plain version bit for bit. The group,
+// fan and margin constants are compile-time here and raycast.py's CULL_*
+// (a CPU test holds them equal). The kStats instance also counts, into 12
+// counters: box tests, boxes opened and the pairs evaluated of each class,
+// once per live ray of the warp (the work the warp did), and the same
+// counted per ray where that ray's own test passed (every top box, the
+// groups of the top boxes it passes, the pairs of the groups it passes:
+// the work culling leaves each ray).
 // K2, raycast_mesh_f32: one thread per (mesh shape, ray) pair. The ray goes
 // into the shape's frame (divided by its scale), then down the shape's BVH
 // with a stack in local memory (2 depth + 2 entries used, MAX_STACK
@@ -37,14 +82,21 @@
 // 1e-2 and its shape, beyond the tolerances the kernels are held to.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kRaysPerBlock = 128;
-constexpr int kTile = 128;
 constexpr int kMaxStack = 64;
 constexpr float kInf = 1e10f;
+// K1's culling (raycast.py: CULL_GROUP, CULL_FAN, CULL_M0, CULL_KAPPA,
+// CULL_ABS): shapes a group, groups a top box, the margin's terms
+constexpr int kCullGroup = 16;
+constexpr int kCullFan = 16;
+constexpr float kCullM0 = 1e-3f;
+constexpr float kCullKappa = 2e-3f;
+constexpr float kCullAbs = 9.5367431640625e-07f;  // 2^-20
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -179,53 +231,155 @@ __device__ V3 class_normal(int cls, V3 o, V3 d, float t, V3 sc) {
   return v3(0.0f, 0.0f, 1.0f);
 }
 
+// The culling test of K1 (raycast.py: cull_box_pass is its plain twin):
+// does the ray (ro, rd) enter the box [lo, hi], grown by the margin m0 +
+// kr D + ka A, at an entry t no later than t_lim? D bounds the distance
+// from the ray origin to any point of the box (the L1 distance to its
+// farthest corner), kr is the ray's error slope (ray_slope), A the
+// largest absolute coordinate of the box and the origin. An axis along which
+// the direction is below 1e-9 restricts t only where the origin lies
+// outside the grown slab: the ray reaches it no earlier than at its
+// distance times 0.999e9.
+__device__ __forceinline__ bool box_pass(V3 ro, V3 inv, unsigned small,
+                                         float kr, const float* b,
+                                         float t_lim) {
+  const float lo[3] = {b[0], b[1], b[2]}, hi[3] = {b[3], b[4], b[5]};
+  const float o[3] = {ro.x, ro.y, ro.z}, iv[3] = {inv.x, inv.y, inv.z};
+  float D = 0.0f, A = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    D = add(D, fmaxf(fabsf(sub(o[i], lo[i])), fabsf(sub(o[i], hi[i]))));
+    A = fmaxf(A, fmaxf(fabsf(o[i]), fmaxf(fabsf(lo[i]), fabsf(hi[i]))));
+  }
+  const float m = add(add(kCullM0, mul(kr, D)), mul(kCullAbs, A));
+  float tmin = -INFINITY, tmax = INFINITY;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const float l = sub(lo[i], m), h = add(hi[i], m);
+    float a, c;
+    if (small & (1u << i)) {
+      const bool in = o[i] >= l && o[i] <= h;
+      a = in ? -INFINITY
+             : mul(fminf(fabsf(sub(l, o[i])), fabsf(sub(h, o[i]))), 0.999e9f);
+      c = INFINITY;
+    } else {
+      const float x = mul(sub(l, o[i]), iv[i]), y = mul(sub(h, o[i]), iv[i]);
+      a = fminf(x, y);
+      c = fmaxf(x, y);
+    }
+    tmin = fmaxf(tmin, a);
+    tmax = fminf(tmax, c);
+  }
+  return tmax >= fmaxf(tmin, 0.0f) && tmin <= t_lim;
+}
+
+// The ray's error slope: kappa plus 1.5 sqrt(| |d|^2 - 1 |) (a direction
+// that is not of unit length moves the intersectors' hits off their
+// shapes by up to sqrt(| |d|^2 - 1 |) t)
+__device__ __forceinline__ float ray_slope(V3 d) {
+  return add(kCullKappa, mul(1.5f, sqr(fabsf(sub(dot(d, d), 1.0f)))));
+}
+
+template <bool kStats>
 __global__ void __launch_bounds__(kRaysPerBlock)
 raycast_closest_kernel(const float* __restrict__ o, const float* __restrict__ d,
                        int R, const float* __restrict__ X,
                        const float* __restrict__ scale,
-                       const int* __restrict__ cls, int S, float max_dist,
+                       const int* __restrict__ cls,
+                       const int* __restrict__ order,
+                       const int* __restrict__ counts,
+                       const float* __restrict__ gbox,
+                       const float* __restrict__ tbox, float max_dist,
                        float* __restrict__ t_out, int* __restrict__ s_out,
-                       float* __restrict__ n_out) {
-  __shared__ float s_p[kTile][3];
-  __shared__ float s_u[kTile][4];     // -q.xyz, q.w
-  __shared__ float s_sc[kTile][3];
-  __shared__ int s_cls[kTile];
+                       float* __restrict__ n_out,
+                       unsigned long long* __restrict__ stats) {
   const int r = blockIdx.x * kRaysPerBlock + threadIdx.x;
   const bool live = r < R;
-  V3 ro = v3(0.f, 0.f, 0.f), rd = v3(0.f, 0.f, 0.f);
+  V3 ro = v3(0.f, 0.f, 0.f), rd = v3(0.f, 0.f, 1.f);
   if (live) {
-    ro = v3(o[3 * r], o[3 * r + 1], o[3 * r + 2]);
-    rd = v3(d[3 * r], d[3 * r + 1], d[3 * r + 2]);
+    ro = v3(o[3 * (size_t)r], o[3 * (size_t)r + 1], o[3 * (size_t)r + 2]);
+    rd = v3(d[3 * (size_t)r], d[3 * (size_t)r + 1], d[3 * (size_t)r + 2]);
   }
+  unsigned small = 0;
+  if (!(fabsf(rd.x) > 1e-9f)) small |= 1u;
+  if (!(fabsf(rd.y) > 1e-9f)) small |= 2u;
+  if (!(fabsf(rd.z) > 1e-9f)) small |= 4u;
+  const V3 inv = v3(rcp(small & 1u ? 1.0f : rd.x), rcp(small & 2u ? 1.0f : rd.y),
+                    rcp(small & 4u ? 1.0f : rd.z));
+  const float kr = ray_slope(rd);
+  const int n_fin = counts[0], n_pl = counts[1];
   float t_best = kInf;
   int best = -1;
-  for (int base = 0; base < S; base += kTile) {
-    const int n = min(kTile, S - base);
-    __syncthreads();
-    for (int j = threadIdx.x; j < n; j += kRaysPerBlock) {
-      const float* x = X + 7 * (size_t)(base + j);
-      s_p[j][0] = x[0]; s_p[j][1] = x[1]; s_p[j][2] = x[2];
-      s_u[j][0] = -x[3]; s_u[j][1] = -x[4]; s_u[j][2] = -x[5];
-      s_u[j][3] = x[6];
-      const float* sc = scale + 3 * (size_t)(base + j);
-      s_sc[j][0] = sc[0]; s_sc[j][1] = sc[1]; s_sc[j][2] = sc[2];
-      s_cls[j] = cls[base + j];
-    }
-    __syncthreads();
-    if (!live) continue;
-    for (int j = 0; j < n; ++j) {
-      const int c = s_cls[j];
-      if (c < 0) continue;
-      const V3 u = v3(s_u[j][0], s_u[j][1], s_u[j][2]);
-      const float w = s_u[j][3];
-      const V3 ol = qrot(u, w, vsub(ro, v3(s_p[j][0], s_p[j][1], s_p[j][2])));
-      const V3 dl = qrot(u, w, rd);
-      const float t =
-          class_t(c, ol, dl, v3(s_sc[j][0], s_sc[j][1], s_sc[j][2]));
-      if (t < t_best) {
-        t_best = t;
-        best = base + j;
+  // box tests, boxes opened, pairs of each class (plane, sphere, box,
+  // capsule): the warp's, and this ray's own (kStats only)
+  unsigned tests = 0, opened = 0, pc[4] = {0, 0, 0, 0};
+  unsigned my_tests = 0, my_pass = 0, my_pc[4] = {0, 0, 0, 0};
+
+  // one (ray, shape) pair; the least (t, index) wins; ``mine``: this
+  // ray's own test passed the shape's boxes
+  auto pair = [&](int s, bool mine) {
+    const float* x = X + 7 * (size_t)s;
+    const float* sc = scale + 3 * (size_t)s;
+    const V3 u = v3(-x[3], -x[4], -x[5]);
+    const V3 ol = qrot(u, x[6], vsub(ro, v3(x[0], x[1], x[2])));
+    const V3 dl = qrot(u, x[6], rd);
+    const int c = cls[s];
+    if (kStats) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        pc[k] += c == k;
+        my_pc[k] += mine && c == k;
       }
+    }
+    const float t = class_t(c, ol, dl, v3(sc[0], sc[1], sc[2]));
+    if (t < t_best || (t == t_best && s < best)) {
+      t_best = t;
+      best = s;
+    }
+  };
+
+  // every plane that the pre-pass kept, then the boxes of the finite
+  // shapes: a warp opens a box where one of its rays passes it
+  for (int k = 0; k < n_pl; ++k) pair(order[n_fin + k], live);
+  const int n_grp = (n_fin + kCullGroup - 1) / kCullGroup;
+  const int n_top = (n_grp + kCullFan - 1) / kCullFan;
+  for (int top = 0; top < n_top; ++top) {
+    ++tests;
+    my_tests += live;
+    const bool need = live && box_pass(ro, inv, small, kr, tbox + 6 * top,
+                                       fminf(t_best, max_dist));
+    if (!__any_sync(0xffffffffu, need)) continue;
+    ++opened;
+    my_pass += need;
+    const int g1 = min(n_grp, (top + 1) * kCullFan);
+    for (int g = top * kCullFan; g < g1; ++g) {
+      ++tests;
+      my_tests += need;
+      const bool gneed = live && box_pass(ro, inv, small, kr, gbox + 6 * g,
+                                          fminf(t_best, max_dist));
+      if (!__any_sync(0xffffffffu, gneed)) continue;
+      ++opened;
+      const bool mine = need && gneed;
+      my_pass += mine;
+      const int k1 = min(n_fin, (g + 1) * kCullGroup);
+      for (int k = g * kCullGroup; k < k1; ++k) pair(order[k], mine);
+    }
+  }
+  if (kStats) {
+    const unsigned n_live = __popc(__ballot_sync(0xffffffffu, live));
+    unsigned mine[6] = {my_tests, my_pass, my_pc[0], my_pc[1], my_pc[2],
+                        my_pc[3]};
+#pragma unroll
+    for (int k = 0; k < 6; ++k) mine[k] = __reduce_add_sync(0xffffffffu, mine[k]);
+    if ((threadIdx.x & 31) == 0 && n_live) {
+      atomicAdd(stats, (unsigned long long)tests * n_live);
+      atomicAdd(stats + 1, (unsigned long long)opened * n_live);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        atomicAdd(stats + 2 + k, (unsigned long long)pc[k] * n_live);
+#pragma unroll
+      for (int k = 0; k < 6; ++k)
+        atomicAdd(stats + 6 + k, (unsigned long long)mine[k]);
     }
   }
   if (!live) return;
@@ -367,18 +521,31 @@ raycast_mesh_kernel(const float* __restrict__ o, const float* __restrict__ d,
 }  // namespace
 
 // t (R,), shape (R,) int32, world normal (R, 3): the closest analytic hit
-// of each ray among the S shapes (X (S, 7) world transforms, scale (S, 3),
-// cls (S,) class codes, -1: never hit) within max_dist.
+// of each ray among the shapes (X (S, 7) world transforms, scale (S, 3),
+// cls (S,) class codes, -1: never hit) within max_dist, given the
+// pre-pass's order, counts, group and top boxes ((., 6): lo, hi); stats
+// (12 counters: box tests, boxes opened, pairs with planes, spheres,
+// boxes, capsules, the warp's work counted once per live ray, then the
+// same of each ray's own passes) may be null, and selects the counting
+// instance where it is not.
 extern "C" int raycast_closest_f32(const float* o, const float* d, int R,
                                    const float* X, const float* scale,
-                                   const int* cls, int S, float max_dist,
+                                   const int* cls, const int* order,
+                                   const int* counts, const float* gbox,
+                                   const float* tbox, float max_dist,
                                    float* t, int* shape, float* n,
-                                   void* stream) {
+                                   long long* stats, void* stream) {
   if (R <= 0) return 0;
-  if (S < 0) return (int)cudaErrorInvalidValue;
   const int blocks = (R + kRaysPerBlock - 1) / kRaysPerBlock;
-  raycast_closest_kernel<<<blocks, kRaysPerBlock, 0, (cudaStream_t)stream>>>(
-      o, d, R, X, scale, cls, S, max_dist, t, shape, n);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (stats == nullptr)
+    raycast_closest_kernel<false><<<blocks, kRaysPerBlock, 0, st>>>(
+        o, d, R, X, scale, cls, order, counts, gbox, tbox, max_dist, t, shape,
+        n, nullptr);
+  else
+    raycast_closest_kernel<true><<<blocks, kRaysPerBlock, 0, st>>>(
+        o, d, R, X, scale, cls, order, counts, gbox, tbox, max_dist, t, shape,
+        n, (unsigned long long*)stats);
   return (int)cudaGetLastError();
 }
 
@@ -404,11 +571,11 @@ extern "C" int raycast_mesh_f32(const float* o, const float* d, int R,
   return (int)cudaGetLastError();
 }
 
-// Registers per thread and resident blocks per SM of K1 (which 0) and K2
-// (which 1).
+// Registers per thread and resident blocks per SM of K1 (which 0; its
+// instance without counters) and K2 (which 1).
 extern "C" int raycast_kernel_info(int which, int* regs, int* blocks_per_sm) {
   cudaFuncAttributes a;
-  const void* k = which == 0 ? (const void*)raycast_closest_kernel
+  const void* k = which == 0 ? (const void*)raycast_closest_kernel<false>
                              : (const void*)raycast_mesh_kernel;
   const cudaError_t e = cudaFuncGetAttributes(&a, k);
   if (e != cudaSuccess) return (int)e;

@@ -40,14 +40,16 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..math import quat_rotate, quat_rotate_inv, transform_multiply
+from ..math import (quat_rotate, quat_rotate_inv, quat_to_matrix,
+                    transform_multiply)
 from .bvh import BVHPool, MeshBVH, mesh_closest
 from .types import GeoType
 
 __all__ = ["ray_plane", "ray_sphere", "ray_box", "ray_capsule",
            "raycast_model", "closest_analytic", "closest_analytic_plain",
-           "shape_classes", "shape_world_transforms", "CLASS_CODES",
-           "PAIR_BUDGET"]
+           "shape_classes", "shape_world_transforms", "cull_tables",
+           "cull_box_pass", "CLASS_CODES", "PAIR_BUDGET", "CULL_GROUP",
+           "CULL_FAN", "CULL_M0", "CULL_KAPPA", "CULL_ABS"]
 
 _INF = 1e10
 # K1's class codes: the intersector each GeoType takes (-1: none)
@@ -56,6 +58,16 @@ CLASS_CODES = {int(GeoType.PLANE): 0, int(GeoType.SPHERE): 1,
                int(GeoType.CAPSULE): 3, int(GeoType.CYLINDER): 3}
 # ray-shape pairs per chunk of the plain versions and the SDF trace
 PAIR_BUDGET = 1 << 21
+# K1's culling (csrc/raycast.cu's kCull* constants, held equal by a test):
+# shapes a group, groups a top box, and the margin m0 + kr D + ka A of a
+# box at distance bound D from a ray origin, kr = CULL_KAPPA + 1.5 sqrt(|
+# |d|^2 - 1 |), A the largest absolute coordinate of the box and the
+# origin
+CULL_GROUP = 16
+CULL_FAN = 16
+CULL_M0 = 1e-3
+CULL_KAPPA = 2e-3
+CULL_ABS = 2.0 ** -20
 
 
 def _dot(a, b):
@@ -276,14 +288,141 @@ def closest_analytic_plain(o, d, X, scale, cls, max_dist: float):
     return t_out, s_out, n_out
 
 
-def closest_analytic(o, d, X, scale, cls, max_dist: float = 1e6):
+def _part1by2(x):
+    """The 10 low bits of x spread to every third bit (a Morton code's
+    component)."""
+    x = (x | (x << 16)) & 0x030000FF
+    x = (x | (x << 8)) & 0x0300F00F
+    x = (x | (x << 4)) & 0x030C30C3
+    return (x | (x << 2)) & 0x09249249
+
+
+def cull_tables(X, scale, cls) -> dict:
+    """K1's pre-pass, on the shapes' device with no host sync: ``order``
+    (S,) int32, the finite shapes (classes 1-3) in Morton order of their
+    centres (stable: index order on a tie), then the planes kept, then the
+    rest; ``counts`` (2,) int32, (finite shapes, planes kept); ``gbox``
+    (ceil(S / CULL_GROUP), 6) the world box (lo, hi) of each run of
+    CULL_GROUP finite shapes in that order (rows past the finite shapes
+    are empty: lo = inf, hi = -inf); ``tbox`` the boxes of runs of
+    CULL_FAN groups.
+    A shape's box: a sphere p +- r, a capsule p +- (|axis| h + r), a box p
+    +- |R| h; unbounded where its transform or scale is not finite or its
+    quaternion is off unit length by more than 1e-5. Of the planes with
+    no rotation (q.xyz == 0) and one height, only the lowest index is
+    kept: a ray meets them all at the same t, bit for bit."""
+    S, group, fan = X.shape[0], CULL_GROUP, CULL_FAN
+    dev = X.device
+    inf = X.new_full((), float("inf"))       # made on the device: no sync
+    if S == 0:
+        empty = torch.stack([inf, inf, inf, -inf, -inf, -inf])[None]
+        return dict(order=torch.zeros(0, dtype=torch.int32, device=dev),
+                    counts=torch.zeros(2, dtype=torch.int32, device=dev),
+                    gbox=empty, tbox=empty)
+    cls = cls.to(torch.int64)
+    p, q = X[:, 0:3], X[:, 3:7]
+    sc = scale.abs()
+    finite = (cls >= 1) & (cls <= 3)
+    plane = cls == 0
+    # planes: one of each level height
+    level = plane & (q[:, 0:3] == 0).all(1)
+    z = torch.where(level, p[:, 2], torch.nan)
+    zs, perm = torch.sort(z, stable=True)
+    first = torch.ones(S, dtype=torch.bool, device=dev)
+    first[1:] = zs[1:] != zs[:-1]
+    dup = torch.zeros(S, dtype=torch.bool, device=dev)
+    dup[perm] = ~first
+    kept = plane & ~(level & dup)
+    # world half extents
+    qn = q / torch.linalg.vector_norm(q, dim=1, keepdim=True)
+    Rm = quat_to_matrix(qn)
+    r = sc[:, 0:1]
+    he = torch.where((cls == 1)[:, None], r.expand(S, 3), 0.0)
+    he = torch.where((cls == 3)[:, None],
+                     Rm[:, :, 2].abs() * sc[:, 1:2] + r, he)
+    he = torch.where((cls == 2)[:, None],
+                     (Rm.abs() * sc[:, None, :]).sum(2), he)
+    ok = (torch.isfinite(X).all(1) & torch.isfinite(scale).all(1)
+          & ((q * q).sum(1) - 1.0).abs().le(1e-5))
+    lo = torch.where(ok[:, None], p - he, -inf)
+    hi = torch.where(ok[:, None], p + he, inf)
+    # the order: finite shapes by Morton code, kept planes, the rest
+    use = (finite & ok)[:, None]
+    c_lo = torch.where(use, p, inf).amin(0)
+    c_hi = torch.where(use, p, -inf).amax(0)
+    cell = (p - c_lo) / torch.clamp(c_hi - c_lo, min=1e-6) * 1023.0
+    cell = torch.where(use, cell, 0.0).clamp(0.0, 1023.0).to(torch.int64)
+    m = _part1by2(cell)
+    code = m[:, 0] | (m[:, 1] << 1) | (m[:, 2] << 2)
+    bucket = torch.where(finite, 0, torch.where(kept, 1, 2))
+    order = torch.sort(bucket * (1 << 30) + torch.where(finite, code, 0),
+                       stable=True)[1]
+    counts = torch.stack([finite.sum(), kept.sum()]).to(torch.int32)
+    # group and top boxes over the sorted finite shapes
+    n_grp = max(1, -(-S // group))
+    pad = n_grp * group - S
+    valid = (torch.arange(n_grp * group, device=dev) < counts[0])[:, None]
+    glo = torch.where(valid, torch.cat([lo[order], inf.expand(pad, 3)]), inf)
+    ghi = torch.where(valid, torch.cat([hi[order], (-inf).expand(pad, 3)]),
+                      -inf)
+    glo = glo.reshape(n_grp, group, 3).amin(1)
+    ghi = ghi.reshape(n_grp, group, 3).amax(1)
+    n_top = -(-n_grp // fan)
+    pad = n_top * fan - n_grp
+    tlo = torch.cat([glo, inf.expand(pad, 3)]).reshape(n_top, fan, 3)
+    thi = torch.cat([ghi, (-inf).expand(pad, 3)]).reshape(n_top, fan, 3)
+    return dict(order=order.to(torch.int32), counts=counts,
+                gbox=torch.cat([glo, ghi], 1).contiguous(),
+                tbox=torch.cat([tlo.amin(1), thi.amax(1)], 1).contiguous())
+
+
+def cull_box_pass(o, d, box, t_lim):
+    """Plain version of K1's culling test (csrc/raycast.cu: box_pass), the
+    same rounded operations: does each ray (o, d (N, 3)) enter its box
+    ((N, 6): lo, hi) grown by CULL_M0 + kr D + CULL_ABS A at an entry t
+    <= t_lim (N,)?"""
+    one = torch.ones((), dtype=o.dtype, device=o.device)
+    small = ~(d.abs() > 1e-9)
+    inv = one / torch.where(small, one, d)
+    dd = _dot(d, d)
+    kr = CULL_KAPPA + 1.5 * torch.sqrt((dd - 1.0).abs())
+    lo, hi = box[:, 0:3], box[:, 3:6]
+    a = torch.fmax((o - lo).abs(), (o - hi).abs())
+    D = (a[:, 0] + a[:, 1]) + a[:, 2]
+    A = torch.fmax(o.abs(), torch.fmax(lo.abs(), hi.abs()))
+    A = torch.fmax(torch.fmax(A[:, 0], A[:, 1]), A[:, 2])
+    m = ((CULL_M0 + kr * D) + CULL_ABS * A)[:, None]
+    lg, hg = lo - m, hi + m
+    x, y = (lg - o) * inv, (hg - o) * inv
+    inside = (o >= lg) & (o <= hg)
+    gap = torch.fmin((lg - o).abs(), (hg - o).abs()) * 0.999e9
+    ninf = torch.full_like(x, float("-inf"))
+    a = torch.where(small, torch.where(inside, ninf, gap), torch.fmin(x, y))
+    c = torch.where(small, -ninf, torch.fmax(x, y))
+    tmin = torch.fmax(torch.fmax(torch.fmax(ninf[:, 0], a[:, 0]), a[:, 1]),
+                      a[:, 2])
+    tmax = torch.fmin(torch.fmin(torch.fmin(-ninf[:, 0], c[:, 0]), c[:, 1]),
+                      c[:, 2])
+    return (tmax >= torch.fmax(tmin, torch.zeros_like(tmin))) \
+        & (tmin <= t_lim)
+
+
+def closest_analytic(o, d, X, scale, cls, max_dist: float = 1e6,
+                     stats=None, cull=None):
     """Closest analytic hit of rays o, d (R, 3) among shapes with world
     transforms X (S, 7), scales (S, 3) and class codes ``cls`` (S,) int32
     (``CLASS_CODES``; -1 never hit): (t (R,), shape (R,) int32, world
     normal (R, 3)); t = 1e10, shape -1 and a zero normal where nothing
-    lies within ``max_dist``. CUDA tensors go to the kernel (K1) or
-    raise; CPU tensors to the plain version. ``closest_analytic.launches``
-    counts kernel launches."""
+    lies within ``max_dist``. CUDA tensors go to the kernel (K1, after
+    ``cull_tables``) or raise; CPU tensors to the plain version.
+    ``cull``: ``cull_tables(X, scale, cls)`` where the caller has them.
+    ``closest_analytic.launches`` counts kernel launches; ``stats`` (a
+    dict, CUDA only) gets the kernel's box tests, boxes opened and pairs
+    evaluated of each class (plane, sphere, box, capsule), each counted
+    once per live ray of the warp that did it, and the same counted per
+    ray where that ray's own test passed (``ray_*``: every top box, the
+    groups of the top boxes it passes, the pairs of the groups it passes);
+    read back: a host sync."""
     if o.dtype != torch.float32:
         raise TypeError("closest_analytic takes float32 tensors")
     if o.dim() != 2 or o.shape[1] != 3 or d.shape != o.shape:
@@ -302,17 +441,32 @@ def closest_analytic(o, d, X, scale, cls, max_dist: float = 1e6):
     o, d, X, scale = (x.contiguous().to(torch.float32)
                       for x in (o, d, X, scale))
     cls = cls.to(torch.int32).contiguous()
+    tab = cull_tables(X, scale, cls) if cull is None else cull
     t = torch.empty(R, dtype=torch.float32, device=o.device)
     s = torch.empty(R, dtype=torch.int32, device=o.device)
     n = torch.empty((R, 3), dtype=torch.float32, device=o.device)
+    cnt = (torch.zeros(12, dtype=torch.int64, device=o.device)
+           if stats is not None else None)
     with torch.cuda.device(o.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernels.lib().raycast_closest_f32(
             o.data_ptr(), d.data_ptr(), R, X.data_ptr(), scale.data_ptr(),
-            cls.data_ptr(), S, float(max_dist), t.data_ptr(), s.data_ptr(),
-            n.data_ptr(), stream)
+            cls.data_ptr(), tab["order"].data_ptr(),
+            tab["counts"].data_ptr(), tab["gbox"].data_ptr(),
+            tab["tbox"].data_ptr(), float(max_dist), t.data_ptr(),
+            s.data_ptr(),
+            n.data_ptr(), None if cnt is None else cnt.data_ptr(), stream)
     closest_analytic.launches += 1
     _kernels.check(err, "closest_analytic")
+    if stats is not None:
+        c = cnt.tolist()
+        stats.update(box_tests=c[0], boxes_opened=c[1],
+                     pairs=tuple(c[2:6]), ray_box_tests=c[6],
+                     ray_boxes_passed=c[7], ray_pairs=tuple(c[8:12]),
+                     planes_kept=int(tab["counts"][1]),
+                     finite_shapes=int(tab["counts"][0]),
+                     groups=int(tab["gbox"].shape[0]),
+                     tops=int(tab["tbox"].shape[0]))
     return t, s, n
 
 
@@ -351,15 +505,24 @@ def _sdf_candidates(model, X, o, d, sel, sid):
 
 
 def raycast_model(model, state, origins: torch.Tensor, dirs: torch.Tensor,
-                  max_dist: float = 1e6
+                  max_dist: float = 1e6, cache=None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Closest hit of each ray (R, 3) against the model's shapes: (t (R,),
     shape index (R,) int32, -1 on a miss, world normal (R, 3)). Used by
-    viewer picking and the tiled camera."""
-    X = shape_world_transforms(model, state)
+    viewer picking and the tiled camera. ``cache`` (a dict): the shapes'
+    world transforms and, on CUDA, K1's cull tables of this ``state``,
+    kept there for another call on the same state (a render's shadow
+    rays)."""
+    cache = {} if cache is None else cache
+    if "X" not in cache:
+        cache["X"] = shape_world_transforms(model, state)
+    X = cache["X"]
     tab = _tables(model, X.device)
+    if X.is_cuda and "cull" not in cache:
+        cache["cull"] = cull_tables(X, model.shape_scale, tab["cls"])
     t, shape, nrm = closest_analytic(origins, dirs, X, model.shape_scale,
-                                     tab["cls"], max_dist)
+                                     tab["cls"], max_dist,
+                                     cull=cache.get("cull"))
     if tab["mesh"] is None and tab["sdf"] is None:
         return t, shape, nrm
     # JAX's argmin over the candidates: the least t, then the lowest index

@@ -100,8 +100,9 @@ class SensorTiledCamera:
         (R,), normal (R, 3), shape_index (R,), color, albedo and hdr (R, 3),
         splat_alpha (R,) where the model has splats."""
         model = self.model
+        shapes = {}         # world transforms and cull tables, made once
         t, shape, nrm = raycast_model(model, state, o, d,
-                                      max_dist=self.max_dist)
+                                      max_dist=self.max_dist, cache=shapes)
         hit = shape >= 0
         out = dict(depth=torch.where(hit, t, 0.0),
                    normal=torch.where(hit[:, None], nrm, 0.0),
@@ -120,7 +121,8 @@ class SensorTiledCamera:
             so = p_hit + nrm * 1e-3
             _, s_shape, _ = raycast_model(model, state, so,
                                           (-self._light).expand_as(so),
-                                          max_dist=self.max_dist)
+                                          max_dist=self.max_dist,
+                                          cache=shapes)
             lam = torch.where((s_shape < 0) | ~hit, lam, 0.0)
         hdr = base * (self.light_intensity * lam[:, None] + self.ambient)
         color = base * lam[:, None] if not self.shadows \

@@ -33,11 +33,13 @@ J Minv`` as every symmetric call did before the option existed.
 Gradients: on the CPU autograd runs through the plain version, whose
 ``maximum``/``minimum`` give half the gradient to each side at a tie, as
 the JAX package's ``jnp.maximum``/``jnp.clip`` do. On the card the wrapper
-is a ``torch.autograd.Function`` whose backward is the kernel in
-``csrc/pgs_backward.cu`` (``pgs_backward.launches`` counts it): it runs the
-forward again, keeps every iterate, and computes what autograd of the
-plain version computes for J, Minv, qd, b, mu, lam0 and w_other (act and
-the halvings carry none).
+is a ``torch.autograd.Function``: where an input requires grad, B2 also
+writes its iterates (``save_floats`` per env, kept for the backward), and
+the backward is the kernel in ``csrc/pgs_backward.cu``
+(``pgs_backward.launches`` counts it), which forms from them what
+autograd of the plain version forms for J, Minv, qd, b, mu, lam0 and
+w_other (act and the halvings carry none): the gradient of the iterates
+and guard halvings the card took.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ import torch
 
 __all__ = ["pgs_solve_fused", "pgs_solve_fused_plain", "pgs_core",
            "pgs_backward", "backward_instance", "backward_scratch_floats",
+           "save_floats",
            "spectral_lam_max", "spectral_iters", "kernel_instance",
            "smem_bytes", "scratch_floats", "INSTANCE_CODES"]
 
@@ -233,19 +236,41 @@ def pgs_solve_fused_plain(J, Minv, qd, b, act, mu, lam0, *, c, ld, iters,
     return (lam, dqd, halv) if return_halvings else (lam, dqd)
 
 
+def save_floats(c: int, nl: int, d: int, iters: int) -> int:
+    """Floats per env of the forward that B2 saves for K4
+    (csrc/pgs_save.cuh): each sweep's new lambda, residual and
+    pre-projection lambda (3 r), its d-vector (d) and guard flag, each
+    power iteration's Delassus product (r), d-vector (d) and norm."""
+    r = 3 * c + 2 * nl
+    K = spectral_iters(r)
+    return iters * (3 * r + d + 1) + K * (r + d + 1)
+
+
 def backward_scratch_floats(c: int, nl: int, d: int, iters: int) -> int:
     """Floats of one env's workspace in K4 (csrc/pgs_backward.cu:
-    make_layout): J, MJ and their gradients, Minv and its gradient, the
-    row vectors, the kept power iterates and sweeps, each array rounded up
-    to 4 floats."""
+    make_layout): J and MJ extended by the limit rows, Minv, eight row
+    vectors, w_other's and mu's gradients and mu, each product's x (the
+    saved lambdas staged there), g_tmp and g_y (and g_qd's), the g_tmp
+    partials, the norm slots, ld, and the rest of B2's saved forward (its
+    res and yf in a head that MJ's gradient takes over at the end), each
+    array rounded up to 4 floats."""
     def up(n):
         return (n + 3) & ~3
     r3, r = 3 * c, 3 * c + 2 * nl
+    rows = r3 + nl
     K = spectral_iters(r)
-    return (4 * up(r3 * d) + 2 * up(d * d) + 7 * up(r) + up(c) + up(r3)
-            + up((K + 1) * r) + up(K * r) + up(K * d) + up(K)
-            + up((iters + 1) * r) + up(iters * r) + up(iters * d)
-            + up(iters + 1) + up(iters) + 5 * up(r) + up(d))
+    threads = 128 if r <= 160 else 256
+    dp = 1
+    while dp < d and dp < 32:
+        dp *= 2
+    P = threads // 32 * (32 // dp)
+    ny = iters + K
+    head = 2 * iters * r
+    saved = up(max(head, rows * d)) + save_floats(c, nl, d, iters) \
+        - 3 * iters * r
+    return (2 * up(rows * d) + up(d * d) + 8 * up(r) + up(r3) + 2 * up(c)
+            + up((ny + 1) * r) + up((ny + 2) * d) + up((ny + 1) * rows)
+            + up(P * d) + up(16) + up(nl) + up(saved))
 
 
 def backward_instance(c: int, nl: int, d: int, iters: int) -> str:
@@ -256,12 +281,14 @@ def backward_instance(c: int, nl: int, d: int, iters: int) -> str:
             <= _SMEM_BYTES else "global")
 
 
-def pgs_backward(J, Minv, qd, b, act, mu, lam0, ld, w_other, glam, gdqd, *,
-                 c, iters, omega, use_cone, diag_scale, reg, symmetric):
+def pgs_backward(J, Minv, qd, b, act, mu, lam0, ld, w_other, glam, gdqd,
+                 save, *, c, iters, omega, use_cone, diag_scale, reg,
+                 symmetric):
     """One launch of K4 (``csrc/pgs_backward.cu``), counted in
     ``pgs_backward.launches``: the gradients (gJ, gMinv, gqd, gb, gmu,
     glam0, gw_other or None) of ``pgs_solve_fused``'s inputs from the
-    cotangents of lam and dqd (either may be None, a zero cotangent)."""
+    cotangents of lam and dqd (either may be None, a zero cotangent) and
+    ``save`` (W, save_floats), the forward that B2 saved."""
     if J.device.type != "cuda":
         raise ValueError(f"pgs_backward: unsupported device {J.device}")
     W, r3, d = J.shape
@@ -289,7 +316,8 @@ def pgs_backward(J, Minv, qd, b, act, mu, lam0, ld, w_other, glam, gdqd, *,
         err = _kernels.lib().pgs_solve_backward_f32(
             J.data_ptr(), Minv.data_ptr(), qd.data_ptr(), b.data_ptr(),
             act.data_ptr(), mu.data_ptr(), lam0.data_ptr(), ld.data_ptr(),
-            ptr(w_other), ptr(glam), ptr(gdqd), gJ.data_ptr(),
+            ptr(w_other), ptr(glam), ptr(gdqd), save.data_ptr(),
+            gJ.data_ptr(),
             gMinv.data_ptr(), gqd.data_ptr(), gb.data_ptr(), gmu.data_ptr(),
             glam0.data_ptr(), ptr(gw), W, c, nl, d, int(iters),
             float(omega), int(bool(use_cone)), float(diag_scale),
@@ -300,13 +328,20 @@ def pgs_backward(J, Minv, qd, b, act, mu, lam0, ld, w_other, glam, gdqd, *,
 
 
 class _PGSSolve(torch.autograd.Function):
-    """B2 forward, K4 backward. act and the halvings carry no gradient."""
+    """B2 forward (the instance that saves its iterates), K4 backward; used
+    where grad is on and an input requires it. act and the halvings carry
+    no gradient."""
 
     @staticmethod
     def forward(ctx, J, Minv, qd, b, act, mu, lam0, w_other, ld, kw):
+        W, r3, d = J.shape
+        save = torch.empty(
+            (W, save_floats(r3 // 3, int(ld.numel()), d, kw["iters"])),
+            dtype=J.dtype, device=J.device)
         lam, dqd, halv = _launch(J, Minv, qd, b, act, mu, lam0, ld,
-                                 w_other, **kw)
-        ctx.save_for_backward(J, Minv, qd, b, act, mu, lam0, w_other, ld)
+                                 w_other, save=save, **kw)
+        ctx.save_for_backward(J, Minv, qd, b, act, mu, lam0, w_other, ld,
+                              save)
         ctx.kw = kw
         ctx.mark_non_differentiable(halv)
         ctx.set_materialize_grads(False)
@@ -314,12 +349,12 @@ class _PGSSolve(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, glam, gdqd, _ghalv):
-        J, Minv, qd, b, act, mu, lam0, w_other, ld = ctx.saved_tensors
+        J, Minv, qd, b, act, mu, lam0, w_other, ld, save = ctx.saved_tensors
         if glam is None and gdqd is None:
             return (None,) * 10
         kw = ctx.kw
         gJ, gMinv, gqd, gb, gmu, glam0, gw = pgs_backward(
-            J, Minv, qd, b, act, mu, lam0, ld, w_other, glam, gdqd,
+            J, Minv, qd, b, act, mu, lam0, ld, w_other, glam, gdqd, save,
             c=kw["c"], iters=kw["iters"], omega=kw["omega"],
             use_cone=kw["use_cone"], diag_scale=kw["diag_scale"],
             reg=kw["reg"], symmetric=kw["symmetric"])
@@ -377,14 +412,21 @@ def pgs_solve_fused(J, Minv, qd, b, act, mu, lam0, *, c, ld, iters, omega,
         raise ValueError(f"pgs_solve_fused: unsupported device {J.device}")
     kw = dict(c=c, iters=iters, omega=omega, use_cone=use_cone,
               diag_scale=diag_scale, reg=reg, symmetric=symmetric)
-    lam, dqd, halv = _PGSSolve.apply(J, Minv, qd, b, act, mu, lam0,
-                                     w_other, ld, kw)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (J, Minv, qd, b, act, mu, lam0, w_other)):
+        lam, dqd, halv = _PGSSolve.apply(J, Minv, qd, b, act, mu, lam0,
+                                         w_other, ld, kw)
+    else:
+        lam, dqd, halv = _launch(J, Minv, qd, b, act, mu, lam0, ld, w_other,
+                                 **kw)
     return (lam, dqd, halv) if return_halvings else (lam, dqd)
 
 
 def _launch(J, Minv, qd, b, act, mu, lam0, ld, w_other, *, c, iters, omega,
-            use_cone, diag_scale, reg, symmetric):
-    """One launch of B2, counted in ``pgs_solve_fused.launches``."""
+            use_cone, diag_scale, reg, symmetric, save=None):
+    """One launch of B2, counted in ``pgs_solve_fused.launches``; with
+    ``save`` (W, save_floats) the instance that also saves its forward."""
     W, r3, d = J.shape
     nl = int(ld.numel())
     r = r3 + 2 * nl
@@ -401,17 +443,23 @@ def _launch(J, Minv, qd, b, act, mu, lam0, ld, w_other, *, c, iters, omega,
     n_scratch = scratch_floats(c, nl, d) if W else 0
     scratch = (torch.empty((W, n_scratch), dtype=J.dtype, device=J.device)
                if n_scratch else None)
+    lib = _kernels.lib()
     with torch.cuda.device(J.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _kernels.lib().pgs_solve_fused_f32(
-            J.data_ptr(), Minv.data_ptr(), qd.data_ptr(), b.data_ptr(),
-            act.data_ptr(), mu.data_ptr(), lam0.data_ptr(), ld.data_ptr(),
-            None if w_other is None else w_other.data_ptr(),
-            lam.data_ptr(), dqd.data_ptr(), halv.data_ptr(),
-            W, c, nl, d, int(iters), float(omega), int(bool(use_cone)),
-            float(diag_scale), float(reg),
-            None if scratch is None else scratch.data_ptr(),
-            int(not symmetric), stream)
+        args = (J.data_ptr(), Minv.data_ptr(), qd.data_ptr(), b.data_ptr(),
+                act.data_ptr(), mu.data_ptr(), lam0.data_ptr(),
+                ld.data_ptr(),
+                None if w_other is None else w_other.data_ptr(),
+                lam.data_ptr(), dqd.data_ptr(), halv.data_ptr(),
+                W, c, nl, d, int(iters), float(omega), int(bool(use_cone)),
+                float(diag_scale), float(reg),
+                None if scratch is None else scratch.data_ptr(),
+                int(not symmetric))
+        if save is None:
+            err = lib.pgs_solve_fused_f32(*args, stream)
+        else:
+            err = lib.pgs_solve_fused_save_f32(*args, save.data_ptr(),
+                                               stream)
     pgs_solve_fused.launches += 1
     _kernels.check(err, "pgs_solve_fused")
     return lam, dqd, halv

@@ -386,6 +386,9 @@ _K4_CASES = {
     "nonsymmetric": (25, 8, 14, False, False, False),
     "humanoid": (32, 17, 23, False, False, True),
     "uncompacted": (192, 17, 23, False, False, True),
+    "humanoid_w_other": (32, 17, 23, True, True, True),
+    "humanoid_nonsymmetric": (32, 17, 23, False, False, False),
+    "nonsymmetric_w_other": (25, 8, 14, True, True, False),
 }
 
 
@@ -393,10 +396,13 @@ _K4_CASES = {
 @needs_cuda
 @pytest.mark.parametrize("case", list(_K4_CASES))
 def test_k4_matches_plain_autograd(case):
-    """pgs_solve_fused's backward on the card (K4) against autograd of
-    the plain version: the ant's shape with the box and the cone, nl = 0,
-    w_other, a non-symmetric Minv, the humanoid's compacted system and its
-    uncompacted one (K4's global-scratch instance)."""
+    """pgs_solve_fused's backward on the card (K4, from the forward that B2
+    saved) against autograd of the plain version: the ant's shape with
+    the box and the cone, nl = 0, w_other, a non-symmetric Minv, the
+    humanoid's compacted system (one- and two-sided, symmetric and not)
+    and its uncompacted one (K4's global-scratch instance); envs whose B2
+    halvings differ from the plain version's are left out (K4 follows
+    B2's); a second backward pass gives the same bits."""
     c, nl, d, cone, two, sym = _K4_CASES[case]
     W = 4096 if c < 100 else 256
     rng = np.random.RandomState(400 + c + nl)
@@ -437,6 +443,9 @@ def test_k4_matches_plain_autograd(case):
         fin = torch.isfinite(b[same])
         err = (a[same][fin] - b[same][fin]).norm() / b[same][fin].norm()
         assert float(err) <= 1e-3
+    gk2, _ = _vjp(call(pgs.pgs_solve_fused), ops, diff, cots, **kw)
+    for a, b in zip(gk, gk2):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 @gpu
@@ -489,3 +498,138 @@ def test_k4_instance_mirror(c, nl, d, iters):
     assert ("smem", "global")[code] == pgs.backward_instance(c, nl, d, iters)
     assert lib.pgs_backward_scratch_floats(c, nl, d, iters) == \
         pgs.backward_scratch_floats(c, nl, d, iters)
+    assert lib.pgs_save_floats(c, nl, d, iters) == \
+        pgs.save_floats(c, nl, d, iters)
+
+
+# --- B2 without grad runs as before its save instances existed: its
+# outputs on fixed seeded inputs, as the sha256 of the bytes of lam, dqd
+# and the halvings, equal what the kernels gave before (taken on an H100
+# with the earlier sources); with an input that requires grad (the save
+# instance) the same bits.
+
+_B2_GOLDEN_CASES = {
+    "ant": (25, 8, 14, False, False, True, 4096),
+    "ant_cone_w_other": (25, 8, 14, True, True, True, 4096),
+    "ant_nonsymmetric": (25, 8, 14, False, False, False, 4096),
+    "humanoid": (32, 17, 23, False, False, True, 4096),
+    "humanoid_w_other": (32, 17, 23, True, True, True, 4096),
+    "smem128": (16, 6, 9, False, False, True, 1024),
+    "smem256": (192, 17, 23, False, False, True, 256),
+}
+_B2_GOLDEN = {       # NVIDIA H100 80GB HBM3, B2 before its save instances
+    "ant": "be390b47ecb7f97a66a9882650f0841e",
+    "ant_cone_w_other": "fe906be59f3df589a10e65bd38c49d32",
+    "ant_nonsymmetric": "2e196798b03bc9967809e89dac20e992",
+    "humanoid": "8cc107c0580ec4e8224dad433dda7298",
+    "humanoid_w_other": "90a868729d877539890d925d0afd8df2",
+    "smem128": "a0a51b1c212e90f64d137f54b321a24f",
+    "smem256": "ad9ebc21b72dcbf3dec968f35f4eecab",
+}
+
+
+def _b2_golden_inputs(case, device="cuda"):
+    """(operands, keywords) of one golden case, from numpy seed 700 +
+    its index."""
+    c, nl, d, cone, two, sym, W = _B2_GOLDEN_CASES[case]
+    rng = np.random.RandomState(700 + list(_B2_GOLDEN_CASES).index(case))
+    ops = [torch.as_tensor(a, device=device)
+           for a in _pgs_inputs(int(rng.randint(1 << 30)), c, nl, d, W)]
+    if not sym:
+        ops[1] = ops[1] + 0.1 * torch.as_tensor(
+            rng.randn(W, d, d).astype(np.float32), device=device)
+    ops[6] = 0.1 * torch.as_tensor(
+        np.abs(rng.randn(W, 3 * c + 2 * nl)).astype(np.float32),
+        device=device)
+    kw = dict(c=c, ld=torch.arange(d - nl, d, dtype=torch.int32,
+                                   device=device),
+              iters=8, omega=0.8, use_cone=cone, diag_scale=1.0, reg=1e-3,
+              return_halvings=True, symmetric=sym)
+    if two:
+        kw["w_other"] = torch.as_tensor(
+            np.abs(rng.rand(W, 3 * c)).astype(np.float32), device=device)
+    return ops, kw
+
+
+def _b2_digest(outs):
+    import hashlib
+    h = hashlib.sha256()
+    for t in outs:
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:32]
+
+
+@gpu
+@needs_cuda
+@pytest.mark.parametrize("case", list(_B2_GOLDEN_CASES))
+def test_b2_without_grad_unchanged(case):
+    """B2 without grad gives the bits it gave before it had save
+    instances (register, shared-memory paths; one- and two-sided;
+    symmetric and not); with an input that requires grad, the launch that
+    also saves the forward gives the same bits."""
+    ops, kw = _b2_golden_inputs(case)
+    with torch.no_grad():
+        outs = pgs.pgs_solve_fused(*ops, **kw)
+    assert _b2_digest(outs) == _B2_GOLDEN[case]
+    ops[0] = ops[0].clone().requires_grad_(True)
+    saved = pgs.pgs_solve_fused(*ops, **kw)
+    assert saved[0].grad_fn is not None
+    for a, b in zip(outs, saved):
+        assert torch.equal(a, b.detach())
+
+
+# --- K1 on the camera ant x 1024's grid: rows of 64 cameras spread over
+# the worlds, and the shadow rays from their hits, bit for bit.
+
+@gpu
+@needs_cuda
+def test_k1_culling_matches_plain_across_the_grid():
+    """K1 (culled) against closest_analytic_plain bit for bit (t, shape,
+    normal) on the ant x 1024 scene: whole image rows of 64 track cameras
+    across the 32 x 32 grid, their shadow rays toward the light (misses'
+    origins 1e10 away, as the camera makes them); K1's counting instance
+    gives the same bits, its counters report fewer pairs than rays x
+    shapes, and each ray's own passes no more than its warp's work."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+    import chip_smoke as cs
+    import newton_tpu_torch as nt
+    from newton_tpu_torch.geometry import raycast
+    from newton_tpu_torch.sensors import SensorTiledCamera
+    m = cs.camera_ant_scene(nt, cs.CAM_W).finalize("cuda")
+    s = nt.eval_fk(m, m.joint_q0, m.joint_qd0, m.state())
+    X = raycast.shape_world_transforms(m, s)
+    cls = torch.as_tensor(raycast.shape_classes(m), device="cuda")
+    cam = SensorTiledCamera(m, width=cs.CAM_RES, height=cs.CAM_RES,
+                            fov_y=cs.CAM_FOV, shadows=True)
+    torso = np.nonzero(np.asarray(m.structure.body_key) == "torso")[0]
+    poses = torch.cat([s.body_q[torso, :3] + torch.tensor(
+        cs.CAM_OFFSET, device="cuda"), torch.tensor(
+        cs.CAM_QUAT, device="cuda").expand(cs.CAM_W, 4)], 1)
+    sub = cs.camera_rows(cs.CAM_W, cs.CAM_RES, 4096, "cuda")
+    o, d = (x[sub].contiguous() for x in cam.rays(poses))
+    md = cam.max_dist
+    work = {}
+    k = raycast.closest_analytic(o, d, X, m.shape_scale, cls, md,
+                                 stats=work)
+    p = raycast.closest_analytic_plain(o, d, X, m.shape_scale, cls, md)
+    assert int((p[1] >= 0).sum()) > 1000
+    for a, b in zip(k, p):
+        assert torch.equal(a, b) and torch.equal(
+            a.view(torch.int32), b.view(torch.int32))
+    for a, b in zip(k, raycast.closest_analytic(o, d, X, m.shape_scale,
+                                                cls, md)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert work["planes_kept"] == 1
+    assert sum(work["pairs"]) < o.shape[0] * X.shape[0] // 50
+    assert 0 < work["ray_box_tests"] <= work["box_tests"]
+    assert 0 < work["ray_boxes_passed"] <= work["boxes_opened"]
+    assert all(0 <= a <= b for a, b in zip(work["ray_pairs"], work["pairs"]))
+    assert work["ray_pairs"][0] == o.shape[0]     # the one plane kept
+    so = o + d * k[0][:, None] + k[2] * 1e-3
+    sd = (-cam._light).expand_as(so).contiguous()
+    k = raycast.closest_analytic(so, sd, X, m.shape_scale, cls, md)
+    p = raycast.closest_analytic_plain(so, sd, X, m.shape_scale, cls, md)
+    for a, b in zip(k, p):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
