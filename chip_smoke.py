@@ -8624,6 +8624,16 @@ CAM_T_TOL = 1e-5                      # t: 1e-5 max(1, t)
 CAM_N_TOL = 1e-4                      # normals
 K2_RAYS = 65536                       # K2 against its twin
 K2_BRUTE_RAYS = 4096                  # both against every triangle
+# raycast_kernel_info(1-2): K2 without and with its counters
+K2_INSTANCES = ("K2 raycast_mesh", "K2 raycast_mesh counting")
+# K2's and K3's first designs (one thread per pair with a stack; one warp
+# per env with T in global scratch) in run J3 of PERF.md, NVIDIA H100 80GB
+# HBM3 at 700.00 W: printed, labelled as J3's, beside this run's times in
+# phase 57 (a)'s and 58 (a)'s lines, and nowhere in the kernels line
+FIRST_DESIGN_MS = {"K2": 0.8668, "K2 plain rays": 0.1708,
+                   "K3 chol_inv_solve d=14": 0.0395,
+                   "K3 chol_inv_solve d=23": 0.1457,
+                   "K3 chol_solve d=6": 0.00845}
 SPLAT_N = 256
 TERRAIN_MESH = dict(nx=128, ny=128, size_x=128.0, size_y=128.0)
 
@@ -9128,10 +9138,30 @@ def camera_viewers(dev, model, loop, state):
     return out
 
 
+def terrain_view(model, body_q):
+    """Phase 57 (a)-(d)'s state of the extras scene ``model`` with the main
+    path's bodies at body_q, and its track cameras."""
+    import dataclasses
+    from newton_tpu_torch.sensors import SensorTiledCamera
+    state = dataclasses.replace(model.state(), body_q=body_q.clone())
+    return state, SensorTiledCamera(model, width=CAM_RES, height=CAM_RES,
+                                    fov_y=CAM_FOV)
+
+
+def k2_operands(model, state, o, d, dev):
+    """K2's operands at phase 57 (a), from the extras scene and its rays
+    (o, d): the mesh shapes' BVH pool, BVH of each shape, transforms and
+    scales, and the K2_RAYS rays (every step-th) its plain twin takes."""
+    from newton_tpu_torch.geometry import raycast
+    X, sc, _, _ = analytic_inputs(model, state)
+    sel, bvh_of, pool = raycast._tables(model, dev)["mesh"]
+    step = o.shape[0] // K2_RAYS
+    return (pool, bvh_of, X[sel], sc[sel], o[::step].contiguous(),
+            d[::step].contiguous())
+
+
 def phase_camera_paths(dev, main):
     """Phase 57 (see the module docstring)."""
-    import dataclasses
-    import numpy as np
     import torch
     import newton_tpu_torch as nt
     from newton_tpu_torch.geometry import bvh, raycast
@@ -9173,9 +9203,7 @@ def phase_camera_paths(dev, main):
     if st.shape_sdf_id[mesh_s] >= 0 or st.shape_sdf_id[hf_s] < 0:
         raise AssertionError(f"{label}: bakes {st.shape_sdf_id[mesh_s]}, "
                              f"{st.shape_sdf_id[hf_s]}")
-    state = dataclasses.replace(model.state(), body_q=state0.body_q.clone())
-    cam = SensorTiledCamera(model, width=CAM_RES, height=CAM_RES,
-                            fov_y=CAM_FOV)
+    state, cam = terrain_view(model, state0.body_q)
     res["setup_s"] = time.perf_counter() - t0
     raycast.closest_analytic.launches = 0
     bvh.mesh_closest.launches = 0
@@ -9210,19 +9238,16 @@ def phase_camera_paths(dev, main):
                          o, d, X, sc, cls, cam.max_dist), n=3, queued=True))
     # K2 at the render's shape, its plain twin on every 64th ray, both
     # against every triangle on K2_BRUTE_RAYS of those
-    sel, bvh_of, pool = raycast._tables(model, dev)["mesh"]
-    Xm, scm = X[sel], sc[sel]
+    pool, bvh_of, Xm, scm, os_, ds_ = k2_operands(model, state, o, d, dev)
     stats = {}
     bvh.mesh_closest(pool, o, d, bvh_of, Xm, scm, stats=stats)
-    k2 = dict(rays=o.shape[0], mesh_shapes=int(sel.shape[0]),
+    k2 = dict(rays=o.shape[0], mesh_shapes=int(bvh_of.shape[0]),
               triangles=int(pool.mask.sum()),
               leaf_slots=int(pool.mask.numel()), nodes=int(pool.lo.shape[0]),
               leaf_budget=pool.leaf_budget, depth=int(pool.params_np[0, 3]),
               vertices=int(pool.verts.shape[0]), visited=stats,
               ms=time_ms(lambda: bvh.mesh_closest(pool, o, d, bvh_of, Xm,
                                                   scm), n=3))
-    step = o.shape[0] // K2_RAYS
-    os_, ds_ = o[::step].contiguous(), d[::step].contiguous()
     sub_stats = {}
     tk, nk = bvh.mesh_closest(pool, os_, ds_, bvh_of, Xm, scm,
                               stats=sub_stats)
@@ -9239,7 +9264,8 @@ def phase_camera_paths(dev, main):
         t_max_abs_err=float((tk - tp)[hit].abs().max()),
         n_max_abs_err=float((nk - np_)[hit[..., None].expand_as(nk)]
                             .abs().max()),
-        bit_equal=bool(torch.equal(tk, tp) and torch.equal(nk, np_)))
+        bit_equal=bool(torch.equal(tk, tp) and torch.equal(nk, np_)),
+        info=k2_info(), ptxas=ptxas_lines("raycast_mesh_kernel"))
     ok = k2["hits_agree"] and k2["n_max_abs_err"] <= CAM_N_TOL and bool(
         ((tk - tp)[hit].abs() <= CAM_T_TOL * torch.clamp(tp[hit], min=1.0))
         .all())
@@ -9390,7 +9416,7 @@ def grad_kernel_entries(grad, gk):
             "version's autograd (phase 58 (a)), off the main path",
             launches=grad["launches"]["K3"] if i == 0 else 0,
             max_abs_err=max(e["Mi"]["max_abs_err"], e["rhs"]["max_abs_err"]),
-            ms=c["ms"], plain_ms=c["plain_ms"],
+            ms=c["ms"], instance=c["instance"], plain_ms=c["plain_ms"],
             library_ms=c["library_ms"],
             bound_ms=c["bound_ms"], bound_by=c["bound_by"],
             share_of_bound=c["share_of_bound"]))
@@ -9478,11 +9504,7 @@ def kernel_info():
         _kernels.check(fn(*shape, ctypes.addressof(regs),
                           ctypes.addressof(blocks)), label)
         out[label] = dict(registers=regs.value, blocks_per_sm=blocks.value)
-    regs, blocks = ctypes.c_int(0), ctypes.c_int(0)
-    _kernels.check(lib.chol_backward_kernel_info(
-        ctypes.addressof(regs), ctypes.addressof(blocks)), "K3")
-    out["K3 chol_backward"] = dict(registers=regs.value,
-                                   blocks_per_sm=blocks.value)
+    out.update(k3_info())
     for shape in ((25, 8, 14), (32, 17, 23)):
         regs, blocks = ctypes.c_int(0), ctypes.c_int(0)
         label = f"K4 pgs_backward {shape}"
@@ -9492,8 +9514,7 @@ def kernel_info():
         out[label] = dict(registers=regs.value, blocks_per_sm=blocks.value,
                           smem_bytes=4 * lib.pgs_backward_scratch_floats(
                               *shape, ITERS))
-    for which, label in enumerate(("K1 raycast_closest",
-                                   "K2 raycast_mesh")):
+    for which, label in enumerate(("K1 raycast_closest", *K2_INSTANCES)):
         regs, blocks = ctypes.c_int(0), ctypes.c_int(0)
         _kernels.check(lib.raycast_kernel_info(
             which, ctypes.addressof(regs), ctypes.addressof(blocks)), label)
@@ -9760,20 +9781,28 @@ def phase_grad_ant(dev):
     return out, (model, pipe, solver, stats["pgs"][0])
 
 
-def k3_case(dev, which, d, n, seed):
-    """K3 against autograd of the plain version (float32, the card) and of
-    a float64 one: elementwise and normwise errors, and the times of K3,
-    the plain backward and torch.linalg.solve's backward."""
+def k3_operands(dev, d, n):
+    """Phase 58 (a)'s operands of a K3 case at d, W = n, from seed 580 +
+    d: (Mi (n, d, d) SPD, rhs, gx (n, d), gMinv (n, d, d))."""
     import numpy as np
     import torch
-    from newton_tpu_torch.solvers.generalized import linalg
-    rng = np.random.RandomState(seed)
+    rng = np.random.RandomState(580 + d)
     A = rng.randn(n, d, d).astype(np.float32)
     spd = A @ np.transpose(A, (0, 2, 1)) + 2.0 * np.eye(d, dtype=np.float32)
     Mi = torch.as_tensor(spd, device=dev)
     rhs = torch.as_tensor(rng.randn(n, d).astype(np.float32), device=dev)
     gx = torch.as_tensor(rng.randn(n, d).astype(np.float32), device=dev)
     gM = torch.as_tensor(rng.randn(n, d, d).astype(np.float32), device=dev)
+    return Mi, rhs, gx, gM
+
+
+def k3_case(dev, which, d, n):
+    """K3 against autograd of the plain version (float32, the card) and of
+    a float64 one: elementwise and normwise errors, and the times of K3,
+    the plain backward and torch.linalg.solve's backward."""
+    import torch
+    from newton_tpu_torch.solvers.generalized import linalg
+    Mi, rhs, gx, gM = k3_operands(dev, d, n)
     inv = which == "chol_inv_solve"
 
     def vjp(fn, Mi, rhs, gx, gM):
@@ -9828,6 +9857,7 @@ def k3_case(dev, which, d, n, seed):
     library_ms = time_ms(lambda: torch.autograd.grad(
         X, (M2, B2), G, retain_graph=True), queued=True)
     return dict(which=which, d=d, W=n, errors=errs, ms=ms,
+                instance=linalg.backward_instance(d),
                 plain_ms=plain_ms, library_ms=library_ms,
                 **bound_fields("chol_backward", ms, d=d, W=n,
                                inverse=inv))
@@ -9919,8 +9949,7 @@ def phase_grad_kernels(dev, ant_rec):
     w_other, and the humanoid's (32, 17, 23)."""
     import numpy as np
     import torch
-    a = [k3_case(dev, which, d, n, seed=580 + d)
-         for which, d, n in K3_SHAPES]
+    a = [k3_case(dev, which, d, n) for which, d, n in K3_SHAPES]
     cases = {}
     gen = np.random.RandomState(581)
 
@@ -9967,6 +9996,9 @@ def phase_grad_kernels(dev, ant_rec):
     return dict(k3=a, k4=cases, k4_times=times,
                 b2_save_bit_equal=b2_save_equal(*sets[
                     "ant substep (25, 8, 14)"]),
+                k3_info=k3_info(),
+                k3_ptxas={**ptxas_lines("chol_backward_warp"),
+                          **ptxas_lines("chol_backward_generic")},
                 k4_info=k4_info(), k4_ptxas=ptxas_lines("pgs_backward_kernel"),
                 save_bytes_per_train_step=4 * GRAD_W
                 * GRAD_FRAMES * SUBSTEPS * pgs_save_floats(ant_rec))
@@ -9995,25 +10027,59 @@ def b2_save_equal(args, kw):
     return all(torch.equal(x, y) for x, y in zip(plain, saved))
 
 
-def ptxas_lines(kernel):
+def ptxas_lines(kernel, log=None):
     """{instance: its registers line and its spill line} of the kernel
     instances whose mangled name holds ``kernel``, from the build's
-    ptxas.log."""
+    ptxas.log (or from the report ``log``)."""
     import re
     from newton_tpu_torch import _kernels
     out, name = {}, None
-    with open(os.path.join(os.path.dirname(_kernels.build()),
-                           "ptxas.log")) as f:
-        for ln in f:
-            m = re.search(r"Function properties for (\S+)", ln)
-            if m:
-                name = m.group(1) if kernel in m.group(1) else None
-                if name:
-                    t = re.search(r"ILi(\d+)E", name)
-                    name = f"{kernel}<{t.group(1)}>" if t else name
-                    out[name] = []
-            elif name and ("spill" in ln or "registers" in ln):
-                out[name].append(ln.strip().replace("ptxas info    : ", ""))
+    if log is None:
+        with open(os.path.join(os.path.dirname(_kernels.build()),
+                               "ptxas.log")) as f:
+            log = f.read()
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            name = m.group(1) if kernel in m.group(1) else None
+            if name:
+                t = re.search(kernel + r"I((?:L[ib]\d+E)+)E", name)
+                name = (f"{kernel}<" + ", ".join(re.findall(
+                    r"L[ib](\d+)E", t.group(1))) + ">") if t else name
+                out[name] = []
+        elif name and ("spill" in ln or "registers" in ln):
+            out[name].append(ln.strip().replace("ptxas info    : ", ""))
+    return out
+
+
+def k3_info():
+    """K3's registers and blocks per SM at phase 58's sizes and at d = 45
+    (the generic instance), by instance."""
+    import ctypes
+    from newton_tpu_torch import _kernels
+    from newton_tpu_torch.solvers.generalized import linalg
+    lib = _kernels.lib()
+    out = {}
+    for d in (6, 14, 23, 45):
+        regs, blocks = ctypes.c_int(0), ctypes.c_int(0)
+        _kernels.check(lib.chol_backward_kernel_info(
+            d, ctypes.addressof(regs), ctypes.addressof(blocks)), "K3")
+        out[f"K3 chol_backward d={d} ({linalg.backward_instance(d)})"] = \
+            dict(registers=regs.value, blocks_per_sm=blocks.value)
+    return out
+
+
+def k2_info():
+    """K2's instances' registers and blocks per SM."""
+    import ctypes
+    from newton_tpu_torch import _kernels
+    lib = _kernels.lib()
+    out = {}
+    for which, label in enumerate(K2_INSTANCES, 1):
+        regs, blocks = ctypes.c_int(0), ctypes.c_int(0)
+        _kernels.check(lib.raycast_kernel_info(
+            which, ctypes.addressof(regs), ctypes.addressof(blocks)), label)
+        out[label] = dict(registers=regs.value, blocks_per_sm=blocks.value)
     return out
 
 
@@ -10795,11 +10861,15 @@ def main():
           f"{cpaths['heightfield_pixels']}, splat alpha max "
           f"{cpaths['splat_alpha_max']:.3f}, render "
           f"{cpaths['render_ms']:.1f} ms; K1 {cpaths['k1']['ms']:.3f} ms; "
-          f"K2 R={k2['rays']} T={k2['triangles']} {k2['ms']:.3f} ms "
-          f"(visited {k2['visited']}), vs plain on {k2['plain_rays']} rays "
+          f"K2 R={k2['rays']} T={k2['triangles']} {k2['ms']:.4f} ms "
+          f"(J3's first design {FIRST_DESIGN_MS['K2']} ms, PERF.md; "
+          f"visited {k2['visited']}; registers and blocks per SM "
+          f"{k2['info']}; ptxas {k2['ptxas']}), vs plain on "
+          f"{k2['plain_rays']} rays "
           f"t err {k2['t_max_abs_err']:.3g} n err {k2['n_max_abs_err']:.3g} "
           f"bit-equal {k2['bit_equal']}, plain {k2['plain_ms']:.1f} ms vs "
-          f"{k2['ms_on_plain_rays']:.4f} ms, brute force t err "
+          f"{k2['ms_on_plain_rays']:.4f} ms (J3's first design "
+          f"{FIRST_DESIGN_MS['K2 plain rays']} ms), brute force t err "
           f"{k2['brute_kernel_t_err']:.3g}/{k2['brute_plain_t_err']:.3g}; "
           f"golden {cpaths['golden']}; viewers {cpaths['viewers']} on "
           f"{card}", flush=True)
@@ -10829,12 +10899,17 @@ def main():
     gk = phase_grad_kernels(dev, ant_rec)
     results["grad_kernels"] = gk
     del gmodel, ant_rec
+
+    def first_k3(c):
+        return FIRST_DESIGN_MS[f"K3 {c['which']} d={c['d']}"]
     print("[58 (a) K3] " + "; ".join(
-        f"{c['which']} d={c['d']} W={c['W']}: {c['ms']:.4f} ms (bound "
-        f"{c['bound_ms']:.4f} ms by {c['bound_by']}, share "
+        f"{c['which']} d={c['d']} W={c['W']} [{c['instance']}]: "
+        f"{c['ms']:.4f} ms (J3's first design {first_k3(c)} ms, PERF.md; "
+        f"bound {c['bound_ms']:.4f} ms by {c['bound_by']}, share "
         f"{c['share_of_bound']:.3f}), plain backward {c['plain_ms']:.3f} "
         f"ms, torch.linalg.solve backward {c['library_ms']:.4f} ms, errors "
-        f"{c['errors']}" for c in gk["k3"]) + f" on {card}", flush=True)
+        f"{c['errors']}" for c in gk["k3"]) + f"; registers and blocks per "
+        f"SM {gk['k3_info']}; ptxas {gk['k3_ptxas']} on {card}", flush=True)
     print("[58 (b) K4] " + "; ".join(
         f"{k}: worst rel {v['worst']:.3g}, halving mismatch "
         f"{v['halving_mismatch_envs']}, NaN pattern equal "

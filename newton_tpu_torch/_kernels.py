@@ -76,17 +76,19 @@ _SIGNATURES = {
     # shape, n, stats (or NULL), stream
     "raycast_closest_f32": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _F, _P,
                             _P, _P, _P, _P],
-    # o, d, R, X (or NULL), scale (or NULL), bvh_of, M, lo, hi, tris, mask,
-    # verts, params, K, t, n, stats (or NULL), stream
-    "raycast_mesh_f32": [_P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
-                         _I, _P, _P, _P, _P],
-    # which (0: K1, 1: K2), &registers, &blocks per SM
+    # o, d, R, X (or NULL), scale (or NULL), bvh_of, M, boxes, slots,
+    # counts, params, K, t, n, stats (or NULL), stream
+    "raycast_mesh_f32": [_P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P,
+                         _P, _P, _P],
+    # which (0: K1; 1: K2, 2: K2's counting instance), &registers, &blocks
+    # per SM
     "raycast_kernel_info": [_I, _P, _P],
     # K3: Minv (or NULL), x, gx (or NULL), gMinv (or NULL), grhs (written
-    # with Minv, read without), gMi, W, d, scratch (W d d with gMinv), stream
+    # with Minv, read without), gMi, W, d, scratch (W d d with gMinv at
+    # d > 32, else NULL), stream
     "chol_inv_solve_backward_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
-    # &registers, &blocks per SM of K3's launch
-    "chol_backward_kernel_info": [_P, _P],
+    # d, &registers, &blocks per SM of K3's instance at d
+    "chol_backward_kernel_info": [_I, _P, _P],
     # K4: J, Minv, qd, b, act, mu, lam0, ld, w_other (or NULL), glam (or
     # NULL), gdqd (or NULL), save (B2's saved forward), gJ, gMinv, gqd,
     # gb, gmu, glam0, gw (NULL without w_other), W, c, nl, d, iters,

@@ -65,14 +65,44 @@
 // counted per ray where that ray's own test passed (every top box, the
 // groups of the top boxes it passes, the pairs of the groups it passes:
 // the work culling leaves each ray).
-// K2, raycast_mesh_f32: one thread per (mesh shape, ray) pair. The ray goes
-// into the shape's frame (divided by its scale), then down the shape's BVH
-// with a stack in local memory (2 depth + 2 entries used, MAX_STACK
-// reserved): pop the top, the slab test against the node's box, a leaf's
-// triangles by Moller-Trumbore with the leaf's first minimum taken where
-// strictly below the best, push 2i + 1 then 2i + 2 (bvh.py's order). The
-// work depends on the data (nodes visited, triangles tested); an optional
-// pair of counters returns both.
+// K2, raycast_mesh_f32: the closest triangle of every (mesh shape, ray)
+// pair. The ray goes into the shape's frame (divided by its scale), then
+// down the shape's BVH in bvh.py's order: the slab test against the node's
+// box (tmin < t_best), a leaf's triangles by Moller-Trumbore with the
+// leaf's first minimum taken where strictly below the best, and for a hit
+// interior node the right child 2i + 2 first, then 2i + 1 (the stack walk
+// pushes 2i + 1, then 2i + 2). What bounds it on an H100: bytes, 0.05 ms
+// at the terrain's 4.19 M rays (rays in, hits out); the work depends on
+// the data: 4.5 nodes and 4.1 triangles a ray there, most rays missing the
+// root and a few testing dozens of triangles. The first design (a thread
+// per pair, a stack in local memory, a triangle's index loads before its
+// vertex loads, a leaf tested as soon as one lane of the warp reached one)
+// ran 0.87 ms, its warps mostly idle in leaf loops that few of their
+// lanes needed. This one:
+//   - walks without a stack: on the complete binary layout, after a miss
+//     or a leaf it climbs while the node is a left child (odd), then steps
+//     to the left sibling of the right child reached, and stops at the
+//     root: the stack walk's order, with the node in a register;
+//   - reads packed data that BVHPool makes once: a box as two float4, a
+//     leaf's slots contiguous as v0, e1, e2 (the same rounded differences
+//     the first design formed) in three float4, and a count of valid slots
+//     a leaf (every mask is a prefix) in place of the mask;
+//   - keeps the warp's lanes in step: the warp walks until kLeafLanes of
+//     its lanes stand at a hit leaf (or all have one or have ended), then
+//     tests all those leaves' slots at once, spread evenly over its 32
+//     lanes (a prefix sum of the counts gives each slot test its lane), and
+//     each leaf's least (t, slot) comes back to its lane by a segmented
+//     shuffle reduction: the leaf's first minimum, as before. Each lane
+//     still walks its own nodes in its own order.
+// Timed beside this design on the terrain and left out, none faster
+// (tools/k2_variants.cu, by tools/torch_kernel_ab.py --k2-variants;
+// PERF.md section 6): the BVH's top 8 levels staged in shared memory,
+// blocks of 2 or 8 warps, a launch bound of 10 blocks an SM (it spills),
+// and a walk by warp vote (one node at a time for the whole warp: its 32
+// rays, half a camera row, reach different leaves). The leaf stage keeps
+// each lane's leaf as a 32-bit index, so that the instance without
+// counters holds its state in 56 registers without spilling. The counters
+// (nodes visited, triangles tested) are a template instance of their own.
 //
 // Every floating-point operation is an explicitly rounded intrinsic, in the
 // order of the plain PyTorch versions (raycast.py, bvh.py), without fused
@@ -88,7 +118,7 @@
 namespace {
 
 constexpr int kRaysPerBlock = 128;
-constexpr int kMaxStack = 64;
+constexpr int kWarp = 32;
 constexpr float kInf = 1e10f;
 // K1's culling (raycast.py: CULL_GROUP, CULL_FAN, CULL_M0, CULL_KAPPA,
 // CULL_ABS): shapes a group, groups a top box, the margin's terms
@@ -405,24 +435,109 @@ raycast_closest_kernel(const float* __restrict__ o, const float* __restrict__ d,
 }
 
 // ---------------------------------------------------------------- K2 ----
+// A node's box: (lo, 0) and (hi, 0), two float4 (bvh.py: BVHPool.boxes).
+// A leaf slot: v0, e1 = p1 - p0, e2 = p2 - p0 and three zeros, three
+// float4 (BVHPool.slots).
+constexpr int kLeafLanes = 8;    // lanes at a leaf that start a leaf stage
+
+// the slab test of bvh.py's walk: the ray enters the box, before t_best
+__device__ __forceinline__ bool node_hit(V3 ro, V3 inv, float4 l, float4 h,
+                                         float t_best) {
+  const float ax = mul(sub(l.x, ro.x), inv.x), bx = mul(sub(h.x, ro.x), inv.x);
+  const float ay = mul(sub(l.y, ro.y), inv.y), by = mul(sub(h.y, ro.y), inv.y);
+  const float az = mul(sub(l.z, ro.z), inv.z), bz = mul(sub(h.z, ro.z), inv.z);
+  const float tmin =
+      fmaxf(fmaxf(fminf(ax, bx), fminf(ay, by)), fminf(az, bz));
+  const float tmax =
+      fminf(fminf(fmaxf(ax, bx), fmaxf(ay, by)), fmaxf(az, bz));
+  return tmax >= fmaxf(tmin, 0.0f) && tmin < t_best;
+}
+
+// Moller-Trumbore on one slot: t, or kInf on a miss
+__device__ __forceinline__ float slot_t(const float4* __restrict__ s, V3 ro,
+                                        V3 rd) {
+  const float4 a = __ldg(s), b = __ldg(s + 1), c = __ldg(s + 2);
+  const V3 v0 = v3(a.x, a.y, a.z);
+  const V3 e1 = v3(a.w, b.x, b.y);
+  const V3 e2 = v3(b.z, b.w, c.x);
+  const V3 pv = cross(rd, e2);
+  const float det = dot(e1, pv);
+  const bool ok = fabsf(det) > 1e-12f;
+  const float id = rcp(ok ? det : 1e-12f);
+  const V3 sv = vsub(ro, v0);
+  const float uu = mul(dot(sv, pv), id);
+  const V3 qv = cross(sv, e1);
+  const float vv = mul(dot(rd, qv), id);
+  const float t = mul(dot(e2, qv), id);
+  const bool hit = ok && uu >= 0.0f && vv >= 0.0f &&
+                   add(uu, vv) <= 1.0f && t > 1e-6f;
+  return hit ? t : kInf;
+}
+
+// the slot's unit face normal, turned against the ray
+__device__ __forceinline__ V3 slot_normal(const float4* __restrict__ s,
+                                          V3 rd) {
+  const float4 a = __ldg(s), b = __ldg(s + 1), c = __ldg(s + 2);
+  V3 nf = unit(cross(v3(a.w, b.x, b.y), v3(b.z, b.w, c.x)), 1e-12f);
+  if (dot(nf, rd) > 0.0f) nf = v3(-nf.x, -nf.y, -nf.z);
+  return nf;
+}
+
+// The stack walk's next node, without the stack: after a miss or a leaf,
+// climb while the node is a left child (odd), then take the left sibling
+// of the right child reached; -1 after the root ends the walk. Interior
+// hits go to the right child 2i + 2 (the stack pops it first).
+__device__ __forceinline__ int next_node(int node) {
+  while (node & 1) node = (node - 1) >> 1;
+  return node == 0 ? -1 : node - 1;
+}
+
+// a warp's leaf stage: each lane's ray and slots, its slots' prefix sums
+struct LeafStage {
+  float4 ray[kWarp][2];              // (ro, 0), (rd, 0)
+  int leaf[kWarp];                   // the lane's leaf in the pool
+  int end[kWarp];                    // inclusive prefix sum of the counts
+  unsigned long long best[kWarp];    // (t bits, slot) of its first minimum
+};
+
+// One thread per (mesh shape, ray) pair, a warp 32 consecutive rays of one
+// shape; each lane walks alone, the warp keeps its lanes in step: it walks
+// until kLeafLanes of its lanes stand at a hit leaf (or every lane stands
+// at one or has ended), then tests all those leaves' slots at once, spread
+// over its 32 lanes. Each lane still sees its own walk's nodes in its own
+// order, and its leaf's first minimum replaces its best where strictly
+// below it. kStats counts nodes visited and triangles tested.
+template <bool kStats>
 __global__ void __launch_bounds__(kRaysPerBlock)
 raycast_mesh_kernel(const float* __restrict__ o, const float* __restrict__ d,
                     int R, const float* __restrict__ X,
                     const float* __restrict__ scale,
                     const int* __restrict__ bvh_of, int M,
-                    const float* __restrict__ lo, const float* __restrict__ hi,
-                    const int* __restrict__ tris,
-                    const unsigned char* __restrict__ mask,
-                    const float* __restrict__ verts,
+                    const float4* __restrict__ boxes,
+                    const float4* __restrict__ slots,
+                    const int* __restrict__ counts,
                     const int* __restrict__ params, int K,
                     float* __restrict__ t_out, float* __restrict__ n_out,
                     unsigned long long* __restrict__ stats) {
-  const long long q = (long long)blockIdx.x * kRaysPerBlock + threadIdx.x;
-  if (q >= (long long)M * R) return;
-  const int m = (int)(q / R);
-  const int r = (int)(q - (long long)m * R);
-  V3 ro = v3(o[3 * (size_t)r], o[3 * (size_t)r + 1], o[3 * (size_t)r + 2]);
-  V3 rd = v3(d[3 * (size_t)r], d[3 * (size_t)r + 1], d[3 * (size_t)r + 2]);
+  __shared__ LeafStage stage[kRaysPerBlock / kWarp];
+  const int lane = threadIdx.x & 31;
+  LeafStage& S = stage[threadIdx.x / kWarp];
+  // a warp: 32 consecutive rays of one shape (shape-major)
+  const int warps_per_m = (R + kWarp - 1) / kWarp;
+  const long long tile = (long long)blockIdx.x * (kRaysPerBlock / kWarp) +
+                         threadIdx.x / kWarp;
+  if (tile >= (long long)M * warps_per_m) return;  // the whole warp
+  const int m = (int)(tile / warps_per_m);
+  const int r = (int)(tile - (long long)m * warps_per_m) * kWarp + lane;
+  const int b = bvh_of[m];
+  const int node_off = params[4 * b], leaf_off = params[4 * b + 1];
+  const int leaf_base = params[4 * b + 2] - 1;
+  const bool live = r < R;
+  V3 ro = v3(0.0f, 0.0f, 0.0f), rd = v3(0.0f, 0.0f, 1.0f);
+  if (live) {
+    ro = v3(o[3 * (size_t)r], o[3 * (size_t)r + 1], o[3 * (size_t)r + 2]);
+    rd = v3(d[3 * (size_t)r], d[3 * (size_t)r + 1], d[3 * (size_t)r + 2]);
+  }
   V3 sc = v3(1.0f, 1.0f, 1.0f);
   if (X != nullptr) {
     const float* x = X + 7 * (size_t)m;
@@ -436,82 +551,109 @@ raycast_mesh_kernel(const float* __restrict__ o, const float* __restrict__ d,
       rd = v3(dvd(rd.x, sc.x), dvd(rd.y, sc.y), dvd(rd.z, sc.z));
     }
   }
-  const int b = bvh_of[m];
-  const int node_off = params[4 * b], leaf_off = params[4 * b + 1];
-  const int leaf_base = params[4 * b + 2] - 1;
   const V3 inv = v3(rcp(fabsf(rd.x) > 1e-9f ? rd.x : 1e-9f),
                     rcp(fabsf(rd.y) > 1e-9f ? rd.y : 1e-9f),
                     rcp(fabsf(rd.z) > 1e-9f ? rd.z : 1e-9f));
-  int stack[kMaxStack];
-  int sp = 1;
-  stack[0] = 0;
+  const float4* nb = boxes + 2 * (size_t)node_off;
+  const int leaf0 = leaf_off - leaf_base;  // leaf of node: leaf0 + node
+  S.ray[lane][0] = make_float4(ro.x, ro.y, ro.z, 0.0f);
+  S.ray[lane][1] = make_float4(rd.x, rd.y, rd.z, 0.0f);
   float t_best = kInf;
   V3 n_best = v3(0.0f, 0.0f, 0.0f);
   unsigned long long nodes = 0, tested = 0;
-  while (sp > 0) {
-    const int node = stack[--sp];
-    ++nodes;
-    const float* l = lo + 3 * (size_t)(node_off + node);
-    const float* h = hi + 3 * (size_t)(node_off + node);
-    const float ax = mul(sub(l[0], ro.x), inv.x), bx = mul(sub(h[0], ro.x), inv.x);
-    const float ay = mul(sub(l[1], ro.y), inv.y), by = mul(sub(h[1], ro.y), inv.y);
-    const float az = mul(sub(l[2], ro.z), inv.z), bz = mul(sub(h[2], ro.z), inv.z);
-    const float tmin =
-        fmaxf(fmaxf(fminf(ax, bx), fminf(ay, by)), fminf(az, bz));
-    const float tmax =
-        fminf(fminf(fmaxf(ax, bx), fmaxf(ay, by)), fmaxf(az, bz));
-    if (!(tmax >= fmaxf(tmin, 0.0f) && tmin < t_best)) continue;
-    if (node < leaf_base) {
-      stack[sp] = 2 * node + 1;
-      stack[sp + 1] = 2 * node + 2;
-      sp += 2;
-      continue;
-    }
-    const size_t leaf = (size_t)(leaf_off + node - leaf_base);
-    float tk = kInf;
-    V3 nk = v3(0.0f, 0.0f, 0.0f);
-    for (int k = 0; k < K; ++k) {
-      if (!mask[leaf * K + k]) continue;
-      ++tested;
-      const int* tri = tris + 3 * (leaf * K + k);
-      const float* p0 = verts + 3 * (size_t)tri[0];
-      const float* p1 = verts + 3 * (size_t)tri[1];
-      const float* p2 = verts + 3 * (size_t)tri[2];
-      const V3 v0 = v3(p0[0], p0[1], p0[2]);
-      const V3 e1 = vsub(v3(p1[0], p1[1], p1[2]), v0);
-      const V3 e2 = vsub(v3(p2[0], p2[1], p2[2]), v0);
-      const V3 pv = cross(rd, e2);
-      const float det = dot(e1, pv);
-      const bool ok = fabsf(det) > 1e-12f;
-      const float id = rcp(ok ? det : 1e-12f);
-      const V3 s = vsub(ro, v0);
-      const float uu = mul(dot(s, pv), id);
-      const V3 qv = cross(s, e1);
-      const float vv = mul(dot(rd, qv), id);
-      const float t = mul(dot(e2, qv), id);
-      const bool hit = ok && uu >= 0.0f && vv >= 0.0f &&
-                       add(uu, vv) <= 1.0f && t > 1e-6f;
-      const float th = hit ? t : kInf;
-      if (th < tk) {
-        tk = th;
-        V3 nf = unit(cross(e1, e2), 1e-12f);
-        if (dot(nf, rd) > 0.0f) nf = v3(-nf.x, -nf.y, -nf.z);
-        nk = nf;
+  int node = live ? 0 : -1;
+  bool at_leaf = false;
+  while (__any_sync(0xffffffffu, node >= 0)) {
+    // walk until enough lanes stand at a hit leaf
+    while (true) {
+      const bool ready = node < 0 || at_leaf;
+      if (__all_sync(0xffffffffu, ready) ||
+          __popc(__ballot_sync(0xffffffffu, at_leaf)) >= kLeafLanes)
+        break;
+      if (ready) continue;
+      if (kStats) ++nodes;
+      if (node_hit(ro, inv, __ldg(nb + 2 * node), __ldg(nb + 2 * node + 1),
+                   t_best)) {
+        if (node < leaf_base) node = 2 * node + 2;
+        else at_leaf = true;
+      } else {
+        node = next_node(node);
       }
     }
-    if (tk < t_best) {
-      t_best = tk;
-      n_best = nk;
+    // the leaf stage: the warp's w-th slot test goes to lane w % 32
+    const int n = at_leaf ? counts[leaf0 + node] : 0;
+    if (kStats) tested += n;
+    int end = n;
+#pragma unroll
+    for (int s = 1; s < kWarp; s <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, end, s);
+      if (lane >= s) end += y;
+    }
+    const int total = __shfl_sync(0xffffffffu, end, kWarp - 1);
+    S.leaf[lane] = leaf0 + node;
+    S.end[lane] = end;
+    S.best[lane] = (unsigned long long)__float_as_uint(kInf) << 32;
+    __syncwarp();
+    for (int w0 = 0; w0 < total; w0 += kWarp) {
+      const int w = w0 + lane;
+      int owner = -1;
+      unsigned long long key = ~0ull;
+      if (w < total) {
+        owner = 0;                   // the first lane whose end exceeds w
+#pragma unroll
+        for (int s = 16; s > 0; s >>= 1)
+          if (S.end[owner + s - 1] <= w) owner += s;
+        const int k = w - (owner ? S.end[owner - 1] : 0);
+        const float4 a = S.ray[owner][0], c = S.ray[owner][1];
+        const long long sl = (long long)S.leaf[owner] * K + k;
+        const float t = slot_t(slots + 3 * sl, v3(a.x, a.y, a.z),
+                               v3(c.x, c.y, c.z));
+        key = ((unsigned long long)__float_as_uint(t) << 32) | (unsigned)k;
+      }
+      // the least (t, k) of each owner's run of lanes (runs are
+      // contiguous), into the run's first lane
+#pragma unroll
+      for (int s = 1; s < kWarp; s <<= 1) {
+        const unsigned long long y = __shfl_down_sync(0xffffffffu, key, s);
+        const int oy = __shfl_down_sync(0xffffffffu, owner, s);
+        if (lane + s < kWarp && oy == owner && y < key) key = y;
+      }
+      const int before = __shfl_up_sync(0xffffffffu, owner, 1);
+      if (owner >= 0 && (lane == 0 || before != owner) &&
+          key < S.best[owner])
+        S.best[owner] = key;
+      __syncwarp();
+    }
+    if (at_leaf) {
+      const unsigned long long key = S.best[lane];
+      const float tk = __uint_as_float((unsigned)(key >> 32));
+      if (tk < t_best) {
+        t_best = tk;
+        n_best = slot_normal(
+            slots + 3 * ((long long)S.leaf[lane] * K + (unsigned)key), rd);
+      }
+      at_leaf = false;
+      node = next_node(node);
+    }
+    __syncwarp();
+  }
+  if (kStats) {
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) {
+      nodes += __shfl_xor_sync(0xffffffffu, nodes, s);
+      tested += __shfl_xor_sync(0xffffffffu, tested, s);
+    }
+    if (lane == 0) {
+      atomicAdd(stats, nodes);
+      atomicAdd(stats + 1, tested);
     }
   }
-  if (stats != nullptr) {
-    atomicAdd(stats, nodes);
-    atomicAdd(stats + 1, tested);
-  }
+  if (!live) return;
   if (scale != nullptr) {
     n_best = unit(v3(dvd(n_best.x, sc.x), dvd(n_best.y, sc.y),
                      dvd(n_best.z, sc.z)), 1e-9f);
   }
+  const size_t q = (size_t)m * R + r;
   t_out[q] = t_best;
   n_out[3 * q] = n_best.x;
   n_out[3 * q + 1] = n_best.y;
@@ -550,33 +692,48 @@ extern "C" int raycast_closest_f32(const float* o, const float* d, int R,
 }
 
 // t (M, R) and local normal (M, R, 3) of every (mesh shape, ray) pair; X and
-// scale may be null (rays already in the mesh's frame); stats (2 counters:
-// nodes visited, triangles tested) may be null.
+// scale may be null (rays already in the mesh's frame); boxes (N, 8),
+// slots (S, 12) and counts (L,) are a BVHPool's packed nodes, leaf slots
+// and valid slots a leaf, params (B, 4) its per-BVH (node offset, leaf
+// offset, leaves, depth), K its leaf budget; stats (2 counters: nodes
+// visited, triangles tested) may be null, and selects the counting
+// instance where it is not. A warp walks 32 rays of one shape
+// (shape-major), four warps a block.
 extern "C" int raycast_mesh_f32(const float* o, const float* d, int R,
                                 const float* X, const float* scale,
-                                const int* bvh_of, int M, const float* lo,
-                                const float* hi, const int* tris,
-                                const unsigned char* mask, const float* verts,
+                                const int* bvh_of, int M, const float* boxes,
+                                const float* slots, const int* counts,
                                 const int* params, int K, float* t, float* n,
                                 long long* stats, void* stream) {
   if (R <= 0 || M <= 0) return 0;
   if (K < 1) return (int)cudaErrorInvalidValue;
-  const long long pairs = (long long)M * R;
-  const long long blocks = (pairs + kRaysPerBlock - 1) / kRaysPerBlock;
+  const long long warps = (long long)M * ((R + kWarp - 1) / kWarp);
+  const long long per_block = kRaysPerBlock / kWarp;
+  const long long blocks = (warps + per_block - 1) / per_block;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  raycast_mesh_kernel<<<(unsigned)blocks, kRaysPerBlock, 0,
-                        (cudaStream_t)stream>>>(
-      o, d, R, X, scale, bvh_of, M, lo, hi, tris, mask, verts, params, K, t,
-      n, (unsigned long long*)stats);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const float4* b4 = (const float4*)boxes;
+  const float4* s4 = (const float4*)slots;
+  if (stats == nullptr)
+    raycast_mesh_kernel<false><<<(unsigned)blocks, kRaysPerBlock, 0, st>>>(
+        o, d, R, X, scale, bvh_of, M, b4, s4, counts, params, K, t, n,
+        nullptr);
+  else
+    raycast_mesh_kernel<true><<<(unsigned)blocks, kRaysPerBlock, 0, st>>>(
+        o, d, R, X, scale, bvh_of, M, b4, s4, counts, params, K, t, n,
+        (unsigned long long*)stats);
   return (int)cudaGetLastError();
 }
 
 // Registers per thread and resident blocks per SM of K1 (which 0; its
-// instance without counters) and K2 (which 1).
+// instance without counters) and K2 (which 1; 2: its counting instance).
 extern "C" int raycast_kernel_info(int which, int* regs, int* blocks_per_sm) {
+  if (which < 0 || which > 2) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;
-  const void* k = which == 0 ? (const void*)raycast_closest_kernel<false>
-                             : (const void*)raycast_mesh_kernel;
+  const void* k =
+      which == 0 ? (const void*)raycast_closest_kernel<false>
+      : which == 1 ? (const void*)raycast_mesh_kernel<false>
+                   : (const void*)raycast_mesh_kernel<true>;
   const cudaError_t e = cudaFuncGetAttributes(&a, k);
   if (e != cudaSuccess) return (int)e;
   *regs = a.numRegs;

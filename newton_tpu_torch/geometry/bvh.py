@@ -21,7 +21,10 @@ each ray in a ``lax.while_loop``; an eager walk would read a flag back
 to the host at every node, so the card runs the walk in one kernel. Both
 versions do each floating-point operation in the same order (products
 and sums rounded one by one, no fused multiply-add), so they agree bit
-for bit.
+for bit. The kernel walks the same order without a stack (after a miss
+or a leaf: climb while the node is a left child, then take the left
+sibling) over the pool's packed boxes and leaf slots (``BVHPool.boxes``,
+``slots``, ``counts``), each warp testing its lanes' leaves together.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ __all__ = ["MeshBVH", "BVHPool", "ray_triangles", "mesh_closest",
            "mesh_closest_plain", "MAX_STACK"]
 
 _INF = 1e10
-MAX_STACK = 64          # the kernel's stack: depth <= 31
+MAX_STACK = 64          # depth <= 31: the kernel's node indices are int32
 
 
 def _dot(a, b):
@@ -186,7 +189,11 @@ class BVHPool:
     launch: node boxes (N, 3), leaf triangles (L, K, 3) int32 into the
     pooled vertices (V, 3) float32 (a BVH with a smaller budget padded and
     masked), the leaf masks (L, K) uint8, and per BVH (node offset, leaf
-    offset, leaf count, depth) int32."""
+    offset, leaf count, depth) int32. The kernel reads them packed, made
+    once here: ``boxes`` (N, 8) float32 (lo, 0, hi, 0), ``slots`` (L K, 12)
+    float32 (each slot's v0, e1 = v1 - v0, e2 = v2 - v0, rounded as the
+    walk rounds them, then three zeros) and ``counts`` (L,) int32, the
+    valid slots of each leaf (every mask is a prefix)."""
 
     def __init__(self, bvhs: Sequence[MeshBVH], vertices: Sequence,
                  device):
@@ -220,6 +227,18 @@ class BVHPool:
         self.params = torch.as_tensor(np.asarray(params, dtype=np.int32),
                                       device=device)
         self.params_np = np.asarray(params, dtype=np.int64)
+        mask = np.concatenate(masks).astype(bool)
+        counts = mask.sum(1)
+        if not np.array_equal(mask, np.arange(K) < counts[:, None]):
+            raise ValueError("BVHPool: a leaf mask is not a prefix")
+        self.counts = torch.as_tensor(counts.astype(np.int32), device=device)
+        zero = torch.zeros_like(self.lo[:, :1])
+        self.boxes = torch.cat([self.lo, zero, self.hi, zero], 1)
+        p = (self.verts[self.tris.long()] if len(self.verts) else
+             torch.zeros(self.tris.shape + (3,), device=device)
+             ).reshape(-1, 3, 3)                             # (L K, 3, 3)
+        self.slots = torch.cat([p[:, 0], p[:, 1] - p[:, 0], p[:, 2] - p[:, 0],
+                                torch.zeros_like(p[:, 0])], 1).contiguous()
 
 
 def _local_rays(o, d, xform, scale):
@@ -238,14 +257,15 @@ def _local_rays(o, d, xform, scale):
 
 
 def mesh_closest_plain(pool: BVHPool, o, d, bvh_of, xform=None,
-                       scale=None, stats=None):
+                       scale=None, stats=None, trace=None):
     """Plain version of ``mesh_closest``: the batched stack walk. Pair
     (m, r) runs ray r in shape m's frame (``xform`` (M, 7) world
     transforms, ``scale`` (M, 3), both None for rays given in the mesh's
     frame) through BVH ``bvh_of[m]``. Returns t (M, R) and the local
     normal (M, R, 3) (divided by the scale and renormalized where
     ``scale`` is given). ``stats`` (a dict) gets the nodes visited and the
-    triangles tested."""
+    triangles tested; ``trace`` (a list) gets each step's (pairs, nodes
+    popped), the pairs as m R + r."""
     M = bvh_of.shape[0]
     o_loc, d_loc = _local_rays(o, d, xform, scale)
     R = o.shape[0]
@@ -268,6 +288,8 @@ def mesh_closest_plain(pool: BVHPool, o, d, bvh_of, xform=None,
         sp_a = sp[idx] - 1
         node = stack[idx, sp_a]
         sp[idx] = sp_a
+        if trace is not None:
+            trace.append((idx.clone(), node.clone()))
         g = node_off[idx] + node
         o1, inv1, tb = o_q[idx], inv[idx], t_best[idx]
         t1 = (pool.lo[g] - o1) * inv1
@@ -315,7 +337,8 @@ def mesh_closest(pool: BVHPool, o, d, bvh_of, xform=None, scale=None,
     """Closest hit of every (mesh shape, ray) pair (see
     ``mesh_closest_plain``): t (M, R), local normal (M, R, 3). CUDA
     tensors go to the kernel (K2) or raise; CPU tensors to the plain
-    version. ``mesh_closest.launches`` counts kernel launches."""
+    version. ``mesh_closest.launches`` counts
+    kernel launches."""
     if o.dtype != torch.float32 or d.dtype != torch.float32:
         raise TypeError("mesh_closest takes float32 rays")
     if o.dim() != 2 or o.shape[1] != 3 or d.shape != o.shape:
@@ -343,9 +366,8 @@ def mesh_closest(pool: BVHPool, o, d, bvh_of, xform=None, scale=None,
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernels.lib().raycast_mesh_f32(
             ptr(args[0]), ptr(args[1]), R, ptr(xf), ptr(sc), ptr(args[2]),
-            M, pool.lo.data_ptr(), pool.hi.data_ptr(),
-            pool.tris.data_ptr(), pool.mask.data_ptr(),
-            pool.verts.data_ptr(), pool.params.data_ptr(),
+            M, pool.boxes.data_ptr(), pool.slots.data_ptr(),
+            pool.counts.data_ptr(), pool.params.data_ptr(),
             pool.leaf_budget, t.data_ptr(), n.data_ptr(), ptr(cnt), stream)
     mesh_closest.launches += 1
     _kernels.check(err, "mesh_closest")

@@ -18,7 +18,10 @@ both wrappers are ``torch.autograd.Function``s whose backward is the
 kernel in ``csrc/chol_backward.cu`` (``chol_backward.launches`` counts it):
 from the saved Minv and x it forms grhs = Minv gx and the Mi gradient
 -(grhs x^T + Minv gMinv Minv), folded onto the lower triangle as autograd
-of the plain factor gives it (the factor reads only that triangle).
+of the plain factor gives it (the factor reads only that triangle). It
+runs B1's register size at d <= 32 (``backward_instance`` names it), a
+warp holding one to four envs in shared memory, and a generic instance
+with a per-env global scratch above.
 ``chol_solve`` keeps no inverse: its backward gets grhs from one more
 ``chol_solve`` launch (counted in ``chol_solve.launches``), then the
 kernel forms -grhs x^T.
@@ -31,7 +34,8 @@ import torch
 __all__ = ["chol_inv_solve", "chol_inv_solve_plain", "chol_solve",
            "chol_solve_plain", "cholesky_plain", "cho_solve_plain",
            "chol_backward", "fold_lower",
-           "kernel_instance", "generic_floats", "INSTANCE_CODES"]
+           "kernel_instance", "backward_instance", "generic_floats",
+           "INSTANCE_CODES"]
 
 _REG_SIZES = (8, 14, 16, 23, 24, 32)    # one warp per env, D registers
 _SMEM_BYTES = 227 * 1024                # shared memory of one H100 block
@@ -60,6 +64,16 @@ def kernel_instance(d: int) -> str:
         return f"reg{D}"
     return ("generic_smem" if 4 * generic_floats(d) <= _SMEM_BYTES
             else "generic_global")
+
+
+def backward_instance(d: int) -> str:
+    """The name of the K3 instance that runs a d x d backward (the kernel
+    takes B1's choice itself): B1's register size ``reg<D>`` for d <= 32
+    (envs of a warp in shared memory), else ``generic_global`` (one warp
+    per env, a per-env global scratch)."""
+    if d < 1:
+        raise ValueError(f"chol_backward: d must be >= 1, got {d}")
+    return kernel_instance(d) if d <= 32 else "generic_global"
 
 
 def cholesky_plain(A: torch.Tensor) -> torch.Tensor:
@@ -189,7 +203,7 @@ def chol_backward(Minv, x, gx, gMinv, grhs=None):
     if grhs is None:
         grhs = torch.empty_like(x)
     scratch = (torch.empty((W, d, d), dtype=x.dtype, device=x.device)
-               if gMinv is not None and W else None)
+               if gMinv is not None and W and d > 32 else None)
 
     def ptr(t):
         return None if t is None else t.data_ptr()

@@ -350,7 +350,9 @@ def _vjp(fn, ins, diff, cots, **kw):
 @needs_cuda
 @pytest.mark.parametrize("which, d, W", [("inv", 14, 4096), ("inv", 23, 4096),
                                          ("solve", 6, 8192),
-                                         ("inv", 45, 64)])
+                                         ("inv", 45, 64), ("inv", 8, 4097),
+                                         ("inv", 16, 4097), ("inv", 32, 4097),
+                                         ("inv", 6, 37), ("solve", 23, 37)])
 def test_k3_matches_plain_autograd(which, d, W):
     """chol_inv_solve's and chol_solve's backward on the card (K3; for
     chol_solve one more B1 solve first) against autograd of the plain
@@ -376,6 +378,84 @@ def test_k3_matches_plain_autograd(which, d, W):
     for a, b in zip(gk, gp):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4)
     assert torch.equal(torch.triu(gk[0], 1), torch.zeros_like(gk[0]))
+
+
+@gpu
+@needs_cuda
+@pytest.mark.parametrize("absent, d", [("gx", 14), ("gMinv", 14),
+                                       ("gx", 45), ("gMinv", 23)])
+def test_k3_with_one_cotangent(absent, d):
+    """chol_inv_solve's backward with one output's cotangent absent (K3
+    with gx or gMinv null) against autograd of the plain version."""
+    rng = np.random.RandomState(310 + d)
+    W = 4096 if d <= 32 else 64
+    Mi = torch.as_tensor(_spd(rng, W, d), device="cuda")
+    rhs = torch.as_tensor(rng.randn(W, d).astype(np.float32), device="cuda")
+    cot = torch.as_tensor(rng.randn(W, d).astype(np.float32) if absent ==
+                          "gMinv" else rng.randn(W, d, d).astype(np.float32),
+                          device="cuda")
+
+    def vjp(fn):
+        M_ = Mi.clone().requires_grad_(True)
+        r_ = rhs.clone().requires_grad_(True)
+        Minv, x = fn(M_, r_)
+        out = x if absent == "gMinv" else Minv
+        return torch.autograd.grad(out, (M_, r_), cot, allow_unused=True)
+    before = linalg.chol_backward.launches
+    gk = vjp(linalg.chol_inv_solve)
+    torch.cuda.synchronize()
+    assert linalg.chol_backward.launches == before + 1
+    gp = vjp(linalg.chol_inv_solve_plain)
+    torch.testing.assert_close(gk[0], gp[0], atol=1e-5, rtol=1e-4)
+    if absent == "gx":
+        assert gk[1] is None and not gp[1].any()
+    else:
+        torch.testing.assert_close(gk[1], gp[1], atol=1e-5, rtol=1e-4)
+
+
+@gpu
+@needs_cuda
+def test_k3_repeats_bit_equal_without_host_syncs():
+    """Two backward passes give the same bits, and K3 (with its wrapper)
+    reads nothing back to the host."""
+    rng = np.random.RandomState(320)
+    W, d = 4096, 14
+    Mi = torch.as_tensor(_spd(rng, W, d), device="cuda")
+    rhs, gx = (torch.as_tensor(rng.randn(W, d).astype(np.float32),
+                               device="cuda") for _ in range(2))
+    gM = torch.as_tensor(rng.randn(W, d, d).astype(np.float32),
+                         device="cuda")
+    Minv, x = linalg.chol_inv_solve(Mi, rhs)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a = linalg.chol_backward(Minv, x, gx, gM)
+        b = linalg.chol_backward(Minv, x, gx, gM)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for u, v in zip(a, b):
+        assert torch.equal(u.view(torch.int32), v.view(torch.int32))
+
+
+@gpu
+@needs_cuda
+def test_k3_instances():
+    """Every K3 instance reports its registers and resident blocks, and
+    the sizes d = 1-50 that linalg.backward_instance gives one name report
+    the same kernel's, seven kernels in all."""
+    import ctypes
+    from newton_tpu_torch import _kernels
+    lib = _kernels.lib()
+    seen = {}
+    for d in range(1, 51):
+        regs, blocks = ctypes.c_int(0), ctypes.c_int(0)
+        _kernels.check(lib.chol_backward_kernel_info(
+            d, ctypes.addressof(regs), ctypes.addressof(blocks)), "K3")
+        assert regs.value > 0 and blocks.value > 0, d
+        info = seen.setdefault(linalg.backward_instance(d),
+                               (regs.value, blocks.value))
+        assert info == (regs.value, blocks.value), d
+    assert len(seen) == 7
 
 
 _K4_CASES = {

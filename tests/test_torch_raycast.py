@@ -508,3 +508,25 @@ def test_k2_matches_plain_on_card():
     tp, np_ = tbvh.mesh_closest_plain(pool, o, d, bvh_of, X, sc, stats=sp)
     assert torch.equal(tk, tp) and torch.equal(nk, np_) and sk == sp
     assert (tk < 1e10).any()
+
+
+@gpu
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["field", "deep", "pool"])
+def test_k2_walk_matches_plain_on_card(name):
+    """K2 equals the plain stack walk bit for bit, with the same node and
+    triangle counts, twice: the terrain, a terrain at the depth cap of 12,
+    and a pool of two BVHs with different leaf budgets under transforms
+    and scales; rays that miss the root, graze, run along the axes or
+    start inside the root box (tests/test_torch_bvh_walk.py's cases, on
+    the card)."""
+    sys.path.insert(0, os.path.dirname(__file__))
+    import test_torch_bvh_walk as tw
+    pool, (o, d), bvh_of, X, sc = tw._case(name, "cuda", n=800)
+    sk, sp = {}, {}
+    tk, nk = tbvh.mesh_closest(pool, o, d, bvh_of, X, sc, stats=sk)
+    tk2, nk2 = tbvh.mesh_closest(pool, o, d, bvh_of, X, sc)
+    tp, np_ = tbvh.mesh_closest_plain(pool, o, d, bvh_of, X, sc, stats=sp)
+    assert torch.equal(tk, tp) and torch.equal(nk, np_) and sk == sp
+    assert torch.equal(tk2, tp) and torch.equal(nk2, np_)
+    assert (tp < 1e10).any() and (tp >= 1e10).any()

@@ -6,6 +6,10 @@ card.
     python3 tools/torch_kernel_ab.py --worlds [--out FILE]
     python3 tools/torch_kernel_ab.py --planar [--out FILE]
     python3 tools/torch_kernel_ab.py --hetero [--out FILE]
+    python3 tools/torch_kernel_ab.py --hand [--parent DIR]
+    python3 tools/torch_kernel_ab.py --hand --golden [--parent DIR]
+    python3 tools/torch_kernel_ab.py --hand --phases
+    python3 tools/torch_kernel_ab.py --k2-variants [--out FILE]
 
 Builds this checkout's kernel library and, with ``--parent``, the library
 of the checkout at DIR (its own ``newton_tpu_torch/csrc``), then on the same
@@ -50,13 +54,45 @@ the same way one frame of chip_smoke.py's heterogeneous paths after a
 warm-up frame: the rod x 4096 (ball joints, 8 substeps of 1/480 s) and the
 randomized ant with a ball x 4096 (two groups, two-sided contacts, 4
 substeps of 1/240 s). Writes one JSON object (to ``--out`` as well, when
-given). Without a CUDA device it exits 2.
+given).
+
+With ``--hand`` it times the hand-written kernels without a Pallas
+counterpart, K1-K4, each checkout in a process of its own importing its
+own package, in turns (parent, this, this, parent; this alone without
+``--parent``), on operands both make from the same seeds:
+  - K1 at the camera ant x 1024's start pose (R = 4,194,304 rays, S =
+    14,336 shapes; its pre-pass included, queued and back to back) and
+    the render, with the sha256 of (t, shape, normal);
+  - K2 at chip_smoke.py phase 57 (a)'s shape (the 32,258-triangle terrain
+    under the same cameras, R = 4,194,304) and on its 65,536 plain rays,
+    with the sha256 of (t, normal);
+  - K3 at phase 58's cases (``chol_inv_solve`` d = 14 and 23, W = 4096;
+    ``chol_solve`` d = 6, W = 8192) on phase 58's operands, with its
+    largest error against autograd of the plain version;
+  - K4 at the ant's (25, 8, 14) and the humanoid's (32, 17, 23), W =
+    4096, 0, 8 and 16 sweeps (the differences are the sweeps' share), from
+    B2's saved forward where the checkout has one; B2 with and without
+    the save.
+CUDA events with the stream held busy (chip_smoke.time_ms, queued). With
+``--golden`` it prints the sha256 digests of B2's outputs on
+tests/test_torch_kernels.py's golden cases instead; with ``--phases``
+chip_smoke.py's phases 56-58 alone. One JSON line a run.
+
+With ``--k2-variants`` (this checkout only) it builds
+``tools/k2_variants.cu`` (K2's walk with the BVH's top levels in shared
+memory, with other block sizes and launch bounds, and a walk by warp vote;
+none of them ships) and times K2 and each variant in turns (K2, the
+variants, then the same backwards) at ``--hand``'s K2 operands, with
+whether each gives K2's (t, normal) bit for bit and each one's registers,
+blocks per SM and ptxas lines.
+Without a CUDA device it exits 2.
 """
 
 import argparse
 import importlib.util
 import json
 import os
+import subprocess
 import sys
 import time
 
@@ -538,6 +574,10 @@ def hetero_profile(dev):
 
 
 def main():
+    if "--hand-one" in sys.argv:
+        k = sys.argv.index("--hand-one")
+        hand_one(sys.argv[k + 1], sys.argv[k + 2])
+        return 0
     import torch
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="root of the checkout to compare with")
@@ -551,11 +591,23 @@ def main():
     ap.add_argument("--hetero", action="store_true",
                     help="only the profiles of the rod and the ant with a "
                          "ball")
+    ap.add_argument("--hand", action="store_true",
+                    help="K1-K4's times in turns, a process a checkout")
+    ap.add_argument("--golden", action="store_true",
+                    help="with --hand: B2's output digests")
+    ap.add_argument("--phases", action="store_true",
+                    help="with --hand: chip_smoke.py's phases 56-58 alone")
+    ap.add_argument("--k2-variants", action="store_true",
+                    help="K2 beside the variants of tools/k2_variants.cu")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_kernel_ab: no CUDA device", file=sys.stderr)
         return 2
+    if a.hand:
+        return hand(a)
     dev = torch.device("cuda", 0)
+    if a.k2_variants:
+        return emit(k2_variants(dev), a.out)
     if a.worlds:
         return emit(dict(card=cs.card_line(), worlds=worlds_profile(dev)),
                     a.out)
@@ -617,6 +669,268 @@ def main():
     use("this")
     res["frames"] = frames
     return emit(res, a.out)
+
+
+def digest(*ts):
+    """The first 16 hex digits of the sha256 of the tensors' bytes."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def camera_start(nt):
+    """The camera ant x CAM_W at its start pose: (model, state, track
+    camera, camera poses)."""
+    import numpy as np
+    import torch
+    from newton_tpu_torch.sensors import SensorTiledCamera
+    m = cs.camera_ant_scene(nt, cs.CAM_W).finalize("cuda")
+    s = nt.eval_fk(m, m.joint_q0, m.joint_qd0, m.state())
+    cam = SensorTiledCamera(m, width=cs.CAM_RES, height=cs.CAM_RES,
+                            fov_y=cs.CAM_FOV)
+    torso = np.nonzero(np.asarray(m.structure.body_key) == "torso")[0]
+    poses = torch.cat([s.body_q[torso, :3] + torch.tensor(
+        cs.CAM_OFFSET, device="cuda"), torch.tensor(
+        cs.CAM_QUAT, device="cuda").expand(cs.CAM_W, 4)], 1)
+    return m, s, cam, poses
+
+
+def k2_scene(nt, state, poses, dev):
+    """Phase 57 (a)'s K2 operands (chip_smoke.terrain_view and
+    k2_operands) with the camera ant's bodies at ``state`` and its cameras
+    at ``poses``: (pool, bvh_of, X, scale, o, d, the plain rays' o, d)."""
+    m = cs.camera_extras_scene(nt, cs.CAM_W).finalize(dev)
+    st, cam = cs.terrain_view(m, state.body_q)
+    o, d = cam.rays(poses)
+    pool, bvh_of, X, sc, op, dp = cs.k2_operands(m, st, o, d, dev)
+    return pool, bvh_of, X, sc, o, d, op, dp
+
+
+def hand_times(res):
+    """K1-K4's times on this process's package (see the module
+    docstring)."""
+    import inspect
+    import numpy as np
+    import torch
+    import newton_tpu_torch as nt
+    import test_torch_kernels as tk
+    from newton_tpu_torch.geometry import bvh, raycast
+    from newton_tpu_torch.solvers.generalized import linalg, pgs
+    dev = torch.device("cuda")
+    m, s, cam, poses = camera_start(nt)
+    X = raycast.shape_world_transforms(m, s)
+    cls = torch.as_tensor(raycast.shape_classes(m), device="cuda")
+    o, d = cam.rays(poses)
+    res["k1_ms"] = cs.time_ms(lambda: raycast.closest_analytic(
+        o, d, X, m.shape_scale, cls, 100.0), n=3, queued=True)
+    res["k1_ms_unqueued"] = cs.time_ms(lambda: raycast.closest_analytic(
+        o, d, X, m.shape_scale, cls, 100.0), n=3)
+    res["render_ms"] = cs.time_ms(lambda: cam.render(s, poses), n=3)
+    res["k1_digest"] = digest(*raycast.closest_analytic(
+        o, d, X, m.shape_scale, cls, 100.0))
+    res["k1_work"] = {}
+    raycast.closest_analytic(o, d, X, m.shape_scale, cls, 100.0,
+                             stats=res["k1_work"])
+    # K2: phase 57 (a)'s terrain under the same cameras
+    pool, bvh_of, Xm, scm, o2, d2, op, dp = k2_scene(nt, s, poses, dev)
+    res["k2_ms"] = cs.time_ms(lambda: bvh.mesh_closest(
+        pool, o2, d2, bvh_of, Xm, scm), n=10, queued=True)
+    res["k2_ms_on_plain_rays"] = cs.time_ms(lambda: bvh.mesh_closest(
+        pool, op, dp, bvh_of, Xm, scm), n=20, queued=True)
+    res["k2_digest"] = digest(*bvh.mesh_closest(pool, o2, d2, bvh_of, Xm,
+                                                scm))
+    res["k2_work"] = {}
+    bvh.mesh_closest(pool, o2, d2, bvh_of, Xm, scm, stats=res["k2_work"])
+    # K3 on phase 58's operands
+    for which, dd, n in cs.K3_SHAPES:
+        Mi, rhs, gx, gM = cs.k3_operands(dev, dd, n)
+        inv = which == "chol_inv_solve"
+        if inv:
+            Minv, x = linalg.chol_inv_solve(Mi, rhs)
+            args = (Minv, x, gx, gM)
+        else:
+            x = linalg.chol_solve(Mi, rhs)
+            args = (None, x, None, None, linalg.chol_solve(Mi, gx))
+        label = f"k3_{which}_d{dd}"
+        res[f"{label}_ms"] = cs.time_ms(lambda: linalg.chol_backward(*args),
+                                        queued=True)
+        gk = linalg.chol_backward(*args)
+        M_ = Mi.detach().requires_grad_(True)
+        r_ = rhs.detach().requires_grad_(True)
+        if inv:
+            gp = torch.autograd.grad(linalg.chol_inv_solve_plain(M_, r_),
+                                     (M_, r_), (gM, gx))
+        else:
+            gp = torch.autograd.grad(linalg.chol_solve_plain(M_, r_),
+                                     (M_, r_), gx)
+        res[f"{label}_max_abs_err"] = max(float((a - b).abs().max())
+                                          for a, b in zip(gk, gp))
+    # K4 at 0, 8 and 16 sweeps; B2 with and without the save
+    saves = "save" in inspect.signature(pgs.pgs_backward).parameters
+    for label, (c, nl, dd) in (("ant", (25, 8, 14)),
+                               ("humanoid", (32, 17, 23))):
+        W = 4096
+        ops = [torch.as_tensor(a, device="cuda")
+               for a in tk._pgs_inputs(900 + nl, c, nl, dd, W)]
+        ld = torch.arange(dd - nl, dd, dtype=torch.int32, device="cuda")
+        rng = np.random.RandomState(3)
+        glam = torch.as_tensor(rng.randn(W, 3 * c + 2 * nl)
+                               .astype(np.float32), device="cuda")
+        gdqd = torch.as_tensor(rng.randn(W, dd).astype(np.float32),
+                               device="cuda")
+        for iters in (0, 8, 16):
+            kw = dict(c=c, iters=iters, omega=0.8, use_cone=False,
+                      diag_scale=1.0, reg=1e-3, symmetric=True)
+            extra = []
+            if saves:
+                save = torch.empty((W, pgs.save_floats(c, nl, dd, iters)),
+                                   device="cuda")
+                pgs._launch(*ops, ld, None, save=save, **kw)
+                extra = [save]
+            res[f"k4_{label}_T{iters}_ms"] = cs.time_ms(
+                lambda: pgs.pgs_backward(*ops, ld, None, glam, gdqd,
+                                         *extra, **kw), queued=True)
+            if iters == 8:
+                res[f"b2_{label}_ms"] = cs.time_ms(
+                    lambda: pgs._launch(*ops, ld, None, **kw), queued=True)
+                if saves:
+                    res[f"b2_save_{label}_ms"] = cs.time_ms(
+                        lambda: pgs._launch(*ops, ld, None, save=extra[0],
+                                            **kw), queued=True)
+
+
+def k2_variants(dev):
+    """``--k2-variants`` (see the module docstring)."""
+    import ctypes
+    import shutil
+    import tempfile
+    import torch
+    import newton_tpu_torch as nt
+    from newton_tpu_torch import _kernels
+    from newton_tpu_torch.geometry import bvh
+    work = tempfile.mkdtemp()
+    try:
+        so = os.path.join(work, "k2_variants.so")
+        out = subprocess.run([_kernels._nvcc(), *_kernels._FLAGS, "-shared",
+                              "-o", so, os.path.join(HERE, "k2_variants.cu")],
+                             capture_output=True, text=True)
+        if out.returncode:
+            raise RuntimeError(f"nvcc failed:\n{out.stderr}")
+        vlib = ctypes.CDLL(so)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    vlib.k2_variant_f32.argtypes = [I, P, P, I, P, P, P, I, P, P, P, P, I, P,
+                                    P, P]
+    vlib.k2_variant_info.argtypes = [I, P, P]
+    vlib.k2_variant_name.argtypes = [I]
+    vlib.k2_variant_name.restype = ctypes.c_char_p
+    names = [vlib.k2_variant_name(v).decode()
+             for v in range(vlib.k2_variant_count())]
+    _, s, _, poses = camera_start(nt)
+    pool, bvh_of, X, sc, o, d, _, _ = k2_scene(nt, s, poses, dev)
+    o, d, b32 = o.contiguous(), d.contiguous(), bvh_of.to(torch.int32)
+    M, R = b32.shape[0], o.shape[0]
+    t = torch.empty((M, R), device=dev)
+    n = torch.empty((M, R, 3), device=dev)
+
+    def variant(v):
+        _kernels.check(vlib.k2_variant_f32(
+            v, o.data_ptr(), d.data_ptr(), R, X.data_ptr(), sc.data_ptr(),
+            b32.data_ptr(), M, pool.boxes.data_ptr(), pool.slots.data_ptr(),
+            pool.counts.data_ptr(), pool.params.data_ptr(), pool.leaf_budget,
+            t.data_ptr(), n.data_ptr(),
+            torch.cuda.current_stream().cuda_stream), names[v])
+
+    def k2():
+        return bvh.mesh_closest(pool, o, d, bvh_of, X, sc)
+    ref_t, ref_n = k2()
+    res = dict(card=cs.card_line(), rays=R, mesh_shapes=M,
+               k2_info=cs.k2_info(),
+               k2_ptxas=cs.ptxas_lines("raycast_mesh_kernel"),
+               variants={}, ms={"K2": []})
+    for v, name in enumerate(names):
+        variant(v)
+        regs, blocks = ctypes.c_int(0), ctypes.c_int(0)
+        _kernels.check(vlib.k2_variant_info(v, ctypes.addressof(regs),
+                                            ctypes.addressof(blocks)), name)
+        res["variants"][name] = dict(
+            bit_equal=bool(torch.equal(t, ref_t) and torch.equal(n, ref_n)),
+            registers=regs.value, blocks_per_sm=blocks.value)
+        res["ms"][name] = []
+    res["variants_ptxas"] = {
+        **cs.ptxas_lines("k2_lane", out.stderr),
+        **cs.ptxas_lines("k2_vote", out.stderr)}
+    turns = [None, *range(len(names))]
+    for v in turns + turns[::-1]:
+        fn = k2 if v is None else (lambda v=v: variant(v))
+        res["ms"]["K2" if v is None else names[v]].append(
+            cs.time_ms(fn, n=10, queued=True))
+    return res
+
+
+def b2_golden(res):
+    """sha256 of B2's outputs on tests/test_torch_kernels.py's golden
+    cases."""
+    import torch
+    import test_torch_kernels as tk
+    from newton_tpu_torch.solvers.generalized import pgs
+    for case in tk._B2_GOLDEN_CASES:
+        ops, kw = tk._b2_golden_inputs(case)
+        with torch.no_grad():
+            res[case] = tk._b2_digest(pgs.pgs_solve_fused(*ops, **kw))
+
+
+def hand_phases(res):
+    """chip_smoke.py's phases 56-58 alone, with their kernels-line
+    entries."""
+    import torch
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    cam, main_cam = cs.phase_camera_ant(dev)
+    cam.pop("profile", None)
+    paths = cs.phase_camera_paths(dev, main_cam)
+    del main_cam
+    grad, (_, _, _, rec) = cs.phase_grad_ant(dev)
+    gk = cs.phase_grad_kernels(dev, rec)
+    res.update(seconds=time.perf_counter() - t0, camera_ant=cam,
+               camera_paths=paths, grad_ant=grad, grad_kernels=gk,
+               kernels=cs.camera_kernel_entries(cam, paths)
+               + cs.grad_kernel_entries(grad, gk))
+
+
+def hand_one(pkg, mode):
+    """One ``--hand`` run in a process of its own: pkg's newton_tpu_torch
+    first on the path, this checkout's chip_smoke.py and tests beside
+    it."""
+    sys.path.insert(0, pkg)
+    sys.path.insert(2, os.path.join(ROOT, "tests"))
+    import torch
+    import newton_tpu_torch
+    res = {"package": os.path.dirname(newton_tpu_torch.__file__),
+           "mode": mode, "card": cs.card_line(),
+           "device": torch.cuda.get_device_name(0)}
+    {"times": hand_times, "golden": b2_golden, "phases": hand_phases}[mode](
+        res)
+    print(json.dumps(res, default=str), flush=True)
+
+
+def hand(a):
+    """``--hand``: the runs in turns, each in a process of its own."""
+    mode = "phases" if a.phases else "golden" if a.golden else "times"
+    trees = [ROOT] if a.parent is None or mode == "phases" else [
+        os.path.abspath(a.parent), ROOT, ROOT, os.path.abspath(a.parent)]
+    for tree in trees:
+        out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--hand-one", tree, mode],
+                             capture_output=True, text=True)
+        sys.stdout.write(out.stdout)
+        if out.returncode:
+            sys.stderr.write(out.stderr[-4000:])
+            return out.returncode
+    return 0
 
 
 def emit(res, path):
