@@ -414,7 +414,31 @@ Phases, one line each:
      forward saved gives the bits it gives without; K4's and B2's save
      instance's registers and blocks per SM, K4's ptxas lines (registers
      and spill of each instance), and the saved forward's bytes a train
-     step.
+     step;
+ 59. the main path of USD import: the USD ant x 4096.
+     newton_tpu_torch/assets/ant.usda parsed (parse_usda), written to a
+     .usdc (write_usdc) and imported from it (ModelBuilder.add_usd; the
+     stage's shapes at conaffinity 0, the MJCF ant's ground-only
+     contacts), the model equal to the .usda's bit for bit and its
+     counts (13 bodies, 13 joints, 14 dofs; the free root's joint comes
+     last) to the MJCF ant's; finalize, eval_fk, batch_state, static
+     collide + step_batched (8 iterations, euler), 4 substeps of 1/240 s
+     a frame, joint_f = 150 u on the 8 hinges (u uniform in [-1, 1] from
+     torch.Generator seed 0): 2 warm-up frames, then 20 timed frames with
+     every count set to 0 before and read after, one B1 (d = 14) and one
+     B2 launch a substep; check_state_valid and nan_sweep after the
+     window; a checkpoint after window frame 10 (save_state, load_state
+     into model.state() on the card), frames 10-20 replayed from it twice,
+     each time with the uninterrupted run's state_digest; a frame through
+     the kernels against one through the plain versions (joint_q/body_q
+     2e-4, joint_qd 5e-3); B1 (atol 1e-5, rtol 1e-4) and B2 against their
+     plain versions on the frame's last operands, timed with
+     torch.linalg.solve beside B1; 4 worlds taken with unbatch_env
+     stepped 4 substeps on the card and on the CPU port (phase 45's rule);
+     two runs of a frame equal by digest; 0 host syncs a frame; one
+     profiled frame; an EventTracer(sync=True) line with the stages
+     (import, usdc round trip, finalize, warm-up, window, save, load,
+     replay), none inside a frame.
 Phase 49 holds a world off tolerance against the CPU to a float64 CPU
 run (the plain versions of B1 and B2 run float64 on the CPU).
 Phases 37-51 report device ms and operations per frame, the busy share,
@@ -449,7 +473,8 @@ bounds beside), its
 plain twin timed on 64 cameras' rows, and at the ant x 16 parity scene,
 K2 at phase 57 (a)'s, their bounds from kernel_cost; K3 at phase 58's
 three shapes and K4 at the ant's and the humanoid's, the forward that
-B2 saves for it beside), then the card
+B2 saves for it beside; B1 and B2 at the USD ant's shapes, phase 59),
+then the card
 line, then the result line ``{"ok": true,
 "device": {...}}``. Any failed phase raises: exit code != 0 and no result
 line. Without a CUDA device it exits 2 at once. A ``[details]`` line
@@ -10102,6 +10127,290 @@ def k4_info():
     return out
 
 
+USD_W = 4096                          # the USD ant x 4096 (phase 59)
+USD_WARMUP = 2
+USD_FRAMES = 20
+USD_CKPT_FRAME = 10                   # the checkpoint: after this frame
+USD_EFFORT = 150.0                    # joint_f = 150 u on the hinges
+USD_PARITY_W = 4                      # worlds held to the CPU port
+USD_TOL = {"joint_q": 2e-4, "joint_qd": 5e-3, "body_q": 2e-4}
+
+
+def usd_ant_scene(lib, source):
+    """The USD ant (``assets/ant.usda``, or a .usdc of it) on a ground
+    plane, with ``lib``'s builder (``newton_tpu`` or ``newton_tpu_torch``):
+    the stage's shapes take conaffinity 0, so that they collide with the
+    ground and not with each other, as the MJCF ant's geoms do."""
+    b = lib.ModelBuilder()
+    cfg = b.default_shape_cfg
+    affinity, cfg.conaffinity = cfg.conaffinity, 0
+    b.add_usd(source)
+    cfg.conaffinity = affinity
+    b.add_ground_plane()
+    return b
+
+
+def usd_hinge_forces(model, n, frames, dev, seed=0):
+    """(frames, n, D) joint_f: 150 u on the revolute dofs, u uniform in
+    [-1, 1] from torch.Generator ``seed``, zero elsewhere."""
+    import numpy as np
+    import torch
+    from newton_tpu_torch.sim.enums import JointType
+    st = model.structure
+    dofs = [int(st.joint_qd_start[j]) for j in range(st.joint_count)
+            if int(st.joint_type[j]) == int(JointType.REVOLUTE)]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    u = 2 * torch.rand((frames, n, len(dofs)), generator=gen,
+                       device=dev) - 1
+    jf = torch.zeros((frames, n, model.joint_dof_count), device=dev)
+    jf[:, :, torch.as_tensor(np.asarray(dofs), device=dev)] = USD_EFFORT * u
+    return jf
+
+
+def usd_controls(model, jf):
+    """One batched Control a frame, joint_f from ``jf`` (frames, n, D)."""
+    import newton_tpu_torch as nt
+    c = model.control()
+    n = jf.shape[1]
+    return [nt.Control(joint_target_q=c.joint_target_q.expand(n, -1).clone(),
+                       joint_target_qd=c.joint_target_qd.expand(n, -1)
+                       .clone(), joint_f=f.clone(), custom={})
+            for f in jf]
+
+
+def usd_frame(pipe, solver, state, ctl, kernels=True, record=None):
+    """SUBSTEPS substeps of static collide + step_batched."""
+    for _ in range(SUBSTEPS):
+        state = solver.step_batched(state, None, ctl, pipe.collide(state),
+                                    DT, kernels=kernels, record=record)
+    return state
+
+
+def model_diff(a, b):
+    """Names of the Model tensors and structure fields where ``a`` and
+    ``b`` differ (tensors bit for bit)."""
+    import dataclasses
+    import numpy as np
+    import torch
+
+    def same(x, y):
+        if isinstance(x, torch.Tensor):
+            return (isinstance(y, torch.Tensor) and x.dtype == y.dtype
+                    and torch.equal(x, y))
+        if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+            x, y = np.asarray(x), np.asarray(y)
+            return x.dtype == y.dtype and np.array_equal(x, y)
+        if isinstance(x, dict):
+            return (isinstance(y, dict) and x.keys() == y.keys()
+                    and all(same(x[k], y[k]) for k in x))
+        if isinstance(x, (list, tuple)):
+            return (type(x) is type(y) and len(x) == len(y)
+                    and all(same(p, q) for p, q in zip(x, y)))
+        if dataclasses.is_dataclass(x) or hasattr(x, "__dict__"):
+            return type(x) is type(y) and same(vars(x), vars(y))
+        return x == y
+    out = [f.name for f in dataclasses.fields(a)
+           if f.name != "structure"
+           and not same(getattr(a, f.name), getattr(b, f.name))]
+    sa, sb = vars(a.structure), vars(b.structure)
+    return out + [f"structure.{k}" for k in sorted(set(sa) | set(sb))
+                  if k not in sa or k not in sb or not same(sa[k], sb[k])]
+
+
+def stack_worlds(states):
+    """One batched State of one-world States (``unbatch_env``'s output)."""
+    import dataclasses
+    import torch
+    first = states[0]
+    kw = {}
+    for f in dataclasses.fields(first):
+        v = getattr(first, f.name)
+        if isinstance(v, torch.Tensor):
+            kw[f.name] = torch.stack([getattr(s, f.name) for s in states])
+        elif f.name == "custom":
+            kw[f.name] = {k: torch.stack([s.custom[k] for s in states])
+                          for k in v}
+    return dataclasses.replace(first, **kw)
+
+
+def phase_usd_ant(dev):
+    """Phase 59 (see the module docstring). Returns (results, the
+    EventTracer's report)."""
+    import tempfile
+    import torch
+    import newton_tpu_torch as nt
+    from newton_tpu_torch.parallel import unbatch_env
+    from newton_tpu_torch.usd import parse_usda, write_usdc
+    from newton_tpu_torch.utils.benchmark import EventTracer
+    from newton_tpu_torch.utils.checkpoint import (load_state, save_state,
+                                                   state_digest)
+    from newton_tpu_torch.utils.validation import (check_state_valid,
+                                                   nan_sweep)
+    usda = os.path.join(nt.ASSET_DIR, "ant.usda")
+    tr = EventTracer(sync=True)
+    res = dict(worlds=USD_W)
+    with tempfile.TemporaryDirectory() as tmp:
+        with tr.scope("import"):
+            with open(usda) as f:
+                root = parse_usda(f.read())
+            b_text = usd_ant_scene(nt, usda)
+        with tr.scope("usdc round trip"):
+            usdc = os.path.join(tmp, "ant.usdc")
+            write_usdc(root, usdc)
+            b_bin = usd_ant_scene(nt, usdc)
+            res["usdc_bytes"] = os.path.getsize(usdc)
+        with tr.scope("finalize"):
+            model = b_bin.finalize(dev)
+            diff = model_diff(model, b_text.finalize(dev))
+            if diff:
+                raise AssertionError(f"USD ant: the .usdc model differs "
+                                     f"from the .usda model in {diff}")
+            mjcf = nt.ModelBuilder()
+            mjcf.add_mjcf(os.path.join(nt.ASSET_DIR, "ant.xml"))
+            counts = dict(bodies=model.body_count,
+                          joints=model.structure.joint_count,
+                          dofs=model.joint_dof_count)
+            res["counts"] = dict(usd=counts, mjcf=dict(
+                bodies=mjcf.body_count, joints=mjcf.joint_count,
+                dofs=mjcf.joint_dof_count))
+            if counts != res["counts"]["mjcf"]:
+                raise AssertionError(f"USD ant: counts {res['counts']}")
+            pipe = nt.CollisionPipeline(model)
+            solver = nt.SolverMuJoCo(model, iterations=ITERS,
+                                     integrator="euler")
+            state = nt.batch_state(nt.eval_fk(
+                model, model.joint_q0, model.joint_qd0, model.state()),
+                USD_W)
+            ctls = usd_controls(model, usd_hinge_forces(
+                model, USD_W, USD_WARMUP + USD_FRAMES + 1, dev))
+        res["setup_s"] = sum(c["elapsed"] for c in tr.root["children"])
+        with tr.scope("warm-up"):
+            for k in range(USD_WARMUP):
+                state = usd_frame(pipe, solver, state, ctls[k])
+        reset_robot_launches()
+        window = [USD_WARMUP, USD_WARMUP + USD_CKPT_FRAME,
+                  USD_WARMUP + USD_FRAMES]
+        ckpt = os.path.join(tmp, "state.npz")
+        for half in range(2):
+            with tr.scope("window"):
+                for k in range(window[half], window[half + 1]):
+                    state = usd_frame(pipe, solver, state, ctls[k])
+            if half == 0:
+                with tr.scope("save"):
+                    save_state(ckpt, state)
+        launches = gen_launches()
+        n_sub = USD_FRAMES * SUBSTEPS
+        if launches != (n_sub, n_sub, 0):
+            raise AssertionError(f"USD ant: launches {launches} in {n_sub} "
+                                 "substeps")
+        win_s = next(c for c in tr.root["children"]
+                     if c["name"] == "window")["elapsed"]
+        res.update(frames=USD_FRAMES, substeps=n_sub, launches=launches,
+                   env_steps_per_s=n_sub * USD_W / win_s,
+                   frame_ms=win_s * 1e3 / USD_FRAMES)
+        valid = check_state_valid(state)
+        if not valid["valid"]:
+            raise AssertionError(f"USD ant: check_state_valid {valid}")
+        nan_sweep(state, context="USD ant")
+        res["gates"] = dict(check_state_valid=valid, nan_sweep="clean",
+                            torso_z_min=float(state.body_q[:, 0, 2].min()),
+                            torso_z_mean=float(state.body_q[:, 0, 2].mean()))
+        # the checkpoint: frames 10-20 replayed from it, twice
+        end = state_digest(state)
+        digests = []
+        for _ in range(2):
+            with tr.scope("load"):
+                s = load_state(ckpt, model.state())
+            with tr.scope("replay"):
+                for k in range(window[1], window[2]):
+                    s = usd_frame(pipe, solver, s, ctls[k])
+            digests.append(state_digest(s))
+        if digests != [end, end]:
+            raise AssertionError(f"USD ant: replay from the checkpoint "
+                                 f"differs: {digests} vs {end}")
+        res["checkpoint"] = dict(frame=USD_CKPT_FRAME, digest=end,
+                                 replays_equal=2,
+                                 bytes=os.path.getsize(ckpt))
+    # a frame through the kernels against one through the plain versions
+    ctl = ctls[-1]
+    rec = {}
+    ks = usd_frame(pipe, solver, state, ctl, record=rec)
+    ps = usd_frame(pipe, solver, state, ctl, kernels=False)
+    paths = {}
+    for name, tol in USD_TOL.items():
+        ok, e = close(getattr(ks, name), getattr(ps, name), tol, tol)
+        if not ok:
+            raise AssertionError(f"USD ant: {name} kernel vs plain frame off "
+                                 f"tolerance ({e:.3g})")
+        paths[name] = e
+    # B1 and B2 against their plain versions on this path's operands (the
+    # frame's last substep)
+    Mi, rhs = rec["chol"]
+    args, kw = rec["pgs"]
+    res.update(paths=paths, b1=dict(
+        d=Mi.shape[-1], max_abs_err=b1_check(Mi, rhs, "USD ant")[0],
+        **b1_times(Mi, rhs)), b2=b2_record(args, kw, "USD ant"),
+        active_contact_envs=int(args[4][:, :kw["c"]].any(1).sum()))
+    # unbatch_env of 4 worlds against the CPU port stepping those worlds
+    idx = [0, 1, USD_W // 2, USD_W - 1]
+    cpu = b_bin.finalize("cpu")
+    cpu_solver = nt.SolverMuJoCo(cpu, iterations=ITERS, integrator="euler")
+    ctl4 = nt.Control(joint_target_q=ctl.joint_target_q[idx],
+                      joint_target_qd=ctl.joint_target_qd[idx],
+                      joint_f=ctl.joint_f[idx], custom={})
+    res["vs_cpu"] = vs_cpu(
+        lambda s, c, k: solver.step_batched(s, None, c, k, DT),
+        lambda s, c, k: cpu_solver.step_batched(s, None, c, k, DT),
+        stack_worlds([unbatch_env(state, i) for i in idx]), ctl4, pipe,
+        nt.CollisionPipeline(cpu), "USD ant", USD_PARITY_W,
+        substeps=SUBSTEPS)
+    # two runs of a frame bit for bit; host syncs of a frame
+    a, b = (usd_frame(pipe, solver, state, ctl) for _ in range(2))
+    if state_digest(a) != state_digest(b):
+        raise AssertionError("USD ant: two runs of a frame differ")
+    _, syncs = count_syncs(lambda: usd_frame(pipe, solver, state, ctl))
+    res.update(host_syncs_per_frame=syncs, sync_sites=list(SYNC_SITES))
+    if syncs:
+        raise AssertionError(f"USD ant: {syncs} host syncs a frame: "
+                             f"{SYNC_SITES}")
+    prof = profile_frame(lambda: usd_frame(pipe, solver, state, ctl),
+                         SUBSTEPS)
+    res.update(profile=prof, busy_share_unprofiled=busy_unprofiled(
+        prof, USD_W, res["env_steps_per_s"]))
+    if prof is not None:
+        res["device_ms_per_frame"] = prof["device_busy_ms"]
+        res["device_ops_per_frame"] = prof["device_ops"]
+    res["stage_s"] = {c["name"]: c["elapsed"] for c in tr.root["children"]}
+    return res, tr.report()
+
+
+def usd_kernel_entries(usd, b1_src, b2_src):
+    """The kernels line's entries of phase 59: B1 and B2 at the USD ant's
+    shapes (the slice's main path)."""
+    from newton_tpu_torch.solvers.generalized import linalg
+    path = ("USD ant x 4096: ant.usda through a .usdc round trip and "
+            "add_usd, step_batched (phase 59, the main path)")
+    d = usd["b1"]["d"]
+    inst = linalg.kernel_instance(d)
+    b2 = usd["b2"]
+    c, nl, d2 = b2["shape"]
+    return [
+        dict(name=f"chol_inv_solve [{inst}] d={d} W={USD_W}", **b1_src,
+             instance=inst, path=path, launches=usd["launches"][0],
+             max_abs_err=usd["b1"]["max_abs_err"], ms=usd["b1"]["ms"],
+             plain_ms=usd["b1"]["plain_ms"],
+             **bound_fields("chol_inv_solve", usd["b1"]["ms"], d=d, W=USD_W),
+             library_ms=usd["b1"]["library_ms"]),
+        dict(name=f"pgs_solve_fused [{b2['instance']}] {b2['shape']} "
+                  f"W={USD_W}", **b2_src, instance=b2["instance"],
+             path=path, launches=usd["launches"][1],
+             max_abs_err=b2["lam_err"], ms=b2["ms"],
+             plain_ms=b2["plain_ms"],
+             **bound_fields("pgs_solve_fused", b2["ms"], c=c, nl=nl, d=d2,
+                            W=USD_W, iters=ITERS))]
+
+
 def bound_fields(name, ms, prefix="", **shape):
     """bound_ms, bound_by and share_of_bound of one timed call at W envs."""
     t, by = bound_ms(*kernel_cost(name, **shape))
@@ -10925,6 +11234,33 @@ def main():
         f"{gk['b2_save_bit_equal']} on {card}", flush=True)
     mark("58")
 
+    usd, usd_trace = phase_usd_ant(dev)
+    results["usd_ant"] = usd
+    print("[59 tracer] EventTracer(sync=True) stages of the USD ant: "
+          + "; ".join(usd_trace.splitlines()), flush=True)
+    print(f"[59 USD ant x {USD_W}, the main path] setup "
+          f"{usd['setup_s']:.2f} s (.usdc {usd['usdc_bytes']} bytes, the "
+          f"model equal to the .usda's bit for bit), counts "
+          f"{usd['counts']}, {usd['substeps']} substeps, launches "
+          f"{usd['launches']}, gates {usd['gates']}, checkpoint "
+          f"{usd['checkpoint']}, kernel vs plain frame {usd['paths']}, B1 "
+          f"d={usd['b1']['d']} {usd['b1']['ms']:.4f} ms (plain "
+          f"{usd['b1']['plain_ms']:.4f} ms, torch.linalg.solve "
+          f"{usd['b1']['library_ms']:.4f} ms, err "
+          f"{usd['b1']['max_abs_err']:.3g}), B2 {usd['b2']['shape']} "
+          f"{usd['b2']['instance']} {usd['b2']['ms']:.4f} ms (plain "
+          f"{usd['b2']['plain_ms']:.4f} ms, lam err "
+          f"{usd['b2']['lam_err']:.3g}, guard mismatch rows "
+          f"{usd['b2']['guard_mismatch_rows']}), envs with an active "
+          f"contact {usd['active_contact_envs']}, 4 worlds vs the CPU "
+          f"{usd['vs_cpu']}, host syncs a frame "
+          f"{usd['host_syncs_per_frame']}, device ms a frame "
+          f"{usd.get('device_ms_per_frame')}, device ops a frame "
+          f"{usd.get('device_ops_per_frame')}, busy "
+          f"{usd['busy_share_unprofiled']}, frame {usd['frame_ms']:.2f} ms, "
+          f"{usd['env_steps_per_s']:.1f} env-steps/s on {card}", flush=True)
+    mark("59")
+
     results["kernel_info"] = kernel_info()
     print("[phase seconds] " + json.dumps(
         {k: round(v, 1) for k, v in results["phase_s"].items()}), flush=True)
@@ -11146,6 +11482,7 @@ def main():
     kernels += policy_kernel_entries(pol, b1_src, b2_src)
     kernels += camera_kernel_entries(cam, cpaths)
     kernels += grad_kernel_entries(grad, gk)
+    kernels += usd_kernel_entries(usd, b1_src, b2_src)
     print(f"[bounds] H100 SXM peaks {PEAK_BYTES_PER_S / 1e12:g} TB/s, "
           f"{PEAK_F32_FLOPS / 1e12:g} TFLOP/s float32 (700 W); this card: "
           f"{card}", flush=True)

@@ -14,7 +14,10 @@ reset (``Solver.reset``), ``actuators``, ``controllers`` (with an ONNX
 interpreter) and ``sensors`` (IMU, contact, frame transform), and the
 rendering and viewing layer: the tiled camera
 (``sensors.SensorTiledCamera``: ray casts, mesh BVHs, Gaussian splats)
-and ``viewer``. Every TPU kernel of the JAX package has a
+and ``viewer``; USD import (``usd``: the text parser, the binary crate
+codec, ``ModelBuilder.add_usd``) and the host-side utilities
+(``utils.checkpoint``, ``utils.validation``, ``utils.benchmark``,
+``parallel.unbatch_env``). Every TPU kernel of the JAX package has a
 hand-written CUDA counterpart for Hopper in ``csrc/``: the Cholesky and PGS
 kernels of the robot path, the P2G/G2P transfers of the MPM path; two
 more, with no TPU counterpart, cast the camera's rays. It imports torch,

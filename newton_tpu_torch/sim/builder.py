@@ -337,6 +337,10 @@ class ModelBuilder:
 
         # custom attributes: name -> (spec, {index: value})
         self.custom_attributes: Dict[str, Tuple[AttributeSpec, dict]] = {}
+        # attribute names requested of the State and the Contacts; kept
+        # through add_builder and replicate (nothing reads them yet)
+        self._requested_state_attrs: Set[str] = set()
+        self._requested_contact_attrs: Set[str] = set()
 
     # ------------------------------------------------------------------
     @property
@@ -690,6 +694,8 @@ class ModelBuilder:
         (the flat ``(N * A,)`` layout)."""
         nd, nq = o.joint_dof_count, o.joint_coord_count
         ks = np.arange(count)
+        self._requested_state_attrs.update(o._requested_state_attrs)
+        self._requested_contact_attrs.update(o._requested_contact_attrs)
         for name, (spec, values) in o.custom_attributes.items():
             self.add_custom_attribute(name, spec.frequency, spec.shape,
                                       spec.assignment, spec.default)
@@ -772,9 +778,10 @@ class ModelBuilder:
         """Free, revolute, prismatic, fixed, ball, D6, distance or cable
         joint between ``parent`` (-1 = world) and ``child``. A prismatic
         joint takes one linear axis, a D6 joint 0-3 linear and 0-3 angular
-        axes (at least one), each a dof with its own limits, armature and
-        gains. A D6 joint's linear dofs and coordinates come first, then its
-        angular ones: it translates along its linear axes in the
+        axes (none: a joint without dofs, as the JAX builder makes it),
+        each a dof with its own limits, armature and gains. A D6 joint's
+        linear dofs and coordinates come first, then its angular ones: it
+        translates along its linear axes in the
         parent-anchor frame, then rotates about the translated anchor. A
         distance joint has a free joint's six dofs and seven coordinates
         (its config's limits on all six); a cable joint six dofs (three
@@ -798,9 +805,9 @@ class ModelBuilder:
         if joint_type == JointType.REVOLUTE and len(axes) != 1:
             raise ValueError("a revolute joint takes exactly one axis")
         if joint_type == JointType.D6 and not (
-                len(linear) <= 3 and len(angular) <= 3 and axes):
+                len(linear) <= 3 and len(angular) <= 3):
             raise ValueError("a D6 joint takes 0-3 linear and 0-3 angular "
-                             "axes, at least one")
+                             "axes")
         if joint_type == JointType.FIXED:
             linear, angular, axes = [], [], []
         if joint_type == JointType.BALL and (linear or len(angular) > 1):
@@ -1918,6 +1925,14 @@ class ModelBuilder:
     def add_custom_values(self, name: str, values: Dict[int, float]):
         self.custom_attributes[name][1].update(values)
 
+    def request_state_attributes(self, *names: str) -> None:
+        """Name State attributes a solver or sensor will need."""
+        self._requested_state_attrs.update(names)
+
+    def request_contact_attributes(self, *names: str) -> None:
+        """Name Contacts attributes a solver or sensor will need."""
+        self._requested_contact_attrs.update(names)
+
     def add_urdf(self, source: str, xform=None, floating: bool = False,
                  scale: float = 1.0, key_prefix: Optional[str] = None,
                  **kwargs):
@@ -2025,6 +2040,58 @@ class ModelBuilder:
         self._body_filter_pairs = {
             (remap(a), remap(b)) for a, b in self._body_filter_pairs
             if a != child and b != child and remap(a) != remap(b)}
+
+    def add_usd(self, source: str, xform=None, floating: bool = False,
+                scale: float = 1.0, key_prefix: Optional[str] = None,
+                **kwargs):
+        """Import a USD stage: a .usda file or string, or a .usdc file
+        (see ``utils/import_usd.py``); returns name -> index maps."""
+        from ..utils.import_usd import parse_usd
+        return parse_usd(self, source, xform=xform, floating=floating,
+                         scale=scale, key_prefix=key_prefix, **kwargs)
+
+    def plot_articulation(self, articulation: int = 0) -> str:
+        """Text tree of an articulation's joints, one line a joint
+        (``key [TYPE] -> child body key``), children indented under the
+        joint whose child body is their parent."""
+        start = self.articulation_start[articulation]
+        end = (self.articulation_start[articulation + 1]
+               if articulation + 1 < self.articulation_count
+               else self.joint_count)
+        joints = range(start, end)
+        lines = []
+
+        def walk(j, depth):
+            child = self.joint_child[j]
+            lines.append("  " * depth + f"{self.joint_key[j]} "
+                         f"[{JointType(self.joint_type[j]).name}] -> "
+                         f"{self.body_key[child]}")
+            for j2 in joints:
+                if self.joint_parent[j2] == child:
+                    walk(j2, depth + 1)
+
+        for j in joints:
+            if self.joint_parent[j] == -1:
+                walk(j, 0)
+        return "\n".join(lines)
+
+    def color(self, include_bending: bool = True,
+              balance_colors: bool = True) -> List[np.ndarray]:
+        """Colour the particle graph (springs, triangle edges, bending
+        edges' shared pair with ``include_bending``, tetrahedron edges) so
+        that no two particles of a colour share a constraint; returns the
+        colours' particle index arrays (``sim/graph_coloring.py``, MCS)."""
+        from .graph_coloring import ColoringAlgorithm, color_graph
+        edges = [(a, b) for a, b in self.spring_indices]
+        for a, b, c in self.tri_indices:
+            edges += [(a, b), (b, c), (c, a)]
+        if include_bending:
+            edges += [(e[0], e[1]) for e in self.edge_indices
+                      if e[0] >= 0 and e[1] >= 0]
+        for t in self.tet_indices:
+            edges += [(t[i], t[j]) for i in range(4) for j in range(i + 1, 4)]
+        return color_graph(self.particle_count, np.asarray(edges or [[0, 0]]),
+                           ColoringAlgorithm.MCS, balance_colors)
 
     def add_mjcf(self, source: str, **kwargs):
         """Import an MJCF file or XML string, lengths times ``scale`` (see
