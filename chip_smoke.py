@@ -439,6 +439,33 @@ Phases, one line each:
      profiled frame; an EventTracer(sync=True) line with the stages
      (import, usdc round trip, finalize, warm-up, window, save, load,
      replay), none inside a frame.
+ 60. the main path of the examples entry point: the humanoid batch x
+     4096 through ``python -m newton_tpu_torch.examples``' registry.
+     (a) ``init(["robot_humanoid_batch", "--num-worlds", "4096",
+     "--viewer", "null"])`` and the registry's ``Example(viewer, args)``
+     on the card (replicate + flat step, static collide, 8 iterations,
+     euler, 4 substeps of 1/240 s, zero ctrl): one warm-up frame, then 20
+     timed frames (``step`` and ``render``) with every count set to 0
+     before and read after, one B1 (d = 23) and one B2 launch a substep;
+     finite, unit quaternions (roots and bodies, 1e-4) and the example's
+     own ``test_final``; a frame through the kernels against one through
+     the plain versions (joint_q 2e-4, joint_qd 5e-3; worlds whose B2
+     guard halvings differ on some substep's operands left out, at most 1
+     in 1000); B1 (atol 1e-5, rtol 1e-4) and B2 against their plain
+     versions on the frame's last operands, timed with torch.linalg.solve
+     beside B1; 4 worlds of the example on the card against the CPU port
+     from the card's state, 4 substeps (phase 45's rule); host syncs a
+     frame (reported) and one profiled frame; (b) every other ported
+     example through ``main([name, "--viewer", "null", "--test",
+     "--num-frames", N])`` in this process, N the JAX sweep's frame count
+     (tests/test_examples.py:FRAMES, 8 where it names none), each with
+     its seconds and its launches of B1/B2 (B2 where it collides) or
+     B3/B4, every count > 0; ``EXAMPLE_CUT``'s eight slowest examples
+     run 8 frames without ``--test`` (the phase's time; their line says
+     so); B3 and B4 against float64 and timed at the mpm_sand example's
+     shapes (N = 640, res 48); (c) ``python -m newton_tpu_torch.examples
+     robot_ant --viewer null --num-frames 4 --test`` as a subprocess: exit
+     0 and ``test passed``.
 Phase 49 holds a world off tolerance against the CPU to a float64 CPU
 run (the plain versions of B1 and B2 run float64 on the CPU).
 Phases 37-51 report device ms and operations per frame, the busy share,
@@ -473,7 +500,9 @@ bounds beside), its
 plain twin timed on 64 cameras' rows, and at the ant x 16 parity scene,
 K2 at phase 57 (a)'s, their bounds from kernel_cost; K3 at phase 58's
 three shapes and K4 at the ant's and the humanoid's, the forward that
-B2 saves for it beside; B1 and B2 at the USD ant's shapes, phase 59),
+B2 saves for it beside; B1 and B2 at the USD ant's shapes, phase 59;
+B1 and B2 at the humanoid batch's and B3 and B4 at the mpm_sand
+example's, phase 60),
 then the card
 line, then the result line ``{"ok": true,
 "device": {...}}``. Any failed phase raises: exit code != 0 and no result
@@ -10411,6 +10440,343 @@ def usd_kernel_entries(usd, b1_src, b2_src):
                             W=USD_W, iters=ITERS))]
 
 
+EX_W = 4096                           # the humanoid batch x 4096 (60)
+EX_FRAMES = 20
+EX_PARITY_W = 4                       # worlds held to the CPU port
+EX_TOL = {"joint_q": 2e-4, "joint_qd": 5e-3}
+# the frame counts of the JAX package's example sweep
+# (tests/test_examples.py:FRAMES) for the ported examples; 8 where it
+# names none
+EXAMPLE_FRAMES = {
+    "robot_cartpole": 50, "tendon_finger": 200, "robot_policy": 40,
+    "robot_arm_reach": 120, "robot_walker2d": 30, "robot_cheetah": 30,
+    "controller_impedance_hetero": 120, "mpm_granular": 60,
+    "mpm_snow_ball": 25, "mpm_viscous": 25, "mpm_multi_material": 25,
+    "mpm_beam_twist": 30}
+# examples that phase 60 runs 8 frames without their test_final, to keep
+# the phase inside its 90 s: eager substeps of a one-world model are
+# host-bound on the card at 25-60 ms (at their sweep frame counts these
+# eight took 99 s of the phase's 152 s in one call); the slow CPU tier of
+# tests/test_torch_examples.py runs their test_final
+EXAMPLE_CUT = ("controller_impedance_hetero", "mpm_granular",
+               "robot_arm_reach", "robot_cartpole", "robot_cheetah",
+               "robot_policy", "robot_walker2d", "tendon_finger")
+# the kernels each example must launch: B2 only where it collides
+EXAMPLE_KERNELS = {
+    **{n: ("chol_inv_solve", "pgs_solve_fused") for n in (
+        "robot_humanoid_batch", "robot_ant", "robot_cheetah",
+        "robot_walker2d", "robot_policy", "terrain_ant")},
+    **{n: ("chol_inv_solve",) for n in (
+        "robot_cartpole", "robot_arm_reach", "tendon_finger",
+        "controller_impedance_hetero")},
+    **{n: ("p2g_apply", "g2p_apply") for n in (
+        "mpm_sand", "mpm_granular", "mpm_multi_material", "mpm_snow_ball",
+        "mpm_viscous", "mpm_beam_twist")}}
+
+
+def example_of(name, argv=()):
+    """An example built as ``python -m newton_tpu_torch.examples`` builds
+    it: the registry's module, ``init``'s viewer and args."""
+    import importlib
+    from newton_tpu_torch.examples import EXAMPLES, init
+    viewer, args = init([name, *argv])
+    return importlib.import_module(EXAMPLES[name]).Example(viewer, args)
+
+
+def example_launches():
+    b1, b2 = kernel_launches()
+    return dict(chol_inv_solve=b1, pgs_solve_fused=b2,
+                **{k: v for k, v in mpm_launches().items()})
+
+
+def example_frame_paths(ex, label):
+    """One frame of a robot example through the kernels and one through
+    the plain versions from one cloned state: joint_q 2e-4 and joint_qd
+    5e-3 (atol = rtol); a world whose B2 guard halvings differ between
+    the kernel and its plain version on some substep's operands takes
+    another discrete path and is counted and left out (at most 1 in
+    1000). Returns (errors, the last substep's record)."""
+    import torch
+    n = ex.worlds
+    start = ex.state.clone()
+    s = start.clone()
+    left_out = torch.zeros(n, dtype=torch.bool, device=start.joint_q.device)
+    for _ in range(ex.substeps):
+        rec = {}
+        s = ex.solver.step(s, None, ex.control, ex.pipeline.collide(s),
+                           ex.sim_dt, record=rec)
+        left_out |= ~compare_pgs(*rec["pgs"], n // 1000)[4]
+    if int(left_out.sum()) > n // 1000:
+        raise AssertionError(f"{label}: {int(left_out.sum())} worlds with "
+                             "different guard halvings")
+    ex.state, ex.kernels = start.clone(), False
+    ex.step()
+    p, ex.state, ex.kernels = ex.state, start, True
+    errs = dict(guard_mismatch_worlds=int(left_out.sum()))
+    for name, tol in EX_TOL.items():
+        a = getattr(s, name).view(n, -1)[~left_out]
+        b = getattr(p, name).view(n, -1)[~left_out]
+        ok, e = close(a, b, tol, tol)
+        if not ok:
+            raise AssertionError(f"{label}: {name} kernel vs plain frame "
+                                 f"off tolerance ({e:.3g})")
+        errs[name] = e
+    return errs, rec
+
+
+def phase_examples_main(dev):
+    """Phase 60 (a): the humanoid batch x 4096 through the examples'
+    registry (see the module docstring)."""
+    import dataclasses
+    import torch
+    label = f"humanoid batch x {EX_W}"
+    res = dict(worlds=EX_W)
+    t0 = time.perf_counter()
+    ex = example_of("robot_humanoid_batch",
+                    ["--num-worlds", str(EX_W), "--viewer", "null"])
+    if ex.model.device.type != dev.type:
+        raise AssertionError(f"{label}: built on {ex.model.device}")
+    res["setup_s"] = time.perf_counter() - t0
+    ex.step()
+    ex.render()
+    torch.cuda.synchronize()
+    reset_robot_launches()
+    t0 = time.perf_counter()
+    for _ in range(EX_FRAMES):
+        ex.step()
+        ex.render()
+    torch.cuda.synchronize()
+    win = time.perf_counter() - t0
+    launches = kernel_launches()
+    n_sub = EX_FRAMES * ex.substeps
+    if launches != (n_sub, n_sub):
+        raise AssertionError(f"{label}: launches {launches} in {n_sub} "
+                             "substeps")
+    res.update(frames=EX_FRAMES, substeps=n_sub, launches=launches,
+               env_steps_per_s=n_sub * EX_W / win,
+               frame_ms=win * 1e3 / EX_FRAMES)
+    st = ex.state
+    if not all(bool(torch.isfinite(getattr(st, k)).all()) for k in
+               ("joint_q", "joint_qd", "body_q", "body_qd")):
+        raise AssertionError(f"{label}: non-finite state")
+    q = st.joint_q.view(EX_W, -1)
+    quat_err = max(float((torch.linalg.vector_norm(x, dim=-1) - 1.0)
+                         .abs().max()) for x in (q[:, 3:7],
+                                                 st.body_q[:, 3:7]))
+    if quat_err > 1e-4:
+        raise AssertionError(f"{label}: quaternion norms off 1 by "
+                             f"{quat_err:.3g}")
+    ex.test_final()
+    res["gates"] = dict(finite=True, quat_norm_err=quat_err,
+                        test_final="passed",
+                        root_z_min=float(q[:, 2].min()),
+                        root_z_mean=float(q[:, 2].mean()))
+    res["paths"], rec = example_frame_paths(ex, label)
+    Mi, rhs = rec["chol"]
+    args, kw = rec["pgs"]
+    res.update(b1=dict(d=Mi.shape[-1], max_abs_err=b1_check(
+        Mi, rhs, label)[0], **b1_times(Mi, rhs)),
+        b2=b2_record(args, kw, label),
+        active_contact_envs=int(args[4][:, :kw["c"]].any(1).sum()))
+    # 4 worlds of the example on the card against the CPU port, from the
+    # card's state after the window
+    ex_d = example_of("robot_humanoid_batch",
+                      ["--num-worlds", str(EX_PARITY_W), "--viewer", "null"])
+    ex_c = example_of("robot_humanoid_batch",
+                      ["--num-worlds", str(EX_PARITY_W), "--viewer", "null",
+                       "--device", "cpu"])
+    nq = ex.model.structure.joint_coord_count // EX_W
+    nd = ex.model.structure.joint_dof_count // EX_W
+    nb = ex.model.structure.body_count // EX_W
+    k = EX_PARITY_W
+    s4 = dataclasses.replace(
+        ex_d.state, joint_q=st.joint_q[:k * nq].clone(),
+        joint_qd=st.joint_qd[:k * nd].clone(),
+        body_q=st.body_q[:k * nb].clone(),
+        body_qd=st.body_qd[:k * nb].clone())
+    res["vs_cpu"] = vs_cpu(
+        lambda s, c, kk: ex_d.solver.step(s, None, c, kk, ex_d.sim_dt),
+        lambda s, c, kk: ex_c.solver.step(s, None, c, kk, ex_c.sim_dt),
+        s4, ex_d.control, ex_d.pipeline, ex_c.pipeline, label, k,
+        substeps=ex.substeps)
+
+    def frame():
+        ex.step()
+        ex.render()
+    _, syncs = count_syncs(frame)
+    res.update(host_syncs_per_frame=syncs, sync_sites=list(SYNC_SITES))
+    prof = profile_frame(frame, ex.substeps)
+    res.update(profile=prof, busy_share_unprofiled=busy_unprofiled(
+        prof, EX_W, res["env_steps_per_s"]))
+    if prof is not None:
+        res["device_ms_per_frame"] = prof["device_busy_ms"]
+        res["device_ops_per_frame"] = prof["device_ops"]
+    return res
+
+
+def phase_examples_rest(dev):
+    """Phase 60 (b) and (c): every other ported example through ``main``
+    in this process, then ``python -m newton_tpu_torch.examples robot_ant
+    ... --test`` as a subprocess. Returns (per example: seconds, frames,
+    launches; the subprocess's result; the MPM sand's state for the B3/B4
+    rows)."""
+    import contextlib
+    import io
+    import torch
+    from newton_tpu_torch.examples import EXAMPLES, main
+    out = {}
+    for name in sorted(EXAMPLES):
+        if name == "robot_humanoid_batch":
+            continue
+        cut = name in EXAMPLE_CUT
+        frames = 8 if cut else EXAMPLE_FRAMES.get(name, 8)
+        argv = [name, "--viewer", "null", "--num-frames", str(frames)]
+        if not cut:
+            argv.append("--test")
+        reset_robot_launches()
+        reset_mpm_launches()
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = example_launches()
+        said = buf.getvalue().strip().splitlines()
+        if rc != 0 or (not cut and said[-1:] != ["test passed"]):
+            raise AssertionError(f"example {name}: rc {rc}, said {said}")
+        if not all(launches[k] > 0 for k in EXAMPLE_KERNELS[name]):
+            raise AssertionError(f"example {name}: launches {launches}")
+        out[name] = dict(s=secs, frames=frames, test_final=not cut,
+                         launches={k: launches[k]
+                                   for k in EXAMPLE_KERNELS[name]})
+    # the mpm_sand example's state for B3/B4 at its shapes
+    sand = example_of("mpm_sand", ["--viewer", "null"])
+    reset_mpm_launches()
+    sand.step()
+    sand_launches = mpm_launches()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    sub = subprocess.run(
+        [sys.executable, "-m", "newton_tpu_torch.examples", "robot_ant",
+         "--viewer", "null", "--num-frames", "4", "--test"], cwd=HERE,
+        env=env, capture_output=True, text=True, timeout=300)
+    cli = dict(rc=sub.returncode, s=time.perf_counter() - t0,
+               last_line=(sub.stdout.strip().splitlines() or [""])[-1])
+    if cli["rc"] != 0 or cli["last_line"] != "test passed":
+        raise AssertionError(f"python -m newton_tpu_torch.examples "
+                             f"robot_ant: {cli}; {sub.stderr[-2000:]}")
+    return out, cli, (sand, sand_launches)
+
+
+def phase_examples_b34(dev, sand):
+    """B3 and B4 at the mpm_sand example's shapes (its stencil after one
+    frame): against the float64 plain result, timed beside their plain
+    versions (phase 7's rules)."""
+    import numpy as np
+    import torch
+    from newton_tpu_torch.solvers import mpm_transfer as mt
+    ex, launches = sand
+    res = ex.solver.res
+    _, base, w, _ = ex.solver.stencil(ex.state.particle_q)
+    # phase 7's channels (13 scattered, 12 gathered), random values
+    rng = np.random.RandomState(5)
+    vals = torch.as_tensor(rng.randn(base.shape[0], 13), dtype=torch.float32,
+                           device=dev)
+    grid = torch.as_tensor(rng.randn(res, res, res, 12),
+                           dtype=torch.float32, device=dev)
+    w64 = w.double()
+    bins = mt.bin_particles(base, res)
+    out = dict(N=int(base.shape[0]), res=res, launches=launches,
+               active_nodes=active_nodes(base, res))
+    for name, got, ref, S in (
+            ("p2g", mt.p2g_apply(base, w, vals, res),
+             mt.p2g_apply_plain(base, w64, vals.double(), res),
+             mt.p2g_apply_plain(base, w64, vals.double().abs(), res)),
+            ("g2p", mt.g2p_apply(base, w, grid, bins=bins),
+             mt.g2p_apply_plain(base, w64, grid.double()),
+             mt.g2p_apply_plain(base, w64, grid.double().abs()))):
+        ok, e = transfer_err(got, ref, S)
+        if not ok:
+            raise AssertionError(f"mpm_sand example: {name} vs the float64 "
+                                 f"plain result off tolerance ({e:.3g})")
+        out[f"{name}_max_abs_err"] = e
+    out["p2g_ms"] = time_ms(lambda: mt.p2g_apply(base, w, vals, res),
+                            queued=True)
+    out["p2g_plain_ms"] = time_ms(lambda: mt.p2g_apply_plain(base, w, vals,
+                                                             res))
+    out["g2p_ms"] = time_ms(lambda: mt.g2p_apply(base, w, grid, bins=bins),
+                            queued=True)
+    out["g2p_plain_ms"] = time_ms(lambda: mt.g2p_apply_plain(base, w,
+                                                             grid))
+    out["C"] = (int(vals.shape[-1]), int(grid.shape[-1]))
+    return out
+
+
+def phase_examples(dev):
+    """Phase 60 whole ((a), (b), (c) and B3/B4 at the mpm_sand example's
+    shapes), as tools/chip_phases.py runs it alone."""
+    exm = phase_examples_main(dev)
+    rest, cli, sand = phase_examples_rest(dev)
+    return dict(main=exm, rest=rest, cli=cli,
+                b34=phase_examples_b34(dev, sand))
+
+
+def examples_kernel_entries(exm, b34, b1_src, b2_src):
+    """The kernels line's entries of phase 60: B1 and B2 at the humanoid
+    batch's shapes (the slice's main path), B3 and B4 at the mpm_sand
+    example's."""
+    from newton_tpu_torch.solvers.generalized import linalg
+    path = ("humanoid batch x 4096 through python -m "
+            "newton_tpu_torch.examples' registry (phase 60 (a), the main "
+            "path)")
+    mpm_path = "the mpm_sand example, one frame (phase 60 (b))"
+    d = exm["b1"]["d"]
+    inst = linalg.kernel_instance(d)
+    b2 = exm["b2"]
+    c, nl, d2 = b2["shape"]
+    no_library = "no single PyTorch call computes this function: {}"
+    mpm_src = dict(route="cuda",
+                   source="newton_tpu_torch/csrc/mpm_transfer.cu")
+    c3, c4 = b34["C"]
+    return [
+        dict(name=f"chol_inv_solve [{inst}] d={d} W={EX_W}", **b1_src,
+             instance=inst, path=path, launches=exm["launches"][0],
+             max_abs_err=exm["b1"]["max_abs_err"], ms=exm["b1"]["ms"],
+             plain_ms=exm["b1"]["plain_ms"],
+             **bound_fields("chol_inv_solve", exm["b1"]["ms"], d=d, W=EX_W),
+             library_ms=exm["b1"]["library_ms"]),
+        dict(name=f"pgs_solve_fused [{b2['instance']}] {b2['shape']} "
+                  f"W={EX_W}", **b2_src, instance=b2["instance"],
+             path=path, launches=exm["launches"][1],
+             max_abs_err=b2["lam_err"], ms=b2["ms"],
+             plain_ms=b2["plain_ms"],
+             **bound_fields("pgs_solve_fused", b2["ms"], c=c, nl=nl, d=d2,
+                            W=EX_W, iters=ITERS)),
+        dict(name=f"mpm_p2g N={b34['N']} res={b34['res']}", **mpm_src,
+             replaces="newton_tpu/solvers/mpm_pallas.py:82", path=mpm_path,
+             launches=b34["launches"]["p2g_apply"],
+             max_abs_err=b34["p2g_max_abs_err"], ms=b34["p2g_ms"],
+             plain_ms=b34["p2g_plain_ms"],
+             **bound_fields("mpm_p2g", b34["p2g_ms"], N=b34["N"], C=c3,
+                            res=b34["res"]),
+             library_ms=None, library=no_library.format(
+                 "the 27-node B-spline weights times the values, "
+                 "scattered"), timed="with its binning"),
+        dict(name=f"mpm_g2p N={b34['N']} res={b34['res']}", **mpm_src,
+             replaces="newton_tpu/solvers/mpm_pallas.py:126", path=mpm_path,
+             launches=b34["launches"]["g2p_apply"],
+             max_abs_err=b34["g2p_max_abs_err"], ms=b34["g2p_ms"],
+             plain_ms=b34["g2p_plain_ms"],
+             **bound_fields("mpm_g2p", b34["g2p_ms"], N=b34["N"], C=c4,
+                            active_nodes=b34["active_nodes"]),
+             library_ms=None, library=no_library.format(
+                 "the 27-node B-spline weighted gather"),
+             timed="given the frame's bins")]
+
+
 def bound_fields(name, ms, prefix="", **shape):
     """bound_ms, bound_by and share_of_bound of one timed call at W envs."""
     t, by = bound_ms(*kernel_cost(name, **shape))
@@ -11261,6 +11627,43 @@ def main():
           f"{usd['env_steps_per_s']:.1f} env-steps/s on {card}", flush=True)
     mark("59")
 
+    exm = phase_examples_main(dev)
+    results["examples_main"] = exm
+    print(f"[60 (a) humanoid batch x {EX_W} through the examples' "
+          f"registry, the main path] setup {exm['setup_s']:.2f} s, "
+          f"{exm['substeps']} substeps, launches {exm['launches']}, gates "
+          f"{exm['gates']}, kernel vs plain frame {exm['paths']}, B1 "
+          f"d={exm['b1']['d']} {exm['b1']['ms']:.4f} ms (plain "
+          f"{exm['b1']['plain_ms']:.4f} ms, torch.linalg.solve "
+          f"{exm['b1']['library_ms']:.4f} ms, err "
+          f"{exm['b1']['max_abs_err']:.3g}), B2 {exm['b2']['shape']} "
+          f"{exm['b2']['instance']} {exm['b2']['ms']:.4f} ms (plain "
+          f"{exm['b2']['plain_ms']:.4f} ms, lam err "
+          f"{exm['b2']['lam_err']:.3g}), envs with an active contact "
+          f"{exm['active_contact_envs']}, 4 worlds vs the CPU "
+          f"{exm['vs_cpu']}, host syncs a frame "
+          f"{exm['host_syncs_per_frame']}, device ms a frame "
+          f"{exm.get('device_ms_per_frame')}, device ops a frame "
+          f"{exm.get('device_ops_per_frame')}, busy "
+          f"{exm['busy_share_unprofiled']}, frame {exm['frame_ms']:.2f} ms, "
+          f"{exm['env_steps_per_s']:.1f} env-steps/s on {card}", flush=True)
+    rest, cli, sand = phase_examples_rest(dev)
+    b34x = phase_examples_b34(dev, sand)
+    del sand
+    results.update(examples_rest=rest, examples_cli=cli, examples_b34=b34x)
+    print("[60 (b) the other examples through main(), --test] " + "; ".join(
+        f"{n}: {r['s']:.2f} s, {r['frames']} frames"
+        f"{'' if r['test_final'] else ' (cut to 8, test_final not run: the phase time)'}, launches "
+        f"{r['launches']}" for n, r in rest.items())
+        + f"; B3/B4 at mpm_sand's N={b34x['N']}: p2g {b34x['p2g_ms']:.4f} "
+        f"ms (plain {b34x['p2g_plain_ms']:.4f} ms, err "
+        f"{b34x['p2g_max_abs_err']:.3g}), g2p {b34x['g2p_ms']:.4f} ms "
+        f"(plain {b34x['g2p_plain_ms']:.4f} ms, err "
+        f"{b34x['g2p_max_abs_err']:.3g}) on {card}", flush=True)
+    print(f"[60 (c) python -m newton_tpu_torch.examples robot_ant --viewer "
+          f"null --num-frames 4 --test] {cli}", flush=True)
+    mark("60")
+
     results["kernel_info"] = kernel_info()
     print("[phase seconds] " + json.dumps(
         {k: round(v, 1) for k, v in results["phase_s"].items()}), flush=True)
@@ -11483,6 +11886,7 @@ def main():
     kernels += camera_kernel_entries(cam, cpaths)
     kernels += grad_kernel_entries(grad, gk)
     kernels += usd_kernel_entries(usd, b1_src, b2_src)
+    kernels += examples_kernel_entries(exm, b34x, b1_src, b2_src)
     print(f"[bounds] H100 SXM peaks {PEAK_BYTES_PER_S / 1e12:g} TB/s, "
           f"{PEAK_F32_FLOPS / 1e12:g} TFLOP/s float32 (700 W); this card: "
           f"{card}", flush=True)

@@ -15,11 +15,13 @@ and ``mju_muscleDynamics``.
 
 ``MJCActuation`` holds the host numpy tables the MJCF importer fills;
 ``ActuationTables`` moves them to the device once, at solver construction.
-A row model's parameter tables may carry a leading row axis ``(n, A, ...)``
-where the worlds' actuators differ; the dof, coordinate and tendon maps are
-one row's. Every sum into the dofs is in a fixed order (C.17): the joint
-transmissions through a ``FixedOrderSum``, the tendon transmissions as
-products with dense maps.
+A row model's tables may carry a leading row axis ``(n, A, ...)`` where the
+worlds' actuators differ, the dof, coordinate and tendon maps too (each
+row's own transmissions; a row with fewer actuators than the largest is
+padded with gear-0 entries). Every sum into the dofs is in a fixed order
+(C.17): the joint transmissions through a ``FixedOrderSum`` (per-row maps:
+products with one-hot maps), the tendon transmissions as products with
+dense maps.
 """
 
 from __future__ import annotations
@@ -171,9 +173,11 @@ def muscle_dynamics(ctrl, act, prm):
 
 class ActuationTables:
     """Device copies of the tables ``actuator_forces`` reads. ``tendon_Cd``
-    (T, D), the row's fixed tendons as a dense coefficient map, is needed
-    when an actuator drives a fixed tendon; ``au.tendon``/``au.sten`` then
-    index the row's fixed and spatial tendons."""
+    (T, D) or (n, T, D), the row's fixed tendons as a dense coefficient
+    map, is needed when an actuator drives a fixed tendon;
+    ``au.tendon``/``au.sten`` then index the row's fixed and spatial
+    tendons. Maps of shape (n, A) (``per_row``) give each of the n envs
+    its own transmissions."""
 
     def __init__(self, au: MJCActuation, device, n_dof: int,
                  tendon_Cd=None, n_sten: int = 0, dtype=torch.float32):
@@ -192,12 +196,26 @@ class ActuationTables:
         if ((dof < 0) & (tendon < 0) & (sten < 0)).any():
             raise ValueError("an actuator without a transmission")
         self.n = au.n
+        coord = np.asarray(au.coord)
+        # per-row maps: some map is (n, A), or the tendon map driven is
+        # (n, T, D)
+        rows = [x.shape[0] for x in (dof, tendon, sten) if x.ndim == 2]
+        if tendon_Cd is not None and tendon_Cd.dim() == 3 and \
+                (tendon >= 0).any():
+            rows.append(tendon_Cd.shape[0])
+        self.per_row = bool(rows)
+        if self.per_row:
+            dof, tendon, sten, coord = (np.broadcast_to(x, (max(rows), au.n))
+                                        for x in (dof, tendon, sten, coord))
         self.is_joint = b(dof >= 0)
         self.dof = i(np.maximum(dof, 0))
-        self.coord = i(np.maximum(np.asarray(au.coord), 0))
+        self.coord = i(np.maximum(coord, 0))
         # the joint transmissions' torques into the n_dof dofs in a fixed
         # order (two actuators may share a dof; tendon ones are dropped)
-        self.dof_sum = FixedOrderSum(dof, n_dof, device)
+        if self.per_row:
+            self.dof_map = f(_one_hot(dof, n_dof))
+        else:
+            self.dof_sum = FixedOrderSum(dof, n_dof, device)
         self.gear = f(au.gear)
         self.has_tendon = bool((tendon >= 0).any())
         self.has_sten = bool((sten >= 0).any())
@@ -207,14 +225,24 @@ class ActuationTables:
                                  "row's tendon map")
             self.is_ten = b(tendon >= 0)
             self.tendon = i(np.maximum(tendon, 0))
-            # (A, D): an actuator's row of the tendon map (zero for others)
-            self.ten_map = tendon_Cd[self.tendon] * self.is_ten[:, None].to(
-                dtype)
+            # (A, D) or (n, A, D): an actuator's row of the tendon map
+            # (zero for others)
+            if self.per_row:
+                Cd = tendon_Cd.expand(self.tendon.shape[0],
+                                      *tendon_Cd.shape[-2:])
+                self.ten_map = (self.take(Cd, self.tendon)
+                                * self.is_ten[..., None].to(dtype))
+            else:
+                self.ten_map = tendon_Cd[self.tendon] * \
+                    self.is_ten[:, None].to(dtype)
         if self.has_sten:
             self.is_st = b(sten >= 0)
             self.sten = i(np.maximum(sten, 0))
             # per-actuator terms into the row's n_sten spatial tendons
-            self.sten_sum = FixedOrderSum(sten, n_sten, device)
+            if self.per_row:
+                self.sten_map = f(_one_hot(sten, n_sten))
+            else:
+                self.sten_sum = FixedOrderSum(sten, n_sten, device)
         cr, fr, ar = (np.asarray(au.ctrlrange), np.asarray(au.forcerange),
                       np.asarray(au.actrange))
         self.ctrl_lo, self.ctrl_hi = f(cr[..., 0]), f(cr[..., 1])
@@ -236,6 +264,35 @@ class ActuationTables:
         self.has_act = bool(au.has_act)
         self.has_muscle = bool(au.has_muscle)
 
+    @staticmethod
+    def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """``x`` (W, k, ...) at the actuators' indices ``idx``, (A,) or
+        each env's own (W, A): (W, A, ...)."""
+        if idx.dim() == 1:
+            return x[:, idx]
+        return x[torch.arange(x.shape[0], device=x.device)[:, None], idx]
+
+    def to_dofs(self, v: torch.Tensor) -> torch.Tensor:
+        """Per-actuator terms (W, A) of the joint transmissions summed into
+        their dofs (W, D)."""
+        if self.per_row:
+            return (v[:, None, :] @ self.dof_map)[:, 0]
+        return self.dof_sum(v, dim=1)
+
+    def to_stens(self, v: torch.Tensor) -> torch.Tensor:
+        """Per-actuator terms (W, A) summed into their spatial tendons."""
+        if self.per_row:
+            return (v[:, None, :] @ self.sten_map)[:, 0]
+        return self.sten_sum(v, dim=1)
+
+
+def _one_hot(idx: np.ndarray, n: int) -> np.ndarray:
+    """(rows, A) indices (-1: none) as one-hot maps (rows, A, n)."""
+    out = np.zeros(idx.shape + (n,), np.float32)
+    r, a = np.nonzero(idx >= 0)
+    out[r, a, idx[r, a]] = 1.0
+    return out
+
 
 def actuator_forces(tab: ActuationTables, q: torch.Tensor, qd: torch.Tensor,
                     ctrl: torch.Tensor, act=None, dt: float = 0.0,
@@ -246,17 +303,19 @@ def actuator_forces(tab: ActuationTables, q: torch.Tensor, qd: torch.Tensor,
     ((W, Ts), (W, Ts), (W, Ts, D)) where actuators drive them. Returns
     (tau (W, D), act_new (W, A) or None, force (W, A), dfdv (W, A): the
     force's velocity derivative that the implicit integrators read)."""
-    gear = tab.gear
-    length = gear * q[:, tab.coord]
-    velocity = gear * qd[:, tab.dof]
+    gear, take = tab.gear, tab.take
+    length = gear * take(q, tab.coord)
+    velocity = gear * take(qd, tab.dof)
     if tab.has_tendon:
         t_len, t_vel = tendon
-        length = torch.where(tab.is_ten, t_len[:, tab.tendon], length)
-        velocity = torch.where(tab.is_ten, t_vel[:, tab.tendon], velocity)
+        length = torch.where(tab.is_ten, take(t_len, tab.tendon), length)
+        velocity = torch.where(tab.is_ten, take(t_vel, tab.tendon),
+                               velocity)
     if tab.has_sten:
         L_st, V_st, _ = sten
-        length = torch.where(tab.is_st, gear * L_st[:, tab.sten], length)
-        velocity = torch.where(tab.is_st, gear * V_st[:, tab.sten], velocity)
+        length = torch.where(tab.is_st, gear * take(L_st, tab.sten), length)
+        velocity = torch.where(tab.is_st, gear * take(V_st, tab.sten),
+                               velocity)
     ctrl_c = torch.where(tab.ctrllimited,
                          torch.clamp(ctrl, tab.ctrl_lo, tab.ctrl_hi), ctrl)
     has_act = tab.has_act and act is not None
@@ -291,11 +350,12 @@ def actuator_forces(tab: ActuationTables, q: torch.Tensor, qd: torch.Tensor,
                               bp[2].expand_as(length),
                               torch.zeros_like(length))
     f = gear * force
-    tau = tab.dof_sum(torch.where(tab.is_joint, f, 0.0), dim=1)
+    tau = tab.to_dofs(torch.where(tab.is_joint, f, 0.0))
     if tab.has_tendon:
-        tau = tau + f @ tab.ten_map
+        tau = tau + ((f[:, None, :] @ tab.ten_map)[:, 0] if tab.per_row
+                     else f @ tab.ten_map)
     if tab.has_sten:
-        J_a = sten[2][:, tab.sten]                           # (W, A, D)
+        J_a = take(sten[2], tab.sten)                        # (W, A, D)
         tau = tau + (J_a * torch.where(tab.is_st, f, 0.0)[..., None]).sum(1)
     act_new = None
     if has_act:

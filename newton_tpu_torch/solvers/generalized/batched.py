@@ -192,7 +192,8 @@ def _applied_tau(t, q, qd, control, explicit=False):
                                        0.0)
         tau[:, t.lin_dof] = tau[:, t.lin_dof] + lim
     if control is None:
-        return tau, kd_implicit
+        # fixed tendons pull without a Control too, as in the JAX package
+        return _tendon_tau(t, q, qd, None, tau), kd_implicit
     tau = tau + control.joint_f
     if len(t.lin_idx):
         err = control.joint_target_q[:, t.lin_idx] - q[:, t.lin_idx]
@@ -214,14 +215,20 @@ def _applied_tau(t, q, qd, control, explicit=False):
         tau[:, t.ball_d] = tau[:, t.ball_d] + pd
         if not explicit:
             kd_implicit[:, t.ball_d] = kd_implicit[:, t.ball_d] + t.ball_kd
-    if t.tendons:
-        L = q @ t.tendon_Cq.T                                # (W, T)
-        Ld = qd @ t.tendon_Cd.T
-        f = -t.tendon_ke * (L - t.tendon_L0) - t.tendon_kd * Ld
-        if control.tendon_f is not None:
-            f = f + control.tendon_f
-        tau = tau + f @ t.tendon_Cd
-    return tau, kd_implicit
+    return _tendon_tau(t, q, qd, control, tau), kd_implicit
+
+
+def _tendon_tau(t, q, qd, control, tau):
+    """``tau`` plus the fixed tendons' spring, damper and ``tendon_f``
+    forces through their coefficients."""
+    if not t.tendons:
+        return tau
+    L, Ld = _tendon_state(t, q, qd)                          # (W, T)
+    f = -t.tendon_ke * (L - t.tendon_L0) - t.tendon_kd * Ld
+    if control is not None and control.tendon_f is not None:
+        f = f + control.tendon_f
+    Cd = t.tendon_Cd
+    return tau + (f @ Cd if Cd.dim() == 2 else (f[:, None, :] @ Cd)[:, 0])
 
 
 def _crba(t, v_o, w_o, x_b, Iw, mass):
@@ -493,8 +500,13 @@ def _integrate_coords(t, q, qd, dt):
 
 
 def _tendon_state(t, q, qd):
-    """The row's fixed tendons' lengths and velocities (W, T)."""
-    return q @ t.tendon_Cq.T, qd @ t.tendon_Cd.T
+    """The row's fixed tendons' lengths and velocities (W, T); maps of
+    several rows ((n, T, k): the rows' tendons differ) apply each env's
+    own."""
+    if t.tendon_Cq.dim() == 2:
+        return q @ t.tendon_Cq.T, qd @ t.tendon_Cd.T
+    return ((t.tendon_Cq @ q[..., None])[..., 0],
+            (t.tendon_Cd @ qd[..., None])[..., 0])
 
 
 def _spatial_tendons(t, body_q, qd, v_o, w_o):
@@ -505,23 +517,33 @@ def _spatial_tendons(t, body_q, qd, v_o, w_o):
                                   w_o[:, t.di], t.anc_bd)
     L = torch.stack(Ls, dim=1)
     J = torch.stack(Js, dim=1)
+    if k.sel is not None:
+        # each env's own paths out of the distinct ones (a pad: zero)
+        on, sel = k.sel >= 0, k.sel.clamp(min=0)
+        L = torch.where(on, torch.gather(L, 1, sel), 0.0)
+        J = torch.where(on[..., None], torch.gather(
+            J, 1, sel[..., None].expand(-1, -1, J.shape[-1])), 0.0)
     return L, (J * qd[:, None, t.di]).sum(-1), J
 
 
 def _smooth(solver, grp, q, qd, body_q, body_qd, body_f, control_b,
-            explicit, act=None, dt=0.0, mount=None):
+            explicit, act=None, dt=0.0, mount=None, x_tau=None):
     """The smooth dynamics of a group's rows at one configuration: the dof
     subspace (v_o, w_o), world COMs x_b, world inertias Iw, the mass matrix
     M (W, d, d), the net generalized force tau_net = applied + external +
     spatial tendons + actuator - bias, the implicit damping gains (zero
     with ``explicit``), and for the implicit integrators and activation
     dynamics: the spatial tendons (L, V, J), the actuators' dfdv and the
-    next activation ``act_new`` (``act`` (W, A) the current one)."""
+    next activation ``act_new`` (``act`` (W, A) the current one).
+    ``x_tau`` (W, nd): the forces of the fixed tendons between
+    articulations on the rows' dofs (``step``'s flat pre-pass)."""
     model, t = grp.row_model, grp.tables
     v_o, w_o = _dof_subspace(t, body_q, q)
     x_b, Iw = _spatial_inertia(model, body_q)
     tau_bias = _bias_forces(t, model, body_qd, v_o, w_o, x_b, Iw, mount)
     tau, kd_implicit = _applied_tau(t, q, qd, control_b, explicit)
+    if x_tau is not None:
+        tau = tau + x_tau
     if solver.apply_body_forces:
         tau = tau + _external_tau(t, body_f, x_b, v_o, w_o)
     out = SimpleNamespace(sten=None, dfdv=None, act_new=None)
@@ -603,13 +625,13 @@ def _damping_matrix(solver, grp, sm):
     neg = None
     if au is not None and sm.dfdv is not None:
         neg = -(au.gear * au.gear) * sm.dfdv                 # (W, A)
-        dj = au.dof_sum(torch.where(au.is_joint, neg, 0.0), dim=1)
+        dj = au.to_dofs(torch.where(au.is_joint, neg, 0.0))
         D = D + torch.diag_embed(dj[:, t.di])
     if sm.sten is not None:
         J = sm.sten[2]                                       # (W, Ts, d)
         kd = t.sten.kd.expand(W, J.shape[1])
         if neg is not None and au.has_sten:
-            kd = kd + au.sten_sum(torch.where(au.is_st, neg, 0.0), dim=1)
+            kd = kd + au.to_stens(torch.where(au.is_st, neg, 0.0))
         D = D + torch.einsum("wtd,wt,wte->wde", J, kd, J)
     if solver.integrator == "implicit":
         D = D + sm.jbias
@@ -697,7 +719,8 @@ def _substep(solver, grp, state_b: State, control_b, contacts_b, dt: float,
             mount = SimpleNamespace(acc=state_b.custom.get("mount:acc"),
                                     F=state_b.custom.get("mount:F"))
         sm = _smooth(solver, grp, q, qd, body_q, body_qd, state_b.body_f,
-                     control_b, explicit=False, act=act, dt=dt, mount=mount)
+                     control_b, explicit=False, act=act, dt=dt, mount=mount,
+                     x_tau=state_b.custom.get("tendon:tau"))
         v_o, w_o, x_b, M, act_new = sm.v_o, sm.w_o, sm.x_b, sm.M, sm.act_new
         Mi = M + dt * torch.diag_embed(sm.kd_implicit[:, t.di])
         qd_d = qd[:, t.di]
@@ -926,18 +949,21 @@ def _gather_rows(grp, state, control, contacts, keys=None):
         custom={k: state.custom[v] for k, v in (keys or {}).items()
                 if v in state.custom})
     if "mjc:act" in state.custom and t.row_act.numel():
-        rows.custom["mjc:act"] = state.custom["mjc:act"][t.row_act]
+        rows.custom["mjc:act"] = _take(state.custom["mjc:act"], t.row_act,
+                                       t.act_pad)
     ctl = None
     if control is not None:
         custom = {}
         if "mjc:ctrl" in control.custom:
-            custom["mjc:ctrl"] = control.custom["mjc:ctrl"][t.row_act]
+            custom["mjc:ctrl"] = _take(control.custom["mjc:ctrl"],
+                                       t.row_act, t.act_pad)
         ctl = Control(
             joint_target_q=control.joint_target_q[t.row_coord],
             joint_target_qd=control.joint_target_qd[t.row_dof],
             joint_f=control.joint_f[t.row_dof],
             tendon_f=(None if control.tendon_f is None
-                      else control.tendon_f[t.row_tendon]),
+                      else _take(control.tendon_f, t.row_tendon,
+                                 t.tendon_pad)),
             custom=custom)
     crows = _contact_rows(grp, contacts, lambda x: x[t.row_slots])
     if crows is not None and t.other is not None:
@@ -947,6 +973,36 @@ def _gather_rows(grp, state, control, contacts, keys=None):
             sgn=o.sgn, inv_mass=o.inv_mass, inv_inertia=o.inv_inertia,
             com=o.com)
     return rows, ctl, crows
+
+
+def _take(v, idx, pad):
+    """``v`` at a group's (n, k) entity rows, zero on a ragged group's
+    padding entries."""
+    return v[idx] if pad is None else torch.where(pad, 0.0, v[idx])
+
+
+def _cross_forces(solver, state, control, dt):
+    """The flat pre-pass of the fixed tendons between articulations
+    (``solver.cross``): their spring, damper and ``tendon_f`` forces and
+    the forces of the actuators on them, on the flat dofs (D,), and those
+    actuators' next activations (or None)."""
+    x = solver.cross
+    q, qd = state.joint_q[None], state.joint_qd[None]
+    L, V = q @ x.Cq.T, qd @ x.Cd.T                           # (1, K)
+    ke, kd, L0 = solver.model.tendon_params[x.tendons].unbind(-1)
+    f = -ke * (L - L0) - kd * V
+    if control is not None and control.tendon_f is not None:
+        f = f + control.tendon_f[x.tendons]
+    tau = f @ x.Cd
+    act_new = None
+    if (x.actuation is not None and control is not None
+            and "mjc:ctrl" in control.custom):
+        act = state.custom.get("mjc:act")
+        tau_a, act_new, _, _ = actuator_forces(
+            x.actuation, q, qd, control.custom["mjc:ctrl"][x.acts][None],
+            None if act is None else act[x.acts][None], dt, tendon=(L, V))
+        tau = tau + tau_a
+    return tau[0], act_new
 
 
 def _mount_coupling(solver, state):
@@ -1029,6 +1085,12 @@ def step(solver, state: State, control: Optional[Control] = None,
     coupling = _mount_coupling(solver, state) if solver.mount_order else {}
     outs = []
     custom = dict(state.custom)
+    x_tau = None
+    if solver.cross is not None:
+        x_tau, x_act = _cross_forces(solver, state, control, dt)
+        if x_act is not None:
+            custom["mjc:act"] = state.custom["mjc:act"].clone()
+            custom["mjc:act"][solver.cross.acts] = x_act[0]
     for grp in solver.groups:
         t = grp.tables
         if t.d == 0:
@@ -1041,6 +1103,8 @@ def step(solver, state: State, control: Optional[Control] = None,
             rep = report.setdefault(grp.index, {})
         keys = _custom_keys(solver, grp)
         rows, ctl, crows = _gather_rows(grp, state, control, contacts, keys)
+        if x_tau is not None:
+            rows.custom["tendon:tau"] = x_tau[t.row_dof]
         if grp.index in coupling:
             m_acc, m_F = coupling[grp.index]
             rows.custom.update({k: v for k, v in (("mount:acc", m_acc),
@@ -1054,7 +1118,11 @@ def step(solver, state: State, control: Optional[Control] = None,
             if "mjc:act" not in custom or custom["mjc:act"] is \
                     state.custom.get("mjc:act"):
                 custom["mjc:act"] = state.custom["mjc:act"].clone()
-            custom["mjc:act"][t.row_act] = act
+            if t.act_put is None:
+                custom["mjc:act"][t.row_act] = act
+            else:
+                dst, r, a = t.act_put
+                custom["mjc:act"][dst] = act[r, a]
         custom.update({keys[k]: v for k, v in out.custom.items()})
 
     def put(name, idx_name):

@@ -37,7 +37,12 @@ the four integrators (euler, implicitfast, implicit, rk4), with the PGS
 kernel or the Newton QP (``contact_solver``), constraint or penalty
 joint limits (``limit_mode``), spatial tendons (each within one row),
 MJCF actuation with activation dynamics and muscles (acc0 solved per row
-at construction), contact warm start (``warm_start``), sleeping
+at construction), rows of a group that differ in their fixed tendons,
+actuators and spatial tendons (tables padded to the largest row: a pad
+has coefficient 0, gear 0 or no path; per-row maps only where the rows
+differ), fixed tendons between articulations and the actuators on them
+(summed on the flat dofs before the groups step, explicitly, as the JAX
+package sums them), contact warm start (``warm_start``), sleeping
 (``sleep_threshold``, ``sleep_steps``) and equality constraints (CONNECT,
 WELD and JOINT rows, planned per group as the JAX package plans them).
 
@@ -380,29 +385,36 @@ def _plan_spatial_tendons(st, groups):
     return own, local
 
 
-def _entity_rows(owner_row, n, what):
-    """(n, k) entity indices per row, in ascending order, for entities
-    whose row is ``owner_row``."""
+def _entity_rows(sel, owner_row, n):
+    """The (n, k) global indices of the entities ``sel`` of a group, each
+    row's in ascending order (``owner_row`` their rows); a row with fewer
+    entities than the largest is padded with -1. A padding fixed tendon
+    has coefficient 0, a padding actuator gear 0 and a padding spatial
+    tendon no path, so a pad acts on nothing."""
     counts = np.bincount(owner_row, minlength=n)
-    if counts.min() != counts.max():
-        raise NotImplementedError(f"rows with different numbers of {what} "
-                                  "are not ported yet")
-    return np.argsort(owner_row, kind="stable").reshape(n, -1)
+    order = np.argsort(owner_row, kind="stable")
+    out = -np.ones((n, int(counts.max()) if counts.size else 0), np.int64)
+    col = np.arange(order.size) - np.repeat(np.cumsum(counts) - counts,
+                                            counts)
+    out[owner_row[order], col] = np.asarray(sel)[order]
+    return out
 
 
-def _check_rows(name, a):
-    """Raise unless every row of (n, ...) equals row 0: the structure of a
-    group's rows (which dofs a tendon or actuator acts on) is one row's."""
-    if len(a) and not (a == a[:1]).all():
-        raise NotImplementedError(
-            f"worlds whose articulations differ in the structure of their "
-            f"{name} are not ported yet")
+def _one_row(a: np.ndarray) -> np.ndarray:
+    """(n, ...) as row 0 where every row equals it."""
+    return a[0] if a.shape[0] <= 1 or (a == a[:1]).all() else a
 
 
 def _group_rows(v: torch.Tensor, idx) -> torch.Tensor:
-    """``v`` gathered on the (n, k) entity rows ``idx``: (k, ...) when
-    every row equals row 0, else (n, k, ...)."""
-    r = v[torch.as_tensor(np.asarray(idx, dtype=np.int64), device=v.device)]
+    """``v`` gathered on the (n, k) entity rows ``idx`` (-1: a padding
+    entry, zero): (k, ...) when every row equals row 0, else
+    (n, k, ...)."""
+    idx = np.asarray(idx, dtype=np.int64)
+    r = v[torch.as_tensor(np.maximum(idx, 0), device=v.device)]
+    if (idx < 0).any():
+        pad = torch.as_tensor(idx < 0, device=v.device)
+        r = torch.where(pad.view(*pad.shape, *(1,) * (r.dim() - pad.dim())),
+                        torch.zeros((), dtype=r.dtype, device=r.device), r)
     if r.shape[0] <= 1 or bool((r == r[:1]).all()):
         return r[0]
     return r
@@ -410,10 +422,10 @@ def _group_rows(v: torch.Tensor, idx) -> torch.Tensor:
 
 def _param_rows(a: np.ndarray, idx) -> np.ndarray:
     """The numpy counterpart of ``_group_rows``."""
-    r = np.asarray(a)[idx]
-    if r.shape[0] <= 1 or (r == r[:1]).all():
-        return r[0]
-    return r
+    idx = np.asarray(idx, dtype=np.int64)
+    r = np.asarray(a)[np.maximum(idx, 0)]
+    pad = (idx < 0).reshape(idx.shape + (1,) * (r.ndim - idx.ndim))
+    return _one_row(np.where(pad, np.zeros((), r.dtype), r))
 
 
 def _joint_rows(st, g):
@@ -462,6 +474,8 @@ def row_model(model: Model, g, tendon_rows, act_rows,
     pose and twist and never moves them). The substep's tables are built
     on it."""
     st = model.structure
+    if sten_rows is None:
+        sten_rows = np.zeros((g.n, 0), np.int64)
     a0 = int(g.arts[0])
     j0, j1 = int(st.articulation_start[a0]), int(st.articulation_start[a0 + 1])
     js = np.arange(j0, j1)
@@ -498,28 +512,37 @@ def row_model(model: Model, g, tendon_rows, act_rows,
     rst.articulation_start = np.asarray([0, len(js)], i32)
     rst.articulation_world = np.full(1, -1, i32)
     rst.body_world = np.full(body_rows.shape[1], -1, i32)
-    # fixed tendons of the row: local coordinates and dofs (a padding
-    # entry, coef 0, keeps index 0)
-    tr = tendon_rows[0]
-    coef = st.tendon_coef[tr]
-    rst.tendon_count = len(tr)
-    rst.tendon_coef = coef
-    rst.tendon_coord = np.where(coef != 0, st.tendon_coord[tr] - q0,
-                                0).astype(i32)
-    rst.tendon_dof = np.where(coef != 0, st.tendon_dof[tr] - d0,
-                              0).astype(i32)
+    # fixed tendons of the rows: local coordinates and dofs, (T, K) where
+    # every row's equal row 0's, else (n, T, K) (a padding entry or
+    # tendon, coef 0, keeps index 0)
+    tr = np.asarray(tendon_rows, dtype=np.int64)
+    coef = np.where((tr < 0)[..., None], 0.0,
+                    st.tendon_coef[np.maximum(tr, 0)])
+    rst.tendon_count = tr.shape[1]
+    rst.tendon_coef = _one_row(coef)
+    for name, base in (("tendon_coord", g.coord_idx),
+                       ("tendon_dof", g.dof_idx)):
+        idx = getattr(st, name)[np.maximum(tr, 0)]
+        setattr(rst, name, _one_row(np.where(
+            coef != 0, idx - np.asarray(base)[:, :1, None], 0)).astype(i32))
     au = st.mjc_actuation
-    if au is not None and au.n and act_rows.size:
-        ar = act_rows[0]
-        rau = MJCActuation(len(ar))
+    ar = np.asarray(act_rows, dtype=np.int64)
+    if au is not None and au.n and ar.size:
+        # each row's transmissions in its local indices, (A,) or, where the
+        # rows differ, (n, A); a padding actuator drives dof 0 at gear 0
+        pad, arc = ar < 0, np.maximum(ar, 0)
+        rau = MJCActuation(ar.shape[1])
+        for name, base in (("dof", g.dof_idx), ("coord", g.coord_idx)):
+            v = getattr(au, name)[arc]
+            setattr(rau, name, _one_row(np.where(
+                pad, 0, np.where(v >= 0, v - np.asarray(base)[:, :1], -1)))
+                .astype(i32))
         # tendon transmissions index the row's fixed and spatial tendons
-        rau.tendon = _local_index(au.tendon[act_rows], tendon_rows)[0]
-        rau.sten = _local_index(au.sten[act_rows], sten_rows)[0]
+        for name, rows_ in (("tendon", tendon_rows), ("sten", sten_rows)):
+            v = np.where(pad, -1, getattr(au, name)[arc])
+            setattr(rau, name, _one_row(_local_index(v, rows_)))
         for name in _ACT_PARAMS:
-            setattr(rau, name, _param_rows(getattr(au, name), act_rows))
-        rau.dof = np.where(au.dof[ar] >= 0, au.dof[ar] - d0, -1).astype(i32)
-        rau.coord = np.where(au.coord[ar] >= 0, au.coord[ar] - q0,
-                             -1).astype(i32)
+            setattr(rau, name, _param_rows(getattr(au, name), ar))
         rst.mjc_actuation = rau.finish()
     rst.mjc_options = dict(st.mjc_options)
 
@@ -527,8 +550,6 @@ def row_model(model: Model, g, tendon_rows, act_rows,
     # each tensor field by the entities it is per: bodies, joints, dofs,
     # coordinates, tendons, the row's world; no shapes and no particles
     # (the 0-d material scalars stay as they are)
-    if sten_rows is None:
-        sten_rows = np.zeros((g.n, 0), np.int64)
     rows = {"joint_X_p": _joint_rows(st, g), "joint_X_c": _joint_rows(st, g),
             "joint_q0": g.coord_idx, "joint_target_q0": g.coord_idx,
             "tendon_params": tendon_rows, "sten_params": sten_rows,
@@ -670,8 +691,14 @@ class SolverFeatherstone(SolverBase):
                 gi, np.arange(g.n)[:, None]))
             dof_grp[:, g.dof_idx] = np.stack(np.broadcast_arrays(
                 gi, np.arange(g.n)[:, None]))
-        tend = (coord_grp[:, st.tendon_coord[:, 0]] if st.tendon_count
-                else np.zeros((2, 0), np.int64))
+        # a fixed tendon's cell: its coordinates' (-1: they lie in two
+        # cells, a tendon between articulations)
+        tend = np.zeros((2, 0), np.int64)
+        if st.tendon_count:
+            cells = coord_grp[:, st.tendon_coord]              # (2, T, K)
+            one = ((cells == cells[..., :1]) | (st.tendon_coef == 0)).all(
+                axis=(0, 2))
+            tend = np.where(one, cells[..., 0], -1)
         sten, self._sten_local = _plan_spatial_tendons(st, groups)
         au = st.mjc_actuation
         acts = np.zeros((2, 0), np.int64)
@@ -683,10 +710,7 @@ class SolverFeatherstone(SolverBase):
                 if (idx >= 0).any():
                     acts = np.where(idx >= 0, own[:, np.maximum(idx, 0)],
                                     acts)
-        for what, owner in (("fixed tendons", tend), ("actuators", acts)):
-            if (owner[0] < 0).any():
-                raise NotImplementedError(f"{what} outside the articulations"
-                                          " are not ported yet")
+        self.cross = self._plan_cross(tend, acts)
         lim_lo = model.joint_limit_lower.cpu().numpy()
         lim_hi = model.joint_limit_upper.cpu().numpy()
         lin = dict(zip(gc.lin_coord_dof.tolist(), gc.lin_coord_idx.tolist()))
@@ -696,16 +720,10 @@ class SolverFeatherstone(SolverBase):
             grp = SimpleNamespace(index=gi, g=g, plan=self.contact_plans[gi],
                                   eplan=self.equality_plans[gi],
                                   mounts=_group_mounts(st, g))
-            t_idx = np.nonzero(tend[0] == gi)[0]
-            a_idx = np.nonzero(acts[0] == gi)[0]
-            grp.tendon_rows = t_idx[_entity_rows(tend[1][t_idx], g.n,
-                                                 "fixed tendons")]
-            grp.act_rows = a_idx[_entity_rows(acts[1][a_idx], g.n,
-                                              "actuators")]
-            s_idx = np.nonzero(sten[0] == gi)[0]
-            grp.sten_rows = s_idx[_entity_rows(sten[1][s_idx], g.n,
-                                               "spatial tendons")]
-            self._check_structure(grp)
+            for name, own in (("tendon_rows", tend), ("act_rows", acts),
+                              ("sten_rows", sten)):
+                sel = np.nonzero(own[0] == gi)[0]
+                setattr(grp, name, _entity_rows(sel, own[1][sel], g.n))
             ld, lc = [], []
             for k, dg in enumerate(g.dof_idx[0]):
                 cg = lin.get(int(dg))
@@ -731,6 +749,53 @@ class SolverFeatherstone(SolverBase):
         if au is not None and au.n and au.has_muscle:
             self._compute_muscle_acc0(au)
             self.notify_model_changed()
+
+    def _plan_cross(self, tend, acts):
+        """The fixed tendons whose coordinates lie in two cells (between
+        articulations or worlds) and the actuators that drive them: summed
+        on the flat dofs before the groups step, as the JAX package sums
+        every tendon, and explicit under every integrator (the JAX
+        package keeps such a tendon's damping explicit too). None when
+        every tendon and actuator lies in one cell."""
+        xt = np.nonzero(tend[0] < 0)[0]
+        xa = np.nonzero(acts[0] < 0)[0]
+        if not xt.size and not xa.size:
+            return None
+        if self.integrator == "rk4" or self.sleep_threshold > 0:
+            raise NotImplementedError(
+                "a fixed tendon between articulations under RK4 or "
+                "sleeping is not ported (its force is summed once a "
+                "substep, before the groups step)")
+        st, dev = self.model.structure, self.model.device
+        Cq = np.zeros((len(xt), st.joint_coord_count), np.float32)
+        Cd = np.zeros((len(xt), st.joint_dof_count), np.float32)
+        for k, i in enumerate(xt):
+            np.add.at(Cq[k], st.tendon_coord[i], st.tendon_coef[i])
+            np.add.at(Cd[k], st.tendon_dof[i], st.tendon_coef[i])
+        x = SimpleNamespace(
+            tendons=torch.as_tensor(xt, device=dev),
+            Cq=torch.as_tensor(Cq, device=dev),
+            Cd=torch.as_tensor(Cd, device=dev), acts=None, actuation=None)
+        if xa.size:
+            au = st.mjc_actuation
+            pos = {int(i): k for k, i in enumerate(xt)}
+            rau = MJCActuation(len(xa))
+            rau.tendon = np.asarray([pos.get(int(au.tendon[a]), -1)
+                                     for a in xa], np.int32)
+            for name in _ACT_PARAMS:
+                setattr(rau, name, np.asarray(getattr(au, name))[xa])
+            if (rau.tendon < 0).any():
+                raise NotImplementedError(
+                    "an actuator whose transmission lies in no "
+                    "articulation is not ported")
+            if rau.finish().has_muscle:
+                raise NotImplementedError(
+                    "a muscle on a fixed tendon between articulations is "
+                    "not ported (its acc0 is solved per row)")
+            x.acts = torch.as_tensor(xa, device=dev)
+            x.actuation = ActuationTables(rau, dev, st.joint_dof_count,
+                                          tendon_Cd=x.Cd)
+        return x
 
     def _plan_mounts(self, groups):
         """The order of the mount coupling: ``mount_order`` lists the
@@ -815,22 +880,28 @@ class SolverFeatherstone(SolverBase):
             t = grp.tables
             rau = grp.row_model.structure.mjc_actuation
             n, A, d = grp.g.n, grp.act_rows.shape[1], grp.g.d
-            gear = np.asarray(au.gear, np.float64)[grp.act_rows]  # (n, A)
+            ar = grp.act_rows
+            gear = np.where(ar < 0, 0.0, np.asarray(au.gear, np.float64)[
+                np.maximum(ar, 0)])                              # (n, A)
+            # each row's own transmissions (a padding actuator: gear 0)
+            dof, ten, stn = (np.broadcast_to(np.asarray(x), (n, A))
+                             for x in (rau.dof, rau.tendon, rau.sten))
             mom = np.zeros((n, A, d))
-            for a in range(A):
-                if rau.dof[a] >= 0:
-                    mom[:, a, rau.dof[a]] = gear[:, a]
-                elif rau.tendon[a] >= 0:
-                    Cd = t.tendon_Cd[rau.tendon[a]].double().cpu().numpy()
-                    mom[:, a] = Cd[None] * gear[:, a, None]
-            if (rau.sten >= 0).any():
+            r, a = np.nonzero(dof >= 0)
+            mom[r, a, dof[r, a]] = gear[r, a]
+            r, a = np.nonzero(ten >= 0)
+            if r.size:
+                Cd = t.tendon_Cd.double().cpu().numpy()
+                Cd = np.broadcast_to(Cd, (n,) + Cd.shape[-2:])
+                mom[r, a] = Cd[r, ten[r, a]] * gear[r, a, None]
+            r, a = np.nonzero(stn >= 0)
+            if r.size:
                 rows, _, _ = _gather_rows(grp, state, None, None)
                 v_o, w_o = _dof_subspace(t, rows.body_q, rows.joint_q)
                 _, _, J = _spatial_tendons(t, rows.body_q, rows.joint_qd,
                                            v_o, w_o)
                 J = J.double().cpu().numpy()                  # (n, Ts, d)
-                for a in np.nonzero(rau.sten >= 0)[0]:
-                    mom[:, a] = J[:, rau.sten[a]] * gear[:, a, None]
+                mom[r, a] = J[r, stn[r, a]] * gear[r, a, None]
             qacc = np.linalg.solve(M.double().cpu().numpy(),
                                    mom.transpose(0, 2, 1))    # (n, d, A)
             acc0 = np.maximum(np.linalg.norm(qacc, axis=1), 1e-12)
@@ -849,33 +920,6 @@ class SolverFeatherstone(SolverBase):
     @property
     def row_model(self):
         return self.groups[0].row_model
-
-    def _check_structure(self, grp):
-        """Every row of a group drives the same local dofs with its tendons
-        and actuators: those maps are one row's."""
-        st, g = self.model.structure, grp.g
-        tr = grp.tendon_rows
-        if tr.size:
-            coef = st.tendon_coef[tr]
-            _check_rows("fixed tendons", coef)
-            for idx, base in ((st.tendon_coord, g.coord_idx),
-                              (st.tendon_dof, g.dof_idx)):
-                _check_rows("fixed tendons", np.where(
-                    coef != 0, idx[tr] - base[:, :1, None], 0))
-        au = st.mjc_actuation
-        if grp.act_rows.size:
-            ar = grp.act_rows
-            for idx, base in ((au.dof, g.dof_idx), (au.coord, g.coord_idx)):
-                _check_rows("actuators", np.where(idx[ar] >= 0,
-                                                  idx[ar] - base[:, :1], -1))
-            # tendon transmissions: the k-th tendon of each row
-            for idx, rows in ((au.tendon, grp.tendon_rows),
-                              (au.sten, grp.sten_rows)):
-                _check_rows("actuators", _local_index(idx[ar], rows))
-        if grp.sten_rows.size:
-            _check_rows("spatial tendons", np.asarray(
-                [[hash(self._sten_local[k].key()) for k in r]
-                 for r in grp.sten_rows]))
 
     def notify_model_changed(self, flags: int = 0):
         """Rebuild every group's per-row tables from the model's current
@@ -994,7 +1038,17 @@ class SolverFeatherstone(SolverBase):
         t.mount_local = (None if grp.mounts is None else
                          L(t.nb + np.arange(grp.mounts.shape[1])))
         t.row_coord = L(rows.coord_idx)
-        t.row_tendon, t.row_act = L(grp.tendon_rows), L(grp.act_rows)
+        # the rows' tendons and actuators in the flat layout; a ragged
+        # group reads index 0 for a pad and masks it (``*_pad``), and
+        # writes its activations back only to real entries
+        for name, rows_ in (("tendon", grp.tendon_rows),
+                            ("act", grp.act_rows)):
+            pad = rows_ < 0
+            setattr(t, f"row_{name}", L(np.maximum(rows_, 0)))
+            setattr(t, f"{name}_pad", B(pad) if pad.any() else None)
+        r, a = np.nonzero(grp.act_rows >= 0)
+        t.act_put = (None if t.act_pad is None else
+                     (L(grp.act_rows[r, a]), L(r), L(a)))
         # applied forces: PD drives on linear coordinates and on ball
         # joints (the quaternion error as an axis-angle torque)
         t.lin_idx, t.lin_dof = L(gc.lin_coord_idx), L(gc.lin_coord_dof)
@@ -1010,15 +1064,18 @@ class SolverFeatherstone(SolverBase):
         t.ball_ke = model.joint_target_ke[..., t.ball_d]
         t.ball_kd = model.joint_target_kd[..., t.ball_d]
         # fixed tendons as dense maps: L = q C_q^T, Ldot = qd C_d^T,
-        # tau += f C_d (the padding entries carry coef 0)
+        # tau += f C_d, (T, nq) and (T, d), or (n, T, ...) where the rows'
+        # tendons differ (the padding entries carry coef 0)
         T = st.tendon_count
         t.tendons = T > 0
         if T:
-            Cq = np.zeros((T, st.joint_coord_count))
-            Cd = np.zeros((T, st.joint_dof_count))
-            for i in range(T):
-                np.add.at(Cq[i], st.tendon_coord[i], st.tendon_coef[i])
-                np.add.at(Cd[i], st.tendon_dof[i], st.tendon_coef[i])
+            coef = np.asarray(st.tendon_coef)
+            lead = coef.shape[:-2]
+            Cq = np.zeros(lead + (T, st.joint_coord_count))
+            Cd = np.zeros(lead + (T, st.joint_dof_count))
+            for i in np.ndindex(*lead, T):
+                np.add.at(Cq[i], st.tendon_coord[i], coef[i])
+                np.add.at(Cd[i], st.tendon_dof[i], coef[i])
             t.tendon_Cq, t.tendon_Cd = F(Cq), F(Cd)
             t.tendon_ke, t.tendon_kd, t.tendon_L0 = \
                 model.tendon_params.unbind(-1)
@@ -1027,8 +1084,10 @@ class SolverFeatherstone(SolverBase):
         # velocity gains and the spatial tendons' kd enter per substep)
         t.D_tendon = None
         if T and self.integrator in ("implicitfast", "implicit"):
-            t.D_tendon = torch.einsum("...t,td,te->...de", t.tendon_kd,
-                                      t.tendon_Cd, t.tendon_Cd)
+            t.D_tendon = torch.einsum(
+                "...t,td,te->...de" if t.tendon_Cd.dim() == 2 else
+                "...t,...td,...te->...de", t.tendon_kd, t.tendon_Cd,
+                t.tendon_Cd)
         # group row
         t.di, t.bi = L(g.dof_idx[0]), L(g.body_idx[0])
         t.anc = F(g.anc)                                   # (b, d)
@@ -1037,13 +1096,29 @@ class SolverFeatherstone(SolverBase):
         anc_all[g.body_idx[0]] = g.anc
         t.anc_bd = F(anc_all)
         # spatial tendons: paths in the row's local bodies, (ke, kd, L0)
-        # per tendon ((Ts,) or (n, Ts))
+        # per tendon ((Ts,) or (n, Ts)); where the rows' paths differ,
+        # ``paths`` lists each distinct one and ``sel`` (n, Ts) picks a
+        # row's (-1: a padding tendon, no path)
         t.sten = None
         if grp.sten_rows.size:
             ke, kd, L0 = model.sten_params.unbind(-1)
-            t.sten = SimpleNamespace(
-                paths=[self._sten_local[k] for k in grp.sten_rows[0]],
-                ke=ke, kd=kd, L0=L0)
+            sr = grp.sten_rows
+            keys = [[self._sten_local[k].key() if k >= 0 else None
+                     for k in r] for r in sr]
+            paths, sel = [self._sten_local[k] for k in sr[0]], None
+            if any(r != keys[0] for r in keys[1:]):
+                uniq, paths = {}, []
+                sel = -np.ones(sr.shape, np.int64)
+                for r, row in enumerate(keys):
+                    for j, key in enumerate(row):
+                        if key is not None:
+                            if key not in uniq:
+                                uniq[key] = len(paths)
+                                paths.append(self._sten_local[sr[r, j]])
+                            sel[r, j] = uniq[key]
+                sel = L(sel)
+            t.sten = SimpleNamespace(paths=paths, sel=sel, ke=ke, kd=kd,
+                                     L0=L0)
         t.armature = model.joint_armature[..., t.di]
         # contact rows
         t.cap = None
