@@ -208,7 +208,7 @@ Phases, one line each:
      warm_start=True through top-32 compaction (phase 11's gates); for
      each B2 with its warm lam0 held against the plain version, the
      guard halvings warm and cold, env-steps/s warm and cold in turns;
- 30. equality rows x 4096 (60 frames, no contacts): the CONNECT linkage,
+ 30. equality rows x 4096 (30 frames, no contacts): the CONNECT linkage,
      the mimic pair and a WELD, each with tests/test_equality.py's gates
      in every world, per substep one B1 launch on M + dt Kd and one of
      B1 without the inverse (chol_solve) on the equality system, r = 3,
@@ -455,17 +455,45 @@ Phases, one line each:
      versions on the frame's last operands, timed with torch.linalg.solve
      beside B1; 4 worlds of the example on the card against the CPU port
      from the card's state, 4 substeps (phase 45's rule); host syncs a
-     frame (reported) and one profiled frame; (b) every other ported
-     example through ``main([name, "--viewer", "null", "--test",
-     "--num-frames", N])`` in this process, N the JAX sweep's frame count
+     frame (reported) and one profiled frame; (b) every other example of
+     the robot and MPM families through ``main([name, "--viewer", "null",
+     "--test", "--num-frames", N])`` in 4 worker processes on the card
+     (``example_runs``, kept for phase 61), N the JAX sweep's frame count
      (tests/test_examples.py:FRAMES, 8 where it names none), each with
      its seconds and its launches of B1/B2 (B2 where it collides) or
      B3/B4, every count > 0; ``EXAMPLE_CUT``'s eight slowest examples
      run 8 frames without ``--test`` (the phase's time; their line says
      so); B3 and B4 against float64 and timed at the mpm_sand example's
      shapes (N = 640, res 48); (c) ``python -m newton_tpu_torch.examples
-     robot_ant --viewer null --num-frames 4 --test`` as a subprocess: exit
-     0 and ``test passed``.
+     robot_ant --viewer null --num-frames 4 --test`` as a subprocess,
+     started before (b) and waited for after it: exit 0 and ``test
+     passed``.
+ 61. the main path of the basic, selection and sensor examples:
+     selection_reset x 4096 through the registry. (a)
+     ``init(["selection_reset", "--num-worlds", "4096", "--viewer",
+     "null"])`` on the card (free spheres on the ground plane, XPBD with 2
+     iterations, static collide, 2 substeps of 1/120 s): 30 frames with
+     every count set to 0 before and read after (no Pallas kernel on
+     this path); on frame 30 the example lifts the even worlds' roots to
+     z = 1 through ``ArticulationView.set_root_transforms(..., mask=)``
+     (the mask on the card) and ``view.eval_fk``: the roots read through
+     the view just before and just after the write, the odd worlds'
+     unchanged bit for bit, the even worlds' z exactly 1; finite, the
+     example's ``test_final``; 4 worlds from the card's state after
+     frame 29 through the reset frame on the card and on the CPU port
+     (joint_q/body_q 2e-4, joint_qd 5e-3; a world whose contact set
+     differs left out, at most one); env-steps/s, ms a frame, host syncs
+     a frame and one profiled frame; (b) the other 22 examples of the
+     family, each through ``main`` as in 60 (b) (``EXAMPLE_CUT``'s eight
+     heaviest 8 frames without ``--test``), in 4 processes that take
+     them heaviest first, each gating the launches ``EXAMPLE_KERNELS``
+     names; (c) a frame of hetero_worlds (B2 on its padded, non-uniform
+     plan, after its spheres land) and one of basic_conveyor_forces (B1
+     and B2 under ``step_with_contacts``) through the kernels against
+     one through the plain versions from one state (joint_q/body_q 2e-4,
+     joint_qd 5e-3, the conveyor's reported forces 5e-3; no row of other
+     B2 guard halvings), B1 and B2 against their plain versions and
+     timed on the frame's last operands.
 Phase 49 holds a world off tolerance against the CPU to a float64 CPU
 run (the plain versions of B1 and B2 run float64 on the CPU).
 Phases 37-51 report device ms and operations per frame, the busy share,
@@ -502,7 +530,8 @@ K2 at phase 57 (a)'s, their bounds from kernel_cost; K3 at phase 58's
 three shapes and K4 at the ant's and the humanoid's, the forward that
 B2 saves for it beside; B1 and B2 at the USD ant's shapes, phase 59;
 B1 and B2 at the humanoid batch's and B3 and B4 at the mpm_sand
-example's, phase 60),
+example's, phase 60; B1 and B2 at hetero_worlds' and the conveyor's,
+phase 61),
 then the card
 line, then the result line ``{"ok": true,
 "device": {...}}``. Any failed phase raises: exit code != 0 and no result
@@ -3698,7 +3727,10 @@ WS_FRAMES = 60                        # tests/test_utils.py:139
 SLEEP_FRAMES = 60                     # tests/test_examples.py
 WS_TURN_FRAMES = 2
 EQ_W = 4096
-EQ_FRAMES = 60                        # tests/test_equality.py
+EQ_FRAMES = 30                        # tests/test_equality.py: 60; the
+# gates hold from frame 20 (CONNECT from 15, WELD from 20, at 4 worlds on
+# the CPU: gate_horizons(["30"])), so the window stops at 30 for the
+# phase's time
 URDF_W = 4096
 URDF_DT = 1.0 / 480.0                 # example_basic_urdf.py
 URDF_SUBSTEPS = 8
@@ -4263,8 +4295,8 @@ def eq_gates(kind, state, n):
 
 def phase_equality(dev):
     """Equality rows, each scene replicated 4096 times through step with
-    SolverFeatherstone's defaults, 60 frames of 4 substeps at dt 1/240,
-    no contacts (as tests/test_equality.py): the CONNECT linkage, the
+    SolverFeatherstone's defaults, EQ_FRAMES frames of 4 substeps at dt
+    1/240, no contacts (as tests/test_equality.py): the CONNECT linkage, the
     mimic pair and a WELD (linkage_scene), each with its gates in every
     world, per substep one B1 launch on M + dt Kd and one of B1 without
     the inverse (``chol_solve``) on the equality system, r = 3, 1 and 6,
@@ -10452,7 +10484,16 @@ EXAMPLE_FRAMES = {
     "robot_arm_reach": 120, "robot_walker2d": 30, "robot_cheetah": 30,
     "controller_impedance_hetero": 120, "mpm_granular": 60,
     "mpm_snow_ball": 25, "mpm_viscous": 25, "mpm_multi_material": 25,
-    "mpm_beam_twist": 30}
+    "mpm_beam_twist": 30,
+    # the basic, selection and sensor family (phase 61); the sweep names
+    # basic_multi_solver_overlay "multi_solver_overlay"
+    "basic_sphere": 30, "selection_reset": 30, "basic_dzhanibekov": 30,
+    "basic_joints": 30, "contact_restitution": 60, "mujoco_sleeping": 60,
+    "basic_conveyor": 30, "basic_urdf": 15, "selection_materials": 70,
+    "basic_shapes": 60, "basic_plotting": 40, "selection_articulations": 50,
+    "balance_bird": 60, "basic_multi_solver_overlay": 60,
+    "hetero_worlds": 45, "basic_conveyor_forces": 60,
+    "selection_cartpole": 50, "selection_multiple": 20}
 # examples that phase 60 runs 8 frames without their test_final, to keep
 # the phase inside its 90 s: eager substeps of a one-world model are
 # host-bound on the card at 25-60 ms (at their sweep frame counts these
@@ -10460,7 +10501,25 @@ EXAMPLE_FRAMES = {
 # tests/test_torch_examples.py runs their test_final
 EXAMPLE_CUT = ("controller_impedance_hetero", "mpm_granular",
                "robot_arm_reach", "robot_cartpole", "robot_cheetah",
-               "robot_policy", "robot_walker2d", "tendon_finger")
+               "robot_policy", "robot_walker2d", "tendon_finger",
+               # phase 61 (b), to keep the phase inside its 45 s: at
+               # their sweep frame counts these eight take ~190 s of
+               # eager host dispatch (~10 us an operation, 26,000-86,000
+               # operations a frame); the slow CPU tier runs their
+               # test_final
+               "balance_bird", "basic_shapes", "basic_multi_solver_overlay",
+               "selection_materials", "contact_restitution",
+               "basic_plotting", "mujoco_sleeping", "basic_conveyor")
+# the basic, selection and sensor family of the examples (phase 61), in
+# the order of their port
+FAMILY = ("selection_reset", "selection_cartpole", "selection_articulations",
+          "selection_multiple", "selection_materials", "sensor_imu",
+          "contact_forces", "hetero_worlds", "mujoco_sleeping",
+          "basic_conveyor_forces", "basic_multi_solver_overlay",
+          "basic_pendulum", "basic_sphere", "basic_shapes", "basic_conveyor",
+          "basic_heightfield", "basic_plotting", "basic_joints",
+          "basic_dzhanibekov", "basic_urdf", "contact_restitution",
+          "balance_bird", "muscle")
 # the kernels each example must launch: B2 only where it collides
 EXAMPLE_KERNELS = {
     **{n: ("chol_inv_solve", "pgs_solve_fused") for n in (
@@ -10471,7 +10530,24 @@ EXAMPLE_KERNELS = {
         "controller_impedance_hetero")},
     **{n: ("p2g_apply", "g2p_apply") for n in (
         "mpm_sand", "mpm_granular", "mpm_multi_material", "mpm_snow_ball",
-        "mpm_viscous", "mpm_beam_twist")}}
+        "mpm_viscous", "mpm_beam_twist")},
+    # the family: B1 under Featherstone, B2 where it collides, both forms
+    # of B1 and B2 in the overlay (AVBD's chol_solve); XPBD and the
+    # semi-implicit solver reach no Pallas kernel in the JAX package
+    **{n: ("chol_inv_solve",) for n in (
+        "selection_cartpole", "selection_articulations",
+        "selection_multiple", "sensor_imu", "basic_joints",
+        "basic_dzhanibekov", "basic_urdf")},
+    **{n: ("chol_inv_solve", "pgs_solve_fused") for n in (
+        "contact_forces", "hetero_worlds", "mujoco_sleeping",
+        "basic_conveyor_forces")},
+    "basic_multi_solver_overlay": ("chol_inv_solve", "chol_solve",
+                                   "pgs_solve_fused"),
+    **{n: () for n in (
+        "selection_reset", "selection_materials", "basic_pendulum",
+        "basic_sphere", "basic_shapes", "basic_conveyor",
+        "basic_heightfield", "basic_plotting", "contact_restitution",
+        "balance_bird", "muscle")}}
 
 
 def example_of(name, argv=()):
@@ -10485,8 +10561,46 @@ def example_of(name, argv=()):
 
 def example_launches():
     b1, b2 = kernel_launches()
-    return dict(chol_inv_solve=b1, pgs_solve_fused=b2,
+    return dict(chol_inv_solve=b1, chol_solve=solve_launches(),
+                pgs_solve_fused=b2,
                 **{k: v for k, v in mpm_launches().items()})
+
+
+def example_run(name):
+    """One registered example through ``main([name, "--viewer", "null",
+    "--num-frames", N(, "--test")])`` in this process, N the JAX sweep's
+    frame count (8 and no ``--test`` where EXAMPLE_CUT names it), every
+    count set to 0 before and read after: its seconds, frames and
+    launches; raises unless ``main`` returns 0, ``test passed`` was said
+    where ``--test`` was given, and every kernel EXAMPLE_KERNELS names
+    was launched."""
+    import contextlib
+    import io
+    import torch
+    from newton_tpu_torch.examples import main
+    cut = name in EXAMPLE_CUT
+    frames = 8 if cut else EXAMPLE_FRAMES.get(name, 8)
+    argv = [name, "--viewer", "null", "--num-frames", str(frames)]
+    if not cut:
+        argv.append("--test")
+    reset_robot_launches()
+    reset_mpm_launches()
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = example_launches()
+    said = buf.getvalue().strip().splitlines()
+    if rc != 0 or (not cut and said[-1:] != ["test passed"]):
+        raise AssertionError(f"example {name}: rc {rc}, said {said}")
+    if not all(launches[k] > 0 for k in EXAMPLE_KERNELS[name]):
+        raise AssertionError(f"example {name}: launches {launches}")
+    return dict(name=name, s=secs, frames=frames, test_final=not cut,
+                launches={k: launches[k] for k in EXAMPLE_KERNELS[name]},
+                all_launches=launches)
 
 
 def example_frame_paths(ex, label):
@@ -10615,60 +10729,40 @@ def phase_examples_main(dev):
 
 
 def phase_examples_rest(dev):
-    """Phase 60 (b) and (c): every other ported example through ``main``
-    in this process, then ``python -m newton_tpu_torch.examples robot_ant
-    ... --test`` as a subprocess. Returns (per example: seconds, frames,
-    launches; the subprocess's result; the MPM sand's state for the B3/B4
-    rows)."""
-    import contextlib
-    import io
-    import torch
-    from newton_tpu_torch.examples import EXAMPLES, main
-    out = {}
-    for name in sorted(EXAMPLES):
-        if name == "robot_humanoid_batch":
-            continue
-        cut = name in EXAMPLE_CUT
-        frames = 8 if cut else EXAMPLE_FRAMES.get(name, 8)
-        argv = [name, "--viewer", "null", "--num-frames", str(frames)]
-        if not cut:
-            argv.append("--test")
-        reset_robot_launches()
-        reset_mpm_launches()
-        buf = io.StringIO()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            rc = main(argv)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        launches = example_launches()
-        said = buf.getvalue().strip().splitlines()
-        if rc != 0 or (not cut and said[-1:] != ["test passed"]):
-            raise AssertionError(f"example {name}: rc {rc}, said {said}")
-        if not all(launches[k] > 0 for k in EXAMPLE_KERNELS[name]):
-            raise AssertionError(f"example {name}: launches {launches}")
-        out[name] = dict(s=secs, frames=frames, test_final=not cut,
-                         launches={k: launches[k]
-                                   for k in EXAMPLE_KERNELS[name]})
+    """Phase 60 (b) and (c): ``python -m newton_tpu_torch.examples
+    robot_ant ... --test`` started as a subprocess, then every other
+    example of the robot and MPM families through ``main`` in
+    ``example_runs``' processes while it runs. Returns (per example:
+    seconds, frames, launches; the subprocess's result; the MPM sand's
+    state for the B3/B4 rows)."""
+    from newton_tpu_torch.examples import EXAMPLES
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    sub = subprocess.Popen(
+        [sys.executable, "-m", "newton_tpu_torch.examples", "robot_ant",
+         "--viewer", "null", "--num-frames", "4", "--test"], cwd=HERE,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        runs = example_runs(sorted(set(EXAMPLES) - set(FAMILY)
+                                   - {"robot_humanoid_batch"}))
+        stdout, stderr = sub.communicate(timeout=300)
+    finally:
+        if sub.poll() is None:
+            sub.kill()
+            sub.wait()
+    cli = dict(rc=sub.returncode, s=time.perf_counter() - t0,
+               last_line=(stdout.strip().splitlines() or [""])[-1])
+    if cli["rc"] != 0 or cli["last_line"] != "test passed":
+        raise AssertionError(f"python -m newton_tpu_torch.examples "
+                             f"robot_ant: {cli}; {stderr[-2000:]}")
+    out = {n: {k: r[k] for k in ("s", "frames", "test_final", "launches")}
+           for n, r in runs.items()}
     # the mpm_sand example's state for B3/B4 at its shapes
     sand = example_of("mpm_sand", ["--viewer", "null"])
     reset_mpm_launches()
     sand.step()
-    sand_launches = mpm_launches()
-    env = dict(os.environ)
-    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
-    t0 = time.perf_counter()
-    sub = subprocess.run(
-        [sys.executable, "-m", "newton_tpu_torch.examples", "robot_ant",
-         "--viewer", "null", "--num-frames", "4", "--test"], cwd=HERE,
-        env=env, capture_output=True, text=True, timeout=300)
-    cli = dict(rc=sub.returncode, s=time.perf_counter() - t0,
-               last_line=(sub.stdout.strip().splitlines() or [""])[-1])
-    if cli["rc"] != 0 or cli["last_line"] != "test passed":
-        raise AssertionError(f"python -m newton_tpu_torch.examples "
-                             f"robot_ant: {cli}; {sub.stderr[-2000:]}")
-    return out, cli, (sand, sand_launches)
+    return out, cli, (sand, mpm_launches())
 
 
 def phase_examples_b34(dev, sand):
@@ -10720,6 +10814,7 @@ def phase_examples(dev):
     shapes), as tools/chip_phases.py runs it alone."""
     exm = phase_examples_main(dev)
     rest, cli, sand = phase_examples_rest(dev)
+    close_example_pool()
     return dict(main=exm, rest=rest, cli=cli,
                 b34=phase_examples_b34(dev, sand))
 
@@ -10775,6 +10870,369 @@ def examples_kernel_entries(exm, b34, b1_src, b2_src):
              library_ms=None, library=no_library.format(
                  "the 27-node B-spline weighted gather"),
              timed="given the frame's bins")]
+
+
+FAMILY_W = 4096                       # selection_reset x 4096 (61)
+FAMILY_FRAMES = 30                    # the sweep's; the reset fires on 30
+FAMILY_PARITY_W = 4                   # worlds held to the CPU port
+EXAMPLE_WORKERS = 4                   # processes of phases 60 (b), 61 (b)
+# phase 61 (c): the examples held against their plain versions, after
+# this many frames (hetero_worlds' spheres land by frame 23; the
+# conveyor's crates rest on the belt from the start)
+FAMILY_PATHS = {"hetero_worlds": 24, "basic_conveyor_forces": 1}
+# aten operations a frame of each example of phases 60 (b) and 61 (b),
+# counted on the CPU with count_ops (4 worlds where an example takes
+# --num-worlds): only the order in which the workers take them
+EXAMPLE_OPS = {
+    "balance_bird": 86376, "basic_shapes": 71572,
+    "basic_multi_solver_overlay": 62555, "basic_heightfield": 31464,
+    "basic_conveyor": 28124, "selection_materials": 26540,
+    "basic_plotting": 26286, "basic_urdf": 23904,
+    "contact_restitution": 18496, "basic_sphere": 18184,
+    "selection_multiple": 17892, "mujoco_sleeping": 16744,
+    "basic_pendulum": 16556, "basic_dzhanibekov": 15248,
+    "hetero_worlds": 11172, "basic_joints": 9820,
+    "selection_cartpole": 9805, "selection_articulations": 9780,
+    "sensor_imu": 6227, "muscle": 5471, "basic_conveyor_forces": 3990,
+    "contact_forces": 2711,
+    "robot_ant": 21062, "robot_cartpole": 9128, "robot_cheetah": 19065,
+    "robot_walker2d": 19097, "robot_policy": 21071,
+    "robot_arm_reach": 18616, "terrain_ant": 26440, "tendon_finger": 13268,
+    "controller_impedance_hetero": 11232, "mpm_sand": 9200,
+    "mpm_granular": 9200, "mpm_multi_material": 16680,
+    "mpm_snow_ball": 16260, "mpm_viscous": 16200, "mpm_beam_twist": 6720}
+_POOL = []
+
+
+def example_worker_init():
+    """A worker of ``example_runs``: the card, and the kernels loaded from
+    the build the parent made."""
+    import torch
+    torch.cuda.set_device(0)
+    from newton_tpu_torch import _kernels
+    _kernels.lib()
+
+
+def close_example_pool():
+    """Stop ``example_runs``' worker processes."""
+    while _POOL:
+        pool = _POOL.pop()
+        pool.terminate()
+        pool.join()
+
+
+def example_runs(names):
+    """``example_run`` of each name in EXAMPLE_WORKERS processes on the one
+    card, the heaviest first (their eager substeps are bound by the
+    host's dispatch, which the processes share out over the host's
+    cores); the processes are started once and kept for the next call
+    until ``close_example_pool``. Returns {name: its run}."""
+    import atexit
+    import multiprocessing as mp
+    if not _POOL:
+        _POOL.append(mp.get_context("spawn").Pool(
+            EXAMPLE_WORKERS, initializer=example_worker_init))
+        atexit.register(close_example_pool)
+    order = sorted(names, key=lambda n: -EXAMPLE_OPS[n] * (
+        8 if n in EXAMPLE_CUT else EXAMPLE_FRAMES.get(n, 8)))
+    try:
+        runs = list(_POOL[0].imap_unordered(example_run, order))
+    except BaseException:
+        close_example_pool()
+        raise
+    return {r.pop("name"): r for r in sorted(runs, key=lambda r: r["name"])}
+
+
+def phase_family_main(dev):
+    """Phase 61 (a): selection_reset x 4096 through the examples' registry
+    (see the module docstring)."""
+    import torch
+    label = f"selection_reset x {FAMILY_W}"
+    res = dict(worlds=FAMILY_W)
+    t0 = time.perf_counter()
+    ex = example_of("selection_reset",
+                    ["--num-worlds", str(FAMILY_W), "--viewer", "null"])
+    if ex.model.device.type != dev.type:
+        raise AssertionError(f"{label}: built on {ex.model.device}")
+    res["setup_s"] = time.perf_counter() - t0
+    # the masked write of the reset frame, read through the view just
+    # before and just after it
+    seen = {}
+    write = ex.view.set_root_transforms
+
+    def spy(state, xf, mask=None):
+        seen["before"] = ex.view.get_root_transforms(state).clone()
+        out = write(state, xf, mask=mask)
+        seen["after"] = ex.view.get_root_transforms(out).clone()
+        seen["mask"] = mask
+        return out
+    ex.view.set_root_transforms = spy
+    torch.cuda.synchronize()
+    reset_robot_launches()
+    t0 = time.perf_counter()
+    for f in range(FAMILY_FRAMES):
+        if f == FAMILY_FRAMES - 1:
+            before_reset = ex.state.clone()
+        ex.step()
+        ex.render()
+    torch.cuda.synchronize()
+    win = time.perf_counter() - t0
+    n_sub = FAMILY_FRAMES * ex.substeps
+    res.update(frames=FAMILY_FRAMES, substeps=n_sub,
+               launches=dict(zip(("chol_inv_solve", "pgs_solve_fused"),
+                                 kernel_launches())),
+               env_steps_per_s=n_sub * FAMILY_W / win,
+               frame_ms=win * 1e3 / FAMILY_FRAMES)
+    st = ex.state
+    if not all(bool(torch.isfinite(getattr(st, k)).all()) for k in
+               ("joint_q", "joint_qd", "body_q", "body_qd")):
+        raise AssertionError(f"{label}: non-finite state")
+    if set(seen) != {"before", "after", "mask"} or ex.frame_i != 30:
+        raise AssertionError(f"{label}: no masked reset on frame 30")
+    mask = seen["mask"]
+    if mask.device != st.joint_q.device or int(mask.sum()) != FAMILY_W // 2:
+        raise AssertionError(f"{label}: reset mask {mask.device}, "
+                             f"{int(mask.sum())} worlds")
+    roots = ex.view.get_root_transforms(st)
+    odd_kept = torch.equal(seen["after"][~mask], seen["before"][~mask])
+    even_lifted = bool((roots[mask, 2] == 1.0).all())
+    if not (odd_kept and even_lifted):
+        raise AssertionError(f"{label}: reset wrote odd worlds "
+                             f"({not odd_kept}) or left even worlds' z off "
+                             f"1 ({not even_lifted})")
+    ex.test_final()
+    res["gates"] = dict(finite=True, test_final="passed",
+                        even_root_z_is_1=even_lifted,
+                        odd_roots_untouched=odd_kept,
+                        odd_root_z_mean=float(roots[~mask, 2].mean()))
+    res["vs_cpu"] = family_vs_cpu(before_reset, label)
+
+    def frame():
+        ex.step()
+        ex.render()
+    _, syncs = count_syncs(frame)
+    res.update(host_syncs_per_frame=syncs, sync_sites=list(SYNC_SITES))
+    prof = profile_frame(frame, ex.substeps)
+    res.update(profile=prof, busy_share_unprofiled=busy_unprofiled(
+        prof, FAMILY_W, res["env_steps_per_s"]))
+    if prof is not None:
+        res["device_ms_per_frame"] = prof["device_busy_ms"]
+        res["device_ops_per_frame"] = prof["device_ops"]
+    return res
+
+
+def family_vs_cpu(state29, label):
+    """4 worlds of selection_reset from the card's state after frame 29,
+    one frame on the card and on the CPU port through the example's own
+    ``step`` (its 2 substeps and frame 30's masked reset): joint_q and
+    body_q within 2e-4, joint_qd within 5e-3 (atol = rtol); a world whose
+    contact set differs between the two sides on some substep takes
+    another discrete path and is counted and left out, at most one."""
+    import torch
+    k = FAMILY_PARITY_W
+    argv = ["--num-worlds", str(k), "--viewer", "null"]
+    ex_d = example_of("selection_reset", argv)
+    ex_c = example_of("selection_reset", argv + ["--device", "cpu"])
+    s4 = world_slice(state29, k, 1, 7, 6)
+    masks = {}
+    for side, ex, s in (("card", ex_d, s4), ("cpu", ex_c, s4.to("cpu"))):
+        ex.state, ex.frame_i, masks[side] = s, FAMILY_FRAMES - 1, []
+        collide = ex.pipeline.collide
+
+        def spy(state, collide=collide, seen=masks[side]):
+            c = collide(state)
+            seen.append(c.rigid_contact_mask.cpu().view(k, -1))
+            return c
+        ex.pipeline.collide = spy
+        ex.step()
+    flipped = torch.zeros(k, dtype=torch.bool)
+    for a, b in zip(masks["card"], masks["cpu"]):
+        flipped |= (a != b).any(1)
+    if int(flipped.sum()) > 1:
+        raise AssertionError(f"{label}: {int(flipped.sum())} of {k} worlds "
+                             "changed their contact set between the card "
+                             "and the CPU")
+    out = {"worlds_left_out": int(flipped.sum()), "reset_frame": True}
+    for name, atol in (("joint_q", 2e-4), ("joint_qd", 5e-3),
+                       ("body_q", 2e-4)):
+        a = getattr(ex_d.state, name).cpu().reshape(k, -1)[~flipped]
+        b = getattr(ex_c.state, name).reshape(k, -1)[~flipped]
+        ok, out[name] = close(a, b, atol, atol)
+        if not ok:
+            raise AssertionError(f"{label}: {name} card vs CPU off "
+                                 f"tolerance ({out[name]:.3g})")
+    return out
+
+
+def phase_family_rest(dev):
+    """Phase 61 (b): the other 22 examples of the family, each through
+    ``example_run`` (``main`` with the sweep's frames and ``--test``, or 8
+    frames where EXAMPLE_CUT names it) in ``example_runs``' processes.
+    Returns per example its seconds, frames and launches, and the wall
+    seconds of all of them."""
+    t0 = time.perf_counter()
+    out = example_runs([n for n in FAMILY if n != "selection_reset"])
+    return out, time.perf_counter() - t0
+
+
+def family_frame_paths(name, warm_frames):
+    """Phase 61 (c): one frame of ``name`` through the kernels and one
+    through the plain versions from one cloned state, after
+    ``warm_frames`` frames (its bodies in contact), as the example steps
+    (``step``, or ``step_with_contacts`` with its reported forces):
+    joint_q and body_q 2e-4, joint_qd 5e-3 (atol = rtol), the reported
+    forces 5e-3; B2 against its plain version on each substep's operands
+    (no row of other guard halvings allowed: fewer than 1000 rows). B1
+    and B2 timed on the last substep's operands. Returns (errors, the
+    B1 and B2 records)."""
+    import torch
+    ex = example_of(name, ["--viewer", "null"])
+    for _ in range(warm_frames):
+        ex.step()
+    start = ex.state.clone()
+    s = start.clone()
+    ctl = getattr(ex, "control", None)
+    for _ in range(ex.substeps):
+        rec = {}
+        s = ex.solver.step(s, None, ctl, ex.pipeline.collide(s), ex.sim_dt,
+                           record=rec)
+        compare_pgs(*rec["pgs"], rec["pgs"][0][0].shape[0] // 1000)
+    got, forces = {}, {}
+    for kernels in (True, False):
+        ex.state, ex.kernels = start.clone(), kernels
+        ex.step()
+        got[kernels] = ex.state
+        forces[kernels] = [getattr(ex, k) for k in ("normal_force",
+                                                     "drag_force")
+                           if hasattr(ex, k)]
+    errs = {}
+    for field, tol in (("joint_q", 2e-4), ("joint_qd", 5e-3),
+                       ("body_q", 2e-4)):
+        ok, errs[field] = close(getattr(got[True], field),
+                                getattr(got[False], field), tol, tol)
+        if not ok:
+            raise AssertionError(f"{name}: {field} kernel vs plain frame "
+                                 f"off tolerance ({errs[field]:.3g})")
+    if forces[True]:
+        a, b = (torch.tensor(forces[k], dtype=torch.float64)
+                for k in (True, False))
+        ok, errs["forces"] = close(a, b, 5e-3, 5e-3)
+        if not ok:
+            raise AssertionError(f"{name}: reported forces {forces}")
+        errs["forces_kernels_plain"] = [forces[True], forces[False]]
+    Mi, rhs = rec["chol"]
+    args, kw = rec["pgs"]
+    b1 = dict(d=Mi.shape[-1], W=Mi.shape[0],
+              max_abs_err=b1_check(Mi, rhs, name)[0], **b1_times(Mi, rhs))
+    return errs, dict(b1=b1, b2=b2_record(args, kw, name),
+                      iters=ex.solver.contact_iterations,
+                      active_rows=int(args[4][:, :kw["c"]].any(1).sum()))
+
+
+def phase_examples_family(dev):
+    """Phase 61 whole ((a) the main path, (b) the other 22 examples, (c)
+    the kernels against their plain versions on hetero_worlds and
+    basic_conveyor_forces), as tools/chip_phases.py runs it alone."""
+    main = phase_family_main(dev)
+    rest, rest_s = phase_family_rest(dev)
+    close_example_pool()
+    paths = {name: family_frame_paths(name, warm) for name, warm in
+             FAMILY_PATHS.items()}
+    return dict(main=main, rest=rest, rest_s=rest_s, paths=paths)
+
+
+def family_kernel_entries(fam, b1_src, b2_src):
+    """The kernels line's entries of phase 61: B1 and B2 at hetero_worlds'
+    and basic_conveyor_forces' shapes (phase 61 (c)); their launches are
+    those of the example's run in phase 61 (b). The main path,
+    selection_reset under XPBD, launches neither."""
+    from newton_tpu_torch.solvers.generalized import linalg
+    out = []
+    for name, (errs, rec) in fam["paths"].items():
+        path = (f"the {name} example: launches in its phase 61 (b) run, "
+                "times on its frame's last operands (61 (c))")
+        launches = fam["rest"][name]["all_launches"]
+        b1, b2 = rec["b1"], rec["b2"]
+        d, n = b1["d"], b1["W"]
+        inst = linalg.kernel_instance(d)
+        c, nl, d2 = b2["shape"]
+        out += [
+            dict(name=f"chol_inv_solve [{inst}] d={d} W={n} ({name})",
+                 **b1_src, instance=inst, path=path,
+                 launches=launches["chol_inv_solve"],
+                 max_abs_err=b1["max_abs_err"], ms=b1["ms"],
+                 plain_ms=b1["plain_ms"],
+                 **bound_fields("chol_inv_solve", b1["ms"], d=d, W=n),
+                 library_ms=b1["library_ms"]),
+            dict(name=f"pgs_solve_fused [{b2['instance']}] {b2['shape']} "
+                      f"W={n} ({name})", **b2_src,
+                 instance=b2["instance"], path=path,
+                 launches=launches["pgs_solve_fused"],
+                 max_abs_err=b2["lam_err"], ms=b2["ms"],
+                 plain_ms=b2["plain_ms"],
+                 **bound_fields("pgs_solve_fused", b2["ms"], c=c, nl=nl,
+                                d=d2, W=n, iters=rec["iters"]))]
+    return out
+
+
+def gate_horizons(phases=("30", "35", "43")):
+    """Where the gate windows that no B2 or card-vs-CPU check reads could
+    stop: their gates evaluated on the CPU at a few worlds after shorter
+    horizons, printed (``python3 -c "import chip_smoke as cs;
+    cs.gate_horizons()"``). 30: the equality scenes' ``eq_gates`` after
+    10-60 frames; 35: the SolverSemiImplicit muscle pair's largest gap
+    (gate < 0.9) after 50-200 steps of full activation; 43: the cable
+    sag's tips (ordered, stiffest > 0.85, softest < 0.7) after 300-1500
+    steps (~60 s)."""
+    import torch
+    import newton_tpu_torch as nt
+    torch.set_num_threads(1)
+    if "30" in phases:
+        n = 4
+        for kind in ("connect", "mimic", "weld"):
+            m = linkage_scene(nt, n, kind).finalize("cpu")
+            solver = nt.SolverFeatherstone(m)
+            s = nt.eval_fk(m, m.joint_q0, m.joint_qd0, m.state())
+            ctl = m.control()
+            for f in range(1, 61):
+                for _ in range(SUBSTEPS):
+                    s = solver.step(s, None, ctl, None, DT)
+                if f in (10, 15, 20, 30, 40, 60):
+                    try:
+                        print(kind, f, "pass", eq_gates(kind, s, n))
+                    except AssertionError as e:
+                        print(kind, f, "FAIL", e)
+    if "35" in phases:
+        n = 4
+        model = muscle_pair_scene(nt, n).finalize("cpu")
+        solver = nt.SolverSemiImplicit(model)
+        ctl = model.control()
+        ctl.muscle_activations = torch.ones(n)
+        s = model.state()
+        for k in range(1, 201):
+            s = solver.step(s, None, ctl, None, 1e-3)
+            if k in (50, 100, 120, 150, 200):
+                bq = s.body_q.view(n, 2, 7)
+                gap = torch.linalg.vector_norm(bq[:, 1, :3] - bq[:, 0, :3],
+                                               dim=-1)
+                print("muscle pair", k, "steps: gap max", float(gap.max()))
+    if "43" in phases:
+        n = 2
+        b, tips = sag_scene(nt, n)
+        model = b.finalize("cpu")
+        solver = nt.SolverXPBD(model, iterations=8)
+        s = nt.eval_fk(model, model.joint_q0, model.joint_qd0,
+                       model.state())
+        nb = model.body_count // n
+        for k in range(1, SAG_STEPS + 1):
+            s = solver.step(s, None, None, None, SAG_DT)
+            if k in (300, 500, 750, 1000, 1250, 1500):
+                z = s.body_q.view(n, nb, 7)[:, tips, 2]
+                ok = bool(((z[:, 0] < z[:, 1]) & (z[:, 1] < z[:, 2])).all()
+                          and z[:, 2].min() > 0.85 and z[:, 0].max() < 0.7)
+                print("sag", k, "steps: tips",
+                      [round(float(v), 4) for v in z[0]],
+                      "pass" if ok else "FAIL")
 
 
 def bound_fields(name, ms, prefix="", **shape):
@@ -11664,6 +12122,42 @@ def main():
           f"null --num-frames 4 --test] {cli}", flush=True)
     mark("60")
 
+    fam = phase_family_main(dev)
+    results["family_main"] = fam
+    print(f"[61 (a) selection_reset x {FAMILY_W} through the examples' "
+          f"registry, the main path] setup {fam['setup_s']:.2f} s, "
+          f"{fam['substeps']} substeps, launches {fam['launches']}, gates "
+          f"{fam['gates']}, 4 worlds vs the CPU through the reset frame "
+          f"{fam['vs_cpu']}, host syncs a frame "
+          f"{fam['host_syncs_per_frame']}, device ms a frame "
+          f"{fam.get('device_ms_per_frame')}, device ops a frame "
+          f"{fam.get('device_ops_per_frame')}, busy "
+          f"{fam['busy_share_unprofiled']}, frame {fam['frame_ms']:.2f} ms, "
+          f"{fam['env_steps_per_s']:.1f} env-steps/s on {card}", flush=True)
+    frest, frest_s = phase_family_rest(dev)
+    close_example_pool()
+    fpaths = {name: family_frame_paths(name, warm)
+              for name, warm in FAMILY_PATHS.items()}
+    fam_all = dict(main=fam, rest=frest, rest_s=frest_s, paths=fpaths)
+    results.update(family_rest=frest, family_rest_s=frest_s,
+                   family_paths=fpaths)
+    print(f"[61 (b) the other {len(frest)} examples of the family through "
+          f"main() in {EXAMPLE_WORKERS} processes, {frest_s:.1f} s] "
+          + "; ".join(
+              f"{n}: {r['s']:.2f} s, {r['frames']} frames"
+              f"{'' if r['test_final'] else ' (cut to 8, test_final not run: the phase time)'}, launches "
+              f"{r['launches']}" for n, r in frest.items()), flush=True)
+    print("[61 (c) a frame through the kernels vs one through the plain "
+          "versions] " + "; ".join(
+              f"{n}: {e}, B1 d={r['b1']['d']} {r['b1']['ms']:.4f} ms (plain "
+              f"{r['b1']['plain_ms']:.4f} ms, err "
+              f"{r['b1']['max_abs_err']:.3g}), B2 {r['b2']['shape']} "
+              f"{r['b2']['instance']} {r['b2']['ms']:.4f} ms (plain "
+              f"{r['b2']['plain_ms']:.4f} ms, lam err "
+              f"{r['b2']['lam_err']:.3g}), active rows {r['active_rows']}"
+              for n, (e, r) in fpaths.items()) + f" on {card}", flush=True)
+    mark("61")
+
     results["kernel_info"] = kernel_info()
     print("[phase seconds] " + json.dumps(
         {k: round(v, 1) for k, v in results["phase_s"].items()}), flush=True)
@@ -11887,6 +12381,7 @@ def main():
     kernels += grad_kernel_entries(grad, gk)
     kernels += usd_kernel_entries(usd, b1_src, b2_src)
     kernels += examples_kernel_entries(exm, b34x, b1_src, b2_src)
+    kernels += family_kernel_entries(fam_all, b1_src, b2_src)
     print(f"[bounds] H100 SXM peaks {PEAK_BYTES_PER_S / 1e12:g} TB/s, "
           f"{PEAK_F32_FLOPS / 1e12:g} TFLOP/s float32 (700 W); this card: "
           f"{card}", flush=True)

@@ -40,6 +40,36 @@ EXAMPLES = {
     "mpm_snow_ball": "newton_tpu_torch.examples.example_mpm_snow_ball",
     "mpm_viscous": "newton_tpu_torch.examples.example_mpm_viscous",
     "mpm_beam_twist": "newton_tpu_torch.examples.example_mpm_beam_twist",
+    "selection_reset": "newton_tpu_torch.examples.example_selection_reset",
+    "selection_cartpole":
+        "newton_tpu_torch.examples.example_selection_cartpole",
+    "selection_articulations":
+        "newton_tpu_torch.examples.example_selection_articulations",
+    "selection_multiple":
+        "newton_tpu_torch.examples.example_selection_multiple",
+    "selection_materials":
+        "newton_tpu_torch.examples.example_selection_materials",
+    "sensor_imu": "newton_tpu_torch.examples.example_sensor_imu",
+    "contact_forces": "newton_tpu_torch.examples.example_contact_forces",
+    "hetero_worlds": "newton_tpu_torch.examples.example_hetero_worlds",
+    "mujoco_sleeping": "newton_tpu_torch.examples.example_mujoco_sleeping",
+    "basic_conveyor_forces":
+        "newton_tpu_torch.examples.example_basic_conveyor_forces",
+    "basic_multi_solver_overlay":
+        "newton_tpu_torch.examples.example_basic_multi_solver_overlay",
+    "basic_pendulum": "newton_tpu_torch.examples.example_basic_pendulum",
+    "basic_sphere": "newton_tpu_torch.examples.example_basic_sphere",
+    "basic_shapes": "newton_tpu_torch.examples.example_basic_shapes",
+    "basic_conveyor": "newton_tpu_torch.examples.example_basic_conveyor",
+    "basic_heightfield": "newton_tpu_torch.examples.example_basic_heightfield",
+    "basic_plotting": "newton_tpu_torch.examples.example_basic_plotting",
+    "basic_joints": "newton_tpu_torch.examples.example_basic_joints",
+    "basic_dzhanibekov": "newton_tpu_torch.examples.example_basic_dzhanibekov",
+    "basic_urdf": "newton_tpu_torch.examples.example_basic_urdf",
+    "contact_restitution":
+        "newton_tpu_torch.examples.example_contact_restitution",
+    "balance_bird": "newton_tpu_torch.examples.example_balance_bird",
+    "muscle": "newton_tpu_torch.examples.example_muscle",
 }
 
 

@@ -2250,6 +2250,26 @@ class ModelBuilder:
         st.gaussians = [(s, src) for s, src in enumerate(self.shape_source)
                         if isinstance(src, dict) and "means" in src]
 
+    def _seed_free_joint_qd(self):
+        """Seed FREE/DISTANCE joint velocities from ``add_body(qd=...)``
+        so a floating body's initial twist survives into ``joint_qd0``
+        (the free qd layout [v_com, w] is body_qd's), where the joint's
+        own six velocities are all zero (the JAX finalize's rule)."""
+        jt = np.asarray(self.joint_type, dtype=np.int64)
+        js = np.nonzero((jt == int(JointType.FREE))
+                        | (jt == int(JointType.DISTANCE)))[0]
+        if not len(js):
+            return
+        child = np.asarray(self.joint_child, dtype=np.int64)[js]
+        bqd = np.stack([np.asarray(self.body_qd[c], dtype=np.float64)[:6]
+                        for c in child])
+        ds = np.asarray(self.joint_qd_start, dtype=np.int64)[js]
+        jqd = np.asarray(self.joint_qd, dtype=np.float64)
+        cols = ds[:, None] + np.arange(6)
+        seed = bqd.any(1) & ~jqd[cols].any(1)
+        for d0, v in zip(ds[seed], bqd[seed]):
+            self.joint_qd[d0:d0 + 6] = list(v)
+
     def finalize(self, device="cuda") -> Model:
         """Build the Model with float32 tensors on ``device``: the card by
         default (raises where CUDA is absent; pass ``"cpu"`` to build on
@@ -2261,6 +2281,7 @@ class ModelBuilder:
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("finalize(): CUDA is not available; pass "
                                "device='cpu' to build the model on the CPU")
+        self._seed_free_joint_qd()
         st = ModelStructure()
         st.world_count = max(self.world_count, 1)
         st.body_count = self.body_count

@@ -42,5 +42,10 @@ class Control:
         is kept."""
         return dataclass_replace(self, **kw)
 
+    def clear(self) -> "Control":
+        """A control with ``joint_f`` zeroed (the JAX package's
+        ``clear``)."""
+        return self.replace(joint_f=torch.zeros_like(self.joint_f))
+
     def to(self, device) -> "Control":
         return map_tensors(self, lambda t: t.to(device))

@@ -65,6 +65,30 @@ class State:
         is kept."""
         return dataclass_replace(self, **kw)
 
+    @property
+    def body_count(self) -> int:
+        return self.body_q.shape[0]
+
+    @property
+    def particle_count(self) -> int:
+        return self.particle_q.shape[0]
+
+    @property
+    def requires_grad(self) -> bool:
+        """Whether any floating-point tensor of the state (``custom``
+        included) requires grad."""
+        ts = [getattr(self, f.name) for f in fields(self)]
+        ts += list(self.custom.values())
+        return any(isinstance(t, torch.Tensor) and t.is_floating_point()
+                   and t.requires_grad for t in ts)
+
+    def clear_forces(self) -> "State":
+        """A state with ``body_f`` and ``particle_f`` zeroed (the JAX
+        package's ``clear_forces``); the other tensors are kept, so a
+        graph through them is kept."""
+        return self.replace(body_f=torch.zeros_like(self.body_f),
+                            particle_f=torch.zeros_like(self.particle_f))
+
     def to(self, device) -> "State":
         return map_tensors(self, lambda t: t.to(device))
 

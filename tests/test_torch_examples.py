@@ -5,10 +5,12 @@ default device is the card (the CPU only on request), and every ported
 example runs 2 frames on the CPU and ends finite.
 
 The slow tier runs each example for the frame count of the JAX package's
-example sweep (tests/test_examples.py:FRAMES) and its ``test_final``, as
-that sweep does. The ``gpu`` cases step one robot and one MPM example on
-the card, a frame through the kernels against a frame through their
-plain versions (JAX is not needed)::
+example sweep (tests/test_examples.py:FRAMES, looked up under the JAX
+registry's name of the same module) and its ``test_final``, as that
+sweep does. The ``gpu`` cases step one robot and one MPM example, and
+hetero_worlds (B2 on a padded plan) and basic_conveyor_forces (B1 and B2
+under ``step_with_contacts``), on the card, a frame through the kernels
+against a frame through their plain versions (JAX is not needed)::
 
     python -m pytest -o addopts="" --noconftest -m gpu \\
         tests/test_torch_examples.py
@@ -32,7 +34,16 @@ PORTED = {"robot_humanoid_batch", "robot_ant", "robot_cartpole",
           "robot_arm_reach", "terrain_ant", "tendon_finger",
           "controller_impedance_hetero", "mpm_sand", "mpm_granular",
           "mpm_multi_material", "mpm_snow_ball", "mpm_viscous",
-          "mpm_beam_twist"}
+          "mpm_beam_twist",
+          # the basic, selection and sensor family
+          "selection_reset", "selection_cartpole",
+          "selection_articulations", "selection_multiple",
+          "selection_materials", "sensor_imu", "contact_forces",
+          "hetero_worlds", "mujoco_sleeping", "basic_conveyor_forces",
+          "basic_multi_solver_overlay", "basic_pendulum", "basic_sphere",
+          "basic_shapes", "basic_conveyor", "basic_heightfield",
+          "basic_plotting", "basic_joints", "basic_dzhanibekov",
+          "basic_urdf", "contact_restitution", "balance_bird", "muscle"}
 gpu = pytest.mark.gpu
 needs_cuda = pytest.mark.skipif("not torch.cuda.is_available()",
                                 reason="needs a CUDA device")
@@ -43,6 +54,17 @@ class _Args:
     num_worlds = 2
     test = True
     benchmark = False
+
+
+def sweep_frames(name):
+    """The JAX package's example sweep's frame count for a ported
+    example (tests/test_examples.py:FRAMES, keyed by the JAX registry's
+    name of the same module; 8 where it names none)."""
+    from newton_tpu.examples import EXAMPLES as JAX_EXAMPLES
+    from test_examples import FRAMES
+    jax_name = {m.rsplit(".example_", 1)[1]: k
+                for k, m in JAX_EXAMPLES.items()}.get(name, name)
+    return FRAMES.get(jax_name, 8)
 
 
 def _env():
@@ -93,8 +115,7 @@ def test_chip_smoke_runs_the_sweeps_frame_counts():
     """chip_smoke.py phase 60 runs each example for the JAX sweep's frame
     count, and names the kernels every ported example must launch."""
     import chip_smoke as cs
-    from test_examples import FRAMES
-    assert {n: FRAMES.get(n, 8) for n in PORTED} == {
+    assert {n: sweep_frames(n) for n in PORTED} == {
         n: cs.EXAMPLE_FRAMES.get(n, 8) for n in PORTED}
     assert set(cs.EXAMPLE_KERNELS) == PORTED
 
@@ -131,11 +152,10 @@ def test_example_runs_two_frames_on_the_cpu(name):
 @pytest.mark.examples
 @pytest.mark.parametrize("name", sorted(PORTED))
 def test_example_passes_its_test_final(name):
-    from test_examples import FRAMES
     torch.set_num_threads(1)
     module = importlib.import_module(EXAMPLES[name])
     example = module.Example(ViewerNull(), _Args())
-    for _ in range(FRAMES.get(name, 8)):
+    for _ in range(sweep_frames(name)):
         example.step()
         example.render()
     _finite(example.state)
@@ -180,3 +200,31 @@ def test_mpm_example_kernels_match_plain_on_the_card():
         np.testing.assert_allclose(getattr(got, name).cpu().numpy(),
                                    getattr(ref, name).cpu().numpy(),
                                    atol=atol, err_msg=name)
+
+
+@gpu
+@needs_cuda
+@pytest.mark.parametrize("name", ["hetero_worlds", "basic_conveyor_forces"])
+def test_family_example_kernels_match_plain_on_the_card(name):
+    """B2 on hetero_worlds' padded plan, and B1 and B2 under the
+    conveyor's ``step_with_contacts`` (with its reported forces): a frame
+    through the kernels against a frame through the plain versions, from
+    one state, at the robots' tolerances (forces at joint_qd's)."""
+    class Args:
+        device = "cuda"
+    module = importlib.import_module(EXAMPLES[name])
+    ex = module.Example(ViewerNull(), Args())
+    start = ex.state.clone()
+    ex.step()
+    got = (ex.state, getattr(ex, "normal_force", 0.0),
+           getattr(ex, "drag_force", 0.0))
+    ex.state, ex.kernels = start, False
+    ex.step()
+    ref = (ex.state, getattr(ex, "normal_force", 0.0),
+           getattr(ex, "drag_force", 0.0))
+    for field, atol in (("joint_q", 2e-4), ("joint_qd", 5e-3),
+                        ("body_q", 2e-4)):
+        np.testing.assert_allclose(getattr(got[0], field).cpu().numpy(),
+                                   getattr(ref[0], field).cpu().numpy(),
+                                   atol=atol, rtol=atol, err_msg=field)
+    np.testing.assert_allclose(got[1:], ref[1:], atol=5e-3, rtol=5e-3)

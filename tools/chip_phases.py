@@ -12,12 +12,15 @@ one's seconds and results as a JSON line.
     python3 tools/chip_phases.py 54 55
     python3 tools/chip_phases.py 59         # the USD ant x 4096
     python3 tools/chip_phases.py 60 --tests tests/test_torch_examples.py
+    python3 tools/chip_phases.py 61 --tests tests/test_torch_examples.py
 
-Phases 21-55, 59 and 60 (the examples: the humanoid batch x 4096
-through the registry, every other ported example, the CLI) are the ones that take only the device (``dev``; 41 runs
+Phases 21-55 and 59-61 (60: the humanoid batch x 4096 through the
+examples' registry, the robot and MPM examples, the CLI; 61:
+selection_reset x 4096, the basic, selection and sensor examples) are the
+ones that take only the device (``dev``; 41 runs
 41 and 42, 43 runs 43 and 44, 46 runs 46 and 47, 40 times Style3D beside
 XPBD); the CUDA kernels are built first when a phase launches them (22,
-29-39, 48-50, 52-54, 59, 60). With
+29-39, 48-50, 52-54, 59-61). With
 ``--tests``, the GPU cases of the named test files run afterwards
 (``pytest -m gpu``). Writes the results to chiprun_out/phases.json too.
 """
@@ -47,10 +50,11 @@ PHASES = {"21": "phase_ant_xpbd", "22": "phase_pyramid",
           "50": "phase_mesh_scenes", "51": "phase_pile_hulls",
           "52": "phase_vbd_rigid", "53": "phase_coupled",
           "54": "phase_policy_ant", "55": "phase_franka",
-          "59": "phase_usd_ant", "60": "phase_examples"}
+          "59": "phase_usd_ant", "60": "phase_examples",
+          "61": "phase_examples_family"}
 KERNEL_PHASES = {"22", "29", "30", "31", "32", "33", "34", "35", "36",
                  "37", "38", "39", "48", "49", "50", "52", "53", "54",
-                 "59", "60"}
+                 "59", "60", "61"}
 
 
 def main(argv):
